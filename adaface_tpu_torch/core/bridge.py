@@ -8,6 +8,7 @@ bridge is one walk over the tree with these leaf rules:
     w      2-D [in, out] dense   → weight, [out, in]
     b                            → bias
     scale  (norm)                → weight
+    mean, var  (batch norm)      → running_mean, running_var buffers
     other leaves (embedding tables, bias of norms, layer weights) as they are
 
 Leaves may be numpy arrays or anything `numpy.asarray` takes (JAX arrays
@@ -22,6 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
+# batch-norm statistics leaves → the buffers torch's BatchNorm names so
+BN_STATS = {"mean": "running_mean", "var": "running_var"}
 # SubjBasisGenerator buffers the port recomputes from the tokenizer and the
 # embedding tables instead of loading them (`subj_basis_generator.py:131-145`)
 SBG_DERIVED = ("template_ids", "id_start", "pad_embeddings")
@@ -53,6 +56,8 @@ def _leaf(name: str, value) -> tuple[str, torch.Tensor]:
         leaf = "bias"
     elif leaf == "scale":
         leaf = "weight"
+    elif leaf in BN_STATS:
+        leaf = BN_STATS[leaf]
     key = f"{head}.{leaf}" if head else leaf
     return key, torch.from_numpy(np.array(a))  # a writable copy
 

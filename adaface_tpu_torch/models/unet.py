@@ -11,13 +11,17 @@ attention with q-length >= 256 through the flash kernel (64², 32² and 16²
 levels: 15 transformers × self + cross = 30 launches per call; the 8²
 mid-block runs the plain version, as the JAX package ran XLA there).
 Convolutions and projections are cuDNN/cuBLAS, as the JAX package left them
-to XLA.
+to XLA. With `UNetConfig.fused_ln` set (default: `ADAFACE_FUSED_LN=1`, the
+JAX package's toggle, `unet.py:176`) the 48 LayerNorms of the 16
+transformer blocks go through the LayerNorm kernel; unset, they stay
+`nn.LayerNorm`, as the JAX default stays XLA.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +30,7 @@ from torch import nn
 from adaface_tpu_torch.core.params import init_fan_in_, normal_
 from adaface_tpu_torch.ops.attention import multi_head_attention
 from adaface_tpu_torch.ops.fused_gn import GroupNorm
+from adaface_tpu_torch.ops.fused_ln import LayerNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +47,8 @@ class UNetConfig:
     down_has_attn: tuple = (True, True, True, False)
     up_has_attn: tuple = (False, True, True, True)
     time_embed_dim: int = 1280
+    fused_ln: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get("ADAFACE_FUSED_LN", "0") == "1")
 
 
 SD15_UNET = UNetConfig()
@@ -107,13 +114,14 @@ class Attention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, dim, cross_dim, num_heads):
+    def __init__(self, dim, cross_dim, num_heads, fused_ln: bool):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        norm = LayerNorm if fused_ln else nn.LayerNorm
+        self.norm1 = norm(dim, eps=1e-5)
         self.attn1 = Attention(dim, dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = norm(dim, eps=1e-5)
         self.attn2 = Attention(dim, cross_dim, num_heads)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm3 = norm(dim, eps=1e-5)
         self.ff = nn.ModuleDict({"proj_in": nn.Linear(dim, dim * 8),  # GEGLU 2·4·dim
                                  "proj_out": nn.Linear(dim * 4, dim)})
 
@@ -130,12 +138,13 @@ class Transformer2D(nn.Module):
         self.norm = GroupNorm(c, cfg.norm_groups, cfg.transformer_norm_eps)
         self.proj_in = _conv(c, c, k=1)
         self.proj_out = _conv(c, c, k=1)
-        self.block = TransformerBlock(c, cross_dim, cfg.num_heads)
+        self.block = TransformerBlock(c, cross_dim, cfg.num_heads, cfg.fused_ln)
 
     def forward(self, x, context):
         b, c, h, w = x.shape
         y = self.proj_in(self.norm(x))
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        # contiguous: the reshape of the permuted map is a strided view
+        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
         y = self.block(y, context)
         y = y.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
         return self.proj_out(y) + x

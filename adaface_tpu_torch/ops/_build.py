@@ -27,9 +27,9 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attn_fwd.cu", "group_norm_silu.cu")
+SOURCES = ("flash_attn_fwd.cu", "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches of each kernel, counted by its wrapper where it launches it.
 LAUNCHES: collections.Counter = collections.Counter()
@@ -58,21 +58,26 @@ def library_path() -> pathlib.Path:
 
 def _compile(out: pathlib.Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    srcs = [str(CSRC / name) for name in SOURCES]
-    # build under a temporary name, then rename: a reader never sees half a file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                              capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, f"{name}.o") for name in SOURCES]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        logs = [f"== {name}\n{proc.communicate()[0]}" for name, proc in zip(SOURCES, procs)]
+        failed = [name for name, proc in zip(SOURCES, procs) if proc.returncode != 0]
+        if not failed:
+            # link under a temporary name, then rename: a reader never sees half a file
+            lib = os.path.join(tmp, "lib.so")
+            link = subprocess.run([_nvcc(), "-shared", "-o", lib, *objs],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(f"== link\n{link.stdout}")
+            if link.returncode != 0:
+                failed.append("link")
+        log = "\n".join(logs)
+        out.with_suffix(".log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{log}")
+        os.replace(lib, out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +95,12 @@ def load_library() -> ctypes.CDLL:
     lib.gn_stats.restype = i32
     lib.gn_norm.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
     lib.gn_norm.restype = i32
+    lib.bn_stats.argtypes = [p, p, p, i64, i32, i32, f32, i32, p]
+    lib.bn_stats.restype = i32
+    lib.bn_norm_act.argtypes = [p, p, p, p, p, p, i64, i32, f32, i32, p]
+    lib.bn_norm_act.restype = i32
+    lib.layer_norm.argtypes = [p, p, p, p, i64, i32, f32, i32, p]
+    lib.layer_norm.restype = i32
     return lib
 
 

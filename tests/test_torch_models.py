@@ -9,6 +9,9 @@ layers, taken in another order (and, for the UNet and VAE, through other
 convolution algorithms).
 """
 
+import dataclasses
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +34,7 @@ from adaface_tpu_torch.id2ada.subj_basis_generator import SubjBasisConfig, SubjB
 from adaface_tpu_torch.models import clip as tclip
 from adaface_tpu_torch.models import unet as tunet
 from adaface_tpu_torch.models import vae as tvae
+from adaface_tpu_torch.ops import fused_ln as tln
 from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
 
 MODULE_RTOL = 1e-4
@@ -119,6 +123,34 @@ def test_unet_matches_jax():
     with torch.inference_mode():
         out = model(_t(x), _t(t).long(), _t(ctx))
     assert_close_rel(out.numpy(), ref)
+
+
+def test_unet_fused_ln_matches_jax():
+    """`fused_ln=True` (the port's `ADAFACE_FUSED_LN=1`) against the JAX UNet
+    with its fused-LN toggle on; on the CPU JAX takes `_ln_ref`, the port
+    the plain version inside its LayerNorm Function."""
+    cfg_j = junet.UNetConfig(**UNET_KW)
+    cfg_t = tunet.UNetConfig(**UNET_KW, fused_ln=True)
+    params = numpy_params(lambda k: junet.init_unet_params(k, cfg_j), 6)
+    model = bridge.load(tunet.UNet2DConditionModel(cfg_t), params)
+    norms = [m for m in model.modules() if isinstance(m, tln.LayerNorm)]
+    assert len(norms) == 3 * 16 and not any(isinstance(m, torch.nn.LayerNorm)
+                                            for m in model.modules())
+    rs = np.random.RandomState(6)
+    x = rs.randn(2, 4, 16, 16).astype(np.float32)
+    t = np.array([5, 640], np.int32)
+    ctx = rs.randn(2, 77, D).astype(np.float32)
+    with mock.patch.object(junet, "_FUSED_LN", True):
+        ref = jax.jit(lambda p, x, t, c: junet.unet_apply(p, x, t, c, cfg_j)[0])(
+            params, x, t, ctx)
+    with torch.inference_mode():
+        out = model(_t(x), _t(t).long(), _t(ctx))
+    assert_close_rel(out.numpy(), ref)
+    # the default reads ADAFACE_FUSED_LN, "0" unless set
+    with mock.patch.dict("os.environ", {"ADAFACE_FUSED_LN": "1"}):
+        assert tunet.UNetConfig().fused_ln
+    with mock.patch.dict("os.environ", {"ADAFACE_FUSED_LN": "0"}):
+        assert not dataclasses.replace(tunet.UNetConfig(), num_heads=4).fused_ln
 
 
 def test_vae_decode_matches_jax():

@@ -13,6 +13,7 @@ import subprocess
 import sys
 from unittest import mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,11 +22,14 @@ from jax.experimental import pallas as pl
 
 from adaface_tpu.ops import attention as jattn
 from adaface_tpu.ops import fused_gn as jgn
+from adaface_tpu.ops import fused_ln as jln
 from adaface_tpu.ops import samplers as jsamp
 from adaface_tpu.ops import schedules as jsched
 from adaface_tpu_torch.ops import _build
 from adaface_tpu_torch.ops import attention as tattn
 from adaface_tpu_torch.ops import fused_gn as tgn
+from adaface_tpu_torch.ops import fused_ln as tln
+from adaface_tpu_torch.ops import fused_norm as tfn
 from adaface_tpu_torch.ops import samplers as tsamp
 from adaface_tpu_torch.ops import schedules as tsched
 
@@ -108,6 +112,53 @@ def test_group_norm_matches_pallas_interpret(hw, c, silu):
                                atol=OP_ATOL)
 
 
+def _ln_inputs(seed, rows, c):
+    rs = np.random.RandomState(seed)
+    return ((rs.randn(rows, c) * 2.0 + 0.5).astype(np.float32),
+            (rs.randn(c) + 1.0).astype(np.float32),
+            (rs.randn(c) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 16, 64),  # 32 rows
+    (3, 7, 40),  # 21 rows: not a multiple of the row block
+])
+def test_layer_norm_matches_pallas_interpret(shape):
+    x, scale, bias = _ln_inputs(4, int(np.prod(shape[:-1])), shape[-1])
+    x = x.reshape(shape)
+    with mock.patch.object(jln.pl, "pallas_call",
+                           functools.partial(pl.pallas_call, interpret=True)):
+        ref = jln.fused_layer_norm(x, scale, bias, 1e-5, use_pallas=True)
+    out = tln.fused_layer_norm(_t(x), _t(scale), _t(bias), 1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+    module = tln.LayerNorm(shape[-1])
+    with torch.no_grad():
+        module.weight.copy_(_t(scale))
+        module.bias.copy_(_t(bias))
+    np.testing.assert_array_equal(module(_t(x)).detach().numpy(), out.numpy())
+
+
+def test_layer_norm_raises_on_a_strided_view():
+    """The UNet's transformer input is a permuted map: the LayerNorm takes it
+    only made contiguous, on the CPU as on the card, and copies nothing itself."""
+    x = torch.randn(2, 8, 4, 4).permute(0, 2, 3, 1).reshape(2, 16, 8)
+    assert not x.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        tln.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
+
+
+def test_layer_norm_grad_matches_jax():
+    """The Function's backward recomputes through the plain version, as
+    `_ln_bwd` does through `_ln_ref`: x, weight and bias gradients."""
+    x, scale, bias = _ln_inputs(5, 12, 32)
+    ref = jax.grad(lambda x, s, b: (jln.fused_layer_norm(x, s, b, use_pallas=False) ** 3).sum(),
+                   argnums=(0, 1, 2))(x, scale, bias)
+    xt, st, bt = (_t(a).requires_grad_(True) for a in (x, scale, bias))
+    (tln.fused_layer_norm(xt, st, bt) ** 3).sum().backward()
+    for out, r in zip((xt.grad, st.grad, bt.grad), ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+
+
 def test_schedule_tables_match_jax():
     for kind in ("linear", "cosine", "sqrt_linear", "sqrt"):
         js, ts = jsched.DiffusionSchedule.create(kind), tsched.DiffusionSchedule.create(kind)
@@ -159,9 +210,13 @@ def test_kernel_modules_run_plain_on_cpu_without_toolchain():
     tattn.multi_head_attention(q, q, q)  # the flash route at q-length 256
     x = torch.randn(2, 64, 4, 4)
     tgn.group_norm_silu(x, torch.ones(64), torch.zeros(64), 8, 1e-5)
+    tln.fused_layer_norm(torch.randn(8, 64), torch.ones(64), torch.zeros(64))
+    xb = torch.randn(2, 4, 4, 64, requires_grad=True)
+    tfn.fused_bn_act(xb, torch.ones(64), torch.zeros(64), slope=0.0).sum().backward()
     assert sum(_build.LAUNCHES.values()) == 0
     assert _build.load_library.cache_info().currsize == 0
     code = ("import sys; import adaface_tpu_torch.ops.attention, "
-            "adaface_tpu_torch.ops.fused_gn, adaface_tpu_torch.ops._build; "
+            "adaface_tpu_torch.ops.fused_gn, adaface_tpu_torch.ops.fused_ln, "
+            "adaface_tpu_torch.ops.fused_norm, adaface_tpu_torch.ops._build; "
             "assert 'triton' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

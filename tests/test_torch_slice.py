@@ -50,9 +50,12 @@ NEGATIVE = "lowres, low quality"
 SLICE_MODULES = [
     "adaface_tpu_torch", "adaface_tpu_torch.core.bridge", "adaface_tpu_torch.core.params",
     "adaface_tpu_torch.ops._build", "adaface_tpu_torch.ops.attention",
-    "adaface_tpu_torch.ops.fused_gn", "adaface_tpu_torch.ops.samplers",
+    "adaface_tpu_torch.ops.fused_gn", "adaface_tpu_torch.ops.fused_ln",
+    "adaface_tpu_torch.ops.fused_norm", "adaface_tpu_torch.ops.resize",
+    "adaface_tpu_torch.ops.samplers",
     "adaface_tpu_torch.ops.schedules", "adaface_tpu_torch.models.clip",
     "adaface_tpu_torch.models.unet", "adaface_tpu_torch.models.vae",
+    "adaface_tpu_torch.models.bisenet", "adaface_tpu_torch.train.face_parsing_train",
     "adaface_tpu_torch.text.tokenizer", "adaface_tpu_torch.text.embedding_manager",
     "adaface_tpu_torch.id2ada.face_backends",
     "adaface_tpu_torch.id2ada.subj_basis_generator",
