@@ -27,7 +27,9 @@ import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attn_fwd.cu", "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu",
+           "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu")
+HEADERS = ("flash_common.cuh",)  # included by the sources: part of the library's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,7 +52,7 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libadaface_kernels_{h.hexdigest()[:16]}.so"
@@ -88,9 +90,17 @@ def load_library() -> ctypes.CDLL:
         _compile(path)
     lib = ctypes.CDLL(str(path))
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    lib.flash_attn_fwd.argtypes = [p, p, p, p, p, p, i32, i32, i32, i32, i32,
-                                   i32, f32, i32, p]
-    lib.flash_attn_fwd.restype = i32
+    flash_args = [p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, f32]
+    lib.flash_fwd_bf16_wg.argtypes = flash_args + [i32, p]
+    lib.flash_fwd_bf16_wg.restype = i32
+    lib.flash_fwd_fp32.argtypes = flash_args + [p]
+    lib.flash_fwd_fp32.restype = i32
+    lib.flash_fwd_bf16_wide.argtypes = flash_args + [i32, p, p, p, p]
+    lib.flash_fwd_bf16_wide.restype = i32
+    lib.flash_tensor_map_stats.argtypes = [p, i32]
+    lib.flash_tensor_map_stats.restype = None
+    lib.flash_combine.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, p]
+    lib.flash_combine.restype = i32
     lib.gn_stats.argtypes = [p, p, i64, i64, f32, i32, p]
     lib.gn_stats.restype = i32
     lib.gn_norm.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]

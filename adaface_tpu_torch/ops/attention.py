@@ -1,4 +1,4 @@
-"""Attention: plain PyTorch SDPA, the hand-written flash kernel, and routing.
+"""Attention: plain PyTorch SDPA, the hand-written flash kernels, and routing.
 
 Counterpart of `adaface_tpu/ops/attention.py` (forward only). Tensors are
 [B, H, S, D] as there.
@@ -6,11 +6,23 @@ Counterpart of `adaface_tpu/ops/attention.py` (forward only). Tensors are
 - `scaled_dot_product_attention` is the plain version: explicit matmuls and
   an fp32 softmax, the same math as the JAX reference (probabilities are cast
   to v's dtype before P·V, as there).
-- `flash_attention` wraps `csrc/flash_attn_fwd.cu`, one CUDA kernel for the
-  function both Pallas kernels computed (a tensor-core variant for bf16 at
-  head dim <= 160, a CUDA-core one for fp32 and larger head dims, picked
-  inside by dtype and head dim). On a CPU tensor it takes the plain
-  version; on a CUDA tensor it launches the kernel or raises.
+- `flash_attention` wraps the CUDA kernels that stand in for the two Pallas
+  kernels. `flash_plan` picks the variant from dtype, shape, alignment and
+  the card's SM count: bf16 at the UNet's head dims (40, 80, 160) with rows
+  on 16-byte boundaries takes the wgmma kernel of `csrc/flash_attn_wgmma.cu`
+  (64-key tiles, 64 or 128 query rows a block); every other bf16 tensor
+  (160 < D <= 512 in the VAE) the wide-head kernel of
+  `csrc/flash_attn_wide.cu` (32-key tiles, the head dim of O in four slices,
+  the keys split over several blocks where the grid would not fill the
+  card, merged by `flash_combine`); fp32 the CUDA-core kernel of
+  `csrc/flash_attn_fwd.cu`. Each variant counts its launches under its own
+  key. On a CPU tensor `flash_attention` takes the plain version; on a CUDA
+  tensor it launches the kernels or raises.
+- `flash_attention_tiled` and `combine_partials` repeat the kernels'
+  arithmetic in plain PyTorch (key tiles, log2 online softmax, P rounded to
+  v's dtype, head-dim slices, split-keys partials), so that the CPU tests
+  hold it against the plain version and the JAX package, and the combine
+  kernel has a plain version to be held against on the card.
 - `multi_head_attention` keeps the JAX package's routing: the flash path at
   q-length >= 256 (the JAX rule also requires no bias and no returned
   probabilities; no caller of the port passes either). Which of kernel or
@@ -19,7 +31,9 @@ Counterpart of `adaface_tpu/ops/attention.py` (forward only). Tensors are
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -28,11 +42,23 @@ from adaface_tpu_torch.ops import _build
 
 NEG_INF = -1e30
 
-# launch-counter keys, one per TPU kernel the CUDA kernel stands in for:
-# `_dispatch_forward` sent non-causal D < 128 to `_flash_t_kernel`, the rest
-# to `_flash_kernel` (adaface_tpu/ops/attention.py:355-361)
+# launch-counter keys. The wgmma kernel has one per TPU kernel it stands in
+# for: `_dispatch_forward` sent non-causal D < 128 to `_flash_t_kernel`, the
+# rest to `_flash_kernel` (adaface_tpu/ops/attention.py:355-361)
 FLASH_T = "flash_attn_fwd[d<128]"
 FLASH_STD = "flash_attn_fwd[d>=128|causal]"
+# the wide-head kernel, which takes `_flash_kernel`'s place at the VAE's head
+# dim (and every bf16 tensor the wgmma kernel does not), the kernel that
+# merges the partial results of a call whose keys were split, and the
+# CUDA-core kernel (fp32)
+FLASH_WIDE = "flash_attn_fwd[bf16 wide]"
+FLASH_COMBINE = "flash_combine"
+FLASH_FP32 = "flash_attn_fwd[fp32]"
+
+LOG2E = 1.4426950408889634
+MAX_DIM = 512
+WG_KSTEPS = (3, 5, 10)  # ceil(D / 16) of the wgmma kernel's instances: D = 40, 80, 160
+MAX_SPLITS = 8
 
 
 def scaled_dot_product_attention(q, k, v, kv_mask=None, causal: bool = False,
@@ -56,47 +82,249 @@ def scaled_dot_product_attention(q, k, v, kv_mask=None, causal: bool = False,
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """What the CUDA route does with one call."""
+
+    variant: str  # "wg" (bf16, D 40/80/160, aligned), "wide" (other bf16) or "fp32"
+    key_tile: int  # keys per shared-memory tile
+    block_rows: int  # query rows per block
+    d_slices: int  # slices of O's head dim, one per warp column
+    nsplit: int  # blocks that share one query tile's keys
+
+
+def flash_plan(dtype, b: int, h: int, sq: int, sk: int, d: int, sm_count: int,
+               aligned: bool = True) -> FlashPlan:
+    """`aligned`: q, k and v rows start on 16-byte boundaries (pointers and
+    batch, head and sequence strides)."""
+    if dtype == torch.float32:
+        return FlashPlan("fp32", 32, 16, 1, 1)
+    # the wgmma kernel has instances for the UNet's head dims only, and
+    # copies whole 16-byte chunks; every other tensor takes the wide kernel
+    if aligned and d % 8 == 0 and -(-d // 16) in WG_KSTEPS:
+        # 128 query rows a block (K and V pass through shared memory half as
+        # often) where such blocks still reach about every SM, else 64
+        rows = 128 if -(-sq // 128) * b * h * 10 >= sm_count * 9 else 64
+        return FlashPlan("wg", 64, rows, 1, 1)
+    # wide kernel: split the keys while the query tiles alone leave SMs idle,
+    # every split with at least one key tile
+    blocks = -(-sq // 64) * b * h
+    ntiles = -(-sk // 32)
+    nsplit = max(1, min(sm_count // blocks, MAX_SPLITS, ntiles))
+    nsplit = -(-ntiles // -(-ntiles // nsplit))
+    return FlashPlan("wide", 32, 64, 4, nsplit)
+
+
+def combine_partials(o_part, m_part, l_part):
+    """Merge split-keys partials: o_part [S, B, H, Sq, D] unnormalized fp32,
+    m_part, l_part [S, B, H, Sq] row maxima (log2 units) and row sums.
+    → [B, H, Sq, D] fp32; splits are taken in order, as the kernel does."""
+    w = torch.exp2(m_part - m_part.max(dim=0).values)
+    l = torch.zeros_like(l_part[0])
+    o = torch.zeros_like(o_part[0])
+    for s in range(o_part.shape[0]):
+        l = l + w[s] * l_part[s]
+        o = o + w[s][..., None] * o_part[s]
+    return o / torch.where(l == 0, 1.0, l)[..., None]
+
+
+def flash_partials_tiled(q, k, v, kv_mask=None, causal: bool = False, scale=None,
+                         key_tile: int = 64, d_slices: int = 1, nsplit: int = 1):
+    """The CUDA kernels' arithmetic in plain PyTorch, up to the partial
+    results of `nsplit` shares of the key tiles: key tiles of `key_tile`,
+    online softmax in log2 units with the scale folded in, masked keys
+    NEG_INF, keys past Sk no weight, P rounded to v's dtype before P·V, O's
+    head dim in `d_slices` slices. → (o_part [S, B, H, Sq, D] unnormalized,
+    m_part, l_part [S, B, H, Sq]), fp32, as the wide kernel writes them."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    scale_log2 = scale * LOG2E
+    ntiles = -(-sk // key_tile)
+    per = -(-ntiles // nsplit)
+    if (nsplit - 1) * per >= ntiles:
+        raise ValueError(f"flash_partials_tiled: {nsplit} splits of {ntiles} tiles "
+                         "would leave one empty")
+    rows = torch.arange(sq, device=q.device)[:, None]
+    bounds = [d * i // d_slices for i in range(d_slices + 1)]
+    qf = q.float()
+    parts = []
+    for split in range(nsplit):
+        m = torch.full((b, h, sq), -math.inf, device=q.device)
+        l = torch.zeros((b, h, sq), device=q.device)
+        o = torch.zeros((b, h, sq, d), device=q.device)
+        for t in range(split * per, min(ntiles, (split + 1) * per)):
+            t0, t1 = t * key_tile, min(sk, (t + 1) * key_tile)
+            x = torch.matmul(qf, k[:, :, t0:t1].float().transpose(-1, -2)) * scale_log2
+            if kv_mask is not None:
+                x = torch.where(kv_mask[:, None, None, t0:t1] > 0, x, NEG_INF)
+            if causal:
+                cols = torch.arange(t0, t1, device=q.device)[None, :]
+                x = torch.where(cols <= rows + (sk - sq), x, NEG_INF)
+            m_new = torch.maximum(m, x.max(dim=-1).values)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            p = p.to(v.dtype).float()
+            vt = v[:, :, t0:t1].float()
+            pv = torch.cat([torch.matmul(p, vt[..., lo:hi])
+                            for lo, hi in zip(bounds[:-1], bounds[1:])], dim=-1)
+            o = o * corr[..., None] + pv
+            m = m_new
+        parts.append((o, m, l))
+    return tuple(torch.stack(t) for t in zip(*parts))
+
+
+def flash_attention_tiled(q, k, v, kv_mask=None, causal: bool = False, scale=None,
+                          key_tile: int = 64, d_slices: int = 1, nsplit: int = 1):
+    """`flash_partials_tiled`, its partial results merged by
+    `combine_partials` (one share: the kernels' own final division)."""
+    parts = flash_partials_tiled(q, k, v, kv_mask, causal, scale, key_tile, d_slices, nsplit)
+    return combine_partials(*parts).to(q.dtype)
+
+
+def flash_combine(o_part, m_part, l_part, dtype):
+    """Merge split-keys partials (see `combine_partials`) into [B, H, Sq, D]
+    of `dtype`, stored [B, Sq, H, D]; the combine kernel on CUDA tensors."""
+    if o_part.device.type == "cpu":
+        return combine_partials(o_part, m_part, l_part).to(dtype)
+    if o_part.device.type != "cuda":
+        raise ValueError(f"flash_combine: no kernel for device {o_part.device}")
+    nsplit, b, h, sq, d = o_part.shape
+    for name, t, shape in (("o_part", o_part, (nsplit, b, h, sq, d)),
+                           ("m_part", m_part, (nsplit, b, h, sq)),
+                           ("l_part", l_part, (nsplit, b, h, sq))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or not t.is_contiguous()
+                or t.device != o_part.device):
+            raise ValueError(f"flash_combine: {name} must be contiguous fp32 {shape} on "
+                             f"{o_part.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"flash_combine: dtype {dtype} is not supported")
+    if o_part.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash_combine: {o_part.device} is not the current device")
+    out = torch.empty((b, sq, h, d), dtype=dtype, device=o_part.device).transpose(1, 2)
+    lib = _build.load_library()
+    rc = lib.flash_combine(o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+                           out.data_ptr(), (ctypes.c_int64 * 3)(*out.stride()[:3]),
+                           nsplit, b, h, sq, d, int(dtype == torch.bfloat16),
+                           torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_combine")
+    _build.LAUNCHES[FLASH_COMBINE] += 1
+    return out
+
+
+def _prepare(q, k, v, ptrs_aligned: bool):
+    """Check one (dtype, device, shape, strides) combination of q, k, v and
+    decide what the CUDA route does with it → (plan, launch-counter key,
+    (b, h, sq, sk, d), the 12 strides for the C entry points)."""
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be [B,H,S,D], got shape {tuple(q.shape)}")
+    b, h, sq, d = q.shape
+    sk = k.shape[2] if k.dim() == 4 else -1
+    aligned = ptrs_aligned
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
-        if t.dim() != 4 or t.stride(-1) != 1:
+        st = t.stride()
+        if (t.dtype != q.dtype or t.device != q.device or st[-1] != 1
+                or (t is not q and tuple(t.shape) != (b, h, sk, d))):
             raise ValueError(
-                f"flash_attention: {name} must be [B,H,S,D] with a contiguous "
-                f"head dim, got shape {tuple(t.shape)} strides {t.stride()}")
+                f"flash_attention: {name} must be [B,H,S,D] with a contiguous head dim, of "
+                f"q's dtype {q.dtype}, on q's device {q.device}, k and v of one shape with q's "
+                f"B, H and D; got {t.dtype} {tuple(t.shape)} strides {st} on {t.device}, "
+                f"q {tuple(q.shape)}")
+        aligned = aligned and all(x * t.element_size() % 16 == 0 for x in st[:3])
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"flash_attention: dtype {q.dtype} is not supported")
-    if k.shape != (b, h, sk, d) or v.shape != (b, h, sk, d):
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)} do not agree")
-    if not 1 <= d <= 512:
-        raise ValueError(f"flash_attention: head dim {d} outside 1..512")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"flash_attention: {q.device} is not the current device")
-    mask = None
-    if kv_mask is not None:
-        if tuple(kv_mask.shape) != (b, sk) or kv_mask.device != q.device:
-            raise ValueError(f"flash_attention: kv_mask must be [B, Sk] = {(b, sk)} "
-                             f"on {q.device}, got {tuple(kv_mask.shape)} on {kv_mask.device}")
-        mask = kv_mask.to(torch.float32).contiguous()
-
-    # [B, Sq, H, D] storage: the caller's merge of heads back into
+    if not (1 <= d <= MAX_DIM and sk >= 1 and sq >= 1):
+        raise ValueError(f"flash_attention: head dim {d} outside 1..{MAX_DIM}, or an empty "
+                         f"sequence (Sq {sq}, Sk {sk})")
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = flash_plan(q.dtype, b, h, sq, sk, d, sm_count, aligned)
+    key = {"wide": FLASH_WIDE, "fp32": FLASH_FP32,
+           "wg": FLASH_STD if d >= 128 else FLASH_T}[plan.variant]
+    # out is stored [B, Sq, H, D]: the caller's merge of heads back into
     # [B, Sq, H*D] is then a view
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3],
-                                    *v.stride()[:3], *out.stride()[:3])
+    strides = (ctypes.c_int64 * 12)(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                                    sq * h * d, d, h * d)
+    return plan, key, (b, h, sq, sk, d), strides
+
+
+def plan_for(q, k, v) -> FlashPlan:
+    """The plan a launch on these CUDA tensors follows."""
+    return _prepare(q, k, v, (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0)[0]
+
+
+# `_prepare`'s verdicts by layout: the UNet sends the same few layouts 30
+# times a call, and the checks cost the host more than the launch.
+# CACHE_LOOKUPS counts the calls that found their layout here and those that
+# did not.
+_PREPARED: dict = {}
+CACHE_LOOKUPS: collections.Counter = collections.Counter()
+
+
+def cache_lookups(reset: bool = False) -> dict:
+    """Lookups since the last reset of the two caches behind a flash launch:
+    the layout cache here and the wgmma kernel's tensor-map cache (two
+    lookups a launch that goes by TMA, keyed on k's and v's addresses)."""
+    stats = (ctypes.c_int64 * 2)()
+    _build.load_library().flash_tensor_map_stats(stats, int(reset))
+    out = {"layout_hits": CACHE_LOOKUPS["hit"], "layout_misses": CACHE_LOOKUPS["miss"],
+           "tensor_map_hits": stats[0], "tensor_map_misses": stats[1]}
+    if reset:
+        CACHE_LOOKUPS.clear()
+    return out
+
+
+def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    layout = (q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, q.shape, k.shape,
+              v.shape, q.stride(), k.stride(), v.stride(), (qp | kp | vp) % 16 == 0)
+    prepared = _PREPARED.get(layout)
+    CACHE_LOOKUPS["miss" if prepared is None else "hit"] += 1
+    if prepared is None:
+        prepared = _prepare(q, k, v, layout[-1])
+        if len(_PREPARED) >= 1024:
+            _PREPARED.clear()
+        _PREPARED[layout] = prepared
+    plan, key, (b, h, sq, sk, d), strides = prepared
+    dtype, device = q.dtype, q.device
+    if device.index != torch.cuda.current_device():
+        raise ValueError(f"flash_attention: {device} is not the current device")
+    mask_ptr = None
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, sk) or kv_mask.device != device:
+            raise ValueError(f"flash_attention: kv_mask must be [B, Sk] = {(b, sk)} "
+                             f"on {device}, got {tuple(kv_mask.shape)} on {kv_mask.device}")
+        mask = kv_mask.to(torch.float32).contiguous()  # alive until the launch below
+        mask_ptr = mask.data_ptr()
+    if causal and key == FLASH_T:
+        key = FLASH_STD  # as the JAX dispatch counts it
+
+    out = out_ptr = None
+    if plan.nsplit == 1:
+        out = torch.empty_strided((b, h, sq, d), (sq * h * d, d, h * d, 1), dtype=dtype,
+                                  device=device)
+        out_ptr = out.data_ptr()
+    args = (qp, kp, vp, mask_ptr, out_ptr, strides, b, h, sq, sk, d, int(causal), scale)
+    stream = torch.cuda.current_stream().cuda_stream
     lib = _build.load_library()
-    rc = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        mask.data_ptr() if mask is not None else None, out.data_ptr(), strides,
-        b, h, sq, sk, d, int(causal), float(scale), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attn_fwd")
-    _build.LAUNCHES[FLASH_STD if causal or d >= 128 else FLASH_T] += 1
+    if plan.variant == "fp32":
+        _build.check(lib.flash_fwd_fp32(*args, stream), "flash_fwd_fp32")
+    elif plan.variant == "wg":
+        _build.check(lib.flash_fwd_bf16_wg(*args, plan.block_rows, stream), "flash_fwd_bf16_wg")
+    elif plan.nsplit == 1:
+        _build.check(lib.flash_fwd_bf16_wide(*args, 1, None, None, None, stream),
+                     "flash_fwd_bf16_wide")
+    else:
+        o_part = torch.empty((plan.nsplit, b, h, sq, d), dtype=torch.float32, device=device)
+        m_part = torch.empty((plan.nsplit, b, h, sq), dtype=torch.float32, device=device)
+        l_part = torch.empty_like(m_part)
+        _build.check(lib.flash_fwd_bf16_wide(*args, plan.nsplit, o_part.data_ptr(),
+                                             m_part.data_ptr(), l_part.data_ptr(), stream),
+                     "flash_fwd_bf16_wide")
+        _build.LAUNCHES[key] += 1
+        return flash_combine(o_part, m_part, l_part, dtype)
+    _build.LAUNCHES[key] += 1
     return out
 
 

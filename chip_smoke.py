@@ -8,16 +8,21 @@ Phases (any failure raises and the exit code is not 0):
   3. hold every kernel against its plain PyTorch version at the shapes its
      path gives it: the SD1.5 serving path's (bf16), the fused-LN UNet's
      (LayerNorm, bf16) and the face parser's (train-mode BN + activation at
-     batch 16, 448x448, fp32, with the BN Function's gradients); print errors
-     and median times (the stock PyTorch op beside them, for the record
-     only);
+     batch 16, 448x448, fp32, with the BN Function's gradients); the flash
+     kernels at the path's strides (views of [B,S,H*D] storage), at a
+     contiguous and at a misaligned layout, and the split-keys combine
+     kernel on the partial results of the VAE's attention; print errors,
+     median times, each kernel's bound (the larger of bytes / 3.35 TB/s and
+     operations / 989 TFLOP/s) and the stock PyTorch op's time (a yardstick
+     only: the port never calls it);
   4. one full-width SD1.5 UNet call at CFG batch 2, kernels against plain;
      then the same call in the fused-LN configuration (`fused_ln=True`),
      kernels against plain, with its 48 LayerNorm launches;
   5. the personalized text-to-image path through the port's AdaFaceWrapper:
      a small request, kernels against plain; then 3 requests for 2
      subjects at 512x512, 25 DDIM steps, guidance 6.0, random full-size
-     weights from a seeded torch.Generator, with the kernels' launch counts;
+     weights from a seeded torch.Generator, with the kernels' launch counts
+     and the hits and misses of the flash wrapper's two caches;
   6. face-parser training at its published configuration (BiSeNet-ResNet18,
      batch 16, crop 448, fp32, OHEM, SGD): one train step's loss and
      gradients, kernels against plain, under deterministic cuDNN without
@@ -52,6 +57,7 @@ import torch.nn.functional as F
 SEED = 0
 BF16_TOL = 1e-2  # bf16 keeps 8 significant bits: ~0.4% per rounding
 FP32_TOL = 1e-4
+FP32_SUM_TOL = 1e-5  # a few fp32 roundings of a short sum, and ex2.approx (2^-22)
 UNET_REL_TOL = 5e-2  # bf16 through ~70 layers of random weights
 IMAGE_TOL = 5e-2  # [0, 1] pixels after a short bf16 sampling loop
 
@@ -66,6 +72,16 @@ FLASH_CASES = [
     ("unet 16x16 cross", 2, 8, 256, 77, 160),
     ("vae mid self", 1, 1, 4096, 4096, 512),
 ]
+# layouts off the path, at the 32x32 self-attention shape: one contiguous
+# [B,H,S,D], and one whose head offset (D = 36: 72 bytes) is not a multiple
+# of 16 bytes, which takes the wide kernel and its element-copy staging
+FLASH_EXTRA_CASES = [
+    ("contiguous 32x32 self", 2, 8, 1024, 1024, 80),
+    ("misaligned D36 self", 2, 8, 1024, 1024, 36),
+]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+BF16_FLOPS = 989e12
+RUN_LAUNCHES = 20  # launches between one pair of events, for launch-bound shapes
 # (label, shape, groups, eps, silu): GroupNorms of the UNet (CFG batch 2) and
 # of the VAE decoder (batch 1)
 GN_CASES = [
@@ -118,6 +134,7 @@ BISENET_BNS = 31  # train-mode BNs per BiSeNet forward
 # parser's stem
 JSON_FLASH_T = "unet 64x64 self"
 JSON_FLASH_STD = "unet 16x16 self"
+JSON_FLASH_WIDE = "vae mid self"
 JSON_GN = "unet resnet 64x64"
 JSON_BN = "stem 224x224"
 JSON_LN = "unet 64x64"
@@ -172,6 +189,51 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def run_ms(fn, launches: int = RUN_LAUNCHES, reps: int = 5) -> float:
+    """Per-launch time of `launches` back-to-back launches between one pair of
+    events (median of `reps` such runs): the host's enqueue of one launch
+    hides behind the device's work on the one before."""
+    def run():
+        for _ in range(launches):
+            fn()
+    return median_ms(run, reps=reps, warmup=1) / launches
+
+
+def graph_ms(fn, launches: int = RUN_LAUNCHES, reps: int = 5) -> float:
+    """Per-launch device time: `launches` launches captured in a CUDA graph
+    and replayed, so that the host's work per launch (the wrapper's checks,
+    the allocator, the enqueue) is left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return median_ms(graph.replay, reps=reps, warmup=2) / launches
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call, in microseconds: `calls` calls on the host's
+    clock with no synchronisation between them (the device drains after)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+    """(the least ms the card could take, what bounds it): every input read
+    once and every output written once at the card's memory rate, or the
+    operations at its bf16 tensor-core peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_err(out, ref) -> tuple[float, float]:
     """(max |out - ref|, max(1, max |ref|)) in fp32."""
     out, ref = out.float(), ref.float()
@@ -180,51 +242,131 @@ def max_err(out, ref) -> tuple[float, float]:
     return (out - ref).abs().max().item(), max(1.0, ref.abs().max().item())
 
 
+def flash_inputs(gen, label, b, h, sq, sk, d, dtype=torch.bfloat16):
+    """q, k, v [B,H,S,D] laid out as the path lays them out: the UNet's are
+    views of [B,S,H*D] projections (cross-attention's k and v the two halves
+    of one [B,77,2*H*D] projection), the VAE's [B,1,S,D] is contiguous."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    if label.startswith("contiguous"):
+        return mk(b, h, sq, d), mk(b, h, sk, d), mk(b, h, sk, d)
+    split = lambda t: t.reshape(b, -1, h, d).transpose(1, 2)
+    q = split(mk(b, sq, h * d))
+    if "cross" in label:
+        k, v = (split(t) for t in mk(b, sk, 2 * h * d).split(h * d, dim=-1))
+    else:
+        k, v = split(mk(b, sk, h * d)), split(mk(b, sk, h * d))
+    return q, k, v
+
+
 def check_flash(gen) -> dict:
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
-
-    def qkv(b, h, sq, sk, d, dtype):
-        mk = lambda s: torch.randn((b, h, s, d), generator=gen, device="cuda").to(dtype)
-        return mk(sq), mk(sk), mk(sk)
-
-    for label, b, h, sq, sk, d in FLASH_CASES:
-        q, k, v = qkv(b, h, sq, sk, d, torch.bfloat16)
-        out = A._flash_cuda(q, k, v, None, False, 1.0 / math.sqrt(d))
+    for label, b, h, sq, sk, d in FLASH_CASES + FLASH_EXTRA_CASES:
+        q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
+        scale = 1.0 / math.sqrt(d)
+        out = A._flash_cuda(q, k, v, None, False, scale)
         ref = A.scaled_dot_product_attention(q, k, v)
         torch.cuda.synchronize()
         err, mag = max_err(out, ref)
-        ok = err <= BF16_TOL * mag
-        ms = median_ms(lambda: A._flash_cuda(q, k, v, None, False, 1.0 / math.sqrt(d)))
-        plain_ms = median_ms(lambda: A.scaled_dot_product_attention(q, k, v))
-        stock_ms = median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-        log(f"flash {label:18s} B{b} H{h} Sq{sq} Sk{sk} D{d}: max_abs_err {err:.3e} "
-            f"(bound {BF16_TOL * mag:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"stock sdpa {stock_ms:.3f} ms")
-        if not ok:
+        kernel = lambda: A._flash_cuda(q, k, v, None, False, scale)
+        plain = lambda: A.scaled_dot_product_attention(q, k, v)
+        stock = lambda: F.scaled_dot_product_attention(q, k, v)
+        # in turns: kernel, plain, stock, stock, plain, kernel
+        turns = [median_ms(f) for f in (kernel, plain, stock, stock, plain, kernel)]
+        ms, plain_ms, stock_ms = (min(turns[0], turns[5]), min(turns[1], turns[4]),
+                                  min(turns[2], turns[3]))
+        run, stock_run = run_ms(kernel), run_ms(stock)
+        dev, stock_dev = graph_ms(kernel), graph_ms(stock)
+        host, stock_host = host_us(kernel), host_us(stock)
+        bound_ms, bound_by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                                   4.0 * b * h * sq * sk * d)
+        plan = A.plan_for(q, k, v)
+        log(f"flash {label:22s} B{b} H{h} Sq{sq} Sk{sk} D{d} strides q{tuple(q.stride())} "
+            f"k{tuple(k.stride())} {plan.variant} rows {plan.block_rows} splits {plan.nsplit}: "
+            f"max_abs_err {err:.3e} (bound {BF16_TOL * mag:.3e}) | single launches: kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms stock sdpa {stock_ms:.4f} ms | run of "
+            f"{RUN_LAUNCHES}: kernel {run:.4f} ms stock {stock_run:.4f} ms | the same run as a "
+            f"CUDA graph (device alone): kernel {dev:.4f} ms stock {stock_dev:.4f} ms | host per "
+            f"call: kernel {host:.1f} us stock {stock_host:.1f} us | least "
+            f"{bound_ms:.4f} ms by {bound_by}, reached {bound_ms / dev:.1%}")
+        if err > BF16_TOL * mag:
             raise AssertionError(f"flash {label}: error {err} above bound")
-        results[label] = dict(err=err, ms=ms, plain_ms=plain_ms, stock_ms=stock_ms)
+        results[label] = dict(variant=plan.variant, err=err, ms=ms, plain_ms=plain_ms,
+                              stock_ms=stock_ms, run_ms=run,
+                              stock_run_ms=stock_run, graph_ms=dev, stock_graph_ms=stock_dev,
+                              host_us=host, stock_host_us=stock_host,
+                              bound_ms=bound_ms, bound_by=bound_by)
 
     # masked + causal at ragged lengths (Sq 200, Sk 177: the causal offset
     # Sk - Sq = -23 leaves rows 0..22 only masked keys; batch 1 also masks
-    # keys 0..15), on both variants of the kernel: bf16 D 64 (tensor cores),
-    # bf16 D 200 and fp32 D 64 (CUDA cores)
-    for dtype, d, tol in ((torch.bfloat16, 64, BF16_TOL), (torch.bfloat16, 200, BF16_TOL),
-                          (torch.float32, 64, FP32_TOL)):
-        q, k, v = qkv(2, 2, 200, 177, d, dtype)
-        mask = torch.ones((2, 177), device="cuda")
+    # keys 0..15), on every kernel: bf16 D 40 (wgmma, three tiles by TMA; at
+    # Sk 100 two tiles by cp.async), bf16 D 64 and D 200 (the wide kernel,
+    # 32-key tiles, 6 key splits and the combine kernel) and fp32 D 64 (CUDA
+    # cores)
+    for dtype, d, sk, tol in ((torch.bfloat16, 64, 177, BF16_TOL),
+                              (torch.bfloat16, 40, 177, BF16_TOL),
+                              (torch.bfloat16, 40, 100, BF16_TOL),
+                              (torch.bfloat16, 200, 177, BF16_TOL),
+                              (torch.float32, 64, 177, FP32_TOL)):
+        q, k, v = flash_inputs(gen, "self", 2, 2, 200, sk, d, dtype)
+        mask = torch.ones((2, sk), device="cuda")
         mask[1, :16] = 0.0
-        mask[0, 150:] = 0.0
+        mask[0, sk - 27:] = 0.0
         out = A._flash_cuda(q, k, v, mask, True, 1.0 / math.sqrt(d))
         ref = A.scaled_dot_product_attention(q, k, v, kv_mask=mask, causal=True)
         err, mag = max_err(out, ref)
-        log(f"flash masked+causal Sq200 Sk177 D{d} {dtype}: max_abs_err {err:.3e} "
-            f"(bound {tol * mag:.3e})")
+        plan = A.plan_for(q, k, v)
+        log(f"flash masked+causal Sq200 Sk{sk} D{d} {dtype} {plan.variant} splits "
+            f"{plan.nsplit}: max_abs_err {err:.3e} (bound {tol * mag:.3e})")
         if err > tol * mag:
-            raise AssertionError(f"flash masked+causal D{d} {dtype}: error {err} above bound")
-        results[f"masked causal D{d} {dtype}"] = dict(err=err)
+            raise AssertionError(f"flash masked+causal Sk{sk} D{d} {dtype}: error {err} "
+                                 "above bound")
+        results[f"masked causal Sk{sk} D{d} {dtype}"] = dict(variant=plan.variant, err=err)
     return results
+
+
+def check_flash_combine(gen) -> dict:
+    """The combine kernel against its plain version, on the partial results
+    of the VAE's attention in two shares of its keys (unnormalized O, row
+    maxima in log2 units, row sums: `flash_partials_tiled`, the wide
+    kernel's arithmetic in plain PyTorch). The kernel adds the shares in the
+    plain version's order in fp32, so its fp32 output is held to FP32_SUM_TOL
+    of each element and its bf16 output to one bf16 rounding of each
+    element (2^-8 relative covers a reference that sits on a rounding
+    boundary); both with an absolute floor of FP32_SUM_TOL of the largest
+    element, for elements that cancel to nearly nothing."""
+    from adaface_tpu_torch.ops import attention as A
+
+    label, b, h, sq, sk, d = FLASH_CASES[-1]
+    nsplit = 2
+    q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
+    o_part, m_part, l_part = A.flash_partials_tiled(q, k, v, key_tile=32, d_slices=4,
+                                                    nsplit=nsplit)
+    ref = A.combine_partials(o_part, m_part, l_part)
+    out32 = A.flash_combine(o_part, m_part, l_part, torch.float32)
+    out = A.flash_combine(o_part, m_part, l_part, torch.bfloat16)
+    torch.cuda.synchronize()
+    err, _ = max_err(out, ref)
+    floor = FP32_SUM_TOL * ref.abs().max().item()
+    over32 = ((out32 - ref).abs() - FP32_SUM_TOL * ref.abs()).max().item()
+    over = ((out.float() - ref).abs() - 2.0 ** -8 * ref.abs()).max().item()
+    rel_l2 = ((out.float() - ref).norm() / ref.norm()).item()
+    ms = median_ms(lambda: A.flash_combine(o_part, m_part, l_part, torch.bfloat16))
+    plain_ms = median_ms(lambda: A.combine_partials(o_part, m_part, l_part).to(torch.bfloat16))
+    bound_ms, bound_by = bound(4 * (o_part.numel() + 2 * m_part.numel()) + 2 * b * h * sq * d)
+    log(f"flash combine {nsplit} shares [{b},{h},{sq},{d}]: l_part {l_part.min().item():.2f}.."
+        f"{l_part.max().item():.2f}, |ref| max {ref.abs().max().item():.3e} median "
+        f"{ref.abs().median().item():.3e}; max_abs_err {err:.3e}, relative L2 {rel_l2:.3e}; "
+        f"largest per-element excess, fp32 output: |out - ref| - {FP32_SUM_TOL:g} |ref| = "
+        f"{over32:.3e}, bf16 output: |out - ref| - 2^-8 |ref| = {over:.3e} (bound for both "
+        f"{floor:.3e}) | kernel {ms:.4f} ms plain {plain_ms:.4f} ms | least {bound_ms:.4f} ms "
+        f"by {bound_by}")
+    if not (torch.isfinite(out32).all() and over32 <= floor and over <= floor):
+        raise AssertionError("flash combine: an element is off by more than its rounding")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_gn(gen) -> dict:
@@ -252,17 +394,25 @@ def check_gn(gen) -> dict:
         plain_ms = median_ms(lambda: G.gn_silu_plain(x, scale, bias, groups, eps, silu))
         act = F.silu if silu else (lambda t: t)
         stock_ms = median_ms(lambda: act(F.group_norm(x, groups, scale, bias, eps)))
+        # one library call that computes gn_stats' function: each group is one row
+        spans = x.view(shape[0] * groups, -1)
+        stock_stats = median_ms(lambda: torch.var_mean(spans, dim=1, correction=0))
+        x_bytes = x.numel() * x.element_size()
+        bound_stats, _ = bound(x_bytes + stats.numel() * 4)
+        bound_norm, _ = bound(2 * x_bytes + stats.numel() * 4 + 2 * c * 2)
         log(f"gn {label:26s} {shape} eps {eps:g} silu {silu}: stats max_abs_err {stats_err:.3e} "
             f"norm max_abs_err {norm_err:.3e} full max_abs_err {err:.3e} "
-            f"(bound {BF16_TOL * mag:.3e}) | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}) "
-            f"norm {ms_norm:.3f} ms (plain {plain_norm:.3f}) "
-            f"full {ms:.3f} ms plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms")
+            f"(bound {BF16_TOL * mag:.3e}) | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}, "
+            f"torch.var_mean {stock_stats:.3f}) norm {ms_norm:.3f} ms (plain {plain_norm:.3f}) "
+            f"full {ms:.3f} ms plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms | least, by bytes: "
+            f"stats {bound_stats:.4f} ms norm {bound_norm:.4f} ms")
         if stats_err > FP32_TOL or norm_err > BF16_TOL * mag or err > BF16_TOL * mag:
             raise AssertionError(f"gn {label}: error above bound")
         results[label] = dict(stats_err=stats_err, norm_err=norm_err, err=err,
                               ms_stats=ms_stats, plain_stats=plain_stats,
                               ms_norm=ms_norm, plain_norm=plain_norm, ms=ms,
-                              plain_ms=plain_ms, stock_ms=stock_ms)
+                              plain_ms=plain_ms, stock_ms=stock_ms, stock_stats=stock_stats,
+                              bound_stats=bound_stats, bound_norm=bound_norm)
     return results
 
 
@@ -302,17 +452,25 @@ def check_bn(gen) -> dict:
         x4 = x.t()[None, :, :, None]  # [1, C, R, 1], channels-last strides
         stock_ms = median_ms(lambda: F.leaky_relu(
             F.batch_norm(x4, None, None, scale, bias, training=True, eps=BN_EPS), slope))
+        # one library call that computes bn_stats' function (mean, 1/std)
+        stock_stats = median_ms(lambda: torch.batch_norm_stats(x, BN_EPS))
+        x_bytes = x.numel() * x.element_size()
+        bound_stats, _ = bound(x_bytes + 2 * c * 4)
+        bound_norm, _ = bound(2 * x_bytes + 4 * c * 4)
         log(f"bn {label:20s} R{r} C{c} slope {slope:g} {dtype}: stats rel_err {stats_err:.3e} "
             f"(bound {FP32_TOL:g}) norm max_abs_err {norm_err:.3e} (bound {tol * mag:.3e}) "
-            f"full max_abs_err {err:.3e} | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}) "
+            f"full max_abs_err {err:.3e} | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}, "
+            f"torch.batch_norm_stats {stock_stats:.3f}) "
             f"norm {ms_norm:.3f} ms (plain {plain_norm:.3f}) full {ms:.3f} ms "
-            f"plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms | least, by bytes: stats "
+            f"{bound_stats:.4f} ms norm {bound_norm:.4f} ms")
         if stats_err > FP32_TOL or norm_err > tol * mag or err > tol * mag_full:
             raise AssertionError(f"bn {label}: error above bound")
         results[label] = dict(stats_err=stats_err, stats_abs=stats_abs, norm_err=norm_err,
                               err=err, ms_stats=ms_stats, plain_stats=plain_stats,
                               ms_norm=ms_norm, plain_norm=plain_norm, ms=ms, plain_ms=plain_ms,
-                              stock_ms=stock_ms)
+                              stock_ms=stock_ms, stock_stats=stock_stats,
+                              bound_stats=bound_stats, bound_norm=bound_norm)
     return results
 
 
@@ -330,12 +488,14 @@ def check_ln(gen) -> dict:
         ms = median_ms(lambda: L.layer_norm(x, w, b, 1e-5))
         plain_ms = median_ms(lambda: L.layer_norm_plain(x, w, b, 1e-5))
         stock_ms = median_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+        bound_ms, _ = bound((2 * x.numel() + 2 * c) * x.element_size())
         log(f"ln {label:16s} [{rows}, {c}] {dtype}: max_abs_err {err:.3e} "
             f"(bound {tol * mag:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"stock {stock_ms:.3f} ms")
+            f"stock {stock_ms:.3f} ms | least, by bytes: {bound_ms:.4f} ms")
         if err > tol * mag:
             raise AssertionError(f"ln {label}: error {err} above bound")
-        results[label] = dict(err=err, ms=ms, plain_ms=plain_ms, stock_ms=stock_ms)
+        results[label] = dict(err=err, ms=ms, plain_ms=plain_ms, stock_ms=stock_ms,
+                              bound_ms=bound_ms)
     return results
 
 
@@ -374,7 +534,9 @@ def check_bn_backward(gen) -> dict:
 def check_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     with torch.inference_mode():
-        flash, gn, bn, ln = check_flash(gen), check_gn(gen), check_bn(gen), check_ln(gen)
+        flash = check_flash(gen)
+        flash["combine"] = check_flash_combine(gen)
+        gn, bn, ln = check_gn(gen), check_bn(gen), check_ln(gen)
     check_bn_backward(gen)
     return flash, gn, bn, ln
 
@@ -408,18 +570,26 @@ def launch_counts() -> dict:
 
 def expect_counts(counts: dict, unet_calls: int = 0, decodes: int = 0,
                   fused_ln_calls: int = 0, bisenet_forwards: int = 0):
-    """30 flash launches per UNet call (20 at head dim 40/80, 10 at 160)
-    and 1 per VAE decode (D 512); 61 GroupNorms per UNet call, 30 per
+    """30 launches of the wgmma flash kernel per UNet call (20 at head dim
+    40/80, 10 at 160) and 1 of the wide-head kernel per VAE decode (D 512),
+    the latter followed by one launch of the combine kernel where this
+    card's SM count makes the wrapper split the keys (132 SMs: 2 splits); no
+    launch of a flash kernel under another key (the wide kernel in the
+    UNet, the fp32 kernel anywhere); 61 GroupNorms per UNet call, 30 per
     decode, each one gn_stats and one gn_norm launch; 48 LayerNorm launches
     per UNet call in the fused-LN configuration (16 transformer blocks x 3),
     0 in the default one; one bn_stats and one bn_norm_act launch for each
     of the 31 train-mode BNs of a BiSeNet forward. No other launch."""
-    from adaface_tpu_torch.ops.attention import FLASH_STD, FLASH_T
+    from adaface_tpu_torch.ops.attention import (FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE,
+                                                 flash_plan)
     from adaface_tpu_torch.ops.fused_gn import GN_NORM, GN_STATS
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
-    want = {FLASH_T: 20 * unet_calls, FLASH_STD: 10 * unet_calls + decodes,
+    vae_plan = flash_plan(torch.bfloat16, *FLASH_CASES[-1][1:],
+                          torch.cuda.get_device_properties(0).multi_processor_count)
+    want = {FLASH_T: 20 * unet_calls, FLASH_STD: 10 * unet_calls, FLASH_WIDE: decodes,
+            FLASH_COMBINE: decodes * (vae_plan.nsplit > 1),
             GN_STATS: 61 * unet_calls + 30 * decodes,
             GN_NORM: 61 * unet_calls + 30 * decodes,
             LAYER_NORM: 48 * fused_ln_calls,
@@ -520,6 +690,7 @@ def build_server(gen):
 
 def serve(gen) -> dict:
     from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
 
     wrapper, faces = build_server(gen)
 
@@ -537,6 +708,7 @@ def serve(gen) -> dict:
         raise AssertionError(f"request kernels against plain: error {err} above bound")
 
     _build.reset_launch_counts()
+    A.cache_lookups(reset=True)
     latencies, images = [], []
     t_all = time.perf_counter()
     for i, (subject, prompt) in enumerate(REQUESTS):
@@ -556,13 +728,54 @@ def serve(gen) -> dict:
             f"{latencies[-1] * 1e3:.1f} ms")
     total = time.perf_counter() - t_all
     counts = launch_counts()
+    lookups = A.cache_lookups()
     expect_counts(counts, unet_calls=25 * len(REQUESTS), decodes=len(REQUESTS))
     if torch.equal(images[0], images[1]):
         raise AssertionError("two subjects gave the same image")
     log(f"serve: {len(REQUESTS)} requests in {total:.2f} s: {len(REQUESTS) / total:.3f} imgs/sec, "
         f"latency per request {', '.join(f'{x * 1e3:.1f}' for x in latencies)} ms "
-        f"(first includes warm-up); launches {counts}")
-    return dict(counts=counts, latencies=latencies, total=total, small_err=err)
+        f"(first includes warm-up); launches {counts}; flash cache lookups {lookups}")
+    return dict(counts=counts, latencies=latencies, total=total, small_err=err,
+                lookups=lookups)
+
+
+def profile_request(top: int = 25) -> None:
+    """Device time by kernel over one 512x512, 25-step request, with
+    torch.profiler; not part of the smoke run:
+
+        python3 -c "import chip_smoke as c; c.profile_request()"
+
+    Prints the request's time on the host clock with the profiler off and
+    on, the sum of the CUDA kernels' times, and the kernels by total time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    require_cuda()
+    build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    wrapper, faces = build_server(gen)
+
+    def request(seed):
+        t0 = time.perf_counter()
+        wrapper.prepare_adaface_embeddings(images=faces["a"])
+        wrapper(REQUESTS[0][1], generator=torch.Generator("cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_runs = [request(s) for s in range(3)]  # the first warms up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = request(3)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)"]
+    by_name: dict = {}
+    for e in kernels:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.device_time)
+    total = sum(t for _, t in by_name.values())
+    log(f"profile: request {', '.join(f'{x:.1f}' for x in plain_runs)} ms unprofiled, "
+        f"{profiled:.1f} ms profiled; {len(kernels)} device operations, {total / 1e3:.1f} ms of "
+        f"device time in all")
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"profile: {t / 1e3:8.2f} ms {n:6d} x  {name[:150]}")
 
 
 def face_parser_batch(rs, batch: int, size: int):
@@ -704,46 +917,87 @@ def train_face_parser(gen) -> dict:
 
 
 def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> dict:
-    from adaface_tpu_torch.ops.attention import FLASH_STD, FLASH_T
+    """The per-kernel record. Each flash kernel counts its launches under
+    keys of its own, so an entry's `launches` are those of the kernel in its
+    `source`: the wgmma kernel's two entries, the wide kernel's (whose
+    `max_abs_err` also covers the tensors off the path that it takes: the
+    misaligned case and the masked ones at D 64 and D 200) and the combine
+    kernel's. The fp32 CUDA-core kernel is on no path and has no entry; its
+    masked case is held against plain above. `ms`, `plain_ms`, `library_ms`
+    (one stock PyTorch call that computes the same function, else null) and
+    `bound_ms` are those of the shape named in `shape`; the flash entries
+    also list every path shape under `shapes`. GroupNorm and BatchNorm are
+    two kernels for what the library's fused op does in one call: the
+    statistics kernels have `torch.var_mean` and `torch.batch_norm_stats` as
+    their library call, the normalize kernels none, and all four carry the
+    pair's times (`pair_ms`, `pair_library_ms`)."""
+    from adaface_tpu_torch.ops.attention import FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE
     from adaface_tpu_torch.ops.fused_gn import GN_NORM, GN_STATS
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
-    short = [r["err"] for (label, *_, d) in FLASH_CASES for r in [flash[label]] if d < 128]
-    long_ = [r["err"] for (label, *_, d) in FLASH_CASES for r in [flash[label]] if d >= 128]
-    long_ += [v["err"] for k, v in flash.items() if k.startswith("masked causal")]
-    src_fa = "adaface_tpu_torch/csrc/flash_attn_fwd.cu"
-    src_gn = "adaface_tpu_torch/csrc/group_norm_silu.cu"
-    src_bn = "adaface_tpu_torch/csrc/batch_norm_act.cu"
+    def entry(name, source, replaces, err, shape, ms, plain_ms, library_ms, bound_ms,
+              bound_by="bytes", **extra):
+        return {"name": name, "route": "cuda", "source": f"adaface_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": counts[name], "max_abs_err": err,
+                "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms, **extra}
+
+    def flash_entry(name, source, replaces, errs, shape, labels):
+        r = flash[shape]
+        shapes = {label: {"ms": flash[label]["ms"], "run_ms": flash[label]["run_ms"],
+                          "plain_ms": flash[label]["plain_ms"],
+                          "library_ms": flash[label]["stock_ms"],
+                          "library_run_ms": flash[label]["stock_run_ms"],
+                          "graph_ms": flash[label]["graph_ms"],
+                          "library_graph_ms": flash[label]["stock_graph_ms"],
+                          "host_us": flash[label]["host_us"],
+                          "library_host_us": flash[label]["stock_host_us"],
+                          "bound_ms": flash[label]["bound_ms"],
+                          "bound_by": flash[label]["bound_by"]} for label in labels}
+        return entry(name, source, replaces, max(errs), shape, r["ms"], r["plain_ms"],
+                     r["stock_ms"], r["bound_ms"], r["bound_by"], shapes=shapes)
+
+    path = {label: d for (label, *_, d) in FLASH_CASES}
+    short = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d < 128]
+    long_ = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d >= 128]
+    wide = [label for label in path if flash[label]["variant"] == "wide"]
+    # off the path: the contiguous case counts as FLASH_T, the masked and
+    # causal ones as FLASH_STD, whatever the wide kernel takes as FLASH_WIDE
+    off_path = {k: r for k, r in flash.items() if k not in path and k != "combine"}
+    short_off = [r["err"] for k, r in off_path.items()
+                 if r["variant"] == "wg" and not k.startswith("masked")]
+    long_off = [r["err"] for k, r in off_path.items()
+                if r["variant"] == "wg" and k.startswith("masked")]
+    wide_off = [r["err"] for r in off_path.values() if r["variant"] == "wide"]
+    g, b_, l_, c = gn[JSON_GN], bn[JSON_BN], ln[JSON_LN], flash["combine"]
+    gn_pair = dict(pair_ms=g["ms"], pair_library_ms=g["stock_ms"])
+    bn_pair = dict(pair_ms=b_["ms"], pair_library_ms=b_["stock_ms"])
     return {"kernels": [
-        {"name": FLASH_T, "route": "cuda", "source": src_fa,
-         "replaces": "adaface_tpu/ops/attention.py:165", "launches": counts[FLASH_T],
-         "max_abs_err": max(short), "ms": flash[JSON_FLASH_T]["ms"],
-         "plain_ms": flash[JSON_FLASH_T]["plain_ms"]},
-        {"name": FLASH_STD, "route": "cuda", "source": src_fa,
-         "replaces": "adaface_tpu/ops/attention.py:89", "launches": counts[FLASH_STD],
-         "max_abs_err": max(long_), "ms": flash[JSON_FLASH_STD]["ms"],
-         "plain_ms": flash[JSON_FLASH_STD]["plain_ms"]},
-        {"name": GN_STATS, "route": "cuda", "source": src_gn,
-         "replaces": "adaface_tpu/ops/fused_gn.py:23", "launches": counts[GN_STATS],
-         "max_abs_err": max(r["stats_err"] for r in gn.values()),
-         "ms": gn[JSON_GN]["ms_stats"], "plain_ms": gn[JSON_GN]["plain_stats"]},
-        {"name": GN_NORM, "route": "cuda", "source": src_gn,
-         "replaces": "adaface_tpu/ops/fused_gn.py:40", "launches": counts[GN_NORM],
-         "max_abs_err": max(r["norm_err"] for r in gn.values()),
-         "ms": gn[JSON_GN]["ms_norm"], "plain_ms": gn[JSON_GN]["plain_norm"]},
-        {"name": BN_STATS, "route": "cuda", "source": src_bn,
-         "replaces": "adaface_tpu/ops/fused_norm.py:31", "launches": counts[BN_STATS],
-         "max_abs_err": max(r["stats_abs"] for r in bn.values()),
-         "ms": bn[JSON_BN]["ms_stats"], "plain_ms": bn[JSON_BN]["plain_stats"]},
-        {"name": BN_NORM_ACT, "route": "cuda", "source": src_bn,
-         "replaces": "adaface_tpu/ops/fused_norm.py:48", "launches": counts[BN_NORM_ACT],
-         "max_abs_err": max(r["norm_err"] for r in bn.values()),
-         "ms": bn[JSON_BN]["ms_norm"], "plain_ms": bn[JSON_BN]["plain_norm"]},
-        {"name": LAYER_NORM, "route": "cuda", "source": "adaface_tpu_torch/csrc/layer_norm.cu",
-         "replaces": "adaface_tpu/ops/fused_ln.py:25", "launches": counts[LAYER_NORM],
-         "max_abs_err": max(r["err"] for r in ln.values()),
-         "ms": ln[JSON_LN]["ms"], "plain_ms": ln[JSON_LN]["plain_ms"]},
+        flash_entry(FLASH_T, "flash_attn_wgmma.cu", "adaface_tpu/ops/attention.py:165",
+                    [flash[k]["err"] for k in short] + short_off, JSON_FLASH_T, short),
+        flash_entry(FLASH_STD, "flash_attn_wgmma.cu", "adaface_tpu/ops/attention.py:89",
+                    [flash[k]["err"] for k in long_] + long_off, JSON_FLASH_STD, long_),
+        flash_entry(FLASH_WIDE, "flash_attn_wide.cu", "adaface_tpu/ops/attention.py:89",
+                    [flash[k]["err"] for k in wide] + wide_off, JSON_FLASH_WIDE, wide),
+        entry(FLASH_COMBINE, "flash_attn_wide.cu", "adaface_tpu/ops/attention.py:89",
+              c["err"], "2 splits of vae mid self", c["ms"], c["plain_ms"], None,
+              c["bound_ms"], c["bound_by"]),
+        entry(GN_STATS, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:23",
+              max(r["stats_err"] for r in gn.values()), JSON_GN, g["ms_stats"],
+              g["plain_stats"], g["stock_stats"], g["bound_stats"], **gn_pair),
+        entry(GN_NORM, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:40",
+              max(r["norm_err"] for r in gn.values()), JSON_GN, g["ms_norm"],
+              g["plain_norm"], None, g["bound_norm"], **gn_pair),
+        entry(BN_STATS, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:31",
+              max(r["stats_abs"] for r in bn.values()), JSON_BN, b_["ms_stats"],
+              b_["plain_stats"], b_["stock_stats"], b_["bound_stats"], **bn_pair),
+        entry(BN_NORM_ACT, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:48",
+              max(r["norm_err"] for r in bn.values()), JSON_BN, b_["ms_norm"],
+              b_["plain_norm"], None, b_["bound_norm"], **bn_pair),
+        entry(LAYER_NORM, "layer_norm.cu", "adaface_tpu/ops/fused_ln.py:25",
+              max(r["err"] for r in ln.values()), JSON_LN, l_["ms"], l_["plain_ms"],
+              l_["stock_ms"], l_["bound_ms"]),
     ]}
 
 

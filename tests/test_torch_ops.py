@@ -8,6 +8,7 @@ their plain versions. Tolerance for ops: 1e-5 abs, fp32 rounding of sums
 taken in another order.
 """
 
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -89,6 +90,113 @@ def test_flash_matches_pallas_interpret(layout, sq, sk, d, masked, causal):
     out = tattn.flash_attention(
         _t(q), _t(k), _t(v), kv_mask=None if mask is None else _t(mask), causal=causal)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+
+
+def _kv_mask(sk):
+    mask = np.ones((2, sk), np.float32)
+    mask[0, :8] = 0.0
+    mask[1, sk - 20:] = 0.0
+    return mask
+
+
+@pytest.mark.parametrize("sq,sk,d,masked,causal,key_tile,d_slices,nsplit,pallas", [
+    # the tensor-core kernels' tiling (64 keys): D = 40, a ragged Sq, Sk = 77
+    # (a second tile of 13 keys), against `_flash_t_kernel` in interpret mode
+    (130, 77, 40, False, False, 64, 1, 1, True),
+    # causal with Sk < Sq: rows 0..22 see no key at all (every logit -1e30)
+    # and average V; batch 0 also masks keys 0..7
+    (100, 77, 64, True, True, 64, 1, 1, False),
+    # the wide-head kernel's tiling (32 keys, O in 4 head-dim slices), D > 160
+    (40, 77, 168, True, False, 32, 4, 1, False),
+    # split keys, 2 and 3 partial results merged as the combine kernel does;
+    # with causal and Sk != Sq the last split of some rows holds only
+    # excluded keys
+    (70, 177, 200, True, True, 32, 4, 2, False),
+    (64, 96, 200, False, False, 32, 4, 3, False),
+    (64, 128, 512, False, False, 32, 4, 2, False),
+])
+def test_flash_tiled_arithmetic_matches_plain_and_jax(sq, sk, d, masked, causal, key_tile,
+                                                      d_slices, nsplit, pallas):
+    """The CUDA kernels' arithmetic, repeated in plain PyTorch, against the
+    plain version and the JAX package. fp32 throughout, so P is not rounded;
+    1e-5 covers sums taken tile by tile and exp2 of log2-scaled logits in
+    place of exp."""
+    q, k, v = _qkv(6, 2, 2, sq, sk, d)
+    mask = _kv_mask(sk) if masked else None
+    out = tattn.flash_attention_tiled(
+        _t(q), _t(k), _t(v), kv_mask=None if mask is None else _t(mask), causal=causal,
+        key_tile=key_tile, d_slices=d_slices, nsplit=nsplit)
+    plain = tattn.scaled_dot_product_attention(
+        _t(q), _t(k), _t(v), kv_mask=None if mask is None else _t(mask), causal=causal)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=OP_ATOL)
+    jmask = None if mask is None else jnp.asarray(mask)
+    if pallas:
+        ref = jattn.flash_attention(q, k, v, kv_mask=jmask, causal=causal, block_q=128,
+                                    block_k=128, interpret=True)
+    else:
+        ref = jattn.scaled_dot_product_attention(q, k, v, kv_mask=jmask, causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
+
+
+def test_flash_combine_on_cpu_is_its_plain_version():
+    """A split whose rows saw only excluded keys (maximum -1e30) gets weight 0
+    beside one that saw a real key, and equal weight beside another such."""
+    rs = np.random.RandomState(7)
+    o_part = _t(rs.randn(3, 1, 2, 5, 8).astype(np.float32))
+    m_part = _t(rs.randn(3, 1, 2, 5).astype(np.float32))
+    l_part = _t((np.abs(rs.randn(3, 1, 2, 5)) + 1.0).astype(np.float32))
+    m_part[0, :, :, 0] = tattn.NEG_INF  # row 0: split 0 fully masked
+    m_part[:, :, :, 1] = tattn.NEG_INF  # row 1: every split fully masked
+    out = tattn.flash_combine(o_part, m_part, l_part, torch.float32)
+    np.testing.assert_array_equal(out.numpy(),
+                                  tattn.combine_partials(o_part, m_part, l_part).numpy())
+    np.testing.assert_allclose(
+        out[..., 1, :].numpy(), (o_part.sum(0) / l_part.sum(0)[..., None])[..., 1, :].numpy(),
+        rtol=1e-6)
+    w = torch.exp2(m_part[1:, ..., 0] - m_part[1:, ..., 0].max(0).values)
+    want = ((w[..., None] * o_part[1:, ..., 0, :]).sum(0)
+            / (w * l_part[1:, ..., 0]).sum(0)[..., None])
+    np.testing.assert_allclose(out[..., 0, :].numpy(), want.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,b,h,sq,sk,d,aligned,want", [
+    # the serving path's shapes on a 132-SM card
+    (torch.bfloat16, 2, 8, 4096, 4096, 40, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 8, 4096, 77, 40, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 8, 1024, 1024, 80, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 8, 256, 256, 160, True, ("wg", 64, 64, 1, 1)),
+    (torch.bfloat16, 2, 8, 256, 77, 160, True, ("wg", 64, 64, 1, 1)),
+    (torch.bfloat16, 1, 1, 4096, 4096, 512, True, ("wide", 32, 64, 4, 2)),
+    # off the path: a head dim without a wgmma instance, rows off 16 bytes,
+    # few query tiles and few key tiles, fp32
+    (torch.bfloat16, 2, 8, 1024, 1024, 64, True, ("wide", 32, 64, 4, 1)),
+    (torch.bfloat16, 2, 8, 1024, 1024, 40, False, ("wide", 32, 64, 4, 1)),
+    (torch.bfloat16, 2, 2, 200, 177, 200, True, ("wide", 32, 64, 4, 6)),
+    (torch.float32, 2, 8, 1024, 1024, 80, True, ("fp32", 32, 16, 1, 1)),
+])
+def test_flash_plan(dtype, b, h, sq, sk, d, aligned, want):
+    plan = tattn.flash_plan(dtype, b, h, sq, sk, d, 132, aligned)
+    assert dataclasses.astuple(plan) == want
+    # every split holds at least one key tile, as the kernel requires
+    ntiles = -(-sk // plan.key_tile)
+    assert (plan.nsplit - 1) * -(-ntiles // plan.nsplit) < ntiles
+
+
+@pytest.mark.parametrize("case", ["dtype", "head dim stride", "kv shape", "rank"])
+def test_flash_cuda_route_rejects_what_the_kernels_do_not_take(case):
+    """The checks the CUDA route makes before any launch read only the
+    tensors' dtype, shape and strides, so they run here on CPU tensors."""
+    q, k, v = (torch.zeros(2, 2, 16, 8) for _ in range(3))
+    if case == "dtype":
+        k = k.to(torch.bfloat16)
+    elif case == "head dim stride":
+        v = torch.zeros(2, 2, 8, 16).transpose(-1, -2)
+    elif case == "kv shape":
+        v = torch.zeros(2, 2, 12, 8)
+    else:
+        q = q[0]
+    with pytest.raises(ValueError, match="flash_attention"):
+        tattn._prepare(q, k, v, True)
 
 
 @pytest.mark.parametrize("hw,c,silu", [
