@@ -4,9 +4,11 @@ Counterpart of `unet_apply` in `adaface_tpu/models/unet.py` with the
 default `AttnRuntime` and no LoRA, DeepCache, ToMe, int8, motion or capture
 branch. NCHW latents in and out, as the JAX interface (`unet.py:685`).
 
-Inside, activations stay NCHW contiguous, so each GroupNorm group is one
-contiguous span for `csrc/group_norm_silu.cu`; the transformer blocks work
-on [B, H·W, C] tokens. Every GroupNorm goes through the GN kernel, and every
+Inside, activations and convolution weights are kept in channels-last
+memory (logical shapes stay NCHW): cuDNN's bf16 convolutions run in that
+layout without transposes, `csrc/group_norm_silu.cu` reads a map as
+[B, H·W, C] rows, and the transformer blocks' [B, H·W, C] tokens are a view
+of the map. Every GroupNorm goes through the GN kernels, and every
 attention with q-length >= 256 through the flash kernel (64², 32² and 16²
 levels: 15 transformers × self + cross = 30 launches per call; the 8²
 mid-block runs the plain version, as the JAX package ran XLA there).
@@ -143,11 +145,9 @@ class Transformer2D(nn.Module):
     def forward(self, x, context):
         b, c, h, w = x.shape
         y = self.proj_in(self.norm(x))
-        # contiguous: the reshape of the permuted map is a strided view
-        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
-        y = self.block(y, context)
-        y = y.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
-        return self.proj_out(y) + x
+        # a channels-last map is the [B, H·W, C] token matrix: views both ways
+        y = self.block(y.permute(0, 2, 3, 1).reshape(b, h * w, c), context)
+        return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x
 
 
 class UNetBlock(nn.Module):
@@ -202,11 +202,14 @@ class UNet2DConditionModel(nn.Module):
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(ch[0], cfg.norm_groups, cfg.norm_eps)
         self.conv_out = _conv(ch[0], cfg.out_channels)
+        # convolution weights in channels-last memory, once; loading a state
+        # dict or initialising in place keeps the strides
+        self.to(memory_format=torch.channels_last)
 
     def forward(self, x, t, context):
         """eps [B, 4, h, w] for latents x [B, 4, h, w], timesteps t [B] and
         text context [B, S, cross_attn_dim]; computes in context's dtype."""
-        x = x.to(context.dtype)
+        x = x.to(context.dtype).contiguous(memory_format=torch.channels_last)
         temb = timestep_embedding(t, self.cfg.block_channels[0]).to(context.dtype)
         temb = self.time_mlp["fc2"](F.silu(self.time_mlp["fc1"](temb)))
         h = self.conv_in(x)
@@ -230,7 +233,7 @@ class UNet2DConditionModel(nn.Module):
                     h = blk.attentions[li](h, context)
             if blk.upsample is not None:
                 h = blk.upsample(F.interpolate(h, scale_factor=2.0, mode="nearest"))
-        return self.conv_out(self.conv_norm_out(h, silu=True))
+        return self.conv_out(self.conv_norm_out(h, silu=True)).contiguous()
 
 
 def init_unet_weights_(model: UNet2DConditionModel, gen: torch.Generator) -> None:

@@ -3,8 +3,11 @@
 Counterpart of `vae_decode` and the unmasked `_attnblock` of
 `adaface_tpu/models/vae.py`: post_quant_conv, the CompVis decoder with its
 single-head mid-block attention (D = 512 at full width, through the flash
-kernel when H·W >= 256), and 0.18215 latent scaling. NCHW throughout;
-every GroupNorm goes through the GN kernel.
+kernel when H·W >= 256), and 0.18215 latent scaling. Logical shapes are
+NCHW; inside, activations and convolution weights are kept in channels-last
+memory, so cuDNN's convolutions run without layout transposes, the GN
+kernels read a map as [B, H·W, C] rows and the attention's tokens are a view
+of the map. Every GroupNorm goes through the GN kernels.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -73,13 +77,14 @@ class AttnBlock(nn.Module):
 
     def forward(self, x):
         b, c, h, w = x.shape
-        y = self.norm(x).reshape(b, c, h * w).transpose(1, 2).contiguous()  # [B,HW,C]
+        # a channels-last map is the [B, HW, C] token matrix: a view
+        y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         # the 1x1 convs as linears on the tokens: q/k/v come out [B, HW, C]
         # with a contiguous channel axis, as the flash kernel takes them
         proj = lambda conv, t: F.linear(t, conv.weight[:, :, 0, 0], conv.bias)
         q, k, v = (proj(conv, y)[:, None] for conv in (self.q, self.k, self.v))
         out = multi_head_attention(q, k, v, scale=1.0 / math.sqrt(c))[:, 0]
-        out = proj(self.proj_out, out).transpose(1, 2).reshape(b, c, h, w)
+        out = proj(self.proj_out, out).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + out
 
 
@@ -126,7 +131,11 @@ class VAEDecoder(nn.Module):
         self.cfg = cfg
         self.decoder = Decoder(cfg)
         self.post_quant_conv = _conv(cfg.z_channels, cfg.z_channels, k=1)
+        # convolution weights in channels-last memory, once; loading a state
+        # dict or initialising in place keeps the strides
+        self.to(memory_format=torch.channels_last)
 
     def forward(self, z, scale: float = SD_LATENT_SCALE):
         """Scaled latent [B, 4, h, w] → image [B, 3, 8h, 8w] in [-1, 1]."""
-        return self.decoder(self.post_quant_conv(z / scale))
+        z = (z / scale).contiguous(memory_format=torch.channels_last)
+        return self.decoder(self.post_quant_conv(z)).contiguous()

@@ -101,9 +101,12 @@ def load_library() -> ctypes.CDLL:
     lib.flash_tensor_map_stats.restype = None
     lib.flash_combine.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, p]
     lib.flash_combine.restype = i32
-    lib.gn_stats.argtypes = [p, p, i64, i64, f32, i32, p]
+    gn_geometry = [i64, i32, i32, i32, i32, i32, i32]  # B, rows, C, G, slab, chunks, threads
+    lib.gn_fused.argtypes = [p, p, p, p] + gn_geometry + [f32, i32, i32, p]
+    lib.gn_fused.restype = i32
+    lib.gn_stats.argtypes = [p, p] + gn_geometry + [i32, p]
     lib.gn_stats.restype = i32
-    lib.gn_norm.argtypes = [p, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+    lib.gn_norm.argtypes = [p, p, p, p, p] + gn_geometry + [f32, i32, i32, p]
     lib.gn_norm.restype = i32
     lib.bn_stats.argtypes = [p, p, p, i64, i32, i32, f32, i32, p]
     lib.bn_stats.restype = i32

@@ -1,19 +1,30 @@
-"""GroupNorm (+ SiLU): plain PyTorch version and the hand-written kernel.
+"""GroupNorm (+ SiLU): plain PyTorch version and the hand-written kernels.
 
-Counterpart of `adaface_tpu/ops/fused_gn.py` (forward only), on NCHW
-contiguous tensors: group g of sample b is one contiguous span of
-(C/G)·H·W elements, which `csrc/group_norm_silu.cu` exploits.
+Counterpart of `adaface_tpu/ops/fused_gn.py` (forward only). Logical shapes
+are NCHW; the kernels of `csrc/group_norm_silu.cu` take x in channels-last
+memory, i.e. as [B, H·W, C] rows like the TPU kernels, which is the layout
+the UNet and the VAE keep inside (`models/unet.py`, `models/vae.py`).
 
-Two kernels, each with its plain version beside it:
-- `gn_stats`: per-(sample, group) mean and rstd = 1/sqrt(var + eps), fp32;
-- `gn_norm`: (x - mean)·rstd·scale + bias, then SiLU when asked.
-`group_norm_silu` runs the two. On a CPU tensor it takes the plain versions;
-on a CUDA tensor it launches the kernels or raises. Every GroupNorm of the
-UNet and the VAE goes through it, as every GroupNorm on the TPU went through
-the Pallas pair.
+Three kernels, counted apart in `_build.LAUNCHES`:
+- `gn_fused`: the whole GroupNorm in one launch, x read once; a thread-block
+  cluster holds a (sample, channel slab) in its shared memory;
+- `gn_stats` + `gn_norm`: for maps too large for that. `gn_stats` writes
+  per-chunk group partials (mean, M2), `gn_norm` folds them and normalizes.
+`gn_plan` says which of the two a shape takes, and with what geometry; it
+is a pure function of shape, dtype and SM count. `group_norm_silu` follows
+it. On a CPU tensor it takes the plain version; on a CUDA tensor it launches
+the kernels or raises. Every GroupNorm of the UNet and the VAE goes through
+it, as every GroupNorm on the TPU went through the Pallas pair.
+
+`gn_silu_chunked` repeats the kernels' arithmetic in plain PyTorch, for the
+CPU tests.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
+import math
 
 import torch
 from torch import nn
@@ -22,22 +33,43 @@ from adaface_tpu_torch.ops import _build
 
 GN_STATS = "gn_stats"
 GN_NORM = "gn_norm"
+GN_FUSED = "gn_fused"
+
+SMEM_BYTES = 232448  # dynamic shared memory a block may ask for on sm_90
+MAX_CLUSTER = 16  # blocks of a cluster; above 8 is "non-portable", the H100 takes 16
+MAX_THREADS = 512
+MIN_SLAB = 64  # channels a fused block spans at least: 128-byte row segments in bf16
+MIN_ROWS = 8  # rows a block of a cluster gets at least
+FUSED_TILE_BYTES = 128 * 1024  # shared memory of a fused block the plan goes up to unforced
+SPLIT_MIN_SLAB = 128  # the split pair streams from device memory: longer segments
+SPLIT_WAVES = 2  # blocks per SM the split pair aims at
+SPLIT_THREADS = 512
+SPLIT_MIN_ROWS = 16
 
 
 def gn_stats_plain(x, groups: int, eps: float):
-    """→ [B·G, 2] fp32 (mean, rstd) of NCHW x, population variance."""
+    """→ [B·G, 2] fp32 (mean, rstd) of x [B, C, ...] in either memory format,
+    population variance."""
     xf = x.float().reshape(x.shape[0] * groups, -1)
     mean = xf.mean(dim=1)
     var = xf.var(dim=1, unbiased=False)
     return torch.stack([mean, torch.rsqrt(var + eps)], dim=1)
 
 
-def gn_norm_plain(x, stats, scale, bias, groups: int, apply_silu: bool):
+def _per_channel(stats, x, groups: int):
+    """[B·G, 2] (mean, rstd) → each as [B, C, 1, ...], to broadcast over x."""
     b, c = x.shape[:2]
-    xf = x.float().reshape(b, groups, -1)
-    st = stats.reshape(b, groups, 2)
-    y = ((xf - st[..., :1]) * st[..., 1:]).reshape(x.shape)
-    bshape = (1, c) + (1,) * (x.dim() - 2)
+    per_channel = stats.reshape(b, groups, 2).repeat_interleave(c // groups, dim=1)
+    shape = (b, c) + (1,) * (x.dim() - 2)
+    return per_channel[..., 0].reshape(shape), per_channel[..., 1].reshape(shape)
+
+
+def gn_norm_plain(x, stats, scale, bias, groups: int, apply_silu: bool):
+    """(x - mean)·rstd·scale + bias per channel, then SiLU when asked; the
+    result keeps x's memory format (only broadcasts touch x)."""
+    mean, rstd = _per_channel(stats, x, groups)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x.float() - mean) * rstd
     y = y * scale.float().reshape(bshape) + bias.float().reshape(bshape)
     if apply_silu:
         y = y * torch.sigmoid(y)
@@ -45,55 +77,249 @@ def gn_norm_plain(x, stats, scale, bias, groups: int, apply_silu: bool):
 
 
 def gn_silu_plain(x, scale, bias, groups: int, eps: float, apply_silu: bool = True):
-    """The `_gn_silu_ref` math (`adaface_tpu/ops/fused_gn.py:49-59`) on NCHW."""
+    """The `_gn_silu_ref` math (`adaface_tpu/ops/fused_gn.py:49-59`) on logical NCHW."""
     return gn_norm_plain(x, gn_stats_plain(x, groups, eps), scale, bias,
                          groups, apply_silu)
 
 
+def gn_finalize_plain(part, rows: int, cpg: int, chunk_rows: int, eps: float):
+    """Fold per-chunk group partials [B, G, K, 2] (mean, M2), chunk k over
+    min(chunk_rows, rows - k·chunk_rows) rows of cpg channels, into [B·G, 2]
+    (mean, rstd): mean = Σ n_k·mean_k / N, M2 = Σ (M2_k + n_k·(mean_k - mean)²),
+    the form `combine_chunks` of the kernels uses."""
+    b, g, k, _ = part.shape
+    n = torch.tensor([min(chunk_rows, rows - i * chunk_rows) * cpg for i in range(k)],
+                     dtype=torch.float32, device=part.device)
+    total = float(rows * cpg)
+    mean = (n * part[..., 0]).sum(-1) / total  # [B, G]
+    m2 = (part[..., 1] + n * (part[..., 0] - mean[..., None]) ** 2).sum(-1)
+    return torch.stack([mean, torch.rsqrt(m2 / total + eps)], dim=-1).reshape(b * g, 2)
+
+
+def gn_partials_chunked(x, groups: int, slab: int, chunks: int):
+    """The kernels' statistics in plain PyTorch → ([B, G, K, 2], rows per
+    chunk): for each chunk of rows and each channel, sums of (x - p) and
+    (x - p)² around the pivot p = the chunk's first row give the channel's
+    (mean, M2); the channels of a group fold into the group's. `slab` only
+    says which channels share a block: the result does not depend on it."""
+    b, c = x.shape[:2]
+    cpg = c // groups
+    if c % slab or slab % cpg:
+        raise ValueError(f"slab {slab} is not whole groups of {cpg} of {c} channels")
+    rows2 = x.float().reshape(b, c, -1).transpose(1, 2)  # [B, rows, C]
+    rows = rows2.shape[1]
+    chunk_rows = -(-rows // chunks)
+    parts = []
+    for r0 in range(0, rows, chunk_rows):
+        xs = rows2[:, r0:r0 + chunk_rows]
+        n = xs.shape[1]
+        d = xs - xs[:, :1]
+        s, q = d.sum(1), (d * d).sum(1)  # [B, C]
+        cmean = (xs[:, 0] + s / n).reshape(b, groups, cpg)
+        cm2 = (q - s * s / n).clamp_min(0.0).reshape(b, groups, cpg)
+        gmean = cmean.mean(-1)
+        gm2 = (cm2 + n * (cmean - gmean[..., None]) ** 2).sum(-1)
+        parts.append(torch.stack([gmean, gm2], dim=-1))
+    return torch.stack(parts, dim=2), chunk_rows
+
+
+def gn_silu_chunked(x, scale, bias, groups: int, eps: float, apply_silu: bool = True,
+                    slab: int | None = None, chunks: int = 1):
+    """GroupNorm (+ SiLU) with the arithmetic of `csrc/group_norm_silu.cu`:
+    chunk partials, the fixed-form fold, then (x - mean)·(rstd·scale) + bias."""
+    cpg = x.shape[1] // groups
+    part, chunk_rows = gn_partials_chunked(x, groups, slab or cpg, chunks)
+    stats = gn_finalize_plain(part, x[0, 0].numel(), cpg, chunk_rows, eps)
+    mean, rstd = _per_channel(stats, x, groups)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    y = (x.float() - mean) * (rstd * scale.float().reshape(bshape)) + bias.float().reshape(bshape)
+    if apply_silu:
+        y = y / (1.0 + torch.exp(-y))
+    return y.to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class GnPlan:
+    kernel: str  # "fused": one cluster launch; "split": gn_stats + gn_norm
+    slab: int  # channels a block works on: whole groups and whole 16-byte packs
+    chunks: int  # blocks that share the rows of one (sample, slab); the cluster size if fused
+    threads: int
+    smem: int  # bytes of dynamic shared memory of the fused kernel (0 for the split pair)
+
+    def blocks(self, b: int, c: int) -> int:
+        return b * (c // self.slab) * self.chunks
+
+
+def _fused_smem(rows_per: int, slab: int, cpg: int, threads: int, itemsize: int) -> int:
+    """`fused_smem` of the source: the tile, then the statistics' scratch."""
+    lanes = threads // (slab * itemsize // 16)
+    mids = min(lanes, max(1, threads // slab))
+    return rows_per * slab * itemsize + 4 * (2 * (lanes + mids) * slab + 3 * slab
+                                             + 4 * (slab // cpg))
+
+
+def _threads(packs: int, packs_per_row: int) -> int:
+    """Threads of a fused block: about four packs a thread, a whole number
+    of warps, at least a row of packs, 128 to 256 (512 measured slower: the
+    lanes' sums pass through shared memory)."""
+    want = min(256, max(128, -(-packs // 4)))
+    return 32 * -(-max(want, packs_per_row) // 32)
+
+
+def _slab(c: int, cpg: int, vec: int, least: int) -> int:
+    """The smallest whole number of groups that is whole 16-byte packs, at
+    least `least` channels wide where C has them, and divides C."""
+    base = cpg * vec // math.gcd(cpg, vec)
+    mult = next((k for k in range(1, c // base + 1)
+                 if (c // base) % k == 0 and base * k >= least), c // base)
+    if base * mult // vec > MAX_THREADS:
+        raise ValueError(f"group norm kernel: a slab of {base * mult} channels is wider "
+                         "than a block")
+    return base * mult
+
+
+@functools.lru_cache(maxsize=None)  # a few dozen shapes on a path; the wrapper asks every call
+def gn_plan(dtype, b: int, c: int, rows: int, groups: int, sms: int,
+            kernel: str | None = None) -> GnPlan:
+    """Which kernel a [B, C, rows] GroupNorm takes, and its geometry.
+
+    Fused when a cluster of at most MAX_CLUSTER blocks holds a (sample,
+    slab) in shared memory: the cluster grows (powers of two) until the grid
+    has the largest power of two of blocks that is at most half the SMs
+    (more, smaller blocks measured no faster), while every block keeps
+    MIN_ROWS rows, and further until the tile fits. The fused kernel's
+    passes do not overlap, so beyond FUSED_TILE_BYTES a block it loses to
+    the split pair reading from L2; such maps, and those no cluster can
+    hold, take the split pair, its rows cut so that the grid is SPLIT_WAVES
+    blocks per SM. `kernel` forces one of the two (ValueError where the
+    fused one cannot hold the map)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    vec = 16 // itemsize
+    if c % groups or c % vec:
+        raise ValueError(f"group norm kernel: {c} channels in {groups} groups of {dtype}: "
+                         f"C must be a multiple of the groups and of {vec}")
+    cpg = c // groups
+    if kernel != "split":
+        slab = _slab(c, cpg, vec, MIN_SLAB)
+
+        def fused(cluster):
+            rows_per = -(-rows // cluster)
+            threads = _threads(rows_per * slab // vec, slab // vec)
+            return GnPlan("fused", slab, -(-rows // rows_per), threads,
+                          _fused_smem(rows_per, slab, cpg, threads, itemsize))
+
+        limit = SMEM_BYTES if kernel == "fused" else FUSED_TILE_BYTES
+        target = 1 << ((sms // 2).bit_length() - 1)  # 64 blocks on 132 SMs
+        cluster = 1
+        while cluster < MAX_CLUSTER and rows // (2 * cluster) >= MIN_ROWS and (
+                b * (c // slab) * cluster < target or fused(cluster).smem > limit):
+            cluster *= 2
+        if fused(cluster).smem <= limit:
+            return fused(cluster)
+        if kernel == "fused":
+            raise ValueError(f"group norm kernel: [{b}, {c}, {rows}] {dtype} does not fit the "
+                             "shared memory of a cluster")
+    slab = _slab(c, cpg, vec, SPLIT_MIN_SLAB)
+    chunks = max(1, -(-SPLIT_WAVES * sms // (b * (c // slab))))
+    rows_per = max(min(SPLIT_MIN_ROWS, rows), -(-rows // chunks))
+    return GnPlan("split", slab, -(-rows // rows_per), SPLIT_THREADS, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(x, groups: int, kernel: str | None = None) -> GnPlan:
+    b, c, h, w = x.shape
+    return gn_plan(x.dtype, b, c, h * w, groups, _sm_count(x.device.index), kernel)
+
+
 def _check(x, groups: int):
-    if x.device.type != "cuda":
-        raise ValueError(f"group norm kernel: no kernel for device {x.device}")
+    """Raise on what the kernels do not take; reads only dtype, shape and
+    strides, so it runs on a CPU tensor too."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"group norm kernel: dtype {x.dtype} is not supported")
-    if x.dim() < 3 or not x.is_contiguous():
-        raise ValueError(f"group norm kernel: x must be contiguous [B, C, ...], "
+    if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"group norm kernel: x must be [B, C, H, W] in channels-last memory, "
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
     if x.shape[1] % groups:
         raise ValueError(f"group norm kernel: {x.shape[1]} channels, {groups} groups")
+
+
+def _check_cuda(x, groups: int):
+    _check(x, groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"group norm kernel: no kernel for device {x.device}")
     if x.device.index != torch.cuda.current_device():
         raise ValueError(f"group norm kernel: {x.device} is not the current device")
+    if x.data_ptr() % 16:
+        raise ValueError("group norm kernel: x is not 16-byte aligned")
 
 
-def gn_stats(x, groups: int, eps: float):
-    """Kernel `gn_stats` on CUDA x [B, C, ...] → [B·G, 2] fp32."""
-    _check(x, groups)
-    bg = x.shape[0] * groups
-    stats = torch.empty((bg, 2), dtype=torch.float32, device=x.device)
+def _check_affine(x, scale, bias):
+    c = x.shape[1]
+    for name, t in (("scale", scale), ("bias", bias)):
+        if (tuple(t.shape) != (c,) or t.dtype != x.dtype or t.device != x.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"group norm kernel: {name} must be a contiguous, 16-byte aligned "
+                             f"[{c}] {x.dtype} tensor on {x.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+
+
+def _geometry(x, groups: int, plan: GnPlan):
+    """The arguments every entry point of the source takes after its pointers."""
+    b, c, h, w = x.shape
+    return b, h * w, c, groups, plan.slab, plan.chunks, plan.threads
+
+
+def gn_fused(x, scale, bias, groups: int, eps: float, apply_silu: bool,
+             plan: GnPlan | None = None):
+    """Kernel `gn_fused` on a channels-last CUDA x [B, C, H, W]: one launch."""
+    _check_cuda(x, groups)
+    _check_affine(x, scale, bias)
+    plan = plan or plan_for(x, groups, "fused")
+    y = torch.empty_like(x)
+    rc = _build.load_library().gn_fused(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        *_geometry(x, groups, plan), float(eps), int(apply_silu),
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, GN_FUSED)
+    _build.LAUNCHES[GN_FUSED] += 1
+    return y
+
+
+def gn_stats(x, groups: int, plan: GnPlan | None = None):
+    """Kernel `gn_stats` on a channels-last CUDA x [B, C, H, W] → group
+    partials [B, G, plan.chunks, 2] fp32 (mean, M2), for `gn_norm` (or
+    `gn_finalize_plain`) with the same plan."""
+    _check_cuda(x, groups)
+    plan = plan or plan_for(x, groups, "split")
+    part = torch.empty((x.shape[0], groups, plan.chunks, 2), dtype=torch.float32,
+                       device=x.device)
     rc = _build.load_library().gn_stats(
-        x.data_ptr(), stats.data_ptr(), bg, x.numel() // bg, float(eps),
+        x.data_ptr(), part.data_ptr(), *_geometry(x, groups, plan),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, GN_STATS)
     _build.LAUNCHES[GN_STATS] += 1
-    return stats
+    return part
 
 
-def gn_norm(x, stats, scale, bias, groups: int, apply_silu: bool):
-    """Kernel `gn_norm` on CUDA x [B, C, ...] with stats from `gn_stats`."""
-    _check(x, groups)
-    b, c = x.shape[:2]
-    for name, t in (("scale", scale), ("bias", bias)):
-        if (tuple(t.shape) != (c,) or t.dtype != x.dtype or t.device != x.device
-                or not t.is_contiguous()):
-            raise ValueError(f"group norm kernel: {name} must be a contiguous [{c}] "
-                             f"{x.dtype} tensor on {x.device}, got {tuple(t.shape)} "
-                             f"{t.dtype} on {t.device}")
-    if (tuple(stats.shape) != (b * groups, 2) or stats.dtype != torch.float32
-            or stats.device != x.device or not stats.is_contiguous()):
-        raise ValueError("group norm kernel: stats must come from gn_stats")
+def gn_norm(x, part, scale, bias, groups: int, eps: float, apply_silu: bool,
+            plan: GnPlan | None = None):
+    """Kernel `gn_norm` on a channels-last CUDA x with `gn_stats`' partials."""
+    _check_cuda(x, groups)
+    _check_affine(x, scale, bias)
+    plan = plan or plan_for(x, groups, "split")
+    if (tuple(part.shape) != (x.shape[0], groups, plan.chunks, 2)
+            or part.dtype != torch.float32 or part.device != x.device
+            or not part.is_contiguous()):
+        raise ValueError("group norm kernel: the partials must come from gn_stats with the "
+                         "same plan")
     y = torch.empty_like(x)
     rc = _build.load_library().gn_norm(
-        x.data_ptr(), stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), x.numel(), x.numel() // (b * c), c, groups, int(apply_silu),
+        x.data_ptr(), part.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        *_geometry(x, groups, plan), float(eps), int(apply_silu),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, GN_NORM)
     _build.LAUNCHES[GN_NORM] += 1
@@ -101,10 +327,16 @@ def gn_norm(x, stats, scale, bias, groups: int, apply_silu: bool):
 
 
 def group_norm_silu(x, scale, bias, groups: int, eps: float, apply_silu: bool = True):
-    """GroupNorm (+ SiLU) on NCHW x; the kernels on CUDA, plain on the CPU."""
+    """GroupNorm (+ SiLU) on x [B, C, H, W]: the plain version on the CPU
+    (either memory format); on CUDA the kernel `gn_plan` names, which takes
+    channels-last memory only."""
     if x.device.type == "cpu":
         return gn_silu_plain(x, scale, bias, groups, eps, apply_silu)
-    return gn_norm(x, gn_stats(x, groups, eps), scale, bias, groups, apply_silu)
+    _check_cuda(x, groups)
+    plan = plan_for(x, groups)
+    if plan.kernel == "fused":
+        return gn_fused(x, scale, bias, groups, eps, apply_silu, plan)
+    return gn_norm(x, gn_stats(x, groups, plan), scale, bias, groups, eps, apply_silu, plan)
 
 
 class GroupNorm(nn.Module):

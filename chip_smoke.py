@@ -11,10 +11,16 @@ Phases (any failure raises and the exit code is not 0):
      batch 16, 448x448, fp32, with the BN Function's gradients); the flash
      kernels at the path's strides (views of [B,S,H*D] storage), at a
      contiguous and at a misaligned layout, and the split-keys combine
-     kernel on the partial results of the VAE's attention; print errors,
-     median times, each kernel's bound (the larger of bytes / 3.35 TB/s and
-     operations / 989 TFLOP/s) and the stock PyTorch op's time (a yardstick
-     only: the port never calls it);
+     kernel on the partial results of the VAE's attention; the GroupNorm
+     kernels on channels-last maps at every shape of the path, each with
+     the kernel `gn_plan` gives it, the one-launch kernel and the split pair
+     each forced at a shape of the other's regime, an fp32 case, a case with
+     mean 100 and deviation 1, and two runs held to the same bits; print
+     errors, median times (single launches, and for GroupNorm, LayerNorm and
+     BatchNorm also 20 launches as a CUDA graph: the device alone), each
+     kernel's bound (the larger of bytes / 3.35 TB/s and operations / 989
+     TFLOP/s) and the stock PyTorch op's time (a yardstick only: the port
+     never calls it);
   4. one full-width SD1.5 UNet call at CFG batch 2, kernels against plain;
      then the same call in the fused-LN configuration (`fused_ln=True`),
      kernels against plain, with its 48 LayerNorm launches;
@@ -82,20 +88,42 @@ FLASH_EXTRA_CASES = [
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 RUN_LAUNCHES = 20  # launches between one pair of events, for launch-bound shapes
-# (label, shape, groups, eps, silu): GroupNorms of the UNet (CFG batch 2) and
-# of the VAE decoder (batch 1)
+# (label, shape, groups, eps, silu, launches per UNet call, per decode): every
+# GroupNorm of the UNet (CFG batch 2; resnet norms with SiLU, transformer
+# norms without) and of the VAE decoder (batch 1) at 512x512; `check_unet` and
+# `serve` count the shapes the modules really see against this table
 GN_CASES = [
-    ("unet resnet 64x64", (2, 320, 64, 64), 32, 1e-5, True),
-    ("unet resnet concat 64x64", (2, 960, 64, 64), 32, 1e-5, True),
-    ("unet transformer 64x64", (2, 320, 64, 64), 32, 1e-6, False),
-    ("unet resnet 32x32", (2, 640, 32, 32), 32, 1e-5, True),
-    ("unet resnet 16x16", (2, 1280, 16, 16), 32, 1e-5, True),
-    ("unet resnet concat 8x8", (2, 2560, 8, 8), 32, 1e-5, True),
-    ("vae mid attn norm 64x64", (1, 512, 64, 64), 32, 1e-6, False),
-    ("vae resnet 256x256", (1, 512, 256, 256), 32, 1e-6, True),
-    ("vae resnet 512x512 256ch", (1, 256, 512, 512), 32, 1e-6, True),
-    ("vae resnet 512x512", (1, 128, 512, 512), 32, 1e-6, True),
+    ("unet resnet 64x64 320", (2, 320, 64, 64), 32, 1e-5, True, 8, 0),
+    ("unet transformer 64x64 320", (2, 320, 64, 64), 32, 1e-6, False, 5, 0),
+    ("unet resnet 64x64 640", (2, 640, 64, 64), 32, 1e-5, True, 2, 0),
+    ("unet resnet 64x64 960", (2, 960, 64, 64), 32, 1e-5, True, 1, 0),
+    ("unet resnet 32x32 320", (2, 320, 32, 32), 32, 1e-5, True, 1, 0),
+    ("unet resnet 32x32 640", (2, 640, 32, 32), 32, 1e-5, True, 6, 0),
+    ("unet transformer 32x32 640", (2, 640, 32, 32), 32, 1e-6, False, 5, 0),
+    ("unet resnet 32x32 960", (2, 960, 32, 32), 32, 1e-5, True, 1, 0),
+    ("unet resnet 32x32 1280", (2, 1280, 32, 32), 32, 1e-5, True, 1, 0),
+    ("unet resnet 32x32 1920", (2, 1920, 32, 32), 32, 1e-5, True, 1, 0),
+    ("unet resnet 16x16 640", (2, 640, 16, 16), 32, 1e-5, True, 1, 0),
+    ("unet resnet 16x16 1280", (2, 1280, 16, 16), 32, 1e-5, True, 6, 0),
+    ("unet transformer 16x16 1280", (2, 1280, 16, 16), 32, 1e-6, False, 5, 0),
+    ("unet resnet 16x16 1920", (2, 1920, 16, 16), 32, 1e-5, True, 1, 0),
+    ("unet resnet 16x16 2560", (2, 2560, 16, 16), 32, 1e-5, True, 2, 0),
+    ("unet resnet 8x8 1280", (2, 1280, 8, 8), 32, 1e-5, True, 11, 0),
+    ("unet transformer 8x8 1280", (2, 1280, 8, 8), 32, 1e-6, False, 1, 0),
+    ("unet resnet 8x8 2560", (2, 2560, 8, 8), 32, 1e-5, True, 3, 0),
+    ("vae resnet 64x64 512", (1, 512, 64, 64), 32, 1e-6, True, 0, 10),
+    ("vae attention 64x64 512", (1, 512, 64, 64), 32, 1e-6, False, 0, 1),
+    ("vae resnet 128x128 512", (1, 512, 128, 128), 32, 1e-6, True, 0, 6),
+    ("vae resnet 256x256 512", (1, 512, 256, 256), 32, 1e-6, True, 0, 1),
+    ("vae resnet 256x256 256", (1, 256, 256, 256), 32, 1e-6, True, 0, 5),
+    ("vae resnet 512x512 256", (1, 256, 512, 512), 32, 1e-6, True, 0, 1),
+    ("vae resnet 512x512 128", (1, 128, 512, 512), 32, 1e-6, True, 0, 6),
 ]
+UNET_CALLS = 25  # per request: DDIM steps, one CFG batch-2 call each
+# each kernel forced at a shape of the other's regime, where it can run
+GN_FORCED = [("vae resnet 128x128 512", "fused"), ("unet resnet 64x64 320", "split"),
+             ("unet resnet 8x8 1280", "split")]
+RSTD_REL_TOL = 1e-3  # statistics of a map with mean 100 and deviation 1, against fp64
 # (label, R, C, slope, dtype): the train-mode BNs of BiSeNet at batch 16,
 # 448x448 as [R = N*H*W, C] (`adaface_tpu/models/bisenet.py:148-198`);
 # slope 0 is ReLU, 1 no activation
@@ -135,7 +163,8 @@ BISENET_BNS = 31  # train-mode BNs per BiSeNet forward
 JSON_FLASH_T = "unet 64x64 self"
 JSON_FLASH_STD = "unet 16x16 self"
 JSON_FLASH_WIDE = "vae mid self"
-JSON_GN = "unet resnet 64x64"
+JSON_GN = "unet resnet 64x64 320"  # the one-launch kernel
+JSON_GN_SPLIT = "vae resnet 512x512 128"  # the split pair
 JSON_BN = "stem 224x224"
 JSON_LN = "unet 64x64"
 
@@ -369,50 +398,199 @@ def check_flash_combine(gen) -> dict:
     return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
+def gn_inputs(gen, shape, dtype=torch.bfloat16, mean=0.5, std=2.0):
+    """x [B, C, H, W] in channels-last memory, as the UNet and the VAE keep
+    their maps, with scale and bias [C]."""
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(dtype)
+    scale = (torch.randn((c,), generator=gen, device="cuda") + 1.0).to(dtype)
+    bias = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(dtype)
+    return x.contiguous(memory_format=torch.channels_last), scale, bias
+
+
+def gn_launches(per_call: int, per_decode: int) -> int:
+    """Launches of a GroupNorm case in one 512x512, 25-step request."""
+    return UNET_CALLS * per_call + per_decode
+
+
+def check_gn_case(G, x, scale, bias, groups, eps, silu, plan, tol) -> dict:
+    """One GroupNorm on the kernel(s) of `plan` against the plain version:
+    the output, two runs to the same bits, and for the split pair its
+    statistics (the partials folded by `gn_finalize_plain`) and its
+    normalize pass on them."""
+    def run():
+        if plan.kernel == "fused":
+            return G.gn_fused(x, scale, bias, groups, eps, silu, plan)
+        return G.gn_norm(x, G.gn_stats(x, groups, plan), scale, bias, groups, eps, silu, plan)
+
+    out = run()
+    err, mag = max_err(out, G.gn_silu_plain(x, scale, bias, groups, eps, silu))
+    same_bits = torch.equal(out, run())
+    res = dict(err=err, mag=mag, run=run, stats_err=0.0, norm_err=0.0)
+    if plan.kernel == "split":
+        rows, cpg = x[0, 0].numel(), x.shape[1] // groups
+        part = G.gn_stats(x, groups, plan)
+        stats = G.gn_finalize_plain(part, rows, cpg, -(-rows // plan.chunks), eps)
+        res["stats_err"] = (stats - G.gn_stats_plain(x, groups, eps)).abs().max().item()
+        res["norm_err"], _ = max_err(G.gn_norm(x, part, scale, bias, groups, eps, silu, plan),
+                                     G.gn_norm_plain(x, stats, scale, bias, groups, silu))
+        res["part"] = part
+    if not same_bits:
+        raise AssertionError(f"gn {tuple(x.shape)} {plan}: two runs differ")
+    if err > tol * mag or res["stats_err"] > FP32_TOL or res["norm_err"] > tol * mag:
+        raise AssertionError(f"gn {tuple(x.shape)} {plan}: error above bound: {res}")
+    return res
+
+
+def rstd_from_output(y, x, groups: int, eps: float):
+    """rstd per (sample, group) that a GroupNorm output y (scale 1, bias 0, no
+    SiLU) implies, and the fp64 value: the least-squares slope of y on
+    x - mean in fp64, divided by the same slope of the exact output rounded
+    to y's dtype. A bf16 map around 100 holds a dozen distinct values, so
+    the output's rounding does not average out of one slope; it cancels
+    between the two."""
+    b = x.shape[0]
+    xd = x.double().reshape(b, groups, x.shape[1] // groups, -1)
+    dx = xd - xd.mean(dim=(2, 3), keepdim=True)
+    want = torch.rsqrt((dx * dx).mean(dim=(2, 3), keepdim=True) + eps)
+    slope = lambda out: (out.double().reshape(xd.shape) * dx).sum(dim=(2, 3)) / (
+        dx * dx).sum(dim=(2, 3))
+    exact = (dx * want).to(y.dtype)
+    want = want.reshape(-1)
+    return want * (slope(y) / slope(exact)).reshape(-1), want
+
+
+def check_gn_adversarial(G, gen) -> float:
+    """Mean 100, deviation 1 (mean^2 / variance = 1e4): rstd of each kernel
+    within RSTD_REL_TOL of the fp64 value, bf16 and fp32, both regimes."""
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, kernel in (((2, 320, 64, 64), "fused"), ((2, 320, 64, 64), "split"),
+                              ((1, 128, 256, 256), "split")):
+            x, _, _ = gn_inputs(gen, shape, dtype, mean=100.0, std=1.0)
+            one, zero = torch.ones_like(x[0, :, 0, 0]), torch.zeros_like(x[0, :, 0, 0])
+            plan = G.plan_for(x, 32, kernel)
+            if kernel == "fused":
+                got, want = rstd_from_output(
+                    G.gn_fused(x, one, zero, 32, 1e-5, False, plan), x, 32, 1e-5)
+            else:
+                rows = shape[2] * shape[3]
+                part = G.gn_stats(x, 32, plan)
+                # what gn_norm's own fold of the partials makes of them, and
+                # the partials folded in plain PyTorch
+                folded, want = rstd_from_output(
+                    G.gn_norm(x, part, one, zero, 32, 1e-5, False, plan), x, 32, 1e-5)
+                got = torch.stack([folded, G.gn_finalize_plain(
+                    part, rows, shape[1] // 32, -(-rows // plan.chunks), 1e-5)[:, 1].double()])
+            rel = ((got - want).abs() / want).max().item()
+            log(f"gn mean 100 deviation 1 {shape} {dtype} {kernel}: rstd rel_err {rel:.3e} "
+                f"(bound {RSTD_REL_TOL:g})")
+            if not rel <= RSTD_REL_TOL:
+                raise AssertionError(f"gn adversarial {shape} {dtype} {kernel}: rstd off by {rel}")
+            worst = max(worst, rel)
+    return worst
+
+
 def check_gn(gen) -> dict:
     from adaface_tpu_torch.ops import fused_gn as G
 
     results = {}
-    for label, shape, groups, eps, silu in GN_CASES:
+    for label, shape, groups, eps, silu, per_call, per_decode in GN_CASES:
         c = shape[1]
-        x = (torch.randn(shape, generator=gen, device="cuda") * 2.0 + 0.5).to(torch.bfloat16)
-        scale = (torch.randn((c,), generator=gen, device="cuda") + 1.0).to(torch.bfloat16)
-        bias = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(torch.bfloat16)
-        stats = G.gn_stats(x, groups, eps)
-        stats_ref = G.gn_stats_plain(x, groups, eps)
-        stats_err = (stats - stats_ref).abs().max().item()
-        norm = G.gn_norm(x, stats, scale, bias, groups, silu)
-        norm_err, mag = max_err(norm, G.gn_norm_plain(x, stats, scale, bias, groups, silu))
-        err, mag = max_err(G.group_norm_silu(x, scale, bias, groups, eps, silu),
-                           G.gn_silu_plain(x, scale, bias, groups, eps, silu))
+        x, scale, bias = gn_inputs(gen, shape)
+        plan = G.plan_for(x, groups)
+        r = check_gn_case(G, x, scale, bias, groups, eps, silu, plan, BF16_TOL)
+        full_err, _ = max_err(G.group_norm_silu(x, scale, bias, groups, eps, silu),
+                              G.gn_silu_plain(x, scale, bias, groups, eps, silu))
         torch.cuda.synchronize()
-        ms_stats = median_ms(lambda: G.gn_stats(x, groups, eps))
-        plain_stats = median_ms(lambda: G.gn_stats_plain(x, groups, eps))
-        ms_norm = median_ms(lambda: G.gn_norm(x, stats, scale, bias, groups, silu))
-        plain_norm = median_ms(lambda: G.gn_norm_plain(x, stats, scale, bias, groups, silu))
-        ms = median_ms(lambda: G.group_norm_silu(x, scale, bias, groups, eps, silu))
-        plain_ms = median_ms(lambda: G.gn_silu_plain(x, scale, bias, groups, eps, silu))
+        kernel = lambda: G.group_norm_silu(x, scale, bias, groups, eps, silu)
+        plain = lambda: G.gn_silu_plain(x, scale, bias, groups, eps, silu)
         act = F.silu if silu else (lambda t: t)
-        stock_ms = median_ms(lambda: act(F.group_norm(x, groups, scale, bias, eps)))
-        # one library call that computes gn_stats' function: each group is one row
-        spans = x.view(shape[0] * groups, -1)
-        stock_stats = median_ms(lambda: torch.var_mean(spans, dim=1, correction=0))
+        stock = lambda: act(F.group_norm(x, groups, scale, bias, eps))  # same memory format
+        # one library call for the statistics' function, on the same memory
+        grouped = x.permute(0, 2, 3, 1).reshape(shape[0], -1, groups, c // groups)
+        stock_stats_fn = lambda: torch.var_mean(grouped, dim=(1, 3), correction=0)
+        ms, plain_ms, stock_ms = median_ms(kernel), median_ms(plain), median_ms(stock)
+        dev, stock_dev = graph_ms(kernel), graph_ms(stock)
+        host, stock_host = host_us(kernel), host_us(stock)
         x_bytes = x.numel() * x.element_size()
-        bound_stats, _ = bound(x_bytes + stats.numel() * 4)
-        bound_norm, _ = bound(2 * x_bytes + stats.numel() * 4 + 2 * c * 2)
-        log(f"gn {label:26s} {shape} eps {eps:g} silu {silu}: stats max_abs_err {stats_err:.3e} "
-            f"norm max_abs_err {norm_err:.3e} full max_abs_err {err:.3e} "
-            f"(bound {BF16_TOL * mag:.3e}) | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}, "
-            f"torch.var_mean {stock_stats:.3f}) norm {ms_norm:.3f} ms (plain {plain_norm:.3f}) "
-            f"full {ms:.3f} ms plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms | least, by bytes: "
-            f"stats {bound_stats:.4f} ms norm {bound_norm:.4f} ms")
-        if stats_err > FP32_TOL or norm_err > BF16_TOL * mag or err > BF16_TOL * mag:
-            raise AssertionError(f"gn {label}: error above bound")
-        results[label] = dict(stats_err=stats_err, norm_err=norm_err, err=err,
-                              ms_stats=ms_stats, plain_stats=plain_stats,
-                              ms_norm=ms_norm, plain_norm=plain_norm, ms=ms,
-                              plain_ms=plain_ms, stock_ms=stock_ms, stock_stats=stock_stats,
-                              bound_stats=bound_stats, bound_norm=bound_norm)
+        bound_fn, _ = bound(2 * x_bytes + 2 * c * x.element_size())
+        res = dict(kernel=plan.kernel, plan=dataclasses.asdict(plan), err=max(r["err"], full_err),
+                   stats_err=r["stats_err"], norm_err=r["norm_err"], ms=ms, plain_ms=plain_ms,
+                   stock_ms=stock_ms, graph_ms=dev, stock_graph_ms=stock_dev, host_us=host,
+                   stock_host_us=stock_host, bound_fn=bound_fn, bound_moved=bound_fn,
+                   launches=gn_launches(per_call, per_decode))
+        detail = ""
+        if plan.kernel == "split":
+            part = r["part"]
+            stats = G.gn_stats_plain(x, groups, eps)
+            stats_fn = lambda: G.gn_stats(x, groups, plan)
+            norm_fn = lambda: G.gn_norm(x, part, scale, bias, groups, eps, silu, plan)
+            part_bytes = part.numel() * 4
+            res.update(
+                ms_stats=median_ms(stats_fn), graph_stats=graph_ms(stats_fn),
+                plain_stats=median_ms(lambda: G.gn_stats_plain(x, groups, eps)),
+                stock_stats=median_ms(stock_stats_fn), stock_graph_stats=graph_ms(stock_stats_fn),
+                ms_norm=median_ms(norm_fn), graph_norm=graph_ms(norm_fn),
+                plain_norm=median_ms(lambda: G.gn_norm_plain(x, stats, scale, bias, groups, silu)),
+                bound_stats=bound(x_bytes + part_bytes)[0],
+                bound_norm=bound(2 * x_bytes + part_bytes + 2 * c * x.element_size())[0])
+            res["bound_moved"] = res["bound_stats"] + res["bound_norm"]
+            detail = (f" | stats max_abs_err {r['stats_err']:.3e} norm max_abs_err "
+                      f"{r['norm_err']:.3e}; gn_stats {res['ms_stats']:.4f} ms single "
+                      f"{res['graph_stats']:.4f} device (plain {res['plain_stats']:.4f}, "
+                      f"torch.var_mean {res['stock_stats']:.4f} single "
+                      f"{res['stock_graph_stats']:.4f} device), gn_norm {res['ms_norm']:.4f} ms "
+                      f"single {res['graph_norm']:.4f} device (plain {res['plain_norm']:.4f})")
+        log(f"gn {label:28s} {shape} eps {eps:g} silu {silu} {plan.kernel} slab {plan.slab} "
+            f"chunks {plan.chunks} threads {plan.threads}: max_abs_err {res['err']:.3e} (bound "
+            f"{BF16_TOL * r['mag']:.3e}) | single launches: kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms F.group_norm{'+silu' if silu else ''} {stock_ms:.4f} ms | "
+            f"20 launches as a CUDA graph (device alone): kernel {dev:.4f} ms library "
+            f"{stock_dev:.4f} ms | host per call: kernel {host:.1f} us library "
+            f"{stock_host:.1f} us | least by bytes: the function {bound_fn:.4f} ms, what the "
+            f"kernels move {res['bound_moved']:.4f} ms | {res['launches']} launches a request"
+            f"{detail}")
+        results[label] = res
+
+    # each kernel at a shape of the other's regime
+    cases = {case[0]: case for case in GN_CASES}
+    for label, forced in GN_FORCED:
+        _, shape, groups, eps, silu, _, _ = cases[label]
+        x, scale, bias = gn_inputs(gen, shape)
+        plan = G.plan_for(x, groups, forced)
+        r = check_gn_case(G, x, scale, bias, groups, eps, silu, plan, BF16_TOL)
+        dev = graph_ms(r["run"])
+        log(f"gn forced {forced} at {label} {shape} slab {plan.slab} chunks {plan.chunks} threads "
+            f"{plan.threads}: max_abs_err {r['err']:.3e} stats max_abs_err {r['stats_err']:.3e} "
+            f"| device {dev:.4f} ms against {results[label]['graph_ms']:.4f} ms of the "
+            f"{results[label]['kernel']} kernel the plan takes")
+        results[f"forced {forced} {label}"] = dict(kernel=forced, err=r["err"],
+                                                   stats_err=r["stats_err"],
+                                                   norm_err=r["norm_err"], graph_ms=dev)
+
+    # fp32, both kernels
+    for kernel_name in ("fused", "split"):
+        x, scale, bias = gn_inputs(gen, (2, 320, 64, 64), torch.float32)
+        plan = G.plan_for(x, 32, kernel_name)
+        r = check_gn_case(G, x, scale, bias, 32, 1e-5, True, plan, FP32_TOL)
+        log(f"gn fp32 (2, 320, 64, 64) {kernel_name} slab {plan.slab} chunks {plan.chunks}: "
+            f"max_abs_err {r['err']:.3e} (bound {FP32_TOL * r['mag']:.3e}) stats max_abs_err "
+            f"{r['stats_err']:.3e}")
+        results[f"fp32 {kernel_name}"] = dict(kernel=kernel_name, err=r["err"],
+                                              stats_err=r["stats_err"], norm_err=r["norm_err"])
+    results["adversarial rstd rel_err"] = check_gn_adversarial(G, gen)
+
+    path = [results[case[0]] for case in GN_CASES]
+    sums = {k: sum(r["launches"] * r[k] for r in path)
+            for k in ("graph_ms", "stock_graph_ms", "bound_fn", "bound_moved")}
+    launches = sum(r["launches"] * (1 if r["kernel"] == "fused" else 2) for r in path)
+    log(f"gn per 512x512 25-step request ({sum(r['launches'] for r in path)} GroupNorms, "
+        f"{launches} launches): kernels {sums['graph_ms']:.3f} ms of device time, "
+        f"F.group_norm(+silu) in the same memory format {sums['stock_graph_ms']:.3f} ms; least "
+        f"by bytes: the function {sums['bound_fn']:.3f} ms, what the kernels move "
+        f"{sums['bound_moved']:.3f} ms")
+    results["per request"] = dict(launches=launches, **sums)
     return results
 
 
@@ -454,6 +632,13 @@ def check_bn(gen) -> dict:
             F.batch_norm(x4, None, None, scale, bias, training=True, eps=BN_EPS), slope))
         # one library call that computes bn_stats' function (mean, 1/std)
         stock_stats = median_ms(lambda: torch.batch_norm_stats(x, BN_EPS))
+        # the same as 20 launches in a CUDA graph: the device alone
+        dev_stats = graph_ms(lambda: N.bn_stats(x, BN_EPS))
+        dev_norm = graph_ms(lambda: N.bn_norm_act(x, mean, rstd, scale, bias, slope))
+        dev = graph_ms(lambda: N.fused_bn_act(x, scale, bias, slope, BN_EPS))
+        stock_dev_stats = graph_ms(lambda: torch.batch_norm_stats(x, BN_EPS))
+        stock_dev = graph_ms(lambda: F.leaky_relu(
+            F.batch_norm(x4, None, None, scale, bias, training=True, eps=BN_EPS), slope))
         x_bytes = x.numel() * x.element_size()
         bound_stats, _ = bound(x_bytes + 2 * c * 4)
         bound_norm, _ = bound(2 * x_bytes + 4 * c * 4)
@@ -462,14 +647,18 @@ def check_bn(gen) -> dict:
             f"full max_abs_err {err:.3e} | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}, "
             f"torch.batch_norm_stats {stock_stats:.3f}) "
             f"norm {ms_norm:.3f} ms (plain {plain_norm:.3f}) full {ms:.3f} ms "
-            f"plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms | least, by bytes: stats "
-            f"{bound_stats:.4f} ms norm {bound_norm:.4f} ms")
+            f"plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms | device alone (CUDA graph): stats "
+            f"{dev_stats:.4f} ms (torch.batch_norm_stats {stock_dev_stats:.4f}) norm "
+            f"{dev_norm:.4f} ms full {dev:.4f} ms (stock {stock_dev:.4f}) | least, by bytes: "
+            f"stats {bound_stats:.4f} ms norm {bound_norm:.4f} ms")
         if stats_err > FP32_TOL or norm_err > tol * mag or err > tol * mag_full:
             raise AssertionError(f"bn {label}: error above bound")
         results[label] = dict(stats_err=stats_err, stats_abs=stats_abs, norm_err=norm_err,
                               err=err, ms_stats=ms_stats, plain_stats=plain_stats,
                               ms_norm=ms_norm, plain_norm=plain_norm, ms=ms, plain_ms=plain_ms,
                               stock_ms=stock_ms, stock_stats=stock_stats,
+                              graph_stats=dev_stats, graph_norm=dev_norm, graph_ms=dev,
+                              stock_graph_stats=stock_dev_stats, stock_graph_ms=stock_dev,
                               bound_stats=bound_stats, bound_norm=bound_norm)
     return results
 
@@ -488,14 +677,17 @@ def check_ln(gen) -> dict:
         ms = median_ms(lambda: L.layer_norm(x, w, b, 1e-5))
         plain_ms = median_ms(lambda: L.layer_norm_plain(x, w, b, 1e-5))
         stock_ms = median_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+        dev = graph_ms(lambda: L.layer_norm(x, w, b, 1e-5))
+        stock_dev = graph_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5))
         bound_ms, _ = bound((2 * x.numel() + 2 * c) * x.element_size())
         log(f"ln {label:16s} [{rows}, {c}] {dtype}: max_abs_err {err:.3e} "
             f"(bound {tol * mag:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-            f"stock {stock_ms:.3f} ms | least, by bytes: {bound_ms:.4f} ms")
+            f"stock {stock_ms:.3f} ms | device alone (CUDA graph): kernel {dev:.4f} ms stock "
+            f"{stock_dev:.4f} ms | least, by bytes: {bound_ms:.4f} ms")
         if err > tol * mag:
             raise AssertionError(f"ln {label}: error {err} above bound")
         results[label] = dict(err=err, ms=ms, plain_ms=plain_ms, stock_ms=stock_ms,
-                              bound_ms=bound_ms)
+                              graph_ms=dev, stock_graph_ms=stock_dev, bound_ms=bound_ms)
     return results
 
 
@@ -568,6 +760,25 @@ def launch_counts() -> dict:
     return dict(_build.LAUNCHES)
 
 
+def gn_expected(unet_calls: int, decodes: int) -> dict:
+    """Launches of each GroupNorm kernel that `gn_plan` predicts on this card
+    for `unet_calls` UNet calls and `decodes` VAE decodes: one `gn_fused`
+    launch for a map the plan gives the one-launch kernel, one `gn_stats` and
+    one `gn_norm` for each of the rest."""
+    from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS, gn_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = {GN_FUSED: 0, GN_STATS: 0, GN_NORM: 0}
+    for _, (b, c, h, w), groups, _, _, per_call, per_decode in GN_CASES:
+        n = per_call * unet_calls + per_decode * decodes
+        if gn_plan(torch.bfloat16, b, c, h * w, groups, sms).kernel == "fused":
+            want[GN_FUSED] += n
+        else:
+            want[GN_STATS] += n
+            want[GN_NORM] += n
+    return want
+
+
 def expect_counts(counts: dict, unet_calls: int = 0, decodes: int = 0,
                   fused_ln_calls: int = 0, bisenet_forwards: int = 0):
     """30 launches of the wgmma flash kernel per UNet call (20 at head dim
@@ -576,13 +787,14 @@ def expect_counts(counts: dict, unet_calls: int = 0, decodes: int = 0,
     card's SM count makes the wrapper split the keys (132 SMs: 2 splits); no
     launch of a flash kernel under another key (the wide kernel in the
     UNet, the fp32 kernel anywhere); 61 GroupNorms per UNet call, 30 per
-    decode, each one gn_stats and one gn_norm launch; 48 LayerNorm launches
+    decode, each under the key of the kernel `gn_plan` gives its shape (132
+    SMs: every one of the UNet's and 11 of a decode's in one `gn_fused`
+    launch, 19 of a decode's as `gn_stats` + `gn_norm`); 48 LayerNorm launches
     per UNet call in the fused-LN configuration (16 transformer blocks x 3),
     0 in the default one; one bn_stats and one bn_norm_act launch for each
     of the 31 train-mode BNs of a BiSeNet forward. No other launch."""
     from adaface_tpu_torch.ops.attention import (FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE,
                                                  flash_plan)
-    from adaface_tpu_torch.ops.fused_gn import GN_NORM, GN_STATS
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
@@ -590,14 +802,45 @@ def expect_counts(counts: dict, unet_calls: int = 0, decodes: int = 0,
                           torch.cuda.get_device_properties(0).multi_processor_count)
     want = {FLASH_T: 20 * unet_calls, FLASH_STD: 10 * unet_calls, FLASH_WIDE: decodes,
             FLASH_COMBINE: decodes * (vae_plan.nsplit > 1),
-            GN_STATS: 61 * unet_calls + 30 * decodes,
-            GN_NORM: 61 * unet_calls + 30 * decodes,
+            **gn_expected(unet_calls, decodes),
             LAYER_NORM: 48 * fused_ln_calls,
             BN_STATS: BISENET_BNS * bisenet_forwards,
             BN_NORM_ACT: BISENET_BNS * bisenet_forwards}
     want = {k: v for k, v in want.items() if v}
     if {k: v for k, v in counts.items() if v} != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
+
+
+@contextmanager
+def gn_census(module):
+    """Count the (shape, eps, SiLU) of every GroupNorm call inside `module`
+    while the block runs; yields the counter."""
+    import collections
+
+    from adaface_tpu_torch.ops.fused_gn import GroupNorm
+
+    seen: collections.Counter = collections.Counter()
+
+    def hook(mod, args, kwargs):
+        seen[(tuple(args[0].shape), mod.eps, bool(kwargs.get("silu", False)))] += 1
+
+    handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
+               for m in module.modules() if isinstance(m, GroupNorm)]
+    try:
+        yield seen
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def expect_census(seen: dict, unet_calls: int = 0, decodes: int = 0):
+    """The GroupNorms a module really ran against GN_CASES, the table the
+    per-request sums are taken over."""
+    want = {(shape, eps, silu): per_call * unet_calls + per_decode * decodes
+            for _, shape, _, eps, silu, per_call, per_decode in GN_CASES}
+    want = {k: v for k, v in want.items() if v}
+    if dict(seen) != want:
+        raise AssertionError(f"GroupNorm calls {dict(seen)}, expected {want}")
 
 
 def check_unet(gen) -> dict:
@@ -613,9 +856,11 @@ def check_unet(gen) -> dict:
     ctx = torch.randn((2, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
     with torch.inference_mode():
         _build.reset_launch_counts()
-        eps = unet(x, t, ctx).float()
+        with gn_census(unet) as seen:
+            eps = unet(x, t, ctx).float()
         torch.cuda.synchronize()
         expect_counts(launch_counts(), unet_calls=1, decodes=0)
+        expect_census(seen, unet_calls=1)
         with plain_versions():
             ref = unet(x, t, ctx).float()
             plain_ms = median_ms(lambda: unet(x, t, ctx), reps=5)
@@ -714,9 +959,11 @@ def serve(gen) -> dict:
     for i, (subject, prompt) in enumerate(REQUESTS):
         t0 = time.perf_counter()
         ada = wrapper.prepare_adaface_embeddings(images=faces[subject])
-        img = wrapper(prompt, generator=torch.Generator("cuda").manual_seed(100 + i))
+        with gn_census(wrapper.pipeline.m.vae) as seen:
+            img = wrapper(prompt, generator=torch.Generator("cuda").manual_seed(100 + i))
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
+        expect_census(seen, decodes=1)
         if ada is None or tuple(ada.shape) != (16, 768):
             raise AssertionError(f"request {i}: ada embeddings {None if ada is None else ada.shape}")
         if tuple(img.shape) != (1, 3, 512, 512) or not torch.isfinite(img).all():
@@ -739,6 +986,39 @@ def serve(gen) -> dict:
                 lookups=lookups)
 
 
+# device operations of a profile by kind, matched on the kernel's name in
+# this order; "layout transpose" is cuDNN's layout change around a convolution
+PROFILE_KINDS = (("layout transpose", r"nchwToNhwc|nhwcToNchw"),
+                 ("convolution", r"fprop|conv|wgrad|dgrad"),
+                 ("group norm kernel", r"gn_(stats|norm|fused)"),
+                 ("flash kernel", r"flash_"),
+                 ("copy", r"copy|Memcpy"),
+                 ("concatenation", r"CatArray"),
+                 ("matrix product", r"gemm|nvjet|cublas|cutlass"))
+
+
+def profile_report(prof, label: str, top: int) -> None:
+    """Print a torch.profiler run's device time in all, by kind of kernel
+    (PROFILE_KINDS) and for its `top` kernels by total time. Sums CUDA-kernel
+    events only: the aten-op rows overlap their kernels."""
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)":
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.device_time)
+    kinds = {kind: [0, 0.0] for kind, _ in PROFILE_KINDS + (("other", ""),)}
+    for name, (n, us) in by_name.items():
+        kind = next((k for k, pat in PROFILE_KINDS if re.search(pat, name)), "other")
+        kinds[kind][0] += n
+        kinds[kind][1] += us
+    total_n = sum(n for n, _ in by_name.values())
+    total = sum(us for _, us in by_name.values())
+    log(f"profile {label}: {total / 1e3:.3f} ms of device time in {total_n} device operations; "
+        + "; ".join(f"{k} {us / 1e3:.3f} ms x{n}" for k, (n, us) in kinds.items()))
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        log(f"profile {label}: {us / 1e3:8.3f} ms {n:6d} x  {name[:150]}")
+
+
 def profile_request(top: int = 25) -> None:
     """Device time by kernel over one 512x512, 25-step request, with
     torch.profiler; not part of the smoke run:
@@ -746,7 +1026,9 @@ def profile_request(top: int = 25) -> None:
         python3 -c "import chip_smoke as c; c.profile_request()"
 
     Prints the request's time on the host clock with the profiler off and
-    on, the sum of the CUDA kernels' times, and the kernels by total time."""
+    on, the sum of the CUDA kernels' times in all and by kind (layout
+    transposes, convolutions, GroupNorm kernels, copies, ...), and the
+    kernels by total time."""
     from torch.profiler import ProfilerActivity, profile
 
     require_cuda()
@@ -764,18 +1046,9 @@ def profile_request(top: int = 25) -> None:
     plain_runs = [request(s) for s in range(3)]  # the first warms up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled = request(3)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)"]
-    by_name: dict = {}
-    for e in kernels:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.device_time)
-    total = sum(t for _, t in by_name.values())
     log(f"profile: request {', '.join(f'{x:.1f}' for x in plain_runs)} ms unprofiled, "
-        f"{profiled:.1f} ms profiled; {len(kernels)} device operations, {total / 1e3:.1f} ms of "
-        f"device time in all")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"profile: {t / 1e3:8.2f} ms {n:6d} x  {name[:150]}")
+        f"{profiled:.1f} ms profiled")
+    profile_report(prof, "request", top)
 
 
 def face_parser_batch(rs, batch: int, size: int):
@@ -926,13 +1199,18 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
     masked case is held against plain above. `ms`, `plain_ms`, `library_ms`
     (one stock PyTorch call that computes the same function, else null) and
     `bound_ms` are those of the shape named in `shape`; the flash entries
-    also list every path shape under `shapes`. GroupNorm and BatchNorm are
-    two kernels for what the library's fused op does in one call: the
-    statistics kernels have `torch.var_mean` and `torch.batch_norm_stats` as
-    their library call, the normalize kernels none, and all four carry the
-    pair's times (`pair_ms`, `pair_library_ms`)."""
+    also list every path shape under `shapes`. The one-launch GroupNorm
+    kernel stands for both TPU GroupNorm kernels (`replaces`, `replaces_also`)
+    and has `F.group_norm` (+ `F.silu`) in the same memory format as its
+    library call; its `shapes` hold every path shape it takes, `per_request`
+    the sums over all GroupNorms of a request. The split GroupNorm pair and
+    BatchNorm are two kernels for what the library's fused op does in one
+    call: the statistics kernels have `torch.var_mean` and
+    `torch.batch_norm_stats` as their library call, the normalize kernels
+    none, and all four carry the pair's times (`pair_ms`, `pair_library_ms`).
+    `graph_ms` is the device time of a launch (20 launches in a CUDA graph)."""
     from adaface_tpu_torch.ops.attention import FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE
-    from adaface_tpu_torch.ops.fused_gn import GN_NORM, GN_STATS
+    from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
@@ -970,9 +1248,18 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
     long_off = [r["err"] for k, r in off_path.items()
                 if r["variant"] == "wg" and k.startswith("masked")]
     wide_off = [r["err"] for r in off_path.values() if r["variant"] == "wide"]
-    g, b_, l_, c = gn[JSON_GN], bn[JSON_BN], ln[JSON_LN], flash["combine"]
-    gn_pair = dict(pair_ms=g["ms"], pair_library_ms=g["stock_ms"])
-    bn_pair = dict(pair_ms=b_["ms"], pair_library_ms=b_["stock_ms"])
+    g, gs, b_, l_, c = gn[JSON_GN], gn[JSON_GN_SPLIT], bn[JSON_BN], ln[JSON_LN], flash["combine"]
+    gn_keys = ("ms", "graph_ms", "plain_ms", "stock_ms", "stock_graph_ms", "host_us",
+               "stock_host_us", "bound_fn", "launches")
+    gn_shapes = {kind: {case[0]: {k.replace("stock", "library"): gn[case[0]][k] for k in gn_keys}
+                        for case in GN_CASES if gn[case[0]]["kernel"] == kind}
+                 for kind in ("fused", "split")}
+    gn_errs = lambda kind, key: max(r[key] for r in gn.values()
+                                    if isinstance(r, dict) and r.get("kernel") == kind)
+    gn_pair = dict(pair_ms=gs["ms"], pair_library_ms=gs["stock_ms"], pair_graph_ms=gs["graph_ms"],
+                   pair_library_graph_ms=gs["stock_graph_ms"], shapes=gn_shapes["split"])
+    bn_pair = dict(pair_ms=b_["ms"], pair_library_ms=b_["stock_ms"], pair_graph_ms=b_["graph_ms"],
+                   pair_library_graph_ms=b_["stock_graph_ms"])
     return {"kernels": [
         flash_entry(FLASH_T, "flash_attn_wgmma.cu", "adaface_tpu/ops/attention.py:165",
                     [flash[k]["err"] for k in short] + short_off, JSON_FLASH_T, short),
@@ -983,21 +1270,29 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
         entry(FLASH_COMBINE, "flash_attn_wide.cu", "adaface_tpu/ops/attention.py:89",
               c["err"], "2 splits of vae mid self", c["ms"], c["plain_ms"], None,
               c["bound_ms"], c["bound_by"]),
+        entry(GN_FUSED, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:23",
+              gn_errs("fused", "err"), JSON_GN, g["ms"], g["plain_ms"], g["stock_ms"],
+              g["bound_fn"], replaces_also="adaface_tpu/ops/fused_gn.py:40",
+              graph_ms=g["graph_ms"], library_graph_ms=g["stock_graph_ms"],
+              shapes=gn_shapes["fused"], per_request=gn["per request"]),
         entry(GN_STATS, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:23",
-              max(r["stats_err"] for r in gn.values()), JSON_GN, g["ms_stats"],
-              g["plain_stats"], g["stock_stats"], g["bound_stats"], **gn_pair),
+              gn_errs("split", "stats_err"), JSON_GN_SPLIT, gs["ms_stats"], gs["plain_stats"],
+              gs["stock_stats"], gs["bound_stats"], graph_ms=gs["graph_stats"],
+              library_graph_ms=gs["stock_graph_stats"], **gn_pair),
         entry(GN_NORM, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:40",
-              max(r["norm_err"] for r in gn.values()), JSON_GN, g["ms_norm"],
-              g["plain_norm"], None, g["bound_norm"], **gn_pair),
+              gn_errs("split", "norm_err"), JSON_GN_SPLIT, gs["ms_norm"], gs["plain_norm"], None,
+              gs["bound_norm"], graph_ms=gs["graph_norm"], **gn_pair),
         entry(BN_STATS, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:31",
               max(r["stats_abs"] for r in bn.values()), JSON_BN, b_["ms_stats"],
-              b_["plain_stats"], b_["stock_stats"], b_["bound_stats"], **bn_pair),
+              b_["plain_stats"], b_["stock_stats"], b_["bound_stats"],
+              graph_ms=b_["graph_stats"], library_graph_ms=b_["stock_graph_stats"], **bn_pair),
         entry(BN_NORM_ACT, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:48",
               max(r["norm_err"] for r in bn.values()), JSON_BN, b_["ms_norm"],
-              b_["plain_norm"], None, b_["bound_norm"], **bn_pair),
+              b_["plain_norm"], None, b_["bound_norm"], graph_ms=b_["graph_norm"], **bn_pair),
         entry(LAYER_NORM, "layer_norm.cu", "adaface_tpu/ops/fused_ln.py:25",
               max(r["err"] for r in ln.values()), JSON_LN, l_["ms"], l_["plain_ms"],
-              l_["stock_ms"], l_["bound_ms"]),
+              l_["stock_ms"], l_["bound_ms"], graph_ms=l_["graph_ms"],
+              library_graph_ms=l_["stock_graph_ms"]),
     ]}
 
 

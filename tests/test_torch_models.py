@@ -165,6 +165,39 @@ def test_vae_decode_matches_jax():
     assert_close_rel(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("which", ["unet", "vae"])
+def test_models_keep_channels_last_into_every_group_norm(which):
+    """Inside, the UNet and the VAE decoder keep their maps in channels-last
+    memory: every GroupNorm gets what its kernels take (`fused_gn._check`),
+    the convolution weights are converted once, and a plain contiguous
+    tensor goes in and comes out."""
+    from adaface_tpu_torch.ops import fused_gn as tgn
+
+    if which == "unet":
+        model = tunet.UNet2DConditionModel(tunet.UNetConfig(**UNET_KW)).eval()
+        args = (torch.randn(2, 4, 16, 16), torch.tensor([3, 700]), torch.randn(2, 77, D))
+        n_norms = 61
+    else:
+        model = tvae.VAEDecoder(tvae.VAEConfig(**VAE_KW)).eval()
+        args = (torch.randn(1, 4, 16, 16),)
+        n_norms = 18
+    seen = []
+
+    def check(mod, args):
+        tgn._check(args[0], mod.groups)
+        seen.append(args[0].shape)
+
+    for m in model.modules():
+        if isinstance(m, tgn.GroupNorm):
+            m.register_forward_pre_hook(check)
+    with torch.inference_mode():
+        out = model(*args)
+    assert len(seen) == n_norms
+    assert out.is_contiguous()
+    convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    assert all(m.weight.permute(0, 2, 3, 1).is_contiguous() for m in convs)
+
+
 @pytest.mark.parametrize("cfg_scale", [1.0, 0.8])
 def test_subj_basis_generator_matches_jax(cfg_scale):
     cfg_j = JSBGConfig(output_dim=D, clip=jclip.CLIPTextConfig(**TEXT_KW))

@@ -220,6 +220,175 @@ def test_group_norm_matches_pallas_interpret(hw, c, silu):
                                atol=OP_ATOL)
 
 
+def _gn_inputs(seed, hw, c, mean=0.5, std=2.0):
+    rs = np.random.RandomState(seed)
+    return ((rs.randn(2, *hw, c) * std + mean).astype(np.float32),  # NHWC, as JAX
+            (rs.randn(c) + 1.0).astype(np.float32), (rs.randn(c) * 0.1).astype(np.float32))
+
+
+def _jax_group_norm(x, scale, bias, groups, eps, silu):
+    with mock.patch.object(jgn.pl, "pallas_call",
+                           functools.partial(pl.pallas_call, interpret=True)):
+        return np.asarray(jgn.fused_group_norm_silu(x, scale, bias, groups, eps,
+                                                    apply_silu=silu, use_pallas=True))
+
+
+def _nchw(x, fmt):
+    """NHWC numpy → logical NCHW tensor in the memory format asked for."""
+    t = _t(x).permute(0, 3, 1, 2)  # a channels-last view of the NHWC array
+    assert t.permute(0, 2, 3, 1).is_contiguous()
+    return t.contiguous() if fmt == "contiguous" else t
+
+
+@pytest.mark.parametrize("fmt", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("hw,c,groups,silu", [
+    ((4, 4), 256, 32, True),  # 8 channels a group: a pack is a group
+    ((7, 7), 40, 4, True),  # 10 a group: a 16-byte pack straddles two groups; 49 rows
+    ((7, 7), 120, 4, False),  # 30 a group
+])
+def test_group_norm_memory_formats_match_pallas_interpret(fmt, hw, c, groups, silu):
+    """The input's memory format changes nothing: logical NCHW in, logical
+    NCHW out, in the format it came in."""
+    x, scale, bias = _gn_inputs(8, hw, c)
+    ref = _jax_group_norm(x, scale, bias, groups, 1e-5, silu)
+    xt = _nchw(x, fmt)
+    out = tgn.group_norm_silu(xt, _t(scale), _t(bias), groups, 1e-5, apply_silu=silu)
+    assert out.stride() == xt.stride()
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 3, 1), ref, atol=OP_ATOL)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+@pytest.mark.parametrize("hw,c,groups,slab", [
+    ((4, 4), 256, 32, 64),
+    ((7, 7), 40, 4, 40),  # 49 rows: the last chunk is short at 2, 3 (17, 17, 15) and 7... chunks
+    ((7, 7), 120, 4, 120),
+])
+def test_group_norm_chunked_arithmetic_matches_plain_and_jax(chunks, hw, c, groups, slab):
+    """The CUDA kernels' arithmetic, repeated in plain PyTorch (per-channel
+    sums around a pivot for each chunk of rows, channels folded into groups,
+    chunks folded in a fixed form, then (x - mean)·(rstd·scale) + bias),
+    against the plain version and the JAX package, on a channels-last map."""
+    x, scale, bias = _gn_inputs(9, hw, c)
+    xt = _nchw(x, "channels_last")
+    out = tgn.gn_silu_chunked(xt, _t(scale), _t(bias), groups, 1e-5, True, slab=slab,
+                              chunks=chunks)
+    plain = tgn.gn_silu_plain(xt, _t(scale), _t(bias), groups, 1e-5, True)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), atol=OP_ATOL)
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 3, 1),
+                               _jax_group_norm(x, scale, bias, groups, 1e-5, True), atol=OP_ATOL)
+    # the statistics alone, as `gn_stats` + the fold leave them
+    part, chunk_rows = tgn.gn_partials_chunked(xt, groups, slab, chunks)
+    assert part.shape == (2, groups, -(-hw[0] * hw[1] // chunk_rows), 2)
+    stats = tgn.gn_finalize_plain(part, hw[0] * hw[1], c // groups, chunk_rows, 1e-5)
+    np.testing.assert_allclose(stats.numpy(), tgn.gn_stats_plain(xt, groups, 1e-5).numpy(),
+                               atol=OP_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunks", [1, 5])
+def test_group_norm_chunked_statistics_survive_a_large_mean(dtype, chunks):
+    """Mean 100, deviation 1 (mean²/variance = 1e4): the kernels' one-pass
+    statistics keep rstd within 1e-3 of the fp64 value, where raw fp32
+    E[x²] − mean² (the JAX kernel's form) is off by more."""
+    x, _, _ = _gn_inputs(10, (16, 16), 40, mean=100.0, std=1.0)
+    xt = _nchw(x, "channels_last").to(dtype)
+    part, chunk_rows = tgn.gn_partials_chunked(xt, 4, 40, chunks)
+    stats = tgn.gn_finalize_plain(part, 256, 10, chunk_rows, 1e-5).double()
+    xd = xt.double().reshape(2 * 4, -1)
+    want = torch.rsqrt(xd.var(dim=1, unbiased=False) + 1e-5)
+    assert ((stats[:, 1] - want).abs() / want).max().item() <= 1e-3
+    assert (stats[:, 0] - xd.mean(dim=1)).abs().max().item() <= 1e-3
+    xf = xt.float().reshape(2 * 4, -1)
+    raw = torch.rsqrt((xf * xf).mean(dim=1) - xf.mean(dim=1) ** 2 + 1e-5).double()
+    assert ((stats[:, 1] - want).abs() < (raw - want).abs()).all()
+
+
+# (B, C, rows) → (kernel, slab, chunks, threads) on a 132-SM card, bf16, 32 groups
+GN_PLANS = [
+    # the UNet at CFG batch 2: every map in one cluster launch
+    ((2, 320, 4096), ("fused", 80, 8, 256)),
+    ((2, 640, 4096), ("fused", 80, 8, 256)),
+    ((2, 960, 4096), ("fused", 120, 16, 256)),
+    ((2, 320, 1024), ("fused", 80, 8, 256)),
+    ((2, 640, 1024), ("fused", 80, 4, 256)),
+    ((2, 960, 1024), ("fused", 120, 4, 256)),
+    ((2, 1280, 1024), ("fused", 80, 2, 256)),
+    ((2, 1920, 1024), ("fused", 120, 4, 256)),
+    ((2, 640, 256), ("fused", 80, 4, 160)),
+    ((2, 1280, 256), ("fused", 80, 2, 256)),
+    ((2, 1920, 256), ("fused", 120, 2, 256)),
+    ((2, 2560, 256), ("fused", 80, 1, 256)),
+    ((2, 1280, 64), ("fused", 80, 2, 128)),
+    ((2, 2560, 64), ("fused", 80, 1, 160)),
+    # the VAE decoder at batch 1: 64² fused, 128² to 512² the split pair
+    ((1, 512, 4096), ("fused", 64, 8, 256)),
+    ((1, 512, 16384), ("split", 128, 66, 512)),
+    ((1, 512, 65536), ("split", 128, 66, 512)),
+    ((1, 256, 65536), ("split", 128, 132, 512)),
+    ((1, 256, 262144), ("split", 128, 132, 512)),
+    ((1, 128, 262144), ("split", 128, 264, 512)),
+]
+
+
+@pytest.mark.parametrize("shape,want", GN_PLANS)
+def test_gn_plan(shape, want):
+    b, c, rows = shape
+    plan = tgn.gn_plan(torch.bfloat16, b, c, rows, 32, 132)
+    assert (plan.kernel, plan.slab, plan.chunks, plan.threads) == want
+    cpg = c // 32
+    # a slab is whole groups and whole 16-byte packs, a thread for each pack of a row
+    assert c % plan.slab == 0 and plan.slab % cpg == 0 and plan.slab % 8 == 0
+    assert plan.slab // 8 <= plan.threads <= 512 and plan.threads % 32 == 0
+    # no empty chunk
+    assert (plan.chunks - 1) * -(-rows // plan.chunks) < rows
+    if plan.kernel == "fused":
+        assert plan.chunks <= tgn.MAX_CLUSTER and plan.smem <= tgn.SMEM_BYTES
+    else:
+        assert plan.blocks(b, c) >= 2 * 132  # two waves at batch 1
+
+
+def test_gn_plan_forced_fp32_and_what_it_refuses():
+    # each kernel forced at a shape of the other's regime
+    fused = tgn.gn_plan(torch.bfloat16, 1, 512, 16384, 32, 132, "fused")
+    assert (fused.kernel, fused.chunks) == ("fused", 16) and fused.smem <= tgn.SMEM_BYTES
+    assert tgn.gn_plan(torch.bfloat16, 2, 320, 4096, 32, 132, "split").kernel == "split"
+    with pytest.raises(ValueError, match="does not fit"):
+        tgn.gn_plan(torch.bfloat16, 1, 128, 262144, 32, 132, "fused")
+    # fp32: packs of 4 channels, twice the bytes a row
+    plan = tgn.gn_plan(torch.float32, 2, 320, 4096, 32, 132)
+    assert plan.kernel == "fused" and plan.slab % 4 == 0 and plan.smem <= tgn.SMEM_BYTES
+    # a narrow map takes all its channels; channels off a pack are refused
+    assert tgn.gn_plan(torch.bfloat16, 2, 32, 64, 8, 132).slab == 32
+    with pytest.raises(ValueError, match="multiple"):
+        tgn.gn_plan(torch.bfloat16, 2, 36, 64, 4, 132)
+    # fewer SMs, smaller clusters; the plan reads nothing but its arguments
+    assert tgn.gn_plan(torch.bfloat16, 2, 640, 1024, 32, 64).chunks == 2
+
+
+@pytest.mark.parametrize("case", ["nchw", "strided", "dtype", "rank", "groups", "cpu"])
+def test_group_norm_kernels_reject_what_they_do_not_take(case):
+    """The checks before any launch read only dtype, shape, strides and
+    device, so they run here on CPU tensors. The kernels take channels-last
+    memory only and copy nothing themselves."""
+    x = torch.zeros(2, 16, 4, 4).contiguous(memory_format=torch.channels_last)
+    tgn._check(x, 4)
+    match, check, groups = "channels-last", tgn._check, 4
+    if case == "nchw":
+        x = x.contiguous()
+    elif case == "strided":
+        x = torch.zeros(2, 32, 4, 4).contiguous(memory_format=torch.channels_last)[:, ::2]
+    elif case == "dtype":
+        x, match = x.to(torch.float16), "dtype"
+    elif case == "rank":
+        x = torch.zeros(2, 16, 8)
+    elif case == "groups":
+        groups, match = 3, "groups"
+    else:
+        check, match = tgn._check_cuda, "no kernel for device"
+    with pytest.raises(ValueError, match=match):
+        check(x, groups)
+
+
 def _ln_inputs(seed, rows, c):
     rs = np.random.RandomState(seed)
     return ((rs.randn(rows, c) * 2.0 + 0.5).astype(np.float32),
