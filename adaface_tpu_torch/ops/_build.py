@@ -28,7 +28,7 @@ import tempfile
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu",
-           "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu")
+           "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu", "launch_floor.cu")
 HEADERS = ("flash_common.cuh",)  # included by the sources: part of the library's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -39,6 +39,15 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 def reset_launch_counts() -> None:
     LAUNCHES.clear()
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`: what the wrappers'
+    plans size their grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _nvcc() -> str:
@@ -108,13 +117,24 @@ def load_library() -> ctypes.CDLL:
     lib.gn_stats.restype = i32
     lib.gn_norm.argtypes = [p, p, p, p, p] + gn_geometry + [f32, i32, i32, p]
     lib.gn_norm.restype = i32
-    lib.bn_stats.argtypes = [p, p, p, i64, i32, i32, f32, i32, p]
+    # x, partial, stats, ticket, rows, C, chunks, chunk rows, threads, lanes, vec, eps, bf16,
+    # stream
+    lib.bn_stats.argtypes = [p, p, p, p, i64, i32, i32, i64, i32, i32, i32, f32, i32, p]
     lib.bn_stats.restype = i32
     lib.bn_norm_act.argtypes = [p, p, p, p, p, p, i64, i32, f32, i32, p]
     lib.bn_norm_act.restype = i32
-    lib.layer_norm.argtypes = [p, p, p, p, i64, i32, f32, i32, p]
+    # x, w, b, y, rows, C, packs, lanes, warps, threads, eps, bf16, stream
+    lib.layer_norm.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, i32, f32, i32, p]
     lib.layer_norm.restype = i32
+    lib.launch_floor.argtypes = [p]
+    lib.launch_floor.restype = i32
     return lib
+
+
+def launch_floor(stream: int) -> None:
+    """Launch the empty kernel of `csrc/launch_floor.cu` on `stream`: the
+    yardstick for what one launch costs on the device. Not counted."""
+    check(load_library().launch_floor(stream), "launch_floor")
 
 
 def check(rc: int, kernel: str) -> None:

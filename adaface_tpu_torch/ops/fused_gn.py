@@ -225,14 +225,9 @@ def gn_plan(dtype, b: int, c: int, rows: int, groups: int, sms: int,
     return GnPlan("split", slab, -(-rows // rows_per), SPLIT_THREADS, 0)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(x, groups: int, kernel: str | None = None) -> GnPlan:
     b, c, h, w = x.shape
-    return gn_plan(x.dtype, b, c, h * w, groups, _sm_count(x.device.index), kernel)
+    return gn_plan(x.dtype, b, c, h * w, groups, _build.sm_count(x.device.index), kernel)
 
 
 def _check(x, groups: int):

@@ -15,8 +15,16 @@ Phases (any failure raises and the exit code is not 0):
      kernels on channels-last maps at every shape of the path, each with
      the kernel `gn_plan` gives it, the one-launch kernel and the split pair
      each forced at a shape of the other's regime, an fp32 case, a case with
-     mean 100 and deviation 1, and two runs held to the same bits; print
-     errors, median times (single launches, and for GroupNorm, LayerNorm and
+     mean 100 and deviation 1, and two runs held to the same bits; the
+     batch norm statistics at every BN shape of the face parser and the
+     LayerNorm at every LN shape of the UNet, each with two runs held to the
+     same bits, `bn_stats` also against its own arithmetic in plain PyTorch;
+     the instances no path reaches (channels off a 16-byte pack, a pointer
+     off 16 bytes, channel tiles, other widths in registers and over several
+     warps); `bn_stats` at mean 100 and deviation 1 (its mean bounded, its
+     rstd reported against fp64); both captured in one CUDA graph and
+     replayed twice to the same bits; an empty kernel's launch as the floor
+     of the small shapes; print errors, median times (single launches, and for GroupNorm, LayerNorm and
      BatchNorm also 20 launches as a CUDA graph: the device alone), each
      kernel's bound (the larger of bytes / 3.35 TB/s and operations / 989
      TFLOP/s) and the stock PyTorch op's time (a yardstick only: the port
@@ -32,8 +40,10 @@ Phases (any failure raises and the exit code is not 0):
   6. face-parser training at its published configuration (BiSeNet-ResNet18,
      batch 16, crop 448, fp32, OHEM, SGD): one train step's loss and
      gradients, kernels against plain, under deterministic cuDNN without
-     TF32, beside the envelope of plain with fp64 BN statistics; then 10 steps of the port's train step and optimizer with the BN
-     launch counts, steps/sec and the memory peak; then one eval-mode
+     TF32, beside the envelope of plain with fp64 BN statistics; then 10
+     steps of the port's train step and optimizer with the BN launch counts
+     (one `bn_stats` and one `bn_norm_act` launch a BN, the BNs counted by
+     shape against BN_CASES), steps/sec and the memory peak; then one eval-mode
      forward at 512x512 to a face mask.
 Each path runs with the launch counts set to 0 just before it and checked
 just after. The line before the last holds the per-kernel JSON record; the
@@ -124,27 +134,54 @@ UNET_CALLS = 25  # per request: DDIM steps, one CFG batch-2 call each
 GN_FORCED = [("vae resnet 128x128 512", "fused"), ("unet resnet 64x64 320", "split"),
              ("unet resnet 8x8 1280", "split")]
 RSTD_REL_TOL = 1e-3  # statistics of a map with mean 100 and deviation 1, against fp64
-# (label, R, C, slope, dtype): the train-mode BNs of BiSeNet at batch 16,
-# 448x448 as [R = N*H*W, C] (`adaface_tpu/models/bisenet.py:148-198`);
-# slope 0 is ReLU, 1 no activation
+# (label, R, C, slope, dtype, BNs per train step): the train-mode BNs of
+# BiSeNet at batch 16, 448x448 as [R = N*H*W, C]
+# (`adaface_tpu/models/bisenet.py:148-198`); slope 0 is ReLU, 1 no activation
+# (a shape's BNs are counted together, whatever their slope);
+# `train_face_parser` counts the shapes the model really sees against this table
 BN_CASES = [
-    ("stem 224x224", 802816, 64, 0.0, torch.float32),
-    ("layer1 112x112", 200704, 64, 1.0, torch.float32),
-    ("layer2 56x56", 50176, 128, 0.0, torch.float32),
-    ("layer3 28x28", 12544, 256, 0.0, torch.float32),
-    ("layer4 14x14", 3136, 512, 1.0, torch.float32),
-    ("ffm 56x56", 50176, 256, 0.0, torch.float32),
-    ("arm attention 1x1", 16, 128, 1.0, torch.float32),
-    ("layer1 112x112 bf16", 200704, 64, 0.0, torch.bfloat16),
+    ("stem 224x224", 802816, 64, 0.0, torch.float32, 1),
+    ("layer1 112x112", 200704, 64, 1.0, torch.float32, 4),
+    ("layer2 56x56", 50176, 128, 0.0, torch.float32, 6),
+    ("layer3 28x28", 12544, 256, 0.0, torch.float32, 5),
+    ("layer4 14x14", 3136, 512, 1.0, torch.float32, 5),
+    ("ffm 56x56", 50176, 256, 0.0, torch.float32, 2),
+    ("arm attention 1x1", 16, 128, 1.0, torch.float32, 3),
+    ("head 56x56", 50176, 64, 0.0, torch.float32, 1),
+    ("arm 28x28", 12544, 128, 0.0, torch.float32, 2),
+    ("head 28x28", 12544, 64, 0.0, torch.float32, 1),
+    ("arm 14x14", 3136, 128, 0.0, torch.float32, 1),
+    ("layer1 112x112 bf16", 200704, 64, 0.0, torch.bfloat16, 0),
 ]
 BN_EPS = 1e-5
-# (label, rows, C, dtype): the UNet's LayerNorms at CFG batch 2
+# (label, rows, C, dtype, launches per fused-LN UNet call): the UNet's
+# LayerNorms at CFG batch 2 (three in each of its 16 transformer blocks);
+# `check_unet` counts the shapes the modules really see against this table
 LN_CASES = [
-    ("unet 64x64", 8192, 320, torch.bfloat16),
-    ("unet 32x32", 2048, 640, torch.bfloat16),
-    ("unet 16x16", 512, 1280, torch.bfloat16),
-    ("unet 8x8", 128, 1280, torch.bfloat16),
-    ("unet 64x64 fp32", 8192, 320, torch.float32),
+    ("unet 64x64", 8192, 320, torch.bfloat16, 15),
+    ("unet 32x32", 2048, 640, torch.bfloat16, 15),
+    ("unet 16x16", 512, 1280, torch.bfloat16, 15),
+    ("unet 8x8", 128, 1280, torch.bfloat16, 3),
+    ("unet 64x64 fp32", 8192, 320, torch.float32, 0),
+]
+# off the path, for the instances no path reaches: (label, rows, C, dtype,
+# elements the pointer of x is moved off its 16-byte alignment)
+BN_SCALAR_CASES = [
+    ("odd C", 12545, 65, torch.float32, 0),
+    ("odd C bf16", 12545, 65, torch.bfloat16, 0),
+    ("pointer off 16 bytes", 50176, 128, torch.float32, 1),
+    ("pointer off 16 bytes bf16", 50176, 128, torch.bfloat16, 1),
+    ("C over a block", 1000, 1100, torch.float32, 0),  # channel tiles, the fold's channel loop
+]
+LN_OFF_PATH_CASES = [
+    ("odd C looped", 1000, 77, torch.bfloat16, 0),
+    ("pointer off 16 bytes looped", 2048, 640, torch.bfloat16, 1),
+    ("packs off the lanes looped", 512, 1288, torch.float32, 0),  # 322 packs: no lane count fits
+    ("768 in registers", 1101, 768, torch.bfloat16, 0),  # 16 lanes x 6 packs, a ragged last block
+    ("64 in registers", 77, 64, torch.float32, 0),  # 8 lanes x 2 packs
+    ("1024 over 4 warps", 77, 1024, torch.bfloat16, 0),
+    ("256 fp32 over 2 warps", 300, 256, torch.float32, 0),
+    ("1280 in registers", 2048, 1280, torch.bfloat16, 0),  # too many rows to split
 ]
 LOSS_REL_TOL = 1e-4  # one fp32 train step, kernels against plain
 GRAD_REL_TOL = 1e-3  # the BN Function's gradients, kernel residuals against plain
@@ -156,7 +193,7 @@ GRAD_REL_TOL = 1e-3  # the BN Function's gradients, kernel residuals against pla
 # that envelope, measured in the same run, and never to less than GRAD_REL_TOL.
 ENVELOPE = 2.0
 TRAIN_STEPS = 10
-BISENET_BNS = 31  # train-mode BNs per BiSeNet forward
+BISENET_BNS = sum(case[5] for case in BN_CASES)  # train-mode BNs per BiSeNet forward: 31
 # shapes whose times go into the JSON record: the heaviest of each kernel
 # that the UNet, which runs 25 times per image, gives it, and the face
 # parser's stem
@@ -602,19 +639,66 @@ def rel_max_err(out, ref) -> float:
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
+def off_alignment(t, off: int):
+    """A contiguous copy of t whose first element lies `off` elements past a
+    16-byte boundary."""
+    flat = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    out = flat[off:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def launch_floor_ms() -> float:
+    """Device time of an empty kernel's launch, as `graph_ms` times the
+    kernels: 20 launches in a CUDA graph."""
+    from adaface_tpu_torch.ops import _build
+
+    return graph_ms(lambda: _build.launch_floor(torch.cuda.current_stream().cuda_stream))
+
+
+def graph_replays_same_bits(fn) -> bool:
+    """Capture one call of `fn` (→ a tuple of tensors) in a CUDA graph, replay
+    it twice, and compare both replays' outputs with an eager call's, bit for
+    bit."""
+    eager = [t.clone() for t in fn()]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    replays = []
+    for _ in range(2):
+        for t in out:
+            t.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.clone() for t in out])
+    return all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(eager, replays[0], replays[1]))
+
+
 def check_bn(gen) -> dict:
     from adaface_tpu_torch.ops import fused_norm as N
 
     results = {}
-    for label, r, c, slope, dtype in BN_CASES:
+    floor = launch_floor_ms()
+    log(f"launch floor: an empty kernel takes {floor * 1e3:.2f} us of device time a launch "
+        f"(20 launches in a CUDA graph)")
+    for label, r, c, slope, dtype, per_step in BN_CASES:
         tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
         x = (torch.randn((r, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
         scale = torch.randn((c,), generator=gen, device="cuda") + 1.0
         bias = torch.randn((c,), generator=gen, device="cuda") * 0.1
+        plan = N.plan_for(x)
         mean, rstd = N.bn_stats(x, BN_EPS)
         mean_p, rstd_p = N.bn_stats_plain(x, BN_EPS)
         stats_err = max(rel_max_err(mean, mean_p), rel_max_err(rstd, rstd_p))
         stats_abs = max(max_err(mean, mean_p)[0], max_err(rstd, rstd_p)[0])
+        # two runs, and the kernel's arithmetic in plain PyTorch
+        again = N.bn_stats(x, BN_EPS)
+        same_bits = torch.equal(mean, again[0]) and torch.equal(rstd, again[1])
+        mean_c, rstd_c = N.bn_stats_chunked(x, BN_EPS, plan)
+        mirror_err = max(rel_max_err(mean, mean_c), rel_max_err(rstd, rstd_c))
+        mirror_bits = torch.equal(mean, mean_c) and torch.equal(rstd, rstd_c)
         # the normalize pass on the same statistics, then the pair
         norm_err, mag = max_err(N.bn_norm_act(x, mean_p, rstd_p, scale, bias, slope),
                                 N.bn_norm_act_plain(x, mean_p, rstd_p, scale, bias, slope))
@@ -639,27 +723,92 @@ def check_bn(gen) -> dict:
         stock_dev_stats = graph_ms(lambda: torch.batch_norm_stats(x, BN_EPS))
         stock_dev = graph_ms(lambda: F.leaky_relu(
             F.batch_norm(x4, None, None, scale, bias, training=True, eps=BN_EPS), slope))
+        host, stock_host = (host_us(lambda: N.bn_stats(x, BN_EPS)),
+                            host_us(lambda: torch.batch_norm_stats(x, BN_EPS)))
         x_bytes = x.numel() * x.element_size()
         bound_stats, _ = bound(x_bytes + 2 * c * 4)
         bound_norm, _ = bound(2 * x_bytes + 4 * c * 4)
-        log(f"bn {label:20s} R{r} C{c} slope {slope:g} {dtype}: stats rel_err {stats_err:.3e} "
-            f"(bound {FP32_TOL:g}) norm max_abs_err {norm_err:.3e} (bound {tol * mag:.3e}) "
+        log(f"bn {label:20s} R{r} C{c} slope {slope:g} {dtype} x{per_step} a step, plan vec "
+            f"{plan.vec} threads {plan.threads} lanes {plan.lanes} chunks {plan.chunks}: stats "
+            f"rel_err {stats_err:.3e} (bound {FP32_TOL:g}), against its arithmetic in plain "
+            f"PyTorch {mirror_err:.3e} (same bits: {mirror_bits}), two runs same bits: "
+            f"{same_bits}; norm max_abs_err {norm_err:.3e} (bound {tol * mag:.3e}) "
             f"full max_abs_err {err:.3e} | stats {ms_stats:.3f} ms (plain {plain_stats:.3f}, "
             f"torch.batch_norm_stats {stock_stats:.3f}) "
             f"norm {ms_norm:.3f} ms (plain {plain_norm:.3f}) full {ms:.3f} ms "
             f"plain {plain_ms:.3f} ms stock {stock_ms:.3f} ms | device alone (CUDA graph): stats "
             f"{dev_stats:.4f} ms (torch.batch_norm_stats {stock_dev_stats:.4f}) norm "
-            f"{dev_norm:.4f} ms full {dev:.4f} ms (stock {stock_dev:.4f}) | least, by bytes: "
+            f"{dev_norm:.4f} ms full {dev:.4f} ms (stock {stock_dev:.4f}) | host per call: "
+            f"stats {host:.1f} us torch.batch_norm_stats {stock_host:.1f} us | least, by bytes: "
             f"stats {bound_stats:.4f} ms norm {bound_norm:.4f} ms")
-        if stats_err > FP32_TOL or norm_err > tol * mag or err > tol * mag_full:
+        if not same_bits:
+            raise AssertionError(f"bn {label}: two runs of bn_stats differ")
+        if (stats_err > FP32_TOL or mirror_err > FP32_SUM_TOL or norm_err > tol * mag
+                or err > tol * mag_full):
             raise AssertionError(f"bn {label}: error above bound")
         results[label] = dict(stats_err=stats_err, stats_abs=stats_abs, norm_err=norm_err,
+                              mirror_err=mirror_err, mirror_bits=mirror_bits,
                               err=err, ms_stats=ms_stats, plain_stats=plain_stats,
                               ms_norm=ms_norm, plain_norm=plain_norm, ms=ms, plain_ms=plain_ms,
                               stock_ms=stock_ms, stock_stats=stock_stats,
                               graph_stats=dev_stats, graph_norm=dev_norm, graph_ms=dev,
                               stock_graph_stats=stock_dev_stats, stock_graph_ms=stock_dev,
-                              bound_stats=bound_stats, bound_norm=bound_norm)
+                              host_us=host, stock_host_us=stock_host,
+                              bound_stats=bound_stats, bound_norm=bound_norm,
+                              launches=per_step, plan=dataclasses.asdict(plan))
+
+    sums = {k: sum(r["launches"] * r[k] for r in results.values())
+            for k in ("graph_stats", "stock_graph_stats", "bound_stats", "graph_norm",
+                      "bound_norm", "graph_ms", "stock_graph_ms")}
+    log(f"bn per train step ({BISENET_BNS} BNs): bn_stats {sums['graph_stats']:.4f} ms of "
+        f"device time (torch.batch_norm_stats {sums['stock_graph_stats']:.4f}, least "
+        f"{sums['bound_stats']:.4f}), bn_norm_act {sums['graph_norm']:.4f} ms (least "
+        f"{sums['bound_norm']:.4f}), the pair {sums['graph_ms']:.4f} ms (F.batch_norm + "
+        f"F.leaky_relu {sums['stock_graph_ms']:.4f})")
+
+    # the instances no path reaches: single channels (C off a pack, a pointer
+    # off 16 bytes) and channel tiles (C over a block's lanes)
+    for label, r, c, dtype, off in BN_SCALAR_CASES:
+        x = off_alignment((torch.randn((r, c), generator=gen, device="cuda") * 2.0 + 0.5)
+                          .to(dtype), off)
+        plan = N.plan_for(x)
+        mean, rstd = N.bn_stats(x, BN_EPS)
+        again = N.bn_stats(x, BN_EPS)
+        mean_p, rstd_p = N.bn_stats_plain(x, BN_EPS)
+        stats_err = max(rel_max_err(mean, mean_p), rel_max_err(rstd, rstd_p))
+        same_bits = torch.equal(mean, again[0]) and torch.equal(rstd, again[1])
+        dev = graph_ms(lambda: N.bn_stats(x, BN_EPS))
+        log(f"bn off the path, {label}: R{r} C{c} {dtype} pointer % 16 = {x.data_ptr() % 16}, "
+            f"plan vec {plan.vec} threads {plan.threads} lanes {plan.lanes} chunks "
+            f"{plan.chunks} x {plan.grid(c)[1]} channel tiles: stats rel_err {stats_err:.3e} "
+            f"(bound {FP32_TOL:g}), two runs same bits: {same_bits}, device {dev:.4f} ms")
+        if (plan.vec != 1 and off) or stats_err > FP32_TOL or not same_bits:
+            raise AssertionError(f"bn off the path, {label}: wrong instance, error above bound "
+                                 "or two runs differ")
+        results[f"off path: {label}"] = dict(stats_err=stats_err, graph_stats=dev)
+
+    # mean 100, deviation 1: E[x^2] - mean^2 in fp32 loses digits of rstd by
+    # design (the TPU kernel's formula), so rstd is reported against fp64
+    # beside the plain version's, and only the mean is bounded
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn((50176, 128), generator=gen, device="cuda") + 100.0).to(dtype)
+        mean, rstd = N.bn_stats(x, BN_EPS)
+        _, rstd_p = N.bn_stats_plain(x, BN_EPS)
+        xd = x.double()
+        want_mean = xd.mean(0)
+        want_rstd = torch.rsqrt(xd.var(0, unbiased=False) + BN_EPS)
+        mean_rel = ((mean - want_mean).abs() / want_mean.abs()).max().item()
+        rstd_rel = ((rstd - want_rstd).abs() / want_rstd).max().item()
+        plain_rel = ((rstd_p - want_rstd).abs() / want_rstd).max().item()
+        log(f"bn mean 100 deviation 1 R50176 C128 {dtype}: mean rel_err {mean_rel:.3e} against "
+            f"fp64 (bound {FP32_TOL:g}); rstd rel_err {rstd_rel:.3e} against fp64, not bounded "
+            f"(the plain version's: {plain_rel:.3e})")
+        if not mean_rel <= FP32_TOL or not torch.isfinite(rstd).all():
+            raise AssertionError(f"bn adversarial {dtype}: mean off by {mean_rel}")
+        results[f"adversarial {dtype}"] = dict(mean_rel=mean_rel, rstd_rel=rstd_rel,
+                                               plain_rstd_rel=plain_rel)
+    results["per step"] = sums
+    results["launch floor"] = floor
     return results
 
 
@@ -667,28 +816,103 @@ def check_ln(gen) -> dict:
     from adaface_tpu_torch.ops import fused_ln as L
 
     results = {}
-    for label, rows, c, dtype in LN_CASES:
-        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+    floor = launch_floor_ms()
+
+    def inputs(rows, c, dtype, off=0):
         x = (torch.randn((rows, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
         w = (torch.randn((c,), generator=gen, device="cuda") + 1.0).to(dtype)
         b = (torch.randn((c,), generator=gen, device="cuda") * 0.1).to(dtype)
-        err, mag = max_err(L.layer_norm(x, w, b, 1e-5), L.layer_norm_plain(x, w, b, 1e-5))
+        return off_alignment(x, off), w, b
+
+    for label, rows, c, dtype, per_call in LN_CASES:
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        x, w, b = inputs(rows, c, dtype)
+        plan = L.ln_plan(rows, c, dtype,
+                         torch.cuda.get_device_properties(0).multi_processor_count)
+        out = L.layer_norm(x, w, b, 1e-5)
+        err, mag = max_err(out, L.layer_norm_plain(x, w, b, 1e-5))
+        same_bits = torch.equal(out, L.layer_norm(x, w, b, 1e-5))
         torch.cuda.synchronize()
-        ms = median_ms(lambda: L.layer_norm(x, w, b, 1e-5))
+        kernel = lambda: L.layer_norm(x, w, b, 1e-5)
+        stock = lambda: F.layer_norm(x, (c,), w, b, 1e-5)
+        ms = median_ms(kernel)
         plain_ms = median_ms(lambda: L.layer_norm_plain(x, w, b, 1e-5))
-        stock_ms = median_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5))
-        dev = graph_ms(lambda: L.layer_norm(x, w, b, 1e-5))
-        stock_dev = graph_ms(lambda: F.layer_norm(x, (c,), w, b, 1e-5))
+        stock_ms = median_ms(stock)
+        dev, stock_dev = graph_ms(kernel), graph_ms(stock)
+        host, stock_host = host_us(kernel), host_us(stock)
         bound_ms, _ = bound((2 * x.numel() + 2 * c) * x.element_size())
-        log(f"ln {label:16s} [{rows}, {c}] {dtype}: max_abs_err {err:.3e} "
-            f"(bound {tol * mag:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
+        launches = UNET_CALLS * per_call
+        log(f"ln {label:16s} [{rows}, {c}] {dtype} x{launches} a fused-LN request, plan "
+            f"{plan.warps} warps x {plan.lanes} lanes x {plan.packs} packs a row, "
+            f"{plan.threads} threads, {plan.blocks(rows)} blocks: max_abs_err {err:.3e} "
+            f"(bound {tol * mag:.3e}), two runs same bits: {same_bits}; kernel {ms:.3f} ms "
+            f"plain {plain_ms:.3f} ms "
             f"stock {stock_ms:.3f} ms | device alone (CUDA graph): kernel {dev:.4f} ms stock "
-            f"{stock_dev:.4f} ms | least, by bytes: {bound_ms:.4f} ms")
-        if err > tol * mag:
-            raise AssertionError(f"ln {label}: error {err} above bound")
+            f"{stock_dev:.4f} ms | host per call: kernel {host:.1f} us stock {stock_host:.1f} "
+            f"us | least, by bytes: {bound_ms:.4f} ms; an empty kernel's launch: {floor:.4f} ms")
+        if err > tol * mag or not same_bits or plan.packs == 0:
+            raise AssertionError(f"ln {label}: error {err} above bound, two runs differ, or "
+                                 "the row is not held in registers")
         results[label] = dict(err=err, ms=ms, plain_ms=plain_ms, stock_ms=stock_ms,
-                              graph_ms=dev, stock_graph_ms=stock_dev, bound_ms=bound_ms)
+                              graph_ms=dev, stock_graph_ms=stock_dev, bound_ms=bound_ms,
+                              host_us=host, stock_host_us=stock_host, launches=launches,
+                              plan=dataclasses.asdict(plan))
+
+    sums = {k: sum(r["launches"] * r[k] for r in results.values())
+            for k in ("graph_ms", "stock_graph_ms", "bound_ms")}
+    n = sum(r["launches"] for r in results.values())
+    log(f"ln per fused-LN 512x512 25-step request ({n} launches): kernel "
+        f"{sums['graph_ms']:.3f} ms of device time, F.layer_norm {sums['stock_graph_ms']:.3f} "
+        f"ms, least by bytes {sums['bound_ms']:.3f} ms, {n} empty launches {n * floor:.3f} ms")
+
+    # off the path: the looped kernel (single channels and 16-byte packs) and
+    # register instances of other widths
+    for label, rows, c, dtype, off in LN_OFF_PATH_CASES:
+        tol = FP32_TOL if dtype == torch.float32 else BF16_TOL
+        x, w, b = inputs(rows, c, dtype, off)
+        plan = L.ln_plan(rows, c, dtype, 132, x.data_ptr() % 16 == 0)
+        out = L.layer_norm(x, w, b, 1e-5)
+        err, mag = max_err(out, L.layer_norm_plain(x, w, b, 1e-5))
+        same_bits = torch.equal(out, L.layer_norm(x, w, b, 1e-5))
+        dev = graph_ms(lambda: L.layer_norm(x, w, b, 1e-5))
+        log(f"ln off the path, {label}: [{rows}, {c}] {dtype} pointer % 16 = "
+            f"{x.data_ptr() % 16}, plan {plan.warps} warps x {plan.lanes} lanes x {plan.packs} "
+            f"packs a row: max_abs_err "
+            f"{err:.3e} (bound {tol * mag:.3e}), two runs same bits: {same_bits}, device "
+            f"{dev:.4f} ms")
+        if err > tol * mag or not same_bits or (plan.packs == 0) != ("looped" in label):
+            raise AssertionError(f"ln off the path, {label}: error above bound, two runs "
+                                 "differ, or the wrong kernel")
+        results[f"off path: {label}"] = dict(err=err, graph_ms=dev)
+    results["per request"] = dict(launches=n, **sums)
+    results["launch floor"] = floor
     return results
+
+
+def check_graph_capture(gen) -> None:
+    """`bn_stats` and `layer_norm` captured in one CUDA graph and replayed
+    twice: the same bits as an eager call, at a path shape of each."""
+    from adaface_tpu_torch.ops import fused_ln as L
+    from adaface_tpu_torch.ops import fused_norm as N
+
+    _, r, c, _, _, _ = BN_CASES[2]
+    xb = torch.randn((r, c), generator=gen, device="cuda") * 2.0 + 0.5
+    _, rows, cl, dtype, _ = LN_CASES[0]
+    xl = (torch.randn((rows, cl), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+    w = (torch.randn((cl,), generator=gen, device="cuda") + 1.0).to(dtype)
+    b = (torch.randn((cl,), generator=gen, device="cuda") * 0.1).to(dtype)
+
+    def both():
+        mean, rstd = N.bn_stats(xb, BN_EPS)
+        mean2, rstd2 = N.bn_stats(xb, BN_EPS)  # the ticket is back at 0 for the second
+        return mean, rstd, mean2, rstd2, L.layer_norm(xl, w, b, 1e-5)
+
+    same = graph_replays_same_bits(both)
+    log(f"CUDA graph: bn_stats (R{r} C{c}, twice) and layer_norm ([{rows}, {cl}]) captured and "
+        f"replayed twice, same bits as eager: {same}")
+    if not same:
+        raise AssertionError("a replayed CUDA graph of bn_stats and layer_norm differs from "
+                             "the eager call")
 
 
 def check_bn_backward(gen) -> dict:
@@ -698,7 +922,7 @@ def check_bn_backward(gen) -> dict:
     from adaface_tpu_torch.ops import fused_norm as N
 
     results = {}
-    for label, r, c, slope, dtype in BN_CASES:
+    for label, r, c, slope, dtype, _ in BN_CASES:
         if dtype != torch.float32:
             continue
         x = torch.randn((r, c), generator=gen, device="cuda") * 2.0 + 0.5
@@ -729,6 +953,7 @@ def check_kernels():
         flash = check_flash(gen)
         flash["combine"] = check_flash_combine(gen)
         gn, bn, ln = check_gn(gen), check_bn(gen), check_ln(gen)
+        check_graph_capture(gen)
     check_bn_backward(gen)
     return flash, gn, bn, ln
 
@@ -812,25 +1037,50 @@ def expect_counts(counts: dict, unet_calls: int = 0, decodes: int = 0,
 
 
 @contextmanager
-def gn_census(module):
-    """Count the (shape, eps, SiLU) of every GroupNorm call inside `module`
-    while the block runs; yields the counter."""
+def census(module, cls, key):
+    """Count `key(submodule, args, kwargs)` over every forward call of a
+    submodule of class `cls` inside `module` while the block runs (None is
+    not counted); yields the counter."""
     import collections
-
-    from adaface_tpu_torch.ops.fused_gn import GroupNorm
 
     seen: collections.Counter = collections.Counter()
 
     def hook(mod, args, kwargs):
-        seen[(tuple(args[0].shape), mod.eps, bool(kwargs.get("silu", False)))] += 1
+        k = key(mod, args, kwargs)
+        if k is not None:
+            seen[k] += 1
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
-               for m in module.modules() if isinstance(m, GroupNorm)]
+               for m in module.modules() if isinstance(m, cls)]
     try:
         yield seen
     finally:
         for h in handles:
             h.remove()
+
+
+def gn_census(module):
+    """The (shape, eps, SiLU) of every GroupNorm call inside `module`."""
+    from adaface_tpu_torch.ops.fused_gn import GroupNorm
+
+    return census(module, GroupNorm, lambda mod, args, kwargs: (
+        tuple(args[0].shape), mod.eps, bool(kwargs.get("silu", False))))
+
+
+def ln_census(module):
+    """The (rows, C) of every kernel LayerNorm call inside `module`."""
+    from adaface_tpu_torch.ops.fused_ln import LayerNorm
+
+    return census(module, LayerNorm, lambda mod, args, kwargs: (
+        args[0].numel() // args[0].shape[-1], args[0].shape[-1]))
+
+
+def bn_census(module):
+    """The (R, C) of every train-mode BN input inside `module`."""
+    from adaface_tpu_torch.models.bisenet import BatchNormAct
+
+    return census(module, BatchNormAct, lambda mod, args, kwargs: (
+        (args[0].numel() // args[0].shape[1], args[0].shape[1]) if mod.training else None))
 
 
 def expect_census(seen: dict, unet_calls: int = 0, decodes: int = 0):
@@ -841,6 +1091,14 @@ def expect_census(seen: dict, unet_calls: int = 0, decodes: int = 0):
     want = {k: v for k, v in want.items() if v}
     if dict(seen) != want:
         raise AssertionError(f"GroupNorm calls {dict(seen)}, expected {want}")
+
+
+def expect_bn_census(seen: dict, forwards: int):
+    """The BNs a BiSeNet really ran against BN_CASES, the table the per-step
+    sums are taken over."""
+    want = {(r, c): per_step * forwards for _, r, c, _, _, per_step in BN_CASES if per_step}
+    if dict(seen) != want:
+        raise AssertionError(f"BN calls {dict(seen)}, expected {want}")
 
 
 def check_unet(gen) -> dict:
@@ -879,10 +1137,14 @@ def check_unet(gen) -> dict:
                     "cuda", torch.bfloat16, lambda m, _: m.load_state_dict(state), gen)
     with torch.inference_mode():
         _build.reset_launch_counts()
-        eps_ln = unet_ln(x, t, ctx).float()
+        with ln_census(unet_ln) as seen_ln:
+            eps_ln = unet_ln(x, t, ctx).float()
         torch.cuda.synchronize()
         ln_counts = launch_counts()
         expect_counts(ln_counts, unet_calls=1, fused_ln_calls=1)
+        want_ln = {(rows, c): n for _, rows, c, _, n in LN_CASES if n}
+        if dict(seen_ln) != want_ln:
+            raise AssertionError(f"LayerNorm calls {dict(seen_ln)}, expected {want_ln}")
         with plain_versions():
             ref_ln = unet_ln(x, t, ctx).float()
         # in turns: default, fused LN, fused LN, default
@@ -991,6 +1253,7 @@ def serve(gen) -> dict:
 PROFILE_KINDS = (("layout transpose", r"nchwToNhwc|nhwcToNchw"),
                  ("convolution", r"fprop|conv|wgrad|dgrad"),
                  ("group norm kernel", r"gn_(stats|norm|fused)"),
+                 ("batch norm kernel", r"\bbn_(stats|partial|finalize|norm_act)_kernel"),
                  ("flash kernel", r"flash_"),
                  ("copy", r"copy|Memcpy"),
                  ("concatenation", r"CatArray"),
@@ -1051,6 +1314,83 @@ def profile_request(top: int = 25) -> None:
     profile_report(prof, "request", top)
 
 
+def short_kernel_name(name: str) -> str:
+    """`void (anonymous namespace)::k<float>(float const*, ...)` → `k<float>`."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")[:60]
+
+
+def profile_train_step(top: int = 25) -> None:
+    """Device time by kernel over one face-parser train step at the published
+    configuration (batch 16, crop 448, fp32), with torch.profiler; not part of
+    the smoke run:
+
+        python3 -c "import chip_smoke as c; c.profile_train_step()"
+
+    Prints the step's time on the host clock with the profiler off and on,
+    the sum of the CUDA kernels' times in all and by kind, the kernels by
+    total time, and the train-mode BNs of one step by shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.train.face_parsing_train import (make_face_parsing_optimizer,
+                                                            make_face_parsing_train_step)
+
+    require_cuda()
+    build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cfg, _, batches, model = build_face_parser(gen)
+    step = make_face_parsing_train_step(cfg, model, make_face_parsing_optimizer(cfg, model))
+
+    def one(i):
+        t0 = time.perf_counter()
+        step(*batches[i % 2])["loss"].item()
+        return (time.perf_counter() - t0) * 1e3
+
+    plain_runs = [one(i) for i in range(5)]  # the first warms up
+    with bn_census(model) as seen, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = one(5)
+    log(f"profile: train step {', '.join(f'{x:.1f}' for x in plain_runs)} ms unprofiled, "
+        f"{profiled:.1f} ms profiled")
+    log(f"profile: train-mode BNs of the step by (R, C): {dict(seen)}")
+    expect_bn_census(seen, 1)
+    profile_report(prof, "train step", top)
+
+
+def profile_bn_stats(calls: int = RUN_LAUNCHES) -> None:
+    """Device time of `bn_stats` by kernel name at every BN_CASES shape, with
+    torch.profiler over `calls` calls: how many kernels a call launches and
+    what each takes; not part of the smoke run:
+
+        python3 -c "import chip_smoke as c; c.profile_bn_stats()"
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.ops import fused_norm as N
+
+    require_cuda()
+    build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for label, r, c, _, dtype, _ in BN_CASES:
+        x = (torch.randn((r, c), generator=gen, device="cuda") * 2.0 + 0.5).to(dtype)
+        for _ in range(3):
+            N.bn_stats(x, BN_EPS)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                N.bn_stats(x, BN_EPS)
+            torch.cuda.synchronize()
+        by_name: dict = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n, us = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, us + e.device_time)
+        log(f"bn_stats {label:20s} R{r} C{c} {dtype}: "
+            f"{sum(n for n, _ in by_name.values()) / calls:g} device operations a call, "
+            f"{sum(us for _, us in by_name.values()) / calls:.2f} us a call; "
+            + "; ".join(f"{short_kernel_name(name)} x{n / calls:g} "
+                        f"{us / n:.2f} us" for name, (n, us) in by_name.items()))
+
+
 def face_parser_batch(rs, batch: int, size: int):
     """Normalized images [B, 3, S, S] fp32 and labels [B, S, S] in 0..18
     with some 255 (ignored), from numpy. Each image gets its own gain and
@@ -1096,18 +1436,26 @@ def rel_l2(out: dict, ref: dict) -> tuple[dict, float]:
     return per, (num / den).sqrt().item()
 
 
+def build_face_parser(gen):
+    """→ (the published train configuration: batch 16, crop 448; the numpy
+    generator; two batches on the card; BiSeNet with seeded random weights)."""
+    from adaface_tpu_torch.models.bisenet import build_bisenet
+    from adaface_tpu_torch.train.face_parsing_train import FaceParsingTrainConfig
+
+    cfg = FaceParsingTrainConfig()
+    rs = np.random.RandomState(SEED)
+    batches = [face_parser_batch(rs, cfg.batch_size, cfg.crop_size) for _ in range(2)]
+    return cfg, rs, batches, build_bisenet("cuda", gen)
+
+
 def train_face_parser(gen) -> dict:
-    from adaface_tpu_torch.models.bisenet import N_CLASSES, build_bisenet, parsing_to_face_mask
+    from adaface_tpu_torch.models.bisenet import N_CLASSES, parsing_to_face_mask
     from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import fused_norm as N
     from adaface_tpu_torch.train.face_parsing_train import (
-        FaceParsingTrainConfig, face_parsing_loss, make_face_parsing_optimizer,
-        make_face_parsing_train_step)
+        face_parsing_loss, make_face_parsing_optimizer, make_face_parsing_train_step)
 
-    cfg = FaceParsingTrainConfig()  # the published one: batch 16, crop 448
-    rs = np.random.RandomState(SEED)
-    batches = [face_parser_batch(rs, cfg.batch_size, cfg.crop_size) for _ in range(2)]
-    model = build_bisenet("cuda", gen)
+    cfg, rs, batches, model = build_face_parser(gen)
     n_params = sum(p.numel() for p in model.parameters())
 
     # one step's loss and gradients, kernels against plain, same weights
@@ -1153,13 +1501,15 @@ def train_face_parser(gen) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     losses, secs = [], []
-    for i in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
-        metrics = step(*batches[i % 2])
-        losses.append(metrics["loss"].item())  # syncs
-        secs.append(time.perf_counter() - t0)
+    with bn_census(model) as seen:
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics = step(*batches[i % 2])
+            losses.append(metrics["loss"].item())  # syncs
+            secs.append(time.perf_counter() - t0)
     counts = launch_counts()
     expect_counts(counts, bisenet_forwards=TRAIN_STEPS)
+    expect_bn_census(seen, TRAIN_STEPS)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steady = (TRAIN_STEPS - 1) / sum(secs[1:])
     log(f"train: {TRAIN_STEPS} steps, losses {', '.join(f'{v:.4f}' for v in losses)}; "
@@ -1208,7 +1558,11 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
     call: the statistics kernels have `torch.var_mean` and
     `torch.batch_norm_stats` as their library call, the normalize kernels
     none, and all four carry the pair's times (`pair_ms`, `pair_library_ms`).
-    `graph_ms` is the device time of a launch (20 launches in a CUDA graph)."""
+    `graph_ms` is the device time of a launch (20 launches in a CUDA graph),
+    `launch_floor_ms` that of an empty kernel's launch. The `bn_stats` and
+    `layer_norm` entries list every path shape under `shapes`, with its
+    launches a train step or a fused-LN request, and the sums over them
+    (`per_step`, `per_request`)."""
     from adaface_tpu_torch.ops.attention import FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE
     from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
@@ -1259,7 +1613,18 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
     gn_pair = dict(pair_ms=gs["ms"], pair_library_ms=gs["stock_ms"], pair_graph_ms=gs["graph_ms"],
                    pair_library_graph_ms=gs["stock_graph_ms"], shapes=gn_shapes["split"])
     bn_pair = dict(pair_ms=b_["ms"], pair_library_ms=b_["stock_ms"], pair_graph_ms=b_["graph_ms"],
-                   pair_library_graph_ms=b_["stock_graph_ms"])
+                   pair_library_graph_ms=b_["stock_graph_ms"], per_step=bn["per step"])
+    bn_cases = {case[0]: bn[case[0]] for case in BN_CASES}
+    bn_shapes = {label: {"graph_ms": r["graph_stats"], "library_graph_ms": r["stock_graph_stats"],
+                         "ms": r["ms_stats"], "library_ms": r["stock_stats"],
+                         "host_us": r["host_us"], "library_host_us": r["stock_host_us"],
+                         "bound_ms": r["bound_stats"], "launches": r["launches"],
+                         "plan": r["plan"]} for label, r in bn_cases.items()}
+    ln_cases = {case[0]: ln[case[0]] for case in LN_CASES}
+    ln_shapes = {label: {k.replace("stock", "library"): r[k] for k in (
+        "graph_ms", "stock_graph_ms", "ms", "stock_ms", "host_us", "stock_host_us", "bound_ms",
+        "launches", "plan")} for label, r in ln_cases.items()}
+    ln_errs = [r["err"] for r in ln.values() if isinstance(r, dict) and "err" in r]
     return {"kernels": [
         flash_entry(FLASH_T, "flash_attn_wgmma.cu", "adaface_tpu/ops/attention.py:165",
                     [flash[k]["err"] for k in short] + short_off, JSON_FLASH_T, short),
@@ -1283,16 +1648,18 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
               gn_errs("split", "norm_err"), JSON_GN_SPLIT, gs["ms_norm"], gs["plain_norm"], None,
               gs["bound_norm"], graph_ms=gs["graph_norm"], **gn_pair),
         entry(BN_STATS, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:31",
-              max(r["stats_abs"] for r in bn.values()), JSON_BN, b_["ms_stats"],
+              max(r["stats_abs"] for r in bn_cases.values()), JSON_BN, b_["ms_stats"],
               b_["plain_stats"], b_["stock_stats"], b_["bound_stats"],
-              graph_ms=b_["graph_stats"], library_graph_ms=b_["stock_graph_stats"], **bn_pair),
+              graph_ms=b_["graph_stats"], library_graph_ms=b_["stock_graph_stats"],
+              launch_floor_ms=bn["launch floor"], shapes=bn_shapes, **bn_pair),
         entry(BN_NORM_ACT, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:48",
-              max(r["norm_err"] for r in bn.values()), JSON_BN, b_["ms_norm"],
+              max(r["norm_err"] for r in bn_cases.values()), JSON_BN, b_["ms_norm"],
               b_["plain_norm"], None, b_["bound_norm"], graph_ms=b_["graph_norm"], **bn_pair),
         entry(LAYER_NORM, "layer_norm.cu", "adaface_tpu/ops/fused_ln.py:25",
-              max(r["err"] for r in ln.values()), JSON_LN, l_["ms"], l_["plain_ms"],
+              max(ln_errs), JSON_LN, l_["ms"], l_["plain_ms"],
               l_["stock_ms"], l_["bound_ms"], graph_ms=l_["graph_ms"],
-              library_graph_ms=l_["stock_graph_ms"]),
+              library_graph_ms=l_["stock_graph_ms"], launch_floor_ms=ln["launch floor"],
+              shapes=ln_shapes, per_request=ln["per request"]),
     ]}
 
 

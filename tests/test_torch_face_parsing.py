@@ -4,7 +4,10 @@ package, on the CPU.
 Inputs come from numpy seeds and go through both sides in fp32. Where the
 JAX function reaches the Pallas BN kernels it runs them in interpret mode.
 Tolerances:
-- the BN op's forward: 1e-5 abs, fp32 sums taken in another order;
+- the BN op's forward: 1e-5 abs, fp32 sums taken in another order; the
+  statistics kernel's arithmetic in plain PyTorch (`bn_stats_chunked`: chunk
+  sums in fp32, the fixed fp64 fold) against the plain version: 1e-6 relative
+  (mean to the largest mean, rstd to itself), against the Pallas kernel 1e-5;
 - BN gradients: rtol 1e-3, atol 2e-4, as `tests/test_fused_norm.py`;
 - BiSeNet outputs and losses: 1e-4 relative to the largest magnitude (fp32
   through ~20 conv layers and 31 BNs);
@@ -88,6 +91,143 @@ def test_bn_act_matches_pallas_interpret(shape, slope):
     out = tfn.fused_bn_act(_t(x), _t(scale), _t(bias), slope=slope)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=OP_ATOL)
     assert (out.numpy() < 0).any() == (slope != 0)
+
+
+# (R, C, plan overrides): the face parser's (R, C) at reduced R on a 132-SM
+# plan; an odd R; R smaller than a chunk's row lanes; the attention maps'
+# R = 16 (one block, no partials); C = 96 (12 packs: a ragged second channel
+# tile); C = 65 (single channels); small blocks and few SMs, for many
+# ragged chunks at a small R
+BN_CHUNKED_CASES = [
+    (12544, 64, {}),
+    (3136, 64, {}),
+    (784, 128, {}),
+    (1101, 256, {}),
+    (196, 512, {}),
+    (784, 256, {"threads": 512}),
+    (5, 64, {"threads": 64}),
+    (16, 128, {}),
+    (777, 96, {"threads": 64, "min_rows": 2}),
+    (333, 65, {"threads": 96, "min_rows": 1}),
+    (1000, 512, {"threads": 128, "min_rows": 2, "tile_bytes": 256}),
+    (2049, 128, {"threads": 32, "min_rows": 3, "waves": 4}),
+]
+
+
+@pytest.mark.parametrize("r,c,kwargs", BN_CHUNKED_CASES)
+def test_bn_stats_chunked_matches_plain_and_pallas_interpret(r, c, kwargs):
+    """The statistics kernel's arithmetic (`bn_stats_chunked` on `bn_plan`'s
+    geometry) against the plain version and against the Pallas statistics
+    kernel in interpret mode; two calls give the same bits."""
+    x, scale, bias = _bn_inputs(3, (r, c))
+    plan = tfn.bn_plan(r, c, torch.float32, 132, True, **kwargs)
+    mean, rstd = tfn.bn_stats_chunked(_t(x), 1e-5, plan)
+    again = tfn.bn_stats_chunked(_t(x), 1e-5, plan)
+    assert torch.equal(mean, again[0]) and torch.equal(rstd, again[1])
+    mean_p, rstd_p = tfn.bn_stats_plain(_t(x), 1e-5)
+    assert ((mean - mean_p).abs().max() / mean_p.abs().max()).item() <= 1e-6
+    if r >= 16:  # below, E[x²] − mean² cancels to a few digits in either order
+        assert ((rstd - rstd_p).abs() / rstd_p).max().item() <= 1e-6
+    with mock.patch.object(jfn.pl, "pallas_call",
+                           functools.partial(pl.pallas_call, interpret=True)):
+        _, mean_j, rstd_j = jfn._fused_bn_act_fwd_tpu(jnp.asarray(x), jnp.asarray(scale),
+                                                      jnp.asarray(bias), 0.0, 1e-5, None)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(mean_j), atol=OP_ATOL)
+    np.testing.assert_allclose(rstd.numpy(), np.asarray(rstd_j), atol=OP_ATOL, rtol=OP_ATOL)
+
+
+def test_bn_stats_chunked_fold_is_the_fp64_sum_in_a_fixed_order():
+    """`bn_finalize_chunked` on given partials: every chunk counted once for
+    any number of fold lanes, and mean and rstd from the fp64 sums."""
+    rs = np.random.RandomState(4)
+    psum = _t(rs.randn(37, 24).astype(np.float32) * 100.0)
+    psq = _t((rs.rand(37, 24).astype(np.float32) + 1.0) * 1e4)
+    want_mean = psum.double().sum(0) / 5000
+    want_rstd = 1.0 / torch.sqrt(psq.double().sum(0) / 5000 - want_mean ** 2 + 1e-5)
+    for klanes in (1, 2, 8, 64):
+        mean, rstd = tfn.bn_finalize_chunked(psum, psq, 5000, 1e-5, klanes)
+        assert mean.dtype == rstd.dtype == torch.float32
+        np.testing.assert_allclose(mean.numpy(), want_mean.numpy(), rtol=2e-7)
+        np.testing.assert_allclose(rstd.numpy(), want_rstd.numpy(), rtol=2e-7)
+
+
+# (R, C, dtype) → (vec, threads, lanes, chunks, channel tiles) on a 132-SM card:
+# every train-mode BN of BiSeNet at batch 16, crop 448, and the bf16 case
+BN_PLANS = [
+    ((802816, 64, torch.float32), (4, 512, 8, 66, 2)),
+    ((200704, 64, torch.float32), (4, 512, 8, 66, 2)),
+    ((50176, 128, torch.float32), (4, 512, 8, 33, 4)),
+    ((50176, 256, torch.float32), (4, 512, 8, 16, 8)),
+    ((50176, 64, torch.float32), (4, 256, 8, 66, 2)),
+    ((12544, 256, torch.float32), (4, 256, 8, 16, 8)),
+    ((12544, 128, torch.float32), (4, 256, 8, 33, 4)),
+    ((12544, 64, torch.float32), (4, 256, 8, 49, 2)),
+    ((3136, 512, torch.float32), (4, 256, 8, 8, 16)),
+    ((3136, 128, torch.float32), (4, 256, 8, 12, 4)),
+    ((16, 128, torch.float32), (4, 128, 32, 1, 1)),
+    ((200704, 64, torch.bfloat16), (8, 512, 8, 132, 1)),
+]
+
+
+@pytest.mark.parametrize("shape,want", BN_PLANS)
+def test_bn_plan(shape, want):
+    r, c, dtype = shape
+    plan = tfn.bn_plan(r, c, dtype, 132)
+    chunks, ctiles = plan.grid(c)
+    assert (plan.vec, plan.threads, plan.lanes, chunks, ctiles) == want
+    assert tfn.bn_plan(r, c, dtype, 132) is plan  # from the cache
+    # within CUDA's limits and the source's
+    assert 1 <= chunks <= 2 ** 31 - 1 and 1 <= ctiles <= 65535
+    assert 32 <= plan.threads <= 512 and plan.threads % 32 == 0
+    assert 1 <= plan.lanes <= plan.threads and plan.row_lanes >= 1
+    assert max(2 * plan.row_lanes * plan.tile * 4, 16 * plan.threads) <= 48 * 1024
+    # every row in exactly one chunk, none empty; every channel in exactly one tile
+    assert (chunks - 1) * plan.chunk_rows < r <= chunks * plan.chunk_rows
+    assert c % plan.vec == 0 and (ctiles - 1) * plan.tile < c <= ctiles * plan.tile
+    # the fold: a power of two of lanes a channel, within the block
+    assert plan.klanes & (plan.klanes - 1) == 0
+    assert plan.klanes * min(plan.tile, plan.threads) <= plan.threads
+
+
+def test_bn_plan_scalar_instances_and_other_cards():
+    # C off a pack, or a pointer off 16 bytes: single channels
+    assert tfn.bn_plan(12545, 65, torch.float32, 132).vec == 1
+    off = tfn.bn_plan(50176, 128, torch.float32, 132, False)
+    assert off.vec == 1 and off.grid(128)[1] * off.tile >= 128
+    # wider than a block's lanes: more channel tiles, still one pack a lane
+    wide = tfn.bn_plan(1000, 1100, torch.float32, 132)
+    assert wide.grid(1100) == (3, 35) and wide.tile == 32
+    # fewer SMs, fewer chunks; the plan reads nothing but its arguments
+    assert tfn.bn_plan(200704, 64, torch.float32, 16).grid(64) == (8, 2)
+    # a forced block size is taken as it is
+    assert tfn.bn_plan(12544, 256, torch.float32, 132, True, 128).threads == 128
+
+
+@pytest.mark.parametrize("case", ["stats cpu", "norm cpu", "dtype", "rank", "strided",
+                                  "vector shape", "vector dtype"])
+def test_bn_kernels_reject_what_they_do_not_take(case):
+    """The wrappers' checks before any launch. Dtype and layout are read
+    before the device, so CPU tensors show them; a well-formed CPU tensor is
+    refused too: only the Function sends it to the plain version."""
+    x = torch.zeros(8, 16)
+    vec = torch.zeros(16)
+    if case == "stats cpu":
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tfn.bn_stats(x, 1e-5)
+    elif case == "norm cpu":
+        with pytest.raises(ValueError, match="no kernel for device"):
+            tfn.bn_norm_act(x, vec, vec, vec, vec, 0.0)
+    elif case == "vector shape":
+        with pytest.raises(ValueError, match="mean must be a contiguous"):
+            tfn._check_channel_vector("mean", torch.zeros(8), 16, x.device)
+    elif case == "vector dtype":
+        with pytest.raises(ValueError, match="rstd must be a contiguous"):
+            tfn._check_channel_vector("rstd", vec.double(), 16, x.device)
+    else:
+        bad, match = {"dtype": (x.half(), "dtype"), "rank": (torch.zeros(2, 4, 16), "contiguous"),
+                      "strided": (x[:, ::2], "contiguous")}[case]
+        with pytest.raises(ValueError, match=match):
+            tfn.bn_stats(bad, 1e-5)
 
 
 def _port_grads(x, scale, bias, slope):

@@ -415,6 +415,78 @@ def test_layer_norm_matches_pallas_interpret(shape):
     np.testing.assert_array_equal(module(_t(x)).detach().numpy(), out.numpy())
 
 
+# (rows, C, dtype) → (packs a lane, lanes a row, warps a row, threads a block,
+# blocks) on a 132-SM card: the UNet's LayerNorms at CFG batch 2, and widths
+# off its path
+LN_PLANS = [
+    ((8192, 320, torch.bfloat16), (5, 8, 1, 128, 512)),
+    ((2048, 640, torch.bfloat16), (5, 16, 1, 64, 512)),
+    ((512, 1280, torch.bfloat16), (1, 32, 5, 160, 512)),  # few wide rows: a row over 5 warps
+    ((128, 1280, torch.bfloat16), (1, 32, 5, 160, 128)),
+    ((8192, 320, torch.float32), (5, 16, 1, 256, 512)),
+    ((2048, 1280, torch.bfloat16), (5, 32, 1, 128, 512)),  # too many rows to split
+    ((154, 768, torch.bfloat16), (1, 32, 3, 96, 154)),
+    ((1101, 768, torch.bfloat16), (6, 16, 1, 64, 276)),
+    ((100000, 1024, torch.bfloat16), (8, 16, 1, 256, 6250)),
+    ((77, 64, torch.float32), (2, 8, 1, 32, 20)),
+    ((300, 256, torch.float32), (1, 32, 2, 64, 300)),
+    # no lane count holds the row in at most 8 whole packs each: the looped kernel
+    ((1000, 77, torch.bfloat16), (0, 32, 1, 256, 125)),
+    ((512, 1288, torch.float32), (0, 32, 1, 256, 64)),
+    ((64, 4096, torch.bfloat16), (0, 32, 1, 256, 8)),
+]
+
+
+@pytest.mark.parametrize("shape,want", LN_PLANS)
+def test_ln_plan(shape, want):
+    rows, c, dtype = shape
+    plan = tln.ln_plan(rows, c, dtype, 132)
+    blocks = plan.blocks(rows)
+    assert (plan.packs, plan.lanes, plan.warps, plan.threads, blocks) == want
+    assert tln.ln_plan(rows, c, dtype, 132) is plan  # from the cache
+    # within CUDA's limits and the source's
+    assert 32 <= plan.threads <= 256 and plan.threads % 32 == 0
+    assert plan.threads % (plan.lanes * plan.warps) == 0
+    assert 0 <= plan.packs <= tln.MAX_PACKS and 1 <= plan.warps <= tln.MAX_SPLIT
+    assert 1 <= blocks <= 2 ** 31 - 1
+    # every row in exactly one block, no block empty
+    assert (blocks - 1) * plan.rows_per_block < rows <= blocks * plan.rows_per_block
+    pack = 16 // torch.empty((), dtype=dtype).element_size()
+    if plan.packs:  # every channel in exactly one pack of one lane
+        assert plan.packs * plan.lanes * plan.warps * pack == c
+    if plan.warps > 1:  # the split kernel: one row a block, one pack a lane
+        assert (plan.packs, plan.lanes, plan.threads) == (1, 32, 32 * plan.warps)
+
+
+def test_ln_plan_unaligned_pointers_and_other_cards():
+    # a pointer off 16 bytes: the looped kernel, single channels
+    assert tln.ln_plan(2048, 640, torch.bfloat16, 132, False).packs == 0
+    # fewer SMs: the grid is full with larger blocks
+    assert tln.ln_plan(2048, 640, torch.bfloat16, 16).threads == 256
+    assert tln.ln_plan(2048, 1280, torch.bfloat16, 16).threads == 256
+    # a pointer off 16 bytes is never split either
+    assert tln.ln_plan(128, 1280, torch.bfloat16, 132, False).warps == 1
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "strided", "weight shape", "bias dtype"])
+def test_layer_norm_kernel_rejects_what_it_does_not_take(case):
+    """The wrapper's checks before any launch; a CPU tensor is refused by the
+    wrapper (only the Function sends it to the plain version)."""
+    x, w, b = torch.zeros(4, 16), torch.ones(16), torch.zeros(16)
+    match = {"cpu": "no kernel for device", "dtype": "dtype", "strided": "contiguous",
+             "weight shape": "weight must be", "bias dtype": "bias must be"}[case]
+    if case == "dtype":
+        x = x.half()
+    elif case == "strided":
+        x = torch.zeros(4, 32)[:, ::2]
+    elif case == "weight shape":
+        w = torch.ones(8)
+    elif case == "bias dtype":
+        b = b.double()
+    with pytest.raises(ValueError, match=match):
+        tln.layer_norm(x, w, b, 1e-5)
+
+
 def test_layer_norm_raises_on_a_strided_view():
     """The UNet's transformer input is a permuted map: the LayerNorm takes it
     only made contiguous, on the CPU as on the card, and copies nothing itself."""
