@@ -11,6 +11,10 @@ bridge is one walk over the tree with these leaf rules:
     mean, var  (batch norm)      → running_mean, running_var buffers
     other leaves (embedding tables, bias of norms, layer weights) as they are
 
+Where the module keeps several projections of one input as one weight
+(`attn1.qkv`, `attn2.kv` of the UNet), `load` stacks the tree's separate
+`q`, `k`, `v` leaves into it.
+
 Leaves may be numpy arrays or anything `numpy.asarray` takes (JAX arrays
 included); the bridge itself never imports JAX.
 """
@@ -67,11 +71,25 @@ def state_dict(tree: Any) -> dict[str, torch.Tensor]:
     return dict(_leaf(name, value) for name, value in _walk(tree, ""))
 
 
+def fuse_projections(sd: dict, ref: dict) -> dict:
+    """Stack `x.q.weight`, `x.k.weight`, `x.v.weight` of `sd` into the fused
+    weights `x.qkv.weight` / `x.kv.weight` that `ref` (the module's own
+    state dict) has in their place."""
+    sd = dict(sd)
+    for key in ref:
+        head, _, leaf = key.rpartition(".")
+        prefix, _, name = head.rpartition(".")
+        parts = [f"{prefix}.{p}.{leaf}" for p in name]
+        if name in ("qkv", "kv") and key not in sd and all(p in sd for p in parts):
+            sd[key] = torch.cat([sd.pop(p) for p in parts], dim=0)
+    return sd
+
+
 def load(module: nn.Module, tree: Any) -> nn.Module:
     """Load a JAX pytree into `module` (strict: every key, every shape);
     returns it frozen and in eval mode, as `core.params.build` does."""
-    sd = state_dict(tree)
     ref = module.state_dict()
+    sd = fuse_projections(state_dict(tree), ref)
     module.load_state_dict({k: v.to(ref[k].dtype) if k in ref else v
                             for k, v in sd.items()}, strict=True)
     return module.requires_grad_(False).eval()
@@ -81,6 +99,11 @@ def vae_decoder_tree(vae_params: dict) -> dict:
     """The decode half of the JAX VAE params (`vae.py:174-224`)."""
     return {"decoder": vae_params["decoder"],
             "post_quant_conv": vae_params["post_quant_conv"]}
+
+
+def vae_encoder_tree(vae_params: dict) -> dict:
+    """The encode half of the JAX VAE params (`vae.py:174-224`)."""
+    return {"encoder": vae_params["encoder"], "quant_conv": vae_params["quant_conv"]}
 
 
 def sbg_tree(sbg: dict) -> dict:

@@ -27,7 +27,10 @@ def init_fan_in_(module: nn.Module, gen: torch.Generator) -> None:
     `_init_conv`/`_init_dense` rule of the UNet and the VAE."""
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            normal_(m.weight, m.weight[0].numel() ** -0.5, gen)
+            # a fused projection (`parts` of them in one weight) draws each
+            # part on its own, as separate projections would
+            for part in m.weight.chunk(getattr(m, "parts", 1), dim=0):
+                normal_(part, m.weight[0].numel() ** -0.5, gen)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif hasattr(m, "weight") and hasattr(m, "bias") and m.weight is not None \
@@ -39,9 +42,14 @@ def init_fan_in_(module: nn.Module, gen: torch.Generator) -> None:
 def build(make: Callable[[], nn.Module], device, dtype,
           init: Callable[[nn.Module, torch.Generator], None],
           gen: torch.Generator) -> nn.Module:
-    """make() on the meta device → empty on `device` in `dtype` → init(gen)."""
+    """make() on the meta device → empty on `device` in `dtype` → init(gen);
+    buffers that no state dict holds are filled by the module's own
+    `reset_buffers()`."""
     with torch.device("meta"):
         module = make()
     module = module.to_empty(device=device).to(dtype)
     init(module, gen)
+    for m in module.modules():
+        if hasattr(m, "reset_buffers"):
+            m.reset_buffers()
     return module.requires_grad_(False).eval()

@@ -1,13 +1,17 @@
-"""AdaFaceWrapper — the user entry point, personalized text→image.
+"""AdaFaceWrapper — the user entry point, personalized text→image and
+image→image on SD1.5.
 
-Counterpart of the "text2img" path of `adaface_tpu/inference/wrapper.py`:
-placeholder tokens `z_0_0 … z_0_15` extend the tokenizer and the CLIP-L
-token table (`:116-131`), a subject's ada embeddings are written into those
-rows (`:133-144`), prompts get the placeholder string appended
-(`:146-152`), and `forward` runs the CFG DDIM pipeline (`:233-299`).
+Counterpart of the "text2img" and "img2img" paths of
+`adaface_tpu/inference/wrapper.py`: placeholder tokens `z_0_0 … z_0_15`
+extend the tokenizer and the CLIP-L token table (`:116-131`), a subject's
+ada embeddings are written into those rows (`:133-144`) or carried by a
+request of the continuous batcher (`make_batcher`, `make_request`,
+`:176-201`), prompts get the placeholder string appended (`:146-152`), and
+`forward` runs the pipeline with the chosen scheduler (`:233-299`), for
+"img2img" from the noised latents of an initial image (`:301-313`).
 
-The other pipelines (img2img, video, SDXL, SD3), the continuous batcher,
-LoRA loading and int8 serving are not ported yet.
+The other pipelines (video, SDXL, SD3), `perturb_std`, LoRA loading and
+int8 serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,9 +23,12 @@ import torch
 from torch import nn
 
 from adaface_tpu_torch.inference.pipeline import DiffusionPipeline, PipelineModules
+from adaface_tpu_torch.inference.serving import ContinuousBatcher, Request
 from adaface_tpu_torch.models.clip import extend_position_embedding
+from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.text.embedding_manager import extend_token_embedding
 
+SUPPORTED_PIPELINES = ("text2img", "img2img")
 DEFAULT_NEGATIVE_PROMPT = ("flaws in the eyes, flaws in the face, lowres, "
                            "non-HDRi, low quality")
 
@@ -32,11 +39,15 @@ class AdaFaceWrapper:
                  num_inference_steps: int = 50,
                  out_id_embs_cfg_scale: float | None = None,
                  dtype=torch.bfloat16, max_prompt_length: int = 77):
-        if pipeline_name != "text2img":
+        if pipeline_name not in SUPPORTED_PIPELINES:
             raise NotImplementedError(
-                f"pipeline {pipeline_name!r} is not ported; the PyTorch port "
-                "serves 'text2img'")
+                f"pipeline {pipeline_name!r} is not ported; the PyTorch port serves "
+                f"{' and '.join(repr(p) for p in SUPPORTED_PIPELINES)}")
+        if pipeline_name == "img2img" and modules.vae_encoder is None:
+            raise ValueError("the img2img pipeline needs PipelineModules.vae_encoder")
+        self.pipeline_name = pipeline_name
         self.pipeline = DiffusionPipeline(modules, dtype=dtype)
+        self.dtype = dtype
         self.id2ada_prompt_encoder = id2ada_prompt_encoder
         self.guidance_scale = guidance_scale
         self.num_inference_steps = num_inference_steps
@@ -82,14 +93,42 @@ class AdaFaceWrapper:
         return prompt
 
     def prepare_adaface_embeddings(self, images: Sequence[np.ndarray] | None = None,
-                                   face_id_embs=None, avg_at_stage: str = "id_emb"):
-        """Face images (or ID embeddings) → ada embeddings [N_ID, D], written
-        into the text encoder's placeholder rows; None without a face."""
+                                   face_id_embs=None, update_text_encoder: bool = True,
+                                   avg_at_stage: str = "id_emb"):
+        """Face images (or ID embeddings) → ada embeddings [N_ID, D]; None
+        without a face. Written into the text encoder's placeholder rows
+        unless `update_text_encoder` is False (a batcher's request carries
+        them instead)."""
         ada, _, _ = self.id2ada_prompt_encoder.generate_adaface_embeddings(
             images=images, face_id_embs=face_id_embs, avg_at_stage=avg_at_stage)
-        if ada is not None:
+        if ada is not None and update_text_encoder:
             self.update_text_encoder_subj_embeddings(ada)
         return ada
+
+    def make_batcher(self, num_slots: int = 8, num_inference_steps: int | None = None,
+                     **kw) -> ContinuousBatcher:
+        """Continuous-batching server over this wrapper's modules: requests
+        for different subjects share one device batch (per-sample ada
+        injection instead of the shared-table write), and slots refill per
+        denoise step. Build requests with `make_request`."""
+        all_ids = [i for ids in self.placeholder_token_ids for i in ids]
+        return ContinuousBatcher(
+            self.pipeline.m, num_slots=num_slots,
+            num_inference_steps=num_inference_steps or self.num_inference_steps,
+            placeholder_token_ids=all_ids, dtype=self.dtype, **kw)
+
+    def make_request(self, prompt: str, ada_embs=None, negative_prompt: str = "",
+                     **kw) -> Request:
+        """Request for `make_batcher`: the placeholder strings appended to
+        the prompt, and the subject's ada embeddings (from
+        `prepare_adaface_embeddings(update_text_encoder=False)`)."""
+        gs = kw.pop("guidance_scale", self.guidance_scale)
+        return Request(prompt=self.update_prompt(prompt), negative_prompt=negative_prompt,
+                       ada_embs=ada_embs, guidance_scale=gs, **kw)
+
+    def mix_ada_embs_with_other_embs(self, ada_embs, other_embs, mix_scale: float):
+        """Ablation mixing of ada embeddings with others of their shape."""
+        return ada_embs * mix_scale + other_embs * (1.0 - mix_scale)
 
     def __call__(self, *a, **kw):
         return self.forward(*a, **kw)
@@ -97,13 +136,58 @@ class AdaFaceWrapper:
     def forward(self, prompt: str, negative_prompt: str = DEFAULT_NEGATIVE_PROMPT,
                 num_images: int = 1, guidance_scale: float | None = None,
                 num_inference_steps: int | None = None,
-                generator: torch.Generator | None = None,
-                height: int = 512, width: int = 512):
+                init_image: np.ndarray | None = None, strength: float = 0.8,
+                generator: torch.Generator | None = None, update_prompt: bool = True,
+                height: int = 512, width: int = 512, scheduler: str = "ddim",
+                img2img_noise: tuple | None = None):
         """→ images [N, 3, H, W] float32 in [0, 1]; the placeholder string is
-        appended to the prompt."""
+        appended to the prompt unless `update_prompt` is False. `scheduler`:
+        ddim, dpm++, pndm or lcm. "img2img" starts from `init_image`
+        ([H, W, 3] or [B, H, W, 3], 0..255) noised to `strength` of the
+        schedule and runs `strength` of the steps; its two draws (the
+        posterior's sample, the noise) come from `generator`, or are handed
+        in as `img2img_noise`."""
+        if update_prompt:
+            prompt = self.update_prompt(prompt)
+        steps = (num_inference_steps if num_inference_steps is not None
+                 else self.num_inference_steps)
+        latents = None
+        if self.pipeline_name == "img2img":
+            if init_image is None:
+                raise ValueError("the img2img pipeline needs init_image")
+            latents = self._img2img_latents(init_image, strength, generator, num_images,
+                                            img2img_noise)
+            steps = max(int(steps * strength), 1)
         return self.pipeline(
-            [self.update_prompt(prompt)] * num_images, negative_prompt=negative_prompt,
-            num_inference_steps=(num_inference_steps if num_inference_steps is not None
-                                 else self.num_inference_steps),
+            [prompt] * num_images, negative_prompt=negative_prompt,
+            num_inference_steps=steps,
             guidance_scale=guidance_scale if guidance_scale is not None else self.guidance_scale,
-            generator=generator, height=height, width=width)
+            generator=generator, latents=latents, height=height, width=width,
+            scheduler=scheduler)
+
+    @torch.inference_mode()
+    def _img2img_latents(self, init_image, strength: float, generator, num_images: int,
+                         noise: tuple | None = None):
+        """The initial image's latents (a sample of the encoder's posterior),
+        repeated per image and diffused to timestep T · strength - 1. `noise`:
+        (the posterior's draw [B, 4, h, w], the diffusion's [B · N, 4, h, w])."""
+        m = self.pipeline.m
+        device = m.unet.conv_in.weight.device
+        img = torch.as_tensor(np.asarray(init_image), dtype=torch.float32, device=device)
+        if img.dim() == 3:
+            img = img[None]
+        img = img.permute(0, 3, 1, 2) / 127.5 - 1.0
+        if noise is None:
+            if generator is None:  # a fixed default, as the JAX wrapper's PRNGKey(0)
+                generator = torch.Generator(device).manual_seed(0)
+            z = vae_encode(m.vae_encoder, img.to(self.dtype), generator=generator)
+            eps = torch.randn((z.shape[0] * num_images, *z.shape[1:]), generator=generator,
+                              device=device).to(z.dtype)
+        else:
+            z = vae_encode(m.vae_encoder, img.to(self.dtype),
+                           noise=noise[0].to(device, self.dtype))
+            eps = noise[1].to(device, z.dtype)
+        z = z.repeat_interleave(num_images, dim=0)
+        t0 = int(m.schedule.num_timesteps * strength)
+        t = torch.full((z.shape[0],), t0 - 1, dtype=torch.long, device=device)
+        return m.schedule.q_sample(z, t, eps).to(self.dtype)

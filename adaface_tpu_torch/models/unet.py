@@ -56,11 +56,19 @@ class UNetConfig:
 SD15_UNET = UNetConfig()
 
 
-def timestep_embedding(t, dim: int, max_period: float = 10000.0):
-    """[B] → [B, dim] = [cos, sin] (flip_sin_to_cos, shift 0), fp32."""
+def timestep_freqs(dim: int, max_period: float = 10000.0, device=None):
+    """The dim // 2 frequencies of `timestep_embedding`, fp32."""
     half = dim // 2
-    freqs = torch.exp(-math.log(max_period)
-                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    return torch.exp(-math.log(max_period)
+                     * torch.arange(half, dtype=torch.float32, device=device) / half)
+
+
+def timestep_embedding(t, dim: int, max_period: float = 10000.0, freqs=None):
+    """[B] → [B, dim] = [cos, sin] (flip_sin_to_cos, shift 0), fp32; `freqs`
+    is `timestep_freqs(dim, max_period)` on t's device, where the caller
+    keeps it."""
+    if freqs is None:
+        freqs = timestep_freqs(dim, max_period, t.device)
     args = t.float()[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
@@ -88,27 +96,38 @@ class ResnetBlock(nn.Module):
         return x + h
 
 
-class Attention(nn.Module):
-    """q/k/v without bias, o with; [B, N, C] tokens."""
+class FusedLinear(nn.Linear):
+    """`parts` bias-free projections of one input as one weight
+    [parts · out, in]: one matmul reads the input once. `core.bridge` stacks
+    the parts' separate weights into it, `core.params` draws each part on
+    its own."""
 
-    def __init__(self, q_dim, kv_dim, num_heads):
+    def __init__(self, in_features: int, out_features: int, parts: int):
+        super().__init__(in_features, parts * out_features, bias=False)
+        self.parts = parts
+
+
+class Attention(nn.Module):
+    """q/k/v without bias, o with; [B, N, C] tokens. Self-attention keeps
+    q, k and v as one weight (`qkv`), cross-attention k and v (`kv`)."""
+
+    def __init__(self, q_dim, kv_dim, num_heads, cross: bool):
         super().__init__()
-        self.q = nn.Linear(q_dim, q_dim, bias=False)
-        self.k = nn.Linear(kv_dim, q_dim, bias=False)
-        self.v = nn.Linear(kv_dim, q_dim, bias=False)
+        if cross:
+            self.q = nn.Linear(q_dim, q_dim, bias=False)
+            self.kv = FusedLinear(kv_dim, q_dim, parts=2)
+        else:
+            self.qkv = FusedLinear(q_dim, q_dim, parts=3)
         self.o = nn.Linear(q_dim, q_dim)
         self.num_heads = num_heads
 
     def forward(self, x, context=None):
         b, n, c = x.shape
         if context is None:
-            # fused QKV (`unet.py:512-518`): one matmul reads x once
-            w = torch.cat([self.q.weight, self.k.weight, self.v.weight], dim=0)
-            q, k, v = F.linear(x, w).split(c, dim=-1)
+            q, k, v = self.qkv(x).split(c, dim=-1)
         else:
             q = self.q(x)
-            w = torch.cat([self.k.weight, self.v.weight], dim=0)
-            k, v = F.linear(context, w).split(c, dim=-1)
+            k, v = self.kv(context).split(c, dim=-1)
         hd = c // self.num_heads
         split = lambda t: t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)
         out = multi_head_attention(split(q), split(k), split(v), scale=1.0 / math.sqrt(hd))
@@ -120,9 +139,9 @@ class TransformerBlock(nn.Module):
         super().__init__()
         norm = LayerNorm if fused_ln else nn.LayerNorm
         self.norm1 = norm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, dim, num_heads)
+        self.attn1 = Attention(dim, dim, num_heads, cross=False)
         self.norm2 = norm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, cross_dim, num_heads)
+        self.attn2 = Attention(dim, cross_dim, num_heads, cross=True)
         self.norm3 = norm(dim, eps=1e-5)
         self.ff = nn.ModuleDict({"proj_in": nn.Linear(dim, dim * 8),  # GEGLU 2·4·dim
                                  "proj_out": nn.Linear(dim * 4, dim)})
@@ -202,15 +221,27 @@ class UNet2DConditionModel(nn.Module):
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(ch[0], cfg.norm_groups, cfg.norm_eps)
         self.conv_out = _conv(ch[0], cfg.out_channels)
+        # the timestep embedding's frequencies; not in the state dict
+        self.register_buffer("time_freqs", timestep_freqs(ch[0]), persistent=False)
         # convolution weights in channels-last memory, once; loading a state
         # dict or initialising in place keeps the strides
         self.to(memory_format=torch.channels_last)
+
+    def reset_buffers(self):
+        """Fill `time_freqs` anew, in fp32: `core.params.build` calls this
+        once the module has been materialised and cast."""
+        self.time_freqs = timestep_freqs(self.cfg.block_channels[0],
+                                         device=self.time_freqs.device)
 
     def forward(self, x, t, context):
         """eps [B, 4, h, w] for latents x [B, 4, h, w], timesteps t [B] and
         text context [B, S, cross_attn_dim]; computes in context's dtype."""
         x = x.to(context.dtype).contiguous(memory_format=torch.channels_last)
-        temb = timestep_embedding(t, self.cfg.block_channels[0]).to(context.dtype)
+        if self.time_freqs.dtype != torch.float32:
+            raise ValueError("UNet: time_freqs must stay fp32 (call reset_buffers() after "
+                             "casting the module)")
+        temb = timestep_embedding(t, self.cfg.block_channels[0],
+                                  freqs=self.time_freqs).to(context.dtype)
         temb = self.time_mlp["fc2"](F.silu(self.time_mlp["fc1"](temb)))
         h = self.conv_in(x)
         skips = [h]

@@ -1,13 +1,24 @@
-"""SD VAE decoder (AutoencoderKL decode half).
+"""SD VAE (AutoencoderKL): decoder and encoder, with the masked-encoder
+variant.
 
-Counterpart of `vae_decode` and the unmasked `_attnblock` of
-`adaface_tpu/models/vae.py`: post_quant_conv, the CompVis decoder with its
-single-head mid-block attention (D = 512 at full width, through the flash
-kernel when H·W >= 256), and 0.18215 latent scaling. Logical shapes are
-NCHW; inside, activations and convolution weights are kept in channels-last
-memory, so cuDNN's convolutions run without layout transposes, the GN
-kernels read a map as [B, H·W, C] rows and the attention's tokens are a view
-of the map. Every GroupNorm goes through the GN kernels.
+Counterpart of `adaface_tpu/models/vae.py`. `VAEDecoder` is `vae_decode`:
+post_quant_conv, the CompVis decoder with its single-head mid-block
+attention (D = 512 at full width, through the flash kernel when
+H·W >= 256), and 0.18215 latent scaling. `VAEEncoder` is
+`vae_encode_moments`: the CompVis encoder (an asymmetric (0, 1) pad before
+each stride-2 convolution), the same mid block, and quant_conv, giving the
+moments (mean ‖ logvar) that `gaussian_sample`, `gaussian_kl` and
+`vae_encode` read. With fg/aug masks the encoder's mid-block attention
+zeroes, after the softmax and without renormalising, the probabilities of
+pixel pairs of which one is foreground and one background; that branch
+builds the [B, HW, HW] probabilities in plain PyTorch (training-time
+encodes), never through the flash kernel.
+
+Logical shapes are NCHW; inside, activations and convolution weights are
+kept in channels-last memory, so cuDNN's convolutions run without layout
+transposes, the GN kernels read a map as [B, H·W, C] rows and the
+attention's tokens are a view of the map. Every GroupNorm goes through the
+GN kernels.
 """
 
 from __future__ import annotations
@@ -21,6 +32,7 @@ from torch import nn
 
 from adaface_tpu_torch.ops.attention import multi_head_attention
 from adaface_tpu_torch.ops.fused_gn import GroupNorm
+from adaface_tpu_torch.ops.resize import resize_nearest
 
 SD_LATENT_SCALE = 0.18215
 
@@ -65,7 +77,9 @@ class ResBlock(nn.Module):
 
 
 class AttnBlock(nn.Module):
-    """Single-head attention over all positions (`vae.py:124-145`, unmasked)."""
+    """Single-head attention over all positions (`vae.py:124-168`); `mask`
+    {'fg_mask': [B, 1, H0, W0] | None, 'aug_mask': ... | None} zeroes the
+    probabilities of fg/bg pairs after the softmax."""
 
     def __init__(self, c, cfg: VAEConfig):
         super().__init__()
@@ -75,24 +89,50 @@ class AttnBlock(nn.Module):
         self.v = _conv(c, c, k=1)
         self.proj_out = _conv(c, c, k=1)
 
-    def forward(self, x):
+    def forward(self, x, mask: dict | None = None):
         b, c, h, w = x.shape
         # a channels-last map is the [B, HW, C] token matrix: a view
         y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         # the 1x1 convs as linears on the tokens: q/k/v come out [B, HW, C]
         # with a contiguous channel axis, as the flash kernel takes them
         proj = lambda conv, t: F.linear(t, conv.weight[:, :, 0, 0], conv.bias)
-        q, k, v = (proj(conv, y)[:, None] for conv in (self.q, self.k, self.v))
-        out = multi_head_attention(q, k, v, scale=1.0 / math.sqrt(c))[:, 0]
+        q, k, v = (proj(conv, y) for conv in (self.q, self.k, self.v))
+        if mask is None or mask.get("fg_mask") is None:
+            out = multi_head_attention(q[:, None], k[:, None], v[:, None],
+                                       scale=1.0 / math.sqrt(c))[:, 0]
+        else:
+            out = self._masked_attention(q, k, v, mask, (h, w)).to(x.dtype)
         out = proj(self.proj_out, out).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + out
 
+    @staticmethod
+    def _masked_attention(q, k, v, mask: dict, hw: tuple):
+        """fp32 softmax over all keys, then the pairs of one fg and one bg
+        pixel (and every pair with a pixel outside the aug mask) set to 0."""
+        b, n, c = q.shape
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) / math.sqrt(c)
+        probs = torch.softmax(logits, dim=-1)
+        fg = resize_nearest(mask["fg_mask"].float(), hw)
+        bg = 1.0 - fg
+        aug = mask.get("aug_mask")
+        if aug is not None:
+            aug = resize_nearest(aug.float(), hw)
+            fg, bg = fg * aug, bg * aug
+        fg, bg = fg.reshape(b, n), bg.reshape(b, n)
+        homo = (fg[:, :, None] * fg[:, None, :] + bg[:, :, None] * bg[:, None, :]) > 0
+        probs = torch.where(homo, probs, 0.0)
+        return torch.matmul(probs.to(v.dtype).float(), v.float())
+
 
 class Level(nn.Module):
-    def __init__(self, blocks, upsample=None):
+    """One resolution's residual blocks, then the decoder's upsample or the
+    encoder's downsample convolution (none at the last level)."""
+
+    def __init__(self, blocks, upsample=None, downsample=None):
         super().__init__()
         self.blocks = nn.ModuleList(blocks)
         self.upsample = upsample
+        self.downsample = downsample
 
 
 class Decoder(nn.Module):
@@ -123,6 +163,91 @@ class Decoder(nn.Module):
             if level.upsample is not None:
                 h = level.upsample(F.interpolate(h, scale_factor=2.0, mode="nearest"))
         return self.conv_out(self.norm_out(h, silu=True))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        chs = [cfg.base_ch * m for m in cfg.ch_mult]
+        self.conv_in = _conv(cfg.in_channels, chs[0])
+        levels, cin = [], chs[0]
+        for i, cout in enumerate(chs):
+            blocks = [ResBlock(cin if j == 0 else cout, cout, cfg)
+                      for j in range(cfg.num_res_blocks)]
+            down = nn.Conv2d(cout, cout, 3, stride=2, padding=0) if i < len(chs) - 1 else None
+            levels.append(Level(blocks, downsample=down))
+            cin = cout
+        self.down = nn.ModuleList(levels)
+        self.mid = nn.ModuleDict({"block_1": ResBlock(chs[-1], chs[-1], cfg),
+                                  "attn_1": AttnBlock(chs[-1], cfg),
+                                  "block_2": ResBlock(chs[-1], chs[-1], cfg)})
+        self.norm_out = GroupNorm(chs[-1], cfg.norm_groups, cfg.norm_eps)
+        self.conv_out = _conv(chs[-1], 2 * cfg.z_channels)
+
+    def forward(self, x, mask: dict | None = None):
+        h = self.conv_in(x)
+        for level in self.down:
+            for blk in level.blocks:
+                h = blk(h)
+            if level.downsample is not None:
+                # CompVis downsample: one row and one column of zeros after
+                # the map, then a stride-2 convolution without padding; the
+                # padded copy keeps channels-last memory
+                h = level.downsample(F.pad(h, (0, 1, 0, 1)))
+        h = self.mid["block_2"](self.mid["attn_1"](self.mid["block_1"](h), mask))
+        return self.conv_out(self.norm_out(h, silu=True))
+
+
+class VAEEncoder(nn.Module):
+    def __init__(self, cfg: VAEConfig = SD_VAE):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg)
+        self.quant_conv = _conv(2 * cfg.z_channels, 2 * cfg.z_channels, k=1)
+        self.to(memory_format=torch.channels_last)
+
+    def forward(self, x, mask: dict | None = None):
+        """Image [B, 3, H, W] in [-1, 1] → moments [B, 2z, H/8, W/8]
+        (mean ‖ logvar); `mask` as `AttnBlock` takes it."""
+        x = x.contiguous(memory_format=torch.channels_last)
+        return self.quant_conv(self.encoder(x, mask)).contiguous()
+
+
+def vae_encode_moments(encoder: VAEEncoder, x, mask: dict | None = None):
+    """→ moments [B, 2z, H/8, W/8] (mean ‖ logvar)."""
+    return encoder(x, mask)
+
+
+def _mean_logvar(moments):
+    mean, logvar = moments.chunk(2, dim=1)
+    return mean, logvar.clamp(-30.0, 20.0)
+
+
+def gaussian_sample(moments, generator: torch.Generator | None = None, noise=None):
+    """A sample of the diagonal Gaussian the moments describe: mean + std ·
+    (`noise`, or a draw from `generator` on the moments' device); the mode
+    when neither is given."""
+    mean, logvar = _mean_logvar(moments)
+    if generator is None and noise is None:
+        return mean
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device).to(mean.dtype)
+    return mean + torch.exp(0.5 * logvar) * noise
+
+
+def gaussian_kl(moments):
+    """KL of the diagonal Gaussian from N(0, 1), summed per sample → [B]."""
+    mean, logvar = _mean_logvar(moments)
+    return 0.5 * torch.sum(mean**2 + torch.exp(logvar) - 1.0 - logvar, dim=(1, 2, 3))
+
+
+def vae_encode(encoder: VAEEncoder, x, generator: torch.Generator | None = None,
+               mask: dict | None = None, scale: float = SD_LATENT_SCALE,
+               shift: float = 0.0, noise=None):
+    """Image → scaled latent [B, 4, H/8, W/8]; the posterior's mode when
+    neither `generator` nor `noise` is given. `shift`: SD3-family VAEs
+    subtract a shift factor before scaling."""
+    return (gaussian_sample(encoder(x, mask), generator, noise) - shift) * scale
 
 
 class VAEDecoder(nn.Module):

@@ -137,6 +137,18 @@ def launch_floor(stream: int) -> None:
     check(load_library().launch_floor(stream), "launch_floor")
 
 
+def forward_only(op: str, *tensors) -> None:
+    """Raise if autograd would record `op` on these inputs: its kernels have
+    no backward, and their outputs would leave the graph without a word.
+    Reads only `requires_grad` and the grad mode, so it runs on CPU tensors."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernels are forward only, and an input requires grad; call it "
+            "under torch.no_grad() or torch.inference_mode(), or on detached tensors")
+
+
 def check(rc: int, kernel: str) -> None:
     """Raise on a non-zero CUDA error code returned by a launch."""
     if rc != 0:

@@ -17,7 +17,8 @@ Counterpart of `adaface_tpu/ops/attention.py` (forward only). Tensors are
   card, merged by `flash_combine`); fp32 the CUDA-core kernel of
   `csrc/flash_attn_fwd.cu`. Each variant counts its launches under its own
   key. On a CPU tensor `flash_attention` takes the plain version; on a CUDA
-  tensor it launches the kernels or raises.
+  tensor it launches the kernels or raises (also when autograd would record
+  the call: the kernels are forward only).
 - `flash_attention_tiled` and `combine_partials` repeat the kernels'
   arithmetic in plain PyTorch (key tiles, log2 online softmax, P rounded to
   v's dtype, head-dim slices, split-keys partials), so that the CPU tests
@@ -337,6 +338,7 @@ def flash_attention(q, k, v, kv_mask=None, causal: bool = False, scale=None):
                                             causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    _build.forward_only("flash_attention", q, k, v)
     return _flash_cuda(q, k, v, kv_mask, causal, scale)
 
 

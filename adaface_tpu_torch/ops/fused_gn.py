@@ -13,7 +13,8 @@ Three kernels, counted apart in `_build.LAUNCHES`:
 `gn_plan` says which of the two a shape takes, and with what geometry; it
 is a pure function of shape, dtype and SM count. `group_norm_silu` follows
 it. On a CPU tensor it takes the plain version; on a CUDA tensor it launches
-the kernels or raises. Every GroupNorm of the UNet and the VAE goes through
+the kernels or raises (also when autograd would record the call: the
+kernels are forward only). Every GroupNorm of the UNet and the VAE goes through
 it, as every GroupNorm on the TPU went through the Pallas pair.
 
 `gn_silu_chunked` repeats the kernels' arithmetic in plain PyTorch, for the
@@ -328,6 +329,7 @@ def group_norm_silu(x, scale, bias, groups: int, eps: float, apply_silu: bool = 
     if x.device.type == "cpu":
         return gn_silu_plain(x, scale, bias, groups, eps, apply_silu)
     _check_cuda(x, groups)
+    _build.forward_only("group_norm_silu", x, scale, bias)
     plan = plan_for(x, groups)
     if plan.kernel == "fused":
         return gn_fused(x, scale, bias, groups, eps, apply_silu, plan)

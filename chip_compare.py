@@ -32,6 +32,12 @@ lack.
 times `bn_stats` and `layer_norm` of the tree in the working directory over
 launch geometries at every path shape (how `bn_plan` and `ln_plan` were set).
 
+    python3 chip_compare.py --flash-rows
+
+times the wgmma flash kernel with 64 and with 128 query rows a block at every
+UNet shape, at CFG batch 2 and at batch 16, beside the stock op (how
+`flash_plan`'s rule for the rows was checked).
+
     python3 chip_compare.py --profile-turn
 
 profiles one UNet call and one VAE decode of the tree in the working
@@ -50,6 +56,7 @@ def turn() -> None:
     """One tree's measurements; runs with the tree as working directory."""
     sys.path.insert(0, os.getcwd())
     import dataclasses
+    import inspect
 
     import torch
     import torch.nn.functional as F
@@ -80,7 +87,10 @@ def turn() -> None:
 
         channels_last = hasattr(G, "GN_FUSED")  # else the tree's kernels take NCHW
         sums = {"kernel": 0.0, "library": 0.0, "bound": 0.0}
-        for label, shape, groups, eps, silu, per_call, per_decode in new.GN_CASES:
+        for label, shape, groups, eps, silu, by_path in new.GN_CASES:
+            n = new.gn_launches(by_path, unet=new.UNET_CALLS, decode=1)
+            if not n:  # not on a text-to-image request's path
+                continue
             x, scale, bias = new.gn_inputs(gen, shape)
             if not channels_last:
                 x = x.contiguous()
@@ -89,7 +99,6 @@ def turn() -> None:
             stock = lambda: act(F.group_norm(x, groups, scale, bias, eps))
             dev, stock_dev = new.graph_ms(kernel), new.graph_ms(stock)
             least, _ = new.bound((2 * x.numel() + 2 * shape[1]) * x.element_size())
-            n = new.gn_launches(per_call, per_decode)
             sums["kernel"] += n * dev
             sums["library"] += n * stock_dev
             sums["bound"] += n * least
@@ -150,7 +159,9 @@ def turn() -> None:
                   f"{new.median_ms(lambda: unet(x, t, ctx), reps=5):.2f} ms", flush=True)
             del unet
             torch.cuda.empty_cache()
-    served = c.serve(gen)
+    # a tree from before the batcher builds its server inside `serve`
+    served = (c.serve(gen) if "gen" in inspect.signature(c.serve).parameters
+              else c.serve(*c.build_server(gen)))
     print("requests: " + ", ".join(f"{x * 1e3:.1f}" for x in served["latencies"]) + " ms; "
           f"{len(served['latencies']) / served['total']:.3f} imgs/sec", flush=True)
     trained = c.train_face_parser(gen)
@@ -286,9 +297,51 @@ def sweep_norm_plans() -> None:
                   + f" us; the plan's: {chosen}", flush=True)
 
 
+def flash_rows() -> None:
+    """Device time of the wgmma kernel at both block sizes, in turns 64, 128,
+    128, 64, at every UNet attention shape of `chip_smoke.py` (q, k, v laid
+    out as the UNet lays them out), beside `flash_plan`'s choice and the
+    stock op."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as c
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+
+    c.require_cuda()
+    c.build_kernels()
+    lib = _build.load_library()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    with torch.inference_mode():
+        for label, b, h, sq, sk, d in c.FLASH_CASES[:-1] + c.FLASH_CASES_B16:
+            q, k, v = c.flash_inputs(gen, label, b, h, sq, sk, d)
+            plan, _, _, strides = A._prepare(q, k, v, True)
+            out = torch.empty_strided((b, h, sq, d), (sq * h * d, d, h * d, 1), dtype=q.dtype,
+                                      device="cuda")
+
+            def launch(rows):
+                _build.check(lib.flash_fwd_bf16_wg(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), strides,
+                    b, h, sq, sk, d, 0, 1.0 / math.sqrt(d), rows,
+                    torch.cuda.current_stream().cuda_stream), "flash_fwd_bf16_wg")
+
+            ms = {rows: [] for rows in (64, 128)}
+            for rows in (64, 128, 128, 64):
+                ms[rows].append(c.graph_ms(lambda: launch(rows)))
+            stock = c.graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            print(f"flash {label:28s} the plan takes {plan.block_rows} rows: 64 rows "
+                  f"{ms[64][0]:.4f}, {ms[64][1]:.4f} ms | 128 rows {ms[128][0]:.4f}, "
+                  f"{ms[128][1]:.4f} ms | stock {stock:.4f} ms", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep_norm_plans()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--flash-rows":
+        flash_rows()
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--turn":
         turn()

@@ -37,7 +37,19 @@ Phases (any failure raises and the exit code is not 0):
      subjects at 512x512, 25 DDIM steps, guidance 6.0, random full-size
      weights from a seeded torch.Generator, with the kernels' launch counts
      and the hits and misses of the flash wrapper's two caches;
-  6. face-parser training at its published configuration (BiSeNet-ResNet18,
+  6. the rest of the SD1.5 serving surface, on the same modules: the
+     continuous batcher (8 slots = UNet batch 16 with CFG, 25 steps, 512x512,
+     12 requests queued up front for three subjects and none, two guidance
+     scales and a dual one) with its launch counts, the addresses of its
+     state buffers before and after, imgs/sec, and a step's device time
+     beside the host's time to enqueue it at 8 and at 16 slots; a small drain
+     against the wrapper's one-shot images and against itself on the plain
+     versions; one img2img request (a 512x512 uint8 image, strength 0.8: 20
+     of 25 steps) with the VAE encoder's launch counts and its moments,
+     kernels against plain; one DPM-Solver++ request at 512x512, PNDM and LCM
+     at 256x256, each against the DDIM image of the same latents; the
+     forward-only kernels' refusal of inputs that require grad;
+  7. face-parser training at its published configuration (BiSeNet-ResNet18,
      batch 16, crop 448, fp32, OHEM, SGD): one train step's loss and
      gradients, kernels against plain, under deterministic cuDNN without
      TF32, beside the envelope of plain with fp64 BN statistics; then 10
@@ -88,6 +100,9 @@ FLASH_CASES = [
     ("unet 16x16 cross", 2, 8, 256, 77, 160),
     ("vae mid self", 1, 1, 4096, 4096, 512),
 ]
+# the UNet's six at CFG batch 16: a step of the continuous batcher with 8 slots
+FLASH_CASES_B16 = [(f"{label} batch 16", 16, *dims) for label, _, *dims in FLASH_CASES[:-1]]
+FLASH_PER_UNET_CALL = 5  # launches of each of the UNet's six shapes in one call
 # layouts off the path, at the 32x32 self-attention shape: one contiguous
 # [B,H,S,D], and one whose head offset (D = 36: 72 bytes) is not a multiple
 # of 16 bytes, which takes the wide kernel and its element-copy staging
@@ -98,37 +113,53 @@ FLASH_EXTRA_CASES = [
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 RUN_LAUNCHES = 20  # launches between one pair of events, for launch-bound shapes
-# (label, shape, groups, eps, silu, launches per UNet call, per decode): every
-# GroupNorm of the UNet (CFG batch 2; resnet norms with SiLU, transformer
-# norms without) and of the VAE decoder (batch 1) at 512x512; `check_unet` and
-# `serve` count the shapes the modules really see against this table
-GN_CASES = [
-    ("unet resnet 64x64 320", (2, 320, 64, 64), 32, 1e-5, True, 8, 0),
-    ("unet transformer 64x64 320", (2, 320, 64, 64), 32, 1e-6, False, 5, 0),
-    ("unet resnet 64x64 640", (2, 640, 64, 64), 32, 1e-5, True, 2, 0),
-    ("unet resnet 64x64 960", (2, 960, 64, 64), 32, 1e-5, True, 1, 0),
-    ("unet resnet 32x32 320", (2, 320, 32, 32), 32, 1e-5, True, 1, 0),
-    ("unet resnet 32x32 640", (2, 640, 32, 32), 32, 1e-5, True, 6, 0),
-    ("unet transformer 32x32 640", (2, 640, 32, 32), 32, 1e-6, False, 5, 0),
-    ("unet resnet 32x32 960", (2, 960, 32, 32), 32, 1e-5, True, 1, 0),
-    ("unet resnet 32x32 1280", (2, 1280, 32, 32), 32, 1e-5, True, 1, 0),
-    ("unet resnet 32x32 1920", (2, 1920, 32, 32), 32, 1e-5, True, 1, 0),
-    ("unet resnet 16x16 640", (2, 640, 16, 16), 32, 1e-5, True, 1, 0),
-    ("unet resnet 16x16 1280", (2, 1280, 16, 16), 32, 1e-5, True, 6, 0),
-    ("unet transformer 16x16 1280", (2, 1280, 16, 16), 32, 1e-6, False, 5, 0),
-    ("unet resnet 16x16 1920", (2, 1920, 16, 16), 32, 1e-5, True, 1, 0),
-    ("unet resnet 16x16 2560", (2, 2560, 16, 16), 32, 1e-5, True, 2, 0),
-    ("unet resnet 8x8 1280", (2, 1280, 8, 8), 32, 1e-5, True, 11, 0),
-    ("unet transformer 8x8 1280", (2, 1280, 8, 8), 32, 1e-6, False, 1, 0),
-    ("unet resnet 8x8 2560", (2, 2560, 8, 8), 32, 1e-5, True, 3, 0),
-    ("vae resnet 64x64 512", (1, 512, 64, 64), 32, 1e-6, True, 0, 10),
-    ("vae attention 64x64 512", (1, 512, 64, 64), 32, 1e-6, False, 0, 1),
-    ("vae resnet 128x128 512", (1, 512, 128, 128), 32, 1e-6, True, 0, 6),
-    ("vae resnet 256x256 512", (1, 512, 256, 256), 32, 1e-6, True, 0, 1),
-    ("vae resnet 256x256 256", (1, 256, 256, 256), 32, 1e-6, True, 0, 5),
-    ("vae resnet 512x512 256", (1, 256, 512, 512), 32, 1e-6, True, 0, 1),
-    ("vae resnet 512x512 128", (1, 128, 512, 512), 32, 1e-6, True, 0, 6),
+# every GroupNorm of the UNet at 512x512: (label, C, H = W, eps, SiLU (resnet
+# norms with, transformer norms without), launches per UNet call)
+UNET_GN = [
+    ("resnet 64x64 320", 320, 64, 1e-5, True, 8),
+    ("transformer 64x64 320", 320, 64, 1e-6, False, 5),
+    ("resnet 64x64 640", 640, 64, 1e-5, True, 2),
+    ("resnet 64x64 960", 960, 64, 1e-5, True, 1),
+    ("resnet 32x32 320", 320, 32, 1e-5, True, 1),
+    ("resnet 32x32 640", 640, 32, 1e-5, True, 6),
+    ("transformer 32x32 640", 640, 32, 1e-6, False, 5),
+    ("resnet 32x32 960", 960, 32, 1e-5, True, 1),
+    ("resnet 32x32 1280", 1280, 32, 1e-5, True, 1),
+    ("resnet 32x32 1920", 1920, 32, 1e-5, True, 1),
+    ("resnet 16x16 640", 640, 16, 1e-5, True, 1),
+    ("resnet 16x16 1280", 1280, 16, 1e-5, True, 6),
+    ("transformer 16x16 1280", 1280, 16, 1e-6, False, 5),
+    ("resnet 16x16 1920", 1920, 16, 1e-5, True, 1),
+    ("resnet 16x16 2560", 2560, 16, 1e-5, True, 2),
+    ("resnet 8x8 1280", 1280, 8, 1e-5, True, 11),
+    ("transformer 8x8 1280", 1280, 8, 1e-6, False, 1),
+    ("resnet 8x8 2560", 2560, 8, 1e-5, True, 3),
 ]
+# every GroupNorm of the VAE at 512x512, batch 1: (label, C, H = W, SiLU,
+# launches per decode, per encode)
+VAE_GN = [
+    ("resnet 64x64 512", 512, 64, True, 10, 9),
+    ("attention 64x64 512", 512, 64, False, 1, 1),
+    ("resnet 128x128 512", 512, 128, True, 6, 3),
+    ("resnet 128x128 256", 256, 128, True, 0, 1),
+    ("resnet 256x256 512", 512, 256, True, 1, 0),
+    ("resnet 256x256 256", 256, 256, True, 5, 3),
+    ("resnet 256x256 128", 128, 256, True, 0, 1),
+    ("resnet 512x512 256", 256, 512, True, 1, 0),
+    ("resnet 512x512 128", 128, 512, True, 6, 4),
+]
+# (label, shape, groups, eps, silu, launches by path): the paths are one UNet
+# call at CFG batch 2 ("unet": a request's step) or 16 ("unet16": a step of the
+# batcher with 8 slots), one VAE decode and one VAE encode; `check_unet`, `serve`
+# and the phases after it count the shapes the modules really see against this
+# table
+GN_CASES = (
+    [(f"unet {label}", (2, c, hw, hw), 32, eps, silu, {"unet": n})
+     for label, c, hw, eps, silu, n in UNET_GN]
+    + [(f"vae {label}", (1, c, hw, hw), 32, 1e-6, silu, {"decode": dec, "encode": enc})
+       for label, c, hw, silu, dec, enc in VAE_GN]
+    + [(f"unet {label} batch 16", (16, c, hw, hw), 32, eps, silu, {"unet16": n})
+       for label, c, hw, eps, silu, n in UNET_GN])
 UNET_CALLS = 25  # per request: DDIM steps, one CFG batch-2 call each
 # each kernel forced at a shape of the other's regime, where it can run
 GN_FORCED = [("vae resnet 128x128 512", "fused"), ("unet resnet 64x64 320", "split"),
@@ -330,7 +361,7 @@ def check_flash(gen) -> dict:
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
-    for label, b, h, sq, sk, d in FLASH_CASES + FLASH_EXTRA_CASES:
+    for label, b, h, sq, sk, d in FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES:
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -365,6 +396,14 @@ def check_flash(gen) -> dict:
                               stock_run_ms=stock_run, graph_ms=dev, stock_graph_ms=stock_dev,
                               host_us=host, stock_host_us=stock_host,
                               bound_ms=bound_ms, bound_by=bound_by)
+        # the plain version's fp32 logits are 8.6 GB at batch 16, S 4096
+        del q, k, v, out, ref, kernel, plain, stock
+        torch.cuda.empty_cache()
+    for name, cases in (("2", FLASH_CASES[:-1]), ("16", FLASH_CASES_B16)):
+        dev = sum(FLASH_PER_UNET_CALL * results[case[0]]["graph_ms"] for case in cases)
+        lib = sum(FLASH_PER_UNET_CALL * results[case[0]]["stock_graph_ms"] for case in cases)
+        log(f"flash per UNet call at batch {name} ({FLASH_PER_UNET_CALL * len(cases)} launches): "
+            f"kernels {dev:.3f} ms of device time, stock sdpa {lib:.3f} ms")
 
     # masked + causal at ragged lengths (Sq 200, Sk 177: the causal offset
     # Sk - Sq = -23 leaves rows 0..22 only masked keys; batch 1 also masks
@@ -406,7 +445,7 @@ def check_flash_combine(gen) -> dict:
     element, for elements that cancel to nearly nothing."""
     from adaface_tpu_torch.ops import attention as A
 
-    label, b, h, sq, sk, d = FLASH_CASES[-1]
+    label, b, h, sq, sk, d = FLASH_CASES[-1]  # the VAE's
     nsplit = 2
     q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
     o_part, m_part, l_part = A.flash_partials_tiled(q, k, v, key_tile=32, d_slices=4,
@@ -445,9 +484,10 @@ def gn_inputs(gen, shape, dtype=torch.bfloat16, mean=0.5, std=2.0):
     return x.contiguous(memory_format=torch.channels_last), scale, bias
 
 
-def gn_launches(per_call: int, per_decode: int) -> int:
-    """Launches of a GroupNorm case in one 512x512, 25-step request."""
-    return UNET_CALLS * per_call + per_decode
+def gn_launches(by_path: dict, **calls) -> int:
+    """Launches of a GroupNorm case over `calls` of each path (`unet=25,
+    decode=1` is one 512x512, 25-step request)."""
+    return sum(n * calls.get(path, 0) for path, n in by_path.items())
 
 
 def check_gn_case(G, x, scale, bias, groups, eps, silu, plan, tol) -> dict:
@@ -532,7 +572,7 @@ def check_gn(gen) -> dict:
     from adaface_tpu_torch.ops import fused_gn as G
 
     results = {}
-    for label, shape, groups, eps, silu, per_call, per_decode in GN_CASES:
+    for label, shape, groups, eps, silu, by_path in GN_CASES:
         c = shape[1]
         x, scale, bias = gn_inputs(gen, shape)
         plan = G.plan_for(x, groups)
@@ -556,7 +596,8 @@ def check_gn(gen) -> dict:
                    stats_err=r["stats_err"], norm_err=r["norm_err"], ms=ms, plain_ms=plain_ms,
                    stock_ms=stock_ms, graph_ms=dev, stock_graph_ms=stock_dev, host_us=host,
                    stock_host_us=stock_host, bound_fn=bound_fn, bound_moved=bound_fn,
-                   launches=gn_launches(per_call, per_decode))
+                   launches=gn_launches(by_path, unet=UNET_CALLS, decode=1),
+                   by_path=by_path)
         detail = ""
         if plan.kernel == "split":
             part = r["part"]
@@ -593,7 +634,7 @@ def check_gn(gen) -> dict:
     # each kernel at a shape of the other's regime
     cases = {case[0]: case for case in GN_CASES}
     for label, forced in GN_FORCED:
-        _, shape, groups, eps, silu, _, _ = cases[label]
+        _, shape, groups, eps, silu, _ = cases[label]
         x, scale, bias = gn_inputs(gen, shape)
         plan = G.plan_for(x, groups, forced)
         r = check_gn_case(G, x, scale, bias, groups, eps, silu, plan, BF16_TOL)
@@ -618,6 +659,23 @@ def check_gn(gen) -> dict:
                                               stats_err=r["stats_err"], norm_err=r["norm_err"])
     results["adversarial rstd rel_err"] = check_gn_adversarial(G, gen)
 
+    # a map past 2^31 bytes (a batch-32 decode's 32x128x512x512, 2.1 GB): its
+    # first and last samples against the plain version of each alone
+    x, scale, bias = gn_inputs(gen, (32, 128, 512, 512))
+    out = G.group_norm_silu(x, scale, bias, 32, 1e-6, True)
+    errs = [max_err(out[i:i + 1], G.gn_silu_plain(x[i:i + 1], scale, bias, 32, 1e-6, True))
+            for i in (0, 31)]
+    plan = G.plan_for(x, 32)
+    log(f"gn 2.1 GB map (32, 128, 512, 512) {plan.kernel} chunks {plan.chunks}: max_abs_err of "
+        f"the first and last sample {errs[0][0]:.3e}, {errs[1][0]:.3e} (bound "
+        f"{BF16_TOL * errs[0][1]:.3e})")
+    if any(err > BF16_TOL * mag for err, mag in errs):
+        raise AssertionError(f"gn 2.1 GB map: error above bound: {errs}")
+    worst = max(err for err, _ in errs)
+    results["2.1 GB map"] = dict(kernel=plan.kernel, err=worst, stats_err=0.0, norm_err=worst)
+    del x, out
+    torch.cuda.empty_cache()
+
     path = [results[case[0]] for case in GN_CASES]
     sums = {k: sum(r["launches"] * r[k] for r in path)
             for k in ("graph_ms", "stock_graph_ms", "bound_fn", "bound_moved")}
@@ -628,6 +686,14 @@ def check_gn(gen) -> dict:
         f"by bytes: the function {sums['bound_fn']:.3f} ms, what the kernels move "
         f"{sums['bound_moved']:.3f} ms")
     results["per request"] = dict(launches=launches, **sums)
+    for what, calls in (("batcher step at 8 slots (UNet batch 16)", {"unet16": 1}),
+                        ("VAE encode", {"encode": 1}), ("VAE decode", {"decode": 1})):
+        n = {case[0]: gn_launches(case[5], **calls) for case in GN_CASES}
+        log(f"gn per {what}: {sum(n.values())} GroupNorms, kernels "
+            f"{sum(k * results[label]['graph_ms'] for label, k in n.items()):.3f} ms of device "
+            f"time, F.group_norm(+silu) "
+            f"{sum(k * results[label]['stock_graph_ms'] for label, k in n.items()):.3f} ms, least "
+            f"by bytes {sum(k * results[label]['bound_fn'] for label, k in n.items()):.3f} ms")
     return results
 
 
@@ -985,17 +1051,17 @@ def launch_counts() -> dict:
     return dict(_build.LAUNCHES)
 
 
-def gn_expected(unet_calls: int, decodes: int) -> dict:
+def gn_expected(**calls) -> dict:
     """Launches of each GroupNorm kernel that `gn_plan` predicts on this card
-    for `unet_calls` UNet calls and `decodes` VAE decodes: one `gn_fused`
-    launch for a map the plan gives the one-launch kernel, one `gn_stats` and
-    one `gn_norm` for each of the rest."""
+    for `calls` of each path of GN_CASES (`unet`, `unet16`, `decode`,
+    `encode`): one `gn_fused` launch for a map the plan gives the one-launch
+    kernel, one `gn_stats` and one `gn_norm` for each of the rest."""
     from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS, gn_plan
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     want = {GN_FUSED: 0, GN_STATS: 0, GN_NORM: 0}
-    for _, (b, c, h, w), groups, _, _, per_call, per_decode in GN_CASES:
-        n = per_call * unet_calls + per_decode * decodes
+    for _, (b, c, h, w), groups, _, _, by_path in GN_CASES:
+        n = gn_launches(by_path, **calls)
         if gn_plan(torch.bfloat16, b, c, h * w, groups, sms).kernel == "fused":
             want[GN_FUSED] += n
         else:
@@ -1005,29 +1071,36 @@ def gn_expected(unet_calls: int, decodes: int) -> dict:
 
 
 def expect_counts(counts: dict, unet_calls: int = 0, decodes: int = 0,
-                  fused_ln_calls: int = 0, bisenet_forwards: int = 0):
-    """30 launches of the wgmma flash kernel per UNet call (20 at head dim
-    40/80, 10 at 160) and 1 of the wide-head kernel per VAE decode (D 512),
-    the latter followed by one launch of the combine kernel where this
-    card's SM count makes the wrapper split the keys (132 SMs: 2 splits); no
-    launch of a flash kernel under another key (the wide kernel in the
-    UNet, the fp32 kernel anywhere); 61 GroupNorms per UNet call, 30 per
-    decode, each under the key of the kernel `gn_plan` gives its shape (132
-    SMs: every one of the UNet's and 11 of a decode's in one `gn_fused`
-    launch, 19 of a decode's as `gn_stats` + `gn_norm`); 48 LayerNorm launches
-    per UNet call in the fused-LN configuration (16 transformer blocks x 3),
-    0 in the default one; one bn_stats and one bn_norm_act launch for each
-    of the 31 train-mode BNs of a BiSeNet forward. No other launch."""
+                  fused_ln_calls: int = 0, bisenet_forwards: int = 0,
+                  unet16_calls: int = 0, encodes: int = 0):
+    """30 launches of the wgmma flash kernel per UNet call, at CFG batch 2
+    (`unet_calls`) and at batch 16 (`unet16_calls`) alike (20 at head dim
+    40/80, 10 at 160), and 1 of the wide-head kernel per VAE decode or encode
+    (D 512), the latter followed by one launch of the combine kernel where
+    this card's SM count makes the wrapper split the keys (132 SMs: 2
+    splits); no launch of a flash kernel under another key (the wide kernel
+    in the UNet, the fp32 kernel anywhere); 61 GroupNorms per UNet call, 30
+    per decode, 22 per encode, each under the key of the kernel `gn_plan`
+    gives its shape (132 SMs: every one of the UNet's and the VAE's 64x64
+    maps in one `gn_fused` launch, its larger maps as `gn_stats` + `gn_norm`);
+    48 LayerNorm launches per UNet call in the fused-LN configuration (16
+    transformer blocks x 3), 0 in the default one; one bn_stats and one
+    bn_norm_act launch for each of the 31 train-mode BNs of a BiSeNet
+    forward. No other launch."""
     from adaface_tpu_torch.ops.attention import (FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE,
                                                  flash_plan)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
-    vae_plan = flash_plan(torch.bfloat16, *FLASH_CASES[-1][1:],
-                          torch.cuda.get_device_properties(0).multi_processor_count)
-    want = {FLASH_T: 20 * unet_calls, FLASH_STD: 10 * unet_calls, FLASH_WIDE: decodes,
-            FLASH_COMBINE: decodes * (vae_plan.nsplit > 1),
-            **gn_expected(unet_calls, decodes),
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vae_plan = flash_plan(torch.bfloat16, *FLASH_CASES[-1][1:], sms)
+    for case in FLASH_CASES[:-1] + FLASH_CASES_B16:
+        if flash_plan(torch.bfloat16, *case[1:], sms).variant != "wg":
+            raise AssertionError(f"flash {case[0]}: the plan leaves the wgmma kernel")
+    all_unet = unet_calls + unet16_calls
+    want = {FLASH_T: 20 * all_unet, FLASH_STD: 10 * all_unet, FLASH_WIDE: decodes + encodes,
+            FLASH_COMBINE: (decodes + encodes) * (vae_plan.nsplit > 1),
+            **gn_expected(unet=unet_calls, unet16=unet16_calls, decode=decodes, encode=encodes),
             LAYER_NORM: 48 * fused_ln_calls,
             BN_STATS: BISENET_BNS * bisenet_forwards,
             BN_NORM_ACT: BISENET_BNS * bisenet_forwards}
@@ -1083,11 +1156,13 @@ def bn_census(module):
         (args[0].numel() // args[0].shape[1], args[0].shape[1]) if mod.training else None))
 
 
-def expect_census(seen: dict, unet_calls: int = 0, decodes: int = 0):
+def expect_census(seen: dict, unet_calls: int = 0, decodes: int = 0, unet16_calls: int = 0,
+                  encodes: int = 0):
     """The GroupNorms a module really ran against GN_CASES, the table the
     per-request sums are taken over."""
-    want = {(shape, eps, silu): per_call * unet_calls + per_decode * decodes
-            for _, shape, _, eps, silu, per_call, per_decode in GN_CASES}
+    want = {(shape, eps, silu): gn_launches(by_path, unet=unet_calls, unet16=unet16_calls,
+                                            decode=decodes, encode=encodes)
+            for _, shape, _, eps, silu, by_path in GN_CASES}
     want = {k: v for k, v in want.items() if v}
     if dict(seen) != want:
         raise AssertionError(f"GroupNorm calls {dict(seen)}, expected {want}")
@@ -1123,8 +1198,15 @@ def check_unet(gen) -> dict:
             ref = unet(x, t, ctx).float()
             plain_ms = median_ms(lambda: unet(x, t, ctx), reps=5)
         ms = median_ms(lambda: unet(x, t, ctx), reps=5)
+        cats = device_operations(lambda: unet(x, t, ctx), r"CatArray")
     if not torch.isfinite(eps).all():
         raise AssertionError("UNet output is not finite")
+    # one for the timestep embedding, one a skip connection: none of weights
+    skip_cats = sum(len(blk.resnets) for blk in unet.up_blocks)
+    log(f"unet SD1.5 CFG batch 2 64x64: {cats[0]} concatenations a call, {cats[1]:.4f} ms of "
+        f"device time (1 timestep embedding + {skip_cats} skip connections; none of weights)")
+    if cats[0] != 1 + skip_cats:
+        raise AssertionError(f"UNet call: {cats[0]} concatenations, expected {1 + skip_cats}")
     rel = ((eps - ref).norm() / ref.norm()).item()
     log(f"unet SD1.5 CFG batch 2 64x64: rel_err {rel:.3e} (bound {UNET_REL_TOL:g}) "
         f"kernels {ms:.1f} ms plain {plain_ms:.1f} ms")
@@ -1164,6 +1246,59 @@ def check_unet(gen) -> dict:
                 ln_counts=ln_counts)
 
 
+def device_operations(fn, pattern: str = "") -> tuple[int, float]:
+    """(count, ms of device time) of the device operations of one call of
+    `fn` whose kernel name matches `pattern`, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pattern, e.name)]
+    return len(found), sum(found) / 1e3
+
+
+def expect_raises(fn, what: str) -> None:
+    try:
+        fn()
+    except RuntimeError as e:
+        if "forward only" in str(e):
+            return
+        raise
+    raise AssertionError(f"{what}: no error on an input that requires grad")
+
+
+def check_forward_only() -> None:
+    """`flash_attention` and `group_norm_silu` refuse, under grad mode, a
+    CUDA input that requires grad (their outputs would leave the autograd
+    graph silently), and launch under `torch.no_grad()`."""
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops import fused_gn as G
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    q, k, v = (t.clone().requires_grad_(i == 1) for i, t in enumerate(
+        flash_inputs(gen, "self", 1, 8, 256, 256, 40)))
+    x, scale, bias = gn_inputs(gen, (2, 320, 8, 8))
+    scale = scale.requires_grad_(True)
+    with torch.enable_grad():
+        expect_raises(lambda: A.flash_attention(q, k, v), "flash_attention")
+        expect_raises(lambda: A.multi_head_attention(q, k, v), "multi_head_attention")
+        expect_raises(lambda: G.group_norm_silu(x, scale, bias, 32, 1e-5), "group_norm_silu")
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        A.flash_attention(q, k, v)
+        G.group_norm_silu(x, scale, bias, 32, 1e-5)
+    torch.cuda.synchronize()
+    if sum(launch_counts().values()) != 2:
+        raise AssertionError(f"forward only: launches under no_grad {launch_counts()}")
+    log("forward only: flash_attention and group_norm_silu raise on inputs that require grad "
+        "under grad mode, and launch under torch.no_grad()")
+
+
 REQUESTS = [  # (subject, prompt)
     ("a", "a photo of a person walking on the beach"),
     ("b", "a portrait of a person in a garden, oil painting"),
@@ -1191,15 +1326,14 @@ def build_server(gen):
     log(f"serve: random full-size weights on the card in {time.perf_counter() - t0:.1f} s")
     rs = np.random.RandomState(SEED)
     faces = {"a": [rs.randint(0, 256, (512, 512, 3), np.uint8) for _ in range(2)],
-             "b": [rs.randint(0, 256, (512, 512, 3), np.uint8)]}
+             "b": [rs.randint(0, 256, (512, 512, 3), np.uint8)],
+             "c": [rs.randint(0, 256, (512, 512, 3), np.uint8)]}
     return wrapper, faces
 
 
-def serve(gen) -> dict:
+def serve(wrapper, faces) -> dict:
     from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import attention as A
-
-    wrapper, faces = build_server(gen)
 
     # a small request, kernels against plain versions on the same inputs
     wrapper.prepare_adaface_embeddings(images=faces["a"])
@@ -1246,6 +1380,282 @@ def serve(gen) -> dict:
         f"(first includes warm-up); launches {counts}; flash cache lookups {lookups}")
     return dict(counts=counts, latencies=latencies, total=total, small_err=err,
                 lookups=lookups)
+
+
+def check_images(images, n: int, hw: int, what: str) -> None:
+    """`n` finite [3, hw, hw] images in [0, 1], none constant."""
+    if len(images) != n:
+        raise AssertionError(f"{what}: {len(images)} images, expected {n}")
+    for i, img in enumerate(images):
+        if tuple(img.shape) != (3, hw, hw) or not torch.isfinite(img).all():
+            raise AssertionError(f"{what}: image {i} {tuple(img.shape)} not finite or misshaped")
+        if img.min() < 0.0 or img.max() > 1.0 or img.std() == 0.0:
+            raise AssertionError(f"{what}: image {i} outside [0, 1] or constant")
+
+
+def subject_embeddings(wrapper, faces) -> dict:
+    """{subject: ada embeddings [16, 768]}, the token table left as it is."""
+    return {name: wrapper.prepare_adaface_embeddings(images=imgs, update_text_encoder=False)
+            for name, imgs in faces.items()}
+
+
+BATCH_SLOTS = 8
+BATCH_REQUESTS = 12
+BATCH_PROMPTS = ["a photo of a person at the beach",
+                 "a portrait of a person in a library, cinematic lighting",
+                 "a person riding a bike in paris",
+                 "a watercolor painting of a person"]
+
+
+def batch_requests(wrapper, adas: dict, hw: int, n: int):
+    """`n` requests: subjects a, b, c and none in turn, guidance 6.0 and 4.0
+    in turn, every third with a dual scale down to 1.5, latents from seeds;
+    the first two share prompt and latents and differ in subject only. The
+    request without a subject is a plain prompt, with no placeholder tokens."""
+    from adaface_tpu_torch.inference.serving import Request
+
+    s = wrapper.pipeline.m.vae.cfg.spatial_scale
+    reqs = []
+    for i in range(n):
+        subject = ("a", "b", "c", None)[i % 4]
+        shared = i < 2
+        kw = dict(guidance_scale=(6.0, 4.0)[i % 2], guidance_scale_min=None if i % 3 else 1.5,
+                  latents=torch.randn((4, hw // s, hw // s), device="cuda",
+                                      generator=torch.Generator("cuda").manual_seed(
+                                          200 if shared else 200 + i)))
+        prompt = BATCH_PROMPTS[0 if shared else i % len(BATCH_PROMPTS)]
+        reqs.append(Request(prompt=prompt, **kw) if subject is None else
+                    wrapper.make_request(prompt, ada_embs=adas[subject], **kw))
+    return reqs
+
+
+def step_times(batcher, reps: int = 10) -> dict:
+    """One step of a batcher whose slots are all active: the host's time to
+    enqueue it (no synchronisation inside), the time between CUDA events
+    around it with the device idle before (what the step takes when nothing
+    overlaps), and the device's busy time and operation count by
+    torch.profiler."""
+    for _ in range(3):
+        batcher._step()
+    host, events = [], []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        batcher._step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        events.append(start.elapsed_time(end))
+    ops, busy = device_operations(batcher._step)
+    return dict(host_ms=statistics.median(host), event_ms=statistics.median(events),
+                device_busy_ms=busy, device_operations=ops)
+
+
+def step_replays_same_bits(batcher) -> tuple[bool, float]:
+    """Capture one step of `batcher` in a CUDA graph as it is, and replay it
+    from the state an eager step started from → (whether the replay leaves
+    every state buffer with the eager step's bits, ms of a replay: the step
+    with no host in the way). The port itself does not capture its step;
+    this shows that nothing in it stands in the way."""
+    state = batcher._state.tensors()
+    start = [t.clone() for t in state]
+    batcher._step()
+    eager = [t.clone() for t in state]
+    for t, saved in zip(state, start):
+        t.copy_(saved)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        batcher._step()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(t, want) for t, want in zip(state, eager))
+    return same, median_ms(graph.replay, reps=5)
+
+
+def serve_batched(wrapper, faces) -> dict:
+    """The continuous batcher at 8 slots: 12 requests for three subjects and
+    none through one device batch."""
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+
+    m = wrapper.pipeline.m
+    adas = subject_embeddings(wrapper, faces)
+    # warm-up on a batcher of its own: cuDNN and cuBLAS choose their algorithms
+    # for batch 16, the flash wrapper learns the layouts
+    wrapper.make_batcher(num_slots=BATCH_SLOTS, num_inference_steps=2).generate_all(
+        batch_requests(wrapper, adas, 512, BATCH_SLOTS))
+    torch.cuda.synchronize()
+
+    batcher = wrapper.make_batcher(num_slots=BATCH_SLOTS)
+    steps = batcher.steps
+    reqs = batch_requests(wrapper, adas, 512, BATCH_REQUESTS)
+    ptrs = [t.data_ptr() for t in batcher._state.tensors()]
+    _build.reset_launch_counts()
+    A.cache_lookups(reset=True)
+    for r in reqs:
+        batcher.submit(r)
+    done, images = [], {}
+    t0 = time.perf_counter()
+    with gn_census(m.unet) as seen_unet, gn_census(m.vae) as seen_vae:
+        for rid, img in batcher.run():
+            images[rid] = img
+            done.append(time.perf_counter() - t0)  # enqueued; the device may lag
+        torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts, lookups = launch_counts(), A.cache_lookups()
+    # 12 requests through 8 slots: two waves of `steps` steps, every step at UNet batch 16
+    unet_calls = steps * -(-BATCH_REQUESTS // BATCH_SLOTS)
+    expect_counts(counts, unet16_calls=unet_calls, decodes=BATCH_REQUESTS)
+    expect_census(seen_unet, unet16_calls=unet_calls)
+    expect_census(seen_vae, decodes=BATCH_REQUESTS)
+    check_images([images[i] for i in range(BATCH_REQUESTS)], BATCH_REQUESTS, 512, "batcher")
+    if (images[0] - images[1]).abs().max() <= 1e-3:
+        raise AssertionError("batcher: two subjects, same prompt and latents, gave one image")
+    if [t.data_ptr() for t in batcher._state.tensors()] != ptrs:
+        raise AssertionError("batcher: a state buffer moved during the drain")
+    log(f"batcher: {BATCH_REQUESTS} requests (subjects a, b, c and none) through "
+        f"{BATCH_SLOTS} slots, 512x512, {steps} steps: {total:.2f} s, "
+        f"{BATCH_REQUESTS / total:.3f} imgs/sec; {unet_calls} UNet calls at batch "
+        f"{2 * BATCH_SLOTS}; state buffers kept their addresses; launches {counts}; flash cache "
+        f"lookups {lookups}")
+
+    # a step with every slot active, at 8 and at 16 slots
+    times = {}
+    for slots in (BATCH_SLOTS, 2 * BATCH_SLOTS):
+        b = wrapper.make_batcher(num_slots=slots)
+        for slot, r in enumerate(batch_requests(wrapper, adas, 512, slots)):
+            b._admit(slot, r)
+        times[slots] = t = step_times(b)
+        t["graph_same_bits"], t["graph_ms"] = step_replays_same_bits(b)
+        log(f"batcher step at {slots} slots (UNet batch {2 * slots}): host enqueues it in "
+            f"{t['host_ms']:.2f} ms; {t['event_ms']:.2f} ms between CUDA events around it; "
+            f"device busy {t['device_busy_ms']:.2f} ms in {t['device_operations']} operations "
+            f"(torch.profiler); captured in a CUDA graph as it is, a replay takes "
+            f"{t['graph_ms']:.2f} ms and leaves the state with an eager step's bits: "
+            f"{t['graph_same_bits']}")
+        if not t["graph_same_bits"]:
+            raise AssertionError(f"batcher step at {slots} slots: a replayed CUDA graph of the "
+                                 "step differs from the eager step")
+        del b
+    return dict(counts=counts, total=total, imgs_per_sec=BATCH_REQUESTS / total,
+                lookups=lookups, step_times=times)
+
+
+def batcher_against_pipeline(wrapper, faces) -> dict:
+    """A small drain (2 slots, 3 steps, 256x256, 4 requests with their
+    latents handed in): every image against the wrapper's one-shot image for
+    the same prompt, subject and latents, and against the same drain on the
+    plain versions."""
+    adas = subject_embeddings(wrapper, faces)
+
+    def drain():
+        batcher = wrapper.make_batcher(num_slots=2, num_inference_steps=3, height=256,
+                                       width=256)
+        return batcher.generate_all(batch_requests(wrapper, adas, 256, 4))
+
+    images = drain()
+    with plain_versions():
+        plain = drain()
+    reqs = batch_requests(wrapper, adas, 256, 4)
+    errs, plain_errs = [], []
+    for i, r in enumerate(reqs):
+        if r.ada_embs is not None:
+            wrapper.update_text_encoder_subj_embeddings(r.ada_embs)
+        one_shot = wrapper.pipeline(
+            [r.prompt], negative_prompt=r.negative_prompt, num_inference_steps=3,
+            guidance_scale=r.guidance_scale, guidance_scale_min=r.guidance_scale_min,
+            height=256, width=256, latents=r.latents[None].to(wrapper.dtype))[0]
+        errs.append((images[i] - one_shot).abs().max().item())
+        plain_errs.append((images[i] - plain[i]).abs().max().item())
+    check_images([images[i] for i in range(4)], 4, 256, "small drain")
+    log(f"batcher against the pipeline: 4 requests through 2 slots, 256x256, 3 steps: image "
+        f"max_abs_err against the one-shot image {', '.join(f'{e:.3e}' for e in errs)}; "
+        f"kernels against plain {', '.join(f'{e:.3e}' for e in plain_errs)} "
+        f"(bound {IMAGE_TOL:g})")
+    if max(errs + plain_errs) > IMAGE_TOL:
+        raise AssertionError("batcher against the pipeline or the plain versions: error above "
+                             "bound")
+    return dict(errs=errs, plain_errs=plain_errs)
+
+
+def serve_img2img(wrapper, faces) -> dict:
+    """One img2img request through `AdaFaceWrapper("img2img", ...)` on the
+    same modules: encode, 20 of 25 steps, decode."""
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.ops import _build
+
+    m = wrapper.pipeline.m
+    w2 = AdaFaceWrapper("img2img", m, wrapper.id2ada_prompt_encoder, guidance_scale=6.0,
+                        num_inference_steps=25)
+    init = np.random.RandomState(SEED + 1).randint(0, 256, (512, 512, 3), np.uint8)
+    x = (torch.from_numpy(init).to("cuda").permute(2, 0, 1)[None].float() / 127.5 - 1.0).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        moments = m.vae_encoder(x).float()
+        with plain_versions():
+            ref = m.vae_encoder(x).float()
+    rel = ((moments - ref).norm() / ref.norm()).item()
+    if tuple(moments.shape) != (1, 8, 64, 64) or not torch.isfinite(moments).all():
+        raise AssertionError(f"img2img: moments {tuple(moments.shape)} not finite or misshaped")
+
+    w2.prepare_adaface_embeddings(images=faces["a"])
+    w2(REQUESTS[0][1], init_image=init, generator=torch.Generator("cuda").manual_seed(7))
+    torch.cuda.synchronize()  # warmed up: the encoder's convolutions chose their algorithms
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    w2.prepare_adaface_embeddings(images=faces["a"])
+    with gn_census(m.vae_encoder) as seen_enc, gn_census(m.vae) as seen_dec:
+        img = w2(REQUESTS[0][1], init_image=init, strength=0.8,
+                 generator=torch.Generator("cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    expect_counts(counts, unet_calls=20, decodes=1, encodes=1)
+    expect_census(seen_enc, encodes=1)
+    expect_census(seen_dec, decodes=1)
+    check_images(list(img), 1, 512, "img2img")
+    log(f"img2img: 512x512 uint8 image, strength 0.8, 20 of 25 steps: {ms:.1f} ms; encoder "
+        f"moments kernels against plain rel_err {rel:.3e} (bound {UNET_REL_TOL:g}); launches "
+        f"{counts}")
+    if rel > UNET_REL_TOL:
+        raise AssertionError(f"VAE encoder kernels against plain: rel_err {rel} above bound")
+    return dict(counts=counts, ms=ms, rel=rel)
+
+
+def serve_samplers(wrapper, faces) -> dict:
+    """The other schedulers through the wrapper: DPM-Solver++ at 512x512, 25
+    steps; PNDM (8 steps) and LCM (4 steps) at 256x256; each against the DDIM
+    image from the same generator seed, and so the same initial latents."""
+    from adaface_tpu_torch.ops import _build
+
+    wrapper.prepare_adaface_embeddings(images=faces["b"])
+    out = {}
+    for scheduler, hw, steps in (("dpm++", 512, 25), ("pndm", 256, 8), ("lcm", 256, 4)):
+        kw = dict(num_inference_steps=steps, height=hw, width=hw)
+        ddim = wrapper(REQUESTS[1][1], generator=torch.Generator("cuda").manual_seed(11), **kw)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = wrapper(REQUESTS[1][1], generator=torch.Generator("cuda").manual_seed(11),
+                      scheduler=scheduler, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        if hw == 512:
+            expect_counts(counts, unet_calls=steps, decodes=1)
+        elif not counts:
+            raise AssertionError(f"{scheduler}: no kernel launched")
+        check_images(list(img), 1, hw, scheduler)
+        diff = (img - ddim).abs().max().item()
+        if diff <= 1e-3:
+            raise AssertionError(f"{scheduler}: the image equals DDIM's")
+        log(f"sampler {scheduler}: {hw}x{hw}, {steps} steps: {ms:.1f} ms; max |image - DDIM's| "
+            f"{diff:.3f}; launches {counts}")
+        out[scheduler] = dict(counts=counts, ms=ms)
+    return out
 
 
 # device operations of a profile by kind, matched on the kernel's name in
@@ -1539,8 +1949,12 @@ def train_face_parser(gen) -> dict:
                 peak_gib=peak_gib, loss_rel=loss_rel, grad_rel=glob, grad_rel_env=glob_env)
 
 
-def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> dict:
-    """The per-kernel record. Each flash kernel counts its launches under
+def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict,
+                  paths: dict) -> dict:
+    """The per-kernel record. `launches` are those of the path that first ran
+    the kernel (the 3 requests of phase 5, the train steps, the fused-LN UNet
+    call); `launches_by_path` has the later serving paths' beside them
+    (`paths`: name → launch counts). Each flash kernel counts its launches under
     keys of its own, so an entry's `launches` are those of the kernel in its
     `source`: the wgmma kernel's two entries, the wide kernel's (whose
     `max_abs_err` also covers the tensors off the path that it takes: the
@@ -1571,7 +1985,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
     def entry(name, source, replaces, err, shape, ms, plain_ms, library_ms, bound_ms,
               bound_by="bytes", **extra):
         return {"name": name, "route": "cuda", "source": f"adaface_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": counts[name], "max_abs_err": err,
+                "replaces": replaces, "launches": counts[name],
+                "launches_by_path": {path: c[name] for path, c in paths.items() if c.get(name)},
+                "max_abs_err": err,
                 "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms, **extra}
 
@@ -1590,7 +2006,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict) -> di
         return entry(name, source, replaces, max(errs), shape, r["ms"], r["plain_ms"],
                      r["stock_ms"], r["bound_ms"], r["bound_by"], shapes=shapes)
 
-    path = {label: d for (label, *_, d) in FLASH_CASES}
+    path = {label: d for (label, *_, d) in FLASH_CASES + FLASH_CASES_B16}
     short = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d < 128]
     long_ = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d >= 128]
     wide = [label for label in path if flash[label]["variant"] == "wide"]
@@ -1669,8 +2085,16 @@ def main() -> int:
     build_kernels()
     flash, gn, bn, ln = check_kernels()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    check_forward_only()
     unet = check_unet(gen)
-    served = serve(gen)
+    wrapper, faces = build_server(gen)
+    served = serve(wrapper, faces)
+    batched = serve_batched(wrapper, faces)
+    batcher_against_pipeline(wrapper, faces)
+    img2img = serve_img2img(wrapper, faces)
+    sampled = serve_samplers(wrapper, faces)
+    del wrapper
+    torch.cuda.empty_cache()
     trained = train_face_parser(gen)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
@@ -1678,7 +2102,9 @@ def main() -> int:
 
     counts = {**served["counts"], **trained["counts"],
               LAYER_NORM: unet["ln_counts"][LAYER_NORM]}
-    print(json.dumps(kernel_record(flash, gn, bn, ln, counts)))
+    paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
+             **{name: r["counts"] for name, r in sampled.items()}}
+    print(json.dumps(kernel_record(flash, gn, bn, ln, counts, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

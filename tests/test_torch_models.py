@@ -165,22 +165,95 @@ def test_vae_decode_matches_jax():
     assert_close_rel(out.numpy(), ref)
 
 
-@pytest.mark.parametrize("which", ["unet", "vae"])
+def vae_pair(seed: int):
+    """→ (the JAX VAE's config and numpy-seeded params, the port's encoder)."""
+    cfg_j = jvae.VAEConfig(**VAE_KW)
+    params = numpy_params(lambda k: jvae.init_vae_params(k, cfg_j), seed)
+    encoder = bridge.load(tvae.VAEEncoder(tvae.VAEConfig(**VAE_KW)),
+                          bridge.vae_encoder_tree(params))
+    return cfg_j, params, encoder
+
+
+@pytest.mark.parametrize("masks", [None, "fg", "fg+aug"])
+def test_vae_encode_moments_matches_jax(masks):
+    """The encoder (asymmetric downsample padding included) unmasked, and
+    with the mid-block attention's fg and fg + aug masks, given at the
+    image's resolution and resized to the mid block's."""
+    cfg_j, params, encoder = vae_pair(7)
+    rs = np.random.RandomState(7)
+    x = rs.randn(2, 3, 32, 32).astype(np.float32)
+    mask_j = mask_t = None
+    if masks:
+        fg = (rs.rand(2, 1, 32, 32) > 0.5).astype(np.float32)
+        aug = (rs.rand(2, 1, 32, 32) > 0.2).astype(np.float32) if masks == "fg+aug" else None
+        mask_j = {"fg_mask": jnp.asarray(fg), "aug_mask": None if aug is None else jnp.asarray(aug)}
+        mask_t = {"fg_mask": _t(fg), "aug_mask": None if aug is None else _t(aug)}
+    ref = jax.jit(lambda p, x, m: jvae.vae_encode_moments(p, x, cfg_j, mask=m))(
+        params, x, mask_j)
+    with torch.inference_mode():
+        out = tvae.vae_encode_moments(encoder, _t(x), mask_t)
+        unmasked = encoder(_t(x))
+    assert out.shape == (2, 8, 8, 8) and out.is_contiguous()
+    assert_close_rel(out.numpy(), ref)
+    assert torch.equal(out, unmasked) == (masks is None)  # the masks reach the attention
+    # {'fg_mask': None} is the unmasked encoder, as in the JAX package
+    with torch.inference_mode():
+        assert torch.equal(encoder(_t(x), {"fg_mask": None}), unmasked)
+
+
+@pytest.mark.parametrize("case", ["mode", "sample", "kl", "encode", "encode scale shift"])
+def test_vae_gaussian_and_encode_match_jax(case):
+    """`gaussian_sample` (mode, and a sample with the draw JAX makes from its
+    key handed in), `gaussian_kl`, and `vae_encode` with its scale and shift."""
+    cfg_j, params, encoder = vae_pair(8)
+    rs = np.random.RandomState(8)
+    moments = (rs.randn(2, 8, 4, 4) * 3.0).astype(np.float32)
+    moments[0, 4:, 0, 0] = [40.0, -50.0, 25.0, -31.0]  # past the clip of logvar at -30, 20
+    key = jax.random.PRNGKey(8)
+    if case == "mode":
+        out, ref = tvae.gaussian_sample(_t(moments)), jvae.gaussian_sample(jnp.asarray(moments))
+    elif case == "sample":
+        noise = np.asarray(jax.random.normal(key, (2, 4, 4, 4), jnp.float32))
+        out = tvae.gaussian_sample(_t(moments), noise=_t(noise))
+        ref = jvae.gaussian_sample(jnp.asarray(moments), key)
+        own = tvae.gaussian_sample(_t(moments), generator=torch.Generator().manual_seed(1))
+        assert own.shape == out.shape and not torch.equal(own, out)
+    elif case == "kl":
+        out, ref = tvae.gaussian_kl(_t(moments)), jvae.gaussian_kl(jnp.asarray(moments))
+        assert out.shape == (2,)
+    else:
+        x = rs.randn(1, 3, 32, 32).astype(np.float32)
+        kw = dict(scale=1.5305, shift=0.0609) if "shift" in case else {}
+        noise = np.asarray(jax.random.normal(key, (1, 4, 8, 8), jnp.float32))
+        ref = jax.jit(lambda p, x: jvae.vae_encode(p, x, cfg_j, rng=key, **kw))(params, x)
+        with torch.inference_mode():
+            out = tvae.vae_encode(encoder, _t(x), noise=_t(noise), **kw)
+            mode = tvae.vae_encode(encoder, _t(x), **kw)
+        assert_close_rel(mode.numpy(), jax.jit(
+            lambda p, x: jvae.vae_encode(p, x, cfg_j, **kw))(params, x))
+    assert_close_rel(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("which", ["unet", "vae", "vae_encoder"])
 def test_models_keep_channels_last_into_every_group_norm(which):
-    """Inside, the UNet and the VAE decoder keep their maps in channels-last
-    memory: every GroupNorm gets what its kernels take (`fused_gn._check`),
-    the convolution weights are converted once, and a plain contiguous
-    tensor goes in and comes out."""
+    """Inside, the UNet, the VAE decoder and the VAE encoder keep their maps
+    in channels-last memory: every GroupNorm gets what its kernels take
+    (`fused_gn._check`), the convolution weights are converted once, and a
+    plain contiguous tensor goes in and comes out."""
     from adaface_tpu_torch.ops import fused_gn as tgn
 
     if which == "unet":
         model = tunet.UNet2DConditionModel(tunet.UNetConfig(**UNET_KW)).eval()
         args = (torch.randn(2, 4, 16, 16), torch.tensor([3, 700]), torch.randn(2, 77, D))
         n_norms = 61
-    else:
+    elif which == "vae":
         model = tvae.VAEDecoder(tvae.VAEConfig(**VAE_KW)).eval()
         args = (torch.randn(1, 4, 16, 16),)
         n_norms = 18
+    else:  # the padded copy before a stride-2 convolution keeps the layout
+        model = tvae.VAEEncoder(tvae.VAEConfig(**VAE_KW)).eval()
+        args = (torch.randn(1, 3, 32, 32),)
+        n_norms = 12
     seen = []
 
     def check(mod, args):
@@ -196,6 +269,62 @@ def test_models_keep_channels_last_into_every_group_norm(which):
     assert out.is_contiguous()
     convs = [m for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
     assert all(m.weight.permute(0, 2, 3, 1).is_contiguous() for m in convs)
+
+
+def test_unet_forward_concatenates_no_weights():
+    """q, k and v are one weight (k and v in cross-attention): a forward
+    call's concatenations are the timestep embedding's and the skip
+    connections', never a parameter's. The bridge stacks the JAX tree's
+    separate leaves; the embedding's frequencies are an fp32 buffer outside
+    the state dict that survives a cast of the module."""
+    cfg_j, cfg_t = junet.UNetConfig(**UNET_KW), tunet.UNetConfig(**UNET_KW)
+    params = numpy_params(lambda k: junet.init_unet_params(k, cfg_j), 9)
+    model = bridge.load(tunet.UNet2DConditionModel(cfg_t), params)
+    keys = set(model.state_dict())
+    assert not any(k.endswith((".k.weight", ".v.weight")) for k in keys)
+    assert sum(k.endswith("attn1.qkv.weight") for k in keys) == 16
+    assert sum(k.endswith("attn2.kv.weight") for k in keys) == 16
+    attn = model.mid["attention"].block.attn1
+    leaf = params["mid"]["attention"]["block"]["attn1"]
+    np.testing.assert_array_equal(
+        attn.qkv.weight.detach().numpy(),
+        np.concatenate([np.asarray(leaf[n]["w"]).T for n in "qkv"], axis=0))
+
+    param_ptrs = {p.data_ptr() for p in model.parameters()}
+    cats = []
+    real_cat = torch.cat
+
+    def spy(tensors, *a, **kw):
+        cats.append([t.data_ptr() in param_ptrs or isinstance(t, torch.nn.Parameter)
+                     for t in tensors])
+        return real_cat(tensors, *a, **kw)
+
+    args = (torch.randn(2, 4, 16, 16), torch.tensor([3, 700]), torch.randn(2, 77, D))
+    with mock.patch.object(torch, "cat", spy), torch.inference_mode():
+        model(*args)
+    assert len(cats) == 1 + 12 and not any(any(c) for c in cats)
+
+    assert "time_freqs" not in keys and model.time_freqs.dtype == torch.float32
+    np.testing.assert_array_equal(model.time_freqs.numpy(), tunet.timestep_freqs(16).numpy())
+    from adaface_tpu_torch.core.params import build
+    half = build(lambda: tunet.UNet2DConditionModel(cfg_t), "cpu", torch.bfloat16,
+                 tunet.init_unet_weights_, torch.Generator().manual_seed(0))
+    assert half.conv_in.weight.dtype == torch.bfloat16 and half.time_freqs.dtype == torch.float32
+    np.testing.assert_array_equal(half.time_freqs.numpy(), model.time_freqs.numpy())
+    with pytest.raises(ValueError, match="time_freqs"):
+        model.to(torch.bfloat16)(args[0], args[1], args[2].to(torch.bfloat16))
+
+
+def test_fused_projection_draws_its_parts_apart():
+    """A fused q/k/v weight is drawn part by part, so a seed gives it the
+    values it gave the separate projections."""
+    from adaface_tpu_torch.core.params import init_fan_in_
+
+    fused = tunet.FusedLinear(8, 8, parts=3)
+    apart = torch.nn.ModuleList(torch.nn.Linear(8, 8, bias=False) for _ in range(3))
+    init_fan_in_(fused, torch.Generator().manual_seed(3))
+    init_fan_in_(apart, torch.Generator().manual_seed(3))
+    assert torch.equal(fused.weight, torch.cat([m.weight for m in apart], dim=0))
 
 
 @pytest.mark.parametrize("cfg_scale", [1.0, 0.8])

@@ -167,6 +167,14 @@ def test_flash_combine_on_cpu_is_its_plain_version():
     (torch.bfloat16, 2, 8, 256, 256, 160, True, ("wg", 64, 64, 1, 1)),
     (torch.bfloat16, 2, 8, 256, 77, 160, True, ("wg", 64, 64, 1, 1)),
     (torch.bfloat16, 1, 1, 4096, 4096, 512, True, ("wide", 32, 64, 4, 2)),
+    # the continuous batcher at 8 and 32 slots (UNet batch 16 and 64): the
+    # grid fills the card with 128-row blocks at every level; a batch-32
+    # decode needs no key split
+    (torch.bfloat16, 16, 8, 4096, 4096, 40, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 16, 8, 1024, 77, 80, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 16, 8, 256, 256, 160, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 64, 8, 256, 77, 160, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 32, 1, 4096, 4096, 512, True, ("wide", 32, 64, 4, 1)),
     # off the path: a head dim without a wgmma instance, rows off 16 bytes,
     # few query tiles and few key tiles, fp32
     (torch.bfloat16, 2, 8, 1024, 1024, 64, True, ("wide", 32, 64, 4, 1)),
@@ -327,6 +335,21 @@ GN_PLANS = [
     ((1, 256, 65536), ("split", 128, 132, 512)),
     ((1, 256, 262144), ("split", 128, 132, 512)),
     ((1, 128, 262144), ("split", 128, 264, 512)),
+    # the VAE encoder's two maps the decoder lacks
+    ((1, 128, 65536), ("split", 128, 264, 512)),
+    ((1, 256, 16384), ("split", 128, 132, 512)),
+    # the UNet at batch 16 (the batcher at 8 slots): still one cluster launch
+    # a map, smaller clusters where the batch alone fills the card
+    ((16, 320, 4096), ("fused", 80, 8, 256)),
+    ((16, 960, 4096), ("fused", 120, 16, 256)),
+    ((16, 640, 1024), ("fused", 80, 2, 256)),
+    ((16, 1920, 1024), ("fused", 120, 4, 256)),
+    ((16, 1280, 256), ("fused", 80, 1, 256)),
+    ((16, 2560, 64), ("fused", 80, 1, 160)),
+    # batch 64 and a batch-32 decode: 2.1 GB maps, grids under 65535 in y
+    ((64, 960, 4096), ("fused", 120, 16, 256)),
+    ((32, 128, 262144), ("split", 128, 9, 512)),
+    ((32, 512, 4096), ("fused", 64, 8, 256)),
 ]
 
 
@@ -345,6 +368,53 @@ def test_gn_plan(shape, want):
         assert plan.chunks <= tgn.MAX_CLUSTER and plan.smem <= tgn.SMEM_BYTES
     else:
         assert plan.blocks(b, c) >= 2 * 132  # two waves at batch 1
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "group_norm_silu"])
+def test_forward_only_kernels_refuse_inputs_that_require_grad(op):
+    """The flash and GroupNorm kernels have no backward: under grad mode an
+    input that requires grad raises instead of leaving the graph silently.
+    `_build.forward_only` reads no data, so CPU tensors do; the wrappers' CUDA
+    branches are reached with stand-ins for CUDA tensors."""
+    x, w = torch.randn(2, 8), torch.randn(8, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        _build.forward_only(op, x, None, w)
+    _build.forward_only(op, x, None, w.detach())
+    with torch.no_grad():
+        _build.forward_only(op, x, w)
+    with torch.inference_mode():
+        _build.forward_only(op, x, w)
+
+    fake = lambda grad: mock.Mock(device=torch.device("cuda", 0), shape=(1, 2, 256, 40),
+                                  requires_grad=grad)
+    launched = mock.Mock(return_value="launched")
+    if op == "flash_attention":
+        call = lambda grad: tattn.flash_attention(fake(False), fake(grad), fake(False))
+        patches = [mock.patch.object(tattn, "_flash_cuda", launched)]
+    else:
+        call = lambda grad: tgn.group_norm_silu(fake(False), fake(grad), fake(False), 8, 1e-5)
+        patches = [mock.patch.object(tgn, "_check_cuda"), mock.patch.object(tgn, "plan_for"),
+                   mock.patch.object(tgn, "gn_fused", launched),
+                   mock.patch.object(tgn, "gn_norm", launched),
+                   mock.patch.object(tgn, "gn_stats")]
+    for p in patches:
+        p.start()
+    try:
+        with pytest.raises(RuntimeError, match="forward only"):
+            call(True)
+        assert not launched.called
+        assert call(False) == "launched"
+        with torch.no_grad():
+            assert call(True) == "launched"
+    finally:
+        for p in patches:
+            p.stop()
+    # on the CPU both stay differentiable plain versions
+    q = torch.randn(1, 2, 256, 8, requires_grad=True)
+    tattn.flash_attention(q, q, q).sum().backward()
+    xg = torch.randn(2, 16, 4, 4, requires_grad=True)
+    tgn.group_norm_silu(xg, torch.ones(16), torch.zeros(16), 4, 1e-5).sum().backward()
+    assert q.grad is not None and xg.grad is not None
 
 
 def test_gn_plan_forced_fp32_and_what_it_refuses():

@@ -12,11 +12,13 @@ so the port's placeholder rows hold only what the port computed.
 
 Tolerances: ada embeddings and final latents 1e-4 relative to the largest
 magnitude (module parity compounded over 3 steps); images 1e-3 abs, pixels
-in [0, 1].
+in [0, 1]. The other schedulers and img2img go through both wrappers the
+same way, with the draws JAX makes from its keys handed to the port.
 """
 
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +51,7 @@ IMAGE_ATOL = 1e-3
 NEGATIVE = "lowres, low quality"
 SLICE_MODULES = [
     "adaface_tpu_torch", "adaface_tpu_torch.core.bridge", "adaface_tpu_torch.core.params",
+    "adaface_tpu_torch.core.device",
     "adaface_tpu_torch.ops._build", "adaface_tpu_torch.ops.attention",
     "adaface_tpu_torch.ops.fused_gn", "adaface_tpu_torch.ops.fused_ln",
     "adaface_tpu_torch.ops.fused_norm", "adaface_tpu_torch.ops.resize",
@@ -61,12 +64,14 @@ SLICE_MODULES = [
     "adaface_tpu_torch.id2ada.subj_basis_generator",
     "adaface_tpu_torch.id2ada.face_id_to_ada_prompt",
     "adaface_tpu_torch.inference.pipeline", "adaface_tpu_torch.inference.wrapper",
-    "chip_smoke",
+    "adaface_tpu_torch.inference.serving",
+    "chip_smoke", "chip_compare", "bench_torch", "scripts.bench_serving_torch",
 ]
 
 
-@pytest.fixture(scope="module")
-def wrappers():
+def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3):
+    """→ (the JAX wrapper, the port's) on the same tiny fp32 weights, each
+    with a tokenizer of its own."""
     text_j, unet_j, vae_j = (jclip.CLIPTextConfig(**TEXT_KW), junet.UNetConfig(**UNET_KW),
                              jvae.VAEConfig(**VAE_KW))
     unet_p = numpy_params(lambda k: junet.init_unet_params(k, unet_j), 10)
@@ -83,7 +88,7 @@ def wrappers():
         clip_vision_cfg=TINY_VISION, sbg_clip_cfg=text_j, text_cfg=text_j, output_dim=D,
         text_encoder_params=numpy_params(lambda k: jclip.init_text_params(k, text_j), 13),
         clip_vision_params=numpy_params(lambda k: jclip.init_vision_params(k, TINY_VISION), 14))
-    jw = JWrapper("text2img", jm, jenc, num_inference_steps=3, dtype=jnp.float32)
+    jw = JWrapper(pipeline_name, jm, jenc, num_inference_steps=steps, dtype=jnp.float32)
 
     text_t = tclip.CLIPTextConfig(**TEXT_KW)
     tok = CLIPTokenizer.character_fallback()
@@ -91,6 +96,8 @@ def wrappers():
         unet=bridge.load(tunet.UNet2DConditionModel(tunet.UNetConfig(**UNET_KW)), jm.unet),
         vae=bridge.load(tvae.VAEDecoder(tvae.VAEConfig(**VAE_KW)),
                         bridge.vae_decoder_tree(jm.vae)),
+        vae_encoder=bridge.load(tvae.VAEEncoder(tvae.VAEConfig(**VAE_KW)),
+                                bridge.vae_encoder_tree(jm.vae)),
         text_encoder=bridge.load(  # the table the JAX wrapper grew by 16 rows
             tclip.CLIPTextModel(tclip.CLIPTextConfig(
                 **TEXT_KW, vocab_size=jm.text_encoder["token_embedding"].shape[0])),
@@ -101,8 +108,21 @@ def wrappers():
         bridge.load(SubjBasisGenerator(SubjBasisConfig(clip=text_t), tok),
                     bridge.sbg_tree(jenc.subj_basis_generator)),
         tok, face_backend=DeterministicBackend())
-    tw = AdaFaceWrapper("text2img", tm, tenc, num_inference_steps=3, dtype=torch.float32)
+    tw = AdaFaceWrapper(pipeline_name, tm, tenc, num_inference_steps=steps,
+                        dtype=torch.float32)
     return jw, tw
+
+
+def jit_unet(jw):
+    """Run the JAX pipeline's UNet calls outside its jitted DDIM loop (the
+    other schedulers' Python loops) as one XLA program each: op by op a call
+    takes a minute on the CPU."""
+    return mock.patch.object(jw.pipeline, "_unet_eps", jax.jit(jw.pipeline._unet_eps))
+
+
+@pytest.fixture(scope="module")
+def wrappers():
+    return make_wrapper_pair()
 
 
 def test_slice_matches_jax(wrappers):
@@ -143,8 +163,98 @@ def test_wrapper_forward_from_images(wrappers):
              generator=torch.Generator().manual_seed(0))
     assert out.shape == (2, 3, 64, 64) and torch.isfinite(out).all()
     assert 0.0 <= out.min() and out.max() <= 1.0
-    with pytest.raises(NotImplementedError):
-        AdaFaceWrapper("img2img", tw.pipeline.m, tw.id2ada_prompt_encoder)
+    with pytest.raises(NotImplementedError, match="'text2img' and 'img2img'"):
+        AdaFaceWrapper("text2video", tw.pipeline.m, tw.id2ada_prompt_encoder)
+
+
+@pytest.mark.parametrize("scheduler,steps", [("dpm++", 4), ("pndm", 5), ("lcm", 3)])
+def test_scheduler_argument_matches_jax(wrappers, scheduler, steps):
+    """`scheduler=` through both pipelines; LCM's re-noising draws are the
+    JAX loop's (its key split per step), handed to the port. Final latents
+    to 1e-4 of their largest magnitude, images to 1e-3."""
+    jw, tw = wrappers
+    rs = np.random.RandomState(21)
+    fid = rs.randn(1, 512).astype(np.float32)  # the same subject in both token tables
+    jw.prepare_adaface_embeddings(face_id_embs=jnp.asarray(fid))
+    tw.prepare_adaface_embeddings(face_id_embs=torch.from_numpy(fid))
+    prompt = jw.update_prompt("portrait in a garden")
+    lat = rs.randn(1, 4, 16, 16).astype(np.float32)
+    rng = jax.random.PRNGKey(9)
+    kw = dict(negative_prompt=NEGATIVE, num_inference_steps=steps, guidance_scale=3.0,
+              height=64, width=64, scheduler=scheduler)
+    with jit_unet(jw):
+        z_j = jw.pipeline([prompt], latents=jnp.asarray(lat), rng=rng, return_latents=True,
+                          **kw)
+        img_j = np.asarray(jw.pipeline([prompt], latents=jnp.asarray(lat), rng=rng, **kw))
+    noise = None
+    if scheduler == "lcm":
+        key, draws = jax.random.split(rng)[1], []  # the pipeline's k_samp
+        for _ in range(steps - 1):
+            key, sub = jax.random.split(key)
+            draws.append(np.asarray(jax.random.normal(sub, lat.shape, jnp.float32)))
+        noise = torch.from_numpy(np.stack(draws))
+    z_t = tw.pipeline([prompt], latents=torch.from_numpy(lat), noise=noise,
+                      return_latents=True, **kw)
+    img_t = tw.pipeline([prompt], latents=torch.from_numpy(lat), noise=noise, **kw).numpy()
+    assert_close_rel(z_t.numpy(), z_j)
+    np.testing.assert_allclose(img_t, img_j, atol=IMAGE_ATOL)
+
+
+def test_unknown_scheduler_raises(wrappers):
+    _, tw = wrappers
+    with pytest.raises(ValueError, match="unknown scheduler"):
+        tw("a portrait", num_inference_steps=2, height=64, width=64, scheduler="euler")
+
+
+def test_img2img_matches_jax():
+    """img2img through both wrappers: a uint8 image from numpy, strength 0.8
+    of 5 steps (4 run), the posterior's sample and the diffusion noise drawn
+    by JAX from the two halves of its key and handed to the port. Initial
+    latents to 1e-4 of their largest magnitude, images to 1e-3."""
+    jw, tw = make_wrapper_pair("img2img", steps=5)
+    rs = np.random.RandomState(22)
+    fid = rs.randn(1, 512).astype(np.float32)
+    init = rs.randint(0, 256, (64, 64, 3)).astype(np.uint8)
+    jw.prepare_adaface_embeddings(face_id_embs=jnp.asarray(fid))
+    tw.prepare_adaface_embeddings(face_id_embs=torch.from_numpy(fid))
+    rng = jax.random.PRNGKey(3)
+    k1, k2 = jax.random.split(rng)
+    draws = tuple(torch.from_numpy(np.asarray(jax.random.normal(k, (2 // n, 4, 16, 16),
+                                                                jnp.float32)))
+                  for k, n in ((k1, 2), (k2, 1)))
+    lat_j = jw._img2img_latents(init, 0.8, 5, rng, 2)
+    lat_t = tw._img2img_latents(init, 0.8, None, 2, draws)
+    assert lat_t.shape == (2, 4, 16, 16)
+    assert_close_rel(lat_t.numpy(), lat_j)
+    kw = dict(negative_prompt=NEGATIVE, num_images=2, guidance_scale=3.0, init_image=init,
+              strength=0.8, height=64, width=64)
+    img_j = np.asarray(jw("portrait at dusk", rng=rng, **kw))
+    img_t = tw("portrait at dusk", img2img_noise=draws, **kw).numpy()
+    assert img_t.shape == (2, 3, 64, 64)
+    np.testing.assert_allclose(img_t, img_j, atol=IMAGE_ATOL)
+    with pytest.raises(ValueError, match="init_image"):
+        tw("portrait at dusk")
+    # with a generator the port makes its own two draws
+    own = tw("portrait at dusk", generator=torch.Generator().manual_seed(0), **kw)
+    assert own.shape == (2, 3, 64, 64) and torch.isfinite(own).all()
+
+
+def test_mix_ada_embs_and_update_prompt_flag(wrappers):
+    jw, tw = wrappers
+    rs = np.random.RandomState(23)
+    a, b = rs.randn(16, D).astype(np.float32), rs.randn(16, D).astype(np.float32)
+    np.testing.assert_allclose(
+        tw.mix_ada_embs_with_other_embs(torch.from_numpy(a), torch.from_numpy(b), 0.3).numpy(),
+        np.asarray(jw.mix_ada_embs_with_other_embs(jnp.asarray(a), jnp.asarray(b), 0.3)),
+        atol=1e-7)
+    # update_prompt=False leaves the prompt as the caller wrote it
+    kw = dict(num_inference_steps=2, height=64, width=64, negative_prompt=NEGATIVE)
+    gen = lambda: torch.Generator().manual_seed(5)
+    as_written = tw("a portrait", update_prompt=False, generator=gen(), **kw)
+    direct = tw.pipeline(["a portrait"], guidance_scale=tw.guidance_scale, generator=gen(),
+                         **kw)
+    extended = tw("a portrait", generator=gen(), **kw)
+    assert torch.equal(as_written, direct) and not torch.equal(as_written, extended)
 
 
 def test_port_imports_no_jax():
