@@ -32,8 +32,6 @@ BN_STATS = {"mean": "running_mean", "var": "running_var"}
 # SubjBasisGenerator buffers the port recomputes from the tokenizer and the
 # embedding tables instead of loading them (`subj_basis_generator.py:131-145`)
 SBG_DERIVED = ("template_ids", "id_start", "pad_embeddings")
-# SubjBasisGenerator params of the non-face (DINO) branch, not on the face path
-SBG_NOT_PORTED = ("obj_proj_in",)
 
 
 def _walk(tree: Any, prefix: str) -> Iterator[tuple[str, Any]]:
@@ -109,15 +107,15 @@ def vae_encoder_tree(vae_params: dict) -> dict:
 def sbg_tree(sbg: dict) -> dict:
     """JAX SubjBasisGenerator {'params', 'buffers'} → the port's layout:
     the prompt2token_proj CLIP tower under `clip`, with its frozen embedding
-    tables from the buffers (`subj_basis_generator.py:87-168`)."""
+    tables from the buffers (`subj_basis_generator.py:87-168`); the
+    background generator's params as they are."""
     params, buffers = dict(sbg["params"]), dict(sbg["buffers"])
-    for key in SBG_NOT_PORTED:
-        params.pop(key, None)
     for key in SBG_DERIVED:
-        buffers.pop(key)
-    clip = {"token_embedding": buffers.pop("token_embedding"),
-            "position_embedding": buffers.pop("position_embedding"),
-            **params.pop("prompt2token_proj")}
+        buffers.pop(key, None)
+    if "prompt2token_proj" in params:
+        params["clip"] = {"token_embedding": buffers.pop("token_embedding"),
+                          "position_embedding": buffers.pop("position_embedding"),
+                          **params.pop("prompt2token_proj")}
     if buffers:
         raise ValueError(f"SubjBasisGenerator buffers not ported: {sorted(buffers)}")
-    return {"clip": clip, **params}
+    return params

@@ -2,16 +2,18 @@
 image→image on SD1.5.
 
 Counterpart of the "text2img" and "img2img" paths of
-`adaface_tpu/inference/wrapper.py`: placeholder tokens `z_0_0 … z_0_15`
-extend the tokenizer and the CLIP-L token table (`:116-131`), a subject's
-ada embeddings are written into those rows (`:133-144`) or carried by a
-request of the continuous batcher (`make_batcher`, `make_request`,
-`:176-201`), prompts get the placeholder string appended (`:146-152`), and
-`forward` runs the pipeline with the chosen scheduler (`:233-299`), for
-"img2img" from the noised latents of an initial image (`:301-313`).
+`adaface_tpu/inference/wrapper.py`: placeholder tokens `z_{i}_{j}`, one
+run for each encoder (`z_0_0 … z_0_15` for Arc2Face; then `z_1_0 … z_1_3`
+for ConsistentID under the joint encoder), extend the tokenizer and the
+CLIP-L token table (`:112-131`), a subject's ada embeddings are written into
+those rows, split by encoder (`:133-144`), or carried by a request of the
+continuous batcher (`make_batcher`, `make_request`, `:176-201`), prompts get
+the placeholder string appended (`:146-152`), and `forward` runs the
+pipeline with the chosen scheduler (`:233-299`), for "img2img" from the
+noised latents of an initial image (`:301-313`).
 
-The other pipelines (video, SDXL, SD3), `perturb_std`, LoRA loading and
-int8 serving are not ported yet.
+The other pipelines (video, SDXL, SD3), LoRA loading and int8 serving are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -60,11 +62,15 @@ class AdaFaceWrapper:
         self.placeholder_token_ids: list[list[int]] = []
         self.extend_tokenizer_and_text_encoder()
 
+    def _encoder_list(self):
+        enc = self.id2ada_prompt_encoder
+        return getattr(enc, "encoders", [enc])
+
     def extend_tokenizer_and_text_encoder(self):
-        """Add `z_{i}_{j}` placeholder tokens per encoder (one, Arc2Face, in
-        the port) and grow the token table to the tokenizer's vocabulary."""
+        """Add `z_{i}_{j}` placeholder tokens per encoder and grow the token
+        table to the tokenizer's vocabulary."""
         tok = self.pipeline.m.tokenizer
-        for i, enc in enumerate([self.id2ada_prompt_encoder]):
+        for i, enc in enumerate(self._encoder_list()):
             names = [f"z_{i}_{j}" for j in range(enc.num_id_vecs)]
             self.placeholder_tokens.append(names)
             self.placeholder_token_ids.append(tok.add_tokens(names))
@@ -76,7 +82,8 @@ class AdaFaceWrapper:
             te.token_embedding = nn.Parameter(grown, requires_grad=False)
 
     def update_text_encoder_subj_embeddings(self, ada_embs: torch.Tensor):
-        """Write ada embeddings [sum_K, D] into the placeholder rows, in place."""
+        """Write ada embeddings [sum_K, D] into the placeholder rows, in place,
+        each encoder's K rows into its own tokens."""
         table = self.pipeline.m.text_encoder.token_embedding
         offset = 0
         with torch.no_grad():
@@ -94,13 +101,18 @@ class AdaFaceWrapper:
 
     def prepare_adaface_embeddings(self, images: Sequence[np.ndarray] | None = None,
                                    face_id_embs=None, update_text_encoder: bool = True,
-                                   avg_at_stage: str = "id_emb"):
-        """Face images (or ID embeddings) → ada embeddings [N_ID, D]; None
-        without a face. Written into the text encoder's placeholder rows
+                                   avg_at_stage: str = "id_emb", perturb_std: float = 0.0,
+                                   perturb_at_stage: str | None = None, rng=None):
+        """Face images (or ID embeddings) → ada embeddings [sum N_ID, D];
+        None without a face. Written into the text encoder's placeholder rows
         unless `update_text_encoder` is False (a batcher's request carries
-        them instead)."""
+        them instead). `perturb_std` perturbs at `perturb_at_stage`
+        (`id_emb` or `img_prompt_emb`); with no stage, as the JAX wrapper
+        passes none, it does nothing. `rng`: a torch.Generator or handed
+        draws (`utils.tensor.Draws`)."""
         ada, _, _ = self.id2ada_prompt_encoder.generate_adaface_embeddings(
-            images=images, face_id_embs=face_id_embs, avg_at_stage=avg_at_stage)
+            images=images, face_id_embs=face_id_embs, avg_at_stage=avg_at_stage,
+            perturb_std=perturb_std, perturb_at_stage=perturb_at_stage, rng=rng)
         if ada is not None and update_text_encoder:
             self.update_text_encoder_subj_embeddings(ada)
         return ada

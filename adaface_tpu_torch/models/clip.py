@@ -1,11 +1,14 @@
-"""CLIP text transformer (text side only).
+"""CLIP text and vision transformers.
 
-Counterpart of the text half of `adaface_tpu/models/clip.py`: `text_encode`
-with `input_embs` injection and CLIP-skip `skip_weights`, token lookup, and
-position-embedding extension. Attention here is plain PyTorch (77 tokens,
-causal), as the JAX tower ran through XLA and never through the flash
-kernel. The module's parameter names mirror the JAX pytree (`layers.3.attn.q`
-is `p["layers"][3]["attn"]["q"]`), which is what `core/bridge.py` relies on.
+Counterpart of `adaface_tpu/models/clip.py`: `text_encode` with
+`input_embs` injection and CLIP-skip `skip_weights`, token lookup and
+position-embedding extension; `vision_encode` with the fg/bg image mask of
+`CLIPVisionModelWithMask` (`:377-446`). Attention here is plain PyTorch
+(77 causal tokens, or 257 patch tokens with an additive mask), as the JAX
+towers ran through XLA and never through the flash kernel. The modules'
+parameter names mirror the JAX pytree (`layers.3.attn.q` is
+`p["layers"][3]["attn"]["q"]`), which is what `core/bridge.py` relies on.
+The MKV extension of the attention waits for the training slices.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from adaface_tpu_torch.core.device import fp32_convolutions
 from adaface_tpu_torch.core.params import normal_
+from adaface_tpu_torch.ops.resize import resize_nearest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +40,32 @@ class CLIPTextConfig:
 CLIP_L_TEXT = CLIPTextConfig()
 
 
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    image_size: int = 224
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-5
+    num_channels: int = 3
+    projection_dim: int | None = None
+    hidden_act: str = "quick_gelu"
+
+    @property
+    def num_tokens(self) -> int:
+        """Class token + patches."""
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+
+CLIP_L_VISION = CLIPVisionConfig()
+# laion CLIP-ViT-H-14, ConsistentID's image encoder (laion towers use gelu)
+CLIP_H_VISION = CLIPVisionConfig(hidden_size=1280, num_layers=32, num_heads=16,
+                                 intermediate_size=5120, projection_dim=1024,
+                                 hidden_act="gelu")
+
+
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
@@ -43,7 +75,7 @@ _ACTS = {"quick_gelu": quick_gelu,
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig | CLIPVisionConfig):
         super().__init__()
         d = cfg.hidden_size
         self.ln1 = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
@@ -54,22 +86,27 @@ class EncoderLayer(nn.Module):
         self.num_heads = cfg.num_heads
         self.act = _ACTS[cfg.hidden_act]
 
-    def _attention(self, x):
-        """Causal self-attention, fp32 softmax (`_mkv_attention`, mult 1)."""
+    def _attention(self, x, attn_bias, causal: bool):
+        """Self-attention, fp32 softmax (`_mkv_attention`, mult 1): a causal
+        mask and `attn_bias` ([B, 1, S or 1, S], added as it is) on the
+        logits."""
         b, s, d = x.shape
         hd = d // self.num_heads
         split = lambda t: t.reshape(b, s, self.num_heads, hd).transpose(1, 2)
         q, k, v = (split(self.attn[n](x)) for n in ("q", "k", "v"))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
-        rows = torch.arange(s, device=x.device)[:, None]
-        cols = torch.arange(s, device=x.device)[None, :]
-        logits = logits + torch.where(cols <= rows, 0.0, -1e9)
+        if causal:
+            rows = torch.arange(s, device=x.device)[:, None]
+            cols = torch.arange(s, device=x.device)[None, :]
+            logits = logits + torch.where(cols <= rows, 0.0, -1e9)
+        if attn_bias is not None:
+            logits = logits + attn_bias.float()
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs.float(), v.float()).to(x.dtype)
         return self.attn["o"](out.transpose(1, 2).reshape(b, s, d))
 
-    def forward(self, x):
-        x = x + self._attention(self.ln1(x))
+    def forward(self, x, attn_bias=None, causal: bool = True):
+        x = x + self._attention(self.ln1(x), attn_bias, causal)
         return x + self.mlp["fc2"](self.act(self.mlp["fc1"](self.ln2(x))))
 
 
@@ -108,6 +145,65 @@ class CLIPTextModel(nn.Module):
         return self.final_ln(x)
 
 
+class CLIPVisionModel(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig = CLIP_L_VISION):
+        super().__init__()
+        self.cfg = cfg
+        d, p = cfg.hidden_size, cfg.patch_size
+        self.class_embedding = nn.Parameter(torch.zeros(d))
+        self.patch_embedding = nn.Parameter(torch.zeros(d, cfg.num_channels, p, p))  # OIHW
+        self.position_embedding = nn.Parameter(torch.zeros(cfg.num_tokens, d))
+        self.pre_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.post_ln = nn.LayerNorm(d, eps=cfg.layer_norm_eps)
+        if cfg.projection_dim is not None:
+            self.visual_projection = nn.Linear(d, cfg.projection_dim)
+
+    @fp32_convolutions()
+    def forward(self, pixel_values, image_mask=None, mask_mode: str = "soft_pair",
+                return_hidden_states: bool = False) -> dict:
+        """pixel_values [B, 3, H, W], image_mask [B, 1, H', W'] (any size,
+        nearest-resized to the patch grid; the class token always counts) →
+        {last_hidden_state, pooled, token_mask [B, S, 1] or None,
+        image_embeds (with a projection), hidden_states (if asked)}.
+
+        mask_mode "soft_pair" is the reference's: the 0/1 pairwise mask
+        maskᵢ·maskⱼ is *added* to the logits, a +1 bias on kept pairs and
+        none on the others (`clip.py:390-396`); "hard" adds −1e9 over the
+        masked keys."""
+        cfg = self.cfg
+        b, d = pixel_values.shape[0], cfg.hidden_size
+        patches = F.conv2d(pixel_values.float(), self.patch_embedding.float(),
+                           stride=cfg.patch_size)  # [B, D, g, g]
+        g = patches.shape[-1]
+        x = torch.cat([self.class_embedding.expand(b, 1, d),
+                       patches.flatten(2).transpose(1, 2)], dim=1)
+        x = self.pre_ln(x + self.position_embedding[None, :x.shape[1]])
+
+        attn_bias = token_mask = None
+        if image_mask is not None:
+            m = resize_nearest(image_mask.float(), (g, g)).reshape(b, 1, g * g)
+            token_mask = torch.cat([m.new_ones(b, 1, 1), m], dim=-1)  # [B, 1, S]
+            if mask_mode == "soft_pair":
+                attn_bias = token_mask[:, :, :, None] * token_mask[:, :, None, :]
+            elif mask_mode == "hard":
+                attn_bias = (token_mask[:, :, None, :] - 1.0) * 1e9
+            else:
+                raise ValueError(f"unknown mask_mode {mask_mode!r}")
+        states = [x]
+        for layer in self.layers:
+            x = layer(x, attn_bias, causal=False)
+            states.append(x)
+        pooled = self.post_ln(x[:, 0])
+        out = {"last_hidden_state": x, "pooled": pooled,
+               "token_mask": None if token_mask is None else token_mask.transpose(1, 2)}
+        if cfg.projection_dim is not None:
+            out["image_embeds"] = self.visual_projection(pooled)
+        if return_hidden_states:
+            out["hidden_states"] = states
+        return out
+
+
 def token_embeddings(model: CLIPTextModel, input_ids):
     """Token lookup alone (`clip.py:367`)."""
     return model.token_embedding[input_ids]
@@ -136,4 +232,20 @@ def init_text_weights_(model: CLIPTextModel, gen: torch.Generator) -> None:
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
     normal_(model.token_embedding, 0.02, gen)
+    normal_(model.position_embedding, 0.01, gen)
+
+
+def init_vision_weights_(model: CLIPVisionModel, gen: torch.Generator) -> None:
+    """`init_vision_params` scales (`clip.py:179-210`): linears (the
+    projection too) N(0, 0.02²), class and patch embeddings N(0, 0.02²),
+    positions N(0, 0.01²), norms 1/0, biases 0."""
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            normal_(m.weight, 0.02, gen)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.LayerNorm):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+    normal_(model.class_embedding, 0.02, gen)
+    normal_(model.patch_embedding, 0.02, gen)
     normal_(model.position_embedding, 0.01, gen)

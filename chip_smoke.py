@@ -48,7 +48,19 @@ Phases (any failure raises and the exit code is not 0):
      of 25 steps) with the VAE encoder's launch counts and its moments,
      kernels against plain; one DPM-Solver++ request at 512x512, PNDM and LCM
      at 256x256, each against the DDIM image of the same latents; the
-     forward-only kernels' refusal of inputs that require grad;
+     forward-only kernels' refusal of inputs that require grad; then the
+     joint encoder (`serve_joint`: Arc2Face + ConsistentID, 20 ada tokens;
+     CLIP-H/14 vision, ProjPlus, three CLIP-L towers, all fp32 at full
+     width) behind RetinaFace + ArcFace on the card, over the same SD1.5
+     modules: every photo detected and embedded (candidate boxes and NMS
+     time printed), 3 requests at 512x512, 25 steps with their launch
+     counts, 4 requests with 20 ada tokens through the 8-slot batcher,
+     the card against the same weights on the CPU, fp32, in three parts each
+     given the card's input (RetinaFace's outputs, ArcFace on the card's
+     crops, the encoders on the card's ID embeddings; relative L2 <= 1e-4
+     for the detector, 1e-5 for the others; the detector with TF32
+     convolutions is printed beside), and face -> ada host and device ms
+     per subject for Arc2Face, ConsistentID and the joint encoder;
   7. face-parser training at its published configuration (BiSeNet-ResNet18,
      batch 16, crop 448, fp32, OHEM, SGD): one train step's loss and
      gradients, kernels against plain, under deterministic cuDNN without
@@ -1658,6 +1670,281 @@ def serve_samplers(wrapper, faces) -> dict:
     return out
 
 
+JOINT_BATCH = 4  # 20-token requests (subjects a, b, c and none) through the 8-slot batcher
+# the face path on the card against the CPU, fp32, each part on the card's
+# input: ArcFace and the encoders read ~1e-6 in sound fp32 and the ada
+# embeddings ~4e-4 under TF32 convolutions; the random detector (statistics
+# fitted to the photos) reads up to 1.2e-5 in fp32 on its box offsets
+CARD_CPU_REL_L2 = 1e-5
+DETECTOR_REL_L2 = 1e-4
+
+
+def rel_l2_of(out, ref) -> float:
+    """‖out − ref‖ / ‖ref‖ of two tensors or arrays, on the CPU in fp32."""
+    out, ref = (torch.as_tensor(v).detach().float().cpu() for v in (out, ref))
+    return ((out - ref).norm() / ref.norm()).item()
+
+
+def build_joint_encoder(gen):
+    """The joint encoder at full width on the card, float32: Arc2Face's
+    CLIP-L text tower and its generator's, ConsistentID's CLIP-H/14 vision
+    tower, ProjPlus (depth 4 at 768, 12 heads) and its generator's CLIP-L,
+    behind RetinaFace (mobilenet0.25) + ArcFace (resnet_face18)."""
+    from adaface_tpu_torch.id2ada.face_backends import RetinaFaceArcFaceBackend
+    from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import JointFaceID2AdaPrompt
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+
+    backend = RetinaFaceArcFaceBackend.random_init(gen, "cuda")
+    return JointFaceID2AdaPrompt.random_init(gen, default_tokenizer(), "cuda",
+                                             face_backend=backend)
+
+
+def calibrate_batch_norms(model, x) -> None:
+    """Set every inference BatchNorm's statistics to those of its input in
+    one forward pass of `x`, layer by layer. The random detector's 0/1
+    statistics leave raw-pixel activations unnormalised: its box offsets
+    then overflow the decode's exp and every box is degenerate (no random
+    512x512 photo gets a face), where trained statistics fit their data."""
+    from adaface_tpu_torch.models.arcface import InferenceBatchNorm
+
+    def fit(module, args):
+        t = args[0]
+        dims = [0] + list(range(2, t.dim()))
+        module.running_mean.copy_(t.mean(dims))
+        module.running_var.copy_(t.var(dims, unbiased=False))
+
+    hooks = [m.register_forward_pre_hook(fit) for m in model.modules()
+             if isinstance(m, InferenceBatchNorm)]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def on_cpu(module):
+    """A CPU copy of `module`: the same weights."""
+    return copy.deepcopy(module).to("cpu")
+
+
+class HandedBackend:
+    """A face backend that hands out given ID embeddings in turn."""
+
+    def __init__(self, embeddings):
+        self._embeddings = iter(embeddings)
+
+    def detect_and_embed(self, image_np):
+        return next(self._embeddings)
+
+
+def joint_on_cpu(joint, backend):
+    """The joint encoder's towers and generators copied to the CPU, behind
+    `backend`."""
+    from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import (Arc2FaceID2AdaPrompt,
+                                                                ConsistentIDID2AdaPrompt,
+                                                                JointFaceID2AdaPrompt)
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+
+    arc, cid = joint.encoders
+    return JointFaceID2AdaPrompt([
+        Arc2FaceID2AdaPrompt(on_cpu(arc.text_encoder), on_cpu(arc.subj_basis_generator),
+                             default_tokenizer(), face_backend=backend,
+                             out_id_embs_cfg_scale=arc.out_id_embs_cfg_scale),
+        ConsistentIDID2AdaPrompt(on_cpu(cid.clip_vision), on_cpu(cid.image_proj),
+                                 on_cpu(cid.subj_basis_generator), face_backend=backend,
+                                 out_id_embs_cfg_scale=cid.out_id_embs_cfg_scale)])
+
+
+@contextmanager
+def timed_nms(record: list):
+    """Record (candidate boxes, kept, host ms) of every NMS call in the block."""
+    from adaface_tpu_torch.models import retinaface as R
+
+    nms = R.nms
+
+    def timed(boxes, scores, thres=0.4):
+        t0 = time.perf_counter()
+        keep = nms(boxes, scores, thres)
+        record.append((len(boxes), len(keep), (time.perf_counter() - t0) * 1e3))
+        return keep
+
+    with mock.patch.object(R, "nms", timed):
+        yield
+
+
+def face_to_ada_ms(encoder, images) -> dict:
+    """images → ada embeddings: host ms of one call ending in a
+    synchronisation, and the device's busy ms in a second, profiled call
+    (torch.profiler). The encoder is warm: the joint encoder has already
+    run both halves on each subject's photos."""
+    host = []
+
+    def run():
+        t0 = time.perf_counter()
+        encoder.generate_adaface_embeddings(images=images)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+
+    ops, busy = device_operations(run)  # host[0] is its unprofiled first call
+    return dict(host_ms=host[0], device_ms=busy, device_operations=ops)
+
+
+def serve_joint(wrapper, faces, gen) -> dict:
+    """The joint encoder (Arc2Face + ConsistentID, 20 ada tokens) behind
+    RetinaFace + ArcFace, over the same SD1.5 modules: every photo's
+    detection and embedding, 3 requests at 512x512, 25 steps, a drain of
+    20-token requests through the 8-slot batcher, face → ada on the card
+    against the CPU, and face → ada times per subject."""
+    from adaface_tpu_torch.id2ada.face_backends import ArcFaceBackend
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.models.retinaface import prior_boxes
+    from adaface_tpu_torch.ops import _build
+
+    m = wrapper.pipeline.m
+    t0 = time.perf_counter()
+    joint = build_joint_encoder(gen)
+    torch.cuda.synchronize()
+    arc, cid = joint.encoders
+    backend = arc.face_backend
+    photos = [im for imgs in faces.values() for im in imgs]
+    bgr = np.stack([im[..., ::-1].astype(np.float32) - backend.client.BGR_MEAN for im in photos])
+    calibrate_batch_norms(backend.client.model, torch.from_numpy(
+        np.ascontiguousarray(bgr.transpose(0, 3, 1, 2))).to("cuda"))
+    n_params = {name: sum(p.numel() for p in mod.parameters()) for name, mod in (
+        ("arc2face text", arc.text_encoder), ("arc2face generator", arc.subj_basis_generator),
+        ("clip-h vision", cid.clip_vision), ("projplus", cid.image_proj),
+        ("consistentid generator", cid.subj_basis_generator),
+        ("retinaface", backend.client.model), ("arcface", backend.arc.arcface))}
+    log(f"joint: random full-width fp32 encoder on the card in {time.perf_counter() - t0:.1f} s "
+        f"(RetinaFace's BN statistics fitted to the {len(photos)} photos); parameters {n_params}")
+
+    # every photo gives an embedding; detection, NMS and ArcFace apart
+    nms_calls, embs = [], {}
+    with timed_nms(nms_calls):
+        for subject, imgs in faces.items():
+            for i, im in enumerate(imgs):
+                e = backend.detect_and_embed(im)
+                if e is None or e.shape != (512,) or not np.isfinite(e).all():
+                    raise AssertionError(f"joint: photo {i} of subject {subject}: no embedding")
+                embs[subject, i] = e
+    photo = faces["a"][0]
+    bgr = photo[..., ::-1].astype(np.float32) - backend.client.BGR_MEAN
+    x = torch.from_numpy(np.ascontiguousarray(bgr.transpose(2, 0, 1)[None])).to("cuda")
+    gray = torch.zeros((1, 1, 128, 128), device="cuda")
+    px = torch.zeros((4, 3, 224, 224), device="cuda")  # fg and bg of 2 photos
+    mask = torch.ones((4, 1, 224, 224), device="cuda")
+    with torch.inference_mode():
+        det_ms = median_ms(lambda: backend.client.model(x))
+        arc_ms = median_ms(lambda: backend.arc.arcface(gray))
+        vit_ms = median_ms(lambda: cid.clip_vision(px, image_mask=mask))
+    boxes = [c[0] for c in nms_calls]
+    nms_ms = [c[2] for c in nms_calls]
+    log(f"joint: {len(embs)} photos {photo.shape[1]}x{photo.shape[0]}, every one embedded; "
+        f"RetinaFace forward {det_ms:.3f} ms (CUDA events), NMS over {min(boxes)}..{max(boxes)} "
+        f"candidate boxes of {len(prior_boxes(photo.shape[:2]))} anchors: {min(nms_ms):.2f}.."
+        f"{max(nms_ms):.2f} ms on the host, kept {[c[1] for c in nms_calls]}; ArcFace "
+        f"{arc_ms:.3f} ms; CLIP-H/14 fg+bg pass of 2 photos (batch 4) {vit_ms:.3f} ms")
+
+    jw = AdaFaceWrapper("text2img", m, joint, guidance_scale=6.0, num_inference_steps=25)
+    jw.prepare_adaface_embeddings(images=faces["a"])
+    jw(REQUESTS[0][1], num_inference_steps=3, height=256, width=256,
+       generator=torch.Generator("cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    latencies, images = [], []
+    for i, (subject, prompt) in enumerate(REQUESTS):
+        t1 = time.perf_counter()
+        ada = jw.prepare_adaface_embeddings(images=faces[subject])
+        img = jw(prompt, generator=torch.Generator("cuda").manual_seed(100 + i))
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t1) * 1e3)
+        if ada is None or tuple(ada.shape) != (20, 768) or not torch.isfinite(ada).all():
+            raise AssertionError(f"joint request {i}: ada embeddings "
+                                 f"{None if ada is None else tuple(ada.shape)}")
+        images.append(img[0])
+    counts = launch_counts()
+    expect_counts(counts, unet_calls=25 * len(REQUESTS), decodes=len(REQUESTS))
+    check_images(images, len(REQUESTS), 512, "joint requests")
+    log(f"joint: {len(REQUESTS)} requests 512x512, 25 steps, 20 ada tokens: "
+        f"{', '.join(f'{x:.1f}' for x in latencies)} ms (face -> ada included); launches {counts}")
+
+    adas = {s: jw.prepare_adaface_embeddings(images=imgs, update_text_encoder=False)
+            for s, imgs in faces.items()}
+    batcher = jw.make_batcher(num_slots=BATCH_SLOTS)
+    reqs = batch_requests(jw, adas, 512, JOINT_BATCH)
+    _build.reset_launch_counts()
+    t1 = time.perf_counter()
+    drained = batcher.generate_all(reqs)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t1
+    batch_counts = launch_counts()
+    expect_counts(batch_counts, unet16_calls=batcher.steps, decodes=JOINT_BATCH)
+    check_images([drained[i] for i in range(JOINT_BATCH)], JOINT_BATCH, 512, "joint batcher")
+    log(f"joint batcher: {JOINT_BATCH} requests (subjects a, b, c with 20 ada tokens, and none) "
+        f"through {BATCH_SLOTS} slots, 512x512, {batcher.steps} steps: {drain_s:.2f} s; launches "
+        f"{batch_counts}")
+
+    # face -> ada on the card against the same weights on the CPU, as served
+    # (fp32, the face models' convolutions without TF32), in three parts,
+    # each given the card's input: RetinaFace's outputs on one photo, ArcFace
+    # on the card's crops, and the encoders on the card's ID embeddings. A
+    # box edge that a rounding moves across a pixel changes the crop, so the
+    # whole chain compared at once would fail by chance and pass a TF32 fault.
+    crops, card_ids = [], []
+    card_embed = backend.arc.detect_and_embed
+
+    def recording(crop):
+        crops.append(crop)
+        card_ids.append(card_embed(crop))
+        return card_ids[-1]
+
+    with mock.patch.object(backend.arc, "detect_and_embed", recording):
+        ada_card, prompts_card, _ = joint.generate_adaface_embeddings(images=faces["b"])
+    detector = backend.client.model
+    with torch.inference_mode():
+        det_card = detector(x)
+        det_rel = [rel_l2_of(p, q) for p, q in zip(det_card, on_cpu(detector)(x.cpu()))]
+        # what the bound is to catch: the forward with TF32 convolutions
+        # (its fp32_convolutions undone), against the card's fp32
+        saved, torch.backends.cudnn.allow_tf32 = torch.backends.cudnn.allow_tf32, True
+        try:
+            det_tf32 = type(detector).forward.__wrapped__(detector, x)
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+        tf32_rel = [rel_l2_of(p, q) for p, q in zip(det_tf32, det_card)]
+    cpu_arc = ArcFaceBackend(on_cpu(backend.arc.arcface))
+    arc_rel = [rel_l2_of(cpu_arc.detect_and_embed(c), e) for c, e in zip(crops, card_ids)]
+    cpu_joint = joint_on_cpu(joint, HandedBackend(card_ids))
+    t1 = time.perf_counter()
+    ada_cpu, prompts_cpu, _ = cpu_joint.generate_adaface_embeddings(images=faces["b"])
+    cpu_s = time.perf_counter() - t1
+    rel = rel_l2_of(ada_card, ada_cpu)
+    rel_prompts = [rel_l2_of(p, q) for p, q in zip(prompts_card, prompts_cpu)]
+    log(f"joint: card against the CPU, fp32, full depth, rel L2: RetinaFace loc, conf, landmarks "
+        f"on photo a0 {', '.join(f'{r:.3e}' for r in det_rel)} (bound {DETECTOR_REL_L2:g}; "
+        f"TF32 convolutions on the card against fp32 {', '.join(f'{r:.3e}' for r in tf32_rel)}); "
+        f"bound {CARD_CPU_REL_L2:g}: ArcFace on the card's {len(crops)} crops of "
+        f"subject b {', '.join(f'{r:.3e}' for r in arc_rel)}; face -> ada of subject b on the "
+        f"card's ID embeddings {rel:.3e} (image prompts "
+        f"{', '.join(f'{r:.3e}' for r in rel_prompts)}; the CPU encoders {cpu_s:.1f} s)")
+    if not max(det_rel) <= DETECTOR_REL_L2 or not max(arc_rel + [rel]) <= CARD_CPU_REL_L2:
+        raise AssertionError(f"joint, card against CPU: rel L2 {det_rel}, {arc_rel}, {rel} "
+                             f"above its bound")
+    del cpu_joint, cpu_arc
+
+    times = {}
+    for subject in ("a", "b"):
+        for name, enc in (("arc2face", arc), ("consistentID", cid), ("joint", joint)):
+            times[f"{name} {subject}"] = t = face_to_ada_ms(enc, faces[subject])
+            log(f"face -> ada, {name}, subject {subject} ({len(faces[subject])} photos): host "
+                f"{t['host_ms']:.1f} ms, device busy {t['device_ms']:.2f} ms in "
+                f"{t['device_operations']} operations")
+    return dict(counts=counts, batch_counts=batch_counts, latencies=latencies, rel=rel,
+                det_rel=det_rel, tf32_rel=tf32_rel, arc_rel=arc_rel, times=times, nms=nms_calls, det_ms=det_ms,
+                arc_ms=arc_ms, vit_ms=vit_ms)
+
+
 # device operations of a profile by kind, matched on the kernel's name in
 # this order; "layout transpose" is cuDNN's layout change around a convolution
 PROFILE_KINDS = (("layout transpose", r"nchwToNhwc|nhwcToNchw"),
@@ -1819,16 +2106,14 @@ def face_parser_batch(rs, batch: int, size: int):
 @contextmanager
 def deterministic_fp32():
     """Deterministic cuDNN algorithms, no TF32 in convolutions or matmuls."""
-    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
+    from adaface_tpu_torch.core.device import fp32_convolutions
+    saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        yield
+        with fp32_convolutions(matmuls=True):
+            yield
     finally:
-        (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+        torch.backends.cudnn.deterministic = saved
 
 
 def bn_stats_fp64(x2, eps: float):
@@ -2093,6 +2378,7 @@ def main() -> int:
     batcher_against_pipeline(wrapper, faces)
     img2img = serve_img2img(wrapper, faces)
     sampled = serve_samplers(wrapper, faces)
+    joint = serve_joint(wrapper, faces, gen)
     del wrapper
     torch.cuda.empty_cache()
     trained = train_face_parser(gen)
@@ -2103,7 +2389,8 @@ def main() -> int:
     counts = {**served["counts"], **trained["counts"],
               LAYER_NORM: unet["ln_counts"][LAYER_NORM]}
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
-             **{name: r["counts"] for name, r in sampled.items()}}
+             **{name: r["counts"] for name, r in sampled.items()},
+             "joint": joint["counts"], "joint batcher": joint["batch_counts"]}
     print(json.dumps(kernel_record(flash, gn, bn, ln, counts, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,10 @@ import pytest
 import torch
 
 from adaface_tpu.id2ada.face_backends import DeterministicBackend as JBackend
+from adaface_tpu.id2ada import layers as jL
 from adaface_tpu.id2ada.face_id_to_ada_prompt import Arc2FaceID2AdaPrompt as JArc2Face
+from adaface_tpu.id2ada.face_id_to_ada_prompt import ConsistentIDID2AdaPrompt as JConsistentID
+from adaface_tpu.id2ada.face_id_to_ada_prompt import JointFaceID2AdaPrompt as JJoint
 from adaface_tpu.inference.pipeline import PipelineModules as JModules
 from adaface_tpu.inference.wrapper import AdaFaceWrapper as JWrapper
 from adaface_tpu.models import clip as jclip
@@ -36,7 +39,10 @@ from adaface_tpu.models import vae as jvae
 from adaface_tpu.text.tokenizer import CLIPTokenizer as JTokenizer
 from adaface_tpu_torch.core import bridge
 from adaface_tpu_torch.id2ada.face_backends import DeterministicBackend
-from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import Arc2FaceID2AdaPrompt
+from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import (Arc2FaceID2AdaPrompt,
+                                                            ConsistentIDID2AdaPrompt,
+                                                            JointFaceID2AdaPrompt)
+from adaface_tpu_torch.id2ada.layers import ProjPlus
 from adaface_tpu_torch.id2ada.subj_basis_generator import SubjBasisConfig, SubjBasisGenerator
 from adaface_tpu_torch.inference.pipeline import PipelineModules
 from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
@@ -44,6 +50,7 @@ from adaface_tpu_torch.models import clip as tclip
 from adaface_tpu_torch.models import unet as tunet
 from adaface_tpu_torch.models import vae as tvae
 from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
+from tests.test_torch_id2ada import CID_VISION
 from tests.test_torch_models import (D, TEXT_KW, TINY_VISION, UNET_KW, VAE_KW,
                                      assert_close_rel, numpy_params)
 
@@ -60,18 +67,22 @@ SLICE_MODULES = [
     "adaface_tpu_torch.models.unet", "adaface_tpu_torch.models.vae",
     "adaface_tpu_torch.models.bisenet", "adaface_tpu_torch.train.face_parsing_train",
     "adaface_tpu_torch.text.tokenizer", "adaface_tpu_torch.text.embedding_manager",
-    "adaface_tpu_torch.id2ada.face_backends",
+    "adaface_tpu_torch.id2ada.face_backends", "adaface_tpu_torch.id2ada.layers",
     "adaface_tpu_torch.id2ada.subj_basis_generator",
     "adaface_tpu_torch.id2ada.face_id_to_ada_prompt",
+    "adaface_tpu_torch.models.arcface", "adaface_tpu_torch.models.retinaface",
+    "adaface_tpu_torch.utils.image", "adaface_tpu_torch.utils.tensor",
     "adaface_tpu_torch.inference.pipeline", "adaface_tpu_torch.inference.wrapper",
     "adaface_tpu_torch.inference.serving",
     "chip_smoke", "chip_compare", "bench_torch", "scripts.bench_serving_torch",
 ]
 
 
-def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3):
+def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3,
+                      encoder: str = "arc2face"):
     """→ (the JAX wrapper, the port's) on the same tiny fp32 weights, each
-    with a tokenizer of its own."""
+    with a tokenizer of its own; `encoder` "arc2face" or "jointIDs"
+    (Arc2Face + ConsistentID)."""
     text_j, unet_j, vae_j = (jclip.CLIPTextConfig(**TEXT_KW), junet.UNetConfig(**UNET_KW),
                              jvae.VAEConfig(**VAE_KW))
     unet_p = numpy_params(lambda k: junet.init_unet_params(k, unet_j), 10)
@@ -88,6 +99,14 @@ def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3):
         clip_vision_cfg=TINY_VISION, sbg_clip_cfg=text_j, text_cfg=text_j, output_dim=D,
         text_encoder_params=numpy_params(lambda k: jclip.init_text_params(k, text_j), 13),
         clip_vision_params=numpy_params(lambda k: jclip.init_vision_params(k, TINY_VISION), 14))
+    if encoder == "jointIDs":
+        vis_j = jclip.CLIPVisionConfig(**CID_VISION)
+        jcid = JConsistentID(
+            jax.random.PRNGKey(5), tokenizer=jm.tokenizer, face_backend=JBackend(),
+            clip_vision_cfg=vis_j, sbg_clip_cfg=text_j, output_dim=D,
+            clip_vision_params=numpy_params(lambda k: jclip.init_vision_params(k, vis_j), 15),
+            image_proj_params=numpy_params(lambda k: jL.init_proj_plus(k, 512, D, D, 4), 16))
+        jenc = JJoint(jax.random.PRNGKey(0), encoders=[jenc, jcid])
     jw = JWrapper(pipeline_name, jm, jenc, num_inference_steps=steps, dtype=jnp.float32)
 
     text_t = tclip.CLIPTextConfig(**TEXT_KW)
@@ -103,11 +122,21 @@ def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3):
                 **TEXT_KW, vocab_size=jm.text_encoder["token_embedding"].shape[0])),
             jm.text_encoder),
         tokenizer=tok)
+    jarc = jenc.encoders[0] if encoder == "jointIDs" else jenc
     tenc = Arc2FaceID2AdaPrompt(
-        bridge.load(tclip.CLIPTextModel(text_t), jenc.text_encoder_params),
+        bridge.load(tclip.CLIPTextModel(text_t), jarc.text_encoder_params),
         bridge.load(SubjBasisGenerator(SubjBasisConfig(clip=text_t), tok),
-                    bridge.sbg_tree(jenc.subj_basis_generator)),
+                    bridge.sbg_tree(jarc.subj_basis_generator)),
         tok, face_backend=DeterministicBackend())
+    if encoder == "jointIDs":
+        tcid = ConsistentIDID2AdaPrompt(
+            bridge.load(tclip.CLIPVisionModel(tclip.CLIPVisionConfig(**CID_VISION)),
+                        jcid.clip_vision_params),
+            bridge.load(ProjPlus(512, D, D, 4), jcid.image_proj_params),
+            bridge.load(SubjBasisGenerator(SubjBasisConfig(num_id_vecs=4, clip=text_t), tok),
+                        bridge.sbg_tree(jcid.subj_basis_generator)),
+            face_backend=DeterministicBackend())
+        tenc = JointFaceID2AdaPrompt([tenc, tcid])
     tw = AdaFaceWrapper(pipeline_name, tm, tenc, num_inference_steps=steps,
                         dtype=torch.float32)
     return jw, tw
@@ -257,9 +286,54 @@ def test_mix_ada_embs_and_update_prompt_flag(wrappers):
     assert torch.equal(as_written, direct) and not torch.equal(as_written, extended)
 
 
+def test_joint_slice_matches_jax():
+    """The joint encoder (Arc2Face + ConsistentID) through both wrappers:
+    20 ada rows into `z_0_*` and `z_1_*`, the prompt's latents to 1e-4 of
+    their scale and its images to 1e-4; then one 20-token request through
+    the port's batcher against the JAX batcher (JAX's latents handed over)
+    and against the port's one-shot image, 1e-4 each."""
+    jw, tw = make_wrapper_pair(encoder="jointIDs")
+    assert [len(ids) for ids in tw.placeholder_token_ids] == [16, 4]
+    assert tw.placeholder_token_ids == jw.placeholder_token_ids
+    rs = np.random.RandomState(24)
+    imgs = [rs.randint(0, 256, (224, 224, 3)).astype(np.uint8) for _ in range(2)]
+    ada_j = jw.prepare_adaface_embeddings(images=imgs)
+    ada_t = tw.prepare_adaface_embeddings(images=imgs)
+    assert ada_t.shape == (20, D)
+    assert_close_rel(ada_t.numpy(), ada_j)
+    table = tw.pipeline.m.text_encoder.token_embedding
+    ids = [i for run in tw.placeholder_token_ids for i in run]
+    np.testing.assert_array_equal(table[ids].numpy(), ada_t.numpy())
+    prompt = jw.update_prompt("portrait at the beach")
+    assert tw.update_prompt("portrait at the beach") == prompt and "z_1_3" in prompt
+    lat = rs.randn(1, 4, 16, 16).astype(np.float32)
+    kw = dict(negative_prompt=NEGATIVE, num_inference_steps=3, guidance_scale=4.0,
+              height=64, width=64)
+    z_j = jw.pipeline([prompt], latents=jnp.asarray(lat), return_latents=True, **kw)
+    z_t = tw.pipeline([prompt], latents=torch.from_numpy(lat), return_latents=True, **kw)
+    assert_close_rel(z_t.numpy(), z_j)
+    img_j = np.asarray(jw.pipeline([prompt], latents=jnp.asarray(lat), **kw))
+    img_t = tw.pipeline([prompt], latents=torch.from_numpy(lat), **kw)
+    np.testing.assert_allclose(img_t.numpy(), img_j, atol=1e-4)
+
+    lat_j = np.array(jax.random.normal(jax.random.PRNGKey(8), (4, 16, 16), jnp.float32))
+    req = dict(prompt="a portrait in a garden", negative_prompt=NEGATIVE, guidance_scale=4.0)
+    out_j = jw.make_batcher(num_slots=2, height=64, width=64).generate_all(
+        [jw.make_request(ada_embs=ada_j, seed=8, **req)])
+    out_t = tw.make_batcher(num_slots=2, height=64, width=64).generate_all(
+        [tw.make_request(ada_embs=ada_t, latents=torch.from_numpy(lat_j), **req)])
+    np.testing.assert_allclose(out_t[0].numpy(), np.asarray(out_j[0]), atol=1e-4)
+    one_shot = tw.pipeline([tw.update_prompt(req["prompt"])], latents=torch.from_numpy(lat_j)[None],
+                           **{**kw, "num_inference_steps": 3})[0]
+    np.testing.assert_allclose(out_t[0].numpy(), one_shot.numpy(), atol=1e-4)
+
+
 def test_port_imports_no_jax():
+    """No module of the port, nor the scripts, imports JAX, the JAX package,
+    OpenCV or PIL: the port runs where none of them is installed."""
     code = ("import sys\n"
             f"for m in {SLICE_MODULES!r}: __import__(m)\n"
-            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'adaface_tpu'))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'adaface_tpu', 'cv2', 'PIL'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=300)
