@@ -46,9 +46,25 @@
 //     1: the caller picks slab, chunk count and threads per shape
 //     (`gn_plan` in ops/fused_gn.py) and this file only checks them.
 //
-// Entry points: gn_fused(), gn_stats() and gn_norm(), plain C functions that
-// take device pointers and the stream, launch on that stream, allocate
-// nothing and return cudaGetLastError().
+// The backward (replaces the XLA `_gn_bwd` of the same file, :143-148, the
+// VJP of `_gn_silu_ref`) reads the statistics from a `gn_stats` launch (the
+// fused kernel writes none) and runs two launches on the split pair's
+// geometry:
+//   gn_bwd_reduce_kernel  per (sample, slab, row chunk): with z = x^ g + b
+//       and dz = dy silu'(z) (or dy), the channels' sums of dz and dz x^ over
+//       the chunk's rows, lanes folded in a fixed order, to a [B, chunks, C, 2]
+//       workspace. Summed over samples and chunks they are dbeta and dgamma
+//       (a torch.sum over that small tensor, in the wrapper).
+//   gn_bwd_dx_kernel  elementwise: its prologue folds the statistics' and
+//       the reduce's partials of its own groups (one warp a group), then
+//       dx = rstd (g dz - mean_g(g dz) - x^ mean_g(g dz x^)).
+// Bound by bytes, like the forward: x and dy read and dx written once is
+// the function's least traffic; the three launches read x three times and
+// dy twice.
+//
+// Entry points: gn_fused(), gn_stats(), gn_norm(), gn_bwd_reduce() and
+// gn_bwd_dx(), plain C functions that take device pointers and the stream,
+// launch on that stream, allocate nothing and return cudaGetLastError().
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -515,6 +531,171 @@ cudaError_t launch_fused(const void* x, const void* scale, const void* bias, voi
                             static_cast<T*>(y), g, eps, apply_silu);
 }
 
+
+// x^, z = x^ g + b and dz = dy silu'(z) (or dy) of one pack.
+template <int VEC>
+__device__ __forceinline__ void bwd_pack(const uint4& xu, const uint4& gu, const float (&mean)[VEC],
+                                         const float (&rstd)[VEC], const float (&ga)[VEC],
+                                         const float (&be)[VEC], int apply_silu,
+                                         float (&xh)[VEC], float (&dz)[VEC]) {
+  float xv[VEC], gv[VEC];
+  unpack(xu, xv);
+  unpack(gu, gv);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    xh[i] = (xv[i] - mean[i]) * rstd[i];
+    if (apply_silu) {
+      const float z = fmaf(xh[i], ga[i], be[i]);
+      const float sg = 1.f / (1.f + __expf(-z));
+      dz[i] = gv[i] * sg * fmaf(z, 1.f - sg, 1.f);
+    } else {
+      dz[i] = gv[i];
+    }
+  }
+}
+
+// This thread's channels: mean and rstd from the folded statistics `fin`,
+// scale and bias from device memory.
+template <typename T, int VEC>
+__device__ __forceinline__ void channel_params(const T* scale, const T* bias, const float* fin,
+                                               const Geom& g, const Where& w, float (&mean)[VEC],
+                                               float (&rstd)[VEC], float (&ga)[VEC],
+                                               float (&be)[VEC]) {
+  unpack(ld16(reinterpret_cast<const char*>(scale + w.c0) + w.pack * 16), ga);
+  unpack(ld16(reinterpret_cast<const char*>(bias + w.c0) + w.pack * 16), be);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int gl = (w.pack * VEC + i) / g.cpg;
+    mean[i] = fin[2 * gl];
+    rstd[i] = fin[2 * gl + 1];
+  }
+}
+
+// Backward, first launch: sums[b, chunk, c, 0..1] = (sum dz, sum dz x^) over
+// the chunk's rows.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ part,
+                     const T* __restrict__ scale, const T* __restrict__ bias,
+                     float* __restrict__ sums, Geom g, float eps, int apply_silu) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Where w = locate<VEC>(g);
+  const int gps = g.slab / g.cpg;
+  float* fin = reinterpret_cast<float*>(smem);  // [2 gps]
+  float* red = fin + 2 * gps;                   // [2][lanes][slab]
+  const int64_t group0 = (int64_t)w.b * (g.c / g.cpg) + w.c0 / g.cpg;
+  combine_chunks<false>(part + group0 * g.nchunks * 2, g, eps, fin);
+  __syncthreads();
+  if (w.active) {
+    float mean[VEC], rstd[VEC], ga[VEC], be[VEC], s1[VEC], s2[VEC], xh[VEC], dz[VEC];
+    channel_params<T, VEC>(scale, bias, fin, g, w, mean, rstd, ga, be);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
+    const int64_t row_bytes = (int64_t)g.c * sizeof(T);
+    const int64_t first = (((int64_t)w.b * g.rows + w.row0) * g.c + w.c0) * sizeof(T);
+    const char* xs = reinterpret_cast<const char*>(x) + first + w.pack * 16;
+    const char* gs = reinterpret_cast<const char*>(dy) + first + w.pack * 16;
+    for (int r = w.lane; r < w.nrows; r += w.lanes) {
+      bwd_pack<VEC>(ld16(xs + (int64_t)r * row_bytes), ld16(gs + (int64_t)r * row_bytes), mean,
+                    rstd, ga, be, apply_silu, xh, dz);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        s1[i] += dz[i];
+        s2[i] = fmaf(dz[i], xh[i], s2[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      red[w.lane * g.slab + w.pack * VEC + i] = s1[i];
+      red[(w.lanes + w.lane) * g.slab + w.pack * VEC + i] = s2[i];
+    }
+  }
+  __syncthreads();
+  const int lanes = blockDim.x / (g.slab / VEC);
+  float* out = sums + (((int64_t)w.b * g.nchunks + w.chunk) * g.c + w.c0) * 2;
+  for (int ch = threadIdx.x; ch < g.slab; ch += blockDim.x) {
+    float a = 0.f, q = 0.f;
+    for (int l = 0; l < lanes; ++l) {
+      a += red[l * g.slab + ch];
+      q += red[(lanes + l) * g.slab + ch];
+    }
+    out[2 * ch] = a;
+    out[2 * ch + 1] = q;
+  }
+}
+
+// Backward, second launch: fold the statistics and the reduce's sums of this
+// block's groups, then dx of its rows.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy, float* __restrict__ part,
+                 const float* __restrict__ sums, const T* __restrict__ scale,
+                 const T* __restrict__ bias, T* __restrict__ dx, Geom g, float eps,
+                 int apply_silu) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Where w = locate<VEC>(g);
+  const int gps = g.slab / g.cpg;
+  float* fin = reinterpret_cast<float*>(smem);  // [2 gps] mean, rstd
+  float* coef = fin + 2 * gps;                  // [2 gps] mean_g(g dz), mean_g(g dz x^)
+  const int64_t group0 = (int64_t)w.b * (g.c / g.cpg) + w.c0 / g.cpg;
+  combine_chunks<false>(part + group0 * g.nchunks * 2, g, eps, fin);
+  const int lane32 = threadIdx.x & 31;
+  const float inv_n = 1.f / ((float)g.rows * (float)g.cpg);
+  const float* sb = sums + (int64_t)w.b * g.nchunks * g.c * 2;
+  for (int gl = threadIdx.x >> 5; gl < gps; gl += blockDim.x >> 5) {
+    float a = 0.f, q = 0.f;
+    for (int i = lane32; i < g.cpg; i += 32) {
+      const int c = w.c0 + gl * g.cpg + i;
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = 0; k < g.nchunks; ++k) {
+        const float2 sk = *reinterpret_cast<const float2*>(sb + ((int64_t)k * g.c + c) * 2);
+        s1 += sk.x;
+        s2 += sk.y;
+      }
+      const float gc = sizeof(T) == 2 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(scale)[c])
+                                      : reinterpret_cast<const float*>(scale)[c];
+      a = fmaf(gc, s1, a);
+      q = fmaf(gc, s2, q);
+    }
+    a = warp_sum(a);
+    q = warp_sum(q);
+    if (lane32 == 0) {
+      coef[2 * gl] = a * inv_n;
+      coef[2 * gl + 1] = q * inv_n;
+    }
+  }
+  __syncthreads();
+  if (!w.active) return;
+  float mean[VEC], rstd[VEC], ga[VEC], be[VEC], c1[VEC], c2[VEC], xh[VEC], dz[VEC], o[VEC];
+  channel_params<T, VEC>(scale, bias, fin, g, w, mean, rstd, ga, be);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int gl = (w.pack * VEC + i) / g.cpg;
+    c1[i] = coef[2 * gl];
+    c2[i] = coef[2 * gl + 1];
+  }
+  const int64_t row_bytes = (int64_t)g.c * sizeof(T);
+  const int64_t first = (((int64_t)w.b * g.rows + w.row0) * g.c + w.c0) * sizeof(T) + w.pack * 16;
+  const char* xs = reinterpret_cast<const char*>(x) + first;
+  const char* gs = reinterpret_cast<const char*>(dy) + first;
+  char* ds = reinterpret_cast<char*>(dx) + first;
+  for (int r = w.lane; r < w.nrows; r += w.lanes) {
+    bwd_pack<VEC>(ld16(xs + (int64_t)r * row_bytes), ld16(gs + (int64_t)r * row_bytes), mean,
+                  rstd, ga, be, apply_silu, xh, dz);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[i] = rstd[i] * (fmaf(ga[i], dz[i], -c1[i]) - xh[i] * c2[i]);
+    *reinterpret_cast<uint4*>(ds + (int64_t)r * row_bytes) = pack(o);
+  }
+}
+
+cudaError_t smem_up_to(const void* kernel, int bytes) {
+  return bytes > 48 * 1024
+             ? cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes)
+             : cudaSuccess;
+}
+
 }  // namespace
 
 // x, y: [B, rows, C] (a channels-last map); scale, bias: [C] of x's dtype.
@@ -572,5 +753,62 @@ extern "C" int gn_norm(const void* x, float* part, const void* scale, const void
     gn_norm_kernel<float><<<grid, threads, smem, s>>>(
         static_cast<const float*>(x), part, static_cast<const float*>(scale),
         static_cast<const float*>(bias), static_cast<float*>(y), g, eps, apply_silu);
+  return (int)cudaGetLastError();
+}
+
+// Backward, first launch. x, dy: [B, rows, C]; part from gn_stats with the
+// same slab and nchunks; sums: [B, nchunks, C, 2] floats out.
+extern "C" int gn_bwd_reduce(const void* x, const void* dy, float* part, const void* scale,
+                             const void* bias, float* sums, int64_t batch, int rows, int c,
+                             int groups, int slab, int nchunks, int threads, float eps,
+                             int apply_silu, int is_bf16, void* stream) {
+  const int vec = is_bf16 ? 8 : 4;
+  const Geom g = geometry(batch, rows, c, groups, slab, nchunks, threads, vec);
+  if (!g.rows) return (int)cudaErrorInvalidValue;
+  const int lanes = threads / (slab / vec);
+  const int smem = 4 * (2 * (slab / g.cpg) + 2 * lanes * slab);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)(nchunks * (c / slab)), (unsigned)batch);
+  cudaError_t e;
+  if (is_bf16) {
+    e = smem_up_to((const void*)gn_bwd_reduce_kernel<__nv_bfloat16>, smem);
+    if (e != cudaSuccess) return (int)e;
+    gn_bwd_reduce_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), part,
+        static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(bias), sums,
+        g, eps, apply_silu);
+  } else {
+    e = smem_up_to((const void*)gn_bwd_reduce_kernel<float>, smem);
+    if (e != cudaSuccess) return (int)e;
+    gn_bwd_reduce_kernel<float><<<grid, threads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), part,
+        static_cast<const float*>(scale), static_cast<const float*>(bias), sums, g, eps,
+        apply_silu);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Backward, second launch: dx [B, rows, C] of x's dtype, from gn_stats'
+// partials and gn_bwd_reduce's sums of the same geometry.
+extern "C" int gn_bwd_dx(const void* x, const void* dy, float* part, const float* sums,
+                         const void* scale, const void* bias, void* dx, int64_t batch, int rows,
+                         int c, int groups, int slab, int nchunks, int threads, float eps,
+                         int apply_silu, int is_bf16, void* stream) {
+  const int vec = is_bf16 ? 8 : 4;
+  const Geom g = geometry(batch, rows, c, groups, slab, nchunks, threads, vec);
+  if (!g.rows) return (int)cudaErrorInvalidValue;
+  const int smem = 4 * 4 * (slab / g.cpg);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((unsigned)(nchunks * (c / slab)), (unsigned)batch);
+  if (is_bf16)
+    gn_bwd_dx_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy), part, sums,
+        static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<__nv_bfloat16*>(dx), g, eps, apply_silu);
+  else
+    gn_bwd_dx_kernel<float><<<grid, threads, smem, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), part, sums,
+        static_cast<const float*>(scale), static_cast<const float*>(bias),
+        static_cast<float*>(dx), g, eps, apply_silu);
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,10 @@ Background path (`placeholder_is_bg`): CLIP image features → linear +
 LayerNorm → plus normalised position embeddings; LayerNorm'd latent queries
 cross-attend over them (the prompt translator), scaled by output_dim^-0.5.
 
-At inference the gradient scaler on the layer weights is the identity; the
-MKV extension of prompt2token_proj waits for the training slices.
+In training the layer weights' gradient is scaled by
+`hidden_weights_grad_scale` (5, as in the JAX package); at inference the
+scaler is the identity. The MKV extension of prompt2token_proj waits for
+the MKV slice.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from adaface_tpu_torch.id2ada.layers import CrossAttention, ExpandEmbs
 from adaface_tpu_torch.models.clip import (CLIP_L_TEXT, CLIPTextConfig, CLIPTextModel,
                                            init_text_weights_)
 from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
+from adaface_tpu_torch.utils.tensor import gen_gradient_scaler
 
 EMB_TYPES = ("core", "full", "full_pad", "full_half_pad")
 
@@ -54,6 +57,7 @@ class SubjBasisConfig:
     use_layerwise_proj: bool = False
     layerwise_num_layers: int = 16
     layerwise_dim_mult: int = 2
+    hidden_weights_grad_scale: float = 5.0
     clip: CLIPTextConfig = CLIP_L_TEXT
 
     @property
@@ -140,7 +144,8 @@ class SubjBasisGenerator(nn.Module):
         return self.clip.token_embedding[self.pad_token_id] + self.clip.position_embedding[:n]
 
     def inverse_img_prompt_embs(self, face_prompt_embs, return_emb_types=("core",),
-                                enable_static_img_suffix_embs: bool = False) -> tuple:
+                                enable_static_img_suffix_embs: bool = False,
+                                hidden_state_layer_weights=None) -> tuple:
         """Template splice → prompt2token_proj → the embeddings asked for:
         'core' (the N_ID [+ N_SFX] ID embeddings), 'full' (all positions),
         'full_pad' (the tail after ID, suffix and two fillers replaced by
@@ -157,8 +162,9 @@ class SubjBasisGenerator(nn.Module):
         token_embs[:, start:end] = face_prompt_embs.to(token_embs.dtype)
         if enable_static_img_suffix_embs and n_sfx > 0:
             token_embs[:, end:end + n_sfx] = self.static_img_suffix_embs.to(token_embs.dtype)
-        out = self.clip(ids, input_embs=token_embs,
-                        skip_weights=self.hidden_state_layer_weights)
+        if hidden_state_layer_weights is None:
+            hidden_state_layer_weights = self.hidden_state_layer_weights
+        out = self.clip(ids, input_embs=token_embs, skip_weights=hidden_state_layer_weights)
         core_end = end + n_sfx if enable_static_img_suffix_embs else end
         results = []
         for t in return_emb_types:
@@ -193,9 +199,11 @@ class SubjBasisGenerator(nn.Module):
                 feats.shape[0], -1, -1)
             return self.prompt_translator(queries, feats) * (cfg.out_dim ** -0.5)
         if is_face:
+            scaler = gen_gradient_scaler(cfg.hidden_weights_grad_scale)
             (ada,) = self.inverse_img_prompt_embs(
                 face_prompt_embs, ("core",),
-                enable_static_img_suffix_embs=enable_static_img_suffix_embs)
+                enable_static_img_suffix_embs=enable_static_img_suffix_embs,
+                hidden_state_layer_weights=scaler(self.hidden_state_layer_weights))
         else:
             ada = self.obj_proj_in(raw_id_embs)
         if out_id_embs_cfg_scale != 1.0:

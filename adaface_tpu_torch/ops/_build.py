@@ -24,21 +24,32 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu",
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu", "flash_attn_bwd.cu",
            "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu", "launch_floor.cu")
 HEADERS = ("flash_common.cuh",)  # included by the sources: part of the library's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Launches of each kernel, counted by its wrapper where it launches it.
+# Launches of each kernel, counted by its wrapper where it launches it
+# (`count`). The trainer's prefetch thread launches kernels beside the main
+# thread's, and `Counter[key] += 1` is a read, an add and a write: the lock
+# keeps an update from being lost.
 LAUNCHES: collections.Counter = collections.Counter()
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count(key: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[key] += 1
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES.clear()
+    with _LAUNCHES_LOCK:
+        LAUNCHES.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,6 +121,11 @@ def load_library() -> ctypes.CDLL:
     lib.flash_tensor_map_stats.restype = None
     lib.flash_combine.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, p]
     lib.flash_combine.restype = i32
+    # q, k, v, out, g, mask, dq, dk, dv, stats, strides, B, H, Sq, Sk, D, causal, scale, stream
+    flash_bwd_args = [p] * 11 + [i32] * 6 + [f32, p]
+    for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"):
+        getattr(lib, name).argtypes = flash_bwd_args
+        getattr(lib, name).restype = i32
     gn_geometry = [i64, i32, i32, i32, i32, i32, i32]  # B, rows, C, G, slab, chunks, threads
     lib.gn_fused.argtypes = [p, p, p, p] + gn_geometry + [f32, i32, i32, p]
     lib.gn_fused.restype = i32
@@ -117,6 +133,12 @@ def load_library() -> ctypes.CDLL:
     lib.gn_stats.restype = i32
     lib.gn_norm.argtypes = [p, p, p, p, p] + gn_geometry + [f32, i32, i32, p]
     lib.gn_norm.restype = i32
+    # x, dy, part, scale, bias, sums
+    lib.gn_bwd_reduce.argtypes = [p] * 6 + gn_geometry + [f32, i32, i32, p]
+    lib.gn_bwd_reduce.restype = i32
+    # x, dy, part, sums, scale, bias, dx
+    lib.gn_bwd_dx.argtypes = [p] * 7 + gn_geometry + [f32, i32, i32, p]
+    lib.gn_bwd_dx.restype = i32
     # x, partial, stats, ticket, rows, C, chunks, chunk rows, threads, lanes, vec, eps, bf16,
     # stream
     lib.bn_stats.argtypes = [p, p, p, p, i64, i32, i32, i64, i32, i32, i32, f32, i32, p]
@@ -135,18 +157,6 @@ def launch_floor(stream: int) -> None:
     """Launch the empty kernel of `csrc/launch_floor.cu` on `stream`: the
     yardstick for what one launch costs on the device. Not counted."""
     check(load_library().launch_floor(stream), "launch_floor")
-
-
-def forward_only(op: str, *tensors) -> None:
-    """Raise if autograd would record `op` on these inputs: its kernels have
-    no backward, and their outputs would leave the graph without a word.
-    Reads only `requires_grad` and the grad mode, so it runs on CPU tensors."""
-    import torch
-
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{op}: the CUDA kernels are forward only, and an input requires grad; call it "
-            "under torch.no_grad() or torch.inference_mode(), or on detached tensors")
 
 
 def check(rc: int, kernel: str) -> None:

@@ -1,7 +1,7 @@
 """Attention: plain PyTorch SDPA, the hand-written flash kernels, and routing.
 
-Counterpart of `adaface_tpu/ops/attention.py` (forward only). Tensors are
-[B, H, S, D] as there.
+Counterpart of `adaface_tpu/ops/attention.py`. Tensors are [B, H, S, D] as
+there.
 
 - `scaled_dot_product_attention` is the plain version: explicit matmuls and
   an fp32 softmax, the same math as the JAX reference (probabilities are cast
@@ -17,8 +17,16 @@ Counterpart of `adaface_tpu/ops/attention.py` (forward only). Tensors are
   card, merged by `flash_combine`); fp32 the CUDA-core kernel of
   `csrc/flash_attn_fwd.cu`. Each variant counts its launches under its own
   key. On a CPU tensor `flash_attention` takes the plain version; on a CUDA
-  tensor it launches the kernels or raises (also when autograd would record
-  the call: the kernels are forward only).
+  tensor it launches the kernels or raises.
+- Where autograd records the call (grad mode on and an input that requires
+  grad) `flash_attention` is `_FlashAttention`, the counterpart of the JAX
+  package's custom VJP (`_flash_fwd` / `_flash_bwd`, `:365-447`): it saves
+  q, k, v, the mask and the output, and its backward is the three kernels
+  of `csrc/flash_attn_bwd.cu` (`flash_bwd`, bf16, D 40/48, 80, 160) on the
+  card, or `flash_bwd_chunked`, the JAX backward's query-chunk scan in plain
+  PyTorch, on the CPU. It computes only the gradients autograd asks for: a
+  cross-attention whose query has no grad launches no dq kernel. fp32 on
+  the card has no backward kernel: such a call raises at the forward.
 - `flash_attention_tiled` and `combine_partials` repeat the kernels'
   arithmetic in plain PyTorch (key tiles, log2 online softmax, P rounded to
   v's dtype, head-dim slices, split-keys partials), so that the CPU tests
@@ -55,6 +63,11 @@ FLASH_STD = "flash_attn_fwd[d>=128|causal]"
 FLASH_WIDE = "flash_attn_fwd[bf16 wide]"
 FLASH_COMBINE = "flash_combine"
 FLASH_FP32 = "flash_attn_fwd[fp32]"
+# the backward's three kernels (`csrc/flash_attn_bwd.cu`)
+FLASH_BWD_PREP = "flash_bwd_prep"
+FLASH_BWD_DKDV = "flash_bwd_dkdv"
+FLASH_BWD_DQ = "flash_bwd_dq"
+BWD_KSTEPS = (3, 5, 10)  # ceil(D / 16) of the backward kernel's instances
 
 LOG2E = 1.4426950408889634
 MAX_DIM = 512
@@ -211,7 +224,7 @@ def flash_combine(o_part, m_part, l_part, dtype):
                            nsplit, b, h, sq, d, int(dtype == torch.bfloat16),
                            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_combine")
-    _build.LAUNCHES[FLASH_COMBINE] += 1
+    _build.count(FLASH_COMBINE)
     return out
 
 
@@ -258,7 +271,10 @@ def plan_for(q, k, v) -> FlashPlan:
 # `_prepare`'s verdicts by layout: the UNet sends the same few layouts 30
 # times a call, and the checks cost the host more than the launch.
 # CACHE_LOOKUPS counts the calls that found their layout here and those that
-# did not.
+# did not. The trainer's prefetch thread launches beside the main thread: a
+# verdict is a pure function of its layout, so two threads that miss at once
+# store the same value, and a lookup racing a clear only misses; the
+# counter's read-add-write may lose a count (statistics only).
 _PREPARED: dict = {}
 CACHE_LOOKUPS: collections.Counter = collections.Counter()
 
@@ -323,23 +339,178 @@ def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
         _build.check(lib.flash_fwd_bf16_wide(*args, plan.nsplit, o_part.data_ptr(),
                                              m_part.data_ptr(), l_part.data_ptr(), stream),
                      "flash_fwd_bf16_wide")
-        _build.LAUNCHES[key] += 1
+        _build.count(key)
         return flash_combine(o_part, m_part, l_part, dtype)
-    _build.LAUNCHES[key] += 1
+    _build.count(key)
     return out
 
 
-def flash_attention(q, k, v, kv_mask=None, causal: bool = False, scale=None):
-    """Flash attention forward on [B, H, S, D]; output in q's dtype."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _pick_bwd_chunk(b: int, h: int, sq: int, sk: int) -> int:
+    """`_pick_bwd_chunk` of the JAX package (`:374-381`): query rows per
+    chunk, keeping a chunk's [B, H, chunk, Sk] fp32 scores under ~256 MB;
+    always divides Sq."""
+    chunk = max(128, min(sq, (1 << 28) // max(b * h * sk * 4, 1)))
+    chunk = min(chunk, sq)
+    while sq % chunk:
+        chunk //= 2
+    return max(chunk, 1)
+
+
+def flash_bwd_chunked(q, k, v, kv_mask, out, g, causal: bool, scale: float,
+                      need_dq: bool = True, need_dkdv: bool = True):
+    """The JAX backward `_flash_bwd` (`adaface_tpu/ops/attention.py:384-447`)
+    in plain PyTorch: a loop over query chunks of `_pick_bwd_chunk` rows, the
+    probabilities recomputed from q and k in fp32 (the key mask as a -1e30
+    bias, the causal rule with the offset Sk - Sq), delta = Σ g·out, and
+    ds = p·(g vᵀ - delta)·scale. → (dq, dk, dv) in the inputs' dtypes; None
+    for the gradients not asked for."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    chunk = _pick_bwd_chunk(b, h, sq, sk)
+    qf, kf, vf, gf, of = q.float(), k.float(), v.float(), g.float(), out.float()
+    bias = None
+    if kv_mask is not None:
+        bias = torch.where(kv_mask[:, None, None, :] > 0, 0.0, NEG_INF)
+    cols = torch.arange(sk, device=q.device)[None, :]
+    dk = dv = None
+    if need_dkdv:
+        dk = torch.zeros((b, h, sk, d), device=q.device)
+        dv = torch.zeros((b, h, sk, d), device=q.device)
+    dq_chunks = []
+    for r0 in range(0, sq, chunk):
+        q_c, g_c, o_c = qf[:, :, r0:r0 + chunk], gf[:, :, r0:r0 + chunk], of[:, :, r0:r0 + chunk]
+        s = torch.matmul(q_c, kf.transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias
+        if causal:
+            rows = r0 + torch.arange(q_c.shape[2], device=q.device)[:, None]
+            s = torch.where(cols <= rows + (sk - sq), s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        dp = torch.matmul(g_c, vf.transpose(-1, -2))
+        delta = (g_c * o_c).sum(dim=-1, keepdim=True)
+        ds = p * (dp - delta) * scale
+        if need_dq:
+            dq_chunks.append(torch.matmul(ds, kf))
+        if need_dkdv:
+            dv = dv + torch.matmul(p.transpose(-1, -2), g_c)
+            dk = dk + torch.matmul(ds.transpose(-1, -2), q_c)
+    dq = torch.cat(dq_chunks, dim=2).to(q.dtype) if need_dq else None
+    if need_dkdv:
+        dk, dv = dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
+
+
+def _bwd_refusal(q) -> str | None:
+    """Why the backward kernels do not take a CUDA q, or None."""
+    if q.dtype != torch.bfloat16:
+        return (f"no backward kernel for {q.dtype} (the backward kernels are bf16; an fp32 "
+                "flash backward waits in ROADMAP §2)")
+    if -(-q.shape[-1] // 16) not in BWD_KSTEPS:
+        return (f"no backward kernel for head dim {q.shape[-1]} (instances: ceil(D/16) in "
+                f"{BWD_KSTEPS}, D 40/48, 80, 160)")
+    return None
+
+
+def _grad_buffer(b: int, h: int, s: int, d: int, dtype, device):
+    """[B, H, S, D] in [B, S, H, D] memory, as the forward writes `out`: the
+    caller's merge of heads back into [B, S, H·D] is then a view."""
+    return torch.empty_strided((b, h, s, d), (s * h * d, d, h * d, 1), dtype=dtype,
+                               device=device)
+
+
+def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
+              need_dq: bool = True, need_dkdv: bool = True):
+    """The backward kernels of `csrc/flash_attn_bwd.cu` on bf16 CUDA tensors:
+    `flash_bwd_prep` (the rows' softmax statistics and delta), then
+    `flash_bwd_dkdv` and `flash_bwd_dq` as asked. → (dq, dk, dv), None for
+    those not asked for; the same function as `flash_bwd_chunked`."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    why = _bwd_refusal(q) if q.device.type == "cuda" else f"no kernel for device {q.device}"
+    if why:
+        raise ValueError(f"flash backward: {why}")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"flash backward: {q.device} is not the current device")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    for name, t, shape in (("k", k, (b, h, sk, d)), ("v", v, (b, h, sk, d)),
+                           ("out", out, (b, h, sq, d)), ("g", g, (b, h, sq, d))):
+        if (tuple(t.shape) != shape or t.dtype != q.dtype or t.device != q.device
+                or t.stride(-1) != 1 or q.stride(-1) != 1):
+            raise ValueError(f"flash backward: {name} must be {shape} {q.dtype} on {q.device} "
+                             f"with a contiguous head dim, got {tuple(t.shape)} {t.dtype} "
+                             f"strides {t.stride()}")
+    mask = None
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, sk) or kv_mask.device != q.device:
+            raise ValueError(f"flash backward: kv_mask must be [B, Sk] = {(b, sk)} on {q.device}")
+        mask = kv_mask.to(torch.float32).contiguous()
+    dq = _grad_buffer(b, h, sq, d, q.dtype, q.device) if need_dq else None
+    dk = _grad_buffer(b, h, sk, d, k.dtype, q.device) if need_dkdv else None
+    dv = _grad_buffer(b, h, sk, d, v.dtype, q.device) if need_dkdv else None
+    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
+    none = (0, 0, 0)
+    strides = (ctypes.c_int64 * 24)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *g.stride()[:3],
+        *(dq.stride()[:3] if need_dq else none), *(dk.stride()[:3] if need_dkdv else none),
+        *(dv.stride()[:3] if need_dkdv else none))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), ptr(mask),
+            ptr(dq), ptr(dk), ptr(dv), stats.data_ptr(), strides, b, h, sq, sk, d, int(causal),
+            float(scale), torch.cuda.current_stream().cuda_stream)
+    lib = _build.load_library()
+    _build.check(lib.flash_bwd_prep(*args), FLASH_BWD_PREP)
+    _build.count(FLASH_BWD_PREP)
+    if need_dkdv:
+        _build.check(lib.flash_bwd_dkdv(*args), FLASH_BWD_DKDV)
+        _build.count(FLASH_BWD_DKDV)
+    if need_dq:
+        _build.check(lib.flash_bwd_dq(*args), FLASH_BWD_DQ)
+        _build.count(FLASH_BWD_DQ)
+    return dq, dk, dv
+
+
+def _flash_forward(q, k, v, kv_mask, causal: bool, scale: float):
     if q.device.type == "cpu":
-        return scaled_dot_product_attention(q, k, v, kv_mask=kv_mask,
-                                            causal=causal, scale=scale)
+        return scaled_dot_product_attention(q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    _build.forward_only("flash_attention", q, k, v)
     return _flash_cuda(q, k, v, kv_mask, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: kernels on the card, the plain
+    versions on the CPU (the JAX package's `_flash_attention` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal: bool, scale: float):
+        out = _flash_forward(q, k, v, kv_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, kv_mask, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        bwd = flash_bwd_chunked if q.device.type == "cpu" else flash_bwd
+        dq, dk, dv = bwd(q, k, v, kv_mask, out, g, ctx.causal, ctx.scale,
+                         need_dq=need_q, need_dkdv=need_k or need_v)
+        return dq, dk if need_k else None, dv if need_v else None, None, None, None
+
+
+def flash_attention(q, k, v, kv_mask=None, causal: bool = False, scale=None):
+    """Flash attention on [B, H, S, D]; output in q's dtype. Recorded by
+    autograd as `_FlashAttention` when an input requires grad."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        why = _bwd_refusal(q) if q.device.type == "cuda" else None
+        if why:
+            raise RuntimeError(f"flash_attention: an input requires grad, but there is {why}; "
+                               "call it under torch.no_grad() or on detached tensors")
+        return _FlashAttention.apply(q, k, v, kv_mask, causal, scale)
+    return _flash_forward(q, k, v, kv_mask, causal, scale)
 
 
 def multi_head_attention(q, k, v, kv_mask=None, causal: bool = False, scale=None):

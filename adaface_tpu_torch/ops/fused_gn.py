@@ -1,6 +1,6 @@
 """GroupNorm (+ SiLU): plain PyTorch version and the hand-written kernels.
 
-Counterpart of `adaface_tpu/ops/fused_gn.py` (forward only). Logical shapes
+Counterpart of `adaface_tpu/ops/fused_gn.py`. Logical shapes
 are NCHW; the kernels of `csrc/group_norm_silu.cu` take x in channels-last
 memory, i.e. as [B, H·W, C] rows like the TPU kernels, which is the layout
 the UNet and the VAE keep inside (`models/unet.py`, `models/vae.py`).
@@ -13,9 +13,15 @@ Three kernels, counted apart in `_build.LAUNCHES`:
 `gn_plan` says which of the two a shape takes, and with what geometry; it
 is a pure function of shape, dtype and SM count. `group_norm_silu` follows
 it. On a CPU tensor it takes the plain version; on a CUDA tensor it launches
-the kernels or raises (also when autograd would record the call: the
-kernels are forward only). Every GroupNorm of the UNet and the VAE goes through
+the kernels or raises. Every GroupNorm of the UNet and the VAE goes through
 it, as every GroupNorm on the TPU went through the Pallas pair.
+
+Where autograd records the call, `group_norm_silu` is `_GroupNormSiLU`, the
+counterpart of the JAX package's custom VJP (`_gn_fwd` / `_gn_bwd`,
+`:138-148`): it saves x, scale and bias, and its backward is, on the card,
+`gn_stats` for the statistics and the two backward kernels `gn_bwd_reduce`
+and `gn_bwd_dx` on the split pair's geometry (`gn_silu_bwd`); on the CPU
+`gn_silu_bwd_plain`, the VJP of `_gn_silu_ref` in closed form in fp32.
 
 `gn_silu_chunked` repeats the kernels' arithmetic in plain PyTorch, for the
 CPU tests.
@@ -35,6 +41,8 @@ from adaface_tpu_torch.ops import _build
 GN_STATS = "gn_stats"
 GN_NORM = "gn_norm"
 GN_FUSED = "gn_fused"
+GN_BWD_REDUCE = "gn_bwd_reduce"
+GN_BWD_DX = "gn_bwd_dx"
 
 SMEM_BYTES = 232448  # dynamic shared memory a block may ask for on sm_90
 MAX_CLUSTER = 16  # blocks of a cluster; above 8 is "non-portable", the H100 takes 16
@@ -281,7 +289,7 @@ def gn_fused(x, scale, bias, groups: int, eps: float, apply_silu: bool,
         *_geometry(x, groups, plan), float(eps), int(apply_silu),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, GN_FUSED)
-    _build.LAUNCHES[GN_FUSED] += 1
+    _build.count(GN_FUSED)
     return y
 
 
@@ -297,7 +305,7 @@ def gn_stats(x, groups: int, plan: GnPlan | None = None):
         x.data_ptr(), part.data_ptr(), *_geometry(x, groups, plan),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, GN_STATS)
-    _build.LAUNCHES[GN_STATS] += 1
+    _build.count(GN_STATS)
     return part
 
 
@@ -318,22 +326,127 @@ def gn_norm(x, part, scale, bias, groups: int, eps: float, apply_silu: bool,
         *_geometry(x, groups, plan), float(eps), int(apply_silu),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, GN_NORM)
-    _build.LAUNCHES[GN_NORM] += 1
+    _build.count(GN_NORM)
     return y
+
+
+def _group_means(t, groups: int):
+    """Per-(sample, group) means of t [B, C, ...] fp32, broadcast back to
+    [B, C, 1, ...]."""
+    b, c = t.shape[:2]
+    m = t.reshape(b, groups, -1).mean(dim=2)
+    return m.repeat_interleave(c // groups, dim=1).reshape((b, c) + (1,) * (t.dim() - 2))
+
+
+def gn_silu_bwd_plain(x, scale, bias, g, groups: int, eps: float, apply_silu: bool = True):
+    """The VJP of `_gn_silu_ref` (`adaface_tpu/ops/fused_gn.py:49-60`,
+    `:143-148`) in closed form, in fp32: with x̂ the normalized x, z = γx̂ + β
+    and dz = g·silu′(z) (or g), dβ = Σdz, dγ = Σdz·x̂ and
+    dx = rstd·(γdz - mean_g(γdz) - x̂·mean_g(γdz·x̂)), the means over each
+    (sample, group). → (dx in x's dtype, dγ, dβ in theirs)."""
+    mean, rstd = _per_channel(gn_stats_plain(x, groups, eps), x, groups)
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    xhat = (x.float() - mean) * rstd
+    gamma = scale.float().reshape(bshape)
+    dz = g.float()
+    if apply_silu:
+        z = xhat * gamma + bias.float().reshape(bshape)
+        sg = torch.sigmoid(z)
+        dz = dz * sg * (1.0 + z * (1.0 - sg))
+    dims = (0,) + tuple(range(2, x.dim()))
+    dbeta, dgamma = dz.sum(dim=dims), (dz * xhat).sum(dim=dims)
+    dxhat = dz * gamma
+    dx = rstd * (dxhat - _group_means(dxhat, groups) - xhat * _group_means(dxhat * xhat, groups))
+    return dx.to(x.dtype), dgamma.to(scale.dtype), dbeta.to(bias.dtype)
+
+
+def gn_bwd_reduce(x, g, part, scale, bias, groups: int, eps: float, apply_silu: bool,
+                  plan: GnPlan):
+    """Kernel `gn_bwd_reduce` on channels-last CUDA x and g with `gn_stats`'
+    partials of the same split plan → [B, plan.chunks, C, 2] fp32: each
+    chunk's per-channel (Σdz, Σdz·x̂)."""
+    b, c = x.shape[:2]
+    sums = torch.empty((b, plan.chunks, c, 2), dtype=torch.float32, device=x.device)
+    rc = _build.load_library().gn_bwd_reduce(
+        x.data_ptr(), g.data_ptr(), part.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        sums.data_ptr(), *_geometry(x, groups, plan), float(eps), int(apply_silu),
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, GN_BWD_REDUCE)
+    _build.count(GN_BWD_REDUCE)
+    return sums
+
+
+def gn_bwd_dx(x, g, part, sums, scale, bias, groups: int, eps: float, apply_silu: bool,
+              plan: GnPlan):
+    """Kernel `gn_bwd_dx`: dx of x's dtype and memory format."""
+    dx = torch.empty_like(x)
+    rc = _build.load_library().gn_bwd_dx(
+        x.data_ptr(), g.data_ptr(), part.data_ptr(), sums.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), dx.data_ptr(), *_geometry(x, groups, plan), float(eps),
+        int(apply_silu), int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, GN_BWD_DX)
+    _build.count(GN_BWD_DX)
+    return dx
+
+
+def gn_silu_bwd(x, scale, bias, g, groups: int, eps: float, apply_silu: bool = True):
+    """The backward on channels-last CUDA tensors: `gn_stats`, `gn_bwd_reduce`,
+    `gn_bwd_dx` on the split plan; dγ and dβ are the (sample, chunk) sums of
+    the reduce's partials. → (dx, dγ, dβ), the function of
+    `gn_silu_bwd_plain`."""
+    _check_cuda(x, groups)
+    _check_affine(x, scale, bias)
+    g = g.contiguous(memory_format=torch.channels_last)
+    if g.shape != x.shape or g.dtype != x.dtype or g.data_ptr() % 16:
+        raise ValueError(f"group norm backward: g must be like x {tuple(x.shape)} {x.dtype}, "
+                         f"got {tuple(g.shape)} {g.dtype}")
+    plan = plan_for(x, groups, "split")
+    part = gn_stats(x, groups, plan)
+    sums = gn_bwd_reduce(x, g, part, scale, bias, groups, eps, apply_silu, plan)
+    dx = gn_bwd_dx(x, g, part, sums, scale, bias, groups, eps, apply_silu, plan)
+    dbeta, dgamma = sums.sum(dim=(0, 1)).unbind(dim=-1)
+    return dx, dgamma.to(scale.dtype), dbeta.to(bias.dtype)
+
+
+def _gn_forward(x, scale, bias, groups: int, eps: float, apply_silu: bool):
+    if x.device.type == "cpu":
+        return gn_silu_plain(x, scale, bias, groups, eps, apply_silu)
+    _check_cuda(x, groups)
+    plan = plan_for(x, groups)
+    if plan.kernel == "fused":
+        return gn_fused(x, scale, bias, groups, eps, apply_silu, plan)
+    return gn_norm(x, gn_stats(x, groups, plan), scale, bias, groups, eps, apply_silu, plan)
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """GroupNorm (+ SiLU) with its backward: kernels on the card, the closed
+    form on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, groups: int, eps: float, apply_silu: bool):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.groups, ctx.eps, ctx.apply_silu = groups, eps, apply_silu
+        return _gn_forward(x, scale, bias, groups, eps, apply_silu)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        bwd = gn_silu_bwd_plain if x.device.type == "cpu" else gn_silu_bwd
+        dx, dgamma, dbeta = bwd(x, scale, bias, g, ctx.groups, ctx.eps, ctx.apply_silu)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, dgamma if need[1] else None,
+                dbeta if need[2] else None, None, None, None)
 
 
 def group_norm_silu(x, scale, bias, groups: int, eps: float, apply_silu: bool = True):
     """GroupNorm (+ SiLU) on x [B, C, H, W]: the plain version on the CPU
     (either memory format); on CUDA the kernel `gn_plan` names, which takes
-    channels-last memory only."""
-    if x.device.type == "cpu":
-        return gn_silu_plain(x, scale, bias, groups, eps, apply_silu)
-    _check_cuda(x, groups)
-    _build.forward_only("group_norm_silu", x, scale, bias)
-    plan = plan_for(x, groups)
-    if plan.kernel == "fused":
-        return gn_fused(x, scale, bias, groups, eps, apply_silu, plan)
-    return gn_norm(x, gn_stats(x, groups, plan), scale, bias, groups, eps, apply_silu, plan)
+    channels-last memory only. Recorded by autograd as `_GroupNormSiLU` when
+    an input requires grad."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormSiLU.apply(x, scale, bias, groups, eps, apply_silu)
+    return _gn_forward(x, scale, bias, groups, eps, apply_silu)
 
 
 class GroupNorm(nn.Module):

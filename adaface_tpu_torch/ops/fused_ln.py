@@ -118,7 +118,7 @@ def layer_norm(x, weight, bias, eps: float, plan: LnPlan | None = None):
         plan.lanes, plan.warps, plan.threads, float(eps), int(x.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, LAYER_NORM)
-    _build.LAUNCHES[LAYER_NORM] += 1
+    _build.count(LAYER_NORM)
     return y
 
 

@@ -285,7 +285,7 @@ def bn_stats(x2, eps: float, plan: BnPlan | None = None):
         plan.chunk_rows, plan.threads, plan.lanes, plan.vec, float(eps),
         int(x2.dtype == torch.bfloat16), stream)
     _build.check(rc, BN_STATS)
-    _build.LAUNCHES[BN_STATS] += 1
+    _build.count(BN_STATS)
     return stats[0], stats[1]
 
 
@@ -303,7 +303,7 @@ def bn_norm_act(x2, mean, rstd, scale, bias, slope: float):
         y.data_ptr(), x2.shape[0], c, float(slope), int(x2.dtype == torch.bfloat16),
         torch.cuda.current_stream().cuda_stream)
     _build.check(rc, BN_NORM_ACT)
-    _build.LAUNCHES[BN_NORM_ACT] += 1
+    _build.count(BN_NORM_ACT)
     return y
 
 

@@ -14,9 +14,20 @@ these follow OpenCV's (5.0) arithmetic on uint8:
   `((row0 >> 4)·w0 >> 16) + ((row1 >> 4)·w1 >> 16)` rounded by 2 bits; a
   2× reduction is the mean of 2×2 blocks, as OpenCV switches to area
   averaging there.
+
+The training dataset's PIL calls (`adaface_tpu/data/personalized.py`:
+`Image.open(...).convert("RGB" or "L")`, padding to a square, a NEAREST
+resize) are here too, on stdlib `zlib`: `read_png` (8-bit grey, RGB and
+RGBA, non-interlaced, all five row filters; any other file raises with its
+path), `write_png`, `to_rgb` / `to_grey` as PIL converts,
+`pad_to_square` and `resize_nearest_pil`, which samples where PIL's
+NEAREST does.
 """
 
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -100,3 +111,134 @@ def resize_cubic(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """cv2.resize(img, size) (INTER_LINEAR) on uint8; size is (width, height)."""
     return _resize(img, size, cubic=False)
+
+
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type → channels: grey, RGB, RGBA
+
+
+def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """One PNG scanline's bytes from its filtered bytes and the row above."""
+    if ft == 0:
+        return line.copy()
+    if ft == 1:  # Sub: a running sum per channel, modulo 256
+        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+    if ft == 2:  # Up
+        return line + prev
+    if ft not in (3, 4):
+        raise ValueError(f"PNG row filter {ft}")
+    cur, up = bytearray(line.tobytes()), prev.tobytes()
+    n = len(cur)
+    if ft == 3:  # Average
+        for i in range(bpp):
+            cur[i] = (cur[i] + (up[i] >> 1)) & 255
+        for i in range(bpp, n):
+            cur[i] = (cur[i] + ((cur[i - bpp] + up[i]) >> 1)) & 255
+    else:  # Paeth
+        for i in range(bpp):
+            cur[i] = (cur[i] + up[i]) & 255
+        for i in range(bpp, n):
+            a, b, c = cur[i - bpp], up[i], up[i - bpp]
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            cur[i] = (cur[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 255
+    return np.frombuffer(bytes(cur), np.uint8)
+
+
+def read_png(path) -> np.ndarray:
+    """An 8-bit grey, RGB or RGBA non-interlaced PNG → uint8 [H, W] or
+    [H, W, 3 or 4]."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"{path}: not a PNG file (the port reads PNG only)")
+    pos, idat, header = 8, [], None
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    width, height, depth, colour, _, _, interlace = header
+    if depth != 8 or colour not in PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: PNG of bit depth {depth}, colour type {colour}, interlace "
+                         f"{interlace}; the reader takes 8-bit grey, RGB or RGBA, not "
+                         "interlaced")
+    bpp = PNG_CHANNELS[colour]
+    raw = zlib.decompress(b"".join(idat))
+    stride = width * bpp
+    if len(raw) != height * (stride + 1):
+        raise ValueError(f"{path}: PNG data of {len(raw)} bytes for {width}x{height}x{bpp}")
+    rows, prev = np.empty((height, stride), np.uint8), np.zeros(stride, np.uint8)
+    for y in range(height):
+        off = y * (stride + 1)
+        prev = rows[y] = _unfilter_row(raw[off], np.frombuffer(raw, np.uint8, stride, off + 1),
+                                       prev, bpp)
+    return rows.reshape(height, width) if bpp == 1 else rows.reshape(height, width, bpp)
+
+
+def write_png(path, img: np.ndarray) -> None:
+    """uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA) → an 8-bit
+    PNG, every row unfiltered."""
+    img = np.ascontiguousarray(img, np.uint8)
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    colour = {1: 0, 3: 2, 4: 6}[bpp]
+    h, w = img.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * bpp)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def to_rgb(img: np.ndarray) -> np.ndarray:
+    """PIL's convert("RGB"): grey replicated, alpha dropped."""
+    if img.ndim == 2:
+        return np.repeat(img[..., None], 3, axis=2)
+    return img[..., :3]
+
+
+def to_grey(img: np.ndarray) -> np.ndarray:
+    """PIL's convert("L"): (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
+    if img.ndim == 2:
+        return img
+    rgb = img[..., :3].astype(np.int64)
+    y = 19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2]
+    return ((y + (1 << 15)) >> 16).astype(np.uint8)
+
+
+def pad_to_square(img: np.ndarray) -> np.ndarray:
+    """Pad the shorter side with zeros on both sides, the image centred
+    (`pad_image_obj_to_square`)."""
+    h, w = img.shape[:2]
+    if h == w:
+        return img
+    s = max(h, w)
+    out = np.zeros((s, s) + img.shape[2:], img.dtype)
+    y0, x0 = (s - h) // 2, (s - w) // 2
+    out[y0:y0 + h, x0:x0 + w] = img
+    return out
+
+
+def _nearest_index(n_in: int, n_out: int) -> np.ndarray:
+    """PIL's NEAREST source index: the centre x + 0.5 scaled by in/out, as
+    its fast scaling path accumulates it (one float64 addition a pixel),
+    truncated."""
+    step = n_in / n_out
+    centres = np.cumsum(np.concatenate([[step * 0.5], np.full(n_out - 1, step)]))
+    return np.minimum(centres.astype(np.int64), n_in - 1)
+
+
+def resize_nearest_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """`Image.resize((w, h), Image.NEAREST)` on [H, W(, C)]; size is (w, h)."""
+    w, h = size
+    return img[_nearest_index(img.shape[0], h)][:, _nearest_index(img.shape[1], w)]

@@ -1,10 +1,12 @@
-"""Random draws and perturbation for the ID encoders.
+"""Random draws, perturbation and gradient scaling.
 
-Counterpart of `perturb_tensor` in `adaface_tpu/utils/tensor.py:18-37`. JAX
-draws from a `PRNGKey` that torch cannot repeat, so every draw here goes
-through `Draws`: from a `torch.Generator`, or handed in, in the order the
-computation takes them (the CPU tests hand over the draws JAX made from its
-keys). The gradient scalers wait for the training slices.
+Counterpart of `adaface_tpu/utils/tensor.py`: `perturb_tensor`,
+`gradient_scale` / `gen_gradient_scaler` (an autograd Function in place of
+the custom VJP), `ortho_subtract`, `anneal_value` and
+`anneal_perturb_embedding`. JAX draws from a `PRNGKey` that torch cannot
+repeat, so every draw here goes through `Draws`: from a `torch.Generator`,
+or handed in, in the order the computation takes them (the CPU tests hand
+over the draws JAX made from its keys).
 """
 
 from __future__ import annotations
@@ -50,6 +52,29 @@ class Draws:
         return torch.rand((), generator=self.generator,
                           device=self.generator.device).item()
 
+    def integers(self, shape, low: int, high: int, device) -> torch.Tensor:
+        """[shape] int64 uniform in [low, high) on `device`."""
+        shape = tuple(shape)
+        if self.generator is None:
+            x = torch.as_tensor(np.array(self._pop(f"integer draws of {shape}")),
+                                dtype=torch.int64)
+            if tuple(x.shape) != shape:
+                raise ValueError(f"handed draw of shape {tuple(x.shape)}, wanted {shape}")
+            return x.to(device)
+        return torch.randint(low, high, shape, generator=self.generator,
+                             device=self.generator.device).to(device)
+
+    def uniforms(self, shape, device) -> torch.Tensor:
+        """[shape] float32 U[0, 1) on `device`."""
+        shape = tuple(shape)
+        if self.generator is None:
+            x = torch.as_tensor(np.array(self._pop(f"uniform draws of {shape}")),
+                                dtype=torch.float32)
+            if tuple(x.shape) != shape:
+                raise ValueError(f"handed draw of shape {tuple(x.shape)}, wanted {shape}")
+            return x.to(device)
+        return torch.rand(shape, generator=self.generator, device=self.generator.device).to(device)
+
 
 def as_draws(rng, device) -> Draws:
     """`rng` as Draws: Draws as they are, a torch.Generator, handed draws (a
@@ -79,3 +104,82 @@ def perturb_tensor(x: torch.Tensor, perturb_std: float, noise: torch.Tensor,
     if keep_norm:
         out = out * (x.norm() / (out.norm() + 1e-8))
     return out
+
+
+class _GradientScale(torch.autograd.Function):
+    """Identity forward; the backward multiplies the gradient by `scale`."""
+
+    @staticmethod
+    def forward(ctx, x, scale: float):
+        ctx.scale = scale
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.scale, None
+
+
+def gradient_scale(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """`gradient_scale` (`adaface_tpu/utils/tensor.py:40-55`): x, with its
+    gradient multiplied by `scale`."""
+    return _GradientScale.apply(x, float(scale))
+
+
+def gen_gradient_scaler(scale: float):
+    """fn(x) scaling x's gradient by `scale`; scale <= 0 detaches, 1 is the
+    identity (`gen_gradient_scaler`, `:66-72`)."""
+    if scale <= 0:
+        return lambda x: x.detach()
+    if scale == 1:
+        return lambda x: x
+    return lambda x: gradient_scale(x, scale)
+
+
+def ortho_subtract(a: torch.Tensor, b: torch.Tensor, b_discount: float = 1.0,
+                   on_last_n_dims: int = 1, eps: float = 1e-6) -> torch.Tensor:
+    """a minus (b_discount ×) its projection onto b over the last
+    `on_last_n_dims` axes (`ortho_subtract`, `:75-89`)."""
+    if on_last_n_dims > 1:
+        a, b = torch.broadcast_tensors(a, b)
+        shape = a.shape
+        flat = shape[:-on_last_n_dims] + (-1,)
+        out = ortho_subtract(a.reshape(flat), b.reshape(flat), b_discount=b_discount, eps=eps)
+        return out.reshape(shape)
+    dot = (a * b).sum(dim=-1, keepdim=True)
+    norm_sq = (b * b).sum(dim=-1, keepdim=True)
+    return a - dot / (norm_sq + eps) * b * b_discount
+
+
+def anneal_value(training_percent: float, final_percent: float,
+                 value_range: tuple[float, float]) -> float:
+    """v_init + (v_final - v_init) · training_percent until final_percent,
+    then v_final (`anneal_value`, `:92-102`: the slope is not normalised by
+    final_percent, as in the reference)."""
+    v_init, v_final = value_range
+    if training_percent < final_percent:
+        return v_init + (v_final - v_init) * training_percent
+    return v_final
+
+
+def anneal_perturb_embedding(draws: Draws, embeddings: torch.Tensor, training_percent: float,
+                             begin_std_range: tuple[float, float],
+                             end_std_range: tuple[float, float] | None, perturb_prob: float,
+                             std_is_relative: bool = True,
+                             keep_norm: bool = False) -> torch.Tensor:
+    """Embeddings plus Gaussian noise of a std drawn from an annealed range,
+    with probability `perturb_prob` (`anneal_perturb_embedding`,
+    `:105-128`). Draws, in order: a uniform for the std, a normal of the
+    embeddings' shape, a uniform against `perturb_prob`."""
+    if end_std_range is not None:
+        lo = anneal_value(training_percent, 1.0, (begin_std_range[0], end_std_range[0]))
+        hi = anneal_value(training_percent, 1.0, (begin_std_range[1], end_std_range[1]))
+    else:
+        lo, hi = begin_std_range
+    std = lo + (hi - lo) * draws.uniform()
+    noise = draws.normal(embeddings.shape, embeddings.device).to(embeddings.dtype)
+    apply = draws.uniform() < perturb_prob
+    noise_std = std * (embeddings.std(unbiased=False) if std_is_relative else 1.0)
+    out = embeddings + noise * noise_std
+    if keep_norm:
+        out = out * (embeddings.norm() / (out.norm() + 1e-8))
+    return out if apply else embeddings

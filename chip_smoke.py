@@ -24,11 +24,17 @@ Phases (any failure raises and the exit code is not 0):
      warps); `bn_stats` at mean 100 and deviation 1 (its mean bounded, its
      rstd reported against fp64); both captured in one CUDA graph and
      replayed twice to the same bits; an empty kernel's launch as the floor
-     of the small shapes; print errors, median times (single launches, and for GroupNorm, LayerNorm and
-     BatchNorm also 20 launches as a CUDA graph: the device alone), each
-     kernel's bound (the larger of bytes / 3.35 TB/s and operations / 989
-     TFLOP/s) and the stock PyTorch op's time (a yardstick only: the port
-     never calls it);
+     of the small shapes; the flash backward's three kernels against
+     `flash_bwd_chunked` (dq, dk, dv) at every attention shape of the
+     student UNet at batch 16, a masked and a causal case, and the GroupNorm
+     backward's against the closed-form VJP (dx, dγ, dβ) at every UNet
+     GroupNorm shape at batch 16, each twice to the same bits; the flash
+     forward at the teacher's 16-token cross-attention; print errors,
+     median times (single launches, and for GroupNorm, LayerNorm, BatchNorm
+     and the backward kernels also 20 launches as a CUDA graph: the device
+     alone), each kernel's bound (the larger of bytes / 3.35 TB/s and
+     operations / 989 TFLOP/s) and the stock PyTorch op's time (a yardstick
+     only: the port never calls it);
   4. one full-width SD1.5 UNet call at CFG batch 2, kernels against plain;
      then the same call in the fused-LN configuration (`fused_ln=True`),
      kernels against plain, with its 48 LayerNorm launches;
@@ -47,8 +53,7 @@ Phases (any failure raises and the exit code is not 0):
      versions; one img2img request (a 512x512 uint8 image, strength 0.8: 20
      of 25 steps) with the VAE encoder's launch counts and its moments,
      kernels against plain; one DPM-Solver++ request at 512x512, PNDM and LCM
-     at 256x256, each against the DDIM image of the same latents; the
-     forward-only kernels' refusal of inputs that require grad; then the
+     at 256x256, each against the DDIM image of the same latents; then the
      joint encoder (`serve_joint`: Arc2Face + ConsistentID, 20 ada tokens;
      CLIP-H/14 vision, ProjPlus, three CLIP-L towers, all fp32 at full
      width) behind RetinaFace + ArcFace on the card, over the same SD1.5
@@ -68,7 +73,21 @@ Phases (any failure raises and the exit code is not 0):
      steps of the port's train step and optimizer with the BN launch counts
      (one `bn_stats` and one `bn_norm_act` launch a BN, the BNs counted by
      shape against BN_CASES), steps/sec and the memory peak; then one eval-mode
-     forward at 512x512 to a face mask.
+     forward at 512x512 to a face mask;
+  8. Stage-1 UNet distillation at full SD1.5 width through
+     `train_torch.build_trainer` and `Trainer.fit` with
+     `configs/stage1-distill-arc2face.yaml` (SD1.5 UNet and VAE encoder in
+     bf16, CLIP-L text and the Arc2Face encoder in fp32, prodigy, batch 4,
+     accumulation 2, the teacher's 2-4 step chain, batches prepared in a
+     second thread) on synthetic 512x512 PNGs: one student step's
+     SubjBasisGenerator gradients kernels against plain, 6 micro-steps (3
+     updates, every teacher bucket) with finite losses, the accumulation in
+     the parameters, the backward launches as the autograd graphs hold them,
+     the fit's checkpoint reloaded; a micro-step's time split, the device's
+     busy share and the peak memory.
+Before phase 4, `flash_attention` and `group_norm_silu` are held to record
+their autograd Functions on inputs that require grad, with the backward
+kernels' launches and gradients (`check_autograd_functions`).
 Each path runs with the launch counts set to 0 just before it and checked
 just after. The line before the last holds the per-kernel JSON record; the
 last line is {"ok": true, "device": {...}}.
@@ -78,10 +97,13 @@ The script imports only torch, numpy and the port (`adaface_tpu_torch`).
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import json
 import math
+import os
+import pathlib
 import re
 import statistics
 import subprocess
@@ -122,6 +144,11 @@ FLASH_EXTRA_CASES = [
     ("contiguous 32x32 self", 2, 8, 1024, 1024, 80),
     ("misaligned D36 self", 2, 8, 1024, 1024, 36),
 ]
+# the teacher's cross-attention over the 16 Arc2Face image-prompt tokens
+# (forward only, batch 4): a key count no serving path sends
+FLASH_TEACHER_CASES = [(f"unet {hw} cross Sk16 teacher", 4, 8, s, 16, d)
+                       for hw, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80),
+                                        ("16x16", 256, 160))]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 RUN_LAUNCHES = 20  # launches between one pair of events, for launch-bound shapes
@@ -247,6 +274,8 @@ JSON_GN = "unet resnet 64x64 320"  # the one-launch kernel
 JSON_GN_SPLIT = "vae resnet 512x512 128"  # the split pair
 JSON_BN = "stem 224x224"
 JSON_LN = "unet 64x64"
+JSON_FLASH_BWD = "unet 64x64 self batch 16"
+JSON_GN_BWD = "resnet 64x64 320 batch 16"
 
 
 def log(*a):
@@ -373,7 +402,8 @@ def check_flash(gen) -> dict:
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
-    for label, b, h, sq, sk, d in FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES:
+    for label, b, h, sq, sk, d in (FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES
+                                   + FLASH_TEACHER_CASES):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -1032,8 +1062,10 @@ def check_kernels():
         flash["combine"] = check_flash_combine(gen)
         gn, bn, ln = check_gn(gen), check_bn(gen), check_ln(gen)
         check_graph_capture(gen)
+    # the library's backward, the yardstick of these two, needs grad mode
+    flash_bwd, gn_bwd = check_flash_bwd(gen), check_gn_bwd(gen)
     check_bn_backward(gen)
-    return flash, gn, bn, ln
+    return flash, gn, bn, ln, flash_bwd, gn_bwd
 
 
 @contextmanager
@@ -1273,42 +1305,75 @@ def device_operations(fn, pattern: str = "") -> tuple[int, float]:
     return len(found), sum(found) / 1e3
 
 
-def expect_raises(fn, what: str) -> None:
-    try:
-        fn()
-    except RuntimeError as e:
-        if "forward only" in str(e):
-            return
-        raise
-    raise AssertionError(f"{what}: no error on an input that requires grad")
-
-
-def check_forward_only() -> None:
-    """`flash_attention` and `group_norm_silu` refuse, under grad mode, a
-    CUDA input that requires grad (their outputs would leave the autograd
-    graph silently), and launch under `torch.no_grad()`."""
+def check_autograd_functions() -> None:
+    """On CUDA bf16 tensors that require grad, `flash_attention` and
+    `group_norm_silu` record their Functions, whose backward launches the
+    backward kernels (no dq where q needs none) and gives finite gradients
+    equal to the backward kernels' called directly; an fp32 flash input that
+    requires grad raises at the forward, naming the missing fp32 backward;
+    under `torch.no_grad()` both launch only their forward kernels."""
     from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import attention as A
     from adaface_tpu_torch.ops import fused_gn as G
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    q, k, v = (t.clone().requires_grad_(i == 1) for i, t in enumerate(
-        flash_inputs(gen, "self", 1, 8, 256, 256, 40)))
-    x, scale, bias = gn_inputs(gen, (2, 320, 8, 8))
-    scale = scale.requires_grad_(True)
+    q0, k0, v0 = flash_inputs(gen, "self", 1, 8, 256, 256, 40)
+    x0, scale, bias = gn_inputs(gen, (2, 320, 8, 8))
     with torch.enable_grad():
-        expect_raises(lambda: A.flash_attention(q, k, v), "flash_attention")
-        expect_raises(lambda: A.multi_head_attention(q, k, v), "multi_head_attention")
-        expect_raises(lambda: G.group_norm_silu(x, scale, bias, 32, 1e-5), "group_norm_silu")
+        for q_grad in (True, False):
+            q, k, v = q0.detach().requires_grad_(q_grad), k0.detach().requires_grad_(), v0
+            _build.reset_launch_counts()
+            out = A.flash_attention(q, k, v)
+            if type(out.grad_fn).__name__ != "_FlashAttentionBackward":
+                raise AssertionError(f"flash_attention records {out.grad_fn}")
+            g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+            out.backward(g)
+            torch.cuda.synchronize()
+            seen = {n: c for n, c in launch_counts().items() if c}
+            dq, dk, _ = A.flash_bwd(q0, k0, v0, None, out.detach(), g, False,
+                                    1.0 / math.sqrt(40))
+            want = {A.FLASH_T: 1, A.FLASH_BWD_PREP: 1, A.FLASH_BWD_DKDV: 1}
+            if q_grad:
+                want[A.FLASH_BWD_DQ] = 1
+            if (seen != want or not torch.equal(k.grad, dk)
+                    or (q.grad is not None) != q_grad
+                    or (q_grad and not torch.equal(q.grad, dq))):
+                raise AssertionError(f"flash backward: launches {seen}, want {want}")
+        x = x0.detach().requires_grad_()
+        _build.reset_launch_counts()
+        y = G.group_norm_silu(x, scale, bias, 32, 1e-5)
+        if type(y.grad_fn).__name__ != "_GroupNormSiLUBackward":
+            raise AssertionError(f"group_norm_silu records {y.grad_fn}")
+        g = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+        y.backward(g)
+        torch.cuda.synchronize()
+        seen = {n: c for n, c in launch_counts().items() if c}
+        dx = G.gn_silu_bwd(x0, scale, bias, g, 32, 1e-5, True)[0]
+        plan = G.plan_for(x0, 32)
+        fwd = {G.GN_FUSED: 1} if plan.kernel == "fused" else {G.GN_STATS: 1, G.GN_NORM: 1}
+        want = dict(fwd, **{G.GN_STATS: fwd.get(G.GN_STATS, 0) + 1, G.GN_BWD_REDUCE: 1,
+                            G.GN_BWD_DX: 1})
+        if seen != want or not torch.equal(x.grad, dx) or not torch.isfinite(dx).all():
+            raise AssertionError(f"group norm backward: launches {seen}, want {want}")
+        q32 = q0.float().requires_grad_()
+        try:
+            A.flash_attention(q32, q32, q32)
+        except RuntimeError as e:
+            if "fp32 flash backward" not in str(e):
+                raise
+        else:
+            raise AssertionError("flash_attention: no error on an fp32 input that requires grad")
     _build.reset_launch_counts()
     with torch.no_grad():
-        A.flash_attention(q, k, v)
-        G.group_norm_silu(x, scale, bias, 32, 1e-5)
+        A.flash_attention(q0.detach().requires_grad_(), k0, v0)
+        G.group_norm_silu(x0.detach().requires_grad_(), scale, bias, 32, 1e-5)
     torch.cuda.synchronize()
-    if sum(launch_counts().values()) != 2:
-        raise AssertionError(f"forward only: launches under no_grad {launch_counts()}")
-    log("forward only: flash_attention and group_norm_silu raise on inputs that require grad "
-        "under grad mode, and launch under torch.no_grad()")
+    if sum(launch_counts().values()) != 1 + sum(fwd.values()):
+        raise AssertionError(f"no_grad: launches {launch_counts()}")
+    log("autograd: flash_attention and group_norm_silu record their Functions on inputs that "
+        "require grad; backward launches as expected (no dq without q's grad), gradients equal "
+        "to the backward kernels'; fp32 flash refused at the forward; forward only under "
+        "no_grad")
 
 
 REQUESTS = [  # (subject, prompt)
@@ -1945,11 +2010,484 @@ def serve_joint(wrapper, faces, gen) -> dict:
                 arc_ms=arc_ms, vit_ms=vit_ms)
 
 
+# ---------------------------------------------------------------------------
+# The Stage-1 training slice: the backward kernels, then the trainer
+# ---------------------------------------------------------------------------
+
+# (label, B, H, Sq, Sk, D): every attention of the student UNet whose
+# backward the training path runs, at the largest teacher bucket (batch 4 x
+# 4 steps = UNet batch 16)
+FLASH_BWD_CASES = [(f"{label} batch 16", 16, *dims) for label, _, *dims in FLASH_CASES[:-1]]
+# off the path: a key mask (batch 1 all masked) and the causal rule at
+# ragged lengths (Sq 200, Sk 177: rows 0..22 see only masked keys)
+FLASH_BWD_MASKED = [("masked Sq200 Sk177 D40", 40, False),
+                    ("masked causal Sq200 Sk177 D80", 80, True),
+                    ("causal Sq200 Sk177 D160", 160, True)]
+
+
+def timed(kernel, plain, library) -> dict:
+    """Single-launch medians in turns (kernel, plain, library, library,
+    plain, kernel), and the kernel's 20 calls as a CUDA graph."""
+    fns = [kernel, plain, library, library, plain, kernel]
+    turns = [median_ms(f, reps=5) if f is not None else None for f in fns]
+    pick = lambda i: None if turns[i] is None else min(turns[i], turns[5 - i])  # noqa: E731
+    return dict(ms=pick(0), plain_ms=pick(1), library_ms=pick(2), graph_ms=graph_ms(kernel))
+
+
+def flash_library_backward(q, k, v, g):
+    """The autograd backward of `F.scaled_dot_product_attention` on its flash
+    backend, for the same q, k, v and g: a yardstick, never called by the
+    port. None where the backend refuses the shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            o = F.scaled_dot_product_attention(qq, kk, vv)
+    except RuntimeError as e:
+        log(f"library flash backward refused: {e}")
+        return None
+    return lambda: torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True)
+
+
+def check_flash_bwd(gen) -> dict:
+    """The three backward kernels against `flash_bwd_chunked` (dq, dk, dv)
+    at every path shape, plus masked and causal cases; two runs to the same
+    bits; times of the whole backward and of each kernel."""
+    from adaface_tpu_torch.ops import attention as A
+
+    results = {}
+    for label, b, h, sq, sk, d in FLASH_BWD_CASES:
+        q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
+        scale = 1.0 / math.sqrt(d)
+        out = A._flash_cuda(q, k, v, None, False, scale)
+        # the gradient of out as the path gives it: [B, S, H·D] memory
+        g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
+        g = g.reshape(b, sq, h, d).transpose(1, 2)
+        got = A.flash_bwd(q, k, v, None, out, g, False, scale)
+        again = A.flash_bwd(q, k, v, None, out, g, False, scale)
+        ref = A.flash_bwd_chunked(q, k, v, None, out, g, False, scale)
+        torch.cuda.synchronize()
+        errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del ref, again
+        torch.cuda.empty_cache()
+        kernel = lambda: A.flash_bwd(q, k, v, None, out, g, False, scale)  # noqa: E731
+        t = timed(kernel, lambda: A.flash_bwd_chunked(q, k, v, None, out, g, False, scale),
+                  flash_library_backward(q, k, v, g))
+        prep = graph_ms(lambda: A.flash_bwd(q, k, v, None, out, g, False, scale, False, False))
+        no_dq = graph_ms(lambda: A.flash_bwd(q, k, v, None, out, g, False, scale, False, True))
+        # q, out, g read and dq written; k, v read and dk, dv written; five
+        # products of [Sq, Sk] by D: S = QKᵀ, dP = G Vᵀ, dV = Pᵀ G, dK = dSᵀ Q, dQ = dS K
+        bound_ms, bound_by = bound(2 * (4 * q.numel() + 4 * k.numel()),
+                                   5 * 2.0 * b * h * sq * sk * d)
+        # each kernel's own work: prep one product (reads q, k, out, g), dkdv
+        # four (reads q, k, v, g, writes dk, dv), dq three (reads q, k, v, g,
+        # writes dq)
+        prod, nq, nk = 2.0 * b * h * sq * sk * d, q.numel(), k.numel()
+        kernel_bounds = {"prep": bound(2 * (3 * nq + nk), prod),
+                         "dkdv": bound(2 * (2 * nq + 4 * nk), 4 * prod),
+                         "dq": bound(2 * (3 * nq + 2 * nk), 3 * prod)}
+        res = dict(err=max(e for e, _ in errs.values()), mag=max(m for _, m in errs.values()),
+                   same_bits=same, bound_ms=bound_ms, bound_by=bound_by, prep_graph_ms=prep,
+                   dkdv_graph_ms=no_dq - prep, dq_graph_ms=t["graph_ms"] - no_dq,
+                   kernel_bounds=kernel_bounds, **t)
+        lib = "refused" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"flash bwd {label:24s} B{b} H{h} Sq{sq} Sk{sk} D{d}: max_abs_err "
+            + " ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
+            + f" (bound {BF16_TOL * res['mag']:.3e}) same bits {same} | single: kernels "
+            f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library {lib} | 20 as a CUDA "
+            f"graph (device alone): {t['graph_ms']:.4f} ms (prep {prep:.4f}, dkdv "
+            f"{res['dkdv_graph_ms']:.4f}, dq {res['dq_graph_ms']:.4f}) | least {bound_ms:.4f} "
+            f"ms by {bound_by}, reached {bound_ms / t['graph_ms']:.1%}")
+        if any(e > BF16_TOL * m for e, m in errs.values()) or not same:
+            raise AssertionError(f"flash bwd {label}: {errs}, same bits {same}")
+        results[label] = res
+        del q, k, v, out, g, got, kernel
+        torch.cuda.empty_cache()
+    for label, d, causal in FLASH_BWD_MASKED:
+        q, k, v = flash_inputs(gen, "self", 2, 2, 200, 177, d)
+        mask = torch.ones((2, 177), device="cuda")
+        mask[1] = 0.0
+        mask[0, 150:] = 0.0
+        if causal:
+            mask[1, :16] = 1.0
+        scale = 1.0 / math.sqrt(d)
+        out = A._flash_cuda(q, k, v, mask, causal, scale)
+        g = torch.randn(out.shape, generator=gen, device="cuda").to(q.dtype)
+        got = A.flash_bwd(q, k, v, mask, out, g, causal, scale)
+        ref = A.flash_bwd_chunked(q, k, v, mask, out, g, causal, scale)
+        errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
+        log(f"flash bwd {label}: max_abs_err "
+            + " ".join(f"{n} {e:.3e} (bound {BF16_TOL * m:.3e})" for n, (e, m) in errs.items()))
+        if any(e > BF16_TOL * m for e, m in errs.values()):
+            raise AssertionError(f"flash bwd {label}: {errs}")
+        results[label] = dict(err=max(e for e, _ in errs.values()))
+    return results
+
+
+def check_gn_bwd(gen) -> dict:
+    """The GroupNorm backward (`gn_stats`, `gn_bwd_reduce`, `gn_bwd_dx`)
+    against the closed-form plain VJP (dx, dγ, dβ) at every UNet GroupNorm
+    shape at batch 16, and fp32; two runs to the same bits."""
+    from adaface_tpu_torch.ops import fused_gn as G
+
+    results = {}
+    cases = [(f"{label} batch 16", (16, c, hw, hw), eps, silu, torch.bfloat16)
+             for label, c, hw, eps, silu, _ in UNET_GN]
+    cases.append(("resnet 64x64 320 fp32", (2, 320, 64, 64), 1e-5, True, torch.float32))
+    for label, shape, eps, silu, dtype in cases:
+        x, scale, bias = gn_inputs(gen, shape, dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = g.contiguous(memory_format=torch.channels_last)
+        got = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
+        again = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
+        ref = G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu)
+        torch.cuda.synchronize()
+        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+        errs = {n: max_err(a, r) for n, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)}
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        xx, ss, bb = (t.detach().requires_grad_() for t in (x, scale, bias))
+        act = F.silu if silu else (lambda t: t)
+        y = act(F.group_norm(xx, 32, ss, bb, eps))
+        t = timed(lambda: G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu),
+                  lambda: G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu),
+                  lambda: torch.autograd.grad(y, (xx, ss, bb), g, retain_graph=True))
+        x_bytes = x.numel() * x.element_size()
+        # the function reads x and g and writes dx (γ, β, dγ, dβ are C long)
+        bound_ms, bound_by = bound(3 * x_bytes + 4 * shape[1] * x.element_size())
+        plan = G.plan_for(x, 32, "split")
+        # each kernel alone, as the device runs it
+        part = G.gn_stats(x, 32, plan)
+        sums = G.gn_bwd_reduce(x, g, part, scale, bias, 32, eps, silu, plan)
+        stats_ms = graph_ms(lambda: G.gn_stats(x, 32, plan))
+        reduce_ms = graph_ms(lambda: G.gn_bwd_reduce(x, g, part, scale, bias, 32, eps, silu,
+                                                     plan))
+        dx_ms = graph_ms(lambda: G.gn_bwd_dx(x, g, part, sums, scale, bias, 32, eps, silu, plan))
+        reduce_bound = bound(2 * x_bytes)
+        log(f"gn bwd {label:32s} {shape} {dtype} silu {silu} slab {plan.slab} chunks "
+            f"{plan.chunks}: max_abs_err "
+            + " ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
+            + f" (bound {tol * max(m for _, m in errs.values()):.3e}) same bits {same} | single: "
+            f"kernels {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms F.group_norm"
+            f"{'+silu' if silu else ''} backward {t['library_ms']:.4f} ms | 20 as a CUDA graph: "
+            f"{t['graph_ms']:.4f} ms (gn_stats {stats_ms:.4f}, gn_bwd_reduce {reduce_ms:.4f}, "
+            f"gn_bwd_dx {dx_ms:.4f}) | least {bound_ms:.4f} ms by {bound_by} (reduce "
+            f"{reduce_bound[0]:.4f}), reached {bound_ms / t['graph_ms']:.1%}")
+        if any(e > tol * m for e, m in errs.values()) or not same:
+            raise AssertionError(f"gn bwd {label}: {errs}, same bits {same}")
+        results[label] = dict(err=max(e for e, _ in errs.values()), same_bits=same,
+                              bound_ms=bound_ms, bound_by=bound_by, stats_graph_ms=stats_ms,
+                              reduce_graph_ms=reduce_ms, dx_graph_ms=dx_ms,
+                              reduce_bound_ms=reduce_bound[0], **t)
+        del x, g, got, again, ref, xx, y
+        torch.cuda.empty_cache()
+    return results
+
+
+TRAIN_CONFIG = "configs/stage1-distill-arc2face.yaml"
+# micro-steps of the training phase: 3 optimizer updates at the config's
+# accumulation of 2, the planner's teacher buckets 2, 3, 4 twice (seed 0)
+TRAIN_MICRO_STEPS = 6
+TRAIN_SUBJECTS = 2  # of TRAIN_PHOTOS synthetic 512x512 PNGs each
+TRAIN_PHOTOS = 2
+# SubjBasisGenerator gradients of one student step, kernels against the
+# plain versions (bf16 UNet), relative L2 over all of them: the prediction
+# written in PERF.md before the first run is 2e-2; the UNet call's 5e-2 is
+# the ceiling held here
+TRAIN_GRAD_REL_L2 = 5e-2
+
+
+def write_train_photos(root: str, size: int = 512) -> str:
+    """A PersonalizedBase folder: TRAIN_SUBJECTS subjects of TRAIN_PHOTOS
+    random RGB PNGs, written with the port's PNG writer."""
+    import os
+
+    from adaface_tpu_torch.utils.image import write_png
+
+    rs = np.random.RandomState(SEED + 7)
+    for s in range(TRAIN_SUBJECTS):
+        d = os.path.join(root, f"subject{s}")
+        os.makedirs(d)
+        for i in range(TRAIN_PHOTOS):
+            write_png(os.path.join(d, f"{i}.png"),
+                      rs.randint(0, 256, (size, size, 3)).astype(np.uint8))
+    return root
+
+
+def backward_census(loss, want: collections.Counter) -> None:
+    """Add to `want` the backward launches the autograd graph of `loss`
+    holds: per flash node `flash_bwd_prep`, `flash_bwd_dkdv` where k or v
+    needs a gradient and `flash_bwd_dq` where q does; per GroupNorm node one
+    `gn_bwd_reduce` and one `gn_bwd_dx`."""
+    from adaface_tpu_torch.ops.attention import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+
+    seen, stack = set(), [loss.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        name = type(node).__name__
+        if name == "_FlashAttentionBackward":
+            nq, nk, nv = node.needs_input_grad[:3]
+            want[FLASH_BWD_PREP] += 1
+            want[FLASH_BWD_DKDV] += int(nk or nv)
+            want[FLASH_BWD_DQ] += int(nq)
+        elif name == "_GroupNormSiLUBackward":
+            want[GN_BWD_REDUCE] += 1
+            want[GN_BWD_DX] += 1
+        stack.extend(f for f, _ in node.next_functions)
+
+
+def sbg_snapshot(trainer) -> list:
+    return [p.detach().clone() for p in trainer.state.optimizer.params]
+
+
+def sbg_grads(trainer, batch) -> tuple[list, float]:
+    """(the SubjBasisGenerator's gradients, the loss) of one student step on
+    `batch`, without the optimizer."""
+    from adaface_tpu_torch.train.train_step import unet_distill_loss_fn
+
+    params = trainer.state.optimizer.params
+    for p in params:
+        p.grad = None
+    loss, _ = unet_distill_loss_fn(trainer.state.params, trainer.frozen, batch, trainer.schedule,
+                                   trainer.tcfg)
+    loss.backward()
+    out = [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p) for p in params]
+    for p in params:
+        p.grad = None
+    return out, loss.item()
+
+
+def sync_ms(fn):
+    """(fn's result, its ms on the host clock with the device synchronized
+    before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class TimedTeacher:
+    """A teacher whose calls are timed on the host clock, the device
+    synchronized before and after."""
+
+    def __init__(self, teacher):
+        self.teacher, self.ms = teacher, []
+
+    def __getattr__(self, name):
+        return getattr(self.teacher, name)
+
+    def __call__(self, *a, **kw):
+        out, ms = sync_ms(lambda: self.teacher(*a, **kw))
+        self.ms.append(ms)
+        return out
+
+
+def train_step_split(trainer, dataset, step: int) -> dict:
+    """One micro-step's time on the host clock, split into host prep (the
+    batch without the teacher: collate, VAE encode, face ID → image
+    prompts, prompts), the teacher, the student's forward and backward, and
+    the optimizer, each with the device synchronized around it."""
+    from adaface_tpu_torch.train.train_step import trainable_parameters, unet_distill_loss_fn
+
+    flags = trainer.planner.plan(step)
+    teacher = trainer.teacher
+    examples = [dataset[i] for i in range(trainer.cfg.batch_size)]
+    trainer.teacher = timed = TimedTeacher(teacher)
+    try:
+        batch, prep_ms = sync_ms(lambda: trainer._prepare_batch(examples, flags,
+                                                                trainer.draws_for(flags)))
+    finally:
+        trainer.teacher = teacher
+    teacher_ms = timed.ms
+    params = trainable_parameters(trainer.state.params)
+
+    def student():
+        for p in params:
+            p.grad = None
+        loss, _ = unet_distill_loss_fn(trainer.state.params, trainer.frozen, batch,
+                                       trainer.schedule, trainer.tcfg)
+        loss.backward()
+        return loss
+
+    _, student_ms = sync_ms(student)
+    update, opt_ms = sync_ms(trainer.state.optimizer.step)
+    return dict(steps=flags.num_denoising_steps, host_prep_ms=prep_ms - teacher_ms[0],
+                teacher_ms=teacher_ms[0], student_ms=student_ms, optimizer_ms=opt_ms,
+                update=update, total_ms=prep_ms + student_ms + opt_ms)
+
+
+def train_stage1(gen) -> dict:
+    """Stage-1 UNet distillation on the card at full SD1.5 width, through
+    `train_torch.build_trainer` and `Trainer.fit` with the configuration of
+    TRAIN_CONFIG (SD1.5 UNet and VAE encoder in bf16, CLIP-L text and the
+    Arc2Face encoder in fp32, the default face backend, prodigy, grad clip
+    0.2, accumulation 2, batch 4, the teacher's buckets of 2-4 steps, batches
+    prepared two ahead in a second thread) on synthetic 512x512 PNGs:
+    TRAIN_MICRO_STEPS micro-steps with finite losses, the SubjBasisGenerator
+    still after odd micro-steps and moved after even ones, the backward
+    kernels' launches as the autograd graphs of the student steps hold
+    them, a checkpoint written by the fit's cadence that reloads equal, one
+    student step's SubjBasisGenerator gradients kernels against plain, the
+    step's time split, the device's busy share and the peak memory."""
+    import tempfile
+
+    import train_torch
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops.attention import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
+    from adaface_tpu_torch.train.train_step import make_train_step, unet_distill_loss_fn
+
+    bwd_keys = (FLASH_BWD_PREP, FLASH_BWD_DKDV, FLASH_BWD_DQ, GN_BWD_REDUCE, GN_BWD_DX)
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            f"trainer.ckpt_every={TRAIN_MICRO_STEPS}", "--base", os.path.join(repo, TRAIN_CONFIG),
+            "--data_roots", data, "--log_dir", os.path.join(tmp, "logs"),
+            "--max_steps", str(TRAIN_MICRO_STEPS)])
+        t0 = time.perf_counter()
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        torch.cuda.synchronize()
+        log(f"train: the stack at full width on the card in {time.perf_counter() - t0:.1f} s; "
+            f"{len(trainer.state.optimizer.params)} trainable tensors, "
+            f"{sum(p.numel() for p in trainer.state.optimizer.params)} parameters; optimizer "
+            f"{trainer.cfg.optimizer}, accumulation {trainer.cfg.accum_steps}, batch "
+            f"{trainer.cfg.batch_size}, prefetch {trainer.cfg.prefetch}")
+
+        # one student step's gradients, kernels against plain, at batch 1 of
+        # the 2-step bucket (the plain attention's fp32 scores of the batch-16
+        # bucket would not fit beside the activations)
+        flags = dataclasses.replace(trainer.planner.plan(0), num_denoising_steps=2)
+        trainer.planner = type(trainer.planner)(**{
+            f.name: getattr(trainer.planner, f.name)
+            for f in dataclasses.fields(trainer.planner)})  # the fit plans from step 0 again
+        one = trainer._prepare_batch([dataset[0]], flags, trainer.draws_for(flags))
+        kernel_grads, kernel_loss = sbg_grads(trainer, one)
+        with plain_versions():
+            plain_grads, plain_loss = sbg_grads(trainer, one)
+        num = sum(((a.float() - b.float()) ** 2).sum() for a, b in zip(kernel_grads, plain_grads))
+        den = sum((b.float() ** 2).sum() for b in plain_grads)
+        grad_rel = (num / den).sqrt().item()
+        finite = all(torch.isfinite(g).all() for g in kernel_grads)
+        log(f"train: one student step at UNet batch 2, kernels against plain: loss "
+            f"{kernel_loss:.6e} / {plain_loss:.6e}, SubjBasisGenerator gradients relative L2 "
+            f"{grad_rel:.3e} (ceiling {TRAIN_GRAD_REL_L2:.0e}), norm {den.sqrt().item():.3e}")
+        if not finite or not math.isfinite(kernel_loss) or grad_rel > TRAIN_GRAD_REL_L2:
+            raise AssertionError(f"train: gradients kernels against plain {grad_rel}, finite "
+                                 f"{finite}")
+        del one, kernel_grads, plain_grads
+
+        # the fit: the backward launches each student graph holds, the
+        # parameters after each micro-step
+        want = collections.Counter()
+
+        def census_loss(*a):
+            loss, metrics = unet_distill_loss_fn(*a)
+            backward_census(loss, want)
+            return loss, metrics
+
+        trainer._step_fn = make_train_step(census_loss, trainer.frozen, trainer.schedule,
+                                           trainer.tcfg)
+        post, records = trainer._post_step, []
+        before = [sbg_snapshot(trainer)]
+
+        def watch(step, f, metrics):
+            after = sbg_snapshot(trainer)
+            moved = any(not torch.equal(a, b) for a, b in zip(before[0], after))
+            records.append(dict(step=step, steps=f.num_denoising_steps, moved=moved,
+                                loss=float(metrics["loss"]), t=time.perf_counter()))
+            before[0] = after
+            post(step, f, metrics)
+
+        trainer._post_step = watch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del before[0]
+        for r in records:
+            log(f"train: micro-step {r['step']}: teacher {r['steps']} steps (UNet batch "
+                f"{trainer.cfg.batch_size * r['steps']}), loss {r['loss']:.6e}, "
+                f"SubjBasisGenerator moved {r['moved']}")
+        gaps = [b["t"] - a["t"] for a, b in zip(records, records[1:])]
+        log(f"train: {len(records)} micro-steps in {fit_s:.2f} s (first batch's preparation "
+            f"included); between micro-steps {', '.join(f'{g:.3f}' for g in gaps)} s; peak "
+            f"memory {peak / 2**30:.2f} GiB; launches {dict(sorted(counts.items()))}")
+        fit_want = dict(want)
+        per_step = {k: v / len(records) for k, v in sorted(fit_want.items())}
+        log(f"train: backward launches the student graphs hold {dict(sorted(fit_want.items()))}"
+            f" ({per_step} a student step); seconds per optimizer step "
+            f"{2 * statistics.mean(gaps):.3f} (twice the mean gap between micro-steps)")
+        if len(records) != TRAIN_MICRO_STEPS or not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"train: micro-steps {records}")
+        if [r["moved"] for r in records] != [i % 2 == 1 for i in range(TRAIN_MICRO_STEPS)]:
+            raise AssertionError(f"train: the accumulation of 2 does not show: {records}")
+        if {r["steps"] for r in records} != {2, 3, 4}:
+            raise AssertionError(f"train: teacher buckets {[r['steps'] for r in records]}")
+        if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
+                or not all(want[k] for k in bwd_keys):
+            raise AssertionError(f"train: backward launches {counts}, the graphs hold {want}")
+
+        # the fit's checkpoint reloads equal
+        ck = trainer.latest_ckpt(args.log_dir)
+        state, manifest = load_adaface_ckpt(ck)
+        saved = state["subj_basis_generators"]["joint"]
+        live = {n: p for n, p in trainer.state.params["sbg"].named_parameters() if n in saved}
+        equal = (manifest["step"] == TRAIN_MICRO_STEPS and set(saved) == set(live)
+                 and all(torch.equal(saved[n], live[n].detach().cpu()) for n in saved))
+        trainer.load(ck)
+        equal = equal and all(torch.equal(saved[n], live[n].detach().cpu()) for n in saved)
+        log(f"train: checkpoint {os.path.basename(ck)} ({len(saved)} tensors) reloads equal: "
+            f"{equal}")
+        if not equal:
+            raise AssertionError("train: the checkpoint does not reload equal")
+
+        # where a micro-step's time goes, and the device's busy share
+        splits = [train_step_split(trainer, dataset, TRAIN_MICRO_STEPS + i) for i in range(3)]
+        for sp in splits:
+            log(f"train: micro-step split at {sp['steps']} teacher steps: host prep "
+                f"{sp['host_prep_ms']:.1f} ms, teacher {sp['teacher_ms']:.1f} ms, student "
+                f"forward + backward {sp['student_ms']:.1f} ms, optimizer "
+                f"{sp['optimizer_ms']:.1f} ms ({'an update' if sp['update'] else 'accumulation'}"
+                f"); total {sp['total_ms']:.1f} ms (synchronized, no prefetch)")
+        # one micro-step at the largest bucket, unprofiled and by kind of kernel
+        from torch.profiler import ProfilerActivity, profile
+
+        fl = dataclasses.replace(trainer.planner.plan(TRAIN_MICRO_STEPS + 3),
+                                 num_denoising_steps=4)
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
+                                       trainer.draws_for(fl))
+        step = lambda: trainer._step_fn(trainer.state, batch)  # noqa: E731
+        step()
+        _, wall_ms = sync_ms(step)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync_ms(step)
+        n_ops, busy_ms = profile_report(prof, "train: a micro-step at 4 teacher steps", 12)
+        log(f"train: a micro-step at 4 teacher steps (UNet batch {4 * trainer.cfg.batch_size}), "
+            f"prepared batch: "
+            f"{wall_ms:.1f} ms on the host clock, device busy {busy_ms:.1f} ms in {n_ops} "
+            f"operations under the profiler ({busy_ms / wall_ms:.1%} of the unprofiled wall)")
+    return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
+                grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms)
+
+
 # device operations of a profile by kind, matched on the kernel's name in
 # this order; "layout transpose" is cuDNN's layout change around a convolution
 PROFILE_KINDS = (("layout transpose", r"nchwToNhwc|nhwcToNchw"),
                  ("convolution", r"fprop|conv|wgrad|dgrad"),
-                 ("group norm kernel", r"gn_(stats|norm|fused)"),
+                 ("group norm kernel", r"gn_(stats|norm|fused|bwd)"),
                  ("batch norm kernel", r"\bbn_(stats|partial|finalize|norm_act)_kernel"),
                  ("flash kernel", r"flash_"),
                  ("copy", r"copy|Memcpy"),
@@ -1957,10 +2495,10 @@ PROFILE_KINDS = (("layout transpose", r"nchwToNhwc|nhwcToNchw"),
                  ("matrix product", r"gemm|nvjet|cublas|cutlass"))
 
 
-def profile_report(prof, label: str, top: int) -> None:
+def profile_report(prof, label: str, top: int) -> tuple[int, float]:
     """Print a torch.profiler run's device time in all, by kind of kernel
     (PROFILE_KINDS) and for its `top` kernels by total time. Sums CUDA-kernel
-    events only: the aten-op rows overlap their kernels."""
+    events only: the aten-op rows overlap their kernels. → (operations, ms)."""
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)":
@@ -1977,6 +2515,7 @@ def profile_report(prof, label: str, top: int) -> None:
         + "; ".join(f"{k} {us / 1e3:.3f} ms x{n}" for k, (n, us) in kinds.items()))
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"profile {label}: {us / 1e3:8.3f} ms {n:6d} x  {name[:150]}")
+    return total_n, total / 1e3
 
 
 def profile_request(top: int = 25) -> None:
@@ -2234,8 +2773,8 @@ def train_face_parser(gen) -> dict:
                 peak_gib=peak_gib, loss_rel=loss_rel, grad_rel=glob, grad_rel_env=glob_env)
 
 
-def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict,
-                  paths: dict) -> dict:
+def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn_bwd: dict,
+                  counts: dict, paths: dict) -> dict:
     """The per-kernel record. `launches` are those of the path that first ran
     the kernel (the 3 requests of phase 5, the train steps, the fused-LN UNet
     call); `launches_by_path` has the later serving paths' beside them
@@ -2261,9 +2800,18 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict,
     `launch_floor_ms` that of an empty kernel's launch. The `bn_stats` and
     `layer_norm` entries list every path shape under `shapes`, with its
     launches a train step or a fused-LN request, and the sums over them
-    (`per_step`, `per_request`)."""
-    from adaface_tpu_torch.ops.attention import FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE
-    from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS
+    (`per_step`, `per_request`). The backward kernels' `launches` are those
+    of the Stage-1 fit; each one's `ms` is its own device time (20 launches
+    in a CUDA graph) and `bound_ms` its own work's, at the shape named;
+    `plain_ms` and `library_ms` are those of the whole backward it is a
+    part of (`flash_bwd_chunked` and the autograd backward of
+    `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
+    that of `F.group_norm` + `F.silu`), beside the whole backward's own
+    times and bound (`function_*`), and every path shape under `shapes`."""
+    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP,
+                                                 FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE)
+    from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_REDUCE, GN_FUSED, GN_NORM,
+                                                GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
@@ -2291,7 +2839,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict,
         return entry(name, source, replaces, max(errs), shape, r["ms"], r["plain_ms"],
                      r["stock_ms"], r["bound_ms"], r["bound_by"], shapes=shapes)
 
-    path = {label: d for (label, *_, d) in FLASH_CASES + FLASH_CASES_B16}
+    path = {label: d for (label, *_, d) in FLASH_CASES + FLASH_CASES_B16 + FLASH_TEACHER_CASES}
     short = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d < 128]
     long_ = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d >= 128]
     wide = [label for label in path if flash[label]["variant"] == "wide"]
@@ -2326,6 +2874,36 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict,
         "graph_ms", "stock_graph_ms", "ms", "stock_ms", "host_us", "stock_host_us", "bound_ms",
         "launches", "plan")} for label, r in ln_cases.items()}
     ln_errs = [r["err"] for r in ln.values() if isinstance(r, dict) and "err" in r]
+    fb_path = [case[0] for case in FLASH_BWD_CASES]
+    fb, gb = flash_bwd[JSON_FLASH_BWD], gn_bwd[JSON_GN_BWD]
+    fb_err = max(r["err"] for r in flash_bwd.values())
+    gb_err = max(r["err"] for r in gn_bwd.values())
+
+    def flash_bwd_entry(name, part):
+        shapes = {label: {"ms": flash_bwd[label][f"{part}_graph_ms"],
+                          "bound_ms": flash_bwd[label]["kernel_bounds"][part][0],
+                          "bound_by": flash_bwd[label]["kernel_bounds"][part][1],
+                          "function_graph_ms": flash_bwd[label]["graph_ms"],
+                          "function_bound_ms": flash_bwd[label]["bound_ms"],
+                          "plain_ms": flash_bwd[label]["plain_ms"],
+                          "library_ms": flash_bwd[label]["library_ms"]} for label in fb_path}
+        return entry(name, "flash_attn_bwd.cu", "adaface_tpu/ops/attention.py:384", fb_err,
+                     JSON_FLASH_BWD, fb[f"{part}_graph_ms"], fb["plain_ms"], fb["library_ms"],
+                     *fb["kernel_bounds"][part], function_ms=fb["ms"],
+                     function_graph_ms=fb["graph_ms"], function_bound_ms=fb["bound_ms"],
+                     function_bound_by=fb["bound_by"], shapes=shapes)
+
+    def gn_bwd_entry(name, part, bound_key, bound_by="bytes"):
+        shapes = {label: {"ms": r[f"{part}_graph_ms"], "bound_ms": r[bound_key],
+                          "function_graph_ms": r["graph_ms"], "function_bound_ms": r["bound_ms"],
+                          "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
+                  for label, r in gn_bwd.items()}
+        return entry(name, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:143", gb_err,
+                     JSON_GN_BWD, gb[f"{part}_graph_ms"], gb["plain_ms"], gb["library_ms"],
+                     gb[bound_key], bound_by, function_ms=gb["ms"],
+                     function_graph_ms=gb["graph_ms"], function_bound_ms=gb["bound_ms"],
+                     statistics_graph_ms=gb["stats_graph_ms"], shapes=shapes)
+
     return {"kernels": [
         flash_entry(FLASH_T, "flash_attn_wgmma.cu", "adaface_tpu/ops/attention.py:165",
                     [flash[k]["err"] for k in short] + short_off, JSON_FLASH_T, short),
@@ -2361,6 +2939,11 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, counts: dict,
               l_["stock_ms"], l_["bound_ms"], graph_ms=l_["graph_ms"],
               library_graph_ms=l_["stock_graph_ms"], launch_floor_ms=ln["launch floor"],
               shapes=ln_shapes, per_request=ln["per request"]),
+        flash_bwd_entry(FLASH_BWD_PREP, "prep"),
+        flash_bwd_entry(FLASH_BWD_DKDV, "dkdv"),
+        flash_bwd_entry(FLASH_BWD_DQ, "dq"),
+        gn_bwd_entry(GN_BWD_REDUCE, "reduce", "reduce_bound_ms"),
+        gn_bwd_entry(GN_BWD_DX, "dx", "bound_ms"),
     ]}
 
 
@@ -2368,9 +2951,9 @@ def main() -> int:
     t0 = time.perf_counter()
     card = require_cuda()
     build_kernels()
-    flash, gn, bn, ln = check_kernels()
+    flash, gn, bn, ln, flash_bwd, gn_bwd = check_kernels()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    check_forward_only()
+    check_autograd_functions()
     unet = check_unet(gen)
     wrapper, faces = build_server(gen)
     served = serve(wrapper, faces)
@@ -2382,16 +2965,24 @@ def main() -> int:
     del wrapper
     torch.cuda.empty_cache()
     trained = train_face_parser(gen)
+    torch.cuda.empty_cache()
+    stage1 = train_stage1(gen)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
 
+    from adaface_tpu_torch.ops.attention import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+
     counts = {**served["counts"], **trained["counts"],
-              LAYER_NORM: unet["ln_counts"][LAYER_NORM]}
+              LAYER_NORM: unet["ln_counts"][LAYER_NORM],
+              **{k: stage1["counts"][k] for k in (FLASH_BWD_PREP, FLASH_BWD_DKDV, FLASH_BWD_DQ,
+                                                 GN_BWD_REDUCE, GN_BWD_DX)}}
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
-             "joint": joint["counts"], "joint batcher": joint["batch_counts"]}
-    print(json.dumps(kernel_record(flash, gn, bn, ln, counts, paths)))
+             "joint": joint["counts"], "joint batcher": joint["batch_counts"],
+             "stage-1 fit": stage1["counts"]}
+    print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, counts, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -370,51 +370,182 @@ def test_gn_plan(shape, want):
         assert plan.blocks(b, c) >= 2 * 132  # two waves at batch 1
 
 
-@pytest.mark.parametrize("op", ["flash_attention", "group_norm_silu"])
-def test_forward_only_kernels_refuse_inputs_that_require_grad(op):
-    """The flash and GroupNorm kernels have no backward: under grad mode an
-    input that requires grad raises instead of leaving the graph silently.
-    `_build.forward_only` reads no data, so CPU tensors do; the wrappers' CUDA
-    branches are reached with stand-ins for CUDA tensors."""
-    x, w = torch.randn(2, 8), torch.randn(8, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        _build.forward_only(op, x, None, w)
-    _build.forward_only(op, x, None, w.detach())
-    with torch.no_grad():
-        _build.forward_only(op, x, w)
-    with torch.inference_mode():
-        _build.forward_only(op, x, w)
+def _jax_flash_vjp(q, k, v, mask, g, causal):
+    """(dq, dk, dv) of the JAX package's flash attention (Pallas in
+    interpret mode, its custom VJP `_flash_bwd`)."""
+    fn = lambda q, k, v: jattn.flash_attention(q, k, v, kv_mask=mask, causal=causal,  # noqa: E731
+                                               block_q=16, block_k=16, interpret=True)
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
-    fake = lambda grad: mock.Mock(device=torch.device("cuda", 0), shape=(1, 2, 256, 40),
-                                  requires_grad=grad)
-    launched = mock.Mock(return_value="launched")
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)
+
+
+FLASH_BWD_CASES = [  # sq, sk, d, masked, causal, chunk
+    (64, 64, 16, False, False, 16),
+    (64, 48, 8, False, False, 64),
+    (32, 40, 16, True, False, 8),
+    (48, 48, 8, True, True, 16),  # batch 1 masks keys 0..3: its rows 0..3 see no key
+    (32, 48, 8, False, True, 8),  # causal offset sk - sq
+]
+
+
+@pytest.mark.parametrize("sq,sk,d,masked,causal,chunk", FLASH_BWD_CASES)
+def test_flash_bwd_chunked_matches_jax_vjp(monkeypatch, sq, sk, d, masked, causal, chunk):
+    """`flash_bwd_chunked` against `jax.vjp` of the JAX flash attention,
+    with the query-chunk scan forced to several chunks on both sides."""
+    monkeypatch.setattr(jattn, "_pick_bwd_chunk", lambda b, h, sq, sk: chunk)
+    monkeypatch.setattr(tattn, "_pick_bwd_chunk", lambda b, h, sq, sk: chunk)
+    q, k, v = _qkv(11, 2, 2, sq, sk, d)
+    g = np.random.RandomState(12).randn(2, 2, sq, d).astype(np.float32)
+    mask = None
+    if masked:
+        mask = (np.random.RandomState(13).rand(2, sk) > 0.3).astype(np.float32)
+        mask[1, :4] = 0.0
+    ref = _jax_flash_vjp(q, k, v, mask, g, causal)
+    tq, tk, tv = _t(q), _t(k), _t(v)
+    scale = 1.0 / np.sqrt(d)
+    out = tattn.scaled_dot_product_attention(tq, tk, tv, kv_mask=None if mask is None
+                                             else _t(mask), causal=causal, scale=scale)
+    got = tattn.flash_bwd_chunked(tq, tk, tv, None if mask is None else _t(mask), out, _t(g),
+                                  causal, scale)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel(a.numpy(), r) <= 1e-5, name
+    # only what is asked for
+    dq, dk, dv = tattn.flash_bwd_chunked(tq, tk, tv, None, out, _t(g), causal, scale,
+                                         need_dq=False)
+    assert dq is None and dk is not None and dv is not None
+    dq, dk, dv = tattn.flash_bwd_chunked(tq, tk, tv, None, out, _t(g), causal, scale,
+                                         need_dkdv=False)
+    assert dq is not None and dk is None and dv is None
+
+
+@pytest.mark.parametrize("sq,sk,d,masked,causal,chunk", FLASH_BWD_CASES[::2])
+def test_flash_function_gradients_match_jax_vjp(monkeypatch, sq, sk, d, masked, causal, chunk):
+    """`flash_attention` on CPU tensors that require grad is `_FlashAttention`
+    (plain forward, `flash_bwd_chunked` backward): autograd's gradients
+    against `jax.vjp`; a q without grad gets none."""
+    monkeypatch.setattr(jattn, "_pick_bwd_chunk", lambda b, h, sq, sk: chunk)
+    monkeypatch.setattr(tattn, "_pick_bwd_chunk", lambda b, h, sq, sk: chunk)
+    q, k, v = _qkv(21, 2, 2, sq, sk, d)
+    g = np.random.RandomState(22).randn(2, 2, sq, d).astype(np.float32)
+    mask = (np.random.RandomState(23).rand(2, sk) > 0.3).astype(np.float32) if masked else None
+    ref = _jax_flash_vjp(q, k, v, mask, g, causal)
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    out = tattn.flash_attention(tq, tk, tv, None if mask is None else _t(mask), causal=causal)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    out.backward(_t(g))
+    for name, a, r in zip(("dq", "dk", "dv"), (tq.grad, tk.grad, tv.grad), ref):
+        assert _rel(a.numpy(), r) <= 1e-5, name
+    # the cross-attention of a block whose input needs no grad: no dq
+    tq2, tk2 = _t(q), _t(k).requires_grad_()
+    calls = []
+    real = tattn.flash_bwd_chunked
+    monkeypatch.setattr(tattn, "flash_bwd_chunked",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    tattn.flash_attention(tq2, tk2, _t(v), causal=causal).backward(_t(g))
+    assert calls == [dict(need_dq=False, need_dkdv=True)]
+    assert tq2.grad is None and tk2.grad is not None
+
+
+@pytest.mark.parametrize("fmt", ["contiguous", "channels_last"])
+@pytest.mark.parametrize("hw,c,groups,silu", [
+    ((4, 4), 64, 8, True),
+    ((4, 4), 64, 8, False),
+    ((7, 7), 40, 4, True),  # 49 rows, 10 channels a group
+])
+def test_group_norm_function_matches_jax_vjp(fmt, hw, c, groups, silu):
+    """`group_norm_silu` on CPU tensors that require grad is
+    `_GroupNormSiLU`, whose backward is `gn_silu_bwd_plain`, the closed-form
+    VJP: dx, dγ, dβ against `jax.vjp` of `fused_group_norm_silu`."""
+    x, scale, bias = _gn_inputs(31, hw, c)
+    g = np.random.RandomState(32).randn(*x.shape).astype(np.float32)  # NHWC
+    fn = lambda x, s, b_: jgn.fused_group_norm_silu(x, s, b_, groups, 1e-5,  # noqa: E731
+                                                    apply_silu=silu, use_pallas=False)
+    _, vjp = jax.vjp(fn, *map(jnp.asarray, (x, scale, bias)))
+    ref_dx, ref_ds, ref_db = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    tx = _nchw(x, fmt).detach().requires_grad_()
+    ts, tb = _t(scale).requires_grad_(), _t(bias).requires_grad_()
+    y = tgn.group_norm_silu(tx, ts, tb, groups, 1e-5, apply_silu=silu)
+    assert type(y.grad_fn).__name__ == "_GroupNormSiLUBackward"
+    y.backward(_t(g).permute(0, 3, 1, 2))
+    assert _rel(tx.grad.permute(0, 2, 3, 1).numpy(), ref_dx) <= 1e-5
+    assert _rel(ts.grad.numpy(), ref_ds) <= 1e-5
+    assert _rel(tb.grad.numpy(), ref_db) <= 1e-5
+    # the closed form alone, on the same inputs
+    dx, ds, db = tgn.gn_silu_bwd_plain(tx.detach(), ts.detach(), tb.detach(),
+                                       _t(g).permute(0, 3, 1, 2), groups, 1e-5, silu)
+    assert _rel(dx.permute(0, 2, 3, 1).numpy(), ref_dx) <= 1e-5
+    assert _rel(ds.numpy(), ref_ds) <= 1e-5 and _rel(db.numpy(), ref_db) <= 1e-5
+
+
+def _fake_cuda(shape, dtype, grad):
+    return mock.Mock(device=torch.device("cuda", 0), shape=shape, dtype=dtype,
+                     requires_grad=grad)
+
+
+@pytest.mark.parametrize("op", ["flash_attention", "group_norm_silu"])
+def test_kernel_functions_record_a_grad_fn(op):
+    """Under grad mode an input that requires grad makes the wrapper's
+    Function record a `grad_fn`; without grad mode or grad, the forward
+    records none (stand-ins for CUDA tensors reach the Function's apply
+    where they would on the card)."""
     if op == "flash_attention":
-        call = lambda grad: tattn.flash_attention(fake(False), fake(grad), fake(False))
-        patches = [mock.patch.object(tattn, "_flash_cuda", launched)]
+        q = torch.randn(1, 2, 32, 8)
+        call = lambda grad: tattn.flash_attention(q, q.clone().requires_grad_(grad), q)  # noqa
+        fn, name = "_FlashAttention", "_FlashAttentionBackward"
+        cuda = lambda grad: tattn.flash_attention(  # noqa: E731
+            _fake_cuda((1, 2, 256, 40), torch.bfloat16, False),
+            _fake_cuda((1, 2, 256, 40), torch.bfloat16, grad),
+            _fake_cuda((1, 2, 256, 40), torch.bfloat16, False))
+        module = tattn
     else:
-        call = lambda grad: tgn.group_norm_silu(fake(False), fake(grad), fake(False), 8, 1e-5)
-        patches = [mock.patch.object(tgn, "_check_cuda"), mock.patch.object(tgn, "plan_for"),
-                   mock.patch.object(tgn, "gn_fused", launched),
-                   mock.patch.object(tgn, "gn_norm", launched),
-                   mock.patch.object(tgn, "gn_stats")]
-    for p in patches:
-        p.start()
-    try:
-        with pytest.raises(RuntimeError, match="forward only"):
-            call(True)
-        assert not launched.called
-        assert call(False) == "launched"
+        x = torch.randn(2, 16, 4, 4)
+        call = lambda grad: tgn.group_norm_silu(x, torch.ones(16).requires_grad_(grad),  # noqa
+                                                torch.zeros(16), 4, 1e-5)
+        fn, name = "_GroupNormSiLU", "_GroupNormSiLUBackward"
+        cuda = lambda grad: tgn.group_norm_silu(  # noqa: E731
+            _fake_cuda((2, 320, 8, 8), torch.bfloat16, False),
+            _fake_cuda((320,), torch.bfloat16, grad), _fake_cuda((320,), torch.bfloat16, False),
+            32, 1e-5)
+        module = tgn
+    assert type(call(True).grad_fn).__name__ == name
+    assert call(False).grad_fn is None
+    with torch.no_grad():
+        assert call(True).grad_fn is None
+    apply = mock.Mock(return_value="recorded")
+    forward = "_flash_forward" if op == "flash_attention" else "_gn_forward"
+    with mock.patch.object(getattr(module, fn), "apply", apply), \
+            mock.patch.object(module, forward, mock.Mock(return_value="forward")):
+        assert cuda(True) == "recorded" and cuda(False) == "forward"
         with torch.no_grad():
-            assert call(True) == "launched"
-    finally:
-        for p in patches:
-            p.stop()
-    # on the CPU both stay differentiable plain versions
-    q = torch.randn(1, 2, 256, 8, requires_grad=True)
-    tattn.flash_attention(q, q, q).sum().backward()
-    xg = torch.randn(2, 16, 4, 4, requires_grad=True)
-    tgn.group_norm_silu(xg, torch.ones(16), torch.zeros(16), 4, 1e-5).sum().backward()
-    assert q.grad is not None and xg.grad is not None
+            assert cuda(True) == "forward"
+
+
+def test_flash_backward_refusals():
+    """A CUDA input that requires grad and that no backward kernel takes
+    (fp32, or a head dim off the instances) raises at the forward, naming
+    what is missing; the backward kernels' wrapper takes no CPU tensor (no
+    fallback to the plain version) and neither does the GroupNorm one."""
+    for dtype, d, what in ((torch.float32, 40, "fp32 flash backward"),
+                           (torch.float16, 40, "torch.float16"),
+                           (torch.bfloat16, 200, "head dim 200")):
+        q = _fake_cuda((1, 2, 256, d), dtype, True)
+        with pytest.raises(RuntimeError, match=what):
+            tattn.flash_attention(q, q, q)
+    with torch.no_grad():  # no grad: the forward kernels take fp32
+        with mock.patch.object(tattn, "_flash_cuda", mock.Mock(return_value="fwd")):
+            q = _fake_cuda((1, 2, 256, 40), torch.float32, True)
+            assert tattn.flash_attention(q, q, q) == "fwd"
+    q = torch.randn(1, 2, 16, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        tattn.flash_bwd(q, q, q, None, q, q, False, 0.5)
+    x = torch.randn(2, 16, 4, 4).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        tgn.gn_silu_bwd(x, torch.ones(16), torch.zeros(16), x, 4, 1e-5)
 
 
 def test_gn_plan_forced_fp32_and_what_it_refuses():
