@@ -119,3 +119,43 @@ def sbg_tree(sbg: dict) -> dict:
     if buffers:
         raise ValueError(f"SubjBasisGenerator buffers not ported: {sorted(buffers)}")
     return params
+
+
+_NORMS = (nn.GroupNorm, nn.LayerNorm)
+_FUSED_PARTS = {"qkv": ("q", "k", "v"), "kv": ("k", "v")}
+
+
+def tree_state_dict(module: nn.Module) -> dict[str, np.ndarray]:
+    """The inverse of `state_dict` + `fuse_projections`: a port module's
+    parameters and batch-norm statistics under the flat names and in the
+    layouts of the JAX pytree it mirrors (`adaface_tpu/tools/ckpt_lib.py:
+    flatten_tree` of it), as fp32 numpy arrays: conv weights OIHW → HWIO `w`,
+    dense [out, in] → [in, out] `w`, their biases `b`, a norm's weight
+    `scale` (its bias `bias`), running statistics `mean` / `var`, and a fused
+    `qkv` / `kv` weight split back into `q`, `k`, `v`."""
+    out: dict[str, np.ndarray] = {}
+    for name, mod in module.named_modules():
+        prefix = f"{name}." if name else ""
+        tensors = dict(mod.named_parameters(recurse=False))
+        tensors.update({k: v for k, v in mod.named_buffers(recurse=False)
+                        if k in BN_STATS.values()})
+        for leaf, t in tensors.items():
+            a = t.detach().float().cpu().numpy()
+            if isinstance(mod, nn.Conv2d) and leaf == "weight":
+                out[f"{prefix}w"] = a.transpose(2, 3, 1, 0)
+            elif isinstance(mod, nn.Linear) and leaf == "weight":
+                parts = _FUSED_PARTS.get(name.rpartition(".")[2]) if hasattr(mod, "parts") else None
+                if parts:
+                    head = name.rpartition(".")[0]
+                    for part, w in zip(parts, np.split(a, len(parts), axis=0)):
+                        out[f"{head}.{part}.w"] = w.T
+                else:
+                    out[f"{prefix}w"] = a.T
+            elif isinstance(mod, (nn.Conv2d, nn.Linear)) and leaf == "bias":
+                out[f"{prefix}b"] = a
+            elif leaf == "weight" and (isinstance(mod, _NORMS) or a.ndim == 1):
+                out[f"{prefix}scale"] = a
+            else:
+                inverse = {v: k for k, v in BN_STATS.items()}
+                out[f"{prefix}{inverse.get(leaf, leaf)}"] = a
+    return out

@@ -50,11 +50,18 @@
 // kv_mask <= 0, or one the causal rule (key <= row + Sk - Sq) excludes,
 // takes the logit -1e30; keys past Sk and query rows past Sq take no part.
 //
-// Entry points: flash_bwd_prep(), flash_bwd_dkdv() and flash_bwd_dq(),
-// plain C functions that take device pointers, element strides and the
-// stream; they launch on that stream, allocate nothing and return
-// cudaGetLastError(). Head dims 40, 48 (any D of 33..48), 80 (65..80) and
-// 160 (145..160) have instances; the wrapper refuses others.
+// The VAE's mid-block attention (B 2, H 1, S 4096, D 512, all three
+// gradients) takes flash_bwd_prep's D 512 instance (a 64-row tile is then
+// 64 KB: three fit a block) and, for dk, dv and dq, the wide kernel further
+// down: 16 own rows a block, the head dim over 8 warps.
+//
+// Entry points: flash_bwd_prep(), flash_bwd_dkdv(), flash_bwd_dq(),
+// flash_bwd_dkdv_wide() and flash_bwd_dq_wide(), plain C functions that take
+// device pointers, element strides and the stream; they launch on that
+// stream, allocate nothing and return cudaGetLastError(). Head dims 40, 48
+// (any D of 33..48), 80 (65..80) and 160 (145..160) have instances of the
+// 64-row kernels, 512 (497..512) the prep instance and the wide kernels; the
+// wrapper refuses others.
 
 #include "flash_common.cuh"
 
@@ -85,13 +92,13 @@ __device__ __forceinline__ T* at(const BwdParams& p, T* base, int which, int64_t
   return base + b * p.st[which][0] + hh * p.st[which][1];
 }
 
-// acc[8][4] = A (the warp's 16 rows of `a`) . B^T (the 64 rows of `b`), both
-// [rows][STR] bf16 in shared memory, over KS k-steps of 16 columns.
-template <int KS, int STR>
-__device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const bf16* a, const bf16* b,
-                                             int lane) {
+// acc[2 NP][4] = A (the warp's 16 rows of `a`) . B^T (the 16 NP rows of `b`),
+// both [rows][STR] bf16 in shared memory, over KS k-steps of 16 columns.
+template <int KS, int STR, int NP = 4>
+__device__ __forceinline__ void rows_by_rows(float (&acc)[2 * NP][4], const bf16* a,
+                                             const bf16* b, int lane) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < 2 * NP; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   const bf16* a_lane = a + ((lane & 7) + ((lane >> 3) & 1) * 8) * STR + (lane >> 4) * 8;
   const bf16* b_lane = b + ((lane & 7) + (lane >> 4) * 8) * STR + ((lane >> 3) & 1) * 8;
 #pragma unroll
@@ -99,7 +106,7 @@ __device__ __forceinline__ void rows_by_rows(float (&acc)[8][4], const bf16* a, 
     uint32_t af[4];
     ldmatrix_x4(af, a_lane + s * 16);
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < NP; ++np) {
       uint32_t bfr[4];
       ldmatrix_x4(bfr, b_lane + np * 16 * STR + s * 16);
       mma_bf16_16816(acc[2 * np], af, bfr[0], bfr[1]);
@@ -120,14 +127,14 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&c)
   }
 }
 
-// acc[NT][4] += A (16 x 64, fragments) . B (64 rows of `b` [rows][STR],
-// columns c0 .. c0 + 8 NT - 1).
-template <int NT, int STR>
-__device__ __forceinline__ void frags_by_rows(float (&acc)[NT][4], const uint32_t (&a)[4][4],
+// acc[NT][4] += A (16 x 16 KST, fragments) . B (16 KST rows of `b`
+// [rows][STR], columns c0 .. c0 + 8 NT - 1).
+template <int NT, int STR, int KST = 4>
+__device__ __forceinline__ void frags_by_rows(float (&acc)[NT][4], const uint32_t (&a)[KST][4],
                                               const bf16* b, int c0, int lane) {
   const bf16* b_lane = b + (lane & 15) * STR + c0 + (lane >> 4) * 8;
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
+  for (int s = 0; s < KST; ++s) {
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t bfr[4];
@@ -459,6 +466,193 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdParams 
 }
 
 // ---------------------------------------------------------------------------
+// D 512: dk, dv of 16 keys, or dq of 16 queries, the head dim over 8 warps
+// ---------------------------------------------------------------------------
+//
+// At D 512 a 64-row tile is 64 KB of shared memory and the dk, dv of 64 keys
+// 256 KB of fp32, more than the register file. So a block owns 16 rows (keys
+// for dk, dv; queries for dq) and walks over tiles of 32 rows of the other
+// side, and each of its 8 warps owns 64 columns of the head dim: of its
+// accumulators, and of the two products over D (s and dp), whose partial
+// sums the warps add through shared memory. A tile step:
+//   1. each warp: its partial s and dp [16 x 32] over its 64 columns
+//      (own rows . tile rows^T), into shared memory;
+//   2. barrier; each thread adds the 8 partials of 2 elements, masks, and
+//      writes p and ds = p (dp - delta) as bf16 (as the 64-row kernels round
+//      them);
+//   3. barrier; each warp: dv += p^T g, dk += ds^T q (or dq += ds k) on its
+//      64 columns, 2 k-steps of 16 tile rows.
+// The tiles come in a ring of two stages by cp.async, as above. One writer
+// for every output element: no atomics.
+
+constexpr int kWRows = 16;   // own rows of a block
+constexpr int kWTile = 32;   // rows of a tile the loop walks over
+constexpr int kWWarps = 8;   // one per 64 columns of the head dim
+constexpr int kWThreads = 32 * kWWarps;
+constexpr int kWDP = 512, kWSTR = kWDP + 8;
+constexpr int kWPart = kWTile + 8;  // row stride of the fp32 partials (no bank conflicts)
+constexpr int kWPStr = kWTile + 8;  // row stride of the bf16 p and ds tiles
+
+constexpr size_t wide_smem() {
+  return sizeof(bf16) * (2 * kWRows + 4 * kWTile) * kWSTR       // own rows, two tile stages
+         + sizeof(float) * kWWarps * 2 * kWRows * kWPart        // partial s, dp
+         + sizeof(bf16) * 2 * kWRows * kWPStr                   // p, ds
+         + sizeof(float) * 256;                                 // row statistics, key mask
+}
+
+template <bool DKDV>
+__global__ void __launch_bounds__(kWThreads, 1) flash_bwd_wide_kernel(const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* own = reinterpret_cast<bf16*>(smem_raw);  // [2][16][STR]: k, v (dkdv) or q, g (dq)
+  bf16* stg = own + 2 * kWRows * kWSTR;           // [2 stages][2][32][STR]: q, g or k, v
+  float* part = reinterpret_cast<float*>(stg + 4 * kWTile * kWSTR);  // [8][s, dp][16][kWPart]
+  bf16* pd = reinterpret_cast<bf16*>(part + kWWarps * 2 * kWRows * kWPart);  // [p, ds][16][PStr]
+  // dkdv: [2 stages][m, 1/l, delta][32] of the tile's queries, then [16] own keys' mask;
+  // dq: [m, 1/l, delta][16] of the own queries, then [2 stages][32] tile keys' mask
+  float* rs = reinterpret_cast<float*>(pd + 2 * kWRows * kWPStr);
+  float* kmask = rs + (DKDV ? 6 * kWTile : 3 * kWRows);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int64_t bh = blockIdx.y, b = bh / p.h, hh = bh % p.h;
+  const int own0 = blockIdx.x * kWRows;
+  const int n_own = DKDV ? p.sk : p.sq, n_tile = DKDV ? p.sq : p.sk;
+  const int c0 = warp * 64;
+  const bool vec16 = p.vec16 != 0;
+  const int64_t rbase = bh * p.sq;
+  const int off = p.sk - p.sq;
+  const int o0 = DKDV ? K : Q, o1 = DKDV ? V : G, t0w = DKDV ? Q : K, t1w = DKDV ? G : V;
+  const bf16* own_src0 = at(p, DKDV ? p.k : p.q, o0, b, hh);
+  const bf16* own_src1 = at(p, DKDV ? p.v : p.g, o1, b, hh);
+  const bf16* tile_src0 = at(p, DKDV ? p.q : p.k, t0w, b, hh);
+  const bf16* tile_src1 = at(p, DKDV ? p.g : p.v, t1w, b, hh);
+  const float* mask = p.mask ? p.mask + b * p.sk : nullptr;
+
+  stage_rows<kWDP, kWSTR, kWRows, kWThreads>(own, own_src0 + (int64_t)own0 * p.st[o0][2],
+                                             p.st[o0][2], n_own - own0, p.d, vec16);
+  stage_rows<kWDP, kWSTR, kWRows, kWThreads>(own + kWRows * kWSTR,
+                                             own_src1 + (int64_t)own0 * p.st[o1][2],
+                                             p.st[o1][2], n_own - own0, p.d, vec16);
+  if (threadIdx.x < kWRows) {  // read after the loop's first barrier
+    const int r = own0 + threadIdx.x;
+    if (DKDV) {
+      kmask[threadIdx.x] = (mask != nullptr && r < p.sk) ? mask[r] : 1.f;
+    } else {
+      const bool ok = r < p.sq;
+      rs[threadIdx.x] = ok ? p.m[rbase + r] : 0.f;
+      rs[kWRows + threadIdx.x] = ok ? p.inv_l[rbase + r] : 0.f;
+      rs[2 * kWRows + threadIdx.x] = ok ? p.delta[rbase + r] : 0.f;
+    }
+  }
+  auto load_tile = [&](int i) {
+    const int r0 = i * kWTile;
+    bf16* st = stg + (i & 1) * 2 * kWTile * kWSTR;
+    stage_rows<kWDP, kWSTR, kWTile, kWThreads>(st, tile_src0 + (int64_t)r0 * p.st[t0w][2],
+                                               p.st[t0w][2], n_tile - r0, p.d, vec16);
+    stage_rows<kWDP, kWSTR, kWTile, kWThreads>(st + kWTile * kWSTR,
+                                               tile_src1 + (int64_t)r0 * p.st[t1w][2],
+                                               p.st[t1w][2], n_tile - r0, p.d, vec16);
+    if (threadIdx.x < kWTile) {
+      const int j = r0 + threadIdx.x;
+      if (DKDV) {  // queries past Sq: 1/l = 0, so their p is 0
+        const bool ok = j < p.sq;
+        float* r = rs + (i & 1) * 3 * kWTile + threadIdx.x;
+        r[0] = ok ? p.m[rbase + j] : 0.f;
+        r[kWTile] = ok ? p.inv_l[rbase + j] : 0.f;
+        r[2 * kWTile] = ok ? p.delta[rbase + j] : 0.f;
+      } else {
+        kmask[(i & 1) * kWTile + threadIdx.x] = (mask != nullptr && j < p.sk) ? mask[j] : 1.f;
+      }
+    }
+  };
+  load_tile(0);
+  cp_async_commit();
+
+  float acc0[8][4], acc1[8][4];  // dk, dv (dkdv) or dq (acc0)
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc0[n][e] = acc1[n][e] = 0.f;
+
+  const int ntiles = (n_tile + kWTile - 1) / kWTile;
+  // the element pair this thread reduces: own row rr, tile columns cc, cc + 1
+  const int rr = threadIdx.x >> 4, cc = 2 * (threadIdx.x & 15);
+  float* pw = part + warp * 2 * kWRows * kWPart;
+  for (int i = 0; i < ntiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < ntiles) load_tile(i + 1);
+    cp_async_commit();
+    const bf16* st0 = stg + (i & 1) * 2 * kWTile * kWSTR;
+    const bf16* st1 = st0 + kWTile * kWSTR;
+    const int r0 = i * kWTile;
+    {
+      float sp[4][4], dp[4][4];
+      rows_by_rows<4, kWSTR, 2>(sp, own + c0, st0 + c0, lane);
+      rows_by_rows<4, kWSTR, 2>(dp, own + kWRows * kWSTR + c0, st1 + c0, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int idx = (g + 8 * h2) * kWPart + n * 8 + 2 * t;
+          *reinterpret_cast<float2*>(pw + idx) = make_float2(sp[n][2 * h2], sp[n][2 * h2 + 1]);
+          *reinterpret_cast<float2*>(pw + kWRows * kWPart + idx) =
+              make_float2(dp[n][2 * h2], dp[n][2 * h2 + 1]);
+        }
+    }
+    __syncthreads();
+    {
+      float s2[2] = {0.f, 0.f}, d2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < kWWarps; ++w) {
+        const float* pp = part + w * 2 * kWRows * kWPart + rr * kWPart + cc;
+        const float2 a = *reinterpret_cast<const float2*>(pp);
+        const float2 c = *reinterpret_cast<const float2*>(pp + kWRows * kWPart);
+        s2[0] += a.x;
+        s2[1] += a.y;
+        d2[0] += c.x;
+        d2[1] += c.y;
+      }
+      float pr[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = cc + e;
+        // (key j, query q) of this element, the query's statistics, the key's mask
+        const int j = DKDV ? own0 + rr : r0 + col, q = DKDV ? r0 + col : own0 + rr;
+        const float* st = DKDV ? rs + (i & 1) * 3 * kWTile + col : rs + rr;
+        const int sstr = DKDV ? kWTile : kWRows;
+        const float km = DKDV ? kmask[rr] : kmask[(i & 1) * kWTile + col];
+        pr[e] = 0.f;
+        if (j < p.sk) {
+          float x = s2[e] * p.scale_log2;
+          if (km <= 0.f || (p.causal && j > q + off)) x = kNegInf;
+          pr[e] = fast_exp2(x - st[0]) * st[sstr];
+        }
+        ds[e] = pr[e] * (d2[e] - st[2 * sstr]);
+      }
+      *reinterpret_cast<uint32_t*>(pd + rr * kWPStr + cc) = pack_bf16(pr[0], pr[1]);
+      *reinterpret_cast<uint32_t*>(pd + (kWRows + rr) * kWPStr + cc) = pack_bf16(ds[0], ds[1]);
+    }
+    __syncthreads();
+    const bf16* a_lane = pd + ((lane & 7) + ((lane >> 3) & 1) * 8) * kWPStr + (lane >> 4) * 8;
+    uint32_t da[2][4];
+    ldmatrix_x4(da[0], a_lane + kWRows * kWPStr);
+    ldmatrix_x4(da[1], a_lane + kWRows * kWPStr + 16);
+    frags_by_rows<8, kWSTR, 2>(acc0, da, st0, c0, lane);  // dk += ds^T q, or dq += ds k
+    if (DKDV) {
+      uint32_t pa[2][4];
+      ldmatrix_x4(pa[0], a_lane);
+      ldmatrix_x4(pa[1], a_lane + 16);
+      frags_by_rows<8, kWSTR, 2>(acc1, pa, st1, c0, lane);  // dv += p^T g
+    }
+  }
+  if (DKDV) {
+    store_rows<8>(at(p, p.dk, DK, b, hh), p.st[DK][2], acc0, own0, p.sk, c0, p.d, p.scale, lane);
+    store_rows<8>(at(p, p.dv, DV, b, hh), p.st[DV][2], acc1, own0, p.sk, c0, p.d, 1.f, lane);
+  } else {
+    store_rows<8>(at(p, p.dq, DQ, b, hh), p.st[DQ][2], acc0, own0, p.sq, c0, p.d, p.scale, lane);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -488,10 +682,11 @@ cudaError_t launch(dim3 grid, const BwdParams& p, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// the instance a head dim takes: ceil(D / 16) in {3, 5, 10}, else 0
+// the instance a head dim takes: ceil(D / 16) in {3, 5, 10, 32}, else 0. 32
+// (D 497..512) has a prep instance and the wide dkdv and dq kernels.
 int ksteps(int d) {
   const int ks = (d + 15) / 16;
-  return (ks == 3 || ks == 5 || ks == 10) ? ks : 0;
+  return (ks == 3 || ks == 5 || ks == 10 || ks == 32) ? ks : 0;
 }
 
 bool fill(BwdParams& p, const void* q, const void* k, const void* v, const void* o,
@@ -554,7 +749,8 @@ extern "C" int flash_bwd_prep(FLASH_BWD_ARGS) {
   switch (ksteps(d)) {
     case 3: return (int)launch<flash_bwd_prep_kernel<3>, prep_smem<3>()>(grid, p, s);
     case 5: return (int)launch<flash_bwd_prep_kernel<5>, prep_smem<5>()>(grid, p, s);
-    default: return (int)launch<flash_bwd_prep_kernel<10>, prep_smem<10>()>(grid, p, s);
+    case 10: return (int)launch<flash_bwd_prep_kernel<10>, prep_smem<10>()>(grid, p, s);
+    default: return (int)launch<flash_bwd_prep_kernel<32>, prep_smem<32>()>(grid, p, s);
   }
 }
 
@@ -562,6 +758,7 @@ extern "C" int flash_bwd_dkdv(FLASH_BWD_ARGS) {
   FLASH_BWD_FILL;
   const int tiles = (sk + kRows - 1) / kRows;
   switch (ksteps(d)) {
+    case 32: return (int)cudaErrorInvalidValue;  // flash_bwd_dkdv_wide
     case 3: return (int)launch<flash_bwd_dkdv_kernel<3, 6>, dkdv_smem<3>()>(dim3(tiles, b * h), p, s);
     case 5:
       return (int)launch<flash_bwd_dkdv_kernel<5, 10>, dkdv_smem<5>()>(dim3(tiles, b * h), p, s);
@@ -575,8 +772,33 @@ extern "C" int flash_bwd_dq(FLASH_BWD_ARGS) {
   FLASH_BWD_FILL;
   const dim3 grid((sq + kRows - 1) / kRows, b * h);
   switch (ksteps(d)) {
+    case 32: return (int)cudaErrorInvalidValue;  // flash_bwd_dq_wide
     case 3: return (int)launch<flash_bwd_dq_kernel<3>, dq_smem<3>()>(grid, p, s);
     case 5: return (int)launch<flash_bwd_dq_kernel<5>, dq_smem<5>()>(grid, p, s);
     default: return (int)launch<flash_bwd_dq_kernel<10>, dq_smem<10>()>(grid, p, s);
   }
+}
+
+// D 497..512 (ceil(D / 16) = 32): dk, dv and dq by the wide kernel, after
+// flash_bwd_prep. Same arguments as above.
+extern "C" int flash_bwd_dkdv_wide(FLASH_BWD_ARGS) {
+  FLASH_BWD_FILL;
+  if (ksteps(d) != 32) return (int)cudaErrorInvalidValue;
+  const dim3 grid((sk + kWRows - 1) / kWRows, b * h);
+  static const cudaError_t set = cudaFuncSetAttribute(
+      flash_bwd_wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide_smem());
+  if (set != cudaSuccess) return (int)set;
+  flash_bwd_wide_kernel<true><<<grid, kWThreads, wide_smem(), s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_bwd_dq_wide(FLASH_BWD_ARGS) {
+  FLASH_BWD_FILL;
+  if (ksteps(d) != 32) return (int)cudaErrorInvalidValue;
+  const dim3 grid((sq + kWRows - 1) / kWRows, b * h);
+  static const cudaError_t set = cudaFuncSetAttribute(
+      flash_bwd_wide_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide_smem());
+  if (set != cudaSuccess) return (int)set;
+  flash_bwd_wide_kernel<false><<<grid, kWThreads, wide_smem(), s>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -1,8 +1,14 @@
 """SD1.5 UNet (UNet2DConditionModel), the text→image serving path.
 
-Counterpart of `unet_apply` in `adaface_tpu/models/unet.py` with the
-default `AttnRuntime` and no LoRA, DeepCache, ToMe, int8, motion or capture
-branch. NCHW latents in and out, as the JAX interface (`unet.py:685`).
+Counterpart of `unet_apply` in `adaface_tpu/models/unet.py` with no LoRA,
+DeepCache, ToMe, int8 or motion branch. NCHW latents in and out, as the JAX
+interface (`unet.py:685`). Two options of `unet_apply` that the recon
+iteration uses are ported: `img_mask` [B, 1, H, W] drops the keys outside
+the mask from every self-attention (resized nearest to each level), and
+`capture` (`AttnRuntime.capture`) sends the last up block's three
+cross-attentions through explicit fp32 probabilities and hands them back,
+keyed 22, 23, 24 as the JAX package labels them (only the probabilities,
+`"attn"`: what the recon loss reads).
 
 Inside, activations and convolution weights are kept in channels-last
 memory (logical shapes stay NCHW): cuDNN's bf16 convolutions run in that
@@ -33,6 +39,7 @@ from adaface_tpu_torch.core.params import init_fan_in_, normal_
 from adaface_tpu_torch.ops.attention import multi_head_attention
 from adaface_tpu_torch.ops.fused_gn import GroupNorm
 from adaface_tpu_torch.ops.fused_ln import LayerNorm
+from adaface_tpu_torch.ops.resize import resize_nearest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +61,7 @@ class UNetConfig:
 
 
 SD15_UNET = UNetConfig()
+CAPTURE_LAYER_BASE = 22  # the JAX package's label of the first captured layer
 
 
 def timestep_freqs(dim: int, max_period: float = 10000.0, device=None):
@@ -121,7 +129,10 @@ class Attention(nn.Module):
         self.o = nn.Linear(q_dim, q_dim)
         self.num_heads = num_heads
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, kv_mask=None, capture: list | None = None):
+        """`kv_mask` [B, Sk]: 1 keeps a key. With `capture` (a list) the
+        probabilities are computed explicitly in fp32, as the JAX capture path
+        does, and appended to it in x's dtype."""
         b, n, c = x.shape
         if context is None:
             q, k, v = self.qkv(x).split(c, dim=-1)
@@ -130,7 +141,17 @@ class Attention(nn.Module):
             k, v = self.kv(context).split(c, dim=-1)
         hd = c // self.num_heads
         split = lambda t: t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)
-        out = multi_head_attention(split(q), split(k), split(v), scale=1.0 / math.sqrt(hd))
+        q, k, v = split(q), split(k), split(v)
+        scale = 1.0 / math.sqrt(hd)
+        if capture is not None:
+            logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+            if kv_mask is not None:
+                logits = torch.where(kv_mask[:, None, None, :] > 0, logits, -1e9)
+            probs = torch.softmax(logits, dim=-1)
+            out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(x.dtype)
+            capture.append(probs.to(x.dtype))
+        else:
+            out = multi_head_attention(q, k, v, kv_mask=kv_mask, scale=scale)
         return self.o(out.transpose(1, 2).reshape(b, n, c))
 
 
@@ -146,9 +167,9 @@ class TransformerBlock(nn.Module):
         self.ff = nn.ModuleDict({"proj_in": nn.Linear(dim, dim * 8),  # GEGLU 2·4·dim
                                  "proj_out": nn.Linear(dim * 4, dim)})
 
-    def forward(self, y, context):
-        y = y + self.attn1(self.norm1(y))
-        y = y + self.attn2(self.norm2(y), context)
+    def forward(self, y, context, img_mask=None, capture: list | None = None):
+        y = y + self.attn1(self.norm1(y), kv_mask=img_mask)
+        y = y + self.attn2(self.norm2(y), context, capture=capture)
         val, gate = self.ff["proj_in"](self.norm3(y)).chunk(2, dim=-1)
         return y + self.ff["proj_out"](val * F.gelu(gate, approximate="tanh"))
 
@@ -161,11 +182,15 @@ class Transformer2D(nn.Module):
         self.proj_out = _conv(c, c, k=1)
         self.block = TransformerBlock(c, cross_dim, cfg.num_heads, cfg.fused_ln)
 
-    def forward(self, x, context):
+    def forward(self, x, context, img_mask=None, capture: list | None = None):
+        """img_mask [B, 1, H0, W0] or None: the self-attention's key mask,
+        resized nearest to this map."""
         b, c, h, w = x.shape
+        if img_mask is not None:
+            img_mask = resize_nearest(img_mask.float(), (h, w)).reshape(b, h * w)
         y = self.proj_in(self.norm(x))
         # a channels-last map is the [B, H·W, C] token matrix: views both ways
-        y = self.block(y.permute(0, 2, 3, 1).reshape(b, h * w, c), context)
+        y = self.block(y.permute(0, 2, 3, 1).reshape(b, h * w, c), context, img_mask, capture)
         return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x
 
 
@@ -233,9 +258,12 @@ class UNet2DConditionModel(nn.Module):
         self.time_freqs = timestep_freqs(self.cfg.block_channels[0],
                                          device=self.time_freqs.device)
 
-    def forward(self, x, t, context):
+    def forward(self, x, t, context, img_mask=None, capture: dict | None = None):
         """eps [B, 4, h, w] for latents x [B, 4, h, w], timesteps t [B] and
-        text context [B, S, cross_attn_dim]; computes in context's dtype."""
+        text context [B, S, cross_attn_dim]; computes in context's dtype.
+        img_mask [B, 1, H, W]: the self-attentions' key mask; `capture` (a
+        dict) receives {"attn": {22 + i: [B, heads, N, S] probabilities}} of
+        the last up block's cross-attentions."""
         x = x.to(context.dtype).contiguous(memory_format=torch.channels_last)
         if self.time_freqs.dtype != torch.float32:
             raise ValueError("UNet: time_freqs must stay fp32 (call reset_buffers() after "
@@ -249,19 +277,23 @@ class UNet2DConditionModel(nn.Module):
             for li, res in enumerate(blk.resnets):
                 h = res(h, temb)
                 if len(blk.attentions):
-                    h = blk.attentions[li](h, context)
+                    h = blk.attentions[li](h, context, img_mask)
                 skips.append(h)
             if blk.downsample is not None:
                 h = blk.downsample(h)
                 skips.append(h)
         h = self.mid["resnet1"](h, temb)
-        h = self.mid["attention"](h, context)
+        h = self.mid["attention"](h, context, img_mask)
         h = self.mid["resnet2"](h, temb)
-        for blk in self.up_blocks:
+        for bi, blk in enumerate(self.up_blocks):
+            last = bi == len(self.up_blocks) - 1
             for li, res in enumerate(blk.resnets):
                 h = res(torch.cat([h, skips.pop()], dim=1), temb)
                 if len(blk.attentions):
-                    h = blk.attentions[li](h, context)
+                    probs = [] if capture is not None and last else None
+                    h = blk.attentions[li](h, context, img_mask, probs)
+                    if probs:
+                        capture.setdefault("attn", {})[CAPTURE_LAYER_BASE + li] = probs[0]
             if blk.upsample is not None:
                 h = blk.upsample(F.interpolate(h, scale_factor=2.0, mode="nearest"))
         return self.conv_out(self.conv_norm_out(h, silu=True)).contiguous()

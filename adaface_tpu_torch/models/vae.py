@@ -14,6 +14,13 @@ pixel pairs of which one is foreground and one background; that branch
 builds the [B, HW, HW] probabilities in plain PyTorch (training-time
 encodes), never through the flash kernel.
 
+`vae_decode` runs the decoder on a latent that may require grad (the recon
+loss decodes its predictions with gradient, the weights frozen): in the
+weights' dtype, the image returned in fp32, the decoder's activations
+recomputed in the backward (`torch.utils.checkpoint`), as the JAX package
+remats its loss decodes (`adaface_tpu/train/recon_step.py:384`). With
+gradient the forward runs twice, so its kernels count two launches a decode.
+
 Logical shapes are NCHW; inside, activations and convolution weights are
 kept in channels-last memory, so cuDNN's convolutions run without layout
 transposes, the GN kernels read a map as [B, H·W, C] rows and the
@@ -264,3 +271,16 @@ class VAEDecoder(nn.Module):
         """Scaled latent [B, 4, h, w] → image [B, 3, 8h, 8w] in [-1, 1]."""
         z = (z / scale).contiguous(memory_format=torch.channels_last)
         return self.decoder(self.post_quant_conv(z)).contiguous()
+
+
+def vae_decode(decoder: VAEDecoder, z, scale: float = SD_LATENT_SCALE):
+    """Scaled latent [B, 4, h, w] → image [B, 3, 8h, 8w] in [-1, 1], fp32;
+    computed in the decoder's weights' dtype, recomputed in the backward
+    where z requires grad."""
+    dtype = next(decoder.parameters()).dtype
+    z = z.to(dtype)
+    if torch.is_grad_enabled() and z.requires_grad:
+        from torch.utils.checkpoint import checkpoint as remat
+
+        return remat(decoder, z, scale, use_reentrant=False).float()
+    return decoder(z, scale).float()

@@ -123,7 +123,8 @@ def load_library() -> ctypes.CDLL:
     lib.flash_combine.restype = i32
     # q, k, v, out, g, mask, dq, dk, dv, stats, strides, B, H, Sq, Sk, D, causal, scale, stream
     flash_bwd_args = [p] * 11 + [i32] * 6 + [f32, p]
-    for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq"):
+    for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_wide",
+                 "flash_bwd_dq_wide"):
         getattr(lib, name).argtypes = flash_bwd_args
         getattr(lib, name).restype = i32
     gn_geometry = [i64, i32, i32, i32, i32, i32, i32]  # B, rows, C, G, slab, chunks, threads

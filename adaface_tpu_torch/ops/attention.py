@@ -22,9 +22,11 @@ there.
   grad) `flash_attention` is `_FlashAttention`, the counterpart of the JAX
   package's custom VJP (`_flash_fwd` / `_flash_bwd`, `:365-447`): it saves
   q, k, v, the mask and the output, and its backward is the three kernels
-  of `csrc/flash_attn_bwd.cu` (`flash_bwd`, bf16, D 40/48, 80, 160) on the
-  card, or `flash_bwd_chunked`, the JAX backward's query-chunk scan in plain
-  PyTorch, on the CPU. It computes only the gradients autograd asks for: a
+  of `csrc/flash_attn_bwd.cu` (`flash_bwd`, bf16, D 40/48, 80, 160; at the
+  VAE's D 512 the prep kernel's wide instance and the wide dk/dv and dq
+  kernel, each counted under its own key) on the card, or
+  `flash_bwd_chunked`, the JAX backward's query-chunk scan in plain PyTorch,
+  on the CPU. It computes only the gradients autograd asks for: a
   cross-attention whose query has no grad launches no dq kernel. fp32 on
   the card has no backward kernel: such a call raises at the forward.
 - `flash_attention_tiled` and `combine_partials` repeat the kernels'
@@ -63,11 +65,16 @@ FLASH_STD = "flash_attn_fwd[d>=128|causal]"
 FLASH_WIDE = "flash_attn_fwd[bf16 wide]"
 FLASH_COMBINE = "flash_combine"
 FLASH_FP32 = "flash_attn_fwd[fp32]"
-# the backward's three kernels (`csrc/flash_attn_bwd.cu`)
+# the backward's three kernels (`csrc/flash_attn_bwd.cu`), and at the VAE's
+# head dim 512 its prep instance and the wide dk/dv and dq kernel
 FLASH_BWD_PREP = "flash_bwd_prep"
 FLASH_BWD_DKDV = "flash_bwd_dkdv"
 FLASH_BWD_DQ = "flash_bwd_dq"
-BWD_KSTEPS = (3, 5, 10)  # ceil(D / 16) of the backward kernel's instances
+FLASH_BWD_PREP_WIDE = "flash_bwd_prep[d512]"
+FLASH_BWD_DKDV_WIDE = "flash_bwd_dkdv[d512]"
+FLASH_BWD_DQ_WIDE = "flash_bwd_dq[d512]"
+BWD_KSTEPS = (3, 5, 10, 32)  # ceil(D / 16) of the backward kernels' instances
+BWD_WIDE_KSTEPS = 32  # D 497..512: the wide kernel
 
 LOG2E = 1.4426950408889634
 MAX_DIM = 512
@@ -407,7 +414,7 @@ def _bwd_refusal(q) -> str | None:
                 "flash backward waits in ROADMAP §2)")
     if -(-q.shape[-1] // 16) not in BWD_KSTEPS:
         return (f"no backward kernel for head dim {q.shape[-1]} (instances: ceil(D/16) in "
-                f"{BWD_KSTEPS}, D 40/48, 80, 160)")
+                f"{BWD_KSTEPS}, D 40/48, 80, 160, 512)")
     return None
 
 
@@ -459,14 +466,17 @@ def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
             ptr(dq), ptr(dk), ptr(dv), stats.data_ptr(), strides, b, h, sq, sk, d, int(causal),
             float(scale), torch.cuda.current_stream().cuda_stream)
     lib = _build.load_library()
-    _build.check(lib.flash_bwd_prep(*args), FLASH_BWD_PREP)
-    _build.count(FLASH_BWD_PREP)
+    wide = -(-d // 16) == BWD_WIDE_KSTEPS
+    keys = ((FLASH_BWD_PREP_WIDE, FLASH_BWD_DKDV_WIDE, FLASH_BWD_DQ_WIDE) if wide
+            else (FLASH_BWD_PREP, FLASH_BWD_DKDV, FLASH_BWD_DQ))
+    _build.check(lib.flash_bwd_prep(*args), keys[0])
+    _build.count(keys[0])
     if need_dkdv:
-        _build.check(lib.flash_bwd_dkdv(*args), FLASH_BWD_DKDV)
-        _build.count(FLASH_BWD_DKDV)
+        _build.check((lib.flash_bwd_dkdv_wide if wide else lib.flash_bwd_dkdv)(*args), keys[1])
+        _build.count(keys[1])
     if need_dq:
-        _build.check(lib.flash_bwd_dq(*args), FLASH_BWD_DQ)
-        _build.count(FLASH_BWD_DQ)
+        _build.check((lib.flash_bwd_dq_wide if wide else lib.flash_bwd_dq)(*args), keys[2])
+        _build.count(keys[2])
     return dq, dk, dv
 
 
@@ -487,6 +497,7 @@ class _FlashAttention(torch.autograd.Function):
         out = _flash_forward(q, k, v, kv_mask, causal, scale)
         ctx.save_for_backward(q, k, v, kv_mask, out)
         ctx.causal, ctx.scale = causal, scale
+        ctx.head_dim = q.shape[-1]  # read by launch censuses without unpacking the saved tensors
         return out
 
     @staticmethod

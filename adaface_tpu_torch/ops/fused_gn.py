@@ -426,6 +426,7 @@ class _GroupNormSiLU(torch.autograd.Function):
     def forward(ctx, x, scale, bias, groups: int, eps: float, apply_silu: bool):
         ctx.save_for_backward(x, scale, bias)
         ctx.groups, ctx.eps, ctx.apply_silu = groups, eps, apply_silu
+        ctx.shape = tuple(x.shape)  # read by launch censuses without unpacking the saved tensors
         return _gn_forward(x, scale, bias, groups, eps, apply_silu)
 
     @staticmethod

@@ -1,25 +1,31 @@
-"""The unet-distill training step (stage 1).
+"""The training step, the unet-distill loss and the single-step recon loss.
 
-Counterpart of `adaface_tpu/train/train_step.py` for unet-distill
-iterations (`calc_unet_distill_loss`, `ddpm.py:2984-3184`): the
+Counterpart of `adaface_tpu/train/train_step.py`. The unet-distill
+iteration (`calc_unet_distill_loss`, `ddpm.py:2984-3184`): the
 SubjBasisGenerator(s) map the teacher's image-prompt embeddings to ada
 embeddings, which are spliced into the 4-block prompts (ss ‖ sc ‖ cs ‖ cc)
-and encoded by the frozen CLIP text tower; the frozen student UNet denoises
-the teacher's x_t (one step, or the S steps of the teacher's chain folded
-into the batch) with the subject-single context and is held to the
-teacher's noise predictions, plus the prompt-embedding delta loss.
+and encoded by the frozen CLIP text tower; the student UNet denoises the
+teacher's x_t (one step, or the S steps of the teacher's chain folded into
+the batch) with the subject-single context and is held to the teacher's
+noise predictions, plus the prompt-embedding delta loss. `recon_loss_fn` is
+the single-step recon loss (`calc_normal_recon_loss` without the identity
+losses); the multi-step recon iteration is `recon_step.recon_loss_fn_v2`.
 
 - The trainable state is the SubjBasisGenerator(s): a module, or a list for
   the joint encoder (one per sub-encoder, ada tokens concatenated). Their
   prompt2token_proj token and position tables are frozen, as the JAX
-  package keeps them in the buffers. The UNet and the CLIP text tower are
-  frozen modules in `frozen`; gradients flow through them, not into them.
-- Compute dtype follows the UNet's weights (bf16 on the card: the flash and
-  GroupNorm Functions' backward kernels run there); the SubjBasisGenerator
-  and the CLIP text tower stay fp32.
+  package keeps them in the buffers. With `unfreeze_unet` (full-UNet
+  finetuning, `v1-finetune-unet.yaml`) the UNet joins it as `params["unet"]`
+  and the loss functions take it in place of `frozen["unet"]`. The CLIP
+  text tower stays frozen; gradients flow through it, not into it.
+- Compute dtype: the unet-distill loss and `recon_loss_fn` follow the UNet's
+  weights (bf16 on the card: the flash and GroupNorm Functions' backward
+  kernels run there); the recon iteration computes in its configured dtype,
+  and `unet_runner` casts a trained UNet's fp32 weights to it once per
+  evaluation, differentiably, as the JAX package casts each weight at use.
+  The SubjBasisGenerator and the CLIP text tower stay fp32.
 - `make_train_step` runs the loss, `backward`, the gradient's global norm
-  and the optimizer (`optimizers.MultiSteps`). The recon iteration's loss
-  waits for the recon slice (ROADMAP §1).
+  and the optimizer (`optimizers.MultiSteps`).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import Any, Callable
 import torch
 from torch import nn
 
+from adaface_tpu_torch.core.device import fp32_convolutions
 from adaface_tpu_torch.id2ada.subj_basis_generator import SubjBasisConfig, SubjBasisGenerator
 from adaface_tpu_torch.models.clip import CLIP_L_TEXT, CLIPTextConfig
 from adaface_tpu_torch.models.unet import UNetConfig
@@ -37,8 +44,10 @@ from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.text.embedding_manager import (apply_merge_map,
                                                       distribute_embedding_to_M_tokens,
                                                       splice_ada_embeddings)
-from adaface_tpu_torch.train.losses import calc_prompt_emb_delta_loss
+from adaface_tpu_torch.train.losses import (calc_prompt_emb_delta_loss,
+                                            calc_recon_and_suppress_losses)
 from adaface_tpu_torch.train.optimizers import MultiSteps, global_norm
+from adaface_tpu_torch.utils.tensor import anneal_perturb_embedding, as_draws
 
 Params = dict[str, Any]
 # the prompt2token_proj tables that are buffers, not parameters, in the JAX
@@ -62,7 +71,7 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class State:
-    params: Params  # {"sbg": SubjBasisGenerator or a list of them}
+    params: Params  # {"sbg": SubjBasisGenerator or a list of them, optional "unet"}
     optimizer: MultiSteps
     step: int = 0
 
@@ -72,14 +81,17 @@ def _as_list(x) -> list:
 
 
 def trainable_parameters(params: Params) -> list[nn.Parameter]:
-    """The SubjBasisGenerators' parameters the optimizer moves, in a fixed
-    order; marks them trainable and the frozen tables not."""
+    """The parameters the optimizer moves, in a fixed order: the
+    SubjBasisGenerators' (their frozen tables left out), then the UNet's
+    where it trains; marks them trainable and the frozen tables not."""
     out = []
     for sbg in _as_list(params["sbg"]):
         for name, p in sbg.named_parameters():
             p.requires_grad_(name not in FROZEN_SBG_PARAMS)
             if p.requires_grad:
                 out.append(p)
+    if "unet" in params:
+        out.extend(p.requires_grad_(True) for p in params["unet"].parameters())
     return out
 
 
@@ -149,6 +161,58 @@ def _params_dtype(module: nn.Module) -> torch.dtype:
     return torch.float32
 
 
+def unet_runner(params: Params, frozen: Params, dtype: torch.dtype):
+    """The loss's UNet (`params["unet"]` where it trains, else
+    `frozen["unet"]`) as a callable computing in `dtype`. Where its weights
+    are of another dtype (the fp32 masters of a finetuned UNet), each is
+    cast once for all the calls of this evaluation and the module runs on the
+    casts (`torch.func.functional_call`); the casts are differentiable, so
+    the gradients reach the masters."""
+    unet = params.get("unet", frozen["unet"])
+    if _params_dtype(unet) == dtype:
+        return unet
+    cast = {name: p.to(dtype) for name, p in unet.named_parameters()}
+    return lambda *a, **kw: torch.func.functional_call(unet, cast, a, kw)
+
+
+def recon_loss_fn(params: Params, frozen: Params, batch: Params, schedule: DiffusionSchedule,
+                  cfg: TrainConfig, draws=None):
+    """The single-step recon loss (`recon_loss_fn`, `calc_normal_recon_loss`
+    without the identity losses) → (loss, metrics). batch: x_start, noise
+    [B, 4, h, w], t [B]; img_prompt_embs [B, K, D]; prompt_ids, splice_map,
+    prompt_emb_mask [4B, …]; img_mask, fg_mask [B, 1, h, w]; face_detected
+    [B]. The subject-single context conditions the denoise (the last up
+    block's cross-attention probabilities captured for the mb-suppress loss),
+    the class-single one a no-grad prediction for the background. Draws:
+    the ada embeddings' perturbation (three, when `training_perturb_prob` >
+    0)."""
+    ada = compute_ada_embs(params, batch["img_prompt_embs"], cfg)
+    if cfg.training_perturb_prob > 0:
+        ada = anneal_perturb_embedding(as_draws(draws, ada.device), ada, 0.0,
+                                       tuple(cfg.training_perturb_std_range), None,
+                                       cfg.training_perturb_prob)
+    ctx4 = _encode_prompts_with_ada(frozen, ada, batch, cfg)
+    b = batch["x_start"].shape[0]
+    x_t = schedule.q_sample(batch["x_start"], batch["t"], batch["noise"])
+    subj_mask = (batch["splice_map"][:b] >= 0).float()
+    unet = params.get("unet", frozen["unet"])
+    dt = _params_dtype(unet)
+    cap: dict = {}
+    eps_pred = unet(x_t.to(dt), batch["t"], ctx4[:b].to(dt), img_mask=batch.get("img_mask"),
+                    capture=cap).to(x_t.dtype)
+    with torch.no_grad():
+        eps_cls = unet(x_t.to(dt), batch["t"], ctx4[2 * b:3 * b].to(dt)).to(x_t.dtype)
+    loss_recon, loss_recon_cls, loss_mb = calc_recon_and_suppress_losses(
+        batch["noise"], eps_pred, eps_cls, batch.get("face_detected"), cap.get("attn", {}),
+        subj_mask, batch.get("img_mask"), batch.get("fg_mask"), cfg.recon_bg_pixel_weight)
+    loss_mb = loss_mb.to(eps_pred.device)
+    loss_delta = calc_prompt_emb_delta_loss(ctx4, batch.get("prompt_emb_mask"))
+    loss = (loss_recon + 0.1 * loss_recon_cls + cfg.mb_suppress_weight * loss_mb
+            + cfg.prompt_emb_delta_weight * loss_delta)
+    return loss, {"loss": loss, "loss_recon": loss_recon, "loss_recon_cls": loss_recon_cls,
+                  "loss_mb_suppress": loss_mb, "loss_prompt_emb_delta": loss_delta}
+
+
 def unet_distill_loss_fn(params: Params, frozen: Params, batch: Params,
                          schedule: DiffusionSchedule, cfg: TrainConfig, draws=None):
     """→ (loss, metrics). batch: x_start [B, 4, h, w] and, from the teacher,
@@ -160,7 +224,7 @@ def unet_distill_loss_fn(params: Params, frozen: Params, batch: Params,
                            enable_static_img_suffix_embs=True)
     ctx4 = _encode_prompts_with_ada(frozen, ada, batch, cfg)
     b = batch["x_start"].shape[0]
-    unet = frozen["unet"]
+    unet = params.get("unet", frozen["unet"])
     dt = _params_dtype(unet)
     if "teacher_x_ts" in batch:
         x_ts, ts = batch["teacher_x_ts"], batch["teacher_ts"]
@@ -191,7 +255,10 @@ def make_train_step(loss_fn: Callable, frozen: Params, schedule: DiffusionSchedu
         for p in params:
             p.grad = None
         loss, metrics = loss_fn(state.params, frozen, batch, schedule, cfg, draws)
-        loss.backward()
+        # the backward of the face models' fp32 convolutions (ArcFace in the
+        # recon loss) without TF32, as their forward runs; bf16 ones are unmoved
+        with fp32_convolutions():
+            loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)

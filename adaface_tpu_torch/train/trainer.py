@@ -1,22 +1,29 @@
-"""Training orchestrator for stage-1 unet-distill iterations.
+"""Training orchestrator: unet-distill and recon iterations.
 
 Counterpart of `Trainer` in `adaface_tpu/train/trainer.py` for the
-configurations whose every iteration is unet-distill
-(`comp_distill_iter_gap: 0`, `unet_distill_iter_gap: 1`, e.g.
-`configs/stage1-distill-arc2face.yaml`): the dataset and its sampler, the
-host prep of each batch (VAE encode of the photos, face ID → image-prompt
+configurations without comp-distill iterations (`comp_distill_iter_gap:
+0`): Stage 1 (`configs/stage1-distill-arc2face.yaml`, every iteration
+unet-distill) and full-UNet finetuning (`configs/finetune-unet.yaml`, every
+iteration recon, the UNet trained beside the SubjBasisGenerator). The
+dataset and its sampler (with the `skip_non_faces` resampling), the host
+prep of each batch (VAE encode of the photos, face ID → image-prompt
 embeddings, the perturbed-ID and random-ID draws, the 4-block prompt batch,
-the Dirichlet CLIP-skip weights, the frozen teacher's denoising chain), an
-optional background thread preparing batches ahead of the step, the
-train step with accumulation (`optimizers.MultiSteps`), the NaN trap,
-CSV logging, the profiler hook and checkpoints. Recon and comp-distill
-iterations, the UNet hot-swap and data parallelism wait in ROADMAP §1: a
-configuration whose plan has them raises at construction.
+the Dirichlet CLIP-skip weights, the frozen teacher's denoising chain, and
+for recon the host face detection on the inputs and the attn-LoRA gate), an
+optional background thread preparing batches ahead of the step, one train
+step per iteration shape (recon keyed by pure noise, the adversarial
+branch and the FFN adapter, as the JAX trainer keys its graphs) with
+accumulation (`optimizers.MultiSteps`), the NaN trap, the rolling face
+statistics, CSV logging, the profiler hook and checkpoints (with
+`unet_fp16.safetensors` when the UNet trains). Comp-distill iterations, the
+UNet hot-swap and data parallelism wait in ROADMAP §1: a configuration whose
+plan has comp-distill iterations raises at construction.
 
-Random draws: each step's from a `torch.Generator` seeded with
-(cfg.seed, the step's planner seed), so a step draws the same whatever
-thread prepares it; the dataset, the planner, the CLIP-skip weights and the
-perturbation decision draw from numpy RandomStates as the JAX package does.
+Random draws: each step's from two `torch.Generator`s seeded with
+(cfg.seed, the step's planner seed), one for its batch and one for its loss,
+so a step draws the same whatever thread prepares it. The dataset, the
+planner, the CLIP-skip weights and the perturbation decision draw from numpy
+RandomStates as the JAX package does.
 """
 
 from __future__ import annotations
@@ -35,9 +42,11 @@ from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.ops.resize import resize_nearest
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt, save_adaface_ckpt
+from adaface_tpu_torch.train.face_detect import HostFaceDetector
 from adaface_tpu_torch.train.iteration_plan import IterationPlanner
 from adaface_tpu_torch.train.optimizers import make_optimizer
 from adaface_tpu_torch.train.prompt_batch import build_4block_prompt_batch
+from adaface_tpu_torch.train.recon_step import ReconStepConfig, make_recon_loss_fn
 from adaface_tpu_torch.train.train_step import (State, TrainConfig, init_state, make_train_step,
                                                 trainable_parameters, trainable_state_dicts,
                                                 unet_distill_loss_fn)
@@ -45,8 +54,9 @@ from adaface_tpu_torch.utils.monitor import MetricsLogger, ProfilerHook, Rolling
 from adaface_tpu_torch.utils.tensor import Draws, anneal_perturb_embedding
 
 Params = dict[str, Any]
-NOT_PORTED = ("recon and comp-distill iterations are not ported (ROADMAP §1, item 7): the "
-              "trainer takes comp_distill_iter_gap 0 and unet_distill_iter_gap 1")
+NOT_PORTED = ("comp-distill iterations are not ported (ROADMAP §1, item 7): the trainer takes "
+              "comp_distill_iter_gap 0 (unet-distill and recon iterations)")
+ITER_TYPE_ID = {"recon": 0, "unet_distill": 1, "comp_distill": 2}
 
 
 @dataclasses.dataclass
@@ -81,9 +91,21 @@ class TrainerConfig:
     perturb_face_id_embs_std_range: tuple = (0.3, 0.6)
     unet_distill_steps_range: tuple = (2, 4)  # the teacher's step buckets
     echo_every: int = 50
+    # full-UNet finetuning: the UNet joins the trainable set and checkpoints
+    # export it as fp16 safetensors (`ddpm.py:4041-4062`)
+    unfreeze_unet: bool = False
     # batches prepared ahead by a background thread (VAE, face ID, teacher)
     prefetch: int = 2
+    # the recon iteration's config; on_pure_noise and do_adv_attack are the
+    # planner's per-iteration draws
+    recon_cfg: ReconStepConfig = dataclasses.field(default_factory=ReconStepConfig)
+    p_normal_recon_on_pure_noise: float | None = None  # None: the planner's 0.4
     use_fp_trick: bool = True
+    # resample instances whose input image has no detectable face
+    # (`personalized.py:653`)
+    skip_non_faces: bool = False
+    p_do_adv_attack: float = 0.0  # on recon-on-image iterations (reference default 0)
+    p_recon_ffn_comp_adapter: float | None = None  # None: the planner's 0.25
 
 
 def img_prompt_embs_to_context(img_prompt_embs: torch.Tensor) -> torch.Tensor:
@@ -94,11 +116,16 @@ def img_prompt_embs_to_context(img_prompt_embs: torch.Tensor) -> torch.Tensor:
 
 class Trainer:
     def __init__(self, cfg: TrainerConfig, train_cfg: TrainConfig, frozen: Params,
-                 trainable: Params, id2ada_encoder, embedding_manager, vae=None, teacher=None):
+                 trainable: Params, id2ada_encoder, embedding_manager, vae=None, teacher=None,
+                 vae_decoder=None, arcface=None, host_detector: HostFaceDetector | None = None):
         """frozen: {"unet", "text_encoder"} modules; trainable: {"sbg": a
         SubjBasisGenerator or a list}; vae: a `VAEEncoder` or None (then
-        x_start is drawn from N(0, 1) at image_size / 8)."""
-        if cfg.comp_distill_iter_gap != 0 or cfg.unet_distill_iter_gap != 1:
+        x_start is drawn from N(0, 1) at image_size / 8); vae_decoder (a
+        `VAEDecoder`) and arcface (an `ArcFace`): the recon loss's identity
+        towers, kept in `frozen` as "vae" and "arcface"; host_detector: the
+        face detector on the inputs and the recons (default: the backend
+        chain of `HostFaceDetector`)."""
+        if cfg.comp_distill_iter_gap != 0:
             raise NotImplementedError(NOT_PORTED)
         self.cfg = cfg
         self.tcfg = train_cfg
@@ -109,16 +136,30 @@ class Trainer:
         self.teacher = teacher
         self.schedule = DiffusionSchedule.create()
         self.device = next(frozen["unet"].parameters()).device
+        if vae_decoder is not None:
+            frozen["vae"] = vae_decoder
+        if arcface is not None:
+            frozen["arcface"] = arcface
+        self.host_detector = host_detector or HostFaceDetector()
+        planner_kwargs = {}
+        if cfg.p_normal_recon_on_pure_noise is not None:
+            planner_kwargs["p_normal_recon_on_pure_noise"] = cfg.p_normal_recon_on_pure_noise
+        if cfg.p_recon_ffn_comp_adapter is not None:
+            planner_kwargs["p_recon_ffn_comp_adapter"] = cfg.p_recon_ffn_comp_adapter
         self.planner = IterationPlanner(
             comp_distill_iter_gap=cfg.comp_distill_iter_gap,
             unet_distill_iter_gap=cfg.unet_distill_iter_gap,
             unet_distill_steps_range=tuple(cfg.unet_distill_steps_range),
-            use_fp_trick=cfg.use_fp_trick)
+            use_fp_trick=cfg.use_fp_trick,
+            p_do_adv_attack_when_recon_on_images=cfg.p_do_adv_attack, **planner_kwargs)
+        if cfg.unfreeze_unet:
+            # one module in both: the loss functions take params["unet"]
+            trainable = dict(trainable, unet=frozen["unet"])
         self.state = self._init_state(trainable)
         self.logger = MetricsLogger(cfg.log_dir, echo_every=cfg.echo_every)
         self.face_stats = RollingStats(("face_detected",))
         self.profiler = ProfilerHook(cfg.log_dir) if cfg.profile else None
-        self._step_fn = make_train_step(unet_distill_loss_fn, frozen, self.schedule, train_cfg)
+        self._steps: dict = {}
         self._nan_streak = 0
 
     def _init_state(self, trainable: Params) -> State:
@@ -129,20 +170,48 @@ class Trainer:
                              **dict(cfg.optimizer_kwargs))
         return init_state(trainable, opt)
 
+    def _get_step(self, flags):
+        """One step function per iteration shape: recon keyed by the
+        pure-noise, adversarial and FFN-adapter draws (`ddpm.py:2305-2339`),
+        as the JAX trainer keys its graphs."""
+        if flags.iter_type == "recon":
+            key = ("recon", flags.normal_recon_on_pure_noise, flags.do_adv_attack,
+                   flags.recon_ffn_adapter)
+        elif flags.iter_type == "unet_distill":
+            key = ("unet_distill",)
+        else:
+            raise NotImplementedError(NOT_PORTED)
+        if key not in self._steps:
+            if flags.iter_type == "recon":
+                # the FFN adapter keys a step of its own, as in JAX, but
+                # selects nothing: no FFN LoRA is ported
+                rcfg = dataclasses.replace(
+                    self.cfg.recon_cfg, on_pure_noise=flags.normal_recon_on_pure_noise,
+                    do_adv_attack=flags.do_adv_attack)
+                loss_fn = make_recon_loss_fn(rcfg, self.host_detector)
+            else:
+                loss_fn = unet_distill_loss_fn
+            self._steps[key] = make_train_step(loss_fn, self.frozen, self.schedule, self.tcfg)
+        return self._steps[key]
+
     # ---------------------------------------------------------- host prep
-    def draws_for(self, flags) -> Draws:
-        """The step's draws: a generator on the UNet's device seeded with
-        (cfg.seed, flags.seed)."""
-        gen = torch.Generator(self.device).manual_seed((self.cfg.seed << 32) + flags.seed)
+    def draws_for(self, flags, loss: bool = False) -> Draws:
+        """The step's draws for its batch (or, with `loss`, for its loss): a
+        generator on the UNet's device seeded with (cfg.seed, flags.seed)."""
+        seed = (self.cfg.seed << 32) + flags.seed
+        gen = torch.Generator(self.device).manual_seed(seed ^ (1 << 62) if loss else seed)
         return Draws(generator=gen)
 
     @torch.no_grad()
-    def _prepare_batch(self, examples: list[dict], flags, draws: Draws) -> Params:
-        """One unet-distill batch on the device. Draws, in order: x_start
-        without a VAE, the random-ID path's x_start and ID draws, the
-        perturbation's three, the noise, the timesteps in [700, 900), the
-        teacher's chain."""
-        if flags.iter_type != "unet_distill":
+    def _prepare_batch(self, examples: list[dict], flags, draws: Draws,
+                       input_dets=None) -> Params:
+        """One batch on the device. Draws, in order: x_start without a VAE,
+        the random-ID path's x_start and ID draws, the perturbation's three,
+        the noise, the timesteps (unet-distill [700, 900), recon [20, 999),
+        which the recon loss does not read: it draws its own), the teacher's
+        chain. Recon batches also carry the input pixels with their host
+        detections (`input_dets`, or detected here) and the attn-LoRA gate."""
+        if flags.iter_type not in ("unet_distill", "recon"):
             raise NotImplementedError(NOT_PORTED)
         dev = self.device
         batch = collate_batch(examples)
@@ -164,9 +233,11 @@ class Trainer:
         else:
             x_start = draws.normal((b, 4, hw, hw), dev)
 
+        is_distill = flags.iter_type == "unet_distill"
         rs_iter = np.random.RandomState(flags.seed ^ 0x5EED)
-        gen_rand_id = rs_iter.rand() < self.cfg.p_gen_rand_id_for_id2img
-        perturb_ids = not gen_rand_id and rs_iter.rand() < self.cfg.p_perturb_face_id_embs
+        gen_rand_id = is_distill and rs_iter.rand() < self.cfg.p_gen_rand_id_for_id2img
+        perturb_ids = (is_distill and not gen_rand_id
+                       and rs_iter.rand() < self.cfg.p_perturb_face_id_embs)
         if gen_rand_id:
             id_embs = clip_feats = None
             x_start = draws.normal(x_start.shape, dev)
@@ -188,6 +259,7 @@ class Trainer:
             img_prompt_embs = torch.cat([img_prompt_embs[:1], rest])
 
         pb = build_4block_prompt_batch(self.em, *prompts)
+
         def as_t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
@@ -197,7 +269,7 @@ class Trainer:
         skip = (np.random.RandomState(flags.seed).dirichlet(self.cfg.clip_skip_weights)
                 if self.cfg.randomize_clip_skip_weights else alpha / alpha.sum())
         noise = draws.normal(x_start.shape, dev)
-        t = draws.integers((b,), 700, 900, dev)
+        t = draws.integers((b,), *((700, 900) if is_distill else (20, 999)), dev)
         out: Params = {
             "x_start": x_start, "noise": noise, "t": t,
             "img_prompt_embs": img_prompt_embs,
@@ -213,7 +285,17 @@ class Trainer:
         }
         if "merge_map" in pb:
             out["merge_map"] = as_t(pb["merge_map"], torch.int64)
-        if self.teacher is not None:
+        if flags.iter_type == "recon":
+            # the input faces: the reference side of the identity losses
+            nchw = images.transpose(0, 3, 1, 2)
+            det = input_dets if input_dets is not None else self.host_detector(nchw)
+            self.face_stats.update("face_detected", float(np.mean(det.detected)))
+            out["ref_images"] = as_t(nchw, torch.float32)
+            out["ref_face_bboxes"] = as_t(det.fg_bboxes, torch.float32)
+            out["ref_face_detected"] = as_t(det.detected, torch.float32)
+            out["recon_attn_lora_gate"] = torch.tensor(
+                1.0 if flags.recon_enable_attn_lora else 0.0, device=dev)
+        elif self.teacher is not None:
             cfg_scale = self.teacher.sample_cfg_scale(np.random.RandomState(flags.seed))
             preds, x_starts, noises, ts = self.teacher(
                 self.schedule, x_start, noise, t, img_prompt_embs_to_context(img_prompt_embs),
@@ -231,8 +313,8 @@ class Trainer:
     def _batch_iterator(self, dataset: PersonalizedBase, num_steps: int, start_step: int = 0):
         """Yields (step, flags, batch) in step order; with cfg.prefetch > 0 a
         daemon thread prepares up to that many batches ahead. The producer
-        is the only caller of the planner, the sampler and the dataset, so
-        their draws do not depend on the threads."""
+        is the only caller of the planner, the sampler, the dataset and the
+        input detector, so their draws do not depend on the threads."""
 
         def produce():
             it = iter(SubjectSampler(dataset, self.cfg.batch_size, num_batches=num_steps,
@@ -240,7 +322,20 @@ class Trainer:
             for step in range(start_step, start_step + num_steps):
                 flags = self.planner.plan(step)
                 examples = [dataset[next(it)] for _ in range(self.cfg.batch_size)]
-                yield step, flags, self._prepare_batch(examples, flags, self.draws_for(flags))
+                dets = None
+                if self.cfg.skip_non_faces:
+                    # resample the instances without a detected face, at most
+                    # twice (`SubjectSampler` skip_non_faces)
+                    for round_ in range(3):
+                        imgs = np.stack([e["image"] for e in examples])
+                        dets = self.host_detector(imgs.transpose(0, 3, 1, 2))
+                        missing = np.nonzero(dets.detected == 0)[0]
+                        if len(missing) == 0 or round_ == 2:
+                            break
+                        for j in missing:
+                            examples[j] = dataset[next(it)]
+                yield step, flags, self._prepare_batch(examples, flags, self.draws_for(flags),
+                                                       dets)
 
         if self.cfg.prefetch <= 0:
             yield from produce()
@@ -278,8 +373,8 @@ class Trainer:
             t.join(timeout=60)
 
     def _post_step(self, step: int, flags, metrics: dict) -> None:
-        """NaN trap (three non-finite losses in a row save and raise),
-        logging, profiler, checkpoint cadence."""
+        """NaN trap (three non-finite losses in a row save and raise), the
+        recon face-detection window, logging, profiler, checkpoint cadence."""
         loss = float(metrics["loss"])
         if not np.isfinite(loss):
             self._nan_streak += 1
@@ -290,9 +385,12 @@ class Trainer:
                                          "consecutive steps")
         else:
             self._nan_streak = 0
+        # `normal_recon_face_images_on_image_stats` (`ddpm.py:213-224`)
+        if "recon_face_detected_frac" in metrics:
+            self.face_stats.update("face_detected", float(metrics["recon_face_detected_frac"]))
         self.logger.log_dict(step, {**metrics,
                                     "face_detected_window": self.face_stats.mean("face_detected"),
-                                    "iter_type_id": 1})
+                                    "iter_type_id": ITER_TYPE_ID[flags.iter_type]})
         if self.profiler:
             self.profiler.maybe_start_stop(step)
         if self.cfg.ckpt_every and (step + 1) % self.cfg.ckpt_every == 0:
@@ -308,7 +406,8 @@ class Trainer:
         self._nan_streak = 0
         for step, flags, batch in self._batch_iterator(dataset, num_steps, start_step):
             try:
-                self.state, metrics = self._step_fn(self.state, batch)
+                self.state, metrics = self._get_step(flags)(self.state, batch,
+                                                            self.draws_for(flags, loss=True))
             except KeyboardInterrupt:
                 print(f"\ninterrupted at step {step}; checkpoint -> {self.save(step)}")
                 raise
@@ -317,8 +416,18 @@ class Trainer:
 
     # -------------------------------------------------------- checkpoints
     def save(self, step: int) -> str:
+        """The SubjBasisGenerator(s) as an AdaFace checkpoint; with
+        `unfreeze_unet` also the UNet as `unet_fp16.safetensors` beside it,
+        under the JAX UNet tree's flat names (`ddpm.py:4041-4062`)."""
         out = os.path.join(self.cfg.log_dir, f"checkpoints/embeddings_gs-{step}")
-        return save_adaface_ckpt(out, step, {"joint": trainable_state_dicts(self.state.params)})
+        out = save_adaface_ckpt(out, step, {"joint": trainable_state_dicts(self.state.params)})
+        if self.cfg.unfreeze_unet and "unet" in self.state.params:
+            from adaface_tpu_torch.core.bridge import tree_state_dict
+            from adaface_tpu_torch.tools.ckpt_lib import cast_fp16, save_state_dict
+
+            save_state_dict(cast_fp16(tree_state_dict(self.state.params["unet"])),
+                            os.path.join(out, "unet_fp16.safetensors"))
+        return out
 
     def load(self, ckpt_dir: str) -> int:
         """Warm-start the SubjBasisGenerator(s) from a checkpoint; the

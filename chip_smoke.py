@@ -26,9 +26,11 @@ Phases (any failure raises and the exit code is not 0):
      replayed twice to the same bits; an empty kernel's launch as the floor
      of the small shapes; the flash backward's three kernels against
      `flash_bwd_chunked` (dq, dk, dv) at every attention shape of the
-     student UNet at batch 16, a masked and a causal case, and the GroupNorm
-     backward's against the closed-form VJP (dx, dγ, dβ) at every UNet
-     GroupNorm shape at batch 16, each twice to the same bits; the flash
+     student UNet at batch 16 and at the VAE decoder's mid block (B 2, H 1,
+     S 4096, D 512: the wide kernels), masked and causal cases (D 512
+     among them), and the GroupNorm backward's against the closed-form VJP
+     (dx, dγ, dβ) at every UNet GroupNorm shape at batch 16 and every VAE
+     decoder map at batch 2, each twice to the same bits; the flash
      forward at the teacher's 16-token cross-attention; print errors,
      median times (single launches, and for GroupNorm, LayerNorm, BatchNorm
      and the backward kernels also 20 launches as a CUDA graph: the device
@@ -84,7 +86,17 @@ Phases (any failure raises and the exit code is not 0):
      updates, every teacher bucket) with finite losses, the accumulation in
      the parameters, the backward launches as the autograd graphs hold them,
      the fit's checkpoint reloaded; a micro-step's time split, the device's
-     busy share and the peak memory.
+     busy share and the peak memory;
+  9. full-UNet finetuning at full SD1.5 width through the same entry points
+     with `configs/finetune-unet.yaml` (every iteration recon: the UNet's
+     fp32 master weights trained in bf16, decodes with gradient, ArcFace
+     losses; a detector of one central face injected): one recon step's
+     gradients kernels against plain, 12 micro-steps (3 updates; on images
+     and on pure noise) with finite losses, the accumulation in the
+     parameters, the backward launches as the graphs hold them (the D 512
+     flash backward and the GroupNorm backward at the decoder's maps), the
+     checkpoint with `unet_fp16.safetensors` reloaded; a micro-step's split,
+     the busy share, the peak memory, and the adversarial ArcFace gradient.
 Before phase 4, `flash_attention` and `group_norm_silu` are held to record
 their autograd Functions on inputs that require grad, with the backward
 kernels' launches and gradients (`check_autograd_functions`).
@@ -2018,11 +2030,16 @@ def serve_joint(wrapper, faces, gen) -> dict:
 # backward the training path runs, at the largest teacher bucket (batch 4 x
 # 4 steps = UNet batch 16)
 FLASH_BWD_CASES = [(f"{label} batch 16", 16, *dims) for label, _, *dims in FLASH_CASES[:-1]]
+# the VAE decoder's mid-block attention with gradient, at the finetuning
+# configuration's batch 2 (recon decodes): the wide D 512 kernels
+FLASH_BWD_VAE = [("vae mid self batch 2", 2, 1, 4096, 4096, 512)]
 # off the path: a key mask (batch 1 all masked) and the causal rule at
 # ragged lengths (Sq 200, Sk 177: rows 0..22 see only masked keys)
 FLASH_BWD_MASKED = [("masked Sq200 Sk177 D40", 40, False),
                     ("masked causal Sq200 Sk177 D80", 80, True),
-                    ("causal Sq200 Sk177 D160", 160, True)]
+                    ("causal Sq200 Sk177 D160", 160, True),
+                    ("masked Sq200 Sk177 D512", 512, False),
+                    ("masked causal Sq200 Sk177 D512", 512, True)]
 
 
 def timed(kernel, plain, library) -> dict:
@@ -2034,20 +2051,24 @@ def timed(kernel, plain, library) -> dict:
     return dict(ms=pick(0), plain_ms=pick(1), library_ms=pick(2), graph_ms=graph_ms(kernel))
 
 
-def flash_library_backward(q, k, v, g):
-    """The autograd backward of `F.scaled_dot_product_attention` on its flash
-    backend, for the same q, k, v and g: a yardstick, never called by the
-    port. None where the backend refuses the shape."""
+def flash_library_backward(q, k, v, g, backends=("FLASH_ATTENTION",)):
+    """The autograd backward of `F.scaled_dot_product_attention` on the first
+    of `backends` that takes the shape, for the same q, k, v and g: a
+    yardstick, never called by the port. → (the call, the backend's name),
+    (None, None) where all refuse it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-    try:
-        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
-            o = F.scaled_dot_product_attention(qq, kk, vv)
-    except RuntimeError as e:
-        log(f"library flash backward refused: {e}")
-        return None
-    return lambda: torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True)
+    for name in backends:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                o = F.scaled_dot_product_attention(qq, kk, vv)
+            torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True)
+        except RuntimeError as e:
+            log(f"library {name} backward refused: {str(e).splitlines()[0][:160]}")
+            continue
+        return lambda: torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True), name
+    return None, None
 
 
 def check_flash_bwd(gen) -> dict:
@@ -2057,7 +2078,7 @@ def check_flash_bwd(gen) -> dict:
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
-    for label, b, h, sq, sk, d in FLASH_BWD_CASES:
+    for label, b, h, sq, sk, d in FLASH_BWD_CASES + FLASH_BWD_VAE:
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -2073,8 +2094,13 @@ def check_flash_bwd(gen) -> dict:
         del ref, again
         torch.cuda.empty_cache()
         kernel = lambda: A.flash_bwd(q, k, v, None, out, g, False, scale)  # noqa: E731
+        # the flash backend stops at head dim 256: at D 512 the first backend
+        # that takes it
+        library, backend = flash_library_backward(
+            q, k, v, g, ("FLASH_ATTENTION",) if d <= 256 else
+            ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"))
         t = timed(kernel, lambda: A.flash_bwd_chunked(q, k, v, None, out, g, False, scale),
-                  flash_library_backward(q, k, v, g))
+                  library)
         prep = graph_ms(lambda: A.flash_bwd(q, k, v, None, out, g, False, scale, False, False))
         no_dq = graph_ms(lambda: A.flash_bwd(q, k, v, None, out, g, False, scale, False, True))
         # q, out, g read and dq written; k, v read and dk, dv written; five
@@ -2089,10 +2115,12 @@ def check_flash_bwd(gen) -> dict:
                          "dkdv": bound(2 * (2 * nq + 4 * nk), 4 * prod),
                          "dq": bound(2 * (3 * nq + 2 * nk), 3 * prod)}
         res = dict(err=max(e for e, _ in errs.values()), mag=max(m for _, m in errs.values()),
-                   same_bits=same, bound_ms=bound_ms, bound_by=bound_by, prep_graph_ms=prep,
+                   same_bits=same, bound_ms=bound_ms, bound_by=bound_by, library=backend,
+                   bound_bytes=2 * (4 * q.numel() + 4 * k.numel()),
+                   bound_flops=5 * 2.0 * b * h * sq * sk * d, prep_graph_ms=prep,
                    dkdv_graph_ms=no_dq - prep, dq_graph_ms=t["graph_ms"] - no_dq,
                    kernel_bounds=kernel_bounds, **t)
-        lib = "refused" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        lib = "refused" if t["library_ms"] is None else f"{backend} {t['library_ms']:.4f} ms"
         log(f"flash bwd {label:24s} B{b} H{h} Sq{sq} Sk{sk} D{d}: max_abs_err "
             + " ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
             + f" (bound {BF16_TOL * res['mag']:.3e}) same bits {same} | single: kernels "
@@ -2136,6 +2164,28 @@ def check_gn_bwd(gen) -> dict:
     cases = [(f"{label} batch 16", (16, c, hw, hw), eps, silu, torch.bfloat16)
              for label, c, hw, eps, silu, _ in UNET_GN]
     cases.append(("resnet 64x64 320 fp32", (2, 320, 64, 64), 1e-5, True, torch.float32))
+    cases += [(f"vae {label} batch 2", (2, c, hw, hw), 1e-6, silu, torch.bfloat16)
+              for label, c, hw, silu, dec, _ in VAE_GN if dec]
+    # the decoder's resnet shapes without SiLU: off the path, checked untimed
+    off_path = [(f"vae {label} batch 2 no silu", (2, c, hw, hw), 1e-6, False, torch.bfloat16)
+                for label, c, hw, silu, dec, _ in VAE_GN if dec and silu]
+    for label, shape, eps, silu, dtype in off_path:
+        x, scale, bias = gn_inputs(gen, shape, dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = g.contiguous(memory_format=torch.channels_last)
+        got = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
+        again = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
+        ref = G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu)
+        errs = {n: max_err(a, r) for n, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)}
+        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+        log(f"gn bwd {label:32s} {shape}: max_abs_err "
+            + " ".join(f"{n} {e:.3e} (bound {BF16_TOL * m:.3e})" for n, (e, m) in errs.items())
+            + f" same bits {same}")
+        if any(e > BF16_TOL * m for e, m in errs.values()) or not same:
+            raise AssertionError(f"gn bwd {label}: {errs}, same bits {same}")
+        results[label] = dict(err=max(e for e, _ in errs.values()), same_bits=same)
+        del x, g, got, again, ref
+        torch.cuda.empty_cache()
     for label, shape, eps, silu, dtype in cases:
         x, scale, bias = gn_inputs(gen, shape, dtype)
         g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2215,12 +2265,21 @@ def write_train_photos(root: str, size: int = 512) -> str:
     return root
 
 
+# the VAE decoder's GroupNorm maps (C, H = W): no UNet map has them
+VAE_DECODER_GN_MAPS = {(c, hw) for _, c, hw, _, dec, _ in VAE_GN if dec}
+GN_BWD_VAE = "gn_bwd at the VAE decoder's maps"  # a census count, not a launch key
+VAE_DECODE_GN = sum(dec for *_, dec, _ in VAE_GN)  # GroupNorms of one decode: 30
+
+
 def backward_census(loss, want: collections.Counter) -> None:
     """Add to `want` the backward launches the autograd graph of `loss`
     holds: per flash node `flash_bwd_prep`, `flash_bwd_dkdv` where k or v
-    needs a gradient and `flash_bwd_dq` where q does; per GroupNorm node one
-    `gn_bwd_reduce` and one `gn_bwd_dx`."""
-    from adaface_tpu_torch.ops.attention import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP
+    needs a gradient and `flash_bwd_dq` where q does (at head dim 512 their
+    wide keys); per GroupNorm node one `gn_bwd_reduce` and one `gn_bwd_dx`,
+    and those on the VAE decoder's maps under GN_BWD_VAE. The nodes' head
+    dims and map shapes are read from attributes the Functions set, so the
+    saved tensors of a recomputed (checkpointed) decoder are not unpacked."""
+    from adaface_tpu_torch.ops import attention as A
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
 
     seen, stack = set(), [loss.grad_fn]
@@ -2232,12 +2291,16 @@ def backward_census(loss, want: collections.Counter) -> None:
         name = type(node).__name__
         if name == "_FlashAttentionBackward":
             nq, nk, nv = node.needs_input_grad[:3]
-            want[FLASH_BWD_PREP] += 1
-            want[FLASH_BWD_DKDV] += int(nk or nv)
-            want[FLASH_BWD_DQ] += int(nq)
+            wide = -(-node.head_dim // 16) == A.BWD_WIDE_KSTEPS
+            prep, dkdv, dq = ((A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE)
+                              if wide else (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ))
+            want[prep] += 1
+            want[dkdv] += int(nk or nv)
+            want[dq] += int(nq)
         elif name == "_GroupNormSiLUBackward":
             want[GN_BWD_REDUCE] += 1
             want[GN_BWD_DX] += 1
+            want[GN_BWD_VAE] += int((node.shape[1], node.shape[2]) in VAE_DECODER_GN_MAPS)
         stack.extend(f for f, _ in node.next_functions)
 
 
@@ -2393,8 +2456,8 @@ def train_stage1(gen) -> dict:
             backward_census(loss, want)
             return loss, metrics
 
-        trainer._step_fn = make_train_step(census_loss, trainer.frozen, trainer.schedule,
-                                           trainer.tcfg)
+        trainer._steps[("unet_distill",)] = make_train_step(census_loss, trainer.frozen,
+                                                            trainer.schedule, trainer.tcfg)
         post, records = trainer._post_step, []
         before = [sbg_snapshot(trainer)]
 
@@ -2469,7 +2532,8 @@ def train_stage1(gen) -> dict:
                                  num_denoising_steps=4)
         batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
                                        trainer.draws_for(fl))
-        step = lambda: trainer._step_fn(trainer.state, batch)  # noqa: E731
+        step_fn = trainer._get_step(fl)
+        step = lambda: step_fn(trainer.state, batch)  # noqa: E731
         step()
         _, wall_ms = sync_ms(step)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2479,6 +2543,379 @@ def train_stage1(gen) -> dict:
             f"prepared batch: "
             f"{wall_ms:.1f} ms on the host clock, device busy {busy_ms:.1f} ms in {n_ops} "
             f"operations under the profiler ({busy_ms / wall_ms:.1%} of the unprofiled wall)")
+    return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
+                grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms)
+
+
+FINETUNE_CONFIG = "configs/finetune-unet.yaml"
+# micro-steps of the finetuning phase: 3 optimizer updates at the config's
+# accumulation of 4 (the first at the warmup's learning rate of 0, so the
+# parameters move at the second and the third); from step 0 the planner
+# (seed 0, the config's probabilities) draws steps 5 and 7 on pure noise
+FINETUNE_MICRO_STEPS = 12
+FINETUNE_SPLIT_STEPS = (0, 5)  # an on-image and a pure-noise micro-step, split by part
+# one recon step's gradients, kernels against plain (bf16 UNet compute, bf16
+# decoder), relative L2 over the SubjBasisGenerator's and over the UNet's:
+# the prediction is written in PERF.md before the first run; the UNet call's
+# 5e-2 is the ceiling held here
+FINETUNE_GRAD_REL_L2 = 5e-2
+
+
+def central_face(img):
+    """One face whatever the pixels: the central 60% of the image."""
+    h, w = img.shape[:2]
+    return [(np.array([0.2 * w, 0.2 * h, 0.8 * w, 0.8 * h], np.float32), 1.0)]
+
+
+def recon_loss_for(trainer, flags):
+    """The recon loss function the trainer builds for `flags`."""
+    from adaface_tpu_torch.train.recon_step import make_recon_loss_fn
+
+    rcfg = dataclasses.replace(trainer.cfg.recon_cfg, on_pure_noise=flags.normal_recon_on_pure_noise,
+                               do_adv_attack=flags.do_adv_attack)
+    return make_recon_loss_fn(rcfg, trainer.host_detector)
+
+
+def recon_grads(trainer, flags, batch) -> tuple[list, float]:
+    """(the gradients of every trainable parameter, the loss) of one recon
+    step on `batch`, its loss's draws from the step's fresh stream."""
+    from adaface_tpu_torch.core.device import fp32_convolutions
+
+    params = trainer.state.optimizer.params
+    for p in params:
+        p.grad = None
+    loss, _ = recon_loss_for(trainer, flags)(trainer.state.params, trainer.frozen, batch,
+                                             trainer.schedule, trainer.tcfg,
+                                             trainer.draws_for(flags, loss=True))
+    with fp32_convolutions():  # as `make_train_step` runs the backward
+        loss.backward()
+    out = [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+           for p in params]
+    for p in params:
+        p.grad = None
+    return out, loss.item()
+
+
+def rel_l2_lists(out: list, ref: list) -> float:
+    num = sum(((a.float() - b.float()) ** 2).sum() for a, b in zip(out, ref))
+    return (num / sum((b.float() ** 2).sum() for b in ref)).sqrt().item()
+
+
+def param_sums(trainer) -> list:
+    """Each trainable tensor's fp64 sum (moves when any element does), read
+    back in one transfer."""
+    return torch.stack([p.detach().double().sum()
+                        for p in trainer.state.optimizer.params]).tolist()
+
+
+class SyncTimer:
+    """Patch module functions with wrappers that time each call on the host
+    clock, the device synchronized before and after, by part."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(float)
+        self._patches = []
+
+    def wrap(self, module, name, part):
+        real = getattr(module, name)
+
+        def timed(*a, **kw):
+            out, ms = sync_ms(lambda: real(*a, **kw))
+            self.ms[part] += ms
+            return out
+
+        self._patches.append(mock.patch.object(module, name, timed))
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def finetune_step_split(trainer, dataset, flags) -> dict:
+    """One recon micro-step on the host clock, split into host prep (the
+    batch: collate, VAE encode, face ID → image prompts, input detection,
+    prompts), the UNet calls, the decodes and the ArcFace losses, host
+    detection on the recons, the rest of the forward, the backward and the
+    optimizer, each timed with the device synchronized around it."""
+    from adaface_tpu_torch.core.device import fp32_convolutions
+    from adaface_tpu_torch.train import recon_step as R
+    from adaface_tpu_torch.train.train_step import trainable_parameters
+
+    examples = [dataset[i] for i in range(trainer.cfg.batch_size)]
+    batch, prep_ms = sync_ms(lambda: trainer._prepare_batch(examples, flags,
+                                                            trainer.draws_for(flags)))
+    timer = SyncTimer()
+    real_runner = R.unet_runner
+
+    def timed_runner(*a, **kw):
+        unet = real_runner(*a, **kw)
+
+        def call(*x, **y):
+            out, ms = sync_ms(lambda: unet(*x, **y))
+            timer.ms["unet"] += ms
+            return out
+        return call
+
+    timer._patches.append(mock.patch.object(R, "unet_runner", timed_runner))
+    timer.wrap(R, "vae_decode", "decode")
+    timer.wrap(R, "calc_arcface_align_loss", "arcface")
+    timer.wrap(R, "calc_bg_faces_suppress_loss", "arcface")
+    timer.wrap(R, "detect_faces", "detection")
+    params = trainable_parameters(trainer.state.params)
+    for p in params:
+        p.grad = None
+    with timer:
+        (loss, _), fwd_ms = sync_ms(lambda: recon_loss_for(trainer, flags)(
+            trainer.state.params, trainer.frozen, batch, trainer.schedule, trainer.tcfg,
+            trainer.draws_for(flags, loss=True)))
+    with fp32_convolutions():  # as `make_train_step` runs the backward
+        _, bwd_ms = sync_ms(loss.backward)
+    update, opt_ms = sync_ms(trainer.state.optimizer.step)
+    parts = dict(timer.ms)
+    return dict(noise=flags.normal_recon_on_pure_noise, host_prep_ms=prep_ms,
+                unet_ms=parts.get("unet", 0.0), decode_ms=parts.get("decode", 0.0),
+                arcface_ms=parts.get("arcface", 0.0), detection_ms=parts.get("detection", 0.0),
+                other_forward_ms=fwd_ms - sum(parts.values()), backward_ms=bwd_ms,
+                optimizer_ms=opt_ms, update=update, total_ms=prep_ms + fwd_ms + bwd_ms + opt_ms)
+
+
+def train_finetune(gen) -> dict:
+    """Full-UNet finetuning on the card at full SD1.5 width, through
+    `train_torch.build_trainer` and `Trainer.fit` with FINETUNE_CONFIG (every
+    iteration recon; the UNet's fp32 master weights trained beside the
+    SubjBasisGenerator, computed in bf16; the VAE encoder and decoder in
+    bf16; CLIP-L text, the Arc2Face encoder and a random ArcFace in fp32;
+    cautious AdamW, grad clip 0.2, accumulation 4, batch 2) on synthetic
+    512x512 PNGs, with a detector of one central face injected (the default
+    chain's backend, printed, finds no face in random photos). One recon
+    step's gradients
+    kernels against plain; FINETUNE_MICRO_STEPS micro-steps with finite
+    losses, on images and on pure noise, the trainable parameters still
+    inside an accumulation window and moved at each update, the backward
+    kernels' launches (the D 512 flash backward and the GroupNorm backward at
+    the decoder's maps among them) as the autograd graphs hold them; the
+    fit's checkpoint with `unet_fp16.safetensors` reloads equal; a micro-step's
+    split, the device's busy share, the peak memory; and the adversarial
+    gradient once at full width."""
+    import tempfile
+
+    import train_torch
+    from adaface_tpu_torch.core.bridge import tree_state_dict
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.tools.ckpt_lib import cast_fp16, load_state_dict
+    from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector, map_bboxes_to_latent
+    from adaface_tpu_torch.train.optimizers import _lr_at
+    from adaface_tpu_torch.train.recon_multistep import calc_arcface_adv_grad
+    from adaface_tpu_torch.train.train_step import make_train_step
+
+    bwd_keys = (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, A.FLASH_BWD_PREP_WIDE,
+                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE, GN_BWD_DX)
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            f"trainer.ckpt_every={FINETUNE_MICRO_STEPS}", "--base",
+            os.path.join(repo, FINETUNE_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs"), "--max_steps", str(FINETUNE_MICRO_STEPS)])
+        t0 = time.perf_counter()
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        torch.cuda.synchronize()
+        log(f"finetune: the stack at full width on the card in {time.perf_counter() - t0:.1f} s;"
+            f" {len(trainer.state.optimizer.params)} trainable tensors, "
+            f"{sum(p.numel() for p in trainer.state.optimizer.params)} parameters (UNet "
+            f"{next(trainer.state.params['unet'].parameters()).dtype}, compute "
+            f"{trainer.cfg.recon_cfg.compute_dtype}); optimizer {trainer.cfg.optimizer}, "
+            f"accumulation {trainer.cfg.accum_steps}, batch {trainer.cfg.batch_size}, prefetch "
+            f"{trainer.cfg.prefetch}")
+        log(f"finetune: the default face detector chain finds backend "
+            f"'{trainer.host_detector.backend}' on this machine (a random 512x512 photo has no "
+            "face for it); a detector of one central face is injected")
+        trainer.host_detector = HostFaceDetector(detector_fn=central_face)
+        if "arcface" not in trainer.frozen or "vae" not in trainer.frozen:
+            raise AssertionError("finetune: the identity towers are not wired")
+
+        # one recon step's gradients, kernels against plain (on images)
+        flags = trainer.planner.plan(0)
+        trainer.planner = type(trainer.planner)(**{
+            f.name: getattr(trainer.planner, f.name)
+            for f in dataclasses.fields(trainer.planner)})  # the fit plans from step 0 again
+        one = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], flags,
+                                     trainer.draws_for(flags))
+        kernel_grads, kernel_loss = recon_grads(trainer, flags, one)
+        with plain_versions():
+            plain_grads, plain_loss = recon_grads(trainer, flags, one)
+        n_sbg = len(trainer.state.optimizer.params) - len(
+            list(trainer.state.params["unet"].parameters()))
+        grad_rel = {"sbg": rel_l2_lists(kernel_grads[:n_sbg], plain_grads[:n_sbg]),
+                    "unet": rel_l2_lists(kernel_grads[n_sbg:], plain_grads[n_sbg:])}
+        finite = all(torch.isfinite(g).all() for g in kernel_grads)
+        log(f"finetune: one recon step on images, kernels against plain: loss "
+            f"{kernel_loss:.6e} / {plain_loss:.6e}; gradients relative L2 SubjBasisGenerator "
+            f"{grad_rel['sbg']:.3e}, UNet {grad_rel['unet']:.3e} (ceiling "
+            f"{FINETUNE_GRAD_REL_L2:.0e})")
+        if not finite or not math.isfinite(kernel_loss) or max(grad_rel.values()) \
+                > FINETUNE_GRAD_REL_L2:
+            raise AssertionError(f"finetune: gradients kernels against plain {grad_rel}, finite "
+                                 f"{finite}")
+        del one, kernel_grads, plain_grads
+        torch.cuda.empty_cache()
+
+        # the fit: the backward launches each recon graph holds, the
+        # parameters after each micro-step
+        want = collections.Counter()
+
+        def census(loss_fn):
+            def loss_and_census(*a):
+                loss, metrics = loss_fn(*a)
+                backward_census(loss, want)
+                return loss, metrics
+            return loss_and_census
+
+        real_get = trainer._get_step
+
+        def get_step(f):
+            key = ("recon", f.normal_recon_on_pure_noise, f.do_adv_attack, f.recon_ffn_adapter)
+            if key not in trainer._steps:
+                trainer._steps[key] = make_train_step(census(recon_loss_for(trainer, f)),
+                                                      trainer.frozen, trainer.schedule,
+                                                      trainer.tcfg)
+            return real_get(f)
+
+        trainer._get_step = get_step
+        post, records = trainer._post_step, []
+        before = [param_sums(trainer)]
+
+        core = trainer.state.optimizer.optimizer
+        count = [core.count]
+
+        def watch(step, f, metrics):
+            after = param_sums(trainer)
+            moved = [a != b for a, b in zip(before[0], after)]
+            # an update, and the learning rate it took
+            lr = (_lr_at(core.param_groups[0]["lr"], count[0]) if core.count > count[0]
+                  else None)
+            count[0] = core.count
+            records.append(dict(step=step, noise=f.normal_recon_on_pure_noise, lr=lr,
+                                sbg_moved=any(moved[:n_sbg]), unet_moved=any(moved[n_sbg:]),
+                                loss=float(metrics["loss"]),
+                                detected=float(metrics.get("recon_face_detected_frac", -1)),
+                                align=float(metrics.get("loss_arcface_align_recon", -1)),
+                                t=time.perf_counter()))
+            before[0] = after
+            post(step, f, metrics)
+
+        trainer._post_step = watch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for r in records:
+            upd = "no update" if r["lr"] is None else f"an update at lr {r['lr']:.3e}"
+            log(f"finetune: micro-step {r['step']}: {'pure noise' if r['noise'] else 'images'}, "
+                f"loss {r['loss']:.6e}, ArcFace align {r['align']:.4f}, recon faces detected "
+                f"{r['detected']:.2f}, {upd}, SubjBasisGenerator moved {r['sbg_moved']}, UNet "
+                f"moved {r['unet_moved']}")
+        gaps = [b["t"] - a["t"] for a, b in zip(records, records[1:])]
+        fit_want = dict(want)
+        log(f"finetune: {len(records)} micro-steps in {fit_s:.2f} s (first batch's preparation "
+            f"included); between micro-steps {', '.join(f'{g:.3f}' for g in gaps)} s; seconds "
+            f"per optimizer step {trainer.cfg.accum_steps * statistics.mean(gaps):.3f} "
+            f"({trainer.cfg.accum_steps} x the mean gap); peak memory {peak / 2**30:.2f} GiB")
+        log(f"finetune: launches {dict(sorted(counts.items()))}; backward launches the recon "
+            f"graphs hold {dict(sorted(fit_want.items()))}")
+        accum = trainer.cfg.accum_steps
+        window = [i % accum == accum - 1 for i in range(FINETUNE_MICRO_STEPS)]
+        moves = [r["lr"] is not None and r["lr"] > 0 for r in records]
+        if len(records) != FINETUNE_MICRO_STEPS or not all(math.isfinite(r["loss"])
+                                                           for r in records):
+            raise AssertionError(f"finetune: micro-steps {records}")
+        # an update at each window's end, and the parameters still inside a
+        # window and moved at every update whose learning rate is not 0
+        if [r["lr"] is not None for r in records] != window or sum(moves) < 2 \
+                or [r["sbg_moved"] for r in records] != moves \
+                or [r["unet_moved"] for r in records] != moves:
+            raise AssertionError(f"finetune: the accumulation of {accum} does not show: {records}")
+        if {r["noise"] for r in records} != {False, True} or min(r["detected"] for r in records) < 1:
+            raise AssertionError(f"finetune: variants or detections {records}")
+        decodes = 2 * FINETUNE_MICRO_STEPS  # two active denoising steps a micro-step
+        if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
+                or want[A.FLASH_BWD_DKDV_WIDE] != decodes or want[A.FLASH_BWD_DQ_WIDE] != decodes \
+                or want[GN_BWD_VAE] != VAE_DECODE_GN * decodes:
+            raise AssertionError(f"finetune: backward launches {counts}, the graphs hold {want}")
+
+        # the fit's checkpoint reloads equal, the finetuned UNet with it
+        ck = trainer.latest_ckpt(args.log_dir)
+        state, manifest = load_adaface_ckpt(ck)
+        saved = state["subj_basis_generators"]["joint"]
+        live = {n: p for n, p in trainer.state.params["sbg"].named_parameters() if n in saved}
+        unet_file = load_state_dict(os.path.join(ck, "unet_fp16.safetensors"))
+        unet_now = cast_fp16(tree_state_dict(trainer.state.params["unet"]))
+        equal = (manifest["step"] == FINETUNE_MICRO_STEPS and set(saved) == set(live)
+                 and all(torch.equal(saved[n], live[n].detach().cpu()) for n in saved)
+                 and set(unet_file) == set(unet_now)
+                 and all(np.array_equal(unet_file[k], unet_now[k]) for k in unet_now))
+        log(f"finetune: checkpoint {os.path.basename(ck)} ({len(saved)} SubjBasisGenerator "
+            f"tensors, unet_fp16.safetensors {len(unet_file)} tensors, "
+            f"{os.path.getsize(os.path.join(ck, 'unet_fp16.safetensors')) / 2**20:.1f} MiB) "
+            f"reloads equal: {equal}")
+        if not equal:
+            raise AssertionError("finetune: the checkpoint does not reload equal")
+
+        # where a micro-step's time goes, and the device's busy share
+        splits = [finetune_step_split(trainer, dataset, trainer.planner.plan(s))
+                  for s in FINETUNE_SPLIT_STEPS]
+        for sp in splits:
+            log(f"finetune: micro-step split on {'pure noise' if sp['noise'] else 'images'}: host "
+                f"prep {sp['host_prep_ms']:.1f} ms, UNet calls {sp['unet_ms']:.1f} ms, decodes "
+                f"{sp['decode_ms']:.1f} ms, ArcFace losses {sp['arcface_ms']:.1f} ms, host "
+                f"detection on the recons {sp['detection_ms']:.1f} ms, rest of the forward "
+                f"{sp['other_forward_ms']:.1f} ms, backward {sp['backward_ms']:.1f} ms, optimizer "
+                f"{sp['optimizer_ms']:.1f} ms ({'an update' if sp['update'] else 'accumulation'})"
+                f"; total {sp['total_ms']:.1f} ms (synchronized, no prefetch)")
+        from torch.profiler import ProfilerActivity, profile
+
+        fl = trainer.planner.plan(0)
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
+                                       trainer.draws_for(fl))
+        step_fn = trainer._get_step(fl)
+        step = lambda: step_fn(trainer.state, batch, trainer.draws_for(fl, loss=True))  # noqa
+        step()
+        _, wall_ms = sync_ms(step)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync_ms(step)
+        n_ops, busy_ms = profile_report(prof, "finetune: a recon micro-step on images", 12)
+        log(f"finetune: a recon micro-step on images, prepared batch: {wall_ms:.1f} ms on the "
+            f"host clock, device busy {busy_ms:.1f} ms in {n_ops} operations under the profiler "
+            f"({busy_ms / wall_ms:.1%} of the unprofiled wall)")
+
+        # the adversarial gradient once at full width (the decode in bf16)
+        nb = min(trainer.cfg.recon_cfg.adv_bs, batch["x_start"].shape[0])
+        px = batch["ref_images"].shape[-1]
+        boxes = torch.tensor([[0.2 * px, 0.2 * px, 0.8 * px, 0.8 * px]] * nb, device="cuda")
+        before_adv = launch_counts()
+        adv, adv_ms = sync_ms(lambda: calc_arcface_adv_grad(
+            trainer.frozen["arcface"], trainer.frozen["vae"], batch["x_start"][:nb],
+            map_bboxes_to_latent(boxes, px, batch["x_start"].shape[-1]), boxes,
+            torch.rand((nb, 512), generator=gen, device="cuda")))
+        wide = launch_counts().get(A.FLASH_BWD_DQ_WIDE, 0) - before_adv.get(A.FLASH_BWD_DQ_WIDE, 0)
+        log(f"finetune: adversarial ArcFace gradient at {tuple(adv.shape)}: {adv_ms:.1f} ms, "
+            f"|max| {adv.abs().max().item():.3e}, finite {bool(torch.isfinite(adv).all())}, D 512 "
+            f"dq launches {wide}")
+        if not torch.isfinite(adv).all() or not adv.abs().max() > 0 or wide != 1:
+            raise AssertionError("finetune: the adversarial gradient")
     return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
                 grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms)
 
@@ -2808,8 +3245,10 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
     that of `F.group_norm` + `F.silu`), beside the whole backward's own
     times and bound (`function_*`), and every path shape under `shapes`."""
-    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP,
-                                                 FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE)
+    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DKDV, FLASH_BWD_DKDV_WIDE,
+                                                 FLASH_BWD_DQ, FLASH_BWD_DQ_WIDE, FLASH_BWD_PREP,
+                                                 FLASH_BWD_PREP_WIDE, FLASH_COMBINE, FLASH_STD,
+                                                 FLASH_T, FLASH_WIDE)
     from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_REDUCE, GN_FUSED, GN_NORM,
                                                 GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
@@ -2876,28 +3315,36 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     ln_errs = [r["err"] for r in ln.values() if isinstance(r, dict) and "err" in r]
     fb_path = [case[0] for case in FLASH_BWD_CASES]
     fb, gb = flash_bwd[JSON_FLASH_BWD], gn_bwd[JSON_GN_BWD]
-    fb_err = max(r["err"] for r in flash_bwd.values())
+    vae_bwd = {case[0] for case in FLASH_BWD_VAE}
+    is_wide = lambda label: label in vae_bwd or "D512" in label  # noqa: E731
+    fb_err = max(r["err"] for k, r in flash_bwd.items() if not is_wide(k))
+    fb_wide_err = max(r["err"] for k, r in flash_bwd.items() if is_wide(k))
     gb_err = max(r["err"] for r in gn_bwd.values())
 
-    def flash_bwd_entry(name, part):
+    def flash_bwd_entry(name, part, json_shape=JSON_FLASH_BWD, labels=fb_path, err=fb_err):
+        r = flash_bwd[json_shape]
         shapes = {label: {"ms": flash_bwd[label][f"{part}_graph_ms"],
                           "bound_ms": flash_bwd[label]["kernel_bounds"][part][0],
                           "bound_by": flash_bwd[label]["kernel_bounds"][part][1],
                           "function_graph_ms": flash_bwd[label]["graph_ms"],
                           "function_bound_ms": flash_bwd[label]["bound_ms"],
                           "plain_ms": flash_bwd[label]["plain_ms"],
-                          "library_ms": flash_bwd[label]["library_ms"]} for label in fb_path}
-        return entry(name, "flash_attn_bwd.cu", "adaface_tpu/ops/attention.py:384", fb_err,
-                     JSON_FLASH_BWD, fb[f"{part}_graph_ms"], fb["plain_ms"], fb["library_ms"],
-                     *fb["kernel_bounds"][part], function_ms=fb["ms"],
-                     function_graph_ms=fb["graph_ms"], function_bound_ms=fb["bound_ms"],
-                     function_bound_by=fb["bound_by"], shapes=shapes)
+                          "library_ms": flash_bwd[label]["library_ms"],
+                          "library": flash_bwd[label]["library"]} for label in labels}
+        return entry(name, "flash_attn_bwd.cu", "adaface_tpu/ops/attention.py:384", err,
+                     json_shape, r[f"{part}_graph_ms"], r["plain_ms"], r["library_ms"],
+                     *r["kernel_bounds"][part], function_ms=r["ms"],
+                     function_graph_ms=r["graph_ms"], function_bound_ms=r["bound_ms"],
+                     function_bound_by=r["bound_by"], library=r["library"], shapes=shapes)
+
+    wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=[FLASH_BWD_VAE[0][0]],
+                    err=fb_wide_err)
 
     def gn_bwd_entry(name, part, bound_key, bound_by="bytes"):
         shapes = {label: {"ms": r[f"{part}_graph_ms"], "bound_ms": r[bound_key],
                           "function_graph_ms": r["graph_ms"], "function_bound_ms": r["bound_ms"],
                           "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
-                  for label, r in gn_bwd.items()}
+                  for label, r in gn_bwd.items() if "graph_ms" in r}
         return entry(name, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:143", gb_err,
                      JSON_GN_BWD, gb[f"{part}_graph_ms"], gb["plain_ms"], gb["library_ms"],
                      gb[bound_key], bound_by, function_ms=gb["ms"],
@@ -2942,6 +3389,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         flash_bwd_entry(FLASH_BWD_PREP, "prep"),
         flash_bwd_entry(FLASH_BWD_DKDV, "dkdv"),
         flash_bwd_entry(FLASH_BWD_DQ, "dq"),
+        flash_bwd_entry(FLASH_BWD_PREP_WIDE, "prep", **wide_bwd),
+        flash_bwd_entry(FLASH_BWD_DKDV_WIDE, "dkdv", **wide_bwd),
+        flash_bwd_entry(FLASH_BWD_DQ_WIDE, "dq", **wide_bwd),
         gn_bwd_entry(GN_BWD_REDUCE, "reduce", "reduce_bound_ms"),
         gn_bwd_entry(GN_BWD_DX, "dx", "bound_ms"),
     ]}
@@ -2967,21 +3417,24 @@ def main() -> int:
     trained = train_face_parser(gen)
     torch.cuda.empty_cache()
     stage1 = train_stage1(gen)
+    torch.cuda.empty_cache()
+    finetune = train_finetune(gen)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
-    from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
-
-    from adaface_tpu_torch.ops.attention import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP
+    from adaface_tpu_torch.ops import attention as A
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
 
     counts = {**served["counts"], **trained["counts"],
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
-              **{k: stage1["counts"][k] for k in (FLASH_BWD_PREP, FLASH_BWD_DKDV, FLASH_BWD_DQ,
-                                                 GN_BWD_REDUCE, GN_BWD_DX)}}
+              **{k: stage1["counts"][k] for k in (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV,
+                                                 A.FLASH_BWD_DQ, GN_BWD_REDUCE, GN_BWD_DX)},
+              **{k: finetune["counts"][k] for k in (A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE,
+                                                   A.FLASH_BWD_DQ_WIDE)}}
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],
-             "stage-1 fit": stage1["counts"]}
+             "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"]}
     print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, counts, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

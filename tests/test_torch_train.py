@@ -574,12 +574,12 @@ def test_teacher_chain_matches_jax(tiny_unet, steps, cfg_scale, ensemble):
 # ---------------------------------------------------------------------------
 
 
-def build_step_pair(seed: int = 70):
+def build_step_pair(seed: int = 70, unet_kw: dict = UNET_KW):
     """(JAX frozen, trainable, TrainConfig; port frozen, params, TrainConfig;
     the JAX EmbeddingManager, the port's) on one set of tiny weights."""
     text_j = jclip.CLIPTextConfig(**TRAIN_TEXT_KW)
     text_t = tclip.CLIPTextConfig(**TRAIN_TEXT_KW)
-    unet_j = junet.UNetConfig(**UNET_KW)
+    unet_j = junet.UNetConfig(**unet_kw)
     sbg_j = JSBGConfig(output_dim=D, clip=text_j)
     jtok, ttok = JTokenizer.character_fallback(), CLIPTokenizer.character_fallback()
     sbg = init_subj_basis_generator(
@@ -597,11 +597,11 @@ def build_step_pair(seed: int = 70):
     jcfg = jstep.TrainConfig(unet=unet_j, sbg=sbg_j, clip_text=text_j)
     text_big = tclip.CLIPTextConfig(**TRAIN_TEXT_KW,
                                     vocab_size=text_p["token_embedding"].shape[0])
-    tfrozen = {"unet": bridge.load(tunet.UNet2DConditionModel(tunet.UNetConfig(**UNET_KW)), unet_p),
+    tfrozen = {"unet": bridge.load(tunet.UNet2DConditionModel(tunet.UNetConfig(**unet_kw)), unet_p),
                "text_encoder": bridge.load(tclip.CLIPTextModel(text_big), text_p)}
     tparams = {"sbg": bridge.load(SubjBasisGenerator(SubjBasisConfig(clip=text_t), ttok),
                                   bridge.sbg_tree(sbg))}
-    tcfg = tstep.TrainConfig(unet=tunet.UNetConfig(**UNET_KW), sbg=tparams["sbg"].cfg,
+    tcfg = tstep.TrainConfig(unet=tunet.UNetConfig(**unet_kw), sbg=tparams["sbg"].cfg,
                              clip_text=text_t)
     return (jfrozen, jtrain, jcfg, jm), (tfrozen, tparams, tcfg, tm)
 

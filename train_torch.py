@@ -1,19 +1,25 @@
-"""Stage-1 training CLI of the PyTorch port:
+"""Training CLI of the PyTorch port:
 
     python train_torch.py --base configs/stage1-distill-arc2face.yaml \
         --data_roots <subject folders> [key.path=value ...]
+    python train_torch.py --base configs/finetune-unet.yaml --data_roots <...>
 
-The counterpart of `train.py` for unet-distill configurations (every
-iteration unet-distill: `comp_distill_iter_gap: 0`, `unet_distill_iter_gap:
-1`): the same YAML and dot-list overrides, the model stack built with random
-weights from the config's seed (SD1.5 UNet and VAE encoder in bf16 on the
-card, CLIP-L text and the id→ada encoder in fp32), the id→ada encoder's
-SubjBasisGenerator(s) trained against the frozen UNet as teacher, then
-`Trainer.fit`. Runs on the card (`--device cuda`, the default); `--device
-cpu` runs it in fp32 on the host. Checkpoints land in
-`<log_dir>/checkpoints/embeddings_gs-N`. Loading converted SD1.5 weights
-(`--base_model`), the comp-distill UNet and the ArcFace identity towers of
-recon and comp iterations wait for their slices (ROADMAP §1).
+The counterpart of `train.py` for the configurations without comp-distill
+iterations (`comp_distill_iter_gap: 0`): unet-distill (Stage 1) and recon
+iterations, and full-UNet finetuning (`trainer.unfreeze_unet`). The same
+YAML and dot-list overrides; the model stack built with random weights from
+the config's seed: the SD1.5 UNet (bf16 on the card, or fp32 master weights
+computed in bf16 when it trains), the VAE encoder, CLIP-L text and the
+id→ada encoder (fp32); for recon iterations also the VAE decoder (bf16 on
+the card) and ArcFace (fp32), from `model.arcface_ckpt` where given, else
+random with a warning, as `train.py` builds it. Then `Trainer.fit`. Runs on
+the card (`--device cuda`, the default); `--device cpu` runs it in fp32 on
+the host. Checkpoints land in `<log_dir>/checkpoints/embeddings_gs-N`
+(with `unet_fp16.safetensors` when the UNet trains). The recon loss's face
+detector is `HostFaceDetector`'s chain (insightface, then OpenCV's cascade,
+whichever is installed, else none): where it finds no face the identity
+losses stay gated off. Loading converted SD1.5 weights (`--base_model`) and the
+comp-distill UNet wait for their slices (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -36,9 +42,10 @@ def build_trainer(cfg: dict, args):
     from adaface_tpu_torch.id2ada.teachers import create_unet_teacher
     from adaface_tpu_torch.models.clip import CLIPTextModel, init_text_weights_
     from adaface_tpu_torch.models.unet import UNet2DConditionModel, init_unet_weights_
-    from adaface_tpu_torch.models.vae import VAEEncoder
+    from adaface_tpu_torch.models.vae import VAEDecoder, VAEEncoder
     from adaface_tpu_torch.text.embedding_manager import EmbeddingManager, PlaceholderSpec
     from adaface_tpu_torch.text.tokenizer import default_tokenizer
+    from adaface_tpu_torch.train.recon_step import ReconStepConfig
     from adaface_tpu_torch.train.train_step import TrainConfig
     from adaface_tpu_torch.train.trainer import Trainer, TrainerConfig
 
@@ -53,11 +60,21 @@ def build_trainer(cfg: dict, args):
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     gen = torch.Generator(device).manual_seed(trainer_cfg.seed)
     print(f"building the model stack on {device} ...", flush=True)
-    unet = build(UNet2DConditionModel, device, dtype, init_unet_weights_, gen)
+    # a UNet that trains keeps fp32 master weights; the recon loss casts them
+    # to its compute dtype at each evaluation
+    unet = build(UNet2DConditionModel, device,
+                 torch.float32 if trainer_cfg.unfreeze_unet else dtype, init_unet_weights_, gen)
     text = build(CLIPTextModel, device, torch.float32, init_text_weights_, gen)
     vae = build(VAEEncoder, device, dtype, init_fan_in_, gen)
-
+    trainer_cfg.recon_cfg = ReconStepConfig(
+        compute_dtype="bfloat16" if device.type == "cuda" else "float32")
+    recon_kw = {}
     model_cfg = cfg.get("model") or {}
+    if trainer_cfg.unet_distill_iter_gap != 1:  # the plan has recon iterations
+        recon_kw["vae_decoder"] = build(VAEDecoder, device, dtype, init_fan_in_, gen)
+        if model_cfg.get("use_identity_losses", True):
+            recon_kw["arcface"] = build_arcface(model_cfg.get("arcface_ckpt"), device, gen)
+
     enc_name = model_cfg.get("id2ada_encoder", "arc2face")
     enc_kw = {}
     scales = model_cfg.get("out_id_embs_cfg_scales")
@@ -96,7 +113,7 @@ def build_trainer(cfg: dict, args):
         seed=trainer_cfg.seed)
     print(f"{dataset.num_subjects()} subjects, {len(dataset)} images", flush=True)
     trainer = Trainer(trainer_cfg, train_cfg, {"unet": unet, "text_encoder": text}, trainable,
-                      encoder, em, vae=vae, teacher=teacher)
+                      encoder, em, vae=vae, teacher=teacher, **recon_kw)
     start_step = 0
     if args.resume:
         ck = Trainer.latest_ckpt(args.log_dir)
@@ -107,6 +124,25 @@ def build_trainer(cfg: dict, args):
     elif args.adaface_ckpt_path:
         trainer.load(args.adaface_ckpt_path)
     return trainer, dataset, start_step
+
+
+def build_arcface(path: str | None, device, gen: torch.Generator):
+    """ArcFace in fp32: converted from the torch `arcface-resnet18` checkpoint
+    at `path`, else random (the identity losses' plumbing only)."""
+    from adaface_tpu_torch.core.params import build
+    from adaface_tpu_torch.models.arcface import (ArcFace, convert_arcface_state_dict,
+                                                  init_arcface_weights_)
+    from adaface_tpu_torch.tools.ckpt_lib import load_state_dict
+
+    model = build(ArcFace, device, torch.float32, init_arcface_weights_, gen)
+    if path:
+        model.load_state_dict(convert_arcface_state_dict(load_state_dict(path)))
+        print(f"loaded arcface tower from {path}")
+    else:
+        print("WARNING: no model.arcface_ckpt — identity losses run with a RANDOM-INIT "
+              "ArcFace tower (plumbing only; pass the converted arcface-resnet18 ckpt for "
+              "meaningful identity gradients)")
+    return model
 
 
 def build_and_train(cfg: dict, args) -> dict:
