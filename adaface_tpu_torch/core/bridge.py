@@ -15,6 +15,11 @@ Where the module keeps several projections of one input as one weight
 (`attn1.qkv`, `attn2.kv` of the UNet), `load` stacks the tree's separate
 `q`, `k`, `v` leaves into it.
 
+The UNet's adapters (`attn_lora`, `ffn_lora`) go through `lora_state_dict`
+and back through `lora_tree`: a dense `a` [in, r] / `b` [r, out] becomes
+`lora_a` [r, in] / `lora_b` [out, r], a conv `a` HWIO [3, 3, in, r] / `b`
+[1, 1, r, out] becomes OIHW, `mag` becomes `magnitude`.
+
 Leaves may be numpy arrays or anything `numpy.asarray` takes (JAX arrays
 included); the bridge itself never imports JAX.
 """
@@ -159,3 +164,46 @@ def tree_state_dict(module: nn.Module) -> dict[str, np.ndarray]:
                 inverse = {v: k for k, v in BN_STATS.items()}
                 out[f"{prefix}{inverse.get(leaf, leaf)}"] = a
     return out
+
+
+# the adapters' leaves (`init_attn_lora_params`, `init_ffn_lora_params`)
+LORA_LEAVES = {"a": "lora_a", "b": "lora_b", "mag": "magnitude"}
+
+
+def lora_state_dict(tree: Any) -> dict[str, torch.Tensor]:
+    """JAX `attn_lora` / `ffn_lora` tree → the state dict of the port's
+    `AttnLoRA` / `FFNLoRA`."""
+    out = {}
+    for name, value in _walk(tree, ""):
+        a = np.asarray(value)
+        head, _, leaf = name.rpartition(".")
+        if leaf in ("a", "b"):
+            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+        leaf = LORA_LEAVES.get(leaf, leaf)
+        out[f"{head}.{leaf}" if head else leaf] = torch.from_numpy(np.array(a))
+    return out
+
+
+def lora_tree(module: nn.Module) -> dict:
+    """The inverse of `lora_state_dict`: an `AttnLoRA` / `FFNLoRA` as the
+    JAX package's nested tree of fp32 numpy arrays."""
+    inverse = {v: k for k, v in LORA_LEAVES.items()}
+    out: dict = {}
+    for name, t in module.state_dict().items():
+        head, _, leaf = name.rpartition(".")
+        a = t.detach().float().cpu().numpy()
+        if leaf in ("lora_a", "lora_b"):
+            a = a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)
+        node = out
+        for part in head.split(".") if head else ():
+            node = node.setdefault(part, {})
+        node[inverse.get(leaf, leaf)] = a
+    return out
+
+
+def load_lora(module: nn.Module, tree: Any) -> nn.Module:
+    """Load a JAX adapter tree into `module` (strict), left trainable."""
+    ref = module.state_dict()
+    module.load_state_dict({k: v.to(ref[k].dtype) if k in ref else v
+                            for k, v in lora_state_dict(tree).items()}, strict=True)
+    return module

@@ -1,8 +1,9 @@
 """Spatial resizes that BiSeNet and the training losses use, with the JAX
 package's index rules.
 
-Counterpart of `resize_nearest`, `resize_bilinear_align_corners` and
-`resize_bilinear_half_pixel` in `adaface_tpu/ops/resize.py:25,53,110`,
+Counterpart of `resize_nearest`, `resize_bilinear_align_corners`,
+`resize_bilinear_half_pixel` and `resize_bilinear_scale_factor` in
+`adaface_tpu/ops/resize.py:25,53,81,110`,
 plain PyTorch. All gather whole rows and columns with integer index
 tensors, so the source pixel of every output pixel is the one the JAX
 package takes:
@@ -11,7 +12,9 @@ package takes:
 - bilinear, align_corners=True: src = dst · (in − 1)/(out − 1) in fp32,
   blended from floor(src) and min(floor(src) + 1, in − 1);
 - bilinear, half pixel (`F.interpolate(align_corners=False)` without
-  antialiasing): src = (dst + 0.5) · in / out − 0.5, clamped to [0, in − 1].
+  antialiasing): src = (dst + 0.5) · in / out − 0.5, clamped to [0, in − 1];
+- bilinear by a scale factor s (`F.interpolate(scale_factor=s)`): out =
+  floor(in · s), src = (dst + 0.5) / s − 0.5 with the given s, not out / in.
 """
 
 from __future__ import annotations
@@ -72,3 +75,24 @@ def resize_bilinear_half_pixel(x, out_hw: tuple[int, int],
 
     x = interp_axis(x, spatial_axes[0], out_hw[0])
     return interp_axis(x, spatial_axes[1], out_hw[1])
+
+
+def resize_bilinear_scale_factor(x, scale: float, spatial_axes: tuple[int, int] = (-2, -1)):
+    """Bilinear resize by `scale` with half-pixel centres computed from the
+    given factor, as two separable 1-D gathers."""
+
+    def interp_axis(x, axis):
+        in_n = x.shape[axis]
+        out_n = int(in_n * scale)
+        if in_n == out_n:
+            return x
+        src = ((torch.arange(out_n, dtype=torch.float32, device=x.device) + 0.5) / scale
+               - 0.5).clamp(0.0, in_n - 1.0)
+        lo = torch.floor(src).long()
+        hi = torch.clamp(lo + 1, max=in_n - 1)
+        shape = [1] * x.dim()
+        shape[axis] = out_n
+        w = (src - lo).reshape(shape).to(x.dtype)
+        return x.index_select(axis, lo) * (1 - w) + x.index_select(axis, hi) * w
+
+    return interp_axis(interp_axis(x, spatial_axes[0]), spatial_axes[1])

@@ -1,19 +1,22 @@
-"""The ArcFace adversarial gradient of the recon iteration.
+"""The ArcFace adversarial gradient of the recon iteration, and the
+Laplacian-variance sharpness gate of the comp identity losses.
 
-Counterpart of `calc_arcface_adv_grad` in `adaface_tpu/train/recon_multistep.py`
-(`:85-121`, the reference's `ddpm.py:2536-2581`): the gradient, with respect
-to the input latents, of the dropped-out squared face embedding of their
-decoded image, masked to the face box in latent coordinates. The recon step
-subtracts it, scaled, from the next step's noise when its adversarial
-branch is drawn (`recon_step._adv_attacked_noise`). The rest of that module
-(the multi-step denoise of the comp iterations, `redenoise_subj_single`, the
-Laplacian-variance gate, the smoothed gradient) belongs to the comp-distill
-slice.
+Counterpart of `calc_arcface_adv_grad` and `var_of_laplacian` in
+`adaface_tpu/train/recon_multistep.py` (`:85-121`, the reference's
+`ddpm.py:2536-2581`; `:71`, `ldm/util.py:786-801`). The adversarial gradient
+is the gradient, with respect to the input latents, of the dropped-out
+squared face embedding of their decoded image, masked to the face box in
+latent coordinates; the recon step subtracts it, scaled, from the next
+step's noise when its adversarial branch is drawn
+(`recon_step._adv_attacked_noise`). `recon_multistep_denoise`,
+`redenoise_subj_single` and the smoothed gradient have no caller in the JAX
+training path and wait in ROADMAP §1.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from adaface_tpu_torch.models.vae import vae_decode
 from adaface_tpu_torch.train.face_losses import embed_face_crops
@@ -43,3 +46,18 @@ def calc_arcface_adv_grad(arcface, vae_decoder, x_start: torch.Tensor,
     x0, y0, x1, y1 = (face_bboxes[:, i, None, None] for i in range(4))
     mask = (xs >= x0) & (xs < x1) & (ys >= y0) & (ys < y1)
     return adv_grad * mask[:, None].to(adv_grad.dtype)
+
+
+RGB_TO_GRAY = (0.299, 0.587, 0.114)
+
+
+def var_of_laplacian(images: torch.Tensor, scale: float = 10.0) -> torch.Tensor:
+    """Per-image variance (unbiased, as torch's `.var()` the reference
+    calibrated on) of the 3x3 Laplacian of 10× the grey image; images
+    [B, 3, H, W] → [B] fp32."""
+    w = torch.tensor(RGB_TO_GRAY, device=images.device)
+    gray = (images.float() * w[None, :, None, None]).sum(1, keepdim=True)
+    k = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
+                     device=images.device)[None, None]
+    lap = F.conv2d(gray * scale, k, padding=1)
+    return lap.flatten(1).var(dim=1, unbiased=True)

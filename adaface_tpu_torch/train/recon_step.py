@@ -30,6 +30,12 @@ host reads back only the decoded images for detection. The JAX package's
 collect→detect→train split (`make_two_phase_recon_step`, the pipelined
 runner) worked around a relay without host callbacks and is not ported.
 
+With the attention adapters trained (Stage 2) every UNet call of an
+iteration on images runs them, gated by the batch's `recon_attn_lora_gate`
+(the planner's 50% draw) on the subject and class rows and off on the
+unconditional ones; on pure noise they stay off, and the FFN adapters are
+never on (`recon_uses_ffn_lora` is False), as in JAX (`:226-248`, `:327`).
+
 The UNet computes in `ReconStepConfig.compute_dtype` (bf16 on the card):
 `train_step.unet_runner` casts a trained UNet's fp32 weights once per
 evaluation. Random draws come from `Draws` in this order: the ada
@@ -45,6 +51,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from adaface_tpu_torch.models.unet import AttnRuntime
 from adaface_tpu_torch.models.vae import vae_decode
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.train.face_detect import (HostFaceDetector, bbox_latent_mask,
@@ -124,17 +131,14 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
                      detector: HostFaceDetector | None = None):
     """The recon iteration's loss → (loss, metrics).
 
-    params: {"sbg", optional "unet"}; frozen: {"unet", "text_encoder", and
+    params: {"sbg", optional "unet", "attn_lora"}; frozen: {"unet", "text_encoder", and
     for the identity losses "vae" (a `VAEDecoder`) and "arcface"}. batch:
     x_start [B, 4, h, w]; img_prompt_embs [B, K, D]; prompt_ids, splice_map,
     prompt_emb_mask [4B, …]; uncond_ids [1, S]; img_mask, fg_mask
     [B, 1, h, w]; ref_images [B, 3, H, W] (the input pixels); ref_face_bboxes
-    [B, 4] and ref_face_detected [B], host-detected on the inputs; optional
-    recon_rand (see `sample_recon_rand`)."""
-    if "attn_lora" in params or "ffn_lora" in params:
-        raise NotImplementedError("the UNet's attention and FFN LoRAs are not ported "
-                                  "(ROADMAP §1): a recon step trains the SubjBasisGenerator "
-                                  "and, with unfreeze_unet, the UNet")
+    [B, 4] and ref_face_detected [B], host-detected on the inputs;
+    recon_attn_lora_gate (0 or 1); optional recon_rand (see
+    `sample_recon_rand`)."""
     x_start_in = batch["x_start"]
     dev, b, hw = x_start_in.device, x_start_in.shape[0], x_start_in.shape[-1]
     draws = as_draws(draws, dev)
@@ -164,10 +168,21 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
     have_arcface = ("arcface" in frozen and "vae" in frozen
                     and rcfg.arcface_align_loss_weight > 0 and detector is not None)
     unet = unet_runner(params, frozen, dt)
+    # the attention adapters' gate (the planner's draw), off on pure noise
+    # and on the unconditional rows; no FFN adapter in recon (`:226-248`)
+    use_attn_lora = "attn_lora" in params and not on_noise
+    a_lora = params.get("attn_lora")
+    gate = torch.as_tensor(batch.get("recon_attn_lora_gate", 0.0), dtype=torch.float32,
+                           device=dev).expand(b)
+    gate2 = torch.cat([gate, torch.zeros_like(gate)])
+    rt_grad = AttnRuntime(capture=True, use_attn_lora=use_attn_lora)
+    rt_nograd = AttnRuntime(use_attn_lora=use_attn_lora)
 
     def denoise_nograd(x_t, t, ctx, mask):
         with torch.no_grad():
-            return unet(x_t.to(dt), t, ctx.to(dt), img_mask=mask).to(x_t.dtype)
+            return unet(x_t.to(dt), t, ctx.to(dt), img_mask=mask, rt=rt_nograd,
+                        attn_lora=a_lora,
+                        attn_lora_gate=gate2 if use_attn_lora else None).to(x_t.dtype)
 
     align_contribs, align_keeps, stat_contribs, stat_gates = [], [], [], []
     bg_contribs, bg_gates, det_fracs = [], [], []
@@ -192,8 +207,9 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
 
         # the subject-conditioned denoise, with gradient and capture
         cap: dict = {}
-        eps_subj = unet(x_t.to(dt), t, ctx_subj.to(dt), img_mask=img_mask,
-                        capture=cap).to(x.dtype)
+        eps_subj = unet(x_t.to(dt), t, ctx_subj.to(dt), img_mask=img_mask, capture=cap,
+                        rt=rt_grad, subj_mask=subj_mask, attn_lora=a_lora,
+                        attn_lora_gate=gate if use_attn_lora else None).to(x.dtype)
         m2 = torch.cat([img_mask, torch.ones_like(img_mask)]) if img_mask is not None else None
         eps_cls, eps_un = denoise_nograd(torch.cat([x_t, x_t]), torch.cat([t, t]),
                                          torch.cat([ctx_cls, uncond_b]), m2).chunk(2)

@@ -16,8 +16,12 @@ losses); the multi-step recon iteration is `recon_step.recon_loss_fn_v2`.
   prompt2token_proj token and position tables are frozen, as the JAX
   package keeps them in the buffers. With `unfreeze_unet` (full-UNet
   finetuning, `v1-finetune-unet.yaml`) the UNet joins it as `params["unet"]`
-  and the loss functions take it in place of `frozen["unet"]`. The CLIP
-  text tower stays frozen; gradients flow through it, not into it.
+  and the loss functions take it in place of `frozen["unet"]`. The UNet's
+  adapters (`models.unet.AttnLoRA`, `FFNLoRA`) join it as
+  `params["attn_lora"]` / `params["ffn_lora"]`: the unet-distill loss runs
+  the FFN adapter "unet_distill", the single-step recon loss both adapters
+  ("recon_loss"). The CLIP text tower stays frozen; gradients flow through
+  it, not into it.
 - Compute dtype: the unet-distill loss and `recon_loss_fn` follow the UNet's
   weights (bf16 on the card: the flash and GroupNorm Functions' backward
   kernels run there); the recon iteration computes in its configured dtype,
@@ -39,7 +43,7 @@ from torch import nn
 from adaface_tpu_torch.core.device import fp32_convolutions
 from adaface_tpu_torch.id2ada.subj_basis_generator import SubjBasisConfig, SubjBasisGenerator
 from adaface_tpu_torch.models.clip import CLIP_L_TEXT, CLIPTextConfig
-from adaface_tpu_torch.models.unet import UNetConfig
+from adaface_tpu_torch.models.unet import AttnRuntime, UNetConfig
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.text.embedding_manager import (apply_merge_map,
                                                       distribute_embedding_to_M_tokens,
@@ -71,7 +75,8 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class State:
-    params: Params  # {"sbg": SubjBasisGenerator or a list of them, optional "unet"}
+    params: Params  # {"sbg": a SubjBasisGenerator or a list; optional "unet", "attn_lora",
+    #                  "ffn_lora"}
     optimizer: MultiSteps
     step: int = 0
 
@@ -80,18 +85,23 @@ def _as_list(x) -> list:
     return list(x) if isinstance(x, (list, tuple)) else [x]
 
 
+LORA_KEYS = ("attn_lora", "ffn_lora")
+
+
 def trainable_parameters(params: Params) -> list[nn.Parameter]:
     """The parameters the optimizer moves, in a fixed order: the
     SubjBasisGenerators' (their frozen tables left out), then the UNet's
-    where it trains; marks them trainable and the frozen tables not."""
+    where it trains, then the attention and the FFN adapters'; marks them
+    trainable and the frozen tables not."""
     out = []
     for sbg in _as_list(params["sbg"]):
         for name, p in sbg.named_parameters():
             p.requires_grad_(name not in FROZEN_SBG_PARAMS)
             if p.requires_grad:
                 out.append(p)
-    if "unet" in params:
-        out.extend(p.requires_grad_(True) for p in params["unet"].parameters())
+    for key in ("unet", *LORA_KEYS):
+        if key in params:
+            out.extend(p.requires_grad_(True) for p in params[key].parameters())
     return out
 
 
@@ -101,6 +111,14 @@ def trainable_state_dicts(params: Params):
     dicts = [{name: p.detach() for name, p in sbg.named_parameters()
               if name not in FROZEN_SBG_PARAMS} for sbg in _as_list(params["sbg"])]
     return dicts if isinstance(params["sbg"], (list, tuple)) else dicts[0]
+
+
+def lora_state_dicts(params: Params) -> dict | None:
+    """The adapters' state dicts by kind (`unet_lora_modules` of a
+    checkpoint), or None where none trains."""
+    out = {key: {n: t.detach() for n, t in params[key].state_dict().items()}
+           for key in LORA_KEYS if key in params}
+    return out or None
 
 
 def compute_ada_embs(params: Params, img_prompt_embs: torch.Tensor, cfg: TrainConfig,
@@ -198,8 +216,12 @@ def recon_loss_fn(params: Params, frozen: Params, batch: Params, schedule: Diffu
     unet = params.get("unet", frozen["unet"])
     dt = _params_dtype(unet)
     cap: dict = {}
+    # the iteration's named adapters (`train_step.py:209-211` of the JAX package)
+    rt = AttnRuntime(capture=True, use_attn_lora="attn_lora" in params,
+                     use_ffn_lora="ffn_lora" in params, ffn_adapter="recon_loss")
     eps_pred = unet(x_t.to(dt), batch["t"], ctx4[:b].to(dt), img_mask=batch.get("img_mask"),
-                    capture=cap).to(x_t.dtype)
+                    capture=cap, rt=rt, subj_mask=subj_mask, attn_lora=params.get("attn_lora"),
+                    ffn_lora=params.get("ffn_lora")).to(x_t.dtype)
     with torch.no_grad():
         eps_cls = unet(x_t.to(dt), batch["t"], ctx4[2 * b:3 * b].to(dt)).to(x_t.dtype)
     loss_recon, loss_recon_cls, loss_mb = calc_recon_and_suppress_losses(
@@ -226,15 +248,18 @@ def unet_distill_loss_fn(params: Params, frozen: Params, batch: Params,
     b = batch["x_start"].shape[0]
     unet = params.get("unet", frozen["unet"])
     dt = _params_dtype(unet)
+    # the FFN adapter "unet_distill" where the adapters train (JAX `:302`, `:322`)
+    lora = dict(rt=AttnRuntime(use_ffn_lora="ffn_lora" in params, ffn_adapter="unet_distill"),
+                ffn_lora=params.get("ffn_lora"))
     if "teacher_x_ts" in batch:
         x_ts, ts = batch["teacher_x_ts"], batch["teacher_ts"]
         s = x_ts.shape[0]
         eps = unet(x_ts.reshape(s * b, *x_ts.shape[2:]).to(dt), ts.reshape(s * b),
-                   ctx4[:b].repeat(s, 1, 1).to(dt))
+                   ctx4[:b].repeat(s, 1, 1).to(dt), **lora)
         target = batch["teacher_noise_preds"].reshape(s * b, *x_ts.shape[2:])
     else:
         x_t = schedule.q_sample(batch["x_start"], batch["t"], batch["noise"])
-        eps = unet(x_t.to(dt), batch["t"], ctx4[:b].to(dt))
+        eps = unet(x_t.to(dt), batch["t"], ctx4[:b].to(dt), **lora)
         target = batch["teacher_noise_pred"]
     loss_distill = ((eps.float() - target.detach().float()) ** 2).mean()
     loss_delta = calc_prompt_emb_delta_loss(ctx4, batch.get("prompt_emb_mask"))

@@ -1,29 +1,34 @@
-"""Training orchestrator: unet-distill and recon iterations.
+"""Training orchestrator: unet-distill, recon and comp-distill iterations.
 
-Counterpart of `Trainer` in `adaface_tpu/train/trainer.py` for the
-configurations without comp-distill iterations (`comp_distill_iter_gap:
-0`): Stage 1 (`configs/stage1-distill-arc2face.yaml`, every iteration
-unet-distill) and full-UNet finetuning (`configs/finetune-unet.yaml`, every
-iteration recon, the UNet trained beside the SubjBasisGenerator). The
-dataset and its sampler (with the `skip_non_faces` resampling), the host
-prep of each batch (VAE encode of the photos, face ID → image-prompt
-embeddings, the perturbed-ID and random-ID draws, the 4-block prompt batch,
-the Dirichlet CLIP-skip weights, the frozen teacher's denoising chain, and
-for recon the host face detection on the inputs and the attn-LoRA gate), an
-optional background thread preparing batches ahead of the step, one train
-step per iteration shape (recon keyed by pure noise, the adversarial
-branch and the FFN adapter, as the JAX trainer keys its graphs) with
-accumulation (`optimizers.MultiSteps`), the NaN trap, the rolling face
-statistics, CSV logging, the profiler hook and checkpoints (with
-`unet_fp16.safetensors` when the UNet trains). Comp-distill iterations, the
-UNet hot-swap and data parallelism wait in ROADMAP §1: a configuration whose
-plan has comp-distill iterations raises at construction.
+Counterpart of `Trainer` in `adaface_tpu/train/trainer.py`: Stage 1
+(`configs/stage1-distill-arc2face.yaml`, every iteration unet-distill),
+full-UNet finetuning (`configs/finetune-unet.yaml`, every iteration recon,
+the UNet trained beside the SubjBasisGenerator) and Stage 2
+(`configs/stage2-comp-distill.yaml`: comp-distill every 4th iteration,
+unet-distill and recon between, the UNet's attention and FFN adapters
+trained where the caller hands them in as `trainable["attn_lora"]` /
+`["ffn_lora"]`). The dataset and its sampler (with the `skip_non_faces`
+resampling), the host prep of each batch (VAE encode of the photos, face ID
+→ image-prompt embeddings, the perturbed-ID and random-ID draws, the
+4-block prompt batch or the comp iteration's 5-block one with sc_rep, the
+Dirichlet CLIP-skip weights, the frozen teacher's denoising chain, for
+recon and comp the host face detection on the inputs, for recon the
+attn-LoRA gate, for comp the fallback boxes, the face-kept window and the
+optional fg-seeded start), an optional background thread preparing batches
+ahead of the step, one train step per iteration shape (comp keyed by its
+priming count, recon by pure noise, the adversarial branch and the FFN
+adapter, as the JAX trainer keys its graphs) with accumulation
+(`optimizers.MultiSteps`), the NaN trap, the rolling face statistics, CSV
+logging, the profiler hook and checkpoints (with `unet_lora_modules` when
+adapters train and `unet_fp16.safetensors` when the UNet trains). The UNet
+hot-swap for comp iterations (`comp_unet`) and data parallelism wait in
+ROADMAP §1.
 
 Random draws: each step's from two `torch.Generator`s seeded with
 (cfg.seed, the step's planner seed), one for its batch and one for its loss,
 so a step draws the same whatever thread prepares it. The dataset, the
-planner, the CLIP-skip weights and the perturbation decision draw from numpy
-RandomStates as the JAX package does.
+planner, the CLIP-skip weights, the perturbation decision and the
+fg-seeded start's plan draw from numpy RandomStates as the JAX package does.
 """
 
 from __future__ import annotations
@@ -42,20 +47,22 @@ from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.ops.resize import resize_nearest
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt, save_adaface_ckpt
+from adaface_tpu_torch.train.comp_step import CompDistillConfig, make_comp_loss_fn
 from adaface_tpu_torch.train.face_detect import HostFaceDetector
+from adaface_tpu_torch.train.init_x import init_x_with_fg_from_training_image, plan_fg_init
 from adaface_tpu_torch.train.iteration_plan import IterationPlanner
 from adaface_tpu_torch.train.optimizers import make_optimizer
-from adaface_tpu_torch.train.prompt_batch import build_4block_prompt_batch
+from adaface_tpu_torch.train.prompt_batch import (build_4block_prompt_batch,
+                                                  build_comp_prompt_batch, make_comp_rep_prompts)
 from adaface_tpu_torch.train.recon_step import ReconStepConfig, make_recon_loss_fn
-from adaface_tpu_torch.train.train_step import (State, TrainConfig, init_state, make_train_step,
+from adaface_tpu_torch.train.train_step import (LORA_KEYS, State, TrainConfig, init_state,
+                                                lora_state_dicts, make_train_step,
                                                 trainable_parameters, trainable_state_dicts,
                                                 unet_distill_loss_fn)
 from adaface_tpu_torch.utils.monitor import MetricsLogger, ProfilerHook, RollingStats
 from adaface_tpu_torch.utils.tensor import Draws, anneal_perturb_embedding
 
 Params = dict[str, Any]
-NOT_PORTED = ("comp-distill iterations are not ported (ROADMAP §1, item 7): the trainer takes "
-              "comp_distill_iter_gap 0 (unet-distill and recon iterations)")
 ITER_TYPE_ID = {"recon": 0, "unet_distill": 1, "comp_distill": 2}
 
 
@@ -117,17 +124,19 @@ def img_prompt_embs_to_context(img_prompt_embs: torch.Tensor) -> torch.Tensor:
 class Trainer:
     def __init__(self, cfg: TrainerConfig, train_cfg: TrainConfig, frozen: Params,
                  trainable: Params, id2ada_encoder, embedding_manager, vae=None, teacher=None,
-                 vae_decoder=None, arcface=None, host_detector: HostFaceDetector | None = None):
+                 vae_decoder=None, arcface=None, host_detector: HostFaceDetector | None = None,
+                 comp_cfg: CompDistillConfig = CompDistillConfig()):
         """frozen: {"unet", "text_encoder"} modules; trainable: {"sbg": a
-        SubjBasisGenerator or a list}; vae: a `VAEEncoder` or None (then
-        x_start is drawn from N(0, 1) at image_size / 8); vae_decoder (a
-        `VAEDecoder`) and arcface (an `ArcFace`): the recon loss's identity
+        SubjBasisGenerator or a list; optional "attn_lora" (`AttnLoRA`),
+        "ffn_lora" (`FFNLoRA`)}; vae: a `VAEEncoder` or None (then x_start is
+        drawn from N(0, 1) at image_size / 8); vae_decoder (a `VAEDecoder`)
+        and arcface (an `ArcFace`): the recon and comp losses' identity
         towers, kept in `frozen` as "vae" and "arcface"; host_detector: the
         face detector on the inputs and the recons (default: the backend
-        chain of `HostFaceDetector`)."""
-        if cfg.comp_distill_iter_gap != 0:
-            raise NotImplementedError(NOT_PORTED)
+        chain of `HostFaceDetector`); comp_cfg: the comp iteration's config
+        (its priming count is the planner's)."""
         self.cfg = cfg
+        self.comp_cfg = comp_cfg
         self.tcfg = train_cfg
         self.frozen = frozen
         self.vae = vae
@@ -171,20 +180,26 @@ class Trainer:
         return init_state(trainable, opt)
 
     def _get_step(self, flags):
-        """One step function per iteration shape: recon keyed by the
-        pure-noise, adversarial and FFN-adapter draws (`ddpm.py:2305-2339`),
-        as the JAX trainer keys its graphs."""
-        if flags.iter_type == "recon":
+        """One step function per iteration shape, keyed as the JAX trainer
+        keys its graphs (`trainer.py:237-246`): comp by the planner's priming
+        count (`ddpm.py:2388`), recon by the pure-noise, adversarial and
+        FFN-adapter draws (`ddpm.py:2305-2339`)."""
+        if flags.iter_type == "comp_distill":
+            key = ("comp_distill", flags.num_priming_steps)
+        elif flags.iter_type == "recon":
             key = ("recon", flags.normal_recon_on_pure_noise, flags.do_adv_attack,
                    flags.recon_ffn_adapter)
-        elif flags.iter_type == "unet_distill":
-            key = ("unet_distill",)
         else:
-            raise NotImplementedError(NOT_PORTED)
+            key = ("unet_distill",)
         if key not in self._steps:
-            if flags.iter_type == "recon":
+            if flags.iter_type == "comp_distill":
+                ccfg = dataclasses.replace(self.comp_cfg,
+                                           num_priming_steps=flags.num_priming_steps)
+                loss_fn = make_comp_loss_fn(ccfg, self.host_detector)
+            elif flags.iter_type == "recon":
                 # the FFN adapter keys a step of its own, as in JAX, but
-                # selects nothing: no FFN LoRA is ported
+                # selects nothing: recon runs no FFN adapter
+                # (`recon_uses_ffn_lora` is False)
                 rcfg = dataclasses.replace(
                     self.cfg.recon_cfg, on_pure_noise=flags.normal_recon_on_pure_noise,
                     do_adv_attack=flags.do_adv_attack)
@@ -207,12 +222,13 @@ class Trainer:
                        input_dets=None) -> Params:
         """One batch on the device. Draws, in order: x_start without a VAE,
         the random-ID path's x_start and ID draws, the perturbation's three,
-        the noise, the timesteps (unet-distill [700, 900), recon [20, 999),
-        which the recon loss does not read: it draws its own), the teacher's
-        chain. Recon batches also carry the input pixels with their host
-        detections (`input_dets`, or detected here) and the attn-LoRA gate."""
-        if flags.iter_type not in ("unet_distill", "recon"):
-            raise NotImplementedError(NOT_PORTED)
+        the noise, the timesteps (unet-distill [700, 900), the others [20,
+        999), which the recon and comp losses do not read: they draw their
+        own), the teacher's chain, the fg-seeded start's three noises. Recon
+        and comp batches also carry the input pixels with their host
+        detections (`input_dets`, or detected here); recon the attn-LoRA
+        gate; comp the 5-block prompts, the fallback boxes from the input
+        detection, the face-kept window and the fg percent."""
         dev = self.device
         batch = collate_batch(examples)
         b = len(examples)
@@ -234,6 +250,7 @@ class Trainer:
             x_start = draws.normal((b, 4, hw, hw), dev)
 
         is_distill = flags.iter_type == "unet_distill"
+        is_comp = flags.iter_type == "comp_distill"
         rs_iter = np.random.RandomState(flags.seed ^ 0x5EED)
         gen_rand_id = is_distill and rs_iter.rand() < self.cfg.p_gen_rand_id_for_id2img
         perturb_ids = (is_distill and not gen_rand_id
@@ -258,7 +275,14 @@ class Trainer:
                 tuple(self.cfg.perturb_face_id_embs_std_range), None, 1.0, keep_norm=True)
             img_prompt_embs = torch.cat([img_prompt_embs[:1], rest])
 
-        pb = build_4block_prompt_batch(self.em, *prompts)
+        if is_comp:
+            # the 5-block batch [ss ‖ sc ‖ sc_rep ‖ cs ‖ cc]: sc_rep repeats the
+            # compositional part (`ddpm.py:1386-1396`)
+            sc_rep = make_comp_rep_prompts(prompts[1], batch["prompt_modifier"],
+                                           batch["compos_partial_prompt"])
+            pb = build_comp_prompt_batch(self.em, prompts[0], prompts[1], sc_rep, *prompts[2:])
+        else:
+            pb = build_4block_prompt_batch(self.em, *prompts)
 
         def as_t(a, dtype=None):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -283,9 +307,11 @@ class Trainer:
             "clip_skip_weights": as_t(skip, torch.float32),
             "clip_skip_weights_fixed": as_t(alpha / alpha.sum(), torch.float32),
         }
+        if "prompt_pad_mask" in pb:
+            out["prompt_pad_mask"] = as_t(pb["prompt_pad_mask"], torch.float32)
         if "merge_map" in pb:
             out["merge_map"] = as_t(pb["merge_map"], torch.int64)
-        if flags.iter_type == "recon":
+        if flags.iter_type in ("recon", "comp_distill"):
             # the input faces: the reference side of the identity losses
             nchw = images.transpose(0, 3, 1, 2)
             det = input_dets if input_dets is not None else self.host_detector(nchw)
@@ -293,8 +319,11 @@ class Trainer:
             out["ref_images"] = as_t(nchw, torch.float32)
             out["ref_face_bboxes"] = as_t(det.fg_bboxes, torch.float32)
             out["ref_face_detected"] = as_t(det.detected, torch.float32)
+        if flags.iter_type == "recon":
             out["recon_attn_lora_gate"] = torch.tensor(
                 1.0 if flags.recon_enable_attn_lora else 0.0, device=dev)
+        elif is_comp:
+            self._prepare_comp(out, batch, flags, draws, hw)
         elif self.teacher is not None:
             cfg_scale = self.teacher.sample_cfg_scale(np.random.RandomState(flags.seed))
             preds, x_starts, noises, ts = self.teacher(
@@ -308,6 +337,30 @@ class Trainer:
         else:
             out["teacher_noise_pred"] = noise
         return out
+
+    def _prepare_comp(self, out: Params, batch: dict, flags, draws: Draws, hw: int) -> None:
+        """The comp half of a batch (`trainer.py:478-511`): the fallback
+        boxes from the input detection in latent coordinates, the face-kept
+        window of earlier comp iterations, the fg percent, and with
+        `p_init_fg_from_training_image` the fg-seeded start."""
+        dev = self.device
+        in_bb = out["ref_face_bboxes"] * (hw / self.cfg.image_size)
+        out["ss_face_bboxes"] = in_bb
+        out["sc_face_bboxes"] = in_bb.clone()
+        kept = self.face_stats.buffers.get("comp_sc_face_kept")
+        n = len(kept) if kept else 0
+        out["comp_sc_face_detected_mean"] = torch.tensor(
+            self.face_stats.mean("comp_sc_face_kept") if n else 1.0, device=dev)
+        out["comp_sc_face_detected_n"] = torch.tensor(float(n), device=dev)
+        fg_percent = float(np.mean(batch["fg_mask"]))
+        out["sc_fg_mask_percent"] = torch.tensor(fg_percent, device=dev)
+        rs = np.random.RandomState(flags.seed)
+        if (rs.rand() < self.comp_cfg.p_init_fg_from_training_image
+                and float(np.sum(batch["fg_mask"])) > 0):
+            scale, dh, dw = plan_fg_init(fg_percent, rs, hw=tuple(out["x_start"].shape[-2:]))
+            out["comp_x_base"], out["fg_mask"] = init_x_with_fg_from_training_image(
+                out["x_start"], out["fg_mask"], draws, scale=scale, dh=dh, dw=dw)
+            out["sc_fg_mask_percent"] = torch.tensor(fg_percent * scale * scale, device=dev)
 
     # ---------------------------------------------------------------- run
     def _batch_iterator(self, dataset: PersonalizedBase, num_steps: int, start_step: int = 0):
@@ -388,6 +441,9 @@ class Trainer:
         # `normal_recon_face_images_on_image_stats` (`ddpm.py:213-224`)
         if "recon_face_detected_frac" in metrics:
             self.face_stats.update("face_detected", float(metrics["recon_face_detected_frac"]))
+        # the comp identity losses' window (`comp_sc_face_detected_frac`)
+        if "comp_sc_face_kept_any" in metrics:
+            self.face_stats.update("comp_sc_face_kept", float(metrics["comp_sc_face_kept_any"]))
         self.logger.log_dict(step, {**metrics,
                                     "face_detected_window": self.face_stats.mean("face_detected"),
                                     "iter_type_id": ITER_TYPE_ID[flags.iter_type]})
@@ -416,11 +472,13 @@ class Trainer:
 
     # -------------------------------------------------------- checkpoints
     def save(self, step: int) -> str:
-        """The SubjBasisGenerator(s) as an AdaFace checkpoint; with
-        `unfreeze_unet` also the UNet as `unet_fp16.safetensors` beside it,
-        under the JAX UNet tree's flat names (`ddpm.py:4041-4062`)."""
+        """The SubjBasisGenerator(s) as an AdaFace checkpoint, with the
+        adapters' state dicts under `unet_lora_modules` where they train;
+        with `unfreeze_unet` also the UNet as `unet_fp16.safetensors` beside
+        it, under the JAX UNet tree's flat names (`ddpm.py:4041-4062`)."""
         out = os.path.join(self.cfg.log_dir, f"checkpoints/embeddings_gs-{step}")
-        out = save_adaface_ckpt(out, step, {"joint": trainable_state_dicts(self.state.params)})
+        out = save_adaface_ckpt(out, step, {"joint": trainable_state_dicts(self.state.params)},
+                                unet_lora_params=lora_state_dicts(self.state.params))
         if self.cfg.unfreeze_unet and "unet" in self.state.params:
             from adaface_tpu_torch.core.bridge import tree_state_dict
             from adaface_tpu_torch.tools.ckpt_lib import cast_fp16, save_state_dict
@@ -430,8 +488,9 @@ class Trainer:
         return out
 
     def load(self, ckpt_dir: str) -> int:
-        """Warm-start the SubjBasisGenerator(s) from a checkpoint; the
-        optimizer restarts. → the saved step."""
+        """Warm-start the SubjBasisGenerator(s), and the adapters where the
+        checkpoint and the trainer both have them (`trainer.py:747-751`),
+        from a checkpoint; the optimizer restarts. → the saved step."""
         state, manifest = load_adaface_ckpt(ckpt_dir)
         sbgs = state.get("subj_basis_generators", {})
         if sbgs:
@@ -446,6 +505,10 @@ class Trainer:
                     raise ValueError(f"{ckpt_dir}: checkpoint does not match the "
                                      f"SubjBasisGenerator (missing {missing}, unexpected "
                                      f"{unexpected})")
+        lora = state.get("unet_lora_modules") or {}
+        for key in LORA_KEYS:
+            if key in lora and key in self.state.params:
+                self.state.params[key].load_state_dict(lora[key], strict=True)
         self.state = self._init_state(self.state.params)
         step = int(manifest.get("step", 0))
         print(f"warm-started from {ckpt_dir} (step {step})")

@@ -6,11 +6,14 @@ block mappings by indentation, inline lists `[a, b]` and mappings
 `{k: v}`, `#` comments, and PyYAML's (YAML 1.1) scalars: null, booleans,
 integers, floats with a dot, quoted and plain strings. Anything else (block
 sequences, anchors, multi-line scalars) raises. `apply_dotlist` applies
-`key.path=value` overrides as `train.py` does.
+`key.path=value` overrides as `train.py` does; `known_fields` keeps the keys
+of a section that name a dataclass's fields, as `train.py` filters the
+`model:` and `comp_distill:` sections into its configs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 
 _INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
@@ -145,3 +148,13 @@ def apply_dotlist(cfg: dict, overrides: list[str]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = value(val)
     return cfg
+
+
+def known_fields(cls, section: dict | None) -> tuple[dict, list[str]]:
+    """(the keys of `section` that are fields of the dataclass `cls`, lists
+    as tuples; the keys dropped), as `train.py:166-169` and `:193-196`
+    filter a YAML section into a config."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    section = section or {}
+    kept = {k: tuple(v) if isinstance(v, list) else v for k, v in section.items() if k in names}
+    return kept, sorted(k for k in section if k not in names)

@@ -96,7 +96,23 @@ Phases (any failure raises and the exit code is not 0):
      parameters, the backward launches as the graphs hold them (the D 512
      flash backward and the GroupNorm backward at the decoder's maps), the
      checkpoint with `unet_fp16.safetensors` reloaded; a micro-step's split,
-     the busy share, the peak memory, and the adversarial ArcFace gradient.
+     the busy share, the peak memory, and the adversarial ArcFace gradient;
+ 10. Stage-2 compositional distillation at full SD1.5 width through the same
+     entry points with `configs/stage2-comp-distill.yaml` (comp-distill every
+     4th micro-step, recon and unet-distill between; the joint encoder's two
+     SubjBasisGenerators, with the UNet's attention and FFN adapters at rank
+     192 added as trainables; a detector of one central face injected): the
+     backward kernels at the new shapes (flash at UNet batch 12, D 512 at
+     batch 3, GroupNorm at one UNet and one decoder map) against plain; the
+     masked D 40 forward's plan and device time at batches 2 and 4; one comp
+     step's gradients kernels against plain at batch 1, the adapters' unused
+     parts exactly 0; 8 micro-steps (comp at 4 and 3 priming steps, recon,
+     unet-distill) with finite losses and the parameters moved at each update
+     with a learning rate, the backward launches per micro-step as the graphs
+     hold them against the fit's counts, the checkpoint with
+     `unet_lora_modules` reloaded; a comp micro-step's split, its busy share,
+     the peak memory, seconds per optimizer step, and a profiled recon
+     micro-step's flash forward launches by shape and mask.
 Before phase 4, `flash_attention` and `group_norm_silu` are held to record
 their autograd Functions on inputs that require grad, with the backward
 kernels' launches and gradients (`check_autograd_functions`).
@@ -112,6 +128,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -2071,14 +2088,15 @@ def flash_library_backward(q, k, v, g, backends=("FLASH_ATTENTION",)):
     return None, None
 
 
-def check_flash_bwd(gen) -> dict:
+def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
     """The three backward kernels against `flash_bwd_chunked` (dq, dk, dv)
-    at every path shape, plus masked and causal cases; two runs to the same
-    bits; times of the whole backward and of each kernel."""
+    at every path shape (`cases`: the student UNet's at batch 16 and the VAE
+    decoder's at batch 2 unless given), plus masked and causal cases; two
+    runs to the same bits; times of the whole backward and of each kernel."""
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
-    for label, b, h, sq, sk, d in FLASH_BWD_CASES + FLASH_BWD_VAE:
+    for label, b, h, sq, sk, d in (cases or FLASH_BWD_CASES + FLASH_BWD_VAE):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -2133,7 +2151,7 @@ def check_flash_bwd(gen) -> dict:
         results[label] = res
         del q, k, v, out, g, got, kernel
         torch.cuda.empty_cache()
-    for label, d, causal in FLASH_BWD_MASKED:
+    for label, d, causal in FLASH_BWD_MASKED if masked else ():
         q, k, v = flash_inputs(gen, "self", 2, 2, 200, 177, d)
         mask = torch.ones((2, 177), device="cuda")
         mask[1] = 0.0
@@ -2154,21 +2172,25 @@ def check_flash_bwd(gen) -> dict:
     return results
 
 
-def check_gn_bwd(gen) -> dict:
+def check_gn_bwd(gen, cases=None) -> dict:
     """The GroupNorm backward (`gn_stats`, `gn_bwd_reduce`, `gn_bwd_dx`)
     against the closed-form plain VJP (dx, dγ, dβ) at every UNet GroupNorm
-    shape at batch 16, and fp32; two runs to the same bits."""
+    shape at batch 16, fp32, and the VAE decoder's maps at batch 2 (with the
+    off-path cases without SiLU), or at `cases` (label, shape, eps, silu,
+    dtype) alone; two runs to the same bits."""
     from adaface_tpu_torch.ops import fused_gn as G
 
     results = {}
-    cases = [(f"{label} batch 16", (16, c, hw, hw), eps, silu, torch.bfloat16)
-             for label, c, hw, eps, silu, _ in UNET_GN]
-    cases.append(("resnet 64x64 320 fp32", (2, 320, 64, 64), 1e-5, True, torch.float32))
-    cases += [(f"vae {label} batch 2", (2, c, hw, hw), 1e-6, silu, torch.bfloat16)
-              for label, c, hw, silu, dec, _ in VAE_GN if dec]
-    # the decoder's resnet shapes without SiLU: off the path, checked untimed
-    off_path = [(f"vae {label} batch 2 no silu", (2, c, hw, hw), 1e-6, False, torch.bfloat16)
-                for label, c, hw, silu, dec, _ in VAE_GN if dec and silu]
+    off_path = []
+    if cases is None:
+        cases = [(f"{label} batch 16", (16, c, hw, hw), eps, silu, torch.bfloat16)
+                 for label, c, hw, eps, silu, _ in UNET_GN]
+        cases.append(("resnet 64x64 320 fp32", (2, 320, 64, 64), 1e-5, True, torch.float32))
+        cases += [(f"vae {label} batch 2", (2, c, hw, hw), 1e-6, silu, torch.bfloat16)
+                  for label, c, hw, silu, dec, _ in VAE_GN if dec]
+        # the decoder's resnet shapes without SiLU: off the path, checked untimed
+        off_path = [(f"vae {label} batch 2 no silu", (2, c, hw, hw), 1e-6, False,
+                     torch.bfloat16) for label, c, hw, silu, dec, _ in VAE_GN if dec and silu]
     for label, shape, eps, silu, dtype in off_path:
         x, scale, bias = gn_inputs(gen, shape, dtype)
         g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -2920,6 +2942,498 @@ def train_finetune(gen) -> dict:
                 grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms)
 
 
+STAGE2_CONFIG = "configs/stage2-comp-distill.yaml"
+# micro-steps of the Stage-2 phase: 4 optimizer updates at the config's
+# accumulation of 2; the planner (comp every 4th micro-step, unet-distill every
+# 5th of the others) draws comp at 0 (4 priming steps) and 4 (3), unet-distill
+# at 6 and recon at the others
+STAGE2_MICRO_STEPS = 8
+STAGE2_TYPES = ["comp_distill", "recon", "recon", "recon", "comp_distill", "recon",
+                "unet_distill", "recon"]
+# one comp step's gradients at batch 1 (UNet batch 4: the plain attention's
+# fp32 scores at batch 12 would not fit), kernels against plain (bf16 both),
+# relative L2 over each part's: a few times what the card reads (PERF.md §6:
+# 9.2-9.5e-4, 9.9e-5, 1.8-1.9e-3 on an H100)
+STAGE2_GRAD_REL_L2 = {"sbg": 5e-3, "attn_lora": 1e-3, "ffn_lora": 5e-3}
+# the backward kernels at Stage 2's new shapes: the UNet's six at batch 12 (the
+# comp step's 4 blocks x batch 3), the decoder's D 512 at batch 3 (a step's
+# subject-comp decode), the GroupNorm backward at one UNet and one decoder map
+FLASH_BWD_STAGE2 = [(f"{label} batch 12", 12, *dims) for label, _, *dims in FLASH_CASES[:-1]]
+FLASH_BWD_STAGE2_VAE = [("vae mid self batch 3", 3, 1, 4096, 4096, 512)]
+GN_BWD_STAGE2 = [("resnet 64x64 320 batch 12", (12, 320, 64, 64), 1e-5, True, torch.bfloat16),
+                 ("vae resnet 512x512 256 batch 3", (3, 256, 512, 512), 1e-6, True,
+                  torch.bfloat16)]
+
+
+def add_adapters(trainer, gen) -> dict:
+    """The UNet's attention and FFN adapters at its config's rank (fp32, the
+    JAX initialisers' scales) joined to the trainer's trainables, as
+    `tests/test_train.py:367-373` adds them; the optimizer restarts over the
+    new set."""
+    from adaface_tpu_torch.core.params import build
+    from adaface_tpu_torch.models.unet import AttnLoRA, FFNLoRA, init_lora_weights_
+
+    cfg = trainer.frozen["unet"].cfg
+    lora = {"attn_lora": build(lambda: AttnLoRA(cfg), "cuda", torch.float32,
+                               init_lora_weights_, gen),
+            "ffn_lora": build(lambda: FFNLoRA(cfg), "cuda", torch.float32, init_lora_weights_,
+                              gen)}
+    trainer.state = trainer._init_state(dict(trainer.state.params, **lora))
+    return lora
+
+
+def comp_loss_for(trainer, flags):
+    """The comp loss function the trainer builds for `flags`."""
+    from adaface_tpu_torch.train.comp_step import make_comp_loss_fn
+
+    ccfg = dataclasses.replace(trainer.comp_cfg, num_priming_steps=flags.num_priming_steps)
+    return make_comp_loss_fn(ccfg, trainer.host_detector)
+
+
+def comp_grads(trainer, flags, batch) -> tuple[dict, float]:
+    """({part: the gradients of its parameters}, the loss) of one comp step on
+    `batch`, its loss's draws from the step's fresh stream."""
+    from adaface_tpu_torch.core.device import fp32_convolutions
+
+    params = trainer.state.optimizer.params
+    for p in params:
+        p.grad = None
+    loss, _ = comp_loss_for(trainer, flags)(trainer.state.params, trainer.frozen, batch,
+                                            trainer.schedule, trainer.tcfg,
+                                            trainer.draws_for(flags, loss=True))
+    with fp32_convolutions():  # as `make_train_step` runs the backward
+        loss.backward()
+    parts = {"sbg": [p for sbg in trainer.state.params["sbg"] for p in sbg.parameters()
+                     if p.requires_grad]}
+    for key in ("attn_lora", "ffn_lora"):
+        parts[key] = list(trainer.state.params[key].parameters())
+    names = {key: [n for n, _ in trainer.state.params[key].named_parameters()]
+             for key in ("attn_lora", "ffn_lora")}
+    out = {key: [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+                 for p in ps] for key, ps in parts.items()}
+    for p in params:
+        p.grad = None
+    return dict(out, names=names), loss.item()
+
+
+def comp_step_split(trainer, dataset, flags) -> dict:
+    """One comp micro-step on the host clock, split into host prep (the batch:
+    collate, VAE encode, face ID → image prompts, input detection, prompts),
+    the text encode, the priming, the denoising steps with gradient, the
+    decodes, host detection on the recons, the ArcFace losses, the
+    subject-single re-denoise, the rest of the forward, the backward and the
+    optimizer, each timed with the device synchronized around it."""
+    from adaface_tpu_torch.core.device import fp32_convolutions
+    from adaface_tpu_torch.train import comp_face_align as CF
+    from adaface_tpu_torch.train import comp_step as CS
+    from adaface_tpu_torch.train.train_step import trainable_parameters
+
+    examples = [dataset[i] for i in range(trainer.cfg.batch_size)]
+    batch, prep_ms = sync_ms(lambda: trainer._prepare_batch(examples, flags,
+                                                            trainer.draws_for(flags)))
+    timer = SyncTimer()
+    timer.wrap(CS, "encode_comp_prompts", "text")
+    timer.wrap(CS, "prime_comp_x_start", "priming")
+    timer.wrap(CS, "comp_distill_denoise", "denoise")
+    timer.wrap(CF, "vae_decode", "decode")
+    timer.wrap(CF, "detect_faces", "detection")
+    timer.wrap(CF, "calc_arcface_align_loss", "arcface")
+    timer.wrap(CF, "calc_bg_faces_suppress_loss", "arcface")
+    timer.wrap(CF, "ss_redenoise_loop", "redenoise")
+    params = trainable_parameters(trainer.state.params)
+    for p in params:
+        p.grad = None
+    with timer:
+        (loss, _), fwd_ms = sync_ms(lambda: comp_loss_for(trainer, flags)(
+            trainer.state.params, trainer.frozen, batch, trainer.schedule, trainer.tcfg,
+            trainer.draws_for(flags, loss=True)))
+    with fp32_convolutions():
+        _, bwd_ms = sync_ms(loss.backward)
+    update, opt_ms = sync_ms(trainer.state.optimizer.step)
+    parts = {k: timer.ms.get(k, 0.0) for k in ("text", "priming", "denoise", "decode",
+                                               "detection", "arcface", "redenoise")}
+    return dict(priming_steps=flags.num_priming_steps, host_prep_ms=prep_ms,
+                **{f"{k}_ms": v for k, v in parts.items()},
+                other_forward_ms=fwd_ms - sum(parts.values()), backward_ms=bwd_ms,
+                optimizer_ms=opt_ms, update=update, total_ms=prep_ms + fwd_ms + bwd_ms + opt_ms)
+
+
+def masked_flash_breakdown(gen) -> dict:
+    """The recon path's masked self-attention at 64x64 (S 4096, D 40, 8 heads;
+    q, k, v views of one [B, S, 3·H·D] projection, as the UNet lays them out)
+    at batches 2 and 4: the plan `flash_plan` gives, and the device time of a
+    launch (20 as a CUDA graph) without a mask, with an all-ones mask and
+    with a mask that drops a quarter of the keys, each against the plain
+    version's output."""
+    from adaface_tpu_torch.ops import attention as A
+
+    out = {}
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in (2, 4):
+        h, s, d = 8, 4096, 40
+        qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in qkv.split(h * d, dim=-1))
+        ones = torch.ones((b, s), device="cuda")
+        part = ones.clone()
+        part[:, : s // 4] = 0.0  # the top rows of a map, as an augmentation's blank border
+        plan = A.flash_plan(q.dtype, b, h, s, s, d, sm)
+        row = {"plan": dataclasses.asdict(plan) if dataclasses.is_dataclass(plan) else str(plan)}
+        for name, mask in (("unmasked", None), ("all-ones mask", ones),
+                           ("quarter masked", part)):
+            got = A._flash_cuda(q, k, v, mask, False, d ** -0.5)
+            ref = A.scaled_dot_product_attention(q, k, v, kv_mask=mask, scale=d ** -0.5)
+            err, mag = max_err(got, ref)
+            row[name] = {"graph_ms": graph_ms(lambda: A._flash_cuda(q, k, v, mask, False,
+                                                                   d ** -0.5)), "err": err}
+            if err > BF16_TOL * mag:
+                raise AssertionError(f"masked flash B{b} {name}: {err} against {mag}")
+        log(f"masked flash forward B{b} H{h} S{s} D{d}: plan {row['plan']}; device ms a launch "
+            + ", ".join(f"{k} {v['graph_ms']:.4f}" for k, v in row.items() if k != "plan"))
+        out[b] = row
+    return out
+
+
+def recon_flash_profile(trainer, dataset, flags) -> dict:
+    """One recon micro-step on images (the attn-LoRA gate off), profiled with
+    each flash forward launch recorded in order (batch, query and key length,
+    head dim, masked), so the kernel events, in the same order on the one
+    stream, are summed by shape and mask."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.ops import attention as A
+
+    batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], flags,
+                                   trainer.draws_for(flags))
+    step_fn = trainer._get_step(flags)
+    step_fn(trainer.state, batch, trainer.draws_for(flags, loss=True))  # warm the plans
+    seen, real = [], A._flash_cuda
+
+    def recorded(q, k, v, kv_mask, causal, scale):
+        seen.append((q.shape[0], q.shape[2], k.shape[2], q.shape[3], kv_mask is not None))
+        return real(q, k, v, kv_mask, causal, scale)
+
+    torch.cuda.synchronize()
+    with mock.patch.object(A, "_flash_cuda", recorded), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(trainer.state, batch, trainer.draws_for(flags, loss=True))
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and re.search(r"flash_fwd_(wg_|wide_)?kernel", e.name)]
+    events.sort(key=lambda e: e.time_range.start)
+    if len(events) != len(seen):
+        raise AssertionError(f"recon profile: {len(seen)} flash launches, {len(events)} events")
+    groups: dict = {}
+    for shape, e in zip(seen, events):
+        n, us = groups.get(shape, (0, 0.0))
+        groups[shape] = (n + 1, us + e.device_time)
+    for (b, sq, sk, d, masked), (n, us) in sorted(groups.items()):
+        log(f"recon flash forward B{b} Sq{sq} Sk{sk} D{d} {'masked' if masked else 'unmasked'}: "
+            f"{n} launches, {us / 1e3:.3f} ms, {us / 1e3 / n:.4f} ms a launch")
+    return {f"B{b} Sq{sq} Sk{sk} D{d} {'masked' if m else 'unmasked'}": (n, us / 1e3)
+            for (b, sq, sk, d, m), (n, us) in groups.items()}
+
+
+def train_stage2(gen) -> dict:
+    """Stage-2 compositional distillation on the card at full SD1.5 width,
+    through `train_torch.build_trainer` and `Trainer.fit` with STAGE2_CONFIG
+    (comp-distill every 4th micro-step, unet-distill and recon between; the
+    joint encoder's two SubjBasisGenerators, CLIP-L text and a random ArcFace
+    in fp32; the SD1.5 UNet and the VAE in bf16, the losses computing in
+    bf16; prodigy, grad clip 0.2, batch 3, accumulation 2) on synthetic
+    512x512 PNGs with a detector of one central face injected, plus the
+    UNet's attention and FFN adapters at rank 192 as trainables. First the
+    backward kernels at this slice's new shapes (FLASH_BWD_STAGE2, GN_BWD_STAGE2)
+    against their plain versions; then one comp step's gradients, kernels
+    against plain, at batch 1, with the adapters' unused parts exactly 0;
+    STAGE2_MICRO_STEPS micro-steps (two comp iterations at 4 and 3 priming
+    steps, recon, unet-distill) with finite losses and the parameters moved
+    at each update whose learning rate is not 0; the backward launches as the
+    autograd graphs hold them, per micro-step; the fit's checkpoint with
+    `unet_lora_modules` reloads equal; a comp micro-step's split and busy
+    share, the peak memory and seconds per optimizer step."""
+    import tempfile
+
+    import train_torch
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.train import trainer as T
+    from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
+    from adaface_tpu_torch.train.comp_step import sample_comp_rand
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+    from adaface_tpu_torch.train.optimizers import _lr_at
+    from adaface_tpu_torch.train.train_step import trainable_state_dicts
+
+    flash_bwd = check_flash_bwd(gen, FLASH_BWD_STAGE2 + FLASH_BWD_STAGE2_VAE, masked=False)
+    gn_bwd = check_gn_bwd(gen, GN_BWD_STAGE2)
+    masked = masked_flash_breakdown(gen)
+    torch.cuda.empty_cache()
+    bwd_keys = (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, A.FLASH_BWD_PREP_WIDE,
+                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE, GN_BWD_DX)
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            f"trainer.ckpt_every={STAGE2_MICRO_STEPS}", "--base",
+            os.path.join(repo, STAGE2_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs"), "--max_steps", str(STAGE2_MICRO_STEPS)])
+        t0 = time.perf_counter()
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        lora = add_adapters(trainer, gen)
+        torch.cuda.synchronize()
+        n_lora = sum(p.numel() for m in lora.values() for p in m.parameters())
+        log(f"stage2: the stack at full width on the card in {time.perf_counter() - t0:.1f} s; "
+            f"{len(trainer.state.optimizer.params)} trainable tensors, "
+            f"{sum(p.numel() for p in trainer.state.optimizer.params)} parameters (the adapters "
+            f"{n_lora} at rank {trainer.frozen['unet'].cfg.lora_rank}; {len(trainer.state.params['sbg'])} "
+            f"SubjBasisGenerators); UNet {next(trainer.frozen['unet'].parameters()).dtype}, "
+            f"compute {trainer.comp_cfg.compute_dtype}; optimizer {trainer.cfg.optimizer}, "
+            f"accumulation {trainer.cfg.accum_steps}, batch {trainer.cfg.batch_size}, prefetch "
+            f"{trainer.cfg.prefetch}; comp {trainer.comp_cfg.num_denoising_steps} denoising "
+            f"steps, attn_norm_weight {trainer.comp_cfg.attn_norm_weight}, rep_distill_weight "
+            f"{trainer.comp_cfg.rep_distill_weight}")
+        trainer.host_detector = HostFaceDetector(detector_fn=central_face)
+        if "arcface" not in trainer.frozen or "vae" not in trainer.frozen:
+            raise AssertionError("stage2: the identity towers are not wired")
+
+        # one comp step's gradients at batch 1, kernels against plain
+        flags = trainer.planner.plan(0)
+        trainer.planner = type(trainer.planner)(**{
+            f.name: getattr(trainer.planner, f.name)
+            for f in dataclasses.fields(trainer.planner)})  # the fit plans from step 0 again
+        one = trainer._prepare_batch([dataset[0]], flags, trainer.draws_for(flags))
+        kernel_grads, kernel_loss = comp_grads(trainer, flags, one)
+        with plain_versions():
+            plain_grads, plain_loss = comp_grads(trainer, flags, one)
+        grad_rel = {k: rel_l2_lists(kernel_grads[k], plain_grads[k])
+                    for k in ("sbg", "attn_lora", "ffn_lora")}
+        finite = all(torch.isfinite(g).all() for k in grad_rel for g in kernel_grads[k])
+        gates = sample_comp_rand(trainer.draws_for(flags, loss=True), one["noise"],
+                                 trainer.schedule, trainer.comp_cfg)["den_ffn_gates"]
+        zero = {}
+        for key in ("attn_lora", "ffn_lora"):
+            for n, g in zip(kernel_grads["names"][key], kernel_grads[key]):
+                zero[f"{key}.{n}"] = not g.any().item()
+        # never run in a comp step: the k / v adapters, the other FFN names
+        unused = {n for n in zero if ".k." in n or ".v." in n or n.startswith(
+            ("ffn_lora.recon_loss.", "ffn_lora.unet_distill."))}
+        # run, with a gradient: the out adapters and the normalization's scale
+        # factors, and the comp FFN adapter where a step drew it; A has none
+        # while B is 0 (dL/dA = s·Bᵀ·dL/dW), q's only where the elastic
+        # matching's attention candidate is a token's minimum (q2 feeds nothing
+        # else), so neither is held here
+        used = {n for n in zero if n not in unused and not n.endswith("lora_a")
+                and ".q." not in n and not (n.startswith("ffn_lora.comp_distill.")
+                                            and not gates.any())}
+        q_nonzero = sum(not zero[n] for n in zero if ".q." in n)
+        log(f"stage2: one comp step at batch 1 (UNet batch 4), kernels against plain: loss "
+            f"{kernel_loss:.6e} / {plain_loss:.6e}; gradients relative L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in grad_rel.items())
+            + f" (limits {STAGE2_GRAD_REL_L2}); comp FFN gates {gates.tolist()}; exactly 0: "
+            f"{sum(zero[n] for n in unused)} of {len(unused)} unused adapter tensors (k, v, "
+            f"the recon_loss and unet_distill FFN adapters), {sum(zero[n] for n in used)} of "
+            f"{len(used)} used ones, {q_nonzero} of 9 q adapter tensors non-zero; "
+            f"SubjBasisGenerators' gradient norm "
+            f"{math.sqrt(sum((g.float() ** 2).sum().item() for g in kernel_grads['sbg'])):.3e}")
+        if not finite or not math.isfinite(kernel_loss) or any(
+                v > STAGE2_GRAD_REL_L2[k] for k, v in grad_rel.items()):
+            raise AssertionError(f"stage2: gradients kernels against plain {grad_rel}, finite "
+                                 f"{finite}")
+        if not all(zero[n] for n in unused) or any(zero[n] for n in used) \
+                or not any(g.any() for g in kernel_grads["sbg"]):
+            raise AssertionError(f"stage2: the gradients' zeros {zero}")
+        del one, kernel_grads, plain_grads
+        torch.cuda.empty_cache()
+
+        # the fit: each micro-step's backward launches as its graph holds them,
+        # the parameters after each micro-step
+        per_step = []
+        real_make = T.make_train_step
+
+        def make_with_census(loss_fn, *a):
+            def loss_and_census(*args):
+                loss, metrics = loss_fn(*args)
+                c = collections.Counter()
+                backward_census(loss, c)
+                per_step.append(c)
+                return loss, metrics
+            return real_make(loss_and_census, *a)
+
+        n_sbg = sum(1 for sbg in trainer.state.params["sbg"] for p in sbg.parameters()
+                    if p.requires_grad)
+        post, records = trainer._post_step, []
+        before = [param_sums(trainer)]
+        core = trainer.state.optimizer.optimizer
+        count = [core.count]
+
+        def watch(step, f, metrics):
+            after = param_sums(trainer)
+            moved = [a != b for a, b in zip(before[0], after)]
+            lr = (_lr_at(core.param_groups[0]["lr"], count[0]) if core.count > count[0]
+                  else None)
+            count[0] = core.count
+            records.append(dict(step=step, type=f.iter_type, priming=f.num_priming_steps,
+                                lr=lr, sbg_moved=any(moved[:n_sbg]),
+                                lora_moved=any(moved[n_sbg:]), loss=float(metrics["loss"]),
+                                metrics={k: float(v) for k, v in metrics.items()},
+                                t=time.perf_counter()))
+            before[0] = after
+            post(step, f, metrics)
+
+        trainer._post_step = watch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(T, "make_train_step", make_with_census):
+            trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = collections.Counter()
+        for c in per_step:
+            want.update(c)
+        for r, c in zip(records, per_step):
+            m = r["metrics"]
+            upd = "no update" if r["lr"] is None else f"an update (group lr {r['lr']:.3e})"
+            extra = (f"priming {r['priming']}, fg_bg {m['loss_comp_fg_bg_preserve']:.4e}, rep "
+                     f"{m['loss_rep_distill']:.4e}, ArcFace align "
+                     f"{m.get('loss_arcface_align_comp', -1):.4f}, sc face "
+                     f"{m.get('comp_sc_face_detected', -1):.0f}, redenoise ok "
+                     f"{m.get('comp_ss_redenoise_success_frac', -1):.2f}, "
+                     if r["type"] == "comp_distill" else "")
+            log(f"stage2: micro-step {r['step']}: {r['type']}, {extra}loss {r['loss']:.6e}, "
+                f"{upd}, SubjBasisGenerators moved {r['sbg_moved']}, adapters moved "
+                f"{r['lora_moved']}; backward launches {dict(sorted(c.items()))}")
+        gaps = [b["t"] - a["t"] for a, b in zip(records, records[1:])]
+        fit_want = dict(want)
+        accum = trainer.cfg.accum_steps
+        log(f"stage2: {len(records)} micro-steps in {fit_s:.2f} s (first batch's preparation "
+            f"included); between micro-steps {', '.join(f'{g:.3f}' for g in gaps)} s; seconds "
+            f"per optimizer step {accum * statistics.mean(gaps):.3f} ({accum} x the mean gap); "
+            f"peak memory {peak / 2**30:.2f} GiB")
+        log(f"stage2: launches {dict(sorted(counts.items()))}; backward launches the graphs "
+            f"hold {dict(sorted(fit_want.items()))}")
+        window = [i % accum == accum - 1 for i in range(STAGE2_MICRO_STEPS)]
+        moves = [r["lr"] is not None and r["lr"] > 0 for r in records]
+        if [r["type"] for r in records] != STAGE2_TYPES \
+                or [r["priming"] for r, t in zip(records, STAGE2_TYPES)
+                    if t == "comp_distill"] != [4, 3] \
+                or not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"stage2: micro-steps {records}")
+        if [r["lr"] is not None for r in records] != window or sum(moves) < 1 \
+                or [r["sbg_moved"] for r in records] != moves \
+                or [r["lora_moved"] for r in records] != moves:
+            raise AssertionError(f"stage2: the accumulation of {accum} does not show: {records}")
+        if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
+                or not all(want[k] for k in bwd_keys):
+            raise AssertionError(f"stage2: backward launches {counts}, the graphs hold {want}")
+
+        # the fit's checkpoint reloads equal, the adapters with it
+        ck = trainer.latest_ckpt(args.log_dir)
+        state, manifest = load_adaface_ckpt(ck)
+        saved_sbg = state["subj_basis_generators"]["joint"]
+        saved_lora = state.get("unet_lora_modules") or {}
+        live_sbg = trainable_state_dicts(trainer.state.params)
+        live_lora = {k: trainer.state.params[k].state_dict() for k in ("attn_lora", "ffn_lora")}
+
+        def equal_now():
+            return (set(saved_lora) == set(live_lora)
+                    and all(torch.equal(saved_lora[k][n], t.detach().cpu())
+                            for k, sd in live_lora.items() for n, t in sd.items())
+                    and all(torch.equal(s_[n], t.detach().cpu())
+                            for s_, sd in zip(saved_sbg, live_sbg) for n, t in sd.items()))
+
+        equal = manifest["step"] == STAGE2_MICRO_STEPS and equal_now()
+        for m in lora.values():  # move the adapters, then load them back
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.add_(1.0)
+        trainer.load(ck)
+        live_lora = {k: trainer.state.params[k].state_dict() for k in ("attn_lora", "ffn_lora")}
+        equal = equal and equal_now()
+        log(f"stage2: checkpoint {os.path.basename(ck)} ({sum(len(d) for d in saved_sbg)} "
+            f"SubjBasisGenerator tensors, unet_lora_modules "
+            f"{ {k: len(v) for k, v in saved_lora.items()} }) reloads equal: {equal}")
+        if not equal:
+            raise AssertionError("stage2: the checkpoint does not reload equal")
+
+        # where a comp micro-step's time goes, and the device's busy share
+        splits = [comp_step_split(trainer, dataset, trainer.planner.plan(STAGE2_MICRO_STEPS))]
+        for sp in splits:
+            log(f"stage2: comp micro-step split ({sp['priming_steps']} priming steps), ms: host "
+                f"prep {sp['host_prep_ms']:.1f}, text encode {sp['text_ms']:.1f}, priming "
+                f"{sp['priming_ms']:.1f}, denoising steps with gradient {sp['denoise_ms']:.1f}, "
+                f"decodes {sp['decode_ms']:.1f}, host detection {sp['detection_ms']:.1f}, "
+                f"ArcFace losses {sp['arcface_ms']:.1f}, subject-single re-denoise "
+                f"{sp['redenoise_ms']:.1f}, rest of the forward {sp['other_forward_ms']:.1f}, "
+                f"backward {sp['backward_ms']:.1f}, optimizer {sp['optimizer_ms']:.1f} "
+                f"({'an update' if sp['update'] else 'accumulation'}); total "
+                f"{sp['total_ms']:.1f} (synchronized, no prefetch)")
+        from torch.profiler import ProfilerActivity, profile
+
+        fl = trainer.planner.plan(STAGE2_MICRO_STEPS + 1)
+        fl = trainer.planner.plan(STAGE2_MICRO_STEPS + 4) if fl.iter_type != "comp_distill" \
+            else fl
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
+                                       trainer.draws_for(fl))
+        step_fn = trainer._get_step(fl)
+        step = lambda: step_fn(trainer.state, batch, trainer.draws_for(fl, loss=True))  # noqa
+        step()
+        _, wall_ms = sync_ms(step)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sync_ms(step)
+        n_ops, busy_ms = profile_report(prof, "stage2: a comp micro-step", 15)
+        log(f"stage2: a comp micro-step ({fl.num_priming_steps} priming steps), prepared batch: "
+            f"{wall_ms:.1f} ms on the host clock, device busy {busy_ms:.1f} ms in {n_ops} "
+            f"operations under the profiler ({busy_ms / wall_ms:.1%} of the unprofiled wall)")
+        recon = next(f for f in (trainer.planner.plan(STAGE2_MICRO_STEPS + 5 + i)
+                                 for i in range(8)) if f.iter_type == "recon")
+        recon = dataclasses.replace(recon, normal_recon_on_pure_noise=False, do_adv_attack=False,
+                                    recon_enable_attn_lora=False)
+        recon_flash = recon_flash_profile(trainer, dataset, recon)
+    return dict(counts=counts, want=fit_want, per_step=per_step, records=records, fit_s=fit_s,
+                peak=peak, grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
+                flash_bwd=flash_bwd, gn_bwd=gn_bwd, masked=masked, recon_flash=recon_flash)
+
+
+def train_cli(config: str = STAGE2_CONFIG, max_steps: int = 7) -> dict:
+    """`train_torch.py --base <config> --max_steps N` with no override on
+    synthetic 512x512 PNGs (the default face detector: it finds no face in
+    random photos), printing each micro-step's iteration type and loss from
+    its metrics.csv (7 micro-steps of Stage 2: comp at 0 and 4, unet-distill
+    at 6, recon at the others); not part of the smoke run:
+
+        python3 -c "import chip_smoke as c; c.require_cuda(); c.train_cli()"
+    """
+    import csv
+    import tempfile
+
+    import train_torch
+
+    kinds = {0: "recon", 1: "unet_distill", 2: "comp_distill"}
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        logs = os.path.join(tmp, "logs")
+        t0 = time.perf_counter()
+        metrics = train_torch.main(["--base", os.path.join(repo, config), "--data_roots", data,
+                                    "--log_dir", logs, "--max_steps", str(max_steps)])
+        secs = time.perf_counter() - t0
+        with open(os.path.join(logs, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+    steps = [(int(r["step"]), kinds[int(float(r["iter_type_id"]))], float(r["loss"]))
+             for r in rows]
+    for step, kind, loss in steps:
+        log(f"train_torch {config}: micro-step {step} {kind}, loss {loss:.6e}")
+    log(f"train_torch {config}: {len(steps)} micro-steps in {secs:.1f} s (the stack's build "
+        f"included); last loss {float(metrics['loss']):.6e}")
+    if len(steps) != max_steps or not all(math.isfinite(loss) for *_, loss in steps):
+        raise AssertionError(f"train_torch {config}: {steps}")
+    return dict(steps=steps, seconds=secs)
+
+
 # device operations of a profile by kind, matched on the kernel's name in
 # this order; "layout transpose" is cuDNN's layout change around a convolution
 PROFILE_KINDS = (("layout transpose", r"nchwToNhwc|nhwcToNchw"),
@@ -3313,9 +3827,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         "graph_ms", "stock_graph_ms", "ms", "stock_ms", "host_us", "stock_host_us", "bound_ms",
         "launches", "plan")} for label, r in ln_cases.items()}
     ln_errs = [r["err"] for r in ln.values() if isinstance(r, dict) and "err" in r]
-    fb_path = [case[0] for case in FLASH_BWD_CASES]
+    fb_path = [case[0] for case in FLASH_BWD_CASES + FLASH_BWD_STAGE2 if case[0] in flash_bwd]
     fb, gb = flash_bwd[JSON_FLASH_BWD], gn_bwd[JSON_GN_BWD]
-    vae_bwd = {case[0] for case in FLASH_BWD_VAE}
+    vae_bwd = [case[0] for case in FLASH_BWD_VAE + FLASH_BWD_STAGE2_VAE if case[0] in flash_bwd]
     is_wide = lambda label: label in vae_bwd or "D512" in label  # noqa: E731
     fb_err = max(r["err"] for k, r in flash_bwd.items() if not is_wide(k))
     fb_wide_err = max(r["err"] for k, r in flash_bwd.items() if is_wide(k))
@@ -3337,8 +3851,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                      function_graph_ms=r["graph_ms"], function_bound_ms=r["bound_ms"],
                      function_bound_by=r["bound_by"], library=r["library"], shapes=shapes)
 
-    wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=[FLASH_BWD_VAE[0][0]],
-                    err=fb_wide_err)
+    wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=vae_bwd, err=fb_wide_err)
 
     def gn_bwd_entry(name, part, bound_key, bound_by="bytes"):
         shapes = {label: {"ms": r[f"{part}_graph_ms"], "bound_ms": r[bound_key],
@@ -3413,12 +3926,21 @@ def main() -> int:
     sampled = serve_samplers(wrapper, faces)
     joint = serve_joint(wrapper, faces, gen)
     del wrapper
-    torch.cuda.empty_cache()
+
+    def release():
+        # a phase's trainer lives in reference cycles (its patched hooks):
+        # collect them, so the next phase's peak memory is its own
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    release()
     trained = train_face_parser(gen)
-    torch.cuda.empty_cache()
+    release()
     stage1 = train_stage1(gen)
-    torch.cuda.empty_cache()
+    release()
     finetune = train_finetune(gen)
+    release()
+    stage2 = train_stage2(gen)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops import attention as A
@@ -3434,7 +3956,10 @@ def main() -> int:
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],
-             "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"]}
+             "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"],
+             "stage-2 fit": stage2["counts"]}
+    flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
+    gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, counts, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

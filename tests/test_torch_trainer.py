@@ -206,13 +206,19 @@ def test_checkpoint_layout_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("kw", [dict(comp_distill_iter_gap=3), dict(unet_distill_iter_gap=0)])
 def test_trainer_refuses_recon_and_comp_plans(png_root, tmp_path, kw):
-    """A plan with comp-distill iterations raises at construction; a recon
-    plan (every iteration recon, the identity towers wired, the adversarial
-    branch drawn every time) builds and takes a step, identity losses
-    included."""
+    """A plan with comp-distill iterations (ported since Stage 2: refused
+    before it) builds and takes a comp step, without face towers on the
+    fallback branch; a recon plan (every iteration recon, the identity towers
+    wired, the adversarial branch drawn every time) builds and takes a step,
+    identity losses included."""
     if "comp_distill_iter_gap" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_trainer(tmp_path, **kw)
+        trainer = make_trainer(tmp_path, **kw)
+        trainer.comp_cfg = dataclasses.replace(trainer.comp_cfg, num_denoising_steps=2,
+                                               compute_dtype="float32")
+        metrics = trainer.fit(PersonalizedBase(png_root, num_vectors_per_subj_token=16,
+                                               size=IMAGE_SIZE, seed=0), num_steps=1)
+        assert np.isfinite(float(metrics["loss"])) and "loss_mb_suppress" in metrics
+        assert list(trainer._steps) == [("comp_distill", 4)]
         return
     trainer = make_recon_trainer(tmp_path, p_do_adv_attack=1.0, **kw)
     metrics = trainer.fit(PersonalizedBase(png_root, num_vectors_per_subj_token=16,

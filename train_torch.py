@@ -3,23 +3,30 @@
     python train_torch.py --base configs/stage1-distill-arc2face.yaml \
         --data_roots <subject folders> [key.path=value ...]
     python train_torch.py --base configs/finetune-unet.yaml --data_roots <...>
+    python train_torch.py --base configs/stage2-comp-distill.yaml --data_roots <...>
 
-The counterpart of `train.py` for the configurations without comp-distill
-iterations (`comp_distill_iter_gap: 0`): unet-distill (Stage 1) and recon
-iterations, and full-UNet finetuning (`trainer.unfreeze_unet`). The same
-YAML and dot-list overrides; the model stack built with random weights from
-the config's seed: the SD1.5 UNet (bf16 on the card, or fp32 master weights
-computed in bf16 when it trains), the VAE encoder, CLIP-L text and the
-id→ada encoder (fp32); for recon iterations also the VAE decoder (bf16 on
-the card) and ArcFace (fp32), from `model.arcface_ckpt` where given, else
-random with a warning, as `train.py` builds it. Then `Trainer.fit`. Runs on
-the card (`--device cuda`, the default); `--device cpu` runs it in fp32 on
-the host. Checkpoints land in `<log_dir>/checkpoints/embeddings_gs-N`
-(with `unet_fp16.safetensors` when the UNet trains). The recon loss's face
-detector is `HostFaceDetector`'s chain (insightface, then OpenCV's cascade,
-whichever is installed, else none): where it finds no face the identity
-losses stay gated off. Loading converted SD1.5 weights (`--base_model`) and the
-comp-distill UNet wait for their slices (ROADMAP §1).
+The counterpart of `train.py`: unet-distill (Stage 1), recon and
+comp-distill (Stage 2) iterations, and full-UNet finetuning
+(`trainer.unfreeze_unet`). The same YAML and dot-list overrides; the
+`model:` and `comp_distill:` sections become `TrainConfig` and
+`CompDistillConfig` by field name, and the keys that name no field are
+dropped, as `train.py` drops them (stage 2's `model.use_attn_lora`,
+`use_ffn_lora`, `lora_rank` and `comp_distill.cls_comp_mix_ratio`: so, as
+`train.py`, no UNet adapter trains from this CLI; ROADMAP §3). The model
+stack is built with random weights from the config's seed: the SD1.5 UNet
+(bf16 on the card, or fp32 master weights computed in bf16 when it trains),
+the VAE encoder, CLIP-L text and the id→ada encoder (fp32); for recon or
+comp iterations also the VAE decoder (bf16 on the card) and ArcFace (fp32),
+from `model.arcface_ckpt` where given, else random with a warning, as
+`train.py` builds it. The recon and comp losses compute in bf16 on the card.
+Then `Trainer.fit`. Runs on the card (`--device cuda`, the default);
+`--device cpu` runs it in fp32 on the host. Checkpoints land in
+`<log_dir>/checkpoints/embeddings_gs-N` (with `unet_fp16.safetensors` when
+the UNet trains). The identity losses' face detector is
+`HostFaceDetector`'s chain (insightface, then OpenCV's cascade, whichever is
+installed, else none): where it finds no face the identity losses stay gated
+off. Loading converted SD1.5 weights (`--base_model`) and the comp-distill
+UNet (`--comp_unet_weight_path`) wait for their slices (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -29,7 +36,12 @@ import dataclasses
 
 import torch
 
-from adaface_tpu_torch.utils.config import apply_dotlist, load
+from adaface_tpu_torch.utils.config import apply_dotlist, known_fields, load
+
+
+# the `model:` keys the CLI itself reads; the others go to TrainConfig by name
+CLI_MODEL_KEYS = ("id2ada_encoder", "out_id_embs_cfg_scales", "arcface_ckpt",
+                  "use_identity_losses", "enable_static_img_suffix_embs")
 
 
 def build_trainer(cfg: dict, args):
@@ -45,6 +57,7 @@ def build_trainer(cfg: dict, args):
     from adaface_tpu_torch.models.vae import VAEDecoder, VAEEncoder
     from adaface_tpu_torch.text.embedding_manager import EmbeddingManager, PlaceholderSpec
     from adaface_tpu_torch.text.tokenizer import default_tokenizer
+    from adaface_tpu_torch.train.comp_step import CompDistillConfig
     from adaface_tpu_torch.train.recon_step import ReconStepConfig
     from adaface_tpu_torch.train.train_step import TrainConfig
     from adaface_tpu_torch.train.trainer import Trainer, TrainerConfig
@@ -66,11 +79,14 @@ def build_trainer(cfg: dict, args):
                  torch.float32 if trainer_cfg.unfreeze_unet else dtype, init_unet_weights_, gen)
     text = build(CLIPTextModel, device, torch.float32, init_text_weights_, gen)
     vae = build(VAEEncoder, device, dtype, init_fan_in_, gen)
-    trainer_cfg.recon_cfg = ReconStepConfig(
-        compute_dtype="bfloat16" if device.type == "cuda" else "float32")
+    compute = "bfloat16" if device.type == "cuda" else "float32"
+    trainer_cfg.recon_cfg = ReconStepConfig(compute_dtype=compute)
+    comp_kw, dropped = known_fields(CompDistillConfig, cfg.get("comp_distill"))
+    comp_cfg = CompDistillConfig(**{**comp_kw, "compute_dtype": compute})
     recon_kw = {}
     model_cfg = cfg.get("model") or {}
-    if trainer_cfg.unet_distill_iter_gap != 1:  # the plan has recon iterations
+    # the plan has recon or comp iterations: the identity losses' towers
+    if trainer_cfg.unet_distill_iter_gap != 1 or trainer_cfg.comp_distill_iter_gap > 0:
         recon_kw["vae_decoder"] = build(VAEDecoder, device, dtype, init_fan_in_, gen)
         if model_cfg.get("use_identity_losses", True):
             recon_kw["arcface"] = build_arcface(model_cfg.get("arcface_ckpt"), device, gen)
@@ -101,10 +117,12 @@ def build_trainer(cfg: dict, args):
         teacher = create_unet_teacher(
             "simple_unet", unet=unet, p_uses_cfg=cfg["teacher"].get("p_uses_cfg", 0.0),
             cfg_scale_range=tuple(cfg["teacher"].get("cfg_scale_range", (1.3, 2.0))))
-    tf_fields = {f.name for f in dataclasses.fields(TrainConfig)}
-    overrides = {k: tuple(v) if isinstance(v, list) else v for k, v in model_cfg.items()
-                 if k in tf_fields}
+    overrides, model_dropped = known_fields(TrainConfig, model_cfg)
     train_cfg = TrainConfig(sbg=sbg_cfg, **overrides)
+    unread = [k for k in model_dropped if k not in CLI_MODEL_KEYS]
+    if unread or dropped:
+        print(f"keys nothing reads, dropped as train.py drops them: model {unread}, "
+              f"comp_distill {dropped}", flush=True)
     dataset = PersonalizedBase(
         trainer_cfg.data_roots, mix_subj_data_roots=args.mix_subj_data_roots,
         subject_string=args.subject_string,
@@ -113,7 +131,7 @@ def build_trainer(cfg: dict, args):
         seed=trainer_cfg.seed)
     print(f"{dataset.num_subjects()} subjects, {len(dataset)} images", flush=True)
     trainer = Trainer(trainer_cfg, train_cfg, {"unet": unet, "text_encoder": text}, trainable,
-                      encoder, em, vae=vae, teacher=teacher, **recon_kw)
+                      encoder, em, vae=vae, teacher=teacher, comp_cfg=comp_cfg, **recon_kw)
     start_step = 0
     if args.resume:
         ck = Trainer.latest_ckpt(args.log_dir)
