@@ -325,14 +325,25 @@ class ConsistentIDID2AdaPrompt(FaceID2AdaPrompt):
     def random_init(cls, gen: torch.Generator, tokenizer: CLIPTokenizer, device,
                     vision_cfg: CLIPVisionConfig = CLIP_H_VISION,
                     sbg_cfg: SubjBasisConfig = SubjBasisConfig(num_id_vecs=4),
-                    proj_depth: int = 4, **kw):
+                    proj_depth: int = 4, image_proj_path: str | None = None, **kw):
         """Random float32 towers from `gen`, built on `device`: CLIP-H/14
-        vision, ProjPlus (depth 4, 12 heads of 64 at 768), the generator."""
+        vision, ProjPlus (depth 4, 12 heads of 64 at 768), the generator.
+        `image_proj_path`: ConsistentID's trained image projection
+        (`ConsistentID-v1.bin`, `face_id_to_ada_prompt.py:386-397`) in place
+        of the random ProjPlus."""
         vision = build(lambda: CLIPVisionModel(vision_cfg), device, torch.float32,
                        init_vision_weights_, gen)
         proj = build(lambda: ProjPlus(clip_dim=vision_cfg.hidden_size, out_dim=sbg_cfg.out_dim,
                                       num_tokens=cls.num_id_vecs, depth=proj_depth),
                      device, torch.float32, init_fan_in_, gen)
+        if image_proj_path is not None:
+            from adaface_tpu_torch.tools.convert_consistentid import (load_consistentid_proj,
+                                                                      proj_plus_dims)
+            from adaface_tpu_torch.tools.convert_sd import load_module
+
+            tree = load_consistentid_proj(image_proj_path)
+            proj = load_module(lambda: ProjPlus(**proj_plus_dims(tree)), tree, device,
+                               torch.float32)
         sbg = build(lambda: SubjBasisGenerator(sbg_cfg, tokenizer), device, torch.float32,
                     init_sbg_weights_, gen)
         return cls(vision, proj, sbg, **kw)

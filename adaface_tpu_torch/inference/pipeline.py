@@ -4,8 +4,11 @@ Counterpart of `adaface_tpu/inference/pipeline.py`: CLIP-L prompt encoding,
 the sampling loop over the SD1.5 UNet (CFG DDIM, or DPM-Solver++, PNDM or
 LCM by the `scheduler` argument), VAE decode, then (img + 1) / 2 clipped to
 [0, 1]. Runs on the device its modules are on; nothing moves to another
-device on the way. LoRA, UNet ensembles, DeepCache, ToMe and int8 are not
-ported.
+device on the way. The UNet may carry trained attention and FFN DoRA
+adapters (`attn_lora`, `ffn_lora`, as `AdaFaceWrapper.load_unet_lora_weights`
+loads them), and may be a list of UNets whose predictions are weighted
+(`unet_weights`, the JAX package's UNet ensemble). DeepCache, ToMe and int8
+are not ported.
 """
 
 from __future__ import annotations
@@ -17,8 +20,8 @@ import torch
 from adaface_tpu_torch.core.params import build, init_fan_in_
 from adaface_tpu_torch.models.clip import (CLIP_L_TEXT, CLIPTextConfig, CLIPTextModel,
                                            init_text_weights_)
-from adaface_tpu_torch.models.unet import (SD15_UNET, UNet2DConditionModel, UNetConfig,
-                                           init_unet_weights_)
+from adaface_tpu_torch.models.unet import (SD15_UNET, AttnLoRA, AttnRuntime, FFNLoRA,
+                                           UNet2DConditionModel, UNetConfig, init_unet_weights_)
 from adaface_tpu_torch.models.vae import SD_VAE, VAEConfig, VAEDecoder, VAEEncoder
 from adaface_tpu_torch.ops.samplers import (DDIMConfig, ddim_sample, dpm_solver_pp_sample,
                                             lcm_sample, pndm_sample)
@@ -28,16 +31,51 @@ from adaface_tpu_torch.text.tokenizer import CLIPTokenizer, default_tokenizer
 
 @dataclasses.dataclass
 class PipelineModules:
-    unet: UNet2DConditionModel
+    unet: UNet2DConditionModel | list[UNet2DConditionModel]  # a list for an ensemble
     vae: VAEDecoder
     text_encoder: CLIPTextModel
     tokenizer: CLIPTokenizer
     schedule: DiffusionSchedule | None = None
     vae_encoder: VAEEncoder | None = None  # img2img only
+    # the ensemble's weights, normalized to sum 1; None weighs each UNet 1/n
+    unet_weights: tuple | None = None
+    # trained DoRA adapters of the UNet (`load_unet_lora_weights`); the FFN
+    # adapters run under the name `ffn_adapter`
+    attn_lora: AttnLoRA | None = None
+    ffn_lora: FFNLoRA | None = None
+    ffn_adapter: str = "comp_distill"
 
     def __post_init__(self):
         if self.schedule is None:
             self.schedule = DiffusionSchedule.create()
+
+    @property
+    def unets(self) -> list[UNet2DConditionModel]:
+        return list(self.unet) if isinstance(self.unet, (list, tuple)) else [self.unet]
+
+    @property
+    def device(self) -> torch.device:
+        return self.unets[0].conv_in.weight.device
+
+    def runtime(self) -> AttnRuntime:
+        """The UNet's flags for the adapters this holds (`_unet_eps`)."""
+        return AttnRuntime(use_attn_lora=self.attn_lora is not None,
+                           use_ffn_lora=self.ffn_lora is not None,
+                           ffn_adapter=self.ffn_adapter if self.ffn_lora is not None else None)
+
+    def unet_eps(self, x, t, ctx):
+        """The UNet's prediction with the adapters (`_unet_eps`,
+        `adaface_tpu/inference/pipeline.py:110-128`); for a list of UNets
+        Σ wᵢ·epsᵢ in fp32, w normalized to sum 1."""
+        kw = dict(rt=self.runtime(), attn_lora=self.attn_lora, ffn_lora=self.ffn_lora)
+        if not isinstance(self.unet, (list, tuple)):
+            return self.unet(x, t, ctx, **kw)
+        n = len(self.unet)
+        w = torch.tensor(self.unet_weights or [1.0 / n] * n, dtype=torch.float32)
+        if len(w) != n:
+            raise ValueError(f"unet_weights has {len(w)} weights for {n} UNets")
+        w = (w / w.sum()).tolist()
+        return sum(wi * unet(x, t, ctx, **kw).float() for wi, unet in zip(w, self.unet))
 
     @classmethod
     def random_init(cls, gen: torch.Generator, device, dtype=torch.bfloat16,
@@ -62,7 +100,7 @@ class DiffusionPipeline:
     def __init__(self, modules: PipelineModules, dtype=torch.bfloat16):
         self.m = modules
         self.dtype = dtype
-        self.device = modules.unet.conv_in.weight.device
+        self.device = modules.device
 
     def encode_prompt(self, prompts: list[str], negative_prompts: list[str] | None = None,
                       max_length: int = 77):
@@ -100,7 +138,7 @@ class DiffusionPipeline:
         cond, uncond = self.encode_prompt(
             prompts, [negative_prompt] * b if guidance_scale > 1 else None,
             max_length=max_len)
-        unet, schedule = self.m.unet, self.m.schedule
+        unet, schedule = self.m.unet_eps, self.m.schedule
         if scheduler == "ddim":
             ddim_cfg = DDIMConfig(num_inference_steps=num_inference_steps, eta=eta,
                                   guidance_scale=guidance_scale,

@@ -14,7 +14,9 @@ Counterpart of `adaface_tpu/inference/serving.py`, built around two ideas:
    gathered from tables on the device by the slot's step index. A slot that
    finishes is decoded and refilled from the queue at once, so the UNet
    batch stays full: throughput is the batch-N envelope, a request's latency
-   one trajectory.
+   one trajectory. The UNet runs with the modules' trained adapters
+   (`PipelineModules.attn_lora`, `ffn_lora`), as the JAX batcher's step does;
+   an ensemble of UNets is refused, as there.
 
 Completion is tracked on the host (every request runs exactly
 `num_inference_steps` steps from admission), so `run()` reads nothing back
@@ -88,11 +90,14 @@ class ContinuousBatcher:
                  num_inference_steps: int = 25,
                  placeholder_token_ids: Sequence[int] | None = None,
                  height: int = 512, width: int = 512, dtype=torch.bfloat16):
+        if isinstance(modules.unet, (list, tuple)):
+            raise ValueError("the continuous batcher serves one UNet, not an ensemble "
+                             "(as the JAX batcher)")
         self.m = modules
         self.num_slots = num_slots
         self.steps = num_inference_steps
         self.dtype = dtype
-        self.device = modules.unet.conv_in.weight.device
+        self.device = modules.device
         ph = list(placeholder_token_ids or [])
         self._ph_ids = (torch.as_tensor(ph, dtype=torch.long, device=self.device)
                         if ph else None)
@@ -146,7 +151,7 @@ class ContinuousBatcher:
         s, n_steps = self._state, self.steps
         x, idx = s.latents, s.step
         t = self._ts[idx]
-        eps2 = self.m.unet(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0), s.ctx)
+        eps2 = self.m.unet_eps(torch.cat([x, x], dim=0), torch.cat([t, t], dim=0), s.ctx)
         eps_u, eps_c = eps2.float().chunk(2, dim=0)
         # per-slot dual guidance, linear from hi to lo over the trajectory
         frac = idx.float() / max(n_steps - 1, 1)

@@ -10,14 +10,16 @@ those rows, split by encoder (`:133-144`), or carried by a request of the
 continuous batcher (`make_batcher`, `make_request`, `:176-201`), prompts get
 the placeholder string appended (`:146-152`), and `forward` runs the
 pipeline with the chosen scheduler (`:233-299`), for "img2img" from the
-noised latents of an initial image (`:301-313`).
+noised latents of an initial image (`:301-313`). `load_unet_lora_weights`
+(`:203-221`) reads the UNet's trained DoRA adapters from a checkpoint of the
+port's trainer; the pipeline and the batcher run with them.
 
-The other pipelines (video, SDXL, SD3), LoRA loading and int8 serving are
-not ported yet.
+The other pipelines (video, SDXL, SD3) and int8 serving are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -27,6 +29,7 @@ from torch import nn
 from adaface_tpu_torch.inference.pipeline import DiffusionPipeline, PipelineModules
 from adaface_tpu_torch.inference.serving import ContinuousBatcher, Request
 from adaface_tpu_torch.models.clip import extend_position_embedding
+from adaface_tpu_torch.models.unet import AttnLoRA, FFNLoRA
 from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.text.embedding_manager import extend_token_embedding
 
@@ -138,6 +141,39 @@ class AdaFaceWrapper:
         return Request(prompt=self.update_prompt(prompt), negative_prompt=negative_prompt,
                        ada_embs=ada_embs, guidance_scale=gs, **kw)
 
+    def load_unet_lora_weights(self, ckpt_dir: str, ffn_adapter: str = "comp_distill"):
+        """The UNet's trained attention and FFN DoRA adapters from a
+        checkpoint the port's trainer wrote (`unet_lora_modules`), into the
+        pipeline (and so into `make_batcher`'s batchers): fp32 on the
+        pipeline's device, cast at each product as JAX's `dora_dense` /
+        `dora_conv` compute. The FFN adapters are taken only where the
+        checkpoint has the adapter `ffn_adapter`."""
+        from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
+
+        state, _ = load_adaface_ckpt(ckpt_dir)
+        lora = state.get("unet_lora_modules")
+        if lora is None:
+            raise ValueError(f"no unet_lora_modules in {ckpt_dir}")
+        m = self.pipeline.m
+        attn = lora.get("attn_lora")
+        m.attn_lora = None if attn is None else self._adapter(AttnLoRA, attn)
+        ffn = lora.get("ffn_lora")
+        if ffn is not None and any(k.startswith(f"{ffn_adapter}.") for k in ffn):
+            m.ffn_lora = self._adapter(FFNLoRA, ffn)
+            m.ffn_adapter = ffn_adapter
+        n = sum(len(sd) for sd in lora.values() if sd is not None)
+        print(f"loaded {n} UNet LoRA tensors from {ckpt_dir}")
+
+    def _adapter(self, cls, sd: dict):
+        """`cls` (AttnLoRA or FFNLoRA) at the rank of the state dict `sd`,
+        loaded (strict), fp32 and frozen on the pipeline's device."""
+        m = self.pipeline.m
+        rank = next(v.shape[0] for k, v in sd.items() if k.endswith("lora_a"))
+        cfg = dataclasses.replace(m.unets[0].cfg, lora_rank=rank)
+        module = cls(cfg)
+        module.load_state_dict({k: v.float() for k, v in sd.items()}, strict=True)
+        return module.to(m.device).requires_grad_(False).eval()
+
     def mix_ada_embs_with_other_embs(self, ada_embs, other_embs, mix_scale: float):
         """Ablation mixing of ada embeddings with others of their shape."""
         return ada_embs * mix_scale + other_embs * (1.0 - mix_scale)
@@ -184,7 +220,7 @@ class AdaFaceWrapper:
         repeated per image and diffused to timestep T · strength - 1. `noise`:
         (the posterior's draw [B, 4, h, w], the diffusion's [B · N, 4, h, w])."""
         m = self.pipeline.m
-        device = m.unet.conv_in.weight.device
+        device = m.device
         img = torch.as_tensor(np.asarray(init_image), dtype=torch.float32, device=device)
         if img.dim() == 3:
             img = img[None]

@@ -30,6 +30,7 @@ from torch import nn
 
 from adaface_tpu_torch.ops.fused_norm import fused_bn_act_stats
 from adaface_tpu_torch.ops.resize import resize_bilinear_align_corners, resize_nearest
+from adaface_tpu_torch.tools.convert_sd import arr
 
 N_CLASSES = 19
 # face-parsing class ids (CelebAMask-HQ convention): skin 1 … neck 14 etc.
@@ -213,3 +214,44 @@ def parsing_to_face_mask(parsing: np.ndarray, face_classes=FACE_CLASS_IDS) -> np
     """argmax parsing [H, W] → binary face mask (skin+features), the
     binarization step of `gen_masks.py`."""
     return np.isin(parsing, np.asarray(face_classes)).astype(np.uint8) * 255
+
+
+def convert_bisenet_state_dict(sd) -> dict:
+    """The torch face-parsing BiSeNet checkpoint (`79999_iter.pth` layout) →
+    the JAX package's BiSeNet tree (`adaface_tpu/models/bisenet.py:208`), in
+    numpy; `core.bridge.load` (or `tools.convert_sd.load_module`) lands it in
+    `BiSeNet`."""
+
+    def conv(pre):
+        return {"w": arr(np.asarray(sd[f"{pre}.weight"]).transpose(2, 3, 1, 0).copy())}
+
+    def bn(pre):
+        return {"scale": arr(sd[f"{pre}.weight"]), "bias": arr(sd[f"{pre}.bias"]),
+                "mean": arr(sd[f"{pre}.running_mean"]), "var": arr(sd[f"{pre}.running_var"])}
+
+    def cbr(pre):
+        return {"conv": conv(f"{pre}.conv"), "bn": bn(f"{pre}.bn")}
+
+    def block(pre):
+        p = {"conv1": conv(f"{pre}.conv1"), "bn1": bn(f"{pre}.bn1"),
+             "conv2": conv(f"{pre}.conv2"), "bn2": bn(f"{pre}.bn2")}
+        if f"{pre}.downsample.0.weight" in sd:
+            p["down"] = {"conv": conv(f"{pre}.downsample.0"), "bn": bn(f"{pre}.downsample.1")}
+        return p
+
+    def arm(pre):
+        return {"conv": cbr(f"{pre}.conv"),
+                "atten": {"conv": conv(f"{pre}.conv_atten"), "bn": bn(f"{pre}.bn_atten")}}
+
+    def head(pre):
+        return {"conv": cbr(f"{pre}.conv"), "cls": conv(f"{pre}.conv_out")}
+
+    cp = "cp.resnet"
+    return {"conv1": conv(f"{cp}.conv1"), "bn1": bn(f"{cp}.bn1"),
+            "layers": [[block(f"{cp}.layer{li}.{bi}") for bi in range(2)] for li in range(1, 5)],
+            "arm16": arm("cp.arm16"), "arm32": arm("cp.arm32"),
+            "conv_head16": cbr("cp.conv_head16"), "conv_head32": cbr("cp.conv_head32"),
+            "conv_avg": cbr("cp.conv_avg"),
+            "ffm": {"convblk": cbr("ffm.convblk"), "conv1": conv("ffm.conv1"),
+                    "conv2": conv("ffm.conv2")},
+            "out": head("conv_out"), "out16": head("conv_out16"), "out32": head("conv_out32")}

@@ -298,7 +298,9 @@ class Attention(nn.Module):
             q2 = q
         else:
             q = q2 = self.q(x)
-            if use_lora:
+            # q's adapter feeds only the capture and, by the flag, the query:
+            # where neither reads it, it is not computed (XLA drops it too)
+            if use_lora and (capture is not None or rt.q_lora_updates_query):
                 q2 = lora.q(self.q, x, lora_scale)
                 if lora_gate is not None:
                     q2 = _gated(lora_gate, q2, q)

@@ -328,8 +328,10 @@ class _FusedBNAct(torch.autograd.Function):
         slope = ctx.slope
         yf, gf, sf = y.float(), g.float(), scale.float()
         if slope == 0:
-            dz = torch.where(yf > 0, gf, 0.0)
+            # the forward's pre-activation z, recomputed from x in fp32: y
+            # cannot tell z = 0 (gradient g) from a clipped negative (0)
             xhat = (x2.float() - mean) * rstd
+            dz = torch.where(xhat * sf + bias.float() >= 0, gf, 0.0)
         else:
             # invert the leaky-ReLU from the output (`_fused_bwd`)
             z = torch.where(yf >= 0, yf, yf / slope)

@@ -2,7 +2,8 @@
 
 Counterpart of the io half of `adaface_tpu/tools/ckpt_lib.py` (`:23-86`,
 `cast_fp16` `:143`): `flatten_tree` (a nested tree → dot-keyed numpy arrays),
-`cast_fp16`, `save_state_dict` and `load_state_dict`. So that training needs
+`unflatten_tree` (its inverse), `extract_subtree` (`:114`), `cast_fp16`,
+`save_state_dict` and `load_state_dict`. So that training needs
 no `safetensors` package, the format is written and read here: an 8-byte little-endian header length, a JSON header (each tensor's
 dtype, shape and byte offsets, padded with spaces to 8 bytes), then the raw
 little-endian data of the tensors back to back. Files it writes load with
@@ -39,6 +40,28 @@ def flatten_tree(tree, prefix: str = "") -> StateDict:
     elif tree is not None:
         flat[prefix[:-1]] = np.asarray(tree)
     return flat
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """A flat dot-keyed dict → nested dicts (the inverse of `flatten_tree`
+    up to lists, which come back as dicts keyed "0", "1", ...)."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def extract_subtree(sd: StateDict, prefix: str, strip: bool = True) -> StateDict:
+    """The entries under `prefix` (e.g. `model.diffusion_model.`), the
+    prefix stripped unless `strip` is False; raises where there is none."""
+    out = {k[len(prefix):] if strip else k: v for k, v in sd.items() if k.startswith(prefix)}
+    if not out:
+        raise KeyError(f"no keys under '{prefix}'")
+    return out
 
 
 def cast_fp16(sd: StateDict) -> StateDict:

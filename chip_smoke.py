@@ -113,6 +113,24 @@ Phases (any failure raises and the exit code is not 0):
      `unet_lora_modules` reloaded; a comp micro-step's split, its busy share,
      the peak memory, seconds per optimizer step, and a profiled recon
      micro-step's flash forward launches by shape and mask.
+Between phases 6 and 7, `serve_trained` serves what the port's trainers
+write, on the same SD1.5 modules: the UNet's attention and FFN adapters at
+rank 192 (B and the magnitudes drawn off their start) written by
+`save_adaface_ckpt` as the trainer writes them and loaded by
+`AdaFaceWrapper.load_unet_lora_weights`: a small request kernels against
+plain, 2 requests at 512x512, 25 steps with an unadapted request's launch
+counts and images apart from the unadapted ones, a drain of 4 requests
+through the 8-slot batcher with its counts and the small drain held to the
+one-shot pipeline; a UNet ensemble of the base UNet and one loaded from a
+trainer's `unet_fp16.safetensors` (at weights (1, 0) equal to the single
+UNet bit for bit, at (0.5, 0.5) the UNet's launches twice a request's);
+`export_unet_to_diffusers` -> `convert_unet` -> a fresh UNet equal in one
+call bit for bit; an SD1.5 single file in the LDM layout (fp16, the
+`model_ema` shadows, the schedule buffers) written from the towers, loaded
+by `load_sd_towers` and served, its leaves and pixels held to the source;
+request latency and device time with and without the adapters and under
+the ensemble, the adapters' own device time, the drain's imgs/sec and the
+peak memory, beside the card's name and power limit.
 Before phase 4, `flash_attention` and `group_norm_silu` are held to record
 their autograd Functions on inputs that require grad, with the backward
 kernels' launches and gradients (`check_autograd_functions`).
@@ -120,7 +138,8 @@ Each path runs with the launch counts set to 0 just before it and checked
 just after. The line before the last holds the per-kernel JSON record; the
 last line is {"ok": true, "device": {...}}.
 
-The script imports only torch, numpy and the port (`adaface_tpu_torch`).
+The script imports only torch, numpy, the port (`adaface_tpu_torch`) and
+the checkpoint writers of `tests/torch_sd_layout.py`.
 """
 
 from __future__ import annotations
@@ -2040,6 +2059,335 @@ def serve_joint(wrapper, faces, gen) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Serving what the trainers write: adapters, an ensemble, converted weights
+# ---------------------------------------------------------------------------
+
+TRAINED_RANK = 192  # the adapters' rank, as `configs/stage2-comp-distill.yaml` trains them
+TRAINED_REQUESTS = 2  # 512x512, 25-step requests with the adapters
+TRAINED_DRAIN = 4  # requests of the adapted drain through BATCH_SLOTS slots
+# an adapted UNet call's distance from the plain one, and an adapted image's,
+# at the least. Random weights keep conv_out at std 1e-4, so the prediction is
+# small and an image moves little with any change of the UNet (the adapters:
+# 4.6e-3 relative L2 on an H100);
+# the same seed without adapters gives the same bits, so any distance shows them
+ADAPTED_EPS_REL_L2 = 1e-2
+ADAPTED_REL_L2 = 1e-3
+FP16_MIN_NORMAL = 2.0 ** -14  # below it fp16 keeps fewer bits than bf16
+
+
+def trained_adapters(cfg, gen) -> dict:
+    """Attention and FFN adapters at rank 192 (fp32, on the card) with every
+    part live: A at the initialisers' scale, B drawn at a third of it (it
+    starts at 0 in training, and a zero B would hide a path that never
+    applies it), magnitudes 1 + 0.2·N, scale factors 0.8 + 0.1·N."""
+    from adaface_tpu_torch.core.params import build, normal_
+    from adaface_tpu_torch.models.unet import (AttnLoRA, AttnLoRALayer, DoRAConv, DoRALinear,
+                                               FFNLoRA, init_lora_weights_)
+
+    cfg = dataclasses.replace(cfg, lora_rank=TRAINED_RANK)
+    out = {"attn_lora": build(lambda: AttnLoRA(cfg), "cuda", torch.float32, init_lora_weights_,
+                              gen),
+           "ffn_lora": build(lambda: FFNLoRA(cfg), "cuda", torch.float32, init_lora_weights_,
+                             gen)}
+    with torch.no_grad():
+        for module in out.values():
+            for m in module.modules():
+                if isinstance(m, (DoRALinear, DoRAConv)):
+                    normal_(m.lora_b, 0.3 * m.lora_b[0].numel() ** -0.5, gen)
+                    normal_(m.magnitude, 0.2, gen)
+                    m.magnitude.add_(1.0)
+                elif isinstance(m, AttnLoRALayer):
+                    normal_(m.scale_factor, 0.1, gen)
+                    m.scale_factor.add_(0.8)
+    return out
+
+
+@contextmanager
+def swapped_modules(wrapper, **changes):
+    """The wrapper's pipeline modules with `changes` for the block."""
+    m = wrapper.pipeline.m
+    wrapper.pipeline.m = dataclasses.replace(m, **changes)
+    try:
+        yield wrapper.pipeline.m
+    finally:
+        wrapper.pipeline.m = m
+
+
+def profiled_ms(fn, host_runs: int = 3) -> tuple[float, float, int]:
+    """(the median host ms of `host_runs` calls with the device synchronized,
+    device ms and operations by torch.profiler of one more call) of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    host = statistics.median(sync_ms(fn)[1] for _ in range(host_runs))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)"]
+    return host, sum(kernels) / 1e3, len(kernels)
+
+
+def adapter_call_ms(m) -> dict:
+    """The adapters' own device time in one UNet call at CFG batch 2 (512x512):
+    the 7 adapted layers' DoRA forwards (the merge and the product) against
+    the plain layers' products, on inputs of the path's shapes, each as the
+    sum of its kernels' device times by torch.profiler."""
+    unet, scale = m.unets[0], m.unets[0].cfg.lora_scale
+    up = unet.up_blocks[-1]
+    c = unet.cfg.block_channels[0]
+    x_attn = torch.randn(2, 64 * 64, c, device="cuda", dtype=torch.bfloat16)
+    x_conv = {name: torch.randn(2, cin, 64, 64, device="cuda", dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last) for name, cin in (("conv1", 2 * c), ("conv2", c))}
+    cases = [(m.attn_lora[str(22 + i)].out, up.attentions[i].block.attn2.o, x_attn)
+             for i in range(3)]
+    ffn = m.ffn_lora[m.ffn_adapter]
+    for ri in ("1", "2"):
+        for conv in ("conv1", "conv2"):
+            cases.append((ffn[ri][conv], getattr(up.resnets[int(ri)], conv), x_conv[conv]))
+    with torch.inference_mode():
+        _, adapted, n_adapted = profiled_ms(lambda: [a(b, x, scale) for a, b, x in cases])
+        _, plain, n_plain = profiled_ms(lambda: [b(x) for _, b, x in cases])
+    return dict(adapted_ms=adapted, plain_ms=plain, adapted_ops=n_adapted, plain_ops=n_plain,
+                layers=len(cases))
+
+
+def serve_trained(wrapper, faces, card: str) -> dict:
+    """Serving what the port's trainers write, at full SD1.5 width on the
+    card: the UNet's adapters from a checkpoint through
+    `load_unet_lora_weights` (requests, a drain, launch counts, times), a
+    UNet ensemble with a UNet from a trainer's `unet_fp16.safetensors`, and
+    weights converted without JAX (the diffusers round trip, and an SD1.5
+    single file in the LDM layout served)."""
+    import tempfile
+
+    from adaface_tpu_torch.core import bridge
+    from adaface_tpu_torch.core.params import build
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.models.clip import CLIP_L_TEXT
+    from adaface_tpu_torch.models.unet import UNet2DConditionModel, init_unet_weights_
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.tools import convert_sd
+    from adaface_tpu_torch.tools.ckpt_lib import (cast_fp16, load_state_dict, save_state_dict,
+                                                  unflatten_tree)
+    from adaface_tpu_torch.train.checkpoint import save_adaface_ckpt
+    from adaface_tpu_torch.train.train_step import lora_state_dicts
+    from tests import torch_sd_layout as layout
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(SEED + 11)  # the later phases' draws unchanged
+    m = wrapper.pipeline.m
+    base_unet = m.unet
+    out: dict = {"card": card}
+    tmp = tempfile.TemporaryDirectory()
+
+    # 1. adapters written as the trainer writes them, loaded as a user loads them
+    lora = trained_adapters(base_unet.cfg, gen)
+    ckpt = save_adaface_ckpt(os.path.join(tmp.name, "embeddings_gs-1"), 1, {"joint": {}},
+                             unet_lora_params=lora_state_dicts(lora))
+    wrapper.load_unet_lora_weights(ckpt)
+    if m.attn_lora is None or m.ffn_lora is None or m.ffn_adapter != "comp_distill":
+        raise AssertionError("serve_trained: the adapters did not load")
+    for name, module in (("attn_lora", m.attn_lora), ("ffn_lora", m.ffn_lora)):
+        sd, ref = module.state_dict(), lora[name].state_dict()
+        if any(not torch.equal(sd[k], ref[k]) or sd[k].dtype != torch.float32 for k in ref):
+            raise AssertionError(f"serve_trained: {name} loaded other values or dtype")
+    wrapper.prepare_adaface_embeddings(images=faces["a"])
+    small = dict(num_inference_steps=3, height=256, width=256)
+    img_k = wrapper(REQUESTS[0][1], generator=torch.Generator("cuda").manual_seed(1), **small)
+    with plain_versions():
+        img_p = wrapper(REQUESTS[0][1], generator=torch.Generator("cuda").manual_seed(1), **small)
+    out["small_err"] = err = (img_k - img_p).abs().max().item()
+    log(f"serve_trained: 256x256 3-step request with the adapters, kernels against plain: image "
+        f"max_abs_err {err:.3e} (bound {IMAGE_TOL:g})")
+    if err > IMAGE_TOL:
+        raise AssertionError("serve_trained: adapted request kernels against plain above bound")
+
+    def request(i, subject="a"):
+        wrapper.prepare_adaface_embeddings(images=faces[subject])
+        return wrapper(REQUESTS[i][1], generator=torch.Generator("cuda").manual_seed(300 + i))
+
+    request(0)  # warm-up of the adapted shapes
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    adapted = [request(i) for i in range(TRAINED_REQUESTS)]
+    torch.cuda.synchronize()
+    out["counts"] = counts = launch_counts()
+    expect_counts(counts, unet_calls=25 * TRAINED_REQUESTS, decodes=TRAINED_REQUESTS)
+    check_images([a[0] for a in adapted], TRAINED_REQUESTS, 512, "adapted requests")
+    with swapped_modules(wrapper, attn_lora=None, ffn_lora=None):
+        plain = [request(i) for i in range(TRAINED_REQUESTS)]
+    rels = [rel_l2_of(a, p) for a, p in zip(adapted, plain)]
+    x = torch.randn(2, 4, 64, 64, device="cuda", generator=gen).to(torch.bfloat16)
+    tt = torch.tensor([500, 500], device="cuda")
+    ctx = torch.randn(2, 77, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        eps_a = m.unet_eps(x, tt, ctx)
+        with swapped_modules(wrapper, attn_lora=None, ffn_lora=None) as plain_m:
+            eps_rel = rel_l2_of(eps_a, plain_m.unet_eps(x, tt, ctx))
+    log(f"serve_trained: {TRAINED_REQUESTS} requests with the rank-{TRAINED_RANK} adapters, "
+        f"512x512, 25 steps: launches as an unadapted request's ({counts}); relative L2 from "
+        f"the same seeds without adapters {', '.join(f'{r:.3e}' for r in rels)} (at least "
+        f"{ADAPTED_REL_L2:g}); of one UNet call's prediction {eps_rel:.3e} (at least "
+        f"{ADAPTED_EPS_REL_L2:g})")
+    if min(rels) < ADAPTED_REL_L2 or eps_rel < ADAPTED_EPS_REL_L2:
+        raise AssertionError("serve_trained: the adapters left an image or a prediction as it "
+                             "was")
+    out.update(adapted_rel_l2=rels, adapted_eps_rel_l2=eps_rel)
+
+    times = {}
+    times["adapted"] = profiled_ms(lambda: request(0))
+    with swapped_modules(wrapper, attn_lora=None, ffn_lora=None):
+        times["plain"] = profiled_ms(lambda: request(0))
+    out["adapter_call"] = ac = adapter_call_ms(m)
+    # 2. the batcher with the adapters: a drain through 8 slots, then the small
+    # drain held to the one-shot pipeline and to the plain versions
+    adas = subject_embeddings(wrapper, faces)
+    batcher = wrapper.make_batcher(num_slots=BATCH_SLOTS)
+    if batcher.m.attn_lora is not m.attn_lora or batcher.m.ffn_lora is not m.ffn_lora:
+        raise AssertionError("serve_trained: make_batcher dropped the adapters")
+    reqs = batch_requests(wrapper, adas, 512, TRAINED_DRAIN)
+    batcher.generate_all(batch_requests(wrapper, adas, 512, TRAINED_DRAIN))  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    drained = batcher.generate_all(reqs)
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    out["batch_counts"] = batch_counts = launch_counts()
+    expect_counts(batch_counts, unet16_calls=batcher.steps, decodes=TRAINED_DRAIN)
+    check_images([drained[r.request_id] for r in reqs], TRAINED_DRAIN, 512, "adapted drain")
+    out["drain_imgs_per_sec"] = TRAINED_DRAIN / drain_s
+    log(f"serve_trained: adapted drain of {TRAINED_DRAIN} requests through {BATCH_SLOTS} slots, "
+        f"512x512, 25 steps: {drain_s:.2f} s, {TRAINED_DRAIN / drain_s:.3f} imgs/sec; launches "
+        f"{batch_counts}")
+    out["small_drain"] = batcher_against_pipeline(wrapper, faces)
+    del batcher
+
+    # 3. the ensemble: the base UNet and one from a trainer's unet_fp16.safetensors
+    unet2_src = build(lambda: UNet2DConditionModel(base_unet.cfg), "cuda", torch.bfloat16,
+                      init_unet_weights_, gen)
+    path16 = os.path.join(tmp.name, "unet_fp16.safetensors")
+    save_state_dict(cast_fp16(bridge.tree_state_dict(unet2_src)), path16)  # `Trainer.save`
+    del unet2_src
+    unet2 = convert_sd.load_module(lambda: UNet2DConditionModel(base_unet.cfg),
+                                   unflatten_tree(load_state_dict(path16)), "cuda", torch.bfloat16)
+    single = request(0)
+    with swapped_modules(wrapper, unet=[base_unet, unet2], unet_weights=(1.0, 0.0)):
+        one_zero = request(0)
+    if not torch.equal(one_zero, single):
+        raise AssertionError("serve_trained: the (1, 0) ensemble differs from its first UNet "
+                             f"by {(one_zero - single).abs().max().item():.3e}")
+    with swapped_modules(wrapper, unet=[base_unet, unet2], unet_weights=(0.5, 0.5)):
+        _build.reset_launch_counts()
+        half = request(1)
+        torch.cuda.synchronize()
+        out["ensemble_counts"] = ens_counts = launch_counts()
+        expect_counts(ens_counts, unet_calls=2 * 25, decodes=1)
+        check_images([half[0]], 1, 512, "ensemble")
+        times["ensemble"] = profiled_ms(lambda: request(0))
+    log(f"serve_trained: ensemble of the base UNet and one loaded from unet_fp16.safetensors: at "
+        f"(1, 0) the image equals the single UNet's bit for bit; at (0.5, 0.5) launches "
+        f"{ens_counts} (the UNet's twice a request's, the VAE's once)")
+    del unet2
+
+    # 4a. export_unet_to_diffusers -> convert_unet -> a fresh UNet, one call bit for bit
+    with swapped_modules(wrapper, attn_lora=None, ffn_lora=None):
+        src = wrapper.pipeline.m
+    unet_tree = layout.as_lists(unflatten_tree(bridge.tree_state_dict(base_unet)))
+    for blk in unet_tree["down_blocks"] + unet_tree["up_blocks"]:
+        blk.setdefault("attentions", [])
+    round_trip = convert_sd.convert_unet(convert_sd.export_unet_to_diffusers(unet_tree))
+    fresh = convert_sd.load_module(lambda: UNet2DConditionModel(base_unet.cfg), round_trip,
+                                   "cuda", torch.bfloat16)
+    with torch.inference_mode():
+        same_call = torch.equal(fresh(x, tt, ctx), base_unet(x, tt, ctx))
+    log(f"serve_trained: export_unet_to_diffusers -> convert_unet -> a fresh UNet: one call "
+        f"equal bit for bit: {same_call}")
+    if not same_call:
+        raise AssertionError("serve_trained: the diffusers round trip changed a UNet call")
+    del fresh, round_trip
+
+    # 4b. an SD1.5 single file (LDM layout, fp16, EMA shadows, schedule buffers)
+    text_tree = unflatten_tree(bridge.tree_state_dict(src.text_encoder))
+    # CLIP-L's table, without the placeholder rows the wrappers grew
+    text_tree["token_embedding"] = text_tree["token_embedding"][:CLIP_L_TEXT.vocab_size]
+    vae_tree = unflatten_tree({**bridge.tree_state_dict(src.vae),
+                               **bridge.tree_state_dict(src.vae_encoder)})
+    t0 = time.perf_counter()
+    sd = layout.sd_single_file(unet_tree, vae_tree, text_tree, base_unet.cfg)
+    single_path = os.path.join(tmp.name, "v1-5-synthetic.safetensors")
+    save_state_dict(sd, single_path)
+    write_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(single_path) / 1e9
+    n_keys = len(sd)
+    del sd, unet_tree, text_tree, vae_tree
+    gc.collect()
+    t0 = time.perf_counter()
+    towers = convert_sd.load_sd_towers(single_path)
+    load_s = time.perf_counter() - t0
+    loaded = convert_sd.load_pipeline_modules(towers, "cuda", torch.bfloat16,
+                                              tokenizer=m.tokenizer)
+    torch.cuda.synchronize()
+    land_s = time.perf_counter() - t0 - load_s
+    del towers
+    diff_leaves, diff_elems, normal_diffs, n_leaves = 0, 0, 0, 0
+    for name in ("unet", "vae", "vae_encoder", "text_encoder"):
+        got, ref = getattr(loaded, name).state_dict(), getattr(src, name).state_dict()
+        for k, v in got.items():
+            r = ref[k][:v.shape[0]] if k == "token_embedding" else ref[k]
+            n_leaves += 1
+            bad = v != r
+            if bad.any():
+                diff_leaves += 1
+                diff_elems += int(bad.sum())
+                normal_diffs += int((bad & (r.float().abs() >= FP16_MIN_NORMAL)).sum())
+    log(f"serve_trained: SD1.5 single file (LDM layout, fp16, {n_keys} tensors with the "
+        f"model_ema shadows and the schedule buffers): {size_gb:.2f} GB written in {write_s:.1f} "
+        f"s; load_sd_towers {load_s:.1f} s, landed on the card in {land_s:.1f} s; {diff_leaves} "
+        f"of {n_leaves} leaves differ from the source, in {diff_elems} elements, "
+        f"{normal_diffs} of them at a magnitude fp16 keeps in full (expected 0)")
+    if normal_diffs:
+        raise AssertionError("serve_trained: the single file changed values fp16 holds exactly")
+    w2 = AdaFaceWrapper("text2img", loaded, wrapper.id2ada_prompt_encoder, guidance_scale=6.0,
+                        num_inference_steps=25)
+    ada = w2.prepare_adaface_embeddings(images=faces["b"])
+    gen_req = lambda: torch.Generator("cuda").manual_seed(400)  # noqa: E731
+    img_file = w2(REQUESTS[1][1], generator=gen_req())
+    with swapped_modules(wrapper, attn_lora=None, ffn_lora=None):
+        wrapper.update_text_encoder_subj_embeddings(ada)
+        img_src = wrapper(REQUESTS[1][1], generator=gen_req())
+    file_err = (img_file - img_src).abs().max().item()
+    check_images([img_file[0]], 1, 512, "single-file request")
+    log(f"serve_trained: a request on the single file's towers against the source's: image "
+        f"max_abs_err {file_err:.3e} (bound {IMAGE_TOL:g})")
+    if file_err > IMAGE_TOL:
+        raise AssertionError("serve_trained: the single file's request moved off the source's")
+    del loaded, w2
+    tmp.cleanup()
+    m.attn_lora = m.ffn_lora = None
+
+    out.update(times=times, file=dict(gb=size_gb, write_s=write_s, load_s=load_s, land_s=land_s,
+                                      diff_leaves=diff_leaves, diff_elems=diff_elems,
+                                      err=file_err),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               seconds=time.perf_counter() - t_phase)
+    for label, (host, dev, ops) in times.items():
+        log(f"serve_trained [{card}]: one 512x512 25-step request, {label}: {host:.1f} ms on the "
+            f"host clock (median of 3), device busy {dev:.2f} ms in {ops} operations "
+            f"(torch.profiler)")
+    log(f"serve_trained [{card}]: the adapters' own device time in one UNet call at CFG batch 2: "
+        f"{ac['adapted_ms']:.3f} ms in {ac['adapted_ops']} operations for the {ac['layers']} "
+        f"adapted layers against {ac['plain_ms']:.3f} ms in {ac['plain_ops']} plain "
+        f"(torch.profiler), so {25 * (ac['adapted_ms'] - ac['plain_ms']):.2f} ms a request; "
+        f"an adapted request's device time minus a plain one's "
+        f"{times['adapted'][1] - times['plain'][1]:.2f} ms")
+    log(f"serve_trained [{card}]: adapted drain {out['drain_imgs_per_sec']:.3f} imgs/sec; peak "
+        f"memory {out['peak_gib']:.2f} GiB; phase {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The Stage-1 training slice: the backward kernels, then the trainer
 # ---------------------------------------------------------------------------
 
@@ -3925,6 +4273,7 @@ def main() -> int:
     img2img = serve_img2img(wrapper, faces)
     sampled = serve_samplers(wrapper, faces)
     joint = serve_joint(wrapper, faces, gen)
+    trained = serve_trained(wrapper, faces, card)
     del wrapper
 
     def release():
@@ -3934,7 +4283,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     release()
-    trained = train_face_parser(gen)
+    parser = train_face_parser(gen)
     release()
     stage1 = train_stage1(gen)
     release()
@@ -3947,7 +4296,7 @@ def main() -> int:
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
 
-    counts = {**served["counts"], **trained["counts"],
+    counts = {**served["counts"], **parser["counts"],
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
               **{k: stage1["counts"][k] for k in (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV,
                                                  A.FLASH_BWD_DQ, GN_BWD_REDUCE, GN_BWD_DX)},
@@ -3956,6 +4305,8 @@ def main() -> int:
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],
+             "adapters": trained["counts"], "adapters batcher": trained["batch_counts"],
+             "ensemble": trained["ensemble_counts"],
              "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"],
              "stage-2 fit": stage2["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}

@@ -249,6 +249,27 @@ def test_bn_act_grad_matches_jax_autodiff(slope):
         np.testing.assert_allclose(out, np.asarray(r), **GRAD_TOL)
 
 
+def test_bn_act_grad_at_zero_preactivation_matches_jax_autodiff():
+    """At slope 0 a pre-activation of exactly 0 passes its gradient, as the
+    autodiff of `y >= 0` does: a constant channel at scale 1 and bias 0 has
+    z = 0 in every row, and a loss linear in y has g != 0 there."""
+    rs = np.random.RandomState(3)
+    x = rs.randn(16, 4).astype(np.float32)
+    x[:, 1] = 1.5  # a binary fraction: the mean is exact, x - mean is 0
+    scale, bias = np.ones(4, np.float32), np.zeros(4, np.float32)
+    w = rs.randn(16, 4).astype(np.float32)
+
+    def loss(x, s, b):
+        return (jfn._fused_bn_act_fwd_xla(x, s, b, 0.0, 1e-5, None)[0] * w).sum()
+
+    ref = jax.grad(loss, argnums=(0, 1, 2))(x, scale, bias)
+    xt, st, bt = (_t(a).requires_grad_(True) for a in (x, scale, bias))
+    (tfn.fused_bn_act(xt, st, bt, slope=0.0) * _t(w)).sum().backward()
+    assert abs(float(ref[2][1])) > 0.1  # Σg over the constant channel
+    for out, r in zip((xt.grad, st.grad, bt.grad), ref):
+        np.testing.assert_allclose(out.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("slope", [0.01, 1.0])
 def test_bn_act_grad_matches_jax_custom_vjp(slope):
     """Where the activation inverts, the port's backward is `_fused_bwd`."""

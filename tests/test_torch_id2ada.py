@@ -47,6 +47,7 @@ from adaface_tpu_torch.models import clip as tclip
 from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
 from adaface_tpu_torch.utils.tensor import Draws, perturb_tensor
 from tests.test_torch_models import D, TEXT_KW, TINY_VISION, assert_close_rel, numpy_params
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 VISION_KW = dict(hidden_size=D, num_layers=2, num_heads=2, intermediate_size=128,
                  image_size=224, patch_size=32)

@@ -48,6 +48,19 @@ TINY_VISION = jclip.CLIPVisionConfig(hidden_size=D, num_layers=2, num_heads=2,
                                      patch_size=32)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port's side, autouse here and in every
+    file that imports it: the tensors are tiny, and under several test
+    workers on one host a pool of threads per process turns each of the many
+    small operations into a wait for descheduled threads (a finetuning fit
+    took 756 s so in a 6-worker run, 33 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close_rel(out, ref, rtol=MODULE_RTOL):
     out, ref = np.asarray(out), np.asarray(ref)
     assert out.shape == ref.shape

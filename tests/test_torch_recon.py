@@ -41,6 +41,7 @@ from adaface_tpu_torch.train import face_detect as tdet
 from adaface_tpu_torch.train import face_losses as tfl
 from adaface_tpu_torch.train import recon_multistep as trm
 from tests.test_torch_models import UNET_KW, VAE_KW, numpy_params
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 PX = 64  # decoded images of the tiny VAE (16x16 latents)

@@ -50,6 +50,7 @@ from tests.test_torch_models import VAE_KW, numpy_params
 from tests.test_torch_recon import RECON_UNET_KW, SmoothTower, arcface_params
 from tests.test_torch_train import (_jax_sbg_state_dict, _keep_grads, assert_rel,
                                     build_step_pair, make_batch, rel_l2)
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 GRAD_REL_L2 = 1e-4
 HW, PX = 16, 64

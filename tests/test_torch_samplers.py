@@ -26,6 +26,7 @@ from adaface_tpu_torch.models import unet as tunet
 from adaface_tpu_torch.ops import samplers as tsamplers
 from adaface_tpu_torch.ops import schedules as tschedules
 from tests.test_torch_models import D, UNET_KW, assert_close_rel, numpy_params
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 STEP_RTOL = 1e-6
 SCHEDULE_J = jschedules.DiffusionSchedule.create()

@@ -22,6 +22,7 @@ import torch
 from adaface_tpu.inference.serving import Request as JRequest
 from adaface_tpu_torch.inference.serving import ContinuousBatcher, Request, SlotState
 from tests.test_torch_slice import make_wrapper_pair
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 3
 HW = 64  # pixels; 16x16 latents at the tiny VAE's scale of 4

@@ -53,6 +53,7 @@ from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
 from tests.test_torch_id2ada import CID_VISION
 from tests.test_torch_models import (D, TEXT_KW, TINY_VISION, UNET_KW, VAE_KW,
                                      assert_close_rel, numpy_params)
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 IMAGE_ATOL = 1e-3
 NEGATIVE = "lowres, low quality"
@@ -74,7 +75,11 @@ SLICE_MODULES = [
     "adaface_tpu_torch.utils.image", "adaface_tpu_torch.utils.tensor",
     "adaface_tpu_torch.inference.pipeline", "adaface_tpu_torch.inference.wrapper",
     "adaface_tpu_torch.inference.serving",
-    "chip_smoke", "chip_compare", "bench_torch", "scripts.bench_serving_torch",
+    "adaface_tpu_torch.tools.ckpt_lib", "adaface_tpu_torch.tools.convert_sd",
+    "adaface_tpu_torch.tools.convert_ldm_unet", "adaface_tpu_torch.tools.convert_clip",
+    "adaface_tpu_torch.tools.convert_consistentid",
+    "chip_smoke", "chip_compare", "bench_torch", "train_torch", "scripts.bench_serving_torch",
+    "scripts._common_torch",
 ]
 
 

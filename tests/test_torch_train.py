@@ -65,6 +65,7 @@ from adaface_tpu_torch.utils import image as timage
 from adaface_tpu_torch.utils import tensor as ttensor
 from adaface_tpu_torch.utils.tensor import Draws
 from tests.test_torch_models import D, TEXT_KW, UNET_KW, numpy_params
+from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FN_RTOL = 1e-5

@@ -25,8 +25,11 @@ Then `Trainer.fit`. Runs on the card (`--device cuda`, the default);
 the UNet trains). The identity losses' face detector is
 `HostFaceDetector`'s chain (insightface, then OpenCV's cascade, whichever is
 installed, else none): where it finds no face the identity losses stay gated
-off. Loading converted SD1.5 weights (`--base_model`) and the comp-distill
-UNet (`--comp_unet_weight_path`) wait for their slices (ROADMAP §1).
+off. `--base_model` loads SD1.5 weights over the random ones (an LDM single
+file or a diffusers UNet, `.safetensors` / `.ckpt`, through
+`tools/convert_sd.py`), and `--scale_lr` scales the learning rate by
+accumulation × devices (one) × batch, as `train.py` does. The comp-distill
+UNet (`--comp_unet_weight_path`) waits for its slice (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -69,6 +72,9 @@ def build_trainer(cfg: dict, args):
     for key in ("clip_skip_weights", "unet_distill_steps_range",
                 "perturb_face_id_embs_std_range"):
         setattr(trainer_cfg, key, tuple(getattr(trainer_cfg, key)))
+    if getattr(args, "scale_lr", False):
+        trainer_cfg.lr = scaled_lr(trainer_cfg)
+        print(f"scaled lr: {trainer_cfg.lr}")
     device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     gen = torch.Generator(device).manual_seed(trainer_cfg.seed)
@@ -90,6 +96,8 @@ def build_trainer(cfg: dict, args):
         recon_kw["vae_decoder"] = build(VAEDecoder, device, dtype, init_fan_in_, gen)
         if model_cfg.get("use_identity_losses", True):
             recon_kw["arcface"] = build_arcface(model_cfg.get("arcface_ckpt"), device, gen)
+    if getattr(args, "base_model", None):
+        load_base_model(args.base_model, unet, text, vae, recon_kw.get("vae_decoder"))
 
     enc_name = model_cfg.get("id2ada_encoder", "arc2face")
     enc_kw = {}
@@ -144,6 +152,31 @@ def build_trainer(cfg: dict, args):
     return trainer, dataset, start_step
 
 
+def scaled_lr(trainer_cfg) -> float:
+    """accumulation × devices × batch × base lr (`train.py:55-60`,
+    `main.py:911-915`); the port trains on one device."""
+    return trainer_cfg.accum_steps * 1 * trainer_cfg.batch_size * trainer_cfg.lr
+
+
+def load_base_model(path: str, unet, text, vae_encoder, vae_decoder=None) -> dict:
+    """SD1.5 weights from `path` (`load_sd_towers`) into the towers the file
+    holds, each in its own dtype and device (`train.py:86-96`) → the trees."""
+    from adaface_tpu_torch.core import bridge
+    from adaface_tpu_torch.tools.convert_sd import load_sd_towers
+
+    towers = load_sd_towers(path, unet_cfg=unet.cfg, vae_cfg=vae_encoder.cfg)
+    if "unet" in towers:
+        bridge.load(unet, towers["unet"])
+    if "text_encoder" in towers:
+        bridge.load(text, towers["text_encoder"])
+    if "vae" in towers:
+        bridge.load(vae_encoder, bridge.vae_encoder_tree(towers["vae"]))
+        if vae_decoder is not None:
+            bridge.load(vae_decoder, bridge.vae_decoder_tree(towers["vae"]))
+    print(f"loaded base model weights from {path}: {sorted(towers)}", flush=True)
+    return towers
+
+
 def build_arcface(path: str | None, device, gen: torch.Generator):
     """ArcFace in fp32: converted from the torch `arcface-resnet18` checkpoint
     at `path`, else random (the identity losses' plumbing only)."""
@@ -184,6 +217,11 @@ def parse_args(argv=None):
                     help="resume from the newest checkpoint in --log_dir")
     ap.add_argument("--adaface_ckpt_path", default=None,
                     help="warm-start the SubjBasisGenerator(s) from this checkpoint")
+    ap.add_argument("--base_model", default=None,
+                    help="SD1.5 weights (.safetensors / .ckpt, an LDM single file or a "
+                         "diffusers UNet); random if omitted")
+    ap.add_argument("--scale_lr", action="store_true",
+                    help="lr = accum_steps x devices x batch_size x lr")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("overrides", nargs="*", help="dot.key=value overrides")
     args = ap.parse_args(argv)
