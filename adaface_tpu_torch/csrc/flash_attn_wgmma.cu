@@ -55,6 +55,10 @@
 //     fence.proxy.async before the block barrier;
 //   - softmax in log2 units with the scale folded into the exponent's FMA;
 //     masks only in tiles that need them;
+//   - where the caller asks (autograd records the call), each row's final m
+//     and 1/l go to `stats` after O, for the backward (flash_attn_bwd_wg.cu),
+//     which then needs no product to rebuild them; O is the same bits with
+//     or without;
 //   - 128 query rows a block (two warpgroups) where such blocks reach about
 //     every SM, else 64; registers capped so that four warpgroups (D <= 48)
 //     or three (D <= 80, 64-row blocks) are resident on an SM: a warpgroup
@@ -83,196 +87,17 @@
 // warp and two consumer warpgroups that take turns on the matrix unit through
 // named barriers, with setmaxnreg moving registers to the consumers.
 
-#include <cuda.h>
-
 #include <mutex>
 #include <unordered_map>
 
-#include "flash_common.cuh"
+#include "flash_wgmma.cuh"
 
 namespace {
 
 using namespace flash;
 
-constexpr int kWgKeys = 64;
+constexpr int kWgKeys = kWgRows;
 constexpr int kWgStages = 2;
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// generic-proxy writes to shared memory (cp.async) -> visible to wgmma
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// mbarrier: counts one arrival and the bytes a TMA copy announces and delivers
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int arrivals) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(arrivals)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// spins until the barrier's phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// one thread: box of the 5-d tensor map at the coordinates -> dst; the bytes
-// count down on bar
-__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
-}
-// keeps the compiler from moving accesses to an accumulator across the
-// point where the matrix unit may still write it
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// shared-memory matrix descriptor, no swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-// D[64 x 64] (+)= A[64 x 16] (registers) * B[16 x 64] (shared memory, by descriptor)
-__device__ __forceinline__ void wgmma_s_n64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// D[64 x 48] (+)= A[64 x 16] (registers) * B[16 x 48] (shared memory, by descriptor)
-__device__ __forceinline__ void wgmma_o_n48(float (&d)[24], const uint32_t (&a)[4],
-                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// D[64 x 80] (+)= A[64 x 16] (registers) * B[16 x 80] (shared memory, by descriptor)
-__device__ __forceinline__ void wgmma_o_n80(float (&d)[40], const uint32_t (&a)[4],
-                                            uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-// D[64 x 160] (+)= A[64 x 16] (registers) * B[16 x 160] (shared memory, by descriptor)
-__device__ __forceinline__ void wgmma_o_n160(float (&d)[80], const uint32_t (&a)[4],
-                                             uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      " %8, %9, %10, %11, %12, %13, %14, %15, "
-      " %16, %17, %18, %19, %20, %21, %22, %23, "
-      " %24, %25, %26, %27, %28, %29, %30, %31, "
-      " %32, %33, %34, %35, %36, %37, %38, %39, "
-      " %40, %41, %42, %43, %44, %45, %46, %47, "
-      " %48, %49, %50, %51, %52, %53, %54, %55, "
-      " %56, %57, %58, %59, %60, %61, %62, %63, "
-      " %64, %65, %66, %67, %68, %69, %70, %71, "
-      " %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
-}
-
-template <int DP>
-__device__ __forceinline__ void wgmma_o(float (&d)[DP / 2], const uint32_t (&a)[4],
-                                        uint64_t desc_b) {
-  static_assert(DP == 48 || DP == 80 || DP == 160, "head dims with a wgmma instance");
-  if constexpr (DP == 48) wgmma_o_n48(d, a, desc_b, 1);
-  if constexpr (DP == 80) wgmma_o_n80(d, a, desc_b, 1);
-  if constexpr (DP == 160) wgmma_o_n160(d, a, desc_b, 1);
-}
 
 template <int KS, int NWG>
 struct WgShape {
@@ -540,6 +365,23 @@ flash_fwd_wg_kernel(const FlashParams p, const __grid_constant__ CUtensorMap map
       }
     }
   }
+  // the rows' statistics for the backward (flash_attn_bwd_wg.cu): m and 1/l
+  // of rows < Sq, zeros for the rows up to Sq rounded up to 64
+  if (p.stats != nullptr && tq == 0) {
+    const int sqp = (p.sq + kWgRows - 1) / kWgRows * kWgRows;
+    const int64_t bh = b * gridDim.y + h;
+    float* st_m = p.stats + bh * sqp;
+    float* st_il = p.stats + ((int64_t)gridDim.y * gridDim.z + bh) * sqp;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? qr1 : qr0;
+      const bool real = row < p.sq;
+      if (row < sqp) {
+        st_m[row] = real ? (half ? m1 : m0) : 0.f;
+        st_il[row] = real ? (half ? inv1 : inv0) : 0.f;
+      }
+    }
+  }
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -562,16 +404,12 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a [B,H,S,D] bf16 tensor (element strides sb, sh, ss) as
-// (8 elements, S rows, D/8 columns of 16 bytes, H, B), box (8, 64 rows, ch
-// columns, 1, 1): a box lands in shared memory column by column, each column
-// 64 rows of 16 bytes, which is wgmma's unswizzled core-matrix order. An
-// axis of extent 1 gets a stride the encoder accepts, whatever the tensor's.
-// A map depends on the address and the layout alone, and the allocator hands
-// a model the same addresses step after step, so maps are kept (encoding one
-// costs the host a few microseconds, twice a launch); flash_tensor_map_stats()
-// counts the lookups that found a map and those that had to encode one.
-// Returns 0, or 20000 + the CUresult of the encoding.
+// The tensor maps (flash_wgmma.cuh: tensor_map) depend on the address and
+// the layout alone, and the allocator hands a model the same addresses step
+// after step, so maps are kept (encoding one costs the host a few
+// microseconds); flash_tensor_map_stats() counts the lookups that found a map
+// and those that had to encode one. The cache is cleared when it reaches
+// kMaxMaps entries.
 struct MapKey {
   const void* ptr;
   int64_t sb, sh, ss;
@@ -593,37 +431,6 @@ constexpr size_t kMaxMaps = 4096;
 std::mutex map_mu;
 int64_t map_hits = 0, map_misses = 0;
 
-int make_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss, int b, int h,
-             int s, int d, int ch) {
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key{ptr, sb, sh, ss, b, h, s, d};  // ch follows from d
-  std::lock_guard<std::mutex> lock(map_mu);
-  auto it = maps.find(key);
-  if (it != maps.end()) {
-    ++map_hits;
-    *map = it->second;
-    return 0;
-  }
-  ++map_misses;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return 20000;
-  const cuuint64_t dims[5] = {8, (cuuint64_t)s, (cuuint64_t)(d / 8), (cuuint64_t)h,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[4] = {(cuuint64_t)(s > 1 ? ss * 2 : 16), 16,
-                                 (cuuint64_t)(h > 1 ? sh * 2 : 16),
-                                 (cuuint64_t)(b > 1 ? sb * 2 : 16)};
-  const cuuint32_t box[5] = {8, (cuuint32_t)kWgKeys, (cuuint32_t)ch, 1, 1};
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
-                             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS) return 20000 + (int)rc;
-  if (maps.size() >= kMaxMaps) maps.clear();
-  maps.emplace(key, *map);
-  return 0;
-}
-
 template <int KS, int NWG, bool TMA>
 int launch_wg(const FlashParams& p, int b, int h, cudaStream_t stream) {
   const size_t smem = WgShape<KS, NWG>::smem;
@@ -635,8 +442,8 @@ int launch_wg(const FlashParams& p, int b, int h, cudaStream_t stream) {
   }
   CUtensorMap map_k{}, map_v{};
   if (TMA) {
-    int rc = make_map(&map_k, p.k, p.k_sb, p.k_sh, p.k_ss, b, h, p.sk, p.d, 2 * KS);
-    if (rc == 0) rc = make_map(&map_v, p.v, p.v_sb, p.v_sh, p.v_ss, b, h, p.sk, p.d, 2 * KS);
+    int rc = tensor_map(&map_k, p.k, p.k_sb, p.k_sh, p.k_ss, b, h, p.sk, p.d, 2 * KS);
+    if (rc == 0) rc = tensor_map(&map_v, p.v, p.v_sb, p.v_sh, p.v_ss, b, h, p.sk, p.d, 2 * KS);
     if (rc != 0) return rc;
   }
   const dim3 grid((p.sq + 64 * NWG - 1) / (64 * NWG), h, b);
@@ -656,16 +463,52 @@ int dispatch_wg(const FlashParams& p, int b, int h, cudaStream_t stream) {
 
 }  // namespace
 
+int flash::tensor_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss,
+                      int b, int h, int s, int d, int ch) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  const MapKey key{ptr, sb, sh, ss, b, h, s, d};  // ch follows from d
+  std::lock_guard<std::mutex> lock(map_mu);
+  auto it = maps.find(key);
+  if (it != maps.end()) {
+    ++map_hits;
+    *map = it->second;
+    return 0;
+  }
+  ++map_misses;
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return 20000;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)s, (cuuint64_t)(d / 8), (cuuint64_t)h,
+                              (cuuint64_t)b};
+  const cuuint64_t strides[4] = {(cuuint64_t)(s > 1 ? ss * 2 : 16), 16,
+                                 (cuuint64_t)(h > 1 ? sh * 2 : 16),
+                                 (cuuint64_t)(b > 1 ? sb * 2 : 16)};
+  const cuuint32_t box[5] = {8, (cuuint32_t)kWgRows, (cuuint32_t)ch, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
+                             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (rc != CUDA_SUCCESS) return 20000 + (int)rc;
+  if (maps.size() >= kMaxMaps) maps.clear();
+  maps.emplace(key, *map);
+  return 0;
+}
+
 // bf16; head dim a multiple of 8 in 33..48, 65..80 or 145..160; q, k, v rows
 // on 16-byte boundaries (else cudaErrorInvalidValue: the wrapper sends such
-// tensors to flash_fwd_bf16_wide). block_rows: 64 or 128.
+// tensors to flash_fwd_bf16_wide). block_rows: 64 or 128. stats: null, or
+// [2, B, H, Sqp] fp32 (Sqp = Sq rounded up to 64) that receives each row's m
+// (log2 units, the scale folded in) and 1/l, zeros past Sq: what the
+// backward reads. O is the same with or without.
 extern "C" int flash_fwd_bf16_wg(const void* q, const void* k, const void* v, const float* mask,
                                  void* out, const int64_t* strides, int b, int h, int sq, int sk,
-                                 int d, int causal, float scale, int block_rows, void* stream) {
+                                 int d, int causal, float scale, int block_rows, float* stats,
+                                 void* stream) {
   FlashParams p;
   if (!fill_params(p, q, k, v, mask, out, strides, b, h, sq, sk, d, 160, causal, scale, 2) ||
       !p.vec16)
     return (int)cudaErrorInvalidValue;
+  p.stats = stats;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool tma = sk > 2 * kWgKeys;  // more than two tiles
   if (block_rows == 128) return tma ? dispatch_wg<2, true>(p, b, h, s) : dispatch_wg<2, false>(p, b, h, s);

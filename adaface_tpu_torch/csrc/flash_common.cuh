@@ -33,6 +33,8 @@ struct FlashParams {
   float* o_part;  // [nsplit, B, H, Sq, D] unnormalized
   float* m_part;  // [nsplit, B, H, Sq] row maxima, log2 units
   float* l_part;  // [nsplit, B, H, Sq] row sums
+  // the wgmma kernel (flash_attn_wgmma.cu): the rows' m and 1/l, or null
+  float* stats;  // [2, B, H, Sq rounded up to 64]
 };
 
 // strides: 12 element strides, (batch, head, seq) for q, k, v, out in turn;
@@ -74,6 +76,7 @@ inline bool fill_params(FlashParams& p, const void* q, const void* k, const void
   p.o_part = nullptr;
   p.m_part = nullptr;
   p.l_part = nullptr;
+  p.stats = nullptr;
   return true;
 }
 

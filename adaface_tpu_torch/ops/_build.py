@@ -29,8 +29,9 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu", "flash_attn_bwd.cu",
-           "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu", "launch_floor.cu")
-HEADERS = ("flash_common.cuh",)  # included by the sources: part of the library's hash
+           "flash_attn_bwd_wg.cu", "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu",
+           "launch_floor.cu")
+HEADERS = ("flash_common.cuh", "flash_wgmma.cuh")  # included by the sources: in the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,7 +112,7 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     flash_args = [p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, f32]
-    lib.flash_fwd_bf16_wg.argtypes = flash_args + [i32, p]
+    lib.flash_fwd_bf16_wg.argtypes = flash_args + [i32, p, p]  # block rows, stats, stream
     lib.flash_fwd_bf16_wg.restype = i32
     lib.flash_fwd_fp32.argtypes = flash_args + [p]
     lib.flash_fwd_fp32.restype = i32
@@ -123,10 +124,18 @@ def load_library() -> ctypes.CDLL:
     lib.flash_combine.restype = i32
     # q, k, v, out, g, mask, dq, dk, dv, stats, strides, B, H, Sq, Sk, D, causal, scale, stream
     flash_bwd_args = [p] * 11 + [i32] * 6 + [f32, p]
-    for name in ("flash_bwd_prep", "flash_bwd_dkdv", "flash_bwd_dq", "flash_bwd_dkdv_wide",
-                 "flash_bwd_dq_wide"):
+    for name in ("flash_bwd_prep", "flash_bwd_dkdv_wide", "flash_bwd_dq_wide"):
         getattr(lib, name).argtypes = flash_bwd_args
         getattr(lib, name).restype = i32
+    # q, k, v, g, mask, stats, delta, (dk, dv | dq), strides, B, H, Sq, Sk, D, causal, scale,
+    # keys (queries) a block, stream
+    lib.flash_bwd_dkdv_wg.argtypes = [p] * 10 + [i32] * 6 + [f32, i32, p]
+    lib.flash_bwd_dkdv_wg.restype = i32
+    lib.flash_bwd_dq_wg.argtypes = [p] * 9 + [i32] * 6 + [f32, i32, p]
+    lib.flash_bwd_dq_wg.restype = i32
+    # out, g, delta, strides, B, H, Sq, D, stream
+    lib.flash_bwd_delta.argtypes = [p] * 4 + [i32] * 4 + [p]
+    lib.flash_bwd_delta.restype = i32
     gn_geometry = [i64, i32, i32, i32, i32, i32, i32]  # B, rows, C, G, slab, chunks, threads
     lib.gn_fused.argtypes = [p, p, p, p] + gn_geometry + [f32, i32, i32, p]
     lib.gn_fused.restype = i32

@@ -21,19 +21,24 @@ there.
 - Where autograd records the call (grad mode on and an input that requires
   grad) `flash_attention` is `_FlashAttention`, the counterpart of the JAX
   package's custom VJP (`_flash_fwd` / `_flash_bwd`, `:365-447`): it saves
-  q, k, v, the mask and the output, and its backward is the three kernels
-  of `csrc/flash_attn_bwd.cu` (`flash_bwd`, bf16, D 40/48, 80, 160; at the
-  VAE's D 512 the prep kernel's wide instance and the wide dk/dv and dq
-  kernel, each counted under its own key) on the card, or
-  `flash_bwd_chunked`, the JAX backward's query-chunk scan in plain PyTorch,
-  on the CPU. It computes only the gradients autograd asks for: a
-  cross-attention whose query has no grad launches no dq kernel. fp32 on
-  the card has no backward kernel: such a call raises at the forward.
+  q, k, v, the mask, the output and, where the wgmma forward ran, the rows'
+  softmax statistics it wrote (m and 1/l). Its backward on the card is
+  `flash_bwd`: at D 40/48, 80, 160 the kernels of `csrc/flash_attn_bwd_wg.cu`
+  (`flash_bwd_delta`, then the wgmma dk/dv and dq kernels, with the geometry
+  `flash_bwd_plan` picks), at the VAE's D 512 those of `csrc/flash_attn_bwd.cu`
+  (the prep kernel, then the wide dk/dv and dq kernel), each counted under
+  its own key; on the CPU it is `flash_bwd_chunked`, the JAX backward's
+  query-chunk scan in plain PyTorch. It computes only the gradients autograd
+  asks for: a cross-attention whose query has no grad launches no dq
+  kernel. fp32 on the card has no backward kernel: such a call raises at
+  the forward.
 - `flash_attention_tiled` and `combine_partials` repeat the kernels'
   arithmetic in plain PyTorch (key tiles, log2 online softmax, P rounded to
   v's dtype, head-dim slices, split-keys partials), so that the CPU tests
   hold it against the plain version and the JAX package, and the combine
-  kernel has a plain version to be held against on the card.
+  kernel has a plain version to be held against on the card;
+  `flash_stats_tiled` and `flash_bwd_tiled` do the same for the statistics
+  the wgmma forward keeps and for the wgmma backward.
 - `multi_head_attention` keeps the JAX package's routing: the flash path at
   q-length >= 256 (the JAX rule also requires no bias and no returned
   probabilities; no caller of the port passes either). Which of kernel or
@@ -65,16 +70,21 @@ FLASH_STD = "flash_attn_fwd[d>=128|causal]"
 FLASH_WIDE = "flash_attn_fwd[bf16 wide]"
 FLASH_COMBINE = "flash_combine"
 FLASH_FP32 = "flash_attn_fwd[fp32]"
-# the backward's three kernels (`csrc/flash_attn_bwd.cu`), and at the VAE's
-# head dim 512 its prep instance and the wide dk/dv and dq kernel
-FLASH_BWD_PREP = "flash_bwd_prep"
-FLASH_BWD_DKDV = "flash_bwd_dkdv"
-FLASH_BWD_DQ = "flash_bwd_dq"
+# the backward at the UNet's head dims (`csrc/flash_attn_bwd_wg.cu`): delta,
+# then the wgmma dk/dv and dq kernels; the forward launch a backward makes
+# for the rows' statistics when its forward kept none; and at the VAE's head
+# dim 512 (`csrc/flash_attn_bwd.cu`) the prep kernel and the wide dk/dv and
+# dq kernel
+FLASH_BWD_DELTA = "flash_bwd_delta"
+FLASH_BWD_DKDV_WG = "flash_bwd_dkdv[wg]"
+FLASH_BWD_DQ_WG = "flash_bwd_dq[wg]"
+FLASH_BWD_STATS = "flash_attn_fwd[bwd stats]"
 FLASH_BWD_PREP_WIDE = "flash_bwd_prep[d512]"
 FLASH_BWD_DKDV_WIDE = "flash_bwd_dkdv[d512]"
 FLASH_BWD_DQ_WIDE = "flash_bwd_dq[d512]"
 BWD_KSTEPS = (3, 5, 10, 32)  # ceil(D / 16) of the backward kernels' instances
 BWD_WIDE_KSTEPS = 32  # D 497..512: the wide kernel
+STATS_ROWS = 64  # the rows' statistics are kept for Sq rounded up to this
 
 LOG2E = 1.4426950408889634
 MAX_DIM = 512
@@ -134,6 +144,33 @@ def flash_plan(dtype, b: int, h: int, sq: int, sk: int, d: int, sm_count: int,
     nsplit = max(1, min(sm_count // blocks, MAX_SPLITS, ntiles))
     nsplit = -(-ntiles // -(-ntiles // nsplit))
     return FlashPlan("wide", 32, 64, 4, nsplit)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """What the backward's kernels do with one call."""
+
+    variant: str  # "wg" (bf16, D 33..48, 65..80, 145..160) or "wide" (D 497..512)
+    key_block: int  # keys a dk/dv block owns
+    query_block: int  # queries a dq block owns
+
+
+def flash_bwd_plan(dtype, b: int, h: int, sq: int, sk: int, d: int,
+                   sm_count: int) -> FlashBwdPlan:
+    """The backward's kernels and geometry for bf16 [B, H, S, D] at a head
+    dim with an instance (`_bwd_refusal` says which)."""
+    if dtype != torch.bfloat16 or -(-d // 16) not in BWD_KSTEPS:
+        raise ValueError(f"flash_bwd_plan: no backward kernel for {dtype} at head dim {d}")
+    if -(-d // 16) == BWD_WIDE_KSTEPS:
+        return FlashBwdPlan("wide", 16, 16)
+
+    def rows(n):
+        # two warpgroups a block, sharing the tiles the loop walks (half the
+        # loads), where such blocks still give an SM 0.7 blocks or more: so
+        # they won or tied at every training shape (PERF.md §6, PR 12)
+        return 128 if -(-n // 128) * b * h * 10 >= sm_count * 7 else 64
+
+    return FlashBwdPlan("wg", rows(sk), rows(sq))
 
 
 def combine_partials(o_part, m_part, l_part):
@@ -203,6 +240,66 @@ def flash_attention_tiled(q, k, v, kv_mask=None, causal: bool = False, scale=Non
     `combine_partials` (one share: the kernels' own final division)."""
     parts = flash_partials_tiled(q, k, v, kv_mask, causal, scale, key_tile, d_slices, nsplit)
     return combine_partials(*parts).to(q.dtype)
+
+
+def flash_stats_tiled(q, k, v, kv_mask=None, causal: bool = False, scale=None):
+    """The rows' statistics the wgmma forward keeps for the backward, from
+    `flash_partials_tiled`: [2, B, H, Sq] fp32, each row's m (log2 units,
+    the scale folded in) and 1/l (the kernel writes them for Sq rounded up
+    to STATS_ROWS, zeros past Sq)."""
+    _, m, l = flash_partials_tiled(q, k, v, kv_mask, causal, scale)
+    return torch.stack((m[0], 1.0 / torch.where(l[0] == 0, 1.0, l[0])))
+
+
+def flash_bwd_tiled(q, k, v, kv_mask, out, g, causal: bool, scale: float, stats,
+                    need_dq: bool = True, need_dkdv: bool = True):
+    """The wgmma backward kernels' arithmetic in plain PyTorch: the rows' m
+    and 1/l from `stats` ([2, B, H, >= Sq], as `flash_stats_tiled` or the
+    forward kernel gives them), delta = Σ g·out in fp32, P = exp2(s·scale·log2e
+    - m)·(1/l) with masked keys at the logit -1e30, dS = P·(dP - delta);
+    dk, dv summed over query tiles of 64 rows and dq over key tiles of 64
+    keys in the kernels' order, with P and dS rounded to q's dtype
+    before the products that take them. → (dq, dk, dv) in the inputs'
+    dtypes; None for the gradients not asked for."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    scale_log2 = scale * LOG2E
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    m, inv_l = stats[0, ..., :sq, None].float(), stats[1, ..., :sq, None].float()
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    rnd = lambda t: t.to(q.dtype).float()  # noqa: E731
+    tile = 64
+
+    def probs(r0, r1, c0, c1):  # (P, dS) of queries r0..r1 by keys c0..c1
+        x = torch.matmul(qf[:, :, r0:r1], kf[:, :, c0:c1].transpose(-1, -2)) * scale_log2
+        if kv_mask is not None:
+            x = torch.where(kv_mask[:, None, None, c0:c1] > 0, x, NEG_INF)
+        if causal:
+            x = torch.where(cols[:, c0:c1] <= rows[r0:r1] + (sk - sq), x, NEG_INF)
+        p = torch.exp2(x - m[:, :, r0:r1]) * inv_l[:, :, r0:r1]
+        dp = torch.matmul(gf[:, :, r0:r1], vf[:, :, c0:c1].transpose(-1, -2))
+        return p, p * (dp - delta[:, :, r0:r1])
+
+    dq = dk = dv = None
+    if need_dkdv:
+        dk = torch.zeros((b, h, sk, d), device=q.device)
+        dv = torch.zeros((b, h, sk, d), device=q.device)
+        for r0 in range(0, sq, tile):
+            r1 = min(sq, r0 + tile)
+            p, ds = probs(r0, r1, 0, sk)
+            dv = dv + torch.matmul(rnd(p).transpose(-1, -2), gf[:, :, r0:r1])
+            dk = dk + torch.matmul(rnd(ds).transpose(-1, -2), qf[:, :, r0:r1])
+        dk, dv = (dk * scale).to(k.dtype), dv.to(v.dtype)
+    if need_dq:
+        dq = torch.zeros((b, h, sq, d), device=q.device)
+        for c0 in range(0, sk, tile):
+            c1 = min(sk, c0 + tile)
+            _, ds = probs(0, sq, c0, c1)
+            dq = dq + torch.matmul(rnd(ds), kf[:, :, c0:c1])
+        dq = (dq * scale).to(q.dtype)
+    return dq, dk, dv
 
 
 def flash_combine(o_part, m_part, l_part, dtype):
@@ -299,7 +396,12 @@ def cache_lookups(reset: bool = False) -> dict:
     return out
 
 
-def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
+def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float, with_stats: bool = False,
+                count_as: str | None = None):
+    """The forward kernels on CUDA tensors → out, or with `with_stats`
+    (out, the rows' statistics [2, B, H, Sq rounded up to STATS_ROWS] fp32
+    where the wgmma kernel ran, else None). `count_as`: the launch-counter
+    key, where not the variant's own."""
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     layout = (q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, q.shape, k.shape,
               v.shape, q.stride(), k.stride(), v.stride(), (qp | kp | vp) % 16 == 0)
@@ -324,7 +426,8 @@ def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
     if causal and key == FLASH_T:
         key = FLASH_STD  # as the JAX dispatch counts it
 
-    out = out_ptr = None
+    key = count_as or key
+    out = out_ptr = stats = None
     if plan.nsplit == 1:
         out = torch.empty_strided((b, h, sq, d), (sq * h * d, d, h * d, 1), dtype=dtype,
                                   device=device)
@@ -335,7 +438,12 @@ def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
     if plan.variant == "fp32":
         _build.check(lib.flash_fwd_fp32(*args, stream), "flash_fwd_fp32")
     elif plan.variant == "wg":
-        _build.check(lib.flash_fwd_bf16_wg(*args, plan.block_rows, stream), "flash_fwd_bf16_wg")
+        if with_stats:
+            stats = torch.empty((2, b, h, -(-sq // STATS_ROWS) * STATS_ROWS),
+                                dtype=torch.float32, device=device)
+        _build.check(lib.flash_fwd_bf16_wg(*args, plan.block_rows,
+                                           None if stats is None else stats.data_ptr(), stream),
+                     "flash_fwd_bf16_wg")
     elif plan.nsplit == 1:
         _build.check(lib.flash_fwd_bf16_wide(*args, 1, None, None, None, stream),
                      "flash_fwd_bf16_wide")
@@ -347,9 +455,10 @@ def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float):
                                              m_part.data_ptr(), l_part.data_ptr(), stream),
                      "flash_fwd_bf16_wide")
         _build.count(key)
-        return flash_combine(o_part, m_part, l_part, dtype)
+        out = flash_combine(o_part, m_part, l_part, dtype)
+        return (out, None) if with_stats else out
     _build.count(key)
-    return out
+    return (out, stats) if with_stats else out
 
 
 def _pick_bwd_chunk(b: int, h: int, sq: int, sk: int) -> int:
@@ -425,12 +534,22 @@ def _grad_buffer(b: int, h: int, s: int, d: int, dtype, device):
                                device=device)
 
 
+def _tma_ready(t) -> bool:
+    """Rows on 16-byte boundaries, as the wgmma kernels' TMA copies read them."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
+
+
 def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
-              need_dq: bool = True, need_dkdv: bool = True):
-    """The backward kernels of `csrc/flash_attn_bwd.cu` on bf16 CUDA tensors:
-    `flash_bwd_prep` (the rows' softmax statistics and delta), then
-    `flash_bwd_dkdv` and `flash_bwd_dq` as asked. → (dq, dk, dv), None for
-    those not asked for; the same function as `flash_bwd_chunked`."""
+              need_dq: bool = True, need_dkdv: bool = True, stats=None):
+    """The backward kernels on bf16 CUDA tensors → (dq, dk, dv), None for
+    those not asked for; the same function as `flash_bwd_chunked`. At the
+    UNet's head dims: `flash_bwd_delta`, then the wgmma kernels
+    `flash_bwd_dkdv_wg` and `flash_bwd_dq_wg` as asked, which read the rows'
+    softmax statistics from `stats` ([2, B, H, Sq rounded up to STATS_ROWS]
+    fp32, as `_flash_cuda(..., with_stats=True)` gives them); without them a
+    forward launch (counted as FLASH_BWD_STATS) writes them first. At D 512:
+    `flash_bwd_prep` (statistics and delta), then the wide dk/dv and dq
+    kernel."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     why = _bwd_refusal(q) if q.device.type == "cuda" else f"no kernel for device {q.device}"
@@ -452,6 +571,65 @@ def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
         if tuple(kv_mask.shape) != (b, sk) or kv_mask.device != q.device:
             raise ValueError(f"flash backward: kv_mask must be [B, Sk] = {(b, sk)} on {q.device}")
         mask = kv_mask.to(torch.float32).contiguous()
+    plan = flash_bwd_plan(q.dtype, b, h, sq, sk, d, _build.sm_count(q.device.index))
+    if plan.variant == "wide":
+        return _flash_bwd_wide(q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv)
+    return _flash_bwd_wg(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv, stats)
+
+
+def _flash_bwd_wg(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv, stats):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    dp = -(-d // 8) * 8
+    if dp != d or not all(_tma_ready(t) for t in (q, k, v, out, g)):
+        # copies the TMA reads: the head dim padded with zeros to a multiple
+        # of 8 (they add nothing to any product), rows on 16-byte boundaries
+        q, k, v, out, g = (torch.nn.functional.pad(t, (0, dp - d)).contiguous()
+                           for t in (q, k, v, out, g))
+    sqp = -(-sq // STATS_ROWS) * STATS_ROWS
+    if stats is None:
+        stats = _flash_cuda(q, k, v, mask, causal, scale, with_stats=True,
+                            count_as=FLASH_BWD_STATS)[1]
+    if (tuple(stats.shape) != (2, b, h, sqp) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"flash backward: stats must be contiguous fp32 {(2, b, h, sqp)} on "
+                         f"{q.device}, got {stats.dtype} {tuple(stats.shape)} on {stats.device}")
+    dq = _grad_buffer(b, h, sq, dp, q.dtype, q.device) if need_dq else None
+    dk = _grad_buffer(b, h, sk, dp, k.dtype, q.device) if need_dkdv else None
+    dv = _grad_buffer(b, h, sk, dp, v.dtype, q.device) if need_dkdv else None
+    delta = torch.empty((b, h, sqp), dtype=torch.float32, device=q.device)
+    none = (0, 0, 0)
+    strides = (ctypes.c_int64 * 21)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *g.stride()[:3],
+        *(dq.stride()[:3] if need_dq else none), *(dk.stride()[:3] if need_dkdv else none),
+        *(dv.stride()[:3] if need_dkdv else none))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.load_library()
+    _build.check(lib.flash_bwd_delta(out.data_ptr(), g.data_ptr(), delta.data_ptr(),
+                                     (ctypes.c_int64 * 6)(*out.stride()[:3], *g.stride()[:3]),
+                                     b, h, sq, dp, stream), FLASH_BWD_DELTA)
+    _build.count(FLASH_BWD_DELTA)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), ptr(mask), stats.data_ptr(),
+            delta.data_ptr())
+    shape = (b, h, sq, sk, dp, int(causal), float(scale))
+    if need_dkdv:
+        _build.check(lib.flash_bwd_dkdv_wg(*args, ptr(dk), ptr(dv), strides, *shape,
+                                           plan.key_block, stream),
+                     FLASH_BWD_DKDV_WG)
+        _build.count(FLASH_BWD_DKDV_WG)
+    if need_dq:
+        _build.check(lib.flash_bwd_dq_wg(*args, ptr(dq), strides, *shape, plan.query_block,
+                                         stream), FLASH_BWD_DQ_WG)
+        _build.count(FLASH_BWD_DQ_WG)
+    if dp != d:
+        dq, dk, dv = (None if t is None else t[..., :d] for t in (dq, dk, dv))
+    return dq, dk, dv
+
+
+def _flash_bwd_wide(q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv):
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
     dq = _grad_buffer(b, h, sq, d, q.dtype, q.device) if need_dq else None
     dk = _grad_buffer(b, h, sk, d, k.dtype, q.device) if need_dkdv else None
     dv = _grad_buffer(b, h, sk, d, v.dtype, q.device) if need_dkdv else None
@@ -466,47 +644,53 @@ def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
             ptr(dq), ptr(dk), ptr(dv), stats.data_ptr(), strides, b, h, sq, sk, d, int(causal),
             float(scale), torch.cuda.current_stream().cuda_stream)
     lib = _build.load_library()
-    wide = -(-d // 16) == BWD_WIDE_KSTEPS
-    keys = ((FLASH_BWD_PREP_WIDE, FLASH_BWD_DKDV_WIDE, FLASH_BWD_DQ_WIDE) if wide
-            else (FLASH_BWD_PREP, FLASH_BWD_DKDV, FLASH_BWD_DQ))
-    _build.check(lib.flash_bwd_prep(*args), keys[0])
-    _build.count(keys[0])
+    _build.check(lib.flash_bwd_prep(*args), FLASH_BWD_PREP_WIDE)
+    _build.count(FLASH_BWD_PREP_WIDE)
     if need_dkdv:
-        _build.check((lib.flash_bwd_dkdv_wide if wide else lib.flash_bwd_dkdv)(*args), keys[1])
-        _build.count(keys[1])
+        _build.check(lib.flash_bwd_dkdv_wide(*args), FLASH_BWD_DKDV_WIDE)
+        _build.count(FLASH_BWD_DKDV_WIDE)
     if need_dq:
-        _build.check((lib.flash_bwd_dq_wide if wide else lib.flash_bwd_dq)(*args), keys[2])
-        _build.count(keys[2])
+        _build.check(lib.flash_bwd_dq_wide(*args), FLASH_BWD_DQ_WIDE)
+        _build.count(FLASH_BWD_DQ_WIDE)
     return dq, dk, dv
 
 
-def _flash_forward(q, k, v, kv_mask, causal: bool, scale: float):
+def _flash_forward(q, k, v, kv_mask, causal: bool, scale: float, with_stats: bool = False):
+    """out, or with `with_stats` (out, the rows' statistics or None): the
+    kernels on a CUDA tensor (statistics where the wgmma kernel ran), the
+    plain version on the CPU (no statistics)."""
     if q.device.type == "cpu":
-        return scaled_dot_product_attention(q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
+        out = scaled_dot_product_attention(q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
+        return (out, None) if with_stats else out
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    return _flash_cuda(q, k, v, kv_mask, causal, scale)
+    return _flash_cuda(q, k, v, kv_mask, causal, scale, with_stats=with_stats)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its backward: kernels on the card, the plain
-    versions on the CPU (the JAX package's `_flash_attention` custom VJP)."""
+    versions on the CPU (the JAX package's `_flash_attention` custom VJP).
+    The rows' softmax statistics are saved with the inputs, so a recompute
+    under `torch.utils.checkpoint` brings them back with the output."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal: bool, scale: float):
-        out = _flash_forward(q, k, v, kv_mask, causal, scale)
-        ctx.save_for_backward(q, k, v, kv_mask, out)
+        out, stats = _flash_forward(q, k, v, kv_mask, causal, scale, with_stats=True)
+        ctx.save_for_backward(q, k, v, kv_mask, out, stats)
         ctx.causal, ctx.scale = causal, scale
         ctx.head_dim = q.shape[-1]  # read by launch censuses without unpacking the saved tensors
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, kv_mask, out = ctx.saved_tensors
+        q, k, v, kv_mask, out, stats = ctx.saved_tensors
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
-        bwd = flash_bwd_chunked if q.device.type == "cpu" else flash_bwd
-        dq, dk, dv = bwd(q, k, v, kv_mask, out, g, ctx.causal, ctx.scale,
-                         need_dq=need_q, need_dkdv=need_k or need_v)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_bwd_chunked(q, k, v, kv_mask, out, g, ctx.causal, ctx.scale,
+                                           need_dq=need_q, need_dkdv=need_k or need_v)
+        else:
+            dq, dk, dv = flash_bwd(q, k, v, kv_mask, out, g, ctx.causal, ctx.scale,
+                                   need_dq=need_q, need_dkdv=need_k or need_v, stats=stats)
         return dq, dk if need_k else None, dv if need_v else None, None, None, None
 
 

@@ -38,6 +38,25 @@ times the wgmma flash kernel with 64 and with 128 query rows a block at every
 UNet shape, at CFG batch 2 and at batch 16, beside the stock op (how
 `flash_plan`'s rule for the rows was checked).
 
+    python3 chip_compare.py --flash-bwd-plans
+
+times the wgmma backward's dk/dv and dq kernels at both geometries (64 or
+128 keys / queries a block) at every attention shape of the training path at UNet batches 2, 4, 8, 12 and
+16, beside `flash_bwd_plan`'s choice, each held to the plan's bits (how the
+plan's rule was set).
+
+    python3 chip_compare.py --flash-bwd PARENT_DIR [CHANGE_DIR]
+
+times the flash backward of two trees in turns (parent, change, change,
+parent): `torch.autograd.grad` through each tree's own `flash_attention` at
+every attention shape of the training path (Stage 1 at batch 16, Stage 2 at
+12, the recon's face-masked self-attention at 4), as the device time of one
+call (torch.profiler, kernels only) and as 20 calls back to back (CUDA
+events), beside the library's backward; then one Stage-1 micro-step at 4
+teacher steps (device time under the profiler, host time) and seconds per
+optimizer step (a 6-micro-step fit through each tree's
+`chip_smoke.train_step_split` and `Trainer.fit`).
+
     python3 chip_compare.py --profile-turn
 
 profiles one UNet call and one VAE decode of the tree in the working
@@ -324,7 +343,7 @@ def flash_rows() -> None:
             def launch(rows):
                 _build.check(lib.flash_fwd_bf16_wg(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), strides,
-                    b, h, sq, sk, d, 0, 1.0 / math.sqrt(d), rows,
+                    b, h, sq, sk, d, 0, 1.0 / math.sqrt(d), rows, None,
                     torch.cuda.current_stream().cuda_stream), "flash_fwd_bf16_wg")
 
             ms = {rows: [] for rows in (64, 128)}
@@ -334,6 +353,152 @@ def flash_rows() -> None:
             print(f"flash {label:28s} the plan takes {plan.block_rows} rows: 64 rows "
                   f"{ms[64][0]:.4f}, {ms[64][1]:.4f} ms | 128 rows {ms[128][0]:.4f}, "
                   f"{ms[128][1]:.4f} ms | stock {stock:.4f} ms", flush=True)
+
+
+def flash_bwd_plans() -> None:
+    """Device time of each geometry of the wgmma backward kernels (20 launches
+    in a CUDA graph) at every training-path shape and batch, beside the plan's
+    choice; every geometry's gradients equal to the plan's, bit for bit."""
+    sys.path.insert(0, os.getcwd())
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as c
+    from adaface_tpu_torch.ops import attention as A
+
+    c.require_cuda()
+    c.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(label, *dims) for label, _, *dims in c.FLASH_CASES[:-1]]
+    with torch.inference_mode():
+        for b in (2, 4, 8, 12, 16):
+            for label, h, sq, sk, d in shapes:
+                q, k, v = c.flash_inputs(gen, label, b, h, sq, sk, d)
+                scale = 1.0 / math.sqrt(d)
+                out, stats = A._flash_cuda(q, k, v, None, False, scale, with_stats=True)
+                g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
+                g = g.reshape(b, sq, h, d).transpose(1, 2)
+                plan = A.flash_bwd_plan(q.dtype, b, h, sq, sk, d, sms)
+                want = A._flash_bwd_wg(plan, q, k, v, None, out, g, False, scale, True, True,
+                                       stats)
+
+                def run(p, dq, dkdv):
+                    return A._flash_bwd_wg(p, q, k, v, None, out, g, False, scale, dq, dkdv,
+                                           stats)
+
+                delta = c.graph_ms(lambda: run(plan, False, False))
+                rows = []
+                for kb in (64, 128):
+                    p = dataclasses.replace(plan, key_block=kb)
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(run(p, False, True)[1:], want[1:]))
+                    ms = c.graph_ms(lambda: run(p, False, True)) - delta
+                    rows.append(f"dkdv {kb} keys {ms:.4f}{'' if same else ' DIFFERENT BITS'}")
+                for qb in (64, 128):
+                    p = dataclasses.replace(plan, query_block=qb)
+                    same = torch.equal(run(p, True, False)[0], want[0])
+                    ms = c.graph_ms(lambda: run(p, True, False)) - delta
+                    rows.append(f"dq {qb} queries {ms:.4f}{'' if same else ' DIFFERENT BITS'}")
+                print(f"flash bwd B{b:2d} {label:18s}: delta {delta:.4f} | " + " | ".join(rows)
+                      + f" | plan {plan.key_block} keys, {plan.query_block} queries", flush=True)
+                del q, k, v, out, stats, g, want
+                torch.cuda.empty_cache()
+
+
+def flash_bwd_turn() -> None:
+    """One tree's flash backward and Stage-1 micro-step; runs with the tree
+    as working directory."""
+    sys.path.insert(0, os.getcwd())
+    import collections
+    import dataclasses
+    import statistics
+    import tempfile
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as c
+    import train_torch
+    from adaface_tpu_torch.ops import attention as A
+
+    new = beside()
+    c.require_cuda()
+    c.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(e.device_time for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+    for label, b, h, sq, sk, d in new.FLASH_BWD_CASES + new.FLASH_BWD_STAGE2 + new.FLASH_BWD_RECON:
+        q, k, v = (t.detach().requires_grad_() for t in new.flash_inputs(gen, label, b, h, sq,
+                                                                           sk, d))
+        mask = new.face_mask(b, 64) if label.startswith("recon masked") else None
+        with torch.enable_grad():
+            out = A.flash_attention(q, k, v, mask)
+        g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
+        g = g.reshape(b, sq, h, d).transpose(1, 2)
+        kernel = lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)  # noqa: E731
+        library, backend = new.flash_library_backward(
+            q, k, v, g, ("FLASH_ATTENTION",) if mask is None else
+            ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"), mask)
+        print(f"flash bwd {label:32s}: device kernel {device_ms(kernel):.4f} ms library "
+              f"{device_ms(library):.4f} ms ({backend}) | 20 back to back kernel "
+              f"{new.run_ms(kernel):.4f} ms library {new.run_ms(library):.4f} ms", flush=True)
+        del q, k, v, out, g, kernel, library
+        torch.cuda.empty_cache()
+
+    repo = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = c.write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            "--base", os.path.join(repo, c.TRAIN_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs"), "--max_steps", str(new.TRAIN_MICRO_STEPS)])
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        post, stamps = trainer._post_step, []
+
+        def watch(step, f, metrics):
+            stamps.append(time.perf_counter())
+            post(step, f, metrics)
+
+        trainer._post_step = watch
+        trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
+        torch.cuda.synchronize()
+        gaps = [b_ - a for a, b_ in zip(stamps, stamps[1:])]
+        per_update = trainer.cfg.accum_steps * statistics.mean(gaps)
+        splits = [c.train_step_split(trainer, dataset, new.TRAIN_MICRO_STEPS + i) for i in range(3)]
+        fl = dataclasses.replace(trainer.planner.plan(new.TRAIN_MICRO_STEPS + 3),
+                                 num_denoising_steps=4)
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
+                                       trainer.draws_for(fl))
+        step_fn = trainer._get_step(fl)
+        step = lambda: step_fn(trainer.state, batch)  # noqa: E731
+        step()
+        _, wall_ms = new.sync_ms(step)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            new.sync_ms(step)
+        by_kind = collections.Counter()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kind = "flash backward" if "flash_bwd" in e.name else (
+                    "flash forward" if "flash_fwd" in e.name else "other")
+                by_kind[kind] += e.device_time / 1e3
+        print(f"stage-1: seconds per optimizer step {per_update:.3f} (accumulation "
+              f"{trainer.cfg.accum_steps} x the mean gap between micro-steps, gaps "
+              f"{', '.join(f'{x:.3f}' for x in gaps)} s); a micro-step at 4 teacher steps: "
+              f"{wall_ms:.1f} ms on the host clock, device {sum(by_kind.values()):.1f} ms ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in sorted(by_kind.items())) + ")", flush=True)
+        for sp in splits:
+            print(f"stage-1: split at {sp['steps']} teacher steps: student forward + backward "
+                  f"{sp['student_ms']:.1f} ms, total {sp['total_ms']:.1f} ms", flush=True)
 
 
 def main() -> int:
@@ -349,6 +514,16 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--profile-turn":
         profile_turn()
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--flash-bwd-plans":
+        flash_bwd_plans()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--flash-bwd-turn":
+        flash_bwd_turn()
+        return 0
+    turn_flag = "--turn"
+    if sys.argv[1:2] == ["--flash-bwd"]:
+        turn_flag = "--flash-bwd-turn"
+        del sys.argv[1]
     if len(sys.argv) not in (2, 3):
         print(__doc__)
         return 2
@@ -357,7 +532,7 @@ def main() -> int:
     for name, tree in (("parent", parent), ("change", change), ("change", change),
                        ("parent", parent)):
         print(f"== {name}: {tree}", flush=True)
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--turn"], cwd=tree,
+        subprocess.run([sys.executable, os.path.abspath(__file__), turn_flag], cwd=tree,
                        check=True)
     return 0
 

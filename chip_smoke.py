@@ -24,11 +24,15 @@ Phases (any failure raises and the exit code is not 0):
      warps); `bn_stats` at mean 100 and deviation 1 (its mean bounded, its
      rstd reported against fp64); both captured in one CUDA graph and
      replayed twice to the same bits; an empty kernel's launch as the floor
-     of the small shapes; the flash backward's three kernels against
-     `flash_bwd_chunked` (dq, dk, dv) at every attention shape of the
-     student UNet at batch 16 and at the VAE decoder's mid block (B 2, H 1,
-     S 4096, D 512: the wide kernels), masked and causal cases (D 512
-     among them), and the GroupNorm backward's against the closed-form VJP
+     of the small shapes; the wgmma forward's row statistics (its O with
+     and without them, bit for bit; m and 1/l against `flash_stats_tiled`);
+     the flash backward's kernels against `flash_bwd_chunked` (dq, dk, dv)
+     and, at the UNet's head dims, against `flash_bwd_tiled`, at every
+     attention shape of the student UNet at batch 16, the recon's
+     face-masked self-attention at batch 4 and the VAE decoder's mid block
+     (B 2, H 1, S 4096, D 512: the wide kernels), masked and causal cases
+     at ragged lengths (D 512 among them), and the GroupNorm backward's
+     against the closed-form VJP
      (dx, dγ, dβ) at every UNet GroupNorm shape at batch 16 and every VAE
      decoder map at batch 2, each twice to the same bits; the flash
      forward at the teacher's 16-token cross-attention; print errors,
@@ -1110,6 +1114,7 @@ def check_kernels():
         flash["combine"] = check_flash_combine(gen)
         gn, bn, ln = check_gn(gen), check_bn(gen), check_ln(gen)
         check_graph_capture(gen)
+        flash["stats"] = check_flash_stats(gen)
     # the library's backward, the yardstick of these two, needs grad mode
     flash_bwd, gn_bwd = check_flash_bwd(gen), check_gn_bwd(gen)
     check_bn_backward(gen)
@@ -1378,11 +1383,12 @@ def check_autograd_functions() -> None:
             out.backward(g)
             torch.cuda.synchronize()
             seen = {n: c for n, c in launch_counts().items() if c}
+            # without the forward's statistics: the same bits, a forward launch more
             dq, dk, _ = A.flash_bwd(q0, k0, v0, None, out.detach(), g, False,
                                     1.0 / math.sqrt(40))
-            want = {A.FLASH_T: 1, A.FLASH_BWD_PREP: 1, A.FLASH_BWD_DKDV: 1}
+            want = {A.FLASH_T: 1, A.FLASH_BWD_DELTA: 1, A.FLASH_BWD_DKDV_WG: 1}
             if q_grad:
-                want[A.FLASH_BWD_DQ] = 1
+                want[A.FLASH_BWD_DQ_WG] = 1
             if (seen != want or not torch.equal(k.grad, dk)
                     or (q.grad is not None) != q_grad
                     or (q_grad and not torch.equal(q.grad, dq))):
@@ -2398,13 +2404,34 @@ FLASH_BWD_CASES = [(f"{label} batch 16", 16, *dims) for label, _, *dims in FLASH
 # the VAE decoder's mid-block attention with gradient, at the finetuning
 # configuration's batch 2 (recon decodes): the wide D 512 kernels
 FLASH_BWD_VAE = [("vae mid self batch 2", 2, 1, 4096, 4096, 512)]
+# the recon path's masked self-attention at 64x64 (every self-attention of
+# the trained UNet carries the image's face mask) at batch 4
+FLASH_BWD_RECON = [("recon masked 64x64 self batch 4", 4, 8, 4096, 4096, 40)]
 # off the path: a key mask (batch 1 all masked) and the causal rule at
-# ragged lengths (Sq 200, Sk 177: rows 0..22 see only masked keys)
+# ragged lengths (Sq 200, Sk 177: rows 0..22 see only masked keys); D 36,
+# whose rows are off 16 bytes, takes the wide forward (no statistics) and
+# padded copies in the backward
 FLASH_BWD_MASKED = [("masked Sq200 Sk177 D40", 40, False),
+                    ("masked Sq200 Sk177 D36", 36, False),
                     ("masked causal Sq200 Sk177 D80", 80, True),
                     ("causal Sq200 Sk177 D160", 160, True),
                     ("masked Sq200 Sk177 D512", 512, False),
                     ("masked causal Sq200 Sk177 D512", 512, True)]
+STATS_TOL = 1e-4  # the rows' m and 1/l, kernel against plain, of max(1, |plain|)
+
+
+def face_mask(b: int, hw: int) -> torch.Tensor:
+    """[B, hw·hw] key mask of a face on a latent map: 1 inside an ellipse of
+    about a third of the map (shifted by a few cells from sample to
+    sample), 0 outside, as the recon's `img_mask` keeps the face's keys."""
+    yy, xx = torch.meshgrid(torch.arange(hw, device="cuda"), torch.arange(hw, device="cuda"),
+                            indexing="ij")
+    masks = []
+    for i in range(b):
+        cy, cx = hw * (0.45 + 0.02 * i), hw * (0.5 - 0.03 * i)
+        inside = ((yy - cy) / (0.38 * hw)) ** 2 + ((xx - cx) / (0.3 * hw)) ** 2 <= 1.0
+        masks.append(inside.float().flatten())
+    return torch.stack(masks)
 
 
 def timed(kernel, plain, library) -> dict:
@@ -2416,18 +2443,19 @@ def timed(kernel, plain, library) -> dict:
     return dict(ms=pick(0), plain_ms=pick(1), library_ms=pick(2), graph_ms=graph_ms(kernel))
 
 
-def flash_library_backward(q, k, v, g, backends=("FLASH_ATTENTION",)):
+def flash_library_backward(q, k, v, g, backends=("FLASH_ATTENTION",), kv_mask=None):
     """The autograd backward of `F.scaled_dot_product_attention` on the first
-    of `backends` that takes the shape, for the same q, k, v and g: a
-    yardstick, never called by the port. → (the call, the backend's name),
-    (None, None) where all refuse it."""
+    of `backends` that takes the shape, for the same q, k, v, key mask and
+    g: a yardstick, never called by the port. → (the call, the backend's
+    name), (None, None) where all refuse it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    attn_mask = None if kv_mask is None else (kv_mask > 0)[:, None, None, :]
     for name in backends:
         try:
             with sdpa_kernel([getattr(SDPBackend, name)]):
-                o = F.scaled_dot_product_attention(qq, kk, vv)
+                o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask)
             torch.autograd.grad(o, (qq, kk, vv), g, retain_graph=True)
         except RuntimeError as e:
             log(f"library {name} backward refused: {str(e).splitlines()[0][:160]}")
@@ -2436,68 +2464,102 @@ def flash_library_backward(q, k, v, g, backends=("FLASH_ATTENTION",)):
     return None, None
 
 
+def bwd_kernel_bounds(b, h, sq, sk, d, wide: bool) -> dict:
+    """(least ms, what bounds it) of each backward launch's own work. The
+    wgmma kernels: delta reads out and g and writes delta; dkdv does four
+    products (S^T, dP^T, dV, dK), reads q, k, v, g and the rows' m, 1/l,
+    delta, writes dk, dv; dq three (S, dP, dQ), reads the same, writes dq.
+    At D 512 the prep kernel does one product (reads q, k, out, g)."""
+    prod, nq, nk, rows = 2.0 * b * h * sq * sk * d, b * h * sq * d, b * h * sk * d, b * h * sq
+    first = ("prep", bound(2 * (3 * nq + nk), prod)) if wide else \
+        ("delta", bound(2 * 2 * nq + 4 * rows))
+    return {first[0]: first[1], "dkdv": bound(2 * (2 * nq + 4 * nk) + 12 * rows, 4 * prod),
+            "dq": bound(2 * (3 * nq + 2 * nk) + 12 * rows, 3 * prod)}
+
+
 def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
-    """The three backward kernels against `flash_bwd_chunked` (dq, dk, dv)
-    at every path shape (`cases`: the student UNet's at batch 16 and the VAE
-    decoder's at batch 2 unless given), plus masked and causal cases; two
-    runs to the same bits; times of the whole backward and of each kernel."""
+    """The backward kernels against `flash_bwd_chunked` (dq, dk, dv) and, at
+    the UNet's head dims, against `flash_bwd_tiled` (their arithmetic in
+    plain PyTorch) at every path shape (`cases`: the student UNet's at batch
+    16, the recon's face-masked self-attention at batch 4 and the VAE
+    decoder's at batch 2 unless given), with the statistics the forward
+    kept; two runs to the same bits, and a run without the statistics (a
+    forward launch writes them) to the same bits too; plus masked and causal
+    cases at ragged lengths; times of the whole backward and of each kernel
+    beside its own bound and the library's backward."""
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
-    for label, b, h, sq, sk, d in (cases or FLASH_BWD_CASES + FLASH_BWD_VAE):
+    for label, b, h, sq, sk, d in (cases or FLASH_BWD_CASES + FLASH_BWD_RECON + FLASH_BWD_VAE):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
+        mask = face_mask(b, 64) if label.startswith("recon masked") else None
         scale = 1.0 / math.sqrt(d)
-        out = A._flash_cuda(q, k, v, None, False, scale)
+        wide = -(-d // 16) == A.BWD_WIDE_KSTEPS
+        out, stats = A._flash_cuda(q, k, v, mask, False, scale, with_stats=True)
         # the gradient of out as the path gives it: [B, S, H·D] memory
         g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
         g = g.reshape(b, sq, h, d).transpose(1, 2)
-        got = A.flash_bwd(q, k, v, None, out, g, False, scale)
-        again = A.flash_bwd(q, k, v, None, out, g, False, scale)
-        ref = A.flash_bwd_chunked(q, k, v, None, out, g, False, scale)
+        kernel = lambda: A.flash_bwd(q, k, v, mask, out, g, False, scale, stats=stats)  # noqa
+        got, again = kernel(), kernel()
+        ref = A.flash_bwd_chunked(q, k, v, mask, out, g, False, scale)
         torch.cuda.synchronize()
         errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         del ref, again
+        tiled_errs, same_without = {}, True
+        if not wide:
+            tiled = A.flash_bwd_tiled(q, k, v, mask, out, g, False, scale, stats)
+            tiled_errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, tiled)}
+            del tiled
+            without = A.flash_bwd(q, k, v, mask, out, g, False, scale)
+            same_without = all(torch.equal(x, y) for x, y in zip(got, without))
+            del without
         torch.cuda.empty_cache()
-        kernel = lambda: A.flash_bwd(q, k, v, None, out, g, False, scale)  # noqa: E731
-        # the flash backend stops at head dim 256: at D 512 the first backend
-        # that takes it
+        # the flash backend takes no mask and stops at head dim 256: there the
+        # first backend that takes the call
         library, backend = flash_library_backward(
-            q, k, v, g, ("FLASH_ATTENTION",) if d <= 256 else
-            ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"))
-        t = timed(kernel, lambda: A.flash_bwd_chunked(q, k, v, None, out, g, False, scale),
+            q, k, v, g, ("FLASH_ATTENTION",) if d <= 256 and mask is None else
+            ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"), mask)
+        t = timed(kernel, lambda: A.flash_bwd_chunked(q, k, v, mask, out, g, False, scale),
                   library)
-        prep = graph_ms(lambda: A.flash_bwd(q, k, v, None, out, g, False, scale, False, False))
-        no_dq = graph_ms(lambda: A.flash_bwd(q, k, v, None, out, g, False, scale, False, True))
+        first_ms = graph_ms(lambda: A.flash_bwd(q, k, v, mask, out, g, False, scale, False,
+                                                False, stats=stats))
+        no_dq = graph_ms(lambda: A.flash_bwd(q, k, v, mask, out, g, False, scale, False, True,
+                                             stats=stats))
         # q, out, g read and dq written; k, v read and dk, dv written; five
         # products of [Sq, Sk] by D: S = QKᵀ, dP = G Vᵀ, dV = Pᵀ G, dK = dSᵀ Q, dQ = dS K
         bound_ms, bound_by = bound(2 * (4 * q.numel() + 4 * k.numel()),
                                    5 * 2.0 * b * h * sq * sk * d)
-        # each kernel's own work: prep one product (reads q, k, out, g), dkdv
-        # four (reads q, k, v, g, writes dk, dv), dq three (reads q, k, v, g,
-        # writes dq)
-        prod, nq, nk = 2.0 * b * h * sq * sk * d, q.numel(), k.numel()
-        kernel_bounds = {"prep": bound(2 * (3 * nq + nk), prod),
-                         "dkdv": bound(2 * (2 * nq + 4 * nk), 4 * prod),
-                         "dq": bound(2 * (3 * nq + 2 * nk), 3 * prod)}
+        first = "prep" if wide else "delta"
         res = dict(err=max(e for e, _ in errs.values()), mag=max(m for _, m in errs.values()),
-                   same_bits=same, bound_ms=bound_ms, bound_by=bound_by, library=backend,
+                   tiled_err=max((e for e, _ in tiled_errs.values()), default=None),
+                   same_bits=same, same_bits_without_stats=same_without, bound_ms=bound_ms,
+                   bound_by=bound_by, library=backend,
                    bound_bytes=2 * (4 * q.numel() + 4 * k.numel()),
-                   bound_flops=5 * 2.0 * b * h * sq * sk * d, prep_graph_ms=prep,
-                   dkdv_graph_ms=no_dq - prep, dq_graph_ms=t["graph_ms"] - no_dq,
-                   kernel_bounds=kernel_bounds, **t)
+                   bound_flops=5 * 2.0 * b * h * sq * sk * d, plan=dataclasses.asdict(
+                       A.flash_bwd_plan(q.dtype, b, h, sq, sk, d, torch.cuda.get_device_properties(
+                           0).multi_processor_count)),
+                   **{f"{first}_graph_ms": first_ms}, dkdv_graph_ms=no_dq - first_ms,
+                   dq_graph_ms=t["graph_ms"] - no_dq,
+                   kernel_bounds=bwd_kernel_bounds(b, h, sq, sk, d, wide), **t)
         lib = "refused" if t["library_ms"] is None else f"{backend} {t['library_ms']:.4f} ms"
-        log(f"flash bwd {label:24s} B{b} H{h} Sq{sq} Sk{sk} D{d}: max_abs_err "
+        log(f"flash bwd {label:32s} B{b} H{h} Sq{sq} Sk{sk} D{d}: max_abs_err "
             + " ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
-            + f" (bound {BF16_TOL * res['mag']:.3e}) same bits {same} | single: kernels "
-            f"{t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library {lib} | 20 as a CUDA "
-            f"graph (device alone): {t['graph_ms']:.4f} ms (prep {prep:.4f}, dkdv "
+            + f" (bound {BF16_TOL * res['mag']:.3e})"
+            + ("" if wide else " against tiled " + " ".join(
+                f"{n} {e:.3e}" for n, (e, _) in tiled_errs.items()))
+            + f" same bits {same}, without stats {same_without} | plan {res['plan']} | single: "
+            f"kernels {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library {lib} | 20 as a "
+            f"CUDA graph (device alone): {t['graph_ms']:.4f} ms ({first} {first_ms:.4f}, dkdv "
             f"{res['dkdv_graph_ms']:.4f}, dq {res['dq_graph_ms']:.4f}) | least {bound_ms:.4f} "
             f"ms by {bound_by}, reached {bound_ms / t['graph_ms']:.1%}")
-        if any(e > BF16_TOL * m for e, m in errs.values()) or not same:
-            raise AssertionError(f"flash bwd {label}: {errs}, same bits {same}")
+        bad = [n for n, (e, m) in {**errs, **{f"tiled {n}": x for n, x in tiled_errs.items()}
+                                   }.items() if e > BF16_TOL * m]
+        if bad or not same or not same_without:
+            raise AssertionError(f"flash bwd {label}: {bad} {errs} {tiled_errs}, same bits "
+                                 f"{same}, without stats {same_without}")
         results[label] = res
-        del q, k, v, out, g, got, kernel
+        del q, k, v, out, g, got, kernel, stats
         torch.cuda.empty_cache()
     for label, d, causal in FLASH_BWD_MASKED if masked else ():
         q, k, v = flash_inputs(gen, "self", 2, 2, 200, 177, d)
@@ -2507,17 +2569,66 @@ def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
         if causal:
             mask[1, :16] = 1.0
         scale = 1.0 / math.sqrt(d)
-        out = A._flash_cuda(q, k, v, mask, causal, scale)
+        out, stats = A._flash_cuda(q, k, v, mask, causal, scale, with_stats=True)
         g = torch.randn(out.shape, generator=gen, device="cuda").to(q.dtype)
-        got = A.flash_bwd(q, k, v, mask, out, g, causal, scale)
+        got = A.flash_bwd(q, k, v, mask, out, g, causal, scale, stats=stats)
+        again = A.flash_bwd(q, k, v, mask, out, g, causal, scale, stats=stats)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
         ref = A.flash_bwd_chunked(q, k, v, mask, out, g, causal, scale)
         errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
+        if stats is not None:
+            tiled = A.flash_bwd_tiled(q, k, v, mask, out, g, causal, scale, stats)
+            errs.update({f"tiled {n}": max_err(x, r)
+                         for n, x, r in zip(("dq", "dk", "dv"), got, tiled)})
         log(f"flash bwd {label}: max_abs_err "
-            + " ".join(f"{n} {e:.3e} (bound {BF16_TOL * m:.3e})" for n, (e, m) in errs.items()))
-        if any(e > BF16_TOL * m for e, m in errs.values()):
-            raise AssertionError(f"flash bwd {label}: {errs}")
+            + " ".join(f"{n} {e:.3e} (bound {BF16_TOL * m:.3e})" for n, (e, m) in errs.items())
+            + f" same bits {same}")
+        if any(e > BF16_TOL * m for e, m in errs.values()) or not same:
+            raise AssertionError(f"flash bwd {label}: {errs}, same bits {same}")
         results[label] = dict(err=max(e for e, _ in errs.values()))
     return results
+
+
+def check_flash_stats(gen) -> dict:
+    """The wgmma forward with the rows' statistics: its O bit for bit what it
+    is without them, and m and 1/l against `flash_stats_tiled` (STATS_TOL of
+    max(1, |plain|) elementwise; zeros past Sq), at every attention shape of
+    the training path at batch 16, the recon's face mask, and masked, causal
+    and ragged cases (batch 1 all masked: m = -1e30, 1/l = 1/Sk)."""
+    from adaface_tpu_torch.ops import attention as A
+
+    cases = [(label, b, h, sq, sk, d, None, False)
+             for label, b, h, sq, sk, d in FLASH_BWD_CASES + FLASH_BWD_RECON]
+    cases += [(label, 2, 2, 200, 177, d, "ragged", causal)
+              for label, d, causal in FLASH_BWD_MASKED if d <= 160 and d % 8 == 0]
+    out = {}
+    for label, b, h, sq, sk, d, kind, causal in cases:
+        q, k, v = flash_inputs(gen, label if kind is None else "self", b, h, sq, sk, d)
+        mask = None
+        if label.startswith("recon masked"):
+            mask = face_mask(b, 64)
+        elif kind == "ragged":
+            mask = torch.ones((b, sk), device="cuda")
+            mask[1] = 0.0
+            mask[0, 150:] = 0.0
+        scale = 1.0 / math.sqrt(d)
+        plain_o = A._flash_cuda(q, k, v, mask, causal, scale)
+        o, stats = A._flash_cuda(q, k, v, mask, causal, scale, with_stats=True)
+        ref = A.flash_stats_tiled(q, k, v, mask, causal, scale)
+        torch.cuda.synchronize()
+        equal = torch.equal(plain_o, o)
+        err = ((stats[..., :sq] - ref).abs() / ref.abs().clamp(min=1.0)).amax(dim=(1, 2, 3))
+        tail = stats[..., sq:].abs().max().item() if stats.shape[-1] > sq else 0.0
+        row = dict(o_equal=equal, m_err=err[0].item(), inv_l_err=err[1].item(), tail=tail)
+        log(f"flash stats {label:32s} B{b} H{h} Sq{sq} Sk{sk} D{d}: O with stats equal to O "
+            f"without {equal}; m {row['m_err']:.3e}, 1/l {row['inv_l_err']:.3e} of max(1, |plain|) "
+            f"(bound {STATS_TOL:.0e}); past Sq {tail}")
+        if not equal or max(row["m_err"], row["inv_l_err"]) > STATS_TOL or tail != 0.0:
+            raise AssertionError(f"flash stats {label}: {row}")
+        out[label] = row
+        del q, k, v, plain_o, o, stats, ref
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_gn_bwd(gen, cases=None) -> dict:
@@ -2643,9 +2754,9 @@ VAE_DECODE_GN = sum(dec for *_, dec, _ in VAE_GN)  # GroupNorms of one decode: 3
 
 def backward_census(loss, want: collections.Counter) -> None:
     """Add to `want` the backward launches the autograd graph of `loss`
-    holds: per flash node `flash_bwd_prep`, `flash_bwd_dkdv` where k or v
-    needs a gradient and `flash_bwd_dq` where q does (at head dim 512 their
-    wide keys); per GroupNorm node one `gn_bwd_reduce` and one `gn_bwd_dx`,
+    holds: per flash node `flash_bwd_delta`, `flash_bwd_dkdv[wg]` where k or
+    v needs a gradient and `flash_bwd_dq[wg]` where q does (at head dim 512
+    the prep kernel and the wide keys); per GroupNorm node one `gn_bwd_reduce` and one `gn_bwd_dx`,
     and those on the VAE decoder's maps under GN_BWD_VAE. The nodes' head
     dims and map shapes are read from attributes the Functions set, so the
     saved tensors of a recomputed (checkpointed) decoder are not unpacked."""
@@ -2663,7 +2774,8 @@ def backward_census(loss, want: collections.Counter) -> None:
             nq, nk, nv = node.needs_input_grad[:3]
             wide = -(-node.head_dim // 16) == A.BWD_WIDE_KSTEPS
             prep, dkdv, dq = ((A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE)
-                              if wide else (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ))
+                              if wide else
+                              (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG))
             want[prep] += 1
             want[dkdv] += int(nk or nv)
             want[dq] += int(nq)
@@ -2672,6 +2784,22 @@ def backward_census(loss, want: collections.Counter) -> None:
             want[GN_BWD_DX] += 1
             want[GN_BWD_VAE] += int((node.shape[1], node.shape[2]) in VAE_DECODER_GN_MAPS)
         stack.extend(f for f, _ in node.next_functions)
+
+
+def fit_flash_lookups(phase: str, counts: dict) -> dict:
+    """After a fit: the flash caches' lookups since their reset (the
+    backward's tensor maps of q, k, v and g join the forward's in one cache
+    keyed on address and layout), and the check that every backward read the
+    statistics its forward kept: no forward launch made for them
+    (FLASH_BWD_STATS)."""
+    from adaface_tpu_torch.ops import attention as A
+
+    lookups = A.cache_lookups()
+    log(f"{phase}: flash cache lookups over the fit {lookups}")
+    if counts.get(A.FLASH_BWD_STATS, 0):
+        raise AssertionError(f"{phase}: {counts[A.FLASH_BWD_STATS]} backward calls found no "
+                             "statistics from their forward")
+    return lookups
 
 
 def sbg_snapshot(trainer) -> list:
@@ -2772,12 +2900,13 @@ def train_stage1(gen) -> dict:
 
     import train_torch
     from adaface_tpu_torch.ops import _build
-    from adaface_tpu_torch.ops.attention import FLASH_BWD_DKDV, FLASH_BWD_DQ, FLASH_BWD_PREP
+    from adaface_tpu_torch.ops import attention as A
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
     from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
     from adaface_tpu_torch.train.train_step import make_train_step, unet_distill_loss_fn
 
-    bwd_keys = (FLASH_BWD_PREP, FLASH_BWD_DKDV, FLASH_BWD_DQ, GN_BWD_REDUCE, GN_BWD_DX)
+    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, GN_BWD_REDUCE,
+                GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
         data = write_train_photos(os.path.join(tmp, "photos"))
@@ -2843,11 +2972,13 @@ def train_stage1(gen) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        A.cache_lookups(reset=True)
         t0 = time.perf_counter()
         trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = launch_counts()
+        lookups = fit_flash_lookups("train", counts)
         peak = torch.cuda.max_memory_allocated()
         del before[0]
         for r in records:
@@ -2914,7 +3045,8 @@ def train_stage1(gen) -> dict:
             f"{wall_ms:.1f} ms on the host clock, device busy {busy_ms:.1f} ms in {n_ops} "
             f"operations under the profiler ({busy_ms / wall_ms:.1%} of the unprofiled wall)")
     return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
-                grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms)
+                grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
+                lookups=lookups)
 
 
 FINETUNE_CONFIG = "configs/finetune-unet.yaml"
@@ -3086,7 +3218,7 @@ def train_finetune(gen) -> dict:
     from adaface_tpu_torch.train.recon_multistep import calc_arcface_adv_grad
     from adaface_tpu_torch.train.train_step import make_train_step
 
-    bwd_keys = (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, A.FLASH_BWD_PREP_WIDE,
+    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, A.FLASH_BWD_PREP_WIDE,
                 A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE, GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
@@ -3186,11 +3318,13 @@ def train_finetune(gen) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        A.cache_lookups(reset=True)
         t0 = time.perf_counter()
         trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = launch_counts()
+        lookups = fit_flash_lookups("finetune", counts)
         peak = torch.cuda.max_memory_allocated()
         for r in records:
             upd = "no update" if r["lr"] is None else f"an update at lr {r['lr']:.3e}"
@@ -3287,7 +3421,8 @@ def train_finetune(gen) -> dict:
         if not torch.isfinite(adv).all() or not adv.abs().max() > 0 or wide != 1:
             raise AssertionError("finetune: the adversarial gradient")
     return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
-                grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms)
+                grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
+                lookups=lookups)
 
 
 STAGE2_CONFIG = "configs/stage2-comp-distill.yaml"
@@ -3456,9 +3591,9 @@ def recon_flash_profile(trainer, dataset, flags) -> dict:
     step_fn(trainer.state, batch, trainer.draws_for(flags, loss=True))  # warm the plans
     seen, real = [], A._flash_cuda
 
-    def recorded(q, k, v, kv_mask, causal, scale):
+    def recorded(q, k, v, kv_mask, causal, scale, **kw):
         seen.append((q.shape[0], q.shape[2], k.shape[2], q.shape[3], kv_mask is not None))
-        return real(q, k, v, kv_mask, causal, scale)
+        return real(q, k, v, kv_mask, causal, scale, **kw)
 
     torch.cuda.synchronize()
     with mock.patch.object(A, "_flash_cuda", recorded), \
@@ -3516,7 +3651,7 @@ def train_stage2(gen) -> dict:
     gn_bwd = check_gn_bwd(gen, GN_BWD_STAGE2)
     masked = masked_flash_breakdown(gen)
     torch.cuda.empty_cache()
-    bwd_keys = (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV, A.FLASH_BWD_DQ, A.FLASH_BWD_PREP_WIDE,
+    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, A.FLASH_BWD_PREP_WIDE,
                 A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE, GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
@@ -3632,12 +3767,14 @@ def train_stage2(gen) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
+        A.cache_lookups(reset=True)
         t0 = time.perf_counter()
         with mock.patch.object(T, "make_train_step", make_with_census):
             trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = launch_counts()
+        lookups = fit_flash_lookups("stage2", counts)
         peak = torch.cuda.max_memory_allocated()
         want = collections.Counter()
         for c in per_step:
@@ -4107,10 +4244,10 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
     that of `F.group_norm` + `F.silu`), beside the whole backward's own
     times and bound (`function_*`), and every path shape under `shapes`."""
-    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DKDV, FLASH_BWD_DKDV_WIDE,
-                                                 FLASH_BWD_DQ, FLASH_BWD_DQ_WIDE, FLASH_BWD_PREP,
-                                                 FLASH_BWD_PREP_WIDE, FLASH_COMBINE, FLASH_STD,
-                                                 FLASH_T, FLASH_WIDE)
+    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DELTA, FLASH_BWD_DKDV_WG,
+                                                 FLASH_BWD_DKDV_WIDE, FLASH_BWD_DQ_WG,
+                                                 FLASH_BWD_DQ_WIDE, FLASH_BWD_PREP_WIDE,
+                                                 FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE)
     from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_REDUCE, GN_FUSED, GN_NORM,
                                                 GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
@@ -4146,7 +4283,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     wide = [label for label in path if flash[label]["variant"] == "wide"]
     # off the path: the contiguous case counts as FLASH_T, the masked and
     # causal ones as FLASH_STD, whatever the wide kernel takes as FLASH_WIDE
-    off_path = {k: r for k, r in flash.items() if k not in path and k != "combine"}
+    off_path = {k: r for k, r in flash.items() if k not in path and k not in ("combine", "stats")}
     short_off = [r["err"] for k, r in off_path.items()
                  if r["variant"] == "wg" and not k.startswith("masked")]
     long_off = [r["err"] for k, r in off_path.items()
@@ -4175,7 +4312,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         "graph_ms", "stock_graph_ms", "ms", "stock_ms", "host_us", "stock_host_us", "bound_ms",
         "launches", "plan")} for label, r in ln_cases.items()}
     ln_errs = [r["err"] for r in ln.values() if isinstance(r, dict) and "err" in r]
-    fb_path = [case[0] for case in FLASH_BWD_CASES + FLASH_BWD_STAGE2 if case[0] in flash_bwd]
+    fb_path = [case[0] for case in FLASH_BWD_CASES + FLASH_BWD_RECON + FLASH_BWD_STAGE2
+               if case[0] in flash_bwd]
     fb, gb = flash_bwd[JSON_FLASH_BWD], gn_bwd[JSON_GN_BWD]
     vae_bwd = [case[0] for case in FLASH_BWD_VAE + FLASH_BWD_STAGE2_VAE if case[0] in flash_bwd]
     is_wide = lambda label: label in vae_bwd or "D512" in label  # noqa: E731
@@ -4183,7 +4321,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     fb_wide_err = max(r["err"] for k, r in flash_bwd.items() if is_wide(k))
     gb_err = max(r["err"] for r in gn_bwd.values())
 
-    def flash_bwd_entry(name, part, json_shape=JSON_FLASH_BWD, labels=fb_path, err=fb_err):
+    def flash_bwd_entry(name, part, json_shape=JSON_FLASH_BWD, labels=fb_path, err=fb_err,
+                        source="flash_attn_bwd_wg.cu"):
         r = flash_bwd[json_shape]
         shapes = {label: {"ms": flash_bwd[label][f"{part}_graph_ms"],
                           "bound_ms": flash_bwd[label]["kernel_bounds"][part][0],
@@ -4193,13 +4332,14 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                           "plain_ms": flash_bwd[label]["plain_ms"],
                           "library_ms": flash_bwd[label]["library_ms"],
                           "library": flash_bwd[label]["library"]} for label in labels}
-        return entry(name, "flash_attn_bwd.cu", "adaface_tpu/ops/attention.py:384", err,
+        return entry(name, source, "adaface_tpu/ops/attention.py:384", err,
                      json_shape, r[f"{part}_graph_ms"], r["plain_ms"], r["library_ms"],
                      *r["kernel_bounds"][part], function_ms=r["ms"],
                      function_graph_ms=r["graph_ms"], function_bound_ms=r["bound_ms"],
                      function_bound_by=r["bound_by"], library=r["library"], shapes=shapes)
 
-    wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=vae_bwd, err=fb_wide_err)
+    wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=vae_bwd, err=fb_wide_err,
+                    source="flash_attn_bwd.cu")
 
     def gn_bwd_entry(name, part, bound_key, bound_by="bytes"):
         shapes = {label: {"ms": r[f"{part}_graph_ms"], "bound_ms": r[bound_key],
@@ -4247,9 +4387,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
               l_["stock_ms"], l_["bound_ms"], graph_ms=l_["graph_ms"],
               library_graph_ms=l_["stock_graph_ms"], launch_floor_ms=ln["launch floor"],
               shapes=ln_shapes, per_request=ln["per request"]),
-        flash_bwd_entry(FLASH_BWD_PREP, "prep"),
-        flash_bwd_entry(FLASH_BWD_DKDV, "dkdv"),
-        flash_bwd_entry(FLASH_BWD_DQ, "dq"),
+        flash_bwd_entry(FLASH_BWD_DELTA, "delta"),
+        flash_bwd_entry(FLASH_BWD_DKDV_WG, "dkdv"),
+        flash_bwd_entry(FLASH_BWD_DQ_WG, "dq"),
         flash_bwd_entry(FLASH_BWD_PREP_WIDE, "prep", **wide_bwd),
         flash_bwd_entry(FLASH_BWD_DKDV_WIDE, "dkdv", **wide_bwd),
         flash_bwd_entry(FLASH_BWD_DQ_WIDE, "dq", **wide_bwd),
@@ -4298,8 +4438,8 @@ def main() -> int:
 
     counts = {**served["counts"], **parser["counts"],
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
-              **{k: stage1["counts"][k] for k in (A.FLASH_BWD_PREP, A.FLASH_BWD_DKDV,
-                                                 A.FLASH_BWD_DQ, GN_BWD_REDUCE, GN_BWD_DX)},
+              **{k: stage1["counts"][k] for k in (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG,
+                                                 A.FLASH_BWD_DQ_WG, GN_BWD_REDUCE, GN_BWD_DX)},
               **{k: finetune["counts"][k] for k in (A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE,
                                                    A.FLASH_BWD_DQ_WIDE)}}
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
