@@ -384,26 +384,6 @@ flash_fwd_wg_kernel(const FlashParams p, const __grid_constant__ CUtensorMap map
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled belongs to libcuda; it is looked up through the
-// runtime so that the library links against the runtime alone
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      ptr = nullptr;
-    return reinterpret_cast<EncodeTiled>(ptr);
-  }();
-  return fn;
-}
-
 // The tensor maps (flash_wgmma.cuh: tensor_map) depend on the address and
 // the layout alone, and the allocator hands a model the same addresses step
 // after step, so maps are kept (encoding one costs the host a few
@@ -462,6 +442,21 @@ int dispatch_wg(const FlashParams& p, int b, int h, cudaStream_t stream) {
 }
 
 }  // namespace
+
+// cuTensorMapEncodeTiled belongs to libcuda; it is looked up through the
+// runtime so that the library links against the runtime alone
+flash::EncodeTiled flash::encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      ptr = nullptr;
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
 
 int flash::tensor_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss,
                       int b, int h, int s, int d, int ch) {

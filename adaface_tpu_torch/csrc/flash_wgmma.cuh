@@ -259,6 +259,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&c)[3
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled (flash_attn_wgmma.cu), or null where
+// the runtime does not find it.
+EncodeTiled encode_tiled();
+
 // Tensor map of a [B,H,S,D] bf16 tensor (element strides sb, sh, ss; D a
 // multiple of 8, rows on 16-byte boundaries) as (8 elements, S rows, D/8
 // columns of 16 bytes, H, B), box (8, 64 rows, ch columns, 1, 1): a box lands

@@ -137,17 +137,25 @@ def load_library() -> ctypes.CDLL:
     lib.flash_bwd_delta.argtypes = [p] * 4 + [i32] * 4 + [p]
     lib.flash_bwd_delta.restype = i32
     gn_geometry = [i64, i32, i32, i32, i32, i32, i32]  # B, rows, C, G, slab, chunks, threads
-    lib.gn_fused.argtypes = [p, p, p, p] + gn_geometry + [f32, i32, i32, p]
+    # x, scale, bias, y, stats (or null)
+    lib.gn_fused.argtypes = [p] * 5 + gn_geometry + [f32, i32, i32, p]
     lib.gn_fused.restype = i32
     lib.gn_stats.argtypes = [p, p] + gn_geometry + [i32, p]
     lib.gn_stats.restype = i32
-    lib.gn_norm.argtypes = [p, p, p, p, p] + gn_geometry + [f32, i32, i32, p]
+    # x, part, scale, bias, y, stats (or null)
+    lib.gn_norm.argtypes = [p] * 6 + gn_geometry + [f32, i32, i32, p]
     lib.gn_norm.restype = i32
-    # x, dy, part, scale, bias, sums
-    lib.gn_bwd_reduce.argtypes = [p] * 6 + gn_geometry + [f32, i32, i32, p]
+    # x, dy, stats, scale, bias, dx, channel sums (or null); stage rows, silu, bf16, stream
+    lib.gn_bwd_fused.argtypes = [p] * 7 + gn_geometry + [i32, i32, i32, p]
+    lib.gn_bwd_fused.restype = i32
+    # cluster, threads, shared memory, bf16, out: clusters the card holds at once
+    lib.gn_bwd_fused_clusters.argtypes = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_int)]
+    lib.gn_bwd_fused_clusters.restype = i32
+    # x, dy, stats, scale, bias, group sums, channel sums (or null)
+    lib.gn_bwd_reduce.argtypes = [p] * 7 + gn_geometry + [i32, i32, p]
     lib.gn_bwd_reduce.restype = i32
-    # x, dy, part, sums, scale, bias, dx
-    lib.gn_bwd_dx.argtypes = [p] * 7 + gn_geometry + [f32, i32, i32, p]
+    # x, dy, stats, group sums, scale, bias, dx; silu, bf16, stream
+    lib.gn_bwd_dx.argtypes = [p] * 7 + gn_geometry + [i32, i32, p]
     lib.gn_bwd_dx.restype = i32
     # x, partial, stats, ticket, rows, C, chunks, chunk rows, threads, lanes, vec, eps, bf16,
     # stream

@@ -57,6 +57,22 @@ teacher steps (device time under the profiler, host time) and seconds per
 optimizer step (a 6-micro-step fit through each tree's
 `chip_smoke.train_step_split` and `Trainer.fit`).
 
+    python3 chip_compare.py --gn-bwd-plans
+
+times the GroupNorm backward over geometries (the fused kernel's cluster
+and stages, the split pair's threads and blocks an SM) at every
+training shape, UNet batches 2-16 and decoder batches 1-3, beside
+`gn_bwd_plan`'s choice (how the plan's rule was set).
+
+    python3 chip_compare.py --gn-bwd PARENT_DIR [CHANGE_DIR]
+
+times the GroupNorm backward of two trees in turns (parent, change, change,
+parent): `torch.autograd.grad` through each tree's own `group_norm_silu` at
+every UNet map at batch 16 and every decoder map at batches 2 and 3 (device
+time of one call under torch.profiler, and 20 calls back to back), then the
+backward of a Stage-1 micro-step at 4 teacher steps and of a recon
+micro-step, each with its GroupNorm backward's device time by kernel.
+
     python3 chip_compare.py --profile-turn
 
 profiles one UNet call and one VAE decode of the tree in the working
@@ -67,6 +83,7 @@ from __future__ import annotations
 
 import math
 import os
+import re
 import subprocess
 import sys
 
@@ -501,6 +518,218 @@ def flash_bwd_turn() -> None:
                   f"{sp['student_ms']:.1f} ms, total {sp['total_ms']:.1f} ms", flush=True)
 
 
+# the GroupNorm backward's training shapes for the sweep: (C, H = W) of every
+# UNet map at UNet batches 2-16 and every VAE decoder map at batches 1-3
+GN_BWD_SWEEP_UNET_BATCHES = (2, 3, 4, 8, 12, 16)
+GN_BWD_SWEEP_DECODER_BATCHES = (1, 2, 3)
+
+
+def gn_bwd_plans() -> None:
+    """Device time of the GroupNorm backward (20 calls of `gn_silu_bwd` as a
+    CUDA graph: one launch fused, two split) over geometries at every
+    training shape and batch, beside `gn_bwd_plan`'s choice (marked *): the
+    fused kernel at clusters of 1 to 16 blocks (where the tiles fit) and at 1
+    stage against the plan's stages, the split pair at (threads, blocks an
+    SM) of (256, 4), (256, 2), (512, 2), (512, 1), (128, 8); every
+    variant's dx within bf16's
+    rounding of the plan's (how the plan's rule was set). Run as
+    `python3 chip_compare.py --gn-bwd-plans`."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as c
+    from adaface_tpu_torch.ops import fused_gn as G
+
+    c.require_cuda()
+    c.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    unet_maps = sorted({(ch, hw) for _, ch, hw, *_ in c.UNET_GN}, key=lambda m: (-m[1], m[0]))
+    decoder_maps = [(ch, hw) for _, ch, hw, _, dec, _ in c.VAE_GN if dec]
+    shapes = ([(b, ch, hw) for b in GN_BWD_SWEEP_UNET_BATCHES for ch, hw in unet_maps]
+              + [(b, ch, hw) for b in GN_BWD_SWEEP_DECODER_BATCHES for ch, hw in decoder_maps])
+    for b, ch, hw in shapes:
+        rows = hw * hw
+        x, scale, bias = c.gn_inputs(gen, (b, ch, hw, hw))
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(x.dtype)
+        g = g.contiguous(memory_format=torch.channels_last)
+        _, stats = G._gn_forward(x, scale, bias, 32, 1e-5, True, with_stats=True)
+        plan = G.gn_bwd_plan(x.dtype, b, ch, rows, 32, sms)
+        want = G.gn_silu_bwd(x, scale, bias, g, 32, stats, True, need=(False, False),
+                             plan=plan)[0].float()
+        scale_of = max(1.0, want.abs().max().item())
+        variants = []
+        for cluster in (1, 2, 4, 8, 16):
+            for stages in (None, 1):
+                p = G.fused_bwd_geometry(x.dtype, ch, rows, 32, cluster, stages=stages)
+                if p.smem <= G.SMEM_BYTES and (stages is None or p.stage_rows < rows / cluster):
+                    variants.append((f"fused {cluster}" + (" 1 stage" if stages else ""), p))
+        for threads, waves in ((256, 4), (256, 2), (512, 2), (512, 1), (128, 8)):
+            variants.append((f"split {threads}x{waves}",
+                             G.split_bwd_geometry(x.dtype, b, ch, rows, 32, sms, threads, waves)))
+        cells = []
+        for name, p in variants:
+            run = lambda: G.gn_silu_bwd(x, scale, bias, g, 32, stats, True,  # noqa: E731
+                                        need=(False, False), plan=p)
+            try:
+                err = (run()[0].float() - want).abs().max().item() / scale_of
+                ms = c.graph_ms(run)
+            except RuntimeError as e:  # a cluster the card cannot co-schedule
+                cells.append(f"{name} refused ({str(e).splitlines()[0][:60]})")
+                continue
+            mark = " *" if p == plan else ""
+            cells.append(f"{name} {ms:.4f}{mark}" + ("" if err <= c.BF16_TOL else f" ERR {err:.2e}"))
+        bound_ms = c.bound(3 * x.numel() * x.element_size())[0]
+        print(f"gn bwd B{b:2d} {ch:4d}x{hw}^2: bound {bound_ms:.4f} | " + " | ".join(cells)
+              + f" | plan {plan.kernel} {plan.chunks}", flush=True)
+        del x, g, stats, want
+        torch.cuda.empty_cache()
+
+
+def gn_bwd_turn() -> None:
+    """One tree's GroupNorm backward and training micro-steps; runs with the
+    tree as working directory. At every UNet map at batch 16 and every VAE
+    decoder map at batches 2 and 3 (x requiring grad, as in the frozen
+    UNets and the decoder): `torch.autograd.grad` through the tree's own
+    `group_norm_silu`, as the device time of one call (torch.profiler,
+    kernels only) and as 20 calls back to back (CUDA events). Then one
+    Stage-1 micro-step at 4 teacher steps and one recon micro-step on images
+    (finetuning, batch 2): the backward alone under the profiler, its
+    device time, and the GroupNorm backward's share by kernel (a `gn_stats`
+    launch that a `gn_bwd_reduce` follows is the backward's; `gn_fused`,
+    `gn_norm` and the other `gn_stats` inside a backward are the decoder's
+    recomputed forward)."""
+    sys.path.insert(0, os.getcwd())
+    import collections
+    import dataclasses
+    import gc
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as c
+    import train_torch
+    from adaface_tpu_torch.core.device import fp32_convolutions
+    from adaface_tpu_torch.ops import fused_gn as G
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+    from adaface_tpu_torch.train.train_step import unet_distill_loss_fn
+
+    new = beside()
+    c.require_cuda()
+    c.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+
+    def device_events(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+
+    def gn_backward(events):
+        """(GroupNorm backward ms, its launches by kernel, the backward's
+        recomputed GroupNorm forward ms) of a backward's device events."""
+        kinds = [(e, re.search(r"gn_(stats|norm|fused|bwd_fused|bwd_reduce|bwd_dx)_kernel",
+                               e.name)) for e in events]
+        gn = [(e, m.group(1)) for e, m in kinds if m]
+        by, ms, fwd = collections.Counter(), 0.0, 0.0
+        for (e, kind), after in zip(gn, [e for e, _ in gn[1:]] + [None]):
+            backward = kind.startswith("bwd") or (
+                kind == "stats" and after is not None and "gn_bwd_reduce" in after.name)
+            if backward:
+                by[kind] += 1
+                ms += e.device_time / 1e3
+            else:
+                fwd += e.device_time / 1e3
+        return ms, dict(by), fwd
+
+    shapes = ([(f"{label} batch 16", (16, ch, hw, hw), eps, silu)
+               for label, ch, hw, eps, silu, _ in new.UNET_GN]
+              + [(f"vae {label} batch {b}", (b, ch, hw, hw), 1e-6, silu)
+                 for b in (2, 3) for label, ch, hw, silu, dec, _ in new.VAE_GN if dec])
+    for label, shape, eps, silu in shapes:
+        x0, scale, bias = new.gn_inputs(gen, shape)
+        x = x0.detach().requires_grad_()
+        with torch.enable_grad():
+            y = G.group_norm_silu(x, scale, bias, 32, eps, silu)
+        g = torch.randn(shape, generator=gen, device="cuda").to(x.dtype)
+        g = g.contiguous(memory_format=torch.channels_last)
+        call = lambda: torch.autograd.grad(y, (x,), g, retain_graph=True)  # noqa: E731
+        events = device_events(call)
+        print(f"gn bwd {label:34s}: device {sum(e.device_time for e in events) / 1e3:.4f} ms in "
+              f"{len(events)} launches | 20 back to back {new.run_ms(call):.4f} ms", flush=True)
+        del x0, x, y, g
+        torch.cuda.empty_cache()
+
+    repo = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = c.write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            "--base", os.path.join(repo, c.TRAIN_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs"), "--max_steps", "1"])
+        trainer, dataset, _ = train_torch.build_trainer(cfg, args)
+        fl = dataclasses.replace(trainer.planner.plan(0), num_denoising_steps=4)
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
+                                       trainer.draws_for(fl))
+
+        def stage1_backward():
+            loss, _ = unet_distill_loss_fn(trainer.state.params, trainer.frozen, batch,
+                                           trainer.schedule, trainer.tcfg)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                loss.backward()
+                torch.cuda.synchronize()
+            return prof
+
+        stage1_backward()
+        events = sorted((e for e in stage1_backward().events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        gn_ms, by, _ = gn_backward(events)
+        print(f"stage-1: a student backward at 4 teacher steps (UNet batch "
+              f"{4 * trainer.cfg.batch_size}): device {sum(e.device_time for e in events) / 1e3:.2f}"
+              f" ms in {len(events)} launches; GroupNorm backward {gn_ms:.3f} ms ({by})",
+              flush=True)
+        del trainer, dataset, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg, args = train_torch.parse_args([
+            "--base", os.path.join(repo, c.FINETUNE_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs2"), "--max_steps", "1"])
+        trainer, dataset, _ = train_torch.build_trainer(cfg, args)
+        trainer.host_detector = HostFaceDetector(detector_fn=new.central_face)
+        fl = trainer.planner.plan(0)
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)], fl,
+                                       trainer.draws_for(fl))
+
+        def recon_backward():
+            for p in trainer.state.optimizer.params:
+                p.grad = None
+            loss, _ = new.recon_loss_for(trainer, fl)(trainer.state.params, trainer.frozen,
+                                                      batch, trainer.schedule, trainer.tcfg,
+                                                      trainer.draws_for(fl, loss=True))
+            torch.cuda.synchronize()
+            with fp32_convolutions(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+                loss.backward()
+                torch.cuda.synchronize()
+            return prof
+
+        recon_backward()
+        events = sorted((e for e in recon_backward().events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        gn_ms, by, fwd_ms = gn_backward(events)
+        print(f"recon: a micro-step's backward on images (UNet batch {trainer.cfg.batch_size}, "
+              f"the decoder recomputed): device {sum(e.device_time for e in events) / 1e3:.2f} ms"
+              f" in {len(events)} launches; GroupNorm backward {gn_ms:.3f} ms ({by}); the "
+              f"recomputed GroupNorm forward {fwd_ms:.3f} ms", flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep_norm_plans()
@@ -520,9 +749,15 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--flash-bwd-turn":
         flash_bwd_turn()
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--gn-bwd-plans":
+        gn_bwd_plans()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--gn-bwd-turn":
+        gn_bwd_turn()
+        return 0
     turn_flag = "--turn"
-    if sys.argv[1:2] == ["--flash-bwd"]:
-        turn_flag = "--flash-bwd-turn"
+    if sys.argv[1:2] in (["--flash-bwd"], ["--gn-bwd"]):
+        turn_flag = sys.argv[1] + "-turn"
         del sys.argv[1]
     if len(sys.argv) not in (2, 3):
         print(__doc__)

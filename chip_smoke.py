@@ -32,9 +32,10 @@ Phases (any failure raises and the exit code is not 0):
      face-masked self-attention at batch 4 and the VAE decoder's mid block
      (B 2, H 1, S 4096, D 512: the wide kernels), masked and causal cases
      at ragged lengths (D 512 among them), and the GroupNorm backward's
-     against the closed-form VJP
-     (dx, dγ, dβ) at every UNet GroupNorm shape at batch 16 and every VAE
-     decoder map at batch 2, each twice to the same bits; the flash
+     (`gn_bwd_fused`, or `gn_bwd_reduce` + `gn_bwd_dx`, on the statistics the
+     forward kept, themselves held to `gn_stats_plain`) against the
+     closed-form VJP (dx, dγ, dβ) at every UNet GroupNorm shape at batch 16
+     and every VAE decoder map at batch 2, each twice to the same bits; the flash
      forward at the teacher's 16-token cross-attention; print errors,
      median times (single launches, and for GroupNorm, LayerNorm, BatchNorm
      and the backward kernels also 20 launches as a CUDA graph: the device
@@ -107,7 +108,7 @@ Phases (any failure raises and the exit code is not 0):
      SubjBasisGenerators, with the UNet's attention and FFN adapters at rank
      192 added as trainables; a detector of one central face injected): the
      backward kernels at the new shapes (flash at UNet batch 12, D 512 at
-     batch 3, GroupNorm at one UNet and one decoder map) against plain; the
+     batch 3, GroupNorm at every UNet map at 12 and decoder map at 3) against plain; the
      masked D 40 forward's plan and device time at batches 2 and 4; one comp
      step's gradients kernels against plain at batch 1, the adapters' unused
      parts exactly 0; 8 micro-steps (comp at 4 and 3 priming steps, recon,
@@ -327,7 +328,8 @@ JSON_GN_SPLIT = "vae resnet 512x512 128"  # the split pair
 JSON_BN = "stem 224x224"
 JSON_LN = "unet 64x64"
 JSON_FLASH_BWD = "unet 64x64 self batch 16"
-JSON_GN_BWD = "resnet 64x64 320 batch 16"
+JSON_GN_BWD = "resnet 64x64 320 batch 16"  # gn_bwd_fused
+JSON_GN_BWD_SPLIT = "vae resnet 512x512 256 batch 2"  # gn_bwd_reduce + gn_bwd_dx
 
 
 def log(*a):
@@ -1361,8 +1363,10 @@ def device_operations(fn, pattern: str = "") -> tuple[int, float]:
 def check_autograd_functions() -> None:
     """On CUDA bf16 tensors that require grad, `flash_attention` and
     `group_norm_silu` record their Functions, whose backward launches the
-    backward kernels (no dq where q needs none) and gives finite gradients
-    equal to the backward kernels' called directly; an fp32 flash input that
+    backward kernels (no dq where q needs none; GroupNorm's from the
+    statistics its forward kept, one map a cluster holds and one it does not,
+    no `gn_stats`) and gives finite gradients equal to the backward kernels'
+    called directly; an fp32 flash input that
     requires grad raises at the forward, naming the missing fp32 backward;
     under `torch.no_grad()` both launch only their forward kernels."""
     from adaface_tpu_torch.ops import _build
@@ -1371,7 +1375,6 @@ def check_autograd_functions() -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     q0, k0, v0 = flash_inputs(gen, "self", 1, 8, 256, 256, 40)
-    x0, scale, bias = gn_inputs(gen, (2, 320, 8, 8))
     with torch.enable_grad():
         for q_grad in (True, False):
             q, k, v = q0.detach().requires_grad_(q_grad), k0.detach().requires_grad_(), v0
@@ -1393,22 +1396,32 @@ def check_autograd_functions() -> None:
                     or (q.grad is not None) != q_grad
                     or (q_grad and not torch.equal(q.grad, dq))):
                 raise AssertionError(f"flash backward: launches {seen}, want {want}")
-        x = x0.detach().requires_grad_()
-        _build.reset_launch_counts()
-        y = G.group_norm_silu(x, scale, bias, 32, 1e-5)
-        if type(y.grad_fn).__name__ != "_GroupNormSiLUBackward":
-            raise AssertionError(f"group_norm_silu records {y.grad_fn}")
-        g = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
-        y.backward(g)
-        torch.cuda.synchronize()
-        seen = {n: c for n, c in launch_counts().items() if c}
-        dx = G.gn_silu_bwd(x0, scale, bias, g, 32, 1e-5, True)[0]
-        plan = G.plan_for(x0, 32)
-        fwd = {G.GN_FUSED: 1} if plan.kernel == "fused" else {G.GN_STATS: 1, G.GN_NORM: 1}
-        want = dict(fwd, **{G.GN_STATS: fwd.get(G.GN_STATS, 0) + 1, G.GN_BWD_REDUCE: 1,
-                            G.GN_BWD_DX: 1})
-        if seen != want or not torch.equal(x.grad, dx) or not torch.isfinite(dx).all():
-            raise AssertionError(f"group norm backward: launches {seen}, want {want}")
+        # the forward keeps its statistics; the backward reads them, launching
+        # what `gn_bwd_plan` names (one map each way) and no `gn_stats`
+        for shape in ((2, 320, 8, 8), (1, 128, 128, 128)):
+            x0, scale, bias = gn_inputs(gen, shape)
+            x = x0.detach().requires_grad_()
+            _build.reset_launch_counts()
+            y = G.group_norm_silu(x, scale, bias, 32, 1e-5)
+            if type(y.grad_fn).__name__ != "_GroupNormSiLUBackward":
+                raise AssertionError(f"group_norm_silu records {y.grad_fn}")
+            g = torch.randn(y.shape, generator=gen, device="cuda").to(y.dtype)
+            g = g.contiguous(memory_format=torch.channels_last)
+            y.backward(g)
+            torch.cuda.synchronize()
+            seen = {n: c for n, c in launch_counts().items() if c}
+            _, stats = G._gn_forward(x0, scale, bias, 32, 1e-5, True, with_stats=True)
+            dx = G.gn_silu_bwd(x0, scale, bias, g, 32, stats, True, need=(False, False))[0]
+            fwd = ({G.GN_FUSED: 1} if G.plan_for(x0, 32).kernel == "fused"
+                   else {G.GN_STATS: 1, G.GN_NORM: 1})
+            bwd = ({G.GN_BWD_FUSED: 1} if y.grad_fn.bwd_kernel == "fused"
+                   else {G.GN_BWD_REDUCE: 1, G.GN_BWD_DX: 1})
+            want = dict(fwd, **bwd)
+            if seen != want or not torch.equal(x.grad, dx) or not torch.isfinite(dx).all() \
+                    or y.grad_fn.bwd_kernel != G.bwd_plan_for(x0, 32).kernel:
+                raise AssertionError(f"group norm backward {shape}: launches {seen}, want {want}")
+            log(f"autograd: group_norm_silu {shape}: launches {seen} (backward "
+                f"{y.grad_fn.bwd_kernel})")
         q32 = q0.float().requires_grad_()
         try:
             A.flash_attention(q32, q32, q32)
@@ -2631,87 +2644,110 @@ def check_flash_stats(gen) -> dict:
     return out
 
 
+def gn_bwd_case(G, label, shape, eps, silu, dtype, gen, kernel=None, timed_case=True) -> dict:
+    """One GroupNorm backward on the kernel(s) `gn_bwd_plan` names (or
+    `kernel`, forced): the forward's statistics against `gn_stats_plain`;
+    (dx, dγ, dβ) against the closed form on the same statistics; two runs to
+    the same bits; where `timed_case`, the times (module docstring of
+    `check_gn_bwd`)."""
+    x, scale, bias = gn_inputs(gen, shape, dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = g.contiguous(memory_format=torch.channels_last)
+    _, stats = G._gn_forward(x, scale, bias, 32, eps, silu, with_stats=True)
+    plain_stats = G.gn_stats_plain(x, 32, eps).reshape(stats.shape)
+    stats_err = ((stats - plain_stats).abs() / plain_stats.abs().clamp_min(1.0)).max().item()
+    plan = G.bwd_plan_for(x, 32, kernel)
+    run = lambda: G.gn_silu_bwd(x, scale, bias, g, 32, stats, silu, plan=plan)  # noqa: E731
+    got, again = run(), run()
+    plain = lambda: G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu, stats)  # noqa: E731
+    ref = plain()
+    torch.cuda.synchronize()
+    tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
+    errs = {n: max_err(a, r) for n, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)}
+    same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    where = (f"gn bwd {label:34s} {shape} {str(dtype)[6:]} silu {silu:d} {plan.kernel} slab "
+             f"{plan.slab} chunks {plan.chunks} threads {plan.threads}"
+             + (f" stage rows {plan.stage_rows} smem {plan.smem}" if plan.kernel == "fused" else ""))
+    errs_text = (" ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
+                 + f" (bound {tol * max(m for _, m in errs.values()):.3e}); statistics "
+                 f"{stats_err:.2e} (bound {STATS_TOL:.0e}); same bits {same}")
+    if any(e > tol * m for e, m in errs.values()) or not same or stats_err > STATS_TOL:
+        log(f"{where}: {errs_text}")
+        raise AssertionError(f"gn bwd {label}: {errs}, statistics {stats_err}, same bits {same}")
+    res = dict(kernel=plan.kernel, err=max(e for e, _ in errs.values()), same_bits=same,
+               stats_err=stats_err)
+    if not timed_case:
+        log(f"{where}: {errs_text}")
+        return res
+    xx, ss, bb = (t.detach().requires_grad_() for t in (x, scale, bias))
+    act = F.silu if silu else (lambda t: t)
+    y = act(F.group_norm(xx, 32, ss, bb, eps))
+    res.update(timed(run, plain, lambda: torch.autograd.grad(y, (xx, ss, bb), g,
+                                                            retain_graph=True)))
+    res["host_us"] = host_us(run)
+    x_bytes = x.numel() * x.element_size()
+    affine = 4 * shape[1] * x.element_size()  # γ, β read, dγ, dβ written
+    # the function reads x and g and writes dx: 3 passes; the split pair
+    # cannot do with fewer than 5 (x and g twice, dx once)
+    res["bound_ms"], res["bound_by"] = bound(3 * x_bytes + affine)
+    if plan.kernel == "fused":
+        res["fused_graph_ms"] = graph_ms(lambda: G.gn_bwd_fused(x, g, stats, scale, bias, 32, silu,
+                                                                plan, True))
+        res["fused_bound_ms"] = res["bound_ms"]
+        times = f"gn_bwd_fused {res['fused_graph_ms']:.4f}"
+    else:
+        gpart, _ = G.gn_bwd_reduce(x, g, stats, scale, bias, 32, silu, plan, True)
+        res["reduce_graph_ms"] = graph_ms(lambda: G.gn_bwd_reduce(x, g, stats, scale, bias, 32,
+                                                                  silu, plan, True))
+        res["dx_graph_ms"] = graph_ms(lambda: G.gn_bwd_dx(x, g, stats, gpart, scale, bias, 32,
+                                                          silu, plan))
+        res["reduce_bound_ms"] = bound(2 * x_bytes + affine)[0]
+        res["dx_bound_ms"] = bound(3 * x_bytes + 2 * shape[1] * x.element_size())[0]
+        res["floor_ms"] = bound(5 * x_bytes + affine)[0]
+        times = (f"gn_bwd_reduce {res['reduce_graph_ms']:.4f} (least {res['reduce_bound_ms']:.4f})"
+                 f", gn_bwd_dx {res['dx_graph_ms']:.4f} (least {res['dx_bound_ms']:.4f}); "
+                 f"5-pass floor {res['floor_ms']:.4f} ms")
+    log(f"{where}: {errs_text} | single: backward {res['ms']:.4f} ms plain {res['plain_ms']:.4f}"
+        f" ms F.group_norm{'+silu' if silu else ''} autograd {res['library_ms']:.4f} ms | 20 as "
+        f"a CUDA graph: {res['graph_ms']:.4f} ms ({times}) | least {res['bound_ms']:.4f} ms by "
+        f"{res['bound_by']} (3 passes), reached {res['bound_ms'] / res['graph_ms']:.1%} | host "
+        f"{res['host_us']:.1f} us a call")
+    del xx, y
+    return res
+
+
 def check_gn_bwd(gen, cases=None) -> dict:
-    """The GroupNorm backward (`gn_stats`, `gn_bwd_reduce`, `gn_bwd_dx`)
-    against the closed-form plain VJP (dx, dγ, dβ) at every UNet GroupNorm
-    shape at batch 16, fp32, and the VAE decoder's maps at batch 2 (with the
-    off-path cases without SiLU), or at `cases` (label, shape, eps, silu,
-    dtype) alone; two runs to the same bits."""
+    """The GroupNorm backward on the forward's statistics (`gn_bwd_fused`
+    where `gn_bwd_plan` gives a map one cluster launch, else `gn_bwd_reduce`
+    + `gn_bwd_dx`) against the closed-form plain VJP (dx, dγ, dβ) at every
+    UNet GroupNorm shape at batch 16, fp32, and the VAE decoder's maps at
+    batch 2, or at `cases` (label, shape, eps, silu, dtype) alone; the
+    statistics the forward kept against `gn_stats_plain`; two runs to the
+    same bits. Off the path, untimed: the decoder's resnet maps without SiLU
+    and the split pair forced at a UNet map. Each timed case prints its plan,
+    each kernel's device time (20 launches as a CUDA graph) beside its own
+    bound, the whole backward's single and graph times beside its 3-pass
+    bound (and the split pair's 5-pass floor), the library's `F.group_norm`
+    (+ `F.silu`) autograd backward, and the host's µs a call."""
     from adaface_tpu_torch.ops import fused_gn as G
 
-    results = {}
-    off_path = []
+    results, off_path = {}, []
     if cases is None:
         cases = [(f"{label} batch 16", (16, c, hw, hw), eps, silu, torch.bfloat16)
                  for label, c, hw, eps, silu, _ in UNET_GN]
         cases.append(("resnet 64x64 320 fp32", (2, 320, 64, 64), 1e-5, True, torch.float32))
         cases += [(f"vae {label} batch 2", (2, c, hw, hw), 1e-6, silu, torch.bfloat16)
                   for label, c, hw, silu, dec, _ in VAE_GN if dec]
-        # the decoder's resnet shapes without SiLU: off the path, checked untimed
         off_path = [(f"vae {label} batch 2 no silu", (2, c, hw, hw), 1e-6, False,
-                     torch.bfloat16) for label, c, hw, silu, dec, _ in VAE_GN if dec and silu]
-    for label, shape, eps, silu, dtype in off_path:
-        x, scale, bias = gn_inputs(gen, shape, dtype)
-        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        g = g.contiguous(memory_format=torch.channels_last)
-        got = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
-        again = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
-        ref = G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu)
-        errs = {n: max_err(a, r) for n, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)}
-        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-        log(f"gn bwd {label:32s} {shape}: max_abs_err "
-            + " ".join(f"{n} {e:.3e} (bound {BF16_TOL * m:.3e})" for n, (e, m) in errs.items())
-            + f" same bits {same}")
-        if any(e > BF16_TOL * m for e, m in errs.values()) or not same:
-            raise AssertionError(f"gn bwd {label}: {errs}, same bits {same}")
-        results[label] = dict(err=max(e for e, _ in errs.values()), same_bits=same)
-        del x, g, got, again, ref
+                     torch.bfloat16, None) for label, c, hw, silu, dec, _ in VAE_GN
+                    if dec and silu]
+        off_path.append(("resnet 64x64 320 batch 16 split", (16, 320, 64, 64), 1e-5, True,
+                         torch.bfloat16, "split"))
+    for label, shape, eps, silu, dtype, kernel in off_path:
+        results[label] = gn_bwd_case(G, label, shape, eps, silu, dtype, gen, kernel, False)
         torch.cuda.empty_cache()
     for label, shape, eps, silu, dtype in cases:
-        x, scale, bias = gn_inputs(gen, shape, dtype)
-        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
-        g = g.contiguous(memory_format=torch.channels_last)
-        got = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
-        again = G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu)
-        ref = G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu)
-        torch.cuda.synchronize()
-        tol = BF16_TOL if dtype == torch.bfloat16 else FP32_TOL
-        errs = {n: max_err(a, r) for n, a, r in zip(("dx", "dgamma", "dbeta"), got, ref)}
-        same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
-        xx, ss, bb = (t.detach().requires_grad_() for t in (x, scale, bias))
-        act = F.silu if silu else (lambda t: t)
-        y = act(F.group_norm(xx, 32, ss, bb, eps))
-        t = timed(lambda: G.gn_silu_bwd(x, scale, bias, g, 32, eps, silu),
-                  lambda: G.gn_silu_bwd_plain(x, scale, bias, g, 32, eps, silu),
-                  lambda: torch.autograd.grad(y, (xx, ss, bb), g, retain_graph=True))
-        x_bytes = x.numel() * x.element_size()
-        # the function reads x and g and writes dx (γ, β, dγ, dβ are C long)
-        bound_ms, bound_by = bound(3 * x_bytes + 4 * shape[1] * x.element_size())
-        plan = G.plan_for(x, 32, "split")
-        # each kernel alone, as the device runs it
-        part = G.gn_stats(x, 32, plan)
-        sums = G.gn_bwd_reduce(x, g, part, scale, bias, 32, eps, silu, plan)
-        stats_ms = graph_ms(lambda: G.gn_stats(x, 32, plan))
-        reduce_ms = graph_ms(lambda: G.gn_bwd_reduce(x, g, part, scale, bias, 32, eps, silu,
-                                                     plan))
-        dx_ms = graph_ms(lambda: G.gn_bwd_dx(x, g, part, sums, scale, bias, 32, eps, silu, plan))
-        reduce_bound = bound(2 * x_bytes)
-        log(f"gn bwd {label:32s} {shape} {dtype} silu {silu} slab {plan.slab} chunks "
-            f"{plan.chunks}: max_abs_err "
-            + " ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
-            + f" (bound {tol * max(m for _, m in errs.values()):.3e}) same bits {same} | single: "
-            f"kernels {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms F.group_norm"
-            f"{'+silu' if silu else ''} backward {t['library_ms']:.4f} ms | 20 as a CUDA graph: "
-            f"{t['graph_ms']:.4f} ms (gn_stats {stats_ms:.4f}, gn_bwd_reduce {reduce_ms:.4f}, "
-            f"gn_bwd_dx {dx_ms:.4f}) | least {bound_ms:.4f} ms by {bound_by} (reduce "
-            f"{reduce_bound[0]:.4f}), reached {bound_ms / t['graph_ms']:.1%}")
-        if any(e > tol * m for e, m in errs.values()) or not same:
-            raise AssertionError(f"gn bwd {label}: {errs}, same bits {same}")
-        results[label] = dict(err=max(e for e, _ in errs.values()), same_bits=same,
-                              bound_ms=bound_ms, bound_by=bound_by, stats_graph_ms=stats_ms,
-                              reduce_graph_ms=reduce_ms, dx_graph_ms=dx_ms,
-                              reduce_bound_ms=reduce_bound[0], **t)
-        del x, g, got, again, ref, xx, y
+        results[label] = gn_bwd_case(G, label, shape, eps, silu, dtype, gen)
         torch.cuda.empty_cache()
     return results
 
@@ -2756,12 +2792,14 @@ def backward_census(loss, want: collections.Counter) -> None:
     """Add to `want` the backward launches the autograd graph of `loss`
     holds: per flash node `flash_bwd_delta`, `flash_bwd_dkdv[wg]` where k or
     v needs a gradient and `flash_bwd_dq[wg]` where q does (at head dim 512
-    the prep kernel and the wide keys); per GroupNorm node one `gn_bwd_reduce` and one `gn_bwd_dx`,
-    and those on the VAE decoder's maps under GN_BWD_VAE. The nodes' head
-    dims and map shapes are read from attributes the Functions set, so the
-    saved tensors of a recomputed (checkpointed) decoder are not unpacked."""
+    the prep kernel and the wide keys); per GroupNorm node one `gn_bwd_fused`
+    or one `gn_bwd_reduce` and one `gn_bwd_dx`, as the node's plan says, and
+    the nodes on the VAE decoder's maps under GN_BWD_VAE. The nodes' head
+    dims, map shapes and plans are read from attributes the Functions set, so
+    the saved tensors of a recomputed (checkpointed) decoder are not
+    unpacked."""
     from adaface_tpu_torch.ops import attention as A
-    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE
 
     seen, stack = set(), [loss.grad_fn]
     while stack:
@@ -2780,10 +2818,32 @@ def backward_census(loss, want: collections.Counter) -> None:
             want[dkdv] += int(nk or nv)
             want[dq] += int(nq)
         elif name == "_GroupNormSiLUBackward":
-            want[GN_BWD_REDUCE] += 1
-            want[GN_BWD_DX] += 1
+            if node.bwd_kernel == "fused":
+                want[GN_BWD_FUSED] += 1
+            else:
+                want[GN_BWD_REDUCE] += 1
+                want[GN_BWD_DX] += 1
             want[GN_BWD_VAE] += int((node.shape[1], node.shape[2]) in VAE_DECODER_GN_MAPS)
         stack.extend(f for f, _ in node.next_functions)
+
+
+def fit_gn_backward(phase: str, counts: dict) -> dict:
+    """After a fit: no `gn_stats` launched by a backward (a forward on the
+    split pair launches one `gn_stats` and one `gn_norm`; the backward reads
+    the statistics its forward kept), and the incoming gradients the
+    GroupNorm backward had to copy to channels-last memory, by shape (reset
+    before the fit; reported, not held)."""
+    from adaface_tpu_torch.ops import fused_gn as G
+
+    copies = dict(G.G_COPIES)
+    log(f"{phase}: gn_stats {counts.get(G.GN_STATS, 0)} and gn_norm {counts.get(G.GN_NORM, 0)} "
+        f"launches (none from a backward); GroupNorm backward gn_bwd_fused "
+        f"{counts.get(G.GN_BWD_FUSED, 0)}, gn_bwd_reduce {counts.get(G.GN_BWD_REDUCE, 0)}, "
+        f"gn_bwd_dx {counts.get(G.GN_BWD_DX, 0)}; incoming gradients copied to channels-last: "
+        f"{copies or 'none'}")
+    if counts.get(G.GN_STATS, 0) != counts.get(G.GN_NORM, 0):
+        raise AssertionError(f"{phase}: gn_stats launched outside a forward: {counts}")
+    return copies
 
 
 def fit_flash_lookups(phase: str, counts: dict) -> dict:
@@ -2901,12 +2961,13 @@ def train_stage1(gen) -> dict:
     import train_torch
     from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import attention as A
-    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.ops import fused_gn as G
     from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
     from adaface_tpu_torch.train.train_step import make_train_step, unet_distill_loss_fn
 
-    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, GN_BWD_REDUCE,
-                GN_BWD_DX)
+    # every UNet map's backward is one cluster launch: the split pair stays at 0
+    ran = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, G.GN_BWD_FUSED)
+    bwd_keys = ran + (G.GN_BWD_REDUCE, G.GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
         data = write_train_photos(os.path.join(tmp, "photos"))
@@ -2973,12 +3034,14 @@ def train_stage1(gen) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         A.cache_lookups(reset=True)
+        G.G_COPIES.clear()
         t0 = time.perf_counter()
         trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = launch_counts()
         lookups = fit_flash_lookups("train", counts)
+        copies = fit_gn_backward("train", counts)
         peak = torch.cuda.max_memory_allocated()
         del before[0]
         for r in records:
@@ -3001,7 +3064,7 @@ def train_stage1(gen) -> dict:
         if {r["steps"] for r in records} != {2, 3, 4}:
             raise AssertionError(f"train: teacher buckets {[r['steps'] for r in records]}")
         if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
-                or not all(want[k] for k in bwd_keys):
+                or not all(want[k] for k in ran):
             raise AssertionError(f"train: backward launches {counts}, the graphs hold {want}")
 
         # the fit's checkpoint reloads equal
@@ -3046,7 +3109,7 @@ def train_stage1(gen) -> dict:
             f"operations under the profiler ({busy_ms / wall_ms:.1%} of the unprofiled wall)")
     return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
                 grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
-                lookups=lookups)
+                lookups=lookups, copies=copies)
 
 
 FINETUNE_CONFIG = "configs/finetune-unet.yaml"
@@ -3210,7 +3273,7 @@ def train_finetune(gen) -> dict:
     from adaface_tpu_torch.core.bridge import tree_state_dict
     from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import attention as A
-    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.ops import fused_gn as G
     from adaface_tpu_torch.tools.ckpt_lib import cast_fp16, load_state_dict
     from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
     from adaface_tpu_torch.train.face_detect import HostFaceDetector, map_bboxes_to_latent
@@ -3219,7 +3282,8 @@ def train_finetune(gen) -> dict:
     from adaface_tpu_torch.train.train_step import make_train_step
 
     bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, A.FLASH_BWD_PREP_WIDE,
-                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE, GN_BWD_DX)
+                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, G.GN_BWD_FUSED, G.GN_BWD_REDUCE,
+                G.GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
         data = write_train_photos(os.path.join(tmp, "photos"))
@@ -3319,12 +3383,14 @@ def train_finetune(gen) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         A.cache_lookups(reset=True)
+        G.G_COPIES.clear()
         t0 = time.perf_counter()
         trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         counts = launch_counts()
         lookups = fit_flash_lookups("finetune", counts)
+        copies = fit_gn_backward("finetune", counts)
         peak = torch.cuda.max_memory_allocated()
         for r in records:
             upd = "no update" if r["lr"] is None else f"an update at lr {r['lr']:.3e}"
@@ -3357,7 +3423,8 @@ def train_finetune(gen) -> dict:
         decodes = 2 * FINETUNE_MICRO_STEPS  # two active denoising steps a micro-step
         if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
                 or want[A.FLASH_BWD_DKDV_WIDE] != decodes or want[A.FLASH_BWD_DQ_WIDE] != decodes \
-                or want[GN_BWD_VAE] != VAE_DECODE_GN * decodes:
+                or want[GN_BWD_VAE] != VAE_DECODE_GN * decodes \
+                or not all(want[k] for k in (G.GN_BWD_FUSED, G.GN_BWD_REDUCE, G.GN_BWD_DX)):
             raise AssertionError(f"finetune: backward launches {counts}, the graphs hold {want}")
 
         # the fit's checkpoint reloads equal, the finetuned UNet with it
@@ -3422,7 +3489,7 @@ def train_finetune(gen) -> dict:
             raise AssertionError("finetune: the adversarial gradient")
     return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
                 grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
-                lookups=lookups)
+                lookups=lookups, copies=copies)
 
 
 STAGE2_CONFIG = "configs/stage2-comp-distill.yaml"
@@ -3440,12 +3507,15 @@ STAGE2_TYPES = ["comp_distill", "recon", "recon", "recon", "comp_distill", "reco
 STAGE2_GRAD_REL_L2 = {"sbg": 5e-3, "attn_lora": 1e-3, "ffn_lora": 5e-3}
 # the backward kernels at Stage 2's new shapes: the UNet's six at batch 12 (the
 # comp step's 4 blocks x batch 3), the decoder's D 512 at batch 3 (a step's
-# subject-comp decode), the GroupNorm backward at one UNet and one decoder map
+# subject-comp decode), the GroupNorm backward at every UNet map at batch 12
+# and every decoder map at batch 3
 FLASH_BWD_STAGE2 = [(f"{label} batch 12", 12, *dims) for label, _, *dims in FLASH_CASES[:-1]]
 FLASH_BWD_STAGE2_VAE = [("vae mid self batch 3", 3, 1, 4096, 4096, 512)]
-GN_BWD_STAGE2 = [("resnet 64x64 320 batch 12", (12, 320, 64, 64), 1e-5, True, torch.bfloat16),
-                 ("vae resnet 512x512 256 batch 3", (3, 256, 512, 512), 1e-6, True,
-                  torch.bfloat16)]
+GN_BWD_STAGE2 = (
+    [(f"{label} batch 12", (12, c, hw, hw), eps, silu, torch.bfloat16)
+     for label, c, hw, eps, silu, _ in UNET_GN]
+    + [(f"vae {label} batch 3", (3, c, hw, hw), 1e-6, silu, torch.bfloat16)
+       for label, c, hw, silu, dec, _ in VAE_GN if dec])
 
 
 def add_adapters(trainer, gen) -> dict:
@@ -3639,7 +3709,7 @@ def train_stage2(gen) -> dict:
     import train_torch
     from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import attention as A
-    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.ops import fused_gn as G
     from adaface_tpu_torch.train import trainer as T
     from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
     from adaface_tpu_torch.train.comp_step import sample_comp_rand
@@ -3652,7 +3722,8 @@ def train_stage2(gen) -> dict:
     masked = masked_flash_breakdown(gen)
     torch.cuda.empty_cache()
     bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, A.FLASH_BWD_PREP_WIDE,
-                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE, GN_BWD_DX)
+                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, G.GN_BWD_FUSED, G.GN_BWD_REDUCE,
+                G.GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
         data = write_train_photos(os.path.join(tmp, "photos"))
@@ -3768,6 +3839,7 @@ def train_stage2(gen) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
         A.cache_lookups(reset=True)
+        G.G_COPIES.clear()
         t0 = time.perf_counter()
         with mock.patch.object(T, "make_train_step", make_with_census):
             trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
@@ -3775,6 +3847,7 @@ def train_stage2(gen) -> dict:
         fit_s = time.perf_counter() - t0
         counts = launch_counts()
         lookups = fit_flash_lookups("stage2", counts)
+        copies = fit_gn_backward("stage2", counts)
         peak = torch.cuda.max_memory_allocated()
         want = collections.Counter()
         for c in per_step:
@@ -3880,7 +3953,8 @@ def train_stage2(gen) -> dict:
         recon_flash = recon_flash_profile(trainer, dataset, recon)
     return dict(counts=counts, want=fit_want, per_step=per_step, records=records, fit_s=fit_s,
                 peak=peak, grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
-                flash_bwd=flash_bwd, gn_bwd=gn_bwd, masked=masked, recon_flash=recon_flash)
+                flash_bwd=flash_bwd, gn_bwd=gn_bwd, masked=masked, recon_flash=recon_flash,
+                copies=copies)
 
 
 def train_cli(config: str = STAGE2_CONFIG, max_steps: int = 7) -> dict:
@@ -4237,8 +4311,10 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     `layer_norm` entries list every path shape under `shapes`, with its
     launches a train step or a fused-LN request, and the sums over them
     (`per_step`, `per_request`). The backward kernels' `launches` are those
-    of the Stage-1 fit; each one's `ms` is its own device time (20 launches
-    in a CUDA graph) and `bound_ms` its own work's, at the shape named;
+    of the Stage-1 fit (the D 512 flash kernels' and the GroupNorm split
+    pair's: the finetuning fit's); each one's `ms` is its own device time (20
+    launches in a CUDA graph) and `bound_ms` its own work's, at the shape
+    named (the split pair's `floor_ms`: the 5 passes it cannot do without);
     `plain_ms` and `library_ms` are those of the whole backward it is a
     part of (`flash_bwd_chunked` and the autograd backward of
     `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
@@ -4248,8 +4324,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                                                  FLASH_BWD_DKDV_WIDE, FLASH_BWD_DQ_WG,
                                                  FLASH_BWD_DQ_WIDE, FLASH_BWD_PREP_WIDE,
                                                  FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE)
-    from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_REDUCE, GN_FUSED, GN_NORM,
-                                                GN_STATS)
+    from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE, GN_FUSED,
+                                                GN_NORM, GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
 
@@ -4314,12 +4390,11 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     ln_errs = [r["err"] for r in ln.values() if isinstance(r, dict) and "err" in r]
     fb_path = [case[0] for case in FLASH_BWD_CASES + FLASH_BWD_RECON + FLASH_BWD_STAGE2
                if case[0] in flash_bwd]
-    fb, gb = flash_bwd[JSON_FLASH_BWD], gn_bwd[JSON_GN_BWD]
+    fb = flash_bwd[JSON_FLASH_BWD]
     vae_bwd = [case[0] for case in FLASH_BWD_VAE + FLASH_BWD_STAGE2_VAE if case[0] in flash_bwd]
     is_wide = lambda label: label in vae_bwd or "D512" in label  # noqa: E731
     fb_err = max(r["err"] for k, r in flash_bwd.items() if not is_wide(k))
     fb_wide_err = max(r["err"] for k, r in flash_bwd.items() if is_wide(k))
-    gb_err = max(r["err"] for r in gn_bwd.values())
 
     def flash_bwd_entry(name, part, json_shape=JSON_FLASH_BWD, labels=fb_path, err=fb_err,
                         source="flash_attn_bwd_wg.cu"):
@@ -4341,16 +4416,23 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=vae_bwd, err=fb_wide_err,
                     source="flash_attn_bwd.cu")
 
-    def gn_bwd_entry(name, part, bound_key, bound_by="bytes"):
-        shapes = {label: {"ms": r[f"{part}_graph_ms"], "bound_ms": r[bound_key],
-                          "function_graph_ms": r["graph_ms"], "function_bound_ms": r["bound_ms"],
-                          "plain_ms": r["plain_ms"], "library_ms": r["library_ms"]}
-                  for label, r in gn_bwd.items() if "graph_ms" in r}
-        return entry(name, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:143", gb_err,
-                     JSON_GN_BWD, gb[f"{part}_graph_ms"], gb["plain_ms"], gb["library_ms"],
-                     gb[bound_key], bound_by, function_ms=gb["ms"],
-                     function_graph_ms=gb["graph_ms"], function_bound_ms=gb["bound_ms"],
-                     statistics_graph_ms=gb["stats_graph_ms"], shapes=shapes)
+    def gn_bwd_entry(name, part, json_shape):
+        """`part`'s own device time and bound at `json_shape`, and at every
+        shape the plan gave it; `plain_ms` and `library_ms` those of the whole
+        backward (the closed form, `F.group_norm` (+ `F.silu`) autograd)."""
+        r = gn_bwd[json_shape]
+        shapes = {label: {"ms": q[f"{part}_graph_ms"], "bound_ms": q[f"{part}_bound_ms"],
+                          "function_graph_ms": q["graph_ms"], "function_bound_ms": q["bound_ms"],
+                          "floor_ms": q.get("floor_ms"), "plain_ms": q["plain_ms"],
+                          "library_ms": q["library_ms"], "host_us": q["host_us"]}
+                  for label, q in gn_bwd.items() if f"{part}_graph_ms" in q}
+        errs = [q["err"] for q in gn_bwd.values()
+                if q["kernel"] == ("fused" if part == "fused" else "split")]
+        return entry(name, "group_norm_silu.cu", "adaface_tpu/ops/fused_gn.py:143", max(errs),
+                     json_shape, r[f"{part}_graph_ms"], r["plain_ms"], r["library_ms"],
+                     r[f"{part}_bound_ms"], "bytes", function_ms=r["ms"],
+                     function_graph_ms=r["graph_ms"], function_bound_ms=r["bound_ms"],
+                     floor_ms=r.get("floor_ms"), host_us=r["host_us"], shapes=shapes)
 
     return {"kernels": [
         flash_entry(FLASH_T, "flash_attn_wgmma.cu", "adaface_tpu/ops/attention.py:165",
@@ -4393,8 +4475,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         flash_bwd_entry(FLASH_BWD_PREP_WIDE, "prep", **wide_bwd),
         flash_bwd_entry(FLASH_BWD_DKDV_WIDE, "dkdv", **wide_bwd),
         flash_bwd_entry(FLASH_BWD_DQ_WIDE, "dq", **wide_bwd),
-        gn_bwd_entry(GN_BWD_REDUCE, "reduce", "reduce_bound_ms"),
-        gn_bwd_entry(GN_BWD_DX, "dx", "bound_ms"),
+        gn_bwd_entry(GN_BWD_FUSED, "fused", JSON_GN_BWD),
+        gn_bwd_entry(GN_BWD_REDUCE, "reduce", JSON_GN_BWD_SPLIT),
+        gn_bwd_entry(GN_BWD_DX, "dx", JSON_GN_BWD_SPLIT),
     ]}
 
 
@@ -4433,15 +4516,16 @@ def main() -> int:
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops import attention as A
-    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_REDUCE
+    from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
 
     counts = {**served["counts"], **parser["counts"],
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
               **{k: stage1["counts"][k] for k in (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG,
-                                                 A.FLASH_BWD_DQ_WG, GN_BWD_REDUCE, GN_BWD_DX)},
+                                                 A.FLASH_BWD_DQ_WG, GN_BWD_FUSED)},
               **{k: finetune["counts"][k] for k in (A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE,
-                                                   A.FLASH_BWD_DQ_WIDE)}}
+                                                   A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE,
+                                                   GN_BWD_DX)}}
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],
