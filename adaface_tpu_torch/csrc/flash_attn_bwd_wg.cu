@@ -1,7 +1,8 @@
 // Flash-attention backward on Hopper's warpgroup matrix unit (wgmma) and
 // tensor memory accelerator (TMA): bf16, the SD1.5 UNet's head dims (33..48,
 // 65..80 and 145..160: D = 40, 80, 160), rows on 16-byte boundaries. The
-// VAE's head dim 512 keeps the kernels of flash_attn_bwd.cu.
+// VAE's head dim 512 takes the cluster kernels of flash_attn_bwd.cu after
+// the delta kernel here (8 threads a row there).
 //
 // Replaces `_flash_bwd` of adaface_tpu/ops/attention.py (:384-447), the XLA
 // backward of the Pallas forward kernels _flash_t_kernel and _flash_kernel:
@@ -58,46 +59,9 @@
 
 #include <type_traits>
 
-#include "flash_wgmma.cuh"
+#include "flash_bwd.cuh"
 
 namespace {
-
-using namespace flash;
-using bf16 = __nv_bfloat16;
-
-constexpr int kRows = kWgRows;  // rows of a warpgroup, and of a tile the loops walk over
-constexpr int kStages = 2;
-
-struct WgBwdParams {
-  const float* mask;   // [B, Sk] or null
-  const float* m;      // [B, H, Sqp]: the rows' maxima, log2 units, scale folded in
-  const float* inv_l;  // [B, H, Sqp]: 1 / the rows' sums
-  const float* delta;  // [B, H, Sqp]
-  bf16 *dq, *dk, *dv;
-  int64_t st[3][3];  // element strides (batch, head, sequence) of dq, dk, dv
-  int h, sq, sk, sqp, d, causal;
-  float scale, scale_log2;
-};
-enum { DQ, DK, DV };
-
-// rows r0 and r0 + 8 of a 64 x N accumulator, times mult, into bf16 dst (row
-// stride rs) at columns c0 + ..., for rows below `rows` and columns below d
-// (a multiple of 8) only; pairs of columns as 4-byte stores
-template <int N>
-__device__ __forceinline__ void store_acc(bf16* dst, int64_t rs, const float (&acc)[N / 2], int r0,
-                                          int rows, int c0, int d, float mult, int tq) {
-#pragma unroll
-  for (int dt = 0; dt < N / 8; ++dt) {
-    const int c = c0 + dt * 8 + 2 * tq;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = r0 + 8 * half;
-      if (row >= rows || c >= d) continue;
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)row * rs + c) =
-          pack_bf16(acc[4 * dt + 2 * half] * mult, acc[4 * dt + 2 * half + 1] * mult);
-    }
-  }
-}
 
 // Warpgroups that must fit on an SM together, which caps a thread's
 // registers (3: 168, 2: 255).
@@ -120,42 +84,6 @@ struct WgBwdShape {
                                  sizeof(float) * kStages * 3 * kRows +
                                  sizeof(uint64_t) * (kStages + 1);
 };
-
-// P^T = exp2(S^T scale log2e - m) / l and dS^T = P^T o (dP^T - delta) in
-// place of S^T and dP^T (keys x queries). Element i of a thread: key row
-// kr0 (+ 8 where i & 2), query column 8 (i >> 2) + 2 tq + (i & 1) of the
-// tile, whose m, 1/l, delta are r[col], r[64 + col], r[128 + col]. MASKED: the
-// thread's keys masked (mk0, mk1), and the causal rule (key > query + qoff
-// with qoff = the tile's first query + Sk - Sq) take the logit -1e30.
-template <bool MASKED>
-__device__ __forceinline__ void dkdv_probs(float (&s)[32], float (&dp)[32], const float* r,
-                                           int tq, int kr0, bool mk0, bool mk1, int causal,
-                                           int qoff, float sl2) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int cl = nt * 8 + 2 * tq;
-    const float2 mm = *reinterpret_cast<const float2*>(r + cl);
-    const float2 il = *reinterpret_cast<const float2*>(r + kRows + cl);
-    const float2 dl = *reinterpret_cast<const float2*>(r + 2 * kRows + cl);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * nt + e;
-      const float mq = (e & 1) ? mm.y : mm.x, ilq = (e & 1) ? il.y : il.x;
-      const float dlq = (e & 1) ? dl.y : dl.x;
-      float pr;
-      if constexpr (MASKED) {
-        float x = s[i] * sl2;
-        if (((e & 2) ? mk1 : mk0) || (causal && kr0 + (e & 2) * 4 - qoff > cl + (e & 1)))
-          x = kNegInf;
-        pr = fast_exp2(x - mq) * ilq;
-      } else {
-        pr = fast_exp2(fmaf(s[i], sl2, -mq)) * ilq;
-      }
-      dp[i] = pr * (dp[i] - dlq);
-      s[i] = pr;
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dk, dv of 64 NWG keys
@@ -418,15 +346,18 @@ flash_bwd_dq_wg_kernel(const WgBwdParams p, const __grid_constant__ CUtensorMap 
 }
 
 // ---------------------------------------------------------------------------
-// delta = sum_d g o out, one thread a row
+// delta = sum_d g o out, TPR threads a row (1 at the UNet's head dims; 8 at
+// D 512, whose 1 KB rows one thread would walk alone, leaving the card idle)
 // ---------------------------------------------------------------------------
 
+template <int TPR>
 __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
     const bf16* __restrict__ o, const bf16* __restrict__ gr, float* __restrict__ delta,
     int64_t o_sb, int64_t o_sh, int64_t o_ss, int64_t g_sb, int64_t g_sh, int64_t g_ss, int h,
     int sq, int sqp, int d, int64_t rows) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows) return;
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / TPR;
+  const int part = TPR == 1 ? 0 : threadIdx.x % TPR;
+  if (i >= rows) return;  // whole rows: TPR divides the block
   const int64_t bh = i / sqp;
   const int r = (int)(i - bh * sqp);
   const int64_t b = bh / h, hh = bh - b * h;
@@ -434,7 +365,7 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
   if (r < sq) {
     const uint4* op = reinterpret_cast<const uint4*>(o + b * o_sb + hh * o_sh + r * o_ss);
     const uint4* gp = reinterpret_cast<const uint4*>(gr + b * g_sb + hh * g_sh + r * g_ss);
-    for (int c = 0; c < d / 8; ++c) {
+    for (int c = part; c < d / 8; c += TPR) {
       const uint4 x = __ldg(op + c), y = __ldg(gp + c);
       const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
       const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
@@ -446,67 +377,14 @@ __global__ void __launch_bounds__(256) flash_bwd_delta_kernel(
       }
     }
   }
-  delta[i] = acc;
+#pragma unroll
+  for (int w = TPR / 2; w > 0; w /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (part == 0) delta[i] = acc;
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
-
-// strides: 21 element strides, (batch, head, sequence) of q, k, v, g, dq, dk,
-// dv in turn. The inputs are read by TMA: rows on 16-byte boundaries and D a
-// multiple of 8 (the wrapper copies other layouts); the outputs are written
-// as pairs of columns. False where the call is out of range.
-bool fill(WgBwdParams& p, const void* q, const void* k, const void* v, const void* g,
-          const float* mask, const float* stats, const float* delta, void* dq, void* dk, void* dv,
-          const int64_t* strides, int b, int h, int sq, int sk, int d, int causal, float scale) {
-  const int ks = (d + 15) / 16;
-  if (b < 1 || h < 1 || b > 65535 || h > 65535 || sq < 1 || sk < 1 || d % 8 != 0 ||
-      !(ks == 3 || ks == 5 || ks == 10))
-    return false;
-  const void* in[4] = {q, k, v, g};
-  for (int i = 0; i < 4; ++i) {
-    if (reinterpret_cast<uintptr_t>(in[i]) % 16 != 0) return false;
-    for (int j = 0; j < 3; ++j)
-      if (strides[3 * i + j] % 8 != 0) return false;
-  }
-  void* out[3] = {dq, dk, dv};
-  for (int i = 0; i < 3; ++i) {
-    if (reinterpret_cast<uintptr_t>(out[i]) % 4 != 0) return false;
-    for (int j = 0; j < 3; ++j) {
-      p.st[i][j] = strides[12 + 3 * i + j];
-      if (out[i] != nullptr && p.st[i][j] % 2 != 0) return false;
-    }
-  }
-  p.mask = mask;
-  p.sqp = (sq + kRows - 1) / kRows * kRows;
-  p.m = stats;
-  p.inv_l = stats + (int64_t)b * h * p.sqp;
-  p.delta = delta;
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.h = h;
-  p.sq = sq;
-  p.sk = sk;
-  p.d = d;
-  p.causal = causal;
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  return true;
-}
-
-// the four tensor maps of q, k, v, g (box of 64 rows, DP / 8 columns)
-int make_maps(CUtensorMap (&maps)[4], const void* const (&in)[4], const int64_t* strides, int b,
-              int h, int sq, int sk, int d) {
-  const int ch = (d + 15) / 16 * 2;
-  for (int i = 0; i < 4; ++i) {
-    const int rc = tensor_map(&maps[i], in[i], strides[3 * i], strides[3 * i + 1],
-                              strides[3 * i + 2], b, h, (i == 1 || i == 2) ? sk : sq, d, ch);
-    if (rc != 0) return rc;
-  }
-  return 0;
-}
 
 template <auto Kernel, size_t Smem>
 int launch(dim3 grid, int threads, const WgBwdParams& p, const CUtensorMap (&maps)[4],
@@ -537,12 +415,14 @@ int launch_dq(const WgBwdParams& p, const CUtensorMap (&maps)[4], int b, int h, 
 
 #define FLASH_BWD_WG_PREAMBLE(DQ_, DK_, DV_)                                               \
   WgBwdParams p;                                                                           \
-  if (!fill(p, q, k, v, g, mask, stats, delta, DQ_, DK_, DV_, strides, b, h, sq, sk, d,    \
+  const int ks = (d + 15) / 16;                                                            \
+  if (!(ks == 3 || ks == 5 || ks == 10) ||                                                 \
+      !fill(p, q, k, v, g, mask, stats, delta, DQ_, DK_, DV_, strides, b, h, sq, sk, d,    \
             causal, scale))                                                                \
     return (int)cudaErrorInvalidValue;                                                     \
   CUtensorMap maps[4];                                                                     \
   const void* const in[4] = {q, k, v, g};                                                  \
-  if (const int rc = make_maps(maps, in, strides, b, h, sq, sk, d)) return rc;             \
+  if (const int rc = make_maps(maps, in, strides, b, h, sq, sk, d, 2 * ks)) return rc;     \
   cudaStream_t s = static_cast<cudaStream_t>(stream)
 
 // q, k, v, g [B, H, S, D] bf16 at `strides` (see fill), the key mask [B, Sk]
@@ -592,8 +472,9 @@ extern "C" int flash_bwd_delta(const void* o, const void* g, float* delta, const
     if (strides[i] % 8 != 0) return (int)cudaErrorInvalidValue;
   const int sqp = (sq + kRows - 1) / kRows * kRows;
   const int64_t rows = (int64_t)b * h * sqp;
-  flash_bwd_delta_kernel<<<(unsigned)((rows + 255) / 256), 256, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  const int tpr = d >= 256 ? 8 : 1;
+  auto kernel = tpr == 8 ? flash_bwd_delta_kernel<8> : flash_bwd_delta_kernel<1>;
+  kernel<<<(unsigned)((rows * tpr + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(g), delta, strides[0], strides[1],
       strides[2], strides[3], strides[4], strides[5], h, sq, sqp, d, rows);
   return (int)cudaGetLastError();

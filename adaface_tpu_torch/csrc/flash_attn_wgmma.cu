@@ -393,16 +393,17 @@ flash_fwd_wg_kernel(const FlashParams p, const __grid_constant__ CUtensorMap map
 struct MapKey {
   const void* ptr;
   int64_t sb, sh, ss;
-  int b, h, s, d;
+  int b, h, s, d, ch;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && sb == o.sb && sh == o.sh && ss == o.ss && b == o.b && h == o.h &&
-           s == o.s && d == o.d;
+           s == o.s && d == o.d && ch == o.ch;
   }
 };
 struct MapKeyHash {
   size_t operator()(const MapKey& k) const {
     size_t x = reinterpret_cast<size_t>(k.ptr);
-    for (int64_t v : {k.sb, k.sh, k.ss, (int64_t)k.b, (int64_t)k.h, (int64_t)k.s, (int64_t)k.d})
+    for (int64_t v : {k.sb, k.sh, k.ss, (int64_t)k.b, (int64_t)k.h, (int64_t)k.s, (int64_t)k.d,
+                      (int64_t)k.ch})
       x = x * 1099511628211ull ^ (size_t)v;
     return x;
   }
@@ -458,10 +459,13 @@ flash::EncodeTiled flash::encode_tiled() {
   return fn;
 }
 
-int flash::tensor_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss,
-                      int b, int h, int s, int d, int ch) {
+namespace {
+
+// the map of `key` from the cache, or encoded by encode(map, entry point)
+// and kept
+template <class Encode>
+int cached_map(CUtensorMap* map, const MapKey& key, Encode&& encode) {
   static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
-  const MapKey key{ptr, sb, sh, ss, b, h, s, d};  // ch follows from d
   std::lock_guard<std::mutex> lock(map_mu);
   auto it = maps.find(key);
   if (it != maps.end()) {
@@ -470,23 +474,49 @@ int flash::tensor_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh,
     return 0;
   }
   ++map_misses;
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return 20000;
-  const cuuint64_t dims[5] = {8, (cuuint64_t)s, (cuuint64_t)(d / 8), (cuuint64_t)h,
-                              (cuuint64_t)b};
-  const cuuint64_t strides[4] = {(cuuint64_t)(s > 1 ? ss * 2 : 16), 16,
-                                 (cuuint64_t)(h > 1 ? sh * 2 : 16),
-                                 (cuuint64_t)(b > 1 ? sb * 2 : 16)};
-  const cuuint32_t box[5] = {8, (cuuint32_t)kWgRows, (cuuint32_t)ch, 1, 1};
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr),
-                             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return 20000;
+  const CUresult rc = encode(map, fn);
   if (rc != CUDA_SUCCESS) return 20000 + (int)rc;
   if (maps.size() >= kMaxMaps) maps.clear();
   maps.emplace(key, *map);
   return 0;
+}
+
+}  // namespace
+
+int flash::tensor_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss,
+                      int b, int h, int s, int d, int ch) {
+  return cached_map(map, MapKey{ptr, sb, sh, ss, b, h, s, d, ch}, [&](CUtensorMap* m,
+                                                                        EncodeTiled encode) {
+    const cuuint64_t dims[5] = {8, (cuuint64_t)s, (cuuint64_t)(d / 8), (cuuint64_t)h,
+                                (cuuint64_t)b};
+    const cuuint64_t strides[4] = {(cuuint64_t)(s > 1 ? ss * 2 : 16), 16,
+                                   (cuuint64_t)(h > 1 ? sh * 2 : 16),
+                                   (cuuint64_t)(b > 1 ? sb * 2 : 16)};
+    const cuuint32_t box[5] = {8, (cuuint32_t)kWgRows, (cuuint32_t)ch, 1, 1};
+    const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+    return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides,
+                  box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
+}
+
+int flash::tensor_map_sw128(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh,
+                            int64_t ss, int b, int h, int s, int d) {
+  // ch 0 marks the swizzled map in the cache's key
+  return cached_map(map, MapKey{ptr, sb, sh, ss, b, h, s, d, 0}, [&](CUtensorMap* m,
+                                                                       EncodeTiled encode) {
+    const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
+    const cuuint64_t strides[3] = {(cuuint64_t)(s > 1 ? ss * 2 : 16),
+                                   (cuuint64_t)(h > 1 ? sh * 2 : 16),
+                                   (cuuint64_t)(b > 1 ? sb * 2 : 16)};
+    const cuuint32_t box[4] = {64, (cuuint32_t)kWgRows, 1, 1};
+    const cuuint32_t ones[4] = {1, 1, 1, 1};
+    return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+                  box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
 }
 
 // bf16; head dim a multiple of 8 in 33..48, 65..80 or 145..160; q, k, v rows

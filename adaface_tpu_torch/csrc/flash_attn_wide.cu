@@ -34,7 +34,11 @@
 //     so the wrapper splits the key tiles over nsplit blocks per query tile;
 //     each writes its unnormalized O, its row maximum and row sum (fp32) to
 //     scratch, and flash_combine() merges them in a fixed order (no atomics:
-//     outputs repeat bit for bit).
+//     outputs repeat bit for bit);
+//   - where autograd records the call, the rows' m (log2 units, the scale
+//     folded in) and 1/l go to `stats` for the backward (flash_attn_bwd.cu),
+//     written by the kernel itself or, with split keys, by flash_combine();
+//     serving passes none, and O is the same bits either way.
 // Measured on an H100 SXM, 700 W, at the VAE's shape, device time: 0.31 ms,
 // the combine included (the library's FlashAttention-2 call: 0.33 ms; the
 // CUDA-core kernel that served this shape before: 6.42 ms), 9x the bound.
@@ -277,6 +281,21 @@ flash_fwd_wide_kernel(const FlashParams p) {
         }
       }
     }
+    // the rows' statistics for the backward (flash_attn_bwd.cu): m and 1/l
+    // of rows < Sq, zeros for the rows up to Sq rounded up to 64
+    if (p.stats != nullptr && wc == 0 && tq == 0) {
+      const int sqp = (p.sq + ROWS - 1) / ROWS * ROWS;
+      const int64_t bh = b * gridDim.y + h;
+      float* st_m = p.stats + bh * sqp;
+      float* st_il = p.stats + ((int64_t)gridDim.y * gridDim.z + bh) * sqp;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + (half ? r1 : r0);
+        const bool real = row < p.sq;
+        st_m[row] = real ? (half ? m1 : m0) : 0.f;
+        st_il[row] = real ? (half ? inv1 : inv0) : 0.f;
+      }
+    }
   } else {
     // partials: [nsplit, B, H, Sq] rows of D (O) or one value (m, l)
     const int64_t prow0 =
@@ -313,11 +332,14 @@ cudaError_t launch_wide(const FlashParams& p, int b, int h, cudaStream_t stream)
 }
 
 // out[row, :] = sum_s w_s O_s[row, :] / sum_s w_s l_s, w_s = 2^(m_s - max m),
-// splits taken in order; one thread per (row, 4 columns)
+// splits taken in order; one thread per (row, 4 columns). stats, where not
+// null: the row's max m and 1 / sum_s w_s l_s, as the nsplit = 1 kernel
+// writes them
 __global__ void __launch_bounds__(256)
 flash_combine_kernel(const float* __restrict__ o_part, const float* __restrict__ m_part,
                      const float* __restrict__ l_part, void* out, int64_t o_sb, int64_t o_sh,
-                     int64_t o_ss, int nsplit, int64_t rows, int h, int sq, int d, int is_bf16) {
+                     int64_t o_ss, int nsplit, int64_t rows, int h, int sq, int d, int is_bf16,
+                     float* __restrict__ stats) {
   const int nq = (d + 3) / 4;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= rows * nq) return;
@@ -346,6 +368,16 @@ flash_combine_kernel(const float* __restrict__ o_part, const float* __restrict__
   const float inv = 1.f / (l == 0.f ? 1.f : l);
   const int64_t bh = row / sq;
   const int64_t off = (bh / h) * o_sb + (bh % h) * o_sh + (row % sq) * o_ss + c0;
+  if (stats != nullptr && c0 == 0) {
+    // [2, B, H, Sqp]; the last row of each (b, h) also zeros the rows past Sq
+    const int sqp = (sq + 63) / 64 * 64, r = (int)(row % sq);
+    float* st_m = stats + bh * sqp;
+    float* st_il = stats + (rows / sq + bh) * sqp;
+    st_m[r] = mmax;
+    st_il[r] = inv;
+    if (r == sq - 1)
+      for (int z = sq; z < sqp; ++z) st_m[z] = st_il[z] = 0.f;
+  }
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     if (c0 + e >= d) break;
@@ -362,21 +394,25 @@ flash_combine_kernel(const float* __restrict__ o_part, const float* __restrict__
 // 64). nsplit > 1: the key tiles (32 keys each) are split over nsplit blocks
 // per query tile, every share non-empty, and the partial results go to
 // o_part [nsplit,B,H,Sq,D], m_part, l_part [nsplit,B,H,Sq] (fp32) for
-// flash_combine(); out is then not written.
+// flash_combine(); out is then not written. stats: null, or (nsplit = 1)
+// [2, B, H, Sqp] fp32 (Sqp = Sq rounded up to 64) that receives each row's m
+// (log2 units, the scale folded in) and 1/l, zeros past Sq, for the backward;
+// O is the same either way.
 extern "C" int flash_fwd_bf16_wide(const void* q, const void* k, const void* v,
                                    const float* mask, void* out, const int64_t* strides, int b,
                                    int h, int sq, int sk, int d, int causal, float scale,
                                    int nsplit, float* o_part, float* m_part, float* l_part,
-                                   void* stream) {
+                                   float* stats, void* stream) {
   FlashParams p;
   if (!fill_params(p, q, k, v, mask, out, strides, b, h, sq, sk, d, kWideMaxDim, causal, scale,
                    2))
     return (int)cudaErrorInvalidValue;
   const int ntiles = (sk + kWideKeys - 1) / kWideKeys;
   if (nsplit < 1 || (nsplit - 1) * ((ntiles + nsplit - 1) / nsplit) >= ntiles ||
-      (nsplit > 1 && (!o_part || !m_part || !l_part)))
+      (nsplit > 1 && (!o_part || !m_part || !l_part || stats)))
     return (int)cudaErrorInvalidValue;
   p.nsplit = nsplit;
+  p.stats = stats;
   p.o_part = o_part;
   p.m_part = m_part;
   p.l_part = l_part;
@@ -395,10 +431,11 @@ extern "C" int flash_fwd_bf16_wide(const void* q, const void* k, const void* v,
 }
 
 // Merge split-keys partials into out [B,H,Sq,D] (strides in elements; bf16
-// or fp32).
+// or fp32); stats: null, or [2, B, H, Sqp] fp32 that receives the rows' m and
+// 1/l as flash_fwd_bf16_wide describes.
 extern "C" int flash_combine(const float* o_part, const float* m_part, const float* l_part,
                              void* out, const int64_t* out_strides, int nsplit, int b, int h,
-                             int sq, int d, int is_bf16, void* stream) {
+                             int sq, int d, int is_bf16, float* stats, void* stream) {
   if (nsplit < 1 || b < 1 || h < 1 || sq < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const int64_t rows = (int64_t)b * h * sq;
   const int64_t threads = rows * ((d + 3) / 4);
@@ -406,6 +443,6 @@ extern "C" int flash_combine(const float* o_part, const float* m_part, const flo
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   flash_combine_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       o_part, m_part, l_part, out, out_strides[0], out_strides[1], out_strides[2], nsplit, rows,
-      h, sq, d, is_bf16);
+      h, sq, d, is_bf16, stats);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 // Shared pieces of the kernels on Hopper's warpgroup matrix unit (wgmma)
 // and its tensor memory accelerator (TMA): the flash forward of
-// flash_attn_wgmma.cu and the flash backward of flash_attn_bwd_wg.cu.
+// flash_attn_wgmma.cu and the flash backward of flash_attn_bwd_wg.cu and
+// flash_attn_bwd.cu.
 //
 // Tiles of 64 rows of a [B,H,S,D] bf16 tensor live in shared memory as
 // wgmma's unswizzled core matrices (8 rows x 16 bytes, contiguous): the
@@ -80,6 +81,16 @@ __device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, u
       "r"(c3), "r"(c4)
       : "memory");
 }
+// one thread: box of the 4-d tensor map at the coordinates -> dst
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
 // one thread: `bytes` (a multiple of 16, both addresses 16-byte aligned)
 // contiguous bytes global -> shared; the bytes count down on bar
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
@@ -107,6 +118,21 @@ __device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
 }
 __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
   return make_desc(tile + kk * 256, 128, kWgChunk);
+}
+
+// Tiles of 128-byte swizzled atoms (tensor_map_sw128): a tile of C columns
+// is C / 64 atoms of 64 rows x 128 bytes (8 KB, 1024-byte aligned). Read as a
+// K-major operand, k-step kk lies in atom kk / 4 at byte 32 (kk % 4) of each
+// row, 8-row groups 1024 bytes apart; read as an MN-major B (rows are the
+// depth), k-step kk starts at row 16 kk (2048 bytes a step), 8-row groups
+// 1024 bytes apart, the next 64 columns one atom (8 KB) on.
+constexpr int kAtom = 64 * 128;
+__device__ __forceinline__ uint64_t sw128(uint64_t desc) { return desc | (1ull << 62); }
+__device__ __forceinline__ uint64_t kmajor128(uint32_t tile, int kk) {
+  return sw128(make_desc(tile + (kk >> 2) * kAtom + (kk & 3) * 32, 16, 1024));
+}
+__device__ __forceinline__ uint64_t mnmajor128(uint32_t tile, int kk) {
+  return sw128(make_desc(tile + kk * 2048, kAtom, 1024));
 }
 
 // D[64 x 64] (+)= A[64 x 16] (registers) * B[16 x 64] (shared memory, K-major)
@@ -237,14 +263,124 @@ __device__ __forceinline__ void wgmma_o_n160(float (&d)[80], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] (registers) * B[16 x 64] (shared memory, MN-major)
+__device__ __forceinline__ void wgmma_o_n64(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] (registers) * B[16 x 128] (shared memory, MN-major)
+__device__ __forceinline__ void wgmma_o_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 256] (+)= A[64 x 16] (registers) * B[16 x 256] (shared memory, MN-major)
+__device__ __forceinline__ void wgmma_o_n256(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // D[64 x N] += A[64 x 16] (registers) * B[16 x N] (shared memory, MN-major)
 template <int N>
 __device__ __forceinline__ void wgmma_o(float (&d)[N / 2], const uint32_t (&a)[4],
                                         uint64_t desc_b) {
-  static_assert(N == 48 || N == 80 || N == 160, "widths with a wgmma instance");
+  static_assert(N == 48 || N == 64 || N == 80 || N == 128 || N == 160 || N == 256,
+                "widths with a wgmma instance");
   if constexpr (N == 48) wgmma_o_n48(d, a, desc_b, 1);
+  if constexpr (N == 64) wgmma_o_n64(d, a, desc_b, 1);
   if constexpr (N == 80) wgmma_o_n80(d, a, desc_b, 1);
+  if constexpr (N == 128) wgmma_o_n128(d, a, desc_b, 1);
   if constexpr (N == 160) wgmma_o_n160(d, a, desc_b, 1);
+  if constexpr (N == 256) wgmma_o_n256(d, a, desc_b, 1);
 }
 
 // The accumulator of a 64 x 64 product (element i of a thread: row
@@ -273,10 +409,17 @@ EncodeTiled encode_tiled();
 // columns of 16 bytes, H, B), box (8, 64 rows, ch columns, 1, 1): a box lands
 // in shared memory column by column, each column 64 rows of 16 bytes, which
 // is the core-matrix layout above; rows past S and columns past D arrive as
-// zeros. Kept per (pointer, shape, strides) by flash_attn_wgmma.cu (its
+// zeros. Kept per (pointer, shape, strides, box) by flash_attn_wgmma.cu (its
 // lookups: flash_tensor_map_stats). Returns 0, or 20000 + the CUresult of
 // the encoding (20000 alone: the driver's entry point was not found).
 int tensor_map(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss, int b,
                int h, int s, int d, int ch);
+
+// The same tensor as (D, S, H, B) with a box of (64 columns, 64 rows, 1, 1)
+// and the 128-byte swizzle: a box lands as 64 rows of 128 bytes, the 16-byte
+// chunks of row r at chunk ^ (r % 8), which wgmma reads by the B128 layout
+// below; columns past D arrive as zeros. Cached as tensor_map's maps are.
+int tensor_map_sw128(CUtensorMap* map, const void* ptr, int64_t sb, int64_t sh, int64_t ss,
+                     int b, int h, int s, int d);
 
 }  // namespace flash

@@ -31,7 +31,8 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu", "flash_attn_bwd.cu",
            "flash_attn_bwd_wg.cu", "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu",
            "launch_floor.cu")
-HEADERS = ("flash_common.cuh", "flash_wgmma.cuh")  # included by the sources: in the hash
+# included by the sources: in the hash
+HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -116,23 +117,20 @@ def load_library() -> ctypes.CDLL:
     lib.flash_fwd_bf16_wg.restype = i32
     lib.flash_fwd_fp32.argtypes = flash_args + [p]
     lib.flash_fwd_fp32.restype = i32
-    lib.flash_fwd_bf16_wide.argtypes = flash_args + [i32, p, p, p, p]
+    # nsplit, o_part, m_part, l_part, stats (or null), stream
+    lib.flash_fwd_bf16_wide.argtypes = flash_args + [i32, p, p, p, p, p]
     lib.flash_fwd_bf16_wide.restype = i32
     lib.flash_tensor_map_stats.argtypes = [p, i32]
     lib.flash_tensor_map_stats.restype = None
-    lib.flash_combine.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, p]
+    # o_part, m_part, l_part, out, strides, nsplit, B, H, Sq, D, bf16, stats (or null), stream
+    lib.flash_combine.argtypes = [p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p]
     lib.flash_combine.restype = i32
-    # q, k, v, out, g, mask, dq, dk, dv, stats, strides, B, H, Sq, Sk, D, causal, scale, stream
-    flash_bwd_args = [p] * 11 + [i32] * 6 + [f32, p]
-    for name in ("flash_bwd_prep", "flash_bwd_dkdv_wide", "flash_bwd_dq_wide"):
-        getattr(lib, name).argtypes = flash_bwd_args
-        getattr(lib, name).restype = i32
     # q, k, v, g, mask, stats, delta, (dk, dv | dq), strides, B, H, Sq, Sk, D, causal, scale,
-    # keys (queries) a block, stream
-    lib.flash_bwd_dkdv_wg.argtypes = [p] * 10 + [i32] * 6 + [f32, i32, p]
-    lib.flash_bwd_dkdv_wg.restype = i32
-    lib.flash_bwd_dq_wg.argtypes = [p] * 9 + [i32] * 6 + [f32, i32, p]
-    lib.flash_bwd_dq_wg.restype = i32
+    # keys (queries) a block (_wg only), stream
+    for name, n in (("flash_bwd_dkdv", 10), ("flash_bwd_dq", 9)):
+        getattr(lib, name + "_wg").argtypes = [p] * n + [i32] * 6 + [f32, i32, p]
+        getattr(lib, name + "_cl").argtypes = [p] * n + [i32] * 6 + [f32, p]
+        getattr(lib, name + "_wg").restype = getattr(lib, name + "_cl").restype = i32
     # out, g, delta, strides, B, H, Sq, D, stream
     lib.flash_bwd_delta.argtypes = [p] * 4 + [i32] * 4 + [p]
     lib.flash_bwd_delta.restype = i32

@@ -21,13 +21,15 @@ there.
 - Where autograd records the call (grad mode on and an input that requires
   grad) `flash_attention` is `_FlashAttention`, the counterpart of the JAX
   package's custom VJP (`_flash_fwd` / `_flash_bwd`, `:365-447`): it saves
-  q, k, v, the mask, the output and, where the wgmma forward ran, the rows'
-  softmax statistics it wrote (m and 1/l). Its backward on the card is
-  `flash_bwd`: at D 40/48, 80, 160 the kernels of `csrc/flash_attn_bwd_wg.cu`
-  (`flash_bwd_delta`, then the wgmma dk/dv and dq kernels, with the geometry
-  `flash_bwd_plan` picks), at the VAE's D 512 those of `csrc/flash_attn_bwd.cu`
-  (the prep kernel, then the wide dk/dv and dq kernel), each counted under
-  its own key; on the CPU it is `flash_bwd_chunked`, the JAX backward's
+  q, k, v, the mask, the output and, where a bf16 kernel ran, the rows'
+  softmax statistics it wrote (m and 1/l: the wgmma kernel, or the wide
+  kernel and `flash_combine`). Its backward on the card is `flash_bwd`:
+  `flash_bwd_delta`, then at D 40/48, 80, 160 the wgmma dk/dv and dq kernels
+  of `csrc/flash_attn_bwd_wg.cu` (with the geometry `flash_bwd_plan`
+  picks), at the VAE's D 512 those of `csrc/flash_attn_bwd.cu` (wgmma over a
+  thread-block cluster that splits the head dim, of the size
+  `flash_bwd_plan` picks), each counted under its own key; on the CPU it is
+  `flash_bwd_chunked`, the JAX backward's
   query-chunk scan in plain PyTorch. It computes only the gradients autograd
   asks for: a cross-attention whose query has no grad launches no dq
   kernel. fp32 on the card has no backward kernel: such a call raises at
@@ -37,8 +39,8 @@ there.
   v's dtype, head-dim slices, split-keys partials), so that the CPU tests
   hold it against the plain version and the JAX package, and the combine
   kernel has a plain version to be held against on the card;
-  `flash_stats_tiled` and `flash_bwd_tiled` do the same for the statistics
-  the wgmma forward keeps and for the wgmma backward.
+  `flash_stats_tiled`, `combine_stats` and `flash_bwd_tiled` do the same for
+  the statistics the forward kernels keep and for the backward kernels.
 - `multi_head_attention` keeps the JAX package's routing: the flash path at
   q-length >= 256 (the JAX rule also requires no bias and no returned
   probabilities; no caller of the port passes either). Which of kernel or
@@ -73,17 +75,19 @@ FLASH_FP32 = "flash_attn_fwd[fp32]"
 # the backward at the UNet's head dims (`csrc/flash_attn_bwd_wg.cu`): delta,
 # then the wgmma dk/dv and dq kernels; the forward launch a backward makes
 # for the rows' statistics when its forward kept none; and at the VAE's head
-# dim 512 (`csrc/flash_attn_bwd.cu`) the prep kernel and the wide dk/dv and
-# dq kernel
+# dim 512 delta and the cluster dk/dv and dq kernels (`csrc/flash_attn_bwd.cu`)
 FLASH_BWD_DELTA = "flash_bwd_delta"
 FLASH_BWD_DKDV_WG = "flash_bwd_dkdv[wg]"
 FLASH_BWD_DQ_WG = "flash_bwd_dq[wg]"
 FLASH_BWD_STATS = "flash_attn_fwd[bwd stats]"
-FLASH_BWD_PREP_WIDE = "flash_bwd_prep[d512]"
+FLASH_BWD_DELTA_WIDE = "flash_bwd_delta[d512]"
 FLASH_BWD_DKDV_WIDE = "flash_bwd_dkdv[d512]"
 FLASH_BWD_DQ_WIDE = "flash_bwd_dq[d512]"
 BWD_KSTEPS = (3, 5, 10, 32)  # ceil(D / 16) of the backward kernels' instances
-BWD_WIDE_KSTEPS = 32  # D 497..512: the wide kernel
+BWD_WIDE_KSTEPS = 32  # D 497..512: the cluster kernels
+# blocks a D 512 cluster splits the head dim over (kCluster of
+# `csrc/flash_attn_bwd.cu`): 2.5-3.1x faster than four at B 1-3 (PERF.md §6)
+BWD_CLUSTER = 2
 STATS_ROWS = 64  # the rows' statistics are kept for Sq rounded up to this
 
 LOG2E = 1.4426950408889634
@@ -150,9 +154,15 @@ def flash_plan(dtype, b: int, h: int, sq: int, sk: int, d: int, sm_count: int,
 class FlashBwdPlan:
     """What the backward's kernels do with one call."""
 
-    variant: str  # "wg" (bf16, D 33..48, 65..80, 145..160) or "wide" (D 497..512)
-    key_block: int  # keys a dk/dv block owns
-    query_block: int  # queries a dq block owns
+    variant: str  # "wg" (bf16, D 33..48, 65..80, 145..160) or "cluster" (D 497..512)
+    key_block: int  # keys a dk/dv block (cluster) owns
+    query_block: int  # queries a dq block (cluster) owns
+
+    @property
+    def d_slices(self) -> int:
+        """The head-dim slices whose partial S and dP the kernels add
+        (`flash_bwd_tiled`'s `d_slices`)."""
+        return BWD_CLUSTER if self.variant == "cluster" else 1
 
 
 def flash_bwd_plan(dtype, b: int, h: int, sq: int, sk: int, d: int,
@@ -162,7 +172,8 @@ def flash_bwd_plan(dtype, b: int, h: int, sq: int, sk: int, d: int,
     if dtype != torch.bfloat16 or -(-d // 16) not in BWD_KSTEPS:
         raise ValueError(f"flash_bwd_plan: no backward kernel for {dtype} at head dim {d}")
     if -(-d // 16) == BWD_WIDE_KSTEPS:
-        return FlashBwdPlan("wide", 16, 16)
+        # 64 keys (queries) a cluster of BWD_CLUSTER blocks
+        return FlashBwdPlan("cluster", 64, 64)
 
     def rows(n):
         # two warpgroups a block, sharing the tiles the loop walks (half the
@@ -184,6 +195,18 @@ def combine_partials(o_part, m_part, l_part):
         l = l + w[s] * l_part[s]
         o = o + w[s][..., None] * o_part[s]
     return o / torch.where(l == 0, 1.0, l)[..., None]
+
+
+def combine_stats(m_part, l_part):
+    """The rows' statistics of split-keys partials as the forward kernels
+    keep them (`flash_combine` for several splits, the wide kernel for one):
+    [2, B, H, Sq] fp32, m = the largest m_s and 1/l with l = Σ_s 2^(m_s - m)
+    l_s, splits taken in order."""
+    m = m_part.max(dim=0).values
+    l = torch.zeros_like(l_part[0])
+    for s in range(l_part.shape[0]):
+        l = l + torch.exp2(m_part[s] - m) * l_part[s]
+    return torch.stack((m, 1.0 / torch.where(l == 0, 1.0, l)))
 
 
 def flash_partials_tiled(q, k, v, kv_mask=None, causal: bool = False, scale=None,
@@ -252,15 +275,17 @@ def flash_stats_tiled(q, k, v, kv_mask=None, causal: bool = False, scale=None):
 
 
 def flash_bwd_tiled(q, k, v, kv_mask, out, g, causal: bool, scale: float, stats,
-                    need_dq: bool = True, need_dkdv: bool = True):
-    """The wgmma backward kernels' arithmetic in plain PyTorch: the rows' m
-    and 1/l from `stats` ([2, B, H, >= Sq], as `flash_stats_tiled` or the
-    forward kernel gives them), delta = Σ g·out in fp32, P = exp2(s·scale·log2e
-    - m)·(1/l) with masked keys at the logit -1e30, dS = P·(dP - delta);
-    dk, dv summed over query tiles of 64 rows and dq over key tiles of 64
-    keys in the kernels' order, with P and dS rounded to q's dtype
-    before the products that take them. → (dq, dk, dv) in the inputs'
-    dtypes; None for the gradients not asked for."""
+                    need_dq: bool = True, need_dkdv: bool = True, d_slices: int = 1):
+    """The backward kernels' arithmetic in plain PyTorch: the rows' m and
+    1/l from `stats` ([2, B, H, >= Sq], as `flash_stats_tiled` or the forward
+    kernel gives them), delta = Σ g·out in fp32, P = exp2(s·scale·log2e -
+    m)·(1/l) with masked keys at the logit -1e30, dS = P·(dP - delta); s and
+    dP each the sum of `d_slices` partial products over equal slices of the
+    head dim, added in slice order (the D 512 kernels' cluster of
+    BWD_CLUSTER blocks); dk, dv summed over query tiles of 64 rows
+    and dq over key tiles of 64 keys in the kernels' order, with P and dS
+    rounded to q's dtype before the products that take them. → (dq, dk, dv)
+    in the inputs' dtypes; None for the gradients not asked for."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     scale_log2 = scale * LOG2E
@@ -271,15 +296,26 @@ def flash_bwd_tiled(q, k, v, kv_mask, out, g, causal: bool, scale: float, stats,
     cols = torch.arange(sk, device=q.device)[None, :]
     rnd = lambda t: t.to(q.dtype).float()  # noqa: E731
     tile = 64
+    if d % d_slices:
+        raise ValueError(f"flash_bwd_tiled: head dim {d} in {d_slices} equal slices")
+    bounds = [d * i // d_slices for i in range(d_slices + 1)]
+
+    def product(a, b_):  # a bᵀ over the head dim, its slices' partials added in order
+        parts = [torch.matmul(a[..., lo:hi], b_[..., lo:hi].transpose(-1, -2))
+                 for lo, hi in zip(bounds[:-1], bounds[1:])]
+        total = parts[0]
+        for x in parts[1:]:
+            total = total + x
+        return total
 
     def probs(r0, r1, c0, c1):  # (P, dS) of queries r0..r1 by keys c0..c1
-        x = torch.matmul(qf[:, :, r0:r1], kf[:, :, c0:c1].transpose(-1, -2)) * scale_log2
+        x = product(qf[:, :, r0:r1], kf[:, :, c0:c1]) * scale_log2
         if kv_mask is not None:
             x = torch.where(kv_mask[:, None, None, c0:c1] > 0, x, NEG_INF)
         if causal:
             x = torch.where(cols[:, c0:c1] <= rows[r0:r1] + (sk - sq), x, NEG_INF)
         p = torch.exp2(x - m[:, :, r0:r1]) * inv_l[:, :, r0:r1]
-        dp = torch.matmul(gf[:, :, r0:r1], vf[:, :, c0:c1].transpose(-1, -2))
+        dp = product(gf[:, :, r0:r1], vf[:, :, c0:c1])
         return p, p * (dp - delta[:, :, r0:r1])
 
     dq = dk = dv = None
@@ -302,10 +338,15 @@ def flash_bwd_tiled(q, k, v, kv_mask, out, g, causal: bool, scale: float, stats,
     return dq, dk, dv
 
 
-def flash_combine(o_part, m_part, l_part, dtype):
+def flash_combine(o_part, m_part, l_part, dtype, stats=None):
     """Merge split-keys partials (see `combine_partials`) into [B, H, Sq, D]
-    of `dtype`, stored [B, Sq, H, D]; the combine kernel on CUDA tensors."""
+    of `dtype`, stored [B, Sq, H, D]; the combine kernel on CUDA tensors,
+    which also writes the rows' statistics into `stats` ([2, B, H, Sq rounded
+    up to STATS_ROWS] fp32, zeros past Sq; see `combine_stats`) where given."""
     if o_part.device.type == "cpu":
+        if stats is not None:
+            stats.zero_()
+            stats[..., :o_part.shape[3]] = combine_stats(m_part, l_part)
         return combine_partials(o_part, m_part, l_part).to(dtype)
     if o_part.device.type != "cuda":
         raise ValueError(f"flash_combine: no kernel for device {o_part.device}")
@@ -321,11 +362,17 @@ def flash_combine(o_part, m_part, l_part, dtype):
         raise ValueError(f"flash_combine: dtype {dtype} is not supported")
     if o_part.device.index != torch.cuda.current_device():
         raise ValueError(f"flash_combine: {o_part.device} is not the current device")
+    sqp = -(-sq // STATS_ROWS) * STATS_ROWS
+    if stats is not None and (tuple(stats.shape) != (2, b, h, sqp) or stats.dtype != torch.float32
+                              or not stats.is_contiguous() or stats.device != o_part.device):
+        raise ValueError(f"flash_combine: stats must be contiguous fp32 {(2, b, h, sqp)} on "
+                         f"{o_part.device}, got {stats.dtype} {tuple(stats.shape)}")
     out = torch.empty((b, sq, h, d), dtype=dtype, device=o_part.device).transpose(1, 2)
     lib = _build.load_library()
     rc = lib.flash_combine(o_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
                            out.data_ptr(), (ctypes.c_int64 * 3)(*out.stride()[:3]),
                            nsplit, b, h, sq, d, int(dtype == torch.bfloat16),
+                           None if stats is None else stats.data_ptr(),
                            torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "flash_combine")
     _build.count(FLASH_COMBINE)
@@ -400,8 +447,8 @@ def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float, with_stats: bool =
                 count_as: str | None = None):
     """The forward kernels on CUDA tensors → out, or with `with_stats`
     (out, the rows' statistics [2, B, H, Sq rounded up to STATS_ROWS] fp32
-    where the wgmma kernel ran, else None). `count_as`: the launch-counter
-    key, where not the variant's own."""
+    where a bf16 kernel ran, else None). `count_as`: the launch-counter key,
+    where not the variant's own; a combine launch counts as FLASH_COMBINE."""
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
     layout = (q.dtype, k.dtype, v.dtype, q.device, k.device, v.device, q.shape, k.shape,
               v.shape, q.stride(), k.stride(), v.stride(), (qp | kp | vp) % 16 == 0)
@@ -435,28 +482,28 @@ def _flash_cuda(q, k, v, kv_mask, causal: bool, scale: float, with_stats: bool =
     args = (qp, kp, vp, mask_ptr, out_ptr, strides, b, h, sq, sk, d, int(causal), scale)
     stream = torch.cuda.current_stream().cuda_stream
     lib = _build.load_library()
+    if with_stats and plan.variant != "fp32":
+        stats = torch.empty((2, b, h, -(-sq // STATS_ROWS) * STATS_ROWS), dtype=torch.float32,
+                            device=device)
+    stats_ptr = None if stats is None else stats.data_ptr()
     if plan.variant == "fp32":
         _build.check(lib.flash_fwd_fp32(*args, stream), "flash_fwd_fp32")
     elif plan.variant == "wg":
-        if with_stats:
-            stats = torch.empty((2, b, h, -(-sq // STATS_ROWS) * STATS_ROWS),
-                                dtype=torch.float32, device=device)
-        _build.check(lib.flash_fwd_bf16_wg(*args, plan.block_rows,
-                                           None if stats is None else stats.data_ptr(), stream),
+        _build.check(lib.flash_fwd_bf16_wg(*args, plan.block_rows, stats_ptr, stream),
                      "flash_fwd_bf16_wg")
     elif plan.nsplit == 1:
-        _build.check(lib.flash_fwd_bf16_wide(*args, 1, None, None, None, stream),
+        _build.check(lib.flash_fwd_bf16_wide(*args, 1, None, None, None, stats_ptr, stream),
                      "flash_fwd_bf16_wide")
     else:
         o_part = torch.empty((plan.nsplit, b, h, sq, d), dtype=torch.float32, device=device)
         m_part = torch.empty((plan.nsplit, b, h, sq), dtype=torch.float32, device=device)
         l_part = torch.empty_like(m_part)
         _build.check(lib.flash_fwd_bf16_wide(*args, plan.nsplit, o_part.data_ptr(),
-                                             m_part.data_ptr(), l_part.data_ptr(), stream),
+                                             m_part.data_ptr(), l_part.data_ptr(), None, stream),
                      "flash_fwd_bf16_wide")
         _build.count(key)
-        out = flash_combine(o_part, m_part, l_part, dtype)
-        return (out, None) if with_stats else out
+        out = flash_combine(o_part, m_part, l_part, dtype, stats)
+        return (out, stats) if with_stats else out
     _build.count(key)
     return (out, stats) if with_stats else out
 
@@ -542,14 +589,14 @@ def _tma_ready(t) -> bool:
 def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
               need_dq: bool = True, need_dkdv: bool = True, stats=None):
     """The backward kernels on bf16 CUDA tensors → (dq, dk, dv), None for
-    those not asked for; the same function as `flash_bwd_chunked`. At the
-    UNet's head dims: `flash_bwd_delta`, then the wgmma kernels
-    `flash_bwd_dkdv_wg` and `flash_bwd_dq_wg` as asked, which read the rows'
-    softmax statistics from `stats` ([2, B, H, Sq rounded up to STATS_ROWS]
-    fp32, as `_flash_cuda(..., with_stats=True)` gives them); without them a
-    forward launch (counted as FLASH_BWD_STATS) writes them first. At D 512:
-    `flash_bwd_prep` (statistics and delta), then the wide dk/dv and dq
-    kernel."""
+    those not asked for; the same function as `flash_bwd_chunked`.
+    `flash_bwd_delta`, then the dk/dv and dq kernels as asked (the wgmma
+    kernels of `csrc/flash_attn_bwd_wg.cu` at the UNet's head dims, the
+    cluster kernels of `csrc/flash_attn_bwd.cu` at D 512, with the geometry
+    `flash_bwd_plan` picks), which read the rows' softmax statistics from
+    `stats` ([2, B, H, Sq rounded up to STATS_ROWS] fp32, as
+    `_flash_cuda(..., with_stats=True)` gives them); without them a forward
+    launch (counted as FLASH_BWD_STATS) writes them first."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     why = _bwd_refusal(q) if q.device.type == "cuda" else f"no kernel for device {q.device}"
@@ -572,12 +619,11 @@ def flash_bwd(q, k, v, kv_mask, out, g, causal: bool, scale: float,
             raise ValueError(f"flash backward: kv_mask must be [B, Sk] = {(b, sk)} on {q.device}")
         mask = kv_mask.to(torch.float32).contiguous()
     plan = flash_bwd_plan(q.dtype, b, h, sq, sk, d, _build.sm_count(q.device.index))
-    if plan.variant == "wide":
-        return _flash_bwd_wide(q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv)
-    return _flash_bwd_wg(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv, stats)
+    return _flash_bwd_kernels(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv,
+                              stats)
 
 
-def _flash_bwd_wg(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv, stats):
+def _flash_bwd_kernels(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv, stats):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     dp = -(-d // 8) * 8
@@ -606,59 +652,35 @@ def _flash_bwd_wg(plan, q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     stream = torch.cuda.current_stream().cuda_stream
     lib = _build.load_library()
+    wg = plan.variant == "wg"
+    keys = ((FLASH_BWD_DELTA, FLASH_BWD_DKDV_WG, FLASH_BWD_DQ_WG) if wg else
+            (FLASH_BWD_DELTA_WIDE, FLASH_BWD_DKDV_WIDE, FLASH_BWD_DQ_WIDE))
     _build.check(lib.flash_bwd_delta(out.data_ptr(), g.data_ptr(), delta.data_ptr(),
                                      (ctypes.c_int64 * 6)(*out.stride()[:3], *g.stride()[:3]),
-                                     b, h, sq, dp, stream), FLASH_BWD_DELTA)
-    _build.count(FLASH_BWD_DELTA)
+                                     b, h, sq, dp, stream), keys[0])
+    _build.count(keys[0])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), ptr(mask), stats.data_ptr(),
             delta.data_ptr())
     shape = (b, h, sq, sk, dp, int(causal), float(scale))
     if need_dkdv:
-        _build.check(lib.flash_bwd_dkdv_wg(*args, ptr(dk), ptr(dv), strides, *shape,
-                                           plan.key_block, stream),
-                     FLASH_BWD_DKDV_WG)
-        _build.count(FLASH_BWD_DKDV_WG)
+        launch = lib.flash_bwd_dkdv_wg if wg else lib.flash_bwd_dkdv_cl
+        block = (plan.key_block,) if wg else ()
+        _build.check(launch(*args, ptr(dk), ptr(dv), strides, *shape, *block, stream), keys[1])
+        _build.count(keys[1])
     if need_dq:
-        _build.check(lib.flash_bwd_dq_wg(*args, ptr(dq), strides, *shape, plan.query_block,
-                                         stream), FLASH_BWD_DQ_WG)
-        _build.count(FLASH_BWD_DQ_WG)
+        launch = lib.flash_bwd_dq_wg if wg else lib.flash_bwd_dq_cl
+        block = (plan.query_block,) if wg else ()
+        _build.check(launch(*args, ptr(dq), strides, *shape, *block, stream), keys[2])
+        _build.count(keys[2])
     if dp != d:
         dq, dk, dv = (None if t is None else t[..., :d] for t in (dq, dk, dv))
     return dq, dk, dv
 
 
-def _flash_bwd_wide(q, k, v, mask, out, g, causal, scale, need_dq, need_dkdv):
-    b, h, sq, d = q.shape
-    sk = k.shape[2]
-    dq = _grad_buffer(b, h, sq, d, q.dtype, q.device) if need_dq else None
-    dk = _grad_buffer(b, h, sk, d, k.dtype, q.device) if need_dkdv else None
-    dv = _grad_buffer(b, h, sk, d, v.dtype, q.device) if need_dkdv else None
-    stats = torch.empty((3, b, h, sq), dtype=torch.float32, device=q.device)
-    none = (0, 0, 0)
-    strides = (ctypes.c_int64 * 24)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3], *g.stride()[:3],
-        *(dq.stride()[:3] if need_dq else none), *(dk.stride()[:3] if need_dkdv else none),
-        *(dv.stride()[:3] if need_dkdv else none))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), ptr(mask),
-            ptr(dq), ptr(dk), ptr(dv), stats.data_ptr(), strides, b, h, sq, sk, d, int(causal),
-            float(scale), torch.cuda.current_stream().cuda_stream)
-    lib = _build.load_library()
-    _build.check(lib.flash_bwd_prep(*args), FLASH_BWD_PREP_WIDE)
-    _build.count(FLASH_BWD_PREP_WIDE)
-    if need_dkdv:
-        _build.check(lib.flash_bwd_dkdv_wide(*args), FLASH_BWD_DKDV_WIDE)
-        _build.count(FLASH_BWD_DKDV_WIDE)
-    if need_dq:
-        _build.check(lib.flash_bwd_dq_wide(*args), FLASH_BWD_DQ_WIDE)
-        _build.count(FLASH_BWD_DQ_WIDE)
-    return dq, dk, dv
-
-
 def _flash_forward(q, k, v, kv_mask, causal: bool, scale: float, with_stats: bool = False):
     """out, or with `with_stats` (out, the rows' statistics or None): the
-    kernels on a CUDA tensor (statistics where the wgmma kernel ran), the
-    plain version on the CPU (no statistics)."""
+    kernels on a CUDA tensor (statistics where a bf16 kernel ran), the plain
+    version on the CPU (no statistics)."""
     if q.device.type == "cpu":
         out = scaled_dot_product_attention(q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
         return (out, None) if with_stats else out

@@ -50,12 +50,14 @@ plan's rule was set).
 times the flash backward of two trees in turns (parent, change, change,
 parent): `torch.autograd.grad` through each tree's own `flash_attention` at
 every attention shape of the training path (Stage 1 at batch 16, Stage 2 at
-12, the recon's face-masked self-attention at 4), as the device time of one
-call (torch.profiler, kernels only) and as 20 calls back to back (CUDA
-events), beside the library's backward; then one Stage-1 micro-step at 4
-teacher steps (device time under the profiler, host time) and seconds per
-optimizer step (a 6-micro-step fit through each tree's
-`chip_smoke.train_step_split` and `Trainer.fit`).
+12, the recon's face-masked self-attention at 4, the VAE decoder's D 512 at
+2 and 3), as the device time of one call (torch.profiler, kernels only; at
+D 512 also by kernel) and as 20 calls back to back (CUDA events), beside
+the library's backward; then one Stage-1 micro-step at 4 teacher steps
+(device time under the profiler, host time) and seconds per optimizer step
+(a 6-micro-step fit through each tree's `chip_smoke.train_step_split` and
+`Trainer.fit`). `--flash-bwd-kernels` runs the same turns without the
+Stage-1 micro-step and fit.
 
     python3 chip_compare.py --gn-bwd-plans
 
@@ -398,12 +400,12 @@ def flash_bwd_plans() -> None:
                 g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
                 g = g.reshape(b, sq, h, d).transpose(1, 2)
                 plan = A.flash_bwd_plan(q.dtype, b, h, sq, sk, d, sms)
-                want = A._flash_bwd_wg(plan, q, k, v, None, out, g, False, scale, True, True,
-                                       stats)
+                want = A._flash_bwd_kernels(plan, q, k, v, None, out, g, False, scale, True,
+                                            True, stats)
 
                 def run(p, dq, dkdv):
-                    return A._flash_bwd_wg(p, q, k, v, None, out, g, False, scale, dq, dkdv,
-                                           stats)
+                    return A._flash_bwd_kernels(p, q, k, v, None, out, g, False, scale, dq, dkdv,
+                                                stats)
 
                 delta = c.graph_ms(lambda: run(plan, False, False))
                 rows = []
@@ -424,9 +426,9 @@ def flash_bwd_plans() -> None:
                 torch.cuda.empty_cache()
 
 
-def flash_bwd_turn() -> None:
-    """One tree's flash backward and Stage-1 micro-step; runs with the tree
-    as working directory."""
+def flash_bwd_turn(fit: bool = True) -> None:
+    """One tree's flash backward and (`fit`) Stage-1 micro-step; runs with
+    the tree as working directory."""
     sys.path.insert(0, os.getcwd())
     import collections
     import dataclasses
@@ -446,16 +448,23 @@ def flash_bwd_turn() -> None:
     c.build_kernels()
     gen = torch.Generator(device="cuda").manual_seed(c.SEED)
 
-    def device_ms(fn):
+    def device_events(fn):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        return sum(e.device_time for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        by_name = collections.Counter()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] += e.device_time / 1e3
+        return by_name
 
-    for label, b, h, sq, sk, d in new.FLASH_BWD_CASES + new.FLASH_BWD_STAGE2 + new.FLASH_BWD_RECON:
+    def device_ms(fn):
+        return sum(device_events(fn).values())
+
+    for label, b, h, sq, sk, d in (new.FLASH_BWD_CASES + new.FLASH_BWD_STAGE2 + new.FLASH_BWD_RECON
+                                   + new.FLASH_BWD_VAE + new.FLASH_BWD_STAGE2_VAE):
         q, k, v = (t.detach().requires_grad_() for t in new.flash_inputs(gen, label, b, h, sq,
                                                                            sk, d))
         mask = new.face_mask(b, 64) if label.startswith("recon masked") else None
@@ -465,13 +474,19 @@ def flash_bwd_turn() -> None:
         g = g.reshape(b, sq, h, d).transpose(1, 2)
         kernel = lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True)  # noqa: E731
         library, backend = new.flash_library_backward(
-            q, k, v, g, ("FLASH_ATTENTION",) if mask is None else
+            q, k, v, g, ("FLASH_ATTENTION",) if mask is None and d <= 256 else
             ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"), mask)
-        print(f"flash bwd {label:32s}: device kernel {device_ms(kernel):.4f} ms library "
+        split = ""
+        if d > 256:  # the D 512 backward by kernel (the recompute of out is not in it)
+            split = " (" + ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in
+                                     sorted(device_events(kernel).items())) + ")"
+        print(f"flash bwd {label:32s}: device kernel {device_ms(kernel):.4f} ms{split} library "
               f"{device_ms(library):.4f} ms ({backend}) | 20 back to back kernel "
               f"{new.run_ms(kernel):.4f} ms library {new.run_ms(library):.4f} ms", flush=True)
         del q, k, v, out, g, kernel, library
         torch.cuda.empty_cache()
+    if not fit:
+        return
 
     repo = os.getcwd()
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
@@ -749,6 +764,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--flash-bwd-turn":
         flash_bwd_turn()
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--flash-bwd-kernels-turn":
+        flash_bwd_turn(fit=False)
+        return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--gn-bwd-plans":
         gn_bwd_plans()
         return 0
@@ -756,7 +774,7 @@ def main() -> int:
         gn_bwd_turn()
         return 0
     turn_flag = "--turn"
-    if sys.argv[1:2] in (["--flash-bwd"], ["--gn-bwd"]):
+    if sys.argv[1:2] in (["--flash-bwd"], ["--flash-bwd-kernels"], ["--gn-bwd"]):
         turn_flag = sys.argv[1] + "-turn"
         del sys.argv[1]
     if len(sys.argv) not in (2, 3):

@@ -24,14 +24,16 @@ Phases (any failure raises and the exit code is not 0):
      warps); `bn_stats` at mean 100 and deviation 1 (its mean bounded, its
      rstd reported against fp64); both captured in one CUDA graph and
      replayed twice to the same bits; an empty kernel's launch as the floor
-     of the small shapes; the wgmma forward's row statistics (its O with
-     and without them, bit for bit; m and 1/l against `flash_stats_tiled`);
+     of the small shapes; the forward's row statistics, the wgmma kernel's
+     and the wide kernel's and `flash_combine`'s (its O with and without
+     them, bit for bit; m and 1/l against `flash_stats_tiled`);
      the flash backward's kernels against `flash_bwd_chunked` (dq, dk, dv)
      and, at the UNet's head dims, against `flash_bwd_tiled`, at every
      attention shape of the student UNet at batch 16, the recon's
      face-masked self-attention at batch 4 and the VAE decoder's mid block
-     (B 2, H 1, S 4096, D 512: the wide kernels), masked and causal cases
-     at ragged lengths (D 512 among them), and the GroupNorm backward's
+     (B 2, H 1, S 4096, D 512: the cluster kernels, against
+     `flash_bwd_tiled` at the cluster's head-dim slices), masked and causal
+     cases at ragged lengths (D 512 among them), and the GroupNorm backward's
      (`gn_bwd_fused`, or `gn_bwd_reduce` + `gn_bwd_dx`, on the statistics the
      forward kept, themselves held to `gn_stats_plain`) against the
      closed-form VJP (dx, dγ, dβ) at every UNet GroupNorm shape at batch 16
@@ -2415,15 +2417,15 @@ def serve_trained(wrapper, faces, card: str) -> dict:
 # 4 steps = UNet batch 16)
 FLASH_BWD_CASES = [(f"{label} batch 16", 16, *dims) for label, _, *dims in FLASH_CASES[:-1]]
 # the VAE decoder's mid-block attention with gradient, at the finetuning
-# configuration's batch 2 (recon decodes): the wide D 512 kernels
+# configuration's batch 2 (recon decodes): the D 512 cluster kernels
 FLASH_BWD_VAE = [("vae mid self batch 2", 2, 1, 4096, 4096, 512)]
 # the recon path's masked self-attention at 64x64 (every self-attention of
 # the trained UNet carries the image's face mask) at batch 4
 FLASH_BWD_RECON = [("recon masked 64x64 self batch 4", 4, 8, 4096, 4096, 40)]
 # off the path: a key mask (batch 1 all masked) and the causal rule at
 # ragged lengths (Sq 200, Sk 177: rows 0..22 see only masked keys); D 36,
-# whose rows are off 16 bytes, takes the wide forward (no statistics) and
-# padded copies in the backward
+# whose rows are off 16 bytes, takes the wide forward (its keys split, the
+# statistics from `flash_combine`) and padded copies in the backward
 FLASH_BWD_MASKED = [("masked Sq200 Sk177 D40", 40, False),
                     ("masked Sq200 Sk177 D36", 36, False),
                     ("masked causal Sq200 Sk177 D80", 80, True),
@@ -2477,23 +2479,21 @@ def flash_library_backward(q, k, v, g, backends=("FLASH_ATTENTION",), kv_mask=No
     return None, None
 
 
-def bwd_kernel_bounds(b, h, sq, sk, d, wide: bool) -> dict:
-    """(least ms, what bounds it) of each backward launch's own work. The
-    wgmma kernels: delta reads out and g and writes delta; dkdv does four
+def bwd_kernel_bounds(b, h, sq, sk, d) -> dict:
+    """(least ms, what bounds it) of each backward launch's own work, at
+    every head dim: delta reads out and g and writes delta; dkdv does four
     products (S^T, dP^T, dV, dK), reads q, k, v, g and the rows' m, 1/l,
-    delta, writes dk, dv; dq three (S, dP, dQ), reads the same, writes dq.
-    At D 512 the prep kernel does one product (reads q, k, out, g)."""
+    delta, writes dk, dv; dq three (S, dP, dQ), reads the same, writes dq."""
     prod, nq, nk, rows = 2.0 * b * h * sq * sk * d, b * h * sq * d, b * h * sk * d, b * h * sq
-    first = ("prep", bound(2 * (3 * nq + nk), prod)) if wide else \
-        ("delta", bound(2 * 2 * nq + 4 * rows))
-    return {first[0]: first[1], "dkdv": bound(2 * (2 * nq + 4 * nk) + 12 * rows, 4 * prod),
+    return {"delta": bound(2 * 2 * nq + 4 * rows),
+            "dkdv": bound(2 * (2 * nq + 4 * nk) + 12 * rows, 4 * prod),
             "dq": bound(2 * (3 * nq + 2 * nk) + 12 * rows, 3 * prod)}
 
 
 def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
-    """The backward kernels against `flash_bwd_chunked` (dq, dk, dv) and, at
-    the UNet's head dims, against `flash_bwd_tiled` (their arithmetic in
-    plain PyTorch) at every path shape (`cases`: the student UNet's at batch
+    """The backward kernels against `flash_bwd_chunked` (dq, dk, dv) and
+    against `flash_bwd_tiled` (their arithmetic in plain PyTorch; at D 512 in
+    the plan's head-dim slices) at every path shape (`cases`: the student UNet's at batch
     16, the recon's face-masked self-attention at batch 4 and the VAE
     decoder's at batch 2 unless given), with the statistics the forward
     kept; two runs to the same bits, and a run without the statistics (a
@@ -2507,7 +2507,8 @@ def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         mask = face_mask(b, 64) if label.startswith("recon masked") else None
         scale = 1.0 / math.sqrt(d)
-        wide = -(-d // 16) == A.BWD_WIDE_KSTEPS
+        plan = A.flash_bwd_plan(q.dtype, b, h, sq, sk, d,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
         out, stats = A._flash_cuda(q, k, v, mask, False, scale, with_stats=True)
         # the gradient of out as the path gives it: [B, S, H·D] memory
         g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
@@ -2519,14 +2520,13 @@ def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
         errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         del ref, again
-        tiled_errs, same_without = {}, True
-        if not wide:
-            tiled = A.flash_bwd_tiled(q, k, v, mask, out, g, False, scale, stats)
-            tiled_errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, tiled)}
-            del tiled
-            without = A.flash_bwd(q, k, v, mask, out, g, False, scale)
-            same_without = all(torch.equal(x, y) for x, y in zip(got, without))
-            del without
+        tiled = A.flash_bwd_tiled(q, k, v, mask, out, g, False, scale, stats,
+                                  d_slices=plan.d_slices)
+        tiled_errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, tiled)}
+        del tiled
+        without = A.flash_bwd(q, k, v, mask, out, g, False, scale)
+        same_without = all(torch.equal(x, y) for x, y in zip(got, without))
+        del without
         torch.cuda.empty_cache()
         # the flash backend takes no mask and stops at head dim 256: there the
         # first backend that takes the call
@@ -2543,27 +2543,23 @@ def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
         # products of [Sq, Sk] by D: S = QKᵀ, dP = G Vᵀ, dV = Pᵀ G, dK = dSᵀ Q, dQ = dS K
         bound_ms, bound_by = bound(2 * (4 * q.numel() + 4 * k.numel()),
                                    5 * 2.0 * b * h * sq * sk * d)
-        first = "prep" if wide else "delta"
         res = dict(err=max(e for e, _ in errs.values()), mag=max(m for _, m in errs.values()),
                    tiled_err=max((e for e, _ in tiled_errs.values()), default=None),
                    same_bits=same, same_bits_without_stats=same_without, bound_ms=bound_ms,
                    bound_by=bound_by, library=backend,
                    bound_bytes=2 * (4 * q.numel() + 4 * k.numel()),
-                   bound_flops=5 * 2.0 * b * h * sq * sk * d, plan=dataclasses.asdict(
-                       A.flash_bwd_plan(q.dtype, b, h, sq, sk, d, torch.cuda.get_device_properties(
-                           0).multi_processor_count)),
-                   **{f"{first}_graph_ms": first_ms}, dkdv_graph_ms=no_dq - first_ms,
+                   bound_flops=5 * 2.0 * b * h * sq * sk * d, plan=dataclasses.asdict(plan),
+                   delta_graph_ms=first_ms, dkdv_graph_ms=no_dq - first_ms,
                    dq_graph_ms=t["graph_ms"] - no_dq,
-                   kernel_bounds=bwd_kernel_bounds(b, h, sq, sk, d, wide), **t)
+                   kernel_bounds=bwd_kernel_bounds(b, h, sq, sk, d), **t)
         lib = "refused" if t["library_ms"] is None else f"{backend} {t['library_ms']:.4f} ms"
         log(f"flash bwd {label:32s} B{b} H{h} Sq{sq} Sk{sk} D{d}: max_abs_err "
             + " ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
-            + f" (bound {BF16_TOL * res['mag']:.3e})"
-            + ("" if wide else " against tiled " + " ".join(
-                f"{n} {e:.3e}" for n, (e, _) in tiled_errs.items()))
+            + f" (bound {BF16_TOL * res['mag']:.3e}) against tiled "
+            + " ".join(f"{n} {e:.3e}" for n, (e, _) in tiled_errs.items())
             + f" same bits {same}, without stats {same_without} | plan {res['plan']} | single: "
             f"kernels {t['ms']:.4f} ms plain {t['plain_ms']:.4f} ms library {lib} | 20 as a "
-            f"CUDA graph (device alone): {t['graph_ms']:.4f} ms ({first} {first_ms:.4f}, dkdv "
+            f"CUDA graph (device alone): {t['graph_ms']:.4f} ms (delta {first_ms:.4f}, dkdv "
             f"{res['dkdv_graph_ms']:.4f}, dq {res['dq_graph_ms']:.4f}) | least {bound_ms:.4f} "
             f"ms by {bound_by}, reached {bound_ms / t['graph_ms']:.1%}")
         bad = [n for n, (e, m) in {**errs, **{f"tiled {n}": x for n, x in tiled_errs.items()}
@@ -2589,10 +2585,12 @@ def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         ref = A.flash_bwd_chunked(q, k, v, mask, out, g, causal, scale)
         errs = {n: max_err(x, r) for n, x, r in zip(("dq", "dk", "dv"), got, ref)}
-        if stats is not None:
-            tiled = A.flash_bwd_tiled(q, k, v, mask, out, g, causal, scale, stats)
-            errs.update({f"tiled {n}": max_err(x, r)
-                         for n, x, r in zip(("dq", "dk", "dv"), got, tiled)})
+        plan = A.flash_bwd_plan(q.dtype, 2, 2, 200, 177, d,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+        tiled = A.flash_bwd_tiled(q, k, v, mask, out, g, causal, scale, stats,
+                                  d_slices=plan.d_slices)
+        errs.update({f"tiled {n}": max_err(x, r)
+                     for n, x, r in zip(("dq", "dk", "dv"), got, tiled)})
         log(f"flash bwd {label}: max_abs_err "
             + " ".join(f"{n} {e:.3e} (bound {BF16_TOL * m:.3e})" for n, (e, m) in errs.items())
             + f" same bits {same}")
@@ -2603,17 +2601,21 @@ def check_flash_bwd(gen, cases=None, masked: bool = True) -> dict:
 
 
 def check_flash_stats(gen) -> dict:
-    """The wgmma forward with the rows' statistics: its O bit for bit what it
-    is without them, and m and 1/l against `flash_stats_tiled` (STATS_TOL of
+    """The forward kernels with the rows' statistics (the wgmma kernel's; the
+    wide kernel's at the VAE's D 512, where serving passes none; and
+    `flash_combine`'s where the wide kernel splits the keys: the ragged D 512
+    and D 36 cases): O bit for bit what it is without them, the same
+    launches, and m and 1/l against `flash_stats_tiled` (STATS_TOL of
     max(1, |plain|) elementwise; zeros past Sq), at every attention shape of
-    the training path at batch 16, the recon's face mask, and masked, causal
-    and ragged cases (batch 1 all masked: m = -1e30, 1/l = 1/Sk)."""
+    the training path at batch 16, the recon's face mask, the VAE decoder's
+    mid block at batch 2, and masked, causal and ragged cases (batch 1 all
+    masked: m = -1e30, 1/l = 1/Sk)."""
     from adaface_tpu_torch.ops import attention as A
 
     cases = [(label, b, h, sq, sk, d, None, False)
-             for label, b, h, sq, sk, d in FLASH_BWD_CASES + FLASH_BWD_RECON]
+             for label, b, h, sq, sk, d in FLASH_BWD_CASES + FLASH_BWD_RECON + FLASH_BWD_VAE]
     cases += [(label, 2, 2, 200, 177, d, "ragged", causal)
-              for label, d, causal in FLASH_BWD_MASKED if d <= 160 and d % 8 == 0]
+              for label, d, causal in FLASH_BWD_MASKED]
     out = {}
     for label, b, h, sq, sk, d, kind, causal in cases:
         q, k, v = flash_inputs(gen, label if kind is None else "self", b, h, sq, sk, d)
@@ -2625,17 +2627,20 @@ def check_flash_stats(gen) -> dict:
             mask[1] = 0.0
             mask[0, 150:] = 0.0
         scale = 1.0 / math.sqrt(d)
+        A._build.reset_launch_counts()
         plain_o = A._flash_cuda(q, k, v, mask, causal, scale)
+        launches = launch_counts()
+        A._build.reset_launch_counts()
         o, stats = A._flash_cuda(q, k, v, mask, causal, scale, with_stats=True)
         ref = A.flash_stats_tiled(q, k, v, mask, causal, scale)
         torch.cuda.synchronize()
-        equal = torch.equal(plain_o, o)
+        equal = torch.equal(plain_o, o) and launches == launch_counts()
         err = ((stats[..., :sq] - ref).abs() / ref.abs().clamp(min=1.0)).amax(dim=(1, 2, 3))
         tail = stats[..., sq:].abs().max().item() if stats.shape[-1] > sq else 0.0
         row = dict(o_equal=equal, m_err=err[0].item(), inv_l_err=err[1].item(), tail=tail)
         log(f"flash stats {label:32s} B{b} H{h} Sq{sq} Sk{sk} D{d}: O with stats equal to O "
-            f"without {equal}; m {row['m_err']:.3e}, 1/l {row['inv_l_err']:.3e} of max(1, |plain|) "
-            f"(bound {STATS_TOL:.0e}); past Sq {tail}")
+            f"without, in the same launches {launches}: {equal}; m {row['m_err']:.3e}, 1/l "
+            f"{row['inv_l_err']:.3e} of max(1, |plain|) (bound {STATS_TOL:.0e}); past Sq {tail}")
         if not equal or max(row["m_err"], row["inv_l_err"]) > STATS_TOL or tail != 0.0:
             raise AssertionError(f"flash stats {label}: {row}")
         out[label] = row
@@ -2792,7 +2797,7 @@ def backward_census(loss, want: collections.Counter) -> None:
     """Add to `want` the backward launches the autograd graph of `loss`
     holds: per flash node `flash_bwd_delta`, `flash_bwd_dkdv[wg]` where k or
     v needs a gradient and `flash_bwd_dq[wg]` where q does (at head dim 512
-    the prep kernel and the wide keys); per GroupNorm node one `gn_bwd_fused`
+    the `[d512]` keys); per GroupNorm node one `gn_bwd_fused`
     or one `gn_bwd_reduce` and one `gn_bwd_dx`, as the node's plan says, and
     the nodes on the VAE decoder's maps under GN_BWD_VAE. The nodes' head
     dims, map shapes and plans are read from attributes the Functions set, so
@@ -2811,10 +2816,10 @@ def backward_census(loss, want: collections.Counter) -> None:
         if name == "_FlashAttentionBackward":
             nq, nk, nv = node.needs_input_grad[:3]
             wide = -(-node.head_dim // 16) == A.BWD_WIDE_KSTEPS
-            prep, dkdv, dq = ((A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE)
-                              if wide else
-                              (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG))
-            want[prep] += 1
+            delta, dkdv, dq = ((A.FLASH_BWD_DELTA_WIDE, A.FLASH_BWD_DKDV_WIDE,
+                                A.FLASH_BWD_DQ_WIDE) if wide else
+                               (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG))
+            want[delta] += 1
             want[dkdv] += int(nk or nv)
             want[dq] += int(nq)
         elif name == "_GroupNormSiLUBackward":
@@ -3281,9 +3286,9 @@ def train_finetune(gen) -> dict:
     from adaface_tpu_torch.train.recon_multistep import calc_arcface_adv_grad
     from adaface_tpu_torch.train.train_step import make_train_step
 
-    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, A.FLASH_BWD_PREP_WIDE,
-                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, G.GN_BWD_FUSED, G.GN_BWD_REDUCE,
-                G.GN_BWD_DX)
+    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG,
+                A.FLASH_BWD_DELTA_WIDE, A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE,
+                G.GN_BWD_FUSED, G.GN_BWD_REDUCE, G.GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
         data = write_train_photos(os.path.join(tmp, "photos"))
@@ -3422,7 +3427,8 @@ def train_finetune(gen) -> dict:
             raise AssertionError(f"finetune: variants or detections {records}")
         decodes = 2 * FINETUNE_MICRO_STEPS  # two active denoising steps a micro-step
         if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
-                or want[A.FLASH_BWD_DKDV_WIDE] != decodes or want[A.FLASH_BWD_DQ_WIDE] != decodes \
+                or any(want[k] != decodes for k in (A.FLASH_BWD_DELTA_WIDE, A.FLASH_BWD_DKDV_WIDE,
+                                                    A.FLASH_BWD_DQ_WIDE)) \
                 or want[GN_BWD_VAE] != VAE_DECODE_GN * decodes \
                 or not all(want[k] for k in (G.GN_BWD_FUSED, G.GN_BWD_REDUCE, G.GN_BWD_DX)):
             raise AssertionError(f"finetune: backward launches {counts}, the graphs hold {want}")
@@ -3721,9 +3727,9 @@ def train_stage2(gen) -> dict:
     gn_bwd = check_gn_bwd(gen, GN_BWD_STAGE2)
     masked = masked_flash_breakdown(gen)
     torch.cuda.empty_cache()
-    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG, A.FLASH_BWD_PREP_WIDE,
-                A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE, G.GN_BWD_FUSED, G.GN_BWD_REDUCE,
-                G.GN_BWD_DX)
+    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG,
+                A.FLASH_BWD_DELTA_WIDE, A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE,
+                G.GN_BWD_FUSED, G.GN_BWD_REDUCE, G.GN_BWD_DX)
     repo = str(pathlib.Path(__file__).resolve().parent)
     with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
         data = write_train_photos(os.path.join(tmp, "photos"))
@@ -4320,9 +4326,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
     that of `F.group_norm` + `F.silu`), beside the whole backward's own
     times and bound (`function_*`), and every path shape under `shapes`."""
-    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DELTA, FLASH_BWD_DKDV_WG,
-                                                 FLASH_BWD_DKDV_WIDE, FLASH_BWD_DQ_WG,
-                                                 FLASH_BWD_DQ_WIDE, FLASH_BWD_PREP_WIDE,
+    from adaface_tpu_torch.ops.attention import (FLASH_BWD_DELTA, FLASH_BWD_DELTA_WIDE,
+                                                 FLASH_BWD_DKDV_WG, FLASH_BWD_DKDV_WIDE,
+                                                 FLASH_BWD_DQ_WG, FLASH_BWD_DQ_WIDE,
                                                  FLASH_COMBINE, FLASH_STD, FLASH_T, FLASH_WIDE)
     from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE, GN_FUSED,
                                                 GN_NORM, GN_STATS)
@@ -4413,6 +4419,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                      function_graph_ms=r["graph_ms"], function_bound_ms=r["bound_ms"],
                      function_bound_by=r["bound_by"], library=r["library"], shapes=shapes)
 
+    # the D 512 delta is flash_attn_bwd_wg.cu's kernel at 8 threads a row
     wide_bwd = dict(json_shape=FLASH_BWD_VAE[0][0], labels=vae_bwd, err=fb_wide_err,
                     source="flash_attn_bwd.cu")
 
@@ -4472,7 +4479,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         flash_bwd_entry(FLASH_BWD_DELTA, "delta"),
         flash_bwd_entry(FLASH_BWD_DKDV_WG, "dkdv"),
         flash_bwd_entry(FLASH_BWD_DQ_WG, "dq"),
-        flash_bwd_entry(FLASH_BWD_PREP_WIDE, "prep", **wide_bwd),
+        flash_bwd_entry(FLASH_BWD_DELTA_WIDE, "delta", **{**wide_bwd,
+                                                          "source": "flash_attn_bwd_wg.cu"}),
         flash_bwd_entry(FLASH_BWD_DKDV_WIDE, "dkdv", **wide_bwd),
         flash_bwd_entry(FLASH_BWD_DQ_WIDE, "dq", **wide_bwd),
         gn_bwd_entry(GN_BWD_FUSED, "fused", JSON_GN_BWD),
@@ -4523,9 +4531,9 @@ def main() -> int:
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
               **{k: stage1["counts"][k] for k in (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG,
                                                  A.FLASH_BWD_DQ_WG, GN_BWD_FUSED)},
-              **{k: finetune["counts"][k] for k in (A.FLASH_BWD_PREP_WIDE, A.FLASH_BWD_DKDV_WIDE,
-                                                   A.FLASH_BWD_DQ_WIDE, GN_BWD_REDUCE,
-                                                   GN_BWD_DX)}}
+              **{k: finetune["counts"][k] for k in (A.FLASH_BWD_DELTA_WIDE,
+                                                   A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE,
+                                                   GN_BWD_REDUCE, GN_BWD_DX)}}
     paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],

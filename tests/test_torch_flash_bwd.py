@@ -174,8 +174,9 @@ def test_flash_bwd_plan_at_the_path_shapes(b):
     for sq, sk, d in PATH_SHAPES:
         plan = tattn.flash_bwd_plan(torch.bfloat16, b, 8, sq, sk, d, 132)
         assert plan == tattn.FlashBwdPlan("wg", ROWS[b, sk], ROWS[b, sq]), (b, sq, sk, d)
-    # the VAE decoder's mid-block attention keeps the wide kernels
-    assert tattn.flash_bwd_plan(torch.bfloat16, b, 1, 4096, 4096, 512, 132).variant == "wide"
+        assert plan.d_slices == 1
+    # the VAE decoder's mid-block attention takes the cluster kernels
+    assert tattn.flash_bwd_plan(torch.bfloat16, b, 1, 4096, 4096, 512, 132).variant == "cluster"
     with pytest.raises(ValueError, match="no backward kernel"):
         tattn.flash_bwd_plan(torch.float32, b, 8, 256, 256, 40, 132)
     with pytest.raises(ValueError, match="no backward kernel"):
