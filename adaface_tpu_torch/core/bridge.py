@@ -13,7 +13,11 @@ bridge is one walk over the tree with these leaf rules:
 
 Where the module keeps several projections of one input as one weight
 (`attn1.qkv`, `attn2.kv` of the UNet), `load` stacks the tree's separate
-`q`, `k`, `v` leaves into it.
+`q`, `k`, `v` leaves into it. A CLIP tower's layers are built at the K/V
+widths the tree holds (MKV attention, `models.clip.fit_kv_widths_`) before
+they load. The GMA flow network's tree (`models.gma.convert_gma_state_dict`,
+or `init_gma_params`') loads into `models.gma.GMA` by the same rules: its
+instance norms hold nothing, its batch norms their statistics.
 
 The UNet's adapters (`attn_lora`, `ffn_lora`) go through `lora_state_dict`
 and back through `lora_tree`: a dense `a` [in, r] / `b` [r, out] becomes
@@ -91,8 +95,12 @@ def fuse_projections(sd: dict, ref: dict) -> dict:
 def load(module: nn.Module, tree: Any) -> nn.Module:
     """Load a JAX pytree into `module` (strict: every key, every shape);
     returns it frozen and in eval mode, as `core.params.build` does."""
+    from adaface_tpu_torch.models.clip import fit_kv_widths_
+
+    sd = state_dict(tree)
+    fit_kv_widths_(module, sd)
     ref = module.state_dict()
-    sd = fuse_projections(state_dict(tree), ref)
+    sd = fuse_projections(sd, ref)
     module.load_state_dict({k: v.to(ref[k].dtype) if k in ref else v
                             for k, v in sd.items()}, strict=True)
     return module.requires_grad_(False).eval()

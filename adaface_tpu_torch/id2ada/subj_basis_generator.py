@@ -20,8 +20,11 @@ cross-attend over them (the prompt translator), scaled by output_dim^-0.5.
 
 In training the layer weights' gradient is scaled by
 `hidden_weights_grad_scale` (5, as in the JAX package); at inference the
-scaler is the identity. The MKV extension of prompt2token_proj waits for
-the MKV slice.
+scaler is the identity. prompt2token_proj's attention may be MKV-extended
+(`extend_prompt2token_proj_attention`, `squeeze_prompt2token_proj_attention`,
+`:336-360`): the multiplier lives in its K/V widths, and
+`load_sbg_state_dict` rebuilds the tower at a state dict's widths before
+loading it, as the JAX package follows the shapes of what it loads.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ from torch import nn
 from adaface_tpu_torch.core.params import init_fan_in_, normal_
 from adaface_tpu_torch.id2ada.layers import CrossAttention, ExpandEmbs
 from adaface_tpu_torch.models.clip import (CLIP_L_TEXT, CLIPTextConfig, CLIPTextModel,
-                                           init_text_weights_)
+                                           extend_mkv, fit_kv_widths_, init_text_weights_,
+                                           squeeze_mkv)
 from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
-from adaface_tpu_torch.utils.tensor import gen_gradient_scaler
+from adaface_tpu_torch.utils.tensor import Draws, gen_gradient_scaler
 
 EMB_TYPES = ("core", "full", "full_pad", "full_half_pad")
 
@@ -242,3 +246,42 @@ def init_sbg_weights_(sbg: SubjBasisGenerator, gen: torch.Generator) -> None:
         for p in (lw.b1, lw.b2, lw.ln.bias):
             nn.init.zeros_(p)
         nn.init.ones_(lw.ln.weight)
+
+
+# -- weight surgery ---------------------------------------------------------
+
+# the prompt2token_proj tables the port derives rather than loads from a
+# checkpoint (the JAX package's frozen buffers)
+DERIVED_SBG_KEYS = ("clip.token_embedding", "clip.position_embedding")
+
+
+def extend_prompt2token_proj_attention(sbg_or_sd, multipliers: list[int],
+                                       draws: Draws | None = None, perturb_std: float = 0.1):
+    """MKV-extend prompt2token_proj (`extend_prompt2token_proj_attention`,
+    `:336-350`): `models.clip.extend_mkv` on its layers, in place on a
+    SubjBasisGenerator or into a new state dict."""
+    target = sbg_or_sd.clip if isinstance(sbg_or_sd, nn.Module) else sbg_or_sd
+    out = extend_mkv(target, multipliers, draws, perturb_std,
+                     prefix="" if isinstance(sbg_or_sd, nn.Module) else "clip.")
+    return sbg_or_sd if isinstance(sbg_or_sd, nn.Module) else out
+
+
+def squeeze_prompt2token_proj_attention(sbg_or_sd, divisors: list[int]):
+    """The multiplier copies of prompt2token_proj averaged back down
+    (`squeeze_prompt2token_proj_attention`, `:353-360`)."""
+    target = sbg_or_sd.clip if isinstance(sbg_or_sd, nn.Module) else sbg_or_sd
+    out = squeeze_mkv(target, divisors,
+                      prefix="" if isinstance(sbg_or_sd, nn.Module) else "clip.")
+    return sbg_or_sd if isinstance(sbg_or_sd, nn.Module) else out
+
+
+def load_sbg_state_dict(sbg: SubjBasisGenerator, sd: dict, source: str = "") -> None:
+    """A SubjBasisGenerator's state dict (as checkpoints hold it: without the
+    derived prompt2token_proj tables) into `sbg`, prompt2token_proj rebuilt
+    first at the K/V widths `sd` holds (an MKV checkpoint). Raises on any
+    other mismatch."""
+    fit_kv_widths_(sbg, sd)
+    missing, unexpected = sbg.load_state_dict(sd, strict=False)
+    if unexpected or set(missing) - set(DERIVED_SBG_KEYS):
+        raise ValueError(f"{source}: the state dict does not match the SubjBasisGenerator "
+                         f"(missing {missing}, unexpected {unexpected})")

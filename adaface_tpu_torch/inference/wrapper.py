@@ -10,7 +10,9 @@ those rows, split by encoder (`:133-144`), or carried by a request of the
 continuous batcher (`make_batcher`, `make_request`, `:176-201`), prompts get
 the placeholder string appended (`:146-152`), and `forward` runs the
 pipeline with the chosen scheduler (`:233-299`), for "img2img" from the
-noised latents of an initial image (`:301-313`). `load_unet_lora_weights`
+noised latents of an initial image (`:301-313`). `load_adaface_ckpt` reads
+a trained checkpoint's SubjBasisGenerators (MKV-extended ones too);
+`load_unet_lora_weights`
 (`:203-221`) reads the UNet's trained DoRA adapters from a checkpoint of the
 port's trainer; the pipeline and the batcher run with them.
 
@@ -140,6 +142,14 @@ class AdaFaceWrapper:
         gs = kw.pop("guidance_scale", self.guidance_scale)
         return Request(prompt=self.update_prompt(prompt), negative_prompt=negative_prompt,
                        ada_embs=ada_embs, guidance_scale=gs, **kw)
+
+    def load_adaface_ckpt(self, ckpt_dir: str) -> None:
+        """The trained SubjBasisGenerator(s) of a checkpoint the port's
+        trainer wrote into the encoder, at the prompt2token_proj widths the
+        checkpoint holds (an MKV-extended one included)."""
+        from adaface_tpu_torch.train.checkpoint import load_subj_basis_generators
+
+        load_subj_basis_generators(self.id2ada_prompt_encoder, ckpt_dir)
 
     def load_unet_lora_weights(self, ckpt_dir: str, ffn_adapter: str = "comp_distill"):
         """The UNet's trained attention and FFN DoRA adapters from a

@@ -8,7 +8,15 @@ position-embedding extension; `vision_encode` with the fg/bg image mask of
 towers ran through XLA and never through the flash kernel. The modules'
 parameter names mirror the JAX pytree (`layers.3.attn.q` is
 `p["layers"][3]["attn"]["q"]`), which is what `core/bridge.py` relies on.
-The MKV extension of the attention waits for the training slices.
+
+MKV attention (`_mkv_attention`, `clip.py:218-266`): a layer's K and V may
+be `mult`·D wide, the multiplier implicit in their weights' shapes; the
+copies fold into the key axis token-interleaved, and the causal and additive
+biases are repeated per copy (`repeat_interleave`, as `jnp.repeat`: key j
+attends like token j // mult). `extend_mkv`, `squeeze_mkv` and
+`layer_multipliers` (`clip.py:467-535`) work on a module or its state dict;
+`fit_kv_widths_` rebuilds a module's K and V at a state dict's widths before
+it is loaded.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from torch import nn
 from adaface_tpu_torch.core.device import fp32_convolutions
 from adaface_tpu_torch.core.params import normal_
 from adaface_tpu_torch.ops.resize import resize_nearest
+from adaface_tpu_torch.utils.tensor import Draws, perturb_tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,21 +95,38 @@ class EncoderLayer(nn.Module):
         self.num_heads = cfg.num_heads
         self.act = _ACTS[cfg.hidden_act]
 
+    @property
+    def kv_mult(self) -> int:
+        return self.attn["k"].out_features // self.attn["q"].out_features
+
+    def set_kv_mult(self, mult: int) -> None:
+        """K and V rebuilt mult·D wide (uninitialised) on their device, in
+        their dtype, trainable as they were."""
+        d = self.attn["q"].out_features
+        for n in ("k", "v"):
+            old = self.attn[n]
+            new = nn.Linear(d, d * mult, device=old.weight.device, dtype=old.weight.dtype)
+            new.requires_grad_(old.weight.requires_grad)
+            self.attn[n] = new
+
     def _attention(self, x, attn_bias, causal: bool):
-        """Self-attention, fp32 softmax (`_mkv_attention`, mult 1): a causal
-        mask and `attn_bias` ([B, 1, S or 1, S], added as it is) on the
-        logits."""
+        """Self-attention, fp32 softmax (`_mkv_attention`): K and V's `mult`
+        copies token-interleaved ([B, S, mult·D] → [B, H, S·mult, hd]); a
+        causal mask and `attn_bias` ([B, 1, S or 1, S]) on the logits, each
+        repeated `mult` times per key."""
         b, s, d = x.shape
         hd = d // self.num_heads
-        split = lambda t: t.reshape(b, s, self.num_heads, hd).transpose(1, 2)
-        q, k, v = (split(self.attn[n](x)) for n in ("q", "k", "v"))
+        mult = self.kv_mult
+        split = lambda t, n: t.reshape(b, n, self.num_heads, hd).transpose(1, 2)  # noqa: E731
+        q = split(self.attn["q"](x), s)
+        k, v = (split(self.attn[n](x), s * mult) for n in ("k", "v"))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
         if causal:
             rows = torch.arange(s, device=x.device)[:, None]
             cols = torch.arange(s, device=x.device)[None, :]
-            logits = logits + torch.where(cols <= rows, 0.0, -1e9)
+            logits = logits + torch.where(cols <= rows, 0.0, -1e9).repeat_interleave(mult, -1)
         if attn_bias is not None:
-            logits = logits + attn_bias.float()
+            logits = logits + attn_bias.float().repeat_interleave(mult, -1)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs.float(), v.float()).to(x.dtype)
         return self.attn["o"](out.transpose(1, 2).reshape(b, s, d))
@@ -249,3 +275,88 @@ def init_vision_weights_(model: CLIPVisionModel, gen: torch.Generator) -> None:
     normal_(model.class_embedding, 0.02, gen)
     normal_(model.patch_embedding, 0.02, gen)
     normal_(model.position_embedding, 0.01, gen)
+
+
+# ---------------------------------------------------------------------------
+# MKV weight surgery (`clip.py:467-535`)
+# ---------------------------------------------------------------------------
+
+
+def _layer_count(sd: dict, prefix: str) -> int:
+    n = 0
+    while f"{prefix}layers.{n}.attn.k.weight" in sd:
+        n += 1
+    return n
+
+
+def layer_multipliers(model_or_sd, prefix: str = "") -> list[int]:
+    """Each layer's K/V multiplier, read from the widths: K's rows over Q's."""
+    sd = model_or_sd.state_dict() if isinstance(model_or_sd, nn.Module) else model_or_sd
+    return [sd[f"{prefix}layers.{i}.attn.k.weight"].shape[0]
+            // sd[f"{prefix}layers.{i}.attn.q.weight"].shape[0]
+            for i in range(_layer_count(sd, prefix))]
+
+
+def fit_kv_widths_(module: nn.Module, sd: dict) -> nn.Module:
+    """Every `EncoderLayer` of `module` rebuilt with K and V at the widths
+    `sd` (a state dict of `module`) holds, so that it loads."""
+    for name, m in module.named_modules():
+        if isinstance(m, EncoderLayer):
+            key = f"{name}.attn.k.weight" if name else "attn.k.weight"
+            if key in sd and sd[key].shape[0] != m.attn["k"].out_features:
+                m.set_kv_mult(sd[key].shape[0] // m.attn["q"].out_features)
+    return module
+
+
+def _in_place(model: nn.Module, fn) -> nn.Module:
+    sd = fn(model.state_dict())
+    fit_kv_widths_(model, sd)
+    with torch.no_grad():
+        model.load_state_dict(sd, strict=True)
+    return model
+
+
+def extend_mkv(model_or_sd, multipliers: list[int], draws: Draws | None = None,
+               perturb_std: float = 0.1, prefix: str = ""):
+    """Each layer's K/V extended by its multiplier (`extend_mkv`,
+    `CLIPAttentionMKV.extend_weights`): the weight's rows repeated, the
+    added copies perturbed by noise of `perturb_std` times their own std,
+    the biases repeated unperturbed. Draws, in order: per layer whose
+    multiplier is not 1, a normal of K's added rows, then V's (JAX's draws
+    are the transposes: its weights are [in, out]). A module is extended in
+    place and returned; a state dict, as a new one."""
+    if isinstance(model_or_sd, nn.Module):
+        return _in_place(model_or_sd, lambda sd: extend_mkv(sd, multipliers, draws,
+                                                            perturb_std, prefix))
+    sd = dict(model_or_sd)
+    for i in range(_layer_count(sd, prefix)):
+        mult = multipliers[i] if i < len(multipliers) else 1
+        if mult == 1:
+            continue
+        for name in ("k", "v"):
+            key = f"{prefix}layers.{i}.attn.{name}"
+            w, b = sd[f"{key}.weight"], sd[f"{key}.bias"]
+            extra = w.repeat(mult - 1, 1)
+            noise = draws.normal(extra.shape, w.device)
+            sd[f"{key}.weight"] = torch.cat([w, perturb_tensor(extra, perturb_std, noise)])
+            sd[f"{key}.bias"] = b.repeat(mult)
+    return sd
+
+
+def squeeze_mkv(model_or_sd, divisors: list[int], prefix: str = ""):
+    """The multiplier copies averaged back down (`squeeze_mkv`,
+    `CLIPAttentionMKV.squeeze_weights`): each layer's K/V rows and biases as
+    `divisor` blocks, averaged. A module in place; a state dict, as a new one."""
+    if isinstance(model_or_sd, nn.Module):
+        return _in_place(model_or_sd, lambda sd: squeeze_mkv(sd, divisors, prefix))
+    sd = dict(model_or_sd)
+    for i in range(_layer_count(sd, prefix)):
+        div = divisors[i] if i < len(divisors) else 1
+        if div == 1:
+            continue
+        for name in ("k", "v"):
+            key = f"{prefix}layers.{i}.attn.{name}"
+            w, b = sd[f"{key}.weight"], sd[f"{key}.bias"]
+            sd[f"{key}.weight"] = w.reshape(div, -1, w.shape[1]).mean(dim=0)
+            sd[f"{key}.bias"] = b.reshape(div, -1).mean(dim=0)
+    return sd

@@ -9,7 +9,8 @@ go from torch's [out, in] to [in, out]. The trees are the JAX package's
 configs are the port's `CLIPTextConfig` / `CLIPVisionConfig`.
 
 MKV-extended k/v projections (an out-dimension a multiple of the hidden
-size) convert as they are; the MKV attention itself is not ported yet.
+size) convert as they are; `core.bridge.load` builds the tower's layers at
+those widths (`models.clip`'s MKV attention).
 """
 
 from __future__ import annotations

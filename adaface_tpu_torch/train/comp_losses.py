@@ -11,9 +11,12 @@ up block's cross-attentions, labels 22-24).
   subject-single face crop and from the class-comp background, by
   q-similarity attention and by the same location, the margin-weighted
   per-token minimum, with the loss scale capped and discarded by tensor
-  gates. The optical-flow candidate (`flow_fn`, GMA) waits in ROADMAP §1;
-  without it the flow candidate is the same location, the reference default
-  (`use_face_flow_for_sc_matching_loss=False`).
+  gates. With `flow_fn` (GMA, `models/gma.make_latent_flow_fn`) the flow
+  candidate warps the source features by the target→source flow of the
+  demeaned q features, computed once a call without gradient, and the
+  flow-warped identity (`flow2attn`) takes part in the sparse-attention
+  pick; without it the flow candidate is the same location, the reference
+  default (`use_face_flow_for_sc_matching_loss=False`).
 - `calc_comp_subj_bg_preserve_loss`: the layer-weighted wrapper over layers
   22-24.
 - `calc_sc_rep_attn_distill_loss`: subject-comp → subject-comp-rep
@@ -28,10 +31,7 @@ from typing import Callable
 
 import torch
 
-FLOW_NOT_PORTED = ("the optical-flow candidate of the elastic matching (GMA, `use_face_flow`) "
-                   "is not ported (ROADMAP §1): flow_fn must be None")
-
-
+from adaface_tpu_torch.models.gma import backward_warp_by_flow, flow2attn
 def _crop_resize_feat(feat_4d: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] + latent boxes [B, 4] (x0, y0, x1, y1) → the crops resized
     back to [B, C, H, W]: the integer-box slice + `F.interpolate(bilinear,
@@ -80,9 +80,8 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
                                recon_max_scale_of_threses: float = 5.0) -> dict:
     """ca_q (the q2 capture), ca_attn_out, ca_outfeat [4B, C, N]; latent boxes
     [B, 4] → {sc_recon_{ssfg,mc}_{attn_agg,flow,sameloc,min},
-    sc_to_{ssfg,mc}_sparse_attns_distill, discarded_loss_ratio}."""
-    if flow_fn is not None:
-        raise NotImplementedError(FLOW_NOT_PORTED)
+    sc_to_{ssfg,mc}_sparse_attns_distill, discarded_loss_ratio}. flow_fn(target_q,
+    src_q, h, w, small_motion_thres) → the target→src flow [B, 2, h, w]."""
     threses = recon_scaled_loss_threses or {"mc": 0.4, "ssfg": 0.4}
     b4, c, n = ca_q.shape
     b = b4 // 4
@@ -120,6 +119,15 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
     sc_attns = {"ssfg": torch.softmax(torch.einsum("bcn,bcm->bnm", scfg_q, ssfg_q), dim=1),
                 "mc": torch.softmax(torch.einsum("bcn,bcm->bnm", scbg_q, mc_q), dim=1)}
     eye = torch.eye(n, device=dev).expand(b, n, n)
+    # the flows, once a call from the demeaned q features, reused over
+    # outfeat and attn_out (`ldm/util.py:2352-2372`); no gradient, as JAX's
+    # stop_gradient
+    flows = flow_attns = None
+    if flow_fn is not None:
+        with torch.no_grad():
+            flows = {"ssfg": flow_fn(ssfg_q, scfg_q, h, w, 0.0).float(),
+                     "mc": flow_fn(mc_q, scbg_q, h, w, small_motion_ignore_thres).float()}
+            flow_attns = {k: flow2attn(v, h, w) for k, v in flows.items()}
     margins = {"ssfg": (10.0, 1.02), "mc": (10.0, 1.1)}  # `:2455-2463`
     losses = {f"sc_to_{name}_sparse_attns_distill": torch.zeros((), device=dev)
               for name in ("ssfg", "mc")}
@@ -138,8 +146,15 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
         for name in ("ssfg", "mc"):
             target = targets[name].transpose(1, 2)  # [B, N, C]
             sameloc = srcs[name].transpose(1, 2)
+            if flows is not None:
+                # `reconstruct_feat_with_matching_flow`: the source warped onto
+                # the target's layout by the target→source flow
+                flow_recon = backward_warp_by_flow(to4d(srcs[name]), flows[name]).reshape(
+                    b, c, n).transpose(1, 2)
+            else:
+                flow_recon = sameloc  # the margins keep this candidate out
             cands = {"attn_agg": _recon_with_attn(srcs[name], sc_attns[name]),
-                     "flow": sameloc, "sameloc": sameloc}
+                     "flow": flow_recon, "sameloc": sameloc}
             token_losses = {k: ((v - target) ** 2).mean(-1) for k, v in cands.items()}
             m_attn, m_flow = margins[name]
             stacked = torch.stack([token_losses["attn_agg"] * m_attn,
@@ -149,13 +164,19 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
             # weighted by its (detached) advantage; both are the identity
             # without a flow
             adv = (stacked[0:1] - stacked[1:]).detach()  # [2, B, N]
+            if flow_attns is not None:
+                # per target token the flow-warped identity or the same
+                # location, by the larger advantage (`ldm/util.py:2484-2491`)
+                sparse = torch.where((adv[0] >= adv[1])[:, None, :], flow_attns[name], eye)
+            else:
+                sparse = eye
             adv_best = adv.max(dim=0).values
             adv_n = (adv_best - adv_best.mean(-1, keepdim=True)) / (
                 adv_best.std(-1, unbiased=False, keepdim=True) + 1e-5)
             weights = torch.sigmoid(5.0 * adv_n)[:, None, :]  # [B, 1, N]
-            ens = eye + sc_attns[name]
+            ens = sparse + sc_attns[name]
             w_sc = torch.einsum("bon,bmn->bom", weights, ens).detach().transpose(1, 2)
-            loss_sparse = ((eye - sc_attns[name]).abs() * w_sc).mean()
+            loss_sparse = ((sparse - sc_attns[name]).abs() * w_sc).mean()
             # the loss scale's cap and the discard gate (`:2706-2737`)
             thres = threses[name]
             raw = loss_min.detach()

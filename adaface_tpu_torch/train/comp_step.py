@@ -24,7 +24,8 @@ branch of `p_losses`, `ddpm.py:1923-2092` and `:3190-3600`), at
 4. `comp_distill_loss_fn`: the identity family on the decoded recons
    (`comp_face_align.comp_identity_losses`, with ArcFace, the VAE decoder
    and a host detector), else its fallback on the batch's boxes; then per
-   step the elastic-matching preservation, the rep distillation and the
+   step the elastic-matching preservation (with `use_face_flow`, its flow
+   candidate from the GMA in `frozen["flow"]`), the rep distillation and the
    cross-step attention monitor; the attention-norm monitor and the prompt
    delta loss.
 
@@ -45,13 +46,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from adaface_tpu_torch.models.gma import make_latent_flow_fn
 from adaface_tpu_torch.models.unet import AttnRuntime
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.text.embedding_manager import (apply_merge_map,
                                                       distribute_embedding_to_M_tokens,
                                                       splice_ada_embeddings)
 from adaface_tpu_torch.train.comp_face_align import comp_identity_losses
-from adaface_tpu_torch.train.comp_losses import (FLOW_NOT_PORTED, calc_comp_subj_bg_preserve_loss,
+from adaface_tpu_torch.train.comp_losses import (calc_comp_subj_bg_preserve_loss,
                                                  calc_dyn_loss_scale,
                                                  calc_sc_rep_attn_distill_loss,
                                                  calc_subj_attn_cross_t_diff_loss)
@@ -90,7 +92,9 @@ class CompDistillConfig:
     mb_suppress_weight: float = 0.1
     prompt_emb_delta_weight: float = 1e-4
     p_init_fg_from_training_image: float = 0.0
-    use_face_flow: bool = False  # GMA: not ported (ROADMAP §1)
+    # the GMA latent flow candidate of the elastic matching; frozen["flow"]
+    # holds the `GMA` module (`--use_face_flow_for_sc_matching_loss`)
+    use_face_flow: bool = False
     small_motion_ignore_thres: float = 0.3
     compute_dtype: str = "bfloat16"  # the UNet's and the decoder's; tests set float32
     arcface_align_loss_weight: float = 0.01
@@ -310,8 +314,6 @@ def comp_distill_loss_fn(params: Params, frozen: Params, batch: Params,
     comp_sc_face_detected_mean / _n; for the fallback ss_face_bboxes,
     sc_face_bboxes [B, 4] (latent) and sc_fg_mask_percent; optional fg_mask,
     comp_x_base (the fg-seeded start), comp_rand, redenoise_rand."""
-    if comp_cfg.use_face_flow:
-        raise NotImplementedError(FLOW_NOT_PORTED)
     noise = batch["noise"]
     dev, b = noise.device, noise.shape[0]
     draws = as_draws(draws, dev)
@@ -386,6 +388,8 @@ def comp_distill_loss_fn(params: Params, frozen: Params, batch: Params,
 
     # the per-step losses over all denoising steps (`ddpm.py:3466-3514`)
     emb_mask4, pad_mask4 = rows4(batch["prompt_emb_mask"]), rows4(batch["prompt_pad_mask"])
+    flow_fn = (make_latent_flow_fn(frozen["flow"])
+               if comp_cfg.use_face_flow and "flow" in frozen else None)
     rep_sums = {k: torch.zeros((), device=dev)
                 for k in ("subj_attn", "subj_k", "nonsubj_k", "subj_v", "nonsubj_v")}
     fg_bg_steps, ct_steps = [], []
@@ -396,7 +400,7 @@ def comp_distill_loss_fn(params: Params, frozen: Params, batch: Params,
         for k in rep_sums:
             rep_sums[k] = rep_sums[k] + rep_s[k] / n_steps
         loss_fg_bg_s, _ = calc_comp_subj_bg_preserve_loss(
-            captured_steps[s], ss_bboxes_per_step[s], sc_bboxes,
+            captured_steps[s], ss_bboxes_per_step[s], sc_bboxes, flow_fn=flow_fn,
             small_motion_ignore_thres=comp_cfg.small_motion_ignore_thres,
             do_sc_fg_faces_suppress=do_supp, sc_face_shrink_ratio=shrink)
         fg_bg_steps.append(loss_fg_bg_s)

@@ -20,9 +20,12 @@ priming count, recon by pure noise, the adversarial branch and the FFN
 adapter, as the JAX trainer keys its graphs) with accumulation
 (`optimizers.MultiSteps`), the NaN trap, the rolling face statistics, CSV
 logging, the profiler hook and checkpoints (with `unet_lora_modules` when
-adapters train and `unet_fp16.safetensors` when the UNet trains). The UNet
-hot-swap for comp iterations (`comp_unet`) and data parallelism wait in
-ROADMAP §1.
+adapters train and `unet_fp16.safetensors` when the UNet trains), and the
+UNet hot-swap for comp iterations: with `frozen["comp_unet"]` (a state dict
+on the host, `comp_unet_state_dict`) the planner's comp iterations run on
+those weights, copied in place into the frozen UNet before the step and the
+base weights copied back after it, so no second UNet is on the device. Data
+parallelism waits in ROADMAP §1.
 
 Random draws: each step's from two `torch.Generator`s seeded with
 (cfg.seed, the step's planner seed), one for its batch and one for its loss,
@@ -43,6 +46,9 @@ import numpy as np
 import torch
 
 from adaface_tpu_torch.data.personalized import PersonalizedBase, SubjectSampler, collate_batch
+from adaface_tpu_torch.id2ada.subj_basis_generator import (extend_prompt2token_proj_attention,
+                                                          load_sbg_state_dict)
+from adaface_tpu_torch.models.clip import layer_multipliers
 from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.ops.resize import resize_nearest
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
@@ -51,7 +57,7 @@ from adaface_tpu_torch.train.comp_step import CompDistillConfig, make_comp_loss_
 from adaface_tpu_torch.train.face_detect import HostFaceDetector
 from adaface_tpu_torch.train.init_x import init_x_with_fg_from_training_image, plan_fg_init
 from adaface_tpu_torch.train.iteration_plan import IterationPlanner
-from adaface_tpu_torch.train.optimizers import make_optimizer
+from adaface_tpu_torch.train.optimizers import jax_layouts, make_optimizer
 from adaface_tpu_torch.train.prompt_batch import (build_4block_prompt_batch,
                                                   build_comp_prompt_batch, make_comp_rep_prompts)
 from adaface_tpu_torch.train.recon_step import ReconStepConfig, make_recon_loss_fn
@@ -126,7 +132,9 @@ class Trainer:
                  trainable: Params, id2ada_encoder, embedding_manager, vae=None, teacher=None,
                  vae_decoder=None, arcface=None, host_detector: HostFaceDetector | None = None,
                  comp_cfg: CompDistillConfig = CompDistillConfig()):
-        """frozen: {"unet", "text_encoder"} modules; trainable: {"sbg": a
+        """frozen: {"unet", "text_encoder"} modules, optional "comp_unet" (the
+        comp iterations' UNet weights, `comp_unet_state_dict`) and "flow" (the
+        `GMA` of `comp_cfg.use_face_flow`); trainable: {"sbg": a
         SubjBasisGenerator or a list; optional "attn_lora" (`AttnLoRA`),
         "ffn_lora" (`FFNLoRA`)}; vae: a `VAEEncoder` or None (then x_start is
         drawn from N(0, 1) at image_size / 8); vae_decoder (a `VAEDecoder`)
@@ -161,6 +169,14 @@ class Trainer:
             unet_distill_steps_range=tuple(cfg.unet_distill_steps_range),
             use_fp_trick=cfg.use_fp_trick,
             p_do_adv_attack_when_recon_on_images=cfg.p_do_adv_attack, **planner_kwargs)
+        # the base UNet's weights on the host, copied back after comp
+        # iterations; the lock keeps the prefetch thread's teacher off the UNet
+        # while the comp weights are in (`_hot_swap_unet`)
+        self._base_unet = None
+        self._comp_weights_in = False
+        self._unet_lock = threading.Lock()
+        if "comp_unet" in frozen:
+            self.set_comp_unet(frozen["comp_unet"])
         if cfg.unfreeze_unet:
             # one module in both: the loss functions take params["unet"]
             trainable = dict(trainable, unet=frozen["unet"])
@@ -173,10 +189,13 @@ class Trainer:
 
     def _init_state(self, trainable: Params) -> State:
         cfg = self.cfg
+        modules = [m for key in ("sbg", "unet", *LORA_KEYS) if key in trainable
+                   for m in (trainable[key] if isinstance(trainable[key], (list, tuple))
+                             else [trainable[key]])]
         opt = make_optimizer(cfg.optimizer, trainable_parameters(trainable), cfg.lr,
                              warmup_steps=cfg.warmup_steps, total_steps=cfg.max_steps,
                              grad_clip=cfg.grad_clip, accum_steps=cfg.accum_steps,
-                             **dict(cfg.optimizer_kwargs))
+                             layouts=jax_layouts(*modules), **dict(cfg.optimizer_kwargs))
         return init_state(trainable, opt)
 
     def _get_step(self, flags):
@@ -326,9 +345,11 @@ class Trainer:
             self._prepare_comp(out, batch, flags, draws, hw)
         elif self.teacher is not None:
             cfg_scale = self.teacher.sample_cfg_scale(np.random.RandomState(flags.seed))
-            preds, x_starts, noises, ts = self.teacher(
-                self.schedule, x_start, noise, t, img_prompt_embs_to_context(img_prompt_embs),
-                draws, num_denoising_steps=flags.num_denoising_steps, cfg_scale=cfg_scale)
+            with self._unet_lock:  # the teacher runs on the base weights
+                preds, x_starts, noises, ts = self.teacher(
+                    self.schedule, x_start, noise, t,
+                    img_prompt_embs_to_context(img_prompt_embs), draws,
+                    num_denoising_steps=flags.num_denoising_steps, cfg_scale=cfg_scale)
             # the teacher's x_t chain, for the student to denoise
             out["teacher_x_ts"] = torch.stack([self.schedule.q_sample(x0, ti, n) for x0, ti, n
                                                in zip(x_starts[:-1], ts, noises)])
@@ -462,13 +483,45 @@ class Trainer:
         self._nan_streak = 0
         for step, flags, batch in self._batch_iterator(dataset, num_steps, start_step):
             try:
+                self._hot_swap_unet(flags.use_comp_distill_weights)
                 self.state, metrics = self._get_step(flags)(self.state, batch,
                                                             self.draws_for(flags, loss=True))
             except KeyboardInterrupt:
                 print(f"\ninterrupted at step {step}; checkpoint -> {self.save(step)}")
                 raise
+            finally:
+                self._hot_swap_unet(False)
             self._post_step(step, flags, metrics)
         return metrics
+
+    def set_comp_unet(self, weights: dict) -> None:
+        """The comp iterations' UNet weights (`comp_unet_state_dict`): kept on
+        the host as `frozen["comp_unet"]`, the base weights copied there
+        beside them, and the planner told (`has_comp_unet_weights`)."""
+        if self.cfg.unfreeze_unet:
+            raise ValueError("comp_unet: the comp weights swap into a frozen UNet, "
+                             "not one that trains (unfreeze_unet)")
+        self.frozen["comp_unet"] = weights
+        self._base_unet = _host_copy(self.frozen["unet"].state_dict())
+        self.planner.has_comp_unet_weights = True
+
+    def _hot_swap_unet(self, to_comp: bool) -> None:
+        """The comp iterations' weights into the frozen UNet, or the base
+        weights back (`trainer.py:307-312`, `ddpm.py:472-483`): copied in
+        place, so the step functions and the captures see the same module.
+        `fit` swaps in before a comp iteration's step (the planner's
+        `use_comp_distill_weights`) and back right after it; while the comp
+        weights are in, `_unet_lock` is held, so the prefetch thread's teacher
+        waits for the base weights."""
+        if self._base_unet is None or to_comp == self._comp_weights_in:
+            return
+        if to_comp:
+            self._unet_lock.acquire()
+        self.frozen["unet"].load_state_dict(self.frozen["comp_unet"] if to_comp
+                                            else self._base_unet, strict=True)
+        self._comp_weights_in = to_comp
+        if not to_comp:
+            self._unet_lock.release()
 
     # -------------------------------------------------------- checkpoints
     def save(self, step: int) -> str:
@@ -487,24 +540,34 @@ class Trainer:
                             os.path.join(out, "unet_fp16.safetensors"))
         return out
 
-    def load(self, ckpt_dir: str) -> int:
+    def load(self, ckpt_dir: str, extend_mkv_multiplier: int = 1,
+             draws: Draws | None = None) -> int:
         """Warm-start the SubjBasisGenerator(s), and the adapters where the
         checkpoint and the trainer both have them (`trainer.py:747-751`),
-        from a checkpoint; the optimizer restarts. → the saved step."""
+        from a checkpoint, at the prompt2token_proj widths it holds; the
+        optimizer restarts over the parameters as they now are. → the saved
+        step. `extend_mkv_multiplier` > 1 multiplies each loaded
+        SubjBasisGenerator's prompt2token_proj K/V copies (the round-2
+        recipe, `trainer.py:710-745`); its perturbation draws come from
+        `draws` (a generator seeded 0 if None), SubjBasisGenerator by
+        SubjBasisGenerator."""
         state, manifest = load_adaface_ckpt(ckpt_dir)
         sbgs = state.get("subj_basis_generators", {})
         if sbgs:
             loaded = sbgs[next(iter(sbgs))]
             mods = self.state.params["sbg"]
-            pairs = (zip(mods, loaded) if isinstance(mods, (list, tuple))
+            pairs = (list(zip(mods, loaded)) if isinstance(mods, (list, tuple))
                      else [(mods, loaded)])
+            if extend_mkv_multiplier > 1:
+                draws = draws or Draws(generator=torch.Generator().manual_seed(0))
             for mod, sd in pairs:
-                missing, unexpected = mod.load_state_dict(sd, strict=False)
-                if unexpected or set(missing) - {"clip.token_embedding",
-                                                 "clip.position_embedding"}:
-                    raise ValueError(f"{ckpt_dir}: checkpoint does not match the "
-                                     f"SubjBasisGenerator (missing {missing}, unexpected "
-                                     f"{unexpected})")
+                if extend_mkv_multiplier > 1:
+                    n_layers = len(layer_multipliers(sd, prefix="clip."))
+                    sd = extend_prompt2token_proj_attention(
+                        sd, [extend_mkv_multiplier] * n_layers, draws)
+                load_sbg_state_dict(mod, sd, ckpt_dir)
+            if extend_mkv_multiplier > 1:
+                print(f"extended prompt2token_proj MKV attention x{extend_mkv_multiplier}")
         lora = state.get("unet_lora_modules") or {}
         for key in LORA_KEYS:
             if key in lora and key in self.state.params:
@@ -523,3 +586,25 @@ class Trainer:
         cands = [(int(n.rsplit("-", 1)[1]), os.path.join(d, n)) for n in os.listdir(d)
                  if n.startswith("embeddings_gs-") and n.rsplit("-", 1)[1].isdigit()]
         return max(cands)[1] if cands else None
+
+
+def _host_copy(sd: dict) -> dict:
+    """A state dict's tensors copied to the host (pinned where a card is
+    present, for the copies back)."""
+    pin = torch.cuda.is_available()
+    return {k: v.detach().cpu().pin_memory() if pin else v.detach().cpu().clone()
+            for k, v in sd.items()}
+
+
+def comp_unet_state_dict(unet: torch.nn.Module, tree: Params) -> dict:
+    """The comp iterations' UNet weights (`--comp_unet_weight_path`): a JAX
+    UNet tree (`tools/convert_sd.load_sd_towers`' "unet") as a host state
+    dict in `unet`'s layout and dtypes, for `frozen["comp_unet"]`."""
+    from adaface_tpu_torch.core import bridge
+
+    ref = unet.state_dict()
+    sd = bridge.fuse_projections(bridge.state_dict(tree), ref)
+    if set(sd) != set(ref) or any(sd[k].shape != ref[k].shape for k in ref):
+        raise ValueError("comp_unet: the weights do not match the UNet (keys "
+                         f"{sorted(set(sd) ^ set(ref))[:8]})")
+    return _host_copy({k: sd[k].to(v.dtype) for k, v in ref.items()})

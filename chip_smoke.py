@@ -119,7 +119,24 @@ Phases (any failure raises and the exit code is not 0):
      hold them against the fit's counts, the checkpoint with
      `unet_lora_modules` reloaded; a comp micro-step's split, its busy share,
      the peak memory, seconds per optimizer step, and a profiled recon
-     micro-step's flash forward launches by shape and mask.
+     micro-step's flash forward launches by shape and mask;
+ 11. the Stage-2 training recipes (`train_stage2_recipes`): the same
+     configuration through `train_torch.build_trainer` warm-started from an
+     unextended checkpoint of the joint encoder's two SubjBasisGenerators with
+     `--extend_mkv_multiplier 2`, `comp_distill.use_face_flow=true` (a random
+     GMA), `trainer.optimizer=adam8bit`, and a comp UNet from a second seeded
+     draw (`Trainer.set_comp_unet`): 4 micro-steps (comp, then recon) with
+     finite losses, the parameters moved at the update whose learning rate is
+     not 0 (the warmup's first is), the UNet's checksum holding the comp
+     weights inside the comp step and the base ones after it, the backward
+     launches as the graphs hold them, the peak memory; a comp micro-step's
+     split with the flow on its own line and its busy share with and without
+     the flow; the latent flow on the fit's captured layer-22 inputs, card
+     against CPU (fp32 without TF32, relative L2 <= 1e-4; the TF32 time
+     beside); adamw, nadam, muon, adam8bit and cautious(adamw) card against
+     CPU (<= 1e-5 a tensor); and the fit's MKV checkpoint served
+     (`serve_mkv`: ada embeddings card against CPU <= 1e-5, launches equal to
+     an unextended request's).
 Between phases 6 and 7, `serve_trained` serves what the port's trainers
 write, on the same SD1.5 modules: the UNet's attention and FFN adapters at
 rank 192 (B and the magnitudes drawn off their start) written by
@@ -3186,15 +3203,20 @@ class SyncTimer:
         self.ms = collections.defaultdict(float)
         self._patches = []
 
-    def wrap(self, module, name, part):
+    def wrap(self, module, name, part, made: bool = False):
+        """Time the calls of `module.name`, or with `made` the calls of the
+        functions it returns."""
         real = getattr(module, name)
 
-        def timed(*a, **kw):
-            out, ms = sync_ms(lambda: real(*a, **kw))
-            self.ms[part] += ms
-            return out
+        def timing(fn):
+            def timed(*a, **kw):
+                out, ms = sync_ms(lambda: fn(*a, **kw))
+                self.ms[part] += ms
+                return out
+            return timed
 
-        self._patches.append(mock.patch.object(module, name, timed))
+        patched = (lambda *a, **kw: timing(real(*a, **kw))) if made else timing(real)
+        self._patches.append(mock.patch.object(module, name, patched))
 
     def __enter__(self):
         for p in self._patches:
@@ -3580,7 +3602,8 @@ def comp_step_split(trainer, dataset, flags) -> dict:
     collate, VAE encode, face ID → image prompts, input detection, prompts),
     the text encode, the priming, the denoising steps with gradient, the
     decodes, host detection on the recons, the ArcFace losses, the
-    subject-single re-denoise, the rest of the forward, the backward and the
+    subject-single re-denoise, the GMA flow calls of the elastic matching
+    (with `use_face_flow`), the rest of the forward, the backward and the
     optimizer, each timed with the device synchronized around it."""
     from adaface_tpu_torch.core.device import fp32_convolutions
     from adaface_tpu_torch.train import comp_face_align as CF
@@ -3599,6 +3622,7 @@ def comp_step_split(trainer, dataset, flags) -> dict:
     timer.wrap(CF, "calc_arcface_align_loss", "arcface")
     timer.wrap(CF, "calc_bg_faces_suppress_loss", "arcface")
     timer.wrap(CF, "ss_redenoise_loop", "redenoise")
+    timer.wrap(CS, "make_latent_flow_fn", "flow", made=True)  # the GMA flow's calls
     params = trainable_parameters(trainer.state.params)
     for p in params:
         p.grad = None
@@ -3610,7 +3634,7 @@ def comp_step_split(trainer, dataset, flags) -> dict:
         _, bwd_ms = sync_ms(loss.backward)
     update, opt_ms = sync_ms(trainer.state.optimizer.step)
     parts = {k: timer.ms.get(k, 0.0) for k in ("text", "priming", "denoise", "decode",
-                                               "detection", "arcface", "redenoise")}
+                                               "detection", "arcface", "redenoise", "flow")}
     return dict(priming_steps=flags.num_priming_steps, host_prep_ms=prep_ms,
                 **{f"{k}_ms": v for k, v in parts.items()},
                 other_forward_ms=fwd_ms - sum(parts.values()), backward_ms=bwd_ms,
@@ -3961,6 +3985,428 @@ def train_stage2(gen) -> dict:
                 peak=peak, grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
                 flash_bwd=flash_bwd, gn_bwd=gn_bwd, masked=masked, recon_flash=recon_flash,
                 copies=copies)
+
+
+# the Stage-2 recipes' phase: comp at 0 (4 priming steps), then recon at 1-3;
+# two optimizer updates at the config's accumulation of 2: the first at the
+# warmup's learning rate 0 (the parameters stay), the second at 1/1000 of it
+RECIPES_MICRO_STEPS = 4
+RECIPES_TYPES = ["comp_distill", "recon", "recon", "recon"]
+FLOW_CARD_CPU_REL_L2 = 1e-4  # the latent flow, card against CPU, both fp32 without TF32
+OPT_CARD_CPU_REL_L2 = 1e-5  # each optimized tensor after 3 updates, card against CPU
+MKV_CARD_CPU_REL_L2 = 1e-5  # the MKV request's ada embeddings, card against CPU
+RECIPE_OPTIMIZERS = ("adamw", "nadam", "muon", "adam8bit", "cautious_adamw")
+RECIPE_OPT_MICRO_STEPS = 6  # 3 updates at accumulation 2
+
+
+@contextmanager
+def allow_tf32():
+    """cuDNN convolutions and cuBLAS fp32 products with TF32 inside the block."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def unet_checksum(unet) -> float:
+    """The fp32 sum of every UNet weight's fp32 sum, on the card: equal for
+    equal weights, read back once."""
+    return torch.stack([v.float().sum() for v in unet.state_dict().values()]).sum().item()
+
+
+def flow_card_against_cpu(gma, captured: dict, card: str) -> dict:
+    """The latent flow (`make_latent_flow_fn`) on one comp step's captured
+    elastic-matching inputs of layer 22 (the demeaned q2 of the face crops,
+    B 3, C 320, 64x64), on the card and on a CPU copy of the GMA, both fp32
+    without TF32: relative L2, the largest difference, and the tokens whose
+    pick between the flow-warped and the same-location candidate changes
+    (the loss's per-token min, at the ssfg margin 1.02); the card's ms a call
+    without and with TF32 (CUDA events, median of 3, the host's issue
+    inside) and each one's device time and operations (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.models import gma as GM
+
+    tgt, src, h, w = captured["tgt"], captured["src"], captured["h"], captured["w"]
+    fn = GM.make_latent_flow_fn(gma)
+    tgt_c, src_c = tgt.cuda(), src.cuda()
+
+    def with_tf32():  # the same flow with PyTorch's TF32 let in
+        with allow_tf32():
+            return GM.smooth_flow(GM.est_flow_from_feats(gma, tgt_c, src_c, h, w))
+
+    def profiled(call) -> tuple[int, float]:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name != "Memset (Device)"]
+        return len(events), sum(e.device_time for e in events) / 1e3
+
+    with torch.no_grad():
+        on_card = fn(tgt_c, src_c, h, w).cpu()
+        cpu = GM.make_latent_flow_fn(on_cpu(gma))(tgt, src, h, w)
+
+        def pick(flow):
+            b, c, n = src.shape
+            warped = GM.backward_warp_by_flow(src.reshape(b, c, h, w), flow).reshape(b, c, n)
+            return ((warped - tgt) ** 2).mean(1) * 1.02 < ((src - tgt) ** 2).mean(1)
+
+        picks_differ = int((pick(on_card) != pick(cpu)).sum())
+        rel = rel_l2_of(on_card, cpu)
+        calls = {"fp32": lambda: fn(tgt_c, src_c, h, w), "tf32": with_tf32}
+        times = {k: median_ms(c, reps=3, warmup=1) for k, c in calls.items()}
+        device = {k: profiled(c) for k, c in calls.items()}
+        tf32_flow = with_tf32().cpu()
+    out = dict(rel_l2=rel, max_abs=(on_card - cpu).abs().max().item(),
+               picks_differ=picks_differ, tokens=tgt.shape[0] * tgt.shape[2], ms=times["fp32"],
+               tf32_ms=times["tf32"], tf32_rel_l2=rel_l2_of(tf32_flow, cpu),
+               launches=device["fp32"][0], device_ms=device["fp32"][1],
+               tf32_device_ms=device["tf32"][1], flow_abs_max=cpu.abs().max().item())
+    log(f"recipes: the latent flow at B{tgt.shape[0]} C{tgt.shape[1]} {h}x{w}, 12 iterations, "
+        f"card ({card}) against CPU (fp32, TF32 off): relative L2 {rel:.3e} (limit "
+        f"{FLOW_CARD_CPU_REL_L2:g}), max |diff| {out['max_abs']:.3e} of max |flow| "
+        f"{out['flow_abs_max']:.3e}; flow-vs-same-location picks that differ: {picks_differ} "
+        f"of {out['tokens']} tokens; a call {times['fp32']:.2f} ms (CUDA events, host "
+        f"included), {out['device_ms']:.2f} ms of device time in {out['launches']} device "
+        f"operations (torch.profiler); with TF32 {times['tf32']:.2f} ms, "
+        f"{out['tf32_device_ms']:.2f} ms of device time in {device['tf32'][0]} operations, its "
+        f"flow {out['tf32_rel_l2']:.3e} from the CPU's")
+    if not math.isfinite(rel) or rel > FLOW_CARD_CPU_REL_L2:
+        raise AssertionError(f"recipes: the flow card against CPU {rel}")
+    return out
+
+
+def optimizers_card_against_cpu(sbg, card: str) -> dict:
+    """RECIPE_OPTIMIZERS (`cautious_adamw`: `Cautious` around optax's AdamW)
+    behind the clip at 0.2 and accumulation 2, RECIPE_OPT_MICRO_STEPS
+    micro-steps (3 updates) on copies of the fit's first SubjBasisGenerator's
+    last prompt2token_proj layer (its MKV K and V [1536, 768]) and its layer
+    weights, on the card and on the CPU with the same seeded gradients, TF32
+    off: each tensor's relative L2 after the updates, and the card's ms an
+    update."""
+    from adaface_tpu_torch.core.device import fp32_convolutions
+    from adaface_tpu_torch.train import optimizers as O
+
+    last = len(sbg.clip.layers) - 1
+    layouts = O.jax_layouts(sbg)
+    chosen = [(n, p) for n, p in sbg.named_parameters()
+              if n.startswith(f"clip.layers.{last}.") or n == "hidden_state_layer_weights"]
+    rs = torch.Generator().manual_seed(SEED + 11)
+    grads = [[torch.randn(p.shape, generator=rs) * (0.01 if i % 2 else 1.0) for _, p in chosen]
+             for i in range(RECIPE_OPT_MICRO_STEPS)]
+    out = {}
+    for name in RECIPE_OPTIMIZERS:
+        finals, update_ms = {}, []
+        for device in ("cuda", "cpu"):
+            ps = [torch.nn.Parameter(p.detach().to(device).clone()) for _, p in chosen]
+            lay = {q: layouts[p] for q, (_, p) in zip(ps, chosen) if p in layouts}
+            common = dict(warmup_steps=1, total_steps=10, grad_clip=0.2)
+            if name == "cautious_adamw":
+                sched = O.warmup_cosine(1e-3, 1, 10)
+                opt = O.MultiSteps(O.Cautious(O.AdamW(ps, sched, weight_decay=0.005)), 0.2, 2)
+            else:
+                opt = O.make_optimizer(name, ps, 1e-3, accum_steps=2, layouts=lay, **common)
+            with fp32_convolutions(matmuls=True):
+                for g in grads:
+                    for q, gi in zip(ps, g):
+                        q.grad = gi.to(device, copy=True)
+                    if device == "cuda":
+                        moved, ms = sync_ms(opt.step)
+                        if moved:
+                            update_ms.append(ms)
+                    else:
+                        opt.step()
+            finals[device] = [q.detach().cpu() for q in ps]
+        rels = [rel_l2_of(a, b) for a, b in zip(finals["cuda"], finals["cpu"])]
+        moved = all(not torch.equal(a, p.detach().cpu())
+                    for a, (_, p) in zip(finals["cuda"], chosen))
+        out[name] = dict(rel_l2=max(rels), update_ms=update_ms, moved=moved)
+        log(f"recipes: optimizer {name} ({card}), {len(chosen)} tensors "
+            f"({sum(p.numel() for _, p in chosen)} parameters), 3 updates at accumulation 2, "
+            f"card against CPU: largest relative L2 {max(rels):.3e} (limit "
+            f"{OPT_CARD_CPU_REL_L2:g}); the card's updates "
+            + ", ".join(f"{m:.2f}" for m in update_ms) + " ms; moved " + str(moved))
+        if max(rels) > OPT_CARD_CPU_REL_L2 or not moved:
+            raise AssertionError(f"recipes: optimizer {name} card against CPU {rels}")
+    return out
+
+
+def serve_mkv(ckpt: str, gen, card: str) -> dict:
+    """The MKV checkpoint served: a random SD1.5 server (`build_server`) makes
+    one 512x512, 25-step request with its own SubjBasisGenerator, then
+    `AdaFaceWrapper.load_adaface_ckpt` loads the fit's checkpoint (the joint
+    list's Arc2Face generator, K and V at 2x) and the same request runs
+    again: its ada embeddings against a CPU copy of the encoder (fp32), a
+    finite image, and the kernel launches equal to the unextended request's."""
+    from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import Arc2FaceID2AdaPrompt
+    from adaface_tpu_torch.models.clip import layer_multipliers
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+
+    wrapper, _ = build_server(gen)
+    enc = wrapper.id2ada_prompt_encoder
+    fid = torch.randn((1, 512), generator=gen, device="cuda")
+    prompt = REQUESTS[0][1]
+    runs = {}
+    for label in ("unextended", "mkv"):
+        if label == "mkv":
+            wrapper.load_adaface_ckpt(ckpt)
+        ada = wrapper.prepare_adaface_embeddings(face_id_embs=fid)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = wrapper(prompt, generator=torch.Generator("cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        runs[label] = dict(ada=ada.detach().float().cpu(), img=img, counts=launch_counts(),
+                           ms=(time.perf_counter() - t0) * 1e3)
+        check_images(list(img), 1, 512, f"recipes: the {label} request")
+    mults = layer_multipliers(enc.subj_basis_generator.clip)
+    cpu_enc = Arc2FaceID2AdaPrompt(on_cpu(enc.text_encoder), on_cpu(enc.subj_basis_generator),
+                                   default_tokenizer(),
+                                   out_id_embs_cfg_scale=enc.out_id_embs_cfg_scale)
+    with torch.inference_mode():
+        ada_cpu, _, _ = cpu_enc.generate_adaface_embeddings(face_id_embs=fid.cpu())
+    rel = rel_l2_of(runs["mkv"]["ada"], ada_cpu)
+    moved = rel_l2_of(runs["mkv"]["ada"], runs["unextended"]["ada"])
+    same = runs["mkv"]["counts"] == runs["unextended"]["counts"]
+    log(f"recipes: serve_mkv ({card}): prompt2token_proj multipliers {mults}; ada embeddings "
+        f"card against CPU {rel:.3e} (limit {MKV_CARD_CPU_REL_L2:g}), {moved:.3e} from the "
+        f"unextended generator's; request {runs['unextended']['ms']:.1f} ms unextended, "
+        f"{runs['mkv']['ms']:.1f} ms MKV; launches equal: {same} {runs['mkv']['counts']}")
+    if mults != [2] * len(mults) or rel > MKV_CARD_CPU_REL_L2 or not same or moved == 0:
+        raise AssertionError(f"recipes: serve_mkv {mults} {rel} {same} {moved}")
+    return dict(counts=runs["mkv"]["counts"], rel_l2=rel, ms=runs["mkv"]["ms"])
+
+
+def train_stage2_recipes(gen, card: str) -> dict:
+    """The Stage-2 recipes at full SD1.5 width. An unextended checkpoint of the
+    joint encoder's two SubjBasisGenerators is written (`save_adaface_ckpt`);
+    `train_torch.build_trainer` takes STAGE2_CONFIG with `--adaface_ckpt_path`
+    it, `--extend_mkv_multiplier 2`, `comp_distill.use_face_flow=true` (a
+    random GMA), `trainer.optimizer=adam8bit`; the comp iterations' UNet from a
+    second seeded draw goes in by `Trainer.set_comp_unet` (the weights on the
+    host; the central-face detector injected). RECIPES_MICRO_STEPS micro-steps
+    (comp at 0, then recon) with finite losses, the parameters moved at the
+    update whose learning rate is not 0 and none at the warmup's first, the
+    UNet holding the comp weights inside the comp step and the base ones
+    after it (checksums), the backward launches as the graphs hold them, the
+    peak memory; a comp micro-step's split with the flow on its own line, and
+    the device's busy share of a comp micro-step with and without the flow.
+    Then the flow card against CPU on the fit's captured inputs, the
+    optimizers card against CPU, and `serve_mkv` on the fit's checkpoint."""
+    import tempfile
+
+    import train_torch
+    from adaface_tpu_torch.core.params import build
+    from adaface_tpu_torch.id2ada.subj_basis_generator import (SubjBasisConfig,
+                                                              SubjBasisGenerator,
+                                                              init_sbg_weights_)
+    from adaface_tpu_torch.models.clip import layer_multipliers
+    from adaface_tpu_torch.models.unet import UNet2DConditionModel, init_unet_weights_
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops import fused_gn as G
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+    from adaface_tpu_torch.train import comp_step as CS
+    from adaface_tpu_torch.train import trainer as T
+    from adaface_tpu_torch.train.checkpoint import save_adaface_ckpt
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+    from adaface_tpu_torch.train.optimizers import Adam8bit, _lr_at
+
+    bwd_keys = (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG,
+                A.FLASH_BWD_DELTA_WIDE, A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE,
+                G.GN_BWD_FUSED, G.GN_BWD_REDUCE, G.GN_BWD_DX)
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix=".recipes_smoke_", dir=repo) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        tok = default_tokenizer()
+        sbgs = [build(lambda c=c: SubjBasisGenerator(c, tok), "cuda", torch.float32,
+                      init_sbg_weights_, gen)
+                for c in (SubjBasisConfig(), SubjBasisConfig(num_id_vecs=4))]
+        ck0 = save_adaface_ckpt(os.path.join(tmp, "unextended"), 0, {"joint": [
+            {n: p for n, p in s.named_parameters() if not n.startswith(
+                ("clip.token_embedding", "clip.position_embedding"))} for s in sbgs]})
+        del sbgs
+        t0 = time.perf_counter()
+        cfg, args = train_torch.parse_args([
+            "comp_distill.use_face_flow=true", "trainer.optimizer=adam8bit", "--base",
+            os.path.join(repo, STAGE2_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs"), "--max_steps", str(RECIPES_MICRO_STEPS),
+            "--adaface_ckpt_path", ck0, "--extend_mkv_multiplier", "2"])
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        trainer.host_detector = HostFaceDetector(detector_fn=central_face)
+        unet = trainer.frozen["unet"]
+        comp = build(lambda: UNet2DConditionModel(unet.cfg), "cuda",
+                     next(unet.parameters()).dtype, init_unet_weights_, gen)
+        comp_ck = unet_checksum(comp)
+        trainer.set_comp_unet(T._host_copy(comp.state_dict()))
+        del comp
+        torch.cuda.empty_cache()
+        base_ck = unet_checksum(unet)
+        core = trainer.state.optimizer.optimizer
+        mults = [layer_multipliers(s.clip) for s in trainer.state.params["sbg"]]
+        log(f"recipes ({card}): the stack at full width in {time.perf_counter() - t0:.1f} s: "
+            f"use_face_flow {trainer.comp_cfg.use_face_flow} (a random GMA, "
+            f"{sum(p.numel() for p in trainer.frozen['flow'].parameters())} parameters), "
+            f"optimizer {type(core).__name__}, prompt2token_proj multipliers {mults}, "
+            f"{sum(p.numel() for p in trainer.state.optimizer.params)} trainable parameters; "
+            f"UNet checksums base {base_ck:.6e}, comp {comp_ck:.6e}")
+        if not isinstance(core, Adam8bit) or mults != [[2] * 12] * 2 or comp_ck == base_ck:
+            raise AssertionError(f"recipes: the stack {type(core)} {mults}")
+
+        # the fit: the census of each micro-step's backward, the UNet's checksum
+        # inside each step, the flow calls' inputs (the first) and count
+        per_step, seen_ck, records, captured, n_flow = [], [], [], {}, [0]
+        real_make, real_get = T.make_train_step, trainer._get_step
+        real_flow = CS.make_latent_flow_fn
+
+        def make_with_census(loss_fn, *a):
+            def loss_and_census(*args):
+                loss, metrics = loss_fn(*args)
+                c = collections.Counter()
+                backward_census(loss, c)
+                per_step.append(c)
+                return loss, metrics
+            return real_make(loss_and_census, *a)
+
+        def get_step(flags):
+            step = real_get(flags)
+
+            def checked(*a, **kw):
+                seen_ck.append((flags.iter_type, unet_checksum(unet)))
+                return step(*a, **kw)
+            return checked
+
+        def recording_flow(*a, **kw):
+            fn = real_flow(*a, **kw)
+
+            def rec(tgt, src, h, w, thres=0.0):
+                n_flow[0] += 1
+                if not captured:
+                    captured.update(tgt=tgt.detach().float().cpu(),
+                                    src=src.detach().float().cpu(), h=h, w=w)
+                return fn(tgt, src, h, w, thres)
+            return rec
+
+        before = [param_sums(trainer)]
+        post = trainer._post_step
+        count = [core.count]
+
+        def watch(step, f, metrics):
+            after = param_sums(trainer)
+            lr = _lr_at(core.param_groups[0]["lr"], count[0]) if core.count > count[0] else None
+            count[0] = core.count
+            records.append(dict(step=step, type=f.iter_type, loss=float(metrics["loss"]), lr=lr,
+                                moved=sum(a != b for a, b in zip(before[0], after))))
+            before[0] = after
+            post(step, f, metrics)
+
+        trainer._post_step = watch
+        trainer._get_step = get_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(T, "make_train_step", make_with_census), \
+                mock.patch.object(CS, "make_latent_flow_fn", recording_flow):
+            trainer.fit(dataset, num_steps=RECIPES_MICRO_STEPS, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        trainer._get_step = real_get
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        after_ck = unet_checksum(unet)
+        n_params = len(before[0])
+        want = collections.Counter()
+        for c in per_step:
+            want.update(c)
+        log(f"recipes ({card}): {len(records)} micro-steps in {fit_s:.2f} s: "
+            + "; ".join(f"{r['step']} {r['type']} loss {r['loss']:.6e}"
+                        + ("" if r["lr"] is None else f", an update at lr {r['lr']:.3e} moving "
+                           f"{r['moved']} of {n_params} tensors") for r in records)
+            + f"; UNet checksum inside each step {seen_ck}, after the fit {after_ck:.6e}; "
+            f"{n_flow[0]} flow calls; peak memory {peak / 2**30:.2f} GiB")
+        log(f"recipes: backward launches {({k: counts.get(k, 0) for k in bwd_keys})}, the "
+            f"graphs hold {dict(want)}; launches {counts}")
+        if [r["type"] for r in records] != RECIPES_TYPES \
+                or not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"recipes: micro-steps {records}")
+        if seen_ck != [(t, comp_ck if t == "comp_distill" else base_ck) for t in RECIPES_TYPES] \
+                or after_ck != base_ck:
+            raise AssertionError(f"recipes: the comp UNet swap {seen_ck} {after_ck}")
+        # an update moves the parameters where its learning rate is not 0 (a tensor
+        # without gradient and at 0 stays), none where it is
+        accum = trainer.cfg.accum_steps
+        if not all(bool(r["moved"]) == bool(r["lr"]) for r in records) \
+                or [r["lr"] is not None for r in records] != [
+                    i % accum == accum - 1 for i in range(RECIPES_MICRO_STEPS)] \
+                or not records[-1]["lr"] or not captured or n_flow[0] != 24:
+            raise AssertionError(f"recipes: updates {records}, flow calls {n_flow[0]}")
+        if {k: counts.get(k, 0) for k in bwd_keys} != {k: want[k] for k in bwd_keys} \
+                or not want[A.FLASH_BWD_DKDV_WG] or not want[G.GN_BWD_FUSED]:
+            raise AssertionError(f"recipes: backward launches {counts}, the graphs hold {want}")
+        ck = trainer.save(RECIPES_MICRO_STEPS)
+
+        # a comp micro-step's split, and its busy share with and without the flow
+        from torch.profiler import ProfilerActivity, profile
+
+        comp_flags = trainer.planner.plan(start + RECIPES_MICRO_STEPS)
+        while comp_flags.iter_type != "comp_distill":
+            comp_flags = trainer.planner.plan(comp_flags.step + 1)
+        trainer._hot_swap_unet(True)
+        try:
+            split = comp_step_split(trainer, dataset, comp_flags)
+        finally:
+            trainer._hot_swap_unet(False)
+        log(f"recipes ({card}): comp micro-step split ({split['priming_steps']} priming "
+            f"steps), ms: "
+            f"host prep {split['host_prep_ms']:.1f}, text encode {split['text_ms']:.1f}, "
+            f"priming {split['priming_ms']:.1f}, denoising steps {split['denoise_ms']:.1f}, "
+            f"decodes {split['decode_ms']:.1f}, host detection {split['detection_ms']:.1f}, "
+            f"ArcFace {split['arcface_ms']:.1f}, re-denoise {split['redenoise_ms']:.1f}, "
+            f"flow {split['flow_ms']:.1f}, rest of the forward {split['other_forward_ms']:.1f}, "
+            f"backward {split['backward_ms']:.1f}, optimizer {split['optimizer_ms']:.1f}; total "
+            f"{split['total_ms']:.1f} (synchronized, no prefetch)")
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)],
+                                       comp_flags, trainer.draws_for(comp_flags))
+        busy = {}
+        for label, use_flow in (("with the flow", True), ("without the flow", False)):
+            trainer.comp_cfg = dataclasses.replace(trainer.comp_cfg, use_face_flow=use_flow)
+            trainer._steps.clear()
+            step_fn = trainer._get_step(comp_flags)
+            step = lambda: step_fn(trainer.state, batch,  # noqa: E731
+                                   trainer.draws_for(comp_flags, loss=True))
+            trainer._hot_swap_unet(True)
+            try:  # the split's comp micro-step warmed this one
+                _, wall_ms = sync_ms(step)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    sync_ms(step)
+            finally:
+                trainer._hot_swap_unet(False)
+            n_ops, busy_ms = profile_report(prof, f"recipes: a comp micro-step {label}", 8)
+            busy[label] = dict(wall_ms=wall_ms, busy_ms=busy_ms, ops=n_ops)
+            log(f"recipes ({card}): a comp micro-step {label}: {wall_ms:.1f} ms on the host "
+                f"clock, device busy {busy_ms:.1f} ms in {n_ops} operations "
+                f"({busy_ms / wall_ms:.1%} of the unprofiled wall)")
+        trainer.comp_cfg = dataclasses.replace(trainer.comp_cfg, use_face_flow=True)
+        trainer._steps.clear()
+        on, off = busy["with the flow"], busy["without the flow"]
+        log(f"recipes ({card}): the flow in a comp micro-step: {n_flow[0]} calls, "
+            f"{split['flow_ms']:.1f} ms of the synchronized split, "
+            f"{on['busy_ms'] - off['busy_ms']:.1f} ms of device time and "
+            f"{on['ops'] - off['ops']} device operations more than the step without it")
+
+        flow = flow_card_against_cpu(trainer.frozen["flow"], captured, card)
+        opts = optimizers_card_against_cpu(trainer.state.params["sbg"][0], card)
+        del trainer, batch, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        served = serve_mkv(ck, gen, card)
+    return dict(counts=counts, want=dict(want), records=records, fit_s=fit_s, peak=peak,
+                split=split, busy=busy, flow=flow, optimizers=opts, served=served)
 
 
 def train_cli(config: str = STAGE2_CONFIG, max_steps: int = 7) -> dict:
@@ -4521,6 +4967,8 @@ def main() -> int:
     finetune = train_finetune(gen)
     release()
     stage2 = train_stage2(gen)
+    release()
+    recipes = train_stage2_recipes(gen, card)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops import attention as A
@@ -4540,7 +4988,8 @@ def main() -> int:
              "adapters": trained["counts"], "adapters batcher": trained["batch_counts"],
              "ensemble": trained["ensemble_counts"],
              "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"],
-             "stage-2 fit": stage2["counts"]}
+             "stage-2 fit": stage2["counts"], "stage-2 recipes fit": recipes["counts"],
+             "mkv request": recipes["served"]["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, counts, paths)))

@@ -87,23 +87,11 @@ def build_wrapper(args, pipeline_name: str = "text2img"):
 
 def load_adaface(encoder, ckpt_dir: str) -> None:
     """The SubjBasisGenerator(s) of a checkpoint of the port's trainer into
-    the encoder, by the encoder's name or under "joint" (`_load_adaface`)."""
-    from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
+    the encoder, by the encoder's name or under "joint", at the
+    prompt2token_proj widths the checkpoint holds (`_load_adaface`)."""
+    from adaface_tpu_torch.train.checkpoint import load_subj_basis_generators
 
-    state, _ = load_adaface_ckpt(ckpt_dir)
-    sbgs = state.get("subj_basis_generators", {})
-    encoders = getattr(encoder, "encoders", [encoder])
-    for i, enc in enumerate(encoders):
-        for key in (enc.name, "joint"):
-            if key not in sbgs:
-                continue
-            sd = sbgs[key][i] if isinstance(sbgs[key], (list, tuple)) else sbgs[key]
-            missing, unexpected = enc.subj_basis_generator.load_state_dict(sd, strict=False)
-            if unexpected or set(missing) - {"clip.token_embedding", "clip.position_embedding"}:
-                raise ValueError(f"{ckpt_dir}: the checkpoint does not match {enc.name}'s "
-                                 f"SubjBasisGenerator (missing {missing}, unexpected {unexpected})")
-            print(f"loaded SBG params for {enc.name} from {ckpt_dir}")
-            break
+    load_subj_basis_generators(encoder, ckpt_dir)
 
 
 def load_subject_images(path: str, limit: int | None = None) -> list[np.ndarray]:

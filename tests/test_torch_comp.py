@@ -384,11 +384,20 @@ def test_elastic_matching_loss_matches_jax(shrink):
 
 
 def test_elastic_matching_refuses_a_flow():
+    """The flow candidate is ported (`tests/test_torch_comp_flow.py` holds it
+    to JAX): a zero flow gives the no-flow losses exactly; what is not a
+    [B, 2, h, w] flow is refused."""
     cap = fake_capture()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcl.calc_elastic_matching_loss(_t(cap["q2"][22]), _t(cap["attn_out"][22]),
-                                       _t(cap["outfeat"][22].reshape(8, 16, 64)), 8, 8,
-                                       _t(SS_BOXES), _t(SC_BOXES), flow_fn=lambda *a: None)
+    args = (_t(cap["q2"][22]), _t(cap["attn_out"][22]),
+            _t(cap["outfeat"][22].reshape(8, 16, 64)), 8, 8, _t(SS_BOXES), _t(SC_BOXES))
+    ref = tcl.calc_elastic_matching_loss(*args)
+    zero = tcl.calc_elastic_matching_loss(*args, flow_fn=lambda q, s, h, w, t: torch.zeros(
+        q.shape[0], 2, h, w))
+    assert set(zero) == set(ref)
+    for k, v in ref.items():
+        assert torch.equal(zero[k], v), k
+    with pytest.raises((AttributeError, TypeError)):
+        tcl.calc_elastic_matching_loss(*args, flow_fn=lambda *a: None)
 
 
 @pytest.mark.parametrize("suppress", [0.0, 1.0])

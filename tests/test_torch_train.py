@@ -371,8 +371,12 @@ def test_schedules_match_jax(kind, cycles):
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(ValueError, match="muon and adam8bit wait in ROADMAP"):
-        topt.make_optimizer("muon", [torch.nn.Parameter(torch.zeros(2))], 1e-3)
+    """Every optimizer of the JAX package is ported; a name it does not know
+    raises as its `make_optimizer` does."""
+    with pytest.raises(ValueError, match="unknown optimizer 'lamb'"):
+        topt.make_optimizer("lamb", [torch.nn.Parameter(torch.zeros(2))], 1e-3)
+    with pytest.raises(ValueError, match="unknown optimizer 'lamb'"):
+        jopt.make_optimizer("lamb", 1e-3)
 
 
 # ---------------------------------------------------------------------------

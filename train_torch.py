@@ -28,8 +28,15 @@ installed, else none): where it finds no face the identity losses stay gated
 off. `--base_model` loads SD1.5 weights over the random ones (an LDM single
 file or a diffusers UNet, `.safetensors` / `.ckpt`, through
 `tools/convert_sd.py`), and `--scale_lr` scales the learning rate by
-accumulation × devices (one) × batch, as `train.py` does. The comp-distill
-UNet (`--comp_unet_weight_path`) waits for its slice (ROADMAP §1).
+accumulation × devices (one) × batch, as `train.py` does.
+`--comp_unet_weight_path` loads the comp-distill iterations' UNet weights
+the same way; they are swapped into the frozen UNet for those iterations.
+`comp_distill.use_face_flow=true` adds the GMA latent flow to the elastic
+matching: converted from `comp_distill.gma_ckpt` (a torch `gma-sintel.pth`)
+where given, else random from the config's seed, as `train.py` does.
+`--extend_mkv_multiplier` (alias `--extend_prompt2token_proj_attention_
+multiplier`) extends the prompt2token_proj attention's K/V of the
+checkpoint it warm-starts from (`--adaface_ckpt_path` or `-r`).
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ from adaface_tpu_torch.utils.config import apply_dotlist, known_fields, load
 # the `model:` keys the CLI itself reads; the others go to TrainConfig by name
 CLI_MODEL_KEYS = ("id2ada_encoder", "out_id_embs_cfg_scales", "arcface_ckpt",
                   "use_identity_losses", "enable_static_img_suffix_embs")
+# the `comp_distill:` keys the CLI itself reads
+CLI_COMP_KEYS = ("gma_ckpt",)
 
 
 def build_trainer(cfg: dict, args):
@@ -128,9 +137,21 @@ def build_trainer(cfg: dict, args):
     overrides, model_dropped = known_fields(TrainConfig, model_cfg)
     train_cfg = TrainConfig(sbg=sbg_cfg, **overrides)
     unread = [k for k in model_dropped if k not in CLI_MODEL_KEYS]
+    dropped = [k for k in dropped if k not in CLI_COMP_KEYS]
     if unread or dropped:
         print(f"keys nothing reads, dropped as train.py drops them: model {unread}, "
               f"comp_distill {dropped}", flush=True)
+    frozen = {"unet": unet, "text_encoder": text}
+    if comp_cfg.use_face_flow:
+        frozen["flow"] = build_gma((cfg.get("comp_distill") or {}).get("gma_ckpt"), device, gen)
+    if getattr(args, "comp_unet_weight_path", None):
+        from adaface_tpu_torch.tools.convert_sd import load_sd_towers
+        from adaface_tpu_torch.train.trainer import comp_unet_state_dict
+
+        towers = load_sd_towers(args.comp_unet_weight_path, unet_cfg=unet.cfg,
+                                vae_cfg=vae.cfg)
+        frozen["comp_unet"] = comp_unet_state_dict(unet, towers["unet"])
+        print(f"loaded comp-distill UNet from {args.comp_unet_weight_path}", flush=True)
     dataset = PersonalizedBase(
         trainer_cfg.data_roots, mix_subj_data_roots=args.mix_subj_data_roots,
         subject_string=args.subject_string,
@@ -138,18 +159,36 @@ def build_trainer(cfg: dict, args):
         num_vectors_per_subj_token=encoder.num_id_vecs, size=trainer_cfg.image_size,
         seed=trainer_cfg.seed)
     print(f"{dataset.num_subjects()} subjects, {len(dataset)} images", flush=True)
-    trainer = Trainer(trainer_cfg, train_cfg, {"unet": unet, "text_encoder": text}, trainable,
-                      encoder, em, vae=vae, teacher=teacher, comp_cfg=comp_cfg, **recon_kw)
+    trainer = Trainer(trainer_cfg, train_cfg, frozen, trainable, encoder, em, vae=vae,
+                      teacher=teacher, comp_cfg=comp_cfg, **recon_kw)
     start_step = 0
+    mult = getattr(args, "extend_mkv_multiplier", 1)
     if args.resume:
         ck = Trainer.latest_ckpt(args.log_dir)
         if ck is None:
             print(f"no checkpoint under {args.log_dir}, starting fresh")
         else:
-            start_step = trainer.load(ck)
+            start_step = trainer.load(ck, extend_mkv_multiplier=mult)
     elif args.adaface_ckpt_path:
-        trainer.load(args.adaface_ckpt_path)
+        trainer.load(args.adaface_ckpt_path, extend_mkv_multiplier=mult)
     return trainer, dataset, start_step
+
+
+def build_gma(path: str | None, device, gen: torch.Generator):
+    """The elastic matching's GMA in fp32: converted from the torch
+    `gma-sintel.pth` at `path` (`models/gma.convert_gma_state_dict`), else
+    random at `init_gma_params`' scales (`train.py:170-188`)."""
+    from adaface_tpu_torch.core import bridge
+    from adaface_tpu_torch.core.params import build
+    from adaface_tpu_torch.models.gma import GMA, convert_gma_state_dict, init_gma_weights_
+    from adaface_tpu_torch.tools.ckpt_lib import load_state_dict
+
+    model = build(GMA, device, torch.float32, init_gma_weights_, gen)
+    if path:
+        bridge.load(model, convert_gma_state_dict(load_state_dict(path)))
+        print(f"loaded the GMA flow from {path}", flush=True)
+    print("GMA latent flow enabled for elastic matching", flush=True)
+    return model
 
 
 def scaled_lr(trainer_cfg) -> float:
@@ -222,6 +261,14 @@ def parse_args(argv=None):
                          "diffusers UNet); random if omitted")
     ap.add_argument("--scale_lr", action="store_true",
                     help="lr = accum_steps x devices x batch_size x lr")
+    ap.add_argument("--comp_unet_weight_path", default=None,
+                    help="UNet weights for the comp-distill iterations (.safetensors / .ckpt, "
+                         "swapped into the frozen UNet for them)")
+    ap.add_argument("--extend_mkv_multiplier",
+                    "--extend_prompt2token_proj_attention_multiplier",
+                    type=int, default=1, dest="extend_mkv_multiplier",
+                    help="replicate the warm-start checkpoint's prompt2token_proj K/V "
+                         "projections Nx (the round-2 recipe)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("overrides", nargs="*", help="dot.key=value overrides")
     args = ap.parse_args(argv)
