@@ -19,6 +19,11 @@ they load. The GMA flow network's tree (`models.gma.convert_gma_state_dict`,
 or `init_gma_params`') loads into `models.gma.GMA` by the same rules: its
 instance norms hold nothing, its batch norms their statistics.
 
+A tree of `quantize_unet_params` (`adaface_tpu/ops/quant.py:108`) loads with
+`load_quantized`: each node with `w_q` becomes the port's `Int8Conv2d` /
+`Int8Linear`, its HWIO `w_q` → [O, kh, kw, I] and IO → [O, I] (int8), its
+`w_scale` as it is; `tree_state_dict` writes them back in JAX's layouts.
+
 The UNet's adapters (`attn_lora`, `ffn_lora`) go through `lora_state_dict`
 and back through `lora_tree`: a dense `a` [in, r] / `b` [r, out] becomes
 `lora_a` [r, in] / `lora_b` [out, r], a conv `a` HWIO [3, 3, in, r] / `b`
@@ -63,6 +68,8 @@ def _leaf(name: str, value) -> tuple[str, torch.Tensor]:
         elif a.ndim == 2:
             a = a.T
         leaf = "weight"
+    elif leaf == "w_q":  # int8: HWIO → [O, kh, kw, I], IO → [O, I]
+        a = a.transpose(3, 0, 1, 2) if a.ndim == 4 else a.T
     elif leaf == "b":
         leaf = "bias"
     elif leaf == "scale":
@@ -106,6 +113,24 @@ def load(module: nn.Module, tree: Any) -> nn.Module:
     return module.requires_grad_(False).eval()
 
 
+def load_quantized(module: nn.Module, tree: Any) -> nn.Module:
+    """Load a JAX tree of `quantize_unet_params` into `module` (a UNet built
+    at its config): each layer whose node holds `w_q` is first swapped, in
+    `module`, for an `Int8Conv2d` / `Int8Linear`, then everything loads as
+    `load` loads it."""
+    from adaface_tpu_torch.ops.quant import Int8Conv2d, Int8Linear
+
+    for name, _ in _walk(tree, ""):
+        head, _, leaf = name.rpartition(".")
+        if leaf == "w_q":
+            parent_name, _, child = head.rpartition(".")
+            parent = module.get_submodule(parent_name)
+            base = parent.get_submodule(child)
+            parent.register_module(
+                child, Int8Conv2d(base) if isinstance(base, nn.Conv2d) else Int8Linear(base))
+    return load(module, tree)
+
+
 def vae_decoder_tree(vae_params: dict) -> dict:
     """The decode half of the JAX VAE params (`vae.py:174-224`)."""
     return {"decoder": vae_params["decoder"],
@@ -145,10 +170,17 @@ def tree_state_dict(module: nn.Module) -> dict[str, np.ndarray]:
     flatten_tree` of it), as fp32 numpy arrays: conv weights OIHW → HWIO `w`,
     dense [out, in] → [in, out] `w`, their biases `b`, a norm's weight
     `scale` (its bias `bias`), running statistics `mean` / `var`, and a fused
-    `qkv` / `kv` weight split back into `q`, `k`, `v`."""
+    `qkv` / `kv` weight split back into `q`, `k`, `v`; an int8 layer's `w_q`
+    (int8, HWIO or IO), `w_scale` and `b`."""
     out: dict[str, np.ndarray] = {}
     for name, mod in module.named_modules():
         prefix = f"{name}." if name else ""
+        if hasattr(mod, "w_q"):
+            w_q = mod.w_q.cpu().numpy()
+            out[f"{prefix}w_q"] = w_q.transpose(1, 2, 3, 0) if w_q.ndim == 4 else w_q.T
+            out[f"{prefix}w_scale"] = mod.w_scale.float().cpu().numpy()
+            out[f"{prefix}b"] = mod.bias.detach().float().cpu().numpy()
+            continue
         tensors = dict(mod.named_parameters(recurse=False))
         tensors.update({k: v for k, v in mod.named_buffers(recurse=False)
                         if k in BN_STATS.values()})

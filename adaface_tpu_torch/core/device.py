@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import subprocess
+import threading
 from contextlib import contextmanager
 
 import torch
@@ -25,12 +26,38 @@ def fp32_convolutions(matmuls: bool = False):
     decorator): PyTorch lets them use TF32 by default, which moves a face
     detector's boxes and so the face path off its fp32 reference. With
     `matmuls`, cuBLAS matmuls lose TF32 too (off by PyTorch's default, but a
-    caller may have turned it on)."""
-    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    if matmuls:
-        torch.backends.cuda.matmul.allow_tf32 = False
+    caller may have turned it on).
+
+    The flags are global to the process, and the trainer's prefetch thread
+    opens blocks beside the main thread's: so each flag keeps a count of the
+    blocks open on it, under one lock. The first block to open saves and
+    clears the flag, the last to close restores it; a block without
+    `matmuls` leaves cuBLAS's flag alone."""
+    flags = ("cudnn", "matmul") if matmuls else ("cudnn",)
+    with _TF32_LOCK:
+        for flag in flags:
+            if _TF32_OPEN[flag] == 0:
+                _TF32_SAVED[flag] = _tf32(flag)
+                _set_tf32(flag, False)
+            _TF32_OPEN[flag] += 1
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        with _TF32_LOCK:
+            for flag in flags:
+                _TF32_OPEN[flag] -= 1
+                if _TF32_OPEN[flag] == 0:
+                    _set_tf32(flag, _TF32_SAVED.pop(flag))
+
+
+_TF32_LOCK = threading.Lock()
+_TF32_OPEN = {"cudnn": 0, "matmul": 0}  # blocks open on each flag
+_TF32_SAVED: dict[str, bool] = {}  # each flag's value before its first block
+
+
+def _tf32(flag: str) -> bool:
+    return (torch.backends.cudnn if flag == "cudnn" else torch.backends.cuda.matmul).allow_tf32
+
+
+def _set_tf32(flag: str, value: bool) -> None:
+    (torch.backends.cudnn if flag == "cudnn" else torch.backends.cuda.matmul).allow_tf32 = value

@@ -7,8 +7,13 @@ LCM by the `scheduler` argument), VAE decode, then (img + 1) / 2 clipped to
 device on the way. The UNet may carry trained attention and FFN DoRA
 adapters (`attn_lora`, `ffn_lora`, as `AdaFaceWrapper.load_unet_lora_weights`
 loads them), and may be a list of UNets whose predictions are weighted
-(`unet_weights`, the JAX package's UNet ensemble). DeepCache, ToMe and int8
-are not ported.
+(`unet_weights`, the JAX package's UNet ensemble).
+
+The three speed modes of the JAX pipeline (`:74-81`, `:131-179`,
+`:199-262`): `quantize_unet` (int8 PTQ of the UNet's convolutions,
+`ops/quant.py`; each member of an ensemble), `deepcache_interval` (DDIM
+only: the full UNet every Nth step, the shallow one on its cached feature
+between) and `tome_ratio` / `tome` (token merging, `ops/tome.py`).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from adaface_tpu_torch.models.clip import (CLIP_L_TEXT, CLIPTextConfig, CLIPText
 from adaface_tpu_torch.models.unet import (SD15_UNET, AttnLoRA, AttnRuntime, FFNLoRA,
                                            UNet2DConditionModel, UNetConfig, init_unet_weights_)
 from adaface_tpu_torch.models.vae import SD_VAE, VAEConfig, VAEDecoder, VAEEncoder
+from adaface_tpu_torch.ops import quant
+from adaface_tpu_torch.ops.tome import ToMeConfig
 from adaface_tpu_torch.ops.samplers import (DDIMConfig, ddim_sample, dpm_solver_pp_sample,
                                             lcm_sample, pndm_sample)
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
@@ -63,13 +70,18 @@ class PipelineModules:
                            use_ffn_lora=self.ffn_lora is not None,
                            ffn_adapter=self.ffn_adapter if self.ffn_lora is not None else None)
 
-    def unet_eps(self, x, t, ctx):
+    def unet_eps(self, x, t, ctx, tome: ToMeConfig | None = None, deepcache=None):
         """The UNet's prediction with the adapters (`_unet_eps`,
         `adaface_tpu/inference/pipeline.py:110-128`); for a list of UNets
-        Σ wᵢ·epsᵢ in fp32, w normalized to sum 1."""
-        kw = dict(rt=self.runtime(), attn_lora=self.attn_lora, ffn_lora=self.ffn_lora)
+        Σ wᵢ·epsᵢ in fp32, w normalized to sum 1. `tome` and `deepcache` go
+        to the UNet's call (with "collect" it returns (eps, cache)); an
+        ensemble takes no `deepcache`."""
+        kw = dict(rt=self.runtime(), attn_lora=self.attn_lora, ffn_lora=self.ffn_lora,
+                  tome=tome)
         if not isinstance(self.unet, (list, tuple)):
-            return self.unet(x, t, ctx, **kw)
+            return self.unet(x, t, ctx, deepcache=deepcache, **kw)
+        if deepcache is not None:
+            raise ValueError("deepcache is not supported with UNet ensembles")
         n = len(self.unet)
         w = torch.tensor(self.unet_weights or [1.0 / n] * n, dtype=torch.float32)
         if len(w) != n:
@@ -97,7 +109,15 @@ class PipelineModules:
 
 
 class DiffusionPipeline:
-    def __init__(self, modules: PipelineModules, dtype=torch.bfloat16):
+    def __init__(self, modules: PipelineModules, dtype=torch.bfloat16,
+                 quantize_unet: bool = False):
+        """quantize_unet: serve int8 PTQ UNets (`ops.quant.quantize_unet`,
+        convolutions only, each member of an ensemble); the caller's
+        `modules` keep their UNets."""
+        if quantize_unet:
+            unets = [quant.quantize_unet(u) for u in modules.unets]
+            modules = dataclasses.replace(
+                modules, unet=unets if isinstance(modules.unet, (list, tuple)) else unets[0])
         self.m = modules
         self.dtype = dtype
         self.device = modules.device
@@ -121,12 +141,19 @@ class DiffusionPipeline:
                  width: int = 512, generator: torch.Generator | None = None,
                  latents: torch.Tensor | None = None, return_latents: bool = False,
                  scheduler: str = "ddim", eta: float = 0.0,
-                 noise: torch.Tensor | None = None):
+                 noise: torch.Tensor | None = None, deepcache_interval: int = 0,
+                 tome_ratio: float = 0.0, tome: ToMeConfig | None = None):
         """→ images [B, 3, H, W] float32 in [0, 1] (or the final latents).
         `latents` [B, 4, H/s, W/s] replaces the initial noise from `generator`.
         `scheduler`: "ddim" (with `eta`), "dpm++", "pndm" or "lcm" (no CFG).
         The samplers that draw inside their loop (DDIM at eta > 0, LCM) draw
-        from `generator`, or take `noise` [draws, B, 4, H/s, W/s]."""
+        from `generator`, or take `noise` [draws, B, 4, H/s, W/s].
+
+        `deepcache_interval` > 1: DDIM runs the full UNet every Nth step and
+        the shallow one between (an ensemble raises); dpm++, pndm and lcm
+        ignore it, as the JAX pipeline does. `tome_ratio` > 0: ToMe at that
+        ratio with the other defaults of `ToMeConfig`; `tome` (a whole
+        config) overrides it. Every scheduler takes ToMe."""
         if isinstance(prompts, str):
             prompts = [prompts]
         b = len(prompts)
@@ -138,13 +165,29 @@ class DiffusionPipeline:
         cond, uncond = self.encode_prompt(
             prompts, [negative_prompt] * b if guidance_scale > 1 else None,
             max_length=max_len)
-        unet, schedule = self.m.unet_eps, self.m.schedule
+        if tome is None and tome_ratio > 0.0:
+            tome = ToMeConfig(ratio=tome_ratio)
+        schedule = self.m.schedule
+
+        def unet(x, t, ctx):
+            return self.m.unet_eps(x, t, ctx, tome=tome)
+
         if scheduler == "ddim":
             ddim_cfg = DDIMConfig(num_inference_steps=num_inference_steps, eta=eta,
                                   guidance_scale=guidance_scale,
                                   guidance_scale_min=guidance_scale_min)
+            dc = None
+            if deepcache_interval > 1:  # an ensemble raises in `unet_eps`
+
+                def full(x, t, ctx):
+                    return self.m.unet_eps(x, t, ctx, tome=tome, deepcache="collect")
+
+                def shallow(x, t, ctx, cache):
+                    return self.m.unet_eps(x, t, ctx, tome=tome, deepcache=("shallow", cache))
+
+                dc = (deepcache_interval, full, shallow, None)
             z0 = ddim_sample(unet, schedule, latents, cond, uncond, ddim_cfg,
-                             generator=generator, noise=noise)
+                             generator=generator, noise=noise, deepcache=dc)
         elif scheduler == "dpm++":
             z0 = dpm_solver_pp_sample(unet, schedule, latents, cond, uncond,
                                       num_inference_steps=num_inference_steps,

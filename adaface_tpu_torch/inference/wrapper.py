@@ -15,8 +15,10 @@ a trained checkpoint's SubjBasisGenerators (MKV-extended ones too);
 `load_unet_lora_weights`
 (`:203-221`) reads the UNet's trained DoRA adapters from a checkpoint of the
 port's trainer; the pipeline and the batcher run with them.
+`quantize_unet=True` serves int8 PTQ UNets (`:56`, `:92`): the pipeline and
+every batcher `make_batcher` builds run the quantized UNet.
 
-The other pipelines (video, SDXL, SD3) and int8 serving are not ported yet.
+The other pipelines (video, SDXL, SD3) are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ class AdaFaceWrapper:
                  id2ada_prompt_encoder, guidance_scale: float = 6.0,
                  num_inference_steps: int = 50,
                  out_id_embs_cfg_scale: float | None = None,
-                 dtype=torch.bfloat16, max_prompt_length: int = 77):
+                 dtype=torch.bfloat16, max_prompt_length: int = 77,
+                 quantize_unet: bool = False):
         if pipeline_name not in SUPPORTED_PIPELINES:
             raise NotImplementedError(
                 f"pipeline {pipeline_name!r} is not ported; the PyTorch port serves "
@@ -53,7 +56,7 @@ class AdaFaceWrapper:
         if pipeline_name == "img2img" and modules.vae_encoder is None:
             raise ValueError("the img2img pipeline needs PipelineModules.vae_encoder")
         self.pipeline_name = pipeline_name
-        self.pipeline = DiffusionPipeline(modules, dtype=dtype)
+        self.pipeline = DiffusionPipeline(modules, dtype=dtype, quantize_unet=quantize_unet)
         self.dtype = dtype
         self.id2ada_prompt_encoder = id2ada_prompt_encoder
         self.guidance_scale = guidance_scale

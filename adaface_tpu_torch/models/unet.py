@@ -1,8 +1,22 @@
-"""SD1.5 UNet (UNet2DConditionModel) with the training path's adapters.
+"""SD1.5 UNet (UNet2DConditionModel) with the training path's adapters and
+the serving speed modes.
 
 Counterpart of `unet_apply` in `adaface_tpu/models/unet.py` without its
-DeepCache, ToMe, int8 or motion branches. NCHW latents in and out, as the
-JAX interface (`unet.py:685`). The options the training iterations use:
+motion and SDXL branches. NCHW latents in and out, as the JAX interface
+(`unet.py:685`). The serving speed modes:
+
+- `deepcache` (`unet.py:698-731`): "collect" also returns the feature that
+  enters the last up block; ("shallow", feat) runs conv_in, down block 0
+  without its downsample, the last up block on `feat` and the head;
+- `tome` (`ops/tome.py`, `_transformer2d` `unet.py:605-668`): token
+  merging around each self-attention (and by the config the
+  cross-attention's queries and the GEGLU) of every transformer whose map
+  has at least `min_tokens` tokens, unless an `img_mask` is given;
+- int8: `ops.quant.quantize_unet` swaps the convolutions (and optionally
+  the biased projections) for `Int8Conv2d` / `Int8Linear`; a DoRA adapter
+  composes on their dequantized weight (`unet.py:214-217`, `:233-236`).
+
+The options the training iterations use:
 
 - `img_mask` [B, 1, H, W] drops the keys outside the mask from every
   self-attention (resized nearest to each level);
@@ -47,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adaface_tpu_torch.core.params import init_fan_in_, normal_
+from adaface_tpu_torch.ops import tome as tome_ops
 from adaface_tpu_torch.ops.attention import multi_head_attention
 from adaface_tpu_torch.ops.fused_gn import GroupNorm
 from adaface_tpu_torch.ops.fused_ln import LayerNorm
@@ -121,6 +136,14 @@ def _conv(cin, cout, k=3, stride=1):
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2)
 
 
+def _base_weight(base: nn.Module) -> torch.Tensor:
+    """A layer's weight for a DoRA adapter to compose on: an int8 layer's
+    dequantized w_q · w_scale (`ops.quant.Int8Conv2d` / `Int8Linear`),
+    else its own."""
+    dequantized = getattr(base, "dequantized", None)
+    return base.weight if dequantized is None else dequantized()
+
+
 def _gated(gate, adapted, plain):
     """Row by row: `adapted` where gate > 0, else `plain` (`jnp.where` on a
     [B] gate); the memory format of `adapted` kept."""
@@ -148,7 +171,7 @@ class DoRALinear(nn.Module):
         self.magnitude = nn.Parameter(torch.ones(out_features))
 
     def forward(self, base: nn.Linear, x, scale: float):
-        w = base.weight.float() + scale * (self.lora_b.float() @ self.lora_a.float())
+        w = _base_weight(base).float() + scale * (self.lora_b.float() @ self.lora_a.float())
         w = w * (self.magnitude[:, None] / (torch.linalg.vector_norm(w, dim=1, keepdim=True)
                                             + 1e-8))
         bias = None if base.bias is None else base.bias.to(x.dtype)
@@ -169,7 +192,7 @@ class DoRAConv(nn.Module):
     def forward(self, base: nn.Conv2d, x, scale: float):
         delta = torch.einsum("or,rihw->oihw", self.lora_b[:, :, 0, 0].float(),
                              self.lora_a.float())
-        w = base.weight.float() + scale * delta
+        w = _base_weight(base).float() + scale * delta
         w = w * (self.magnitude[:, None, None, None]
                  / (torch.sqrt((w * w).sum(dim=(1, 2, 3), keepdim=True)) + 1e-8))
         w = w.to(x.dtype).contiguous(memory_format=torch.channels_last)
@@ -358,11 +381,29 @@ class TransformerBlock(nn.Module):
         self.ff = nn.ModuleDict({"proj_in": nn.Linear(dim, dim * 8),  # GEGLU 2·4·dim
                                  "proj_out": nn.Linear(dim * 4, dim)})
 
-    def forward(self, y, context, img_mask=None, **cross):
-        y = y + self.attn1(self.norm1(y), kv_mask=img_mask)
-        y = y + self.attn2(self.norm2(y), context, **cross)
-        val, gate = self.ff["proj_in"](self.norm3(y)).chunk(2, dim=-1)
-        return y + self.ff["proj_out"](val * F.gelu(gate, approximate="tanh"))
+    def forward(self, y, context, img_mask=None, tome=None, **cross):
+        """`tome`: (ToMeConfig, merge, unmerge) of this block's tokens, or
+        None; merge and unmerge go around attn1, around attn2 with
+        `merge_crossattn` (not under capture, the cross-attention's
+        normalization or mixing, `unet.py:647-649`) and around the GEGLU
+        with `merge_mlp`."""
+        cfg, merge, unmerge = tome or (None, None, None)
+        if merge is None:
+            y = y + self.attn1(self.norm1(y), kv_mask=img_mask)
+        else:
+            y = y + unmerge(self.attn1(merge(self.norm1(y)), kv_mask=img_mask))
+        rt = cross.get("rt", PLAIN)
+        merge_ca = (merge is not None and cfg.merge_crossattn and cross.get("capture") is None
+                    and not rt.normalize_cross_attn and not rt.mix_attn_mats_in_batch)
+        if merge_ca:
+            y = y + unmerge(self.attn2(merge(self.norm2(y)), context, **cross))
+        else:
+            y = y + self.attn2(self.norm2(y), context, **cross)
+        merge_mlp = merge is not None and cfg.merge_mlp
+        ff_in = self.norm3(y)
+        val, gate = self.ff["proj_in"](merge(ff_in) if merge_mlp else ff_in).chunk(2, dim=-1)
+        ff_out = self.ff["proj_out"](val * F.gelu(gate, approximate="tanh"))
+        return y + (unmerge(ff_out) if merge_mlp else ff_out)
 
 
 class Transformer2D(nn.Module):
@@ -373,16 +414,25 @@ class Transformer2D(nn.Module):
         self.proj_out = _conv(c, c, k=1)
         self.block = TransformerBlock(c, cross_dim, cfg.num_heads, cfg.fused_ln)
 
-    def forward(self, x, context, img_mask=None, **cross):
+    def forward(self, x, context, img_mask=None, tome=None, **cross):
         """img_mask [B, 1, H0, W0] or None: the self-attention's key mask,
-        resized nearest to this map; `cross`: the cross-attention's options
-        (`Attention.forward`)."""
+        resized nearest to this map; `tome`: a `ToMeConfig` or None (on
+        only at ratio > 0, at least `min_tokens` tokens and no img_mask; the
+        merge is built from the `proj_in` tokens); `cross`: the
+        cross-attention's options (`Attention.forward`)."""
         b, c, h, w = x.shape
         if img_mask is not None:
             img_mask = resize_nearest(img_mask.float(), (h, w)).reshape(b, h * w)
         y = self.proj_in(self.norm(x))
         # a channels-last map is the [B, H·W, C] token matrix: views both ways
-        y = self.block(y.permute(0, 2, 3, 1).reshape(b, h * w, c), context, img_mask, **cross)
+        y = y.permute(0, 2, 3, 1).reshape(b, h * w, c)
+        merging = None
+        if tome is not None and tome.ratio > 0.0 and h * w >= tome.min_tokens \
+                and img_mask is None:
+            merge, unmerge, _ = tome_ops.build_merge(y, h, w, int(h * w * tome.ratio), tome.sx,
+                                                     tome.sy, tome.rand_seed)
+            merging = (tome, merge, unmerge)
+        y = self.block(y, context, img_mask, tome=merging, **cross)
         return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x
 
 
@@ -453,7 +503,7 @@ class UNet2DConditionModel(nn.Module):
     def forward(self, x, t, context, img_mask=None, capture: dict | None = None,
                 rt: AttnRuntime = PLAIN, kv_mask=None, attn_lora: AttnLoRA | None = None,
                 ffn_lora: FFNLoRA | None = None, subj_mask=None, attn_lora_gate=None,
-                ffn_lora_gate=None):
+                ffn_lora_gate=None, tome: tome_ops.ToMeConfig | None = None, deepcache=None):
         """eps [B, 4, h, w] for latents x [B, 4, h, w], timesteps t [B] and
         text context [B, S, cross_attn_dim]; computes in context's dtype.
         img_mask [B, 1, H, W]: the self-attentions' key mask; kv_mask [B, S]:
@@ -461,7 +511,23 @@ class UNet2DConditionModel(nn.Module):
         receives {key: {22 + i: tensor}} of the last up block's
         cross-attentions (q, q2, k, v, attn, attnscore, attn_out, outfeat);
         `rt` the adapters' and the attention's flags; subj_mask [B, S] the
-        subject tokens; the gates [B] select the adapters row by row."""
+        subject tokens; the gates [B] select the adapters row by row; `tome`
+        merges tokens in every transformer it applies to.
+
+        `deepcache` (`unet.py:698-731`): "collect" → (eps, the feature that
+        enters the last up block, channels-last); ("shallow", feat) → eps of
+        conv_in, down block 0 without its downsample (the three skips they
+        push are the three the last up block pops), the last up block on
+        `feat` and the head. The captured cross-attentions 22-24 live in the
+        last up block, so a shallow call captures them exactly."""
+        dc_mode, dc_feat = None, None
+        if deepcache == "collect":
+            dc_mode = "collect"
+        elif deepcache is not None:
+            dc_mode, dc_feat = deepcache
+            if dc_mode != "shallow":
+                raise ValueError(f"UNet: deepcache is None, 'collect' or ('shallow', feat), "
+                                 f"got {deepcache!r}")
         if rt.capture and capture is None:
             raise ValueError("UNet: rt.capture needs a dict to fill (capture=)")
         x = x.to(context.dtype).contiguous(memory_format=torch.channels_last)
@@ -471,28 +537,37 @@ class UNet2DConditionModel(nn.Module):
         temb = timestep_embedding(t, self.cfg.block_channels[0],
                                   freqs=self.time_freqs).to(context.dtype)
         temb = self.time_mlp["fc2"](F.silu(self.time_mlp["fc1"](temb)))
-        cross = dict(rt=rt, kv_mask=kv_mask, subj_mask=subj_mask)
+        cross = dict(rt=rt, kv_mask=kv_mask, subj_mask=subj_mask, tome=tome)
         ffn_ad = None
         if rt.use_ffn_lora and ffn_lora is not None and rt.ffn_adapter is not None:
             ffn_ad = ffn_lora[rt.ffn_adapter]
         scale = self.cfg.lora_scale
+        shallow = dc_mode == "shallow"
         h = self.conv_in(x)
         skips = [h]
-        for blk in self.down_blocks:
+        for blk in self.down_blocks[:1] if shallow else self.down_blocks:
             for li, res in enumerate(blk.resnets):
                 h = res(h, temb)
                 if len(blk.attentions):
                     h = blk.attentions[li](h, context, img_mask, **cross)
                 skips.append(h)
-            if blk.downsample is not None:
+            if blk.downsample is not None and not shallow:
                 h = blk.downsample(h)
                 skips.append(h)
-        h = self.mid["resnet1"](h, temb)
-        h = self.mid["attention"](h, context, img_mask, **cross)
-        h = self.mid["resnet2"](h, temb)
+        if not shallow:
+            h = self.mid["resnet1"](h, temb)
+            h = self.mid["attention"](h, context, img_mask, **cross)
+            h = self.mid["resnet2"](h, temb)
         grad_scale = gen_gradient_scaler(rt.res_hidden_gradscale)
+        feat = None
         for bi, blk in enumerate(self.up_blocks):
             last = bi == len(self.up_blocks) - 1
+            if shallow:
+                if not last:
+                    continue
+                h = dc_feat.to(context.dtype).contiguous(memory_format=torch.channels_last)
+            elif dc_mode == "collect" and last:
+                feat = h
             for li, res in enumerate(blk.resnets):
                 skip = skips.pop()
                 if bi >= 1:  # the skip features' gradient scale (`unet.py:811-815`)
@@ -511,7 +586,8 @@ class UNet2DConditionModel(nn.Module):
                             capture.setdefault(key, {})[label] = val
             if blk.upsample is not None:
                 h = blk.upsample(F.interpolate(h, scale_factor=2.0, mode="nearest"))
-        return self.conv_out(self.conv_norm_out(h, silu=True)).contiguous()
+        eps = self.conv_out(self.conv_norm_out(h, silu=True)).contiguous()
+        return (eps, feat) if dc_mode == "collect" else eps
 
 
 def init_unet_weights_(model: UNet2DConditionModel, gen: torch.Generator) -> None:

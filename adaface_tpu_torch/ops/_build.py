@@ -30,7 +30,7 @@ CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu", "flash_attn_bwd.cu",
            "flash_attn_bwd_wg.cu", "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu",
-           "launch_floor.cu")
+           "int8_conv.cu", "launch_floor.cu")
 # included by the sources: in the hash
 HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_bwd.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -164,6 +164,15 @@ def load_library() -> ctypes.CDLL:
     # x, w, b, y, rows, C, packs, lanes, warps, threads, eps, bf16, stream
     lib.layer_norm.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, i32, f32, i32, p]
     lib.layer_norm.restype = i32
+    # x, elements, amax, stream; x, amax, x_q, elements, stream
+    lib.quant_amax.argtypes = [p, i64, p, p]
+    lib.quant_amax.restype = i32
+    lib.quant_act.argtypes = [p, p, p, i64, p]
+    lib.quant_act.restype = i32
+    # x_q, w_q, w_scale, bias, amax, y, N, H, W, I, O, kh, kw, stride, pad, Ho, Wo, splits,
+    # workspace (partial tiles, then tile counters), stream
+    lib.int8_conv_igemm.argtypes = [p] * 6 + [i32] * 12 + [p, p]
+    lib.int8_conv_igemm.restype = i32
     lib.launch_floor.argtypes = [p]
     lib.launch_floor.restype = i32
     return lib

@@ -7,7 +7,8 @@ are numbers computed on the host, in float32 where the JAX loop computes
 them on fp32 arrays and in float64 where it uses numpy, so a step launches
 only the model call and a few elementwise ops. CFG batches [uncond; cond]
 into one model call per step, and the state is cast as in the JAX loops.
-The `deepcache` argument of the JAX `ddim_sample` is not ported.
+`ddim_sample` takes the JAX function's `deepcache` (encoder caching: the full
+UNet every `interval`-th step, the shallow one on its cached feature between).
 
 Where the JAX function draws noise from a key inside its loop (`ddim_sample`
 at eta > 0, `lcm_sample`), the function here draws from a `torch.Generator`,
@@ -116,20 +117,39 @@ def _draws(noise, n: int, shape, generator, device):
 
 def ddim_sample(model_fn: ModelFn, schedule: DiffusionSchedule, x_T, cond_ctx,
                 uncond_ctx=None, cfg: DDIMConfig = DDIMConfig(),
-                generator: torch.Generator | None = None, noise=None):
+                generator: torch.Generator | None = None, noise=None,
+                deepcache: tuple | None = None):
     """The DDIM loop; with uncond_ctx, CFG over [uncond; cond] per step.
     At eta > 0 each step adds sigma · (a draw from `generator`, or
-    `noise[i]` of `noise` [n, *x_T.shape])."""
+    `noise[i]` of `noise` [n, *x_T.shape]).
+
+    deepcache = (interval, full_fn, shallow_fn, init_cache), as in JAX
+    (`samplers.py:102-168`): at interval > 1, step i runs
+    `full_fn(x, t, ctx) -> (eps, cache)` where i % interval == 0 and
+    `shallow_fn(x, t, ctx, cache) -> eps` on the last cache otherwise. Step 0
+    is always full, so `init_cache` is never read (None will do); the
+    argument keeps the JAX call's shape."""
     ts, alpha_t, alpha_prev = _alpha_tables(schedule, cfg)
     scales = guidance_scales(cfg)
+    step = 0
+    if deepcache is not None and deepcache[0] > 1:
+        interval, full_fn, shallow_fn, cache = deepcache
+
+        def model_fn(x, t, ctx):  # noqa: F811 (the cached UNet for step `step`)
+            nonlocal cache
+            if step % interval == 0:
+                eps, cache = full_fn(x, t, ctx)
+                return eps
+            return shallow_fn(x, t, ctx, cache)
+
     eps_fn = _cfg_model(model_fn, cond_ctx, uncond_ctx, x_T.shape[0], x_T.device)
     if cfg.eta > 0:
         noise = _draws(noise, len(ts), x_T.shape, generator, x_T.device)
     x = x_T
-    for i in range(len(ts)):
-        eps = eps_fn(x, int(ts[i]), float(scales[i]))
-        x_prev, _ = ddim_step(x, eps, alpha_t[i], alpha_prev[i], cfg.eta,
-                              noise[i] if cfg.eta > 0 else None)
+    for step in range(len(ts)):
+        eps = eps_fn(x, int(ts[step]), float(scales[step]))
+        x_prev, _ = ddim_step(x, eps, alpha_t[step], alpha_prev[step], cfg.eta,
+                              noise[step] if cfg.eta > 0 else None)
         x = x_prev.to(x_T.dtype)
     return x
 

@@ -15,6 +15,13 @@ batches, and the card's name and power limit.
 
 `vs_baseline` compares with the repository's north star of 2,000
 generations an hour and chip (0.5556 imgs/sec): a target, not a measurement.
+
+The speed modes, as `bench.py` reads them (all off by default, so the
+headline is the full-precision, full-computation loop; the JSON line names
+them under `modes`): `ADAFACE_BENCH_INT8=1` serves int8 PTQ UNets,
+`ADAFACE_BENCH_DEEPCACHE=N` (N > 1) runs the full UNet every Nth step,
+`ADAFACE_BENCH_TOME=R` (0 < R < 1) merges that fraction of the 64² level's
+tokens.
 """
 
 from __future__ import annotations
@@ -36,12 +43,21 @@ PROMPT = "portrait photo of z person at the beach, high quality"
 NEGATIVE_PROMPT = "lowres, low quality"
 
 
-def timed_runs(pipe: DiffusionPipeline, batch: int, n_iters: int) -> list[float]:
+def modes_from_env() -> dict:
+    """The speed modes `bench.py` reads from the environment."""
+    return {"int8": os.environ.get("ADAFACE_BENCH_INT8", "0") == "1",
+            "deepcache_interval": int(os.environ.get("ADAFACE_BENCH_DEEPCACHE", "0")),
+            "tome_ratio": float(os.environ.get("ADAFACE_BENCH_TOME", "0"))}
+
+
+def timed_runs(pipe: DiffusionPipeline, batch: int, n_iters: int, deepcache_interval: int = 0,
+               tome_ratio: float = 0.0) -> list[float]:
     """Seconds of `n_iters` runs at `batch`, after one discarded warm-up run."""
     def run(seed: int) -> float:
         t0 = time.perf_counter()
         pipe([PROMPT] * batch, negative_prompt=NEGATIVE_PROMPT, num_inference_steps=STEPS,
-             guidance_scale=6.0, generator=torch.Generator("cuda").manual_seed(seed))
+             guidance_scale=6.0, generator=torch.Generator("cuda").manual_seed(seed),
+             deepcache_interval=deepcache_interval, tome_ratio=tome_ratio)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -57,17 +73,20 @@ def spread(times: list[float]) -> dict:
 def main() -> None:
     card = require_card()
     n_iters = int(os.environ.get("ADAFACE_BENCH_ITERS", "5"))
+    modes = modes_from_env()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    pipe = DiffusionPipeline(PipelineModules.random_init(gen, "cuda", torch.bfloat16))
+    pipe = DiffusionPipeline(PipelineModules.random_init(gen, "cuda", torch.bfloat16),
+                             quantize_unet=modes["int8"])
+    loop = {k: modes[k] for k in ("deepcache_interval", "tome_ratio")}
 
     batches = {}
     for batch in BATCHES:
-        times = timed_runs(pipe, batch, n_iters)
+        times = timed_runs(pipe, batch, n_iters, **loop)
         batches[batch] = {"imgs_per_sec": round(batch / statistics.median(times), 4),
                           "iter_sec_spread": spread(times)}
         torch.cuda.empty_cache()
     best = max(batches, key=lambda b: batches[b]["imgs_per_sec"])
-    latencies = timed_runs(pipe, 1, n_iters)
+    latencies = timed_runs(pipe, 1, n_iters, **loop)
 
     print(json.dumps({
         "metric": "personalized_gen_512_25step_throughput",
@@ -78,6 +97,7 @@ def main() -> None:
         "iter_sec_spread": batches[best]["iter_sec_spread"],
         "batch": best,
         "batches": {str(b): r for b, r in batches.items()},
+        "modes": modes,
         "latency_sec_spread_bs1": spread(latencies),
         "card": card,
         "device": torch.cuda.get_device_name(0),

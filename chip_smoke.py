@@ -38,7 +38,14 @@ Phases (any failure raises and the exit code is not 0):
      forward kept, themselves held to `gn_stats_plain`) against the
      closed-form VJP (dx, dγ, dβ) at every UNet GroupNorm shape at batch 16
      and every VAE decoder map at batch 2, each twice to the same bits; the flash
-     forward at the teacher's 16-token cross-attention; print errors,
+     forward at the teacher's 16-token cross-attention and at ToMe's merged
+     64x64 self-attentions (S 2048 and 2868: ragged tiles); the int8 kernels
+     (`quant_amax`, `quant_act`, `int8_conv_igemm`) at every int8 layer shape
+     of the SD1.5 UNet (convolutions and the `quantize_dense` layers) at CFG
+     batch 2 and batch 16, found by a census of one int8 UNet call at each,
+     bit for bit against their plain versions (fp64 sums), twice to the same
+     bits, a split reduction against an unsplit one, beside cuDNN's bf16
+     convolution and im2col + `torch._int_mm` (yardsticks); print errors,
      median times (single launches, and for GroupNorm, LayerNorm, BatchNorm
      and the backward kernels also 20 launches as a CUDA graph: the device
      alone), each kernel's bound (the larger of bytes / 3.35 TB/s and
@@ -137,7 +144,19 @@ Phases (any failure raises and the exit code is not 0):
      CPU (<= 1e-5 a tensor); and the fit's MKV checkpoint served
      (`serve_mkv`: ada embeddings card against CPU <= 1e-5, launches equal to
      an unextended request's).
-Between phases 6 and 7, `serve_trained` serves what the port's trainers
+Between phases 6 and 7, `serve_speed_modes` runs the pipeline's three speed
+modes on the phase-5 modules: one int8 UNet call kernels against plain and
+against the bf16 call (relative L2, correlation); a small request of each
+mode kernels against plain (ToMe with the kernel run's merges handed to the
+plain run, the merges that differ unhanded counted); 3 requests at 512x512,
+25 steps, guidance 6.0 of the default path, DeepCache at intervals 3 and 5,
+ToMe 0.5, int8, int8 + DeepCache 3, each with its launches by kernel (held
+to the counts its UNet calls give), device time and operations, host time
+and pixel distance from the default image of the same seed, and a request
+run again (ToMe's held to the same bits: its merged sums are taken in a
+fixed order); the 8-slot
+batcher serving the int8 UNet: a drain and one step captured in a CUDA graph
+and replayed twice to the eager step's bits. Before it, `serve_trained` serves what the port's trainers
 write, on the same SD1.5 modules: the UNet's attention and FFN adapters at
 rank 192 (B and the magnitudes drawn off their start) written by
 `save_adaface_ckpt` as the trainer writes them and loaded by
@@ -216,6 +235,11 @@ FLASH_EXTRA_CASES = [
     ("contiguous 32x32 self", 2, 8, 1024, 1024, 80),
     ("misaligned D36 self", 2, 8, 1024, 1024, 36),
 ]
+# the 64x64 self-attention on ToMe's merged tokens (`ops/tome.py`): at ratio
+# 0.5 4096 - 2048 tokens, at 0.3 4096 - 1228 = 2868 (ragged query and key
+# tiles past 77 keys: no other path sends such a shape)
+FLASH_TOME_CASES = [("tome 0.5 64x64 self", 2, 8, 2048, 2048, 40),
+                    ("tome 0.3 64x64 self", 2, 8, 2868, 2868, 40)]
 # the teacher's cross-attention over the 16 Arc2Face image-prompt tokens
 # (forward only, batch 4): a key count no serving path sends
 FLASH_TEACHER_CASES = [(f"unet {hw} cross Sk16 teacher", 4, 8, s, 16, d)
@@ -476,7 +500,7 @@ def check_flash(gen) -> dict:
 
     results = {}
     for label, b, h, sq, sk, d in (FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES
-                                   + FLASH_TEACHER_CASES):
+                                   + FLASH_TEACHER_CASES + FLASH_TOME_CASES):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -506,6 +530,8 @@ def check_flash(gen) -> dict:
             f"{bound_ms:.4f} ms by {bound_by}, reached {bound_ms / dev:.1%}")
         if err > BF16_TOL * mag:
             raise AssertionError(f"flash {label}: error {err} above bound")
+        if label.startswith("tome") and plan.variant != "wg":
+            raise AssertionError(f"flash {label}: the plan leaves the wgmma kernel")
         results[label] = dict(variant=plan.variant, err=err, ms=ms, plain_ms=plain_ms,
                               stock_ms=stock_ms, run_ms=run,
                               stock_run_ms=stock_run, graph_ms=dev, stock_graph_ms=stock_dev,
@@ -1150,6 +1176,7 @@ def plain_versions():
     from adaface_tpu_torch.ops import fused_gn as G
     from adaface_tpu_torch.ops import fused_ln as L
     from adaface_tpu_torch.ops import fused_norm as N
+    from adaface_tpu_torch.ops import quant as Q
 
     def flash_plain(q, k, v, kv_mask=None, causal=False, scale=None):
         return A.scaled_dot_product_attention(q, k, v, kv_mask=kv_mask, causal=causal,
@@ -1159,7 +1186,9 @@ def plain_versions():
             mock.patch.object(G, "group_norm_silu", G.gn_silu_plain), \
             mock.patch.object(L, "layer_norm", L.layer_norm_plain), \
             mock.patch.object(N, "bn_stats", N.bn_stats_plain), \
-            mock.patch.object(N, "bn_norm_act", N.bn_norm_act_plain):
+            mock.patch.object(N, "bn_norm_act", N.bn_norm_act_plain), \
+            mock.patch.object(Q, "int8_conv2d", Q.int8_conv2d_plain), \
+            mock.patch.object(Q, "int8_dense", Q.int8_dense_plain):
         yield
 
 
@@ -1616,12 +1645,13 @@ def step_times(batcher, reps: int = 10) -> dict:
                 device_busy_ms=busy, device_operations=ops)
 
 
-def step_replays_same_bits(batcher) -> tuple[bool, float]:
+def step_replays_same_bits(batcher, replays: int = 1) -> tuple[bool, float]:
     """Capture one step of `batcher` in a CUDA graph as it is, and replay it
-    from the state an eager step started from → (whether the replay leaves
-    every state buffer with the eager step's bits, ms of a replay: the step
-    with no host in the way). The port itself does not capture its step;
-    this shows that nothing in it stands in the way."""
+    `replays` times, each from the state an eager step started from →
+    (whether every replay leaves every state buffer with the eager step's
+    bits, ms of a replay: the step with no host in the way). The port itself
+    does not capture its step; this shows that nothing in it stands in the
+    way."""
     state = batcher._state.tensors()
     start = [t.clone() for t in state]
     batcher._step()
@@ -1632,9 +1662,13 @@ def step_replays_same_bits(batcher) -> tuple[bool, float]:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         batcher._step()
-    graph.replay()
-    torch.cuda.synchronize()
-    same = all(torch.equal(t, want) for t, want in zip(state, eager))
+    same = True
+    for _ in range(replays):
+        for t, saved in zip(state, start):
+            t.copy_(saved)
+        graph.replay()
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(t, want) for t, want in zip(state, eager))
     return same, median_ms(graph.replay, reps=5)
 
 
@@ -4735,8 +4769,492 @@ def train_face_parser(gen) -> dict:
                 peak_gib=peak_gib, loss_rel=loss_rel, grad_rel=glob, grad_rel_env=glob_env)
 
 
+# ---------------------------------------------------------------------------
+# int8 PTQ kernels (phase 3) and the serving speed modes
+# ---------------------------------------------------------------------------
+
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet: dense int8 tensor-core operations
+INT8_BATCHES = (2, 16)  # a request's CFG batch, the 8-slot batcher's
+INT8_GRAPH = dict(launches=5, reps=3)  # the int8 cases' CUDA-graph timing: ~90 shapes
+JSON_INT8 = "conv 2x320x64x64 -> 320 3x3/1"  # the 64x64 level's resnet convolution
+SPEED_REQUESTS = 3  # timed 512x512, 25-step requests of each mode
+# (name, int8, DeepCache interval, ToMe ratio)
+SPEED_MODES = [("deepcache 3", False, 3, 0.0), ("deepcache 5", False, 5, 0.0),
+               ("tome 0.5", False, 0, 0.5), ("int8", True, 0, 0.0),
+               ("int8 + deepcache 3", True, 3, 0.0)]
+SHALLOW_FLASH = 10  # flash launches of a shallow DeepCache call: 5 transformers at 64x64
+
+
+def int8_label(mod, x_shape) -> str:
+    from adaface_tpu_torch.ops.quant import Int8Conv2d
+
+    o = mod.w_q.shape[0]
+    if isinstance(mod, Int8Conv2d):
+        n, c, h, w = x_shape
+        k = mod.w_q.shape[1]
+        return f"conv {n}x{c}x{h}x{w} -> {o} {k}x{k}/{mod.stride[0]}"
+    return f"dense {math.prod(x_shape[:-1])}x{x_shape[-1]} -> {o}"
+
+
+@contextmanager
+def int8_census(module):
+    """Count the int8 layers' calls inside `module` by shape label while the
+    block runs; yields (counter, {label: one module of that shape})."""
+    from adaface_tpu_torch.ops.quant import Int8Conv2d, Int8Linear
+
+    modules = {}
+
+    def key(mod, args, kwargs):
+        label = int8_label(mod, tuple(args[0].shape))
+        modules.setdefault(label, (mod, tuple(args[0].shape)))
+        return label
+
+    with census(module, (Int8Conv2d, Int8Linear), key) as seen:
+        yield seen, modules
+
+
+def int8_bound(x_bytes: float, w_q, y_numel: int, ops: float) -> tuple[float, str]:
+    """The larger of the bytes (x as given, w_q int8, scale and bias fp32, y
+    bf16) at 3.35 TB/s and the int8 operations at 1979 TOP/s, ms."""
+    t_bytes = (x_bytes + w_q.numel() + 8 * w_q.shape[0] + 2 * y_numel) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def im2col_int_mm(x_q, w_kmajor, k: int, stride: int, pad: int):
+    """The yardstick of `int8_conv_igemm`: int8 im2col of channels-last x_q
+    ([N, C, H, W] in NHWC memory, or rows [M, C]) by shifted slices, then
+    one `torch._int_mm` (cuBLASLt int8 → int32) with w [K, O]. Never on the
+    path."""
+    if x_q.dim() == 2:
+        return torch._int_mm(x_q, w_kmajor)
+    nhwc = x_q.permute(0, 2, 3, 1)
+    if k == 1 and stride == 1:
+        return torch._int_mm(nhwc.reshape(-1, nhwc.shape[-1]), w_kmajor)
+    n, h, w, c = nhwc.shape
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    xp = F.pad(nhwc, (0, 0, pad, pad, pad, pad))
+    cols = [xp[:, ky:ky + stride * ho:stride, kx:kx + stride * wo:stride]
+            for ky in range(k) for kx in range(k)]
+    return torch._int_mm(torch.cat(cols, dim=-1).reshape(n * ho * wo, k * k * c), w_kmajor)
+
+
+def check_int8(gen) -> dict:
+    """`quant_amax` + `quant_act` and `int8_conv_igemm` against their plain
+    versions at every int8 layer shape of the SD1.5 UNet (convolutions, and
+    the `quantize_dense` layers) at CFG batch 2 and at batch 16, found by a
+    census of one int8 UNet call at each: bit for bit, and twice to the same
+    bits; times single and as CUDA graphs beside the bound, cuDNN's bf16
+    convolution (or cuBLAS's bf16 product) and im2col + `torch._int_mm`, both
+    yardsticks only."""
+    from adaface_tpu_torch.core.params import build
+    from adaface_tpu_torch.models.unet import (SD15_UNET, UNet2DConditionModel,
+                                               init_unet_weights_)
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import quant as Q
+
+    unet = build(lambda: UNet2DConditionModel(dataclasses.replace(SD15_UNET, fused_ln=False)),
+                 "cuda", torch.bfloat16, init_unet_weights_, gen)
+    q = Q.quantize_unet(unet, quantize_dense=True)
+    shapes, per_call = {}, {}
+    with torch.inference_mode():
+        for b in INT8_BATCHES:
+            x = torch.randn((b, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+            t = torch.full((b,), 501, dtype=torch.long, device="cuda")
+            ctx = torch.randn((b, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+            with int8_census(q) as (seen, modules):
+                eps = q(x, t, ctx)
+            if not torch.isfinite(eps).all():
+                raise AssertionError(f"int8 UNet at batch {b}: output not finite")
+            per_call[b] = dict(seen)
+            shapes.update(modules)
+    lib = _build.load_library()
+    results = {}
+    with torch.inference_mode():
+        for label, (mod, x_shape) in shapes.items():
+            conv = isinstance(mod, Q.Int8Conv2d)
+            x = (torch.randn(x_shape, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            if conv:
+                x = x.contiguous(memory_format=torch.channels_last)
+            x_q, amax = Q.quantize_act_cuda(x)
+            x_q_plain, _ = Q.quantize_act(x)
+            amax_plain = x.float().abs().amax()
+            y, y2 = mod(x), mod(x)
+            with plain_versions():
+                ref = mod(x)
+            torch.cuda.synchronize()
+            amax_same = amax.view(torch.float32).item() == amax_plain.item()
+            err = (y.float() - ref.float()).abs().max().item()
+            if not (torch.equal(x_q, x_q_plain) and amax_same):
+                raise AssertionError(f"int8 {label}: quantization differs from plain "
+                                     f"({(x_q != x_q_plain).sum().item()} values)")
+            if not torch.equal(y, ref):
+                raise AssertionError(f"int8 {label}: kernel differs from plain by {err}")
+            if not torch.equal(y, y2):
+                raise AssertionError(f"int8 {label}: two runs differ")
+            o = mod.w_q.shape[0]
+            k = mod.w_q.shape[1] if conv else 1
+            stride, pad = (mod.stride[0], mod.padding[0]) if conv else (1, 0)
+            rows = y.numel() // o
+            n_sp = (x.shape[0], x.shape[2], x.shape[3]) if conv else (rows, 1, 1)
+            w_q = mod.w_q if conv else mod.w_q.reshape(o, 1, 1, -1)
+            stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+            amax_buf, xq_buf = torch.empty_like(amax), torch.empty_like(x_q)
+            fn = lambda: mod(x)  # noqa: E731
+            amax_fn = lambda: lib.quant_amax(x.data_ptr(), x.numel(), amax_buf.data_ptr(),  # noqa
+                                             stream())
+            act_fn = lambda: lib.quant_act(x.data_ptr(), amax.data_ptr(), xq_buf.data_ptr(),  # noqa
+                                           x.numel(), stream())
+            igemm = lambda splits=None: Q._igemm(x_q, amax, w_q, mod.w_scale,  # noqa: E731
+                                                 mod.bias, *n_sp, k, stride, pad, splits)
+            splits = Q.igemm_splits(rows, o, w_q.numel() // o // Q.CHANNEL_STEP,
+                                    _build.sm_count(0))
+            if splits > 1 and not torch.equal(igemm(), igemm(1)):
+                raise AssertionError(f"int8 {label}: {splits} splits differ from one")
+            scale = amax_plain.clamp(min=1e-8) / 127.0
+            act_plain = lambda: torch.round(x.float() / scale).clamp(-127, 127).to(torch.int8)  # noqa
+            w_bf, b_bf = mod.dequantized().to(torch.bfloat16), mod.bias.to(torch.bfloat16)
+            if conv:
+                w_bf = w_bf.contiguous(memory_format=torch.channels_last)
+                bf16 = lambda: F.conv2d(x, w_bf, b_bf, stride, pad)  # noqa: E731
+            else:
+                bf16 = lambda: F.linear(x, w_bf, b_bf)  # noqa: E731
+            w_k = mod.w_q.reshape(o, -1).t()
+            x_rows = x_q if conv else x_q.reshape(rows, -1)
+            try:
+                int_mm = graph_ms(lambda: im2col_int_mm(x_rows, w_k, k, stride, pad), **INT8_GRAPH)
+            except RuntimeError as e:  # a shape cuBLASLt's int8 product refuses: no yardstick
+                int_mm = None
+                log(f"int8 {label}: torch._int_mm refused the shape ({str(e).splitlines()[0]})")
+            ms, dev = median_ms(fn), graph_ms(fn, **INT8_GRAPH)
+            with plain_versions():
+                plain_ms = median_ms(fn, reps=3, warmup=1)
+            r = dict(err=err, ms=ms, graph_ms=dev, plain_ms=plain_ms,
+                     amax_graph_ms=graph_ms(amax_fn, **INT8_GRAPH),
+                     amax_plain_ms=median_ms(lambda: x.float().abs().amax()),
+                     amax_library_ms=median_ms(lambda: torch.linalg.vector_norm(x, math.inf)),
+                     act_graph_ms=graph_ms(act_fn, **INT8_GRAPH), act_plain_ms=median_ms(act_plain),
+                     igemm_graph_ms=graph_ms(igemm, **INT8_GRAPH), splits=splits,
+                     igemm_unsplit_graph_ms=(graph_ms(lambda: igemm(1), **INT8_GRAPH)
+                                             if splits > 1 else None),
+                     cudnn_bf16_graph_ms=graph_ms(bf16, **INT8_GRAPH), int_mm_graph_ms=int_mm,
+                     calls={b: per_call[b].get(label, 0) for b in INT8_BATCHES})
+            if label == JSON_INT8:  # the host's cost of a layer, where the device is quick
+                r["host_us"], r["cudnn_bf16_host_us"] = host_us(fn), host_us(bf16)
+            ops = 2.0 * rows * o * (w_q.numel() // o)
+            r["bound_ms"], r["bound_by"] = int8_bound(2 * x.numel(), w_q, y.numel(), ops)
+            r["igemm_bound_ms"], r["igemm_bound_by"] = int8_bound(x.numel(), w_q, y.numel(), ops)
+            r["amax_bound_ms"] = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
+            r["act_bound_ms"] = 3 * x.numel() / HBM_BYTES_PER_S * 1e3
+            results[label] = r
+            if "host_us" in r:
+                log(f"int8 {label}: host per call: the int8 layer {r['host_us']:.1f} us, cuDNN "
+                    f"bf16 {r['cudnn_bf16_host_us']:.1f} us")
+            log(f"int8 {label} (calls a UNet call at B2/B16: {r['calls'][2]}/{r['calls'][16]}): "
+                f"bit-equal to plain, two runs the same bits | the layer (memset, quant_amax, "
+                f"quant_act, int8_conv_igemm): single {ms:.4f} ms, graph {dev:.4f} ms, plain "
+                f"(fp64 sums) {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+                f"{r['bound_by']} | igemm ({splits} splits) graph {r['igemm_graph_ms']:.4f} ms"
+                + ("" if splits == 1 else f" (unsplit {r['igemm_unsplit_graph_ms']:.4f})") +
+                f" (bound "
+                f"{r['igemm_bound_ms']:.4f}, reached {r['igemm_bound_ms'] / r['igemm_graph_ms']:.1%})"
+                f" | amax {r['amax_graph_ms']:.4f} act {r['act_graph_ms']:.4f} ms | cuDNN/cuBLAS "
+                f"bf16 graph {r['cudnn_bf16_graph_ms']:.4f} ms | im2col + _int_mm graph "
+                f"{'refused' if int_mm is None else f'{int_mm:.4f} ms'}")
+            del x, x_q, x_q_plain, y, y2, ref, xq_buf, w_bf
+        torch.cuda.empty_cache()
+    for b in INT8_BATCHES:
+        sums = {key: sum(results[label][key] * n for label, n in per_call[b].items()
+                         if label.startswith("conv"))
+                for key in ("graph_ms", "igemm_graph_ms", "cudnn_bf16_graph_ms", "bound_ms")}
+        n_conv = sum(n for label, n in per_call[b].items() if label.startswith("conv"))
+        log(f"int8 per UNet call at batch {b}: {n_conv} convolutions, int8 layers "
+            f"{sums['graph_ms']:.3f} ms of device time (igemm alone {sums['igemm_graph_ms']:.3f}), "
+            f"cuDNN bf16 {sums['cudnn_bf16_graph_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms")
+        results[f"per call B{b}"] = dict(convs=n_conv, **sums)
+    del unet, q
+    torch.cuda.empty_cache()
+    return results
+
+
+@contextmanager
+def tome_decisions(record: list | None = None, replay: list | None = None):
+    """`ops.tome.match` recording its decisions (merged_pos, kept_pos, tgt)
+    into `record`, or handing out those of `replay` in order instead of
+    matching: a ToMe request held to another path with the same merges."""
+    from adaface_tpu_torch.ops import tome as T
+
+    match, handed = T.match, iter(replay) if replay is not None else None
+
+    def patched(*args):
+        if handed is not None:
+            return next(handed)
+        out = match(*args)
+        if record is not None:
+            record.append(tuple(t.clone() for t in out))
+        return out
+
+    with mock.patch.object(T, "match", patched):
+        yield
+
+
+@contextmanager
+def int8_roundings(record: list | None = None, replay: list | None = None):
+    """The int8 layers' quantized activations: the kernels' (x_q and the
+    bits of max |x|, `quant_amax` + `quant_act`) recorded into `record`, or
+    those of `replay` handed in order to the plain version (its x_q and the
+    scale computed from them as the kernels compute it). A bf16 rounding
+    upstream that the kernels and the plain versions take apart sends an
+    activation at a half step to the other int8 value, and on random
+    weights that flip moves every layer after it: handed over, the two
+    paths differ only where the int8 sums and epilogues would."""
+    from adaface_tpu_torch.ops import quant as Q
+
+    if replay is not None:
+        handed = iter(replay)
+
+        def plain(x):
+            x_q, amax = next(handed)
+            if tuple(x_q.shape) != tuple(x.shape):
+                raise AssertionError(f"int8 roundings: {tuple(x_q.shape)} handed to "
+                                     f"{tuple(x.shape)}")
+            return x_q, (amax.view(torch.float32).clamp(min=1e-8) / 127.0).reshape(())
+
+        with mock.patch.object(Q, "quantize_act", plain):
+            yield
+        return
+    kernels = Q.quantize_act_cuda
+
+    def recorded(x):
+        x_q, amax = kernels(x)
+        if record is not None:
+            record.append((x_q.clone(), amax.clone()))
+        return x_q, amax
+
+    with mock.patch.object(Q, "quantize_act_cuda", recorded):
+        yield
+
+
+def decisions_apart(a: list, b: list) -> tuple[int, int]:
+    """(merge decisions of two runs that differ, all): per build_merge call
+    the merged set's positions and their targets, position by position."""
+    diff = total = 0
+    for (am, _, at), (bm, _, bt) in zip(a, b):
+        diff += int((am != bm).sum()) + int((at != bt).sum())
+        total += am.numel() + at.numel()
+    return diff, total
+
+
+def gn_expected_from(seen: dict) -> dict:
+    """Launches of each GroupNorm kernel for a census of (shape, eps, SiLU)
+    calls, by `gn_plan` on this card."""
+    from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS, gn_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = collections.Counter()
+    for ((b, c, h, w), _, _), n in seen.items():
+        groups = 32
+        if gn_plan(torch.bfloat16, b, c, h * w, groups, sms).kernel == "fused":
+            want[GN_FUSED] += n
+        else:
+            want[GN_STATS] += n
+            want[GN_NORM] += n
+    return want
+
+
+def speed_request(w, seed: int, hw: int = 512, steps: int = 25, **mode):
+    """One request through the wrapper's pipeline with a speed mode
+    (`deepcache_interval`, `tome_ratio`): subject a's ada rows are in the
+    table; → the image [3, hw, hw]."""
+    from adaface_tpu_torch.inference.wrapper import DEFAULT_NEGATIVE_PROMPT
+
+    return w.pipeline([w.update_prompt(REQUESTS[0][1])], negative_prompt=DEFAULT_NEGATIVE_PROMPT,
+                      num_inference_steps=steps, guidance_scale=6.0, height=hw, width=hw,
+                      generator=torch.Generator("cuda").manual_seed(seed), **mode)[0]
+
+
+def serve_speed_modes(wrapper, faces, card: str) -> dict:
+    """The pipeline's three speed modes at full SD1.5 width on the phase-5
+    modules: one int8 UNet call kernels against plain and against the bf16
+    call; a small request of each mode kernels against plain (ToMe with the
+    kernel run's merges handed to the plain run, and the merges that differ
+    unhanded counted); 3 timed 512x512, 25-step requests of each mode with
+    launches by kernel, device time and operations, host time and the
+    distance from the default path's image of the same seed; the 8-slot
+    batcher serving the int8 UNet: a drain, and one step captured and
+    replayed twice to the same bits."""
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops import quant as Q
+
+    t_phase = time.perf_counter()
+    m = wrapper.pipeline.m
+    wq = AdaFaceWrapper("text2img", m, wrapper.id2ada_prompt_encoder, guidance_scale=6.0,
+                        num_inference_steps=25, quantize_unet=True)
+    qunet = wq.pipeline.m.unet
+    if m.unet.down_blocks[0].resnets[0].conv1.__class__ is not torch.nn.Conv2d:
+        raise AssertionError("quantize_unet changed the caller's UNet")
+    gen = torch.Generator("cuda").manual_seed(300)
+    x = torch.randn((2, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.full((2,), 501, dtype=torch.long, device="cuda")
+    ctx = torch.randn((2, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        roundings = []
+        with int8_census(qunet) as (layers, _), int8_roundings(record=roundings):
+            eps_q = qunet(x, t, ctx).float()
+        with plain_versions():
+            with int8_roundings(replay=roundings):
+                ref_q = qunet(x, t, ctx).float()
+            free_q = qunet(x, t, ctx).float()
+        eps_bf = m.unet(x, t, ctx).float()
+    per_call = sum(layers.values())
+    rel_kp, rel_bf = rel_l2_of(eps_q, ref_q), rel_l2_of(eps_q, eps_bf)
+    rel_free = rel_l2_of(eps_q, free_q)
+    corr = float(np.corrcoef(eps_q.cpu().numpy().ravel(), eps_bf.cpu().numpy().ravel())[0, 1])
+    del roundings
+    log(f"speed modes: int8 UNet call at CFG batch 2, 64x64 ({per_call} int8 layers): kernels "
+        f"against plain with the kernels' int8 activations handed over rel L2 {rel_kp:.3e} "
+        f"(bound {UNET_REL_TOL:g}), free-running {rel_free:.3e}; against the bf16 call rel L2 "
+        f"{rel_bf:.3e}, correlation {corr:.6f}")
+    if not torch.isfinite(eps_q).all() or rel_kp > UNET_REL_TOL:
+        raise AssertionError(f"int8 UNet kernels against plain: rel L2 {rel_kp}")
+
+    # a small request of each mode, kernels against plain
+    wrapper.prepare_adaface_embeddings(images=faces["a"])
+    small = {}
+    for name, int8, dc, tome in SPEED_MODES:
+        w = wq if int8 else wrapper
+        mode = dict(deepcache_interval=dc, tome_ratio=tome)
+        # ToMe merges only the 4096 tokens of a 512x512 image's 64x64 level
+        hw, steps = (512, 2) if tome else (256, 4)
+        record, unpinned, roundings = [], [], []
+        with tome_decisions(record=record), int8_roundings(record=roundings):
+            img_k = speed_request(w, 7, hw, steps, **mode)
+        with plain_versions():
+            with tome_decisions(replay=record if tome else None), \
+                    int8_roundings(replay=roundings if int8 else None):
+                img_p = speed_request(w, 7, hw, steps, **mode)
+            if tome:
+                with tome_decisions(record=unpinned):
+                    speed_request(w, 7, hw, steps, **mode)
+        err = (img_k - img_p).abs().max().item()
+        apart = decisions_apart(record, unpinned) if tome else (0, 0)
+        del roundings
+        small[name] = dict(err=err, decisions_apart=apart)
+        log(f"speed modes: {name} {hw}x{hw} {steps}-step request, kernels against plain: image "
+            f"max_abs_err {err:.3e} (bound {IMAGE_TOL:g})"
+            + (f"; merges handed over ({len(record)} build_merge calls); unhanded, {apart[0]} of "
+               f"{apart[1]} decisions differ" if tome else "")
+            + ("; the kernels' int8 activations handed over" if int8 else ""))
+        if err > IMAGE_TOL:
+            raise AssertionError(f"{name} request kernels against plain: error {err}")
+
+    # timed requests: the default path first, then each mode, 3 seeds each
+    speed_request(wrapper, 399, steps=2)
+    default, default_lat = [], []
+    for i in range(SPEED_REQUESTS):
+        t0 = time.perf_counter()
+        default.append(speed_request(wrapper, 400 + i))
+        torch.cuda.synchronize()
+        default_lat.append(time.perf_counter() - t0)
+    _, default_dev, default_ops = profiled_ms(lambda: speed_request(wrapper, 400), host_runs=1)
+    log(f"speed modes: default 512x512 25 steps: latency "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in default_lat)} ms, device {default_dev:.2f} ms in "
+        f"{default_ops} operations")
+    modes = {"default": dict(latency_ms=[s * 1e3 for s in default_lat], device_ms=default_dev,
+                             operations=default_ops)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vae_split = A.flash_plan(torch.bfloat16, *FLASH_CASES[-1][1:], sms).nsplit > 1
+    for name, int8, dc, tome in SPEED_MODES:
+        w = wq if int8 else wrapper
+        mode = dict(deepcache_interval=dc, tome_ratio=tome)
+        speed_request(w, 399, steps=2, **mode)  # warm-up: layouts, algorithms
+        _build.reset_launch_counts()
+        images, lat = [], []
+        with gn_census(w.pipeline.m.unet) as seen_gn, gn_census(m.vae) as seen_vae, \
+                int8_census(w.pipeline.m.unet) as (seen_int8, _):
+            for i in range(SPEED_REQUESTS):
+                t0 = time.perf_counter()
+                images.append(speed_request(w, 400 + i, **mode))
+                torch.cuda.synchronize()
+                lat.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        check_images(images, SPEED_REQUESTS, 512, name)
+        full = len(range(0, 25, dc)) if dc > 1 else 25
+        shallow = 25 - full
+        n = SPEED_REQUESTS
+        want = collections.Counter({A.FLASH_T: n * (20 * full + SHALLOW_FLASH * shallow),
+                                    A.FLASH_STD: n * 10 * full, A.FLASH_WIDE: n,
+                                    A.FLASH_COMBINE: n * vae_split})
+        want.update(gn_expected_from(seen_gn) + gn_expected_from(seen_vae))
+        int8_calls = sum(seen_int8.values())
+        if int8:
+            for key in (Q.QUANT_AMAX, Q.QUANT_ACT, Q.INT8_CONV):
+                want[key] = int8_calls
+            if dc <= 1 and int8_calls != n * 25 * per_call:
+                raise AssertionError(f"{name}: {int8_calls} int8 layer calls, expected "
+                                     f"{n * 25 * per_call}")
+        want = {k: v for k, v in want.items() if v}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"{name}: launch counts {counts}, expected {want}")
+        again = []
+        _, dev, ops = profiled_ms(lambda: again.append(speed_request(w, 400, **mode)),
+                                  host_runs=1)
+        same_bits = all(torch.equal(img, images[0]) for img in again)
+        if tome and not same_bits:  # the merged sums are taken in a fixed order
+            raise AssertionError(f"{name}: two runs of a request differ")
+        dist = [(img - ref).abs().max().item() for img, ref in zip(images, default)]
+        rel = [rel_l2_of(img, ref) for img, ref in zip(images, default)]
+        modes[name] = dict(latency_ms=[s * 1e3 for s in lat], device_ms=dev, operations=ops,
+                           counts=counts, max_abs_from_default=dist, rel_l2_from_default=rel,
+                           full_calls=full, shallow_calls=shallow, same_bits=same_bits)
+        log(f"speed modes: {name} 512x512 25 steps ({full} full + {shallow} shallow UNet calls "
+            f"a request): latency {', '.join(f'{s * 1e3:.1f}' for s in lat)} ms (default "
+            f"{statistics.median(default_lat) * 1e3:.1f}), device {dev:.2f} ms in {ops} "
+            f"operations (default {default_dev:.2f} in {default_ops}); a request run again "
+            f"{'gives the same bits' if same_bits else 'DIFFERS'}; pixels from the default "
+            f"image of the same seed: max {', '.join(f'{d:.3e}' for d in dist)}, rel L2 "
+            f"{', '.join(f'{r:.3e}' for r in rel)}; launches {counts}")
+
+    # the 8-slot batcher serving the int8 UNet
+    adas = subject_embeddings(wq, faces)
+    wq.make_batcher(num_slots=BATCH_SLOTS, num_inference_steps=2).generate_all(
+        batch_requests(wq, adas, 512, BATCH_SLOTS))
+    batcher = wq.make_batcher(num_slots=BATCH_SLOTS)
+    if batcher.m.unet is not qunet:
+        raise AssertionError("the int8 wrapper's batcher does not serve the int8 UNet")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = batcher.generate_all(batch_requests(wq, adas, 512, BATCH_SLOTS))
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t0
+    drain_counts = launch_counts()
+    check_images([out[i] for i in range(BATCH_SLOTS)], BATCH_SLOTS, 512, "int8 batcher")
+    if not all(drain_counts.get(k) for k in (Q.QUANT_AMAX, Q.QUANT_ACT, Q.INT8_CONV)):
+        raise AssertionError(f"int8 batcher: the int8 kernels did not run: {drain_counts}")
+    b = wq.make_batcher(num_slots=BATCH_SLOTS)
+    for slot, r in enumerate(batch_requests(wq, adas, 512, BATCH_SLOTS)):
+        b._admit(slot, r)
+    b._step()
+    same, replay_ms = step_replays_same_bits(b, replays=2)
+    log(f"speed modes: int8 batcher, {BATCH_SLOTS} requests through {BATCH_SLOTS} slots, "
+        f"512x512, 25 steps: {drain_s:.2f} s, {BATCH_SLOTS / drain_s:.3f} imgs/sec; launches "
+        f"{drain_counts}; a step captured in a CUDA graph and replayed twice: {replay_ms:.2f} ms "
+        f"a replay, both with the eager step's bits: {same}")
+    if not same:
+        raise AssertionError("int8 batcher: a replayed CUDA graph of the step differs")
+    secs = time.perf_counter() - t_phase
+    log(f"speed modes: card {card}; the phase {secs:.1f} s")
+    del wq, batcher, b
+    return dict(int8_rel=rel_kp, int8_rel_free=rel_free, int8_rel_bf16=rel_bf, int8_corr=corr,
+                small=small, modes=modes,
+                int8_counts=modes["int8"]["counts"], drain_imgs_per_sec=BATCH_SLOTS / drain_s,
+                drain_counts=drain_counts, replay_ms=replay_ms, seconds=secs)
+
+
 def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn_bwd: dict,
-                  counts: dict, paths: dict) -> dict:
+                  int8: dict, counts: dict, paths: dict) -> dict:
     """The per-kernel record. `launches` are those of the path that first ran
     the kernel (the 3 requests of phase 5, the train steps, the fused-LN UNet
     call); `launches_by_path` has the later serving paths' beside them
@@ -4771,7 +5289,17 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     part of (`flash_bwd_chunked` and the autograd backward of
     `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
     that of `F.group_norm` + `F.silu`), beside the whole backward's own
-    times and bound (`function_*`), and every path shape under `shapes`."""
+    times and bound (`function_*`), and every path shape under `shapes`.
+    The int8 kernels' `launches` are those of the int8 mode's 3 requests;
+    each one's `ms` is its own device time (5 launches in a CUDA graph) at
+    `JSON_INT8`; `int8_conv_igemm`'s `plain_ms` is the plain fp64-sum layer's
+    (quantization included) and it has no library call (PyTorch has no
+    eager int8 convolution on CUDA): cuDNN's bf16 convolution and im2col +
+    `torch._int_mm` stand beside it as yardsticks (`cudnn_bf16_ms`,
+    `int_mm_ms`), with the whole layer's times (`layer_*`: memset and three
+    launches); `quant_amax`'s library call is `torch.linalg.vector_norm(x,
+    inf)`. Every int8 shape is under `shapes`, the sums a UNet call under
+    `per_call`."""
     from adaface_tpu_torch.ops.attention import (FLASH_BWD_DELTA, FLASH_BWD_DELTA_WIDE,
                                                  FLASH_BWD_DKDV_WG, FLASH_BWD_DKDV_WIDE,
                                                  FLASH_BWD_DQ_WG, FLASH_BWD_DQ_WIDE,
@@ -4780,6 +5308,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                                                 GN_NORM, GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
+    from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT, QUANT_AMAX
 
     def entry(name, source, replaces, err, shape, ms, plain_ms, library_ms, bound_ms,
               bound_by="bytes", **extra):
@@ -4846,6 +5375,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     vae_bwd = [case[0] for case in FLASH_BWD_VAE + FLASH_BWD_STAGE2_VAE if case[0] in flash_bwd]
     is_wide = lambda label: label in vae_bwd or "D512" in label  # noqa: E731
     fb_err = max(r["err"] for k, r in flash_bwd.items() if not is_wide(k))
+    i8_cases = {k: r for k, r in int8.items() if not k.startswith("per call")}
+    i8 = i8_cases[JSON_INT8]
     fb_wide_err = max(r["err"] for k, r in flash_bwd.items() if is_wide(k))
 
     def flash_bwd_entry(name, part, json_shape=JSON_FLASH_BWD, labels=fb_path, err=fb_err,
@@ -4932,25 +5463,56 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         gn_bwd_entry(GN_BWD_FUSED, "fused", JSON_GN_BWD),
         gn_bwd_entry(GN_BWD_REDUCE, "reduce", JSON_GN_BWD_SPLIT),
         gn_bwd_entry(GN_BWD_DX, "dx", JSON_GN_BWD_SPLIT),
+        entry(QUANT_AMAX, "int8_conv.cu", "adaface_tpu/ops/quant.py:58", 0.0, JSON_INT8,
+              i8["amax_graph_ms"], i8["amax_plain_ms"], i8["amax_library_ms"],
+              i8["amax_bound_ms"], shapes={k: {"ms": r["amax_graph_ms"], "bound_ms":
+                                               r["amax_bound_ms"]} for k, r in i8_cases.items()}),
+        entry(QUANT_ACT, "int8_conv.cu", "adaface_tpu/ops/quant.py:58", 0.0, JSON_INT8,
+              i8["act_graph_ms"], i8["act_plain_ms"], None, i8["act_bound_ms"],
+              shapes={k: {"ms": r["act_graph_ms"], "bound_ms": r["act_bound_ms"]}
+                      for k, r in i8_cases.items()}),
+        entry(INT8_CONV, "int8_conv.cu", "adaface_tpu/ops/quant.py:67",
+              max(r["err"] for r in i8_cases.values()), JSON_INT8, i8["igemm_graph_ms"],
+              i8["plain_ms"], None, i8["igemm_bound_ms"], i8["igemm_bound_by"],
+              replaces_also="adaface_tpu/ops/quant.py:85", cudnn_bf16_ms=i8["cudnn_bf16_graph_ms"],
+              int_mm_ms=i8["int_mm_graph_ms"], layer_ms=i8["ms"], layer_graph_ms=i8["graph_ms"],
+              layer_bound_ms=i8["bound_ms"], layer_bound_by=i8["bound_by"],
+              layer_host_us=i8.get("host_us"), cudnn_bf16_host_us=i8.get("cudnn_bf16_host_us"),
+              shapes={k: {key: r[key] for key in (
+                  "igemm_graph_ms", "igemm_bound_ms", "igemm_bound_by", "graph_ms", "ms",
+                  "plain_ms", "bound_ms", "cudnn_bf16_graph_ms", "int_mm_graph_ms", "calls")}
+                  for k, r in i8_cases.items()},
+              per_call={k: r for k, r in int8.items() if k.startswith("per call")}),
     ]}
+
+
+def timed_phase(name: str, fn, *args):
+    """fn(*args), with its seconds logged: where the whole run's time goes."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
     t0 = time.perf_counter()
     card = require_cuda()
     build_kernels()
-    flash, gn, bn, ln, flash_bwd, gn_bwd = check_kernels()
+    flash, gn, bn, ln, flash_bwd, gn_bwd = timed_phase("check_kernels", check_kernels)
+    int8 = timed_phase("check_int8", check_int8,
+                       torch.Generator(device="cuda").manual_seed(SEED + 16))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    check_autograd_functions()
-    unet = check_unet(gen)
+    timed_phase("check_autograd_functions", check_autograd_functions)
+    unet = timed_phase("check_unet", check_unet, gen)
     wrapper, faces = build_server(gen)
-    served = serve(wrapper, faces)
-    batched = serve_batched(wrapper, faces)
-    batcher_against_pipeline(wrapper, faces)
-    img2img = serve_img2img(wrapper, faces)
-    sampled = serve_samplers(wrapper, faces)
-    joint = serve_joint(wrapper, faces, gen)
-    trained = serve_trained(wrapper, faces, card)
+    served = timed_phase("serve", serve, wrapper, faces)
+    batched = timed_phase("serve_batched", serve_batched, wrapper, faces)
+    timed_phase("batcher_against_pipeline", batcher_against_pipeline, wrapper, faces)
+    img2img = timed_phase("serve_img2img", serve_img2img, wrapper, faces)
+    sampled = timed_phase("serve_samplers", serve_samplers, wrapper, faces)
+    joint = timed_phase("serve_joint", serve_joint, wrapper, faces, gen)
+    trained = timed_phase("serve_trained", serve_trained, wrapper, faces, card)
+    speed = timed_phase("serve_speed_modes", serve_speed_modes, wrapper, faces, card)
     del wrapper
 
     def release():
@@ -4960,22 +5522,24 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     release()
-    parser = train_face_parser(gen)
+    parser = timed_phase("train_face_parser", train_face_parser, gen)
     release()
-    stage1 = train_stage1(gen)
+    stage1 = timed_phase("train_stage1", train_stage1, gen)
     release()
-    finetune = train_finetune(gen)
+    finetune = timed_phase("train_finetune", train_finetune, gen)
     release()
-    stage2 = train_stage2(gen)
+    stage2 = timed_phase("train_stage2", train_stage2, gen)
     release()
-    recipes = train_stage2_recipes(gen, card)
+    recipes = timed_phase("train_stage2_recipes", train_stage2_recipes, gen, card)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops import attention as A
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
+    from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT, QUANT_AMAX
 
     counts = {**served["counts"], **parser["counts"],
+              **{k: speed["int8_counts"][k] for k in (QUANT_AMAX, QUANT_ACT, INT8_CONV)},
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
               **{k: stage1["counts"][k] for k in (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG,
                                                  A.FLASH_BWD_DQ_WG, GN_BWD_FUSED)},
@@ -4989,10 +5553,13 @@ def main() -> int:
              "ensemble": trained["ensemble_counts"],
              "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"],
              "stage-2 fit": stage2["counts"], "stage-2 recipes fit": recipes["counts"],
-             "mkv request": recipes["served"]["counts"]}
+             "mkv request": recipes["served"]["counts"],
+             **{f"speed mode {name}": r["counts"] for name, r in speed["modes"].items()
+                if "counts" in r},
+             "int8 batcher": speed["drain_counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
-    print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, counts, paths)))
+    print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

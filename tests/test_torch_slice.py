@@ -63,7 +63,7 @@ SLICE_MODULES = [
     "adaface_tpu_torch.ops._build", "adaface_tpu_torch.ops.attention",
     "adaface_tpu_torch.ops.fused_gn", "adaface_tpu_torch.ops.fused_ln",
     "adaface_tpu_torch.ops.fused_norm", "adaface_tpu_torch.ops.resize",
-    "adaface_tpu_torch.ops.samplers",
+    "adaface_tpu_torch.ops.samplers", "adaface_tpu_torch.ops.tome", "adaface_tpu_torch.ops.quant",
     "adaface_tpu_torch.ops.schedules", "adaface_tpu_torch.models.clip",
     "adaface_tpu_torch.models.unet", "adaface_tpu_torch.models.vae",
     "adaface_tpu_torch.models.bisenet", "adaface_tpu_torch.train.face_parsing_train",
