@@ -1,6 +1,7 @@
 // Flash-attention forward on Hopper's warpgroup matrix unit (wgmma): bf16,
-// head dims of the SD1.5 UNet (33..48, 65..80 and 145..160: D = 40, 80, 160),
-// rows aligned to 16 bytes. Same function and masking rules as
+// head dims of the SD1.5 UNet (33..48, 65..80 and 145..160: D = 40, 80, 160)
+// and of SDXL's UNet and SD3's MMDiT (49..64: D = 64), rows aligned to 16
+// bytes. Same function and masking rules as
 // flash_attn_fwd.cu states. Every other bf16 tensor takes the mma.sync kernel
 // of flash_attn_wide.cu; the wrapper picks between the two by shape and
 // alignment alone (adaface_tpu_torch/ops/attention.py: flash_plan).
@@ -113,7 +114,10 @@ struct WgShape {
 // Warpgroups that must fit on an SM together, which caps a thread's
 // registers: 4 (128 registers) at head dims <= 48, 3 (168) at <= 80. The
 // softmax of one warpgroup hides behind the matrix work and the barriers of
-// the others only if enough of them are resident.
+// the others only if enough of them are resident. The D 64 instance takes
+// the D 80 rule: ptxas gives it 112-127 registers whatever the cap, and
+// caps of 2-4 blocks (64 rows) and 1-2 (128 rows) timed alike
+// (chip_compare.py --d64-caps).
 template <int KS, int NWG>
 constexpr int wg_min_blocks() {
   return KS <= 3 ? 4 / NWG : (KS <= 5 && NWG == 1 ? 3 : 1);
@@ -249,7 +253,11 @@ flash_fwd_wg_kernel(const FlashParams p, const __grid_constant__ CUtensorMap map
       mbar_wait(&full[t % NST], (t / NST) & 1);  // tile t has landed
     else
       cp_async_commit();
-    if (t == 0) {
+    // Q's A fragments: once, at the first tile; the D 64 instance reloads
+    // them every tile, as ptxas gives their registers to the softmax's
+    // temporaries and to P after the first tile's product there (loaded once,
+    // before or inside the loop, its output was wrong from the second tile on)
+    if (KS == 4 || t == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], q_lane + kk * 16);
     }
@@ -436,6 +444,7 @@ template <int NWG, bool TMA>
 int dispatch_wg(const FlashParams& p, int b, int h, cudaStream_t stream) {
   switch ((p.d + 15) / 16) {
     case 3: return launch_wg<3, NWG, TMA>(p, b, h, stream);
+    case 4: return launch_wg<4, NWG, TMA>(p, b, h, stream);
     case 5: return launch_wg<5, NWG, TMA>(p, b, h, stream);
     case 10: return launch_wg<10, NWG, TMA>(p, b, h, stream);
     default: return (int)cudaErrorInvalidValue;
@@ -519,7 +528,7 @@ int flash::tensor_map_sw128(CUtensorMap* map, const void* ptr, int64_t sb, int64
   });
 }
 
-// bf16; head dim a multiple of 8 in 33..48, 65..80 or 145..160; q, k, v rows
+// bf16; head dim a multiple of 8 in 33..48, 49..64, 65..80 or 145..160; q, k, v rows
 // on 16-byte boundaries (else cudaErrorInvalidValue: the wrapper sends such
 // tensors to flash_fwd_bf16_wide). block_rows: 64 or 128. stats: null, or
 // [2, B, H, Sqp] fp32 (Sqp = Sq rounded up to 64) that receives each row's m

@@ -1,5 +1,5 @@
 """AdaFaceWrapper — the user entry point, personalized text→image and
-image→image on SD1.5.
+image→image on SD1.5, and text→image on SDXL and SD3.
 
 Counterpart of the "text2img" and "img2img" paths of
 `adaface_tpu/inference/wrapper.py`: placeholder tokens `z_{i}_{j}`, one
@@ -18,7 +18,12 @@ port's trainer; the pipeline and the batcher run with them.
 `quantize_unet=True` serves int8 PTQ UNets (`:56`, `:92`): the pipeline and
 every batcher `make_batcher` builds run the quantized UNet.
 
-The other pipelines (video, SDXL, SD3) are not ported yet.
+"text2imgxl" (alias "sdxl") and "text2img3" (alias "sd3") take
+`SDXLPipelineModules` / `SD3PipelineModules` (`:58-75`): the placeholders
+extend the CLIP-L tokenizer and tower (encoder 1) as on SD1.5, and the plain
+prompt feeds encoder 2 (`prompts_2`, `:259-270`). The batcher, img2img and
+the UNet adapters are SD1.5's alone. "text2video" is not ported yet; "flux"
+is refused, as the JAX wrapper refuses it.
 """
 
 from __future__ import annotations
@@ -37,7 +42,8 @@ from adaface_tpu_torch.models.unet import AttnLoRA, FFNLoRA
 from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.text.embedding_manager import extend_token_embedding
 
-SUPPORTED_PIPELINES = ("text2img", "img2img")
+SUPPORTED_PIPELINES = ("text2img", "img2img", "text2imgxl", "text2img3")
+ALIASES = {"sdxl": "text2imgxl", "sd3": "text2img3"}  # the reference's names
 DEFAULT_NEGATIVE_PROMPT = ("flaws in the eyes, flaws in the face, lowres, "
                            "non-HDRi, low quality")
 
@@ -49,14 +55,30 @@ class AdaFaceWrapper:
                  out_id_embs_cfg_scale: float | None = None,
                  dtype=torch.bfloat16, max_prompt_length: int = 77,
                  quantize_unet: bool = False):
+        if pipeline_name == "flux":
+            raise NotImplementedError(
+                "the flux pipeline keeps API parity but is unimplemented (commented out in "
+                "the reference too, `adaface_wrapper.py:130`)")
+        pipeline_name = ALIASES.get(pipeline_name, pipeline_name)
         if pipeline_name not in SUPPORTED_PIPELINES:
             raise NotImplementedError(
                 f"pipeline {pipeline_name!r} is not ported; the PyTorch port serves "
-                f"{' and '.join(repr(p) for p in SUPPORTED_PIPELINES)}")
+                "'text2img' and 'img2img' (SD1.5), 'text2imgxl' (SDXL) and 'text2img3' (SD3)")
         if pipeline_name == "img2img" and modules.vae_encoder is None:
             raise ValueError("the img2img pipeline needs PipelineModules.vae_encoder")
+        if quantize_unet and pipeline_name in ("text2imgxl", "text2img3"):
+            raise NotImplementedError("quantize_unet serves SD1.5 UNets only")
         self.pipeline_name = pipeline_name
-        self.pipeline = DiffusionPipeline(modules, dtype=dtype, quantize_unet=quantize_unet)
+        if pipeline_name == "text2imgxl":
+            from adaface_tpu_torch.inference.sdxl_pipeline import SDXLPipeline
+
+            self.pipeline = SDXLPipeline(modules, dtype=dtype)
+        elif pipeline_name == "text2img3":
+            from adaface_tpu_torch.inference.sd3_pipeline import SD3Pipeline
+
+            self.pipeline = SD3Pipeline(modules, dtype=dtype)
+        else:
+            self.pipeline = DiffusionPipeline(modules, dtype=dtype, quantize_unet=quantize_unet)
         self.dtype = dtype
         self.id2ada_prompt_encoder = id2ada_prompt_encoder
         self.guidance_scale = guidance_scale
@@ -200,19 +222,28 @@ class AdaFaceWrapper:
                 init_image: np.ndarray | None = None, strength: float = 0.8,
                 generator: torch.Generator | None = None, update_prompt: bool = True,
                 height: int = 512, width: int = 512, scheduler: str = "ddim",
-                img2img_noise: tuple | None = None):
+                img2img_noise: tuple | None = None, latents: torch.Tensor | None = None):
         """→ images [N, 3, H, W] float32 in [0, 1]; the placeholder string is
         appended to the prompt unless `update_prompt` is False. `scheduler`:
-        ddim, dpm++, pndm or lcm. "img2img" starts from `init_image`
-        ([H, W, 3] or [B, H, W, 3], 0..255) noised to `strength` of the
-        schedule and runs `strength` of the steps; its two draws (the
-        posterior's sample, the noise) come from `generator`, or are handed
-        in as `img2img_noise`."""
+        ddim, dpm++, pndm or lcm (SD1.5; SDXL and SD3 run their own
+        samplers). "img2img" starts from `init_image` ([H, W, 3] or
+        [B, H, W, 3], 0..255) noised to `strength` of the schedule and runs
+        `strength` of the steps; its two draws (the posterior's sample, the
+        noise) come from `generator`, or are handed in as `img2img_noise`.
+        The text pipelines take `latents` [N, C, H/8, W/8] in place of the
+        initial noise they would draw from `generator`."""
+        plain_prompt = prompt
         if update_prompt:
             prompt = self.update_prompt(prompt)
         steps = (num_inference_steps if num_inference_steps is not None
                  else self.num_inference_steps)
-        latents = None
+        gs = guidance_scale if guidance_scale is not None else self.guidance_scale
+        if self.pipeline_name in ("text2imgxl", "text2img3"):
+            # placeholders ride encoder 1; encoder 2 sees the plain prompt
+            return self.pipeline(
+                [prompt] * num_images, prompts_2=[plain_prompt] * num_images,
+                negative_prompt=negative_prompt, num_inference_steps=steps, guidance_scale=gs,
+                height=height, width=width, generator=generator, latents=latents)
         if self.pipeline_name == "img2img":
             if init_image is None:
                 raise ValueError("the img2img pipeline needs init_image")
@@ -221,8 +252,7 @@ class AdaFaceWrapper:
             steps = max(int(steps * strength), 1)
         return self.pipeline(
             [prompt] * num_images, negative_prompt=negative_prompt,
-            num_inference_steps=steps,
-            guidance_scale=guidance_scale if guidance_scale is not None else self.guidance_scale,
+            num_inference_steps=steps, guidance_scale=gs,
             generator=generator, latents=latents, height=height, width=width,
             scheduler=scheduler)
 

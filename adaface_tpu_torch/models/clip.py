@@ -44,9 +44,16 @@ class CLIPTextConfig:
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
     hidden_act: str = "quick_gelu"  # OpenAI CLIP; laion towers use "gelu"
+    projection_dim: int | None = None  # the bias-free text_projection of the pooled state
 
 
 CLIP_L_TEXT = CLIPTextConfig()
+# laion OpenCLIP ViT-bigG/14 text tower (text_encoder_2 of SDXL and SD3,
+# `clip.py:63-66`): its penultimate hidden states feed the context, its
+# projected eos pooling the added text embedding
+CLIP_BIGG_TEXT = CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20,
+                                intermediate_size=5120, hidden_act="gelu",
+                                projection_dim=1280)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,9 +152,20 @@ class CLIPTextModel(nn.Module):
             torch.zeros(cfg.max_position_embeddings, cfg.hidden_size))
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.num_layers))
         self.final_ln = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
-    def forward(self, input_ids, input_embs=None, skip_weights=None):
-        """→ last_hidden_state [B, S, D] (`text_encode`, `clip.py:303-365`).
+    def forward(self, input_ids, input_embs=None, skip_weights=None,
+                return_hidden_states: bool = False, return_pooled: bool = False):
+        """→ last_hidden_state [B, S, D] (`text_encode`, `clip.py:303-365`);
+        with `return_hidden_states` or `return_pooled`, a dict of it and:
+
+        - hidden_states: [embeddings, each layer's output] (no final LN;
+          SDXL and SD3 read [-2], the penultimate layer's);
+        - pooled: the final state at each row's argmax of `input_ids` (the
+          eos, until placeholder ids past it extend the vocabulary: then the
+          first of the largest, as in JAX) and, with a projection,
+          pooled_proj = pooled · text_projection.
 
         input_embs [B, S, D] replaces the token lookup; skip_weights [k] or
         [k, D] weights the last k hidden states (embeddings + layer outputs),
@@ -168,7 +186,19 @@ class CLIPTextModel(nn.Module):
             w = w / w.sum(dim=0, keepdim=True)
             stacked = torch.stack(states[-w.shape[0]:], dim=0).float()
             x = (stacked * w[:, None, None, :]).sum(dim=0).to(x.dtype)
-        return self.final_ln(x)
+        out = self.final_ln(x)
+        if not (return_hidden_states or return_pooled):
+            return out
+        results = {"last_hidden_state": out}
+        if return_pooled:
+            pooled = out[torch.arange(out.shape[0], device=out.device), input_ids.argmax(dim=-1)]
+            results["pooled"] = pooled
+            if self.cfg.projection_dim is not None:
+                results["pooled_proj"] = F.linear(pooled,
+                                                  self.text_projection.weight.to(pooled.dtype))
+        if return_hidden_states:
+            results["hidden_states"] = states
+        return results
 
 
 class CLIPVisionModel(nn.Module):
@@ -248,12 +278,14 @@ def extend_position_embedding(model: CLIPTextModel, new_len: int) -> None:
 
 
 def init_text_weights_(model: CLIPTextModel, gen: torch.Generator) -> None:
-    """`init_text_params` scales: linears N(0, 0.02²), token table
-    N(0, 0.02²), positions N(0, 0.01²), norms 1/0, biases 0."""
+    """`init_text_params` scales: linears (the text projection too)
+    N(0, 0.02²), token table N(0, 0.02²), positions N(0, 0.01²), norms 1/0,
+    biases 0."""
     for m in model.modules():
         if isinstance(m, nn.Linear):
             normal_(m.weight, 0.02, gen)
-            nn.init.zeros_(m.bias)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
         elif isinstance(m, nn.LayerNorm):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)

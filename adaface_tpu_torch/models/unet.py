@@ -1,9 +1,17 @@
 """SD1.5 UNet (UNet2DConditionModel) with the training path's adapters and
-the serving speed modes.
+the serving speed modes, and the SDXL-base UNet.
 
 Counterpart of `unet_apply` in `adaface_tpu/models/unet.py` without its
-motion and SDXL branches. NCHW latents in and out, as the JAX interface
-(`unet.py:685`). The serving speed modes:
+motion branch. NCHW latents in and out, as the JAX interface
+(`unet.py:685`). The SDXL branch (`SDXL_UNET`, `unet.py:69-110`): three
+levels, a transformer depth per level (a depth > 1 stacks its blocks in a
+`blocks` list inside one `proj_in` / `proj_out`; capture and the attention
+adapters apply to the last of them, `unet.py:635-637`), up blocks taking the
+reversed depths and head counts, heads per level (head dim 64), and the
+"text_time" addition embedding (`add_embedding`, `added_cond`: the pooled
+text embedding and the Fourier embeddings of six size and crop ids through a
+two-layer SiLU MLP, added to the time embedding, `unet.py:747-760`). The
+serving speed modes:
 
 - `deepcache` (`unet.py:698-731`): "collect" also returns the feature that
   enters the last up block; ("shallow", feat) runs conv_in, down block 0
@@ -87,6 +95,15 @@ class UNetConfig:
     lora_alpha: int = 24  # rank / 8: the adapters' scale is alpha / rank
     fused_ln: bool = dataclasses.field(
         default_factory=lambda: os.environ.get("ADAFACE_FUSED_LN", "0") == "1")
+    # the SDXL family (SD1.5 defaults): transformer blocks per level (up
+    # blocks mirror), in the mid block, heads per level (None: `num_heads`
+    # everywhere), the "text_time" addition embedding (None: off)
+    transformer_depth: tuple = (1, 1, 1, 1)
+    mid_transformer_depth: int = 1
+    block_num_heads: tuple | None = None
+    addition_time_embed_dim: int | None = None
+    addition_pooled_dim: int = 1280
+    addition_num_time_ids: int = 6
 
     @property
     def lora_scale(self) -> float:
@@ -94,6 +111,23 @@ class UNetConfig:
 
 
 SD15_UNET = UNetConfig()
+# stabilityai/stable-diffusion-xl-base-1.0's UNet (`unet.py:90-99`): head dim
+# 64 at every level, cross-attention over CLIP-L 768 ‖ bigG 1280
+SDXL_UNET = UNetConfig(block_channels=(320, 640, 1280), down_has_attn=(False, True, True),
+                       up_has_attn=(True, True, False), transformer_depth=(1, 2, 10),
+                       mid_transformer_depth=10, block_num_heads=(5, 10, 20),
+                       cross_attn_dim=2048, addition_time_embed_dim=256)
+
+
+def _block_depth(cfg: UNetConfig, bi: int) -> int:
+    """Transformer blocks of level `bi` (`unet.py:102-105`)."""
+    td = cfg.transformer_depth
+    return td[bi] if bi < len(td) else 1
+
+
+def _block_heads(cfg: UNetConfig, bi: int) -> int:
+    """Heads of level `bi` (`unet.py:107-110`)."""
+    return cfg.num_heads if cfg.block_num_heads is None else cfg.block_num_heads[bi]
 CAPTURE_LAYER_BASE = 22  # the JAX package's label of the first captured layer
 FFN_ADAPTERS = ("recon_loss", "unet_distill", "comp_distill")
 
@@ -407,12 +441,20 @@ class TransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    def __init__(self, c, cross_dim, cfg: UNetConfig):
+    def __init__(self, c, cross_dim, cfg: UNetConfig, depth: int = 1,
+                 num_heads: int | None = None):
+        """`depth` blocks: one as `block` (SD1.5's layout), more as the list
+        `blocks` (`_init_transformer2d`, `unet.py:319-333`)."""
         super().__init__()
         self.norm = GroupNorm(c, cfg.norm_groups, cfg.transformer_norm_eps)
         self.proj_in = _conv(c, c, k=1)
         self.proj_out = _conv(c, c, k=1)
-        self.block = TransformerBlock(c, cross_dim, cfg.num_heads, cfg.fused_ln)
+        heads = cfg.num_heads if num_heads is None else num_heads
+        make = lambda: TransformerBlock(c, cross_dim, heads, cfg.fused_ln)  # noqa: E731
+        if depth == 1:
+            self.block = make()
+        else:
+            self.blocks = nn.ModuleList(make() for _ in range(depth))
 
     def forward(self, x, context, img_mask=None, tome=None, **cross):
         """img_mask [B, 1, H0, W0] or None: the self-attention's key mask,
@@ -432,7 +474,12 @@ class Transformer2D(nn.Module):
             merge, unmerge, _ = tome_ops.build_merge(y, h, w, int(h * w * tome.ratio), tome.sx,
                                                      tome.sy, tome.rand_seed)
             merging = (tome, merge, unmerge)
-        y = self.block(y, context, img_mask, tome=merging, **cross)
+        blocks = self.blocks if hasattr(self, "blocks") else [self.block]
+        inner = dict(cross, lora=None, capture=None)
+        for i, block in enumerate(blocks):
+            # the adapters and capture act on the last block alone
+            y = block(y, context, img_mask, tome=merging,
+                      **(cross if i == len(blocks) - 1 else inner))
         return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x
 
 
@@ -462,7 +509,8 @@ class UNet2DConditionModel(nn.Module):
             for li in range(cfg.layers_per_block):
                 res.append(ResnetBlock(cin if li == 0 else cout, cout, temb, cfg))
                 if cfg.down_has_attn[bi]:
-                    att.append(Transformer2D(cout, cfg.cross_attn_dim, cfg))
+                    att.append(Transformer2D(cout, cfg.cross_attn_dim, cfg,
+                                             _block_depth(cfg, bi), _block_heads(cfg, bi)))
             last = bi == len(ch) - 1
             down.append(UNetBlock(
                 res, att, downsample=None if last else _conv(cout, cout, stride=2)))
@@ -470,9 +518,15 @@ class UNet2DConditionModel(nn.Module):
         self.down_blocks = nn.ModuleList(down)
         self.mid = nn.ModuleDict({
             "resnet1": ResnetBlock(ch[-1], ch[-1], temb, cfg),
-            "attention": Transformer2D(ch[-1], cfg.cross_attn_dim, cfg),
+            "attention": Transformer2D(ch[-1], cfg.cross_attn_dim, cfg,
+                                       cfg.mid_transformer_depth, _block_heads(cfg, len(ch) - 1)),
             "resnet2": ResnetBlock(ch[-1], ch[-1], temb, cfg),
         })
+        if cfg.addition_time_embed_dim is not None:
+            add_in = cfg.addition_pooled_dim + cfg.addition_num_time_ids * \
+                cfg.addition_time_embed_dim
+            self.add_embedding = nn.ModuleDict({"fc1": nn.Linear(add_in, temb),
+                                                "fc2": nn.Linear(temb, temb)})
         rev = list(reversed(ch))
         up = []
         for bi in range(len(ch)):
@@ -481,15 +535,21 @@ class UNet2DConditionModel(nn.Module):
             for li in range(cfg.layers_per_block + 1):
                 skip = rev[min(bi + 1, len(ch) - 1)] if li == cfg.layers_per_block else cout
                 res.append(ResnetBlock((prev_out if li == 0 else cout) + skip, cout, temb, cfg))
-                if cfg.up_has_attn[bi]:
-                    att.append(Transformer2D(cout, cfg.cross_attn_dim, cfg))
+                if cfg.up_has_attn[bi]:  # the down path's depth and heads, reversed
+                    att.append(Transformer2D(cout, cfg.cross_attn_dim, cfg,
+                                             _block_depth(cfg, len(ch) - 1 - bi),
+                                             _block_heads(cfg, len(ch) - 1 - bi)))
             last = bi == len(ch) - 1
             up.append(UNetBlock(res, att, upsample=None if last else _conv(cout, cout)))
         self.up_blocks = nn.ModuleList(up)
         self.conv_norm_out = GroupNorm(ch[0], cfg.norm_groups, cfg.norm_eps)
         self.conv_out = _conv(ch[0], cfg.out_channels)
-        # the timestep embedding's frequencies; not in the state dict
+        # the timestep embedding's frequencies (and the addition embedding's);
+        # not in the state dict
         self.register_buffer("time_freqs", timestep_freqs(ch[0]), persistent=False)
+        if cfg.addition_time_embed_dim is not None:
+            self.register_buffer("add_time_freqs", timestep_freqs(cfg.addition_time_embed_dim),
+                                 persistent=False)
         # convolution weights in channels-last memory, once; loading a state
         # dict or initialising in place keeps the strides
         self.to(memory_format=torch.channels_last)
@@ -499,11 +559,15 @@ class UNet2DConditionModel(nn.Module):
         once the module has been materialised and cast."""
         self.time_freqs = timestep_freqs(self.cfg.block_channels[0],
                                          device=self.time_freqs.device)
+        if self.cfg.addition_time_embed_dim is not None:
+            self.add_time_freqs = timestep_freqs(self.cfg.addition_time_embed_dim,
+                                                 device=self.time_freqs.device)
 
     def forward(self, x, t, context, img_mask=None, capture: dict | None = None,
                 rt: AttnRuntime = PLAIN, kv_mask=None, attn_lora: AttnLoRA | None = None,
                 ffn_lora: FFNLoRA | None = None, subj_mask=None, attn_lora_gate=None,
-                ffn_lora_gate=None, tome: tome_ops.ToMeConfig | None = None, deepcache=None):
+                ffn_lora_gate=None, tome: tome_ops.ToMeConfig | None = None, deepcache=None,
+                added_cond: dict | None = None):
         """eps [B, 4, h, w] for latents x [B, 4, h, w], timesteps t [B] and
         text context [B, S, cross_attn_dim]; computes in context's dtype.
         img_mask [B, 1, H, W]: the self-attentions' key mask; kv_mask [B, S]:
@@ -512,7 +576,9 @@ class UNet2DConditionModel(nn.Module):
         cross-attentions (q, q2, k, v, attn, attnscore, attn_out, outfeat);
         `rt` the adapters' and the attention's flags; subj_mask [B, S] the
         subject tokens; the gates [B] select the adapters row by row; `tome`
-        merges tokens in every transformer it applies to.
+        merges tokens in every transformer it applies to. `added_cond` (an
+        SDXL UNet's, and required there): {"text_embeds" [B, pooled],
+        "time_ids" [B, 6]}.
 
         `deepcache` (`unet.py:698-731`): "collect" → (eps, the feature that
         enters the last up block, channels-last); ("shallow", feat) → eps of
@@ -537,6 +603,15 @@ class UNet2DConditionModel(nn.Module):
         temb = timestep_embedding(t, self.cfg.block_channels[0],
                                   freqs=self.time_freqs).to(context.dtype)
         temb = self.time_mlp["fc2"](F.silu(self.time_mlp["fc1"](temb)))
+        if self.cfg.addition_time_embed_dim is not None:
+            # "text_time": each time id's Fourier embedding after the pooled
+            # text embedding, through a 2-layer SiLU MLP, added to temb
+            tids = added_cond["time_ids"]
+            four = timestep_embedding(tids.reshape(-1), self.cfg.addition_time_embed_dim,
+                                      freqs=self.add_time_freqs).reshape(tids.shape[0], -1)
+            add_in = torch.cat([added_cond["text_embeds"].float(), four],
+                               dim=-1).to(context.dtype)
+            temb = temb + self.add_embedding["fc2"](F.silu(self.add_embedding["fc1"](add_in)))
         cross = dict(rt=rt, kv_mask=kv_mask, subj_mask=subj_mask, tome=tome)
         ffn_ad = None
         if rt.use_ffn_lora and ffn_lora is not None and rt.ffn_adapter is not None:

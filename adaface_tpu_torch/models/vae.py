@@ -267,20 +267,24 @@ class VAEDecoder(nn.Module):
         # dict or initialising in place keeps the strides
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, z, scale: float = SD_LATENT_SCALE):
-        """Scaled latent [B, 4, h, w] → image [B, 3, 8h, 8w] in [-1, 1]."""
-        z = (z / scale).contiguous(memory_format=torch.channels_last)
+    def forward(self, z, scale: float = SD_LATENT_SCALE, shift: float = 0.0):
+        """Scaled latent [B, z_channels, h, w] → image [B, 3, 8h, 8w] in
+        [-1, 1]; `shift` (SD3's VAE) is added after the unscaling."""
+        z = z / scale
+        if shift:
+            z = z + shift
+        z = z.contiguous(memory_format=torch.channels_last)
         return self.decoder(self.post_quant_conv(z)).contiguous()
 
 
-def vae_decode(decoder: VAEDecoder, z, scale: float = SD_LATENT_SCALE):
-    """Scaled latent [B, 4, h, w] → image [B, 3, 8h, 8w] in [-1, 1], fp32;
-    computed in the decoder's weights' dtype, recomputed in the backward
-    where z requires grad."""
+def vae_decode(decoder: VAEDecoder, z, scale: float = SD_LATENT_SCALE, shift: float = 0.0):
+    """Scaled latent [B, z_channels, h, w] → image [B, 3, 8h, 8w] in
+    [-1, 1], fp32; computed in the decoder's weights' dtype, recomputed in
+    the backward where z requires grad."""
     dtype = next(decoder.parameters()).dtype
     z = z.to(dtype)
     if torch.is_grad_enabled() and z.requires_grad:
         from torch.utils.checkpoint import checkpoint as remat
 
-        return remat(decoder, z, scale, use_reentrant=False).float()
-    return decoder(z, scale).float()
+        return remat(decoder, z, scale, shift, use_reentrant=False).float()
+    return decoder(z, scale, shift).float()

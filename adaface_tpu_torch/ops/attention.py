@@ -8,9 +8,10 @@ there.
   to v's dtype before P·V, as there).
 - `flash_attention` wraps the CUDA kernels that stand in for the two Pallas
   kernels. `flash_plan` picks the variant from dtype, shape, alignment and
-  the card's SM count: bf16 at the UNet's head dims (40, 80, 160) with rows
-  on 16-byte boundaries takes the wgmma kernel of `csrc/flash_attn_wgmma.cu`
-  (64-key tiles, 64 or 128 query rows a block); every other bf16 tensor
+  the card's SM count: bf16 at the UNets' head dims (40, 80, 160; 64 in
+  SDXL's UNet and SD3's MMDiT) with rows on 16-byte boundaries takes the
+  wgmma kernel of `csrc/flash_attn_wgmma.cu` (64-key tiles, 64 or 128 query
+  rows a block); every other bf16 tensor
   (160 < D <= 512 in the VAE) the wide-head kernel of
   `csrc/flash_attn_wide.cu` (32-key tiles, the head dim of O in four slices,
   the keys split over several blocks where the grid would not fill the
@@ -32,8 +33,8 @@ there.
   `flash_bwd_chunked`, the JAX backward's
   query-chunk scan in plain PyTorch. It computes only the gradients autograd
   asks for: a cross-attention whose query has no grad launches no dq
-  kernel. fp32 on the card has no backward kernel: such a call raises at
-  the forward.
+  kernel. fp32 on the card has no backward kernel, nor has D 64 (no path
+  trains SDXL or SD3): such a call raises at the forward.
 - `flash_attention_tiled` and `combine_partials` repeat the kernels'
   arithmetic in plain PyTorch (key tiles, log2 online softmax, P rounded to
   v's dtype, head-dim slices, split-keys partials), so that the CPU tests
@@ -92,7 +93,8 @@ STATS_ROWS = 64  # the rows' statistics are kept for Sq rounded up to this
 
 LOG2E = 1.4426950408889634
 MAX_DIM = 512
-WG_KSTEPS = (3, 5, 10)  # ceil(D / 16) of the wgmma kernel's instances: D = 40, 80, 160
+# ceil(D / 16) of the wgmma kernel's instances: D = 40, 64 (SDXL, SD3), 80, 160
+WG_KSTEPS = (3, 4, 5, 10)
 MAX_SPLITS = 8
 
 
@@ -121,7 +123,7 @@ def scaled_dot_product_attention(q, k, v, kv_mask=None, causal: bool = False,
 class FlashPlan:
     """What the CUDA route does with one call."""
 
-    variant: str  # "wg" (bf16, D 40/80/160, aligned), "wide" (other bf16) or "fp32"
+    variant: str  # "wg" (bf16, D 40/64/80/160, aligned), "wide" (other bf16) or "fp32"
     key_tile: int  # keys per shared-memory tile
     block_rows: int  # query rows per block
     d_slices: int  # slices of O's head dim, one per warp column
@@ -134,7 +136,7 @@ def flash_plan(dtype, b: int, h: int, sq: int, sk: int, d: int, sm_count: int,
     batch, head and sequence strides)."""
     if dtype == torch.float32:
         return FlashPlan("fp32", 32, 16, 1, 1)
-    # the wgmma kernel has instances for the UNet's head dims only, and
+    # the wgmma kernel has instances for the UNets' and MMDiT's head dims only, and
     # copies whole 16-byte chunks; every other tensor takes the wide kernel
     if aligned and d % 8 == 0 and -(-d // 16) in WG_KSTEPS:
         # 128 query rows a block (K and V pass through shared memory half as

@@ -88,12 +88,21 @@ def ddim_step(x, eps, alpha_t, alpha_prev, eta: float = 0.0, noise=None):
     return x_prev, pred_x0
 
 
+def _cat_ctx(uncond_ctx, cond_ctx):
+    """[uncond; cond] along the batch: of two tensors, or key by key of two
+    dicts of them (SDXL's and SD3's context and pooled embedding)."""
+    if isinstance(cond_ctx, dict):
+        return {k: torch.cat([uncond_ctx[k], cond_ctx[k]], dim=0) for k in cond_ctx}
+    return torch.cat([uncond_ctx, cond_ctx], dim=0)
+
+
 def _cfg_model(model_fn: ModelFn, cond_ctx, uncond_ctx, batch: int, device):
     """→ eps(x, t, scale): the model's fp32 prediction for one timestep `t`
     (a host number) of the whole batch; with uncond_ctx, CFG over
-    [uncond; cond] in one model call, mixed with weight `scale`."""
+    [uncond; cond] in one model call, mixed with weight `scale`. A context
+    may be a tensor or a dict of tensors."""
     use_cfg = uncond_ctx is not None
-    ctx = torch.cat([uncond_ctx, cond_ctx], dim=0) if use_cfg else cond_ctx
+    ctx = _cat_ctx(uncond_ctx, cond_ctx) if use_cfg else cond_ctx
 
     def eps(x, t, scale: float, dtype=torch.long):
         tb = torch.full((2 * batch if use_cfg else batch,), t, dtype=dtype, device=device)

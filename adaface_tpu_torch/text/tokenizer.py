@@ -252,6 +252,17 @@ class CLIPTokenizer:
         return " ".join(debyte(w) for w in words).strip()
 
 
+def zero_pad_after_eos(ids, eos_id: int) -> np.ndarray:
+    """Every id after a row's first eos set to 0 (`zero_pad_after_eos`,
+    `adaface_tpu/text/tokenizer.py:249-262`): the OpenCLIP-bigG tokenizer
+    of SDXL and SD3 (their tokenizer_2) pads with 0 where CLIP-L pads with
+    eos, and every position's hidden state feeds the context."""
+    ids = np.asarray(ids)
+    first_eos = np.argmax(ids == eos_id, axis=1)
+    past = np.arange(ids.shape[1])[None, :] > first_eos[:, None]
+    return np.where(past, 0, ids)
+
+
 _default: CLIPTokenizer | None = None
 
 ASSETS = pathlib.Path(__file__).resolve().parents[2] / "assets"

@@ -55,8 +55,9 @@ def convert_text_model(sd: Mapping[str, np.ndarray], prefix: str = "text_model."
     """An HF CLIPTextModel state dict → (tree, config) (`convert_clip.py:63`).
     The head count is not in the shapes: head dim 64 (every shipped CLIP
     text tower) unless `num_heads` is given. A `text_projection.weight`
-    (CLIPTextModelWithProjection) is carried into the tree as the
-    bias-free `text_projection`; the port's text tower has no use for it."""
+    (CLIPTextModelWithProjection: SDXL's and SD3's towers) is carried into
+    the tree as the bias-free `text_projection`, its width into the
+    config's `projection_dim`."""
     tok = np.asarray(sd[f"{prefix}embeddings.token_embedding.weight"])
     pos = np.asarray(sd[f"{prefix}embeddings.position_embedding.weight"])
     stem = f"{prefix}encoder"
@@ -69,7 +70,8 @@ def convert_text_model(sd: Mapping[str, np.ndarray], prefix: str = "text_model."
     cfg = CLIPTextConfig(vocab_size=tok.shape[0], hidden_size=d, num_layers=n_layers,
                          num_heads=num_heads if num_heads is not None else max(d // 64, 1),
                          intermediate_size=fc1.shape[0], max_position_embeddings=pos.shape[0],
-                         hidden_act=hidden_act)
+                         hidden_act=hidden_act,
+                         projection_dim=None if proj is None else proj.shape[0])
     params = {"token_embedding": arr(tok), "position_embedding": arr(pos),
               "layers": [_encoder_layer(sd, f"{stem}.layers.{i}") for i in range(n_layers)],
               "final_ln": _ln(sd, f"{prefix}final_layer_norm")}

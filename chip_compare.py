@@ -79,6 +79,30 @@ micro-step, each with its GroupNorm backward's device time by kernel.
 
 profiles one UNet call and one VAE decode of the tree in the working
 directory by kind of kernel (layout transposes, convolutions, copies, ...).
+
+    python3 chip_compare.py --d64
+
+times the wgmma kernel's D 64 instance at every D 64 shape of the SDXL and
+SD3 paths (`chip_smoke.FLASH_XL_CASES`), in turns with the wide kernel (the
+route D 64 took before it had an instance: the same call with D 64 left out
+of `WG_KSTEPS`) and `F.scaled_dot_product_attention` (wgmma, wide, sdpa,
+sdpa, wide, wgmma), each as device time (20 launches in a CUDA graph) and
+held to the plain version, beside the bound.
+
+    python3 chip_compare.py --d64-caps
+
+builds copies of `csrc/flash_attn_wgmma.cu` alone, three times, with the
+D 64 instance's register cap changed (blocks an SM for 64- and 128-row
+blocks: (2, 1), (3, 2), (4, 1); the source's `wg_min_blocks` rule gives it
+(3, 1)), prints each build's registers and spills for that instance, and
+times each at the D 64 shapes with 64 and with 128 query rows a block, in
+turns (how the instance's cap was set).
+
+    python3 chip_compare.py --sd15-bits PARENT_DIR [CHANGE_DIR]
+
+one SD1.5 512x512, 25-step request of each tree's `chip_smoke.build_server`
+modules (seed 0, generator seed 100), each tree in its own process; the two
+images compared bit for bit.
 """
 
 from __future__ import annotations
@@ -745,7 +769,197 @@ def gn_bwd_turn() -> None:
               f"recomputed GroupNorm forward {fwd_ms:.3f} ms", flush=True)
 
 
+def d64_turns() -> None:
+    """The D 64 instance against the wide kernel and the library, in turns."""
+    sys.path.insert(0, os.getcwd())
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as c
+    from adaface_tpu_torch.ops import attention as A
+
+    card = c.require_cuda()
+    c.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    cases = [case for case in c.FLASH_XL_CASES if case[-1] == 64]
+    with torch.inference_mode():
+        for label, b, h, sq, sk, d in cases:
+            q, k, v = c.flash_inputs(gen, label, b, h, sq, sk, d)
+            scale = 1.0 / math.sqrt(d)
+            ref = A.scaled_dot_product_attention(q, k, v)
+
+            def wide():
+                with mock.patch.object(A, "WG_KSTEPS", tuple(x for x in A.WG_KSTEPS if x != 4)):
+                    A._PREPARED.clear()
+                    out = A._flash_cuda(q, k, v, None, False, scale)
+                A._PREPARED.clear()
+                return out
+
+            def wg():
+                return A._flash_cuda(q, k, v, None, False, scale)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v)
+
+            errs = {}
+            for name, fn in (("wgmma", wg), ("wide", wide), ("sdpa", sdpa)):
+                errs[name], _ = c.max_err(fn(), ref)
+            # the wide route's plan is taken outside the graph: capture its launches
+            with mock.patch.object(A, "WG_KSTEPS", tuple(x for x in A.WG_KSTEPS if x != 4)):
+                A._PREPARED.clear()
+                wide_plan = A.plan_for(q, k, v)
+                wide_ms = [c.graph_ms(lambda: A._flash_cuda(q, k, v, None, False, scale))]
+            A._PREPARED.clear()
+            times = {"wgmma": [c.graph_ms(wg)], "wide": wide_ms, "sdpa": [c.graph_ms(sdpa)]}
+            times["sdpa"].append(c.graph_ms(sdpa))
+            with mock.patch.object(A, "WG_KSTEPS", tuple(x for x in A.WG_KSTEPS if x != 4)):
+                A._PREPARED.clear()
+                times["wide"].append(c.graph_ms(lambda: A._flash_cuda(q, k, v, None, False,
+                                                                      scale)))
+            A._PREPARED.clear()
+            times["wgmma"].append(c.graph_ms(wg))
+            bound_ms, bound_by = c.bound(2 * (2 * q.numel() + 2 * k.numel()),
+                                         4.0 * b * h * sq * sk * d)
+            plan = A.plan_for(q, k, v)
+            print(f"d64 {label:18s} B{b} H{h} Sq{sq} Sk{sk}: wgmma ({plan.block_rows} rows) "
+                  f"{times['wgmma'][0]:.4f}, {times['wgmma'][1]:.4f} ms | wide (splits "
+                  f"{wide_plan.nsplit}) {times['wide'][0]:.4f}, {times['wide'][1]:.4f} ms | sdpa "
+                  f"{times['sdpa'][0]:.4f}, {times['sdpa'][1]:.4f} ms | least {bound_ms:.4f} ms "
+                  f"by {bound_by} | max_abs_err against plain: " +
+                  ", ".join(f"{n} {e:.3e}" for n, e in errs.items()), flush=True)
+            del q, k, v, ref
+            torch.cuda.empty_cache()
+    print(f"card: {card}", flush=True)
+
+
+D64_CAPS = ((2, 1), (3, 2), (4, 1))  # (blocks an SM at 64 rows, at 128 rows) of each build
+
+
+def d64_caps() -> None:
+    """Three builds of the wgmma source with the D 64 instance's register cap
+    set by -D, timed in turns at the D 64 shapes with both block sizes."""
+    sys.path.insert(0, os.getcwd())
+    import ctypes
+
+    import torch
+
+    import chip_smoke as c
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+
+    card = c.require_cuda()
+    c.build_kernels()
+    out_dir = os.path.join(os.getcwd(), "chiprun_out", "d64_caps")
+    os.makedirs(out_dir, exist_ok=True)
+    source = (_build.CSRC / "flash_attn_wgmma.cu").read_text()
+    rule = "  return KS <= 3 ? 4 / NWG : (KS <= 5 && NWG == 1 ? 3 : 1);"
+    if rule not in source:
+        raise RuntimeError("wg_min_blocks' rule not found in flash_attn_wgmma.cu")
+    procs = {}
+    for caps in D64_CAPS:
+        # a copy beside the source (its headers resolve) with the D 64 cap changed
+        copy = _build.CSRC / f"d64_caps_{caps[0]}_{caps[1]}.cu"
+        copy.write_text(source.replace(rule, f"  if (KS == 4) return NWG == 1 ? {caps[0]} : "
+                                             f"{caps[1]};\n" + rule))
+        lib = os.path.join(out_dir, f"wgmma_{caps[0]}_{caps[1]}.so")
+        procs[caps] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib, str(copy)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for caps, (path, proc) in procs.items():
+        log = proc.communicate()[0]
+        (_build.CSRC / f"d64_caps_{caps[0]}_{caps[1]}.cu").unlink()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for caps {caps}:\n{log}")
+        # ptxas's report of each D 64 instance (KS 4): its entry, spills, registers
+        for chunk in log.split("Compiling entry function")[1:]:
+            m = re.search(r"flash_fwd_wg_kernelILi4ELi(\d)ELb(\d)", chunk)
+            spill = re.search(r"(\d+) bytes spill stores", chunk)
+            regs = re.search(r"Used (\d+) registers", chunk)
+            if m and spill and regs:
+                print(f"caps {caps}: KS 4 NWG {m.group(1)} TMA {m.group(2)}: {regs.group(1)} "
+                      f"registers, {spill.group(1)} bytes spill stores", flush=True)
+        lib = ctypes.CDLL(path)
+        lib.flash_fwd_bf16_wg.argtypes = _build.load_library().flash_fwd_bf16_wg.argtypes
+        lib.flash_fwd_bf16_wg.restype = ctypes.c_int
+        libs[caps] = lib
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    cases = [case for case in c.FLASH_XL_CASES if case[-1] == 64]
+    with torch.inference_mode():
+        for label, b, h, sq, sk, d in cases:
+            q, k, v = c.flash_inputs(gen, label, b, h, sq, sk, d)
+            _, _, _, strides = A._prepare(q, k, v, True)
+            ref = A.scaled_dot_product_attention(q, k, v)
+            out = torch.empty_strided((b, h, sq, d), (sq * h * d, d, h * d, 1), dtype=q.dtype,
+                                      device="cuda")
+
+            def launch(lib, rows):
+                _build.check(lib.flash_fwd_bf16_wg(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), strides,
+                    b, h, sq, sk, d, 0, 1.0 / math.sqrt(d), rows, None,
+                    torch.cuda.current_stream().cuda_stream), "flash_fwd_bf16_wg")
+
+            rows_plan = A.plan_for(q, k, v).block_rows
+            for rows in (64, 128):
+                ms = {caps: [] for caps in D64_CAPS}
+                for caps in D64_CAPS + D64_CAPS[::-1]:
+                    ms[caps].append(c.graph_ms(lambda: launch(libs[caps], rows)))
+                errs = {}
+                for caps in D64_CAPS:
+                    launch(libs[caps], rows)
+                    errs[caps], _ = c.max_err(out, ref)
+                print(f"d64 caps {label:18s} {rows} rows (the plan takes {rows_plan}): " +
+                      " | ".join(f"blocks {caps[0] if rows == 64 else caps[1]}: "
+                                 f"{ms[caps][0]:.4f}, {ms[caps][1]:.4f} ms (err {errs[caps]:.2e})"
+                                 for caps in D64_CAPS), flush=True)
+            del q, k, v, ref, out
+            torch.cuda.empty_cache()
+    print(f"card: {card}", flush=True)
+
+
+def sd15_bits_turn(path: str) -> None:
+    """One SD1.5 512x512, 25-step request of this tree's modules → `path`."""
+    sys.path.insert(0, os.getcwd())
+    import numpy as np
+    import torch
+
+    import chip_smoke as c
+
+    c.require_cuda()
+    c.build_kernels()
+    wrapper, faces = c.build_server(torch.Generator(device="cuda").manual_seed(c.SEED))
+    wrapper.prepare_adaface_embeddings(images=faces["a"])
+    img = wrapper(c.REQUESTS[0][1], generator=torch.Generator("cuda").manual_seed(100))
+    np.save(path, img.float().cpu().numpy())
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--d64":
+        d64_turns()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--d64-caps":
+        d64_caps()
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--sd15-bits-turn":
+        sd15_bits_turn(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--sd15-bits"] and len(sys.argv) in (3, 4):
+        import numpy as np
+
+        trees = [os.path.abspath(x) for x in (sys.argv[2:] + ["."])[:2]]
+        out = os.path.abspath(os.path.join("chiprun_out", "sd15_bits"))
+        os.makedirs(out, exist_ok=True)
+        paths = []
+        for name, tree in zip(("parent", "change"), trees):
+            paths.append(os.path.join(out, f"{name}.npy"))
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--sd15-bits-turn",
+                            paths[-1]], cwd=tree, check=True)
+        a, b = (np.load(p) for p in paths)
+        print(f"sd15 request parent against change: equal bits {np.array_equal(a, b)}, max abs "
+              f"difference {np.abs(a - b).max():.3e}", flush=True)
+        return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep_norm_plans()
         return 0

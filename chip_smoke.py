@@ -156,7 +156,19 @@ and pixel distance from the default image of the same seed, and a request
 run again (ToMe's held to the same bits: its merged sums are taken in a
 fixed order); the 8-slot
 batcher serving the int8 UNet: a drain and one step captured in a CUDA graph
-and replayed twice to the eager step's bits. Before it, `serve_trained` serves what the port's trainers
+and replayed twice to the eager step's bits. After it, `serve_sdxl` and
+`serve_sd3` run the SDXL and SD3 pipelines at full width on random weights of
+their own seeds, behind the phase-5 encoder: one SDXL UNet call (CFG batch 2,
+a 128x128 latent) and one MMDiT call (4096 + 333 tokens) kernels against
+plain (relative L2 <= 5e-2), then one 1024x1024 request of each of two
+subjects through `AdaFaceWrapper("sdxl")` (25 Euler steps, guidance 5.0) and
+`AdaFaceWrapper("sd3")` (28 steps, guidance 7.0), each held to the launches
+its UNet / MMDiT calls and decodes predict (the D 64 attentions all on the
+wgmma kernel: the wide kernel launches once a decode, for the VAE), with the
+latency, and one more request's device time and operations by kind; phase 3
+holds the D 64 instance at their five attention shapes, and GroupNorm and
+the D 512 flash at the 1024x1024 shapes. Before `serve_speed_modes`,
+`serve_trained` serves what the port's trainers
 write, on the same SD1.5 modules: the UNet's attention and FFN adapters at
 rank 192 (B and the magnitudes drawn off their start) written by
 `save_adaface_ckpt` as the trainer writes them and loaded by
@@ -188,6 +200,7 @@ the checkpoint writers of `tests/torch_sd_layout.py`.
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -245,6 +258,26 @@ FLASH_TOME_CASES = [("tome 0.5 64x64 self", 2, 8, 2048, 2048, 40),
 FLASH_TEACHER_CASES = [(f"unet {hw} cross Sk16 teacher", 4, 8, s, 16, d)
                        for hw, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80),
                                         ("16x16", 256, 160))]
+# the SDXL and SD3 pipelines' kernel attentions at 1024x1024, CFG batch 2:
+# SDXL's UNet at its 64x64 and 32x32 levels (head dim 64, 10 and 20 heads;
+# the 32x32 level also in the mid block), SD3's joint attention over 4096
+# latent + 77 + 256 context tokens (ragged last tiles), all on the wgmma
+# kernel's D 64 instance; the VAE decoder's mid block at a 128x128 latent
+# (the wide kernel, D 512, 16384 tokens: 256 query tiles, so no key split)
+FLASH_XL_CASES = [
+    ("sdxl 64x64 self", 2, 10, 4096, 4096, 64),
+    ("sdxl 64x64 cross", 2, 10, 4096, 77, 64),
+    ("sdxl 32x32 self", 2, 20, 1024, 1024, 64),
+    ("sdxl 32x32 cross", 2, 20, 1024, 77, 64),
+    ("sd3 joint", 2, 24, 4429, 4429, 64),
+    ("vae mid 1024 self", 1, 1, 16384, 16384, 512),
+]
+# launches of each SDXL shape in one UNet call (transformer blocks: 2 + 2 x 3
+# at 64x64, 2 x 10 + 10 + 3 x 10 at 32x32) and of the joint attention in one
+# MMDiT call (24 blocks)
+SDXL_FLASH_PER_CALL = {"sdxl 64x64 self": 10, "sdxl 64x64 cross": 10,
+                       "sdxl 32x32 self": 60, "sdxl 32x32 cross": 60}
+SD3_FLASH_PER_CALL = 24
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 BF16_FLOPS = 989e12
 RUN_LAUNCHES = 20  # launches between one pair of events, for launch-bound shapes
@@ -283,18 +316,52 @@ VAE_GN = [
     ("resnet 512x512 256", 256, 512, True, 1, 0),
     ("resnet 512x512 128", 128, 512, True, 6, 4),
 ]
+# every GroupNorm of SDXL's UNet at 1024x1024 (a 128x128 latent), as UNET_GN;
+# 46 a call: its 128x128 maps are larger than a cluster holds
+SDXL_GN = [
+    ("resnet 128x128 320", 320, 128, 1e-5, True, 8),
+    ("resnet 128x128 640", 640, 128, 1e-5, True, 2),
+    ("resnet 128x128 960", 960, 128, 1e-5, True, 1),
+    ("resnet 64x64 320", 320, 64, 1e-5, True, 1),
+    ("resnet 64x64 640", 640, 64, 1e-5, True, 6),
+    ("transformer 64x64 640", 640, 64, 1e-6, False, 5),
+    ("resnet 64x64 960", 960, 64, 1e-5, True, 1),
+    ("resnet 64x64 1280", 1280, 64, 1e-5, True, 1),
+    ("resnet 64x64 1920", 1920, 64, 1e-5, True, 1),
+    ("resnet 32x32 640", 640, 32, 1e-5, True, 1),
+    ("resnet 32x32 1280", 1280, 32, 1e-5, True, 10),
+    ("transformer 32x32 1280", 1280, 32, 1e-6, False, 6),
+    ("resnet 32x32 1920", 1920, 32, 1e-5, True, 1),
+    ("resnet 32x32 2560", 2560, 32, 1e-5, True, 2),
+]
+# every GroupNorm of a VAE decode at 1024x1024 (SDXL's, and SD3's 16-channel
+# VAE, whose GroupNorms are the same), batch 1, as VAE_GN: 30 a decode
+VAE1024_GN = [
+    ("resnet 128x128 512", 512, 128, True, 10),
+    ("attention 128x128 512", 512, 128, False, 1),
+    ("resnet 256x256 512", 512, 256, True, 6),
+    ("resnet 512x512 512", 512, 512, True, 1),
+    ("resnet 512x512 256", 256, 512, True, 5),
+    ("resnet 1024x1024 256", 256, 1024, True, 1),
+    ("resnet 1024x1024 128", 128, 1024, True, 6),
+]
 # (label, shape, groups, eps, silu, launches by path): the paths are one UNet
 # call at CFG batch 2 ("unet": a request's step) or 16 ("unet16": a step of the
-# batcher with 8 slots), one VAE decode and one VAE encode; `check_unet`, `serve`
-# and the phases after it count the shapes the modules really see against this
-# table
+# batcher with 8 slots), one VAE decode and one VAE encode, one SDXL UNet call
+# at CFG batch 2 ("sdxl") and one 1024x1024 decode ("decode1024"); `check_unet`,
+# `serve` and the phases after it count the shapes the modules really see
+# against this table
 GN_CASES = (
     [(f"unet {label}", (2, c, hw, hw), 32, eps, silu, {"unet": n})
      for label, c, hw, eps, silu, n in UNET_GN]
     + [(f"vae {label}", (1, c, hw, hw), 32, 1e-6, silu, {"decode": dec, "encode": enc})
        for label, c, hw, silu, dec, enc in VAE_GN]
     + [(f"unet {label} batch 16", (16, c, hw, hw), 32, eps, silu, {"unet16": n})
-       for label, c, hw, eps, silu, n in UNET_GN])
+       for label, c, hw, eps, silu, n in UNET_GN]
+    + [(f"sdxl {label}", (2, c, hw, hw), 32, eps, silu, {"sdxl": n})
+       for label, c, hw, eps, silu, n in SDXL_GN]
+    + [(f"vae 1024 {label}", (1, c, hw, hw), 32, 1e-6, silu, {"decode1024": n})
+       for label, c, hw, silu, n in VAE1024_GN])
 UNET_CALLS = 25  # per request: DDIM steps, one CFG batch-2 call each
 # each kernel forced at a shape of the other's regime, where it can run
 GN_FORCED = [("vae resnet 128x128 512", "fused"), ("unet resnet 64x64 320", "split"),
@@ -500,7 +567,7 @@ def check_flash(gen) -> dict:
 
     results = {}
     for label, b, h, sq, sk, d in (FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES
-                                   + FLASH_TEACHER_CASES + FLASH_TOME_CASES):
+                                   + FLASH_TEACHER_CASES + FLASH_TOME_CASES + FLASH_XL_CASES):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -530,7 +597,7 @@ def check_flash(gen) -> dict:
             f"{bound_ms:.4f} ms by {bound_by}, reached {bound_ms / dev:.1%}")
         if err > BF16_TOL * mag:
             raise AssertionError(f"flash {label}: error {err} above bound")
-        if label.startswith("tome") and plan.variant != "wg":
+        if (label.startswith(("tome", "sdxl", "sd3"))) and plan.variant != "wg":
             raise AssertionError(f"flash {label}: the plan leaves the wgmma kernel")
         results[label] = dict(variant=plan.variant, err=err, ms=ms, plain_ms=plain_ms,
                               stock_ms=stock_ms, run_ms=run,
@@ -545,14 +612,23 @@ def check_flash(gen) -> dict:
         lib = sum(FLASH_PER_UNET_CALL * results[case[0]]["stock_graph_ms"] for case in cases)
         log(f"flash per UNet call at batch {name} ({FLASH_PER_UNET_CALL * len(cases)} launches): "
             f"kernels {dev:.3f} ms of device time, stock sdpa {lib:.3f} ms")
+    for name, per_call in (("SDXL UNet", SDXL_FLASH_PER_CALL),
+                           ("SD3 MMDiT", {"sd3 joint": SD3_FLASH_PER_CALL})):
+        dev, lib, bnd = (sum(n * results[label][key] for label, n in per_call.items())
+                         for key in ("graph_ms", "stock_graph_ms", "bound_ms"))
+        log(f"flash per {name} call at CFG batch 2, 1024x1024 ({sum(per_call.values())} "
+            f"launches, D 64): kernels {dev:.3f} ms of device time, stock sdpa {lib:.3f} ms, "
+            f"least {bnd:.3f} ms")
 
     # masked + causal at ragged lengths (Sq 200, Sk 177: the causal offset
     # Sk - Sq = -23 leaves rows 0..22 only masked keys; batch 1 also masks
-    # keys 0..15), on every kernel: bf16 D 40 (wgmma, three tiles by TMA; at
-    # Sk 100 two tiles by cp.async), bf16 D 64 and D 200 (the wide kernel,
-    # 32-key tiles, 6 key splits and the combine kernel) and fp32 D 64 (CUDA
-    # cores)
+    # keys 0..15), on every kernel: bf16 D 40 and D 64 (wgmma, three tiles by
+    # TMA; at Sk 100 two tiles by cp.async), bf16 D 96 and D 200 (the wide
+    # kernel, 32-key tiles, 6 key splits and the combine kernel) and fp32 D 64
+    # (CUDA cores)
     for dtype, d, sk, tol in ((torch.bfloat16, 64, 177, BF16_TOL),
+                              (torch.bfloat16, 64, 100, BF16_TOL),
+                              (torch.bfloat16, 96, 177, BF16_TOL),
                               (torch.bfloat16, 40, 177, BF16_TOL),
                               (torch.bfloat16, 40, 100, BF16_TOL),
                               (torch.bfloat16, 200, 177, BF16_TOL),
@@ -828,7 +904,9 @@ def check_gn(gen) -> dict:
         f"{sums['bound_moved']:.3f} ms")
     results["per request"] = dict(launches=launches, **sums)
     for what, calls in (("batcher step at 8 slots (UNet batch 16)", {"unet16": 1}),
-                        ("VAE encode", {"encode": 1}), ("VAE decode", {"decode": 1})):
+                        ("VAE encode", {"encode": 1}), ("VAE decode", {"decode": 1}),
+                        ("SDXL UNet call (CFG batch 2, 128x128)", {"sdxl": 1}),
+                        ("1024x1024 VAE decode", {"decode1024": 1})):
         n = {case[0]: gn_launches(case[5], **calls) for case in GN_CASES}
         log(f"gn per {what}: {sum(n.values())} GroupNorms, kernels "
             f"{sum(k * results[label]['graph_ms'] for label, k in n.items()):.3f} ms of device "
@@ -1304,12 +1382,14 @@ def bn_census(module):
 
 
 def expect_census(seen: dict, unet_calls: int = 0, decodes: int = 0, unet16_calls: int = 0,
-                  encodes: int = 0):
+                  encodes: int = 0, **calls):
     """The GroupNorms a module really ran against GN_CASES, the table the
-    per-request sums are taken over."""
-    want = {(shape, eps, silu): gn_launches(by_path, unet=unet_calls, unet16=unet16_calls,
-                                            decode=decodes, encode=encodes)
-            for _, shape, _, eps, silu, by_path in GN_CASES}
+    per-request sums are taken over; `calls`: those of the other paths
+    (`sdxl`, `decode1024`)."""
+    want = collections.Counter()
+    for _, shape, _, eps, silu, by_path in GN_CASES:  # SDXL's paths repeat some shapes
+        want[(shape, eps, silu)] += gn_launches(by_path, unet=unet_calls, unet16=unet16_calls,
+                                                decode=decodes, encode=encodes, **calls)
     want = {k: v for k, v in want.items() if v}
     if dict(seen) != want:
         raise AssertionError(f"GroupNorm calls {dict(seen)}, expected {want}")
@@ -1478,6 +1558,16 @@ def check_autograd_functions() -> None:
                 raise
         else:
             raise AssertionError("flash_attention: no error on an fp32 input that requires grad")
+        # head dim 64 (SDXL, SD3) has a forward instance and no backward one
+        q64 = torch.randn((1, 2, 256, 64), generator=gen, device="cuda").to(
+            torch.bfloat16).requires_grad_()
+        try:
+            A.flash_attention(q64, q64, q64)
+        except RuntimeError as e:
+            if "head dim 64" not in str(e):
+                raise
+        else:
+            raise AssertionError("flash_attention: no error on a D 64 input that requires grad")
     _build.reset_launch_counts()
     with torch.no_grad():
         A.flash_attention(q0.detach().requires_grad_(), k0, v0)
@@ -1487,8 +1577,8 @@ def check_autograd_functions() -> None:
         raise AssertionError(f"no_grad: launches {launch_counts()}")
     log("autograd: flash_attention and group_norm_silu record their Functions on inputs that "
         "require grad; backward launches as expected (no dq without q's grad), gradients equal "
-        "to the backward kernels'; fp32 flash refused at the forward; forward only under "
-        "no_grad")
+        "to the backward kernels'; fp32 and D 64 flash refused at the forward; forward only "
+        "under no_grad")
 
 
 REQUESTS = [  # (subject, prompt)
@@ -5253,6 +5343,229 @@ def serve_speed_modes(wrapper, faces, card: str) -> dict:
                 drain_counts=drain_counts, replay_ms=replay_ms, seconds=secs)
 
 
+XL_SUBJECTS = ("a", "b")  # one 1024x1024 request each, prompts from REQUESTS
+XL_STEPS, SD3_STEPS = 25, 28
+XL_HW = 1024
+MODULATION_STD = 0.02  # SD3's adaLN-zero modulations and head, drawn off their 0 for the smoke
+
+
+def transformer_blocks(module) -> int:
+    """Transformer blocks in a UNet's Transformer2Ds (a depth-N one holds N)."""
+    from adaface_tpu_torch.models.unet import Transformer2D
+
+    return sum(len(t.blocks) if hasattr(t, "blocks") else 1
+               for t in module.modules() if isinstance(t, Transformer2D))
+
+
+def serve_xl_requests(w, faces, steps: int, gen_seed: int, census_of) -> dict:
+    """One 1024x1024 request of each of XL_SUBJECTS through the wrapper `w`
+    (a warm-up request of 2 steps first), with the kernels' launches, the
+    GroupNorm census of each module in `census_of` ({name: module}), the
+    host latency of each, then one more on the host's clock and one
+    profiled: its device time and operations, by kind of kernel."""
+    w.prepare_adaface_embeddings(images=faces["a"])
+    w(REQUESTS[0][1], num_inference_steps=2, height=XL_HW, width=XL_HW,
+      generator=torch.Generator("cuda").manual_seed(gen_seed - 1))
+    torch.cuda.synchronize()
+    from adaface_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    images, latencies = [], []
+    with contextlib.ExitStack() as stack:
+        seen = {name: stack.enter_context(gn_census(mod)) for name, mod in census_of.items()}
+        for i, subject in enumerate(XL_SUBJECTS):
+            prompt = next(p for s_, p in REQUESTS if s_ == subject)
+            t0 = time.perf_counter()
+            ada = w.prepare_adaface_embeddings(images=faces[subject])
+            img = w(prompt, num_inference_steps=steps, height=XL_HW, width=XL_HW,
+                    generator=torch.Generator("cuda").manual_seed(gen_seed + i))
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            if ada is None or tuple(ada.shape) != (16, 768):
+                raise AssertionError(f"request {i}: ada embeddings {ada}")
+            images.append(img[0])
+    counts = launch_counts()
+    check_images(images, len(XL_SUBJECTS), XL_HW, "1024x1024 requests")
+    if torch.equal(images[0], images[1]):
+        raise AssertionError("two subjects gave the same image")
+    w.prepare_adaface_embeddings(images=faces["a"])
+    from torch.profiler import ProfilerActivity, profile
+
+    def request():
+        return w(REQUESTS[0][1], num_inference_steps=steps, height=XL_HW, width=XL_HW,
+                 generator=torch.Generator("cuda").manual_seed(gen_seed))
+
+    host = sync_ms(request)[1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        request()
+        torch.cuda.synchronize()
+    ops, dev = profile_report(prof, f"{w.pipeline_name} {XL_HW}x{XL_HW} request", top=8)
+    return dict(counts=counts, seen=seen, latencies_ms=[x * 1e3 for x in latencies],
+                host_ms=host, device_ms=dev, operations=ops, images=images)
+
+
+def check_module_call(module, args: tuple, kwargs: dict, what: str) -> dict:
+    """One call kernels against plain (relative L2 <= UNET_REL_TOL) with its
+    launches and GroupNorm census, and the call's device time both ways."""
+    from adaface_tpu_torch.ops import _build
+
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        with gn_census(module) as seen:
+            out = module(*args, **kwargs).float()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        with plain_versions():
+            ref = module(*args, **kwargs).float()
+            plain_ms = median_ms(lambda: module(*args, **kwargs), reps=3, warmup=1)
+        ms = median_ms(lambda: module(*args, **kwargs), reps=3, warmup=1)
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{what}: output not finite")
+    rel = ((out - ref).norm() / ref.norm()).item()
+    log(f"{what}: kernels against plain rel L2 {rel:.3e} (bound {UNET_REL_TOL:g}); a call "
+        f"{ms:.1f} ms with the kernels, {plain_ms:.1f} ms plain; launches {counts}")
+    if not rel <= UNET_REL_TOL:
+        raise AssertionError(f"{what}: kernels against plain rel L2 {rel} above bound")
+    return dict(rel=rel, ms=ms, plain_ms=plain_ms, counts=counts, seen=seen)
+
+
+def serve_sdxl(encoder, faces, card: str) -> dict:
+    """The SDXL pipeline at full width (SDXL-base's UNet, CLIP-L and OpenCLIP
+    bigG, the VAE; random bf16 weights from their own seed) through
+    `AdaFaceWrapper("sdxl")` with the phase-5 encoder: one UNet call at CFG
+    batch 2 on a 128x128 latent kernels against plain (140 flash launches on
+    the D 64 instance, the GroupNorms of its census), then one 1024x1024,
+    25-step Euler request for each of two subjects (guidance 5.0), held to
+    the launches their UNet calls and decodes predict: no wide-kernel launch
+    but the VAE's."""
+    from adaface_tpu_torch.inference.sdxl_pipeline import SDXLPipelineModules
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    m = SDXLPipelineModules.random_init(gen, "cuda", torch.bfloat16, tokenizer=default_tokenizer())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    per_call = 2 * transformer_blocks(m.unet)
+    if per_call != sum(SDXL_FLASH_PER_CALL.values()):
+        raise AssertionError(f"SDXL UNet: {per_call} attentions a call")
+    hw = XL_HW // 8
+    x = torch.randn((2, 4, hw, hw), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.full((2,), 501, dtype=torch.long, device="cuda")
+    ctx = torch.randn((2, 77, 2048), generator=gen, device="cuda").to(torch.bfloat16)
+    added = {"text_embeds": torch.randn((2, 1280), generator=gen, device="cuda").to(
+        torch.bfloat16), "time_ids": torch.tensor([[XL_HW, XL_HW, 0, 0, XL_HW, XL_HW]] * 2,
+                                                  dtype=torch.float32, device="cuda")}
+    call = check_module_call(m.unet, (x, t, ctx), dict(added_cond=added),
+                             "sdxl UNet call CFG batch 2 128x128")
+    want = collections.Counter({A.FLASH_T: per_call}) + gn_expected_from(call["seen"])
+    if {k: v for k, v in call["counts"].items() if v} != dict(want):
+        raise AssertionError(f"sdxl UNet call: launches {call['counts']}, expected {dict(want)}")
+    expect_census(call["seen"], sdxl=1)
+
+    w = AdaFaceWrapper("sdxl", m, encoder, guidance_scale=5.0, num_inference_steps=XL_STEPS)
+    r = serve_xl_requests(w, faces, XL_STEPS, 300, {"unet": m.unet, "vae": m.vae})
+    n = len(XL_SUBJECTS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vae_split = A.flash_plan(torch.bfloat16, *FLASH_XL_CASES[-1][1:], sms).nsplit > 1
+    want = collections.Counter({A.FLASH_T: n * XL_STEPS * per_call, A.FLASH_WIDE: n,
+                                A.FLASH_COMBINE: n * vae_split})
+    want.update(gn_expected_from(r["seen"]["unet"]) + gn_expected_from(r["seen"]["vae"]))
+    want = {k: v for k, v in want.items() if v}
+    expect_census(r["seen"]["unet"], sdxl=n * XL_STEPS)
+    expect_census(r["seen"]["vae"], decode1024=n)
+    if {k: v for k, v in r["counts"].items() if v} != want:
+        raise AssertionError(f"sdxl requests: launches {r['counts']}, expected {want}")
+    secs = time.perf_counter() - t_phase
+    log(f"sdxl: modules built in {build_s:.1f} s; {n} requests 1024x1024 {XL_STEPS} Euler steps "
+        f"guidance 5.0: latency {', '.join(f'{x:.1f}' for x in r['latencies_ms'])} ms; one more "
+        f"{r['host_ms']:.1f} ms on the host, one profiled {r['device_ms']:.1f} ms of device time in "
+        f"{r['operations']} operations; launches {r['counts']} (no wide-kernel launch at D 64: "
+        f"{A.FLASH_WIDE} {r['counts'].get(A.FLASH_WIDE, 0)} = the {n} decodes); card {card}; "
+        f"the phase {secs:.1f} s")
+    out = dict(call={k: v for k, v in call.items() if k != "seen"}, build_s=build_s,
+               counts=r["counts"], latencies_ms=r["latencies_ms"], host_ms=r["host_ms"],
+               device_ms=r["device_ms"], operations=r["operations"], seconds=secs,
+               flash_per_call=per_call)
+    del w, m, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def draw_modulations_(mmdit, gen, std: float = MODULATION_STD) -> None:
+    """The MMDiT's adaLN-zero modulations and head, 0 at the JAX init
+    (velocity 0), drawn at N(0, std²): the smoke's velocity then depends on
+    every block's attention and MLP."""
+    from adaface_tpu_torch.core.params import normal_
+
+    for lin in [mmdit.ada_out, mmdit.proj_out,
+                *(x for blk in mmdit.blocks for x in (blk.ada_x, blk.ada_ctx))]:
+        normal_(lin.weight, std, gen)
+
+
+def serve_sd3(encoder, faces, card: str) -> dict:
+    """The SD3 pipeline at full width (SD3-medium's MMDiT, CLIP-L and bigG
+    with projections, the 16-channel VAE; random bf16 weights from their own
+    seed, the modulations and head drawn off 0) through
+    `AdaFaceWrapper("sd3")`: one MMDiT call at CFG batch 2 (4096 latent +
+    333 context tokens) kernels against plain (24 joint attentions on the D
+    64 instance), then one 1024x1024, 28-step rectified-flow request for
+    each of two subjects (guidance 7.0, shift 3.0), held to the launches
+    their MMDiT calls and decodes predict."""
+    from adaface_tpu_torch.inference.sd3_pipeline import SD3PipelineModules
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    m = SD3PipelineModules.random_init(gen, "cuda", torch.bfloat16, tokenizer=default_tokenizer())
+    draw_modulations_(m.mmdit, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t_phase
+    cfg = m.mmdit.cfg
+    hw = XL_HW // 8
+    x = torch.randn((2, cfg.in_channels, hw, hw), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    t = torch.full((2,), 700.0, device="cuda")
+    ctx = torch.randn((2, 77 + m.t5_len, cfg.context_dim), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    pooled = torch.randn((2, cfg.pooled_dim), generator=gen, device="cuda").to(torch.bfloat16)
+    call = check_module_call(m.mmdit, (x, t, ctx, pooled), {},
+                             "sd3 MMDiT call CFG batch 2 4429 tokens")
+    if {k: v for k, v in call["counts"].items() if v} != {A.FLASH_T: cfg.depth}:
+        raise AssertionError(f"sd3 MMDiT call: launches {call['counts']}")
+
+    w = AdaFaceWrapper("sd3", m, encoder, guidance_scale=7.0, num_inference_steps=SD3_STEPS)
+    r = serve_xl_requests(w, faces, SD3_STEPS, 310, {"vae": m.vae})
+    n = len(XL_SUBJECTS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    vae_split = A.flash_plan(torch.bfloat16, *FLASH_XL_CASES[-1][1:], sms).nsplit > 1
+    want = collections.Counter({A.FLASH_T: n * SD3_STEPS * cfg.depth, A.FLASH_WIDE: n,
+                                A.FLASH_COMBINE: n * vae_split})
+    want.update(gn_expected_from(r["seen"]["vae"]))
+    want = {k: v for k, v in want.items() if v}
+    expect_census(r["seen"]["vae"], decode1024=n)
+    if {k: v for k, v in r["counts"].items() if v} != want:
+        raise AssertionError(f"sd3 requests: launches {r['counts']}, expected {want}")
+    secs = time.perf_counter() - t_phase
+    log(f"sd3: modules built in {build_s:.1f} s; {n} requests 1024x1024 {SD3_STEPS} steps "
+        f"guidance 7.0: latency {', '.join(f'{x:.1f}' for x in r['latencies_ms'])} ms; one more "
+        f"{r['host_ms']:.1f} ms on the host, one profiled {r['device_ms']:.1f} ms of device time in "
+        f"{r['operations']} operations; launches {r['counts']}; card {card}; the phase "
+        f"{secs:.1f} s")
+    out = dict(call={k: v for k, v in call.items() if k != "seen"}, build_s=build_s,
+               counts=r["counts"], latencies_ms=r["latencies_ms"], host_ms=r["host_ms"],
+               device_ms=r["device_ms"], operations=r["operations"], seconds=secs)
+    del w, m, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn_bwd: dict,
                   int8: dict, counts: dict, paths: dict) -> dict:
     """The per-kernel record. `launches` are those of the path that first ran
@@ -5334,7 +5647,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         return entry(name, source, replaces, max(errs), shape, r["ms"], r["plain_ms"],
                      r["stock_ms"], r["bound_ms"], r["bound_by"], shapes=shapes)
 
-    path = {label: d for (label, *_, d) in FLASH_CASES + FLASH_CASES_B16 + FLASH_TEACHER_CASES}
+    path = {label: d for (label, *_, d) in (FLASH_CASES + FLASH_CASES_B16 + FLASH_TEACHER_CASES
+                                            + FLASH_XL_CASES)}
     short = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d < 128]
     long_ = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d >= 128]
     wide = [label for label in path if flash[label]["variant"] == "wide"]
@@ -5513,7 +5827,13 @@ def main() -> int:
     joint = timed_phase("serve_joint", serve_joint, wrapper, faces, gen)
     trained = timed_phase("serve_trained", serve_trained, wrapper, faces, card)
     speed = timed_phase("serve_speed_modes", serve_speed_modes, wrapper, faces, card)
+    encoder = wrapper.id2ada_prompt_encoder
     del wrapper
+    gc.collect()
+    torch.cuda.empty_cache()
+    sdxl = timed_phase("serve_sdxl", serve_sdxl, encoder, faces, card)
+    sd3 = timed_phase("serve_sd3", serve_sd3, encoder, faces, card)
+    del encoder
 
     def release():
         # a phase's trainer lives in reference cycles (its patched hooks):
@@ -5556,7 +5876,8 @@ def main() -> int:
              "mkv request": recipes["served"]["counts"],
              **{f"speed mode {name}": r["counts"] for name, r in speed["modes"].items()
                 if "counts" in r},
-             "int8 batcher": speed["drain_counts"]}
+             "int8 batcher": speed["drain_counts"],
+             "sdxl 2 requests 1024x1024": sdxl["counts"], "sd3 2 requests 1024x1024": sd3["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths)))

@@ -15,14 +15,21 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import torch
 
+from adaface_tpu_torch.inference.sd3_pipeline import SD3_CLIP_L_TEXT, SD3_VAE
 from adaface_tpu_torch.inference.wrapper import SUPPORTED_PIPELINES
-from adaface_tpu_torch.models.clip import CLIP_L_TEXT
-from adaface_tpu_torch.models.unet import SD15_UNET
+from adaface_tpu_torch.models.clip import CLIP_BIGG_TEXT, CLIP_L_TEXT
+from adaface_tpu_torch.models.mmdit import SD3_MEDIUM
+from adaface_tpu_torch.models.unet import SD15_UNET, SDXL_UNET
 from adaface_tpu_torch.models.vae import SD_VAE
 
 # the configurations of the random towers and their weight files: SD1.5 and
-# CLIP-L; `ENCODER_KW` goes to `create_id2ada_prompt_encoder`
+# CLIP-L; SDXL's and SD3's (random weights only); `ENCODER_KW` goes to
+# `create_id2ada_prompt_encoder`
 MODEL_CFGS = dict(unet_cfg=SD15_UNET, vae_cfg=SD_VAE, text_cfg=CLIP_L_TEXT)
+XL_CFGS = dict(unet_cfg=SDXL_UNET, vae_cfg=SD_VAE, text_cfg=CLIP_L_TEXT,
+               text2_cfg=CLIP_BIGG_TEXT)
+SD3_CFGS = dict(mmdit_cfg=SD3_MEDIUM, vae_cfg=SD3_VAE, text_cfg=SD3_CLIP_L_TEXT,
+                text2_cfg=CLIP_BIGG_TEXT)
 ENCODER_KW: dict = {}
 
 
@@ -45,8 +52,9 @@ def add_model_args(ap):
 def build_wrapper(args, pipeline_name: str = "text2img"):
     """The port's AdaFaceWrapper on `args.device`: SD1.5 towers from
     `--base_model` (random ones for any tower the file lacks, or all without
-    it), the encoder `--encoder` (random), its SubjBasisGenerator(s) from
-    `--adaface_ckpt`."""
+    it), or for `--pipeline text2imgxl` / `text2img3` random SDXL / SD3
+    towers (`--base_model` refused, as the JAX CLI refuses it), the encoder
+    `--encoder` (random), its SubjBasisGenerator(s) from `--adaface_ckpt`."""
     from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import create_id2ada_prompt_encoder
     from adaface_tpu_torch.inference.pipeline import PipelineModules
     from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
@@ -54,28 +62,46 @@ def build_wrapper(args, pipeline_name: str = "text2img"):
     pipeline_name = getattr(args, "pipeline", None) or pipeline_name
     if pipeline_name not in SUPPORTED_PIPELINES:
         raise SystemExit(f"pipeline {pipeline_name!r} is not ported; the PyTorch port serves "
-                         f"{' and '.join(repr(p) for p in SUPPORTED_PIPELINES)}")
+                         "'text2img' and 'img2img' (SD1.5), 'text2imgxl' (SDXL) and "
+                         "'text2img3' (SD3)")
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     gen = torch.Generator(device).manual_seed(0)
     towers = {}
-    if args.base_model:
+    if pipeline_name in ("text2imgxl", "text2img3"):
+        if args.base_model:
+            raise SystemExit(
+                f"--base_model single-file loading for {pipeline_name} is not wired into this "
+                "CLI: convert the towers with adaface_tpu_torch/tools/convert_sd.py (the SDXL "
+                "UNet and VAE), tools/convert_mmdit.py (SD3) and tools/convert_clip.py, then "
+                "assemble the pipeline modules in Python")
+        if pipeline_name == "text2imgxl":
+            from adaface_tpu_torch.inference.sdxl_pipeline import SDXLPipelineModules
+
+            modules = SDXLPipelineModules.random_init(gen, device, dtype, **XL_CFGS)
+        else:
+            from adaface_tpu_torch.inference.sd3_pipeline import SD3PipelineModules
+
+            modules = SD3PipelineModules.random_init(gen, device, dtype, **SD3_CFGS)
+    elif args.base_model:
         from adaface_tpu_torch.tools.convert_sd import load_sd_towers
 
         towers = load_sd_towers(args.base_model, unet_cfg=MODEL_CFGS["unet_cfg"],
                                 vae_cfg=MODEL_CFGS["vae_cfg"])
         print(f"loaded base model weights from {args.base_model}: {sorted(towers)}")
-    if {"unet", "vae", "text_encoder"} <= set(towers):
-        base = None
-    else:
-        base = PipelineModules.random_init(gen, device, dtype, **MODEL_CFGS)
-    if towers:
-        from adaface_tpu_torch.tools.convert_sd import load_pipeline_modules
+    if pipeline_name not in ("text2imgxl", "text2img3"):
+        if {"unet", "vae", "text_encoder"} <= set(towers):
+            base = None
+        else:
+            base = PipelineModules.random_init(gen, device, dtype, **MODEL_CFGS)
+        if towers:
+            from adaface_tpu_torch.tools.convert_sd import load_pipeline_modules
 
-        modules = load_pipeline_modules(towers, device, dtype, unet_cfg=MODEL_CFGS["unet_cfg"],
-                                        vae_cfg=MODEL_CFGS["vae_cfg"], base=base)
-    else:
-        modules = base
+            modules = load_pipeline_modules(towers, device, dtype,
+                                            unet_cfg=MODEL_CFGS["unet_cfg"],
+                                            vae_cfg=MODEL_CFGS["vae_cfg"], base=base)
+        else:
+            modules = base
     encoder = create_id2ada_prompt_encoder(
         args.encoder, torch.Generator(device).manual_seed(1), modules.tokenizer, device,
         **ENCODER_KW)

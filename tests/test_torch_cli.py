@@ -181,10 +181,47 @@ def test_translate_cli_writes_pngs(cli, tmp_path):
 
 
 def test_cli_refuses_the_pipelines_not_ported(cli):
+    """A pipeline the port does not serve is refused by name; SDXL and SD3
+    run on random towers only: `--base_model` is refused for them, as the
+    JAX CLI refuses it."""
+    import argparse
+
     import adaface_infer_torch
 
-    _, subject = cli
+    common, subject = cli
+    args = argparse.Namespace(pipeline="text2video", device="cpu", dtype="f32")
+    with pytest.raises(SystemExit, match="not ported"):
+        common.build_wrapper(args)
     for name in ("text2imgxl", "text2img3"):
-        with pytest.raises(SystemExit, match="not ported"):
+        with pytest.raises(SystemExit, match="not wired"):
             adaface_infer_torch.main(["--subject", subject, "--device", "cpu",
-                                      "--pipeline", name])
+                                      "--pipeline", name, "--base_model", "sd.safetensors"])
+
+
+@pytest.mark.parametrize("name", ["text2imgxl", "text2img3"])
+def test_infer_cli_sdxl_and_sd3_write_pngs(cli, monkeypatch, tmp_path, name):
+    """`--pipeline text2imgxl` / `text2img3` on random tiny towers (the CLI's
+    `XL_CFGS` / `SD3_CFGS` patched; CLIP-L as wide as the tiny encoder's
+    rows): one 64x64 image in 2 steps, written as a PNG."""
+    import adaface_infer_torch
+    from adaface_tpu_torch.models import mmdit as tmmdit
+    from tests.test_torch_sd3 import MMDIT_KW, TEXT2_KW as SD3_TEXT2_KW, VAE16_KW
+    from tests.test_torch_sdxl import TEXT2_KW, XL_UNET_KW
+
+    common, subject = cli
+    text_cfg = tclip.CLIPTextConfig(**TEXT_KW)
+    monkeypatch.setattr(common, "XL_CFGS", dict(
+        unet_cfg=tunet.UNetConfig(**{**XL_UNET_KW, "cross_attn_dim": 64 + 48}),
+        vae_cfg=tvae.VAEConfig(**VAE_KW), text_cfg=text_cfg,
+        text2_cfg=tclip.CLIPTextConfig(**TEXT2_KW)))
+    monkeypatch.setattr(common, "SD3_CFGS", dict(
+        mmdit_cfg=tmmdit.MMDiTConfig(**MMDIT_KW), vae_cfg=tvae.VAEConfig(**VAE16_KW),
+        text_cfg=tclip.CLIPTextConfig(**TEXT_KW, projection_dim=24),
+        text2_cfg=tclip.CLIPTextConfig(**SD3_TEXT2_KW)))
+    for module in ("sdxl_pipeline", "sd3_pipeline"):
+        monkeypatch.setattr(f"adaface_tpu_torch.inference.{module}.default_tokenizer",
+                            CLIPTokenizer.character_fallback)
+    argv = ["--subject", subject, "--device", "cpu", "--dtype", "f32", "--num_inference_steps",
+            "2", "--num_images", "1", "--size", str(HW), "--pipeline", name,
+            "--out_dir", str(tmp_path / name)]
+    read_back(adaface_infer_torch.main(argv), 1)

@@ -138,9 +138,7 @@ def test_text_converter_matches_jax(trees, case):
     out, cfg = tcc.convert_text_model(sd, num_heads=2)
     ref, cfg_j = jcc.convert_text_model(sd, num_heads=2)
     assert_same_tree(out, ref)
-    want = text_cfg_fields(cfg_j)
-    want.pop("projection_dim")
-    assert text_cfg_fields(cfg) == want
+    assert text_cfg_fields(cfg) == text_cfg_fields(cfg_j)
     if case == "plain":
         assert_same_tree(out, trees["text"])
         assert cfg == tclip.CLIPTextConfig(**TEXT_KW)
@@ -238,8 +236,7 @@ def test_load_sd_towers_matches_jax(trees, tmp_path, ext, prefer_ema):
         assert sorted(out) == sorted(ref) == ["text_cfg", "text_encoder", "unet", "vae"]
         for key in ("unet", "vae", "text_encoder"):
             assert_same_tree(out[key], jax.tree_util.tree_map(np.asarray, ref[key]))
-        assert text_cfg_fields(out["text_cfg"]) == {
-            k: v for k, v in text_cfg_fields(ref["text_cfg"]).items() if k != "projection_dim"}
+        assert text_cfg_fields(out["text_cfg"]) == text_cfg_fields(ref["text_cfg"])
     scale = 2.0 if prefer_ema else 1.0
     w = out["unet"]["conv_in"]["w"].astype(np.float32)
     np.testing.assert_array_equal(

@@ -175,9 +175,22 @@ def test_flash_combine_on_cpu_is_its_plain_version():
     (torch.bfloat16, 16, 8, 256, 256, 160, True, ("wg", 64, 128, 1, 1)),
     (torch.bfloat16, 64, 8, 256, 77, 160, True, ("wg", 64, 128, 1, 1)),
     (torch.bfloat16, 32, 1, 4096, 4096, 512, True, ("wide", 32, 64, 4, 1)),
-    # off the path: a head dim without a wgmma instance, rows off 16 bytes,
-    # few query tiles and few key tiles, fp32
-    (torch.bfloat16, 2, 8, 1024, 1024, 64, True, ("wide", 32, 64, 4, 1)),
+    # head dim 64 (the wgmma kernel's fourth instance): SDXL's 64x64 and
+    # 32x32 levels at 1024x1024 (10 and 20 heads), SD3's joint attention over
+    # 4096 + 333 tokens, few query tiles; unaligned rows and D 96 (no
+    # instance) take the wide kernel, as does the 1024x1024 decode's D 512
+    # over 16384 tokens, unsplit (256 query tiles fill the card)
+    (torch.bfloat16, 2, 8, 1024, 1024, 64, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 10, 4096, 4096, 64, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 10, 4096, 77, 64, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 20, 1024, 1024, 64, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 20, 1024, 77, 64, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 2, 24, 4429, 4429, 64, True, ("wg", 64, 128, 1, 1)),
+    (torch.bfloat16, 1, 1, 130, 77, 64, True, ("wg", 64, 64, 1, 1)),
+    (torch.bfloat16, 2, 10, 4096, 4096, 64, False, ("wide", 32, 64, 4, 1)),
+    (torch.bfloat16, 2, 8, 1024, 1024, 96, True, ("wide", 32, 64, 4, 1)),
+    (torch.bfloat16, 1, 1, 16384, 16384, 512, True, ("wide", 32, 64, 4, 1)),
+    # off the path: rows off 16 bytes, few query tiles and few key tiles, fp32
     (torch.bfloat16, 2, 8, 1024, 1024, 40, False, ("wide", 32, 64, 4, 1)),
     (torch.bfloat16, 2, 2, 200, 177, 200, True, ("wide", 32, 64, 4, 6)),
     (torch.float32, 2, 8, 1024, 1024, 80, True, ("fp32", 32, 16, 1, 1)),
@@ -532,7 +545,8 @@ def test_flash_backward_refusals():
     fallback to the plain version) and neither does the GroupNorm one."""
     for dtype, d, what in ((torch.float32, 40, "fp32 flash backward"),
                            (torch.float16, 40, "torch.float16"),
-                           (torch.bfloat16, 200, "head dim 200")):
+                           (torch.bfloat16, 200, "head dim 200"),
+                           (torch.bfloat16, 64, "head dim 64")):  # SDXL, SD3: forward only
         q = _fake_cuda((1, 2, 256, d), dtype, True)
         with pytest.raises(RuntimeError, match=what):
             tattn.flash_attention(q, q, q)

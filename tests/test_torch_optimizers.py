@@ -34,12 +34,21 @@ def rel_l2(out, ref) -> float:
     return float(np.linalg.norm(out - ref) / max(np.linalg.norm(ref), 1e-30))
 
 
+def jax_copy(a):
+    """A JAX array on a buffer of its own. On the CPU `jnp.asarray` takes a
+    64-byte-aligned numpy buffer without copying it, so an array made from
+    `p.detach().numpy()` would share the torch parameter's memory; the port's
+    next step writes that memory in place while JAX's asynchronous dispatch
+    may not yet have read it (then the two runs part by ~3e-3)."""
+    return jnp.asarray(np.array(a, copy=True))
+
+
 def run(port_params, to_jax, from_jax, port_opt, jax_opt, grad_scale=1.0):
     """Both optimizers over STEPS mini-steps on the same start and gradients
     (the gradient of step i from RandomState(100 + i), drawn in the port's
     layout). → (port parameters, JAX parameters in the port's layout,
     mini-steps where the port moved, the JAX state)."""
-    jp = [jnp.asarray(to_jax(i, p.detach().numpy())) for i, p in enumerate(port_params)]
+    jp = [jax_copy(to_jax(i, p.detach().numpy())) for i, p in enumerate(port_params)]
     opt = port_opt(port_params)
     state = jax_opt.init(jp)
     update = jax.jit(jax_opt.update)
@@ -50,7 +59,7 @@ def run(port_params, to_jax, from_jax, port_opt, jax_opt, grad_scale=1.0):
         for p, g in zip(port_params, gs):
             p.grad = torch.from_numpy(g)
         moved.append(opt.step())
-        upd, state = update([jnp.asarray(to_jax(j, g)) for j, g in enumerate(gs)], state, jp)
+        upd, state = update([jax_copy(to_jax(j, g)) for j, g in enumerate(gs)], state, jp)
         jp = optax.apply_updates(jp, upd)
     return ([p.detach().numpy() for p in port_params],
             [from_jax(i, np.asarray(p)) for i, p in enumerate(jp)], moved, state, opt)
