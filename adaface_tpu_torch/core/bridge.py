@@ -15,8 +15,11 @@ Where the module keeps several projections of one input as one weight
 (`attn1.qkv`, `attn2.kv` of the UNet), `load` stacks the tree's separate
 `q`, `k`, `v` leaves into it. A CLIP tower's layers are built at the K/V
 widths the tree holds (MKV attention, `models.clip.fit_kv_widths_`) before
-they load. The GMA flow network's tree (`models.gma.convert_gma_state_dict`,
-or `init_gma_params`') loads into `models.gma.GMA` by the same rules: its
+they load. The video UNet's motion modules (`models.motion.MotionModules`)
+load `init_motion_params`' tree, or the AnimateDiff converter's
+(`tools.convert_motion`), by the same walk (q, k, v into `qkv`). The GMA
+flow network's tree (`models.gma.convert_gma_state_dict`, or
+`init_gma_params`') loads into `models.gma.GMA` by the same rules: its
 instance norms hold nothing, its batch norms their statistics.
 
 A tree of `quantize_unet_params` (`adaface_tpu/ops/quant.py:108`) loads with

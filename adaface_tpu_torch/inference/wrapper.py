@@ -22,8 +22,18 @@ every batcher `make_batcher` builds run the quantized UNet.
 `SDXLPipelineModules` / `SD3PipelineModules` (`:58-75`): the placeholders
 extend the CLIP-L tokenizer and tower (encoder 1) as on SD1.5, and the plain
 prompt feeds encoder 2 (`prompts_2`, `:259-270`). The batcher, img2img and
-the UNet adapters are SD1.5's alone. "text2video" is not ported yet; "flux"
-is refused, as the JAX wrapper refuses it.
+the UNet adapters are SD1.5's alone.
+
+"text2video" (AdaFace-Animate, `:76-89`, `:272-280`) serves the SD1.5
+modules with temporal motion modules (`inference/video_pipeline.py`):
+`motion` (the port's `MotionModules` or the JAX package's tree; random
+modules drawn from seed 0 when None) and `motion_cfg` (the config a tree
+or the random modules are built with, MM_SD15_V2 when None; modules carry
+their own); `forward(num_frames=16)` returns [N, F, 3, H, W]. What JAX's
+`VideoPipeline` does not take is refused by name: `quantize_unet`, the
+UNet's adapters (`load_unet_lora_weights`, adapters already in the
+modules), a UNet ensemble, the batcher, and schedulers other than DDIM.
+"flux" is refused, as the JAX wrapper refuses it.
 """
 
 from __future__ import annotations
@@ -42,7 +52,7 @@ from adaface_tpu_torch.models.unet import AttnLoRA, FFNLoRA
 from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.text.embedding_manager import extend_token_embedding
 
-SUPPORTED_PIPELINES = ("text2img", "img2img", "text2imgxl", "text2img3")
+SUPPORTED_PIPELINES = ("text2img", "img2img", "text2video", "text2imgxl", "text2img3")
 ALIASES = {"sdxl": "text2imgxl", "sd3": "text2img3"}  # the reference's names
 DEFAULT_NEGATIVE_PROMPT = ("flaws in the eyes, flaws in the face, lowres, "
                            "non-HDRi, low quality")
@@ -54,7 +64,7 @@ class AdaFaceWrapper:
                  num_inference_steps: int = 50,
                  out_id_embs_cfg_scale: float | None = None,
                  dtype=torch.bfloat16, max_prompt_length: int = 77,
-                 quantize_unet: bool = False):
+                 quantize_unet: bool = False, motion=None, motion_cfg=None):
         if pipeline_name == "flux":
             raise NotImplementedError(
                 "the flux pipeline keeps API parity but is unimplemented (commented out in "
@@ -63,11 +73,14 @@ class AdaFaceWrapper:
         if pipeline_name not in SUPPORTED_PIPELINES:
             raise NotImplementedError(
                 f"pipeline {pipeline_name!r} is not ported; the PyTorch port serves "
-                "'text2img' and 'img2img' (SD1.5), 'text2imgxl' (SDXL) and 'text2img3' (SD3)")
+                "'text2img', 'img2img' and 'text2video' (SD1.5), 'text2imgxl' (SDXL) and "
+                "'text2img3' (SD3)")
         if pipeline_name == "img2img" and modules.vae_encoder is None:
             raise ValueError("the img2img pipeline needs PipelineModules.vae_encoder")
         if quantize_unet and pipeline_name in ("text2imgxl", "text2img3"):
             raise NotImplementedError("quantize_unet serves SD1.5 UNets only")
+        if quantize_unet and pipeline_name == "text2video":
+            raise NotImplementedError("quantize_unet is not served by the text2video pipeline")
         self.pipeline_name = pipeline_name
         if pipeline_name == "text2imgxl":
             from adaface_tpu_torch.inference.sdxl_pipeline import SDXLPipeline
@@ -77,6 +90,19 @@ class AdaFaceWrapper:
             from adaface_tpu_torch.inference.sd3_pipeline import SD3Pipeline
 
             self.pipeline = SD3Pipeline(modules, dtype=dtype)
+        elif pipeline_name == "text2video":
+            from adaface_tpu_torch.core.params import build
+            from adaface_tpu_torch.inference.video_pipeline import VideoPipeline
+            from adaface_tpu_torch.models.motion import (MM_SD15_V2, MotionModules,
+                                                         init_motion_weights_)
+
+            if motion is None:
+                device = modules.device
+                mcfg = motion_cfg or MM_SD15_V2
+                motion = build(lambda: MotionModules(modules.unets[0].cfg, mcfg), device,
+                               dtype, init_motion_weights_,
+                               torch.Generator(device).manual_seed(0))
+            self.pipeline = VideoPipeline(modules, motion, motion_cfg=motion_cfg, dtype=dtype)
         else:
             self.pipeline = DiffusionPipeline(modules, dtype=dtype, quantize_unet=quantize_unet)
         self.dtype = dtype
@@ -153,6 +179,8 @@ class AdaFaceWrapper:
         for different subjects share one device batch (per-sample ada
         injection instead of the shared-table write), and slots refill per
         denoise step. Build requests with `make_request`."""
+        if self.pipeline_name == "text2video":
+            raise NotImplementedError("the batcher serves images; text2video has no batcher")
         all_ids = [i for ids in self.placeholder_token_ids for i in ids]
         return ContinuousBatcher(
             self.pipeline.m, num_slots=num_slots,
@@ -185,6 +213,9 @@ class AdaFaceWrapper:
         checkpoint has the adapter `ffn_adapter`."""
         from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt
 
+        if self.pipeline_name == "text2video":
+            raise NotImplementedError("the text2video pipeline runs the UNet without its "
+                                      "adapters: load_unet_lora_weights is refused")
         state, _ = load_adaface_ckpt(ckpt_dir)
         lora = state.get("unet_lora_modules")
         if lora is None:
@@ -222,16 +253,19 @@ class AdaFaceWrapper:
                 init_image: np.ndarray | None = None, strength: float = 0.8,
                 generator: torch.Generator | None = None, update_prompt: bool = True,
                 height: int = 512, width: int = 512, scheduler: str = "ddim",
-                img2img_noise: tuple | None = None, latents: torch.Tensor | None = None):
-        """→ images [N, 3, H, W] float32 in [0, 1]; the placeholder string is
+                img2img_noise: tuple | None = None, latents: torch.Tensor | None = None,
+                num_frames: int = 16):
+        """→ images [N, 3, H, W] float32 in [0, 1] (text2video: clips
+        [N, F, 3, H, W] of `num_frames`); the placeholder string is
         appended to the prompt unless `update_prompt` is False. `scheduler`:
         ddim, dpm++, pndm or lcm (SD1.5; SDXL and SD3 run their own
         samplers). "img2img" starts from `init_image` ([H, W, 3] or
         [B, H, W, 3], 0..255) noised to `strength` of the schedule and runs
         `strength` of the steps; its two draws (the posterior's sample, the
         noise) come from `generator`, or are handed in as `img2img_noise`.
-        The text pipelines take `latents` [N, C, H/8, W/8] in place of the
-        initial noise they would draw from `generator`."""
+        The text pipelines take `latents` [N, C, H/8, W/8] ([N·F, 4, H/8,
+        W/8] for text2video) in place of the initial noise they would draw
+        from `generator`."""
         plain_prompt = prompt
         if update_prompt:
             prompt = self.update_prompt(prompt)
@@ -244,6 +278,14 @@ class AdaFaceWrapper:
                 [prompt] * num_images, prompts_2=[plain_prompt] * num_images,
                 negative_prompt=negative_prompt, num_inference_steps=steps, guidance_scale=gs,
                 height=height, width=width, generator=generator, latents=latents)
+        if self.pipeline_name == "text2video":
+            if scheduler != "ddim":
+                raise NotImplementedError(f"the text2video pipeline samples with DDIM only, "
+                                          f"not scheduler={scheduler!r}")
+            return self.pipeline(
+                [prompt] * num_images, negative_prompt=negative_prompt, num_frames=num_frames,
+                num_inference_steps=steps, guidance_scale=gs, height=height, width=width,
+                generator=generator, latents=latents)
         if self.pipeline_name == "img2img":
             if init_image is None:
                 raise ValueError("the img2img pipeline needs init_image")

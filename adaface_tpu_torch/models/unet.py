@@ -1,9 +1,15 @@
 """SD1.5 UNet (UNet2DConditionModel) with the training path's adapters and
 the serving speed modes, and the SDXL-base UNet.
 
-Counterpart of `unet_apply` in `adaface_tpu/models/unet.py` without its
-motion branch. NCHW latents in and out, as the JAX interface
-(`unet.py:685`). The SDXL branch (`SDXL_UNET`, `unet.py:69-110`): three
+Counterpart of `unet_apply` in `adaface_tpu/models/unet.py`. NCHW latents
+in and out, as the JAX interface (`unet.py:685`). The motion branch (the
+video UNet, `unet.py:695-697`, `:733-741`): with `motion` (a
+`models.motion.MotionModules`) and `num_frames` > 1 the batch is V videos of
+`num_frames` contiguous frames, and a temporal module runs after every
+(resnet, attention) pair of each down block (down block 3's resnets alone),
+between the mid block's attention and its second resnet, and after every
+pair of each up block, before its upsample (`:780-781`, `:794-795`,
+`:838-839`). The SDXL branch (`SDXL_UNET`, `unet.py:69-110`): three
 levels, a transformer depth per level (a depth > 1 stacks its blocks in a
 `blocks` list inside one `proj_in` / `proj_out`; capture and the attention
 adapters apply to the last of them, `unet.py:635-637`), up blocks taking the
@@ -567,7 +573,7 @@ class UNet2DConditionModel(nn.Module):
                 rt: AttnRuntime = PLAIN, kv_mask=None, attn_lora: AttnLoRA | None = None,
                 ffn_lora: FFNLoRA | None = None, subj_mask=None, attn_lora_gate=None,
                 ffn_lora_gate=None, tome: tome_ops.ToMeConfig | None = None, deepcache=None,
-                added_cond: dict | None = None):
+                added_cond: dict | None = None, motion=None, num_frames: int = 1):
         """eps [B, 4, h, w] for latents x [B, 4, h, w], timesteps t [B] and
         text context [B, S, cross_attn_dim]; computes in context's dtype.
         img_mask [B, 1, H, W]: the self-attentions' key mask; kv_mask [B, S]:
@@ -585,8 +591,16 @@ class UNet2DConditionModel(nn.Module):
         conv_in, down block 0 without its downsample (the three skips they
         push are the three the last up block pops), the last up block on
         `feat` and the head. The captured cross-attentions 22-24 live in the
-        last up block, so a shallow call captures them exactly."""
+        last up block, so a shallow call captures them exactly.
+
+        `motion` (`MotionModules`), `num_frames`: the video UNet, the batch
+        V·num_frames frames (one frame runs no temporal module), each module
+        with the settings it was built with; not with `deepcache`, as the JAX package asserts (`unet.py:727`)."""
         dc_mode, dc_feat = None, None
+        if deepcache is not None and motion is not None:
+            raise ValueError("UNet: deepcache is not supported on the video path (motion=)")
+        if motion is not None and x.shape[0] % num_frames:
+            raise ValueError(f"UNet: batch {x.shape[0]} is not videos of {num_frames} frames")
         if deepcache == "collect":
             dc_mode = "collect"
         elif deepcache is not None:
@@ -620,11 +634,13 @@ class UNet2DConditionModel(nn.Module):
         shallow = dc_mode == "shallow"
         h = self.conv_in(x)
         skips = [h]
-        for blk in self.down_blocks[:1] if shallow else self.down_blocks:
+        for bi, blk in enumerate(self.down_blocks[:1] if shallow else self.down_blocks):
             for li, res in enumerate(blk.resnets):
                 h = res(h, temb)
                 if len(blk.attentions):
                     h = blk.attentions[li](h, context, img_mask, **cross)
+                if motion is not None:
+                    h = motion.down[bi][li](h, num_frames)
                 skips.append(h)
             if blk.downsample is not None and not shallow:
                 h = blk.downsample(h)
@@ -632,6 +648,8 @@ class UNet2DConditionModel(nn.Module):
         if not shallow:
             h = self.mid["resnet1"](h, temb)
             h = self.mid["attention"](h, context, img_mask, **cross)
+            if motion is not None:
+                h = motion.mid(h, num_frames)
             h = self.mid["resnet2"](h, temb)
         grad_scale = gen_gradient_scaler(rt.res_hidden_gradscale)
         feat = None
@@ -659,6 +677,8 @@ class UNet2DConditionModel(nn.Module):
                     if cap is not None:
                         for key, val in (*cap.items(), ("outfeat", h)):
                             capture.setdefault(key, {})[label] = val
+                if motion is not None:
+                    h = motion.up[bi][li](h, num_frames)
             if blk.upsample is not None:
                 h = blk.upsample(F.interpolate(h, scale_factor=2.0, mode="nearest"))
         eps = self.conv_out(self.conv_norm_out(h, silu=True)).contiguous()

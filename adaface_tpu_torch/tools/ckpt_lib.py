@@ -1,9 +1,13 @@
-"""Flat state dicts on disk: `.safetensors` and `.npz`.
+"""Flat state dicts on disk (`.safetensors`, `.npz`) and checkpoint surgery.
 
-Counterpart of the io half of `adaface_tpu/tools/ckpt_lib.py` (`:23-86`,
-`cast_fp16` `:143`): `flatten_tree` (a nested tree → dot-keyed numpy arrays),
-`unflatten_tree` (its inverse), `extract_subtree` (`:114`), `cast_fp16`,
-`save_state_dict` and `load_state_dict`. So that training needs
+Counterpart of `adaface_tpu/tools/ckpt_lib.py`, in numpy: `flatten_tree`
+(a nested tree → dot-keyed numpy arrays), `unflatten_tree` (its inverse),
+`save_state_dict` and `load_state_dict` (`:23-86`), and the surgeries of the
+reference's checkpoint scripts: `replace_subtree` (`:94`), `extract_subtree`
+(`:114`), `average_state_dicts` (`:123`), `cast_fp16` (`:143`),
+`model_diff` (`:150`), `check_weights` (`:166`), `replace_by_pattern`
+(`:183`) and `clean_log_folders` (`:200`); `scripts/ckpt_tool_torch.py` is
+their command line. So that training needs
 no `safetensors` package, the format is written and read here: an 8-byte little-endian header length, a JSON header (each tensor's
 dtype, shape and byte offsets, padded with spaces to 8 bytes), then the raw
 little-endian data of the tensors back to back. Files it writes load with
@@ -12,8 +16,11 @@ little-endian data of the tensors back to back. Files it writes load with
 
 from __future__ import annotations
 
+import fnmatch
 import json
 import os
+import re
+import shutil
 import struct
 from typing import Mapping
 
@@ -55,6 +62,24 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
     return tree
 
 
+def replace_subtree(base: StateDict, donor: StateDict, prefix: str,
+                    donor_prefix: str | None = None) -> StateDict:
+    """Every `prefix*` key of `base` that the donor has under `donor_prefix`
+    (default `prefix`) takes the donor's value (`repl_vae.py`,
+    `repl_textencoder.py`); raises where none matched."""
+    donor_prefix = prefix if donor_prefix is None else donor_prefix
+    out = dict(base)
+    replaced = 0
+    for k in base:
+        dk = donor_prefix + k[len(prefix):]
+        if k.startswith(prefix) and dk in donor:
+            out[k] = donor[dk]
+            replaced += 1
+    if replaced == 0:
+        raise KeyError(f"no keys under '{prefix}' matched the donor")
+    return out
+
+
 def extract_subtree(sd: StateDict, prefix: str, strip: bool = True) -> StateDict:
     """The entries under `prefix` (e.g. `model.diffusion_model.`), the
     prefix stripped unless `strip` is False; raises where there is none."""
@@ -64,10 +89,123 @@ def extract_subtree(sd: StateDict, prefix: str, strip: bool = True) -> StateDict
     return out
 
 
+def average_state_dicts(sds: list[StateDict], weights: list[float] | None = None) -> StateDict:
+    """The weighted average of the keys every state dict has, summed in fp64
+    and cast back to the first one's dtype; non-float arrays are the first
+    one's (`avg_models.py`). Weights default to 1/n each."""
+    weights = weights or [1.0 / len(sds)] * len(sds)
+    if len(weights) != len(sds):
+        raise ValueError(f"{len(weights)} weights for {len(sds)} state dicts")
+    keys = set(sds[0]).intersection(*sds[1:])
+    out: StateDict = {}
+    for k in keys:
+        first = sds[0][k]
+        if not np.issubdtype(first.dtype, np.floating):
+            out[k] = first
+            continue
+        acc = np.zeros_like(first, np.float64)
+        for w, sd in zip(weights, sds):
+            acc += w * sd[k].astype(np.float64)
+        out[k] = acc.astype(first.dtype)
+    return out
+
+
 def cast_fp16(sd: StateDict) -> StateDict:
     """Floating arrays to fp16, the others as they are."""
     return {k: v.astype(np.float16) if np.issubdtype(v.dtype, np.floating) else v
             for k, v in sd.items()}
+
+
+def model_diff(a: StateDict, b: StateDict, topk: int = 20):
+    """(the `topk` keys both have with the largest mean |a - b| (fp64), inf
+    where the shapes differ, largest first; the keys only in b; the keys
+    only in a) (`modeldiff.py`)."""
+    rows = []
+    for k in sorted(set(a) & set(b)):
+        if a[k].shape != b[k].shape:
+            rows.append((k, float("inf")))
+        elif np.issubdtype(a[k].dtype, np.floating):
+            rows.append((k, float(np.abs(a[k].astype(np.float64)
+                                         - b[k].astype(np.float64)).mean())))
+    rows.sort(key=lambda r: -r[1])
+    return rows[:topk], sorted(set(b) - set(a)), sorted(set(a) - set(b))
+
+
+def check_weights(sd: StateDict) -> dict:
+    """Parameter and tensor counts, and the float keys holding a NaN, an inf
+    or only zeros (`chk_ckpt_weights.py`)."""
+    stats = {"n_params": 0, "n_tensors": len(sd), "nan_keys": [], "inf_keys": [],
+             "zero_keys": []}
+    for k, v in sd.items():
+        stats["n_params"] += int(v.size)
+        if not np.issubdtype(v.dtype, np.floating):
+            continue
+        if np.isnan(v).any():
+            stats["nan_keys"].append(k)
+        if np.isinf(v).any():
+            stats["inf_keys"].append(k)
+        if np.abs(v).max() == 0:
+            stats["zero_keys"].append(k)
+    return stats
+
+
+def replace_by_pattern(base: StateDict, donor: StateDict, patterns: list[str],
+                       use_regex: bool = False) -> StateDict:
+    """The keys of `base` that match a glob (or, with `use_regex`, a regex
+    searched anywhere in the key) and that the donor has take the donor's
+    value (`repl_by_pat.py`); raises where none did."""
+    out = dict(base)
+    n = 0
+    for k in base:
+        if k in donor and any(re.search(p, k) if use_regex else fnmatch.fnmatch(k, p)
+                              for p in patterns):
+            out[k] = donor[k]
+            n += 1
+    if n == 0:
+        raise KeyError(f"no keys matched {patterns}")
+    return out
+
+
+STEP_ENTRY = re.compile(r"embeddings_gs-(\d+)(\.pt|\.ckpt|\.safetensors)?$")
+
+
+def clean_log_folders(root: str, pat: str, skip_pat: str | None = None, keep: int = 1,
+                      del_samples: bool = False, mock: bool = False) -> int:
+    """Prune old periodic checkpoints under a root of training-log folders:
+    in every `<root>/<run>/checkpoints` whose path matches the regex `pat`
+    and not `skip_pat`, all but the `keep` largest-step `embeddings_gs-<step>`
+    entries (directories or single files) are removed, and with
+    `del_samples` the run's `samples/` folder too. → the number of
+    checkpoints removed (with `mock`, that would be; nothing is removed)."""
+    if keep < 0:
+        raise ValueError(f"keep must be >= 0, got {keep}")
+    n_deleted = 0
+    for run in sorted(os.listdir(root)):
+        ckpt_dir = os.path.join(root, run, "checkpoints")
+        if not os.path.isdir(ckpt_dir) or not re.search(pat, ckpt_dir):
+            continue
+        if skip_pat and re.search(skip_pat, ckpt_dir):
+            print(f"skipping: {ckpt_dir}")
+            continue
+        entries = sorted((int(m.group(1)), name) for name in os.listdir(ckpt_dir)
+                         if (m := STEP_ENTRY.fullmatch(name)))
+        drop, kept = (entries[:-keep], entries[-keep:]) if keep > 0 else (entries, [])
+        for _, name in drop:
+            path = os.path.join(ckpt_dir, name)
+            print(f"{'would delete' if mock else 'deleting'}: {path}")
+            if not mock and os.path.isdir(path):
+                shutil.rmtree(path)
+            elif not mock:
+                os.remove(path)
+            n_deleted += 1
+        for _, name in kept:
+            print(f"keeping:  {os.path.join(ckpt_dir, name)}")
+        samples = os.path.join(root, run, "samples")
+        if del_samples and os.path.isdir(samples):
+            print(f"{'would delete' if mock else 'deleting'}: {samples}")
+            if not mock:
+                shutil.rmtree(samples)
+    return n_deleted
 
 
 def save_safetensors(sd: Mapping[str, np.ndarray], path: str) -> None:

@@ -15,16 +15,19 @@ widths of what is saved (per encoder name: a layer list, or one per
 SubjBasisGenerator of a joint encoder). `load_adaface_ckpt` re-extends or
 squeezes prompt2token_proj to the multipliers asked for
 (`checkpoint.py:97-128`); `load_subj_basis_generators` loads a checkpoint's
-SubjBasisGenerators into an encoder at their widths (serving). The
-converter of the reference's pickled checkpoints waits in ROADMAP §1.
+SubjBasisGenerators into an encoder at their widths (serving).
+`export_reference_ckpt` (`checkpoint.py:130-166`) converts the reference's
+pickled `embeddings_gs-*.pt` (live modules) into plain npz state dicts.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 from typing import Any
 
+import numpy as np
 import torch
 
 from adaface_tpu_torch.models.clip import layer_multipliers
@@ -132,3 +135,34 @@ def load_subj_basis_generators(encoder, ckpt_dir: str) -> None:
             load_sbg_state_dict(enc.subj_basis_generator, sd, f"{ckpt_dir} ({enc.name})")
             print(f"loaded SBG params for {enc.name} from {ckpt_dir}")
             break
+
+
+def export_reference_ckpt(pt_path: str, out_dir: str, reference_root: str) -> dict:
+    """The reference's pickled `embeddings_gs-*.pt` → npz state dicts in
+    `out_dir`: `sbg_<key>.npz` for each SubjBasisGenerator of
+    `string_to_subj_basis_generator_dict`, `unet_lora.npz` for
+    `unet_lora_modules` (a module or a dict of tensors), and
+    `export_info.json` ({file stem: tensors}). The pickle holds live modules
+    whose classes live in the reference repository, so `reference_root` is
+    on `sys.path` while it is unpickled. → the export info."""
+    sys.path.insert(0, reference_root)
+    try:
+        ckpt = torch.load(pt_path, map_location="cpu", weights_only=False)
+    finally:
+        sys.path.remove(reference_root)
+    os.makedirs(out_dir, exist_ok=True)
+    exported = {}
+    for key, module in ckpt.get("string_to_subj_basis_generator_dict", {}).items():
+        sd = {k: v.detach().float().numpy() for k, v in module.state_dict().items()}
+        np.savez(os.path.join(out_dir, f"sbg_{key}.npz"), **sd)
+        exported[f"sbg_{key}"] = len(sd)
+    lora = ckpt.get("unet_lora_modules")
+    if lora is not None:
+        sd = lora if isinstance(lora, dict) else lora.state_dict()
+        sd = {k: np.asarray(v.detach().float().numpy() if hasattr(v, "detach") else v)
+              for k, v in sd.items()}
+        np.savez(os.path.join(out_dir, "unet_lora.npz"), **sd)
+        exported["unet_lora"] = len(sd)
+    with open(os.path.join(out_dir, "export_info.json"), "w") as f:
+        json.dump(exported, f, indent=2)
+    return exported

@@ -21,7 +21,8 @@ resize) are here too, on stdlib `zlib`: `read_png` (8-bit grey, RGB and
 RGBA, non-interlaced, all five row filters; any other file raises with its
 path), `write_png`, `to_rgb` / `to_grey` as PIL converts,
 `pad_to_square` and `resize_nearest_pil`, which samples where PIL's
-NEAREST does.
+NEAREST does. `write_gif` writes an animated GIF (the video pipeline's
+`to_gif`, which PIL writes in the JAX package) on a fixed palette.
 """
 
 from __future__ import annotations
@@ -242,3 +243,60 @@ def resize_nearest_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """`Image.resize((w, h), Image.NEAREST)` on [H, W(, C)]; size is (w, h)."""
     w, h = size
     return img[_nearest_index(img.shape[0], h)][:, _nearest_index(img.shape[1], w)]
+
+
+# the GIF palette: a 6 x 7 x 6 cube of R, G, B levels (252 colours, 4 unused)
+GIF_LEVELS = (6, 7, 6)
+GIF_LITERALS = 254  # codes between clear codes: the LZW code width stays 9 bits
+
+
+def gif_palette() -> np.ndarray:
+    """[256, 3] uint8: entry (r · 7 + g) · 6 + b holds the levels' values."""
+    axes = [np.round(np.arange(n) * 255.0 / (n - 1)).astype(np.uint8) for n in GIF_LEVELS]
+    cube = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
+    return np.concatenate([cube, np.zeros((256 - len(cube), 3), np.uint8)])
+
+
+def _gif_indices(frame: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] → the palette index of each pixel's nearest levels."""
+    levels = np.array(GIF_LEVELS)
+    q = np.rint(frame.astype(np.float32) * ((levels - 1) / 255.0)).astype(np.int64)
+    return ((q[..., 0] * levels[1] + q[..., 1]) * levels[2] + q[..., 2]).astype(np.uint16)
+
+
+def _gif_lzw(indices: np.ndarray) -> bytes:
+    """Uncompressed 9-bit LZW of the pixel indices: a clear code before every
+    GIF_LITERALS literals, so that the decoder's table never reaches 512
+    codes, then end-of-information; packed LSB first into sub-blocks of at
+    most 255 bytes."""
+    clear, end = 256, 257
+    flat = indices.ravel()
+    chunks = -(-flat.size // GIF_LITERALS)
+    padded = np.full(chunks * GIF_LITERALS, -1, np.int64)
+    padded[:flat.size] = flat
+    codes = np.concatenate([np.full((chunks, 1), clear), padded.reshape(chunks, GIF_LITERALS)],
+                           axis=1).ravel()
+    codes = np.append(codes[codes >= 0], end)
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8)
+    data = np.packbits(bits.ravel(), bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return bytes([8]) + blocks + b"\x00"
+
+
+def write_gif(path, frames: np.ndarray, fps: int = 8) -> None:
+    """uint8 [F, H, W, 3] → an animated GIF89a that loops forever, each frame
+    shown int(1000 / fps) ms (to the GIF's 10 ms), its pixels on the nearest
+    colour of `gif_palette()`."""
+    frames = np.asarray(frames, np.uint8)
+    n, h, w, _ = frames.shape
+    delay = int(1000 / fps) // 10
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", 0) + b"\x00"]
+    for frame in frames:
+        out.append(b"\x21\xf9\x04\x04" + struct.pack("<H", delay) + b"\x00\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0))
+        out.append(_gif_lzw(_gif_indices(frame)))
+    out.append(b"\x3b")
+    with open(path, "wb") as f:
+        f.write(b"".join(out))

@@ -167,7 +167,25 @@ its UNet / MMDiT calls and decodes predict (the D 64 attentions all on the
 wgmma kernel: the wide kernel launches once a decode, for the VAE), with the
 latency, and one more request's device time and operations by kind; phase 3
 holds the D 64 instance at their five attention shapes, and GroupNorm and
-the D 512 flash at the 1024x1024 shapes. Before `serve_speed_modes`,
+the D 512 flash at the 1024x1024 shapes. Between `serve_speed_modes` and
+`serve_sdxl`, `serve_video` runs the text-to-video path on the phase-5 SD1.5
+modules with the full MM_SD15_V2 motion modules (random, seeded): the
+zero-`proj_out` video UNet call equal to the image UNet's bit for bit, then
+with `proj_out` drawn off 0: one motion module at its 64x64 and 8x8 shapes
+(batch 32) against its fp32 plain computation, one video UNet call at one
+video of 16 frames kernels against plain, and one 16-frame, 512x512, 25-step
+clip (guidance 6.0, after a 2-step warm-up clip) through
+`AdaFaceWrapper("text2video")`, held to the launches its 25 UNet calls at
+batch 32 and two batch-8 decodes predict, with its latency, peak memory, the
+frames' range and the distance between consecutive frames, the GIF's size,
+one more clip's device time and operations by kind, and the motion modules'
+share of it; phase 3 holds the flash and GroupNorm kernels at the clip's
+shapes (the UNet at batch 32, the decode at batch 8). After `serve_sd3`,
+`check_sd15_bits` holds one SD1.5 request of a fresh server to the bits
+recorded from the parent tree (where torch, CUDA and the card are the
+recorded ones; whether it compared stands under "checks" in the kernels
+line), and `run_tools` runs `scripts/flow_tool_torch.py` and
+`scripts/ckpt_tool_torch.py check` once on the card. Before `serve_speed_modes`,
 `serve_trained` serves what the port's trainers
 write, on the same SD1.5 modules: the UNet's attention and FFN adapters at
 rank 192 (B and the magnitudes drawn off their start) written by
@@ -193,8 +211,9 @@ Each path runs with the launch counts set to 0 just before it and checked
 just after. The line before the last holds the per-kernel JSON record; the
 last line is {"ok": true, "device": {...}}.
 
-The script imports only torch, numpy, the port (`adaface_tpu_torch`) and
-the checkpoint writers of `tests/torch_sd_layout.py`.
+The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
+checkpoint writers of `tests/torch_sd_layout.py` and the port's CLI twins in
+`scripts/`.
 """
 
 from __future__ import annotations
@@ -275,6 +294,15 @@ FLASH_XL_CASES = [
 # launches of each SDXL shape in one UNet call (transformer blocks: 2 + 2 x 3
 # at 64x64, 2 x 10 + 10 + 3 x 10 at 32x32) and of the joint attention in one
 # MMDiT call (24 blocks)
+# the text-to-video clip's kernel attentions: the UNet's six at CFG batch 32
+# (one video of 16 frames, with its unconditional twin) and the VAE's mid
+# block over a decode chunk of 8 frames
+VIDEO_FRAMES = 16
+VIDEO_DECODE_CHUNK = 8
+FLASH_VIDEO_CASES = ([(f"{label} video", 2 * VIDEO_FRAMES, *dims)
+                      for label, _, *dims in FLASH_CASES[:-1]]
+                     + [("vae mid self video", VIDEO_DECODE_CHUNK, 1, 4096, 4096, 512)])
+PLAIN_ATTENTION_BATCH = 16  # the plain version's fp32 logits at S 4096: 8.6 GB a chunk
 SDXL_FLASH_PER_CALL = {"sdxl 64x64 self": 10, "sdxl 64x64 cross": 10,
                        "sdxl 32x32 self": 60, "sdxl 32x32 cross": 60}
 SD3_FLASH_PER_CALL = 24
@@ -345,10 +373,23 @@ VAE1024_GN = [
     ("resnet 1024x1024 256", 256, 1024, True, 1),
     ("resnet 1024x1024 128", 128, 1024, True, 6),
 ]
+# the motion modules' GroupNorms (eps 1e-6, no SiLU: the key of the UNet's
+# transformer norms) at 512x512: (C, H = W) → modules per video UNet call
+MOTION_GN = {(320, 64): 5, (640, 32): 5, (1280, 16): 5, (1280, 8): 6}
+
+
+def video_gn(c: int, hw: int, eps: float, silu: bool, n: int) -> int:
+    """GroupNorms of one shape in a video UNet call: the UNet's `n`, and the
+    motion modules' where the key is theirs."""
+    return n + (MOTION_GN.get((c, hw), 0) if eps == 1e-6 and not silu else 0)
+
+
 # (label, shape, groups, eps, silu, launches by path): the paths are one UNet
 # call at CFG batch 2 ("unet": a request's step) or 16 ("unet16": a step of the
 # batcher with 8 slots), one VAE decode and one VAE encode, one SDXL UNet call
-# at CFG batch 2 ("sdxl") and one 1024x1024 decode ("decode1024"); `check_unet`,
+# at CFG batch 2 ("sdxl") and one 1024x1024 decode ("decode1024"), one video
+# UNet call with its motion modules at 16 frames ("video16") or at CFG batch 32
+# ("video") and one decode chunk of 8 frames ("decode8"); `check_unet`,
 # `serve` and the phases after it count the shapes the modules really see
 # against this table
 GN_CASES = (
@@ -356,12 +397,18 @@ GN_CASES = (
      for label, c, hw, eps, silu, n in UNET_GN]
     + [(f"vae {label}", (1, c, hw, hw), 32, 1e-6, silu, {"decode": dec, "encode": enc})
        for label, c, hw, silu, dec, enc in VAE_GN]
-    + [(f"unet {label} batch 16", (16, c, hw, hw), 32, eps, silu, {"unet16": n})
+    + [(f"unet {label} batch 16", (16, c, hw, hw), 32, eps, silu,
+        {"unet16": n, "video16": video_gn(c, hw, eps, silu, n)})
        for label, c, hw, eps, silu, n in UNET_GN]
     + [(f"sdxl {label}", (2, c, hw, hw), 32, eps, silu, {"sdxl": n})
        for label, c, hw, eps, silu, n in SDXL_GN]
     + [(f"vae 1024 {label}", (1, c, hw, hw), 32, 1e-6, silu, {"decode1024": n})
-       for label, c, hw, silu, n in VAE1024_GN])
+       for label, c, hw, silu, n in VAE1024_GN]
+    + [(f"unet {label} video", (2 * VIDEO_FRAMES, c, hw, hw), 32, eps, silu,
+        {"video": video_gn(c, hw, eps, silu, n)})
+       for label, c, hw, eps, silu, n in UNET_GN]
+    + [(f"vae {label} batch {VIDEO_DECODE_CHUNK}", (VIDEO_DECODE_CHUNK, c, hw, hw), 32, 1e-6,
+        silu, {"decode8": dec}) for label, c, hw, silu, dec, _ in VAE_GN if dec])
 UNET_CALLS = 25  # per request: DDIM steps, one CFG batch-2 call each
 # each kernel forced at a shape of the other's regime, where it can run
 GN_FORCED = [("vae resnet 128x128 512", "fused"), ("unet resnet 64x64 320", "split"),
@@ -562,20 +609,34 @@ def flash_inputs(gen, label, b, h, sq, sk, d, dtype=torch.bfloat16):
     return q, k, v
 
 
+def plain_attention(q, k, v):
+    """The plain version, over chunks of PLAIN_ATTENTION_BATCH of the batch
+    where it is larger: the same function, without 17 GB of fp32 logits at
+    batch 32, S 4096."""
+    from adaface_tpu_torch.ops import attention as A
+
+    if q.shape[0] <= PLAIN_ATTENTION_BATCH:
+        return A.scaled_dot_product_attention(q, k, v)
+    return torch.cat([A.scaled_dot_product_attention(*(t[i:i + PLAIN_ATTENTION_BATCH]
+                                                       for t in (q, k, v)))
+                      for i in range(0, q.shape[0], PLAIN_ATTENTION_BATCH)])
+
+
 def check_flash(gen) -> dict:
     from adaface_tpu_torch.ops import attention as A
 
     results = {}
     for label, b, h, sq, sk, d in (FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES
-                                   + FLASH_TEACHER_CASES + FLASH_TOME_CASES + FLASH_XL_CASES):
+                                   + FLASH_TEACHER_CASES + FLASH_TOME_CASES + FLASH_XL_CASES
+                                   + FLASH_VIDEO_CASES):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
-        ref = A.scaled_dot_product_attention(q, k, v)
+        plain = lambda: plain_attention(q, k, v)
+        ref = plain()
         torch.cuda.synchronize()
         err, mag = max_err(out, ref)
         kernel = lambda: A._flash_cuda(q, k, v, None, False, scale)
-        plain = lambda: A.scaled_dot_product_attention(q, k, v)
         stock = lambda: F.scaled_dot_product_attention(q, k, v)
         # in turns: kernel, plain, stock, stock, plain, kernel
         turns = [median_ms(f) for f in (kernel, plain, stock, stock, plain, kernel)]
@@ -597,7 +658,8 @@ def check_flash(gen) -> dict:
             f"{bound_ms:.4f} ms by {bound_by}, reached {bound_ms / dev:.1%}")
         if err > BF16_TOL * mag:
             raise AssertionError(f"flash {label}: error {err} above bound")
-        if (label.startswith(("tome", "sdxl", "sd3"))) and plan.variant != "wg":
+        if (label.startswith(("tome", "sdxl", "sd3")) or (label.endswith("video") and d < 512)) \
+                and plan.variant != "wg":
             raise AssertionError(f"flash {label}: the plan leaves the wgmma kernel")
         results[label] = dict(variant=plan.variant, err=err, ms=ms, plain_ms=plain_ms,
                               stock_ms=stock_ms, run_ms=run,
@@ -607,7 +669,8 @@ def check_flash(gen) -> dict:
         # the plain version's fp32 logits are 8.6 GB at batch 16, S 4096
         del q, k, v, out, ref, kernel, plain, stock
         torch.cuda.empty_cache()
-    for name, cases in (("2", FLASH_CASES[:-1]), ("16", FLASH_CASES_B16)):
+    for name, cases in (("2", FLASH_CASES[:-1]), ("16", FLASH_CASES_B16),
+                        (f"{2 * VIDEO_FRAMES} (a video clip's step)", FLASH_VIDEO_CASES[:-1])):
         dev = sum(FLASH_PER_UNET_CALL * results[case[0]]["graph_ms"] for case in cases)
         lib = sum(FLASH_PER_UNET_CALL * results[case[0]]["stock_graph_ms"] for case in cases)
         log(f"flash per UNet call at batch {name} ({FLASH_PER_UNET_CALL * len(cases)} launches): "
@@ -906,7 +969,9 @@ def check_gn(gen) -> dict:
     for what, calls in (("batcher step at 8 slots (UNet batch 16)", {"unet16": 1}),
                         ("VAE encode", {"encode": 1}), ("VAE decode", {"decode": 1}),
                         ("SDXL UNet call (CFG batch 2, 128x128)", {"sdxl": 1}),
-                        ("1024x1024 VAE decode", {"decode1024": 1})):
+                        ("1024x1024 VAE decode", {"decode1024": 1}),
+                        ("video UNet call (CFG batch 32, with its motion modules)", {"video": 1}),
+                        (f"VAE decode of {VIDEO_DECODE_CHUNK} frames", {"decode8": 1})):
         n = {case[0]: gn_launches(case[5], **calls) for case in GN_CASES}
         log(f"gn per {what}: {sum(n.values())} GroupNorms, kernels "
             f"{sum(k * results[label]['graph_ms'] for label, k in n.items()):.3f} ms of device "
@@ -5566,6 +5631,336 @@ def serve_sd3(encoder, faces, card: str) -> dict:
     return out
 
 
+VIDEO_STEPS = 25
+MOTION_PROJ_OUT_STD = 0.1  # of fan-in^-1/2: `proj_out` drawn off its 0 so the frames interact
+# one motion module in bf16 with the GroupNorm kernel against its fp32 plain
+# computation, relative L2 of the temporal residual: about nine bf16
+# roundings of the residual's chain (2^-9 each) through five norms and eight
+# products of random weights
+MOTION_REL_TOL = 3e-2
+# (label, where, C, H = W): the motion modules held against plain, at the
+# clip's batch 32
+MOTION_CHECKS = [("motion 64x64 320", "down.0.0", 320, 64), ("motion 8x8 1280", "mid", 1280, 8)]
+# (C, H = W, modules a video UNet call) of the motion modules
+MOTION_LEVELS = [(320, 64, 5), (640, 32, 5), (1280, 16, 5), (1280, 8, 6)]
+
+
+def motion_module(motion, where: str):
+    """`motion.down[0][0]` for "down.0.0", `motion.mid` for "mid"."""
+    m = motion
+    for part in where.split("."):
+        m = m[int(part)] if part.isdigit() else getattr(m, part)
+    return m
+
+
+def check_motion_module(mm, x, what: str) -> dict:
+    """One motion module on x (bf16, channels-last, batch 2 x 16 frames) with
+    the GroupNorm kernel against the same module in fp32 on the plain
+    versions: the relative L2 of the temporal residual (output - x), and the
+    module's launches (one GroupNorm; the temporal attention is plain)."""
+    from adaface_tpu_torch.ops import _build
+
+    ref_mm = copy.deepcopy(mm).float()
+    with torch.inference_mode():
+        _build.reset_launch_counts()
+        out = mm(x, VIDEO_FRAMES)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        with plain_versions():
+            ref = ref_mm(x.float(), VIDEO_FRAMES)
+        ms = median_ms(lambda: mm(x, VIDEO_FRAMES), reps=5)
+    res, ref_res = out.float() - x.float(), ref - x.float()
+    rel = ((res - ref_res).norm() / ref_res.norm()).item()
+    scale = (ref_res.norm() / x.float().norm()).item()
+    log(f"{what} {tuple(x.shape)}: temporal residual kernels (bf16) against plain (fp32) rel L2 "
+        f"{rel:.3e} (bound {MOTION_REL_TOL:g}); the residual {scale:.3e} of the input's norm; "
+        f"a call {ms:.3f} ms; launches {counts}")
+    if not (torch.isfinite(out).all() and rel <= MOTION_REL_TOL and scale > 0):
+        raise AssertionError(f"{what}: kernels against plain rel L2 {rel} (residual {scale})")
+    del ref_mm
+    return dict(rel=rel, residual=scale, ms=ms, counts=counts)
+
+
+class VideoUNet(torch.nn.Module):
+    """A UNet with its motion modules at `num_frames`, as one module (so a
+    GroupNorm census sees both)."""
+
+    def __init__(self, unet, motion, num_frames: int):
+        super().__init__()
+        self.unet, self.motion, self.num_frames = unet, motion, num_frames
+
+    def forward(self, x, t, ctx):
+        return self.unet(x, t, ctx, motion=self.motion, num_frames=self.num_frames)
+
+
+def motion_breakdown(motion, gen) -> dict:
+    """Device ms (20 calls in a CUDA graph) of a motion module, one temporal
+    attention (its LayerNorm, q/k/v, plain attention, o), the plain attention
+    alone and one LayerNorm, at each level's shape at batch 32, and their
+    sums over a video UNet call's 21 modules."""
+    from adaface_tpu_torch.models.motion import MotionModule
+    from adaface_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    per_call = collections.Counter()
+    rows = {}
+    b = 2
+    with torch.inference_mode():
+        for c, hw, n in MOTION_LEVELS:
+            mm = next(m for m in motion.modules()
+                      if isinstance(m, MotionModule) and m.proj_in.in_features == c)
+            x = torch.randn((b * VIDEO_FRAMES, c, hw, hw), generator=gen, device="cuda").to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            y = torch.randn((b * hw * hw, VIDEO_FRAMES, c), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            pe = mm.position_table(VIDEO_FRAMES, torch.bfloat16)
+            attn = mm.blocks[0].attn[0]
+            heads = mm.cfg.num_heads
+            q, k, v = (t.reshape(b * hw * hw, VIDEO_FRAMES, heads, c // heads).transpose(1, 2)
+                       for t in attn.qkv(y).split(c, dim=-1))
+            r = dict(module=graph_ms(lambda: mm(x, VIDEO_FRAMES)),
+                     attention=graph_ms(lambda: attn(y, pe, heads)),
+                     sdpa=graph_ms(lambda: scaled_dot_product_attention(q, k, v)),
+                     layer_norm=graph_ms(lambda: attn.norm(y)))
+            rows[f"{c}x{hw}x{hw}"] = r
+            # per module: 2 attentions (2 LayerNorms) and the feed-forward's LayerNorm
+            for key, times in (("module", 1), ("attention", 2), ("sdpa", 2), ("layer_norm", 3)):
+                per_call[key] += n * times * r[key]
+            log(f"motion module {c}x{hw}x{hw} batch {b * VIDEO_FRAMES} (device ms, 20 calls in a "
+                f"CUDA graph): the module {r['module']:.3f}, a temporal attention "
+                f"{r['attention']:.3f} (its plain attention {r['sdpa']:.3f}), a LayerNorm "
+                f"{r['layer_norm']:.3f}; {n} modules a UNet call")
+            del x, y, q, k, v
+    log("motion modules per video UNet call (21 modules, device ms): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_call.items()))
+    return dict(levels=rows, per_call=dict(per_call))
+
+
+def serve_video(wrapper, faces, card: str) -> dict:
+    """The text-to-video path (AdaFace-Animate) on the phase-5 SD1.5 modules
+    with the full MM_SD15_V2 motion modules (453 M parameters, random bf16
+    from their own seed): the zero-`proj_out` video UNet call equal to the
+    image UNet bit for bit; `proj_out` drawn off 0; two motion modules
+    against fp32 plain; one video UNet call at one video of 16 frames (batch
+    16) kernels against plain; then one 16-frame, 512x512, 25-step clip
+    (guidance 6.0) through `AdaFaceWrapper("text2video")` after a 2-step
+    warm-up clip, held to the launches of 25 UNet calls at CFG batch 32 and
+    two decodes of 8 frames; one more clip profiled; the motion modules'
+    device time by part."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.core.params import build, normal_
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.models.motion import (MM_SD15_V2, MotionModule, MotionModules,
+                                                 init_motion_weights_)
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops.fused_gn import GN_FUSED, GN_NORM, GN_STATS
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    m = wrapper.pipeline.m
+    unet = m.unet
+    motion = build(lambda: MotionModules(unet.cfg, MM_SD15_V2), "cuda", torch.bfloat16,
+                   init_motion_weights_, gen)
+    modules = [mm for mm in motion.modules() if isinstance(mm, MotionModule)]
+    n_params = sum(p.numel() for p in motion.parameters())
+    if len(modules) != sum(n for *_, n in MOTION_LEVELS):
+        raise AssertionError(f"motion: {len(modules)} modules")
+    f = VIDEO_FRAMES
+    x = torch.randn((f, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    t = torch.full((f,), 501, dtype=torch.long, device="cuda")
+    ctx = torch.randn((f, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        image_eps = unet(x, t, ctx)
+        zero_eps = unet(x, t, ctx, motion=motion, num_frames=f)
+    # proj_out is 0 at init: each module adds exactly 0 to its input
+    if not torch.equal(zero_eps, image_eps):
+        raise AssertionError("video UNet with zero proj_out differs from the image UNet: "
+                             f"max {(zero_eps - image_eps).abs().max().item()}")
+    log(f"video: {len(modules)} motion modules, {n_params} parameters; zero proj_out: the video "
+        f"UNet call (1 video x {f} frames) equals the image UNet's bit for bit")
+    for mm in modules:
+        normal_(mm.proj_out.weight, MOTION_PROJ_OUT_STD * mm.proj_out.in_features ** -0.5, gen)
+
+    checks = {}
+    for label, where, c, hw in MOTION_CHECKS:
+        xm = torch.randn((2 * f, c, hw, hw), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        checks[label] = check_motion_module(motion_module(motion, where), xm, label)
+        del xm
+    call = check_module_call(VideoUNet(unet, motion, f), (x, t, ctx), {},
+                             f"video UNet call 1 video x {f} frames 64x64")
+    want = collections.Counter({A.FLASH_T: 20, A.FLASH_STD: 10}) + gn_expected_from(call["seen"])
+    if {k: v for k, v in call["counts"].items() if v} != dict(want):
+        raise AssertionError(f"video UNet call: launches {call['counts']}, expected {dict(want)}")
+    expect_census(call["seen"], video16=1)
+    with torch.inference_mode():
+        moved = ((unet(x, t, ctx, motion=motion, num_frames=f).float() - image_eps.float()).norm()
+                 / image_eps.float().norm()).item()
+    log(f"video: the video UNet call {moved:.3e} (relative L2) from the image UNet's once "
+        f"proj_out is drawn")
+    del image_eps, zero_eps
+
+    w = AdaFaceWrapper("text2video", m, wrapper.id2ada_prompt_encoder, guidance_scale=6.0,
+                       num_inference_steps=VIDEO_STEPS, motion=motion)
+    prompt = REQUESTS[0][1]
+    w.prepare_adaface_embeddings(images=faces["a"])
+    t0 = time.perf_counter()
+    w(prompt, num_frames=f, num_inference_steps=2, generator=torch.Generator("cuda").manual_seed(400))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    decode_plan = A.flash_plan(torch.bfloat16, *FLASH_VIDEO_CASES[-1][1:], sms)
+    _build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with gn_census(unet) as seen_unet, gn_census(motion) as seen_motion, \
+            gn_census(m.vae) as seen_vae:
+        t0 = time.perf_counter()
+        ada = w.prepare_adaface_embeddings(images=faces["a"])
+        clip = w(prompt, num_frames=f, generator=torch.Generator("cuda").manual_seed(401))
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if ada is None or tuple(ada.shape) != (16, 768):
+        raise AssertionError(f"video: ada embeddings {ada}")
+    seen = seen_unet + seen_motion
+    expect_census(seen, video=VIDEO_STEPS)
+    decodes = -(-f // VIDEO_DECODE_CHUNK)
+    expect_census(seen_vae, decode8=decodes)
+    want = collections.Counter({A.FLASH_T: 20 * VIDEO_STEPS, A.FLASH_STD: 10 * VIDEO_STEPS,
+                                A.FLASH_WIDE: decodes,
+                                A.FLASH_COMBINE: decodes * (decode_plan.nsplit > 1)})
+    want.update(gn_expected_from(seen) + gn_expected_from(seen_vae))
+    want = {k: v for k, v in want.items() if v}
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"video clip: launches {counts}, expected {want}")
+    frames = clip[0]
+    if tuple(clip.shape) != (1, f, 3, 512, 512) or not torch.isfinite(clip).all():
+        raise AssertionError(f"video clip {tuple(clip.shape)} not finite or misshaped")
+    if clip.min() < 0.0 or clip.max() > 1.0:
+        raise AssertionError("video clip outside [0, 1]")
+    steps_apart = (frames[1:] - frames[:-1]).abs().mean(dim=(1, 2, 3))
+    if not (steps_apart > 0).all():
+        raise AssertionError(f"video clip: consecutive frames equal: {steps_apart.tolist()}")
+    with tempfile.TemporaryDirectory() as d:
+        gif_bytes = os.path.getsize(w.pipeline.to_gif(frames, os.path.join(d, "clip.gif")))
+    gn_by_kernel = {}
+    for (shape, eps, silu), n in sorted((seen + seen_vae).items()):
+        kernel = GN_FUSED if gn_expected_from({(shape, eps, silu): 1}).get(GN_FUSED) else \
+            f"{GN_STATS} + {GN_NORM}"
+        gn_by_kernel[f"{shape} eps {eps:g} silu {silu}"] = (n, kernel)
+    log(f"video: a 16-frame 512x512 {VIDEO_STEPS}-step clip (UNet batch {2 * f} with CFG, "
+        f"decodes of {VIDEO_DECODE_CHUNK} frames: the D 512 flash at B{VIDEO_DECODE_CHUNK} "
+        f"{decode_plan.variant} splits {decode_plan.nsplit}): latency {latency * 1e3:.1f} ms "
+        f"(2-step warm-up clip {warm_s:.1f} s), peak memory {peak:.2f} GiB; frames "
+        f"{tuple(frames.shape)} in [{clip.min().item():.4f}, {clip.max().item():.4f}], mean "
+        f"|frame i+1 - frame i| {steps_apart.min().item():.4f}..{steps_apart.max().item():.4f} "
+        f"(mean {steps_apart.mean().item():.4f}); GIF {gif_bytes} bytes; launches {counts}")
+    log("video: GroupNorms of the clip by shape (calls, kernel): "
+        + "; ".join(f"{k}: {n} {kern}" for k, (n, kern) in gn_by_kernel.items()))
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        w(prompt, num_frames=f, generator=torch.Generator("cuda").manual_seed(402))
+        torch.cuda.synchronize()
+    ops, dev = profile_report(prof, f"text2video {f}x512x512 clip", top=12)
+    breakdown = motion_breakdown(motion, gen)
+    with torch.inference_mode():
+        xb = torch.randn((2 * f, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        tb = torch.full((2 * f,), 501, dtype=torch.long, device="cuda")
+        cb = torch.randn((2 * f, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        # in turns: video, image, image, video
+        turns = [median_ms(lambda: unet(xb, tb, cb, **kw), reps=3, warmup=1)
+                 for kw in (dict(motion=motion, num_frames=f), {}, {},
+                            dict(motion=motion, num_frames=f))]
+    secs = time.perf_counter() - t_phase
+    log(f"video: a UNet call at batch {2 * f} {min(turns[0], turns[3]):.1f} ms with its motion "
+        f"modules, {min(turns[1], turns[2]):.1f} ms without; a clip {dev:.1f} ms of device time in "
+        f"{ops} operations, its motion modules {VIDEO_STEPS * breakdown['per_call']['module']:.1f}"
+        f" ms (temporal attentions {VIDEO_STEPS * breakdown['per_call']['attention']:.1f}, their "
+        f"plain attention {VIDEO_STEPS * breakdown['per_call']['sdpa']:.1f}, LayerNorms "
+        f"{VIDEO_STEPS * breakdown['per_call']['layer_norm']:.1f}); card {card}; the phase "
+        f"{secs:.1f} s")
+    out = dict(counts=counts, latency_ms=latency * 1e3, peak_gib=peak, device_ms=dev,
+               operations=ops, gif_bytes=gif_bytes, frame_step=steps_apart.tolist(),
+               modules=checks, call={k: v for k, v in call.items() if k != "seen"},
+               moved=moved, unet_ms=turns, breakdown=breakdown, seconds=secs)
+    del w, motion, clip, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# one SD1.5 request of a fresh server (`build_server` from SEED, subject a's
+# photos, the first prompt, generator seed 100, 512x512, 25 steps: the
+# request of `chip_compare.py --sd15-bits`): the SHA-256 of its fp32 pixels
+# as the tree before the video path gave them (the parent of the commit that
+# added the motion branch, `chip_compare.py --sd15-bits` on one H100), and
+# where
+SD15_BITS = dict(sha256="504fd39b3c6f9882f5efb448cc43083585ee2a52baa21172968108e19231d4a2",
+                 torch="2.11.0+cu128", cuda="12.8", card="NVIDIA H100 80GB HBM3")
+
+
+def check_sd15_bits(card: str) -> dict:
+    """That request's bits against SD15_BITS, where torch, CUDA and the card
+    are the recorded ones (elsewhere the digest is printed, not compared)."""
+    import hashlib
+
+    w, faces = build_server(torch.Generator(device="cuda").manual_seed(SEED))
+    w.prepare_adaface_embeddings(images=faces["a"])
+    img = w(REQUESTS[0][1], generator=torch.Generator("cuda").manual_seed(100))
+    digest = hashlib.sha256(img.float().cpu().numpy().tobytes()).hexdigest()
+    env = dict(torch=torch.__version__, cuda=torch.version.cuda,
+               card=torch.cuda.get_device_name(0))
+    same_env = all(SD15_BITS[k] == v for k, v in env.items())
+    log(f"sd15 bits: the request's SHA-256 {digest}; the parent's {SD15_BITS['sha256']} "
+        f"({'compared' if same_env else 'NOT COMPARED: recorded under ' + str(SD15_BITS)}; "
+        f"here {env}); card {card}")
+    if same_env and digest != SD15_BITS["sha256"]:
+        raise AssertionError(f"the SD1.5 request's bits differ from the parent's: {digest}")
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    # in the kernels line too, so that a check left uncompared shows there
+    return dict(compared=same_env, sha256=digest, parent_sha256=SD15_BITS["sha256"],
+                recorded_under={k: SD15_BITS[k] for k in env}, here=env)
+
+
+def run_tools(card: str) -> dict:
+    """The host tools' twins once on the card: `scripts/flow_tool_torch.py`
+    (the random GMA between a 256x256 photo and itself shifted by 4 pixels,
+    6 iterations) and `scripts/ckpt_tool_torch.py check` on a state dict of
+    the flow written as `.safetensors`."""
+    import tempfile
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "scripts"))
+    try:
+        import ckpt_tool_torch
+        import flow_tool_torch
+    finally:
+        sys.path.pop(0)
+    from adaface_tpu_torch.tools.ckpt_lib import save_state_dict
+    from adaface_tpu_torch.utils.image import write_png
+
+    t0 = time.perf_counter()
+    img = np.random.RandomState(SEED).randint(0, 256, (256, 260, 3)).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as d:
+        write_png(os.path.join(d, "a.png"), img[:, :256])
+        write_png(os.path.join(d, "b.png"), img[:, 4:])
+        flow = flow_tool_torch.main([os.path.join(d, "a.png"), os.path.join(d, "b.png"), "--out",
+                                     os.path.join(d, "flow.png"), "--size", "256"])
+        save_state_dict({"flow": flow}, os.path.join(d, "flow.safetensors"))
+        ckpt_tool_torch.main(["check", os.path.join(d, "flow.safetensors")])
+    if flow.shape != (256, 256, 2) or not np.isfinite(flow).all():
+        raise AssertionError(f"flow tool: flow {flow.shape} not finite or misshaped")
+    secs = time.perf_counter() - t0
+    log(f"tools: flow_tool_torch and ckpt_tool_torch check on the card in {secs:.1f} s; card "
+        f"{card}")
+    return dict(seconds=secs)
+
+
 def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn_bwd: dict,
                   int8: dict, counts: dict, paths: dict) -> dict:
     """The per-kernel record. `launches` are those of the path that first ran
@@ -5648,7 +6043,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                      r["stock_ms"], r["bound_ms"], r["bound_by"], shapes=shapes)
 
     path = {label: d for (label, *_, d) in (FLASH_CASES + FLASH_CASES_B16 + FLASH_TEACHER_CASES
-                                            + FLASH_XL_CASES)}
+                                            + FLASH_XL_CASES + FLASH_VIDEO_CASES)}
     short = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d < 128]
     long_ = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d >= 128]
     wide = [label for label in path if flash[label]["variant"] == "wide"]
@@ -5827,6 +6222,7 @@ def main() -> int:
     joint = timed_phase("serve_joint", serve_joint, wrapper, faces, gen)
     trained = timed_phase("serve_trained", serve_trained, wrapper, faces, card)
     speed = timed_phase("serve_speed_modes", serve_speed_modes, wrapper, faces, card)
+    video = timed_phase("serve_video", serve_video, wrapper, faces, card)
     encoder = wrapper.id2ada_prompt_encoder
     del wrapper
     gc.collect()
@@ -5842,6 +6238,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     release()
+    sd15_bits = timed_phase("check_sd15_bits", check_sd15_bits, card)
+    timed_phase("run_tools", run_tools, card)
     parser = timed_phase("train_face_parser", train_face_parser, gen)
     release()
     stage1 = timed_phase("train_stage1", train_stage1, gen)
@@ -5877,10 +6275,13 @@ def main() -> int:
              **{f"speed mode {name}": r["counts"] for name, r in speed["modes"].items()
                 if "counts" in r},
              "int8 batcher": speed["drain_counts"],
-             "sdxl 2 requests 1024x1024": sdxl["counts"], "sd3 2 requests 1024x1024": sd3["counts"]}
+             "sdxl 2 requests 1024x1024": sdxl["counts"], "sd3 2 requests 1024x1024": sd3["counts"],
+             "text2video 16-frame clip": video["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
-    print(json.dumps(kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths)))
+    record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths)
+    record["checks"] = {"sd15_bits": sd15_bits}
+    print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

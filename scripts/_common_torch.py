@@ -54,7 +54,9 @@ def build_wrapper(args, pipeline_name: str = "text2img"):
     `--base_model` (random ones for any tower the file lacks, or all without
     it), or for `--pipeline text2imgxl` / `text2img3` random SDXL / SD3
     towers (`--base_model` refused, as the JAX CLI refuses it), the encoder
-    `--encoder` (random), its SubjBasisGenerator(s) from `--adaface_ckpt`."""
+    `--encoder` (random), its SubjBasisGenerator(s) from `--adaface_ckpt`.
+    `pipeline_name` "text2video" (no `--pipeline` choice, as in the JAX CLI)
+    gets the SD1.5 towers and random MM_SD15_V2 motion modules."""
     from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import create_id2ada_prompt_encoder
     from adaface_tpu_torch.inference.pipeline import PipelineModules
     from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
@@ -62,8 +64,8 @@ def build_wrapper(args, pipeline_name: str = "text2img"):
     pipeline_name = getattr(args, "pipeline", None) or pipeline_name
     if pipeline_name not in SUPPORTED_PIPELINES:
         raise SystemExit(f"pipeline {pipeline_name!r} is not ported; the PyTorch port serves "
-                         "'text2img' and 'img2img' (SD1.5), 'text2imgxl' (SDXL) and "
-                         "'text2img3' (SD3)")
+                         "'text2img', 'img2img' and 'text2video' (SD1.5), 'text2imgxl' (SDXL) "
+                         "and 'text2img3' (SD3)")
     device = torch.device(args.device)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     gen = torch.Generator(device).manual_seed(0)

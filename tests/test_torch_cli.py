@@ -181,17 +181,22 @@ def test_translate_cli_writes_pngs(cli, tmp_path):
 
 
 def test_cli_refuses_the_pipelines_not_ported(cli):
-    """A pipeline the port does not serve is refused by name; SDXL and SD3
-    run on random towers only: `--base_model` is refused for them, as the
-    JAX CLI refuses it."""
+    """A pipeline the port does not serve ("flux") is refused by name;
+    "text2video" (no `--pipeline` choice, as in the JAX CLI) builds the SD1.5
+    towers with random motion modules; SDXL and SD3 run on random towers
+    only: `--base_model` is refused for them, as the JAX CLI refuses it."""
     import argparse
 
     import adaface_infer_torch
+    from adaface_tpu_torch.inference.video_pipeline import VideoPipeline
 
     common, subject = cli
-    args = argparse.Namespace(pipeline="text2video", device="cpu", dtype="f32")
+    args = argparse.Namespace(pipeline="flux", device="cpu", dtype="f32")
     with pytest.raises(SystemExit, match="not ported"):
         common.build_wrapper(args)
+    video = common.build_wrapper(_common_args(common, "cpu"), "text2video")
+    assert isinstance(video.pipeline, VideoPipeline)
+    assert len(video.pipeline.motion.up) == len(common.MODEL_CFGS["unet_cfg"].block_channels)
     for name in ("text2imgxl", "text2img3"):
         with pytest.raises(SystemExit, match="not wired"):
             adaface_infer_torch.main(["--subject", subject, "--device", "cpu",

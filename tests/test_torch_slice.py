@@ -74,7 +74,11 @@ SLICE_MODULES = [
     "adaface_tpu_torch.models.arcface", "adaface_tpu_torch.models.retinaface",
     "adaface_tpu_torch.utils.image", "adaface_tpu_torch.utils.tensor",
     "adaface_tpu_torch.inference.pipeline", "adaface_tpu_torch.inference.wrapper",
-    "adaface_tpu_torch.inference.serving",
+    "adaface_tpu_torch.inference.serving", "adaface_tpu_torch.inference.video_pipeline",
+    "adaface_tpu_torch.models.motion", "adaface_tpu_torch.tools.convert_motion",
+    "adaface_tpu_torch.utils.sample_logger", "adaface_tpu_torch.train.checkpoint",
+    "adaface_tpu_torch.train.recon_multistep", "scripts.ckpt_tool_torch",
+    "scripts.flow_tool_torch",
     "adaface_tpu_torch.tools.ckpt_lib", "adaface_tpu_torch.tools.convert_sd",
     "adaface_tpu_torch.tools.convert_ldm_unet", "adaface_tpu_torch.tools.convert_clip",
     "adaface_tpu_torch.tools.convert_consistentid",
@@ -84,10 +88,12 @@ SLICE_MODULES = [
 
 
 def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3,
-                      encoder: str = "arc2face"):
+                      encoder: str = "arc2face", jax_kw: dict | None = None,
+                      port_kw: dict | None = None):
     """→ (the JAX wrapper, the port's) on the same tiny fp32 weights, each
     with a tokenizer of its own; `encoder` "arc2face" or "jointIDs"
-    (Arc2Face + ConsistentID)."""
+    (Arc2Face + ConsistentID); `jax_kw` / `port_kw`: more arguments of each
+    wrapper (text2video's `motion` and `motion_cfg`)."""
     text_j, unet_j, vae_j = (jclip.CLIPTextConfig(**TEXT_KW), junet.UNetConfig(**UNET_KW),
                              jvae.VAEConfig(**VAE_KW))
     unet_p = numpy_params(lambda k: junet.init_unet_params(k, unet_j), 10)
@@ -112,7 +118,8 @@ def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3,
             clip_vision_params=numpy_params(lambda k: jclip.init_vision_params(k, vis_j), 15),
             image_proj_params=numpy_params(lambda k: jL.init_proj_plus(k, 512, D, D, 4), 16))
         jenc = JJoint(jax.random.PRNGKey(0), encoders=[jenc, jcid])
-    jw = JWrapper(pipeline_name, jm, jenc, num_inference_steps=steps, dtype=jnp.float32)
+    jw = JWrapper(pipeline_name, jm, jenc, num_inference_steps=steps, dtype=jnp.float32,
+                  **(jax_kw or {}))
 
     text_t = tclip.CLIPTextConfig(**TEXT_KW)
     tok = CLIPTokenizer.character_fallback()
@@ -143,7 +150,7 @@ def make_wrapper_pair(pipeline_name: str = "text2img", steps: int = 3,
             face_backend=DeterministicBackend())
         tenc = JointFaceID2AdaPrompt([tenc, tcid])
     tw = AdaFaceWrapper(pipeline_name, tm, tenc, num_inference_steps=steps,
-                        dtype=torch.float32)
+                        dtype=torch.float32, **(port_kw or {}))
     return jw, tw
 
 
@@ -197,8 +204,12 @@ def test_wrapper_forward_from_images(wrappers):
              generator=torch.Generator().manual_seed(0))
     assert out.shape == (2, 3, 64, 64) and torch.isfinite(out).all()
     assert 0.0 <= out.min() and out.max() <= 1.0
-    with pytest.raises(NotImplementedError, match="'text2img' and 'img2img'"):
-        AdaFaceWrapper("text2video", tw.pipeline.m, tw.id2ada_prompt_encoder)
+    # text2video is served (random motion modules from seed 0 when none are
+    # given); flux stays refused by name
+    video = AdaFaceWrapper("text2video", tw.pipeline.m, tw.id2ada_prompt_encoder)
+    assert type(video.pipeline).__name__ == "VideoPipeline"
+    with pytest.raises(NotImplementedError, match="flux"):
+        AdaFaceWrapper("flux", tw.pipeline.m, tw.id2ada_prompt_encoder)
 
 
 @pytest.mark.parametrize("scheduler,steps", [("dpm++", 4), ("pndm", 5), ("lcm", 3)])
