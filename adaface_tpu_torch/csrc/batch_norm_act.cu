@@ -31,6 +31,12 @@
 // its own. A map of one chunk skips partials and ticket: its block's sums
 // are the map's.
 //
+// Sums mode (sync-BN, `_stats_kernel`'s psum over `axis_name`): given
+// `sums`, the fold writes the fp64 per-channel sums of x and x^2 there
+// (sums[ch], sums[C + ch]) in place of mean and rstd, the same fold in the
+// same order; the wrapper adds the ranks' sums and the row counts, then
+// forms mean and rstd as the fold does.
+//
 // What bounds it: memory. The statistics read x once (two flops an element);
 // one block an SM with 16-byte loads streams at 2.5-2.9 TB/s on an H100, and
 // a ring of bulk copies (TMA) into shared memory measured no faster. What is
@@ -105,8 +111,8 @@ __device__ __forceinline__ int64_t sum_rows(const T* __restrict__ xc, int64_t r,
 template <int V>
 __device__ __forceinline__ void finish_stats(float (&s)[V], float (&q)[V], double* smem_d,
                                              float* psum, float* psq, float* __restrict__ stats,
-                                             unsigned int* ticket, int64_t rows, int c, int lanes,
-                                             float eps) {
+                                             double* __restrict__ sums, unsigned int* ticket,
+                                             int64_t rows, int c, int lanes, float eps) {
   float* red = reinterpret_cast<float*>(smem_d);
   __shared__ bool is_last;
   const int tid = threadIdx.x, threads = blockDim.x;
@@ -147,7 +153,10 @@ __device__ __forceinline__ void finish_stats(float (&s)[V], float (&q)[V], doubl
       b += red_q[k * tile_c + i];
     }
     if (ch < c) {
-      if (chunks == 1) {  // the block's sums are the map's: no partials, no ticket
+      if (chunks == 1 && sums) {
+        sums[ch] = (double)a;
+        sums[c + ch] = (double)b;
+      } else if (chunks == 1) {  // the block's sums are the map's: no partials, no ticket
         const double mean = (double)a / (double)rows;
         const double var = (double)b / (double)rows - mean * mean;
         stats[ch] = (float)mean;
@@ -225,7 +234,10 @@ __device__ __forceinline__ void finish_stats(float (&s)[V], float (&q)[V], doubl
         }
         __syncthreads();
       }
-      if (on && kl == 0) {
+      if (on && kl == 0 && sums) {
+        sums[ch] = fold_s[fc];
+        sums[c + ch] = fold_q[fc];
+      } else if (on && kl == 0) {
         const double mean = fold_s[fc] / (double)rows;
         const double var = fold_q[fc] / (double)rows - mean * mean;
         stats[ch] = (float)mean;
@@ -238,12 +250,12 @@ __device__ __forceinline__ void finish_stats(float (&s)[V], float (&q)[V], doubl
 // One launch: per-chunk sums, then the last block's fold (see the header).
 // grid (chunks, channel tiles of lanes * V channels); dynamic shared memory
 // as `finish_stats` wants it. psum/psq [chunks, C]; stats [2, C]: mean, then
-// rstd.
+// rstd; or, with `sums`, the fp64 sums [2, C] there and stats untouched.
 template <typename T, int V>
 __global__ void __launch_bounds__(kStatsMaxThreads)
 bn_stats_kernel(const T* __restrict__ x, float* psum, float* psq, float* __restrict__ stats,
-                unsigned int* ticket, int64_t rows, int c, int64_t rows_per_chunk, int lanes,
-                float eps) {
+                double* __restrict__ sums, unsigned int* ticket, int64_t rows, int c,
+                int64_t rows_per_chunk, int lanes, float eps) {
   extern __shared__ double smem_d[];
   const int tid = threadIdx.x;
   const int row_lanes = blockDim.x / lanes;
@@ -264,13 +276,14 @@ bn_stats_kernel(const T* __restrict__ x, float* psum, float* psq, float* __restr
     r = sum_rows<T, V, 2>(xc, r, r1, step, c, s, q);
     sum_rows<T, V, 1>(xc, r, r1, step, c, s, q);
   }
-  finish_stats<V>(s, q, smem_d, psum, psq, stats, ticket, rows, c, lanes, eps);
+  finish_stats<V>(s, q, smem_d, psum, psq, stats, sums, ticket, rows, c, lanes, eps);
 }
 
 template <typename T, int V>
-cudaError_t launch_stats(const void* x, float* partial, float* stats, unsigned int* ticket,
-                         int64_t rows, int c, int chunks, int64_t rows_per_chunk, int threads,
-                         int lanes, float eps, cudaStream_t s) {
+cudaError_t launch_stats(const void* x, float* partial, float* stats, double* sums,
+                         unsigned int* ticket, int64_t rows, int c, int chunks,
+                         int64_t rows_per_chunk, int threads, int lanes, float eps,
+                         cudaStream_t s) {
   const int tile_c = lanes * V;
   const int ctiles = (c + tile_c - 1) / tile_c;
   if (ctiles > 65535) return cudaErrorInvalidValue;
@@ -279,8 +292,8 @@ cudaError_t launch_stats(const void* x, float* partial, float* stats, unsigned i
   const size_t smem = sum_bytes > fold_bytes ? sum_bytes : fold_bytes;
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   bn_stats_kernel<T, V><<<dim3((unsigned)chunks, (unsigned)ctiles), threads, smem, s>>>(
-      static_cast<const T*>(x), partial, partial + (int64_t)chunks * c, stats, ticket, rows, c,
-      rows_per_chunk, lanes, eps);
+      static_cast<const T*>(x), partial, partial + (int64_t)chunks * c, stats, sums, ticket, rows,
+      c, rows_per_chunk, lanes, eps);
   return cudaGetLastError();
 }
 
@@ -323,15 +336,17 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // x: [rows, c] contiguous; partial: 2*chunks*c floats of scratch; stats:
-// 2*c floats out (mean, then rstd); ticket: kTickets counters at 0 that no
+// 2*c floats out (mean, then rstd); sums: null, or 2*c doubles out (the
+// per-channel sums of x, then of x^2; stats is then not written); ticket:
+// kTickets counters at 0 that no
 // other stream uses (the kernel leaves them at 0). Geometry from the wrapper's plan:
 // `chunks` blocks along the rows, each on `chunk_rows` rows, `threads` a
 // block (a multiple of 32), `lanes` of them side by side on a row, each on
 // `vec` channels: 4 fp32 or 8 bf16 (x 16-byte aligned, c a multiple), or 1,
 // the scalar instance.
-extern "C" int bn_stats(const void* x, float* partial, float* stats, void* ticket, int64_t rows,
-                        int c, int chunks, int64_t chunk_rows, int threads, int lanes, int vec,
-                        float eps, int is_bf16, void* stream) {
+extern "C" int bn_stats(const void* x, float* partial, float* stats, double* sums, void* ticket,
+                        int64_t rows, int c, int chunks, int64_t chunk_rows, int threads,
+                        int lanes, int vec, float eps, int is_bf16, void* stream) {
   const int pack = is_bf16 ? 8 : 4;
   if (rows < 1 || c < 1 || chunks < 1 || chunk_rows < 1 || chunks * chunk_rows < rows ||
       threads < 32 || threads > kStatsMaxThreads ||
@@ -342,15 +357,15 @@ extern "C" int bn_stats(const void* x, float* partial, float* stats, void* ticke
   unsigned int* t = static_cast<unsigned int*>(ticket);
   cudaError_t err;
   if (is_bf16)
-    err = vec == 1 ? launch_stats<__nv_bfloat16, 1>(x, partial, stats, t, rows, c, chunks,
+    err = vec == 1 ? launch_stats<__nv_bfloat16, 1>(x, partial, stats, sums, t, rows, c, chunks,
                                                     chunk_rows, threads, lanes, eps, s)
-                   : launch_stats<__nv_bfloat16, 8>(x, partial, stats, t, rows, c, chunks,
+                   : launch_stats<__nv_bfloat16, 8>(x, partial, stats, sums, t, rows, c, chunks,
                                                     chunk_rows, threads, lanes, eps, s);
   else
-    err = vec == 1 ? launch_stats<float, 1>(x, partial, stats, t, rows, c, chunks, chunk_rows,
-                                            threads, lanes, eps, s)
-                   : launch_stats<float, 4>(x, partial, stats, t, rows, c, chunks, chunk_rows,
-                                            threads, lanes, eps, s);
+    err = vec == 1 ? launch_stats<float, 1>(x, partial, stats, sums, t, rows, c, chunks,
+                                            chunk_rows, threads, lanes, eps, s)
+                   : launch_stats<float, 4>(x, partial, stats, sums, t, rows, c, chunks,
+                                            chunk_rows, threads, lanes, eps, s);
   return (int)err;
 }
 

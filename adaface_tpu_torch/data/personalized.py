@@ -9,16 +9,17 @@ the same RandomState:
   types;
 - per item: RGB load → pad to square → NEAREST resize → random hflip →
   random downscale into the canvas in [0.4, 1] + random roll shift, with an
-  aug_mask recording the pixels the image covers (`_augment_numpy`, the
-  JAX package's numpy path; its C++ path gives the same pixels and is not
-  ported);
+  aug_mask recording the pixels the image covers, through the port's host
+  library (`native.prepare_item`; `augment_numpy`, the JAX package's numpy
+  path, is its plain reference, the same bits);
 - the 20 training prompt variants built around the subject placeholder
   with ", " filler expansion (`generate_prompts`);
 - `SubjectSampler`: image-count-weighted subject sampling, skipping
   non-face subjects, one subject per batch.
 
-Images are read by `utils/image.py` (PNG only: the card's machine has no
-PIL); another format raises with its path.
+Images are read by `utils/image.read_image` (PNG, JPEG, BMP: the card's
+machine has no PIL); another format (WebP among the listed extensions)
+raises with its path.
 """
 
 from __future__ import annotations
@@ -30,9 +31,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from adaface_tpu_torch import native
 from adaface_tpu_torch.data.compositions import sample_compositions
-from adaface_tpu_torch.utils.image import (pad_to_square, read_png, resize_nearest_pil, to_grey,
-                                           to_rgb)
+from adaface_tpu_torch.utils.image import (pad_to_square, read_image, resize_nearest_pil,
+                                           to_grey, to_rgb)
 
 IMG_EXTS = {".jpg", ".jpeg", ".png", ".webp", ".bmp"}
 
@@ -185,7 +187,9 @@ class PersonalizedBase:
     def _augment(self, img: np.ndarray, fg_mask: np.ndarray | None):
         """hflip + random downscale-into-canvas + random roll shift →
         (image [H, W, 3] float32 in [-1, 1], fg_mask [H, W], aug_mask [H, W]);
-        the decisions are drawn first, in the JAX package's order."""
+        the decisions are drawn first, in the JAX package's order, then the
+        pixels go through the host library's `prepare_item` (a library
+        that cannot be built or loaded raises)."""
         s = self.size
         do_flip = self.rng.rand() < self.flip_p
         scale = (self.rng.uniform(*self.scale_range)
@@ -196,41 +200,7 @@ class PersonalizedBase:
             dx = int(self.rng.randint(-max_shift, max_shift + 1))
         else:
             dy = dx = 0
-        return self._augment_numpy(img, fg_mask, do_flip, scale, dy, dx)
-
-    def _augment_numpy(self, img, fg_mask, do_flip, scale, dy, dx):
-        s = self.size
-        aug_mask = np.ones((s, s), np.float32)
-        if fg_mask is None:
-            fg_mask = np.ones((s, s), np.float32)
-
-        if do_flip:
-            img = img[:, ::-1]
-            fg_mask = fg_mask[:, ::-1]
-
-        if scale < 0.999:
-            # floor-convention nearest resize (as ops/resize.py; PIL's
-            # NEAREST samples elsewhere)
-            ns = max(int(s * scale), 8)
-            idx = (np.arange(ns) * s // ns).astype(np.int64)
-            small = img[idx][:, idx]
-            small_m = fg_mask[idx][:, idx]
-            canvas = np.zeros((s, s, 3), img.dtype)
-            mcanvas = np.zeros((s, s), np.float32)
-            acanvas = np.zeros((s, s), np.float32)
-            off = (s - ns) // 2
-            canvas[off:off + ns, off:off + ns] = small
-            mcanvas[off:off + ns, off:off + ns] = small_m
-            acanvas[off:off + ns, off:off + ns] = 1.0
-            img, fg_mask, aug_mask = canvas, mcanvas, acanvas
-
-        if dy != 0 or dx != 0:
-            img = np.roll(np.roll(img, dy, axis=0), dx, axis=1)
-            fg_mask = np.roll(np.roll(fg_mask, dy, axis=0), dx, axis=1)
-            aug_mask = np.roll(np.roll(aug_mask, dy, axis=0), dx, axis=1)
-
-        imgf = img.astype(np.float32) / 127.5 - 1.0
-        return imgf, fg_mask, aug_mask
+        return native.prepare_item(img, fg_mask, s, do_flip, scale, dy, dx)
 
     def __getitem__(self, index) -> dict:
         if isinstance(index, tuple):
@@ -240,11 +210,12 @@ class PersonalizedBase:
         subj = self.subjects[si]
         path = subj.image_paths[ii]
         size = (self.size, self.size)
-        img = resize_nearest_pil(pad_to_square(to_rgb(read_png(path))), size)
+        img = resize_nearest_pil(pad_to_square(to_rgb(read_image(path))), size)
 
         fg_mask = None
         if subj.mask_paths[ii] is not None:
-            m = resize_nearest_pil(pad_to_square(to_grey(read_png(subj.mask_paths[ii]))), size)
+            m = resize_nearest_pil(pad_to_square(to_grey(read_image(subj.mask_paths[ii]))),
+                                   size)
             fg_mask = (m > 127).astype(np.float32)
 
         image, fg_mask, aug_mask = self._augment(img, fg_mask)
@@ -313,6 +284,43 @@ class PersonalizedBase:
         e["compos_partial_prompt"] = compos_partial
         e["mod_compos_partial_prompt"] = mod_compos
         e["prompt_modifier"] = modifier
+
+
+def augment_numpy(img: np.ndarray, fg_mask: np.ndarray | None, s: int, do_flip: bool,
+                  scale: float, dy: int, dx: int):
+    """The plain reference of `native.prepare_item` (the JAX package's numpy
+    path): the same decisions give the same bits."""
+    aug_mask = np.ones((s, s), np.float32)
+    if fg_mask is None:
+        fg_mask = np.ones((s, s), np.float32)
+
+    if do_flip:
+        img = img[:, ::-1]
+        fg_mask = fg_mask[:, ::-1]
+
+    if scale < 0.999:
+        # floor-convention nearest resize (as ops/resize.py; PIL's
+        # NEAREST samples elsewhere)
+        ns = max(int(s * scale), 8)
+        idx = (np.arange(ns) * s // ns).astype(np.int64)
+        small = img[idx][:, idx]
+        small_m = fg_mask[idx][:, idx]
+        canvas = np.zeros((s, s, 3), img.dtype)
+        mcanvas = np.zeros((s, s), np.float32)
+        acanvas = np.zeros((s, s), np.float32)
+        off = (s - ns) // 2
+        canvas[off:off + ns, off:off + ns] = small
+        mcanvas[off:off + ns, off:off + ns] = small_m
+        acanvas[off:off + ns, off:off + ns] = 1.0
+        img, fg_mask, aug_mask = canvas, mcanvas, acanvas
+
+    if dy != 0 or dx != 0:
+        img = np.roll(np.roll(img, dy, axis=0), dx, axis=1)
+        fg_mask = np.roll(np.roll(fg_mask, dy, axis=0), dx, axis=1)
+        aug_mask = np.roll(np.roll(aug_mask, dy, axis=0), dx, axis=1)
+
+    imgf = img.astype(np.float32) / 127.5 - 1.0
+    return imgf, fg_mask, aug_mask
 
 
 class SubjectSampler:

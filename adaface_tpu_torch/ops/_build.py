@@ -157,7 +157,9 @@ def load_library() -> ctypes.CDLL:
     lib.gn_bwd_dx.restype = i32
     # x, partial, stats, ticket, rows, C, chunks, chunk rows, threads, lanes, vec, eps, bf16,
     # stream
-    lib.bn_stats.argtypes = [p, p, p, p, i64, i32, i32, i64, i32, i32, i32, f32, i32, p]
+    # x, partial, stats, sums (or null), ticket, rows, c, chunks, chunk rows, threads, lanes,
+    # vec, eps, bf16, stream
+    lib.bn_stats.argtypes = [p, p, p, p, p, i64, i32, i32, i64, i32, i32, i32, f32, i32, p]
     lib.bn_stats.restype = i32
     lib.bn_norm_act.argtypes = [p, p, p, p, p, p, i64, i32, f32, i32, p]
     lib.bn_norm_act.restype = i32

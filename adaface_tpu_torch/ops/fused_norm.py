@@ -23,8 +23,16 @@ PyTorch, as the JAX backward was XLA. For slope ≠ 0 it keeps only
 does. For slope = 0 the activation cannot be inverted: the JAX package's
 inversion loses every clipped unit and passes the gradient through the
 clipped −0.0. Here the forward then also keeps x, and the backward is the
-true ReLU gradient, the autodiff of the JAX forward. Sync-BN (`axis_name`)
-is not ported.
+true ReLU gradient, the autodiff of the JAX forward.
+
+Sync-BN: `fused_bn_act(..., group=)` is JAX's `axis_name`. The forward adds
+the per-channel Σx and Σx² and the row counts of the group's ranks before
+forming mean and rstd (on the card `bn_stats` writes its fp64 folded sums,
+`bn_stats_sums`, and the fold to mean and rstd follows the reduction); the
+backward adds Σdz and Σdz·x̂ likewise (`fused_norm.py:142-160`). It returns
+each rank's own share of the scale's and bias's gradients, as
+`torch.nn.SyncBatchNorm` does: a data-parallel step sums them with the other
+parameters' (`parallel.mesh.all_reduce_grads`).
 """
 
 from __future__ import annotations
@@ -33,10 +41,12 @@ import dataclasses
 import functools
 
 import torch
+import torch.distributed as dist
 
 from adaface_tpu_torch.ops import _build
 
 BN_STATS = "bn_stats"
+BN_STATS_SUMS = "bn_stats[sums]"  # the same kernel writing its fp64 sums (sync-BN)
 BN_NORM_ACT = "bn_norm_act"
 STATS_THREADS = 512  # the largest statistics block, which is also the source's limit
 STATS_DEEP_ROWS = 16  # rows a thread of such a block must have; else the block is halved
@@ -200,10 +210,10 @@ def bn_partials_chunked(x2, plan: BnPlan):
     return psum, psq
 
 
-def bn_finalize_chunked(psum, psq, r: int, eps: float, klanes: int):
-    """The last block's fold in plain PyTorch: `klanes` threads a channel each
-    add every klanes-th chunk in index order in fp64, the klanes sums fold by
-    halves, then mean and rstd in fp64, rounded to fp32."""
+def bn_fold_chunked(psum, psq, klanes: int):
+    """The last block's fold in plain PyTorch → the fp64 sums [2, C]:
+    `klanes` threads a channel each add every klanes-th chunk in index order
+    in fp64, the klanes sums fold by halves."""
     def fold(part):
         k, c = part.shape
         steps = -(-k // klanes)
@@ -215,9 +225,25 @@ def bn_finalize_chunked(psum, psq, r: int, eps: float, klanes: int):
             acc = acc + padded[i]
         return _tree(acc)
 
-    mean = fold(psum) / r
-    var = fold(psq) / r - mean * mean
+    return torch.stack([fold(psum), fold(psq)])
+
+
+def bn_finalize_sums(sums, r, eps: float):
+    """fp64 sums [2, C] of r rows → (mean, rstd) in fp64, rounded to fp32, as
+    the kernel's fold forms them."""
+    mean = sums[0] / r
+    var = sums[1] / r - mean * mean
     return mean.float(), (1.0 / torch.sqrt(var + eps)).float()
+
+
+def bn_finalize_chunked(psum, psq, r: int, eps: float, klanes: int):
+    """The last block's fold and its mean and rstd in plain PyTorch."""
+    return bn_finalize_sums(bn_fold_chunked(psum, psq, klanes), r, eps)
+
+
+def bn_sums_chunked(x2, plan: BnPlan):
+    """`bn_stats_sums` in plain PyTorch: the kernel's chunk sums and fold."""
+    return bn_fold_chunked(*bn_partials_chunked(x2, plan), plan.klanes)
 
 
 def bn_stats_chunked(x2, eps: float, plan: BnPlan):
@@ -272,21 +298,36 @@ def bn_stats(x2, eps: float, plan: BnPlan | None = None):
     the block of a tile that finishes last folds the tile's chunks in index
     order, so the statistics repeat bit for bit from run to run."""
     _check(x2)
+    stats = torch.empty((2, x2.shape[1]), dtype=torch.float32, device=x2.device)
+    _launch_stats(x2, eps, plan, stats, None)
+    _build.count(BN_STATS)
+    return stats[0], stats[1]
+
+
+def bn_stats_sums(x2, plan: BnPlan | None = None):
+    """Kernel `bn_stats` in its sums mode on CUDA x2 [R, C] → the per-channel
+    Σx and Σx², [2, C] fp64: the same launch and fold as `bn_stats`, which
+    stops before mean and rstd (sync-BN adds the ranks' sums first)."""
+    _check(x2)
+    sums = torch.empty((2, x2.shape[1]), dtype=torch.float64, device=x2.device)
+    _launch_stats(x2, 0.0, plan, None, sums)
+    _build.count(BN_STATS_SUMS)
+    return sums
+
+
+def _launch_stats(x2, eps, plan, stats, sums):
     r, c = x2.shape
     plan = plan or plan_for(x2)
     stream = torch.cuda.current_stream().cuda_stream
     ticket = _ticket(x2.device, stream)
-    stats = torch.empty((2, c), dtype=torch.float32, device=x2.device)
     # one chunk: the block's sums are the map's, and the kernel writes no partials
-    partial = stats if plan.chunks == 1 else torch.empty(
+    partial = (stats if stats is not None else sums) if plan.chunks == 1 else torch.empty(
         (2, plan.chunks, c), dtype=torch.float32, device=x2.device)
     rc = _build.load_library().bn_stats(
-        x2.data_ptr(), partial.data_ptr(), stats.data_ptr(), ticket, r, c, plan.chunks,
-        plan.chunk_rows, plan.threads, plan.lanes, plan.vec, float(eps),
-        int(x2.dtype == torch.bfloat16), stream)
-    _build.check(rc, BN_STATS)
-    _build.count(BN_STATS)
-    return stats[0], stats[1]
+        x2.data_ptr(), partial.data_ptr(), None if stats is None else stats.data_ptr(),
+        None if sums is None else sums.data_ptr(), ticket, r, c, plan.chunks, plan.chunk_rows,
+        plan.threads, plan.lanes, plan.vec, float(eps), int(x2.dtype == torch.bfloat16), stream)
+    _build.check(rc, BN_STATS if sums is None else BN_STATS_SUMS)
 
 
 def bn_norm_act(x2, mean, rstd, scale, bias, slope: float):
@@ -307,16 +348,39 @@ def bn_norm_act(x2, mean, rstd, scale, bias, slope: float):
     return y
 
 
+def _group_stats(x2, eps: float, group):
+    """Sync-BN's mean and rstd over the ranks of `group`: the local sums (the
+    kernel's fp64 fold on the card, fp32 as `bn_stats_plain` on the CPU) and
+    row counts added over the ranks, then the fold to mean and rstd."""
+    if x2.device.type == "cpu":
+        xf = x2.float()
+        sums = torch.stack([xf.sum(0), (xf * xf).sum(0)])
+    else:
+        sums = bn_stats_sums(x2)
+    count = torch.tensor([float(x2.shape[0])], dtype=sums.dtype, device=x2.device)
+    dist.all_reduce(sums, group=group)
+    dist.all_reduce(count, group=group)
+    if x2.device.type == "cpu":
+        mean = sums[0] / count
+        return mean, torch.rsqrt(sums[1] / count - mean * mean + eps), count
+    return (*bn_finalize_sums(sums, count, eps), count)
+
+
 class _FusedBNAct(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, scale, bias, slope: float, eps: float):
-        if x2.device.type == "cpu":
+    def forward(ctx, x2, scale, bias, slope: float, eps: float, group=None):
+        count = float(x2.shape[0])
+        if group is not None:
+            mean, rstd, count = _group_stats(x2, eps, group)
+            norm = bn_norm_act_plain if x2.device.type == "cpu" else bn_norm_act
+            y = norm(x2, mean, rstd, scale, bias, slope)
+        elif x2.device.type == "cpu":
             mean, rstd = bn_stats_plain(x2, eps)
             y = bn_norm_act_plain(x2, mean, rstd, scale, bias, slope)
         else:
             mean, rstd = bn_stats(x2, eps)
             y = bn_norm_act(x2, mean, rstd, scale, bias, slope)
-        ctx.slope = slope
+        ctx.slope, ctx.group, ctx.count = slope, group, count
         # the "in-place" residuals; x only where the activation is not invertible
         ctx.save_for_backward(y, mean, rstd, scale, bias, x2 if slope == 0 else None)
         ctx.mark_non_differentiable(mean, rstd)
@@ -338,24 +402,32 @@ class _FusedBNAct(torch.autograd.Function):
             dz = torch.where(yf >= 0, gf, gf * slope)
             safe_scale = torch.where(sf.abs() < 1e-12, 1e-12, sf)
             xhat = (z - bias.float()) / safe_scale
-        count = y.shape[0]
+        count = ctx.count
         sum_dz = dz.sum(0)
         sum_dz_xhat = (dz * xhat).sum(0)
+        local = sum_dz, sum_dz_xhat  # this rank's share of the bias's and scale's gradients
+        if ctx.group is not None:
+            sums = torch.stack([sum_dz, sum_dz_xhat])
+            dist.all_reduce(sums, group=ctx.group)
+            sum_dz, sum_dz_xhat = sums[0], sums[1]
+            count = count.float()
         dx = rstd * (dz * sf - sum_dz * sf / count - xhat * sum_dz_xhat * sf / count)
-        return (dx.to(y.dtype), sum_dz_xhat.to(scale.dtype), sum_dz.to(bias.dtype),
-                None, None)
+        return (dx.to(y.dtype), local[1].to(scale.dtype), local[0].to(bias.dtype),
+                None, None, None)
 
 
-def fused_bn_act_stats(x, scale, bias, slope: float = 0.01, eps: float = 1e-5):
-    """Train-mode BN + leaky-ReLU over the last axis → (y, mean, rstd).
+def fused_bn_act_stats(x, scale, bias, slope: float = 0.01, eps: float = 1e-5, group=None):
+    """Train-mode BN + leaky-ReLU over the last axis → (y, mean, rstd); with
+    a process `group`, sync-BN over its ranks' rows.
 
     x [..., C] must view as a contiguous [R, C]: this raises on any other
     layout rather than copy it."""
     x2 = x.view(-1, x.shape[-1])
-    y, mean, rstd = _FusedBNAct.apply(x2, scale, bias, float(slope), float(eps))
+    y, mean, rstd = _FusedBNAct.apply(x2, scale, bias, float(slope), float(eps), group)
     return y.view(x.shape), mean, rstd
 
 
-def fused_bn_act(x, scale, bias, slope: float = 0.01, eps: float = 1e-5):
-    """Train-mode BN + leaky-ReLU over the last axis of x [..., C]."""
-    return fused_bn_act_stats(x, scale, bias, slope, eps)[0]
+def fused_bn_act(x, scale, bias, slope: float = 0.01, eps: float = 1e-5, group=None):
+    """Train-mode BN + leaky-ReLU over the last axis of x [..., C]; with a
+    process `group` (JAX's `axis_name`), sync-BN over its ranks."""
+    return fused_bn_act_stats(x, scale, bias, slope, eps, group)[0]

@@ -21,6 +21,9 @@ half of the reference's `calc_comp_feat_distill_loss`,
   and sharp (`var_of_laplacian`).
 
 Data-dependent choices stay {0, 1} tensor weights, as in the JAX graph.
+Under data parallelism the gates and the face-mask fractions are the global
+batch's (`parallel.collectives`: every instance detected, the least
+confidence, the mean over instances).
 Host detection runs inline on detached copies (`face_detect.detect_faces`:
 one read-back of each set of decodes); the JAX package's three-phase
 choreography for backends without host callbacks is not needed here.
@@ -34,6 +37,7 @@ import torch
 
 from adaface_tpu_torch.models.unet import AttnRuntime
 from adaface_tpu_torch.models.vae import vae_decode
+from adaface_tpu_torch.parallel.collectives import gall, gmean, gmin, gsum
 from adaface_tpu_torch.train.face_detect import detect_faces, map_bboxes_to_latent
 from adaface_tpu_torch.train.face_losses import (bilinear_crop, calc_arcface_align_loss,
                                                  calc_bg_faces_suppress_loss)
@@ -227,8 +231,8 @@ def comp_identity_losses(unet, frozen: Params, detector, x_recons, x_inputs, den
     ss_conf = conf_all[:s_steps * b].reshape(s_steps, b)
     mc_bb, mc_det = fg_bb_all[s_steps * b:], det_all[s_steps * b:]
     # every subject-single instance of the last step confidently detected
-    all_ss = (ss_det[-1].prod()
-              * (ss_conf[-1].min() >= comp_cfg.comp_ss_face_confidence_thres).float())
+    all_ss = (gall(ss_det[-1])
+              * (gmin(ss_conf[-1]) >= comp_cfg.comp_ss_face_confidence_thres).float())
     ss_bb_lat_last = map_bboxes_to_latent(ss_bb[-1], px, hw)
 
     # per step: the subject-comp decode with gradient, its faces, the losses
@@ -246,7 +250,7 @@ def comp_identity_losses(unet, frozen: Params, detector, x_recons, x_inputs, den
         lfg_l.append(lfg)
         lbg_l.append(lbg)
         bga_l.append(bga)
-        g_l.append((det.sum() > 0).float())
+        g_l.append((gsum(det.sum()) > 0).float())
         sc_bb_lat_steps.append(map_bboxes_to_latent(sc_fg_bb, px, hw))
     la_arr, lfg_arr, lbg_arr = torch.stack(la_l), torch.stack(lfg_l), torch.stack(lbg_l)
     lbg_any_arr = torch.stack(bga_l)
@@ -272,7 +276,7 @@ def comp_identity_losses(unet, frozen: Params, detector, x_recons, x_inputs, den
     onehot = torch.nn.functional.one_hot(s_star, s_steps).float() * det_any_at_all
     sc_bb_lat = torch.einsum("s,sbi->bi", onehot, torch.stack(sc_bb_lat_steps))
     sc_fg_mask = _bbox_mask(sc_bb_lat, hw, hw) * det_any_at_all
-    sc_pct = sc_fg_mask.mean()
+    sc_pct = gmean(sc_fg_mask)
 
     # masked-background suppression per step with the s* mask, steps ≤ s*; an
     # undetected step reuses the nearest detected step above it
@@ -292,10 +296,10 @@ def comp_identity_losses(unet, frozen: Params, detector, x_recons, x_inputs, den
     loss_mb = (torch.stack(mb_steps) * mb_w).sum() / (mb_w.sum() + 1e-6)
 
     # the class-comp face mask and the proportion class (`:3284-3330`)
-    mc_all = mc_det.prod()
+    mc_all = gall(mc_det)
     mc_fg_mask = _bbox_mask(map_bboxes_to_latent(mc_bb, px, hw), hw, hw) * mc_all
-    mc_pct = mc_fg_mask.mean()
-    overlap = (sc_fg_mask * mc_fg_mask).sum() / (sc_fg_mask.sum() + 1e-6)
+    mc_pct = gmean(mc_fg_mask)
+    overlap = gsum((sc_fg_mask * mc_fg_mask).sum()) / (gsum(sc_fg_mask.sum()) + 1e-6)
     prop = classify_sc_face_proportion(sc_pct, mc_pct, overlap,
                                        comp_cfg.comp_sc_fg_mask_percent_range)
     metrics.update(sc_fg_mask_percent=sc_pct, mc_fg_mask_percent=mc_pct,
@@ -346,9 +350,9 @@ def comp_identity_losses(unet, frozen: Params, detector, x_recons, x_inputs, den
     with torch.no_grad():
         lap1 = var_of_laplacian(bilinear_crop(ss_px, fg_bb_all[:s_steps * b], 128))
         lap2 = var_of_laplacian(bilinear_crop(ss2_px, ss2_bb, 128))
-    lap1, lap2 = lap1.reshape(s_steps, b).mean(-1), lap2.reshape(s_steps, b).mean(-1)
-    round2_ok = ss2_det_st[-1].prod()
-    good_conf = ss2_conf_st.mean(-1) >= comp_cfg.comp_ss_face_confidence_thres
+    lap1, lap2 = gmean(lap1.reshape(s_steps, b), -1), gmean(lap2.reshape(s_steps, b), -1)
+    round2_ok = gall(ss2_det_st[-1])
+    good_conf = gmean(ss2_conf_st, -1) >= comp_cfg.comp_ss_face_confidence_thres
     is_clear = lap2 >= lap1 * comp_cfg.lap_vars_tolerance
     # no re-denoise where the subject-comp face went undetected (`:3420-3424`)
     repl = (good_conf & is_clear).float() * round2_ok * (1.0 - prop[0])

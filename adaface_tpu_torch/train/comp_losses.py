@@ -32,6 +32,7 @@ from typing import Callable
 import torch
 
 from adaface_tpu_torch.models.gma import backward_warp_by_flow, flow2attn
+from adaface_tpu_torch.parallel.collectives import active_mesh, global_batch_size, gmean, gsum
 def _crop_resize_feat(feat_4d: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] + latent boxes [B, 4] (x0, y0, x1, y1) → the crops resized
     back to [B, C, H, W]: the integer-box slice + `F.interpolate(bilinear,
@@ -69,7 +70,10 @@ def _recon_with_attn(feat: torch.Tensor, prob: torch.Tensor) -> torch.Tensor:
 
 
 def _mean_over_batch_and_tokens(x: torch.Tensor) -> torch.Tensor:
-    return x.mean(dim=(0, 2), keepdim=True)
+    """[B, C, N] → [1, C, 1], the global batch's (no gradient reads it)."""
+    if active_mesh() is None:
+        return x.mean(dim=(0, 2), keepdim=True)
+    return gsum(x.sum(dim=(0, 2), keepdim=True)) / (x.shape[0] * x.shape[2] * active_mesh().dp)
 
 
 def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
@@ -106,7 +110,7 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
     x0, y0, x1, y1 = (sc_face_bboxes[:, i, None, None] * shrink for i in range(4))
     in_face = (xs >= x0) & (xs < x1) & (ys >= y0) & (ys < y1)
     sc_bg_mask_3d = (1.0 - in_face.float()).reshape(b, 1, n)
-    bg_frac = sc_bg_mask_3d.sum() / (b * n) + 1e-5
+    bg_frac = gsum(sc_bg_mask_3d.sum()) / (global_batch_size(b) * n) + 1e-5
 
     def bg_demean(mc, sc):
         scbg = sc * sc_bg_mask_3d
@@ -159,7 +163,7 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
             m_attn, m_flow = margins[name]
             stacked = torch.stack([token_losses["attn_agg"] * m_attn,
                                    token_losses["flow"] * m_flow, token_losses["sameloc"]])
-            loss_min = stacked.min(dim=0).values.mean()
+            loss_min = gmean(stacked.min(dim=0).values)
             # sparse-attention distillation toward the better sparse scheme,
             # weighted by its (detached) advantage; both are the identity
             # without a flow
@@ -176,7 +180,7 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
             weights = torch.sigmoid(5.0 * adv_n)[:, None, :]  # [B, 1, N]
             ens = sparse + sc_attns[name]
             w_sc = torch.einsum("bon,bmn->bom", weights, ens).detach().transpose(1, 2)
-            loss_sparse = ((sparse - sc_attns[name]).abs() * w_sc).mean()
+            loss_sparse = gmean((sparse - sc_attns[name]).abs() * w_sc)
             # the loss scale's cap and the discard gate (`:2706-2737`)
             thres = threses[name]
             raw = loss_min.detach()
@@ -184,7 +188,8 @@ def calc_elastic_matching_loss(ca_q, ca_attn_out, ca_outfeat, h: int, w: int,
             scale = torch.clamp(thres / (raw + 1e-6), max=1.0) * keep
             discard_flags.append(1.0 - keep)
             for k in ("attn_agg", "flow", "sameloc"):
-                accum.setdefault(f"sc_recon_{name}_{k}", []).append(token_losses[k].mean() * scale)
+                accum.setdefault(f"sc_recon_{name}_{k}", []).append(gmean(token_losses[k])
+                                                                    * scale)
             accum.setdefault(f"sc_recon_{name}_min", []).append(loss_min * scale)
             accum.setdefault(f"sc_to_{name}_sparse_attns_distill", []).append(loss_sparse)
     for k, vals in accum.items():
@@ -261,7 +266,7 @@ def calc_sc_rep_attn_distill_loss(ca_layers_activations: dict, subj_mask_1b, pro
     def masked_mse(a, ref, m):
         d = (a - ref.detach()) ** 2
         m = m.expand_as(d)
-        return (d * m).sum() / (m.sum() + 1e-6)
+        return gsum((d * m).sum()) / (gsum(m.sum()) + 1e-6)
 
     for layer, w in layer_weights.items():
         if layer not in attns:
@@ -269,7 +274,7 @@ def calc_sc_rep_attn_distill_loss(ca_layers_activations: dict, subj_mask_1b, pro
         attn = attns[layer].float()
         s = attn.shape[-1]
         _, sc_attn, sc_rep_attn, _ = attn.chunk(4)
-        out["subj_attn"] = out["subj_attn"] + ((sc_attn - sc_rep_attn.detach()) ** 2).mean() \
+        out["subj_attn"] = out["subj_attn"] + gmean((sc_attn - sc_rep_attn.detach()) ** 2) \
             * (s * 10) * w
         ss_k, sc_k, _, mc_k = ca_layers_activations["k"][layer].float().chunk(4)
         ss_v, sc_v, _, mc_v = ca_layers_activations["v"][layer].float().chunk(4)
@@ -296,5 +301,5 @@ def calc_subj_attn_cross_t_diff_loss(ca_layers_activations: dict,
             continue
         d = (cur.float().chunk(4)[1] - fut.float().chunk(4)[1].detach()) ** 2
         mm = m.expand_as(d)
-        total = total + w * 10.0 * (d * mm).sum() / (mm.sum() + 1e-6)
+        total = total + w * 10.0 * gsum((d * mm).sum()) / (gsum(mm.sum()) + 1e-6)
     return total

@@ -31,7 +31,10 @@ branch of `p_losses`, `ddpm.py:1923-2092` and `:3190-3600`), at
 
 Random draws come from `Draws` (`sample_comp_rand`'s, then the
 re-denoise's two), or ride in the batch (`comp_rand`, `redenoise_rand`) as
-the CPU tests hand over JAX's. The JAX package's collect phases and
+the CPU tests hand over JAX's. Under data parallelism the batch is a rank's
+slice: the draws are the global batch's, sliced by their `batch_axis`, the
+first instance's ada embeddings and priming noise the global batch's, and
+every mean and gate of the losses global (`parallel.collectives`). The JAX package's collect phases and
 three-phase runner (`comp_detections_to_batch`, `make_three_phase_comp_step`)
 work around backends without host callbacks and are not ported: detection
 runs inline, as in the recon iteration.
@@ -121,27 +124,29 @@ def _next_t(t: torch.Tensor, rel, p: float) -> torch.Tensor:
 
 
 def sample_comp_rand(draws: Draws, noise: torch.Tensor, schedule: DiffusionSchedule,
-                     cfg: CompDistillConfig) -> Params:
+                     cfg: CompDistillConfig, first_noise: torch.Tensor | None = None) -> Params:
     """The iteration's draws, in this order: the priming start [B, 4, h, w],
     its timestep and CFG scale, the priming noises after the first (the
-    first is `noise[:1]`) [1, 4, h, w] each, the priming relative timesteps
-    [Np − 1], the denoise's timesteps [B], noises [Nd, B, 4, h, w], relative
+    first is the batch's first instance's noise, `first_noise` or
+    `noise[:1]`) [1, 4, h, w] each, the priming relative timesteps [Np − 1],
+    the denoise's timesteps [B], noises [Nd, B, 4, h, w], relative
     timesteps [Nd − 1, B], and the comp FFN adapter's per-step uniforms
     [Nd]."""
     b, sh, dev = noise.shape[0], tuple(noise.shape[1:]), noise.device
     total, n_p, n_d = schedule.num_timesteps, cfg.num_priming_steps, cfg.num_denoising_steps
     lo, hi = cfg.priming_cfg_scale_range
-    rand = {"prime_x0": draws.normal(noise.shape, dev),
+    rand = {"prime_x0": draws.normal(noise.shape, dev, batch_axis=0),
             "prime_t0": draws.integers((), int(cfg.priming_t_range[0] * total),
                                        int(cfg.priming_t_range[1] * total), dev),
             "prime_cfg_scale": lo + (hi - lo) * draws.uniform()}
-    rand["prime_noises"] = torch.stack([noise[:1]] + [draws.normal((1, *sh), dev)
-                                                      for _ in range(n_p - 1)])
+    first = noise[:1] if first_noise is None else first_noise
+    rand["prime_noises"] = torch.stack([first] + [draws.normal((1, *sh), dev)
+                                                  for _ in range(n_p - 1)])
     rand["prime_rel_ts"] = draws.uniforms((max(n_p - 1, 0),), dev)
     rand["den_t0"] = draws.integers((b,), int(cfg.denoise_t_range[0] * total),
-                                    int(cfg.denoise_t_range[1] * total), dev)
-    rand["den_noises"] = draws.normal((n_d, b, *sh), dev)
-    rand["den_rel_ts"] = draws.uniforms((max(n_d - 1, 0), b), dev)
+                                    int(cfg.denoise_t_range[1] * total), dev, batch_axis=0)
+    rand["den_noises"] = draws.normal((n_d, b, *sh), dev, batch_axis=1)
+    rand["den_rel_ts"] = draws.uniforms((max(n_d - 1, 0), b), dev, batch_axis=1)
     rand["den_ffn_gates"] = (draws.uniforms((n_d,), dev) < cfg.p_comp_ffn_lora).float()
     return rand
 
@@ -318,15 +323,18 @@ def comp_distill_loss_fn(params: Params, frozen: Params, batch: Params,
     dev, b = noise.device, noise.shape[0]
     draws = as_draws(draws, dev)
     # every instance takes the first instance's ada embeddings
-    # (`embedding_manager.py:316-320`)
-    ada = compute_ada_embs(params, batch["img_prompt_embs"][:1], cfg).repeat(b, 1, 1)
+    # (`embedding_manager.py:316-320`): the global batch's first, which a
+    # rank's slice carries as `first_img_prompt_embs` (`shard_train_batch`)
+    first = batch.get("first_img_prompt_embs", batch["img_prompt_embs"][:1])
+    ada = compute_ada_embs(params, first, cfg).repeat(b, 1, 1)
     ctx = encode_comp_prompts(frozen, ada, batch, cfg)
     r = comp_cfg.cls_subj_mix_ratio
     ctx4_run = torch.cat([ctx["ss"], ctx["sc"], ctx["sr"], ctx["sc"] * (1.0 - r) + ctx["cc"] * r])
     r_prime = 0.5 + r / 2.0  # priming mixes with 0.8 (`ddpm.py:2398`)
     cc_mix_prime = ctx["sc"] * (1.0 - r_prime) + ctx["cc"] * r_prime
 
-    rand = batch.get("comp_rand") or sample_comp_rand(draws, noise, schedule, comp_cfg)
+    rand = batch.get("comp_rand") or sample_comp_rand(draws, noise, schedule, comp_cfg,
+                                                      batch.get("first_noise"))
     if "comp_x_base" in batch:  # the fg-seeded start replaces the priming noise
         rand = dict(rand, prime_x0=batch["comp_x_base"])
     dt = getattr(torch, comp_cfg.compute_dtype)
@@ -354,8 +362,8 @@ def comp_distill_loss_fn(params: Params, frozen: Params, batch: Params,
         batch_f = batch
         if "redenoise_rand" not in batch:
             sh = (n_steps, b, *noise.shape[1:])
-            batch_f = dict(batch, redenoise_rand={"x": draws.normal(sh, dev),
-                                                  "n": draws.normal(sh, dev)})
+            batch_f = dict(batch, redenoise_rand={"x": draws.normal(sh, dev, batch_axis=1),
+                                                  "n": draws.normal(sh, dev, batch_axis=1)})
         id_loss, aux, id_metrics = comp_identity_losses(
             unet, frozen, detector, x_recons, x_inputs, rand["den_noises"], ts, captured_steps,
             ctx["ss"], ctx["uncond"], subj_mask_1b, batch_f, params.get("attn_lora"),

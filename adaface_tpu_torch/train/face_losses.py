@@ -14,6 +14,8 @@ gradient masks shape the training signal (`embed_image_tensor:89-166`):
   so the face shrinks from the outside without losing identity.
 
 `gradient_mask` is the JAX package's `custom_vjp` as an autograd Function.
+Under data parallelism the means over detected faces divide by the global
+count (`parallel.collectives`).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import os
 
 import numpy as np
 import torch
+
+from adaface_tpu_torch.parallel.collectives import gmean, gsum
 
 RGB_TO_GRAY = (0.299, 0.587, 0.114)
 
@@ -123,14 +127,14 @@ def calc_arcface_align_loss(arcface, ref_images, aligned_images, ref_bboxes, ali
     if ref_emb.shape[0] < emb_center.shape[0]:
         ref_emb = ref_emb.repeat(emb_center.shape[0] // ref_emb.shape[0], 1)
     m = face_detected_mask.float()
-    denom = m.sum() + 1e-6
-    loss_align = ((1.0 - _cos(ref_emb, emb_center)) * m).sum() / denom
-    loss_fg_suppress = ((emb_border ** 2).mean(-1) * m).sum() / denom
+    denom = gsum(m.sum()) + 1e-6
+    loss_align = gsum(((1.0 - _cos(ref_emb, emb_center)) * m).sum()) / denom
+    loss_fg_suppress = gsum(((emb_border ** 2).mean(-1) * m).sum()) / denom
     loss_bg = torch.zeros((), device=aligned_images.device)
     if bg_bboxes is not None and bg_image_idx is not None and len(bg_bboxes):
         bg_emb, _ = embed_face_crops(arcface, aligned_images[bg_image_idx], bg_bboxes,
                                      (-1.0, -1.0))
-        loss_bg = (bg_emb ** 2).mean()
+        loss_bg = gmean(bg_emb ** 2)
     return loss_align, loss_fg_suppress, loss_bg
 
 
@@ -143,8 +147,9 @@ def calc_bg_faces_suppress_loss(arcface, images, bg_bboxes, bg_valid):
     emb, _ = embed_face_crops(arcface, imgs_rep, bg_bboxes.reshape(b * nbg, 4), (-1.0, -1.0))
     per_face = (emb.float() ** 2).mean(-1)
     v = bg_valid.reshape(-1).float()
-    any_valid = (v.sum() > 0).float()
-    loss = (per_face * v).sum() / (v.sum() + 1e-6)
+    n_valid = gsum(v.sum())
+    any_valid = (n_valid > 0).float()
+    loss = gsum((per_face * v).sum()) / (n_valid + 1e-6)
     return loss * any_valid, any_valid
 
 

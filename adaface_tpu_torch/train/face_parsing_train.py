@@ -23,12 +23,16 @@ import dataclasses
 import math
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adaface_tpu_torch import native
 from adaface_tpu_torch.models.bisenet import BiSeNet, build_bisenet
+from adaface_tpu_torch.utils.image import (paste_pad, read_image, resize_nearest_pil,
+                                           to_grey, to_rgb)
 
 IGNORE_LABEL = 255
 LR_MUL_MODULES = ("ffm", "out", "out16", "out32")
@@ -169,42 +173,48 @@ def make_face_parsing_train_step(cfg: FaceParsingTrainConfig, model: BiSeNet, op
 # ---------------------------------------------------------------------------
 
 
-def augment_face_parsing(img: np.ndarray, label: np.ndarray, rng: np.random.Generator,
-                         crop_size: int = 448, scales=(0.75, 1.0, 1.25, 1.5, 1.75, 2.0),
-                         brightness: float = 0.5, contrast: float = 0.5,
-                         saturation: float = 0.5):
-    """RandomScale → RandomCrop → HorizontalFlip → ColorJitter, the
-    composition in `face_dataset.py:34-44` (p_flip=0.5, jitter 0.5), on
-    img [H, W, 3] uint8 and label [H, W] uint8 → (CHW fp32, label uint8)."""
-    from PIL import Image
-
+def draw_face_parsing(rng: np.random.Generator, shape: tuple, crop_size: int = 448,
+                      scales=(0.75, 1.0, 1.25, 1.5, 1.75, 2.0), brightness: float = 0.5,
+                      contrast: float = 0.5, saturation: float = 0.5) -> dict:
+    """The random decisions of `augment_face_parsing` for an image of
+    `shape` [H, W, ...], drawn from `rng` in the order the JAX package
+    draws them: the scale, the crop's corner, the flip, the three jitter
+    factors."""
     scale = float(rng.choice(np.asarray(scales)))
-    w, h = int(img.shape[1] * scale), int(img.shape[0] * scale)
-    im = Image.fromarray(img).resize((w, h), Image.BILINEAR)
-    lb = Image.fromarray(label).resize((w, h), Image.NEAREST)
-
-    # pad if needed, then random crop
-    pad_w, pad_h = max(crop_size - w, 0), max(crop_size - h, 0)
-    if pad_w or pad_h:
-        im2 = Image.new("RGB", (w + pad_w, h + pad_h))
-        im2.paste(im, (0, 0))
-        lb2 = Image.new("L", (w + pad_w, h + pad_h), IGNORE_LABEL)
-        lb2.paste(lb, (0, 0))
-        im, lb, w, h = im2, lb2, w + pad_w, h + pad_h
-    x0 = int(rng.integers(0, w - crop_size + 1))
-    y0 = int(rng.integers(0, h - crop_size + 1))
-    box = (x0, y0, x0 + crop_size, y0 + crop_size)
-    im, lb = im.crop(box), lb.crop(box)
-
-    if rng.random() < 0.5:
-        im = im.transpose(Image.FLIP_LEFT_RIGHT)
-        lb = lb.transpose(Image.FLIP_LEFT_RIGHT)
-
-    arr = np.asarray(im).astype(np.float32)
-    # ColorJitter: brightness/contrast/saturation each ~U[1-r, 1+r]
+    w, h = int(shape[1] * scale), int(shape[0] * scale)
+    x0 = int(rng.integers(0, max(w, crop_size) - crop_size + 1))
+    y0 = int(rng.integers(0, max(h, crop_size) - crop_size + 1))
+    flip = rng.random() < 0.5
     fb = float(rng.uniform(max(0, 1 - brightness), 1 + brightness))
     fc = float(rng.uniform(max(0, 1 - contrast), 1 + contrast))
     fs = float(rng.uniform(max(0, 1 - saturation), 1 + saturation))
+    return dict(size=(w, h), x0=x0, y0=y0, flip=flip, jitter=(fb, fc, fs))
+
+
+def apply_face_parsing(img: np.ndarray, label: np.ndarray, d: dict, crop_size: int = 448):
+    """The pixels of `augment_face_parsing` under the decisions `d`
+    (`draw_face_parsing`). Pillow's BILINEAR resize through the host
+    library (`native.resize_bilinear_pil`); NEAREST, `Image.new` + `paste`,
+    `crop` and `FLIP_LEFT_RIGHT` in numpy (`utils/image.py`), the same bits."""
+    w, h = d["size"]
+    im = native.resize_bilinear_pil(img, (w, h))
+    lb = resize_nearest_pil(label, (w, h))
+
+    # pad if needed, then the crop
+    pad_w, pad_h = max(crop_size - w, 0), max(crop_size - h, 0)
+    if pad_w or pad_h:
+        w, h = w + pad_w, h + pad_h
+        im, lb = paste_pad(im, (w, h)), paste_pad(lb, (w, h), IGNORE_LABEL)
+    x0, y0 = d["x0"], d["y0"]
+    im = im[y0:y0 + crop_size, x0:x0 + crop_size]
+    lb = lb[y0:y0 + crop_size, x0:x0 + crop_size]
+
+    if d["flip"]:
+        im, lb = im[:, ::-1], lb[:, ::-1]
+
+    arr = np.asarray(im).astype(np.float32)
+    # ColorJitter: brightness/contrast/saturation each ~U[1-r, 1+r]
+    fb, fc, fs = d["jitter"]
     arr = arr * fb
     mean = arr.mean()
     arr = (arr - mean) * fc + mean
@@ -218,9 +228,25 @@ def augment_face_parsing(img: np.ndarray, label: np.ndarray, rng: np.random.Gene
     return arr.transpose(2, 0, 1).astype(np.float32), np.asarray(lb, np.uint8)
 
 
+def augment_face_parsing(img: np.ndarray, label: np.ndarray, rng: np.random.Generator,
+                         crop_size: int = 448, scales=(0.75, 1.0, 1.25, 1.5, 1.75, 2.0),
+                         brightness: float = 0.5, contrast: float = 0.5,
+                         saturation: float = 0.5):
+    """RandomScale → RandomCrop → HorizontalFlip → ColorJitter, the
+    composition in `face_dataset.py:34-44` (p_flip=0.5, jitter 0.5), on
+    img [H, W, 3] uint8 and label [H, W] uint8 → (CHW fp32, label uint8),
+    the JAX package's arrays from the same generator."""
+    d = draw_face_parsing(rng, img.shape, crop_size, scales, brightness, contrast, saturation)
+    return apply_face_parsing(img, label, d, crop_size)
+
+
 class FaceMaskDataset:
     """CelebAMask-HQ-style folder pairs: `images/*.jpg` + `labels/*.png`
-    (`face_dataset.py:15-33`)."""
+    (`face_dataset.py:15-33`). `batches` and `eval_batches` prepare a
+    batch's items on a pool of threads (the decoder and the resample run in
+    the host library, which lets go of the GIL) with the draws taken in
+    item order, so a batch holds what `__getitem__` one item at a time
+    gives."""
 
     def __init__(self, root: str, crop_size: int = 448, seed: int = 0):
         self.img_dir = os.path.join(root, "images")
@@ -235,41 +261,49 @@ class FaceMaskDataset:
     def __len__(self):
         return len(self.items)
 
-    def __getitem__(self, i):
-        from PIL import Image
-
+    def load(self, i):
+        """Item i's image [H, W, 3] and label [H, W], uint8."""
         ip, lp = self.items[i]
-        img = np.asarray(Image.open(ip).convert("RGB"))
-        lbl = np.asarray(Image.open(lp).convert("L"))
-        return augment_face_parsing(img, lbl, self.rng, self.crop_size)
+        return to_rgb(read_image(ip)), to_grey(read_image(lp))
+
+    def __getitem__(self, i):
+        return augment_face_parsing(*self.load(i), self.rng, self.crop_size)
 
     def get_eval(self, i):
         """Deterministic (image, label) pair: resize to crop_size with no
         augmentation, the standard segmentation-eval protocol."""
-        from PIL import Image
-
-        ip, lp = self.items[i]
+        img, lbl = self.load(i)
         s = self.crop_size
-        img = Image.open(ip).convert("RGB").resize((s, s), Image.BILINEAR)
-        lbl = Image.open(lp).convert("L").resize((s, s), Image.NEAREST)
-        arr = np.asarray(img).astype(np.float32) / 255.0
+        img = native.resize_bilinear_pil(img, (s, s))
+        lbl = resize_nearest_pil(lbl, (s, s))
+        arr = img.astype(np.float32) / 255.0
         arr = (arr - np.asarray([0.485, 0.456, 0.406])) / np.asarray([0.229, 0.224, 0.225])
         return arr.transpose(2, 0, 1).astype(np.float32), np.asarray(lbl, np.uint8)
 
+    @staticmethod
+    def _pool(batch_size: int) -> ThreadPoolExecutor:
+        return ThreadPoolExecutor(max(1, min(batch_size, len(os.sched_getaffinity(0)))))
+
     def batches(self, batch_size: int, steps: int):
         n = len(self.items)
-        for _ in range(steps):
-            idx = self.rng.integers(0, n, batch_size)
-            pairs = [self[int(i)] for i in idx]
-            yield np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+        with self._pool(batch_size) as pool:
+            for _ in range(steps):
+                idx = [int(i) for i in self.rng.integers(0, n, batch_size)]
+                pairs = list(pool.map(self.load, idx))
+                draws = [draw_face_parsing(self.rng, img.shape, self.crop_size)
+                         for img, _ in pairs]
+                items = list(pool.map(lambda p, d: apply_face_parsing(*p, d, self.crop_size),
+                                      pairs, draws))
+                yield np.stack([p[0] for p in items]), np.stack([p[1] for p in items])
 
     def eval_batches(self, batch_size: int):
         """Sequential full pass, deterministic preprocessing: each image
         seen exactly once, no augmentation."""
-        for start in range(0, len(self.items), batch_size):
-            pairs = [self.get_eval(i)
-                     for i in range(start, min(start + batch_size, len(self.items)))]
-            yield np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+        with self._pool(batch_size) as pool:
+            for start in range(0, len(self.items), batch_size):
+                pairs = list(pool.map(self.get_eval, range(
+                    start, min(start + batch_size, len(self.items)))))
+                yield np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
 
 
 # ---------------------------------------------------------------------------

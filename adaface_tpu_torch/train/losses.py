@@ -13,6 +13,10 @@ mask tensors in place of index tuples:
   and a masked cosine against a gradient-scaled, demeaned reference;
 - `calc_attn_norm_loss`: subject-token attention-score norms of the sc and
   mc halves (comp distillation).
+
+Means over the batch are global under data parallelism: each masked mean
+divides the summed numerators by the summed counts
+(`parallel.collectives.gsum`), a plain mean is `gmean`.
 """
 
 from __future__ import annotations
@@ -20,12 +24,13 @@ from __future__ import annotations
 import torch
 
 from adaface_tpu_torch.ops.resize import resize_bilinear_half_pixel, resize_nearest
+from adaface_tpu_torch.parallel.collectives import gmean, gsum
 from adaface_tpu_torch.utils.tensor import gen_gradient_scaler, ortho_subtract
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     mask = mask.float()
-    return (x.float() * mask).sum() / (mask.sum() + eps)
+    return gsum((x.float() * mask).sum()) / (gsum(mask.sum()) + eps)
 
 
 def calc_recon_loss(noise_pred, noise_gt, img_mask=None, fg_mask=None, instance_weights=None,
@@ -43,7 +48,7 @@ def calc_recon_loss(noise_pred, noise_gt, img_mask=None, fg_mask=None, instance_
     w_fg = (fg_mask * img_mask * fg_pixel_weight).expand_as(err)
     w_bg = ((1.0 - fg_mask) * img_mask * bg_pixel_weight).expand_as(err)
     num = (err * w_fg).sum() + (err * w_bg).sum()
-    return num / (w_fg.sum() + w_bg.sum() + 1e-6)
+    return gsum(num) / (gsum(w_fg.sum() + w_bg.sum()) + 1e-6)
 
 
 def calc_subj_masked_bg_suppress_loss(ca_attn: dict, subj_mask, fg_mask,
@@ -121,8 +126,8 @@ def calc_ref_cosine_loss(delta, ref_delta, emb_mask=None, exponent: float = 2.0,
     per_tok = 1.0 - cos if aim_to_align else torch.relu(cos)
     if emb_mask is not None:
         w = emb_mask.float()
-        return (per_tok * w).sum() / (w.sum() + 1e-6)
-    return per_tok.mean()
+        return gsum((per_tok * w).sum()) / (gsum(w.sum()) + 1e-6)
+    return gmean(per_tok)
 
 
 def calc_prompt_emb_delta_loss(prompt_embeddings, prompt_emb_mask=None,
@@ -156,6 +161,6 @@ def calc_attn_norm_loss(ca_attn_scores: dict, subj_mask, layer_weights: dict | N
         m = subj_mask[:, None, None, :]
         sc_norm = (sc * m).sum(-1) / (m.sum(-1) + 1e-6)
         mc_norm = ((mc * m).sum(-1) / (m.sum(-1) + 1e-6)).detach()
-        total = total + w * ((sc_norm - mc_norm) ** 2).mean()
+        total = total + w * gmean((sc_norm - mc_norm) ** 2)
         wsum += w
     return total / max(wsum, 1e-6)

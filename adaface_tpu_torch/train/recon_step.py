@@ -41,6 +41,11 @@ The UNet computes in `ReconStepConfig.compute_dtype` (bf16 on the card):
 evaluation. Random draws come from `Draws` in this order: the ada
 embeddings' perturbation (three, when `training_perturb_prob` > 0), then
 `sample_recon_rand`'s; a batch may carry `recon_rand` instead.
+
+Under data parallelism (`make_train_step(mesh=)`) the batch is a rank's
+slice: the draws are the global batch's, sliced by their `batch_axis`; the
+face gates and every mean are the global batch's (`parallel.collectives`).
+The adversarial branch is refused there.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 from adaface_tpu_torch.models.unet import AttnRuntime
 from adaface_tpu_torch.models.vae import vae_decode
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
+from adaface_tpu_torch.parallel.collectives import active_mesh, global_batch_size, gmean, gsum
 from adaface_tpu_torch.train.face_detect import (HostFaceDetector, bbox_latent_mask,
                                                  detect_faces, map_bboxes_to_latent)
 from adaface_tpu_torch.train.face_losses import (calc_arcface_align_loss,
@@ -105,12 +111,14 @@ def sample_recon_rand(draws: Draws, x_start: torch.Tensor, schedule: DiffusionSc
     t_total, s = schedule.num_timesteps, cfg.total_steps
     lo, hi = (0.7, 0.9) if cfg.on_pure_noise else (0.5, 0.8)
     return {
-        "t0": draws.integers((b,), int(t_total * lo), int(t_total * hi), dev),
-        "noises": draws.normal((s, *x_start.shape), dev),
-        "rel_ts": draws.uniforms((max(s - 1, 0), b), dev),
-        "x_start0": draws.normal(x_start.shape, dev),
+        "t0": draws.integers((b,), int(t_total * lo), int(t_total * hi), dev, batch_axis=0),
+        "noises": draws.normal((s, *x_start.shape), dev, batch_axis=1),
+        "rel_ts": draws.uniforms((max(s - 1, 0), b), dev, batch_axis=1),
+        "x_start0": draws.normal(x_start.shape, dev, batch_axis=0),
         "adv_uniform": draws.uniform(),
-        "adv_dropout_u": draws.uniforms((min(cfg.adv_bs, b), ARCFACE_DIM), dev),
+        # the first min(adv_bs, B) instances of the global batch
+        "adv_dropout_u": draws.uniforms((min(cfg.adv_bs, global_batch_size(b)), ARCFACE_DIM),
+                                        dev),
     }
 
 
@@ -141,6 +149,10 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
     `sample_recon_rand`)."""
     x_start_in = batch["x_start"]
     dev, b, hw = x_start_in.device, x_start_in.shape[0], x_start_in.shape[-1]
+    if rcfg.do_adv_attack and active_mesh() is not None:
+        raise NotImplementedError(
+            "the recon iteration's adversarial branch under data parallelism: it attacks the "
+            "global batch's first instances (ROADMAP §1 item 5)")
     draws = as_draws(draws, dev)
     ada = compute_ada_embs(params, batch["img_prompt_embs"], cfg)
     if cfg.training_perturb_prob > 0:
@@ -220,7 +232,7 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
         else:
             eps_subj_cfg, eps_cls_cfg = eps_subj, eps_cls
         x_recon = schedule.predict_start_from_noise(x_t, t, eps_subj_cfg)
-        pred_l2s.append((eps_subj_cfg.float() ** 2).mean())
+        pred_l2s.append(gmean(eps_subj_cfg.float() ** 2))
 
         if have_arcface:
             # identity losses on the decoded recon (`:2700-2789`)
@@ -233,7 +245,7 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
                 fg_bb, det, fg_faces_grad_mask_ratios=(1.0, 0.3))
             lbg, bg_any = calc_bg_faces_suppress_loss(frozen["arcface"], recon_px, bg_bb,
                                                       bg_val)
-            g_any = (det.sum() > 0).float()
+            g_any = (gsum(det.sum()) > 0).float()
             thres = rcfg.recon_face_align_loss_thres
             keep = g_any if thres <= 0 else g_any * (la < thres).float()
             align_contribs.append(la * keep)
@@ -242,7 +254,7 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
             stat_gates.append(g_any)
             bg_contribs.append(lbg)
             bg_gates.append(bg_any)
-            det_fracs.append(det.mean())
+            det_fracs.append(gmean(det))
             # instance weight 0.1 where undetected; the whole step's 0.1 when
             # nothing was (`:2736-2768`)
             found = g_any > 0

@@ -45,6 +45,8 @@ from adaface_tpu_torch.id2ada.subj_basis_generator import SubjBasisConfig, SubjB
 from adaface_tpu_torch.models.clip import CLIP_L_TEXT, CLIPTextConfig
 from adaface_tpu_torch.models.unet import AttnRuntime, UNetConfig
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
+from adaface_tpu_torch.parallel.collectives import data_parallel, gmean
+from adaface_tpu_torch.parallel.mesh import ShardedDraws, all_reduce_grads, all_reduce_metrics
 from adaface_tpu_torch.text.embedding_manager import (apply_merge_map,
                                                       distribute_embedding_to_M_tokens,
                                                       splice_ada_embeddings)
@@ -261,7 +263,7 @@ def unet_distill_loss_fn(params: Params, frozen: Params, batch: Params,
         x_t = schedule.q_sample(batch["x_start"], batch["t"], batch["noise"])
         eps = unet(x_t.to(dt), batch["t"], ctx4[:b].to(dt), **lora)
         target = batch["teacher_noise_pred"]
-    loss_distill = ((eps.float() - target.detach().float()) ** 2).mean()
+    loss_distill = gmean((eps.float() - target.detach().float()) ** 2)
     loss_delta = calc_prompt_emb_delta_loss(ctx4, batch.get("prompt_emb_mask"))
     loss = cfg.unet_distill_weight * loss_distill + cfg.prompt_emb_delta_weight * loss_delta
     return loss, {"loss": loss, "loss_unet_distill": loss_distill,
@@ -269,23 +271,36 @@ def unet_distill_loss_fn(params: Params, frozen: Params, batch: Params,
 
 
 def make_train_step(loss_fn: Callable, frozen: Params, schedule: DiffusionSchedule,
-                    cfg: TrainConfig):
+                    cfg: TrainConfig, mesh=None):
     """→ step(state, batch, draws) → (state, metrics): the loss, its
     backward into the trainable parameters, their gradient's global norm
     (before accumulation and clipping), and one `MultiSteps.step()`. The
-    state's modules and optimizer are updated in place."""
+    state's modules and optimizer are updated in place.
+
+    With a `parallel.mesh.Mesh` of dp > 1 ranks, `batch` is this rank's
+    slice (`shard_train_batch`) and the step is the single-device step on
+    the global batch: the loss's means are global (`data_parallel`), its
+    draws are taken for the global batch and sliced (`ShardedDraws`), and
+    the gradients are summed over the ranks before the norm and the
+    optimizer, so every rank moves its parameters alike."""
 
     def step(state: State, batch: Params, draws=None):
         params = trainable_parameters(state.params)
         for p in params:
             p.grad = None
-        loss, metrics = loss_fn(state.params, frozen, batch, schedule, cfg, draws)
+        if mesh is not None and mesh.dp > 1:
+            draws = ShardedDraws(as_draws(draws, batch["x_start"].device), mesh)
+        with data_parallel(mesh):
+            loss, metrics = loss_fn(state.params, frozen, batch, schedule, cfg, draws)
         # the backward of the face models' fp32 convolutions (ArcFace in the
         # recon loss) without TF32, as their forward runs; bf16 ones are unmoved
         with fp32_convolutions():
             loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None and mesh.dp > 1:
+            all_reduce_grads(params, mesh)
+            metrics = all_reduce_metrics(metrics, mesh)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         metrics["grad_norm"] = global_norm(grads)
         state.optimizer.step()
         state.step += 1

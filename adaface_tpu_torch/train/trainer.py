@@ -24,8 +24,18 @@ adapters train and `unet_fp16.safetensors` when the UNet trains), and the
 UNet hot-swap for comp iterations: with `frozen["comp_unet"]` (a state dict
 on the host, `comp_unet_state_dict`) the planner's comp iterations run on
 those weights, copied in place into the frozen UNet before the step and the
-base weights copied back after it, so no second UNet is on the device. Data
-parallelism waits in ROADMAP §1.
+base weights copied back after it, so no second UNet is on the device.
+
+Data parallelism (`cfg.dp`, `parallel/mesh.py`): one process a rank under
+`torchrun`, each on cuda:LOCAL_RANK. Every rank prepares the same global
+batch of `batch_size` from the same seeds (sampler, augmentation,
+`skip_non_faces`, the teacher's chain), takes its slice
+(`shard_train_batch`) and runs the step on it; the step's losses reduce
+over the global batch and the gradients are summed over the ranks before
+clipping and the optimizer, so the ranks hold the same parameters and
+compute the single-device step (unet-distill, recon and comp-distill; the
+recon iteration's adversarial branch is refused under dp > 1). Rank 0 logs
+and writes the checkpoints.
 
 Random draws: each step's from two `torch.Generator`s seeded with
 (cfg.seed, the step's planner seed), one for its batch and one for its loss,
@@ -52,6 +62,7 @@ from adaface_tpu_torch.models.clip import layer_multipliers
 from adaface_tpu_torch.models.vae import vae_encode
 from adaface_tpu_torch.ops.resize import resize_nearest
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
+from adaface_tpu_torch.parallel.mesh import make_mesh, shard_train_batch
 from adaface_tpu_torch.train.checkpoint import load_adaface_ckpt, save_adaface_ckpt
 from adaface_tpu_torch.train.comp_step import CompDistillConfig, make_comp_loss_fn
 from adaface_tpu_torch.train.face_detect import HostFaceDetector
@@ -119,6 +130,9 @@ class TrainerConfig:
     skip_non_faces: bool = False
     p_do_adv_attack: float = 0.0  # on recon-on-image iterations (reference default 0)
     p_recon_ffn_comp_adapter: float | None = None  # None: the planner's 0.25
+    # data-parallel ranks (`torchrun --nproc_per_node dp`); batch_size is the
+    # global batch, split over them
+    dp: int | None = None
 
 
 def img_prompt_embs_to_context(img_prompt_embs: torch.Tensor) -> torch.Tensor:
@@ -144,6 +158,8 @@ class Trainer:
         chain of `HostFaceDetector`); comp_cfg: the comp iteration's config
         (its priming count is the planner's)."""
         self.cfg = cfg
+        self.mesh = make_mesh(cfg.dp) if cfg.dp else None
+        self.is_lead = self.mesh is None or self.mesh.rank == 0  # the rank that logs and saves
         self.comp_cfg = comp_cfg
         self.tcfg = train_cfg
         self.frozen = frozen
@@ -153,6 +169,13 @@ class Trainer:
         self.teacher = teacher
         self.schedule = DiffusionSchedule.create()
         self.device = next(frozen["unet"].parameters()).device
+        if self.mesh is not None:
+            if cfg.batch_size % self.mesh.dp:
+                raise ValueError(f"batch_size {cfg.batch_size} does not split over "
+                                 f"dp={self.mesh.dp} ranks")
+            if self.device.type == "cuda" and self.device != self.mesh.device:
+                raise ValueError(f"rank {self.mesh.rank} holds its model on {self.device}, "
+                                 f"not on its card {self.mesh.device} (LOCAL_RANK)")
         if vae_decoder is not None:
             frozen["vae"] = vae_decoder
         if arcface is not None:
@@ -225,7 +248,8 @@ class Trainer:
                 loss_fn = make_recon_loss_fn(rcfg, self.host_detector)
             else:
                 loss_fn = unet_distill_loss_fn
-            self._steps[key] = make_train_step(loss_fn, self.frozen, self.schedule, self.tcfg)
+            self._steps[key] = make_train_step(loss_fn, self.frozen, self.schedule, self.tcfg,
+                                               mesh=self.mesh)
         return self._steps[key]
 
     # ---------------------------------------------------------- host prep
@@ -454,7 +478,8 @@ class Trainer:
             self._nan_streak += 1
             print(f"WARNING: non-finite loss at step {step} ({flags.iter_type})")
             if self._nan_streak >= 3:
-                self.save(step)
+                if self.is_lead:
+                    self.save(step)
                 raise FloatingPointError(f"loss non-finite for {self._nan_streak} "
                                          "consecutive steps")
         else:
@@ -465,6 +490,8 @@ class Trainer:
         # the comp identity losses' window (`comp_sc_face_detected_frac`)
         if "comp_sc_face_kept_any" in metrics:
             self.face_stats.update("comp_sc_face_kept", float(metrics["comp_sc_face_kept_any"]))
+        if not self.is_lead:
+            return
         self.logger.log_dict(step, {**metrics,
                                     "face_detected_window": self.face_stats.mean("face_detected"),
                                     "iter_type_id": ITER_TYPE_ID[flags.iter_type]})
@@ -484,10 +511,13 @@ class Trainer:
         for step, flags, batch in self._batch_iterator(dataset, num_steps, start_step):
             try:
                 self._hot_swap_unet(flags.use_comp_distill_weights)
-                self.state, metrics = self._get_step(flags)(self.state, batch,
-                                                            self.draws_for(flags, loss=True))
+                step_fn = self._get_step(flags)
+                if self.mesh is not None:
+                    batch = shard_train_batch(batch, self.mesh)
+                self.state, metrics = step_fn(self.state, batch, self.draws_for(flags, loss=True))
             except KeyboardInterrupt:
-                print(f"\ninterrupted at step {step}; checkpoint -> {self.save(step)}")
+                if self.is_lead:
+                    print(f"\ninterrupted at step {step}; checkpoint -> {self.save(step)}")
                 raise
             finally:
                 self._hot_swap_unet(False)

@@ -15,13 +15,15 @@ these follow OpenCV's (5.0) arithmetic on uint8:
   2× reduction is the mean of 2×2 blocks, as OpenCV switches to area
   averaging there.
 
-The training dataset's PIL calls (`adaface_tpu/data/personalized.py`:
-`Image.open(...).convert("RGB" or "L")`, padding to a square, a NEAREST
-resize) are here too, on stdlib `zlib`: `read_png` (8-bit grey, RGB and
-RGBA, non-interlaced, all five row filters; any other file raises with its
-path), `write_png`, `to_rgb` / `to_grey` as PIL converts,
-`pad_to_square` and `resize_nearest_pil`, which samples where PIL's
-NEAREST does. `write_gif` writes an animated GIF (the video pipeline's
+The training data path's PIL calls (`adaface_tpu/data/personalized.py`
+and `train/face_parsing_train.py`: `Image.open(...).convert("RGB" or "L")`,
+padding to a square, NEAREST and BILINEAR resizes, `Image.new` + `paste`)
+are here too: `read_image` (PNG on stdlib `zlib`: 8-bit grey, RGB and RGBA,
+non-interlaced, all five row filters; JPEG and BMP through the port's host
+library; any other file raises with its path), `write_png`, `to_rgb` /
+`to_grey` as PIL converts, `pad_to_square`, `resize_nearest_pil`, which
+samples where PIL's NEAREST does, `resize_bilinear_pil` (Pillow's
+fixed-point resample) and `paste_pad`. `write_gif` writes an animated GIF (the video pipeline's
 `to_gif`, which PIL writes in the JAX package) on a fixed palette.
 """
 
@@ -183,6 +185,27 @@ def read_png(path) -> np.ndarray:
     return rows.reshape(height, width) if bpp == 1 else rows.reshape(height, width, bpp)
 
 
+def read_image(path) -> np.ndarray:
+    """An image file → uint8 [H, W] (grey) or [H, W, 3 or 4], by its magic
+    bytes: PNG (`read_png`), JPEG or BMP (the port's host library,
+    `adaface_tpu_torch.native.decode_image`). `to_rgb` / `to_grey` then give
+    Pillow's convert("RGB") / convert("L"). Another format (WebP, GIF, …), or
+    a variant the decoders do not take, raises a ValueError naming the
+    path."""
+    with open(path, "rb") as f:
+        head = f.read(12)
+    if head[:8] == PNG_SIGNATURE:
+        return read_png(path)
+    if head[:2] in (b"\xff\xd8", b"BM"):
+        from adaface_tpu_torch.native import decode_image
+
+        with open(path, "rb") as f:
+            return decode_image(f.read(), path)
+    kind = "a WebP file" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else \
+        f"magic bytes {head[:4]!r}"
+    raise ValueError(f"{path}: {kind}; the port reads PNG, JPEG and BMP")
+
+
 def write_png(path, img: np.ndarray) -> None:
     """uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA) → an 8-bit
     PNG, every row unfiltered."""
@@ -243,6 +266,72 @@ def resize_nearest_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     """`Image.resize((w, h), Image.NEAREST)` on [H, W(, C)]; size is (w, h)."""
     w, h = size
     return img[_nearest_index(img.shape[0], h)][:, _nearest_index(img.shape[1], w)]
+
+
+PIL_PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point bits of a resample weight
+
+
+def _pil_bilinear_coeffs(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's `precompute_coeffs` with the triangle filter along one axis →
+    (first source index [n_out], int64 weights [n_out, K] in 1/2^22, zero
+    past each window). The support widens by the reduction factor when
+    shrinking; each window's float64 weights are normalised to sum 1, then
+    rounded half away from zero to fixed point (`normalize_coeffs_8bpc`)."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    centre = (np.arange(n_out) + 0.5) * scale
+    # C's (int) truncates toward zero; every operand here is > -1
+    xmin = np.maximum(np.trunc(centre - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(centre + support + 0.5), n_in).astype(np.int64) - xmin
+    taps = np.arange(ksize)
+    x = ((taps[None, :] + xmin[:, None]) - centre[:, None] + 0.5) * (1.0 / filterscale)
+    w = np.where(taps[None, :] < xmax[:, None], np.maximum(1.0 - np.abs(x), 0.0), 0.0)
+    ww = np.zeros(n_out)
+    for k in range(ksize):  # summed in tap order, as the C loop does
+        ww = ww + w[:, k]
+    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
+    fixed = w * float(1 << PIL_PRECISION_BITS)
+    return xmin, np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5)).astype(np.int64)
+
+
+def _pil_pass(img: np.ndarray, first: np.ndarray, w: np.ndarray, axis: int) -> np.ndarray:
+    """One uint8 resample pass along `axis`: Σ_k src[first + k]·w_k from
+    1/2 in fixed point, shifted down, clamped to 0..255."""
+    n = img.shape[axis]
+    shape = [1] * img.ndim
+    shape[axis] = -1
+    acc = np.full(1, 1 << (PIL_PRECISION_BITS - 1), np.int64)
+    src = img.astype(np.int64)
+    for k in range(w.shape[1]):
+        idx = np.minimum(first + k, n - 1)  # taps past the window weigh 0
+        acc = acc + np.take(src, idx, axis=axis) * w[:, k].reshape(shape)
+    return np.clip(acc >> PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """`Image.resize((w, h), Image.BILINEAR)` on uint8 [H, W] or [H, W, 3]
+    (Pillow's `ImagingResample`): a horizontal pass rounded to uint8, then a
+    vertical one; an axis of unchanged size is not resampled. Not OpenCV's
+    bilinear (`resize_linear`): Pillow's triangle widens with the reduction
+    factor."""
+    out_w, out_h = size
+    h, w = img.shape[:2]
+    if out_w != w:
+        img = _pil_pass(img, *_pil_bilinear_coeffs(w, out_w), axis=1)
+    if out_h != h:
+        img = _pil_pass(img, *_pil_bilinear_coeffs(h, out_h), axis=0)
+    return img.copy() if (out_w, out_h) == (w, h) else img
+
+
+def paste_pad(img: np.ndarray, size: tuple[int, int], fill: int = 0) -> np.ndarray:
+    """`Image.new(mode, (w, h), fill)` with `img` pasted at (0, 0): the
+    image padded right and below to `size` (w, h) with `fill`."""
+    w, h = size
+    out = np.full((h, w) + img.shape[2:], fill, np.uint8)
+    out[:img.shape[0], :img.shape[1]] = img
+    return out
 
 
 # the GIF palette: a 6 x 7 x 6 cube of R, G, B levels (252 colours, 4 unused)

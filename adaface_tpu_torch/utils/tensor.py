@@ -16,10 +16,15 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from adaface_tpu_torch.parallel.collectives import gnorm, gstd, to_local
+
 
 class Draws:
     """Standard normal and uniform draws in the order they are taken: from
-    `generator`, or popped from `handed` (arrays, or scalars for uniforms)."""
+    `generator`, or popped from `handed` (arrays, or scalars for uniforms).
+    A draw's `batch_axis` names the axis that runs over the batch's
+    instances: `parallel.mesh.ShardedDraws` takes such a draw for the global
+    batch and keeps a rank's slice; here it changes nothing."""
 
     def __init__(self, generator: torch.Generator | None = None,
                  handed: Sequence | None = None):
@@ -33,7 +38,7 @@ class Draws:
             raise ValueError(f"no handed draw left for {what}")
         return self._handed.pop(0)
 
-    def normal(self, shape, device) -> torch.Tensor:
+    def normal(self, shape, device, batch_axis: int | None = None) -> torch.Tensor:
         """[shape] float32 N(0, 1) on `device`."""
         shape = tuple(shape)
         if self.generator is None:
@@ -52,7 +57,8 @@ class Draws:
         return torch.rand((), generator=self.generator,
                           device=self.generator.device).item()
 
-    def integers(self, shape, low: int, high: int, device) -> torch.Tensor:
+    def integers(self, shape, low: int, high: int, device,
+                 batch_axis: int | None = None) -> torch.Tensor:
         """[shape] int64 uniform in [low, high) on `device`."""
         shape = tuple(shape)
         if self.generator is None:
@@ -64,7 +70,7 @@ class Draws:
         return torch.randint(low, high, shape, generator=self.generator,
                              device=self.generator.device).to(device)
 
-    def uniforms(self, shape, device) -> torch.Tensor:
+    def uniforms(self, shape, device, batch_axis: int | None = None) -> torch.Tensor:
         """[shape] float32 U[0, 1) on `device`."""
         shape = tuple(shape)
         if self.generator is None:
@@ -169,17 +175,19 @@ def anneal_perturb_embedding(draws: Draws, embeddings: torch.Tensor, training_pe
     """Embeddings plus Gaussian noise of a std drawn from an annealed range,
     with probability `perturb_prob` (`anneal_perturb_embedding`,
     `:105-128`). Draws, in order: a uniform for the std, a normal of the
-    embeddings' shape, a uniform against `perturb_prob`."""
+    embeddings' shape (axis 0 the batch's), a uniform against
+    `perturb_prob`. The std and the norms are the global batch's under data
+    parallelism (`parallel.collectives`)."""
     if end_std_range is not None:
         lo = anneal_value(training_percent, 1.0, (begin_std_range[0], end_std_range[0]))
         hi = anneal_value(training_percent, 1.0, (begin_std_range[1], end_std_range[1]))
     else:
         lo, hi = begin_std_range
     std = lo + (hi - lo) * draws.uniform()
-    noise = draws.normal(embeddings.shape, embeddings.device).to(embeddings.dtype)
+    noise = draws.normal(embeddings.shape, embeddings.device, batch_axis=0).to(embeddings.dtype)
     apply = draws.uniform() < perturb_prob
-    noise_std = std * (embeddings.std(unbiased=False) if std_is_relative else 1.0)
+    noise_std = std * (to_local(gstd(embeddings)) if std_is_relative else 1.0)
     out = embeddings + noise * noise_std
     if keep_norm:
-        out = out * (embeddings.norm() / (out.norm() + 1e-8))
+        out = out * to_local(gnorm(embeddings) / (gnorm(out) + 1e-8))
     return out if apply else embeddings

@@ -103,6 +103,23 @@ turns (how the instance's cap was set).
 one SD1.5 512x512, 25-step request of each tree's `chip_smoke.build_server`
 modules (seed 0, generator seed 100), each tree in its own process; the two
 images compared bit for bit.
+
+    python3 chip_compare.py --face-parser-folder PARENT_DIR [CHANGE_DIR]
+
+the face parser's published configuration trained from the JPEG folder of
+`tests/data/images/face_parser` through each tree's
+`chip_smoke.train_face_parser_folder` (steps/sec with the batch's host
+preparation, which it prints), in turns parent, change, change, parent.
+
+    python3 chip_compare.py --dp-faults
+
+the Stage-1 fit of `chip_smoke.train_dp` once more beside two gloo pairs
+with a fault planted in the gradients' all-reduce: the ranks' gradients
+averaged where they are summed ("mean"), and not reduced at all, each rank
+on its own half ("none"); each pair's rank 0 against the single process in
+the distances `train_dp` bounds (the losses, the gradient norms, the
+update's relative L2), so that the bounds sit between the sound fit's
+readings and these.
 """
 
 from __future__ import annotations
@@ -935,7 +952,94 @@ def sd15_bits_turn(path: str) -> None:
     np.save(path, img.float().cpu().numpy())
 
 
+def face_parser_folder_turn() -> None:
+    """One tree's face-parser folder fit; runs with the tree as working
+    directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke as c
+
+    c.require_cuda()
+    c.build_kernels()
+    res = c.train_face_parser_folder(torch.Generator(device="cuda").manual_seed(c.SEED))
+    print(f"face parser folder: {res['steps_per_sec']:.3f} steps/sec, host preparation "
+          f"{', '.join(f'{v * 1e3:.1f}' for v in res['data_secs'])} ms a batch", flush=True)
+
+
+def faulty_fit(fault: str, *args) -> None:
+    """`chip_smoke.dp_fit` with the gradients' all-reduce replaced: "mean"
+    divides the ranks' sum by their number, "none" leaves each rank's own."""
+    import torch
+
+    from adaface_tpu_torch.parallel import mesh as M
+    from adaface_tpu_torch.train import train_step
+
+    import chip_smoke as c
+
+    def reduce(params, mesh):
+        if fault == "mean":
+            M.all_reduce_grads(params, mesh)
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(mesh.dp)
+
+    train_step.all_reduce_grads = reduce
+    c.dp_fit(*args)
+
+
+def dp_faults() -> None:
+    import tempfile
+
+    import torch
+
+    import chip_smoke as c
+
+    card = c.require_cuda()
+    c.build_kernels()
+    c.train_dp(card)  # the sound fit, its readings and bounds
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(c.REPO)) as tmp:
+        data = c.dp_photos(os.path.join(tmp, "photos"))
+        plain = os.path.join(tmp, "plain.pt")
+        syncs = {f: os.path.join(tmp, f"sync_{f}") for f in ("mean", "none")}
+        procs = [(c.dp_fit, (0, 1, None, 0, data, plain, syncs["mean"]))]
+        for fault in ("mean", "none"):
+            port = c.free_port()
+            procs += [(faulty_fit, (fault, r, c.DP_RANKS, "gloo", port, data,
+                                    os.path.join(tmp, f"{fault}{r}.pt"), syncs[fault]))
+                      for r in range(c.DP_RANKS)]
+        ctx = torch.multiprocessing.get_context("spawn")
+        started = [ctx.Process(target=t, args=a) for t, a in procs]
+        for p in started:
+            p.start()
+        for p in started:
+            p.join(c.DP_TIMEOUT_S)
+        if any(p.exitcode != 0 for p in started):
+            for p in started:
+                if p.is_alive():
+                    p.kill()
+            raise AssertionError(f"exit codes {[p.exitcode for p in started]}")
+        ref = torch.load(plain, weights_only=False)
+        for fault in ("mean", "none"):
+            r0, r1 = (torch.load(os.path.join(tmp, f"{fault}{r}.pt"), weights_only=False)
+                      for r in range(c.DP_RANKS))
+            loss, gnorm, upd = c.dp_distance(r0, ref)
+            equal = all(torch.equal(a, b) for a, b in zip(r0["after"], r1["after"]))
+            print(f"dp fault {fault!r} ({card}): rank 0 against one process: losses {loss:.3e} "
+                  f"relative at most (bound {c.DP_LOSS_REL:g}), gradient norms {gnorm:.3e} "
+                  f"(bound {c.DP_GRAD_NORM_REL:g}), update {upd:.3e} relative L2 (bound "
+                  f"{c.DP_UPDATE_REL_L2:g}); the ranks' parameters equal: {equal}; gradient "
+                  f"norms {r0['grad_norms']} against {ref['grad_norms']}", flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--dp-faults":
+        dp_faults()
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--face-parser-folder-turn":
+        face_parser_folder_turn()
+        return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--d64":
         d64_turns()
         return 0
@@ -988,7 +1092,8 @@ def main() -> int:
         gn_bwd_turn()
         return 0
     turn_flag = "--turn"
-    if sys.argv[1:2] in (["--flash-bwd"], ["--flash-bwd-kernels"], ["--gn-bwd"]):
+    if sys.argv[1:2] in (["--flash-bwd"], ["--flash-bwd-kernels"], ["--gn-bwd"],
+                         ["--face-parser-folder"]):
         turn_flag = sys.argv[1] + "-turn"
         del sys.argv[1]
     if len(sys.argv) not in (2, 3):

@@ -148,7 +148,7 @@ Between phases 6 and 7, `serve_speed_modes` runs the pipeline's three speed
 modes on the phase-5 modules: one int8 UNet call kernels against plain and
 against the bf16 call (relative L2, correlation); a small request of each
 mode kernels against plain (ToMe with the kernel run's merges handed to the
-plain run, the merges that differ unhanded counted); 3 requests at 512x512,
+plain run, the merges that differ unhanded counted); 2 requests at 512x512,
 25 steps, guidance 6.0 of the default path, DeepCache at intervals 3 and 5,
 ToMe 0.5, int8, int8 + DeepCache 3, each with its launches by kernel (held
 to the counts its UNet calls give), device time and operations, host time
@@ -204,6 +204,25 @@ by `load_sd_towers` and served, its leaves and pixels held to the source;
 request latency and device time with and without the adapters and under
 the ensemble, the adapters' own device time, the drain's imgs/sec and the
 peak memory, beside the card's name and power limit.
+After `run_tools`, the host data path without PIL and data parallelism:
+`decode_images` decodes every committed fixture of
+`tests/data/images/` (JPEG baseline, extended and progressive at 4:4:4,
+4:2:2, 4:2:0, 4:4:0, grey, restarts, odd sizes; BMP 24-, 32-bit and 8-bit
+paletted, bottom-up and top-down; PNG labels) and holds each to the SHA-256
+of Pillow's pixels recorded beside it, the WebP and CMYK fixtures refused,
+and the item pipeline native against numpy at 512x512, bit for bit;
+`train_face_parser_folder` trains the face parser at its published
+configuration (batch 16, crop 448, fp32) for 3 steps from the JPEG fixtures
+and their PNG labels through `FaceMaskDataset.batches`; after phase 8,
+`train_dp` runs the Stage-1 fit on a folder of JPEG, BMP and PNG photos in
+four processes on the card at once: without a process group, as two gloo
+ranks (`trainer.dp=2`) and as one NCCL rank (`trainer.dp=1`), the ranks
+equal bit for bit, the 2-rank fit within its bounds of the plain one and the
+NCCL fit equal to it bit for bit; before their fit, while the other two
+wait, the gloo ranks run sync-BN, which `check_sync_bn` then holds:
+`fused_bn_act(group=)` over the 2 ranks (half the batch each) against the
+whole batch on one rank at the first seven BN shapes, forward and backward,
+and `bn_stats`' sums mode against its plain version, with its device time.
 Before phase 4, `flash_attention` and `group_norm_silu` are held to record
 their autograd Functions on inputs that require grad, with the backward
 kernels' launches and gradients (`check_autograd_functions`).
@@ -213,7 +232,7 @@ last line is {"ok": true, "device": {...}}.
 
 The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
 checkpoint writers of `tests/torch_sd_layout.py` and the port's CLI twins in
-`scripts/`.
+`scripts/`, and reads the image fixtures of `tests/data/images/`.
 """
 
 from __future__ import annotations
@@ -2011,6 +2030,9 @@ def serve_samplers(wrapper, faces) -> dict:
 
 
 JOINT_BATCH = 4  # 20-token requests (subjects a, b, c and none) through the 8-slot batcher
+# the joint encoder's one-shot requests: 2 of REQUESTS (cut from all 3 to keep
+# the whole run under 750 s)
+JOINT_REQUESTS = REQUESTS[:2]
 # the face path on the card against the CPU, fp32, each part on the card's
 # input: ArcFace and the encoders read ~1e-6 in sound fp32 and the ada
 # embeddings ~4e-4 under TF32 convolutions; the random detector (statistics
@@ -2193,7 +2215,7 @@ def serve_joint(wrapper, faces, gen) -> dict:
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     latencies, images = [], []
-    for i, (subject, prompt) in enumerate(REQUESTS):
+    for i, (subject, prompt) in enumerate(JOINT_REQUESTS):
         t1 = time.perf_counter()
         ada = jw.prepare_adaface_embeddings(images=faces[subject])
         img = jw(prompt, generator=torch.Generator("cuda").manual_seed(100 + i))
@@ -2204,9 +2226,9 @@ def serve_joint(wrapper, faces, gen) -> dict:
                                  f"{None if ada is None else tuple(ada.shape)}")
         images.append(img[0])
     counts = launch_counts()
-    expect_counts(counts, unet_calls=25 * len(REQUESTS), decodes=len(REQUESTS))
-    check_images(images, len(REQUESTS), 512, "joint requests")
-    log(f"joint: {len(REQUESTS)} requests 512x512, 25 steps, 20 ada tokens: "
+    expect_counts(counts, unet_calls=25 * len(JOINT_REQUESTS), decodes=len(JOINT_REQUESTS))
+    check_images(images, len(JOINT_REQUESTS), 512, "joint requests")
+    log(f"joint: {len(JOINT_REQUESTS)} requests 512x512, 25 steps, 20 ada tokens: "
         f"{', '.join(f'{x:.1f}' for x in latencies)} ms (face -> ada included); launches {counts}")
 
     adas = {s: jw.prepare_adaface_embeddings(images=imgs, update_text_encoder=False)
@@ -4023,14 +4045,14 @@ def train_stage2(gen) -> dict:
         per_step = []
         real_make = T.make_train_step
 
-        def make_with_census(loss_fn, *a):
+        def make_with_census(loss_fn, *a, **kw):
             def loss_and_census(*args):
                 loss, metrics = loss_fn(*args)
                 c = collections.Counter()
                 backward_census(loss, c)
                 per_step.append(c)
                 return loss, metrics
-            return real_make(loss_and_census, *a)
+            return real_make(loss_and_census, *a, **kw)
 
         n_sbg = sum(1 for sbg in trainer.state.params["sbg"] for p in sbg.parameters()
                     if p.requires_grad)
@@ -4452,14 +4474,14 @@ def train_stage2_recipes(gen, card: str) -> dict:
         real_make, real_get = T.make_train_step, trainer._get_step
         real_flow = CS.make_latent_flow_fn
 
-        def make_with_census(loss_fn, *a):
+        def make_with_census(loss_fn, *a, **kw):
             def loss_and_census(*args):
                 loss, metrics = loss_fn(*args)
                 c = collections.Counter()
                 backward_census(loss, c)
                 per_step.append(c)
                 return loss, metrics
-            return real_make(loss_and_census, *a)
+            return real_make(loss_and_census, *a, **kw)
 
         def get_step(flags):
             step = real_get(flags)
@@ -4932,7 +4954,9 @@ INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet: dense int8 tensor-core operatio
 INT8_BATCHES = (2, 16)  # a request's CFG batch, the 8-slot batcher's
 INT8_GRAPH = dict(launches=5, reps=3)  # the int8 cases' CUDA-graph timing: ~90 shapes
 JSON_INT8 = "conv 2x320x64x64 -> 320 3x3/1"  # the 64x64 level's resnet convolution
-SPEED_REQUESTS = 3  # timed 512x512, 25-step requests of each mode
+# timed 512x512, 25-step requests of each mode (cut from 3 to keep the whole
+# run under 750 s)
+SPEED_REQUESTS = 2
 # (name, int8, DeepCache interval, ToMe ratio)
 SPEED_MODES = [("deepcache 3", False, 3, 0.0), ("deepcache 5", False, 5, 0.0),
                ("tome 0.5", False, 0, 0.5), ("int8", True, 0, 0.0),
@@ -5305,7 +5329,7 @@ def serve_speed_modes(wrapper, faces, card: str) -> dict:
         if err > IMAGE_TOL:
             raise AssertionError(f"{name} request kernels against plain: error {err}")
 
-    # timed requests: the default path first, then each mode, 3 seeds each
+    # timed requests: the default path first, then each mode, SPEED_REQUESTS seeds each
     speed_request(wrapper, 399, steps=2)
     default, default_lat = [], []
     for i in range(SPEED_REQUESTS):
@@ -5961,8 +5985,459 @@ def run_tools(card: str) -> dict:
     return dict(seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# the host data path without PIL: decoding, the native item pipeline,
+# the face parser on a folder of JPEGs; data-parallel training; sync-BN
+# ---------------------------------------------------------------------------
+
+REPO = pathlib.Path(__file__).resolve().parent
+FIXTURES = REPO / "tests" / "data" / "images"
+FOLDER_STEPS = 3  # face-parser train steps from the JPEG folder
+# (do_flip, scale, dy, dx): the item pipeline's decisions, native against numpy
+PREPARE_CASES = [(False, 1.0, 0, 0), (True, 0.75, 5, -3), (False, 0.93, -64, 40),
+                 (True, 0.4, 17, -9)]
+RESIZE_SIDES = (384, 640, 1024)  # 512x512 at the face parser's scales 0.75, 1.25, 2
+DP_RANKS = 2
+DP_MICRO_STEPS = 4  # 2 updates at the Stage-1 config's accumulation of 2
+DP_TIMEOUT_S = 600  # the fit processes, built and run
+# the 2-rank fit against one process on the same global batch of 4: both bf16
+# through the UNet, at UNet batches 4-8 a rank against 8-16. The largest
+# relative difference of a micro-step's loss and gradient norm, and the
+# SubjBasisGenerator's update (after - before) relative L2. Each bound sits
+# between the sound fit's reading and those of two planted faults of the
+# gradients' all-reduce, averaged or left out (`chip_compare.py --dp-faults`
+# on an H100 80GB HBM3 at 700 W): losses 4.2e-5 against 6.2e-4 and 6.3e-4,
+# gradient norms 7.8e-4 against 0.50 and 0.54, the update 2.3e-3 against 0.34
+# and 0.39.
+DP_LOSS_REL = 2e-4
+DP_GRAD_NORM_REL = 1e-2
+DP_UPDATE_REL_L2 = 3e-2
+SYNC_BN_CASES = BN_CASES[:7]  # the first seven of the face parser's BN shapes
+SYNC_BN_TOL = 1e-4  # fp32: half the rows a rank against all of them on one
+
+
+def sha256_of(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def decode_images(card: str) -> dict:
+    """Every committed fixture of `tests/data/images/` decoded by the port's
+    reader (PNG; JPEG and BMP through the host library), held to the SHA-256
+    of Pillow's pixels recorded beside it, the refused formats raising; the
+    item pipeline native against numpy at 512x512, bit for bit; the host
+    times of both."""
+    from adaface_tpu_torch import native
+    from adaface_tpu_torch.data.personalized import augment_numpy
+    from adaface_tpu_torch.utils.image import read_image, resize_bilinear_pil, to_grey, to_rgb
+
+    t0 = time.perf_counter()
+    native.load_library()
+    log(f"decode: host library {native.library_path().name} built or loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    equal, refused, decode_ms = 0, [], {}
+    for name, want in sorted(digests.items()):
+        path = FIXTURES / name
+        if want.get("rejected"):
+            try:
+                read_image(path)
+            except ValueError as e:
+                refused.append(name)
+                log(f"decode: {name} refused: {e}")
+                continue
+            raise AssertionError(f"decode: {name} should be refused")
+        ms = median_ms(lambda: read_image(path), reps=5, warmup=1)
+        px = read_image(path)
+        px = to_grey(px) if len(want["shape"]) == 2 else to_rgb(px)
+        if list(px.shape) != want["shape"] or sha256_of(px) != want["sha256"]:
+            raise AssertionError(f"decode: {name} {px.shape} differs from Pillow's digest")
+        equal += 1
+        decode_ms[name] = ms
+    jpeg512 = statistics.mean(v for k, v in decode_ms.items() if k.startswith("face_parser/im"))
+    log(f"decode: {equal} of {equal} decoded fixtures equal to Pillow's pixels (SHA-256), "
+        f"{len(refused)} refused; host ms a 512x512 JPEG {jpeg512:.2f}, the others "
+        f"{min(decode_ms.values()):.3f}-{max(decode_ms.values()):.3f}")
+
+    rs = np.random.RandomState(SEED)
+    img = rs.randint(0, 256, (512, 512, 3)).astype(np.uint8)
+    fg = (rs.rand(512, 512) > 0.5).astype(np.float32)
+    for case in PREPARE_CASES:
+        got = native.prepare_item(img, fg, 512, *case)
+        want = augment_numpy(img.copy(), fg.copy(), 512, *case)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"prepare_item native against numpy differs at {case}")
+    native_ms = median_ms(lambda: native.prepare_item(img, fg, 512, *PREPARE_CASES[3]))
+    numpy_ms = median_ms(lambda: augment_numpy(img.copy(), fg.copy(), 512, *PREPARE_CASES[3]))
+    log(f"decode: prepare_item native equal to numpy at 512x512 in {len(PREPARE_CASES)} cases; "
+        f"host ms an item native {native_ms:.3f}, numpy {numpy_ms:.3f} ({card})")
+    resize_ms = {}
+    for side in RESIZE_SIDES:  # the face parser's scales of a 512x512 photo
+        got = native.resize_bilinear_pil(img, (side, side))
+        if not np.array_equal(got, resize_bilinear_pil(img, (side, side))):
+            raise AssertionError(f"resize_bilinear_pil native against numpy differs at {side}")
+        resize_ms[side] = (
+            median_ms(lambda: native.resize_bilinear_pil(img, (side, side))),
+            median_ms(lambda: resize_bilinear_pil(img, (side, side)), reps=3, warmup=1))
+    log("decode: Pillow's BILINEAR from 512x512 native equal to numpy; host ms native / numpy "
+        + ", ".join(f"{k}: {a:.2f} / {b:.2f}" for k, (a, b) in resize_ms.items()) + f" ({card})")
+    return dict(equal=equal, refused=refused, jpeg512_ms=jpeg512, decode_ms=decode_ms,
+                prepare_native_ms=native_ms, prepare_numpy_ms=numpy_ms, resize_ms=resize_ms)
+
+
+def train_face_parser_folder(gen) -> dict:
+    """The face parser trained from a folder at its published configuration
+    (BiSeNet-ResNet18, batch 16, crop 448, fp32): the four 512x512 JPEG
+    fixtures and their PNG labels through `FaceMaskDataset.batches` (decode,
+    Pillow's BILINEAR / NEAREST resizes, crop, flip, jitter in numpy), as
+    `face_parsing_train.main` feeds them; FOLDER_STEPS steps, their losses,
+    the host time of a batch, steps/sec and the memory peak."""
+    from adaface_tpu_torch.models.bisenet import build_bisenet
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.train.face_parsing_train import (
+        FaceMaskDataset, FaceParsingTrainConfig, make_face_parsing_optimizer,
+        make_face_parsing_train_step)
+
+    cfg = FaceParsingTrainConfig()
+    ds = FaceMaskDataset(str(FIXTURES / "face_parser"), crop_size=cfg.crop_size, seed=SEED)
+    model = build_bisenet("cuda", gen)
+    step = make_face_parsing_train_step(cfg, model, make_face_parsing_optimizer(cfg, model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    losses, secs, data_secs = [], [], []
+    batches = ds.batches(cfg.batch_size, FOLDER_STEPS)
+    for _ in range(FOLDER_STEPS):
+        t0 = time.perf_counter()
+        images, labels = next(batches)
+        t1 = time.perf_counter()
+        metrics = step(torch.from_numpy(images).to("cuda"),
+                       torch.from_numpy(labels.astype(np.int64)).to("cuda"))
+        losses.append(metrics["loss"].item())  # syncs
+        data_secs.append(t1 - t0)
+        secs.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    expect_counts(counts, bisenet_forwards=FOLDER_STEPS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    rate = FOLDER_STEPS / sum(secs)
+    log(f"train folder: {len(ds)} JPEG photos with PNG labels, batch {cfg.batch_size} crop "
+        f"{cfg.crop_size}: losses {', '.join(f'{v:.4f}' for v in losses)}; step times "
+        f"{', '.join(f'{v * 1e3:.1f}' for v in secs)} ms, of which the batch's host preparation "
+        f"{', '.join(f'{v * 1e3:.1f}' for v in data_secs)} ms; {rate:.3f} steps/sec with the "
+        f"data; peak device memory {peak_gib:.2f} GiB; launches {counts}")
+    if not all(math.isfinite(v) for v in losses) or images.shape != (
+            cfg.batch_size, 3, cfg.crop_size, cfg.crop_size):
+        raise AssertionError(f"train folder: losses {losses}, batch {images.shape}")
+    return dict(counts=counts, losses=losses, secs=secs, data_secs=data_secs,
+                steps_per_sec=rate, peak_gib=peak_gib)
+
+
+def dp_photos(root: str) -> str:
+    """One subject folder that mixes formats: the four 512x512 JPEG
+    fixtures, two BMP fixtures (24-bit, 8-bit paletted) and two 512x512
+    PNGs written by the port."""
+    import shutil
+
+    from adaface_tpu_torch.utils.image import write_png
+
+    d = os.path.join(root, "subject0")
+    os.makedirs(d)
+    for i, src in enumerate(sorted((FIXTURES / "face_parser" / "images").glob("*.jpg"))):
+        shutil.copy(src, os.path.join(d, f"jpeg{i}.jpg"))
+    for name in ("rgb24.bmp", "paletted8.bmp"):
+        shutil.copy(FIXTURES / name, os.path.join(d, name))
+    rs = np.random.RandomState(SEED + 19)
+    for i in range(2):
+        write_png(os.path.join(d, f"png{i}.png"), rs.randint(0, 256, (512, 512, 3)).astype(np.uint8))
+    return root
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_fit(rank: int, world: int, backend: str | None, port: int, data: str, out: str,
+           sync_bn: str) -> None:
+    """One process of `train_dp`: the Stage-1 fit of TRAIN_CONFIG on `data`
+    over DP_MICRO_STEPS micro-steps, as rank `rank` of `world` over
+    `backend` with `trainer.dp=world`, or without a process group (backend
+    None); its losses and gradient norms (after the ranks' sum), the
+    SubjBasisGenerator before and after, the peak memory, the fit's seconds
+    and the launches, saved to `out`. The gloo
+    ranks first run `sync_bn_rank` on their group (results to
+    `sync_bn`.rankN, then `sync_bn`.done); the other processes wait for it,
+    so that its device times are the card's alone."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    import train_torch
+    from adaface_tpu_torch.ops import _build
+
+    torch.cuda.set_device(0)
+    if backend:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        dist.init_process_group(backend, rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    if backend == "gloo":
+        sync_bn_rank(rank, world, f"{sync_bn}.rank{rank}")
+        if rank == 0:
+            pathlib.Path(f"{sync_bn}.done").touch()
+    else:
+        deadline = time.perf_counter() + DP_TIMEOUT_S
+        while not os.path.exists(f"{sync_bn}.done") and time.perf_counter() < deadline:
+            time.sleep(0.2)
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO)) as tmp:
+        argv = ["--base", str(REPO / TRAIN_CONFIG), "--data_roots", data, "--log_dir", tmp,
+                "--max_steps", str(DP_MICRO_STEPS), "trainer.ckpt_every=0"]
+        cfg, args = train_torch.parse_args(argv + ([f"trainer.dp={world}"] if backend else []))
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        before = [p.detach().float().cpu().clone() for p in trainer.state.optimizer.params]
+        losses, grad_norms = [], []
+        post = trainer._post_step
+
+        def watch(step, flags, metrics):
+            losses.append(float(metrics["loss"]))
+            grad_norms.append(float(metrics["grad_norm"]))
+            post(step, flags, metrics)
+
+        trainer._post_step = watch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, num_steps=DP_MICRO_STEPS, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        after = [p.detach().float().cpu().clone() for p in trainer.state.optimizer.params]
+        torch.save(dict(losses=losses, grad_norms=grad_norms, before=before, after=after,
+                        fit_s=fit_s,
+                        peak=torch.cuda.max_memory_allocated(), counts=launch_counts(),
+                        batch=trainer.cfg.batch_size,
+                        dp=None if trainer.mesh is None else trainer.mesh.dp), out)
+    if backend:
+        dist.destroy_process_group()
+
+
+def run_processes(target, args_list: list, timeout_s: float) -> None:
+    """Start one spawned process per argument tuple, wait for all; a failed
+    or late one stops the others and raises."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_list]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs) or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    bad = [(i, p.exitcode) for i, p in enumerate(procs) if p.exitcode != 0]
+    if bad:
+        raise AssertionError(f"processes failed or ran out of time (index, exit code): {bad}")
+
+
+def update_rel_l2(res: dict, ref: dict) -> float:
+    num = sum(((a - a0) - (b - b0)).pow(2).sum() for a, a0, b, b0 in
+              zip(res["after"], res["before"], ref["after"], ref["before"]))
+    den = sum((b - b0).pow(2).sum() for b, b0 in zip(ref["after"], ref["before"]))
+    return (num / den).sqrt().item()
+
+
+def dp_distance(res: dict, ref: dict) -> tuple[float, float, float]:
+    """A rank's fit against the single process's: the largest relative
+    difference of a micro-step's loss and of its gradient norm, and the
+    update's relative L2."""
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    return (rel(res["losses"], ref["losses"]), rel(res["grad_norms"], ref["grad_norms"]),
+            update_rel_l2(res, ref))
+
+
+def train_dp(card: str) -> dict:
+    """Data-parallel Stage-1 training on the card (its two gloo ranks run
+    `check_sync_bn`'s work first): the fit of TRAIN_CONFIG
+    (global batch 4, accumulation 2) on a subject folder of JPEG, BMP and
+    PNG photos read through the native item pipeline, DP_MICRO_STEPS
+    micro-steps, in four processes on cuda:0 at once: without a process
+    group; as two ranks over gloo (`trainer.dp=2`: NCCL refuses two ranks on
+    one device), each on half of every global batch; as one rank over NCCL
+    (`trainer.dp=1`). The ranks hold equal parameters; the 2-rank fit is held
+    to the plain one within DP_LOSS_REL (losses) and DP_UPDATE_REL_L2 (the
+    SubjBasisGenerator's update), the NCCL fit bit for bit; each process's
+    peak memory and fit time."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO)) as tmp:
+        data = dp_photos(os.path.join(tmp, "photos"))
+        outs = {name: os.path.join(tmp, f"{name}.pt")
+                for name in ("plain", "nccl1", "rank0", "rank1")}
+        gloo, nccl = free_port(), free_port()
+        sync = os.path.join(tmp, "sync_bn")
+        t0 = time.perf_counter()
+        run_processes(dp_fit, [(0, 1, None, 0, data, outs["plain"], sync),
+                               (0, 1, "nccl", nccl, data, outs["nccl1"], sync),
+                               (0, DP_RANKS, "gloo", gloo, data, outs["rank0"], sync),
+                               (1, DP_RANKS, "gloo", gloo, data, outs["rank1"], sync)],
+                      DP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        res = {k: torch.load(v, weights_only=False) for k, v in outs.items()}
+        sync_ranks = [torch.load(f"{sync}.rank{r}", weights_only=False)
+                      for r in range(DP_RANKS)]
+    plain, nccl1, r0, r1 = res["plain"], res["nccl1"], res["rank0"], res["rank1"]
+    for name, r in res.items():
+        log(f"train dp: {name}: dp {r['dp']}, batch {r['batch']}, losses "
+            f"{', '.join(f'{v:.6e}' for v in r['losses'])}, gradient norms "
+            f"{', '.join(f'{v:.6e}' for v in r['grad_norms'])}; fit {r['fit_s']:.2f} s; peak "
+            f"memory {r['peak'] / 2**30:.2f} GiB; launches {dict(sorted(r['counts'].items()))}")
+    ranks_equal = r0["losses"] == r1["losses"] and all(
+        torch.equal(a, b) for a, b in zip(r0["after"], r1["after"]))
+    loss_rel, gnorm_rel, upd = dp_distance(r0, plain)
+    moved = sum((a - b).pow(2).sum() for a, b in zip(plain["after"], plain["before"])).item()
+    nccl_equal = nccl1["losses"] == plain["losses"] and all(
+        torch.equal(a, b) for a, b in zip(nccl1["after"], plain["after"]))
+    log(f"train dp: four fits at once in {wall:.1f} s ({card}); the two gloo ranks equal: "
+        f"{ranks_equal}; 2 ranks against one process: losses {loss_rel:.3e} relative at most "
+        f"(bound {DP_LOSS_REL:g}), gradient norms {gnorm_rel:.3e} (bound {DP_GRAD_NORM_REL:g}), "
+        f"the SubjBasisGenerator's update relative L2 {upd:.3e} (bound {DP_UPDATE_REL_L2:g}); one "
+        f"NCCL rank against no process group: equal bit for bit {nccl_equal}")
+    if len(plain["losses"]) != DP_MICRO_STEPS or not all(
+            math.isfinite(v) for r in res.values() for v in r["losses"]):
+        raise AssertionError(f"train dp: losses {[r['losses'] for r in res.values()]}")
+    if not ranks_equal or not nccl_equal or moved == 0:
+        raise AssertionError(f"train dp: ranks equal {ranks_equal}, NCCL fit equal "
+                             f"{nccl_equal}, moved {moved}")
+    if not (loss_rel <= DP_LOSS_REL and gnorm_rel <= DP_GRAD_NORM_REL
+            and upd <= DP_UPDATE_REL_L2):
+        raise AssertionError(f"train dp: 2 ranks against one process: losses {loss_rel}, "
+                             f"gradient norms {gnorm_rel}, update {upd}")
+    return dict(loss_rel=loss_rel, grad_norm_rel=gnorm_rel, update_rel_l2=upd, wall_s=wall,
+                sync_bn_ranks=sync_ranks,
+                fits={k: {key: r[key] for key in ("losses", "grad_norms", "fit_s", "peak",
+                                                  "counts", "dp")}
+                      for k, r in res.items()})
+
+
+def sync_bn_rank(rank: int, world: int, out: str) -> None:
+    """One rank of `check_sync_bn`, in a gloo group of `world` ranks that is
+    up: at each SYNC_BN_CASES shape, this rank's
+    half of a batch through `fused_bn_act(group=)` forward and backward with
+    the launches counted (and, on rank 0, the whole batch through the
+    kernels without a group); then `bn_stats_sums` against
+    `bn_sums_chunked` and the times of both, the library's and the bound."""
+    import torch.distributed as dist
+
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import fused_norm as N
+
+    _build.load_library()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    cases = []
+    for label, r, c, slope, dtype, _ in SYNC_BN_CASES:
+        x = (torch.randn(r, c, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+        g = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+        scale = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bias = torch.randn(c, generator=gen, device="cuda") * 0.3
+        cases.append((label, x, g, scale, bias, slope))
+    torch.cuda.synchronize()
+    dist.barrier()
+    _build.reset_launch_counts()
+    mine = []
+    for label, x, g, scale, bias, slope in cases:  # the sync-BN path
+        n = x.shape[0] // world
+        xl = x[rank * n:(rank + 1) * n].clone().requires_grad_(True)
+        s, b = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        y = N.fused_bn_act(xl, s, b, slope, group=dist.group.WORLD)
+        y.backward(g[rank * n:(rank + 1) * n])
+        mine.append(dict(y=y.detach().cpu(), dx=xl.grad.cpu(), dscale=s.grad.cpu(),
+                         dbias=b.grad.cpu()))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    whole, sums = [], {}
+    for (label, x, g, scale, bias, slope), m in zip(cases, mine):
+        n = x.shape[0] // world
+        xl = x[rank * n:(rank + 1) * n]
+        if rank == 0:  # the whole batch on one rank, the kernels without a group
+            xf = x.clone().requires_grad_(True)
+            s, b = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+            y = N.fused_bn_act(xf, s, b, slope)
+            y.backward(g)
+            whole.append(dict(y=y.detach().cpu(), dx=xf.grad.cpu(), dscale=s.grad.cpu(),
+                              dbias=b.grad.cpu()))
+        plan = N.plan_for(xl)
+        kernel, plain = N.bn_stats_sums(xl), N.bn_sums_chunked(xl, plan)
+        sums[label] = dict(
+            equal=bool(torch.equal(kernel, plain)), abs=(kernel - plain).abs().max().item(),
+            graph_ms=graph_ms(lambda: N.bn_stats_sums(xl)),
+            plain_ms=median_ms(lambda: N.bn_sums_chunked(xl, plan)),
+            library_ms=median_ms(lambda: torch.batch_norm_stats(xl, BN_EPS)),
+            bound_ms=bound(xl.numel() * xl.element_size() + 2 * 8 * xl.shape[1])[0],
+            rows=xl.shape[0], c=xl.shape[1])
+    torch.save(dict(mine=mine, whole=whole, sums=sums, counts=counts), out)
+    dist.barrier()
+
+
+def check_sync_bn(card: str, ranks: list) -> dict:
+    """Sync-BN on the card: `fused_bn_act(group=)` forward and backward over
+    2 gloo ranks on cuda:0, each on half the batch, at the first seven of the
+    face parser's BN shapes, against the whole batch on one rank (y and dx
+    per element within SYNC_BN_TOL of the output's scale, the ranks' scale
+    and bias gradients summed); the launches of the path (one
+    `bn_stats[sums]` and one `bn_norm_act` a shape); `bn_stats_sums`
+    against its plain version (`bn_sums_chunked`: the same fp32 chunk sums
+    and fp64 fold), its device time against the plain version's and
+    `torch.batch_norm_stats`'s. `ranks`: what `sync_bn_rank` saved in each
+    of `train_dp`'s two gloo ranks, which run it before their fit."""
+    from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS_SUMS
+
+    worst = 0.0
+    for i, (label, *_) in enumerate(SYNC_BN_CASES):
+        got = {k: torch.cat([ranks[0]["mine"][i][k], ranks[1]["mine"][i][k]])
+               for k in ("y", "dx")}
+        got.update({k: ranks[0]["mine"][i][k] + ranks[1]["mine"][i][k]
+                    for k in ("dscale", "dbias")})
+        for k, ref in ranks[0]["whole"][i].items():
+            err = (got[k].float() - ref.float()).abs().max().item() / max(
+                1.0, ref.float().abs().max().item())
+            worst = max(worst, err)
+            if not err <= SYNC_BN_TOL:
+                raise AssertionError(f"sync-BN {label} {k}: {err} of the scale")
+    want = {BN_STATS_SUMS: len(SYNC_BN_CASES), BN_NORM_ACT: len(SYNC_BN_CASES)}
+    for r, res in enumerate(ranks):
+        if {k: v for k, v in res["counts"].items() if v} != want:
+            raise AssertionError(f"sync-BN rank {r}: launches {res['counts']}, expected {want}")
+        for label, s in res["sums"].items():
+            if not s["equal"]:
+                raise AssertionError(f"bn_stats sums mode {label}: {s['abs']} from plain")
+    sums = ranks[0]["sums"]
+    for label, s in sums.items():
+        log(f"sync-BN {label} R{s['rows']} C{s['c']} a rank: bn_stats[sums] {s['graph_ms']:.4f} "
+            f"ms (graph), plain {s['plain_ms']:.4f} ms, torch.batch_norm_stats "
+            f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms; equal to plain")
+    log(f"sync-BN: {len(SYNC_BN_CASES)} shapes over {DP_RANKS} gloo ranks against the whole "
+        f"batch on one: y, dx, dscale, dbias within {worst:.3e} of the scale (bound "
+        f"{SYNC_BN_TOL:g}); launches a rank {ranks[0]['counts']} ({card})")
+    return dict(counts=ranks[0]["counts"], worst=worst, sums=sums)
+
+
 def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn_bwd: dict,
-                  int8: dict, counts: dict, paths: dict) -> dict:
+                  int8: dict, counts: dict, paths: dict, sync_bn: dict) -> dict:
     """The per-kernel record. `launches` are those of the path that first ran
     the kernel (the 3 requests of phase 5, the train steps, the fused-LN UNet
     call); `launches_by_path` has the later serving paths' beside them
@@ -6015,7 +6490,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     from adaface_tpu_torch.ops.fused_gn import (GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE, GN_FUSED,
                                                 GN_NORM, GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
-    from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS
+    from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS, BN_STATS_SUMS
     from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT, QUANT_AMAX
 
     def entry(name, source, replaces, err, shape, ms, plain_ms, library_ms, bound_ms,
@@ -6056,6 +6531,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                 if r["variant"] == "wg" and k.startswith("masked")]
     wide_off = [r["err"] for r in off_path.values() if r["variant"] == "wide"]
     g, gs, b_, l_, c = gn[JSON_GN], gn[JSON_GN_SPLIT], bn[JSON_BN], ln[JSON_LN], flash["combine"]
+    sb = sync_bn["sums"][JSON_BN]
     gn_keys = ("ms", "graph_ms", "plain_ms", "stock_ms", "stock_graph_ms", "host_us",
                "stock_host_us", "bound_fn", "launches")
     gn_shapes = {kind: {case[0]: {k.replace("stock", "library"): gn[case[0]][k] for k in gn_keys}
@@ -6154,6 +6630,13 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
               b_["plain_stats"], b_["stock_stats"], b_["bound_stats"],
               graph_ms=b_["graph_stats"], library_graph_ms=b_["stock_graph_stats"],
               launch_floor_ms=bn["launch floor"], shapes=bn_shapes, **bn_pair),
+        entry(BN_STATS_SUMS, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:31",
+              max(s["abs"] for s in sync_bn["sums"].values()), f"{JSON_BN}, a rank's half",
+              sb["graph_ms"], sb["plain_ms"], sb["library_ms"], sb["bound_ms"],
+              graph_ms=sb["graph_ms"], library="torch.batch_norm_stats",
+              shapes={label: {k: s[k] for k in ("graph_ms", "plain_ms", "library_ms", "bound_ms",
+                                                "rows", "c")}
+                      for label, s in sync_bn["sums"].items()}),
         entry(BN_NORM_ACT, "batch_norm_act.cu", "adaface_tpu/ops/fused_norm.py:48",
               max(r["norm_err"] for r in bn_cases.values()), JSON_BN, b_["ms_norm"],
               b_["plain_norm"], None, b_["bound_norm"], graph_ms=b_["graph_norm"], **bn_pair),
@@ -6240,10 +6723,15 @@ def main() -> int:
     release()
     sd15_bits = timed_phase("check_sd15_bits", check_sd15_bits, card)
     timed_phase("run_tools", run_tools, card)
+    decoded = timed_phase("decode_images", decode_images, card)
     parser = timed_phase("train_face_parser", train_face_parser, gen)
+    release()
+    folder = timed_phase("train_face_parser_folder", train_face_parser_folder, gen)
     release()
     stage1 = timed_phase("train_stage1", train_stage1, gen)
     release()
+    dp = timed_phase("train_dp", train_dp, card)
+    sync_bn = timed_phase("check_sync_bn", check_sync_bn, card, dp["sync_bn_ranks"])
     finetune = timed_phase("train_finetune", train_finetune, gen)
     release()
     stage2 = timed_phase("train_stage2", train_stage2, gen)
@@ -6254,9 +6742,10 @@ def main() -> int:
     from adaface_tpu_torch.ops import attention as A
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
+    from adaface_tpu_torch.ops.fused_norm import BN_STATS_SUMS
     from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT, QUANT_AMAX
 
-    counts = {**served["counts"], **parser["counts"],
+    counts = {**served["counts"], **parser["counts"], BN_STATS_SUMS: sync_bn["counts"][BN_STATS_SUMS],
               **{k: speed["int8_counts"][k] for k in (QUANT_AMAX, QUANT_ACT, INT8_CONV)},
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
               **{k: stage1["counts"][k] for k in (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG,
@@ -6276,11 +6765,14 @@ def main() -> int:
                 if "counts" in r},
              "int8 batcher": speed["drain_counts"],
              "sdxl 2 requests 1024x1024": sdxl["counts"], "sd3 2 requests 1024x1024": sd3["counts"],
-             "text2video 16-frame clip": video["counts"]}
+             "text2video 16-frame clip": video["counts"],
+             "face-parser folder fit": folder["counts"], "sync-BN a rank": sync_bn["counts"],
+             "stage-1 dp fit rank 0": dp["fits"]["rank0"]["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
-    record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths)
-    record["checks"] = {"sd15_bits": sd15_bits}
+    record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths, sync_bn)
+    record["checks"] = {"sd15_bits": sd15_bits, "decoded_fixtures": decoded["equal"],
+                        "dp_update_rel_l2": dp["update_rel_l2"], "dp_loss_rel": dp["loss_rel"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,15 +123,18 @@ def load_adaface(encoder, ckpt_dir: str) -> None:
 
 
 def load_subject_images(path: str, limit: int | None = None) -> list[np.ndarray]:
-    """A folder of PNGs (or one PNG) → RGB uint8 [H, W, 3] arrays."""
-    from adaface_tpu_torch.utils.image import read_png, to_rgb
+    """A folder of photos (or one) → RGB uint8 [H, W, 3] arrays, the
+    reference's extensions (`_common.py:112`) read by `utils.image.read_image`
+    (PNG, JPEG, BMP; a WebP raises with its path)."""
+    from adaface_tpu_torch.data.personalized import IMG_EXTS
+    from adaface_tpu_torch.utils.image import read_image, to_rgb
 
     if os.path.isdir(path):
         files = sorted(os.path.join(path, f) for f in os.listdir(path)
-                       if f.lower().endswith(".png"))
+                       if os.path.splitext(f)[1].lower() in IMG_EXTS)
     else:
         files = [path]
-    return [to_rgb(read_png(f)) for f in files[:limit]]
+    return [to_rgb(read_image(f)) for f in files[:limit]]
 
 
 def to_uint8(images) -> np.ndarray:

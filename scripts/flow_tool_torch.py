@@ -9,7 +9,7 @@ the JAX initialiser's scales from seed 0.
     python scripts/flow_tool_torch.py img1.png img2.png --out flow.png \
         [--weights gma-sintel.pth] [--device cpu]
 
-The images are PNGs read by `utils.image.read_png` and resized to
+The images (PNG, JPEG or BMP) are read by `utils.image.read_image` and resized to
 `--size`² by `utils.image.resize_linear`, which is OpenCV's bilinear resize
 (the JAX tool resizes with PIL's, whose antialiasing filter differs when it
 shrinks). They go to `gma_flow` as [0, 255] pixels, the RAFT protocol
@@ -47,12 +47,12 @@ def main(argv=None) -> np.ndarray:
     from adaface_tpu_torch.models.gma import (GMA, convert_gma_state_dict, flow_to_image,
                                               gma_flow, init_gma_weights_)
     from adaface_tpu_torch.tools.ckpt_lib import load_state_dict
-    from adaface_tpu_torch.utils.image import read_png, resize_linear, to_rgb, write_png
+    from adaface_tpu_torch.utils.image import read_image, resize_linear, to_rgb, write_png
 
     device = torch.device(args.device)
 
     def load(path):
-        im = resize_linear(to_rgb(read_png(path)), (args.size, args.size))
+        im = resize_linear(to_rgb(read_image(path)), (args.size, args.size))
         return torch.from_numpy(im.astype(np.float32).transpose(2, 0, 1)[None]).to(device)
 
     i1, i2 = load(args.img1), load(args.img2)

@@ -28,7 +28,10 @@ installed, else none): where it finds no face the identity losses stay gated
 off. `--base_model` loads SD1.5 weights over the random ones (an LDM single
 file or a diffusers UNet, `.safetensors` / `.ckpt`, through
 `tools/convert_sd.py`), and `--scale_lr` scales the learning rate by
-accumulation × devices (one) × batch, as `train.py` does.
+accumulation × devices (`trainer.dp`, else one) × batch, as `train.py` does.
+`trainer.dp=N` trains data-parallel over N ranks, one process a rank on
+cuda:LOCAL_RANK (`torchrun --nproc_per_node N train_torch.py ...
+trainer.dp=N`); `trainer.batch_size` is the global batch.
 `--comp_unet_weight_path` loads the comp-distill iterations' UNet weights
 the same way; they are swapped into the frozen UNet for those iterations.
 `comp_distill.use_face_flow=true` adds the GMA latent flow to the elastic
@@ -85,6 +88,13 @@ def build_trainer(cfg: dict, args):
         trainer_cfg.lr = scaled_lr(trainer_cfg)
         print(f"scaled lr: {trainer_cfg.lr}")
     device = torch.device(args.device)
+    if trainer_cfg.dp:  # one rank a process, each on its own card
+        from adaface_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(trainer_cfg.dp)
+        device = mesh.device if device.type == "cuda" else device
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     gen = torch.Generator(device).manual_seed(trainer_cfg.seed)
     print(f"building the model stack on {device} ...", flush=True)
@@ -192,9 +202,10 @@ def build_gma(path: str | None, device, gen: torch.Generator):
 
 
 def scaled_lr(trainer_cfg) -> float:
-    """accumulation × devices × batch × base lr (`train.py:55-60`,
-    `main.py:911-915`); the port trains on one device."""
-    return trainer_cfg.accum_steps * 1 * trainer_cfg.batch_size * trainer_cfg.lr
+    """accumulation × devices (`dp`, else one) × batch × base lr
+    (`train.py:55-60`, `main.py:911-915`)."""
+    return (trainer_cfg.accum_steps * (trainer_cfg.dp or 1) * trainer_cfg.batch_size
+            * trainer_cfg.lr)
 
 
 def load_base_model(path: str, unet, text, vae_encoder, vae_decoder=None) -> dict:
