@@ -22,6 +22,9 @@ flow network's tree (`models.gma.convert_gma_state_dict`, or
 `init_gma_params`') loads into `models.gma.GMA` by the same rules: its
 instance norms hold nothing, its batch norms their statistics.
 
+The ViT's tree (`models.vit`) keeps its patch kernel OIHW: `vit_tree` re-lays
+it as HWIO before `load`.
+
 A tree of `quantize_unet_params` (`adaface_tpu/ops/quant.py:108`) loads with
 `load_quantized`: each node with `w_q` becomes the port's `Int8Conv2d` /
 `Int8Linear`, its HWIO `w_q` → [O, kh, kw, I] and IO → [O, I] (int8), its
@@ -143,6 +146,15 @@ def vae_decoder_tree(vae_params: dict) -> dict:
 def vae_encoder_tree(vae_params: dict) -> dict:
     """The encode half of the JAX VAE params (`vae.py:174-224`)."""
     return {"encoder": vae_params["encoder"], "quant_conv": vae_params["quant_conv"]}
+
+
+def vit_tree(params: dict) -> dict:
+    """A JAX ViT tree (`adaface_tpu/models/vit.py`, or `models.vit.
+    convert_dino_state_dict`'s) with its patch kernel, OIHW there, as the
+    HWIO `w` the walk turns back into the port's OIHW conv weight."""
+    patch = dict(params["patch_embedding"])
+    patch["w"] = np.asarray(patch["w"]).transpose(2, 3, 1, 0)
+    return {**params, "patch_embedding": patch}
 
 
 def sbg_tree(sbg: dict) -> dict:

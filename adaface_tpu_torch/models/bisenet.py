@@ -255,3 +255,24 @@ def convert_bisenet_state_dict(sd) -> dict:
             "ffm": {"convblk": cbr("ffm.convblk"), "conv1": conv("ffm.conv1"),
                     "conv2": conv("ffm.conv2")},
             "out": head("conv_out"), "out16": head("conv_out16"), "out32": head("conv_out32")}
+
+
+def load_bisenet(path: str | None, device, gen: torch.Generator | None = None) -> BiSeNet:
+    """An eval-mode fp32 BiSeNet on `device`: from the checkpoint `path`,
+    either the port's own (the state dict `train.face_parsing_train.main`
+    saves) or the reference's (`79999_iter.pth`, through
+    `convert_bisenet_state_dict`); random from `gen` when `path` is None."""
+    from adaface_tpu_torch.core import bridge
+    from adaface_tpu_torch.tools.ckpt_lib import load_state_dict
+
+    if path is None:
+        return build_bisenet(device, gen).requires_grad_(False).eval()
+    sd = load_state_dict(path)
+    with torch.device("meta"):
+        model = BiSeNet()
+    model = model.to_empty(device=device)
+    if set(sd) == set(model.state_dict()):
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    else:
+        bridge.load(model, convert_bisenet_state_dict(sd))
+    return model.requires_grad_(False).to(memory_format=torch.channels_last).eval()

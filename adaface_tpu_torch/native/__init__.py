@@ -11,9 +11,10 @@ and flags (as `ops/_build.py` names the CUDA one), and loaded with ctypes:
   would cost seconds a photo and hold the trainer's prefetch thread back.
 - `imgops.cpp`: `prepare_item`, the dataset's resize → flip → shrink into
   the canvas → roll → normalize chain, the same bits as
-  `data.personalized.augment_numpy`; `resize_bilinear_pil`, Pillow's
-  BILINEAR resize, the same bits as `utils.image.resize_bilinear_pil` (the
-  face parser's items: numpy took ~80% of an item's host time).
+  `data.personalized.augment_numpy`; `resize_pil`, Pillow's BILINEAR,
+  BICUBIC or LANCZOS resize, the same bits as `utils.image.resize_pil` (the
+  face parser's items: numpy took ~80% of an item's host time; the mask and
+  makeup tools' BICUBIC and LANCZOS).
 
 A build or load failure raises: these readers have no other path.
 """
@@ -30,7 +31,7 @@ import tempfile
 
 import numpy as np
 
-from adaface_tpu_torch.utils.image import _pil_bilinear_coeffs
+from adaface_tpu_torch.utils.image import _pil_coeffs
 
 SRC = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = SRC.parent / "_build"
@@ -131,8 +132,8 @@ def prepare_item(image: np.ndarray, fg_mask: np.ndarray | None, out_size: int, d
     return out_img, out_fg, out_aug
 
 
-def _resample_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
-    first, w = _pil_bilinear_coeffs(img.shape[axis], n_out)
+def _resample_pass(img: np.ndarray, n_out: int, axis: int, resample: str) -> np.ndarray:
+    first, w = _pil_coeffs(img.shape[axis], n_out, resample)
     first = np.ascontiguousarray(first, np.int32)
     w = np.ascontiguousarray(w, np.int32)
     h, wd = img.shape[:2]
@@ -144,16 +145,17 @@ def _resample_pass(img: np.ndarray, n_out: int, axis: int) -> np.ndarray:
     return out
 
 
-def resize_bilinear_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """`Image.resize((w, h), Image.BILINEAR)` on uint8 [H, W] or [H, W, 3]
-    through the library: the bits of `utils.image.resize_bilinear_pil` (a
-    horizontal pass rounded to uint8, then a vertical one; an axis of
-    unchanged size is not resampled)."""
+def resize_pil(img: np.ndarray, size: tuple[int, int], resample: str = "bilinear") -> np.ndarray:
+    """`Image.resize((w, h), Image.BILINEAR | BICUBIC | LANCZOS)` on uint8
+    [H, W] or [H, W, 3] through the library: the bits of
+    `utils.image.resize_pil` (a horizontal pass rounded to uint8, then a
+    vertical one; an axis of unchanged size is not resampled). The weights
+    are Pillow's (`utils.image._pil_coeffs`); the library sums them."""
     out_w, out_h = size
     img = np.ascontiguousarray(img, np.uint8)
     h, w = img.shape[:2]
     if out_w != w:
-        img = _resample_pass(img, out_w, 1)
+        img = _resample_pass(img, out_w, 1, resample)
     if out_h != h:
-        img = _resample_pass(img, out_h, 0)
+        img = _resample_pass(img, out_h, 0, resample)
     return img.copy() if (out_w, out_h) == (w, h) else img

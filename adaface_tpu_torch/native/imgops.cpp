@@ -156,8 +156,8 @@ int prepare_item(const uint8_t* src, int sh, int sw,
 // (axis 1) or the height (axis 0), output index i reads taps first[i] + k,
 // k < ksize, with fixed-point weights w[i * ksize + k] in 1/2^22, summed
 // from 1/2 in int32 as Pillow sums them, shifted down and clamped to 0..255.
-// The weights come from `utils.image._pil_bilinear_coeffs`; a tap past the
-// source weighs 0 and is skipped.
+// The weights come from `utils.image._pil_coeffs` (any of Pillow's filters;
+// negative lobes too); a tap past the source weighs 0 and is skipped.
 void resample_pass_u8(const uint8_t* src, int h, int w, int c, int axis,
                       const int32_t* first, const int32_t* weights, int ksize,
                       int n_out, uint8_t* dst) {

@@ -19,6 +19,7 @@ whose first momentum buffer is the gradient itself. Update k (from 0) uses
 from __future__ import annotations
 
 import argparse
+import colorsys
 import dataclasses
 import math
 import os
@@ -194,10 +195,10 @@ def draw_face_parsing(rng: np.random.Generator, shape: tuple, crop_size: int = 4
 def apply_face_parsing(img: np.ndarray, label: np.ndarray, d: dict, crop_size: int = 448):
     """The pixels of `augment_face_parsing` under the decisions `d`
     (`draw_face_parsing`). Pillow's BILINEAR resize through the host
-    library (`native.resize_bilinear_pil`); NEAREST, `Image.new` + `paste`,
+    library (`native.resize_pil`); NEAREST, `Image.new` + `paste`,
     `crop` and `FLIP_LEFT_RIGHT` in numpy (`utils/image.py`), the same bits."""
     w, h = d["size"]
-    im = native.resize_bilinear_pil(img, (w, h))
+    im = native.resize_pil(img, (w, h))
     lb = resize_nearest_pil(label, (w, h))
 
     # pad if needed, then the crop
@@ -274,7 +275,7 @@ class FaceMaskDataset:
         augmentation, the standard segmentation-eval protocol."""
         img, lbl = self.load(i)
         s = self.crop_size
-        img = native.resize_bilinear_pil(img, (s, s))
+        img = native.resize_pil(img, (s, s))
         lbl = resize_nearest_pil(lbl, (s, s))
         arr = img.astype(np.float32) / 255.0
         arr = (arr - np.asarray([0.485, 0.456, 0.406])) / np.asarray([0.229, 0.224, 0.225])
@@ -350,6 +351,31 @@ def evaluate_face_parsing(model: BiSeNet, dataset: FaceMaskDataset, batch_size: 
     finally:
         model.train(was_training)
     return miou_from_confusion(cm)
+
+
+def parsing_palette(n_classes: int = 19) -> np.ndarray:
+    """[C, 3] uint8 colors: background black, the parts on a golden-ratio
+    walk of hues, saturation alternating 0.85 / 0.6."""
+    colors = [(0, 0, 0)]
+    for i in range(1, n_classes):
+        h = (i * 0.61803398875) % 1.0
+        r, g, b = colorsys.hsv_to_rgb(h, 0.85 if i % 2 else 0.6, 1.0)
+        colors.append((int(r * 255), int(g * 255), int(b * 255)))
+    return np.asarray(colors, np.uint8)
+
+
+def colorize_parsing(parsing: np.ndarray, n_classes: int = 19) -> np.ndarray:
+    """[H, W] int parsing map → [H, W, 3] uint8 color map."""
+    return parsing_palette(n_classes)[np.clip(parsing, 0, n_classes - 1)]
+
+
+def overlay_parsing(image: np.ndarray, parsing: np.ndarray, alpha: float = 0.6) -> np.ndarray:
+    """A parsing color map blended over an RGB uint8 image (the reference's
+    `vis_parsing_maps`, `face_parsing/evaluate.py:25-60`: 0.4 image + 0.6
+    colored annotation), in float32, truncated to uint8."""
+    color = colorize_parsing(parsing).astype(np.float32)
+    out = image.astype(np.float32) * (1 - alpha) + color * alpha
+    return np.clip(out, 0, 255).astype(np.uint8)
 
 
 def main(argv=None):

@@ -22,13 +22,14 @@ are here too: `read_image` (PNG on stdlib `zlib`: 8-bit grey, RGB and RGBA,
 non-interlaced, all five row filters; JPEG and BMP through the port's host
 library; any other file raises with its path), `write_png`, `to_rgb` /
 `to_grey` as PIL converts, `pad_to_square`, `resize_nearest_pil`, which
-samples where PIL's NEAREST does, `resize_bilinear_pil` (Pillow's
-fixed-point resample) and `paste_pad`. `write_gif` writes an animated GIF (the video pipeline's
+samples where PIL's NEAREST does, `resize_pil` (Pillow's fixed-point
+resample with its BILINEAR, BICUBIC or LANCZOS filter) and `paste_pad`. `write_gif` writes an animated GIF (the video pipeline's
 `to_gif`, which PIL writes in the JAX package) on a fixed palette.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -151,7 +152,11 @@ def read_png(path) -> np.ndarray:
     """An 8-bit grey, RGB or RGBA non-interlaced PNG → uint8 [H, W] or
     [H, W, 3 or 4]."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
+    """`read_png` on a PNG file's bytes; errors name `path`."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG file (the port reads PNG only)")
     pos, idat, header = 8, [], None
@@ -187,28 +192,39 @@ def read_png(path) -> np.ndarray:
 
 def read_image(path) -> np.ndarray:
     """An image file → uint8 [H, W] (grey) or [H, W, 3 or 4], by its magic
-    bytes: PNG (`read_png`), JPEG or BMP (the port's host library,
-    `adaface_tpu_torch.native.decode_image`). `to_rgb` / `to_grey` then give
-    Pillow's convert("RGB") / convert("L"). Another format (WebP, GIF, …), or
-    a variant the decoders do not take, raises a ValueError naming the
-    path."""
+    bytes (`decode_image_bytes`). `to_rgb` / `to_grey` then give Pillow's
+    convert("RGB") / convert("L")."""
     with open(path, "rb") as f:
-        head = f.read(12)
+        return decode_image_bytes(f.read(), path)
+
+
+def decode_image_bytes(data: bytes, path="<bytes>") -> np.ndarray:
+    """An image file's bytes → uint8 [H, W] (grey) or [H, W, 3 or 4], by
+    its magic bytes: PNG (`decode_png`), JPEG or BMP (the port's host
+    library, `adaface_tpu_torch.native.decode_image`). Another format (WebP,
+    GIF, …), or a variant the decoders do not take, raises a ValueError
+    naming `path`."""
+    head = data[:12]
     if head[:8] == PNG_SIGNATURE:
-        return read_png(path)
+        return decode_png(data, path)
     if head[:2] in (b"\xff\xd8", b"BM"):
         from adaface_tpu_torch.native import decode_image
 
-        with open(path, "rb") as f:
-            return decode_image(f.read(), path)
+        return decode_image(data, path)
     kind = "a WebP file" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else \
         f"magic bytes {head[:4]!r}"
     raise ValueError(f"{path}: {kind}; the port reads PNG, JPEG and BMP")
 
 
 def write_png(path, img: np.ndarray) -> None:
+    """`encode_png(img)` written to the file `path`."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
     """uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA) → an 8-bit
-    PNG, every row unfiltered."""
+    PNG's bytes, every row unfiltered."""
     img = np.ascontiguousarray(img, np.uint8)
     bpp = 1 if img.ndim == 2 else img.shape[2]
     colour = {1: 0, 3: 2, 4: 6}[bpp]
@@ -219,9 +235,8 @@ def write_png(path, img: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+    return (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def to_rgb(img: np.ndarray) -> np.ndarray:
@@ -271,23 +286,60 @@ def resize_nearest_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 PIL_PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point bits of a resample weight
 
 
-def _pil_bilinear_coeffs(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
-    """Pillow's `precompute_coeffs` with the triangle filter along one axis →
+def _pil_triangle(x: np.ndarray) -> np.ndarray:
+    """Pillow's `bilinear_filter`."""
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's `bicubic_filter` (a = −0.5), in its order of operations."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x  # libm's sin, as Pillow's C calls it
+
+
+def _pil_lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's `lanczos_filter`: sinc(x)·sinc(x/3) on [−3, 3)."""
+    return np.asarray([_pil_sinc(v) * _pil_sinc(v / 3) if -3.0 <= v < 3.0 else 0.0
+                       for v in x.ravel().tolist()], np.float64).reshape(x.shape)
+
+
+# Pillow's resample filters (`Resample.c`): the filter and its support
+PIL_FILTERS = {"bilinear": (_pil_triangle, 1.0), "bicubic": (_pil_bicubic, 2.0),
+               "lanczos": (_pil_lanczos, 3.0)}
+
+
+def _pil_coeffs(n_in: int, n_out: int, resample: str) -> tuple[np.ndarray, np.ndarray]:
+    """Pillow's `precompute_coeffs` with filter `resample` along one axis →
     (first source index [n_out], int64 weights [n_out, K] in 1/2^22, zero
     past each window). The support widens by the reduction factor when
     shrinking; each window's float64 weights are normalised to sum 1, then
     rounded half away from zero to fixed point (`normalize_coeffs_8bpc`)."""
+    if resample not in PIL_FILTERS:
+        raise ValueError(f"resample {resample!r}: the port has Pillow's {sorted(PIL_FILTERS)}")
+    fn, support = PIL_FILTERS[resample]
     scale = n_in / n_out
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = support * filterscale
     ksize = int(np.ceil(support)) * 2 + 1
     centre = (np.arange(n_out) + 0.5) * scale
-    # C's (int) truncates toward zero; every operand here is > -1
+    # C's (int) truncates toward zero, then the bounds are clamped
     xmin = np.maximum(np.trunc(centre - support + 0.5), 0).astype(np.int64)
     xmax = np.minimum(np.trunc(centre + support + 0.5), n_in).astype(np.int64) - xmin
     taps = np.arange(ksize)
+    inside = taps[None, :] < xmax[:, None]
     x = ((taps[None, :] + xmin[:, None]) - centre[:, None] + 0.5) * (1.0 / filterscale)
-    w = np.where(taps[None, :] < xmax[:, None], np.maximum(1.0 - np.abs(x), 0.0), 0.0)
+    w = np.zeros((n_out, ksize))
+    w[inside] = fn(x[inside])
     ww = np.zeros(n_out)
     for k in range(ksize):  # summed in tap order, as the C loop does
         ww = ww + w[:, k]
@@ -310,18 +362,19 @@ def _pil_pass(img: np.ndarray, first: np.ndarray, w: np.ndarray, axis: int) -> n
     return np.clip(acc >> PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
-def resize_bilinear_pil(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
-    """`Image.resize((w, h), Image.BILINEAR)` on uint8 [H, W] or [H, W, 3]
-    (Pillow's `ImagingResample`): a horizontal pass rounded to uint8, then a
+def resize_pil(img: np.ndarray, size: tuple[int, int], resample: str = "bilinear") -> np.ndarray:
+    """`Image.resize((w, h), Image.BILINEAR | BICUBIC | LANCZOS)` on uint8
+    [H, W] or [H, W, 3] (Pillow's `ImagingResample`; `resample` names the
+    filter, `PIL_FILTERS`): a horizontal pass rounded to uint8, then a
     vertical one; an axis of unchanged size is not resampled. Not OpenCV's
-    bilinear (`resize_linear`): Pillow's triangle widens with the reduction
-    factor."""
+    bilinear or bicubic (`resize_linear`, `resize_cubic`): Pillow's filters
+    widen with the reduction factor, and its bicubic has a = −0.5."""
     out_w, out_h = size
     h, w = img.shape[:2]
     if out_w != w:
-        img = _pil_pass(img, *_pil_bilinear_coeffs(w, out_w), axis=1)
+        img = _pil_pass(img, *_pil_coeffs(w, out_w, resample), axis=1)
     if out_h != h:
-        img = _pil_pass(img, *_pil_bilinear_coeffs(h, out_h), axis=0)
+        img = _pil_pass(img, *_pil_coeffs(h, out_h, resample), axis=0)
     return img.copy() if (out_w, out_h) == (w, h) else img
 
 

@@ -230,9 +230,23 @@ Each path runs with the launch counts set to 0 just before it and checked
 just after. The line before the last holds the per-kernel JSON record; the
 last line is {"ok": true, "device": {...}}.
 
+After `serve_video`, `evaluate_and_tools` runs the evaluation harness and the
+tools on the SD1.5 wrapper: one UNet call at the eval batch (8) kernels
+against plain; `scripts/txt2img_eval_torch.py`'s generation of 2 dreambench
+prompts x 4 samples at 512x512, 25 steps (UNet batch 8 with CFG), held to its
+launches, the PNGs read back; CLIP-T / CLIP-I (ViT-B/32), DINO (ViT-S/16) and
+face similarity (RetinaFace + ArcFace) against the subject's photos, random
+weights from their seeds, with the CSV written; the same evaluators copied to
+the CPU scoring the same PNGs, each cosine score within 1e-4;
+`gen_face_masks_torch.py` on a folder of JPEG and PNG photos; BiSeNet parsing
+and the makeup recolour (pixels off the recoloured parts equal to the input);
+`app_torch.py`'s server on a free port in a thread answering GET / and a POST
+of two photos with 512x512 PNGs; the seconds of each part.
+
 The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
-checkpoint writers of `tests/torch_sd_layout.py` and the port's CLI twins in
-`scripts/`, and reads the image fixtures of `tests/data/images/`.
+checkpoint writers of `tests/torch_sd_layout.py`, the port's CLI twins in
+`scripts/` and `app_torch.py`, and reads the image fixtures of
+`tests/data/images/`.
 """
 
 from __future__ import annotations
@@ -1557,6 +1571,29 @@ def check_unet(gen) -> dict:
                 ln_counts=ln_counts)
 
 
+DeviceEvent = collections.namedtuple("DeviceEvent", "name start us")
+
+
+def device_events(prof) -> list:
+    """The device events of a finished torch.profiler run as (name, start
+    µs, µs), read from its kineto results with the names, filters and
+    durations that `prof.events()` gives them, without the Python object per
+    event that `prof.events()` builds (tens of seconds of host time for the
+    179 k operations of a comp micro-step with the flow)."""
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or _filter_name(e.name()) \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        out.append(DeviceEvent(_rewrite_name(name=e.name(), with_wildcard=True),
+                               e.start_ns() / 1e3,
+                               0.0 if is_async else (e.end_ns() - e.start_ns()) / 1e3))
+    return out
+
+
 def device_operations(fn, pattern: str = "") -> tuple[int, float]:
     """(count, ms of device time) of the device operations of one call of
     `fn` whose kernel name matches `pattern`, by torch.profiler."""
@@ -1567,8 +1604,7 @@ def device_operations(fn, pattern: str = "") -> tuple[int, float]:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    found = [e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA and re.search(pattern, e.name)]
+    found = [e.us for e in device_events(prof) if re.search(pattern, e.name)]
     return len(found), sum(found) / 1e3
 
 
@@ -2371,8 +2407,7 @@ def profiled_ms(fn, host_runs: int = 3) -> tuple[float, float, int]:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)"]
+    kernels = [e.us for e in device_events(prof) if e.name != "Memset (Device)"]
     return host, sum(kernels) / 1e3, len(kernels)
 
 
@@ -3911,15 +3946,14 @@ def recon_flash_profile(trainer, dataset, flags) -> dict:
             profile(activities=[ProfilerActivity.CUDA]) as prof:
         step_fn(trainer.state, batch, trainer.draws_for(flags, loss=True))
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and re.search(r"flash_fwd_(wg_|wide_)?kernel", e.name)]
-    events.sort(key=lambda e: e.time_range.start)
+    events = [e for e in device_events(prof) if re.search(r"flash_fwd_(wg_|wide_)?kernel", e.name)]
+    events.sort(key=lambda e: e.start)
     if len(events) != len(seen):
         raise AssertionError(f"recon profile: {len(seen)} flash launches, {len(events)} events")
     groups: dict = {}
     for shape, e in zip(seen, events):
         n, us = groups.get(shape, (0, 0.0))
-        groups[shape] = (n + 1, us + e.device_time)
+        groups[shape] = (n + 1, us + e.us)
     for (b, sq, sk, d, masked), (n, us) in sorted(groups.items()):
         log(f"recon flash forward B{b} Sq{sq} Sk{sk} D{d} {'masked' if masked else 'unmasked'}: "
             f"{n} launches, {us / 1e3:.3f} ms, {us / 1e3 / n:.4f} ms a launch")
@@ -4253,9 +4287,8 @@ def flow_card_against_cpu(gma, captured: dict, card: str) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.name != "Memset (Device)"]
-        return len(events), sum(e.device_time for e in events) / 1e3
+        events = [e for e in device_events(prof) if e.name != "Memset (Device)"]
+        return len(events), sum(e.us for e in events) / 1e3
 
     with torch.no_grad():
         on_card = fn(tgt_c, src_c, h, w).cpu()
@@ -4673,10 +4706,10 @@ def profile_report(prof, label: str, top: int) -> tuple[int, float]:
     (PROFILE_KINDS) and for its `top` kernels by total time. Sums CUDA-kernel
     events only: the aten-op rows overlap their kernels. → (operations, ms)."""
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name != "Memset (Device)":
+    for e in device_events(prof):
+        if e.name != "Memset (Device)":
             n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.device_time)
+            by_name[e.name] = (n + 1, us + e.us)
     kinds = {kind: [0, 0.0] for kind, _ in PROFILE_KINDS + (("other", ""),)}
     for name, (n, us) in by_name.items():
         kind = next((k for k, pat in PROFILE_KINDS if re.search(pat, name)), "other")
@@ -4789,10 +4822,9 @@ def profile_bn_stats(calls: int = RUN_LAUNCHES) -> None:
                 N.bn_stats(x, BN_EPS)
             torch.cuda.synchronize()
         by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                n, us = by_name.get(e.name, (0, 0.0))
-                by_name[e.name] = (n + 1, us + e.device_time)
+        for e in device_events(prof):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.us)
         log(f"bn_stats {label:20s} R{r} C{c} {dtype}: "
             f"{sum(n for n, _ in by_name.values()) / calls:g} device operations a call, "
             f"{sum(us for _, us in by_name.values()) / calls:.2f} us a call; "
@@ -5986,6 +6018,321 @@ def run_tools(card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the evaluation harness, the face-mask, face-parsing and makeup tools and
+# the demo server on the SD1.5 serving path
+# ---------------------------------------------------------------------------
+
+EVAL_PROMPTS = 2  # the first dreambench prompts
+EVAL_SAMPLES = 4  # images a prompt: UNet batch 8 with CFG
+EVAL_STEPS = 25
+SCORE_TOL = 1e-4  # each cosine score, card against CPU (fp32, TF32 off on both)
+MAKEUP = {"hair": (100, 200, 100), "upper_lip": (230, 50, 20), "lower_lip": (230, 50, 20)}
+APP_IMAGES = 2  # images asked of the demo's POST
+
+
+def rebatched_census(path: str, batch: int, calls: int) -> dict:
+    """GN_CASES' GroupNorms of `calls` calls of `path` (one batch-2 UNet
+    call, one batch-1 decode) with the batch dimension set to `batch`."""
+    want = collections.Counter()
+    for _, shape, _, eps, silu, by_path in GN_CASES:
+        if by_path.get(path):
+            want[((batch,) + shape[1:], eps, silu)] += by_path[path] * calls
+    return dict(want)
+
+
+class CropRecorder:
+    """RetinaFace + ArcFace on the card, each call's face crop (or None)
+    kept: the crops the CPU's ArcFace then embeds."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.crops: list = []
+
+    def detect_and_embed(self, image_np):
+        faces = self.backend.client.detect_faces(image_np)
+        crop = None
+        if faces:
+            x0, y0, x1, y1 = (int(v) for v in faces[0]["bbox"])
+            crop = image_np[max(y0, 0):y1, max(x0, 0):x1]
+            crop = crop if crop.size else None
+        self.crops.append(crop)
+        return None if crop is None else self.backend.arc.detect_and_embed(crop)
+
+
+def post_multipart(port: int, files: list, fields: dict) -> tuple[int, str]:
+    """POST /generate of the demo with `files` [(name, bytes)] and `fields`."""
+    import http.client
+
+    boundary = "----chip-smoke-boundary"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="images"; filename="{n}"'
+             f"\r\nContent-Type: application/octet-stream\r\n\r\n".encode() + data + b"\r\n"
+             for n, data in files]
+    parts += [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'
+              .encode() for k, v in fields.items()]
+    body = b"".join(parts) + f"--{boundary}--\r\n".encode()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", "/generate", body=body,
+                 headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+    resp = conn.getresponse()
+    out = resp.status, resp.read().decode()
+    conn.close()
+    return out
+
+
+def evaluate_and_tools(wrapper, faces, card: str) -> dict:
+    """The evaluation harness and the tools on the phase-5 SD1.5 wrapper:
+    one UNet call at the eval batch (8: 4 samples with CFG) kernels against
+    plain; `txt2img_eval_torch`'s generation of EVAL_PROMPTS dreambench
+    prompts × EVAL_SAMPLES samples at 512x512, 25 steps, held to the
+    launches of 50 UNet calls at batch 8 and 2 decodes at batch 4, the PNGs
+    read back; its scores (CLIP-T / CLIP-I on ViT-B/32, DINO ViT-S/16, face
+    similarity on RetinaFace + ArcFace, random from their seeds) against
+    subject a's photos with the CSV written; the same evaluators copied to
+    the CPU scoring the same PNGs, each cosine within SCORE_TOL (face
+    similarity on the card's face crops: detection is held in
+    `serve_joint`); `gen_face_masks_torch` on a folder of JPEG and PNG
+    photos; BiSeNet parsing and `apply_makeup` (pixels off the recoloured
+    parts equal to the input, and `makeup_demo_torch` giving the same
+    image); the demo server of `app_torch` on a free port in a thread: GET
+    / and a POST of two photos answered with APP_IMAGES 512x512 PNGs."""
+    import base64
+    import csv
+    import http.client
+    import shutil
+    import tempfile
+    import threading
+
+    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        import app_torch
+        import gen_face_masks_torch
+        import makeup_demo_torch
+        import txt2img_eval_torch
+    finally:
+        del sys.path[:2]
+    from adaface_tpu_torch import native
+    from adaface_tpu_torch.evaluation.clip_eval import CLIPEvaluator
+    from adaface_tpu_torch.evaluation.dino_eval import DINOEvaluator
+    from adaface_tpu_torch.evaluation.eval_utils import compare_folders
+    from adaface_tpu_torch.evaluation.face_sim import (calc_faces_similarities,
+                                                       load_folder_images, make_face_backend)
+    from adaface_tpu_torch.id2ada.face_backends import ArcFaceBackend
+    from adaface_tpu_torch.models.bisenet import load_bisenet
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.utils.image import (decode_png, encode_png, read_image, to_rgb,
+                                               write_png)
+    from adaface_tpu_torch.utils.makeup import MAKEUP_PARTS, apply_makeup
+
+    t_phase = time.perf_counter()
+    secs = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    m = wrapper.pipeline.m
+    b = 2 * EVAL_SAMPLES
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # the kernels at the eval batch: one UNet call against its plain version
+        t0 = time.perf_counter()
+        x = torch.randn((b, 4, 64, 64), generator=gen, device="cuda").to(torch.bfloat16)
+        t = torch.full((b,), 501, dtype=torch.long, device="cuda")
+        ctx = torch.randn((b, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+        call = check_module_call(m.unet, (x, t, ctx), {}, f"eval UNet call batch {b} 64x64")
+        want = collections.Counter({A.FLASH_T: 20, A.FLASH_STD: 10}) + gn_expected_from(
+            call["seen"])
+        if {k: v for k, v in call["counts"].items() if v} != dict(want):
+            raise AssertionError(f"eval UNet call: launches {call['counts']}, expected {want}")
+        if dict(call["seen"]) != rebatched_census("unet", b, 1):
+            raise AssertionError(f"eval UNet call: GroupNorms {dict(call['seen'])}")
+        del x, t, ctx
+        secs["unet call"] = time.perf_counter() - t0
+
+        # the eval run: generation through txt2img_eval_torch's functions
+        subject = os.path.join(root, "subject_a")
+        os.makedirs(subject)
+        for i, im in enumerate(faces["a"]):
+            write_png(os.path.join(subject, f"{i}.png"), im)
+        prompts = txt2img_eval_torch.select_prompts("dreambench", f"0-{EVAL_PROMPTS - 1}")
+        wrapper.prepare_adaface_embeddings(images=faces["a"])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        decode_plan = A.flash_plan(torch.bfloat16, EVAL_SAMPLES, 1, 4096, 4096, 512, sms)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with gn_census(m.unet) as seen_unet, gn_census(m.vae) as seen_vae:
+            dirs = txt2img_eval_torch.generate(wrapper, prompts, os.path.join(root, "out"),
+                                               EVAL_SAMPLES, 512, SEED, EVAL_STEPS)
+        torch.cuda.synchronize()
+        secs["generate"] = time.perf_counter() - t0
+        counts = launch_counts()
+        calls = EVAL_PROMPTS * EVAL_STEPS
+        if dict(seen_unet) != rebatched_census("unet", b, calls):
+            raise AssertionError(f"eval run: UNet GroupNorms {dict(seen_unet)}")
+        if dict(seen_vae) != rebatched_census("decode", EVAL_SAMPLES, EVAL_PROMPTS):
+            raise AssertionError(f"eval run: decoder GroupNorms {dict(seen_vae)}")
+        want = collections.Counter({A.FLASH_T: 20 * calls, A.FLASH_STD: 10 * calls,
+                                    A.FLASH_WIDE: EVAL_PROMPTS,
+                                    A.FLASH_COMBINE: EVAL_PROMPTS * (decode_plan.nsplit > 1)})
+        want.update(gn_expected_from(seen_unet) + gn_expected_from(seen_vae))
+        want = {k: v for k, v in want.items() if v}
+        if {k: v for k, v in counts.items() if v} != want:
+            raise AssertionError(f"eval run: launches {counts}, expected {want}")
+        t0 = time.perf_counter()
+        for d, _ in dirs:
+            back = load_folder_images(d)
+            check_images([torch.from_numpy(im).permute(2, 0, 1).float() / 255 for im in back],
+                         EVAL_SAMPLES, 512, f"eval PNGs {d}")
+        secs["read back"] = time.perf_counter() - t0
+        log(f"eval: {EVAL_PROMPTS} dreambench prompts x {EVAL_SAMPLES} samples, 512x512, "
+            f"{EVAL_STEPS} steps (UNet batch {b} with CFG, decodes at batch {EVAL_SAMPLES}: the "
+            f"D 512 flash {decode_plan.variant} splits {decode_plan.nsplit}): "
+            f"{secs['generate']:.2f} s, {EVAL_PROMPTS * EVAL_SAMPLES / secs['generate']:.3f} "
+            f"imgs/sec; PNGs written and read back; launches {counts}")
+
+        # the scores on the card, the CSV written
+        t0 = time.perf_counter()
+        clip_ev = CLIPEvaluator("cuda", torch.Generator(device="cuda").manual_seed(SEED + 21))
+        dino_ev = DINOEvaluator("cuda", torch.Generator(device="cuda").manual_seed(SEED + 22))
+        face = make_face_backend("retinaface_arcface", "cuda",
+                                 torch.Generator(device="cuda").manual_seed(SEED + 23))
+        photos = np.stack([im[..., ::-1].astype(np.float32) - face.client.BGR_MEAN
+                           for im in faces["a"]])
+        calibrate_batch_norms(face.client.model, torch.from_numpy(
+            np.ascontiguousarray(photos.transpose(0, 3, 1, 2))).to("cuda"))
+        recorder = CropRecorder(face)
+        csv_path = os.path.join(root, "scores.csv")
+        rows, crops = [], []
+        for d, prompt in dirs:
+            recorder.crops = []
+            rows += txt2img_eval_torch.score([(d, prompt)], "a", subject, subject, clip_ev,
+                                             dino_ev, recorder, csv_path)
+            crops.append(recorder.crops)
+        torch.cuda.synchronize()
+        secs["score card"] = time.perf_counter() - t0
+        with open(csv_path) as f:
+            table = list(csv.DictReader(f))
+        cols = ["subject", "prompt", "dir", "n_samples", "n_gt", "clip_t", "clip_i", "dino",
+                "face_sim", "n_faces_a", "n_faces_b"]
+        if len(table) != EVAL_PROMPTS or list(table[0]) != cols:
+            raise AssertionError(f"eval CSV: {len(table)} rows, columns {list(table[0])}")
+        for row in table:
+            log(f"eval CSV: {row['prompt']!r}: CLIP-T {row['clip_t']}, CLIP-I {row['clip_i']}, "
+                f"DINO {row['dino']}, face sim {row['face_sim']} ({row['n_faces_a']} / "
+                f"{row['n_faces_b']} faces)")
+            scores = [float(row[k]) for k in ("clip_t", "clip_i", "dino")]
+            if not all(-1.0 <= s <= 1.0 for s in scores):
+                raise AssertionError(f"eval CSV: scores {scores} outside [-1, 1]")
+
+        # the same PNGs scored on the CPU by the same weights
+        t0 = time.perf_counter()
+        clip_cpu, dino_cpu = clip_ev.to("cpu"), dino_ev.to("cpu")
+        arc_cpu = ArcFaceBackend(on_cpu(face.arc.arcface))
+        worst = {}
+        for (d, prompt), row, crop_list in zip(dirs, rows, crops):
+            cpu = compare_folders(d, subject, prompt=prompt, clip_evaluator=clip_cpu,
+                                  dino_evaluator=dino_cpu)
+            embs = [None if c is None else arc_cpu.detect_and_embed(c) for c in crop_list]
+            ea = [e for e in embs[:row["n_samples"]] if e is not None]
+            eb = [e for e in embs[row["n_samples"]:] if e is not None]
+            cpu["face_sim"] = calc_faces_similarities(
+                np.stack(ea) if ea else np.zeros((0, 512)), np.stack(eb) if eb else
+                np.zeros((0, 512)))
+            for k in ("clip_t", "clip_i", "dino", "face_sim"):
+                if math.isnan(row[k]) and math.isnan(cpu[k]):
+                    continue
+                worst[k] = max(worst.get(k, 0.0), abs(row[k] - cpu[k]))
+        secs["score cpu"] = time.perf_counter() - t0
+        log(f"eval: card against CPU on the same PNGs and weights (fp32, TF32 off): largest "
+            f"|score difference| {', '.join(f'{k} {v:.3e}' for k, v in worst.items())} "
+            f"(bound {SCORE_TOL:g}; face similarity on the card's face crops)")
+        if len(worst) < 3 or not max(worst.values()) <= SCORE_TOL:
+            raise AssertionError(f"eval scores card against CPU: {worst}")
+        del clip_cpu, dino_cpu, arc_cpu
+
+        # the face-mask tool on a folder of JPEG and PNG photos
+        t0 = time.perf_counter()
+        folder = os.path.join(root, "masks")
+        os.makedirs(folder)
+        for p in sorted((FIXTURES / "face_parser" / "images").glob("*.jpg")):
+            shutil.copy(p, folder)
+        for i, im in enumerate(faces["b"] + faces["c"]):
+            write_png(os.path.join(folder, f"photo{i}.png"), im)
+        n_photos = len(os.listdir(folder))
+        masks = gen_face_masks_torch.main(["--in_dir", folder, "--trash_dir",
+                                           os.path.join(root, "trash")])
+        if len(masks["masks"]) + len(masks["filtered"]) != n_photos:
+            raise AssertionError(f"face masks: {masks} of {n_photos} photos")
+        for path in masks["masks"]:  # every photo is 512x512
+            mask = read_image(path)
+            if mask.shape != (512, 512) or not set(np.unique(mask)) <= {0, 255}:
+                raise AssertionError(f"face mask {path}: {mask.shape}, values {np.unique(mask)}")
+        secs["face masks"] = time.perf_counter() - t0
+        log(f"face masks: {len(masks['masks'])} written, {len(masks['filtered'])} trashed of "
+            f"{n_photos} photos (random BiSeNet; face fractions "
+            f"{', '.join(f'{v:.3f}' for v in masks['face_frac'].values())}) in "
+            f"{secs['face masks']:.1f} s")
+
+        # BiSeNet parsing and the makeup recolour
+        t0 = time.perf_counter()
+        src = str(FIXTURES / "face_parser" / "images" / "0.jpg")
+        image = native.resize_pil(to_rgb(read_image(src)), (512, 512), "lanczos")
+        parser = load_bisenet(None, "cuda", torch.Generator(device="cuda").manual_seed(0))
+        parsing = gen_face_masks_torch.parse_image(parser, image)
+        out = apply_makeup(image, parsing, MAKEUP)
+        off = ~np.isin(parsing, [MAKEUP_PARTS[p] for p in MAKEUP])
+        if not np.array_equal(out[off], image[off]):
+            raise AssertionError("makeup: pixels off the recoloured parts changed")
+        demo = makeup_demo_torch.main(["--image", src, "--out", os.path.join(root, "makeup.png"),
+                                       *[a for p, c in MAKEUP.items()
+                                         for a in (f"--{p}", ",".join(map(str, c)))]])
+        if not np.array_equal(demo, out):
+            raise AssertionError("makeup_demo_torch differs from parsing + apply_makeup")
+        secs["makeup"] = time.perf_counter() - t0
+        log(f"makeup: BiSeNet parsing of a 512x512 LANCZOS photo ({len(np.unique(parsing))} "
+            f"classes), {int((~off).sum())} pixels recoloured ({', '.join(MAKEUP)}), the other "
+            f"{int(off.sum())} equal to the input bit for bit; makeup_demo_torch the same image")
+
+        # the demo server: GET / and a POST of two photos
+        t0 = time.perf_counter()
+        server = app_torch.make_server(app_torch.DemoBackend(wrapper, EVAL_STEPS), 0, "127.0.0.1")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=60)
+            conn.request("GET", "/")
+            resp = conn.getresponse()
+            page = resp.read().decode()
+            conn.close()
+            if resp.status != 200 or "multipart/form-data" not in page:
+                raise AssertionError(f"demo GET: {resp.status}")
+            status, page = post_multipart(server.server_address[1], [
+                ("a.png", encode_png(faces["a"][0])),
+                ("b.jpg", (FIXTURES / "face_parser" / "images" / "1.jpg").read_bytes())],
+                {"prompt": "portrait at the beach", "style": "realistic",
+                 "n": str(APP_IMAGES), "gs": "5.0"})
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join()
+        pngs = re.findall(r'<img src="data:image/png;base64,([^"]+)">', page)
+        if status != 200 or len(pngs) != APP_IMAGES:
+            raise AssertionError(f"demo POST: {status}, {len(pngs)} images: {page[:200]}")
+        for p in pngs:
+            img = decode_png(base64.b64decode(p))
+            if img.shape != (512, 512, 3) or img.std() == 0:
+                raise AssertionError(f"demo POST: image {img.shape}")
+        secs["demo"] = time.perf_counter() - t0
+        log(f"demo: app_torch on a free port: GET / 200; POST of a PNG and a JPEG photo, "
+            f"{APP_IMAGES} images asked: 200 with {len(pngs)} 512x512 PNGs in {secs['demo']:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = time.perf_counter() - t_phase
+    log(f"eval and tools: seconds by part {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}; "
+        f"card {card}; the phase {total:.1f} s")
+    return dict(counts=counts, call={k: v for k, v in call.items() if k != "seen"},
+                rows=table, worst=worst, masks=masks, seconds=secs, total=total)
+
+
+# ---------------------------------------------------------------------------
 # the host data path without PIL: decoding, the native item pipeline,
 # the face parser on a folder of JPEGs; data-parallel training; sync-BN
 # ---------------------------------------------------------------------------
@@ -6030,7 +6377,7 @@ def decode_images(card: str) -> dict:
     times of both."""
     from adaface_tpu_torch import native
     from adaface_tpu_torch.data.personalized import augment_numpy
-    from adaface_tpu_torch.utils.image import read_image, resize_bilinear_pil, to_grey, to_rgb
+    from adaface_tpu_torch.utils.image import read_image, resize_pil, to_grey, to_rgb
 
     t0 = time.perf_counter()
     native.load_library()
@@ -6074,12 +6421,12 @@ def decode_images(card: str) -> dict:
         f"host ms an item native {native_ms:.3f}, numpy {numpy_ms:.3f} ({card})")
     resize_ms = {}
     for side in RESIZE_SIDES:  # the face parser's scales of a 512x512 photo
-        got = native.resize_bilinear_pil(img, (side, side))
-        if not np.array_equal(got, resize_bilinear_pil(img, (side, side))):
-            raise AssertionError(f"resize_bilinear_pil native against numpy differs at {side}")
+        got = native.resize_pil(img, (side, side))
+        if not np.array_equal(got, resize_pil(img, (side, side))):
+            raise AssertionError(f"resize_pil native against numpy differs at {side}")
         resize_ms[side] = (
-            median_ms(lambda: native.resize_bilinear_pil(img, (side, side))),
-            median_ms(lambda: resize_bilinear_pil(img, (side, side)), reps=3, warmup=1))
+            median_ms(lambda: native.resize_pil(img, (side, side))),
+            median_ms(lambda: resize_pil(img, (side, side)), reps=3, warmup=1))
     log("decode: Pillow's BILINEAR from 512x512 native equal to numpy; host ms native / numpy "
         + ", ".join(f"{k}: {a:.2f} / {b:.2f}" for k, (a, b) in resize_ms.items()) + f" ({card})")
     return dict(equal=equal, refused=refused, jpeg512_ms=jpeg512, decode_ms=decode_ms,
@@ -6706,6 +7053,7 @@ def main() -> int:
     trained = timed_phase("serve_trained", serve_trained, wrapper, faces, card)
     speed = timed_phase("serve_speed_modes", serve_speed_modes, wrapper, faces, card)
     video = timed_phase("serve_video", serve_video, wrapper, faces, card)
+    evaluated = timed_phase("evaluate_and_tools", evaluate_and_tools, wrapper, faces, card)
     encoder = wrapper.id2ada_prompt_encoder
     del wrapper
     gc.collect()
@@ -6766,6 +7114,7 @@ def main() -> int:
              "int8 batcher": speed["drain_counts"],
              "sdxl 2 requests 1024x1024": sdxl["counts"], "sd3 2 requests 1024x1024": sd3["counts"],
              "text2video 16-frame clip": video["counts"],
+             f"eval run {EVAL_PROMPTS} prompts x {EVAL_SAMPLES} samples": evaluated["counts"],
              "face-parser folder fit": folder["counts"], "sync-BN a rank": sync_bn["counts"],
              "stage-1 dp fit rank 0": dp["fits"]["rank0"]["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}

@@ -1,8 +1,10 @@
 """Shared helpers of the port's CLIs (`adaface_infer_torch.py`,
-`adaface_translate_torch.py`), the counterparts of `scripts/_common.py`:
-build the port's `AdaFaceWrapper` from weight files (or random weights for a
-smoke run) on a device, load subject images and write images. Images are
-PNGs read and written by `adaface_tpu_torch.utils.image` (no PIL needed).
+`adaface_translate_torch.py`, the evaluation and face tools), the
+counterparts of `scripts/_common.py`: build the port's `AdaFaceWrapper` from
+weight files (or random weights for a smoke run) on a device, name a face
+backend, list, load and write images. Images are read by
+`adaface_tpu_torch.utils.image.read_image` (PNG, JPEG, BMP) and written as
+PNGs (no PIL needed).
 """
 
 from __future__ import annotations
@@ -120,6 +122,36 @@ def load_adaface(encoder, ckpt_dir: str) -> None:
     from adaface_tpu_torch.train.checkpoint import load_subj_basis_generators
 
     load_subj_basis_generators(encoder, ckpt_dir)
+
+
+def add_face_backend_arg(ap) -> None:
+    from adaface_tpu_torch.evaluation.face_sim import FACE_BACKENDS
+
+    ap.add_argument("--face_backend", default=FACE_BACKENDS[0], choices=FACE_BACKENDS,
+                    help="the in-repo RetinaFace + ArcFace stack (random weights), or "
+                         "'deterministic' (a hash of the pixels, for tests)")
+
+
+def image_files(folder: str, exts=(".jpg", ".jpeg", ".png", ".webp", ".bmp")) -> list[str]:
+    """The folder's image file names by extension, sorted, without the
+    `*_mask.png` masks that sit beside training photos."""
+    return sorted(f for f in os.listdir(folder)
+                  if os.path.splitext(f)[1].lower() in exts and not f.endswith("_mask.png"))
+
+
+def embed_folder(folder: str, backend) -> tuple[np.ndarray, list[str], list[str]]:
+    """Each image of the folder (`image_files`) through the face backend →
+    (embeddings [N, 512] of those with a face, their paths, every path)."""
+    from adaface_tpu_torch.utils.image import read_image, to_rgb
+
+    paths = [os.path.join(folder, f) for f in image_files(folder)]
+    embs, kept = [], []
+    for p in paths:
+        e = backend.detect_and_embed(to_rgb(read_image(p)))
+        if e is not None:
+            embs.append(e)
+            kept.append(p)
+    return (np.stack(embs) if embs else np.zeros((0, 512), np.float32)), kept, paths
 
 
 def load_subject_images(path: str, limit: int | None = None) -> list[np.ndarray]:

@@ -26,7 +26,7 @@ from PIL import Image
 from adaface_tpu_torch import native
 from adaface_tpu_torch.native import decode_image
 from adaface_tpu_torch.train import face_parsing_train as ttrain
-from adaface_tpu_torch.utils.image import (paste_pad, read_image, read_png, resize_bilinear_pil,
+from adaface_tpu_torch.utils.image import (paste_pad, read_image, read_png, resize_pil,
                                            resize_nearest_pil, to_grey, to_rgb)
 from tests.make_image_fixtures import encode_jpeg, smooth_image
 
@@ -192,9 +192,9 @@ def test_pillow_operations():
         img = rs.randint(0, 256, shape).astype(np.uint8)
         for size in ((75, 90), (448, 448), (13, 200), (1, 1), (shape[1], 60), (3, shape[0])):
             want = np.asarray(Image.fromarray(img).resize(size, Image.BILINEAR))
-            np.testing.assert_array_equal(resize_bilinear_pil(img, size), want,
+            np.testing.assert_array_equal(resize_pil(img, size), want,
                                           err_msg=f"{shape} -> {size}")
-            np.testing.assert_array_equal(native.resize_bilinear_pil(img, size), want,
+            np.testing.assert_array_equal(native.resize_pil(img, size), want,
                                           err_msg=f"native {shape} -> {size}")
             np.testing.assert_array_equal(
                 resize_nearest_pil(img, size),
@@ -270,18 +270,33 @@ def port_files() -> list[pathlib.Path]:
     repo = pathlib.Path(FIXTURES).parent.parent.parent
     return (sorted((repo / "adaface_tpu_torch").rglob("*.py"))
             + [repo / n for n in ("chip_smoke.py", "chip_compare.py", "train_torch.py",
-                                  "bench_torch.py")]
+                                  "bench_torch.py", "app_torch.py")]
             + sorted((repo / "scripts").glob("*_torch.py")))
+
+
+CV2_IMPORT = re.compile(r"^\s*(?:import|from)\s+cv2\b", re.MULTILINE)
+# the optional Haar-cascade detector of the training losses, the one use of
+# OpenCV in the port (`train/face_losses.py`, `train/face_detect.py`)
+CV2_ALLOWED = {"face_losses.py", "face_detect.py"}
 
 
 def test_port_imports_no_pil_or_jax():
     """No port file, `chip_smoke.py`, `chip_compare.py`, `train_torch.py`,
-    `bench_torch.py` or `scripts/*_torch.py` imports PIL, JAX, optax or the
-    JAX package, at the top or inside a function (the card's machine has
-    none of them), and every entry point runs on the card unless asked for
-    the CPU."""
+    `bench_torch.py`, `app_torch.py` or `scripts/*_torch.py` imports PIL,
+    JAX, optax or the JAX package, at the top or inside a function (the
+    card's machine has none of them), none but the training losses' optional
+    face detector imports OpenCV (the card's machine has none: the
+    evaluation package, the ViT, the makeup copy, the tool twins and the
+    demo among them), and every entry point runs on the card unless asked
+    for the CPU."""
     files = port_files()
     assert len(files) > 80
+    names = {f.relative_to(files[0].parents[1]).as_posix() for f in files}
+    assert {"app_torch.py", "adaface_tpu_torch/models/vit.py",
+            "adaface_tpu_torch/utils/makeup.py", "adaface_tpu_torch/evaluation/clip_eval.py",
+            "scripts/txt2img_eval_torch.py", "scripts/gen_face_masks_torch.py"} <= names
+    cv2 = {f.name for f in files if CV2_IMPORT.search(f.read_text())}
+    assert cv2 <= CV2_ALLOWED, cv2 - CV2_ALLOWED
     bad = {f.name: PORT_IMPORT.findall(f.read_text()) for f in files}
     assert {k: v for k, v in bad.items() if v} == {}
     defaults = {f.name: re.findall(r'"--device",\s*default="(\w+)"', f.read_text())

@@ -124,6 +124,6 @@ def test_use_native_raises_when_the_build_fails(mixed_root, tmp_path, monkeypatc
         with pytest.raises(RuntimeError, match="could not be built"):
             ds[0]
         with pytest.raises(RuntimeError, match="could not be built"):
-            native.resize_bilinear_pil(np.zeros((4, 4, 3), np.uint8), (8, 8))
+            native.resize_pil(np.zeros((4, 4, 3), np.uint8), (8, 8))
     finally:
         native.load_library.cache_clear()
