@@ -30,6 +30,7 @@ of the diffusion pipeline, as the JAX encoders do.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -281,8 +282,11 @@ class Arc2FaceID2AdaPrompt(FaceID2AdaPrompt):
     @classmethod
     def random_init(cls, gen: torch.Generator, tokenizer: CLIPTokenizer, device,
                     text_cfg: CLIPTextConfig = CLIP_L_TEXT,
-                    sbg_cfg: SubjBasisConfig = SubjBasisConfig(), **kw):
-        """Random float32 towers from `gen`, built on `device`."""
+                    sbg_cfg: SubjBasisConfig = SubjBasisConfig(),
+                    num_static_img_suffix_embs: int | None = None, **kw):
+        """Random float32 towers from `gen`, built on `device`;
+        `num_static_img_suffix_embs` overrides `sbg_cfg`'s."""
+        sbg_cfg = _with_suffix(sbg_cfg, num_static_img_suffix_embs)
         te = build(lambda: CLIPTextModel(text_cfg), device, torch.float32,
                    init_text_weights_, gen)
         sbg = build(lambda: SubjBasisGenerator(sbg_cfg, tokenizer), device, torch.float32,
@@ -325,12 +329,15 @@ class ConsistentIDID2AdaPrompt(FaceID2AdaPrompt):
     def random_init(cls, gen: torch.Generator, tokenizer: CLIPTokenizer, device,
                     vision_cfg: CLIPVisionConfig = CLIP_H_VISION,
                     sbg_cfg: SubjBasisConfig = SubjBasisConfig(num_id_vecs=4),
-                    proj_depth: int = 4, image_proj_path: str | None = None, **kw):
+                    proj_depth: int = 4, image_proj_path: str | None = None,
+                    num_static_img_suffix_embs: int | None = None, **kw):
         """Random float32 towers from `gen`, built on `device`: CLIP-H/14
         vision, ProjPlus (depth 4, 12 heads of 64 at 768), the generator.
         `image_proj_path`: ConsistentID's trained image projection
         (`ConsistentID-v1.bin`, `face_id_to_ada_prompt.py:386-397`) in place
-        of the random ProjPlus."""
+        of the random ProjPlus; `num_static_img_suffix_embs` overrides
+        `sbg_cfg`'s."""
+        sbg_cfg = _with_suffix(sbg_cfg, num_static_img_suffix_embs)
         vision = build(lambda: CLIPVisionModel(vision_cfg), device, torch.float32,
                        init_vision_weights_, gen)
         proj = build(lambda: ProjPlus(clip_dim=vision_cfg.hidden_size, out_dim=sbg_cfg.out_dim,
@@ -379,15 +386,20 @@ class JointFaceID2AdaPrompt:
     def random_init(cls, gen: torch.Generator, tokenizer: CLIPTokenizer, device,
                     face_backend: FaceBackend | None = None,
                     out_id_embs_cfg_scales=(1.0, 6.0), p_dropout=(0.1, 0.1),
-                    is_training: bool = False, arc2face_kw=None, consistentid_kw=None):
+                    is_training: bool = False, arc2face_kw=None, consistentid_kw=None,
+                    num_static_img_suffix_embs: int | None = None):
         """Arc2Face, then ConsistentID, from `gen` on `device`, one face
-        backend for both."""
+        backend for both; `num_static_img_suffix_embs` goes to both, as
+        JAX's `**kw` gives it (`face_id_to_ada_prompt.py:379-391`)."""
+        sfx = {} if num_static_img_suffix_embs is None else {
+            "num_static_img_suffix_embs": num_static_img_suffix_embs}
         a = Arc2FaceID2AdaPrompt.random_init(
             gen, tokenizer, device, face_backend=face_backend,
-            out_id_embs_cfg_scale=out_id_embs_cfg_scales[0], **(arc2face_kw or {}))
+            out_id_embs_cfg_scale=out_id_embs_cfg_scales[0], **{**sfx, **(arc2face_kw or {})})
         c = ConsistentIDID2AdaPrompt.random_init(
             gen, tokenizer, device, face_backend=face_backend,
-            out_id_embs_cfg_scale=out_id_embs_cfg_scales[1], **(consistentid_kw or {}))
+            out_id_embs_cfg_scale=out_id_embs_cfg_scales[1],
+            **{**sfx, **(consistentid_kw or {})})
         return cls([a, c], p_dropout=p_dropout, is_training=is_training)
 
     def extract_init_id_embeds_from_images(self, images, fg_masks=None, calc_avg=False,
@@ -477,6 +489,10 @@ class JointFaceID2AdaPrompt:
         ada = torch.cat([a for a in ada_list if a is not None],
                         dim=0 if avg_at_stage is not None else 1)
         return ada, img_list, lens
+
+
+def _with_suffix(cfg: SubjBasisConfig, n: int | None) -> SubjBasisConfig:
+    return cfg if n is None else dataclasses.replace(cfg, num_static_img_suffix_embs=n)
 
 
 def create_id2ada_prompt_encoder(name: str, gen: torch.Generator | None = None,

@@ -6,9 +6,11 @@ and flags (as `ops/_build.py` names the CUDA one), and loaded with ctypes:
 
 - `decode.cpp`: JPEG (8-bit Huffman sequential and progressive, grey and
   YCbCr at 4:4:4 / 4:2:2 / 4:2:0 / 4:4:0) and BMP (24-, 32-bit and 8-bit
-  paletted) to the pixels Pillow with libjpeg-turbo gives, bit for bit; any
-  other variant is refused with a message. Entropy decoding in Python loops
-  would cost seconds a photo and hold the trainer's prefetch thread back.
+  paletted) to the pixels Pillow with libjpeg-turbo gives, bit for bit; GIF
+  (its frames composited onto the logical screen as Pillow gives them for
+  `seek(i)`, `convert("RGB")`); any other variant is refused with a
+  message. Entropy decoding in Python loops would cost seconds a photo and
+  hold the trainer's prefetch thread back.
 - `imgops.cpp`: `prepare_item`, the dataset's resize → flip → shrink into
   the canvas → roll → normalize chain, the same bits as
   `data.personalized.augment_numpy`; `resize_pil`, Pillow's BILINEAR,
@@ -76,6 +78,10 @@ def load_library() -> ctypes.CDLL:
     lib.image_info.restype = i32
     lib.image_decode.argtypes = [p, sz, p, ctypes.c_char_p, i32]
     lib.image_decode.restype = i32
+    lib.gif_info.argtypes = [p, sz, ip, ip, ip, ctypes.c_char_p, i32]
+    lib.gif_info.restype = i32
+    lib.gif_decode.argtypes = [p, sz, p, i32, ctypes.c_char_p, i32]
+    lib.gif_decode.restype = i32
     lib.prepare_item.argtypes = [p, i32, i32, p, i32, i32, i32, i32, i32, i32, p, p, p, p]
     lib.prepare_item.restype = i32
     lib.resample_pass_u8.argtypes = [p, i32, i32, i32, i32, p, p, i32, i32, p]
@@ -100,6 +106,24 @@ def decode_image(data: bytes, path="<bytes>") -> np.ndarray:
         raise ValueError(f"{path}: {err.value.decode()}")
     out = np.empty((h.value, w.value) + ((c.value,) if c.value > 1 else ()), np.uint8)
     if lib.image_decode(_ptr(buf), buf.size, _ptr(out), err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return out
+
+
+def decode_gif(data: bytes, path="<bytes>", max_frames: int | None = None) -> np.ndarray:
+    """A GIF file's bytes → its frames (the first `max_frames` of them, or
+    all) as uint8 [F, H, W, 3] RGB on the logical screen. Raises ValueError
+    naming `path` and what it found for a GIF the decoder does not take."""
+    lib = load_library()
+    buf = np.frombuffer(data, np.uint8)
+    w, h, f = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    if lib.gif_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h), ctypes.byref(f),
+                    err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    n = f.value if max_frames is None else min(f.value, max_frames)
+    out = np.empty((n, h.value, w.value, 3), np.uint8)
+    if lib.gif_decode(_ptr(buf), buf.size, _ptr(out), n, err, len(err)):
         raise ValueError(f"{path}: {err.value.decode()}")
     return out
 

@@ -1,4 +1,5 @@
-// JPEG and BMP decoding for the host data path (C ABI, loaded with ctypes).
+// JPEG, BMP and GIF decoding for the host data path (C ABI, loaded with
+// ctypes).
 //
 // The pixels are those Pillow gives for `Image.open(path)` on a build with
 // libjpeg-turbo at its defaults: the integer ISLOW IDCT (jidctint.c),
@@ -14,7 +15,8 @@
 //
 // Two calls: `image_info` parses the headers into the output's shape, then
 // `image_decode` fills a caller-owned [H, W, C] uint8 buffer (C = 1 for a
-// grey JPEG, else 3). Both return 0, or 1 with a message in `err`.
+// grey JPEG, else 3). Both return 0, or 1 with a message in `err`. GIF has
+// its own pair, `gif_info` and `gif_decode`, for its frames (see `Gif`).
 
 #include <algorithm>
 #include <cstdint>
@@ -833,6 +835,345 @@ struct Bmp {
   }
 };
 
+// ------------------------------------------------------------------- GIF
+//
+// GIF87a and GIF89a: global and local palettes, LZW codes of 2 to 12 bits
+// (clear and end codes; a full table is kept until the next clear code),
+// interlaced frames, and the graphic control extension's transparent index
+// and disposal method. The frames are composited onto the logical screen as
+// Pillow gives them for `seek(i)` then `convert("RGB")` (its default
+// RGB_AFTER_FIRST loading):
+// - frame 0 keeps palette indices: the screen outside its rectangle holds
+//   index 0, or its transparent index, and its own transparent pixels keep
+//   their index, so both show their palette colour;
+// - from frame 1 on the screen is RGB: a frame's pixels go through its
+//   palette (its local one, else the global one), and its transparent
+//   pixels leave what is under them;
+// - an index past a palette reads black;
+// - before each frame the previous frame's rectangle is disposed of by the
+//   disposal method in force (a method stays in force over later frames
+//   whose own is 0, as Pillow keeps it): 2 fills the rectangle with the
+//   transparent index, else the background index, through the new frame's
+//   palette from frame 1 on; 3 restores what was there before the frame was
+//   drawn (after frame 0 only where it had a transparent index, which then
+//   fills the rectangle).
+// A GIF whose frame 0 has no palette, or the grey ramp (entry i = i, i, i),
+// is grey (Pillow's "L"): indices are grey levels, every frame is drawn as
+// indices, and disposal 2 fills with frame 0's transparent index first.
+// Refused with a message: a frame outside the logical screen or empty, a
+// frame with a palette after a grey frame 0 and one without after a
+// paletted frame 0, LZW minimum code sizes outside 1..8, a code not yet in
+// the table, and a file that ends inside a header or a frame's data.
+
+class Gif {
+ public:
+  struct Frame {
+    int x0 = 0, y0 = 0, w = 0, h = 0;
+    bool interlace = false;
+    int transparency = -1;  // the transparent index, or -1
+    int dispose = 0;        // the disposal method's bits, 0 where unspecified
+    const uint8_t* pal = nullptr;  // the local palette, or null
+    int pal_n = 0;
+    int min_code = 0;
+    size_t data = 0;  // the first sub-block of the LZW data
+  };
+
+  int width = 0, height = 0;
+  std::vector<Frame> frames;
+
+  Gif(const uint8_t* p, size_t n) : p_(p), n_(n) { parse(); }
+
+  // out: [count, height, width, 3] uint8, the first `count` frames
+  void decode(uint8_t* out, size_t count) const {
+    const size_t screen = (size_t)width * height;
+    std::vector<uint8_t> idx(screen, 0), rgb;
+    uint8_t pal0[256 * 3];
+    enum { P, L, RGB } mode = P;
+    int method = 0, info_t = -1;
+    Dispose pending;
+    std::vector<int> px;
+    for (size_t f = 0; f < std::min(count, frames.size()); ++f) {
+      const Frame& fr = frames[f];
+      const uint8_t* fp = nullptr;  // the frame's palette, null if grey
+      int fp_n = 0;
+      if (fr.pal) {
+        if (!grey_ramp(fr.pal, fr.pal_n)) fp = fr.pal, fp_n = fr.pal_n;
+      } else if (gpal_ && !grey_ramp(gpal_, gpal_n_)) {
+        fp = gpal_, fp_n = gpal_n_;
+      }
+      if (f > 0) apply(pending, mode == RGB ? rgb.data() : idx.data());
+      if (fr.dispose) method = fr.dispose;
+      if (f == 0) {
+        mode = fp ? P : L;
+        if (fp) table(fp, fp_n, pal0);
+      } else if (mode == L && fp) {
+        fail("GIF: a frame with a palette after a first frame without one");
+      } else if (mode != L && !fp) {
+        fail("GIF: a frame without a palette after a first frame with one");
+      } else if (mode == P) {
+        rgb.resize(3 * screen);
+        for (size_t i = 0; i < screen; ++i) std::memcpy(&rgb[3 * i], &pal0[3 * idx[i]], 3);
+        mode = RGB;
+      }
+      // what replaces this frame's rectangle before the next frame
+      pending = Dispose();
+      pending.x0 = fr.x0, pending.y0 = fr.y0, pending.w = fr.w, pending.h = fr.h;
+      if (method == 2) {
+        int c = mode == L && info_t >= 0 ? info_t : fr.transparency;
+        if (c < 0) c = background_;
+        if (mode == RGB) {
+          pending.kind = 2;
+          const int e = (c + 1) * 3 > 3 * fp_n ? 0 : c;
+          std::memcpy(pending.colour, fp + 3 * e, 3);
+        } else {
+          pending.kind = 1, pending.index = c;
+        }
+      } else if (method >= 3) {
+        if (f > 0) {
+          const int ch = mode == RGB ? 3 : 1;
+          const uint8_t* src = mode == RGB ? rgb.data() : idx.data();
+          pending.kind = mode == RGB ? 4 : 3;
+          pending.patch.resize((size_t)fr.w * fr.h * ch);
+          for (int y = 0; y < fr.h; ++y)
+            std::memcpy(&pending.patch[(size_t)y * fr.w * ch],
+                        src + (((size_t)(fr.y0 + y) * width) + fr.x0) * ch, (size_t)fr.w * ch);
+        } else if (fr.transparency >= 0) {
+          pending.kind = 1, pending.index = fr.transparency;
+        }
+      }
+      if (f == 0 && mode == L) info_t = fr.transparency;
+
+      lzw(fr, px);
+      const int t = fr.transparency;
+      if (f == 0) {
+        std::fill(idx.begin(), idx.end(), (uint8_t)(t >= 0 ? t : 0));
+      }
+      uint8_t ft[256 * 3];
+      if (mode == RGB) table(fp, fp_n, ft);
+      for (int y = 0; y < fr.h; ++y) {
+        for (int x = 0; x < fr.w; ++x) {
+          int v = px[(size_t)y * fr.w + x];
+          const size_t o = (size_t)(fr.y0 + y) * width + fr.x0 + x;
+          if (f == 0) {
+            if (v >= 0) idx[o] = (uint8_t)v;
+          } else if (mode == L) {
+            if (v >= 0 && v != t) idx[o] = (uint8_t)v;
+          } else {
+            if (v < 0) v = t >= 0 ? t : 0;  // the rectangle's fill
+            if (v != t) std::memcpy(&rgb[3 * o], &ft[3 * v], 3);
+          }
+        }
+      }
+      uint8_t* o = out + f * screen * 3;
+      if (mode == RGB) {
+        std::memcpy(o, rgb.data(), 3 * screen);
+      } else {
+        for (size_t i = 0; i < screen; ++i) {
+          const uint8_t* c = &pal0[3 * idx[i]];
+          for (int k = 0; k < 3; ++k) o[3 * i + k] = mode == P ? c[k] : idx[i];
+        }
+      }
+    }
+  }
+
+ private:
+  // what replaces a frame's rectangle before the next frame
+  struct Dispose {
+    int kind = 0;  // 0 nothing, 1 an index, 2 a colour, 3 indices, 4 colours
+    int index = 0;
+    uint8_t colour[3] = {0, 0, 0};
+    std::vector<uint8_t> patch;  // [h, w, 1 or 3]
+    int x0 = 0, y0 = 0, w = 0, h = 0;
+  };
+
+  const uint8_t* p_;
+  size_t n_;
+  const uint8_t* gpal_ = nullptr;
+  int gpal_n_ = 0, background_ = 0;
+
+  static bool grey_ramp(const uint8_t* pal, int n) {
+    for (int i = 0; i < n; ++i)
+      if (pal[3 * i] != i || pal[3 * i + 1] != i || pal[3 * i + 2] != i) return false;
+    return true;
+  }
+
+  // 256 palette entries, black past the palette's own
+  static void table(const uint8_t* pal, int n, uint8_t* out) {
+    std::memset(out, 0, 256 * 3);
+    std::memcpy(out, pal, (size_t)std::min(n, 256) * 3);
+  }
+
+  void apply(const Dispose& d, uint8_t* im) const {
+    const int ch = d.kind == 2 || d.kind == 4 ? 3 : 1;
+    for (int y = 0; y < d.h && d.kind; ++y) {
+      uint8_t* row = im + ((size_t)(d.y0 + y) * width + d.x0) * ch;
+      if (d.kind >= 3) {
+        std::memcpy(row, &d.patch[(size_t)y * d.w * ch], (size_t)d.w * ch);
+      } else if (d.kind == 1) {
+        std::memset(row, d.index, d.w);
+      } else {
+        for (int x = 0; x < d.w; ++x) std::memcpy(row + 3 * x, d.colour, 3);
+      }
+    }
+  }
+
+  size_t skip_blocks(size_t pos, const char* where) const {
+    while (true) {
+      if (pos >= n_) fail(std::string("GIF: file ends inside ") + where);
+      const size_t len = p_[pos++];
+      if (len == 0) return pos;
+      if (pos + len > n_) fail(std::string("GIF: file ends inside ") + where);
+      pos += len;
+    }
+  }
+
+  void parse() {
+    if (n_ < 13) fail("GIF: file ends inside the header");
+    if (std::memcmp(p_, "GIF87a", 6) != 0 && std::memcmp(p_, "GIF89a", 6) != 0)
+      fail("not a GIF87a or GIF89a file");
+    width = p_[6] | p_[7] << 8;
+    height = p_[8] | p_[9] << 8;
+    if (width == 0 || height == 0) fail("GIF: empty logical screen");
+    const int flags = p_[10];
+    size_t pos = 13;
+    if (flags & 0x80) {
+      background_ = p_[11];
+      gpal_n_ = 1 << ((flags & 7) + 1);
+      gpal_ = p_ + pos;
+      pos += 3 * (size_t)gpal_n_;
+      if (pos > n_) fail("GIF: file ends inside the global palette");
+    }
+    int transparency = -1, dispose = 0;
+    while (pos < n_) {
+      const uint8_t b = p_[pos++];
+      if (b == ';') break;
+      if (b == '!') {
+        if (pos >= n_) fail("GIF: file ends inside an extension");
+        const int label = p_[pos++];
+        if (label == 0xF9 && pos < n_ && p_[pos] > 0) {
+          if (p_[pos] < 4 || pos + 5 > n_) fail("GIF: bad graphic control extension");
+          const int gflags = p_[pos + 1];
+          if (gflags & 1) transparency = p_[pos + 4];
+          dispose = (gflags >> 2) & 7;
+        }
+        pos = skip_blocks(pos, "an extension");
+      } else if (b == ',') {
+        if (pos + 9 > n_) fail("GIF: file ends inside an image descriptor");
+        Frame fr;
+        fr.x0 = p_[pos] | p_[pos + 1] << 8;
+        fr.y0 = p_[pos + 2] | p_[pos + 3] << 8;
+        fr.w = p_[pos + 4] | p_[pos + 5] << 8;
+        fr.h = p_[pos + 6] | p_[pos + 7] << 8;
+        const int iflags = p_[pos + 8];
+        pos += 9;
+        if (fr.w == 0 || fr.h == 0) fail("GIF: empty frame");
+        if (fr.x0 + fr.w > width || fr.y0 + fr.h > height)
+          fail("GIF: a frame outside the logical screen");
+        fr.interlace = (iflags & 0x40) != 0;
+        if (iflags & 0x80) {
+          fr.pal_n = 1 << ((iflags & 7) + 1);
+          fr.pal = p_ + pos;
+          pos += 3 * (size_t)fr.pal_n;
+          if (pos > n_) fail("GIF: file ends inside a local palette");
+        }
+        if (pos >= n_) fail("GIF: file ends inside a frame's data");
+        fr.min_code = p_[pos++];
+        if (fr.min_code < 1 || fr.min_code > 8)
+          fail("GIF: LZW minimum code size " + std::to_string(fr.min_code) +
+               " (1 to 8 are taken)");
+        fr.data = pos;
+        pos = skip_blocks(pos, "a frame's data");
+        fr.transparency = transparency;
+        fr.dispose = dispose;
+        frames.push_back(fr);
+        transparency = -1, dispose = 0;
+      }
+      // any other byte between blocks is skipped, as Pillow skips it
+    }
+    if (frames.empty()) fail("GIF: no image in the file");
+  }
+
+  // The frame's pixel indices in raster order, -1 where the data ended first.
+  void lzw(const Frame& fr, std::vector<int>& px) const {
+    const size_t total = (size_t)fr.w * fr.h;
+    px.assign(total, -1);
+    std::vector<int> rows(fr.h);
+    if (fr.interlace) {
+      int k = 0;
+      const int start[4] = {0, 4, 2, 1}, step[4] = {8, 8, 4, 2};
+      for (int pass = 0; pass < 4; ++pass)
+        for (int y = start[pass]; y < fr.h; y += step[pass]) rows[k++] = y;
+    } else {
+      for (int y = 0; y < fr.h; ++y) rows[y] = y;
+    }
+    const int clear = 1 << fr.min_code, end = clear + 1;
+    int size = fr.min_code + 1, next = end + 1, prev = -1, first = 0;
+    uint16_t prefix[4096];
+    uint8_t suffix[4096];
+    std::vector<uint8_t> stack(4097);
+    size_t pos = fr.data, block_end = fr.data, written = 0;
+    uint32_t acc = 0;
+    int nbits = 0;
+    bool done = false;
+    auto put = [&](int v) {
+      if (written < total) {
+        const size_t y = written / fr.w, x = written % fr.w;
+        px[(size_t)rows[y] * fr.w + x] = v;
+        ++written;
+      }
+    };
+    while (!done && written < total) {
+      while (nbits < size) {
+        if (pos == block_end) {
+          const size_t len = p_[pos++];
+          if (len == 0) {
+            done = true;
+            break;
+          }
+          block_end = pos + len;
+        }
+        acc |= (uint32_t)p_[pos++] << nbits;
+        nbits += 8;
+      }
+      if (done) break;
+      const int code = acc & ((1u << size) - 1);
+      acc >>= size;
+      nbits -= size;
+      if (code == clear) {
+        size = fr.min_code + 1, next = end + 1, prev = -1;
+        continue;
+      }
+      if (code == end) break;
+      if (prev < 0) {
+        if (code > clear) fail("GIF: LZW code not in the table");
+        put(code);
+        prev = first = code;
+        continue;
+      }
+      int c = code, sp = 0;
+      if (code >= next) {
+        if (code > next) fail("GIF: LZW code not in the table");
+        stack[sp++] = (uint8_t)first;  // the KwKwK case
+        c = prev;
+      }
+      while (c > clear) {
+        stack[sp++] = suffix[c];
+        c = prefix[c];
+      }
+      stack[sp++] = (uint8_t)c;
+      first = c;
+      while (sp) put(stack[--sp]);
+      if (next < 4096) {
+        prefix[next] = (uint16_t)prev;
+        suffix[next] = (uint8_t)first;
+        ++next;
+        if (next == (1 << size) && size < 12) ++size;
+      }
+      prev = code;
+    }
+  }
+};
+
 int report(const Error& e, char* err, int err_len) {
   if (err && err_len > 0) std::snprintf(err, (size_t)err_len, "%s", e.msg.c_str());
   return 1;
@@ -874,6 +1215,32 @@ int image_decode(const uint8_t* data, size_t n, uint8_t* out, char* err, int err
     } else {
       fail("neither a JPEG nor a BMP file");
     }
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, err_len);
+  }
+}
+
+// A GIF's logical screen and its number of frames.
+int gif_info(const uint8_t* data, size_t n, int* w, int* h, int* frames, char* err,
+             int err_len) {
+  try {
+    Gif g(data, n);
+    *w = g.width;
+    *h = g.height;
+    *frames = (int)g.frames.size();
+    return 0;
+  } catch (const Error& e) {
+    return report(e, err, err_len);
+  }
+}
+
+// Decode the first `count` frames into out [count, h, w, 3] uint8 (the
+// screen `gif_info` gave), composited onto the logical screen.
+int gif_decode(const uint8_t* data, size_t n, uint8_t* out, int count, char* err,
+               int err_len) {
+  try {
+    Gif(data, n).decode(out, (size_t)std::max(count, 0));
     return 0;
   } catch (const Error& e) {
     return report(e, err, err_len);

@@ -19,8 +19,9 @@ The training data path's PIL calls (`adaface_tpu/data/personalized.py`
 and `train/face_parsing_train.py`: `Image.open(...).convert("RGB" or "L")`,
 padding to a square, NEAREST and BILINEAR resizes, `Image.new` + `paste`)
 are here too: `read_image` (PNG on stdlib `zlib`: 8-bit grey, RGB and RGBA,
-non-interlaced, all five row filters; JPEG and BMP through the port's host
-library; any other file raises with its path), `write_png`, `to_rgb` /
+non-interlaced, all five row filters; JPEG, BMP and a GIF's first frame
+through the port's host library; any other file raises with its path),
+`read_gif_frames` (a GIF's frames as Pillow composites them), `write_png`, `to_rgb` /
 `to_grey` as PIL converts, `pad_to_square`, `resize_nearest_pil`, which
 samples where PIL's NEAREST does, `resize_pil` (Pillow's fixed-point
 resample with its BILINEAR, BICUBIC or LANCZOS filter) and `paste_pad`. `write_gif` writes an animated GIF (the video pipeline's
@@ -118,6 +119,7 @@ def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
 PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type → channels: grey, RGB, RGBA
 
 
@@ -198,12 +200,27 @@ def read_image(path) -> np.ndarray:
         return decode_image_bytes(f.read(), path)
 
 
+def read_gif_frames(path) -> np.ndarray:
+    """A GIF file → its frames, uint8 [F, H, W, 3] RGB, each composited onto
+    the logical screen as Pillow's `seek(i)` then `convert("RGB")` gives it
+    (the port's host library, `adaface_tpu_torch.native.decode_gif`).
+    Another file, or a GIF the decoder does not take, raises a ValueError
+    naming `path`."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] not in GIF_SIGNATURES:
+        raise ValueError(f"{path}: magic bytes {data[:6]!r}; not a GIF file")
+    from adaface_tpu_torch.native import decode_gif
+
+    return decode_gif(data, path)
+
+
 def decode_image_bytes(data: bytes, path="<bytes>") -> np.ndarray:
     """An image file's bytes → uint8 [H, W] (grey) or [H, W, 3 or 4], by
     its magic bytes: PNG (`decode_png`), JPEG or BMP (the port's host
-    library, `adaface_tpu_torch.native.decode_image`). Another format (WebP,
-    GIF, …), or a variant the decoders do not take, raises a ValueError
-    naming `path`."""
+    library, `adaface_tpu_torch.native.decode_image`), GIF (its first frame,
+    RGB, as Pillow's convert("RGB") gives it). Another format (WebP, …), or
+    a variant the decoders do not take, raises a ValueError naming `path`."""
     head = data[:12]
     if head[:8] == PNG_SIGNATURE:
         return decode_png(data, path)
@@ -211,9 +228,13 @@ def decode_image_bytes(data: bytes, path="<bytes>") -> np.ndarray:
         from adaface_tpu_torch.native import decode_image
 
         return decode_image(data, path)
+    if head[:6] in GIF_SIGNATURES:
+        from adaface_tpu_torch.native import decode_gif
+
+        return decode_gif(data, path, max_frames=1)[0]
     kind = "a WebP file" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else \
         f"magic bytes {head[:4]!r}"
-    raise ValueError(f"{path}: {kind}; the port reads PNG, JPEG and BMP")
+    raise ValueError(f"{path}: {kind}; the port reads PNG, JPEG, BMP and GIF")
 
 
 def write_png(path, img: np.ndarray) -> None:

@@ -5,6 +5,10 @@ Counterpart of `adaface_tpu/utils/sample_logger.py` (the reference's
 bounded queue, and a worker thread writes each batch as a grid with a border
 coloured by iteration type, so that the train loop never waits on the disk.
 The grids are PNGs written by `utils.image.write_png` (no PIL needed).
+`log_latents` hands the worker latents and the function that decodes them
+(the trainer's previews, `trainer.py:622-634`): the worker decodes them too,
+on a CUDA stream of its own for a CUDA tensor, after the work that made
+them, so the train loop waits for neither the decode nor the disk.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ class SampleLogger:
         os.makedirs(self.dir, exist_ok=True)
         self.q: queue.Queue = queue.Queue(maxsize=max_queue)
         self.dropped = 0
+        self._stream = None  # the worker's CUDA stream for decodes
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -55,12 +60,38 @@ class SampleLogger:
         loop never stalls on the disk). → False if dropped."""
         if isinstance(images, torch.Tensor):
             images = images.detach().float().cpu().numpy()
+        return self._put((step, iter_type, np.asarray(images), None, None))
+
+    def log_latents(self, step: int, iter_type: str, latents: torch.Tensor, decode) -> bool:
+        """Enqueue without blocking latents that the worker decodes with
+        `decode` (→ [N, 3, H, W] in [-1, 1]) and writes as `log` writes
+        images in [0, 1]. → False if dropped."""
+        event = None
+        if latents.is_cuda:
+            event = torch.cuda.Event()
+            event.record()  # on the producer's stream
+        return self._put((step, iter_type, latents.detach(), decode, event))
+
+    def _put(self, item) -> bool:
         try:
-            self.q.put_nowait((step, iter_type, np.asarray(images)))
+            self.q.put_nowait(item)
             return True
         except queue.Full:
             self.dropped += 1
             return False
+
+    @torch.no_grad()
+    def _decode(self, latents: torch.Tensor, decode, event) -> np.ndarray:
+        if event is None:
+            images = decode(latents)
+        else:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(latents.device)
+            self._stream.wait_event(event)
+            with torch.cuda.stream(self._stream):
+                latents.record_stream(self._stream)
+                images = decode(latents).float().cpu()
+        return (images.float().numpy() + 1) / 2
 
     def _run(self):
         from adaface_tpu_torch.utils.image import write_png
@@ -69,8 +100,10 @@ class SampleLogger:
             item = self.q.get()
             if item is None:
                 return
-            step, iter_type, images = item
+            step, iter_type, images, decode, event = item
             try:
+                if decode is not None:
+                    images = self._decode(images, decode, event)
                 grid = _to_grid(images, color=ITER_TYPE_COLORS.get(iter_type, (128, 128, 128)))
                 write_png(os.path.join(self.dir, f"{step:07d}_{iter_type}.png"), grid)
             except Exception as e:  # never kill the worker

@@ -310,6 +310,15 @@ FLASH_TOME_CASES = [("tome 0.5 64x64 self", 2, 8, 2048, 2048, 40),
 FLASH_TEACHER_CASES = [(f"unet {hw} cross Sk16 teacher", 4, 8, s, 16, d)
                        for hw, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80),
                                         ("16x16", 256, 160))]
+# the joint encoder's teacher (`configs/stage1-distill-joint.yaml`) reads its
+# 20 image-prompt tokens (16 Arc2Face + 4 ConsistentID) at batch 4; under
+# its CFG (p 0.5) the UNet's batch doubles while the context keeps 4 rows,
+# which the cross-attention's reshape turns into 8 rows of 10 keys, as the
+# JAX UNet does (ROADMAP §3): key counts no other path sends
+FLASH_JOINT_TEACHER_CASES = [(f"unet {hw} cross Sk{sk} joint teacher", b, 8, s, sk, d)
+                             for b, sk in ((4, 20), (8, 10))
+                             for hw, s, d in (("64x64", 4096, 40), ("32x32", 1024, 80),
+                                              ("16x16", 256, 160))]
 # the SDXL and SD3 pipelines' kernel attentions at 1024x1024, CFG batch 2:
 # SDXL's UNet at its 64x64 and 32x32 levels (head dim 64, 10 and 20 heads;
 # the 32x32 level also in the mid block), SD3's joint attention over 4096
@@ -660,8 +669,8 @@ def check_flash(gen) -> dict:
 
     results = {}
     for label, b, h, sq, sk, d in (FLASH_CASES + FLASH_CASES_B16 + FLASH_EXTRA_CASES
-                                   + FLASH_TEACHER_CASES + FLASH_TOME_CASES + FLASH_XL_CASES
-                                   + FLASH_VIDEO_CASES):
+                                   + FLASH_TEACHER_CASES + FLASH_JOINT_TEACHER_CASES
+                                   + FLASH_TOME_CASES + FLASH_XL_CASES + FLASH_VIDEO_CASES):
         q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
         scale = 1.0 / math.sqrt(d)
         out = A._flash_cuda(q, k, v, None, False, scale)
@@ -3380,6 +3389,217 @@ def train_stage1(gen) -> dict:
                 lookups=lookups, copies=copies)
 
 
+JOINT_CONFIG = "configs/stage1-distill-joint.yaml"
+JOINT_MICRO_STEPS = 4  # 2 optimizer updates at the config's accumulation of 2
+JOINT_SUFFIX = 4  # static suffix embeddings a SubjBasisGenerator (`train.py`'s default)
+
+
+def train_stage1_joint(card: str) -> dict:
+    """Stage-1 UNet distillation of the joint encoder (Arc2Face +
+    ConsistentID, each SubjBasisGenerator with its 4 static suffix
+    embeddings) at full SD1.5 width through `train_torch.build_trainer` and
+    `Trainer.fit` with JOINT_CONFIG and no override but the data, the log
+    dir and JOINT_MICRO_STEPS (batch 4, accumulation 2, prodigy, the
+    teacher's 2-4 step chain with CFG at p 0.5 over the 20 image-prompt
+    tokens) on synthetic 512x512 PNGs: the suffix embeddings' gradient
+    of one student step by sub-encoder (finite; Arc2Face's not 0;
+    ConsistentID's 0, as in the JAX package: its 4 + 4 ada tokens follow the
+    20 the placeholder holds, `tests/test_torch_stage1_configs.py`); the fit
+    with its losses, each SubjBasisGenerator's largest update, seconds per
+    optimizer step on the host clock, the launches by kernel and the peak
+    memory; `Trainer.save`, then the checkpoint loaded into a fresh joint
+    encoder (`load_subj_basis_generators`) whose ada tokens equal the
+    trainer's encoder's bit for bit; one more optimizer step under the
+    profiler for its device time; two micro-steps with `sample_every` 1,
+    their previews decoded by the sample logger's worker."""
+    import tempfile
+
+    import train_torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.id2ada.face_id_to_ada_prompt import create_id2ada_prompt_encoder
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops import fused_gn as G
+    from adaface_tpu_torch.text.tokenizer import default_tokenizer
+    from adaface_tpu_torch.train.checkpoint import load_subj_basis_generators
+    from adaface_tpu_torch.train.train_step import trainable_parameters, unet_distill_loss_fn
+
+    t_phase = time.perf_counter()
+    ran = (A.FLASH_T, A.FLASH_STD, A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG, A.FLASH_BWD_DQ_WG,
+           G.GN_FUSED, G.GN_BWD_FUSED)
+    repo = str(pathlib.Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=repo) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            "--base", os.path.join(repo, JOINT_CONFIG), "--data_roots", data,
+            "--log_dir", os.path.join(tmp, "logs"), "--max_steps", str(JOINT_MICRO_STEPS)])
+        t0 = time.perf_counter()
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        encs, sbgs = trainer.encoder.encoders, trainer.state.params["sbg"]
+        width = trainer.em.placeholders[0].num_vectors
+        if [s.cfg.num_static_img_suffix_embs for s in sbgs] != [JOINT_SUFFIX] * 2 or width != 20 \
+                or [e.subj_basis_generator for e in encs] != list(sbgs):
+            raise AssertionError(f"joint: suffixes {[s.cfg for s in sbgs]}, placeholder {width}")
+        log(f"joint: the stack at full width on the card in {build_s:.1f} s; "
+            f"{len(trainer.state.optimizer.params)} trainable tensors, "
+            f"{sum(p.numel() for p in trainer.state.optimizer.params)} parameters in "
+            f"{len(sbgs)} SubjBasisGenerators (suffix {JOINT_SUFFIX} each), placeholder {width}; "
+            f"optimizer {trainer.cfg.optimizer}, accumulation {trainer.cfg.accum_steps}, batch "
+            f"{trainer.cfg.batch_size}, teacher p_uses_cfg {trainer.teacher.p_uses_cfg}")
+
+        # the suffix embeddings' gradient of one student step (2-step bucket)
+        flags = dataclasses.replace(trainer.planner.plan(0), num_denoising_steps=2)
+        trainer.planner = type(trainer.planner)(**{
+            f.name: getattr(trainer.planner, f.name)
+            for f in dataclasses.fields(trainer.planner)})  # the fit plans from step 0 again
+        batch = trainer._prepare_batch([dataset[i] for i in range(trainer.cfg.batch_size)],
+                                       flags, trainer.draws_for(flags))
+        params = trainable_parameters(trainer.state.params)
+        for p in params:
+            p.grad = None
+        loss, _ = unet_distill_loss_fn(trainer.state.params, trainer.frozen, batch,
+                                       trainer.schedule, trainer.tcfg)
+        loss.backward()
+        def grad_norm(tensors) -> float:
+            return math.sqrt(sum(p.grad.float().pow(2).sum().item() for p in tensors
+                                 if p.grad is not None))
+
+        sfx = [grad_norm([s.static_img_suffix_embs]) for s in sbgs]
+        sbg_norm = [grad_norm(s.parameters()) for s in sbgs]
+        for p in params:
+            p.grad = None
+        del batch
+        log(f"joint: one student step (loss {loss.item():.6e}): the suffix embeddings' gradient "
+            f"norm Arc2Face {sfx[0]:.6e}, ConsistentID {sfx[1]:.6e}; the SubjBasisGenerators' "
+            f"{sbg_norm[0]:.6e}, {sbg_norm[1]:.6e} (ConsistentID's ada tokens lie past the 20 "
+            f"the placeholder holds: 0, as in the JAX package)")
+        if not all(map(math.isfinite, sfx + sbg_norm)) or not sfx[0] > 0 or sbg_norm[1] != 0:
+            raise AssertionError(f"joint: suffix gradients {sfx}, generators {sbg_norm}")
+
+        # the fit
+        before = [[p.detach().clone() for p in s.parameters() if p.requires_grad] for s in sbgs]
+        post, records = trainer._post_step, []
+
+        def watch(step, f, metrics):
+            records.append(dict(step=step, steps=f.num_denoising_steps,
+                                loss=float(metrics["loss"]), t=time.perf_counter()))
+            post(step, f, metrics)
+
+        trainer._post_step = watch
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        trainer._post_step = post
+        updates = [max((p.detach() - b).abs().max().item()
+                       for p, b in zip([p for p in s.parameters() if p.requires_grad], bs))
+                   for s, bs in zip(sbgs, before)]
+        del before
+        gaps = [b["t"] - a["t"] for a, b in zip(records, records[1:])]
+        host_s = 2 * statistics.mean(gaps)
+        for r in records:
+            log(f"joint: micro-step {r['step']}: teacher {r['steps']} steps, loss "
+                f"{r['loss']:.6e}")
+        log(f"joint: {len(records)} micro-steps in {fit_s:.2f} s (the first batch's preparation "
+            f"included): {host_s:.3f} s per optimizer step on the host clock (twice the mean gap "
+            f"between micro-steps), {fit_s / (len(records) / 2):.3f} s with the first batch; "
+            f"peak memory {peak / 2**30:.2f} GiB; the SubjBasisGenerators' largest update "
+            f"Arc2Face {updates[0]:.3e}, ConsistentID {updates[1]:.3e}; launches by kernel "
+            f"{dict(sorted(counts.items()))}")
+        if len(records) != JOINT_MICRO_STEPS or not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"joint: micro-steps {records}")
+        if not all(counts.get(k, 0) for k in ran) or not updates[0] > 0:
+            raise AssertionError(f"joint: launches {counts}, updates {updates}")
+
+        # the checkpoint into a fresh joint encoder: the same ada tokens
+        ck = trainer.save(JOINT_MICRO_STEPS)
+        fresh = create_id2ada_prompt_encoder(
+            "jointIDs", torch.Generator("cuda").manual_seed(SEED + 31), default_tokenizer(),
+            "cuda", is_training=True, out_id_embs_cfg_scales=tuple(cfg["model"][
+                "out_id_embs_cfg_scales"]), num_static_img_suffix_embs=JOINT_SUFFIX)
+        # a checkpoint leaves out the prompt2token_proj towers' embedding
+        # tables: both encoders take them from the same CLIP-L weights
+        frozen_tables = ("clip.token_embedding", "clip.position_embedding")
+        for e, trained in zip(fresh.encoders, sbgs):
+            ref = trained.state_dict()
+            e.subj_basis_generator.load_state_dict({k: ref[k] for k in frozen_tables},
+                                                   strict=False)
+        x = torch.randn((2, width, 768), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(SEED + 32))
+
+        def ada(encoder):
+            out, off = [], 0
+            for e in encoder.encoders:
+                n = e.subj_basis_generator.cfg.num_id_vecs
+                out.append(e.subj_basis_generator(
+                    x[:, off:off + n], out_id_embs_cfg_scale=e.out_id_embs_cfg_scale,
+                    is_face=True, enable_static_img_suffix_embs=True))
+                off += n
+            return torch.cat(out, dim=1)
+
+        with torch.no_grad():
+            mine, unloaded = ada(trainer.encoder), ada(fresh)
+            load_subj_basis_generators(fresh, ck)
+            theirs = ada(fresh)
+        equal = torch.equal(mine, theirs)
+        apart = (mine - unloaded).abs().max().item()
+        log(f"joint: {os.path.basename(ck)} into a fresh joint encoder: ada tokens "
+            f"{tuple(theirs.shape)} equal to the trainer's bit for bit: {equal} (before the "
+            f"load {apart:.3e} apart)")
+        if not equal or not apart > 0 or tuple(mine.shape) != (2, 20 + 2 * JOINT_SUFFIX, 768):
+            raise AssertionError(f"joint: reloaded ada tokens {tuple(theirs.shape)} differ "
+                                 f"by {(mine - theirs).abs().max().item()}")
+        del fresh, mine, theirs
+
+        # one optimizer step (2 micro-steps) under the profiler: device time
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.fit(dataset, num_steps=2, start_step=JOINT_MICRO_STEPS)
+            torch.cuda.synchronize()
+            prof_s = time.perf_counter() - t0
+        n_ops, busy_ms = profile_report(prof, "joint: one optimizer step", 10)
+
+        # the previews of `sample_every` on the card: the sample logger's worker
+        # decodes each micro-step's latents on its own stream (a random bf16
+        # VAE decoder, as `train_torch.py` builds one for them)
+        from adaface_tpu_torch.core.params import build, init_fan_in_
+        from adaface_tpu_torch.models.vae import VAEDecoder
+        from adaface_tpu_torch.utils.image import read_png
+        from adaface_tpu_torch.utils.sample_logger import SampleLogger
+
+        trainer.frozen["vae"] = build(VAEDecoder, "cuda", torch.bfloat16, init_fan_in_,
+                                      torch.Generator("cuda").manual_seed(SEED + 33))
+        trainer.sample_logger = SampleLogger(trainer.cfg.log_dir)
+        trainer.cfg.sample_every = 1
+        t0 = time.perf_counter()
+        trainer.fit(dataset, num_steps=2, start_step=JOINT_MICRO_STEPS + 2)
+        preview_s = time.perf_counter() - t0
+        shown = sorted(os.listdir(trainer.sample_logger.dir))
+        grids = [read_png(os.path.join(trainer.sample_logger.dir, n)) for n in shown]
+        log(f"joint: 2 micro-steps with a preview each in {preview_s:.2f} s (decoded by the "
+            f"sample logger's worker): {shown}, grids {[g.shape for g in grids]}")
+        if shown != [f"{JOINT_MICRO_STEPS + 2 + i:07d}_unet_distill.png" for i in range(2)] \
+                or any(g.shape != (520, 2080, 3) or g.std() == 0 for g in grids):
+            raise AssertionError(f"joint: previews {shown}")
+        trainer.sample_logger.close()
+    secs = time.perf_counter() - t_phase
+    log(f"joint: one optimizer step (2 micro-steps, their batches prepared): device busy "
+        f"{busy_ms:.1f} ms in {n_ops} operations, {prof_s:.2f} s on the host clock under the "
+        f"profiler; card {card}; the phase {secs:.1f} s")
+    return dict(counts=counts, records=records, fit_s=fit_s, host_s_per_step=host_s,
+                device_ms_per_step=busy_ms, peak=peak, suffix_grad=sfx, sbg_grad=sbg_norm,
+                updates=updates, reloaded_equal=equal, build_s=build_s, preview_s=preview_s,
+                seconds=secs)
+
+
 FINETUNE_CONFIG = "configs/finetune-unet.yaml"
 # micro-steps of the finetuning phase: 3 optimizer updates at the config's
 # accumulation of 4 (the first at the warmup's learning rate of 0, so the
@@ -5901,8 +6121,10 @@ def serve_video(wrapper, faces, card: str) -> dict:
     steps_apart = (frames[1:] - frames[:-1]).abs().mean(dim=(1, 2, 3))
     if not (steps_apart > 0).all():
         raise AssertionError(f"video clip: consecutive frames equal: {steps_apart.tolist()}")
-    with tempfile.TemporaryDirectory() as d:
-        gif_bytes = os.path.getsize(w.pipeline.to_gif(frames, os.path.join(d, "clip.gif")))
+    # the GIF stays for `eval_videos`, which reads it and removes its folder
+    gif_path = w.pipeline.to_gif(frames, os.path.join(tempfile.mkdtemp(), "clip.gif"))
+    gif_bytes = os.path.getsize(gif_path)
+    frames_u8 = (frames.float().cpu().numpy() * 255).astype(np.uint8).transpose(0, 2, 3, 1)
     gn_by_kernel = {}
     for (shape, eps, silu), n in sorted((seen + seen_vae).items()):
         kernel = GN_FUSED if gn_expected_from({(shape, eps, silu): 1}).get(GN_FUSED) else \
@@ -5940,13 +6162,94 @@ def serve_video(wrapper, faces, card: str) -> dict:
         f"{VIDEO_STEPS * breakdown['per_call']['layer_norm']:.1f}); card {card}; the phase "
         f"{secs:.1f} s")
     out = dict(counts=counts, latency_ms=latency * 1e3, peak_gib=peak, device_ms=dev,
-               operations=ops, gif_bytes=gif_bytes, frame_step=steps_apart.tolist(),
+               operations=ops, gif_bytes=gif_bytes, gif_path=gif_path, frames_u8=frames_u8,
+               frame_step=steps_apart.tolist(),
                modules=checks, call={k: v for k, v in call.items() if k != "seen"},
                moved=moved, unet_ms=turns, breakdown=breakdown, seconds=secs)
     del w, motion, clip, frames
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+EVAL_VIDEO_FRAMES = 8  # frames sampled a clip: `eval_videos.py`'s default
+
+
+def eval_videos(video: dict, faces, card: str) -> dict:
+    """`scripts/eval_videos_torch.py` on the GIF `serve_video` wrote (16
+    frames at 512x512): the host library's GIF decoder
+    (`utils/image.read_gif_frames`) gives the writer's palette quantization
+    of the frames the pipeline produced, bit for bit, each channel within
+    half a palette level of them; `sample_frames` picks by motion; their
+    face similarity to subject a's photos is scored on the card (RetinaFace
+    + ArcFace, random weights from their seed, the detector's BN statistics
+    fitted to the photos as in `evaluate_and_tools`) and its row written as
+    the script writes it; the host ms of the decode and the seconds of the
+    scoring."""
+    import csv
+    import shutil
+
+    from adaface_tpu_torch import native
+    from adaface_tpu_torch.evaluation.eval_utils import append_score_row
+    from adaface_tpu_torch.evaluation.face_sim import compare_face_images, make_face_backend
+    from adaface_tpu_torch.utils.image import (GIF_LEVELS, _gif_indices, gif_palette,
+                                               read_gif_frames)
+
+    t_phase = time.perf_counter()
+    path, produced = video["gif_path"], video["frames_u8"]
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        import eval_videos_torch
+
+        t0 = time.perf_counter()
+        native.load_library()  # built at first use
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = read_gif_frames(path)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        want = gif_palette()[np.stack([_gif_indices(f) for f in produced])]
+        err = np.abs(decoded.astype(np.int16) - produced.astype(np.int16)).max(axis=(0, 1, 2))
+        half = [255.0 / (n - 1) / 2 for n in GIF_LEVELS]
+        if decoded.shape != (VIDEO_FRAMES, 512, 512, 3) or not np.array_equal(decoded, want) \
+                or any(e > h + 0.5 for e, h in zip(err.tolist(), half)):
+            raise AssertionError(f"eval videos: decoded {decoded.shape}, per-channel error "
+                                 f"{err.tolist()} (half a level {half})")
+        t0 = time.perf_counter()
+        sampled = eval_videos_torch.sample_frames(path, EVAL_VIDEO_FRAMES)
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        if not 1 <= len(sampled) <= EVAL_VIDEO_FRAMES:
+            raise AssertionError(f"eval videos: {len(sampled)} frames sampled")
+        face = make_face_backend("retinaface_arcface", "cuda",
+                                 torch.Generator(device="cuda").manual_seed(SEED + 24))
+        photos = np.stack([im[..., ::-1].astype(np.float32) - face.client.BGR_MEAN
+                           for im in faces["a"]])
+        calibrate_batch_norms(face.client.model, torch.from_numpy(
+            np.ascontiguousarray(photos.transpose(0, 3, 1, 2))).to("cuda"))
+        t0 = time.perf_counter()
+        scores = compare_face_images(sampled, faces["a"], face)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        csv_path = os.path.join(os.path.dirname(path), "scores.csv")
+        append_score_row(csv_path, {"video": os.path.basename(path), **scores})
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        sim = scores["face_sim"]
+        if scores["n_faces_b"] == 0 or len(rows) != 1 or (
+                scores["n_faces_a"] and not -1.0 <= sim <= 1.0):
+            raise AssertionError(f"eval videos: scores {scores}, CSV rows {rows}")
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"eval videos: the {video['gif_bytes']}-byte GIF decoded to {decoded.shape} in "
+        f"{decode_ms:.1f} ms of host (the host library loaded in {build_s:.1f} s), the writer's "
+        f"palette quantization of the clip bit for bit (per-channel error {err.tolist()}, half "
+        f"a level {[round(h, 2) for h in half]}); {len(sampled)} frames sampled by motion in "
+        f"{sample_ms:.1f} ms; face similarity {sim} ({scores['n_faces_a']} / "
+        f"{scores['n_faces_b']} faces) scored in {score_s:.2f} s on the card; card {card}; the "
+        f"phase {secs:.1f} s")
+    return dict(decode_ms=decode_ms, sample_ms=sample_ms, score_s=score_s, scores=scores,
+                err=err.tolist(), seconds=secs)
 
 
 # one SD1.5 request of a fresh server (`build_server` from SEED, subject a's
@@ -6865,7 +7168,8 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                      r["stock_ms"], r["bound_ms"], r["bound_by"], shapes=shapes)
 
     path = {label: d for (label, *_, d) in (FLASH_CASES + FLASH_CASES_B16 + FLASH_TEACHER_CASES
-                                            + FLASH_XL_CASES + FLASH_VIDEO_CASES)}
+                                            + FLASH_JOINT_TEACHER_CASES + FLASH_XL_CASES
+                                            + FLASH_VIDEO_CASES)}
     short = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d < 128]
     long_ = [label for label, d in path.items() if flash[label]["variant"] == "wg" and d >= 128]
     wide = [label for label in path if flash[label]["variant"] == "wide"]
@@ -7053,6 +7357,7 @@ def main() -> int:
     trained = timed_phase("serve_trained", serve_trained, wrapper, faces, card)
     speed = timed_phase("serve_speed_modes", serve_speed_modes, wrapper, faces, card)
     video = timed_phase("serve_video", serve_video, wrapper, faces, card)
+    videos = timed_phase("eval_videos", eval_videos, video, faces, card)
     evaluated = timed_phase("evaluate_and_tools", evaluate_and_tools, wrapper, faces, card)
     encoder = wrapper.id2ada_prompt_encoder
     del wrapper
@@ -7077,6 +7382,8 @@ def main() -> int:
     folder = timed_phase("train_face_parser_folder", train_face_parser_folder, gen)
     release()
     stage1 = timed_phase("train_stage1", train_stage1, gen)
+    release()
+    joint_fit = timed_phase("train_stage1_joint", train_stage1_joint, card)
     release()
     dp = timed_phase("train_dp", train_dp, card)
     sync_bn = timed_phase("check_sync_bn", check_sync_bn, card, dp["sync_bn_ranks"])
@@ -7106,7 +7413,8 @@ def main() -> int:
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],
              "adapters": trained["counts"], "adapters batcher": trained["batch_counts"],
              "ensemble": trained["ensemble_counts"],
-             "stage-1 fit": stage1["counts"], "finetune fit": finetune["counts"],
+             "stage-1 fit": stage1["counts"], "stage-1 joint fit": joint_fit["counts"],
+             "finetune fit": finetune["counts"],
              "stage-2 fit": stage2["counts"], "stage-2 recipes fit": recipes["counts"],
              "mkv request": recipes["served"]["counts"],
              **{f"speed mode {name}": r["counts"] for name, r in speed["modes"].items()
@@ -7121,6 +7429,8 @@ def main() -> int:
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths, sync_bn)
     record["checks"] = {"sd15_bits": sd15_bits, "decoded_fixtures": decoded["equal"],
+                        "joint_reloaded_equal": joint_fit["reloaded_equal"],
+                        "video_gif_decode_ms": videos["decode_ms"],
                         "dp_update_rel_l2": dp["update_rel_l2"], "dp_loss_rel": dp["loss_rel"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -105,7 +105,7 @@ def _rejects():
         "rgb": (rgb_ids, "RGB colour"),
         "rle": (rle, "RLE"),
         "16-bit bmp": (bits16, "16-bit"),
-        "gif": (b"GIF89a" + bytes(20), "magic bytes"),
+        "gif": (b"GIF89a" + bytes(20), "empty logical screen"),
     }
 
 

@@ -90,7 +90,7 @@ def make_trainer(log_dir, prefetch: int = 0, **kw) -> Trainer:
                         optimizer_kwargs=dict(d_coef=1.0, scheduler_cycles=1,
                                               scheduler_type="Linear", d0=1e-3),
                         image_size=IMAGE_SIZE, prefetch=prefetch, p_perturb_face_id_embs=0.5,
-                        echo_every=0, **kw)
+                        echo_every=0, **{"unet_distill_iter_gap": 1, **kw})
     tcfg = TrainConfig(unet=tunet.UNetConfig(**UNET_KW), sbg=enc.sbg_cfg,
                        clip_text=tclip.CLIPTextConfig(**TRAIN_TEXT_KW))
     return Trainer(cfg, tcfg, {"unet": unet, "text_encoder": text},

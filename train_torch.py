@@ -2,6 +2,7 @@
 
     python train_torch.py --base configs/stage1-distill-arc2face.yaml \
         --data_roots <subject folders> [key.path=value ...]
+    python train_torch.py --base configs/stage1-distill-joint.yaml --data_roots <...>
     python train_torch.py --base configs/finetune-unet.yaml --data_roots <...>
     python train_torch.py --base configs/stage2-comp-distill.yaml --data_roots <...>
 
@@ -12,11 +13,17 @@ comp-distill (Stage 2) iterations, and full-UNet finetuning
 `CompDistillConfig` by field name, and the keys that name no field are
 dropped, as `train.py` drops them (stage 2's `model.use_attn_lora`,
 `use_ffn_lora`, `lora_rank` and `comp_distill.cls_comp_mix_ratio`: so, as
-`train.py`, no UNet adapter trains from this CLI; ROADMAP §3). The model
+`train.py`, no UNet adapter trains from this CLI; ROADMAP §3); each dropped
+key is printed, the `trainer:` keys JAX ignores too on a line of their own.
+`model.enable_static_img_suffix_embs` gives every SubjBasisGenerator of the
+encoder `model.num_static_img_suffix_embs` (4) static suffix embeddings, and
+the placeholder is as wide as the encoder's ID tokens (16 Arc2Face, 4
+ConsistentID, 20 joint), as in `train.py`. The model
 stack is built with random weights from the config's seed: the SD1.5 UNet
 (bf16 on the card, or fp32 master weights computed in bf16 when it trains),
 the VAE encoder, CLIP-L text and the id→ada encoder (fp32); for recon or
-comp iterations also the VAE decoder (bf16 on the card) and ArcFace (fp32),
+comp iterations also the VAE decoder (bf16 on the card; also for the
+previews of `trainer.sample_every`) and ArcFace (fp32),
 from `model.arcface_ckpt` where given, else random with a warning, as
 `train.py` builds it. The recon and comp losses compute in bf16 on the card.
 Then `Trainer.fit`. Runs on the card (`--device cuda`, the default);
@@ -54,9 +61,36 @@ from adaface_tpu_torch.utils.config import apply_dotlist, known_fields, load
 
 # the `model:` keys the CLI itself reads; the others go to TrainConfig by name
 CLI_MODEL_KEYS = ("id2ada_encoder", "out_id_embs_cfg_scales", "arcface_ckpt",
-                  "use_identity_losses", "enable_static_img_suffix_embs")
+                  "use_identity_losses", "enable_static_img_suffix_embs",
+                  "num_static_img_suffix_embs")
 # the `comp_distill:` keys the CLI itself reads
 CLI_COMP_KEYS = ("gma_ckpt",)
+# `trainer:` keys that JAX ignores as well: its logger mirrors to wandb only
+# where wandb is installed (the port logs to CSV only), and it reads
+# `unet_lr_scale` nowhere
+JAX_IGNORED_TRAINER_KEYS = ("use_wandb", "unet_lr_scale")
+
+
+def trainer_config(cfg: dict, args):
+    """The `trainer:` section as a `TrainerConfig` (with the data roots and
+    the log dir of `args`), printing each key it drops: those JAX ignores
+    too, and those the port lacks by design (`train/trainer.py`)."""
+    from adaface_tpu_torch.train.trainer import TrainerConfig
+
+    tc_fields = {f.name for f in dataclasses.fields(TrainerConfig)}
+    tcfg = cfg.get("trainer") or {}
+    trainer_cfg = TrainerConfig(data_roots=args.data_roots, log_dir=args.log_dir,
+                                **{k: v for k, v in tcfg.items() if k in tc_fields})
+    for key in ("clip_skip_weights", "unet_distill_steps_range",
+                "perturb_face_id_embs_std_range"):
+        setattr(trainer_cfg, key, tuple(getattr(trainer_cfg, key)))
+    ignored = [k for k in tcfg if k in JAX_IGNORED_TRAINER_KEYS]
+    dropped = [k for k in tcfg if k not in tc_fields and k not in JAX_IGNORED_TRAINER_KEYS]
+    if ignored:
+        print(f"trainer keys JAX ignores too, dropped: {ignored}", flush=True)
+    if dropped:
+        print(f"trainer keys the port does not take, dropped: {dropped}", flush=True)
+    return trainer_cfg
 
 
 def build_trainer(cfg: dict, args):
@@ -75,15 +109,9 @@ def build_trainer(cfg: dict, args):
     from adaface_tpu_torch.train.comp_step import CompDistillConfig
     from adaface_tpu_torch.train.recon_step import ReconStepConfig
     from adaface_tpu_torch.train.train_step import TrainConfig
-    from adaface_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from adaface_tpu_torch.train.trainer import Trainer
 
-    tc_fields = {f.name for f in dataclasses.fields(TrainerConfig)}
-    tcfg = cfg.get("trainer") or {}
-    trainer_cfg = TrainerConfig(data_roots=args.data_roots, log_dir=args.log_dir,
-                                **{k: v for k, v in tcfg.items() if k in tc_fields})
-    for key in ("clip_skip_weights", "unet_distill_steps_range",
-                "perturb_face_id_embs_std_range"):
-        setattr(trainer_cfg, key, tuple(getattr(trainer_cfg, key)))
+    trainer_cfg = trainer_config(cfg, args)
     if getattr(args, "scale_lr", False):
         trainer_cfg.lr = scaled_lr(trainer_cfg)
         print(f"scaled lr: {trainer_cfg.lr}")
@@ -110,11 +138,13 @@ def build_trainer(cfg: dict, args):
     comp_cfg = CompDistillConfig(**{**comp_kw, "compute_dtype": compute})
     recon_kw = {}
     model_cfg = cfg.get("model") or {}
-    # the plan has recon or comp iterations: the identity losses' towers
-    if trainer_cfg.unet_distill_iter_gap != 1 or trainer_cfg.comp_distill_iter_gap > 0:
+    # the plan has recon or comp iterations: the identity losses' towers;
+    # previews need the decoder too
+    recon = trainer_cfg.unet_distill_iter_gap != 1 or trainer_cfg.comp_distill_iter_gap > 0
+    if recon or trainer_cfg.sample_every:
         recon_kw["vae_decoder"] = build(VAEDecoder, device, dtype, init_fan_in_, gen)
-        if model_cfg.get("use_identity_losses", True):
-            recon_kw["arcface"] = build_arcface(model_cfg.get("arcface_ckpt"), device, gen)
+    if recon and model_cfg.get("use_identity_losses", True):
+        recon_kw["arcface"] = build_arcface(model_cfg.get("arcface_ckpt"), device, gen)
     if getattr(args, "base_model", None):
         load_base_model(args.base_model, unet, text, vae, recon_kw.get("vae_decoder"))
 
@@ -128,11 +158,17 @@ def build_trainer(cfg: dict, args):
     elif scales:
         enc_kw["out_id_embs_cfg_scale"] = scales[0]
     if model_cfg.get("enable_static_img_suffix_embs"):
-        raise NotImplementedError("enable_static_img_suffix_embs: the static suffix embeddings "
-                                  "of the encoders are not wired in the port's CLI")
+        # learnable embeddings after the ID tokens, in each SubjBasisGenerator
+        # (`train.py:79-82`)
+        enc_kw["num_static_img_suffix_embs"] = int(model_cfg.get("num_static_img_suffix_embs", 4))
     tok = default_tokenizer()
     encoder = create_id2ada_prompt_encoder(enc_name, gen, tok, device, **enc_kw)
-    em = EmbeddingManager(tok, [PlaceholderSpec(args.subject_string, encoder.num_id_vecs)])
+    # the placeholder is as wide as the encoder's ID tokens (`train.py:100-105`)
+    n_vec = encoder.num_id_vecs
+    if trainer_cfg.num_vectors_per_subj_token != n_vec:
+        print(f"num_vectors_per_subj_token {trainer_cfg.num_vectors_per_subj_token}"
+              f" -> {n_vec} (encoder {encoder.name})")
+    em = EmbeddingManager(tok, [PlaceholderSpec(args.subject_string, n_vec)])
     encs = getattr(encoder, "encoders", [encoder])
     sbgs = [e.subj_basis_generator for e in encs]
     trainable = {"sbg": sbgs[0] if len(sbgs) == 1 else sbgs}
@@ -166,7 +202,7 @@ def build_trainer(cfg: dict, args):
         trainer_cfg.data_roots, mix_subj_data_roots=args.mix_subj_data_roots,
         subject_string=args.subject_string,
         default_cls_delta_string=args.default_cls_delta_string,
-        num_vectors_per_subj_token=encoder.num_id_vecs, size=trainer_cfg.image_size,
+        num_vectors_per_subj_token=n_vec, size=trainer_cfg.image_size,
         seed=trainer_cfg.seed)
     print(f"{dataset.num_subjects()} subjects, {len(dataset)} images", flush=True)
     trainer = Trainer(trainer_cfg, train_cfg, frozen, trainable, encoder, em, vae=vae,
