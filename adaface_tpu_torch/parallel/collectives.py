@@ -113,19 +113,38 @@ def _reduce_nograd(x: torch.Tensor, op) -> torch.Tensor:
     return y
 
 
+def _local(x: torch.Tensor, reduce, identity: float) -> torch.Tensor:
+    """`reduce(x)`, or the reduction's identity where x is empty (a rank that
+    holds none of the instances still joins the collective)."""
+    if x.numel() == 0:
+        return torch.full((), identity, dtype=x.dtype, device=x.device)
+    return reduce(x)
+
+
 def gmin(x: torch.Tensor) -> torch.Tensor:
-    """`x.min()` over the global batch, without gradient (a gate)."""
+    """`x.min()` over the global batch, without gradient (a gate); +inf
+    where no rank holds an instance."""
+    m = _local(x, torch.min, float("inf"))
     if active_mesh() is None:
-        return x.min()
-    return _reduce_nograd(x.min(), dist.ReduceOp.MIN)
+        return m
+    return _reduce_nograd(m, dist.ReduceOp.MIN)
+
+
+def gmax(x: torch.Tensor) -> torch.Tensor:
+    """`x.max()` over the global batch, without gradient; -inf where no
+    rank holds an instance."""
+    m = _local(x, torch.max, float("-inf"))
+    if active_mesh() is None:
+        return m
+    return _reduce_nograd(m, dist.ReduceOp.MAX)
 
 
 def gall(x: torch.Tensor) -> torch.Tensor:
     """`x.prod()` of {0, 1} flags over the global batch: 1 where every
-    instance's flag is (without gradient, a gate)."""
+    instance's flag is (without gradient, a gate; 1 over no instance)."""
     if active_mesh() is None:
         return x.prod()
-    return _reduce_nograd(x.min(), dist.ReduceOp.MIN)
+    return _reduce_nograd(_local(x, torch.min, 1.0), dist.ReduceOp.MIN)
 
 
 def gstd(x: torch.Tensor) -> torch.Tensor:

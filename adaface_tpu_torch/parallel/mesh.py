@@ -65,7 +65,7 @@ def make_mesh(dp: int | None = None, tp: int = 1) -> Mesh:
     if tp != 1:
         raise NotImplementedError(
             "tensor parallelism (tp > 1, shard_params with DEFAULT_TP_RULES) is not ported: "
-            "ROADMAP §1 item 5 queues it")
+            "ROADMAP §1 item 6 queues it")
     if not dist.is_initialized():
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
             raise RuntimeError(

@@ -64,22 +64,26 @@ def smooth_grad(x: torch.Tensor, kernel_center_weight: int = 2) -> torch.Tensor:
 
 def calc_arcface_adv_grad(arcface, vae_decoder, x_start: torch.Tensor,
                           face_bboxes: torch.Tensor, pixel_bboxes: torch.Tensor,
-                          dropout_u: torch.Tensor, dropout_p: float = 0.3) -> torch.Tensor:
+                          dropout_u: torch.Tensor, dropout_p: float = 0.3,
+                          count: int | None = None) -> torch.Tensor:
     """∂/∂x_start of mean((dropout(emb))²), emb the ArcFace embedding of the
     face crop of the decoded x_start (gradient mask 0.9 on the crop's
     center), masked to `face_bboxes` [B, 4] (latent coords). x_start
     [B, 4, h, w]; pixel_bboxes [B, 4] the crops' boxes; dropout_u [B, 512]
     U[0, 1) draws: an embedding element is kept where u < 1 - dropout_p (the
-    JAX package's `bernoulli`). The decode runs in the decoder's dtype, its
-    activations recomputed in the backward. → [B, 4, h, w] in x_start's
-    dtype."""
+    JAX package's `bernoulli`). `count` is the mean's divisor (emb's size by
+    default; under data parallelism the global rows' 512 each, so a rank's
+    rows get the gradient of the global mean). The decode runs in the
+    decoder's dtype, its activations recomputed in the backward. →
+    [B, 4, h, w] in x_start's dtype."""
     with torch.enable_grad():
         x = x_start.detach().requires_grad_(True)
         img = vae_decode(vae_decoder, x)
         emb, _ = embed_face_crops(arcface, img, pixel_bboxes, (0.9, 0.9))
         keep = dropout_u.to(emb.device) < 1.0 - dropout_p
         emb = torch.where(keep, emb / (1.0 - dropout_p), torch.zeros_like(emb))
-        (adv_grad,) = torch.autograd.grad((emb ** 2).mean(), x)
+        sq = emb ** 2
+        (adv_grad,) = torch.autograd.grad(sq.mean() if count is None else sq.sum() / count, x)
     b, _, h, w = x_start.shape
     ys = torch.arange(h, device=x_start.device)[None, :, None]
     xs = torch.arange(w, device=x_start.device)[None, None, :]

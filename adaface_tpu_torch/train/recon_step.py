@@ -44,8 +44,9 @@ embeddings' perturbation (three, when `training_perturb_prob` > 0), then
 
 Under data parallelism (`make_train_step(mesh=)`) the batch is a rank's
 slice: the draws are the global batch's, sliced by their `batch_axis`; the
-face gates and every mean are the global batch's (`parallel.collectives`).
-The adversarial branch is refused there.
+face gates and every mean are the global batch's (`parallel.collectives`),
+and the adversarial branch attacks the global batch's first instances
+(`_adv_attacked_noise`).
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ import torch
 from adaface_tpu_torch.models.unet import AttnRuntime
 from adaface_tpu_torch.models.vae import vae_decode
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
-from adaface_tpu_torch.parallel.collectives import active_mesh, global_batch_size, gmean, gsum
+from adaface_tpu_torch.parallel.collectives import (active_mesh, gall, global_batch_size, gmax,
+                                                    gmean, gsum)
 from adaface_tpu_torch.train.face_detect import (HostFaceDetector, bbox_latent_mask,
                                                  detect_faces, map_bboxes_to_latent)
 from adaface_tpu_torch.train.face_losses import (calc_arcface_align_loss,
@@ -149,10 +151,6 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
     `sample_recon_rand`)."""
     x_start_in = batch["x_start"]
     dev, b, hw = x_start_in.device, x_start_in.shape[0], x_start_in.shape[-1]
-    if rcfg.do_adv_attack and active_mesh() is not None:
-        raise NotImplementedError(
-            "the recon iteration's adversarial branch under data parallelism: it attacks the "
-            "global batch's first instances (ROADMAP §1 item 5)")
     draws = as_draws(draws, dev)
     ada = compute_ada_embs(params, batch["img_prompt_embs"], cfg)
     if cfg.training_perturb_prob > 0:
@@ -323,22 +321,39 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
 def _adv_attacked_noise(frozen: Params, batch: Params, rand: Params, noise_next: torch.Tensor,
                         rcfg: ReconStepConfig, hw: int) -> torch.Tensor:
     """The next step's noise minus the adversarial ArcFace gradient of the
-    input's decode (`ddpm.py:1879-1907`), masked to the face box, scaled so
-    its magnitude lands in recon_adv_mod_mag_range (at most ×10); nothing
-    when a face of the inputs went undetected (`:2545-2548`)."""
-    nb = min(rcfg.adv_bs, batch["x_start"].shape[0])
-    bb_px = batch["ref_face_bboxes"][:nb]
-    bb_lat = map_bboxes_to_latent(bb_px, batch["ref_images"].shape[-1], hw)
-    adv = calc_arcface_adv_grad(frozen["arcface"], frozen["vae"], batch["x_start"][:nb],
-                                bb_lat, bb_px, rand["adv_dropout_u"], dropout_p=0.3).detach()
-    fg = batch["fg_mask"][:nb]
-    fg_mean = (adv.abs() * fg).sum() / (fg.sum() * adv.shape[1] + 1e-6)
-    adv_mag = torch.sqrt(adv.abs().max() * fg_mean)
-    lo, hi = rcfg.recon_adv_mod_mag_range
-    mod_mag = lo + (hi - lo) * float(rand["adv_uniform"])
+    input's decode (`ddpm.py:1879-1907`) on the global batch's first
+    nb = min(adv_bs, B) instances, masked to the face box, scaled so its
+    magnitude lands in recon_adv_mod_mag_range (at most ×10); nothing when a
+    face of those inputs went undetected (`:2545-2548`).
+
+    Under data parallelism a rank attacks the first nb instances it holds
+    (perhaps none: it still joins every reduction). The magnitude's max,
+    the fg-masked mean and the detection gate are the nb instances'
+    (`gmax`, `gsum`, `gall`), and the gradient is that of the mean over all
+    nb embeddings, so each rank adjusts the rows the single process would."""
+    b = batch["x_start"].shape[0]
+    nb = min(rcfg.adv_bs, global_batch_size(b))
+    mesh = active_mesh()
+    lo = mesh.rank * b if mesh is not None else 0
+    n = min(max(nb - lo, 0), b)  # this rank's attacked rows
+    dev = noise_next.device
+    ok = gall(batch.get("ref_face_detected", torch.ones((b,), device=dev))[:n])
+    if n > 0:
+        bb_px = batch["ref_face_bboxes"][:n]
+        bb_lat = map_bboxes_to_latent(bb_px, batch["ref_images"].shape[-1], hw)
+        adv = calc_arcface_adv_grad(frozen["arcface"], frozen["vae"], batch["x_start"][:n],
+                                    bb_lat, bb_px, rand["adv_dropout_u"][lo:lo + n],
+                                    dropout_p=0.3,
+                                    count=None if mesh is None else nb * ARCFACE_DIM).detach()
+    else:
+        adv = noise_next[:0]
+    fg = batch["fg_mask"][:n]
+    fg_mean = gsum((adv.abs() * fg).sum()) / (gsum(fg.sum()) * noise_next.shape[1] + 1e-6)
+    adv_mag = torch.sqrt(gmax(adv.abs()) * fg_mean)
+    lo_mag, hi_mag = rcfg.recon_adv_mod_mag_range
+    mod_mag = lo_mag + (hi_mag - lo_mag) * float(rand["adv_uniform"])
     scale = torch.clamp(mod_mag / (adv_mag + 1e-6), max=10.0)
-    ok = batch.get("ref_face_detected", torch.ones((nb,), device=adv.device))[:nb].prod()
-    return torch.cat([noise_next[:nb] - adv * scale * ok.to(adv.dtype), noise_next[nb:]])
+    return torch.cat([noise_next[:n] - adv * scale * ok.to(adv.dtype), noise_next[n:]])
 
 
 def make_recon_loss_fn(rcfg: ReconStepConfig, detector: HostFaceDetector | None):

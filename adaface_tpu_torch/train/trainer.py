@@ -33,9 +33,8 @@ batch of `batch_size` from the same seeds (sampler, augmentation,
 (`shard_train_batch`) and runs the step on it; the step's losses reduce
 over the global batch and the gradients are summed over the ranks before
 clipping and the optimizer, so the ranks hold the same parameters and
-compute the single-device step (unet-distill, recon and comp-distill; the
-recon iteration's adversarial branch is refused under dp > 1). Rank 0 logs
-and writes the checkpoints.
+compute the single-device step (unet-distill, recon with its adversarial
+branch, and comp-distill). Rank 0 logs and writes the checkpoints.
 
 The config is JAX's `TrainerConfig` field for field and default for
 default, but for these fields, which the port lacks by design:

@@ -120,10 +120,26 @@ on its own half ("none"); each pair's rank 0 against the single process in
 the distances `train_dp` bounds (the losses, the gradient norms, the
 update's relative L2), so that the bounds sit between the sound fit's
 readings and these.
+
+    python3 chip_compare.py --dp-adv-faults
+
+the adversarial branch's attacked noise (`_adv_attacked_noise`,
+`chip_smoke.ADV_BS` attacked rows of a global batch of 4 at 512x512, a
+random VAE decoder and ArcFace) in one process and on two gloo ranks on
+the card, the ranks sound and with a fault planted in each of the branch's
+reductions ("max": the magnitude's max of each rank's own rows; "mean": the
+fg-masked mean of each rank's own rows), each against the single process's
+attack on the whole batch and on the ranks' row groups (`train_dp`'s two
+readings), with the decoder in bf16 through the kernels, in bf16 with its
+attention and GroupNorms plain, and in fp32 plain with TF32 off (no fp32
+flash backward): how far the row groups' attack lies from the whole
+batch's at each precision, and where `chip_smoke.py`'s fixed bounds sit
+between the sound readings and the faults'.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import re
@@ -1033,7 +1049,178 @@ def dp_faults() -> None:
                   f"norms {r0['grad_norms']} against {ref['grad_norms']}", flush=True)
 
 
+ADV_VARIANTS = ("bf16", "bf16 plain", "fp32 plain")
+ADV_FAULTS = ("sound", "max", "mean")
+
+
+def adv_fault(fault: str):
+    """The branch's reductions with `fault` planted (none for "sound")."""
+    from unittest import mock
+
+    import torch
+
+    from adaface_tpu_torch.train import recon_step as R
+
+    if fault == "max":
+        return mock.patch.object(R, "gmax", lambda x: x.max() if x.numel() else
+                                 torch.tensor(float("-inf"), device=x.device))
+    if fault == "mean":
+        return mock.patch.object(R, "gsum", lambda x: x)
+    return contextlib.nullcontext()
+
+
+def adv_variant(decoder, variant: str):
+    """(the decoder in the variant's dtype, a context in which its attention
+    and GroupNorms take their plain versions where the variant says so,
+    TF32 off for fp32)."""
+    import copy
+    from unittest import mock
+
+    import torch
+
+    from adaface_tpu_torch.models import vae
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.ops import fused_gn as G
+
+    dtype = torch.float32 if variant.startswith("fp32") else torch.bfloat16
+    dec = copy.deepcopy(decoder).to(dtype)
+    if not variant.endswith("plain"):
+        return dec, contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(vae, "multi_head_attention",
+                                          A.scaled_dot_product_attention))
+    stack.enter_context(mock.patch.object(
+        G, "group_norm_silu", lambda x, w, b, groups, eps, silu=False:
+        G.gn_silu_plain(x, w, b, groups, eps, silu)))
+    if dtype == torch.float32:
+        stack.enter_context(tf32_off())
+    return dec, stack
+
+
+@contextlib.contextmanager
+def tf32_off():
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+
+
+def adv_noise_process(rank: int, world: int, port: int, out: str) -> None:
+    """One process of `dp_adv_faults`: the same seeded inputs in each, then
+    this process's rows of the attacked noise for every variant (and fault,
+    on a rank; on the single process also the attack with the gradient taken
+    on the ranks' row groups and on the whole batch), saved to `out`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as c
+    from adaface_tpu_torch.core.params import build, init_fan_in_
+    from adaface_tpu_torch.models.arcface import ArcFace, init_arcface_weights_
+    from adaface_tpu_torch.models.vae import SD_VAE, VAEDecoder
+    from adaface_tpu_torch.parallel.collectives import data_parallel
+    from adaface_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from adaface_tpu_torch.train import recon_step as R
+    from adaface_tpu_torch.train.face_detect import map_bboxes_to_latent
+    from adaface_tpu_torch.train.recon_multistep import calc_arcface_adv_grad
+
+    torch.cuda.set_device(0)
+    mesh = None
+    if world > 1:
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                          MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        dist.init_process_group("gloo", rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=c.DP_TIMEOUT_S))
+        mesh = make_mesh(world)
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(c.SEED + 26)
+    decoder = build(lambda: VAEDecoder(SD_VAE), dev, torch.float32, init_fan_in_, gen)
+    arcface = build(lambda: ArcFace(), dev, torch.float32, init_arcface_weights_, gen)
+    batch = c.adv_image_fields(gen)
+    noise = torch.randn(batch["x_start"].shape, generator=gen, device=dev)
+    rand = {"adv_dropout_u": torch.rand((c.ADV_BS, 512), generator=gen, device=dev),
+            "adv_uniform": 0.37}
+    rcfg = R.ReconStepConfig(do_adv_attack=True, adv_bs=c.ADV_BS)
+    rows, nz = batch, noise
+    if mesh is not None:
+        rows, nz = shard_batch(batch, mesh.rank, mesh.dp), shard_batch(noise, mesh.rank, mesh.dp)
+    res = {"noise_in": nz.cpu()}
+    for variant in ADV_VARIANTS:
+        dec, ctx = adv_variant(decoder, variant)
+        frozen = {"vae": dec, "arcface": arcface}
+        with ctx:
+            for fault in ADV_FAULTS if mesh is not None else ("sound",):
+                with adv_fault(fault), data_parallel(mesh):
+                    res[variant, fault] = R._adv_attacked_noise(frozen, rows, rand, nz, rcfg,
+                                                                64).float().cpu()
+            if mesh is None:
+                half = batch["x_start"].shape[0] // c.DP_RANKS
+                bb_px = batch["ref_face_bboxes"][:c.ADV_BS]
+                bb_lat = map_bboxes_to_latent(bb_px, batch["ref_images"].shape[-1], 64)
+
+                def grad(a, b):
+                    return calc_arcface_adv_grad(
+                        arcface, dec, batch["x_start"][a:b], bb_lat[a:b], bb_px[a:b],
+                        rand["adv_dropout_u"][a:b], dropout_p=0.3,
+                        count=c.ADV_BS * 512).detach()
+
+                groups = [(a, min(a + half, c.ADV_BS)) for a in range(0, c.ADV_BS, half)]
+                res[variant, "whole"] = c.adv_noise_of(grad(0, c.ADV_BS), batch, rand, noise,
+                                                       rcfg).float().cpu()
+                res[variant, "split"] = c.adv_noise_of(
+                    torch.cat([grad(a, b) for a, b in groups]), batch, rand, noise,
+                    rcfg).float().cpu()
+        del dec
+        torch.cuda.empty_cache()
+    torch.save(res, out)
+    if mesh is not None:
+        dist.destroy_process_group()
+
+
+def dp_adv_faults() -> None:
+    import tempfile
+
+    import torch
+
+    import chip_smoke as c
+
+    card = c.require_cuda()
+    c.build_kernels()
+    with tempfile.TemporaryDirectory(prefix=".adv_faults_", dir=str(c.REPO)) as tmp:
+        outs = [os.path.join(tmp, f"{name}.pt") for name in ("plain", "rank0", "rank1")]
+        port = c.free_port()
+        c.run_processes(adv_noise_process, [(0, 1, 0, outs[0]),
+                                            (0, c.DP_RANKS, port, outs[1]),
+                                            (1, c.DP_RANKS, port, outs[2])], c.DP_TIMEOUT_S)
+        plain, r0, r1 = (torch.load(p, weights_only=False) for p in outs)
+    for variant in ADV_VARIANTS:
+        attack = (plain[variant, "sound"] - plain["noise_in"]).abs().max()
+
+        def rel(a, b):
+            return ((a - b).abs().max() / attack).item()
+
+        print(f"dp adversarial noise, decoder {variant} ({card}), over the attack's largest "
+              f"value {attack.item():.4e}: the row groups' attack from the whole batch's "
+              f"{rel(plain[variant, 'split'], plain[variant, 'whole']):.3e}; the whole batch's "
+              f"recomputed from the branch's {rel(plain[variant, 'whole'], plain[variant, 'sound']):.3e}",
+              flush=True)
+        for fault in ADV_FAULTS:
+            ranks = torch.cat([r0[variant, fault], r1[variant, fault]])
+            print(f"  ranks {fault:5s}: against the row groups' attack "
+                  f"{rel(ranks, plain[variant, 'split']):.3e} (bound {c.DP_ADV_NOISE_REL:g}), "
+                  f"against the whole batch's {rel(ranks, plain[variant, 'sound']):.3e} (bound "
+                  f"{c.DP_ADV_WHOLE_REL:g})", flush=True)
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--dp-adv-faults":
+        dp_adv_faults()
+        return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--dp-faults":
         dp_faults()
         return 0

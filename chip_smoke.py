@@ -150,7 +150,7 @@ against the bf16 call (relative L2, correlation); a small request of each
 mode kernels against plain (ToMe with the kernel run's merges handed to the
 plain run, the merges that differ unhanded counted); 2 requests at 512x512,
 25 steps, guidance 6.0 of the default path, DeepCache at intervals 3 and 5,
-ToMe 0.5, int8, int8 + DeepCache 3, each with its launches by kernel (held
+ToMe 0.5, int8, int8 + DeepCache 3 and 5, each with its launches by kernel (held
 to the counts its UNet calls give), device time and operations, host time
 and pixel distance from the default image of the same seed, and a request
 run again (ToMe's held to the same bits: its merged sums are taken in a
@@ -243,6 +243,31 @@ and the makeup recolour (pixels off the recoloured parts equal to the input);
 `app_torch.py`'s server on a free port in a thread answering GET / and a POST
 of two photos with 512x512 PNGs; the seconds of each part.
 
+After `serve_speed_modes`, `quality_gate` compares the default path's and
+int8 + DeepCache 5's images of the same seeds through
+`scripts/bench_quality_torch.compare` (ArcFace cosine of a random seeded
+resnet_face18, pixel MAE and correlation), on the card and on the CPU;
+`profile_stages` runs `scripts/profile_pipeline_torch.profile_stages` at
+batch 8 (text encode, one UNet call at CFG batch 16, the 25-step loop and
+the decode, CUDA events and device time, the UNet's MFU over 989 TFLOP/s),
+then one request at that batch held to its launches by kernel;
+`teacher_sanity` runs `scripts/test_img_prompt_model_torch.teacher_images`
+on the SD1.5 modules (a small run kernels against plain, then 2 images at
+512x512, 8 teacher steps from the random-ID path, held to their launches).
+After `decode_images`, `toy_dataset` writes `scripts/make_toy_dataset_torch.py`'s
+2 x 2 folder at 512x512 and reads an item of it through `PersonalizedBase`.
+In `train_dp`'s processes, after their fits, the process without a group
+and then the two gloo ranks run one recon iteration with the adversarial
+branch (`adv_bs` 3: the attacked rows span both ranks) on a global batch of
+4 at full width (the Stage-1 SubjBasisGenerator from before the fit, a
+random VAE decoder and ArcFace, a host detector of fixed boxes), and the
+attacked noise alone. The ranks' loss is held to the single process's
+within DP_ADV_LOSS_REL, their noise to the single process's attack with the
+adversarial gradient taken in the ranks' row groups (their decode batches)
+within DP_ADV_NOISE_REL of the attack's size, and to the single process's
+own within DP_ADV_WHOLE_REL (the bf16 decode rounds differently at each
+batch size), with each process's device time.
+
 The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
 checkpoint writers of `tests/torch_sd_layout.py`, the port's CLI twins in
 `scripts/` and `app_torch.py`, and reads the image fixtures of
@@ -271,6 +296,8 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from adaface_tpu_torch.utils.profiling import device_events, device_operations
 
 SEED = 0
 BF16_TOL = 1e-2  # bf16 keeps 8 significant bits: ~0.4% per rounding
@@ -1578,43 +1605,6 @@ def check_unet(gen) -> dict:
     torch.cuda.empty_cache()
     return dict(rel=rel, ms=ms, plain_ms=plain_ms, rel_ln=rel_ln, ms_turns=ms_turns,
                 ln_counts=ln_counts)
-
-
-DeviceEvent = collections.namedtuple("DeviceEvent", "name start us")
-
-
-def device_events(prof) -> list:
-    """The device events of a finished torch.profiler run as (name, start
-    µs, µs), read from its kineto results with the names, filters and
-    durations that `prof.events()` gives them, without the Python object per
-    event that `prof.events()` builds (tens of seconds of host time for the
-    179 k operations of a comp micro-step with the flow)."""
-    from torch.autograd.profiler_util import _filter_name, _rewrite_name
-
-    out = []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != torch.autograd.DeviceType.CUDA or _filter_name(e.name()) \
-                or getattr(e, "is_hidden_event", lambda: False)():
-            continue
-        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
-        out.append(DeviceEvent(_rewrite_name(name=e.name(), with_wildcard=True),
-                               e.start_ns() / 1e3,
-                               0.0 if is_async else (e.end_ns() - e.start_ns()) / 1e3))
-    return out
-
-
-def device_operations(fn, pattern: str = "") -> tuple[int, float]:
-    """(count, ms of device time) of the device operations of one call of
-    `fn` whose kernel name matches `pattern`, by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    found = [e.us for e in device_events(prof) if re.search(pattern, e.name)]
-    return len(found), sum(found) / 1e3
 
 
 def check_autograd_functions() -> None:
@@ -5212,7 +5202,9 @@ SPEED_REQUESTS = 2
 # (name, int8, DeepCache interval, ToMe ratio)
 SPEED_MODES = [("deepcache 3", False, 3, 0.0), ("deepcache 5", False, 5, 0.0),
                ("tome 0.5", False, 0, 0.5), ("int8", True, 0, 0.0),
-               ("int8 + deepcache 3", True, 3, 0.0)]
+               ("int8 + deepcache 3", True, 3, 0.0), ("int8 + deepcache 5", True, 5, 0.0)]
+# the quality gate's turbo mode (`scripts/bench_quality_torch.py`'s default)
+GATE_MODE = "int8 + deepcache 5"
 SHALLOW_FLASH = 10  # flash launches of a shallow DeepCache call: 5 transformers at 64x64
 
 
@@ -5640,6 +5632,8 @@ def serve_speed_modes(wrapper, faces, card: str) -> dict:
         modes[name] = dict(latency_ms=[s * 1e3 for s in lat], device_ms=dev, operations=ops,
                            counts=counts, max_abs_from_default=dist, rel_l2_from_default=rel,
                            full_calls=full, shallow_calls=shallow, same_bits=same_bits)
+        if name == GATE_MODE:
+            gate_images = dict(default=default, turbo=images)
         log(f"speed modes: {name} 512x512 25 steps ({full} full + {shallow} shallow UNet calls "
             f"a request): latency {', '.join(f'{s * 1e3:.1f}' for s in lat)} ms (default "
             f"{statistics.median(default_lat) * 1e3:.1f}), device {dev:.2f} ms in {ops} "
@@ -5679,7 +5673,7 @@ def serve_speed_modes(wrapper, faces, card: str) -> dict:
     log(f"speed modes: card {card}; the phase {secs:.1f} s")
     del wq, batcher, b
     return dict(int8_rel=rel_kp, int8_rel_free=rel_free, int8_rel_bf16=rel_bf, int8_corr=corr,
-                small=small, modes=modes,
+                small=small, modes=modes, gate_images=gate_images,
                 int8_counts=modes["int8"]["counts"], drain_imgs_per_sec=BATCH_SLOTS / drain_s,
                 drain_counts=drain_counts, replay_ms=replay_ms, seconds=secs)
 
@@ -6662,6 +6656,22 @@ DP_TIMEOUT_S = 600  # the fit processes, built and run
 DP_LOSS_REL = 2e-4
 DP_GRAD_NORM_REL = 1e-2
 DP_UPDATE_REL_L2 = 3e-2
+# the adversarial recon iteration (`adv_bs` ADV_BS), 2 ranks against one
+# process, on an H100 80GB HBM3 at 700 W. The loss: 3.7e-6-2.6e-4 apart over
+# seven runs (bf16 rounding at the ranks' UNet and decode batches); a fault
+# of the branch's reductions moves it by only 6e-6-2e-5 (2 CPU ranks), so
+# DP_ADV_LOSS_REL holds the loss's own reductions, not the branch's. The
+# attacked noise, over the attack's largest value (`chip_compare.py
+# --dp-adv-faults`): against the single process's attack with the gradient
+# taken on the ranks' row groups (their decode batches) the sound ranks read
+# 0.75-1.1% in bf16 and 3.5e-5 in fp32, the max of each rank's own rows
+# 6.5-9.3% and the mean of each rank's own rows 29%; against the whole
+# batch's attack the sound ranks read 12-18% in bf16 (0.5% in fp32: the
+# decode's rounding at each batch size), the max fault 14-19%, the mean
+# fault 29%, so DP_ADV_WHOLE_REL tells the mean fault only
+DP_ADV_LOSS_REL = 1e-3
+DP_ADV_NOISE_REL = 3e-2
+DP_ADV_WHOLE_REL = 0.25
 SYNC_BN_CASES = BN_CASES[:7]  # the first seven of the face parser's BN shapes
 SYNC_BN_TOL = 1e-4  # fp32: half the rows a rank against all of them on one
 
@@ -6811,6 +6821,173 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+ADV_BS = 3  # the attacked rows span both ranks: global rows 0-1 on rank 0, 2 on rank 1
+DP_PROCESSES = ("none0", "nccl0", "gloo0", "gloo1")  # dp_fit's processes, by backend and rank
+
+
+def adv_faces(img):
+    """A foreground and a background face whatever the pixels (512x512)."""
+    return [(np.array([96, 64, 416, 400], np.float32), 0.9),
+            (np.array([0, 240, 192, 496], np.float32), 0.8)]
+
+
+def wait_for(paths: list, what: str) -> None:
+    deadline = time.perf_counter() + DP_TIMEOUT_S
+    while not all(os.path.exists(p) for p in paths):
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"{what}: waited {DP_TIMEOUT_S} s for {paths}")
+        time.sleep(0.2)
+
+
+def adv_batch(trainer, gen) -> dict:
+    """A recon batch of 4 at full width on the card, drawn from `gen`: the
+    encoder's random-ID image prompts, random latents, the prompts of the
+    subject and the class at the trainer's placeholder width, masks, input
+    pixels and their faces (the last undetected, outside the first ADV_BS)."""
+    from adaface_tpu_torch.train.prompt_batch import build_4block_prompt_batch
+    from adaface_tpu_torch.utils.tensor import Draws
+
+    b, dev = 4, torch.device("cuda")
+    pad = ", " * (trainer.cfg.num_vectors_per_subj_token - 1)
+    subj = [f"a photo of z{pad}", f"a portrait of z{pad}, smiling"] * 2
+    cls = [f"a photo of a person{pad}", f"a portrait of a person{pad}, smiling"] * 2
+    pb = build_4block_prompt_batch(trainer.em, subj, subj, cls, cls)
+    _, _, prompts, _ = trainer.encoder.get_img_prompt_embs(id_batch_size=b, rng=Draws(gen))
+    img_mask = torch.ones((b, 1, 64, 64), device=dev)
+    img_mask[1, :, :, -6:] = 0.0
+    alpha = np.asarray(trainer.cfg.clip_skip_weights, np.float64)
+    return {
+        **adv_image_fields(gen),
+        "img_prompt_embs": prompts.float(),
+        **{k: torch.as_tensor(np.asarray(pb[k]), device=dev,
+                              dtype=torch.float32 if k == "prompt_emb_mask" else torch.int64)
+           for k in ("prompt_ids", "splice_map", "prompt_emb_mask", "uncond_ids")},
+        "clip_skip_weights": torch.as_tensor(alpha / alpha.sum(), dtype=torch.float32,
+                                             device=dev),
+        "img_mask": img_mask,
+        "recon_attn_lora_gate": torch.tensor(0.0, device=dev),
+    }
+
+
+def adv_image_fields(gen) -> dict:
+    """The fields of `adv_batch` that the adversarial branch reads: latents
+    and input pixels drawn from `gen` (in that order), the foreground masks,
+    the face boxes and their detection flags. Rank 0's attacked rows have
+    their foreground inside the face box, rank 1's the whole map, so that
+    the fg-masked means of the ranks' rows differ: a rank that took its own
+    rows' mean would scale its attack by a fifth off."""
+    b, dev = 4, torch.device("cuda")
+    fg = torch.zeros((b, 1, 64, 64), device=dev)
+    fg[:2, :, 16:48, 16:40] = 1.0
+    fg[2:] = 1.0
+    x_start = torch.randn((b, 4, 64, 64), generator=gen, device=dev)
+    return {
+        "x_start": x_start, "fg_mask": fg,
+        "ref_images": (torch.rand((b, 3, 512, 512), generator=gen, device=dev) * 2 - 1),
+        "ref_face_bboxes": torch.tensor([[96, 64, 416, 400], [64, 96, 448, 480],
+                                         [128, 80, 400, 432], [80, 80, 432, 432]],
+                                        dtype=torch.float32, device=dev),
+        "ref_face_detected": torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev),
+    }
+
+
+def dp_adv_iteration(trainer, sbg0) -> dict:
+    """One recon iteration with the adversarial branch (`adv_bs` ADV_BS) of
+    the trainer's Stage-1 towers, `sbg0` trained, at a global batch of 4:
+    this process's slice of it on the trainer's mesh (the whole batch
+    without one), through `make_train_step` (lr 0); its loss and metrics,
+    host seconds, one more step's device time and operations and the
+    launches; then `_adv_attacked_noise` alone on the same inputs: this
+    process's rows of the attacked next-step noise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.core.params import build, init_fan_in_
+    from adaface_tpu_torch.models.arcface import ArcFace, init_arcface_weights_
+    from adaface_tpu_torch.models.vae import SD_VAE, VAEDecoder
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.parallel.collectives import data_parallel
+    from adaface_tpu_torch.parallel.mesh import shard_batch, shard_train_batch
+    from adaface_tpu_torch.train import optimizers as O
+    from adaface_tpu_torch.train import recon_step as R
+    from adaface_tpu_torch.train import train_step as S
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED + 26)
+    decoder = build(lambda: VAEDecoder(SD_VAE), dev, torch.bfloat16, init_fan_in_, gen)
+    arcface = build(lambda: ArcFace(), dev, torch.float32, init_arcface_weights_, gen)
+    frozen = dict(trainer.frozen, vae=decoder, arcface=arcface)
+    batch = adv_batch(trainer, gen)
+    noise = torch.randn(batch["x_start"].shape, generator=gen, device=dev)
+    rand = {"adv_dropout_u": torch.rand((ADV_BS, 512), generator=gen, device=dev),
+            "adv_uniform": 0.37}
+    mesh = trainer.mesh if trainer.mesh is not None and trainer.mesh.dp > 1 else None
+    params = {"sbg": sbg0.to(dev)}
+    opt = O.make_optimizer("cadamw", S.trainable_parameters(params), 0.0, warmup_steps=0,
+                           total_steps=10)
+    rcfg = R.ReconStepConfig(do_adv_attack=True, adv_bs=ADV_BS)
+    step = S.make_train_step(R.make_recon_loss_fn(rcfg, HostFaceDetector(detector_fn=adv_faces)),
+                             frozen, trainer.schedule, trainer.tcfg, mesh=mesh)
+    local = batch if mesh is None else shard_train_batch(batch, mesh)
+    state = S.init_state(params, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, local, torch.Generator(dev).manual_seed(SEED + 27))
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    counts = launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(state, local, torch.Generator(dev).manual_seed(SEED + 27))
+        torch.cuda.synchronize()
+    kernels = [e.us for e in device_events(prof) if e.name != "Memset (Device)"]
+    rows, nz = batch, noise
+    if mesh is not None:
+        rows, nz = shard_batch(batch, mesh.rank, mesh.dp), shard_batch(noise, mesh.rank, mesh.dp)
+    with data_parallel(mesh):
+        attacked = R._adv_attacked_noise(frozen, rows, rand, nz, rcfg, 64)
+    out = dict(metrics={k: float(v) for k, v in metrics.items()}, host_s=host_s,
+               device_ms=sum(kernels) / 1e3, operations=len(kernels), counts=counts,
+               peak=torch.cuda.max_memory_allocated(), noise=attacked.float().cpu(),
+               noise_in=nz.float().cpu())
+    if mesh is None:
+        # the same attack with the gradient taken in the ranks' row groups
+        # (their decode batches), in this process: the ranks' arithmetic
+        # without the collectives, and the bf16 envelope of the decode's batch
+        from adaface_tpu_torch.train.face_detect import map_bboxes_to_latent
+        from adaface_tpu_torch.train.recon_multistep import calc_arcface_adv_grad
+
+        half = batch["x_start"].shape[0] // DP_RANKS
+        bb_px = batch["ref_face_bboxes"][:ADV_BS]
+        bb_lat = map_bboxes_to_latent(bb_px, batch["ref_images"].shape[-1], 64)
+
+        def grad(a, b):
+            return calc_arcface_adv_grad(arcface, decoder, batch["x_start"][a:b], bb_lat[a:b],
+                                         bb_px[a:b], rand["adv_dropout_u"][a:b], dropout_p=0.3,
+                                         count=ADV_BS * 512).detach()
+
+        groups = [(a, min(a + half, ADV_BS)) for a in range(0, ADV_BS, half)]
+        whole = adv_noise_of(grad(0, ADV_BS), batch, rand, noise, rcfg)
+        split = adv_noise_of(torch.cat([grad(a, b) for a, b in groups]), batch, rand, noise, rcfg)
+        out.update(noise_whole=whole.float().cpu(), noise_split=split.float().cpu())
+    return out
+
+
+def adv_noise_of(adv, batch: dict, rand: dict, noise, rcfg):
+    """`_adv_attacked_noise`'s scaling of a given gradient `adv` of the
+    global batch's first rows, in one process: the plain arithmetic the
+    ranks' collectives stand in for."""
+    nb = adv.shape[0]
+    fg = batch["fg_mask"][:nb]
+    fg_mean = (adv.abs() * fg).sum() / (fg.sum() * adv.shape[1] + 1e-6)
+    mag = torch.sqrt(adv.abs().max() * fg_mean)
+    lo, hi = rcfg.recon_adv_mod_mag_range
+    scale = torch.clamp((lo + (hi - lo) * float(rand["adv_uniform"])) / (mag + 1e-6), max=10.0)
+    ok = batch["ref_face_detected"][:nb].prod()
+    return torch.cat([noise[:nb] - adv * scale * ok, noise[nb:]])
+
+
 def dp_fit(rank: int, world: int, backend: str | None, port: int, data: str, out: str,
            sync_bn: str) -> None:
     """One process of `train_dp`: the Stage-1 fit of TRAIN_CONFIG on `data`
@@ -6859,6 +7036,8 @@ def dp_fit(rank: int, world: int, backend: str | None, port: int, data: str, out
             post(step, flags, metrics)
 
         trainer._post_step = watch
+        # the adversarial iteration's SubjBasisGenerator: the one every process starts from
+        sbg0 = copy.deepcopy(trainer.state.params["sbg"]).cpu()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launch_counts()
@@ -6867,11 +7046,30 @@ def dp_fit(rank: int, world: int, backend: str | None, port: int, data: str, out
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
         after = [p.detach().float().cpu().clone() for p in trainer.state.optimizer.params]
-        torch.save(dict(losses=losses, grad_norms=grad_norms, before=before, after=after,
-                        fit_s=fit_s,
-                        peak=torch.cuda.max_memory_allocated(), counts=launch_counts(),
-                        batch=trainer.cfg.batch_size,
-                        dp=None if trainer.mesh is None else trainer.mesh.dp), out)
+        res = dict(losses=losses, grad_norms=grad_norms, before=before, after=after,
+                   fit_s=fit_s, peak=torch.cuda.max_memory_allocated(), counts=launch_counts(),
+                   batch=trainer.cfg.batch_size,
+                   dp=None if trainer.mesh is None else trainer.mesh.dp)
+        # the adversarial recon iteration once every fit is done: the process
+        # without a group first, then the two gloo ranks (the NCCL one has
+        # none). It runs here, ordered by marker files, so that it reuses the
+        # full-width Stage-1 towers this process has built and the gloo group
+        # that is up; a second `run_processes` call would build both again.
+        # A process that dies ends the wait at once: `run_processes` polls the
+        # exit codes and stops the others.
+        name = f"{backend or 'none'}{rank}"
+        pathlib.Path(f"{sync_bn}.fit.{name}").touch()
+        if backend != "nccl":
+            trainer.state = None  # the fit's optimizer state: not the iteration's
+            gc.collect()
+            torch.cuda.empty_cache()
+            wait_for([f"{sync_bn}.fit.{n}" for n in DP_PROCESSES], "train dp")
+            if backend == "gloo":
+                wait_for([f"{sync_bn}.adv.none0"], "train dp")
+            res["adv"] = dp_adv_iteration(trainer, sbg0)
+            if backend is None:
+                pathlib.Path(f"{sync_bn}.adv.none0").touch()
+        torch.save(res, out)
     if backend:
         dist.destroy_process_group()
 
@@ -6918,6 +7116,57 @@ def dp_distance(res: dict, ref: dict) -> tuple[float, float, float]:
 
     return (rel(res["losses"], ref["losses"]), rel(res["grad_norms"], ref["grad_norms"]),
             update_rel_l2(res, ref))
+
+
+def adv_against_plain(adv: dict, card: str) -> dict:
+    """`train_dp`'s adversarial recon iteration: the two gloo ranks' loss
+    and metrics equal, their loss within DP_ADV_LOSS_REL of the single
+    process's; their attacked noise rows (concatenated) against the single
+    process's attack with the gradient taken in the ranks' row groups (their
+    decode batches) within DP_ADV_NOISE_REL of the attack's largest value,
+    and against the single process's own within DP_ADV_WHOLE_REL (the row
+    groups' distance from the whole batch is printed beside it); the first
+    ADV_BS rows moved and the others not."""
+    plain, r0, r1 = adv["plain"], adv["rank0"], adv["rank1"]
+    ref = plain["metrics"]["loss"]
+    loss_rel = max(abs(r["metrics"]["loss"] - ref) / abs(ref) for r in (r0, r1))
+    noise = torch.cat([r0["noise"], r1["noise"]])
+    attack = (plain["noise"] - plain["noise_in"]).abs()
+
+    def rel(a, b):
+        return ((a - b).abs().max() / attack.max()).item()
+
+    noise_rel, split_rel = rel(noise, plain["noise"]), rel(noise, plain["noise_split"])
+    envelope, whole_rel = rel(plain["noise_split"], plain["noise_whole"]), rel(
+        plain["noise_whole"], plain["noise"])
+    moved = attack.flatten(1).amax(1)
+    for name, r in adv.items():
+        log(f"train dp: adversarial recon iteration, {name}: loss {r['metrics']['loss']:.6e}, "
+            f"identity loss {r['metrics'].get('loss_arcface_align_recon', float('nan')):.6e}; "
+            f"{r['host_s']:.2f} s on the host's clock, device {r['device_ms']:.2f} ms in "
+            f"{r['operations']} operations; peak {r['peak'] / 2**30:.2f} GiB; launches "
+            f"{dict(sorted(r['counts'].items()))}")
+    log(f"train dp: adversarial recon iteration (adv_bs {ADV_BS}, global batch 4): 2 ranks "
+        f"against one process: loss {loss_rel:.3e} relative (bound {DP_ADV_LOSS_REL:g}); "
+        f"attacked noise, over the attack's largest value {attack.max().item():.4e}: against "
+        f"the process's attack on the ranks' row groups {split_rel:.3e} (bound "
+        f"{DP_ADV_NOISE_REL:g}), against its own {noise_rel:.3e} (bound {DP_ADV_WHOLE_REL:g}; the "
+        f"row groups' attack {envelope:.3e} from the whole batch's; the whole batch's "
+        f"recomputed {whole_rel:.3e} from the step's); rows moved by the attack "
+        f"{moved.tolist()}; device time a rank {r0['device_ms']:.2f} / {r1['device_ms']:.2f} ms "
+        f"against {plain['device_ms']:.2f} ms in one process ({card})")
+    if r0["metrics"] != r1["metrics"] or not math.isfinite(ref):
+        raise AssertionError(f"train dp: adversarial iteration: ranks {r0['metrics']} and "
+                             f"{r1['metrics']}")
+    if loss_rel > DP_ADV_LOSS_REL or split_rel > DP_ADV_NOISE_REL or noise_rel > DP_ADV_WHOLE_REL \
+            or not ((moved[:ADV_BS] > 0).all() and (moved[ADV_BS:] == 0).all()):
+        raise AssertionError(f"train dp: adversarial iteration: loss {loss_rel}, noise "
+                             f"{split_rel} / {noise_rel}, rows moved {moved.tolist()}")
+    return dict(loss_rel=loss_rel, noise_rel=noise_rel, noise_split_rel=split_rel,
+                noise_envelope=envelope,
+                device_ms={k: r["device_ms"] for k, r in adv.items()},
+                host_s={k: r["host_s"] for k, r in adv.items()},
+                counts=r0["counts"])
 
 
 def train_dp(card: str) -> dict:
@@ -6977,8 +7226,9 @@ def train_dp(card: str) -> dict:
             and upd <= DP_UPDATE_REL_L2):
         raise AssertionError(f"train dp: 2 ranks against one process: losses {loss_rel}, "
                              f"gradient norms {gnorm_rel}, update {upd}")
+    adv = adv_against_plain({k: res[k]["adv"] for k in ("plain", "rank0", "rank1")}, card)
     return dict(loss_rel=loss_rel, grad_norm_rel=gnorm_rel, update_rel_l2=upd, wall_s=wall,
-                sync_bn_ranks=sync_ranks,
+                sync_bn_ranks=sync_ranks, adv=adv,
                 fits={k: {key: r[key] for key in ("losses", "grad_norms", "fit_s", "peak",
                                                   "counts", "dp")}
                       for k, r in res.items()})
@@ -7329,6 +7579,163 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     ]}
 
 
+GATE_COSINE_CPU_TOL = 1e-4  # the gate's ArcFace cosine, card against the CPU
+
+
+def quality_gate(speed: dict, card: str) -> dict:
+    """`scripts/bench_quality_torch.compare` on the images `serve_speed_modes`
+    made of the same seeds, the default path's and GATE_MODE's (512x512, 25
+    steps): the ArcFace cosine of a random seeded resnet_face18, the pixel
+    MAE and correlation, on the card and again on the CPU (the cosine within
+    GATE_COSINE_CPU_TOL)."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import bench_quality_torch as bq
+
+    ref = torch.stack(speed["gate_images"]["default"])
+    turbo = torch.stack(speed["gate_images"]["turbo"])
+    t0 = time.perf_counter()
+    scores = bq.compare(ref, turbo, bq.random_arcface("cuda"))
+    secs = time.perf_counter() - t0
+    cpu = bq.compare(ref.cpu(), turbo.cpu(), bq.random_arcface("cpu"))
+    apart = abs(scores["arcface_cosine"] - cpu["arcface_cosine"])
+    log(f"quality gate: default against {GATE_MODE}, {ref.shape[0]} images of the same seeds at "
+        f"512x512: ArcFace cosine {scores['arcface_cosine']:.6f} (CPU {cpu['arcface_cosine']:.6f}"
+        f", {apart:.2e} apart, bound {GATE_COSINE_CPU_TOL:g}), pixel MAE "
+        f"{scores['pixel_mae']:.6f}, correlation {scores['pixel_corr']:.6f}; compared in "
+        f"{secs:.2f} s ({card})")
+    if not all(math.isfinite(v) for v in scores.values()) or apart > GATE_COSINE_CPU_TOL:
+        raise AssertionError(f"quality gate: {scores} on the card, {cpu} on the CPU")
+    if not -1.0 <= scores["arcface_cosine"] <= 1.0 + 1e-6 or scores["pixel_mae"] <= 0.0:
+        raise AssertionError(f"quality gate: {scores}")
+    return dict(scores, cpu_cosine=cpu["arcface_cosine"], seconds=secs)
+
+
+PROFILE_BATCH = 8
+
+
+def profile_stages(wrapper, card: str) -> dict:
+    """`scripts/profile_pipeline_torch.profile_stages` at PROFILE_BATCH on the
+    SD1.5 modules without adapters (stage times between CUDA events and of
+    device time, shares, the loop's overhead, the UNet's MFU), then one
+    request at that batch held to its launches by kernel."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import profile_pipeline_torch as prof
+
+    from adaface_tpu_torch.inference.pipeline import DiffusionPipeline
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+
+    pipe = DiffusionPipeline(dataclasses.replace(wrapper.pipeline.m, attn_lora=None,
+                                                 ffn_lora=None))
+    r = prof.profile_stages(pipe, PROFILE_BATCH)
+    log("profile stages:\n" + prof.report(r, card))
+    _build.reset_launch_counts()
+    with torch.inference_mode():
+        images = pipe([prof.PROMPT] * PROFILE_BATCH, negative_prompt=prof.NEGATIVE_PROMPT,
+                      num_inference_steps=prof.STEPS, guidance_scale=6.0,
+                      generator=torch.Generator("cuda").manual_seed(SEED + 24))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check_images(list(images), PROFILE_BATCH, 512, "profile stages")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = A.flash_plan(torch.bfloat16, PROFILE_BATCH, 1, 4096, 4096, 512, sms).nsplit > 1
+    want = {A.FLASH_T: 20 * prof.STEPS, A.FLASH_STD: 10 * prof.STEPS, A.FLASH_WIDE: 1,
+            A.FLASH_COMBINE: int(split)}
+    got = {k: counts.get(k, 0) for k in want}
+    gn = sum(v for k, v in counts.items() if k.startswith("gn_"))
+    log(f"profile stages: one request at batch {PROFILE_BATCH}, 512x512, 25 steps: launches "
+        f"{dict(sorted(counts.items()))}")
+    if got != want or gn == 0:
+        raise AssertionError(f"profile stages: launches {counts}, flash expected {want}")
+    shares = r["shares"]
+    if not (0.0 < r["mfu"] < 1.0 and abs(sum(shares.values()) - 1.0) < 1e-6):
+        raise AssertionError(f"profile stages: mfu {r['mfu']}, shares {shares}")
+    return dict(r, counts=counts)
+
+
+TEACHER_IMAGES, TEACHER_STEPS = 2, 8
+
+
+def teacher_sanity(wrapper, card: str) -> dict:
+    """`scripts/test_img_prompt_model_torch.teacher_images` (the teacher CLI's
+    chain: face ID → image prompts → the simple_unet teacher → decode, no ada
+    mapping) on the SD1.5 modules and the Arc2Face encoder: a 256x256,
+    2-step run kernels against plain, then TEACHER_IMAGES images at 512x512
+    and TEACHER_STEPS steps from the random-ID path, finite, in [0, 1], not
+    constant, held to their launches."""
+    sys.path.insert(0, str(REPO / "scripts"))
+    import test_img_prompt_model_torch as teach
+
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import attention as A
+    from adaface_tpu_torch.utils.tensor import Draws
+
+    m, enc = wrapper.pipeline.m, wrapper.id2ada_prompt_encoder
+
+    def run(n, steps, hw):
+        return teach.teacher_images(enc, m.unet, m.vae, m.schedule,
+                                    Draws(torch.Generator("cuda").manual_seed(SEED + 25)),
+                                    n, steps, hw)
+
+    _, small_k = run(TEACHER_IMAGES, 2, 256)
+    with plain_versions():
+        _, small_p = run(TEACHER_IMAGES, 2, 256)
+    err = (small_k - small_p).abs().max().item()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    embs, images = run(TEACHER_IMAGES, TEACHER_STEPS, 512)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    check_images(list(images), TEACHER_IMAGES, 512, "teacher sanity")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = A.flash_plan(torch.bfloat16, TEACHER_IMAGES, 1, 4096, 4096, 512, sms).nsplit > 1
+    want = {A.FLASH_T: 20 * TEACHER_STEPS, A.FLASH_STD: 10 * TEACHER_STEPS, A.FLASH_WIDE: 1,
+            A.FLASH_COMBINE: int(split)}
+    got = {k: counts.get(k, 0) for k in want}
+    log(f"teacher sanity: image prompts {tuple(embs.shape)}; a 256x256 2-step run kernels "
+        f"against plain: image max_abs_err {err:.3e} (bound {IMAGE_TOL:g}); {TEACHER_IMAGES} "
+        f"images at 512x512, {TEACHER_STEPS} steps in {secs:.2f} s, std "
+        f"{', '.join(f'{im.std().item():.4f}' for im in images)}; launches "
+        f"{dict(sorted(counts.items()))} ({card})")
+    if err > IMAGE_TOL or got != want:
+        raise AssertionError(f"teacher sanity: error {err}, launches {counts}, flash {want}")
+    return dict(err=err, seconds=secs, counts=counts)
+
+
+def toy_dataset(card: str) -> dict:
+    """`scripts/make_toy_dataset_torch.py` writes its 2 subjects x 2 images at
+    512x512 (PNGs, masks, captions, metainfo.json); an image decodes to the
+    pixels its generator makes, and `PersonalizedBase` reads an item of the
+    folder."""
+    import tempfile
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    import make_toy_dataset_torch as toy
+
+    from adaface_tpu_torch.data.personalized import PersonalizedBase
+    from adaface_tpu_torch.utils.image import read_image
+
+    with tempfile.TemporaryDirectory(prefix=".toy_", dir=str(REPO)) as tmp:
+        t0 = time.perf_counter()
+        toy.write_dataset(tmp, n=2, size=512)
+        write_s = time.perf_counter() - t0
+        img, _ = toy.make_image(np.random.RandomState(1000), 512)
+        same = bool(np.array_equal(read_image(os.path.join(tmp, "alice", "0.png")), img))
+        ds = PersonalizedBase(tmp, size=512, seed=0)
+        t0 = time.perf_counter()
+        item = ds[0]
+        item_s = time.perf_counter() - t0
+    log(f"toy dataset: 2 subjects x 2 images at 512x512 written in {write_s:.2f} s, an image "
+        f"read back equal: {same}; PersonalizedBase: {len(ds)} items of {ds.subject_names}, "
+        f"item 0 in {item_s * 1e3:.1f} ms: image {item['image'].shape}, fg "
+        f"{float(item['fg_mask'].mean()):.3f}, caption {item['caption']!r} ({card})")
+    if not same or len(ds) != 4 or item["image"].shape != (512, 512, 3) \
+            or not np.isfinite(item["image"]).all() or item["fg_mask"].max() != 1:
+        raise AssertionError("toy dataset: the folder or its item is off")
+    return dict(write_s=write_s, item_ms=item_s * 1e3)
+
+
 def timed_phase(name: str, fn, *args):
     """fn(*args), with its seconds logged: where the whole run's time goes."""
     t0 = time.perf_counter()
@@ -7356,6 +7763,10 @@ def main() -> int:
     joint = timed_phase("serve_joint", serve_joint, wrapper, faces, gen)
     trained = timed_phase("serve_trained", serve_trained, wrapper, faces, card)
     speed = timed_phase("serve_speed_modes", serve_speed_modes, wrapper, faces, card)
+    gate = timed_phase("quality_gate", quality_gate, speed, card)
+    del speed["gate_images"]
+    stages = timed_phase("profile_stages", profile_stages, wrapper, card)
+    teacher = timed_phase("teacher_sanity", teacher_sanity, wrapper, card)
     video = timed_phase("serve_video", serve_video, wrapper, faces, card)
     videos = timed_phase("eval_videos", eval_videos, video, faces, card)
     evaluated = timed_phase("evaluate_and_tools", evaluate_and_tools, wrapper, faces, card)
@@ -7377,6 +7788,7 @@ def main() -> int:
     sd15_bits = timed_phase("check_sd15_bits", check_sd15_bits, card)
     timed_phase("run_tools", run_tools, card)
     decoded = timed_phase("decode_images", decode_images, card)
+    toy = timed_phase("toy_dataset", toy_dataset, card)
     parser = timed_phase("train_face_parser", train_face_parser, gen)
     release()
     folder = timed_phase("train_face_parser_folder", train_face_parser_folder, gen)
@@ -7424,14 +7836,28 @@ def main() -> int:
              "text2video 16-frame clip": video["counts"],
              f"eval run {EVAL_PROMPTS} prompts x {EVAL_SAMPLES} samples": evaluated["counts"],
              "face-parser folder fit": folder["counts"], "sync-BN a rank": sync_bn["counts"],
-             "stage-1 dp fit rank 0": dp["fits"]["rank0"]["counts"]}
+             "stage-1 dp fit rank 0": dp["fits"]["rank0"]["counts"],
+             f"profile stages batch {PROFILE_BATCH} request": stages["counts"],
+             "teacher sanity 2 images 8 steps": teacher["counts"],
+             "dp adversarial recon iteration rank 0": dp["adv"]["counts"]}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths, sync_bn)
     record["checks"] = {"sd15_bits": sd15_bits, "decoded_fixtures": decoded["equal"],
                         "joint_reloaded_equal": joint_fit["reloaded_equal"],
                         "video_gif_decode_ms": videos["decode_ms"],
-                        "dp_update_rel_l2": dp["update_rel_l2"], "dp_loss_rel": dp["loss_rel"]}
+                        "dp_update_rel_l2": dp["update_rel_l2"], "dp_loss_rel": dp["loss_rel"],
+                        "dp_adv_loss_rel": dp["adv"]["loss_rel"],
+                        "dp_adv_noise_rel": dp["adv"]["noise_rel"],
+                        "dp_adv_noise_split_rel": dp["adv"]["noise_split_rel"],
+                        "dp_adv_noise_envelope": dp["adv"]["noise_envelope"],
+                        "quality_gate": {k: gate[k] for k in ("arcface_cosine", "pixel_mae",
+                                                              "pixel_corr", "cpu_cosine")},
+                        "profile_stages": {k: stages[k] for k in (
+                            "text_ms", "unet_ms", "loop_ms", "decode_ms", "text_device_ms",
+                            "unet_device_ms", "loop_device_ms", "decode_device_ms", "mfu",
+                            "mfu_device", "loop_overhead_ms")},
+                        "teacher_err": teacher["err"], "toy_item_ms": toy["item_ms"]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,7 +112,10 @@ def main(argv=None) -> None:
     ap.add_argument("--n_samples", type=int, default=4)
     ap.add_argument("--num_inference_steps", type=int, default=50)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--extra_args", nargs="*", default=[])
+    # the rest of the line goes to txt2img_eval_torch.py, options included
+    # (`--extra_args --adaface_ckpt DIR --guidance_scale 5`, as the periodic
+    # evaluation loop passes them): give it last
+    ap.add_argument("--extra_args", nargs=argparse.REMAINDER, default=[])
     ap.add_argument("--fixture_root", default=None,
                     help="a checkout of the reference's evaluation fixtures, used when "
                          "neither --subjects_root nor --subject_file is given")

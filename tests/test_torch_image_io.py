@@ -287,14 +287,18 @@ def test_port_imports_no_pil_or_jax():
     card's machine has none of them), none but the training losses' optional
     face detector imports OpenCV (the card's machine has none: the
     evaluation package, the ViT, the makeup copy, the tool twins and the
-    demo among them), and every entry point runs on the card unless asked
-    for the CPU."""
+    demo among them), every entry point runs on the card unless asked for
+    the CPU, and the shell twins (`scripts/*_torch.sh`) call no script but
+    the port's."""
     files = port_files()
     assert len(files) > 80
     names = {f.relative_to(files[0].parents[1]).as_posix() for f in files}
     assert {"app_torch.py", "adaface_tpu_torch/models/vit.py",
             "adaface_tpu_torch/utils/makeup.py", "adaface_tpu_torch/evaluation/clip_eval.py",
-            "scripts/txt2img_eval_torch.py", "scripts/gen_face_masks_torch.py"} <= names
+            "scripts/txt2img_eval_torch.py", "scripts/gen_face_masks_torch.py",
+            "scripts/make_toy_dataset_torch.py", "scripts/bench_quality_torch.py",
+            "scripts/profile_pipeline_torch.py", "scripts/test_img_prompt_model_torch.py",
+            "scripts/dev_verify_comp_torch.py"} <= names
     cv2 = {f.name for f in files if CV2_IMPORT.search(f.read_text())}
     assert cv2 <= CV2_ALLOWED, cv2 - CV2_ALLOWED
     bad = {f.name: PORT_IMPORT.findall(f.read_text()) for f in files}
@@ -302,3 +306,12 @@ def test_port_imports_no_pil_or_jax():
     defaults = {f.name: re.findall(r'"--device",\s*default="(\w+)"', f.read_text())
                 for f in files}
     assert {k: v for k, v in defaults.items() if v and set(v) != {"cuda"}} == {}
+    # the shell twins call the port's scripts only
+    shells = sorted((files[0].parents[1] / "scripts").glob("*_torch.sh"))
+    assert [f.name for f in shells] == ["infer_every_n_min_torch.sh"]
+    calls = {f.name: [c for line in f.read_text().splitlines()
+                      if not line.lstrip().startswith("#")
+                      for c in re.findall(r"([\w/.-]+\.(?:py|sh))\b", line)] for f in shells}
+    assert all(calls.values()), calls
+    assert {k: [c for c in v if not re.search(r"_torch\.(?:py|sh)$", c)]
+            for k, v in calls.items()} == {k: [] for k in calls}

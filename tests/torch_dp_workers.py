@@ -123,6 +123,23 @@ def make_loss_fn(case: dict):
     raise ValueError(kind)
 
 
+def adv_noise_case(case: dict, mesh) -> torch.Tensor:
+    """`recon_step._adv_attacked_noise` on this rank's slice of the case's
+    batch and next-step noise (the whole of both where `mesh` is None) →
+    the adjusted noise rows."""
+    from adaface_tpu_torch.parallel.collectives import data_parallel
+    from adaface_tpu_torch.parallel.mesh import shard_batch
+    from adaface_tpu_torch.train import recon_step as trecon
+
+    batch, noise = case["batch"], case["noise"]
+    if mesh is not None:
+        batch = shard_batch(batch, mesh.rank, mesh.dp)
+        noise = shard_batch(noise, mesh.rank, mesh.dp)
+    with data_parallel(mesh):
+        return trecon._adv_attacked_noise(case["frozen"], batch, case["rand"], noise,
+                                          case["rcfg"], noise.shape[-1])
+
+
 def _bn_case(case: dict, rank: int, world: int) -> dict:
     from adaface_tpu_torch.ops.fused_norm import fused_bn_act
 
@@ -204,6 +221,8 @@ def dp_cases(rank: int, payload: dict) -> dict:
     for name, case in payload.items():
         if case["kind"] == "step":
             out[name] = _step_case(case, mesh)
+        elif case["kind"] == "adv_noise":
+            out[name] = adv_noise_case(case, mesh)
         elif case["kind"] == "fit":
             case["log"] = os.path.join(case["log"], f"rank{rank}")
             out[name] = fit_case(case)
