@@ -178,6 +178,47 @@ _NORMS = (nn.GroupNorm, nn.LayerNorm)
 _FUSED_PARTS = {"qkv": ("q", "k", "v"), "kv": ("k", "v")}
 
 
+def _jax_leaves(module: nn.Module):
+    """(flat JAX name, tensor, layout) of each leaf of the pytree `module`
+    mirrors, in `named_modules` order: layout "conv" (OIHW → HWIO), "dense"
+    ([out, in] → [in, out]), ("part", i, n) (the i-th of n stacked parts of a
+    fused weight, then dense), "int8" (w_q: HWIO or IO) or "as_is"."""
+    inverse = {v: k for k, v in BN_STATS.items()}
+    for name, mod in module.named_modules():
+        prefix = f"{name}." if name else ""
+        if hasattr(mod, "w_q"):
+            yield f"{prefix}w_q", mod.w_q, "int8"
+            yield f"{prefix}w_scale", mod.w_scale, "as_is"
+            yield f"{prefix}b", mod.bias, "as_is"
+            continue
+        tensors = dict(mod.named_parameters(recurse=False))
+        tensors.update({k: v for k, v in mod.named_buffers(recurse=False)
+                        if k in BN_STATS.values()})
+        for leaf, t in tensors.items():
+            if isinstance(mod, nn.Conv2d) and leaf == "weight":
+                yield f"{prefix}w", t, "conv"
+            elif isinstance(mod, nn.Linear) and leaf == "weight":
+                parts = _FUSED_PARTS.get(name.rpartition(".")[2]) if hasattr(mod, "parts") else None
+                if parts:
+                    head = name.rpartition(".")[0]
+                    for i, part in enumerate(parts):
+                        yield f"{head}.{part}.w", t, ("part", i, len(parts))
+                else:
+                    yield f"{prefix}w", t, "dense"
+            elif isinstance(mod, (nn.Conv2d, nn.Linear)) and leaf == "bias":
+                yield f"{prefix}b", t, "as_is"
+            elif leaf == "weight" and (isinstance(mod, _NORMS) or t.ndim == 1):
+                yield f"{prefix}scale", t, "as_is"
+            else:
+                yield f"{prefix}{inverse.get(leaf, leaf)}", t, "as_is"
+
+
+def jax_leaf_paths(module: nn.Module) -> list[str]:
+    """The '/'-joined JAX paths (`core.params.map_with_path`'s) of the leaves
+    of the pytree `module` mirrors: `tree_state_dict`'s names."""
+    return [name.replace(".", "/") for name, _, _ in _jax_leaves(module)]
+
+
 def tree_state_dict(module: nn.Module) -> dict[str, np.ndarray]:
     """The inverse of `state_dict` + `fuse_projections`: a port module's
     parameters and batch-norm statistics under the flat names and in the
@@ -188,36 +229,20 @@ def tree_state_dict(module: nn.Module) -> dict[str, np.ndarray]:
     `qkv` / `kv` weight split back into `q`, `k`, `v`; an int8 layer's `w_q`
     (int8, HWIO or IO), `w_scale` and `b`."""
     out: dict[str, np.ndarray] = {}
-    for name, mod in module.named_modules():
-        prefix = f"{name}." if name else ""
-        if hasattr(mod, "w_q"):
-            w_q = mod.w_q.cpu().numpy()
-            out[f"{prefix}w_q"] = w_q.transpose(1, 2, 3, 0) if w_q.ndim == 4 else w_q.T
-            out[f"{prefix}w_scale"] = mod.w_scale.float().cpu().numpy()
-            out[f"{prefix}b"] = mod.bias.detach().float().cpu().numpy()
+    for name, t, layout in _jax_leaves(module):
+        if layout == "int8":
+            w_q = t.cpu().numpy()
+            out[name] = w_q.transpose(1, 2, 3, 0) if w_q.ndim == 4 else w_q.T
             continue
-        tensors = dict(mod.named_parameters(recurse=False))
-        tensors.update({k: v for k, v in mod.named_buffers(recurse=False)
-                        if k in BN_STATS.values()})
-        for leaf, t in tensors.items():
-            a = t.detach().float().cpu().numpy()
-            if isinstance(mod, nn.Conv2d) and leaf == "weight":
-                out[f"{prefix}w"] = a.transpose(2, 3, 1, 0)
-            elif isinstance(mod, nn.Linear) and leaf == "weight":
-                parts = _FUSED_PARTS.get(name.rpartition(".")[2]) if hasattr(mod, "parts") else None
-                if parts:
-                    head = name.rpartition(".")[0]
-                    for part, w in zip(parts, np.split(a, len(parts), axis=0)):
-                        out[f"{head}.{part}.w"] = w.T
-                else:
-                    out[f"{prefix}w"] = a.T
-            elif isinstance(mod, (nn.Conv2d, nn.Linear)) and leaf == "bias":
-                out[f"{prefix}b"] = a
-            elif leaf == "weight" and (isinstance(mod, _NORMS) or a.ndim == 1):
-                out[f"{prefix}scale"] = a
-            else:
-                inverse = {v: k for k, v in BN_STATS.items()}
-                out[f"{prefix}{inverse.get(leaf, leaf)}"] = a
+        if isinstance(layout, tuple):
+            _, i, n = layout
+            t = t.chunk(n, dim=0)[i]
+        a = t.detach().float().cpu().numpy()
+        if layout == "conv":
+            a = a.transpose(2, 3, 1, 0)
+        elif layout != "as_is":
+            a = a.T
+        out[name] = a
     return out
 
 

@@ -17,6 +17,14 @@ attends like token j // mult). `extend_mkv`, `squeeze_mkv` and
 `layer_multipliers` (`clip.py:467-535`) work on a module or its state dict;
 `fit_kv_widths_` rebuilds a module's K and V at a state dict's widths before
 it is loaded.
+
+Tensor parallelism (`parallel.mesh.shard_params`): an `EncoderLayer`'s
+attention runs `num_heads / tp` heads (q, k, v column-split by heads, `o`
+row-split, its partial products summed over tp and its bias added once);
+its MLP splits fc1's outputs and fc2's inputs. MKV's K and V hold `mult`
+copies of the heads side by side: a rank takes its heads inside each copy.
+The column-split biases stay whole on every rank and are sliced at use, as
+JAX's rules leave them replicated.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from torch import nn
 from adaface_tpu_torch.core.device import fp32_convolutions
 from adaface_tpu_torch.core.params import normal_
 from adaface_tpu_torch.ops.resize import resize_nearest
+from adaface_tpu_torch.parallel.collectives import copy_to_tp, row_parallel_out, tp_part
 from adaface_tpu_torch.utils.tensor import Draws, perturb_tensor
 
 
@@ -91,6 +100,9 @@ _ACTS = {"quick_gelu": quick_gelu,
 
 
 class EncoderLayer(nn.Module):
+    # the mesh, once `shard_params` split the attention's heads / the MLP
+    tp_attn = tp_mlp = None
+
     def __init__(self, cfg: CLIPTextConfig | CLIPVisionConfig):
         super().__init__()
         d = cfg.hidden_size
@@ -105,6 +117,19 @@ class EncoderLayer(nn.Module):
     @property
     def kv_mult(self) -> int:
         return self.attn["k"].out_features // self.attn["q"].out_features
+
+    def tp_units(self):
+        """(attribute, [(weight, its JAX leaves, split dim, parts)], whether
+        tp divides it) of the attention and of the MLP."""
+        mult = self.kv_mult
+        return [("tp_attn", (("attn.q.weight", ("attn/q/w",), 0, 1),
+                             ("attn.k.weight", ("attn/k/w",), 0, mult),
+                             ("attn.v.weight", ("attn/v/w",), 0, mult),
+                             ("attn.o.weight", ("attn/o/w",), 1, 1)),
+                 lambda tp: self.num_heads % tp == 0),
+                ("tp_mlp", (("mlp.fc1.weight", ("mlp/fc1/w",), 0, 1),
+                            ("mlp.fc2.weight", ("mlp/fc2/w",), 1, 1)),
+                 lambda tp: self.mlp["fc1"].out_features % tp == 0)]
 
     def set_kv_mult(self, mult: int) -> None:
         """K and V rebuilt mult·D wide (uninitialised) on their device, in
@@ -124,9 +149,17 @@ class EncoderLayer(nn.Module):
         b, s, d = x.shape
         hd = d // self.num_heads
         mult = self.kv_mult
-        split = lambda t, n: t.reshape(b, n, self.num_heads, hd).transpose(1, 2)  # noqa: E731
-        q = split(self.attn["q"](x), s)
-        k, v = (split(self.attn[n](x), s * mult) for n in ("k", "v"))
+        tp = self.tp_attn
+        heads = self.num_heads if tp is None else self.num_heads // tp.tp
+        split = lambda t, n: t.reshape(b, n, heads, hd).transpose(1, 2)  # noqa: E731
+        if tp is None:
+            proj = lambda n, parts: self.attn[n](x)  # noqa: E731
+        else:
+            xin = copy_to_tp(x, tp)
+            proj = lambda n, parts: F.linear(  # noqa: E731
+                xin, self.attn[n].weight, tp_part(self.attn[n].bias, tp, parts=parts))
+        q = split(proj("q", 1), s)
+        k, v = (split(proj(n, mult), s * mult) for n in ("k", "v"))
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / math.sqrt(hd)
         if causal:
             rows = torch.arange(s, device=x.device)[:, None]
@@ -136,11 +169,22 @@ class EncoderLayer(nn.Module):
             logits = logits + attn_bias.float().repeat_interleave(mult, -1)
         probs = torch.softmax(logits, dim=-1).to(x.dtype)
         out = torch.matmul(probs.float(), v.float()).to(x.dtype)
-        return self.attn["o"](out.transpose(1, 2).reshape(b, s, d))
+        out = out.transpose(1, 2).reshape(b, s, heads * hd)
+        if tp is None:
+            return self.attn["o"](out)
+        return row_parallel_out(F.linear(out, self.attn["o"].weight), self.attn["o"].bias, tp)
+
+    def _mlp(self, x):
+        tp = self.tp_mlp
+        if tp is None:
+            return self.mlp["fc2"](self.act(self.mlp["fc1"](x)))
+        fc1, fc2 = self.mlp["fc1"], self.mlp["fc2"]
+        h = self.act(F.linear(copy_to_tp(x, tp), fc1.weight, tp_part(fc1.bias, tp)))
+        return row_parallel_out(F.linear(h, fc2.weight), fc2.bias, tp)
 
     def forward(self, x, attn_bias=None, causal: bool = True):
         x = x + self._attention(self.ln1(x), attn_bias, causal)
-        return x + self.mlp["fc2"](self.act(self.mlp["fc1"](self.ln2(x))))
+        return x + self._mlp(self.ln2(x))
 
 
 class CLIPTextModel(nn.Module):

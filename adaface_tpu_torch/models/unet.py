@@ -62,6 +62,18 @@ the JAX package left them to XLA. With `UNetConfig.fused_ln` set (default:
 `ADAFACE_FUSED_LN=1`, the JAX package's toggle, `unet.py:176`) the 48
 LayerNorms of the 16 transformer blocks go through the LayerNorm kernel;
 unset, they stay `nn.LayerNorm`, as the JAX default stays XLA.
+
+Tensor parallelism (`parallel.mesh.shard_params`, JAX's `DEFAULT_TP_RULES`
+on the frozen UNet): a layer that `tp_units` names computes on this tp
+rank's part of its weights once they are cut. Each `Attention` runs
+`num_heads / tp` heads (q, k, v column-split by heads, `o` row-split, its
+partial products summed over tp and its bias added once after); a
+`TransformerBlock`'s GEGLU takes this rank's slice of `val` and of `gate`
+(and `proj_out`'s matching input rows); `time_mlp` splits as a CLIP MLP.
+The capture gathers the heads back (`collectives.gather_heads`), and the
+attention adapters use the slice matching their base weight, their weights
+entering the region through `copy_to_tp` (their gradients summed over tp).
+A layer whose heads do not divide by tp stays whole on every rank.
 """
 
 from __future__ import annotations
@@ -80,6 +92,8 @@ from adaface_tpu_torch.ops.attention import multi_head_attention
 from adaface_tpu_torch.ops.fused_gn import GroupNorm
 from adaface_tpu_torch.ops.fused_ln import LayerNorm
 from adaface_tpu_torch.ops.resize import resize_nearest
+from adaface_tpu_torch.parallel.collectives import (all_reduce_tp, copy_to_tp, gather_heads,
+                                                    row_parallel_out, tp_part)
 from adaface_tpu_torch.utils.tensor import gen_gradient_scaler, gradient_scale
 
 
@@ -210,12 +224,30 @@ class DoRALinear(nn.Module):
         self.lora_b = nn.Parameter(torch.zeros(out_features, rank))
         self.magnitude = nn.Parameter(torch.ones(out_features))
 
-    def forward(self, base: nn.Linear, x, scale: float):
-        w = _base_weight(base).float() + scale * (self.lora_b.float() @ self.lora_a.float())
-        w = w * (self.magnitude[:, None] / (torch.linalg.vector_norm(w, dim=1, keepdim=True)
-                                            + 1e-8))
-        bias = None if base.bias is None else base.bias.to(x.dtype)
-        return F.linear(x, w.to(x.dtype), bias)
+    def forward(self, base: nn.Linear, x, scale: float, tp=None, split: str = "col"):
+        """Under a tp mesh `base` holds this rank's part: "col", its output
+        rows (lora_b's and the magnitudes' matching rows, the bias's slice);
+        "row", its input columns (lora_a's matching columns, each row's norm
+        over its squares summed over tp), and the partial product comes
+        back without the bias (`row_parallel_out` adds it)."""
+        if tp is None:
+            w = _base_weight(base).float() + scale * (self.lora_b.float() @ self.lora_a.float())
+            w = w * (self.magnitude[:, None] / (torch.linalg.vector_norm(w, dim=1, keepdim=True)
+                                                + 1e-8))
+            bias = None if base.bias is None else base.bias.to(x.dtype)
+            return F.linear(x, w.to(x.dtype), bias)
+        lora_a, lora_b, mag = (copy_to_tp(t, tp) for t in (self.lora_a, self.lora_b,
+                                                            self.magnitude))
+        if split == "col":
+            lora_b, mag = tp_part(lora_b, tp), tp_part(mag, tp)
+            w = _base_weight(base).float() + scale * (lora_b.float() @ lora_a.float())
+            w = w * (mag[:, None] / (torch.linalg.vector_norm(w, dim=1, keepdim=True) + 1e-8))
+            bias = None if base.bias is None else tp_part(base.bias, tp).to(x.dtype)
+            return F.linear(x, w.to(x.dtype), bias)
+        w = _base_weight(base).float() + scale * (lora_b.float() @ tp_part(lora_a, tp, 1).float())
+        sq = all_reduce_tp((w * w).sum(dim=1, keepdim=True), tp)
+        w = w * (mag[:, None] / (sq.sqrt() + 1e-8))
+        return F.linear(x, w.to(x.dtype))
 
 
 class DoRAConv(nn.Module):
@@ -336,6 +368,8 @@ class Attention(nn.Module):
     """q/k/v without bias, o with; [B, N, C] tokens. Self-attention keeps
     q, k and v as one weight (`qkv`), cross-attention k and v (`kv`)."""
 
+    tp_attn = None  # the mesh, once `shard_params` split the heads over its tp ranks
+
     def __init__(self, q_dim, kv_dim, num_heads, cross: bool):
         super().__init__()
         if cross:
@@ -345,6 +379,18 @@ class Attention(nn.Module):
             self.qkv = FusedLinear(q_dim, q_dim, parts=3)
         self.o = nn.Linear(q_dim, q_dim)
         self.num_heads = num_heads
+
+    def tp_units(self):
+        """(attribute, [(weight, its JAX leaves, split dim, parts)], whether
+        tp divides it) of each unit `shard_params` may split."""
+        proj = ((("qkv.weight", ("q/w", "k/w", "v/w"), 0, 3),) if hasattr(self, "qkv") else
+                (("q.weight", ("q/w",), 0, 1), ("kv.weight", ("k/w", "v/w"), 0, 2)))
+        return [("tp_attn", (*proj, ("o.weight", ("o/w",), 1, 1)),
+                 lambda tp: self.num_heads % tp == 0)]
+
+    def _out(self, part, tp):
+        """The row-split `o`'s output from this rank's partial product."""
+        return row_parallel_out(part, self.o.bias, tp)
 
     def forward(self, x, context=None, kv_mask=None, rt: AttnRuntime = PLAIN,
                 lora: AttnLoRALayer | None = None, subj_mask=None, lora_scale: float = 0.0,
@@ -356,22 +402,30 @@ class Attention(nn.Module):
         b, n, c = x.shape
         cross = context is not None
         use_lora = cross and rt.use_attn_lora and lora is not None
+        tp = self.tp_attn
+        heads, w = self.num_heads, c  # this rank's heads and their width
+        if tp is not None:
+            heads, w = heads // tp.tp, c // tp.tp
+            x = copy_to_tp(x, tp)
+            if cross:
+                context = copy_to_tp(context, tp)
         if not cross:
-            q, k, v = self.qkv(x).split(c, dim=-1)
+            q, k, v = self.qkv(x).split(w, dim=-1)
             q2 = q
         else:
             q = q2 = self.q(x)
             # q's adapter feeds only the capture and, by the flag, the query:
             # where neither reads it, it is not computed (XLA drops it too)
             if use_lora and (capture is not None or rt.q_lora_updates_query):
-                q2 = lora.q(self.q, x, lora_scale)
+                q2 = lora.q(self.q, x, lora_scale, tp)
                 if lora_gate is not None:
                     q2 = _gated(lora_gate, q2, q)
                 if rt.q_lora_updates_query:
                     q = q2
-            k, v = self.kv(context).split(c, dim=-1)
+            k, v = self.kv(context).split(w, dim=-1)
+        same_q = q2 is q
         hd = c // self.num_heads
-        split = lambda t: t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)  # noqa: E731
+        split = lambda t: t.reshape(b, -1, heads, hd).transpose(1, 2)  # noqa: E731
         q, q2, k, v = split(q), split(q2), split(k), split(v)
         scale = 1.0 / math.sqrt(hd)
         if cross and (capture is not None or rt.normalize_cross_attn
@@ -386,20 +440,34 @@ class Attention(nn.Module):
                 logits = torch.cat([mixed, mixed])
             elif rt.normalize_cross_attn and subj_mask is not None:
                 mean_q = logits.mean(dim=2, keepdim=True).detach()
-                factor = 1.0 if lora is None else gradient_scale(lora.scale_factor, 10.0)
+                factor = 1.0
+                if lora is not None:  # a trained value the tp ranks' heads each read
+                    sf = lora.scale_factor if tp is None else copy_to_tp(lora.scale_factor, tp)
+                    factor = gradient_scale(sf, 10.0)
                 logits = torch.where(subj_mask[:, None, None, :] > 0,
                                      (logits - mean_q) * factor, logits)
             probs = torch.softmax(logits, dim=-1)
             out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(x.dtype)
             if capture is not None:
                 rs = math.sqrt(scale)
-                flat = lambda t: (t * rs).transpose(-1, -2).reshape(b, c, -1)  # noqa: E731
-                capture.update(q=flat(q), q2=flat(q2), k=flat(k), v=flat(v),
-                               attn=probs.to(x.dtype), attnscore=logits.to(x.dtype))
+                # the losses read every head: the tp ranks' heads gathered
+                whole = (lambda t: t) if tp is None else (  # noqa: E731
+                    lambda t: gather_heads(t, tp))
+                flat = lambda t: (whole(t) * rs).transpose(-1, -2).reshape(b, c, -1)  # noqa: E731
+                q_flat = flat(q)
+                capture.update(q=q_flat, q2=q_flat if same_q else flat(q2), k=flat(k),
+                               v=flat(v), attn=whole(probs.to(x.dtype)),
+                               attnscore=whole(logits.to(x.dtype)))
         else:
             out = multi_head_attention(q, k, v, kv_mask=kv_mask, scale=scale)
-        out = out.transpose(1, 2).reshape(b, n, c)
-        if use_lora:
+        out = out.transpose(1, 2).reshape(b, n, w)
+        if tp is not None:
+            part = F.linear(out, self.o.weight)
+            if use_lora:
+                adapted = lora.out(self.o, out, lora_scale, tp, "row")
+                part = adapted if lora_gate is None else _gated(lora_gate, adapted, part)
+            out = self._out(part, tp)
+        elif use_lora:
             adapted = lora.out(self.o, out, lora_scale)
             out = adapted if lora_gate is None else _gated(lora_gate, adapted, self.o(out))
         else:
@@ -410,6 +478,9 @@ class Attention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
+    tp_ff = None  # the mesh, once `shard_params` split the GEGLU over its tp ranks
+    GEGLU_PARTS = 2  # proj_in is [val | gate]: a rank takes its slice of each
+
     def __init__(self, dim, cross_dim, num_heads, fused_ln: bool):
         super().__init__()
         norm = LayerNorm if fused_ln else nn.LayerNorm
@@ -420,6 +491,23 @@ class TransformerBlock(nn.Module):
         self.norm3 = norm(dim, eps=1e-5)
         self.ff = nn.ModuleDict({"proj_in": nn.Linear(dim, dim * 8),  # GEGLU 2·4·dim
                                  "proj_out": nn.Linear(dim * 4, dim)})
+
+    def tp_units(self):
+        """The GEGLU's unit (`Attention.tp_units`)."""
+        return [("tp_ff", (("ff.proj_in.weight", ("ff/proj_in/w",), 0, self.GEGLU_PARTS),
+                           ("ff.proj_out.weight", ("ff/proj_out/w",), 1, 1)),
+                 lambda tp: self.ff["proj_out"].in_features % tp == 0)]
+
+    def _geglu(self, h):
+        tp = self.tp_ff
+        if tp is None:
+            val, gate = self.ff["proj_in"](h).chunk(2, dim=-1)
+            return self.ff["proj_out"](val * F.gelu(gate, approximate="tanh"))
+        pin, pout = self.ff["proj_in"], self.ff["proj_out"]
+        val, gate = F.linear(copy_to_tp(h, tp), pin.weight,
+                             tp_part(pin.bias, tp, parts=self.GEGLU_PARTS)).chunk(2, dim=-1)
+        return row_parallel_out(F.linear(val * F.gelu(gate, approximate="tanh"), pout.weight),
+                                pout.bias, tp)
 
     def forward(self, y, context, img_mask=None, tome=None, **cross):
         """`tome`: (ToMeConfig, merge, unmerge) of this block's tokens, or
@@ -441,8 +529,7 @@ class TransformerBlock(nn.Module):
             y = y + self.attn2(self.norm2(y), context, **cross)
         merge_mlp = merge is not None and cfg.merge_mlp
         ff_in = self.norm3(y)
-        val, gate = self.ff["proj_in"](merge(ff_in) if merge_mlp else ff_in).chunk(2, dim=-1)
-        ff_out = self.ff["proj_out"](val * F.gelu(gate, approximate="tanh"))
+        ff_out = self._geglu(merge(ff_in) if merge_mlp else ff_in)
         return y + (unmerge(ff_out) if merge_mlp else ff_out)
 
 
@@ -489,6 +576,29 @@ class Transformer2D(nn.Module):
         return self.proj_out(y.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x
 
 
+class TimeMLP(nn.ModuleDict):
+    """The timestep embedding's two-layer SiLU MLP (fc1, fc2): under tp,
+    fc1 column-split and fc2 row-split, as JAX's `mlp/fc1|fc2` rules place
+    `time_mlp`."""
+
+    tp_mlp = None  # the mesh, once `shard_params` split it over its tp ranks
+
+    def __init__(self, cin: int, dim: int):
+        super().__init__({"fc1": nn.Linear(cin, dim), "fc2": nn.Linear(dim, dim)})
+
+    def tp_units(self):
+        return [("tp_mlp", (("fc1.weight", ("fc1/w",), 0, 1), ("fc2.weight", ("fc2/w",), 1, 1)),
+                 lambda tp: self["fc2"].in_features % tp == 0)]
+
+    def forward(self, x):
+        tp = self.tp_mlp
+        if tp is None:
+            return self["fc2"](F.silu(self["fc1"](x)))
+        fc1, fc2 = self["fc1"], self["fc2"]
+        h = F.silu(F.linear(copy_to_tp(x, tp), fc1.weight, tp_part(fc1.bias, tp)))
+        return row_parallel_out(F.linear(h, fc2.weight), fc2.bias, tp)
+
+
 class UNetBlock(nn.Module):
     """A down or up block: resnets, optional transformers, optional
     stride-2 downsample or nearest-2x upsample conv."""
@@ -507,8 +617,7 @@ class UNet2DConditionModel(nn.Module):
         self.cfg = cfg
         ch, temb = cfg.block_channels, cfg.time_embed_dim
         self.conv_in = _conv(cfg.in_channels, ch[0])
-        self.time_mlp = nn.ModuleDict({"fc1": nn.Linear(ch[0], temb),
-                                       "fc2": nn.Linear(temb, temb)})
+        self.time_mlp = TimeMLP(ch[0], temb)
         down, cin = [], ch[0]
         for bi, cout in enumerate(ch):
             res, att = [], []
@@ -616,7 +725,7 @@ class UNet2DConditionModel(nn.Module):
                              "casting the module)")
         temb = timestep_embedding(t, self.cfg.block_channels[0],
                                   freqs=self.time_freqs).to(context.dtype)
-        temb = self.time_mlp["fc2"](F.silu(self.time_mlp["fc1"](temb)))
+        temb = self.time_mlp(temb)
         if self.cfg.addition_time_embed_dim is not None:
             # "text_time": each time id's Fourier embedding after the pooled
             # text embedding, through a 2-layer SiLU MLP, added to temb

@@ -1,32 +1,44 @@
-"""Data parallelism over `torch.distributed`.
+"""Data and tensor parallelism over `torch.distributed`.
 
-Counterpart of `adaface_tpu/parallel/mesh.py`. The JAX package's 'dp' mesh
-axis is SPMD: every rank runs the graph of the global batch and XLA places
-each leaf's shard. The port runs one process a rank (`torchrun`), each on
-its slice of the global batch, and keeps JAX's invariant by construction:
-a dp-rank step computes the single-device step on the global batch.
+Counterpart of `adaface_tpu/parallel/mesh.py`. The JAX package's mesh is
+SPMD: every rank runs the graph of the global batch and XLA places each
+leaf's shard and the collectives. The port runs one process a rank
+(`torchrun`) and keeps JAX's invariant by construction: a step on the mesh
+computes the single-device step on the global batch.
 
-- `make_mesh(dp)`: the process group (NCCL on CUDA, gloo on the CPU), one
-  rank a process, rank and local rank from the environment `torchrun`
-  sets. Tensor parallelism (`tp > 1`, `shard_params`) is not ported.
-- `shard_batch`: a rank's slice by JAX's placement rule (leading axis;
+- `make_mesh(dp, tp)`: the process group (NCCL on CUDA, gloo on the CPU),
+  one rank a process, rank and local rank from the environment `torchrun`
+  sets; the dp × tp grid as JAX's `reshape(dp, tp)` lays it out (global
+  rank = dp_rank · tp + tp_rank), with a process group for each dp column
+  and each tp row.
+- `shard_batch`: a dp rank's slice by JAX's placement rule (leading axis;
   axis 1 for the step-major teacher chains and `recon_phase_a`'s `eps_*`;
   a leaf whose axis does not divide by dp is replicated), with the port's
   two additions for what SPMD places freely: the prompt leaves of nB rows
   split block by block, and named leaves replicated (`shard_train_batch`).
+  The tp ranks of one dp rank hold the same slice.
 - Global reductions in the losses (`collectives.py`): under
-  `data_parallel(mesh)`, `gsum` all-reduces a local sum, `gmean` is a
-  global mean; outside they are the identity and `Tensor.mean`.
+  `data_parallel(mesh)`, `gsum` all-reduces a local sum over the dp group,
+  `gmean` is a global mean; outside they are the identity and `Tensor.mean`.
 - `ShardedDraws`: the random draws of a loss taken for the global batch and
-  sliced, so a rank draws what the single process draws for its instances.
-- `all_reduce_grads`: the gradients summed over the ranks in one flat
+  sliced, so a dp rank draws what the single process draws for its
+  instances (and its tp ranks draw alike).
+- `all_reduce_grads`: the gradients summed over the dp group in one flat
   buffer per dtype, in parameter order, before clipping and the optimizer.
+- `shard_params` with `DEFAULT_TP_RULES`: JAX's rules, matched against the
+  JAX parameter path of each weight of a UNet or a CLIP tower; a matched
+  weight is cut in place to this tp rank's part, and its layer computes
+  under the placement (`models/unet.py`, `models/clip.py`: heads split,
+  partial products reduced over tp, the bias of a row-split projection
+  added once).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import re
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -45,40 +57,64 @@ REPLICATED_KEYS = ("uncond_ids", "clip_skip_weights", "clip_skip_weights_fixed",
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of the data-parallel group: the default process
-    group."""
+    """One rank's view of the dp × tp grid: `rank` is the global rank
+    (dp_rank · tp + tp_rank); `dp_group` the ranks of this tp rank's column
+    (None: the default group, where tp is 1), `tp_group` those of this dp
+    rank's row (None where tp is 1)."""
 
     dp: int
     rank: int
     local_rank: int
     device: torch.device = torch.device("cpu")
+    tp: int = 1
+    dp_group: Any = None
+    tp_group: Any = None
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_rank(self) -> int:
+        return self.rank % self.tp
 
 
 def make_mesh(dp: int | None = None, tp: int = 1) -> Mesh:
-    """The data-parallel group of `dp` ranks, one a process: the default
-    process group where one is already up (it must hold `dp` ranks), else
-    one initialised from `torchrun`'s environment (RANK, WORLD_SIZE,
-    LOCAL_RANK, MASTER_ADDR, MASTER_PORT) over NCCL when CUDA is up, gloo
-    otherwise. Each rank's device is cuda:LOCAL_RANK where CUDA is up (gloo
-    takes CUDA tensors too: two ranks may share a card over gloo, as NCCL
-    refuses)."""
-    if tp != 1:
-        raise NotImplementedError(
-            "tensor parallelism (tp > 1, shard_params with DEFAULT_TP_RULES) is not ported: "
-            "ROADMAP §1 item 6 queues it")
+    """The dp × tp grid of ranks, one a process: the default process group
+    where one is already up (it must hold dp · tp ranks), else one
+    initialised from `torchrun`'s environment (RANK, WORLD_SIZE, LOCAL_RANK,
+    MASTER_ADDR, MASTER_PORT) over NCCL when CUDA is up, gloo otherwise.
+    `dp` None: the world over tp. Each rank's device is cuda:LOCAL_RANK
+    where CUDA is up (gloo takes CUDA tensors too: two ranks may share a card
+    over gloo, as NCCL refuses). Every rank builds every dp and tp group, in
+    one order."""
     if not dist.is_initialized():
         if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+            n = (dp or 1) * tp if dp else "N"
             raise RuntimeError(
-                f"data parallelism (dp={dp}) needs one process a rank: start it with "
-                f"`torchrun --nproc_per_node {dp or 'N'} ...`, or set up "
+                f"a mesh of dp={dp} × tp={tp} needs one process a rank: start it with "
+                f"`torchrun --nproc_per_node {n} ...`, or set up "
                 "torch.distributed.init_process_group before")
         dist.init_process_group("nccl" if torch.cuda.is_available() else "gloo")
     world = dist.get_world_size()
-    if dp is not None and dp != world:
-        raise ValueError(f"dp={dp} but the process group holds {world} ranks")
-    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    if dp is None:
+        dp = world // tp
+    if dp * tp != world:
+        raise ValueError(f"dp={dp} × tp={tp} but the process group holds {world} ranks")
+    rank = dist.get_rank()
+    dp_group = tp_group = None
+    if tp > 1:
+        for t in range(tp):
+            g = dist.new_group([d * tp + t for d in range(dp)])
+            if rank % tp == t:
+                dp_group = g
+        for d in range(dp):
+            g = dist.new_group([d * tp + t for t in range(tp)])
+            if rank // tp == d:
+                tp_group = g
+    local = int(os.environ.get("LOCAL_RANK", rank))
     device = torch.device("cuda", local) if torch.cuda.is_available() else torch.device("cpu")
-    return Mesh(world, dist.get_rank(), local, device)
+    return Mesh(dp, rank, local, device, tp, dp_group, tp_group)
 
 
 def _slice(x, rank: int, dp: int, axis: int):
@@ -129,15 +165,16 @@ def shard_train_batch(batch: dict, mesh: Mesh) -> dict:
         raise ValueError(f"a global batch of {b} does not split over dp={mesh.dp}")
     blocks = {k: batch[k].shape[0] // b for k in PROMPT_BLOCK_KEYS if k in batch}
     first = {f"first_{k}": batch[k][:1] for k in ("img_prompt_embs", "noise") if k in batch}
-    return shard_batch({**batch, **first}, mesh.rank, mesh.dp,
+    return shard_batch({**batch, **first}, mesh.dp_rank, mesh.dp,
                        REPLICATED_KEYS + tuple(first), blocks)
 
 
 class ShardedDraws(Draws):
     """Draws for the global batch, sliced: a draw whose `batch_axis` is
     given is taken at dp × its local size on that axis and narrowed to this
-    rank's slice; the others are taken whole. So each rank draws, in order,
-    what the single process draws, and keeps its own instances'."""
+    dp rank's slice; the others are taken whole. So each rank draws, in
+    order, what the single process draws, and keeps its own instances' (the
+    tp ranks of a dp rank, the same)."""
 
     def __init__(self, base: Draws, mesh: Mesh):
         self.base, self.mesh = base, mesh
@@ -152,7 +189,7 @@ class ShardedDraws(Draws):
         if batch_axis is None:
             return x
         n = shape[batch_axis]
-        return x.narrow(batch_axis, self.mesh.rank * n, n)
+        return x.narrow(batch_axis, self.mesh.dp_rank * n, n)
 
     def normal(self, shape, device, batch_axis=None):
         return self._local(self.base.normal(self._global(shape, batch_axis), device), shape,
@@ -171,15 +208,17 @@ class ShardedDraws(Draws):
 
 
 def all_reduce_grads(params: list[torch.nn.Parameter], mesh: Mesh | None) -> None:
-    """Sum each parameter's gradient over the ranks: one flat buffer per
+    """Sum each parameter's gradient over the dp ranks: one flat buffer per
     dtype, in the parameters' order, one all-reduce each. A parameter with
     no gradient on any rank keeps none (an optimizer skips it, as a single
-    process does); one missing on some ranks only counts as zero there."""
+    process does); one missing on some ranks only counts as zero there.
+    The tp ranks of a dp rank hold the whole gradient already (the tp
+    region's `copy_to_tp` sums the partial ones)."""
     if mesh is None or mesh.dp == 1:
         return
     has = torch.tensor([p.grad is not None for p in params], dtype=torch.int32,
                        device=mesh.device)
-    dist.all_reduce(has, op=dist.ReduceOp.MAX)
+    dist.all_reduce(has, op=dist.ReduceOp.MAX, group=mesh.dp_group)
     live = [p for p, h in zip(params, has.tolist()) if h]
     for p in live:
         if p.grad is None:
@@ -189,7 +228,7 @@ def all_reduce_grads(params: list[torch.nn.Parameter], mesh: Mesh | None) -> Non
         by_dtype.setdefault(p.grad.dtype, []).append(p)
     for group in by_dtype.values():
         flat = torch.cat([p.grad.reshape(-1) for p in group])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.dp_group)
         off = 0
         for p in group:
             n = p.grad.numel()
@@ -198,13 +237,141 @@ def all_reduce_grads(params: list[torch.nn.Parameter], mesh: Mesh | None) -> Non
 
 
 def all_reduce_metrics(metrics: dict, mesh: Mesh | None) -> dict:
-    """Scalar metrics averaged over the ranks, in one all-reduce (where
+    """Scalar metrics averaged over the dp ranks, in one all-reduce (where
     the losses reduced globally every rank holds the same values already)."""
     if mesh is None or mesh.dp == 1 or not metrics:
         return metrics
     keys = sorted(metrics)
     vals = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
                                         device=mesh.device).reshape(()) for k in keys])
-    dist.all_reduce(vals, op=dist.ReduceOp.SUM)
+    dist.all_reduce(vals, op=dist.ReduceOp.SUM, group=mesh.dp_group)
     vals = vals / mesh.dp
     return {k: vals[i] for i, k in enumerate(keys)}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: JAX's rules on the port's weights
+# ---------------------------------------------------------------------------
+
+# JAX's `DEFAULT_TP_RULES` (`mesh.py:95-102`): (regex of a leaf's path, its
+# PartitionSpec as a tuple over JAX's [in, out] weight): the out-features of
+# the q/k/v and MLP-in projections split over 'tp', the in-features of the
+# output projections
+DEFAULT_TP_RULES: list[tuple[str, tuple]] = [
+    (r".*attn.*/(q|k|v)/w$", (None, "tp")),
+    (r".*attn.*/o/w$", ("tp", None)),
+    (r".*mlp/fc1/w$", (None, "tp")),
+    (r".*mlp/fc2/w$", ("tp", None)),
+    (r".*ff/proj_in/w$", (None, "tp")),
+    (r".*ff/proj_out/w$", ("tp", None)),
+]
+
+
+def _shardable_types() -> tuple:
+    """The modules whose forward computes under a tp placement: the UNets and
+    the CLIP towers, what the JAX package's callers shard."""
+    from adaface_tpu_torch.models.clip import CLIPTextModel, CLIPVisionModel
+    from adaface_tpu_torch.models.unet import UNet2DConditionModel
+
+    return UNet2DConditionModel, CLIPTextModel, CLIPVisionModel
+
+
+def _tp_plan(module: torch.nn.Module, tp: int, rules) -> tuple[dict, dict, list]:
+    """→ (plan {port weight: (dim, parts)}, placements {JAX path: spec},
+    units [(layer, attribute)]) of `module` at `tp`. A unit (a layer's
+    attention, MLP or GEGLU) is split where the rules match its weights as
+    JAX's defaults do and tp divides its heads (its width); where they do
+    not, it stays whole on every rank."""
+    from adaface_tpu_torch.core.bridge import jax_leaf_paths
+
+    compiled = [(re.compile(pat), tuple(spec)) for pat, spec in rules]
+
+    def rule(path: str):
+        return next((spec for pat, spec in compiled if pat.match(path)), None)
+
+    placements = {path: () for path in jax_leaf_paths(module)}
+    plan, units, covered = {}, [], set()
+    for name, layer in module.named_modules():
+        if not hasattr(layer, "tp_units"):
+            continue
+        prefix = f"{name}." if name else ""
+        for attr, splits, divides in layer.tp_units():
+            want = {prefix.replace(".", "/") + leaf: (None, "tp") if dim == 0 else ("tp", None)
+                    for _, leaves, dim, _ in splits for leaf in leaves}
+            covered.update(want)
+            got = {path: rule(path) for path in want}
+            if all(spec is None for spec in got.values()):
+                continue
+            if got != want:
+                raise ValueError(f"shard_params: the rules place {prefix}{attr[3:]} as "
+                                 f"{got}; the port splits a unit only as {want}")
+            if not divides(tp):
+                continue  # the split would not fall on head boundaries: whole
+            for weight, _, dim, parts in splits:
+                plan[prefix + weight] = (dim, parts)
+            placements.update(want)
+            units.append((layer, attr))
+    stray = sorted(p for p in placements if p not in covered and rule(p) is not None)
+    if stray:
+        raise NotImplementedError(
+            f"shard_params: no tensor-parallel forward for {stray[:4]} of "
+            f"{type(module).__name__}")
+    return plan, placements, units
+
+
+def shard_params(module_or_state_dict, mesh: Mesh, rules=None, like=None) -> dict:
+    """JAX's `shard_params` (`mesh.py:105-128`) on the port: each weight of
+    a UNet or a CLIP tower whose JAX path a rule matches is cut, in place, to
+    this tp rank's part, and its layer computes under the placement from
+    then on. → the placement map {JAX path: spec} of every leaf (() for a
+    replicated one; a fused `qkv` / `kv` weight answers for each of q, k, v).
+
+    The port's conditions beyond JAX's divisibility: a split falls on head
+    boundaries (else the layer's q, k, v and o stay whole), and a GEGLU /
+    MKV weight takes this rank's slice of each of its parts (`tp_part`).
+    The column-split projections' biases stay whole, as JAX leaves them,
+    and are sliced at use. A module without a tp-aware forward (the MMDiT,
+    the motion modules, the adapters' towers) is refused by name.
+
+    A state dict (the comp UNet's weights, before they are swapped in) is
+    cut in place by the map of `like`, the module it loads into. At tp 1
+    nothing is cut."""
+    rules = DEFAULT_TP_RULES if rules is None else rules
+    if isinstance(module_or_state_dict, dict):
+        if like is None:
+            raise ValueError("shard_params: a state dict is cut by the map of the module it "
+                             "loads into (like=)")
+        sharded = getattr(like, "_tp_plan", None)
+        plan, placements = sharded if sharded is not None else _tp_plan(like, mesh.tp,
+                                                                          rules)[:2]
+        if mesh.tp > 1:
+            sd = module_or_state_dict
+            for key, (dim, parts) in plan.items():
+                sd[key] = _part(sd[key], mesh, dim, parts)
+        return placements
+    module = module_or_state_dict
+    if not isinstance(module, _shardable_types()):
+        raise NotImplementedError(
+            f"shard_params: {type(module).__name__} has no tensor-parallel forward (the port "
+            "splits the UNets and the CLIP towers, what the JAX package's callers shard)")
+    if getattr(module, "_tp_plan", None) is not None:
+        raise ValueError("shard_params: the module is sharded already")
+    plan, placements, units = _tp_plan(module, mesh.tp, rules)
+    if mesh.tp == 1:
+        return placements
+    with torch.no_grad():
+        for key, (dim, parts) in plan.items():
+            lin = module.get_submodule(key.rpartition(".")[0])
+            w = _part(lin.weight, mesh, dim, parts)
+            lin.weight = torch.nn.Parameter(w, requires_grad=lin.weight.requires_grad)
+            lin.out_features, lin.in_features = w.shape
+    for layer, attr in units:
+        setattr(layer, attr, mesh)
+    module._tp_plan = (plan, placements)
+    return placements
+
+
+def _part(t: torch.Tensor, mesh: Mesh, dim: int, parts: int) -> torch.Tensor:
+    from adaface_tpu_torch.parallel.collectives import tp_part
+
+    return tp_part(t, mesh, dim, parts).contiguous().clone()

@@ -25,6 +25,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from adaface_tpu_torch.parallel.collectives import check_tp_equal
+
 
 @dataclasses.dataclass
 class FaceDetections:
@@ -157,8 +159,12 @@ def detect_faces(images: torch.Tensor, detector: HostFaceDetector,
     """Host detection on a detached fp32 copy of `images` [B, 3, H, W] in
     [-1, 1] → (fg_bboxes [B, 4], detected [B], confidences [B],
     bg_bboxes [B, max_bg, 4], bg_valid [B, max_bg]), fp32 tensors on the
-    images' device: the outputs of the JAX package's `detect_faces_in_graph`."""
-    d = detector(images.detach().float().cpu().numpy())
+    images' device: the outputs of the JAX package's `detect_faces_in_graph`.
+    Under a mesh of tp > 1 every tp rank detects on its own copy: the copies
+    are checked equal bit for bit first (`collectives.check_tp_equal`)."""
+    host = images.detach().float().cpu()
+    check_tp_equal(host, "the images for host face detection")
+    d = detector(host.numpy())
     dev = images.device
     return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
                  for a in (d.fg_bboxes, d.detected, d.confidences,

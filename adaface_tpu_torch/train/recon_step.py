@@ -46,7 +46,10 @@ Under data parallelism (`make_train_step(mesh=)`) the batch is a rank's
 slice: the draws are the global batch's, sliced by their `batch_axis`; the
 face gates and every mean are the global batch's (`parallel.collectives`),
 and the adversarial branch attacks the global batch's first instances
-(`_adv_attacked_noise`).
+(`_adv_attacked_noise`). Under tensor parallelism the tp ranks of a dp rank
+run the same slice on the split towers; each detects faces on the host on
+its own copy of the decoded images, checked equal bit for bit first
+(`face_detect.detect_faces`).
 """
 
 from __future__ import annotations
@@ -334,7 +337,7 @@ def _adv_attacked_noise(frozen: Params, batch: Params, rand: Params, noise_next:
     b = batch["x_start"].shape[0]
     nb = min(rcfg.adv_bs, global_batch_size(b))
     mesh = active_mesh()
-    lo = mesh.rank * b if mesh is not None else 0
+    lo = mesh.dp_rank * b if mesh is not None else 0
     n = min(max(nb - lo, 0), b)  # this rank's attacked rows
     dev = noise_next.device
     ok = gall(batch.get("ref_face_detected", torch.ones((b,), device=dev))[:n])

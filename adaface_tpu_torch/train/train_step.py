@@ -101,6 +101,9 @@ def trainable_parameters(params: Params) -> list[nn.Parameter]:
             p.requires_grad_(name not in FROZEN_SBG_PARAMS)
             if p.requires_grad:
                 out.append(p)
+    if getattr(params.get("unet"), "_tp_plan", None) is not None:
+        raise ValueError("a UNet cut by shard_params does not train: tensor parallelism "
+                         "splits the frozen towers, as the JAX package's callers do")
     for key in ("unet", *LORA_KEYS):
         if key in params:
             out.extend(p.requires_grad_(True) for p in params[key].parameters())
@@ -281,8 +284,12 @@ def make_train_step(loss_fn: Callable, frozen: Params, schedule: DiffusionSchedu
     slice (`shard_train_batch`) and the step is the single-device step on
     the global batch: the loss's means are global (`data_parallel`), its
     draws are taken for the global batch and sliced (`ShardedDraws`), and
-    the gradients are summed over the ranks before the norm and the
-    optimizer, so every rank moves its parameters alike."""
+    the gradients are summed over the dp ranks before the norm and the
+    optimizer, so every rank moves its parameters alike. Under tp > 1 the
+    frozen towers were cut by `parallel.mesh.shard_params`: the tp ranks of
+    a dp rank hold the same slice and draws, and their layers' collectives
+    leave every replicated value, and so every trainable gradient, equal on
+    them."""
 
     def step(state: State, batch: Params, draws=None):
         params = trainable_parameters(state.params)

@@ -121,6 +121,15 @@ the distances `train_dp` bounds (the losses, the gradient norms, the
 update's relative L2), so that the bounds sit between the sound fit's
 readings and these.
 
+    python3 chip_compare.py --tp-faults
+
+`chip_smoke.train_tp`'s unet-distill micro-step at tp 2 (two gloo ranks on
+the card, full SD1.5 width) against one process, sound and with each of two
+faults planted (`tp_fault`: `o`'s bias added on every rank; the GEGLU cut as
+JAX's contiguous column split lays it out), in bf16 through the kernels and
+in fp32 plain with TF32 off: where `chip_smoke.py`'s bf16 bounds sit
+between the sound readings and the faults'.
+
     python3 chip_compare.py --dp-adv-faults
 
 the adversarial branch's attacked noise (`_adv_attacked_noise`,
@@ -1148,7 +1157,8 @@ def adv_noise_process(rank: int, world: int, port: int, out: str) -> None:
     rcfg = R.ReconStepConfig(do_adv_attack=True, adv_bs=c.ADV_BS)
     rows, nz = batch, noise
     if mesh is not None:
-        rows, nz = shard_batch(batch, mesh.rank, mesh.dp), shard_batch(noise, mesh.rank, mesh.dp)
+        rows = shard_batch(batch, mesh.dp_rank, mesh.dp)
+        nz = shard_batch(noise, mesh.dp_rank, mesh.dp)
     res = {"noise_in": nz.cpu()}
     for variant in ADV_VARIANTS:
         dec, ctx = adv_variant(decoder, variant)
@@ -1217,7 +1227,69 @@ def dp_adv_faults() -> None:
                   f"{c.DP_ADV_WHOLE_REL:g})", flush=True)
 
 
+TP_FAULTS = ("o_bias_every_rank", "geglu_contiguous")
+
+
+def tp_faults() -> None:
+    """`chip_smoke.train_tp`'s unet-distill micro-step at tp 2 (two gloo
+    ranks on the card, against one process) sound and with each of
+    TP_FAULTS planted, in bf16 through the kernels and in fp32 plain with
+    TF32 off: the readings the bf16 bounds sit between."""
+    import tempfile
+
+    import torch
+
+    import chip_smoke as c
+
+    card = c.require_cuda()
+    c.build_kernels()
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(c.REPO)) as tmp:
+        data = c.write_train_photos(os.path.join(tmp, "photos"))
+        for fault in ("sound",) + TP_FAULTS:
+            outs = [os.path.join(tmp, f"{fault}{r}.pt") for r in range(2)]
+            port = c.free_port()
+            c.run_processes(c.tp_process, [(r, 2, port, data, outs[r], fault) for r in range(2)],
+                            c.TP_TIMEOUT_S)
+            ranks = [torch.load(o, weights_only=False) for o in outs]
+            r = c.tp_readings(ranks, card, f"tp {fault}")["distill tp 2"]
+            over = r["bf16"][0] > c.TP_BF16_LOSS_REL or r["bf16"][1] > c.TP_BF16_GRAD_REL_L2
+            print(f"tp {fault} ({card}): bf16 loss {r['bf16'][0]:.3e} (bound "
+                  f"{c.TP_BF16_LOSS_REL:g}), gradients {r['bf16'][1]:.3e} relative L2 (bound "
+                  f"{c.TP_BF16_GRAD_REL_L2:g}); fp32 plain loss {r['fp32'][0]:.3e}, gradients "
+                  f"{r['fp32'][1]:.3e} (bound {c.TP_FP32_REL:g}); "
+                  f"beyond the bf16 bounds: {over}",
+                  flush=True)
+
+
+@contextlib.contextmanager
+def tp_fault(fault: str | None):
+    """The UNet's tensor-parallel layers with `fault` planted (none for
+    None or "sound"): "o_bias_every_rank" adds `o`'s bias to each tp rank's partial
+    product before their sum (tp times in all); "geglu_contiguous" cuts the
+    GEGLU's `proj_in` as JAX's contiguous column split lays it out (at tp 2
+    rank 0 all of `val`, rank 1 all of `gate`), in `shard_params` and in the
+    forward. Restored on exit."""
+    from adaface_tpu_torch.models import unet
+    from adaface_tpu_torch.parallel.collectives import reduce_from_tp
+
+    saved = unet.Attention._out, unet.TransformerBlock.GEGLU_PARTS
+    if fault == "o_bias_every_rank":
+        unet.Attention._out = lambda self, part, tp: reduce_from_tp(
+            part + self.o.bias.to(part.dtype), tp)
+    elif fault == "geglu_contiguous":
+        unet.TransformerBlock.GEGLU_PARTS = 1
+    elif fault not in (None, "sound"):
+        raise ValueError(f"no tp fault {fault!r}: {TP_FAULTS}")
+    try:
+        yield
+    finally:
+        unet.Attention._out, unet.TransformerBlock.GEGLU_PARTS = saved
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] == "--tp-faults":
+        tp_faults()
+        return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--dp-adv-faults":
         dp_adv_faults()
         return 0

@@ -268,10 +268,26 @@ within DP_ADV_NOISE_REL of the attack's size, and to the single process's
 own within DP_ADV_WHOLE_REL (the bf16 decode rounds differently at each
 batch size), with each process's device time.
 
+After `train_stage2_recipes`, `train_tp` runs tensor parallelism
+(`parallel/mesh.py`: `make_mesh(dp, tp)`, `shard_params` with JAX's rules)
+at full SD1.5 width (256x256 images) in four gloo processes on the card
+(NCCL refuses two ranks a card): the Stage-1 unet-distill micro-step at dp 2
+x tp 2 and at tp 2, the finetuning configuration's recon micro-step (its UNet
+frozen and cut)
+and the Stage-2 comp micro-step with the rank-192 adapters at tp 2, each
+with the towers' projection biases drawn off 0, in bf16 through the kernels
+and in fp32 plain with TF32 off, against the same micro-step in one
+process: the tp ranks' losses and gradients equal bit for bit, fp32 within
+TP_FP32_REL, bf16 within TP_BF16_LOSS_REL and TP_BF16_GRAD_REL_L2 (their
+readings and two planted faults': `chip_compare.py --tp-faults`). Phase 3
+(`check_flash_tp`) holds the flash forward and backward at the ranks'
+4-head shapes, and `train_tp` that the ranks ran no other.
+
 The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
 checkpoint writers of `tests/torch_sd_layout.py`, the port's CLI twins in
-`scripts/` and `app_torch.py`, and reads the image fixtures of
-`tests/data/images/`.
+`scripts/` and `app_torch.py` (and `chip_compare.tp_fault` where
+`chip_compare.py --tp-faults` runs `tp_process`), and reads the image
+fixtures of `tests/data/images/`.
 """
 
 from __future__ import annotations
@@ -558,8 +574,13 @@ JSON_GN_BWD = "resnet 64x64 320 batch 16"  # gn_bwd_fused
 JSON_GN_BWD_SPLIT = "vae resnet 512x512 256 batch 2"  # gn_bwd_reduce + gn_bwd_dx
 
 
+LOG_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after the seconds since the script started
+    (where a phase's time goes)."""
+    print(f"[{time.perf_counter() - LOG_T0:6.1f} s]", *a, flush=True)
 
 
 def require_cuda() -> str:
@@ -569,7 +590,7 @@ def require_cuda() -> str:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip()
-    log(card)
+    print(card, flush=True)  # the line as nvidia-smi gives it, without the log's seconds
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return card
@@ -630,10 +651,12 @@ def graph_ms(fn, launches: int = RUN_LAUNCHES, reps: int = 5) -> float:
     return median_ms(graph.replay, reps=reps, warmup=2) / launches
 
 
-def host_us(fn, calls: int = 200) -> float:
+def host_us(fn, calls: int = 50) -> float:
     """Host time of one call, in microseconds: `calls` calls on the host's
-    clock with no synchronisation between them (the device drains after)."""
-    for _ in range(20):
+    clock with no synchronisation between them (the device drains after).
+    At a device-bound shape the loop waits on the launch queue and reads the
+    device's time; 50 calls keep that wait short."""
+    for _ in range(10):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -707,8 +730,10 @@ def check_flash(gen) -> dict:
         err, mag = max_err(out, ref)
         kernel = lambda: A._flash_cuda(q, k, v, None, False, scale)
         stock = lambda: F.scaled_dot_product_attention(q, k, v)
-        # in turns: kernel, plain, stock, stock, plain, kernel
-        turns = [median_ms(f) for f in (kernel, plain, stock, stock, plain, kernel)]
+        # in turns: kernel, plain, stock, stock, plain, kernel (the plain
+        # version, just run for the reference, two runs a turn)
+        turns = [median_ms(f, reps=2, warmup=0) if f is plain else median_ms(f)
+                 for f in (kernel, plain, stock, stock, plain, kernel)]
         ms, plain_ms, stock_ms = (min(turns[0], turns[5]), min(turns[1], turns[4]),
                                   min(turns[2], turns[3]))
         run, stock_run = run_ms(kernel), run_ms(stock)
@@ -936,7 +961,9 @@ def check_gn(gen) -> dict:
         # one library call for the statistics' function, on the same memory
         grouped = x.permute(0, 2, 3, 1).reshape(shape[0], -1, groups, c // groups)
         stock_stats_fn = lambda: torch.var_mean(grouped, dim=(1, 3), correction=0)
-        ms, plain_ms, stock_ms = median_ms(kernel), median_ms(plain), median_ms(stock)
+        # the plain version (a yardstick, run for the reference above): two runs
+        ms, plain_ms, stock_ms = (median_ms(kernel), median_ms(plain, reps=2, warmup=0),
+                                  median_ms(stock))
         dev, stock_dev = graph_ms(kernel), graph_ms(stock)
         host, stock_host = host_us(kernel), host_us(stock)
         x_bytes = x.numel() * x.element_size()
@@ -956,10 +983,11 @@ def check_gn(gen) -> dict:
             part_bytes = part.numel() * 4
             res.update(
                 ms_stats=median_ms(stats_fn), graph_stats=graph_ms(stats_fn),
-                plain_stats=median_ms(lambda: G.gn_stats_plain(x, groups, eps)),
+                plain_stats=median_ms(lambda: G.gn_stats_plain(x, groups, eps), reps=2),
                 stock_stats=median_ms(stock_stats_fn), stock_graph_stats=graph_ms(stock_stats_fn),
                 ms_norm=median_ms(norm_fn), graph_norm=graph_ms(norm_fn),
-                plain_norm=median_ms(lambda: G.gn_norm_plain(x, stats, scale, bias, groups, silu)),
+                plain_norm=median_ms(lambda: G.gn_norm_plain(x, stats, scale, bias, groups, silu),
+                                     reps=2),
                 bound_stats=bound(x_bytes + part_bytes)[0],
                 bound_norm=bound(2 * x_bytes + part_bytes + 2 * c * x.element_size())[0])
             res["bound_moved"] = res["bound_stats"] + res["bound_norm"]
@@ -2713,9 +2741,11 @@ def face_mask(b: int, hw: int) -> torch.Tensor:
 
 def timed(kernel, plain, library) -> dict:
     """Single-launch medians in turns (kernel, plain, library, library,
-    plain, kernel), and the kernel's 20 calls as a CUDA graph."""
+    plain, kernel; the plain version, a yardstick tens of times slower, one
+    run a turn), and the kernel's 20 calls as a CUDA graph."""
     fns = [kernel, plain, library, library, plain, kernel]
-    turns = [median_ms(f, reps=5) if f is not None else None for f in fns]
+    turns = [None if f is None else median_ms(f, reps=1, warmup=0) if f is plain
+             else median_ms(f, reps=5) for f in fns]
     pick = lambda i: None if turns[i] is None else min(turns[i], turns[5 - i])  # noqa: E731
     return dict(ms=pick(0), plain_ms=pick(1), library_ms=pick(2), graph_ms=graph_ms(kernel))
 
@@ -6944,7 +6974,8 @@ def dp_adv_iteration(trainer, sbg0) -> dict:
     kernels = [e.us for e in device_events(prof) if e.name != "Memset (Device)"]
     rows, nz = batch, noise
     if mesh is not None:
-        rows, nz = shard_batch(batch, mesh.rank, mesh.dp), shard_batch(noise, mesh.rank, mesh.dp)
+        rows = shard_batch(batch, mesh.dp_rank, mesh.dp)
+        nz = shard_batch(noise, mesh.dp_rank, mesh.dp)
     with data_parallel(mesh):
         attacked = R._adv_attacked_noise(frozen, rows, rand, nz, rcfg, 64)
     out = dict(metrics={k: float(v) for k, v in metrics.items()}, host_s=host_s,
@@ -7329,11 +7360,458 @@ def check_sync_bn(card: str, ranks: list) -> dict:
     for label, s in sums.items():
         log(f"sync-BN {label} R{s['rows']} C{s['c']} a rank: bn_stats[sums] {s['graph_ms']:.4f} "
             f"ms (graph), plain {s['plain_ms']:.4f} ms, torch.batch_norm_stats "
-            f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms; equal to plain")
+            f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.3g} ms; equal to plain")
     log(f"sync-BN: {len(SYNC_BN_CASES)} shapes over {DP_RANKS} gloo ranks against the whole "
         f"batch on one: y, dx, dscale, dbias within {worst:.3e} of the scale (bound "
         f"{SYNC_BN_TOL:g}); launches a rank {ranks[0]['counts']} ({card})")
     return dict(counts=ranks[0]["counts"], worst=worst, sums=sums)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (`parallel/mesh.py` make_mesh(dp, tp), shard_params)
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 4  # gloo ranks sharing cuda:0 (NCCL refuses two ranks a card): dp 2 x tp 2
+TP_TIMEOUT_S = 900
+TP_HEADS = 4  # SD1.5's 8 heads at tp 2
+# the phase's images: 256x256 (32x32 latents), the full width at a quarter of
+# the 512x512 activations, so that the gloo reductions through the host (a
+# tp micro-step's cost on one card) and the fp32 witness stay short
+TP_IMAGE_SIZE = 256
+TP_DISTILL_BATCH = 2  # global: UNet batch 2 at tp 2, 1 a dp rank at dp 2 x tp 2
+TP_RECON_BATCH = 1
+TP_COMP_BATCH = 1  # the comp UNet's conditional call at batch 4 (ss, sc, sc_rep, mix)
+TP_COMP_STEPS = (1, 1)  # priming, denoising steps of the comp micro-step
+TP_RECON_STEPS = 1  # denoising steps of the recon micro-step (on images)
+TP_BIAS_STD = 0.1  # the towers' projection biases drawn off their 0: a bias added twice shows
+# fp32 plain, TF32 off: the ranks' loss and gradients (relative L2) against one
+# process (PERF.md §6, tensor parallelism: loss ≤ 1.1e-7, gradients 6.3e-7-1.7e-6)
+TP_FP32_REL = 1e-5
+# bf16 through the kernels (PERF.md §6, tensor parallelism: loss 1.9e-5-1.8e-4, gradients
+# 3.6e-3-6.0e-3; the planted faults', `chip_compare.py --tp-faults`: loss
+# 2.8e-2-4.2e-2, gradients 0.16-0.79)
+TP_BF16_LOSS_REL = 1e-3
+TP_BF16_GRAD_REL_L2 = 1.5e-2
+TP_CASES = ("unet-distill tp 2", "unet-distill dp 2 x tp 2", "recon tp 2", "comp tp 2")
+# the flash kernels at the tp ranks' shapes: the UNet's attentions at 4 heads
+# on TP_IMAGE_SIZE's 32x32 and 16x16 maps (the 8x8 level's 64 tokens take the
+# plain version) at the batches the phase gives them (1, 2 and 4), and the
+# recon's self-attentions under its face mask
+TP_LEVELS = (("32x32", 1024, 40), ("16x16", 256, 80))
+TP_FLASH_CASES = ([(f"unet {hw} {kind} tp 2 batch {b}", b, TP_HEADS, s,
+                    s if kind == "self" else 77, d)
+                   for b in (1, 2, 4) for hw, s, d in TP_LEVELS for kind in ("self", "cross")]
+                  + [(f"recon masked {hw} self tp 2 batch {b}", b, TP_HEADS, s, s, d)
+                     for b in (1, 2, 4) for hw, s, d in TP_LEVELS])
+
+
+def check_flash_tp(gen) -> dict:
+    """The flash forward and backward at the tensor-parallel phase's shapes
+    (TP_FLASH_CASES: H 4), each against its plain version (the SDPA in fp32
+    logits; `flash_bwd_chunked`), with the plans they take, device times (20
+    launches as a CUDA graph), the plain versions' and the library's, and
+    their bounds."""
+    from adaface_tpu_torch.ops import attention as A
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, b, h, sq, sk, d in TP_FLASH_CASES:
+        q, k, v = flash_inputs(gen, label, b, h, sq, sk, d)
+        mask = face_mask(b, math.isqrt(sk)) if "masked" in label else None
+        scale = 1.0 / math.sqrt(d)
+        with torch.no_grad():
+            o, stats = A._flash_cuda(q, k, v, mask, False, scale, with_stats=True)
+            err, mag = max_err(o, A.scaled_dot_product_attention(q, k, v, kv_mask=mask))
+            g = torch.randn((b, sq, h * d), generator=gen, device="cuda").to(q.dtype)
+            g = g.reshape(b, sq, h, d).transpose(1, 2)
+            got = A.flash_bwd(q, k, v, mask, o, g, False, scale, stats=stats)
+            ref = A.flash_bwd_chunked(q, k, v, mask, o, g, False, scale)
+            berr = max((max_err(x, r) for x, r in zip(got, ref)), key=lambda em: em[0] / em[1])
+            del got, ref
+            fwd_ms = graph_ms(lambda: A._flash_cuda(q, k, v, mask, False, scale))
+            bwd_ms = graph_ms(lambda: A.flash_bwd(q, k, v, mask, o, g, False, scale,
+                                                  stats=stats))
+            plain_ms = median_ms(lambda: A.scaled_dot_product_attention(q, k, v, kv_mask=mask),
+                                 reps=2, warmup=0)
+            plain_bwd_ms = median_ms(lambda: A.flash_bwd_chunked(q, k, v, mask, o, g, False,
+                                                                 scale), reps=1, warmup=0)
+            attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=attn_mask))
+        bound_ms, bound_by = bound(2 * (2 * q.numel() + 2 * k.numel()),
+                                   4.0 * b * h * sq * sk * d)
+        bwd_bound_ms, bwd_bound_by = bound(2 * (4 * q.numel() + 4 * k.numel()),
+                                           5 * 2.0 * b * h * sq * sk * d)
+        plan = A.plan_for(q, k, v)
+        bwd_plan = A.flash_bwd_plan(q.dtype, b, h, sq, sk, d, sms)
+        log(f"flash tp {label:38s} B{b} H{h} Sq{sq} Sk{sk} D{d}: forward {plan.variant} rows "
+            f"{plan.block_rows}, max_abs_err {err:.3e} (bound {BF16_TOL * mag:.3e}), dev "
+            f"{fwd_ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, least "
+            f"{bound_ms:.4f} by {bound_by}; backward {bwd_plan.variant} rows "
+            f"{bwd_plan.query_block}/{bwd_plan.key_block}, max_abs_err {berr[0]:.3e} (bound "
+            f"{BF16_TOL * berr[1]:.3e}), dev {bwd_ms:.4f} ms, plain {plain_bwd_ms:.4f} ms, least "
+            f"{bwd_bound_ms:.4f} by {bwd_bound_by}")
+        if err > BF16_TOL * mag or berr[0] > BF16_TOL * berr[1]:
+            raise AssertionError(f"flash tp {label}: forward {err}, backward {berr}")
+        out[label] = dict(err=err, bwd_err=berr[0], graph_ms=fwd_ms, bwd_graph_ms=bwd_ms,
+                          plain_ms=plain_ms, bwd_plain_ms=plain_bwd_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bwd_bound_ms=bwd_bound_ms,
+                          rows=(plan.block_rows, bwd_plan.query_block, bwd_plan.key_block))
+        del q, k, v, o, g, stats
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_shapes_recorder(seen: set):
+    """A context in which every flash call records (B, H, Sq, Sk, D, masked)."""
+    from adaface_tpu_torch.ops import attention as A
+
+    real = A.flash_attention
+
+    def record(q, k, v, kv_mask=None, causal=False, scale=None):
+        seen.add((q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
+                  kv_mask is not None))
+        return real(q, k, v, kv_mask=kv_mask, causal=causal, scale=scale)
+
+    return mock.patch.object(A, "flash_attention", record)
+
+
+def draw_biases_(modules, seed: int) -> None:
+    """Every projection bias of `modules` drawn at TP_BIAS_STD from a seed
+    (the same on every process), so that where a row-split projection's bias
+    is added shows in the outputs."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in modules:
+            for mod in m.modules():
+                if isinstance(mod, torch.nn.Linear) and mod.bias is not None:
+                    mod.bias.copy_(torch.randn(mod.bias.shape, generator=gen, device="cuda")
+                                   * TP_BIAS_STD)
+
+
+def broadcast_tree(tree, group, src: int) -> bool:
+    """Every tensor of a batch (nested dicts) replaced by rank `src`'s copy,
+    over the host (gloo); → whether this rank's copy was equal already."""
+    import torch.distributed as dist
+
+    equal = True
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            equal &= broadcast_tree(val, group, src)
+        elif isinstance(val, torch.Tensor):
+            wide = val.detach().cpu()
+            wide = wide.float() if wide.dtype in (torch.bfloat16, torch.float16) else (
+                wide.to(torch.uint8) if wide.dtype == torch.bool else wide).contiguous()
+            ref = wide.clone()
+            dist.broadcast(ref, src=src, group=group)
+            equal &= torch.equal(ref, wide)
+            tree[key] = ref.to(device=val.device, dtype=val.dtype)
+    return equal
+
+
+def weights_digest(modules) -> torch.Tensor:
+    """Each parameter's fp64 sum, in order: equal on two processes that
+    built the same weights."""
+    return torch.stack([p.detach().double().sum() for m in modules for p in m.parameters()]).cpu()
+
+
+def tp_step(trainer, loss_fn, batch: dict, flags, mesh) -> dict:
+    """One micro-step through `make_train_step(mesh=)` (this rank's slice of
+    `batch` where `mesh` is given; the whole batch in one process where it
+    is None), the optimizer's update replaced by a copy of the gradients it
+    is handed: → loss, metrics, gradients (fp32, on the host) and their
+    SHA-256, seconds."""
+    import hashlib
+
+    from adaface_tpu_torch.parallel.mesh import shard_train_batch
+    from adaface_tpu_torch.train.train_step import make_train_step
+
+    opt = trainer.state.optimizer
+    grads = []
+    opt.step = lambda: grads.extend(  # an instance attribute: the class's step is untouched
+        p.grad.detach().float().cpu() if p.grad is not None else torch.zeros(p.shape)
+        for p in opt.params)
+    try:
+        step = make_train_step(loss_fn, trainer.frozen, trainer.schedule, trainer.tcfg,
+                               mesh=mesh)
+        part = batch if mesh is None else shard_train_batch(batch, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, metrics = step(trainer.state, part, trainer.draws_for(flags, loss=True))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        del opt.step
+    digest = hashlib.sha256()
+    for g in grads:
+        digest.update(g.numpy().tobytes())
+    return dict(loss=float(metrics["loss"]), metrics={k: float(v) for k, v in metrics.items()},
+                grads=grads, digest=digest.hexdigest(), secs=secs)
+
+
+def cast_towers_(trainer, dtypes) -> dict:
+    """The frozen UNet (and the decoder) in `dtypes` (one dtype, or one a
+    module), the UNet's frequency tables refilled in fp32 → the dtypes they
+    had."""
+    had = {}
+    for key in ("unet", "vae"):
+        if key in trainer.frozen:
+            module = trainer.frozen[key]
+            had[key] = next(module.parameters()).dtype
+            module.to(dtypes[key] if isinstance(dtypes, dict) else dtypes)
+    trainer.frozen["unet"].reset_buffers()
+    return had
+
+
+def tp_variants(trainer, loss_fns: dict, batch: dict, flags, mesh, seen: set) -> dict:
+    """The micro-step in bf16 through the kernels (its launches counted, its
+    flash shapes recorded) and in fp32 with every kernel's plain version and
+    TF32 off (the towers cast and cast back: their weights are bf16 values,
+    so both casts are exact)."""
+    from adaface_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    with tp_shapes_recorder(seen):
+        bf16 = tp_step(trainer, loss_fns["bf16"], batch, flags, mesh)
+    bf16["counts"] = launch_counts()
+    had = cast_towers_(trainer, torch.float32)
+    try:
+        with plain_versions(), deterministic_fp32():
+            fp32 = tp_step(trainer, loss_fns["fp32"], batch, flags, mesh)
+    finally:
+        cast_towers_(trainer, had)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16": bf16, "fp32": fp32}
+
+
+def tp_trainer(config: str, data: str, tmp: str, batch_size: int, overrides=()):
+    """`train_torch.build_trainer` on `config` at `batch_size` and
+    TP_IMAGE_SIZE with a detector of one central face."""
+    import train_torch
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+
+    cfg, args = train_torch.parse_args([
+        "--base", str(REPO / config), "--data_roots", data, "--log_dir", tmp,
+        "--max_steps", "1", "trainer.ckpt_every=0", f"trainer.batch_size={batch_size}",
+        f"trainer.image_size={TP_IMAGE_SIZE}", *overrides])
+    trainer, dataset, _ = train_torch.build_trainer(cfg, args)
+    trainer.host_detector = HostFaceDetector(detector_fn=central_face)
+    return trainer, dataset
+
+
+def tp_case(trainer, dataset, flags, loss_fns: dict, meshes: dict, group, rank: int,
+            seen: set, fault=None) -> dict:
+    """One iteration's batch (rank 0's, broadcast over `group`), its step in
+    one process on rank 0 (the reference), then the towers cut by
+    `shard_params` over `meshes`' first mesh and the step on each mesh
+    (bf16 and fp32) → {name: variants}, each with its gradients' digest and
+    on rank 0 its distance from the reference (`tp_distance`), with whether
+    this rank's own batch and weights equalled rank 0's."""
+    import torch.distributed as dist
+
+    from adaface_tpu_torch.parallel.mesh import shard_params
+
+    examples = [dataset[i % len(dataset)] for i in range(trainer.cfg.batch_size)]
+    batch = trainer._prepare_batch(examples, flags, trainer.draws_for(flags))
+    same_batch = broadcast_tree(batch, group, 0)
+    towers = [trainer.frozen[k] for k in ("unet", "text_encoder")]
+    draw_biases_(towers, SEED + 23)
+    digests = [torch.zeros_like(d) for d in [weights_digest(towers)] for _ in range(
+        dist.get_world_size(group))]
+    dist.all_gather(digests, weights_digest(towers), group=group)
+    same_weights = all(torch.equal(d, digests[0]) for d in digests)
+    out = dict(same_batch=same_batch, same_weights=same_weights)
+    plain = tp_variants(trainer, loss_fns, batch, flags, None, set()) if rank == 0 else None
+    planted = contextlib.nullcontext()
+    if fault is not None:  # `chip_compare.py --tp-faults`
+        import chip_compare
+
+        planted = chip_compare.tp_fault(fault)
+    with planted:
+        first = next(iter(meshes.values()))
+        for tower in towers:
+            shard_params(tower, first)
+        for name, mesh in meshes.items():
+            if mesh is not None:
+                out[name] = tp_variants(trainer, loss_fns, batch, flags, mesh, seen)
+                for v, res in out[name].items():  # the gradients stay in the process
+                    if plain is not None:
+                        res["distance"] = tp_distance(res, plain[v])
+                        res["plain_s"] = plain[v]["secs"]
+                    del res["grads"]
+    return out
+
+
+def tp_process(rank: int, world: int, port: int, data: str, out: str, fault=None) -> None:
+    """One gloo rank of `train_tp` on cuda:0. World TP_WORLD: the Stage-1
+    unet-distill micro-step at dp 2 x tp 2 (all ranks) and at tp 2 (ranks
+    0-1, on the same cut towers: both meshes' tp groups are {0, 1}), then
+    the recon and the comp micro-steps at tp 2 on ranks 0-1; rank 0 also
+    runs each in one process first. World 2 (`chip_compare.py --tp-faults`,
+    `fault` "sound" or one of its TP_FAULTS): the unet-distill micro-step at
+    tp 2 alone, with the fault planted."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from adaface_tpu_torch.parallel.mesh import Mesh, make_mesh
+    from adaface_tpu_torch.train.comp_step import make_comp_loss_fn
+    from adaface_tpu_torch.train.recon_step import make_recon_loss_fn
+    from adaface_tpu_torch.train.train_step import unet_distill_loss_fn
+
+    torch.cuda.set_device(0)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    res, seen = {}, set()
+    grid = make_mesh(world // 2, 2)
+    pair = Mesh(1, rank, 0, grid.device, 2, None, grid.tp_group) if rank < 2 else None
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO)) as tmp:
+        trainer, dataset = tp_trainer(TRAIN_CONFIG, data, tmp, TP_DISTILL_BATCH)
+        flags = dataclasses.replace(trainer.planner.plan(0), num_denoising_steps=1)
+        fns = {"bf16": unet_distill_loss_fn, "fp32": unet_distill_loss_fn}
+        meshes = ({"dp 2 x tp 2": grid, "tp 2": pair} if fault is None else {"tp 2": pair})
+        res["distill"] = tp_case(trainer, dataset, flags, fns, meshes, dist.group.WORLD, rank,
+                                 seen, fault)
+        res["build_s"] = time.perf_counter() - t0
+        del trainer, dataset
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank < 2 and fault is None:
+            trainer, dataset = tp_trainer(FINETUNE_CONFIG, data, tmp, TP_RECON_BATCH,
+                                          ["trainer.unfreeze_unet=false"])
+            flags = trainer.planner.plan(0)
+            flags = dataclasses.replace(flags, normal_recon_on_pure_noise=False,
+                                        do_adv_attack=False)
+            rcfg = dataclasses.replace(trainer.cfg.recon_cfg, on_pure_noise=False,
+                                       num_denoising_steps=TP_RECON_STEPS)
+            fns = {"bf16": make_recon_loss_fn(rcfg, trainer.host_detector),
+                   "fp32": make_recon_loss_fn(dataclasses.replace(rcfg, compute_dtype="float32"),
+                                              trainer.host_detector)}
+            res["recon"] = tp_case(trainer, dataset, flags, fns, {"tp 2": pair}, grid.tp_group,
+                                   rank, seen)
+            del trainer, dataset, fns
+            gc.collect()
+            torch.cuda.empty_cache()
+            trainer, dataset = tp_trainer(STAGE2_CONFIG, data, tmp, TP_COMP_BATCH)
+            add_adapters(trainer, torch.Generator(device="cuda").manual_seed(SEED + 24))
+            prime, steps = TP_COMP_STEPS
+            flags = dataclasses.replace(trainer.planner.plan(0), num_priming_steps=prime)
+            if flags.iter_type != "comp_distill":
+                raise AssertionError(f"train tp: step 0 of {STAGE2_CONFIG} is {flags.iter_type}")
+            ccfg = dataclasses.replace(trainer.comp_cfg, num_priming_steps=prime,
+                                       num_denoising_steps=steps)
+            fns = {"bf16": make_comp_loss_fn(ccfg, trainer.host_detector),
+                   "fp32": make_comp_loss_fn(dataclasses.replace(ccfg, compute_dtype="float32"),
+                                             trainer.host_detector)}
+            res["comp"] = tp_case(trainer, dataset, flags, fns, {"tp 2": pair}, grid.tp_group,
+                                  rank, seen)
+            del trainer, dataset
+    res["shapes"] = seen
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["secs"] = time.perf_counter() - t0
+    torch.save(res, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_distance(got: dict, ref: dict) -> tuple[float, float]:
+    """(the loss's relative difference, the gradients' relative L2 over every
+    trainable tensor) of a rank's micro-step against one process's."""
+    num = sum(((a - b) ** 2).sum() for a, b in zip(got["grads"], ref["grads"]))
+    den = sum((b ** 2).sum() for b in ref["grads"])
+    return abs(got["loss"] - ref["loss"]) / abs(ref["loss"]), (num / den).sqrt().item()
+
+
+def tp_equal(a: dict, b: dict) -> bool:
+    return a["metrics"] == b["metrics"] and a["digest"] == b["digest"]
+
+
+def tp_readings(ranks: list, card: str, label: str = "train tp") -> dict:
+    """Every case of `tp_process`' results: the tp ranks equal bit for bit,
+    each mesh's rank 0 against the one process in bf16 (kernels) and fp32
+    (plain, TF32 off), the batch and weights each rank built against rank
+    0's; logged → {case: {variant: (loss rel, grad rel L2), ...}}."""
+    out = {}
+    for it in ("distill", "recon", "comp"):
+        if it not in ranks[0]:
+            continue
+        holders = [r for r in ranks if it in r]
+        for mesh in (m for m in holders[0][it] if m not in ("same_batch", "same_weights")):
+            members = [r[it][mesh] for r in holders if mesh in r[it]]
+            row = {}
+            for v in ("bf16", "fp32"):
+                row[v] = members[0][v]["distance"]  # rank 0's
+                row[f"{v}_equal"] = all(tp_equal(m[v], members[0][v]) for m in members)
+                row[f"{v}_s"] = members[0][v]["secs"]
+                row[f"{v}_plain_s"] = members[0][v]["plain_s"]
+            row["counts"] = members[0]["bf16"]["counts"]
+            row["loss"] = members[0]["bf16"]["loss"]
+            row["same_batch"] = all(r[it]["same_batch"] for r in holders)
+            row["same_weights"] = all(r[it]["same_weights"] for r in holders)
+            out[f"{it} {mesh}"] = row
+            log(f"{label}: {it} at {mesh} ({len(members)} ranks, {card}): ranks equal bit for "
+                f"bit bf16 {row['bf16_equal']} fp32 {row['fp32_equal']}; against one process: "
+                f"bf16 (kernels) loss {row['bf16'][0]:.3e}, gradients {row['bf16'][1]:.3e} "
+                f"relative L2; fp32 plain (TF32 off) loss {row['fp32'][0]:.3e}, gradients "
+                f"{row['fp32'][1]:.3e}; loss {row['loss']:.6e}; a rank's micro-step "
+                f"{row['bf16_s']:.2f} s bf16 / {row['fp32_s']:.2f} s fp32 against "
+                f"{row['bf16_plain_s']:.2f} / {row['fp32_plain_s']:.2f} s in one process; each "
+                f"rank's own batch equal to rank 0's {row['same_batch']}, weights "
+                f"{row['same_weights']}; launches {dict(sorted(row['counts'].items()))}")
+    return out
+
+
+def train_tp(card: str) -> dict:
+    """Tensor parallelism on the card at full SD1.5 width (TP_IMAGE_SIZE):
+    TP_WORLD gloo ranks on cuda:0 (`tp_process`) run the Stage-1 unet-distill
+    micro-step (TRAIN_CONFIG, batch TP_DISTILL_BATCH, one teacher step) at
+    dp 2 x tp 2 and at tp 2, the recon micro-step of FINETUNE_CONFIG (its
+    UNet frozen and cut: JAX cuts only the frozen towers) at tp 2 and the
+    comp micro-step of STAGE2_CONFIG with the rank-192 adapters
+    (TP_COMP_STEPS) at tp 2, each in bf16 through the kernels and in fp32
+    plain with TF32 off, held to the same micro-step in one process: the tp
+    ranks equal bit for bit, fp32 within TP_FP32_REL, bf16 within
+    TP_BF16_LOSS_REL / TP_BF16_GRAD_REL_L2;
+    every flash shape the ranks ran is one of TP_FLASH_CASES (phase 3 holds
+    them)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO)) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in range(TP_WORLD)]
+        port = free_port()
+        t0 = time.perf_counter()
+        run_processes(tp_process, [(r, TP_WORLD, port, data, outs[r]) for r in range(TP_WORLD)],
+                      TP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    rows = tp_readings(ranks, card)
+    # the UNet's attentions (the VAE decoder's D 512 ones are not split: the
+    # finetuning and Stage-2 phases' shapes)
+    shapes = {s for r in ranks for s in r["shapes"] if s[4] < 512}
+    held = {(b, h, sq, sk, d, "masked" in label) for label, b, h, sq, sk, d in TP_FLASH_CASES}
+    peaks = ", ".join(f"{r['peak'] / 2**30:.2f}" for r in ranks)
+    log(f"train tp: {TP_WORLD} processes in {wall:.1f} s ({card}); rank 0 {ranks[0]['secs']:.1f} "
+        f"s (its Stage-1 case, the stack built, {ranks[0]['build_s']:.1f} s); peak memory a rank "
+        f"{peaks} GiB; flash shapes run {sorted(shapes)}")
+    bad = [k for k, r in rows.items() if not (
+        r["bf16_equal"] and r["fp32_equal"] and r["same_weights"]
+        and r["fp32"][0] <= TP_FP32_REL and r["fp32"][1] <= TP_FP32_REL
+        and r["bf16"][0] <= TP_BF16_LOSS_REL and r["bf16"][1] <= TP_BF16_GRAD_REL_L2
+        and math.isfinite(r["loss"]))]
+    if sorted(rows) != sorted(("distill dp 2 x tp 2", "distill tp 2", "recon tp 2",
+                               "comp tp 2")) or bad:
+        raise AssertionError(f"train tp: cases {sorted(rows)}, failing {bad}: "
+                             f"{[rows[k] for k in bad]}")
+    if not shapes <= held:
+        raise AssertionError(f"train tp: flash shapes phase 3 does not hold: {shapes - held}")
+    return dict(rows=rows, wall_s=wall, peak=[r["peak"] for r in ranks],
+                counts=rows["distill tp 2"]["counts"])
 
 
 def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn_bwd: dict,
@@ -7752,6 +8230,8 @@ def main() -> int:
     int8 = timed_phase("check_int8", check_int8,
                        torch.Generator(device="cuda").manual_seed(SEED + 16))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tp_flash = timed_phase("check_flash_tp", check_flash_tp,
+                           torch.Generator(device="cuda").manual_seed(SEED + 25))
     timed_phase("check_autograd_functions", check_autograd_functions)
     unet = timed_phase("check_unet", check_unet, gen)
     wrapper, faces = build_server(gen)
@@ -7804,6 +8284,8 @@ def main() -> int:
     stage2 = timed_phase("train_stage2", train_stage2, gen)
     release()
     recipes = timed_phase("train_stage2_recipes", train_stage2_recipes, gen, card)
+    release()
+    tp = timed_phase("train_tp", train_tp, card)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops import attention as A
@@ -7839,7 +8321,8 @@ def main() -> int:
              "stage-1 dp fit rank 0": dp["fits"]["rank0"]["counts"],
              f"profile stages batch {PROFILE_BATCH} request": stages["counts"],
              "teacher sanity 2 images 8 steps": teacher["counts"],
-             "dp adversarial recon iteration rank 0": dp["adv"]["counts"]}
+             "dp adversarial recon iteration rank 0": dp["adv"]["counts"],
+             **{f"{case} rank 0": r["counts"] for case, r in tp["rows"].items()}}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths, sync_bn)
@@ -7857,7 +8340,15 @@ def main() -> int:
                             "text_ms", "unet_ms", "loop_ms", "decode_ms", "text_device_ms",
                             "unet_device_ms", "loop_device_ms", "decode_device_ms", "mfu",
                             "mfu_device", "loop_overhead_ms")},
-                        "teacher_err": teacher["err"], "toy_item_ms": toy["item_ms"]}
+                        "teacher_err": teacher["err"], "toy_item_ms": toy["item_ms"],
+                        "tp": {case: {"bf16_loss_rel": r["bf16"][0],
+                                      "bf16_grad_rel_l2": r["bf16"][1],
+                                      "fp32_loss_rel": r["fp32"][0],
+                                      "fp32_grad_rel_l2": r["fp32"][1],
+                                      "ranks_equal": r["bf16_equal"] and r["fp32_equal"],
+                                      "rank_s": r["bf16_s"], "one_process_s": r["bf16_plain_s"]}
+                               for case, r in tp["rows"].items()},
+                        "tp_flash": tp_flash}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,8 @@ file, `tests/torch_dp_workers.py`).
   native item pipeline, against the same fit in one process: the ranks'
   losses and parameters equal to each other bit for bit and to the single
   process's to 1e-5 after 4 micro-steps (2 updates);
-- `make_mesh(tp=2)` and `make_mesh` outside `torchrun` raise.
+- `make_mesh(dp=2, tp=2)` and `make_mesh(dp=2)` outside `torchrun` raise
+  naming it, and a group of another size than dp · tp raises.
 The train steps are in `tests/test_torch_dp_distill.py` and
 `tests/test_torch_dp_recon.py`.
 """
@@ -200,13 +201,26 @@ def test_shard_train_batch_splits_prompt_blocks():
     assert out["x_start"].shape == (1, 1)
 
 
-def test_make_mesh_refuses_tensor_parallelism_and_no_group(monkeypatch):
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tmesh.make_mesh(dp=2, tp=2)
+def test_make_mesh_refuses_tensor_parallelism_and_no_group(monkeypatch, tmp_path):
+    """Outside `torchrun` a dp × tp mesh raises naming it, as a dp one does;
+    a process group that does not hold dp · tp ranks is refused."""
+    import torch.distributed as dist
+
     monkeypatch.delenv("RANK", raising=False)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 4"):
+        tmesh.make_mesh(dp=2, tp=2)
     with pytest.raises(RuntimeError, match="torchrun"):
         tmesh.make_mesh(dp=2)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(ValueError, match=r"dp=2 × tp=2 but the process group holds 1"):
+            tmesh.make_mesh(dp=2, tp=2)
+        with pytest.raises(ValueError, match=r"dp=1 × tp=2"):
+            tmesh.make_mesh(dp=1, tp=2)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("shape", [(1000, 64), (802816 // 64, 64), (16, 128)])

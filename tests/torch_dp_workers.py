@@ -1,7 +1,8 @@
-"""The ranks of the port's data-parallel CPU tests: `run_ranks` spawns
-`world` processes (`torch.multiprocessing`), joins them in a gloo group
-through a file in the test's temporary directory, runs `work(rank, payload)`
-in each and returns what each rank returned.
+"""The ranks of the port's data- and tensor-parallel CPU tests: `run_ranks`
+spawns `world` processes (`torch.multiprocessing`), joins them in a gloo
+group through a file in the test's temporary directory, runs
+`work(rank, payload)` in each and returns what each rank returned
+(`start_ranks` / `join_ranks`: the same in two halves).
 
 No JAX here: the ranks import only torch and the port; the tests compute
 the JAX references in the parent process.
@@ -18,9 +19,10 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def _entry(rank: int, work, payload, tmp: str, world: int) -> None:
+def _entry(rank: int, work, tmp: str, world: int) -> None:
     torch.set_num_threads(1)
     os.environ["LOCAL_RANK"] = str(rank)
+    payload = torch.load(os.path.join(tmp, "payload.pt"), weights_only=False)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
                             world_size=world)
     try:
@@ -29,10 +31,24 @@ def _entry(rank: int, work, payload, tmp: str, world: int) -> None:
         dist.destroy_process_group()
 
 
-def run_ranks(work, payload, tmp: str, world: int = 2) -> list:
-    mp.spawn(_entry, args=(work, payload, str(tmp), world), nprocs=world, join=True)
+def start_ranks(work, payload, tmp: str, world: int = 2):
+    """`run_ranks` without the wait: the caller computes beside the ranks,
+    then `join_ranks`. The payload reaches the ranks through a file (each
+    loads its own copy: handing hundreds of tensors to each process in
+    shared memory took tens of seconds)."""
+    torch.save(payload, os.path.join(tmp, "payload.pt"))
+    return mp.spawn(_entry, args=(work, str(tmp), world), nprocs=world, join=False)
+
+
+def join_ranks(ctx, tmp: str, world: int) -> list:
+    while not ctx.join():
+        pass
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
+
+
+def run_ranks(work, payload, tmp: str, world: int = 2) -> list:
+    return join_ranks(start_ranks(work, payload, tmp, world), tmp, world)
 
 
 def _step_case(case: dict, mesh) -> dict:
@@ -133,8 +149,8 @@ def adv_noise_case(case: dict, mesh) -> torch.Tensor:
 
     batch, noise = case["batch"], case["noise"]
     if mesh is not None:
-        batch = shard_batch(batch, mesh.rank, mesh.dp)
-        noise = shard_batch(noise, mesh.rank, mesh.dp)
+        batch = shard_batch(batch, mesh.dp_rank, mesh.dp)
+        noise = shard_batch(noise, mesh.dp_rank, mesh.dp)
     with data_parallel(mesh):
         return trecon._adv_attacked_noise(case["frozen"], batch, case["rand"], noise,
                                           case["rcfg"], noise.shape[-1])
@@ -210,12 +226,11 @@ def fit_case(case: dict) -> dict:
 
 
 def dp_cases(rank: int, payload: dict) -> dict:
-    """Every case of `payload` on this rank: train steps on the mesh of the
-    group, and sync-BN calls on the group. The payload's tensors reach the
-    ranks in shared memory: each rank works on its own copy."""
+    """Every case of `payload` on this rank (its own copy, loaded from the
+    file `start_ranks` wrote): train steps on the mesh of the group, and
+    sync-BN calls on the group."""
     from adaface_tpu_torch.parallel.mesh import make_mesh
 
-    payload = copy.deepcopy(payload)
     mesh = make_mesh(dist.get_world_size())
     out = {}
     for name, case in payload.items():
@@ -228,4 +243,34 @@ def dp_cases(rank: int, payload: dict) -> dict:
             out[name] = fit_case(case)
         else:
             out[name] = _bn_case(case, rank, mesh.dp)
+    return out
+
+
+def tp_cases(rank: int, payload: dict) -> dict:
+    """Every case of `payload` on this rank: the case's dp × tp mesh of the
+    group (the world holds dp · tp ranks), its frozen UNet and text encoder
+    cut by `shard_params`, a "comp_unet" state dict cut by the UNet's map and
+    loaded into it, one train step; a case's "fault" (`chip_compare.tp_fault`)
+    planted around the cut and the step. A case without "tp": its step in
+    one process, the "comp_unet" weights loaded whole."""
+    import chip_compare
+    from adaface_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    out = {}
+    for name, case in payload.items():
+        case = copy.deepcopy(case)  # its own towers: a cut is in place
+        if case.get("tp") is None:
+            if "comp_unet" in case:
+                case["frozen"]["unet"].load_state_dict(case["comp_unet"])
+            out[name] = _step_case(case, None)
+            continue
+        mesh = make_mesh(case["dp"], case["tp"])
+        with chip_compare.tp_fault(case.get("fault")):
+            frozen = case["frozen"]
+            for part in ("unet", "text_encoder"):
+                shard_params(frozen[part], mesh)
+            if "comp_unet" in case:
+                shard_params(case["comp_unet"], mesh, like=frozen["unet"])
+                frozen["unet"].load_state_dict(case["comp_unet"])
+            out[name] = _step_case(case, mesh)
     return out
