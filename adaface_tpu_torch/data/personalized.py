@@ -17,9 +17,9 @@ the same RandomState:
 - `SubjectSampler`: image-count-weighted subject sampling, skipping
   non-face subjects, one subject per batch.
 
-Images are read by `utils/image.read_image` (PNG, JPEG, BMP: the card's
-machine has no PIL); another format (WebP among the listed extensions)
-raises with its path.
+Images are read by `utils/image.read_image` (PNG, JPEG, BMP, WebP, GIF:
+the card's machine has no PIL), as Pillow's `convert("RGB")` / `("L")`
+give them; a file it does not take raises with its path.
 """
 
 from __future__ import annotations

@@ -61,7 +61,7 @@ def image_paths(folder: str, limit: int | None = None) -> list[str]:
 
 def load_folder_images(folder: str, limit: int | None = None) -> list[np.ndarray]:
     """RGB uint8 [H, W, 3] arrays of `image_paths(folder, limit)`, read by
-    `utils.image.read_image` (PNG, JPEG, BMP; a WebP raises with its path)."""
+    `utils.image.read_image` (PNG, JPEG, BMP, WebP, GIF)."""
     return [to_rgb(read_image(p)) for p in image_paths(folder, limit)]
 
 

@@ -1,16 +1,19 @@
 """The port's host library: image decoding and the training item pipeline.
 
-Two C++ sources, built together with `g++ -O3 -shared -fPIC` at first use
+Three C++ sources, built together with `g++ -O3 -shared -fPIC` at first use
 into `adaface_tpu_torch/_build/`, the library named by a hash of the sources
 and flags (as `ops/_build.py` names the CUDA one), and loaded with ctypes:
 
-- `decode.cpp`: JPEG (8-bit Huffman sequential and progressive, grey and
-  YCbCr at 4:4:4 / 4:2:2 / 4:2:0 / 4:4:0) and BMP (24-, 32-bit and 8-bit
-  paletted) to the pixels Pillow with libjpeg-turbo gives, bit for bit; GIF
-  (its frames composited onto the logical screen as Pillow gives them for
-  `seek(i)`, `convert("RGB")`); any other variant is refused with a
-  message. Entropy decoding in Python loops would cost seconds a photo and
-  hold the trainer's prefetch thread back.
+- `decode.cpp`: JPEG (8-bit Huffman sequential and progressive; grey,
+  YCbCr, RGB, CMYK and YCCK; sampling factors up to 4) and BMP (1-, 4-,
+  8-bit palettes, 16-, 24-, 32-bit, bit fields, RLE8 and RLE4) to the
+  pixels Pillow with libjpeg-turbo gives, bit for bit; GIF (its frames
+  composited onto the logical screen as Pillow gives them for `seek(i)`,
+  `convert("RGB")`); any other variant is refused with a message. Entropy
+  decoding in Python loops would cost seconds a photo and hold the
+  trainer's prefetch thread back.
+- `webp.cpp`: WebP (VP8 lossy, VP8L lossless, ALPH, an animation's first
+  frame) to the pixels Pillow with libwebp gives, bit for bit.
 - `imgops.cpp`: `prepare_item`, the dataset's resize → flip → shrink into
   the canvas → roll → normalize chain, the same bits as
   `data.personalized.augment_numpy`; `resize_pil`, Pillow's BILINEAR,
@@ -37,7 +40,7 @@ from adaface_tpu_torch.utils.image import _pil_coeffs
 
 SRC = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = SRC.parent / "_build"
-SOURCES = ("decode.cpp", "imgops.cpp")
+SOURCES = ("decode.cpp", "webp.cpp", "imgops.cpp")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
@@ -78,6 +81,10 @@ def load_library() -> ctypes.CDLL:
     lib.image_info.restype = i32
     lib.image_decode.argtypes = [p, sz, p, ctypes.c_char_p, i32]
     lib.image_decode.restype = i32
+    lib.webp_info.argtypes = [p, sz, ip, ip, ip, ctypes.c_char_p, i32]
+    lib.webp_info.restype = i32
+    lib.webp_decode.argtypes = [p, sz, p, ctypes.c_char_p, i32]
+    lib.webp_decode.restype = i32
     lib.gif_info.argtypes = [p, sz, ip, ip, ip, ctypes.c_char_p, i32]
     lib.gif_info.restype = i32
     lib.gif_decode.argtypes = [p, sz, p, i32, ctypes.c_char_p, i32]
@@ -95,7 +102,7 @@ def _ptr(a: np.ndarray) -> int:
 
 def decode_image(data: bytes, path="<bytes>") -> np.ndarray:
     """A JPEG or BMP file's bytes → uint8 [H, W] (grey JPEG) or [H, W, 3]
-    (RGB). Raises ValueError naming `path` and what it found for a variant
+    (RGB; a CMYK or YCCK JPEG as Pillow's convert("RGB") gives it). Raises ValueError naming `path` and what it found for a variant
     the decoder does not take."""
     lib = load_library()
     buf = np.frombuffer(data, np.uint8)
@@ -106,6 +113,24 @@ def decode_image(data: bytes, path="<bytes>") -> np.ndarray:
         raise ValueError(f"{path}: {err.value.decode()}")
     out = np.empty((h.value, w.value) + ((c.value,) if c.value > 1 else ()), np.uint8)
     if lib.image_decode(_ptr(buf), buf.size, _ptr(out), err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    return out
+
+
+def decode_webp(data: bytes, path="<bytes>") -> np.ndarray:
+    """A WebP file's bytes → uint8 [H, W, 3], or [H, W, 4] where the file
+    has alpha (Pillow's "RGB" and "RGBA"): its image, or an animation's
+    first frame on its canvas. Raises ValueError naming `path` and what it
+    found for a file the decoder does not take."""
+    lib = load_library()
+    buf = np.frombuffer(data, np.uint8)
+    w, h, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    if lib.webp_info(_ptr(buf), buf.size, ctypes.byref(w), ctypes.byref(h), ctypes.byref(c),
+                     err, len(err)):
+        raise ValueError(f"{path}: {err.value.decode()}")
+    out = np.empty((h.value, w.value, c.value), np.uint8)
+    if lib.webp_decode(_ptr(buf), buf.size, _ptr(out), err, len(err)):
         raise ValueError(f"{path}: {err.value.decode()}")
     return out
 

@@ -8,10 +8,13 @@
 //
 // JPEG: 8-bit Huffman-coded sequential (SOF0, SOF1) and progressive (SOF2)
 // with spectral selection and successive approximation, restart intervals,
-// one component (grey) or three (YCbCr) with the chroma at 1x1 or 2x1, 1x2,
-// 2x2 of the luma. BMP: uncompressed 24- and 32-bit, and 8-bit paletted,
-// bottom-up or top-down. Anything else is refused with a message naming
-// what was found; nothing is passed on silently.
+// one component (grey), three (YCbCr or RGB) or four (CMYK or YCCK, given
+// as Pillow's convert("RGB") gives them), sampling factors 1 to 4 in either
+// direction at integral ratios (libjpeg-turbo's upsampler for each: "fancy"
+// at 2x1, 1x2 and 2x2, replication otherwise). BMP: see `Bmp`. Anything
+// else (arithmetic, 12-bit, lossless and hierarchical JPEGs among it) is
+// refused with a message naming what was found; nothing is passed on
+// silently.
 //
 // Two calls: `image_info` parses the headers into the output's shape, then
 // `image_decode` fills a caller-owned [H, W, C] uint8 buffer (C = 1 for a
@@ -115,7 +118,7 @@ class Jpeg {
   bool progressive_ = false, frame_ = false, saw_jfif_ = false;
   int adobe_transform_ = -1;
   int restart_interval_ = 0;
-  Component comp_[3];
+  Component comp_[4];
   std::vector<std::vector<uint8_t>> planes_;  // IDCT output per component
 
   // entropy-coded segment reader
@@ -196,9 +199,9 @@ class Jpeg {
     ncomp_ = byte();
     if (height_ == 0) fail("JPEG: height 0 (defined by a DNL marker) is not supported");
     if (width_ == 0) fail("JPEG: width 0");
-    if (ncomp_ == 4) fail("JPEG: 4 components (CMYK or YCCK) are not supported");
-    if (ncomp_ != 1 && ncomp_ != 3)
-      fail("JPEG: " + std::to_string(ncomp_) + " components are not supported");
+    if (ncomp_ != 1 && ncomp_ != 3 && ncomp_ != 4)
+      fail("JPEG: " + std::to_string(ncomp_) + " components are not supported (Pillow opens 1, "
+           "3 and 4)");
     for (int i = 0; i < ncomp_; ++i) {
       Component& c = comp_[i];
       c.id = byte();
@@ -215,17 +218,12 @@ class Jpeg {
       vmax_ = std::max(vmax_, comp_[i].v);
     }
     std::string factors;
-    for (int i = 0; i < ncomp_; ++i) {
-      const Component& c = comp_[i];
-      factors += (i ? "," : "") + std::to_string(c.h) + "x" + std::to_string(c.v);
-      const int rh = hmax_ / c.h, rv = vmax_ / c.v;
-      if (hmax_ % c.h || vmax_ % c.v || rh > 2 || rv > 2)
-        fail("JPEG: sampling factors " + factors + " are not supported (4:4:4, 4:2:2, 4:2:0 "
-             "and 4:4:0 are)");
-    }
+    for (int i = 0; i < ncomp_; ++i)
+      factors += (i ? "," : "") + std::to_string(comp_[i].h) + "x" + std::to_string(comp_[i].v);
     for (int i = 0; i < ncomp_; ++i) {
       if (hmax_ % comp_[i].h || vmax_ % comp_[i].v)
-        fail("JPEG: sampling factors " + factors + " are not supported");
+        fail("JPEG: sampling factors " + factors + " are not integral ratios (libjpeg refuses "
+             "them)");
     }
     mcux_ = (width_ + 8 * hmax_ - 1) / (8 * hmax_);
     mcuy_ = (height_ + 8 * vmax_ - 1) / (8 * vmax_);
@@ -235,13 +233,6 @@ class Jpeg {
       c.dh = (int)(((long long)height_ * c.v + vmax_ - 1) / vmax_);
       c.bw = mcux_ * c.h;
       c.bh = mcuy_ * c.v;
-    }
-    if (ncomp_ == 3) {
-      if (adobe_transform_ == 0 && !saw_jfif_)
-        fail("JPEG: RGB colour (Adobe transform 0) is not supported");
-      if (!saw_jfif_ && adobe_transform_ < 0 && comp_[0].id == 'R' && comp_[1].id == 'G' &&
-          comp_[2].id == 'B')
-        fail("JPEG: RGB colour (component ids R, G, B) is not supported");
     }
     if ((long long)width_ * height_ > (1LL << 28)) fail("JPEG: image too large");
   }
@@ -296,6 +287,7 @@ class Jpeg {
   }
   int get_bits(int n) {
     if (n == 0) return 0;
+    if (n > 16) fail("JPEG: bad Huffman symbol (a value of " + std::to_string(n) + " bits)");
     if (nbits_ < n) fill();
     const int v = (int)(bits_ >> (32 - n));
     bits_ <<= n;
@@ -303,7 +295,7 @@ class Jpeg {
     return v;
   }
   int get_bit() { return get_bits(1); }
-  static int extend(int v, int s) { return v < (1 << (s - 1)) ? v + (-1 << s) + 1 : v; }
+  static int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
   int decode_symbol(const Huffman& t) {
     if (nbits_ < 16) fill();
@@ -355,7 +347,7 @@ class Jpeg {
   void read_scan() {
     Scan s;
     s.n = byte();
-    if (s.n < 1 || s.n > ncomp_) fail("JPEG: bad scan header");
+    if (s.n < 1 || s.n > ncomp_ || s.n > 4) fail("JPEG: bad scan header");
     for (int i = 0; i < s.n; ++i) {
       const int id = byte(), tables = byte();
       int ci = -1;
@@ -366,6 +358,12 @@ class Jpeg {
       comp_[ci].dc_tbl = tables >> 4;
       comp_[ci].ac_tbl = tables & 15;
       if (comp_[ci].dc_tbl > 3 || comp_[ci].ac_tbl > 3) fail("JPEG: bad table id in scan");
+    }
+    if (s.n > 1) {  // libjpeg's limit on an interleaved scan's MCU
+      int blocks = 0;
+      for (int i = 0; i < s.n; ++i) blocks += comp_[s.comps[i]].h * comp_[s.comps[i]].v;
+      if (blocks > 10)
+        fail("JPEG: " + std::to_string(blocks) + " blocks in an MCU (libjpeg takes at most 10)");
     }
     s.ss = byte();
     s.se = byte();
@@ -436,7 +434,7 @@ class Jpeg {
     if (!progressive_) {
       int t = decode_symbol(dc_[c.dc_tbl]);
       const int diff = t ? extend(get_bits(t), t) : 0;
-      c.pred += diff;
+      c.pred = (int)((unsigned)c.pred + (unsigned)diff);  // wraps on corrupt data
       blk[0] = (int16_t)c.pred;
       const Huffman& ac = ac_[c.ac_tbl];
       for (int k = 1; k < 64; ++k) {
@@ -456,8 +454,8 @@ class Jpeg {
       if (s.ah == 0) {
         int t = decode_symbol(dc_[c.dc_tbl]);
         const int diff = t ? extend(get_bits(t), t) : 0;
-        c.pred += diff;
-        blk[0] = (int16_t)(c.pred * (1 << s.al));
+        c.pred = (int)((unsigned)c.pred + (unsigned)diff);
+        blk[0] = (int16_t)((unsigned)c.pred << s.al);
       } else if (get_bit()) {
         blk[0] |= (int16_t)(1 << s.al);
       }
@@ -675,6 +673,12 @@ class Jpeg {
       std::memcpy(out, row(y), width_);
       return;
     }
+    if (!((rh == 2 && rv == 1) || (rh == 1 && rv == 2) || (rh == 2 && rv == 2))) {
+      // another integral ratio: each sample replicated rh x rv (int_upsample)
+      const uint8_t* in = row(y / rv);
+      for (int x = 0; x < width_; ++x) out[x] = in[x / rh];
+      return;
+    }
     if (rv == 1) {  // 2x1
       const uint8_t* in = row(y);
       if (!fancy) {
@@ -728,8 +732,29 @@ class Jpeg {
     for (int x = 0; x < width_; ++x) out[x] = (uint8_t)o[x];
   }
 
+  // libjpeg's colour space (jdapimin.c default_decompress_parms): JFIF
+  // means YCbCr; else an Adobe segment's transform (0: RGB or CMYK, 1: YCbCr,
+  // 2 and others: YCCK for 4 components, YCbCr for 3); else component ids
+  // R, G, B mean RGB, and 4 components without an Adobe segment are CMYK.
+  enum Space { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
+  Space colour_space() const {
+    if (ncomp_ == 1) return kGrey;
+    if (ncomp_ == 4) return adobe_transform_ < 0 || adobe_transform_ == 0 ? kCMYK : kYCCK;
+    if (saw_jfif_) return kYCbCr;
+    if (adobe_transform_ >= 0) return adobe_transform_ == 0 ? kRGB : kYCbCr;
+    return comp_[0].id == 'R' && comp_[1].id == 'G' && comp_[2].id == 'B' ? kRGB : kYCbCr;
+  }
+
+  // The pixels Pillow's convert("RGB") gives. A 4-component file opens as
+  // "CMYK" read with inverted samples (Pillow's rawmode "CMYK;I", whatever
+  // the Adobe segment says) from libjpeg's CMYK output (YCCK converted as
+  // libjpeg does: C, M, Y = 255 - the YCbCr conversion's R, G, B; K as it
+  // is); Pillow's CMYK -> RGB is then R = nk - nk·C / 255 (rounded as its
+  // MULDIV255), nk = 255 - K, so R = k - k·(255 - c) / 255 in libjpeg's
+  // samples.
   void write_pixels(uint8_t* out) const {
-    if (ncomp_ == 1) {
+    const Space space = colour_space();
+    if (space == kGrey) {
       std::vector<int> tmp;
       for (int y = 0; y < height_; ++y) upsample_row(0, y, out + (size_t)y * width_, tmp);
       return;
@@ -747,30 +772,65 @@ class Jpeg {
       cr_g[i] = -fix(0.71414) * x;
       cb_g[i] = -fix(0.34414) * x + kHalf;
     }
-    std::vector<uint8_t> rows(3 * (size_t)width_);
+    auto muldiv255 = [](int a, int b) {
+      const int t = a * b + 128;
+      return ((t >> 8) + t) >> 8;
+    };
+    std::vector<uint8_t> rows((size_t)ncomp_ * width_);
     std::vector<int> tmp;
     auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
     for (int y = 0; y < height_; ++y) {
-      for (int ci = 0; ci < 3; ++ci) upsample_row(ci, y, &rows[(size_t)ci * width_], tmp);
-      const uint8_t *Y = &rows[0], *Cb = &rows[width_], *Cr = &rows[2 * (size_t)width_];
+      for (int ci = 0; ci < ncomp_; ++ci)
+        upsample_row(ci, y, &rows[(size_t)ci * width_], tmp);
+      const uint8_t *c0 = &rows[0], *c1 = &rows[width_], *c2 = &rows[2 * (size_t)width_];
+      const uint8_t* c3 = ncomp_ == 4 ? &rows[3 * (size_t)width_] : nullptr;
       uint8_t* o = out + (size_t)y * width_ * 3;
       for (int x = 0; x < width_; ++x) {
-        const int yy = Y[x], cb = Cb[x], cr = Cr[x];
-        o[3 * x] = clamp(yy + cr_r[cr]);
-        o[3 * x + 1] = clamp(yy + (int)((cb_g[cb] + cr_g[cr]) >> kScale));
-        o[3 * x + 2] = clamp(yy + cb_b[cb]);
+        int rgb[3];
+        if (space == kRGB || space == kCMYK) {
+          rgb[0] = c0[x], rgb[1] = c1[x], rgb[2] = c2[x];
+        } else {
+          const int yy = c0[x], cb = c1[x], cr = c2[x];
+          rgb[0] = clamp(yy + cr_r[cr]);
+          rgb[1] = clamp(yy + (int)((cb_g[cb] + cr_g[cr]) >> kScale));
+          rgb[2] = clamp(yy + cb_b[cb]);
+        }
+        if (space == kCMYK) {
+          for (int k = 0; k < 3; ++k) o[3 * x + k] = (uint8_t)(c3[x] - muldiv255(255 - rgb[k], c3[x]));
+        } else if (space == kYCCK) {
+          for (int k = 0; k < 3; ++k) o[3 * x + k] = (uint8_t)(c3[x] - muldiv255(rgb[k], c3[x]));
+        } else {
+          for (int k = 0; k < 3; ++k) o[3 * x + k] = (uint8_t)rgb[k];
+        }
       }
     }
   }
 };
 
 // ------------------------------------------------------------------- BMP
+//
+// As Pillow's BmpImagePlugin reads them: headers of 12, 40, 52, 56, 64, 108
+// and 124 bytes; 1-, 4- and 8-bit palettes (BGRX, or BGR after a 12-byte
+// header; an index past the palette reads black); 16-bit 5-5-5, 24- and
+// 32-bit (BGRX) pixels, bottom-up or top-down; BI_BITFIELDS with the masks
+// Pillow accepts (5-6-5 and 5-5-5 at 16 bits, its byte orders at 32; a
+// 16-bit channel of n bits scales by 255 / (2^n - 1), truncated); RLE8 and
+// RLE4 as its BmpRleDecoder runs them. Pillow's quirks are kept: a palette
+// of grey levels (entry i = i, i, i; two entries black and white) makes the
+// image "L" or "1", whose pixels are then the indices themselves whatever
+// the palette's size, or the row's bytes (bits) at fewer bits a pixel; an offset that points at the palette skips
+// it; an RLE delta skips two bytes before its (right, up) pair and moves
+// right + up x width pixels on; an RLE4 absolute run of odd length drops
+// its last pixel; RLE data that fills fewer pixels than the image is
+// refused ("not enough image data").
 struct Bmp {
-  int width = 0, height = 0, bits = 0;
+  int width = 0, height = 0, bits = 0, compression = 0;
   bool top_down = false;
   size_t offset = 0, row_bytes = 0;
-  const uint8_t* palette = nullptr;
-  int colours = 0, palette_entry = 4;
+  uint8_t pal[256][3] = {};  // RGB, black past the palette
+  enum { kPalette, kGrey, kBilevel, kDirect } kind = kDirect;
+  uint32_t mask[3] = {0xFF0000, 0xFF00, 0xFF};  // R, G, B of a 16- or 32-bit pixel
+  std::vector<uint8_t> indices;  // RLE: [height][width], bottom row first where bottom-up
 
   Bmp(const uint8_t* p, size_t n) {
     if (n < 26) fail("BMP: file too short");
@@ -778,59 +838,207 @@ struct Bmp {
     auto u32 = [&](size_t o) { return u16(o) | (u16(o + 2) << 16); };
     offset = u32(10);
     const uint32_t header = u32(14);
-    if (header == 12) {  // OS/2 BITMAPCOREHEADER
+    if (n < 14 + (size_t)header) fail("BMP: file too short");
+    int colours = 0, entry = 4;
+    size_t pos = 14 + header;  // after the header: masks, then the palette
+    if (header == 12) {  // OS/2 BITMAPCOREHEADER: bottom-up, uncompressed
       width = (int)u16(18);
-      height = (int)(int16_t)u16(20);
+      height = (int)u16(20);
       bits = (int)u16(24);
-      palette_entry = 3;
-    } else if (header == 40 || header == 52 || header == 56 || header == 108 || header == 124) {
-      if (n < 14 + header) fail("BMP: file too short");
+      entry = 3;
+    } else if (header == 40 || header == 52 || header == 56 || header == 64 || header == 108 ||
+               header == 124) {
       width = (int32_t)u32(18);
-      height = (int32_t)u32(22);
+      top_down = p[25] == 0xFF;
+      height = top_down ? (int)(0x100000000LL - u32(22)) : (int32_t)u32(22);
       bits = (int)u16(28);
-      const uint32_t compression = u32(30);
-      if (compression == 1 || compression == 2)
-        fail("BMP: RLE compression is not supported");
-      if (compression != 0)
-        fail("BMP: compression " + std::to_string(compression) + " (bit fields, JPEG or PNG "
-             "inside) is not supported");
+      compression = (int)u32(30);
       colours = (int)u32(46);
+      if (compression == 3) {  // BI_BITFIELDS
+        size_t at = 54;
+        if (header == 40) {  // the masks follow the header
+          at = pos;
+          pos += 12;
+        }
+        if (n < at + 12) fail("BMP: file too short");
+        const uint32_t m[4] = {u32(at), u32(at + 4), u32(at + 8), header >= 56 ? u32(66) : 0};
+        bitfields(m);
+      } else if (compression == 1 || compression == 2) {
+        if (bits != (compression == 1 ? 8 : 4))
+          fail("BMP: RLE" + std::string(compression == 1 ? "8" : "4") + " with " +
+               std::to_string(bits) + "-bit pixels");
+      } else if (compression != 0) {
+        fail("BMP: compression " + std::to_string(compression) + " (JPEG or PNG inside) is "
+             "not supported");
+      }
     } else {
       fail("BMP: header of " + std::to_string(header) + " bytes is not supported");
     }
-    if (bits != 8 && bits != 24 && bits != 32)
-      fail("BMP: " + std::to_string(bits) + "-bit pixels are not supported (8, 24 and 32 are)");
-    top_down = height < 0;
-    height = std::abs(height);
+    if (bits != 1 && bits != 4 && bits != 8 && bits != 16 && bits != 24 && bits != 32)
+      fail("BMP: " + std::to_string(bits) + "-bit pixels are not supported (Pillow reads 1, 4, "
+           "8, 16, 24 and 32)");
     if (width <= 0 || height <= 0) fail("BMP: bad size");
-    row_bytes = (((size_t)width * bits + 31) / 32) * 4;
-    if (offset + row_bytes * height > n) fail("BMP: pixel data runs past the end of the file");
-    if (bits == 8) {
-      if (colours == 0) colours = 256;
-      if (colours > 256) fail("BMP: bad palette size");
-      palette = p + 14 + header;
-      if (14 + header + (size_t)colours * palette_entry > offset) fail("BMP: bad palette");
+    if ((long long)width * height > (1LL << 28)) fail("BMP: image too large");
+    if (colours == 0) colours = 1 << std::min(bits, 16);
+    if (bits <= 8) {
+      if (offset == 14 + (size_t)header) offset += 4 * (size_t)colours;
+      if (colours <= 0 || colours > 65536) fail("BMP: bad palette size");
+      const size_t have = pos < n ? std::min((size_t)colours * entry, n - pos) : 0;
+      const uint8_t* pe = p + pos;
+      bool grey = true;
+      for (int i = 0; i < colours && grey; ++i) {
+        const int want = colours == 2 ? (i ? 255 : 0) : i;
+        grey = (size_t)i * entry + 3 <= have && pe[i * entry] == want &&
+               pe[i * entry + 1] == want && pe[i * entry + 2] == want;
+      }
+      for (int i = 0; i < std::min(colours, 256) && (size_t)(i * entry + 3) <= have; ++i) {
+        pal[i][0] = pe[i * entry + 2];
+        pal[i][1] = pe[i * entry + 1];
+        pal[i][2] = pe[i * entry];
+      }
+      kind = !grey ? kPalette : colours == 2 ? kBilevel : kGrey;
+      if (kind == kBilevel && compression) fail("BMP: RLE with a black-and-white palette");
     }
+    if (compression == 1 || compression == 2) {
+      rle(p, n, compression == 2);
+      return;
+    }
+    row_bytes = (((size_t)width * bits + 31) / 32) * 4;
+    if (kind == kGrey && bits < 8 && (size_t)width > row_bytes)
+      fail("BMP: " + std::to_string(bits) + "-bit pixels with a palette of grey levels, wider "
+           "than a row's bytes (Pillow refuses them: codec configuration error)");
+    if (offset > n || row_bytes * height > n - offset)
+      fail("BMP: pixel data runs past the end of the file");
+  }
+
+  void bitfields(const uint32_t m[4]) {
+    const bool zero = !m[0] && !m[1] && !m[2] && !m[3];
+    bool ok = false;
+    if (bits == 32) {
+      static const uint32_t kOk[8][4] = {
+          {0xFF0000, 0xFF00, 0xFF, 0x0},         {0xFF000000, 0xFF0000, 0xFF00, 0x0},
+          {0xFF000000, 0xFF00, 0xFF, 0x0},       {0xFF000000, 0xFF0000, 0xFF00, 0xFF},
+          {0xFF, 0xFF00, 0xFF0000, 0xFF000000},  {0xFF0000, 0xFF00, 0xFF, 0xFF000000},
+          {0xFF000000, 0xFF00, 0xFF, 0xFF0000},  {0x0, 0x0, 0x0, 0x0}};
+      for (const auto& k : kOk) ok |= !std::memcmp(k, m, sizeof(k));
+    } else if (bits == 24) {
+      ok = m[0] == 0xFF0000 && m[1] == 0xFF00 && m[2] == 0xFF;
+    } else if (bits == 16) {
+      ok = (m[0] == 0xF800 && m[1] == 0x7E0 && m[2] == 0x1F) ||
+           (m[0] == 0x7C00 && m[1] == 0x3E0 && m[2] == 0x1F);
+    }
+    if (!ok) {
+      char buf[96];
+      std::snprintf(buf, sizeof(buf), "BMP: bit fields %X/%X/%X/%X at %d bits", m[0], m[1], m[2],
+                    m[3], bits);
+      fail(std::string(buf) + " (Pillow refuses the layout)");
+    }
+    if (!zero) std::memcpy(mask, m, sizeof(mask));  // all zero: Pillow reads BGRA
+  }
+
+  // Pillow's BmpRleDecoder: the indices, width x height, rows as stored
+  void rle(const uint8_t* p, size_t n, bool rle4) {
+    const size_t total = (size_t)width * height;
+    std::vector<uint8_t>& data = indices;
+    data.reserve(total);
+    size_t pos = offset;
+    long long x = 0;
+    while (data.size() < total) {
+      if (pos + 2 > n) break;
+      const int count = p[pos], byte = p[pos + 1];
+      pos += 2;
+      if (count) {  // a run
+        long long k = count;
+        if (x + k > width) k = std::max(0LL, width - x);
+        for (long long i = 0; i < k; ++i)
+          data.push_back((uint8_t)(rle4 ? (i % 2 ? byte & 15 : byte >> 4) : byte));
+        x += k;
+      } else if (byte == 0) {  // end of line
+        while (data.size() % width) data.push_back(0);
+        x = 0;
+      } else if (byte == 1) {  // end of bitmap
+        break;
+      } else if (byte == 2) {  // delta: Pillow reads two bytes, then (right, up)
+        if (pos + 2 > n) break;
+        pos += 2;
+        if (pos + 2 > n) fail("BMP: RLE delta past the end of the file");
+        const size_t skip = p[pos] + (size_t)p[pos + 1] * width;
+        pos += 2;
+        data.resize(data.size() + skip, 0);
+        x = (long long)(data.size() % width);
+      } else {  // an absolute run of `byte` pixels
+        const size_t nbytes = rle4 ? byte / 2 : byte;
+        const size_t got = std::min(nbytes, n - pos);
+        for (size_t i = 0; i < got; ++i) {
+          if (rle4) {
+            data.push_back(p[pos + i] >> 4);
+            data.push_back(p[pos + i] & 15);
+          } else {
+            data.push_back(p[pos + i]);
+          }
+        }
+        pos += got;
+        if (got < nbytes) break;
+        x += byte;
+        if (pos % 2) ++pos;  // word alignment, of the file position
+      }
+    }
+    if (data.size() < total)
+      fail("BMP: RLE data fills " + std::to_string(data.size()) + " of " +
+           std::to_string(total) + " pixels (Pillow refuses: not enough image data)");
+    data.resize(total);
   }
 
   void decode(const uint8_t* p, uint8_t* out) const {
     for (int y = 0; y < height; ++y) {
-      const uint8_t* row = p + offset + row_bytes * (size_t)(top_down ? y : height - 1 - y);
+      const int src_y = top_down ? y : height - 1 - y;
       uint8_t* o = out + (size_t)y * width * 3;
-      for (int x = 0; x < width; ++x) {
-        const uint8_t* px;
-        if (bits == 8) {
-          const int i = row[x];
-          // an index past the palette reads black, as Pillow pads its palette
-          static const uint8_t black[4] = {0, 0, 0, 0};
-          px = i < colours ? palette + (size_t)i * palette_entry : black;
-        } else {
-          px = row + (size_t)x * (bits / 8);
-        }
-        o[3 * x] = px[2];
-        o[3 * x + 1] = px[1];
-        o[3 * x + 2] = px[0];
+      if (!indices.empty()) {
+        const uint8_t* row = &indices[(size_t)src_y * width];
+        for (int x = 0; x < width; ++x) put_index(row[x], o + 3 * x);
+        continue;
       }
+      const uint8_t* row = p + offset + row_bytes * (size_t)src_y;
+      for (int x = 0; x < width; ++x) {
+        uint8_t* px = o + 3 * x;
+        if (bits <= 8) {
+          const int at = x * bits;
+          const int i = (row[at >> 3] >> (8 - bits - (at & 7))) & ((1 << bits) - 1);
+          if (kind == kBilevel) {  // Pillow's "1": the pixel's bit of a 1-bit row
+            const int bit = (row[x >> 3] >> (7 - (x & 7))) & 1;
+            px[0] = px[1] = px[2] = bit ? 255 : 0;
+          } else if (kind == kGrey && bits < 8) {  // Pillow's "L": the row's bytes
+            px[0] = px[1] = px[2] = row[x];
+          } else {
+            put_index(i, px);
+          }
+        } else if (bits == 16) {
+          const uint32_t v = row[2 * x] | (row[2 * x + 1] << 8);
+          const uint32_t m[3] = {compression == 3 ? mask[0] : 0x7C00,
+                                 compression == 3 ? mask[1] : 0x3E0, 0x1F};
+          for (int c = 0; c < 3; ++c) {
+            const int shift = __builtin_ctz(m[c]);
+            const uint32_t top = m[c] >> shift;
+            px[c] = (uint8_t)(((v & m[c]) >> shift) * 255 / top);
+          }
+        } else if (bits == 24) {
+          px[0] = row[3 * x + 2];
+          px[1] = row[3 * x + 1];
+          px[2] = row[3 * x];
+        } else {
+          const uint32_t v = row[4 * x] | (row[4 * x + 1] << 8) | (row[4 * x + 2] << 16) |
+                             ((uint32_t)row[4 * x + 3] << 24);
+          for (int c = 0; c < 3; ++c) px[c] = (uint8_t)((v & mask[c]) >> __builtin_ctz(mask[c]));
+        }
+      }
+    }
+  }
+
+  void put_index(int i, uint8_t* px) const {
+    if (kind == kGrey) {  // Pillow's "L": the index is the grey level
+      px[0] = px[1] = px[2] = (uint8_t)i;
+    } else {
+      std::memcpy(px, pal[i], 3);
     }
   }
 };

@@ -18,9 +18,10 @@ these follow OpenCV's (5.0) arithmetic on uint8:
 The training data path's PIL calls (`adaface_tpu/data/personalized.py`
 and `train/face_parsing_train.py`: `Image.open(...).convert("RGB" or "L")`,
 padding to a square, NEAREST and BILINEAR resizes, `Image.new` + `paste`)
-are here too: `read_image` (PNG on stdlib `zlib`: 8-bit grey, RGB and RGBA,
-non-interlaced, all five row filters; JPEG, BMP and a GIF's first frame
-through the port's host library; any other file raises with its path),
+are here too: `read_image` (PNG on stdlib `zlib`: every colour type and bit
+depth, Adam7, all five row filters; JPEG, BMP, WebP and a GIF's first
+frame through the port's host library; any other file raises with its
+path),
 `read_gif_frames` (a GIF's frames as Pillow composites them), `write_png`, `to_rgb` /
 `to_grey` as PIL converts, `pad_to_square`, `resize_nearest_pil`, which
 samples where PIL's NEAREST does, `resize_pil` (Pillow's fixed-point
@@ -120,7 +121,12 @@ def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
-PNG_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type → channels: grey, RGB, RGBA
+# colour type → (samples a pixel, the bit depths the PNG specification allows)
+PNG_COLOUR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+                    4: (2, (8, 16)), 6: (4, (8, 16))}
+# the seven Adam7 passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
@@ -151,23 +157,63 @@ def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.n
 
 
 def read_png(path) -> np.ndarray:
-    """An 8-bit grey, RGB or RGBA non-interlaced PNG → uint8 [H, W] or
-    [H, W, 3 or 4]."""
+    """A PNG file → uint8 [H, W] or [H, W, 3 or 4] (`decode_png`)."""
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
 
+def _png_samples(raw: bytes, off: int, width: int, height: int, depth: int,
+                 samples: int) -> tuple[np.ndarray, int]:
+    """One (sub)image's filtered scanlines at `raw[off:]` → its samples,
+    uint16 [height, width, samples], and the offset past them."""
+    stride = (width * samples * depth + 7) // 8
+    if width == 0 or height == 0:
+        return np.zeros((height, width, samples), np.uint16), off
+    if len(raw) < off + height * (stride + 1):
+        raise ValueError(f"PNG data of {len(raw)} bytes ends inside the pixels")
+    rows, prev = np.empty((height, stride), np.uint8), np.zeros(stride, np.uint8)
+    bpp = max(1, samples * depth // 8)  # the filters' byte distance
+    for y in range(height):
+        o = off + y * (stride + 1)
+        prev = rows[y] = _unfilter_row(raw[o], np.frombuffer(raw, np.uint8, stride, o + 1),
+                                       prev, bpp)
+    n = width * samples
+    if depth == 16:
+        vals = rows.view(">u2")[:, :n]
+    elif depth == 8:
+        vals = rows[:, :n]
+    else:  # 1, 2 or 4 bits a sample, the first in the byte's high bits
+        bits = np.unpackbits(rows, axis=1)[:, :n * depth].reshape(height, n, depth)
+        vals = (bits * (1 << np.arange(depth - 1, -1, -1, dtype=np.uint8))).sum(
+            axis=2, dtype=np.uint8)
+    return vals.astype(np.uint16).reshape(height, width, samples), off + height * (stride + 1)
+
+
 def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
-    """`read_png` on a PNG file's bytes; errors name `path`."""
+    """A PNG file's bytes → uint8 [H, W] or [H, W, 3 or 4], the pixels
+    Pillow's `convert("RGB")` / `convert("L")` give through `to_rgb` /
+    `to_grey`, for every colour type and bit depth of the PNG
+    specification, non-interlaced or Adam7: grey at 1, 2 or 4 bits scaled
+    to 0..255 (×255, ×85, ×17, as Pillow's modes "1" and "L" hold them),
+    16-bit grey clipped to 255 (Pillow's "I;16" converts so), 16-bit RGB,
+    RGBA and grey + alpha by their high byte, grey + alpha as its grey
+    (alpha dropped: both conversions ignore it), a palette image as its
+    palette's RGB (an index past the palette is black, as in Pillow;
+    `to_grey` of that RGB is Pillow's P → L). `tRNS` changes neither
+    conversion and is ignored. Errors name `path`."""
     if data[:8] != PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file (the port reads PNG only)")
-    pos, idat, header = 8, [], None
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, header, palette = 8, [], None, None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if kind == b"IHDR":
+            if len(body) != 13:
+                raise ValueError(f"{path}: PNG IHDR of {len(body)} bytes")
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -175,21 +221,48 @@ def decode_png(data: bytes, path="<bytes>") -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     width, height, depth, colour, _, _, interlace = header
-    if depth != 8 or colour not in PNG_CHANNELS or interlace:
+    if colour not in PNG_COLOUR_TYPES or depth not in PNG_COLOUR_TYPES[colour][1] \
+            or interlace > 1:
         raise ValueError(f"{path}: PNG of bit depth {depth}, colour type {colour}, interlace "
-                         f"{interlace}; the reader takes 8-bit grey, RGB or RGBA, not "
-                         "interlaced")
-    bpp = PNG_CHANNELS[colour]
-    raw = zlib.decompress(b"".join(idat))
-    stride = width * bpp
-    if len(raw) != height * (stride + 1):
-        raise ValueError(f"{path}: PNG data of {len(raw)} bytes for {width}x{height}x{bpp}")
-    rows, prev = np.empty((height, stride), np.uint8), np.zeros(stride, np.uint8)
-    for y in range(height):
-        off = y * (stride + 1)
-        prev = rows[y] = _unfilter_row(raw[off], np.frombuffer(raw, np.uint8, stride, off + 1),
-                                       prev, bpp)
-    return rows.reshape(height, width) if bpp == 1 else rows.reshape(height, width, bpp)
+                         f"{interlace}, which the PNG specification does not define")
+    if colour == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
+    if not 0 < width * height <= 1 << 28:
+        raise ValueError(f"{path}: PNG of {width}x{height}")
+    samples = PNG_COLOUR_TYPES[colour][0]
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"{path}: PNG data does not inflate ({e})") from e
+    try:
+        if not interlace:
+            px, _ = _png_samples(raw, 0, width, height, depth, samples)
+        else:
+            passes = [(x0, y0, dx, dy, max(0, -(-(width - x0) // dx)),
+                       max(0, -(-(height - y0) // dy))) for x0, y0, dx, dy in ADAM7]
+            need = sum(ph * ((pw * samples * depth + 7) // 8 + 1) for *_, pw, ph in passes
+                       if pw and ph)
+            if len(raw) < need:
+                raise ValueError(f"PNG data of {len(raw)} bytes ends inside the pixels")
+            px, off = np.zeros((height, width, samples), np.uint16), 0
+            for x0, y0, dx, dy, pw, ph in passes:
+                sub, off = _png_samples(raw, off, pw, ph, depth, samples)
+                px[y0::dy, x0::dx] = sub
+    except ValueError as e:
+        raise ValueError(f"{path}: {e} ({width}x{height}, colour type {colour}, "
+                         f"{depth}-bit)") from None
+    if colour == 3:
+        table = np.zeros((256, 3), np.uint8)
+        table[:min(len(palette), 256)] = palette[:256]
+        return table[px[..., 0]]
+    if depth == 16:
+        px = np.minimum(px, 255) if colour == 0 else px >> 8
+    elif depth < 8:
+        px = px * (255 // ((1 << depth) - 1))
+    px = px.astype(np.uint8)
+    if colour in (0, 4):
+        return px[..., 0]
+    return px
 
 
 def read_image(path) -> np.ndarray:
@@ -219,8 +292,13 @@ def decode_image_bytes(data: bytes, path="<bytes>") -> np.ndarray:
     """An image file's bytes → uint8 [H, W] (grey) or [H, W, 3 or 4], by
     its magic bytes: PNG (`decode_png`), JPEG or BMP (the port's host
     library, `adaface_tpu_torch.native.decode_image`), GIF (its first frame,
-    RGB, as Pillow's convert("RGB") gives it). Another format (WebP, …), or
-    a variant the decoders do not take, raises a ValueError naming `path`."""
+    RGB, as Pillow's convert("RGB") gives it), WebP (the host library's
+    `decode_webp`: RGB, or RGBA where the file has alpha). Where Pillow's
+    mode cannot be told from the shape, the array holds what `convert`
+    gives: a CMYK or YCCK JPEG, a palette PNG or BMP are RGB, a 16-bit grey
+    PNG is clipped to 255 (Pillow's "I;16" converts so). Another format, or
+    a variant the decoders do not take (arithmetic-coded, 12-bit, lossless
+    or hierarchical JPEGs among them), raises a ValueError naming `path`."""
     head = data[:12]
     if head[:8] == PNG_SIGNATURE:
         return decode_png(data, path)
@@ -232,9 +310,12 @@ def decode_image_bytes(data: bytes, path="<bytes>") -> np.ndarray:
         from adaface_tpu_torch.native import decode_gif
 
         return decode_gif(data, path, max_frames=1)[0]
-    kind = "a WebP file" if head[:4] == b"RIFF" and head[8:12] == b"WEBP" else \
-        f"magic bytes {head[:4]!r}"
-    raise ValueError(f"{path}: {kind}; the port reads PNG, JPEG, BMP and GIF")
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        from adaface_tpu_torch.native import decode_webp
+
+        return decode_webp(data, path)
+    raise ValueError(f"{path}: magic bytes {head[:4]!r}; the port reads PNG, JPEG, BMP, GIF "
+                     "and WebP")
 
 
 def write_png(path, img: np.ndarray) -> None:

@@ -58,7 +58,12 @@ Phases (any failure raises and the exit code is not 0):
      a small request, kernels against plain; then 3 requests for 2
      subjects at 512x512, 25 DDIM steps, guidance 6.0, random full-size
      weights from a seeded torch.Generator, with the kernels' launch counts
-     and the hits and misses of the flash wrapper's two caches;
+     and the hits and misses of the flash wrapper's two caches; then one
+     such request whose subject photos are files, a 512x512 lossy WebP,
+     palette PNG and CMYK JPEG read from a folder by
+     `scripts/_common_torch.load_subject_images` (each held to Pillow's
+     digest, the ada embeddings equal to those of the pixels handed over
+     as arrays), with its launch counts;
   6. the rest of the SD1.5 serving surface, on the same modules: the
      continuous batcher (8 slots = UNet batch 16 with CFG, 25 steps, 512x512,
      12 requests queued up front for three subjects and none, two guidance
@@ -209,7 +214,10 @@ After `run_tools`, the host data path without PIL and data parallelism:
 `tests/data/images/` (JPEG baseline, extended and progressive at 4:4:4,
 4:2:2, 4:2:0, 4:4:0, grey, restarts, odd sizes; BMP 24-, 32-bit and 8-bit
 paletted, bottom-up and top-down; PNG labels) and holds each to the SHA-256
-of Pillow's pixels recorded beside it, the WebP and CMYK fixtures refused,
+of Pillow's pixels recorded beside it (PNG of every colour type and depth,
+Adam7; WebP lossy, lossless, with alpha, animated; CMYK, YCCK and RGB JPEGs,
+sampling past 2; RLE, bit-field, 16-, 4- and 1-bit BMPs), its host ms of a
+512x512 WebP, palette PNG and CMYK JPEG beside a JPEG's,
 and the item pipeline native against numpy at 512x512, bit for bit;
 `train_face_parser_folder` trains the face parser at its published
 configuration (batch 16, crop 448, fp32) for 3 steps from the JPEG fixtures
@@ -597,12 +605,21 @@ def require_cuda() -> str:
 
 
 def build_kernels() -> float:
+    """The CUDA kernels' library, and beside it on a thread the host
+    library (`g++`: the image decoders and the item pipeline)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from adaface_tpu_torch import native
     from adaface_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load_library()
-    secs = time.perf_counter() - t0
-    log(f"build: {secs:.1f} s -> {_build.library_path()}")
+    with ThreadPoolExecutor(1) as pool:
+        host = pool.submit(native.load_library)
+        _build.load_library()
+        secs = time.perf_counter() - t0
+        host.result()
+    log(f"build: {secs:.1f} s -> {_build.library_path()}; host library "
+        f"{native.library_path().name} by {time.perf_counter() - t0:.1f} s")
     log_path = _build.library_path().with_suffix(".log")
     if log_path.exists():
         text = log_path.read_text()
@@ -1809,6 +1826,63 @@ def serve(wrapper, faces) -> dict:
         f"(first includes warm-up); launches {counts}; flash cache lookups {lookups}")
     return dict(counts=counts, latencies=latencies, total=total, small_err=err,
                 lookups=lookups)
+
+
+# the subject photos of the request from files: fixtures of kinds the JAX
+# package opens through Pillow
+SERVE_FILES = ("timing_512_q80.webp", "timing_512_palette.png", "timing_512_cmyk.jpg")
+
+
+def serve_from_files(wrapper) -> dict:
+    """A 512x512, 25-step request whose subject photos are files: a lossy
+    WebP, a palette PNG and a CMYK JPEG (fixtures of `tests/data/images/`)
+    in a folder, read by `scripts/_common_torch.load_subject_images`. Each
+    photo is held to the SHA-256 of Pillow's pixels, the ada embeddings from
+    the folder to those from the same pixels handed over as arrays (equal),
+    the request's launches to the path's counts."""
+    import shutil
+    import tempfile
+
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.utils.image import read_image, to_rgb
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        from _common_torch import load_subject_images
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    digests = json.loads((FIXTURES / "digests.json").read_text())
+    arrays = []
+    for name in SERVE_FILES:
+        px = to_rgb(read_image(FIXTURES / name))
+        if list(px.shape) != digests[name]["shape"] or sha256_of(px) != digests[name]["sha256"]:
+            raise AssertionError(f"serve from files: {name} differs from Pillow's pixels")
+        arrays.append(px)
+    ada_arrays = wrapper.prepare_adaface_embeddings(images=arrays, update_text_encoder=False)
+    with tempfile.TemporaryDirectory() as folder:
+        for i, name in enumerate(SERVE_FILES):
+            shutil.copy(FIXTURES / name, os.path.join(folder, f"{i}_{name}"))
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        photos = load_subject_images(folder)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        ada = wrapper.prepare_adaface_embeddings(images=photos)
+        img = wrapper(REQUESTS[0][1], generator=torch.Generator("cuda").manual_seed(200))
+        torch.cuda.synchronize()
+        request_s = time.perf_counter() - t0
+    counts = launch_counts()
+    expect_counts(counts, unet_calls=25, decodes=1)
+    if len(photos) != len(arrays) or not all(np.array_equal(a, b) for a, b in zip(photos, arrays)):
+        raise AssertionError("serve from files: the loader's photos differ from the files' pixels")
+    if ada is None or tuple(ada.shape) != (16, 768) or not torch.equal(ada, ada_arrays):
+        raise AssertionError("serve from files: ada embeddings from the folder differ from those "
+                             "of the same pixels handed over")
+    check_images(img, 1, 512, "serve from files")
+    log(f"serve from files: {', '.join(SERVE_FILES)} read by load_subject_images in "
+        f"{load_ms:.1f} ms of host time, equal to Pillow's pixels; ada embeddings equal to the "
+        f"arrays'; 512x512 25-step request {request_s * 1e3:.1f} ms with the read; launches "
+        f"{counts}")
+    return dict(counts=counts, load_ms=load_ms, request_s=request_s)
 
 
 def check_images(images, n: int, hw: int, what: str) -> None:
@@ -6714,10 +6788,10 @@ def sha256_of(a: np.ndarray) -> str:
 
 def decode_images(card: str) -> dict:
     """Every committed fixture of `tests/data/images/` decoded by the port's
-    reader (PNG; JPEG and BMP through the host library), held to the SHA-256
-    of Pillow's pixels recorded beside it, the refused formats raising; the
-    item pipeline native against numpy at 512x512, bit for bit; the host
-    times of both."""
+    reader (PNG; JPEG, BMP and WebP through the host library), held to the
+    SHA-256 of Pillow's pixels recorded beside it; the item pipeline native
+    against numpy at 512x512, bit for bit; the host times of both, a 512x512
+    JPEG's beside the 512x512 WebP's, palette PNG's and CMYK JPEG's."""
     from adaface_tpu_torch import native
     from adaface_tpu_torch.data.personalized import augment_numpy
     from adaface_tpu_torch.utils.image import read_image, resize_pil, to_grey, to_rgb
@@ -6727,17 +6801,9 @@ def decode_images(card: str) -> dict:
     log(f"decode: host library {native.library_path().name} built or loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     digests = json.loads((FIXTURES / "digests.json").read_text())
-    equal, refused, decode_ms = 0, [], {}
+    equal, decode_ms = 0, {}
     for name, want in sorted(digests.items()):
         path = FIXTURES / name
-        if want.get("rejected"):
-            try:
-                read_image(path)
-            except ValueError as e:
-                refused.append(name)
-                log(f"decode: {name} refused: {e}")
-                continue
-            raise AssertionError(f"decode: {name} should be refused")
         ms = median_ms(lambda: read_image(path), reps=5, warmup=1)
         px = read_image(path)
         px = to_grey(px) if len(want["shape"]) == 2 else to_rgb(px)
@@ -6746,9 +6812,12 @@ def decode_images(card: str) -> dict:
         equal += 1
         decode_ms[name] = ms
     jpeg512 = statistics.mean(v for k, v in decode_ms.items() if k.startswith("face_parser/im"))
-    log(f"decode: {equal} of {equal} decoded fixtures equal to Pillow's pixels (SHA-256), "
-        f"{len(refused)} refused; host ms a 512x512 JPEG {jpeg512:.2f}, the others "
-        f"{min(decode_ms.values()):.3f}-{max(decode_ms.values()):.3f}")
+    at512 = {"jpeg": jpeg512, **{k: decode_ms[f] for k, f in (
+        ("webp", "timing_512_q80.webp"), ("palette_png", "timing_512_palette.png"),
+        ("cmyk_jpeg", "timing_512_cmyk.jpg"))}}
+    log(f"decode: {equal} of {len(digests)} fixtures equal to Pillow's pixels (SHA-256); host "
+        f"ms at 512x512: " + ", ".join(f"{k} {v:.2f}" for k, v in at512.items())
+        + f"; the others {min(decode_ms.values()):.3f}-{max(decode_ms.values()):.3f} ({card})")
 
     rs = np.random.RandomState(SEED)
     img = rs.randint(0, 256, (512, 512, 3)).astype(np.uint8)
@@ -6772,7 +6841,7 @@ def decode_images(card: str) -> dict:
             median_ms(lambda: resize_pil(img, (side, side)), reps=3, warmup=1))
     log("decode: Pillow's BILINEAR from 512x512 native equal to numpy; host ms native / numpy "
         + ", ".join(f"{k}: {a:.2f} / {b:.2f}" for k, (a, b) in resize_ms.items()) + f" ({card})")
-    return dict(equal=equal, refused=refused, jpeg512_ms=jpeg512, decode_ms=decode_ms,
+    return dict(equal=equal, decode_512_ms=at512, decode_ms=decode_ms,
                 prepare_native_ms=native_ms, prepare_numpy_ms=numpy_ms, resize_ms=resize_ms)
 
 
@@ -8236,6 +8305,7 @@ def main() -> int:
     unet = timed_phase("check_unet", check_unet, gen)
     wrapper, faces = build_server(gen)
     served = timed_phase("serve", serve, wrapper, faces)
+    from_files = timed_phase("serve_from_files", serve_from_files, wrapper)
     batched = timed_phase("serve_batched", serve_batched, wrapper, faces)
     timed_phase("batcher_against_pipeline", batcher_against_pipeline, wrapper, faces)
     img2img = timed_phase("serve_img2img", serve_img2img, wrapper, faces)
@@ -8302,7 +8372,8 @@ def main() -> int:
               **{k: finetune["counts"][k] for k in (A.FLASH_BWD_DELTA_WIDE,
                                                    A.FLASH_BWD_DKDV_WIDE, A.FLASH_BWD_DQ_WIDE,
                                                    GN_BWD_REDUCE, GN_BWD_DX)}}
-    paths = {"batcher": batched["counts"], "img2img": img2img["counts"],
+    paths = {"request from WebP, palette PNG and CMYK JPEG photos": from_files["counts"],
+             "batcher": batched["counts"], "img2img": img2img["counts"],
              **{name: r["counts"] for name, r in sampled.items()},
              "joint": joint["counts"], "joint batcher": joint["batch_counts"],
              "adapters": trained["counts"], "adapters batcher": trained["batch_counts"],
@@ -8327,6 +8398,8 @@ def main() -> int:
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths, sync_bn)
     record["checks"] = {"sd15_bits": sd15_bits, "decoded_fixtures": decoded["equal"],
+                        "decode_512_ms": decoded["decode_512_ms"],
+                        "served_from_files": {k: from_files[k] for k in ("load_ms", "request_s")},
                         "joint_reloaded_equal": joint_fit["reloaded_equal"],
                         "video_gif_decode_ms": videos["decode_ms"],
                         "dp_update_rel_l2": dp["update_rel_l2"], "dp_loss_rel": dp["loss_rel"],

@@ -3,8 +3,8 @@
 counterparts of `scripts/_common.py`: build the port's `AdaFaceWrapper` from
 weight files (or random weights for a smoke run) on a device, name a face
 backend, list, load and write images. Images are read by
-`adaface_tpu_torch.utils.image.read_image` (PNG, JPEG, BMP) and written as
-PNGs (no PIL needed).
+`adaface_tpu_torch.utils.image.read_image` (PNG, JPEG, BMP, WebP, GIF) and
+written as PNGs (no PIL needed).
 """
 
 from __future__ import annotations
@@ -157,7 +157,7 @@ def embed_folder(folder: str, backend) -> tuple[np.ndarray, list[str], list[str]
 def load_subject_images(path: str, limit: int | None = None) -> list[np.ndarray]:
     """A folder of photos (or one) → RGB uint8 [H, W, 3] arrays, the
     reference's extensions (`_common.py:112`) read by `utils.image.read_image`
-    (PNG, JPEG, BMP; a WebP raises with its path)."""
+    (PNG, JPEG, BMP, WebP)."""
     from adaface_tpu_torch.data.personalized import IMG_EXTS
     from adaface_tpu_torch.utils.image import read_image, to_rgb
 

@@ -5,18 +5,28 @@ the SHA-256 of Pillow's decoded pixels beside them (`digests.json`).
 
 The port decodes these files without Pillow: `tests/test_torch_image_io.py`
 holds its decoder to the digests and to Pillow, and `chip_smoke.py` holds it
-to the digests on a machine that has no Pillow. Pillow writes neither 4:4:0
-chroma nor SOF1 frames, so `encode_jpeg` (a baseline encoder in numpy, with
-the Huffman and quantization tables of a Pillow file) writes those.
+to the digests on a machine that has no Pillow. Where Pillow does not write
+a variant, the script's own writers do: `encode_jpeg` (a baseline encoder
+in numpy, with the Huffman and quantization tables of a Pillow file) for
+4:4:0, 4:1:1 and 1x4 chroma, SOF1 frames and RGB, CMYK and YCCK colour;
+`encode_png` for Adam7, 16-bit RGB, RGBA and grey + alpha and `tRNS`;
+`encode_bmp` for RLE8, RLE4, bit fields and 4- and 16-bit pixels;
+`webp_container` for an animation whose first frame is offset (its frames
+encoded by Pillow); and `libwebp_encode`, libwebp's advanced encoder
+through the library Pillow ships, for token partitions, the simple loop
+filter, sharpness and filter level 0, which Pillow's `save` does not set.
 """
 
 from __future__ import annotations
 
+import ctypes
+import glob
 import hashlib
 import io
 import json
 import os
 import struct
+import zlib
 
 import numpy as np
 
@@ -102,21 +112,33 @@ def _dct_matrix() -> np.ndarray:
     return c
 
 
+def _ycc(img: np.ndarray) -> list:
+    r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+    return [0.299 * r + 0.587 * g + 0.114 * b, -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+            0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+
+
 def encode_jpeg(img: np.ndarray, sampling=((1, 1), (1, 1), (1, 1)), quality: int = 75,
-                sof: int = 0xC0, restart: int = 0) -> bytes:
-    """A baseline (or SOF1) Huffman JPEG of uint8 [H, W] or [H, W, 3] with
-    the luma's sampling factors `sampling[0]` (the chroma's 1x1), the tables
-    Pillow uses at `quality`, and a restart marker every `restart` MCUs."""
+                sof: int = 0xC0, restart: int = 0, colour: str = "ycc", adobe: int | None = None,
+                ids: bytes | None = None) -> bytes:
+    """A baseline (or SOF1) Huffman JPEG of uint8 [H, W], [H, W, 3] or
+    [H, W, 4] with each component's sampling factors in `sampling`, the
+    tables Pillow uses at `quality`, and a restart marker every `restart`
+    MCUs. `colour` "ycc" converts RGB to YCbCr in a JFIF file; "rgb" and
+    "cmyk" write the samples as they are, "ycck" converts the first three
+    to YCbCr and keeps the fourth, in a file without a JFIF segment, with an
+    Adobe segment of transform `adobe` where it is not None; `ids` names the
+    components (1, 2, ... by default)."""
     qt, huff = pil_tables(quality)
     h, w = img.shape[:2]
     if img.ndim == 2:
         planes, factors = [img.astype(np.float64)], [(1, 1)]
     else:
-        r, g, b = (img[..., i].astype(np.float64) for i in range(3))
-        planes = [0.299 * r + 0.587 * g + 0.114 * b,
-                  -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
-        factors = list(sampling)
+        planes = (_ycc(img) if colour in ("ycc", "ycck") else
+                  [img[..., i].astype(np.float64) for i in range(3)])
+        if img.shape[2] == 4:
+            planes.append(img[..., 3].astype(np.float64))
+        factors = list(sampling)[:len(planes)]
     hmax = max(f[0] for f in factors)
     vmax = max(f[1] for f in factors)
     mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
@@ -180,19 +202,24 @@ def encode_jpeg(img: np.ndarray, sampling=((1, 1), (1, 1), (1, 1)), quality: int
     def seg(marker, body):
         return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
-    out = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    ids = ids or bytes(range(1, len(comps) + 1))
+    out = b"\xff\xd8"
+    if colour == "ycc":
+        out += seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if adobe is not None:
+        out += seg(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe))
     for tid in sorted({c[3] for c in comps}):
         out += seg(0xDB, bytes([tid]) + bytes(qt[tid].reshape(-1)[ZIGZAG].astype(np.uint8)))
     frame = struct.pack(">BHHB", 8, h, w, len(comps))
     for ci, (fh, fv, _, table) in enumerate(comps):
-        frame += bytes([ci + 1, (fh << 4) | fv, table])
+        frame += bytes([ids[ci], (fh << 4) | fv, table])
     out += seg(sof, frame)
     for (cls, tid), (counts, symbols) in sorted(huff.items()):
         if tid in {c[3] for c in comps}:
             out += seg(0xC4, bytes([(cls << 4) | tid] + counts + symbols))
     if restart:
         out += seg(0xDD, struct.pack(">H", restart))
-    scan = bytes([len(comps)]) + b"".join(bytes([ci + 1, (c[3] << 4) | c[3]])
+    scan = bytes([len(comps)]) + b"".join(bytes([ids[ci], (c[3] << 4) | c[3]])
                                          for ci, c in enumerate(comps)) + bytes([0, 63, 0])
     return out + seg(0xDA, scan) + bytes(bits.out) + b"\xff\xd9"
 
@@ -244,6 +271,244 @@ def pil_pixels(path: str) -> np.ndarray:
     with Image.open(path) as im:
         return np.asarray(im.convert("L" if im.mode == "L" else "RGB"))
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def _png_filtered(rows: np.ndarray, bpp: int, seed: int) -> bytes:
+    """Packed scanlines [h, stride] → each row behind a filter byte, the
+    five filters drawn in turn from `seed`."""
+    rs = np.random.RandomState(seed)
+    out, prev = [], np.zeros(rows.shape[1], np.int64)
+    for row in rows.astype(np.int64):
+        ft = int(rs.randint(5))
+        left = np.concatenate([np.zeros(bpp, np.int64), row])[:row.size]
+        up_left = np.concatenate([np.zeros(bpp, np.int64), prev])[:row.size]
+        if ft == 0:
+            pred = np.zeros_like(row)
+        elif ft == 1:
+            pred = left
+        elif ft == 2:
+            pred = prev
+        elif ft == 3:
+            pred = (left + prev) // 2
+        else:
+            pa, pb, pc = (np.abs(prev - up_left), np.abs(left - up_left),
+                          np.abs(left + prev - 2 * up_left))
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, up_left))
+        out.append(bytes([ft]) + ((row - pred) & 255).astype(np.uint8).tobytes())
+        prev = row
+    return b"".join(out)
+
+
+def encode_png(samples: np.ndarray, colour: int, depth: int, interlace: int = 0,
+               plte: bytes | None = None, trns: bytes | None = None, seed: int = 0) -> bytes:
+    """A PNG of samples [H, W, C] (integers below 2^depth) of colour type
+    `colour` at bit depth `depth`, non-interlaced or Adam7, its rows behind
+    filters drawn from `seed`, with `PLTE` and `tRNS` bodies where given."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+
+    def scanlines(px: np.ndarray) -> bytes:
+        if px.shape[0] == 0 or px.shape[1] == 0:
+            return b""
+        vals = px.reshape(px.shape[0], -1).astype(np.int64)
+        if depth == 16:
+            packed = vals.astype(">u2").view(np.uint8).reshape(vals.shape[0], -1)
+        elif depth == 8:
+            packed = vals.astype(np.uint8)
+        else:
+            bits = (vals[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+            packed = np.packbits(bits.reshape(vals.shape[0], -1).astype(np.uint8), axis=1)
+        return _png_filtered(packed, bpp, seed + px.shape[0] * 131 + px.shape[1])
+
+    raw = (scanlines(samples) if not interlace else
+           b"".join(scanlines(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in ADAM7))
+    out = PNG_SIGNATURE + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0,
+                                                         interlace))
+    if plte is not None:
+        out += _png_chunk(b"PLTE", plte)
+    if trns is not None:
+        out += _png_chunk(b"tRNS", trns)
+    return out + _png_chunk(b"IDAT", zlib.compress(raw, 9)) + _png_chunk(b"IEND", b"")
+
+
+def encode_bmp(img: np.ndarray, bits: int, palette: np.ndarray | None = None,
+               compression: int = 0, masks: tuple | None = None, header: int = 40) -> bytes:
+    """A bottom-up BMP of `img`: palette indices [H, W] at 1, 4 or 8 bits
+    (uncompressed, or RLE8 / RLE4 with `compression` 1 / 2) with `palette`
+    [N, 3] RGB; or 16-bit pixel values [H, W] (5-5-5, or BI_BITFIELDS with
+    `masks`); or 32-bit values [H, W] with `masks`."""
+    h, w = img.shape[:2]
+    if compression in (1, 2):
+        px = _bmp_rle(img, compression == 2)
+    else:
+        stride = -(-w * bits // 32) * 4
+        if bits <= 8:
+            b = (img[..., None].astype(np.int64) >> np.arange(bits - 1, -1, -1)) & 1
+            rows = np.packbits(b.reshape(h, -1).astype(np.uint8), axis=1)
+        else:
+            rows = img.astype("<u2" if bits == 16 else "<u4").view(np.uint8).reshape(h, -1)
+        px = np.zeros((h, stride), np.uint8)
+        px[:, :rows.shape[1]] = rows
+        px = px[::-1].tobytes()
+    extra = b""
+    if masks is not None:
+        extra = struct.pack("<%dI" % len(masks), *masks)
+    info = struct.pack("<IiiHHIIiiII", header, w, h, 1, bits, compression, len(px), 2835, 2835,
+                       0 if palette is None else len(palette), 0)
+    if header > 40:  # the masks inside the header
+        info = (info + extra).ljust(header, b"\x00")
+        extra = b""
+    pal = b"" if palette is None else np.concatenate(
+        [palette[:, ::-1], np.zeros((len(palette), 1), np.uint8)], axis=1).astype(np.uint8).tobytes()
+    off = 14 + len(info) + len(extra) + len(pal)
+    return b"BM" + struct.pack("<IHHI", off + len(px), 0, 0, off) + info + extra + pal + px
+
+
+def _bmp_rle(idx: np.ndarray, rle4: bool) -> bytes:
+    """RLE8 / RLE4 rows, bottom row first: runs of three or more equal
+    pixels encoded (a run of one colour in both nibbles for RLE4), others in
+    absolute runs of an even length of at least 4 (RLE4's odd absolute runs
+    lose a pixel in Pillow) or short encoded runs; each row ends with an
+    end-of-line, the image with end-of-bitmap."""
+    out = bytearray()
+    for row in idx[::-1].tolist():
+        x, w = 0, len(row)
+        while x < w:
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or w - x < 4:
+                out += bytes([run, row[x] * 17 if rle4 else row[x]])
+                x += run
+                continue
+            lit = 4
+            while x + lit + 2 <= w and lit + 2 <= 254 and not (
+                    row[x + lit] == row[x + lit + 1]):
+                lit += 2
+            seg = row[x:x + lit]
+            body = bytes((seg[i] << 4) | seg[i + 1] for i in range(0, lit, 2)) if rle4 \
+                else bytes(seg)
+            out += bytes([0, lit]) + body
+            if len(body) % 2:
+                out += b"\x00"
+            x += lit
+        out += b"\x00\x00"
+    return bytes(out + b"\x00\x01")
+
+
+def _riff_chunk(tag: bytes, body: bytes) -> bytes:
+    return tag + struct.pack("<I", len(body)) + body + (b"\x00" if len(body) & 1 else b"")
+
+
+def _le24(v: int) -> bytes:
+    return struct.pack("<I", v)[:3]
+
+
+def webp_image_chunks(data: bytes) -> bytes:
+    """A still WebP's image chunks (ALPH, VP8, VP8L), without its header and
+    VP8X chunk."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        tag, size = data[pos:pos + 4], struct.unpack("<I", data[pos + 4:pos + 8])[0]
+        if tag in (b"ALPH", b"VP8 ", b"VP8L"):
+            out.append(_riff_chunk(tag, data[pos + 8:pos + 8 + size]))
+        pos += 8 + size + (size & 1)
+    return b"".join(out)
+
+
+def webp_container(frames, canvas: tuple[int, int], alpha: bool) -> bytes:
+    """An animated WebP of `canvas` (w, h): frames (x, y, w, h, still WebP
+    bytes, flags) at even offsets, each frame's image chunks in an ANMF."""
+    w, h = canvas
+    body = _riff_chunk(b"VP8X", bytes([0x02 | (0x10 if alpha else 0), 0, 0, 0])
+                       + _le24(w - 1) + _le24(h - 1))
+    body += _riff_chunk(b"ANIM", struct.pack("<IH", 0xFF204060, 0))
+    for x, y, fw, fh, data, flags in frames:
+        body += _riff_chunk(b"ANMF", _le24(x // 2) + _le24(y // 2) + _le24(fw - 1)
+                            + _le24(fh - 1) + _le24(80) + bytes([flags])
+                            + webp_image_chunks(data))
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+class _WebPConfig(ctypes.Structure):
+    _fields_ = [(n, ctypes.c_float if n in ("quality", "target_PSNR") else ctypes.c_int)
+                for n in ("lossless", "quality", "method", "image_hint", "target_size",
+                          "target_PSNR", "segments", "sns_strength", "filter_strength",
+                          "filter_sharpness", "filter_type", "autofilter",
+                          "alpha_compression", "alpha_filtering", "alpha_quality", "pass",
+                          "show_compressed", "preprocessing", "partitions", "partition_limit",
+                          "emulate_jpeg_size", "thread_level", "low_memory", "near_lossless",
+                          "exact", "use_delta_palette", "use_sharp_yuv", "qmin", "qmax")]
+
+
+_P, _U32 = ctypes.c_void_p, ctypes.c_uint32
+
+
+class _WebPPicture(ctypes.Structure):
+    _fields_ = [("use_argb", ctypes.c_int), ("colorspace", ctypes.c_int),
+                ("width", ctypes.c_int), ("height", ctypes.c_int), ("y", _P), ("u", _P),
+                ("v", _P), ("y_stride", ctypes.c_int), ("uv_stride", ctypes.c_int), ("a", _P),
+                ("a_stride", ctypes.c_int), ("pad1", _U32 * 2), ("argb", _P),
+                ("argb_stride", ctypes.c_int), ("pad2", _U32 * 3), ("writer", _P),
+                ("custom_ptr", _P), ("extra_info_type", ctypes.c_int), ("extra_info", _P),
+                ("stats", _P), ("error_code", ctypes.c_int), ("progress_hook", _P),
+                ("user_data", _P), ("pad3", _U32 * 3), ("pad4", _P), ("pad5", _P),
+                ("pad6", _U32 * 8), ("memory_", _P), ("memory_argb_", _P), ("pad7", _P * 2)]
+
+
+class _WebPMemoryWriter(ctypes.Structure):
+    _fields_ = [("mem", ctypes.POINTER(ctypes.c_uint8)), ("size", ctypes.c_size_t),
+                ("max_size", ctypes.c_size_t), ("pad", _U32)]
+
+
+def libwebp_encode(img: np.ndarray, **config) -> bytes:
+    """uint8 [H, W, 3 or 4] → a WebP from libwebp's advanced encoder (the
+    library Pillow ships, loaded with ctypes), `config` setting fields of
+    its WebPConfig (encoder ABI 0x020f) over the defaults at quality 75."""
+    import PIL
+    from PIL import _webp  # noqa: F401  (loads the library's own dependencies)
+
+    libs = glob.glob(os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                                  "pillow.libs", "libwebp-*.so*"))
+    lib = ctypes.CDLL(libs[0])
+    cfg = _WebPConfig()
+    if not lib.WebPConfigInitInternal(ctypes.byref(cfg), 0,
+                                      ctypes.c_float(config.pop("quality", 75.0)), 0x020F):
+        raise RuntimeError("WebPConfigInit failed")
+    for k, v in config.items():
+        setattr(cfg, k, v)
+    if not lib.WebPValidateConfig(ctypes.byref(cfg)):
+        raise ValueError(f"libwebp refuses {config}")
+    pic = _WebPPicture()
+    lib.WebPPictureInitInternal(ctypes.byref(pic), 0x020F)
+    img = np.ascontiguousarray(img, np.uint8)
+    pic.height, pic.width = img.shape[:2]
+    pic.use_argb = int(cfg.lossless)
+    imp = lib.WebPPictureImportRGBA if img.shape[2] == 4 else lib.WebPPictureImportRGB
+    if not imp(ctypes.byref(pic), ctypes.c_void_p(img.ctypes.data),
+               ctypes.c_int(img.shape[1] * img.shape[2])):
+        raise RuntimeError("WebPPictureImport failed")
+    writer = _WebPMemoryWriter()
+    lib.WebPMemoryWriterInit(ctypes.byref(writer))
+    pic.writer = ctypes.cast(lib.WebPMemoryWrite, _P).value
+    pic.custom_ptr = ctypes.addressof(writer)
+    ok = lib.WebPEncode(ctypes.byref(cfg), ctypes.byref(pic))
+    lib.WebPPictureFree(ctypes.byref(pic))
+    try:
+        if not ok:
+            raise RuntimeError(f"WebPEncode failed ({pic.error_code})")
+        return ctypes.string_at(writer.mem, writer.size)
+    finally:
+        lib.WebPMemoryWriterClear(ctypes.byref(writer))
+
 
 def make(out: str = OUT) -> dict:
     from PIL import Image
@@ -290,11 +555,104 @@ def make(out: str = OUT) -> dict:
     pal.save(buf, format="BMP")
     files["paletted8.bmp"] = buf.getvalue()
     pil_save("grey8.bmp", smooth_image(21, 33, 6, channels=1), format="BMP")
-    # refused: WebP and CMYK
-    pil_save("reject.webp", small, format="WEBP", quality=80)
+    # CMYK, YCCK and RGB JPEGs, and sampling factors past 2
     buf = io.BytesIO()
     Image.fromarray(small).convert("CMYK").save(buf, format="JPEG", quality=80)
-    files["reject_cmyk.jpg"] = buf.getvalue()
+    files["cmyk.jpg"] = buf.getvalue()  # Pillow's: an Adobe segment, inverted samples
+    cmyk = np.concatenate([small, smooth_image(21, 33, 7, channels=1)[..., None]], axis=2)
+    files["cmyk_no_adobe.jpg"] = encode_jpeg(cmyk, ((1, 1),) * 4, quality=85, colour="cmyk")
+    files["ycck_2x2.jpg"] = encode_jpeg(cmyk, ((2, 2), (1, 1), (1, 1), (2, 2)), quality=85,
+                                        colour="ycck", adobe=2)
+    files["rgb_adobe.jpg"] = encode_jpeg(odd, quality=85, colour="rgb", adobe=0)
+    files["rgb_ids_420.jpg"] = encode_jpeg(odd, ((2, 2), (1, 1), (1, 1)), quality=85,
+                                           colour="rgb", ids=b"RGB")
+    files["sampling_411.jpg"] = encode_jpeg(odd, ((4, 1), (1, 1), (1, 1)), quality=85)
+    files["sampling_1x4.jpg"] = encode_jpeg(odd, ((1, 4), (1, 1), (1, 1)), quality=85)
+    files["sampling_4x2.jpg"] = encode_jpeg(odd, ((4, 2), (1, 1), (1, 1)), quality=85)
+    files["sampling_4x1_2x1.jpg"] = encode_jpeg(odd, ((4, 1), (2, 1), (1, 1)), quality=85)
+    # PNG: Pillow's palette (1, 2, 4, 8 bits, with and without tRNS), LA,
+    # I;16 and mode 1 files; the script's writer for the rest
+    tiny = smooth_image(19, 27, 8)
+    for bits in (1, 2, 4, 8):
+        pal_im = Image.fromarray(tiny).quantize(colors=1 << bits)
+        for trns in (False, True):
+            buf = io.BytesIO()
+            pal_im.save(buf, format="PNG", bits=bits, **({"transparency": 0} if trns else {}))
+            files[f"palette{bits}{'_trns' if trns else ''}.png"] = buf.getvalue()
+    pil_save("la.png", np.stack([tiny[..., 0], tiny[..., 1]], axis=2), format="PNG")
+    pil_save("grey16.png", (smooth_image(19, 27, 9, channels=1).astype(np.uint16) * 3),
+             format="PNG")
+    buf = io.BytesIO()
+    Image.fromarray(tiny[..., 2]).convert("1").save(buf, format="PNG")
+    files["mode1.png"] = buf.getvalue()
+    rs = np.random.RandomState(5)
+    grey_lvls = smooth_image(19, 27, 11, channels=1)
+    files["rgb16.png"] = encode_png(rs.randint(0, 1 << 16, (19, 27, 3)), 2, 16, seed=1)
+    files["rgba16.png"] = encode_png(rs.randint(0, 1 << 16, (19, 27, 4)), 6, 16, seed=2)
+    files["la16.png"] = encode_png(rs.randint(0, 1 << 16, (19, 27, 2)), 4, 16, seed=3)
+    files["grey_trns.png"] = encode_png(grey_lvls[..., None], 0, 8,
+                                        trns=struct.pack(">H", int(grey_lvls[0, 0])), seed=4)
+    files["rgb_trns.png"] = encode_png(tiny, 2, 8, trns=struct.pack(">3H", *tiny[0, 0]), seed=5)
+    files["adam7_rgb8.png"] = encode_png(tiny, 2, 8, interlace=1, seed=6)
+    files["adam7_grey2.png"] = encode_png(grey_lvls[..., None] >> 6, 0, 2, interlace=1, seed=7)
+    files["adam7_palette4.png"] = encode_png(
+        rs.randint(0, 16, (19, 27, 1)), 3, 4, interlace=1,
+        plte=rs.randint(0, 256, 3 * 11).astype(np.uint8).tobytes(), seed=8)
+    files["adam7_rgba16.png"] = encode_png(rs.randint(0, 1 << 16, (19, 27, 4)), 6, 16,
+                                           interlace=1, seed=9)
+    files["adam7_grey16.png"] = encode_png(rs.randint(0, 600, (19, 27, 1)), 0, 16,
+                                           interlace=1, seed=10)
+    # WebP: Pillow's lossy (three qualities, with and without alpha),
+    # lossless, an animation with an offset first frame; libwebp's encoder
+    # for the options Pillow does not set
+    alpha = smooth_image(21, 33, 12, channels=1)[..., None]
+    for q in (30, 80, 95):
+        pil_save(f"lossy_q{q}.webp", small, format="WEBP", quality=q)
+    pil_save("lossy_alpha.webp", np.concatenate([small, alpha], axis=2), format="WEBP",
+             quality=70)
+    pil_save("lossless.webp", small, format="WEBP", lossless=True)
+    pil_save("lossless_alpha.webp", np.concatenate([small, alpha], axis=2), format="WEBP",
+             lossless=True)
+    frames = []
+    for i, (q, shape) in enumerate(((60, (11, 15)), (60, (21, 33)))):
+        buf = io.BytesIO()
+        Image.fromarray(smooth_image(*shape, 13 + i)).save(buf, format="WEBP", quality=q)
+        frames.append(buf.getvalue())
+    files["anim_offset.webp"] = webp_container(
+        [(6, 4, 15, 11, frames[0], 0), (0, 0, 33, 21, frames[1], 2)], (33, 21), alpha=False)
+    files["vp8_partitions4_simple.webp"] = libwebp_encode(
+        odd, quality=50, partitions=2, filter_type=0, filter_sharpness=5, filter_strength=60)
+    files["vp8_nofilter_1seg.webp"] = libwebp_encode(odd, quality=40, filter_strength=0,
+                                                     segments=1)
+    files["vp8_raw_alpha.webp"] = libwebp_encode(
+        np.concatenate([odd, smooth_image(37, 53, 14, channels=1)[..., None]], axis=2),
+        quality=60, alpha_compression=0, alpha_filtering=2)
+    # BMP: RLE8, RLE4, bit fields, 16-bit 5-5-5, 1- and 4-bit palettes
+    pal16 = rs.randint(0, 256, (16, 3)).astype(np.uint8)
+    idx16 = (smooth_image(21, 33, 15, channels=1) // 16).astype(np.uint8)
+    pal256 = rs.randint(0, 256, (256, 3)).astype(np.uint8)
+    idx256 = (smooth_image(21, 33, 16, channels=1) // 8 * 8).astype(np.uint8)
+    files["rle8.bmp"] = encode_bmp(idx256, 8, pal256, compression=1)
+    files["rle4.bmp"] = encode_bmp(idx16, 4, pal16, compression=2)
+    files["pal4.bmp"] = encode_bmp(idx16, 4, pal16)
+    files["pal1.bmp"] = encode_bmp(idx16 & 1, 1, pal16[:2])
+    px16 = rs.randint(0, 1 << 16, (21, 33))
+    files["rgb555.bmp"] = encode_bmp(px16, 16)
+    files["bitfields565.bmp"] = encode_bmp(px16, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F))
+    files["bitfields_xbgr32.bmp"] = encode_bmp(
+        rs.randint(0, 1 << 32, (21, 33), dtype=np.uint64), 32, compression=3,
+        masks=(0xFF000000, 0xFF0000, 0xFF00, 0x0), header=56)
+    # for timing on the card, and the subject photos of its request from
+    # files: a 512x512 lossy WebP, palette PNG and CMYK JPEG
+    face = smooth_image(512, 512, 17)
+    pil_save("timing_512_q80.webp", face, format="WEBP", quality=80)
+    buf = io.BytesIO()
+    Image.fromarray(face).quantize(colors=256).save(buf, format="PNG")
+    files["timing_512_palette.png"] = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(smooth_image(512, 512, 18)).convert("CMYK").save(buf, format="JPEG",
+                                                                     quality=75)
+    files["timing_512_cmyk.jpg"] = buf.getvalue()
 
     digests = {}
     for name, data in sorted(files.items()):
@@ -302,9 +660,6 @@ def make(out: str = OUT) -> dict:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         with open(path, "wb") as f:
             f.write(data)
-        if name.startswith("reject"):
-            digests[name] = {"rejected": True}
-            continue
         px = pil_pixels(path)
         digests[name] = {"shape": list(px.shape),
                          "sha256": hashlib.sha256(np.ascontiguousarray(px).tobytes()).hexdigest()}

@@ -1,7 +1,8 @@
 """The port's image decoding and PIL-free image operations against Pillow.
 
 `adaface_tpu_torch.native.decode_image` (JPEG, BMP) and
-`utils.image.read_image` are held bit for bit to what Pillow decodes: the
+`utils.image.read_image` (PNG, JPEG, BMP, GIF, WebP) are held bit for bit
+to what Pillow decodes: the
 committed fixtures of `tests/data/images/` (remade by
 `tests/make_image_fixtures.py`) against their recorded digests and against
 Pillow, and JPEGs Pillow encodes here from seeded numpy images. The numpy
@@ -26,9 +27,9 @@ from PIL import Image
 from adaface_tpu_torch import native
 from adaface_tpu_torch.native import decode_image
 from adaface_tpu_torch.train import face_parsing_train as ttrain
-from adaface_tpu_torch.utils.image import (paste_pad, read_image, read_png, resize_pil,
-                                           resize_nearest_pil, to_grey, to_rgb)
-from tests.make_image_fixtures import encode_jpeg, smooth_image
+from adaface_tpu_torch.utils.image import (decode_image_bytes, paste_pad, read_image, read_png,
+                                           resize_pil, resize_nearest_pil, to_grey, to_rgb)
+from tests.make_image_fixtures import encode_bmp, encode_jpeg, smooth_image
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "images")
 with open(os.path.join(FIXTURES, "digests.json")) as _f:
@@ -49,6 +50,12 @@ def as_read(path, grey: bool) -> np.ndarray:
 def jpeg_bytes(img: np.ndarray, **kw) -> bytes:
     buf = io.BytesIO()
     Image.fromarray(img).save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+def webp_bytes(img: np.ndarray, **kw) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="WEBP", **kw)
     return buf.getvalue()
 
 
@@ -85,41 +92,67 @@ def _patched(data: bytes, marker: int, offset: int, value: int) -> bytes:
 def _rejects():
     rgb = smooth_image(24, 40, 1)
     base = jpeg_bytes(rgb, quality=80, subsampling=2)
-    bmp = io.BytesIO()
-    Image.fromarray(rgb).save(bmp, format="BMP")
-    bmp = bytearray(bmp.getvalue())
-    rle = bytes(bmp[:30]) + struct.pack("<I", 1) + bytes(bmp[34:])
-    bits16 = bytes(bmp[:28]) + struct.pack("<H", 16) + bytes(bmp[30:])
-    rgb_ids = encode_jpeg(rgb, quality=80)
-    # a frame of components named R, G, B and no JFIF segment: RGB colour
-    rgb_ids = rgb_ids.replace(b"\x01\x11\x00\x02\x11\x01\x03\x11\x01",
-                              b"R\x11\x00G\x11\x01B\x11\x01")
-    jfif = rgb_ids.index(b"\xff\xe0")
-    jfif_end = jfif + 2 + struct.unpack(">H", rgb_ids[jfif + 2:jfif + 4])[0]
-    rgb_ids = rgb_ids[:jfif] + rgb_ids[jfif_end:]
+    # a lossy WebP whose frame tag says "inter frame"; a lossless one cut
+    # short inside its pixels, its RIFF and chunk sizes made to agree
+    vp8 = bytearray(webp_bytes(rgb, quality=80))
+    vp8[20] |= 1
+    vp8l = webp_bytes(rgb, lossless=True)
+    cut = len(vp8l) * 2 // 3
+    vp8l = bytearray(vp8l[:cut])
+    vp8l[4:8] = struct.pack("<I", cut - 8)
+    vp8l[16:20] = struct.pack("<I", cut - 20)
     return {
         "lossless": (base.replace(b"\xff\xc0", b"\xff\xc3", 1), "lossless"),
         "arithmetic": (base.replace(b"\xff\xc0", b"\xff\xc9", 1), "arithmetic"),
         "12-bit": (_patched(base, 0xC0, 0, 12), "12-bit"),
-        "4:1:1": (encode_jpeg(rgb, ((4, 1), (1, 1), (1, 1))), "sampling factors"),
-        "rgb": (rgb_ids, "RGB colour"),
-        "rle": (rle, "RLE"),
-        "16-bit bmp": (bits16, "16-bit"),
         "gif": (b"GIF89a" + bytes(20), "empty logical screen"),
+        "vp8 inter frame": (bytes(vp8), "not a key frame"),
+        "truncated vp8l": (bytes(vp8l), "truncated"),
     }
 
 
-@pytest.mark.parametrize("name", ["reject.webp", "reject_cmyk.jpg", *_rejects()])
+@pytest.mark.parametrize("name", list(_rejects()))
 def test_refused_formats_raise_naming_the_path(name, tmp_path):
-    if name.startswith("reject"):
-        path, what = os.path.join(FIXTURES, name), ("WebP" if name.endswith("webp") else "CMYK")
-    else:
-        data, what = _rejects()[name]
-        path = tmp_path / "image.bin"
-        path.write_bytes(data)
+    data, what = _rejects()[name]
+    path = tmp_path / "image.bin"
+    path.write_bytes(data)
     with pytest.raises(ValueError) as e:
         read_image(path)
     assert str(path) in str(e.value) and what in str(e.value)
+
+
+def _formerly_refused():
+    """The kinds of file the port refused before it read WebP, CMYK and RGB
+    JPEGs, sampling past 2 and RLE and 16-bit BMPs: the WebP and CMYK
+    fixtures, a 4:1:1 JPEG, an RGB JPEG (no JFIF segment, components named
+    R, G, B, scanned by those names), an RLE8 BMP and a 24-bit BMP whose
+    header says 16 bits."""
+    rgb = smooth_image(24, 40, 1)
+    bmp = io.BytesIO()
+    Image.fromarray(rgb).save(bmp, format="BMP")
+    bmp = bytearray(bmp.getvalue())
+    bits16 = bytes(bmp[:28]) + struct.pack("<H", 16) + bytes(bmp[30:])
+    rgb_ids = encode_jpeg(rgb, quality=80, colour="rgb", ids=b"RGB")
+    pal = Image.fromarray(rgb).quantize(colors=40)
+    rle = encode_bmp(np.asarray(pal), 8, np.asarray(pal.getpalette()[:120], np.uint8).reshape(
+        -1, 3), compression=1)
+
+    def fixture(name):
+        with open(os.path.join(FIXTURES, name), "rb") as f:
+            return f.read()
+
+    return {"reject.webp": fixture("lossy_q80.webp"), "reject_cmyk.jpg": fixture("cmyk.jpg"),
+            "4:1:1": encode_jpeg(rgb, ((4, 1), (1, 1), (1, 1))), "rgb": rgb_ids, "rle": rle,
+            "16-bit bmp": bits16}
+
+
+@pytest.mark.parametrize("name", list(_formerly_refused()))
+def test_formerly_refused_decode_as_pillow(name):
+    data = _formerly_refused()[name]
+    px = decode_image_bytes(data)
+    with Image.open(io.BytesIO(data)) as im:
+        for mode, conv in (("RGB", to_rgb), ("L", to_grey)):
+            np.testing.assert_array_equal(conv(px), np.asarray(im.convert(mode)), err_msg=mode)
 
 
 JPEG_CASES = [(q, sub, prog) for q in (30, 75, 95) for sub in (0, 1, 2) for prog in (False, True)]

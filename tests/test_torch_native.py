@@ -103,12 +103,35 @@ def test_dataset_native_equals_numpy(mixed_root, monkeypatch):
 
 
 def test_dataset_refuses_a_webp(tmp_path):
+    """A WebP cut short inside its pixels: the item raises naming it."""
     subj = tmp_path / "subj"
     subj.mkdir()
-    shutil.copy(os.path.join(FIXTURES, "reject.webp"), subj / "a.webp")
+    with open(os.path.join(FIXTURES, "lossless.webp"), "rb") as f:
+        data = bytearray(f.read())
+    cut = len(data) // 2
+    data = data[:cut]
+    data[4:8] = (cut - 8).to_bytes(4, "little")
+    data[16:20] = (cut - 20).to_bytes(4, "little")
+    (subj / "a.webp").write_bytes(bytes(data))
     ds = PersonalizedBase(str(tmp_path), size=32, seed=0)
-    with pytest.raises(ValueError, match="a.webp"):
+    with pytest.raises(ValueError, match="a.webp.*truncated"):
         ds[0]
+
+
+def test_dataset_reads_a_webp(tmp_path, monkeypatch):
+    """A WebP subject photo (the one the port refused before it read WebP),
+    items native against the numpy reference, the same draws."""
+    subj = tmp_path / "subj"
+    subj.mkdir()
+    shutil.copy(os.path.join(FIXTURES, "lossy_q80.webp"), subj / "a.webp")
+    a = PersonalizedBase(str(tmp_path), size=48, seed=2)
+    b = PersonalizedBase(str(tmp_path), size=48, seed=2)
+    items_a = [a[0] for _ in range(3)]
+    monkeypatch.setattr(personalized.native, "prepare_item", augment_numpy)
+    items_b = [b[0] for _ in range(3)]
+    for ea, eb in zip(items_a, items_b):
+        for key in ("image", "fg_mask", "aug_mask"):
+            np.testing.assert_array_equal(ea[key], eb[key], err_msg=key)
 
 
 def test_use_native_raises_when_the_build_fails(mixed_root, tmp_path, monkeypatch):
