@@ -32,7 +32,7 @@ SOURCES = ("flash_attn_fwd.cu", "flash_attn_wgmma.cu", "flash_attn_wide.cu", "fl
            "flash_attn_bwd_wg.cu", "group_norm_silu.cu", "batch_norm_act.cu", "layer_norm.cu",
            "int8_conv.cu", "launch_floor.cu")
 # included by the sources: in the hash
-HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_bwd.cuh")
+HEADERS = ("flash_common.cuh", "flash_wgmma.cuh", "flash_bwd.cuh", "int8_wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -166,15 +166,18 @@ def load_library() -> ctypes.CDLL:
     # x, w, b, y, rows, C, packs, lanes, warps, threads, eps, bf16, stream
     lib.layer_norm.argtypes = [p, p, p, p, i64, i32, i32, i32, i32, i32, f32, i32, p]
     lib.layer_norm.restype = i32
-    # x, elements, amax, stream; x, amax, x_q, elements, stream
-    lib.quant_amax.argtypes = [p, i64, p, p]
-    lib.quant_amax.restype = i32
-    lib.quant_act.argtypes = [p, p, p, i64, p]
-    lib.quant_act.restype = i32
-    # x_q, w_q, w_scale, bias, amax, y, N, H, W, I, O, kh, kw, stride, pad, Ho, Wo, splits,
-    # workspace (partial tiles, then tile counters), stream
-    lib.int8_conv_igemm.argtypes = [p] * 6 + [i32] * 12 + [p, p]
+    # x, elements, scale words (max |x|, then the blocks' maxima), x_q, stream
+    lib.int8_quantize.argtypes = [p, i64, p, p, p]
+    lib.int8_quantize.restype = i32
+    # w_q, w_scale, bias, N, H, W, I, O, k, stride, pad, Ho, Wo, tile N, stages, split
+    lib.int8_igemm_prepare.argtypes = [p] * 3 + [i32] * 13
+    lib.int8_igemm_prepare.restype = i64
+    # the launch's handle, x_q, scale words, y, stream
+    lib.int8_conv_igemm.argtypes = [i64, p, p, p, p]
     lib.int8_conv_igemm.restype = i32
+    # tile N, stages, split, out: blocks of `int8_conv_igemm` an SM holds
+    lib.int8_igemm_occupancy.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.int8_igemm_occupancy.restype = i32
     lib.launch_floor.argtypes = [p]
     lib.launch_floor.restype = i32
     return lib

@@ -75,6 +75,29 @@ time of one call under torch.profiler, and 20 calls back to back), then the
 backward of a Stage-1 micro-step at 4 teacher steps and of a recon
 micro-step, each with its GroupNorm backward's device time by kernel.
 
+    python3 chip_compare.py --int8 PARENT_DIR [CHANGE_DIR]
+
+the int8 path of two trees in turns (parent, change, change, parent), each
+in its own process: every int8 layer shape of `chip_smoke.int8_path_shapes`
+(one SD1.5 UNet call with `quantize_dense` at CFG batch 2 and at batch 16)
+as the layer's device time (20 calls in a CUDA graph), its device time by
+kernel (torch.profiler over 20 calls; memsets counted), its operations on
+the device and its host µs a call; the sums over one UNet call's
+convolutions; one int8 512x512, 25-step request of the tree's
+`chip_smoke.build_server` modules (device time, operations, launches by
+kernel) and one int8 batcher step at 8 slots captured in a CUDA graph and
+replayed. Each turn saves its request's image and its batcher images; the
+parent's and the change's are held equal bit for bit (both trees equal the
+plain version bit for bit).
+
+    python3 chip_compare.py --int8-plans
+
+sweeps `int8_conv_igemm`'s geometry in the tree in the working directory at
+the same shapes: every tile width N and cluster split (`igemm_stages`'
+ring), each held to the bits of `igemm_plan`'s
+choice, beside the plan's pick and `quant_act`; one JSON line a shape in
+`chiprun_out/int8_plans.jsonl` (how `igemm_plan`'s rule was set).
+
     python3 chip_compare.py --profile-turn
 
 profiles one UNet call and one VAE decode of the tree in the working
@@ -149,6 +172,7 @@ between the sound readings and the faults'.
 from __future__ import annotations
 
 import contextlib
+import json
 import math
 import os
 import re
@@ -1286,6 +1310,212 @@ def tp_fault(fault: str | None):
         unet.Attention._out, unet.TransformerBlock.GEGLU_PARTS = saved
 
 
+INT8_DIR = os.path.join("chiprun_out", "int8_cmp")
+
+
+def int8_turn(tag: str) -> None:
+    """One tree's int8 path (`--int8`); runs with the tree as working
+    directory; its images go to INT8_DIR as `<tag>_*.npy`."""
+    sys.path.insert(0, os.getcwd())
+    import collections
+    import statistics
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as c
+    from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import quant as Q
+    from adaface_tpu_torch.utils.profiling import device_events
+
+    new = beside()
+    card = c.require_cuda()
+    c.build_kernels()
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    unet, _, shapes, per_call = new.int8_path_shapes(gen)
+    del unet
+    rows = {}
+    with torch.inference_mode():
+        for label, (mod, x_shape) in shapes.items():
+            x = (torch.randn(x_shape, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            if isinstance(mod, Q.Int8Conv2d):
+                x = x.contiguous(memory_format=torch.channels_last)
+            fn = lambda: mod(x)  # noqa: E731
+            layer = new.graph_ms(fn, launches=20, reps=3)
+            nodes = dict(new.graph_nodes(fn))
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+            by_kernel = collections.defaultdict(float)
+            for e in device_events(prof):
+                m = re.search(r"(quant_\w+_kernel|int8_conv_igemm_kernel)", e.name)
+                name = "memset" if e.name.startswith("Memset") else m.group(1) if m else e.name[:40]
+                by_kernel[name] += e.us / 1e3 / 20
+            host = new.host_us(fn)
+            rows[label] = dict(layer=layer, by_kernel=dict(by_kernel), nodes=nodes, host=host)
+            print(f"int8 {label}: layer graph {layer:.4f} ms; by kernel (profiler) " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + f" ms; a call's graph "
+                f"nodes {nodes}; host {host:.1f} us", flush=True)
+            del x
+    for b in new.INT8_BATCHES:
+        convs = {label: n for label, n in per_call[b].items() if label.startswith("conv")}
+        sums = collections.defaultdict(float)
+        for label, n in convs.items():
+            sums["layer"] += n * rows[label]["layer"]
+            for k, v in rows[label]["by_kernel"].items():
+                sums[k] += n * v
+        host = statistics.median(rows[label]["host"] for label in convs)
+        print(f"int8 per UNet call at batch {b}: {sum(convs.values())} convolutions, layers "
+              f"{sums.pop('layer'):.3f} ms of device time; by kernel " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in sorted(sums.items())) + f" ms; host a layer "
+              f"(median) {host:.1f} us", flush=True)
+    torch.cuda.empty_cache()
+
+    wrapper, faces = c.build_server(gen)
+    m = wrapper.pipeline.m
+    wq = AdaFaceWrapper("text2img", m, wrapper.id2ada_prompt_encoder, guidance_scale=6.0,
+                        num_inference_steps=25, quantize_unet=True)
+    wrapper.prepare_adaface_embeddings(images=faces["a"])
+    with torch.inference_mode():
+        new.speed_request(wq, 399, steps=2)
+        _build.reset_launch_counts()
+        img = new.speed_request(wq, 400)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCHES)
+        _, dev, ops = new.profiled_ms(lambda: new.speed_request(wq, 400), host_runs=1)
+    os.makedirs(INT8_DIR, exist_ok=True)
+    np.save(os.path.join(INT8_DIR, f"{tag}_request.npy"), img.float().cpu().numpy())
+    print(f"int8 request 512x512 25 steps: device {dev:.2f} ms in {ops} operations; launches "
+          f"{counts}", flush=True)
+    adas = new.subject_embeddings(wq, faces)
+    b = wq.make_batcher(num_slots=new.BATCH_SLOTS)
+    for slot, r in enumerate(new.batch_requests(wq, adas, 512, new.BATCH_SLOTS)):
+        b._admit(slot, r)
+    b._step()
+    same, replay_ms = new.step_replays_same_bits(b, replays=2)
+    out = wq.make_batcher(num_slots=new.BATCH_SLOTS).generate_all(
+        new.batch_requests(wq, adas, 512, new.BATCH_SLOTS))
+    np.save(os.path.join(INT8_DIR, f"{tag}_batcher.npy"),
+            np.stack([out[i].float().cpu().numpy() for i in range(new.BATCH_SLOTS)]))
+    print(f"int8 batcher at {new.BATCH_SLOTS} slots: a step captured in a CUDA graph, "
+          f"{replay_ms:.2f} ms a replay, replays with the eager step's bits: {same}; card {card}",
+          flush=True)
+
+
+def int8_turns(parent: str, change: str) -> None:
+    """`--int8`: turns parent, change, change, parent; the images of the two
+    trees held equal bit for bit."""
+    import numpy as np
+
+    for i, (name, tree) in enumerate((("parent", parent), ("change", change),
+                                      ("change", change), ("parent", parent))):
+        print(f"== {name}: {tree}", flush=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--int8-turn",
+                        f"{name}{i}"], cwd=tree, check=True)
+    for what in ("request", "batcher"):
+        imgs = {f"{n}{i}": np.load(os.path.join(t, INT8_DIR, f"{n}{i}_{what}.npy"))
+                for i, (n, t) in enumerate((("parent", parent), ("change", change),
+                                            ("change", change), ("parent", parent)))}
+        ref = imgs["parent0"]
+        equal = {k: bool(np.array_equal(ref, v)) for k, v in imgs.items()}
+        print(f"int8 {what} images against parent0: equal bits {equal}, max abs difference "
+              f"{max(float(np.abs(ref - v).max()) for v in imgs.values()):.3e}", flush=True)
+        if not all(equal.values()):
+            raise SystemExit(f"int8 {what}: the trees' images differ")
+
+
+def int8_plans() -> None:
+    """`--int8-plans`: `int8_conv_igemm` over geometries at every int8 shape
+    of the path, each held to the bits of `igemm_plan`'s choice, and the
+    quantization routes, beside the plan's pick."""
+    sys.path.insert(0, os.getcwd())
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as c
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import quant as Q
+
+    card = c.require_cuda()
+    c.build_kernels()
+    lib = _build.load_library()
+    sms = _build.sm_count(0)
+    gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+    unet, _, shapes, per_call = c.int8_path_shapes(gen)
+    del unet
+    os.makedirs("chiprun_out", exist_ok=True)
+    open(os.path.join("chiprun_out", "int8_plans.jsonl"), "w").close()
+    totals = {}  # (b, candidate name) -> summed ms a UNet call
+    with torch.inference_mode():
+        for label, (mod, x_shape) in shapes.items():
+            conv = isinstance(mod, Q.Int8Conv2d)
+            x = (torch.randn(x_shape, generator=gen, device="cuda") * 2.0).to(torch.bfloat16)
+            if conv:
+                x = x.contiguous(memory_format=torch.channels_last)
+            x_q, amax = Q.quantize_act_cuda(x)
+            o = mod.w_q.shape[0]
+            k = mod.w_q.shape[1] if conv else 1
+            stride, pad = (mod.stride[0], mod.padding[0]) if conv else (1, 0)
+            n_sp = (x.shape[0], x.shape[2], x.shape[3]) if conv else (x.numel() // x.shape[-1], 1, 1)
+            w_q = mod.w_q if conv else mod.w_q.reshape(o, 1, 1, -1)
+            i = w_q.shape[-1]
+            ho, wo = Q.conv_out_hw(n_sp[1], n_sp[2], k, stride, pad)
+            rows = n_sp[0] * ho * wo
+            plan = Q.igemm_plan(rows, i, o, k, stride, sms)
+            run = lambda pl: Q._igemm(x_q, amax, w_q, mod.w_scale, mod.bias, *n_sp, k, stride,  # noqa
+                                      pad, pl)
+            ref = run(plan)
+            cands = {f"N{tile_n} c{split}": Q.IgemmPlan(tile_n, Q.STEP, Q.igemm_stages(tile_n),
+                                                        split)
+                     for tile_n in Q.TILE_WIDTHS for split in Q.SPLITS
+                     if split <= Q.igemm_steps(i, k)}
+            times = {}
+            for name, pl in cands.items():
+                try:
+                    out = run(pl)
+                    torch.cuda.synchronize()
+                except RuntimeError as e:
+                    print(f"  {label} {name}: refused ({str(e).splitlines()[0]})", flush=True)
+                    continue
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{label} {name}: differs from the plan's bits")
+                times[name] = c.graph_ms(lambda: run(pl), launches=20, reps=3)
+            words = torch.empty(1 + Q.QUANT_SLOTS, dtype=torch.int32, device="cuda")
+            xq = torch.empty_like(x_q)
+            stream = torch.cuda.current_stream().cuda_stream
+            quant = c.graph_ms(lambda: lib.int8_quantize(x.data_ptr(), x.numel(), words.data_ptr(),
+                                                         xq.data_ptr(), stream),
+                               launches=20, reps=3)
+            pick = c.graph_ms(lambda: run(plan), launches=20, reps=3)
+            best = min(times, key=times.get)
+            calls = {b: per_call[b].get(label, 0) for b in c.INT8_BATCHES}
+            for b, n in calls.items():
+                for name, t in list(times.items()) + [("plan", pick)]:
+                    totals[(b, name)] = totals.get((b, name), 0.0) + n * t
+            record = dict(label=label, rows=rows, i=i, o=o, k=k, stride=stride, calls=calls,
+                          plan=dataclasses.asdict(plan), plan_ms=pick, quant_ms=quant, times=times)
+            with open(os.path.join("chiprun_out", "int8_plans.jsonl"), "a") as f:
+                f.write(json.dumps(record) + "\n")
+            top = sorted(times, key=times.get)[:4]
+            print(f"int8 {label} (x{calls[2]}/x{calls[16]} at B2/B16): plan N{plan.tile_n} "
+                  f"s{plan.stages} c{plan.split} {pick:.4f} ms; best {best} "
+                  f"{times[best]:.4f} ({times[best] / pick:.2f}x); next " + ", ".join(
+                      f"{k} {times[k]:.4f}" for k in top[1:]) + f" | quant_act {quant:.4f} ms",
+                  flush=True)
+            del x, x_q, ref
+    for b in c.INT8_BATCHES:
+        row = {name: t for (bb, name), t in totals.items() if bb == b}
+        print(f"int8 plans summed over a UNet call at batch {b} (every int8 layer): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(row.items(), key=lambda kv: kv[1])) + " ms",
+            flush=True)
+    print(f"card: {card}", flush=True)
+
+
+
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--tp-faults":
         tp_faults()
@@ -1322,6 +1552,15 @@ def main() -> int:
         a, b = (np.load(p) for p in paths)
         print(f"sd15 request parent against change: equal bits {np.array_equal(a, b)}, max abs "
               f"difference {np.abs(a - b).max():.3e}", flush=True)
+        return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--int8-plans":
+        int8_plans()
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--int8-turn":
+        int8_turn(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--int8"] and len(sys.argv) in (3, 4):
+        int8_turns(*[os.path.abspath(x) for x in (sys.argv[2:] + ["."])[:2]])
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--sweep":
         sweep_norm_plans()

@@ -40,11 +40,12 @@ Phases (any failure raises and the exit code is not 0):
      and every VAE decoder map at batch 2, each twice to the same bits; the flash
      forward at the teacher's 16-token cross-attention and at ToMe's merged
      64x64 self-attentions (S 2048 and 2868: ragged tiles); the int8 kernels
-     (`quant_amax`, `quant_act`, `int8_conv_igemm`) at every int8 layer shape
+     (`quant_act`, `int8_conv_igemm`) at every int8 layer shape
      of the SD1.5 UNet (convolutions and the `quantize_dense` layers) at CFG
      batch 2 and batch 16, found by a census of one int8 UNet call at each,
      bit for bit against their plain versions (fp64 sums), twice to the same
-     bits, a split reduction against an unsplit one, beside cuDNN's bf16
+     bits, a cluster-split reduction against an unsplit one, three kernels and
+     no memset a layer (torch.profiler), beside cuDNN's bf16
      convolution and im2col + `torch._int_mm` (yardsticks); print errors,
      median times (single launches, and for GroupNorm, LayerNorm, BatchNorm
      and the backward kernels also 20 launches as a CUDA graph: the device
@@ -5366,18 +5367,14 @@ def im2col_int_mm(x_q, w_kmajor, k: int, stride: int, pad: int):
     return torch._int_mm(torch.cat(cols, dim=-1).reshape(n * ho * wo, k * k * c), w_kmajor)
 
 
-def check_int8(gen) -> dict:
-    """`quant_amax` + `quant_act` and `int8_conv_igemm` against their plain
-    versions at every int8 layer shape of the SD1.5 UNet (convolutions, and
-    the `quantize_dense` layers) at CFG batch 2 and at batch 16, found by a
-    census of one int8 UNet call at each: bit for bit, and twice to the same
-    bits; times single and as CUDA graphs beside the bound, cuDNN's bf16
-    convolution (or cuBLAS's bf16 product) and im2col + `torch._int_mm`, both
-    yardsticks only."""
+def int8_path_shapes(gen):
+    """One full-width SD1.5 UNet (random weights from `gen`, bf16) and its
+    int8 copy with `quantize_dense`, called once at each of INT8_BATCHES:
+    (unet, int8 unet, {label: (one module of that shape, x's shape)},
+    {batch: {label: calls a UNet call}})."""
     from adaface_tpu_torch.core.params import build
     from adaface_tpu_torch.models.unet import (SD15_UNET, UNet2DConditionModel,
                                                init_unet_weights_)
-    from adaface_tpu_torch.ops import _build
     from adaface_tpu_torch.ops import quant as Q
 
     unet = build(lambda: UNet2DConditionModel(dataclasses.replace(SD15_UNET, fused_ln=False)),
@@ -5395,7 +5392,55 @@ def check_int8(gen) -> dict:
                 raise AssertionError(f"int8 UNet at batch {b}: output not finite")
             per_call[b] = dict(seen)
             shapes.update(modules)
+    return unet, q, shapes, per_call
+
+
+def graph_nodes(fn) -> collections.Counter:
+    """What one call of `fn` puts on the device: the nodes of a CUDA graph
+    that captures it, by type ("kernel", "memset", ...), read through the
+    CUDA runtime that torch loaded."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cudart = ctypes.CDLL("libcudart.so.12")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if cudart.cudaGraphGetNodes(handle, None, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cudart.cudaGraphGetNodes(handle, nodes, ctypes.byref(n)):
+        raise RuntimeError("cudaGraphGetNodes failed")
+    names = {0: "kernel", 1: "memcpy", 2: "memset"}  # cudaGraphNodeType
+    kinds = collections.Counter()
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cudart.cudaGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)):
+            raise RuntimeError("cudaGraphNodeGetType failed")
+        kinds[names.get(kind.value, f"type {kind.value}")] += 1
+    return kinds
+
+
+def check_int8(gen) -> dict:
+    """`quant_act` and `int8_conv_igemm` against their plain
+    versions at every int8 layer shape of the SD1.5 UNet (convolutions, and
+    the `quantize_dense` layers) at CFG batch 2 and at batch 16, found by a
+    census of one int8 UNet call at each: bit for bit, twice to the same
+    bits, a cluster-split plan against the same plan unsplit, and the
+    operations one layer puts on the device (three kernels, no memset);
+    times single and as CUDA graphs beside the bound, cuDNN's bf16
+    convolution (or cuBLAS's bf16 product) and im2col + `torch._int_mm`,
+    both yardsticks only."""
+    import ctypes
+
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.ops import quant as Q
+
+    unet, q, shapes, per_call = int8_path_shapes(gen)
     lib = _build.load_library()
+    sms = _build.sm_count(0)
     results = {}
     with torch.inference_mode():
         for label, (mod, x_shape) in shapes.items():
@@ -5410,7 +5455,7 @@ def check_int8(gen) -> dict:
             with plain_versions():
                 ref = mod(x)
             torch.cuda.synchronize()
-            amax_same = amax.view(torch.float32).item() == amax_plain.item()
+            amax_same = amax[:1].view(torch.float32).item() == amax_plain.item()
             err = (y.float() - ref.float()).abs().max().item()
             if not (torch.equal(x_q, x_q_plain) and amax_same):
                 raise AssertionError(f"int8 {label}: quantization differs from plain "
@@ -5425,21 +5470,27 @@ def check_int8(gen) -> dict:
             rows = y.numel() // o
             n_sp = (x.shape[0], x.shape[2], x.shape[3]) if conv else (rows, 1, 1)
             w_q = mod.w_q if conv else mod.w_q.reshape(o, 1, 1, -1)
+            plan = Q.igemm_plan(rows, w_q.shape[-1], o, k, stride, sms)
             stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-            amax_buf, xq_buf = torch.empty_like(amax), torch.empty_like(x_q)
+            words, xq_buf = torch.empty(1 + Q.QUANT_SLOTS, dtype=torch.int32,
+                                        device="cuda"), torch.empty_like(x_q)
             fn = lambda: mod(x)  # noqa: E731
-            amax_fn = lambda: lib.quant_amax(x.data_ptr(), x.numel(), amax_buf.data_ptr(),  # noqa
-                                             stream())
-            act_fn = lambda: lib.quant_act(x.data_ptr(), amax.data_ptr(), xq_buf.data_ptr(),  # noqa
-                                           x.numel(), stream())
-            igemm = lambda splits=None: Q._igemm(x_q, amax, w_q, mod.w_scale,  # noqa: E731
-                                                 mod.bias, *n_sp, k, stride, pad, splits)
-            splits = Q.igemm_splits(rows, o, w_q.numel() // o // Q.CHANNEL_STEP,
-                                    _build.sm_count(0))
-            if splits > 1 and not torch.equal(igemm(), igemm(1)):
-                raise AssertionError(f"int8 {label}: {splits} splits differ from one")
-            scale = amax_plain.clamp(min=1e-8) / 127.0
-            act_plain = lambda: torch.round(x.float() / scale).clamp(-127, 127).to(torch.int8)  # noqa
+            act_fn = lambda: lib.int8_quantize(x.data_ptr(), x.numel(), words.data_ptr(),  # noqa
+                                               xq_buf.data_ptr(), stream())
+            igemm = lambda pl=plan: Q._igemm(x_q, amax, w_q, mod.w_scale,  # noqa: E731
+                                             mod.bias, *n_sp, k, stride, pad, pl)
+            unsplit = dataclasses.replace(plan, split=1)
+            if plan.split > 1 and not torch.equal(igemm(), igemm(unsplit)):
+                raise AssertionError(f"int8 {label}: a {plan.split}-block cluster differs from "
+                                     "one block")
+            nodes = graph_nodes(fn)
+            kernels, memsets = nodes["kernel"], nodes["memset"]
+            occupancy = ctypes.c_int(0)
+            _build.check(lib.int8_igemm_occupancy(plan.tile_n, plan.stages, plan.split,
+                                                  ctypes.byref(occupancy)), "int8_igemm_occupancy")
+            if (kernels, memsets) != (2, 0):
+                raise AssertionError(f"int8 {label}: a layer put {kernels} kernels and {memsets} "
+                                     "memsets on the device, expected 2 and 0")
             w_bf, b_bf = mod.dequantized().to(torch.bfloat16), mod.bias.to(torch.bfloat16)
             if conv:
                 w_bf = w_bf.contiguous(memory_format=torch.channels_last)
@@ -5457,47 +5508,55 @@ def check_int8(gen) -> dict:
             with plain_versions():
                 plain_ms = median_ms(fn, reps=3, warmup=1)
             r = dict(err=err, ms=ms, graph_ms=dev, plain_ms=plain_ms,
-                     amax_graph_ms=graph_ms(amax_fn, **INT8_GRAPH),
-                     amax_plain_ms=median_ms(lambda: x.float().abs().amax()),
-                     amax_library_ms=median_ms(lambda: torch.linalg.vector_norm(x, math.inf)),
-                     act_graph_ms=graph_ms(act_fn, **INT8_GRAPH), act_plain_ms=median_ms(act_plain),
-                     igemm_graph_ms=graph_ms(igemm, **INT8_GRAPH), splits=splits,
-                     igemm_unsplit_graph_ms=(graph_ms(lambda: igemm(1), **INT8_GRAPH)
-                                             if splits > 1 else None),
+                     act_graph_ms=graph_ms(act_fn, **INT8_GRAPH),
+                     act_plain_ms=median_ms(lambda: Q.quantize_act(x)),
+                     igemm_graph_ms=graph_ms(igemm, **INT8_GRAPH),
+                     plan=dataclasses.asdict(plan),
+                     igemm_unsplit_graph_ms=(graph_ms(lambda: igemm(unsplit), **INT8_GRAPH)
+                                             if plan.split > 1 else None),
                      cudnn_bf16_graph_ms=graph_ms(bf16, **INT8_GRAPH), int_mm_graph_ms=int_mm,
+                     layer_kernels=kernels, layer_memsets=memsets,
+                     smem_bytes=Q.igemm_smem(plan), blocks_per_sm=occupancy.value,
                      calls={b: per_call[b].get(label, 0) for b in INT8_BATCHES})
             if label == JSON_INT8:  # the host's cost of a layer, where the device is quick
                 r["host_us"], r["cudnn_bf16_host_us"] = host_us(fn), host_us(bf16)
             ops = 2.0 * rows * o * (w_q.numel() // o)
             r["bound_ms"], r["bound_by"] = int8_bound(2 * x.numel(), w_q, y.numel(), ops)
             r["igemm_bound_ms"], r["igemm_bound_by"] = int8_bound(x.numel(), w_q, y.numel(), ops)
-            r["amax_bound_ms"] = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
             r["act_bound_ms"] = 3 * x.numel() / HBM_BYTES_PER_S * 1e3
             results[label] = r
             if "host_us" in r:
                 log(f"int8 {label}: host per call: the int8 layer {r['host_us']:.1f} us, cuDNN "
                     f"bf16 {r['cudnn_bf16_host_us']:.1f} us")
             log(f"int8 {label} (calls a UNet call at B2/B16: {r['calls'][2]}/{r['calls'][16]}): "
-                f"bit-equal to plain, two runs the same bits | the layer (memset, quant_amax, "
-                f"quant_act, int8_conv_igemm): single {ms:.4f} ms, graph {dev:.4f} ms, plain "
-                f"(fp64 sums) {plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-                f"{r['bound_by']} | igemm ({splits} splits) graph {r['igemm_graph_ms']:.4f} ms"
-                + ("" if splits == 1 else f" (unsplit {r['igemm_unsplit_graph_ms']:.4f})") +
-                f" (bound "
-                f"{r['igemm_bound_ms']:.4f}, reached {r['igemm_bound_ms'] / r['igemm_graph_ms']:.1%})"
-                f" | amax {r['amax_graph_ms']:.4f} act {r['act_graph_ms']:.4f} ms | cuDNN/cuBLAS "
-                f"bf16 graph {r['cudnn_bf16_graph_ms']:.4f} ms | im2col + _int_mm graph "
+                f"bit-equal to plain, two runs the same bits, {kernels} kernels and {memsets} "
+                f"memsets a layer | the layer (quant_act, int8_conv_igemm): single "
+                f"{ms:.4f} ms, graph {dev:.4f} ms, plain (fp64 sums) {plain_ms:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['bound_ms'] / dev:.1%}) | igemm "
+                f"(N {plan.tile_n}, {plan.step}-byte steps, {plan.stages} stages, cluster "
+                f"{plan.split}; {r['smem_bytes']} B of shared memory, {occupancy.value} blocks an "
+                f"SM) graph "
+                f"{r['igemm_graph_ms']:.4f} ms"
+                + ("" if plan.split == 1 else f" (one block a tile {r['igemm_unsplit_graph_ms']:.4f},"
+                   " the same bits)") +
+                f" (bound {r['igemm_bound_ms']:.4f} by {r['igemm_bound_by']}, reached "
+                f"{r['igemm_bound_ms'] / r['igemm_graph_ms']:.1%}) | quant_act "
+                f"{r['act_graph_ms']:.4f} ms (bound {r['act_bound_ms']:.4f}) | cuDNN/cuBLAS bf16 graph "
+                f"{r['cudnn_bf16_graph_ms']:.4f} ms | im2col + _int_mm graph "
                 f"{'refused' if int_mm is None else f'{int_mm:.4f} ms'}")
             del x, x_q, x_q_plain, y, y2, ref, xq_buf, w_bf
         torch.cuda.empty_cache()
     for b in INT8_BATCHES:
+        keys = ("graph_ms", "igemm_graph_ms", "act_graph_ms",
+                "cudnn_bf16_graph_ms", "bound_ms", "igemm_bound_ms")
         sums = {key: sum(results[label][key] * n for label, n in per_call[b].items()
-                         if label.startswith("conv"))
-                for key in ("graph_ms", "igemm_graph_ms", "cudnn_bf16_graph_ms", "bound_ms")}
+                         if label.startswith("conv")) for key in keys}
         n_conv = sum(n for label, n in per_call[b].items() if label.startswith("conv"))
         log(f"int8 per UNet call at batch {b}: {n_conv} convolutions, int8 layers "
-            f"{sums['graph_ms']:.3f} ms of device time (igemm alone {sums['igemm_graph_ms']:.3f}), "
-            f"cuDNN bf16 {sums['cudnn_bf16_graph_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms")
+            f"{sums['graph_ms']:.3f} ms of device time (igemm alone {sums['igemm_graph_ms']:.3f}, "
+            f"{sums['igemm_bound_ms'] / sums['igemm_graph_ms']:.1%} of its bound; quant_act "
+            f"{sums['act_graph_ms']:.3f}), cuDNN bf16 "
+            f"{sums['cudnn_bf16_graph_ms']:.3f} ms, bound {sums['bound_ms']:.3f} ms")
         results[f"per call B{b}"] = dict(convs=n_conv, **sums)
     del unet, q
     torch.cuda.empty_cache()
@@ -5528,7 +5587,7 @@ def tome_decisions(record: list | None = None, replay: list | None = None):
 @contextmanager
 def int8_roundings(record: list | None = None, replay: list | None = None):
     """The int8 layers' quantized activations: the kernels' (x_q and the
-    bits of max |x|, `quant_amax` + `quant_act`) recorded into `record`, or
+    bits of max |x|, `quant_act`) recorded into `record`, or
     those of `replay` handed in order to the plain version (its x_q and the
     scale computed from them as the kernels compute it). A bf16 rounding
     upstream that the kernels and the plain versions take apart sends an
@@ -5545,7 +5604,7 @@ def int8_roundings(record: list | None = None, replay: list | None = None):
             if tuple(x_q.shape) != tuple(x.shape):
                 raise AssertionError(f"int8 roundings: {tuple(x_q.shape)} handed to "
                                      f"{tuple(x.shape)}")
-            return x_q, (amax.view(torch.float32).clamp(min=1e-8) / 127.0).reshape(())
+            return x_q, (amax[:1].view(torch.float32).clamp(min=1e-8) / 127.0).reshape(())
 
         with mock.patch.object(Q, "quantize_act", plain):
             yield
@@ -5717,7 +5776,7 @@ def serve_speed_modes(wrapper, faces, card: str) -> dict:
         want.update(gn_expected_from(seen_gn) + gn_expected_from(seen_vae))
         int8_calls = sum(seen_int8.values())
         if int8:
-            for key in (Q.QUANT_AMAX, Q.QUANT_ACT, Q.INT8_CONV):
+            for key in (Q.QUANT_ACT, Q.INT8_CONV):
                 want[key] = int8_calls
             if dc <= 1 and int8_calls != n * 25 * per_call:
                 raise AssertionError(f"{name}: {int8_calls} int8 layer calls, expected "
@@ -5760,7 +5819,7 @@ def serve_speed_modes(wrapper, faces, card: str) -> dict:
     drain_s = time.perf_counter() - t0
     drain_counts = launch_counts()
     check_images([out[i] for i in range(BATCH_SLOTS)], BATCH_SLOTS, 512, "int8 batcher")
-    if not all(drain_counts.get(k) for k in (Q.QUANT_AMAX, Q.QUANT_ACT, Q.INT8_CONV)):
+    if not all(drain_counts.get(k) for k in (Q.QUANT_ACT, Q.INT8_CONV)):
         raise AssertionError(f"int8 batcher: the int8 kernels did not run: {drain_counts}")
     b = wq.make_batcher(num_slots=BATCH_SLOTS)
     for slot, r in enumerate(batch_requests(wq, adas, 512, BATCH_SLOTS)):
@@ -7920,15 +7979,15 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
     `F.scaled_dot_product_attention`'s flash backend; the closed-form VJP and
     that of `F.group_norm` + `F.silu`), beside the whole backward's own
     times and bound (`function_*`), and every path shape under `shapes`.
-    The int8 kernels' `launches` are those of the int8 mode's 3 requests;
+    The int8 kernels' `launches` are those of the int8 mode's SPEED_REQUESTS requests;
     each one's `ms` is its own device time (5 launches in a CUDA graph) at
     `JSON_INT8`; `int8_conv_igemm`'s `plain_ms` is the plain fp64-sum layer's
     (quantization included) and it has no library call (PyTorch has no
     eager int8 convolution on CUDA): cuDNN's bf16 convolution and im2col +
     `torch._int_mm` stand beside it as yardsticks (`cudnn_bf16_ms`,
-    `int_mm_ms`), with the whole layer's times (`layer_*`: memset and three
-    launches); `quant_amax`'s library call is `torch.linalg.vector_norm(x,
-    inf)`. Every int8 shape is under `shapes`, the sums a UNet call under
+    `int_mm_ms`), with the whole layer's times (`layer_*`: three launches, no
+    memset); `quant_act` has no library call (`torch.linalg.vector_norm(x,
+    inf)` is its first pass only). Every int8 shape is under `shapes`, the sums a UNet call under
     `per_call`."""
     from adaface_tpu_torch.ops.attention import (FLASH_BWD_DELTA, FLASH_BWD_DELTA_WIDE,
                                                  FLASH_BWD_DKDV_WG, FLASH_BWD_DKDV_WIDE,
@@ -7938,7 +7997,7 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
                                                 GN_NORM, GN_STATS)
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_NORM_ACT, BN_STATS, BN_STATS_SUMS
-    from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT, QUANT_AMAX
+    from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT
 
     def entry(name, source, replaces, err, shape, ms, plain_ms, library_ms, bound_ms,
               bound_by="bytes", **extra):
@@ -8103,10 +8162,6 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
         gn_bwd_entry(GN_BWD_FUSED, "fused", JSON_GN_BWD),
         gn_bwd_entry(GN_BWD_REDUCE, "reduce", JSON_GN_BWD_SPLIT),
         gn_bwd_entry(GN_BWD_DX, "dx", JSON_GN_BWD_SPLIT),
-        entry(QUANT_AMAX, "int8_conv.cu", "adaface_tpu/ops/quant.py:58", 0.0, JSON_INT8,
-              i8["amax_graph_ms"], i8["amax_plain_ms"], i8["amax_library_ms"],
-              i8["amax_bound_ms"], shapes={k: {"ms": r["amax_graph_ms"], "bound_ms":
-                                               r["amax_bound_ms"]} for k, r in i8_cases.items()}),
         entry(QUANT_ACT, "int8_conv.cu", "adaface_tpu/ops/quant.py:58", 0.0, JSON_INT8,
               i8["act_graph_ms"], i8["act_plain_ms"], None, i8["act_bound_ms"],
               shapes={k: {"ms": r["act_graph_ms"], "bound_ms": r["act_bound_ms"]}
@@ -8120,7 +8175,9 @@ def kernel_record(flash: dict, gn: dict, bn: dict, ln: dict, flash_bwd: dict, gn
               layer_host_us=i8.get("host_us"), cudnn_bf16_host_us=i8.get("cudnn_bf16_host_us"),
               shapes={k: {key: r[key] for key in (
                   "igemm_graph_ms", "igemm_bound_ms", "igemm_bound_by", "graph_ms", "ms",
-                  "plain_ms", "bound_ms", "cudnn_bf16_graph_ms", "int_mm_graph_ms", "calls")}
+                  "plain_ms", "bound_ms", "cudnn_bf16_graph_ms", "int_mm_graph_ms", "calls",
+                  "plan", "igemm_unsplit_graph_ms", "layer_kernels", "layer_memsets",
+                  "smem_bytes", "blocks_per_sm")}
                   for k, r in i8_cases.items()},
               per_call={k: r for k, r in int8.items() if k.startswith("per call")}),
     ]}
@@ -8362,10 +8419,10 @@ def main() -> int:
     from adaface_tpu_torch.ops.fused_gn import GN_BWD_DX, GN_BWD_FUSED, GN_BWD_REDUCE
     from adaface_tpu_torch.ops.fused_ln import LAYER_NORM
     from adaface_tpu_torch.ops.fused_norm import BN_STATS_SUMS
-    from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT, QUANT_AMAX
+    from adaface_tpu_torch.ops.quant import INT8_CONV, QUANT_ACT
 
     counts = {**served["counts"], **parser["counts"], BN_STATS_SUMS: sync_bn["counts"][BN_STATS_SUMS],
-              **{k: speed["int8_counts"][k] for k in (QUANT_AMAX, QUANT_ACT, INT8_CONV)},
+              **{k: speed["int8_counts"][k] for k in (QUANT_ACT, INT8_CONV)},
               LAYER_NORM: unet["ln_counts"][LAYER_NORM],
               **{k: stage1["counts"][k] for k in (A.FLASH_BWD_DELTA, A.FLASH_BWD_DKDV_WG,
                                                  A.FLASH_BWD_DQ_WG, GN_BWD_FUSED)},

@@ -13,8 +13,8 @@ package, on the CPU: the operations and the UNet's quantization.
   without `quantize_dense`, equal to the bit on bridged fp32 and bf16
   weights, and the caller's UNet unchanged; the JAX tree carried in by the
   bridge;
-- the kernel's split plan at the UNet's shapes, its refusals, and the
-  module's import without a toolchain.
+- the kernel's refusals, and the module's import without a toolchain (its
+  launch plan and indexing are in `tests/test_torch_int8_plan.py`).
 The whole int8 UNet is in `tests/test_torch_quant_unet.py`, the pipeline
 and the wrapper in `tests/test_torch_quant_serving.py`.
 """
@@ -209,24 +209,6 @@ def test_kernel_module_imports_without_nvcc():
             "                          torch.zeros(8))\n"
             "    assert y.shape == (1, 8, 4, 4)\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
-
-
-@pytest.mark.parametrize("rows,o,steps,want", [
-    (8192, 320, 90, 1),  # 2x320x64x64 -> 320 3x3: 192 tiles fill 132 SMs
-    (128, 1280, 360, 15),  # 2x1280x8x8 -> 1280 3x3: 10 tiles
-    (128, 1280, 40, 1),  # its 1x1: too short a reduction to split
-    (2048, 640, 180, 3),  # 2x640x32x32 -> 640 3x3: 80 tiles
-    (1024, 1280, 720, 3),  # 16x2560x8x8 -> 1280 3x3 at batch 16
-])
-def test_igemm_splits_at_path_shapes(rows, o, steps, want):
-    """The split reduction of `int8_conv_igemm` at the SD1.5 UNet's shapes on
-    132 SMs: unsplit where the tiles fill the card, otherwise at most
-    SPLIT_WAVES blocks an SM and MIN_SPLIT_STEPS steps a split."""
-    splits = quant.igemm_splits(rows, o, steps, 132)
-    tiles = -(-rows // quant.TILE) * -(-o // quant.TILE)
-    assert splits == want
-    assert splits == 1 or (tiles * splits <= quant.SPLIT_WAVES * 132
-                           and steps // splits >= quant.MIN_SPLIT_STEPS)
 
 
 def test_kernel_widths_are_refused_loudly():
