@@ -87,7 +87,7 @@ Phases (any failure raises and the exit code is not 0):
      crops, the encoders on the card's ID embeddings; relative L2 <= 1e-4
      for the detector, 1e-5 for the others; the detector with TF32
      convolutions is printed beside), and face -> ada host and device ms
-     per subject for Arc2Face, ConsistentID and the joint encoder;
+     of subject a (2 photos) for Arc2Face, ConsistentID and the joint encoder;
   7. face-parser training at its published configuration (BiSeNet-ResNet18,
      batch 16, crop 448, fp32, OHEM, SGD): one train step's loss and
      gradients, kernels against plain, under deterministic cuDNN without
@@ -197,8 +197,8 @@ write, on the same SD1.5 modules: the UNet's attention and FFN adapters at
 rank 192 (B and the magnitudes drawn off their start) written by
 `save_adaface_ckpt` as the trainer writes them and loaded by
 `AdaFaceWrapper.load_unet_lora_weights`: a small request kernels against
-plain, 2 requests at 512x512, 25 steps with an unadapted request's launch
-counts and images apart from the unadapted ones, a drain of 4 requests
+plain, a request at 512x512, 25 steps with an unadapted request's launch
+counts and an image apart from the unadapted one, a drain of 4 requests
 through the 8-slot batcher with its counts and the small drain held to the
 one-shot pipeline; a UNet ensemble of the base UNet and one loaded from a
 trainer's `unet_fp16.safetensors` (at weights (1, 0) equal to the single
@@ -292,6 +292,19 @@ readings and two planted faults': `chip_compare.py --tp-faults`). Phase 3
 (`check_flash_tp`) holds the flash forward and backward at the ranks'
 4-head shapes, and `train_tp` that the ranks ran no other.
 
+Last, `bench_train` runs `scripts/bench_train_torch.py`'s mode `all` in
+this process at full SD1.5 width on random weights: the recon step at
+batch 4 (2 denoising steps, decodes with gradient, ArcFace losses, the
+default host detector inline), the unet-distill step at batch 4 against a
+2-step teacher chain and the comp step at batch 1 (4 priming, 4 denoising
+steps), each through `make_train_step` with 5 timed steps; then the recon
+metric again with a detector of one central face. Each metric's line must
+be there with finite numbers, and one more step of each, profiled, must
+launch the UNet's flash forward and backward and GroupNorm forward and
+backward kernels (the recon steps the D 512 flash and its backward too):
+their launches go into the kernels line by path, and each step's device
+busy ms beside its host median into its "checks".
+
 The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
 checkpoint writers of `tests/torch_sd_layout.py`, the port's CLI twins in
 `scripts/` and `app_torch.py` (and `chip_compare.tp_fault` where
@@ -306,6 +319,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -2295,7 +2309,8 @@ def serve_joint(wrapper, faces, gen) -> dict:
     RetinaFace + ArcFace, over the same SD1.5 modules: every photo's
     detection and embedding, 3 requests at 512x512, 25 steps, a drain of
     20-token requests through the 8-slot batcher, face → ada on the card
-    against the CPU, and face → ada times per subject."""
+    against the CPU, and face → ada times of subject a (2 photos; subject b's
+    single photo timed the same path again, dropped for the script's clock)."""
     from adaface_tpu_torch.id2ada.face_backends import ArcFaceBackend
     from adaface_tpu_torch.inference.wrapper import AdaFaceWrapper
     from adaface_tpu_torch.models.retinaface import prior_boxes
@@ -2434,7 +2449,7 @@ def serve_joint(wrapper, faces, gen) -> dict:
     del cpu_joint, cpu_arc
 
     times = {}
-    for subject in ("a", "b"):
+    for subject in ("a",):
         for name, enc in (("arc2face", arc), ("consistentID", cid), ("joint", joint)):
             times[f"{name} {subject}"] = t = face_to_ada_ms(enc, faces[subject])
             log(f"face -> ada, {name}, subject {subject} ({len(faces[subject])} photos): host "
@@ -2450,7 +2465,9 @@ def serve_joint(wrapper, faces, gen) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAINED_RANK = 192  # the adapters' rank, as `configs/stage2-comp-distill.yaml` trains them
-TRAINED_REQUESTS = 2  # 512x512, 25-step requests with the adapters
+# 512x512, 25-step requests with the adapters (one: a second repeated the same
+# checks, dropped for the script's clock)
+TRAINED_REQUESTS = 1
 TRAINED_DRAIN = 4  # requests of the adapted drain through BATCH_SLOTS slots
 # an adapted UNet call's distance from the plain one, and an adapted image's,
 # at the least. Random weights keep conv_out at std 1e-4, so the prediction is
@@ -8340,6 +8357,81 @@ def toy_dataset(card: str) -> dict:
     return dict(write_s=write_s, item_ms=item_s * 1e3)
 
 
+BENCH_TRAIN_ITERS = 5  # timed steps a metric
+# kernels every bench step launches: the UNet's flash forward and backward,
+# its GroupNorms forward and backward
+BENCH_TRAIN_KERNELS = ("flash_attn_fwd[d<128]", "flash_attn_fwd[d>=128|causal]", "flash_bwd_delta",
+                       "flash_bwd_dkdv[wg]", "flash_bwd_dq[wg]", "gn_fused", "gn_bwd_fused")
+# and the recon step's decode with gradient: the D 512 flash and its backward
+BENCH_TRAIN_DECODE_KERNELS = ("flash_attn_fwd[bf16 wide]", "flash_bwd_delta[d512]",
+                              "flash_bwd_dkdv[d512]", "flash_bwd_dq[d512]")
+
+
+def bench_train(card: str) -> dict:
+    """`scripts/bench_train_torch.py`'s mode `all` in-process at full width
+    (BENCH_TRAIN_ITERS timed steps a metric), its lines parsed: each of its
+    three metrics there with finite numbers. After each metric's timed steps,
+    one more step under torch.profiler with the launch counts set to 0
+    before it and read after it: its launches and its device busy ms (the
+    sum of its device events), beside the timed steps' median on the host
+    clock. Then the recon metric again with a detector of one central face
+    (`central_face`), so the identity losses' gates open. Every step
+    launched each of BENCH_TRAIN_KERNELS, the recon steps
+    BENCH_TRAIN_DECODE_KERNELS too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+
+    sys.path.insert(0, str(REPO / "scripts"))
+    try:
+        import bench_train_torch as bt
+    finally:
+        sys.path.remove(str(REPO / "scripts"))
+    bt.ITERS = BENCH_TRAIN_ITERS
+    observed = {}
+    label = [""]
+
+    def observe(metric, run_step):
+        _build.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run_step()  # ends in a host read of the loss
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        observed[label[0] + metric] = dict(counts=launch_counts(), ops=len(events),
+                                           busy_ms=sum(e.us for e in events) / 1e3)
+
+    w = bt.card_workload()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bt.main(["all"], observe=observe, workload=w)
+    lines = {ln["metric"]: ln for ln in (json.loads(s) for s in out.getvalue().splitlines()
+                                         if s.startswith("{"))}
+    label[0] = "central face "
+    lines[label[0] + bt.METRICS[0]] = bt.phase_recon(
+        w, observe=observe, detector=HostFaceDetector(detector_fn=central_face))
+    bad = []
+    for name, line in lines.items():
+        o = observed[name]
+        o["host_ms"] = line["train_spread"]["median"] * 1e3
+        numbers = [line["value"], *line["train_spread"].values(), *line["device_ms"].values(),
+                   *(line[k] for k in ("train_sec", "collect_sec", "detect_sec") if k in line)]
+        want = BENCH_TRAIN_KERNELS + (BENCH_TRAIN_DECODE_KERNELS
+                                      if name.endswith(bt.METRICS[0]) else ())
+        missing = [k for k in want if not o["counts"].get(k)]
+        log(f"bench_train {name}: {json.dumps(line)}")
+        log(f"bench_train {name}: a step {o['host_ms']:.1f} ms on the host clock (the timed "
+            f"median), device busy {o['busy_ms']:.1f} ms in {o['ops']} operations under the "
+            f"profiler ({o['busy_ms'] / o['host_ms']:.1%}); launches {o['counts']} ({card})")
+        if missing or not all(math.isfinite(x) and x >= 0 for x in numbers) or line["value"] <= 0:
+            bad.append((name, missing))
+    if sorted(lines) != sorted(list(bt.METRICS) + [label[0] + bt.METRICS[0]]) or bad:
+        raise AssertionError(f"bench_train: metrics {sorted(lines)}, failing {bad}")
+    if lines[label[0] + bt.METRICS[0]]["detector"] != "detector_fn":
+        raise AssertionError("bench_train: the central-face detector was not used")
+    return dict(lines=lines, observed=observed)
+
+
 def timed_phase(name: str, fn, *args):
     """fn(*args), with its seconds logged: where the whole run's time goes."""
     t0 = time.perf_counter()
@@ -8413,6 +8505,8 @@ def main() -> int:
     recipes = timed_phase("train_stage2_recipes", train_stage2_recipes, gen, card)
     release()
     tp = timed_phase("train_tp", train_tp, card)
+    release()
+    bench = timed_phase("bench_train", bench_train, card)
     log(f"card: {card}; whole run {time.perf_counter() - t0:.1f} s")
     # each kernel's launches in the path that runs it
     from adaface_tpu_torch.ops import attention as A
@@ -8450,7 +8544,8 @@ def main() -> int:
              f"profile stages batch {PROFILE_BATCH} request": stages["counts"],
              "teacher sanity 2 images 8 steps": teacher["counts"],
              "dp adversarial recon iteration rank 0": dp["adv"]["counts"],
-             **{f"{case} rank 0": r["counts"] for case, r in tp["rows"].items()}}
+             **{f"{case} rank 0": r["counts"] for case, r in tp["rows"].items()},
+             **{f"bench_train {name} step": o["counts"] for name, o in bench["observed"].items()}}
     flash_bwd = {**flash_bwd, **stage2["flash_bwd"]}
     gn_bwd = {**gn_bwd, **stage2["gn_bwd"]}
     record = kernel_record(flash, gn, bn, ln, flash_bwd, gn_bwd, int8, counts, paths, sync_bn)
@@ -8478,7 +8573,12 @@ def main() -> int:
                                       "ranks_equal": r["bf16_equal"] and r["fp32_equal"],
                                       "rank_s": r["bf16_s"], "one_process_s": r["bf16_plain_s"]}
                                for case, r in tp["rows"].items()},
-                        "tp_flash": tp_flash}
+                        "tp_flash": tp_flash,
+                        "bench_train": {name: dict(
+                            value=line["value"], device_ms=line["device_ms"]["median"],
+                            busy_ms=bench["observed"][name]["busy_ms"],
+                            host_ms=bench["observed"][name]["host_ms"])
+                            for name, line in bench["lines"].items()}}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

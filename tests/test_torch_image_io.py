@@ -331,7 +331,7 @@ def test_port_imports_no_pil_or_jax():
             "scripts/txt2img_eval_torch.py", "scripts/gen_face_masks_torch.py",
             "scripts/make_toy_dataset_torch.py", "scripts/bench_quality_torch.py",
             "scripts/profile_pipeline_torch.py", "scripts/test_img_prompt_model_torch.py",
-            "scripts/dev_verify_comp_torch.py"} <= names
+            "scripts/dev_verify_comp_torch.py", "scripts/bench_train_torch.py"} <= names
     cv2 = {f.name for f in files if CV2_IMPORT.search(f.read_text())}
     assert cv2 <= CV2_ALLOWED, cv2 - CV2_ALLOWED
     bad = {f.name: PORT_IMPORT.findall(f.read_text()) for f in files}
