@@ -42,7 +42,7 @@ from adaface_tpu_torch.models.clip import (CLIP_L_TEXT, CLIPTextConfig, CLIPText
                                            extend_mkv, fit_kv_widths_, init_text_weights_,
                                            squeeze_mkv)
 from adaface_tpu_torch.text.tokenizer import CLIPTokenizer
-from adaface_tpu_torch.utils.tensor import Draws, gen_gradient_scaler
+from adaface_tpu_torch.utils.tensor import Draws, device_constant, gen_gradient_scaler
 
 EMB_TYPES = ("core", "full", "full_pad", "full_half_pad")
 
@@ -160,8 +160,8 @@ class SubjBasisGenerator(nn.Module):
         start = self.id_start
         end = start + n_id
         pad_begin = end + n_sfx + 2
-        ids = torch.as_tensor(self.template_ids, dtype=torch.long,
-                              device=face_prompt_embs.device).expand(b, -1)
+        ids = device_constant(self.template_ids, face_prompt_embs.device,
+                              torch.long).expand(b, -1)
         token_embs = self.clip.token_embedding[ids]
         token_embs[:, start:end] = face_prompt_embs.to(token_embs.dtype)
         if enable_static_img_suffix_embs and n_sfx > 0:

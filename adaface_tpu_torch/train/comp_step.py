@@ -34,10 +34,13 @@ re-denoise's two), or ride in the batch (`comp_rand`, `redenoise_rand`) as
 the CPU tests hand over JAX's. Under data parallelism the batch is a rank's
 slice: the draws are the global batch's, sliced by their `batch_axis`, the
 first instance's ada embeddings and priming noise the global batch's, and
-every mean and gate of the losses global (`parallel.collectives`). The JAX package's collect phases and
-three-phase runner (`comp_detections_to_batch`, `make_three_phase_comp_step`)
-work around backends without host callbacks and are not ported: detection
-runs inline, as in the recon iteration.
+every mean and gate of the losses global (`parallel.collectives`).
+
+The JAX package's three-phase comp step (`comp_detections_to_batch`,
+`make_three_phase_comp_step`) is not ported: JAX selects it only on
+backends without host callbacks and under a mesh, and no runner overlaps
+it; detection runs inline. (The recon iteration's two-phase step is
+ported, for its pipelined runner: `recon_step.make_two_phase_recon_step`.)
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from adaface_tpu_torch.train.comp_losses import (calc_comp_subj_bg_preserve_loss
 from adaface_tpu_torch.train.losses import (calc_attn_norm_loss, calc_prompt_emb_delta_loss,
                                             calc_subj_masked_bg_suppress_loss)
 from adaface_tpu_torch.train.train_step import TrainConfig, compute_ada_embs, unet_runner
-from adaface_tpu_torch.utils.tensor import Draws, as_draws
+from adaface_tpu_torch.utils.tensor import Draws, as_draws, device_constant
 
 Params = dict[str, Any]
 
@@ -286,7 +289,7 @@ def encode_comp_prompts(frozen: Params, ada_embs: torch.Tensor, batch: Params,
                                  splice_map)
     if batch.get("merge_map") is not None:
         embs = apply_merge_map(embs, batch["merge_map"])
-    default_w = torch.tensor(cfg.clip_skip_weights, device=embs.device)
+    default_w = device_constant(cfg.clip_skip_weights, embs.device)
     skip_w = batch.get("clip_skip_weights")
     fixed_w = batch.get("clip_skip_weights_fixed")
     skip_w = default_w if skip_w is None else skip_w

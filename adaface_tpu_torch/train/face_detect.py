@@ -9,6 +9,12 @@ decoded image (`detect_faces`), which reads the image back to the host once
 per active denoising step; the boxes come back as tensors on the image's
 device and are data (no gradient) to the crops that follow.
 
+The two-phase recon step (`recon_step.make_two_phase_recon_step`) detects
+on its collect pass's frames instead: uint8 NHWC images downsized on the
+device, copied to pinned host memory without draining the stream
+(`HostCopy`) and detected at the downsized scale with the boxes scaled
+back (`detect_frames`), on a worker thread where the step is pipelined.
+
 `HostFaceDetector` never raises: a detector that fails, or finds nothing,
 gives "no face, full-image box", as `RetinaFaceClient.crop_faces` does
 (`evaluation/retinaface_pytorch.py`). Its backend chain is the JAX
@@ -20,6 +26,7 @@ in "none" and every image is "no face".
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable
 
 import numpy as np
@@ -64,7 +71,9 @@ class HostFaceDetector:
     Backends (first available wins): an injected `detector_fn`
     (tests, a custom detector), insightface FaceAnalysis, the OpenCV Haar
     cascade. `detector_fn(img_uint8_rgb) -> list[(bbox(4,), score)]`
-    sorted any way; faces are ranked by area.
+    sorted any way; faces are ranked by area. Calls from several threads
+    (the batch-prefetch thread's input detection, a pipelined recon step's
+    worker) take turns: a detector backend need not be reentrant.
     """
 
     def __init__(self, detector_fn: Callable | None = None, min_size: int = 20,
@@ -75,6 +84,7 @@ class HostFaceDetector:
         self._insight = None
         self._cascade = None
         self._backend = None
+        self._lock = threading.Lock()
 
     @property
     def backend(self) -> str:
@@ -86,7 +96,7 @@ class HostFaceDetector:
             self._backend = self._pick_backend()
         return self._backend
 
-    def _detect_one(self, img: np.ndarray) -> list[tuple[np.ndarray, float]]:
+    def _detect_one(self, img: np.ndarray, min_size: int) -> list[tuple[np.ndarray, float]]:
         """img uint8 RGB [H, W, 3] → [(bbox, score)]."""
         if self.detector_fn is not None:
             return list(self.detector_fn(img) or [])
@@ -99,7 +109,7 @@ class HostFaceDetector:
 
             gray = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)
             faces = self._cascade.detectMultiScale(gray, 1.1, 4,
-                                                   minSize=(self.min_size, self.min_size))
+                                                   minSize=(min_size, min_size))
             return [(np.asarray((x, y, x + w, y + h), np.float32), 1.0)
                     for (x, y, w, h) in faces]
         return []
@@ -125,9 +135,15 @@ class HostFaceDetector:
             pass
         return "none"
 
-    def __call__(self, images) -> FaceDetections:
-        """images [B, 3, H, W] float in [-1, 1] (or [B, H, W, 3] uint8)."""
+    def __call__(self, images, min_size: int | None = None) -> FaceDetections:
+        """images [B, 3, H, W] float in [-1, 1] (or [B, H, W, 3] uint8);
+        `min_size` in place of `self.min_size` for this call."""
         imgs = to_uint8_nhwc(images)
+        min_size = self.min_size if min_size is None else min_size
+        with self._lock:
+            return self._detect(imgs, min_size)
+
+    def _detect(self, imgs: np.ndarray, min_size: int) -> FaceDetections:
         b, h, w = imgs.shape[0], imgs.shape[1], imgs.shape[2]
         fg = np.zeros((b, 4), np.float32)
         det = np.zeros((b,), np.float32)
@@ -136,8 +152,8 @@ class HostFaceDetector:
         bgv = np.zeros((b, self.max_bg), np.float32)
         for i in range(b):
             try:
-                faces = [(f, s) for (f, s) in self._detect_one(imgs[i])
-                         if (f[2] - f[0]) >= self.min_size and (f[3] - f[1]) >= self.min_size]
+                faces = [(f, s) for (f, s) in self._detect_one(imgs[i], min_size)
+                         if (f[2] - f[0]) >= min_size and (f[3] - f[1]) >= min_size]
             except Exception:
                 faces = []
             if faces:
@@ -169,6 +185,46 @@ def detect_faces(images: torch.Tensor, detector: HostFaceDetector,
     return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
                  for a in (d.fg_bboxes, d.detected, d.confidences,
                            d.bg_bboxes[:, :max_bg], d.bg_valid[:, :max_bg]))
+
+
+class HostCopy:
+    """A tensor's copy on the host. From the card it is started at once, as
+    a non-blocking copy into pinned memory with a CUDA event after it, so
+    the stream is not drained; `numpy()` waits on that event alone (from
+    any thread). A CPU tensor is only detached."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.is_cuda:
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t.detach()
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+def detect_frames(detector, frames: np.ndarray, scale: float) -> FaceDetections:
+    """Detection on uint8 NHWC frames downsized by `scale` from the decode
+    (`make_two_phase_recon_step`'s `detect_on`, JAX `recon_step.py:594-617`):
+    a detector's `min_size`, a full-size threshold, is shrunk to
+    max(1, round(min_size / scale)) for the call, and the boxes come back
+    scaled to the full size. The detector itself is left as it is: the
+    shrunk size is handed to the call."""
+    min_size = getattr(detector, "min_size", None)
+    if min_size is not None and scale != 1.0:
+        dets = detector(frames, min_size=max(1, int(round(min_size / scale))))
+    else:
+        dets = detector(frames)
+    if scale != 1.0:
+        dets.fg_bboxes = dets.fg_bboxes * scale
+        dets.bg_bboxes = dets.bg_bboxes * scale
+    return dets
 
 
 def bbox_latent_mask(bboxes: torch.Tensor, detected: torch.Tensor, hw: tuple[int, int]):

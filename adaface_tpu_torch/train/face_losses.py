@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from adaface_tpu_torch.parallel.collectives import gmean, gsum
+from adaface_tpu_torch.utils.tensor import device_constant
 
 RGB_TO_GRAY = (0.299, 0.587, 0.114)
 
@@ -92,7 +93,7 @@ def embed_face_crops(arcface, images: torch.Tensor, bboxes: torch.Tensor,
     """images [B, 3, H, W] in [-1, 1], bboxes [B, 4] → (emb_center [B, 512],
     emb_border [B, 512]); ArcFace runs in its weights' dtype (fp32)."""
     crops = bilinear_crop(images, bboxes, 128)
-    gray_w = torch.tensor(RGB_TO_GRAY, device=images.device)[None, :, None, None]
+    gray_w = device_constant(RGB_TO_GRAY, images.device)[None, :, None, None]
     gray = (crops * gray_w).sum(dim=1, keepdim=True)
     dt = next(arcface.parameters()).dtype
     center_ratio, border_ratio = fg_faces_grad_mask_ratios

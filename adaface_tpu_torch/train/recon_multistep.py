@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from adaface_tpu_torch.models.vae import vae_decode
 from adaface_tpu_torch.train.face_losses import bilinear_crop, embed_face_crops
-from adaface_tpu_torch.utils.tensor import Draws
+from adaface_tpu_torch.utils.tensor import Draws, device_constant
 
 # the 3x3 smoothing kernels by their centre weight (`SMOOTH_KERNELS`, `:37-42`)
 SMOOTH_CENTRE = {1: (1.0, 9.0), 2: (2.0, 10.0), 3: (3.0, 11.0), 4: (4.0, 12.0)}
@@ -99,10 +99,10 @@ def var_of_laplacian(images: torch.Tensor, scale: float = 10.0) -> torch.Tensor:
     """Per-image variance (unbiased, as torch's `.var()` the reference
     calibrated on) of the 3x3 Laplacian of 10× the grey image; images
     [B, 3, H, W] → [B] fp32."""
-    w = torch.tensor(RGB_TO_GRAY, device=images.device)
+    w = device_constant(RGB_TO_GRAY, images.device)
     gray = (images.float() * w[None, :, None, None]).sum(1, keepdim=True)
-    k = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
-                     device=images.device)[None, None]
+    k = device_constant(((0.0, 1.0, 0.0), (1.0, -4.0, 1.0), (0.0, 1.0, 0.0)),
+                        images.device)[None, None]
     lap = F.conv2d(gray * scale, k, padding=1)
     return lap.flatten(1).var(dim=1, unbiased=True)
 

@@ -26,9 +26,22 @@ gradient of the input's decode from the next step's noise; its probability
 is 0 in the reference's defaults.
 
 Data-dependent gates stay tensors ({0, 1} weights), as in the JAX graph: the
-host reads back only the decoded images for detection. The JAX package's
-collect→detect→train split (`make_two_phase_recon_step`, the pipelined
-runner) worked around a relay without host callbacks and is not ported.
+host reads back only the decoded images for detection.
+
+The same iteration also runs split in two phases (JAX `:148-180`,
+`:550-687`): `recon_loss_fn_v2(collect_mode=True)` runs the denoise without
+gradient, the subject, class and unconditional rows in one UNet call at
+batch 3B, and returns each active step's decode downsized to
+`collect_px_size` as uint8 NHWC frames, with the class and unconditional
+predictions (and on pure noise the state after priming); the host detects
+on the frames; the train phase reads the detections
+(`batch["recon_face_dets"]`) and the predictions (`batch["recon_phase_a"]`)
+in place of the inline detection and of two of its three UNet calls a
+step. `make_two_phase_recon_step` runs the two in sequence;
+`make_pipelined_recon_runner` overlaps them across steps (collect(N+1) is
+issued before train(N), and the detection of step N runs on a worker thread
+while the main thread issues train(N - 1) and collect(N + 1)), which is
+`TrainerConfig.overlap_recon_collect`.
 
 With the attention adapters trained (Stage 2) every UNet call of an
 iteration on images runs them, gated by the batch's `recon_attn_lora_gate`
@@ -40,7 +53,10 @@ The UNet computes in `ReconStepConfig.compute_dtype` (bf16 on the card):
 `train_step.unet_runner` casts a trained UNet's fp32 weights once per
 evaluation. Random draws come from `Draws` in this order: the ada
 embeddings' perturbation (three, when `training_perturb_prob` > 0), then
-`sample_recon_rand`'s; a batch may carry `recon_rand` instead.
+`sample_recon_rand`'s; a batch may carry `recon_rand` instead. None of them
+is read back to the host. The two phases of a step take the same draws, as
+JAX hands both the same key: the collect pass draws from a fork of the
+step's stream (`Draws.fork`), the train phase from the stream itself.
 
 Under data parallelism (`make_train_step(mesh=)`) the batch is a rank's
 slice: the draws are the global batch's, sliced by their `batch_axis`; the
@@ -55,25 +71,28 @@ its own copy of the decoded images, checked equal bit for bit first
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from adaface_tpu_torch.models.unet import AttnRuntime
 from adaface_tpu_torch.models.vae import vae_decode
 from adaface_tpu_torch.ops.schedules import DiffusionSchedule
 from adaface_tpu_torch.parallel.collectives import (active_mesh, gall, global_batch_size, gmax,
                                                     gmean, gsum)
-from adaface_tpu_torch.train.face_detect import (HostFaceDetector, bbox_latent_mask,
-                                                 detect_faces, map_bboxes_to_latent)
+from adaface_tpu_torch.train.face_detect import (FaceDetections, HostCopy, HostFaceDetector,
+                                                 bbox_latent_mask, detect_faces, detect_frames,
+                                                 map_bboxes_to_latent)
 from adaface_tpu_torch.train.face_losses import (calc_arcface_align_loss,
                                                  calc_bg_faces_suppress_loss)
 from adaface_tpu_torch.train.losses import (calc_prompt_emb_delta_loss,
                                             calc_recon_and_suppress_losses)
 from adaface_tpu_torch.train.recon_multistep import calc_arcface_adv_grad
 from adaface_tpu_torch.train.train_step import (TrainConfig, _encode_prompts_with_ada,
-                                                compute_ada_embs, unet_runner)
+                                                compute_ada_embs, make_train_step, unet_runner)
 from adaface_tpu_torch.utils.tensor import Draws, anneal_perturb_embedding, as_draws
 
 Params = dict[str, Any]
@@ -98,6 +117,10 @@ class ReconStepConfig:
     adv_bs: int = 2
     recon_adv_mod_mag_range: tuple[float, float] = (0.001, 0.003)
     max_bg_faces: int = 2
+    # the collect pass's detection frames: each decode downsized to this
+    # size (0: the decode's own) before the host reads it back; the
+    # identity losses of the train phase still take the full decode
+    collect_px_size: int = 256
     compute_dtype: str = "bfloat16"  # the UNet's; tests set float32
 
     @property
@@ -120,7 +143,7 @@ def sample_recon_rand(draws: Draws, x_start: torch.Tensor, schedule: DiffusionSc
         "noises": draws.normal((s, *x_start.shape), dev, batch_axis=1),
         "rel_ts": draws.uniforms((max(s - 1, 0), b), dev, batch_axis=1),
         "x_start0": draws.normal(x_start.shape, dev, batch_axis=0),
-        "adv_uniform": draws.uniform(),
+        "adv_uniform": draws.uniforms((), dev),
         # the first min(adv_bs, B) instances of the global batch
         "adv_dropout_u": draws.uniforms((min(cfg.adv_bs, global_batch_size(b)), ARCFACE_DIM),
                                         dev),
@@ -139,10 +162,34 @@ def _stack_mean(xs: list) -> torch.Tensor:
     return torch.stack(xs).mean()
 
 
+def resize_frames(px: torch.Tensor, size: int) -> torch.Tensor:
+    """Images [B, C, H, W] resized to [B, C, size, size] in fp32 as
+    `jax.image.resize(..., "linear")` resizes them (a triangle filter
+    widened by the scale when it shrinks: bilinear with antialiasing), where
+    H is larger than `size` (0: never)."""
+    px = px.float()
+    if size and px.shape[-1] > size:
+        px = F.interpolate(px, size=(size, size), mode="bilinear", align_corners=False,
+                           antialias=True)
+    return px
+
+
+def downsize_frames(px: torch.Tensor, size: int) -> torch.Tensor:
+    """Decoded images [B, 3, H, W] in [-1, 1] → detection frames [B, size,
+    size, 3] uint8 (JAX `:371-377`): `resize_frames`, then clipped to
+    [0, 255] and truncated as `astype` does."""
+    px = resize_frames(px, size)
+    return torch.clamp((px.permute(0, 2, 3, 1) + 1.0) * 127.5, 0, 255).to(torch.uint8)
+
+
 def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: DiffusionSchedule,
                      cfg: TrainConfig, draws=None, rcfg: ReconStepConfig = ReconStepConfig(),
-                     detector: HostFaceDetector | None = None):
-    """The recon iteration's loss → (loss, metrics).
+                     detector: HostFaceDetector | None = None, collect_mode: bool = False):
+    """The recon iteration's loss → (loss, metrics); with `collect_mode`,
+    the collect pass → (0, {"recon_px": [S, B, ps, ps, 3] uint8 frames,
+    "eps_cls", "eps_un": [S, B, 4, h, w], "decode_px": the decode's size,
+    and on pure noise "x_primed", "t_primed"}), S the active steps; run it
+    under `torch.no_grad()`.
 
     params: {"sbg", optional "unet", "attn_lora"}; frozen: {"unet", "text_encoder", and
     for the identity losses "vae" (a `VAEDecoder`) and "arcface"}. batch:
@@ -151,7 +198,11 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
     [B, 1, h, w]; ref_images [B, 3, H, W] (the input pixels); ref_face_bboxes
     [B, 4] and ref_face_detected [B], host-detected on the inputs;
     recon_attn_lora_gate (0 or 1); optional recon_rand (see
-    `sample_recon_rand`)."""
+    `sample_recon_rand`). The train phase of the two-phase step adds
+    recon_face_dets ({fg [S, B, 4], det, conf [S, B], bgb [S, B, max_bg, 4],
+    bgv [S, B, max_bg]}, read in place of the inline detection) and
+    recon_phase_a (the collect pass's predictions, read in place of the
+    class and unconditional calls and of the priming chain)."""
     x_start_in = batch["x_start"]
     dev, b, hw = x_start_in.device, x_start_in.shape[0], x_start_in.shape[-1]
     draws = as_draws(draws, dev)
@@ -178,8 +229,10 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
     fg_mask = torch.ones_like(batch["fg_mask"]) if on_noise else batch["fg_mask"]
     subj_mask = (batch["splice_map"][:b] >= 0).float()
     dt = getattr(torch, rcfg.compute_dtype)
-    have_arcface = ("arcface" in frozen and "vae" in frozen
-                    and rcfg.arcface_align_loss_weight > 0 and detector is not None)
+    pre_dets = batch.get("recon_face_dets")
+    have_arcface = ("arcface" in frozen and "vae" in frozen and not collect_mode
+                    and rcfg.arcface_align_loss_weight > 0
+                    and (detector is not None or pre_dets is not None))
     unet = unet_runner(params, frozen, dt)
     # the attention adapters' gate (the planner's draw), off on pure noise
     # and on the unconditional rows; no FFN adapter in recon (`:226-248`)
@@ -200,10 +253,22 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
     align_contribs, align_keeps, stat_contribs, stat_gates = [], [], [], []
     bg_contribs, bg_gates, det_fracs = [], [], []
     recon_steps, recon_cls_steps, scale_steps, mb_steps, pred_l2s = [], [], [], [], []
+    collected_px, collected_cls, collected_un = [], [], []
+    decode_px = None
+    # the collect pass's no-grad predictions, read in place of the class
+    # and unconditional call (JAX `:260-279`); on pure noise its state after
+    # the priming chain, which is no-grad throughout
+    phase_a = batch.get("recon_phase_a")
+    n_active = 0
     ones_b = torch.ones((b,), device=dev)
     x, t = x0, rand["t0"]
+    start_i, primed = 0, None
+    if phase_a is not None and n_prime > 0 and "x_primed" in phase_a:
+        x, t, start_i = phase_a["x_primed"].detach(), phase_a["t_primed"], n_prime
     noise_next_adj = None  # the adversarially attacked noise of the next step
-    for i in range(s_total):
+    for i in range(start_i, s_total):
+        if collect_mode and on_noise and i == n_prime:
+            primed = (x, t)
         noise_i = rand["noises"][i] if noise_next_adj is None else noise_next_adj
         noise_next_adj = None
         x_t = schedule.q_sample(x, t, noise_i)
@@ -218,14 +283,34 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
                 t = _next_t(t, rand["rel_ts"][i], s_total)
             continue
 
-        # the subject-conditioned denoise, with gradient and capture
         cap: dict = {}
-        eps_subj = unet(x_t.to(dt), t, ctx_subj.to(dt), img_mask=img_mask, capture=cap,
-                        rt=rt_grad, subj_mask=subj_mask, attn_lora=a_lora,
-                        attn_lora_gate=gate if use_attn_lora else None).to(x.dtype)
-        m2 = torch.cat([img_mask, torch.ones_like(img_mask)]) if img_mask is not None else None
-        eps_cls, eps_un = denoise_nograd(torch.cat([x_t, x_t]), torch.cat([t, t]),
-                                         torch.cat([ctx_cls, uncond_b]), m2).chunk(2)
+        if collect_mode:
+            # one no-grad call of [subject, class, unconditional] (JAX `:306-321`)
+            with torch.no_grad():
+                m3 = (torch.cat([img_mask, img_mask, torch.ones_like(img_mask)])
+                      if img_mask is not None else None)
+                eps3 = unet(torch.cat([x_t] * 3).to(dt), torch.cat([t] * 3),
+                            torch.cat([ctx_subj, ctx_cls, uncond_b]).to(dt), img_mask=m3,
+                            rt=rt_nograd, attn_lora=a_lora,
+                            attn_lora_gate=torch.cat([gate2[:b], gate2])
+                            if use_attn_lora else None).to(x_t.dtype)
+            eps_subj, eps_cls, eps_un = eps3.chunk(3)
+            collected_cls.append(eps_cls)
+            collected_un.append(eps_un)
+        else:
+            # the subject-conditioned denoise, with gradient and capture
+            eps_subj = unet(x_t.to(dt), t, ctx_subj.to(dt), img_mask=img_mask, capture=cap,
+                            rt=rt_grad, subj_mask=subj_mask, attn_lora=a_lora,
+                            attn_lora_gate=gate if use_attn_lora else None).to(x.dtype)
+            if phase_a is not None:
+                eps_cls = phase_a["eps_cls"][n_active].detach()
+                eps_un = phase_a["eps_un"][n_active].detach()
+            else:
+                m2 = (torch.cat([img_mask, torch.ones_like(img_mask)]) if img_mask is not None
+                      else None)
+                eps_cls, eps_un = denoise_nograd(torch.cat([x_t, x_t]), torch.cat([t, t]),
+                                                 torch.cat([ctx_cls, uncond_b]), m2).chunk(2)
+        n_active += 1
         if rcfg.cfg_scale > 1 and (s_total > 1 or on_noise):
             s_ = rcfg.cfg_scale
             eps_subj_cfg = eps_subj * s_ - eps_un * (s_ - 1.0)
@@ -235,11 +320,22 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
         x_recon = schedule.predict_start_from_noise(x_t, t, eps_subj_cfg)
         pred_l2s.append(gmean(eps_subj_cfg.float() ** 2))
 
+        if collect_mode and "vae" in frozen:
+            # the detection frames, downsized on the device (JAX `:360-377`)
+            with torch.no_grad():
+                px_full = vae_decode(frozen["vae"], x_recon)
+            decode_px = px_full.shape[-1]
+            collected_px.append(downsize_frames(px_full, rcfg.collect_px_size))
         if have_arcface:
             # identity losses on the decoded recon (`:2700-2789`)
             recon_px = vae_decode(frozen["vae"], x_recon)
-            fg_bb, det, _conf, bg_bb, bg_val = detect_faces(recon_px, detector,
-                                                            rcfg.max_bg_faces)
+            if pre_dets is not None:
+                k = len(det_fracs)  # the active step's index
+                fg_bb, det = pre_dets["fg"][k], pre_dets["det"][k]
+                bg_bb, bg_val = pre_dets["bgb"][k], pre_dets["bgv"][k]
+            else:
+                fg_bb, det, _conf, bg_bb, bg_val = detect_faces(recon_px, detector,
+                                                                rcfg.max_bg_faces)
             det = det * batch.get("ref_face_detected", ones_b)
             la, _lfg, _ = calc_arcface_align_loss(
                 frozen["arcface"], batch["ref_images"], recon_px, batch["ref_face_bboxes"],
@@ -268,14 +364,15 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
             inst_w = ones_b
             scale_steps.append(torch.ones((), device=dev))
             fg2 = fg_mask
-        # img_mask None: the blank augmentation pixels are regularized as
-        # background (`ddpm.py:2770-2775`)
-        lr, lrc, lmb = calc_recon_and_suppress_losses(
-            noise_i, eps_subj_cfg, eps_cls_cfg, inst_w, cap.get("attn", {}), subj_mask, None,
-            fg2, rcfg.recon_bg_pixel_weight, on_noise)
-        recon_steps.append(lr)
-        recon_cls_steps.append(lrc)
-        mb_steps.append(lmb.to(dev))
+        if not collect_mode:
+            # img_mask None: the blank augmentation pixels are regularized as
+            # background (`ddpm.py:2770-2775`)
+            lr, lrc, lmb = calc_recon_and_suppress_losses(
+                noise_i, eps_subj_cfg, eps_cls_cfg, inst_w, cap.get("attn", {}), subj_mask,
+                None, fg2, rcfg.recon_bg_pixel_weight, on_noise)
+            recon_steps.append(lr)
+            recon_cls_steps.append(lrc)
+            mb_steps.append(lmb.to(dev))
 
         if i < s_total - 1:  # chain to the next step (`:1815-1827`)
             t_next = _next_t(t, rand["rel_ts"][i], s_total)
@@ -284,6 +381,16 @@ def recon_loss_fn_v2(params: Params, frozen: Params, batch: Params, schedule: Di
                                                      rcfg, hw)
             x = x_recon if on_noise else x_start_in
             t = t_next
+
+    if collect_mode:
+        empty = torch.zeros((0,), device=dev)
+        out = {"recon_px": torch.stack(collected_px) if collected_px else empty,
+               "eps_cls": torch.stack(collected_cls) if collected_cls else empty,
+               "eps_un": torch.stack(collected_un) if collected_un else empty,
+               "decode_px": decode_px}
+        if primed is not None:
+            out["x_primed"], out["t_primed"] = primed
+        return torch.zeros((), device=dev), out
 
     arc_scale = 4.0 if on_noise else 1.0  # `:2804-2808`
     loss = torch.zeros((), device=dev)
@@ -353,9 +460,11 @@ def _adv_attacked_noise(frozen: Params, batch: Params, rand: Params, noise_next:
     fg = batch["fg_mask"][:n]
     fg_mean = gsum((adv.abs() * fg).sum()) / (gsum(fg.sum()) * noise_next.shape[1] + 1e-6)
     adv_mag = torch.sqrt(gmax(adv.abs()) * fg_mean)
+    # the magnitude's draw stays on the device: in fp64, as on the host
     lo_mag, hi_mag = rcfg.recon_adv_mod_mag_range
-    mod_mag = lo_mag + (hi_mag - lo_mag) * float(rand["adv_uniform"])
-    scale = torch.clamp(mod_mag / (adv_mag + 1e-6), max=10.0)
+    u = torch.as_tensor(rand["adv_uniform"], device=dev).double()
+    mod_mag = (lo_mag + (hi_mag - lo_mag) * u).float()
+    scale = torch.clamp((adv_mag + 1e-6).reciprocal() * mod_mag, max=10.0)
     return torch.cat([noise_next[:n] - adv * scale * ok.to(adv.dtype), noise_next[n:]])
 
 
@@ -368,3 +477,123 @@ def make_recon_loss_fn(rcfg: ReconStepConfig, detector: HostFaceDetector | None)
                                 detector=detector)
 
     return loss_fn
+
+
+def detections_to_batch(dets: FaceDetections, s_steps: int, b: int, max_bg: int = 2,
+                        device=None) -> Params:
+    """Host detections over the [S·B] flattened frames → the
+    `recon_face_dets` batch entry ([S, B, ...] fp32 tensors on `device`; to
+    the card through pinned memory without a wait)."""
+    arrays = {"fg": (dets.fg_bboxes, (s_steps, b, 4)), "det": (dets.detected, (s_steps, b)),
+              "conf": (dets.confidences, (s_steps, b)),
+              "bgb": (dets.bg_bboxes, (s_steps, b, max_bg, 4)),
+              "bgv": (dets.bg_valid, (s_steps, b, max_bg))}
+    dev = torch.device(device if device is not None else "cpu")
+    out = {}
+    for key, (a, shape) in arrays.items():
+        host = torch.from_numpy(np.ascontiguousarray(a, np.float32).reshape(shape))
+        out[key] = (host.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda"
+                    else host.to(dev))
+    return out
+
+
+def make_two_phase_recon_step(rcfg: ReconStepConfig, detector, frozen: Params,
+                              schedule: DiffusionSchedule, cfg: TrainConfig, progress=None):
+    """The recon step in two phases (JAX `:570-637`): the collect pass
+    (no gradient), host detection on its frames, and the train step
+    (`make_train_step`) on the batch with the detections and the collect's
+    predictions. → run(state, batch, draws) → (state, metrics), with the
+    phases as `run.collect(state, batch, draws)` → the collect's output (its
+    frames' host copy started), `run.detect_on(out, batch)` → the train
+    phase's batch, and `run.train(state, batch, draws)`; collect and train
+    are handed the same draws and take the same values from them. The
+    result equals the inline step's where the decode is no larger than
+    `collect_px_size` (the frames are then the inline detection's pixels)."""
+    def loss_fn(params, frozen_, batch, schedule_, cfg_, draws=None):
+        return recon_loss_fn_v2(params, frozen_, batch, schedule_, cfg_, draws, rcfg=rcfg)
+
+    step = make_train_step(loss_fn, frozen, schedule, cfg)  # detections from the batch
+    note = progress if progress is not None else (lambda msg: None)
+
+    def collect(state, batch, draws=None):
+        forked = as_draws(draws, batch["x_start"].device).fork()
+        with torch.no_grad():
+            _, out = recon_loss_fn_v2(state.params, frozen, batch, schedule, cfg, forked,
+                                      rcfg=rcfg, detector=None, collect_mode=True)
+        out["recon_px"] = HostCopy(out["recon_px"])
+        return out
+
+    def detect_on(out, batch):
+        """Host detection on the collect's frames → the train phase's batch,
+        the boxes scaled back to the decode's size."""
+        frames = out["recon_px"].numpy()  # [S, B, ps, ps, 3] uint8
+        s_steps, b = frames.shape[0], frames.shape[1]
+        dets = detect_frames(detector, frames.reshape(s_steps * b, *frames.shape[2:]),
+                             out["decode_px"] / frames.shape[2])
+        phase_a = {k: out[k] for k in ("eps_cls", "eps_un", "x_primed", "t_primed") if k in out}
+        return dict(batch, recon_phase_a=phase_a,
+                    recon_face_dets=detections_to_batch(dets, s_steps, b,
+                                                        getattr(detector, "max_bg", 2),
+                                                        batch["x_start"].device))
+
+    def run(state, batch, draws=None):
+        draws = as_draws(draws, batch["x_start"].device)
+        out = collect(state, batch, draws)
+        note("collect done (recon denoise decoded)")
+        return step(state, detect_on(out, batch), draws)
+
+    run.collect, run.detect_on, run.train = collect, detect_on, step
+    return run
+
+
+class PipelinedReconRunner:
+    """The two-phase recon step pipelined across consecutive iterations
+    (JAX `make_pipelined_recon_runner`, `:640-687`): `push(state, batch,
+    draws)` issues collect(N+1), hands its detection to a worker thread,
+    then trains step N on its detections and returns N's (state, metrics)
+    (None at the first push); `flush(state)` trains the last pending step.
+    collect(N+1) is issued before train(N), so it reads the parameters from
+    before N's update: the detections, and where the attention adapters or
+    the UNet train the no-grad anchors, lag one optimizer step. At a
+    learning rate of 0 the results are the sequential step's.
+
+    The detection of step N waits on its frames' CUDA event on the worker
+    (OpenCV releases the GIL while it detects) while the main thread issues
+    train(N - 1) and collect(N + 1): the detection's readback drains
+    nothing. A train phase that raises leaves its step pending. `close()`
+    ends the worker."""
+
+    def __init__(self, two_phase_run):
+        self.run = two_phase_run
+        self._pending = None  # (the detection's future, draws)
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="recon-detect")
+
+    def push(self, state, batch, draws=None):
+        draws = as_draws(draws, batch["x_start"].device)
+        out = self.run.collect(state, batch, draws)
+        nxt = (self._pool.submit(self.run.detect_on, out, batch), draws)
+        result = self._train(state, self._pending) if self._pending is not None else None
+        self._pending = nxt
+        return result
+
+    def flush(self, state):
+        if self._pending is None:
+            return None
+        result = self._train(state, self._pending)
+        self._pending = None
+        return result
+
+    def _train(self, state, pending):
+        future, draws = pending
+        # a fork, so that a train phase run again after an interrupt draws alike
+        return self.run.train(state, future.result(), draws.fork())
+
+    def close(self) -> None:
+        """Drop the pending step and end the worker (after its detection)."""
+        self._pending = None
+        self._pool.shutdown(wait=True)
+
+
+def make_pipelined_recon_runner(two_phase_run) -> PipelinedReconRunner:
+    """`PipelinedReconRunner` over a `make_two_phase_recon_step` step."""
+    return PipelinedReconRunner(two_phase_run)

@@ -53,7 +53,7 @@ from adaface_tpu_torch.text.embedding_manager import (apply_merge_map,
 from adaface_tpu_torch.train.losses import (calc_prompt_emb_delta_loss,
                                             calc_recon_and_suppress_losses)
 from adaface_tpu_torch.train.optimizers import MultiSteps, global_norm
-from adaface_tpu_torch.utils.tensor import anneal_perturb_embedding, as_draws
+from adaface_tpu_torch.utils.tensor import anneal_perturb_embedding, as_draws, device_constant
 
 Params = dict[str, Any]
 # the prompt2token_proj tables that are buffers, not parameters, in the JAX
@@ -161,7 +161,7 @@ def _encode_prompts_with_ada(frozen: Params, ada_embs: torch.Tensor, batch: Para
         embs = apply_merge_map(embs, batch["merge_map"])
     skip_w = batch.get("clip_skip_weights")
     if skip_w is None:
-        skip_w = torch.tensor(cfg.clip_skip_weights, device=embs.device)
+        skip_w = device_constant(cfg.clip_skip_weights, embs.device)
     ctx = te(ids, input_embs=embs, skip_weights=skip_w)
     extras = {}
     if batch.get("uncond_ids") is not None:

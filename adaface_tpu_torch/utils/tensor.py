@@ -33,6 +33,16 @@ class Draws:
         self.generator = generator
         self._handed = None if handed is None else list(handed)
 
+    def fork(self) -> "Draws":
+        """A second stream that gives the draws this one gives from here on,
+        this one left as it is: a generator of the same state (no device
+        read), or a copy of the draws left to hand."""
+        if self.generator is None:
+            return Draws(handed=list(self._handed))
+        gen = torch.Generator(self.generator.device)
+        gen.set_state(self.generator.get_state())
+        return Draws(generator=gen)
+
     def _pop(self, what: str):
         if not self._handed:
             raise ValueError(f"no handed draw left for {what}")
@@ -80,6 +90,23 @@ class Draws:
                 raise ValueError(f"handed draw of shape {tuple(x.shape)}, wanted {shape}")
             return x.to(device)
         return torch.rand(shape, generator=self.generator, device=self.generator.device).to(device)
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype)` on `device`, made at the first
+    call for (values, dtype, device) and kept: a step that reads a constant
+    from the card copies nothing from pageable host memory, a copy that
+    waits for the stream to drain. Made outside inference mode, so autograd
+    can save it; never write to it."""
+    key = (tuple(values), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = _CONSTANTS[key] = torch.tensor(key[0], dtype=dtype, device=device)
+    return t
 
 
 def as_draws(rng, device) -> Draws:
@@ -176,18 +203,21 @@ def anneal_perturb_embedding(draws: Draws, embeddings: torch.Tensor, training_pe
     with probability `perturb_prob` (`anneal_perturb_embedding`,
     `:105-128`). Draws, in order: a uniform for the std, a normal of the
     embeddings' shape (axis 0 the batch's), a uniform against
-    `perturb_prob`. The std and the norms are the global batch's under data
+    `perturb_prob`. The two uniforms stay on the embeddings' device (the std
+    and the decision in fp64 there, as on the host), so no draw reads the
+    device back. The std and the norms are the global batch's under data
     parallelism (`parallel.collectives`)."""
     if end_std_range is not None:
         lo = anneal_value(training_percent, 1.0, (begin_std_range[0], end_std_range[0]))
         hi = anneal_value(training_percent, 1.0, (begin_std_range[1], end_std_range[1]))
     else:
         lo, hi = begin_std_range
-    std = lo + (hi - lo) * draws.uniform()
-    noise = draws.normal(embeddings.shape, embeddings.device, batch_axis=0).to(embeddings.dtype)
-    apply = draws.uniform() < perturb_prob
-    noise_std = std * (to_local(gstd(embeddings)) if std_is_relative else 1.0)
+    dev = embeddings.device
+    std = (lo + (hi - lo) * draws.uniforms((), dev).double()).float()
+    noise = draws.normal(embeddings.shape, dev, batch_axis=0).to(embeddings.dtype)
+    apply = draws.uniforms((), dev).double() < perturb_prob
+    noise_std = std * to_local(gstd(embeddings)) if std_is_relative else std
     out = embeddings + noise * noise_std
     if keep_norm:
         out = out * to_local(gnorm(embeddings) / (gnorm(out) + 1e-8))
-    return out if apply else embeddings
+    return torch.where(apply, out, embeddings)

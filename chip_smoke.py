@@ -303,7 +303,19 @@ be there with finite numbers, and one more step of each, profiled, must
 launch the UNet's flash forward and backward and GroupNorm forward and
 backward kernels (the recon steps the D 512 flash and its backward too):
 their launches go into the kernels line by path, and each step's device
-busy ms beside its host median into its "checks".
+busy ms beside its host median into its "checks". The recon iteration in
+two phases through the pipelined runner (`pipelined`,
+`recon_train_step_throughput_pipelined`) runs beside the inline recon
+metric under both detectors, and one more step of each metric runs in
+CUDA's sync debug mode: the host syncs it makes, by calling line.
+
+After finetuning, `train_overlap` runs `Trainer.fit` with
+`overlap_recon_collect` at `configs/finetune-unet.yaml` (lr 0, the
+central-face detector, OVERLAP_MICRO_STEPS micro-steps through the
+two-phase step and the pipelined runner): every step's row in
+`metrics.csv` in order, one stream a run of one step function, the
+kernels launched, and each step's loss equal bit for bit to the
+sequential two-phase step's on the same batch and draws.
 
 The script imports only torch, numpy, the port (`adaface_tpu_torch`), the
 checkpoint writers of `tests/torch_sd_layout.py`, the port's CLI twins in
@@ -329,6 +341,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import contextmanager
 from unittest import mock
 
@@ -4096,6 +4109,112 @@ def train_finetune(gen) -> dict:
     return dict(counts=counts, want=fit_want, records=records, fit_s=fit_s, peak=peak,
                 grad_rel=grad_rel, splits=splits, busy_ms=busy_ms, wall_ms=wall_ms,
                 lookups=lookups, copies=copies)
+
+
+# from step 0 the planner draws step 5 on pure noise, and the FFN adapter's
+# draw keys a step function of its own (as in JAX): several streams
+OVERLAP_MICRO_STEPS = 6
+
+
+def train_overlap(card: str) -> dict:
+    """`Trainer.fit` with `overlap_recon_collect` at FINETUNE_CONFIG on the
+    card at full SD1.5 width (through `train_torch.build_trainer`, the
+    central-face detector injected): OVERLAP_MICRO_STEPS micro-steps through
+    the pipelined two-phase recon step, at a learning rate of 0 (the
+    `trainer.lr=0` override). Every step's row in `metrics.csv`, in order;
+    one pipelined stream a run of steps of one step function; the fit's
+    launches. Then each step again, in order, through the sequential
+    two-phase step on the batch and the draws the fit gave it: at lr 0 the
+    parameters never move, so each loss equals the fit's bit for bit."""
+    import csv
+    import tempfile
+
+    import train_torch
+    from adaface_tpu_torch.ops import _build
+    from adaface_tpu_torch.train import trainer as T
+    from adaface_tpu_torch.train.face_detect import HostFaceDetector
+
+    with tempfile.TemporaryDirectory(prefix=".train_smoke_", dir=str(REPO)) as tmp:
+        data = write_train_photos(os.path.join(tmp, "photos"))
+        cfg, args = train_torch.parse_args([
+            "trainer.overlap_recon_collect=true", "trainer.lr=0", "trainer.ckpt_every=0",
+            "--base", str(REPO / FINETUNE_CONFIG), "--data_roots", data, "--log_dir",
+            os.path.join(tmp, "logs"), "--max_steps", str(OVERLAP_MICRO_STEPS)])
+        t0 = time.perf_counter()
+        trainer, dataset, start = train_torch.build_trainer(cfg, args)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        trainer.host_detector = HostFaceDetector(detector_fn=central_face)
+        if not trainer.cfg.overlap_recon_collect or trainer.cfg.lr != 0:
+            raise AssertionError("train_overlap: the overrides did not reach the trainer")
+        seen, runners = [], []
+        post, sample = trainer._post_step, trainer._log_sample
+
+        def watch(step, f, metrics):
+            seen.append(dict(step=step, flags=f, loss=metrics["loss"].item(),
+                             t=time.perf_counter()))
+            post(step, f, metrics)
+
+        def keep_batch(step, f, batch):
+            seen[-1]["batch"] = batch
+            sample(step, f, batch)
+
+        make_runner = T.make_pipelined_recon_runner
+
+        def counting(fn):
+            runners.append(fn)
+            return make_runner(fn)
+
+        trainer._post_step, trainer._log_sample = watch, keep_batch
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(T, "make_pipelined_recon_runner", counting):
+            trainer.fit(dataset, num_steps=args.max_steps, start_step=start)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = launch_counts()
+        with open(os.path.join(args.log_dir, "metrics.csv")) as f:
+            rows = [int(r["step"]) for r in csv.DictReader(f)]
+        # the recon step function's key (`Trainer._get_step`): a new one flushes the stream
+        keys = [(r["flags"].normal_recon_on_pure_noise, r["flags"].do_adv_attack,
+                 r["flags"].recon_ffn_adapter) for r in seen]
+        streams = 1 + sum(a != b for a, b in zip(keys, keys[1:]))
+        gaps = [b["t"] - a["t"] for a, b in zip(seen, seen[1:])]
+        log(f"train_overlap: the stack in {build_s:.1f} s; {len(seen)} micro-steps pipelined in "
+            f"{fit_s:.2f} s (first batch's preparation included), between micro-steps "
+            f"{', '.join(f'{g:.3f}' for g in gaps)} s; {len(runners)} pipelined streams (step "
+            f"keys (pure noise, adversarial, FFN adapter) {keys}); "
+            f"metrics.csv steps {rows}; launches {dict(sorted(counts.items()))}")
+        want_steps = list(range(start, start + OVERLAP_MICRO_STEPS))
+        if [r["step"] for r in seen] != want_steps or rows != want_steps \
+                or {r["flags"].iter_type for r in seen} != {"recon"} \
+                or len(runners) != streams or not all(math.isfinite(r["loss"]) for r in seen):
+            raise AssertionError(f"train_overlap: steps {[r['step'] for r in seen]}, rows {rows}, "
+                                 f"streams {len(runners)} of {streams}")
+        missing = [k for k in BENCH_TRAIN_KERNELS + BENCH_TRAIN_DECODE_KERNELS
+                   if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"train_overlap: kernels not launched in the fit: {missing}")
+
+        # the sequential two-phase steps on the same batches and draws
+        seq, t0 = [], time.perf_counter()
+        for r in seen:
+            _, metrics = trainer._get_step(r["flags"])(trainer.state, r["batch"],
+                                                       trainer.draws_for(r["flags"], loss=True))
+            seq.append(metrics["loss"].item())
+        seq_s = time.perf_counter() - t0
+        pipe = [r["loss"] for r in seen]
+        equal = [a == b for a, b in zip(seq, pipe)]
+        log(f"train_overlap [{card}]: at lr 0 the pipelined losses "
+            f"{', '.join(f'{x:.9e}' for x in pipe)} "
+            f"against the sequential two-phase steps' {', '.join(f'{x:.9e}' for x in seq)}: "
+            f"equal bit for bit {equal}; the sequential steps {seq_s:.2f} s "
+            f"({seq_s / len(seq):.3f} s a micro-step, synced)")
+        if not all(equal):
+            raise AssertionError("train_overlap: the pipelined losses differ from the sequential")
+    return dict(counts=counts, fit_s=fit_s, seq_s=seq_s, build_s=build_s, gaps=gaps,
+                streams=len(runners), losses=[r["loss"] for r in seen])
 
 
 STAGE2_CONFIG = "configs/stage2-comp-distill.yaml"
@@ -8367,17 +8486,41 @@ BENCH_TRAIN_DECODE_KERNELS = ("flash_attn_fwd[bf16 wide]", "flash_bwd_delta[d512
                               "flash_bwd_dkdv[d512]", "flash_bwd_dq[d512]")
 
 
+def count_syncs(fn) -> tuple[int, dict]:
+    """fn() with `torch.cuda.set_sync_debug_mode("warn")` → the operations
+    that made the host wait for the device (a read of a value, a pageable
+    copy to the card, a synchronize), counted from their warnings, and
+    their count by the Python line that called each (file:line, relative to
+    the repository where it lies there)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter()
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            path = pathlib.Path(w.filename)
+            where = path.relative_to(REPO) if path.is_relative_to(REPO) else path.name
+            sites[f"{where}:{w.lineno}"] += 1
+    return sum(sites.values()), dict(sites.most_common())
+
+
 def bench_train(card: str) -> dict:
     """`scripts/bench_train_torch.py`'s mode `all` in-process at full width
     (BENCH_TRAIN_ITERS timed steps a metric), its lines parsed: each of its
-    three metrics there with finite numbers. After each metric's timed steps,
-    one more step under torch.profiler with the launch counts set to 0
+    four metrics there with finite numbers. After each metric's timed steps,
+    one more step (the pipelined metric: one more push, which trains the
+    step before it) under torch.profiler with the launch counts set to 0
     before it and read after it: its launches and its device busy ms (the
     sum of its device events), beside the timed steps' median on the host
-    clock. Then the recon metric again with a detector of one central face
-    (`central_face`), so the identity losses' gates open. Every step
-    launched each of BENCH_TRAIN_KERNELS, the recon steps
-    BENCH_TRAIN_DECODE_KERNELS too."""
+    clock; and one more with the host's syncs counted (`count_syncs`, the
+    loss's read included). Then the recon and pipelined metrics again with a
+    detector of one central face (`central_face`), so the identity losses'
+    gates open. Every step launched each of BENCH_TRAIN_KERNELS, the recon
+    and pipelined steps BENCH_TRAIN_DECODE_KERNELS too."""
     from torch.profiler import ProfilerActivity, profile
 
     from adaface_tpu_torch.ops import _build
@@ -8398,8 +8541,11 @@ def bench_train(card: str) -> dict:
             run_step()  # ends in a host read of the loss
             torch.cuda.synchronize()
         events = device_events(prof)
-        observed[label[0] + metric] = dict(counts=launch_counts(), ops=len(events),
-                                           busy_ms=sum(e.us for e in events) / 1e3)
+        counts = launch_counts()
+        syncs, sites = count_syncs(run_step)
+        observed[label[0] + metric] = dict(counts=counts, ops=len(events),
+                                           busy_ms=sum(e.us for e in events) / 1e3,
+                                           syncs=syncs, sync_sites=sites)
 
     w = bt.card_workload()
     out = io.StringIO()
@@ -8408,27 +8554,35 @@ def bench_train(card: str) -> dict:
     lines = {ln["metric"]: ln for ln in (json.loads(s) for s in out.getvalue().splitlines()
                                          if s.startswith("{"))}
     label[0] = "central face "
-    lines[label[0] + bt.METRICS[0]] = bt.phase_recon(
-        w, observe=observe, detector=HostFaceDetector(detector_fn=central_face))
+    recon_metrics = bt.METRICS[:2]  # recon inline, recon pipelined
+    for phase, metric in zip((bt.phase_recon, bt.phase_pipelined), recon_metrics):
+        lines[label[0] + metric] = phase(w, observe=observe,
+                                         detector=HostFaceDetector(detector_fn=central_face))
     bad = []
     for name, line in lines.items():
         o = observed[name]
-        o["host_ms"] = line["train_spread"]["median"] * 1e3
-        numbers = [line["value"], *line["train_spread"].values(), *line["device_ms"].values(),
+        spread = line.get("train_spread") or line["cycle_spread"]
+        o["host_ms"] = spread["median"] * 1e3
+        numbers = [line["value"], *spread.values(), *line["device_ms"].values(),
                    *(line[k] for k in ("train_sec", "collect_sec", "detect_sec") if k in line)]
         want = BENCH_TRAIN_KERNELS + (BENCH_TRAIN_DECODE_KERNELS
-                                      if name.endswith(bt.METRICS[0]) else ())
+                                      if name.endswith(recon_metrics) else ())
         missing = [k for k in want if not o["counts"].get(k)]
         log(f"bench_train {name}: {json.dumps(line)}")
         log(f"bench_train {name}: a step {o['host_ms']:.1f} ms on the host clock (the timed "
             f"median), device busy {o['busy_ms']:.1f} ms in {o['ops']} operations under the "
-            f"profiler ({o['busy_ms'] / o['host_ms']:.1%}); launches {o['counts']} ({card})")
+            f"profiler ({o['busy_ms'] / o['host_ms']:.1%}); host syncs in one step {o['syncs']} "
+            f"(the loss's read included; by calling line {o['sync_sites']}); launches {o['counts']} ({card})")
         if missing or not all(math.isfinite(x) and x >= 0 for x in numbers) or line["value"] <= 0:
             bad.append((name, missing))
-    if sorted(lines) != sorted(list(bt.METRICS) + [label[0] + bt.METRICS[0]]) or bad:
+    if sorted(lines) != sorted(list(bt.METRICS) + [label[0] + m for m in recon_metrics]) or bad:
         raise AssertionError(f"bench_train: metrics {sorted(lines)}, failing {bad}")
-    if lines[label[0] + bt.METRICS[0]]["detector"] != "detector_fn":
+    if any(lines[label[0] + m]["detector"] != "detector_fn" for m in recon_metrics):
         raise AssertionError("bench_train: the central-face detector was not used")
+    for prefix in ("", label[0]):
+        inline, piped = (lines[prefix + m]["value"] for m in recon_metrics)
+        log(f"bench_train {prefix}pipelined against inline recon: {piped:.4f} / {inline:.4f} "
+            f"steps/sec ({piped / inline:.3f}x; {card})")
     return dict(lines=lines, observed=observed)
 
 
@@ -8500,6 +8654,8 @@ def main() -> int:
     sync_bn = timed_phase("check_sync_bn", check_sync_bn, card, dp["sync_bn_ranks"])
     finetune = timed_phase("train_finetune", train_finetune, gen)
     release()
+    overlap = timed_phase("train_overlap", train_overlap, card)
+    release()
     stage2 = timed_phase("train_stage2", train_stage2, gen)
     release()
     recipes = timed_phase("train_stage2_recipes", train_stage2_recipes, gen, card)
@@ -8531,6 +8687,8 @@ def main() -> int:
              "ensemble": trained["ensemble_counts"],
              "stage-1 fit": stage1["counts"], "stage-1 joint fit": joint_fit["counts"],
              "finetune fit": finetune["counts"],
+             f"finetune fit, overlap_recon_collect, {OVERLAP_MICRO_STEPS} micro-steps":
+                 overlap["counts"],
              "stage-2 fit": stage2["counts"], "stage-2 recipes fit": recipes["counts"],
              "mkv request": recipes["served"]["counts"],
              **{f"speed mode {name}": r["counts"] for name, r in speed["modes"].items()
@@ -8577,8 +8735,11 @@ def main() -> int:
                         "bench_train": {name: dict(
                             value=line["value"], device_ms=line["device_ms"]["median"],
                             busy_ms=bench["observed"][name]["busy_ms"],
-                            host_ms=bench["observed"][name]["host_ms"])
-                            for name, line in bench["lines"].items()}}
+                            host_ms=bench["observed"][name]["host_ms"],
+                            host_syncs=bench["observed"][name]["syncs"])
+                            for name, line in bench["lines"].items()},
+                        "train_overlap": {k: overlap[k] for k in (
+                            "fit_s", "seq_s", "gaps", "streams", "losses")}}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,9 +46,10 @@ from tests.test_torch_recon import RECON_UNET_KW, SmoothTower
 REPO = pathlib.Path(__file__).resolve().parents[1]
 JAX_SCRIPT = REPO / "scripts" / "bench_train.py"
 TWIN = REPO / "scripts" / "bench_train_torch.py"
-# the JAX script's four metrics that the twin prints
-PORTED = ("recon_train_step_throughput", "unet_distill_step_throughput",
-          "comp_distill_step_throughput", "recon_train_step_throughput_legacy_single_step")
+# the JAX script's five metrics that the twin prints
+PORTED = ("recon_train_step_throughput", "recon_train_step_throughput_pipelined",
+          "unet_distill_step_throughput", "comp_distill_step_throughput",
+          "recon_train_step_throughput_legacy_single_step")
 # what the twin's lines add to the JAX keys: the time between CUDA events of
 # each timed step, the card's name and power limit, the detector's backend
 ADDED = {"device_ms", "card", "detector"}
@@ -118,8 +119,21 @@ def run(tmp_path_factory):
     bt = load_twin()
     calls = collections.Counter()
     keys = collections.defaultdict(list)
-    detectors = []
+    detectors, runners = [], []
     real_step, real_recon = bt.make_train_step, trecon.make_recon_loss_fn
+    real_runner = trecon.make_pipelined_recon_runner
+
+    class CountingRunner(trecon.PipelinedReconRunner):
+        def __init__(self, two):
+            super().__init__(two)
+            self.pushes = self.steps = 0
+            runners.append(self)
+
+        def push(self, *a):
+            self.pushes += 1
+            out = super().push(*a)
+            self.steps += out is not None
+            return out
 
     def counting_step(loss_fn, frozen, schedule, cfg, mesh=None):
         inner = real_step(loss_fn, frozen, schedule, cfg, mesh=mesh)
@@ -146,6 +160,7 @@ def run(tmp_path_factory):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(bt, "make_train_step", counting_step)
             mp.setattr(trecon, "make_recon_loss_fn", recording_recon)
+            mp.setattr(trecon, "make_pipelined_recon_runner", CountingRunner)
             mp.setattr(bt, "ITERS", ITERS)
             mp.setattr(bt, "BATCH", BATCH)
             mp.setattr(bt, "CHAINED_K", CHAINED_K)
@@ -160,9 +175,10 @@ def run(tmp_path_factory):
     finally:
         torch.set_num_threads(threads)
     lines = [json.loads(s) for s in buf.getvalue().splitlines() if s.startswith("{")]
+    assert real_runner is trecon.make_pipelined_recon_runner
     return dict(bt=bt, lines={ln["metric"]: ln for ln in lines}, n_lines=len(lines),
-                calls=calls, keys=keys, detectors=detectors, record=json.loads(out.read_text()),
-                docs=(before, docs_digest()))
+                calls=calls, keys=keys, detectors=detectors, runners=runners,
+                record=json.loads(out.read_text()), docs=(before, docs_digest()))
 
 
 def finite_numbers(x) -> bool:
@@ -273,6 +289,19 @@ def test_timed_step_is_make_train_step(run):
     assert lines["recon_train_step_throughput"]["chained_k"] == CHAINED_K
 
 
+def test_pipelined_pushes_through_the_runner(run):
+    """The pipelined rate comes from one `make_pipelined_recon_runner`
+    stream: two pushes to fill it and one to warm it, then a push a timed
+    cycle (stalls resampled), each returning a trained step but the first;
+    its detector is the recon phase's backend."""
+    (runner,) = run["runners"]
+    line = run["lines"]["recon_train_step_throughput_pipelined"]
+    assert line["cycle_spread"]["n"] == ITERS
+    assert runner.pushes >= 3 + ITERS and runner.steps == runner.pushes - 1
+    assert runner._pending is None  # closed: the last collect left untrained
+    assert line["detector"] == run["lines"]["recon_train_step_throughput"]["detector"]
+
+
 def test_chained_k():
     """The twin chains as many steps as the JAX script's `_chained_rate`
     (its default k) and splits recon over a few more."""
@@ -310,12 +339,12 @@ def test_writes_only_where_asked(run):
 
 @pytest.mark.parametrize("mode", ["pipelined", "all"])
 def test_exits_non_zero(mode):
-    """`pipelined` is not ported and says why; any other mode without a
-    card exits before building (no fallback to the CPU)."""
+    """Without a card every mode, `pipelined` among them, exits before
+    building (no fallback to the CPU)."""
     before = docs_digest()
     r = subprocess.run([sys.executable, str(TWIN), mode], capture_output=True, text=True,
                        timeout=120, cwd=REPO)
     assert r.returncode != 0
-    assert ("not ported" if mode == "pipelined" else "no CUDA device") in r.stderr
+    assert "no CUDA device" in r.stderr
     assert not any(s.startswith("{") for s in r.stdout.splitlines())
     assert docs_digest() == before

@@ -39,8 +39,10 @@ from tests.test_torch_models import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 # JAX's fields the port lacks by design (`train/trainer.py`'s docstring)
-NOT_PORTED = {"use_wandb", "unet_lr_scale", "overlap_recon_collect"}
-RECON_NOT_PORTED = {"collect_px_size", "ffn_adapter", "vae_cfg"}
+NOT_PORTED = {"use_wandb", "unet_lr_scale"}
+# `ffn_adapter` is inert in JAX's recon (`recon_step.py:229`); the port's VAE
+# module carries its config
+RECON_NOT_PORTED = {"ffn_adapter", "vae_cfg"}
 PLAN_STEPS = 40
 
 
@@ -164,7 +166,8 @@ def test_sample_every_writes_previews_as_jax(tmp_path):
 def test_cli_prints_every_dropped_trainer_key(capsys):
     """A `trainer:` section with every JAX field and one no package has:
     each key the port drops is printed, the two JAX ignores as well on a
-    line of their own, and no key the port takes."""
+    line of their own, and no key the port takes (`overlap_recon_collect`
+    among them: it is taken, set on or off)."""
     import train_torch
 
     jf = fields(jtrainer.TrainerConfig)
@@ -178,9 +181,12 @@ def test_cli_prints_every_dropped_trainer_key(capsys):
     dropped = [line for line in out.splitlines() if "does not take" in line]
     assert len(ignored) == len(dropped) == 1
     assert all(k in ignored[0] for k in ("use_wandb", "unet_lr_scale"))
-    assert all(k in dropped[0] for k in ("overlap_recon_collect", "not_a_field"))
+    assert "not_a_field" in dropped[0] and "overlap_recon_collect" not in dropped[0]
     for name in fields(ttrainer.TrainerConfig):
         assert f"'{name}'" not in out, name
+    assert tcfg.overlap_recon_collect is False
+    on = train_torch.trainer_config({"trainer": dict(section, overlap_recon_collect=True)}, args)
+    assert on.overlap_recon_collect is True and "overlap" not in capsys.readouterr().out
     assert tcfg.fixed_comp_priming_steps is None and tcfg.sample_every == 0
     # the YAML reader the CLI uses gives the soak config's keys their types
     soak = tconfig.load(str(REPO / "configs" / "soak-stage2-tpu.yaml"))["trainer"]
